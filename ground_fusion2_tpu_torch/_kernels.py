@@ -1,0 +1,93 @@
+"""Build, load and count the hand-written CUDA kernels of ``csrc/``.
+
+At first use ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
+compiles every ``csrc/*.cu`` into one shared library under
+``<repo>/build/ground_fusion2_tpu_torch/``; the plain C entry points are
+bound with ``ctypes``. Each entry point launches on the stream it is given
+and returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
+
+``launches`` counts kernel launches per wrapper: a wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that its main path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "ground_fusion2_tpu_torch"
+LIB_PATH = BUILD_DIR / "libgf2_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+launches: collections.Counter = collections.Counter()
+build_seconds: float | None = None
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
+    "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
+    "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 4,
+}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def build(force: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the shared library (skipped when the
+    library is newer than every source)."""
+    global build_seconds
+    sources = sorted(CSRC.glob("*.cu"))
+    headers = sorted(CSRC.glob("*.cuh"))
+    newest = max(p.stat().st_mtime for p in sources + headers)
+    if (not force and LIB_PATH.exists()
+            and LIB_PATH.stat().st_mtime >= newest):
+        return LIB_PATH
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, LIB_PATH)
+    build_seconds = time.perf_counter() - t0
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def count(name: str) -> None:
+    launches[name] += 1

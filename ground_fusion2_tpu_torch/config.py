@@ -1,0 +1,145 @@
+"""Configuration mirrors of the JAX package's ``VioConfig``,
+``EstimatorConfig`` and ``TrackerConfig`` (``config/loader.py`` imports JAX
+modules, so the port carries its own), and the M3DGR camera configuration.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+
+from .sensors.imu_preint import ImuNoise
+from .sensors.wheel_preint import WheelNoise
+
+
+class VioConfig(NamedTuple):
+    num_feats: int = 150
+    proj_sqrt_info: float = 460.0 / 1.5
+    huber_delta: float = 1.0
+    max_iters: int = 8
+    use_wheel: bool = False
+    use_plane: bool = False
+    plane_weight: float = 10.0
+    use_stereo: bool = False
+    use_motion: bool = False
+    motion_weight: float = 5.0
+    posvel_weight: float = 10.0
+    estimate_extrinsic: bool = False
+    extrinsic_type: int = 0
+    estimate_td: bool = False
+    estimate_wheel_intrinsic: bool = False
+    estimate_wheel_extrinsic: bool = False
+    wheel_extrinsic_type: int = 3
+    use_gnss: bool = False
+    refine_gnss_alignment: bool = False
+    refine_gnss_yaw: bool = False
+    g_norm: float = 9.81
+
+
+@dataclass
+class EstimatorConfig:
+    num_feats: int = 96
+    vio: VioConfig = None
+    imu_noise: ImuNoise = field(default_factory=ImuNoise)
+    wheel_noise: WheelNoise = field(default_factory=WheelNoise)
+    min_parallax: float = 10.0 / 460.0
+    min_tracked: int = 20
+    wheel_anomaly_thresh: float = 0.02
+    static_acc_var: float = 0.35
+    stationary_dp: float = 0.01
+    stationary_parallax: float = 0.5 / 460.0
+    stationary_imu_var: float = 0.05
+    min_tracked_reboot: int = 8
+    allow_reboot: bool = True
+    use_wheel: bool = False
+    use_gnss: bool = False
+    outlier_px: float = 6.0
+    focal: float = 460.0
+    g_norm: float = 9.81
+
+    def __post_init__(self):
+        if self.vio is None:
+            self.vio = VioConfig(num_feats=self.num_feats,
+                                 use_wheel=self.use_wheel,
+                                 use_gnss=self.use_gnss, g_norm=self.g_norm)
+
+
+@dataclass
+class TrackerConfig:
+    num_slots: int = 96
+    levels: int = 4
+    half_patch: int = 10
+    iters: int = 10
+    fb_thresh: float = 0.8
+    cell: int = 30
+    min_response: float = 1e-4
+    depth_range: tuple = (0.1, 7.0)
+    equalize: bool = False
+    use_ransac: bool = False
+    f_thresh_px: float = 1.0
+    focal: float = 460.0
+
+
+class CameraConfig(NamedTuple):
+    """One camera rig: estimator + tracker settings, intrinsics and the
+    body←camera / body←wheel extrinsics."""
+
+    estimator: EstimatorConfig
+    tracker: TrackerConfig
+    intrinsics: tuple          # (fx, fy, cx, cy)
+    width: int
+    height: int
+    tic: np.ndarray
+    ric: np.ndarray
+    tio: np.ndarray
+    rio: np.ndarray
+
+
+def m3dgr_camera() -> CameraConfig:
+    """The values of ``configs/m3dgr.yaml`` for the VIO path (RGB-D + IMU +
+    wheel, GNSS off, LiDAR off): 640×480 pinhole with the M3DGR intrinsics,
+    ``max_cnt`` 150 (F = 150, D = 396), CLAHE on, F-RANSAC at 1 px, 8 LM
+    iterations, wheel + plane + motion factors, the M3DGR IMU and wheel
+    noise and ``g_norm`` 9.7944.
+
+    One deviation: ``depth_range`` is (0.1, 20.0) instead of the YAML's
+    (0.1, 3.0), as ``bench.py`` uses, because the synthetic room is deeper
+    than 3 m.
+    """
+    fx, fy = 607.79772949218, 607.83526611328
+    cx, cy = 328.79772949218, 245.53321838378
+    g_norm = 9.7944
+    F = 150
+    vio = VioConfig(num_feats=F, proj_sqrt_info=fx / 1.5, max_iters=8,
+                    use_wheel=True, use_gnss=False, use_plane=True,
+                    use_motion=True, estimate_extrinsic=False,
+                    extrinsic_type=3, estimate_td=False,
+                    estimate_wheel_intrinsic=False,
+                    estimate_wheel_extrinsic=False, wheel_extrinsic_type=3,
+                    g_norm=g_norm)
+    est = EstimatorConfig(
+        num_feats=F, vio=vio,
+        imu_noise=ImuNoise(acc_n=1.2374091609523514e-02,
+                           gyr_n=3.0032654435730201e-03,
+                           acc_w=1.9218003442176448e-04,
+                           gyr_w=5.4692100664858005e-05),
+        wheel_noise=WheelNoise(vel_n=0.01, gyr_n=0.004),
+        min_parallax=10.0 / fx, use_wheel=True, use_gnss=False,
+        g_norm=g_norm)
+    trk = TrackerConfig(num_slots=F, depth_range=(0.1, 20.0), equalize=True,
+                        use_ransac=True, f_thresh_px=1.0, focal=fx)
+    ric = np.array([[0.99957087, 0.00215313, 0.02921355],
+                    [-0.00192891, 0.99996848, -0.00770122],
+                    [-0.02922921, 0.00764156, 0.99954353]])
+    tic = np.array([0.03668114, -0.00477653, 0.0316039])
+    rio = np.array([
+        [0.042873564019253907, -0.99906999607154057, 0.0045826256555663858],
+        [0.023548883729155812, -0.0035750257528033291, -0.99971629438855181],
+        [0.99880293731215963, 0.042969316267296165, 0.023373709079293481]])
+    tio = np.array([1.0000278019634017, 0.00477569625897234,
+                    0.20902387796334685])
+    return CameraConfig(estimator=est, tracker=trk,
+                        intrinsics=(fx, fy, cx, cy), width=640, height=480,
+                        tic=tic, ric=ric, tio=tio, rio=rio)

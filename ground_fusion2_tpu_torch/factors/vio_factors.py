@@ -1,0 +1,211 @@
+"""Residual blocks of the sliding-window VIO problem (port of
+``ground_fusion2_tpu/factors/vio_factors.py``) and the projection block's
+normal equations, which run as hand-written CUDA kernel C on the card.
+
+Each factor maps the window state plus fixed-shape measurements to
+(residuals, weights) already scaled by sqrt-information.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from .. import _kernels
+from ..core import lie, robust
+from ..sensors.imu_preint import ImuPreint, bias_corrected
+from ..sensors.wheel_preint import WheelPreint, intrinsic_corrected
+from ..vio.state import WindowLayout, WindowState
+
+
+class FeatureTable(NamedTuple):
+    ray: torch.Tensor          # [F, W, 2]
+    vel: torch.Tensor          # [F, W, 2]
+    obs_valid: torch.Tensor    # [F, W]
+    anchor: torch.Tensor       # [F] int64
+    track_valid: torch.Tensor  # [F]
+    depth_fixed: torch.Tensor  # [F]
+
+
+def _gather_frame(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """arr [F, W, ...], idx [F] -> [F, ...]."""
+    F = arr.shape[0]
+    return arr[torch.arange(F, device=arr.device), idx]
+
+
+def projection_residuals(x: WindowState, feats: FeatureTable,
+                         sqrt_info: float, huber_delta: float = 1.0,
+                         min_depth: float = 0.05):
+    """Anchor→frame reprojection residuals: r [F, W, 2], w [F, W, 2]."""
+    F, W, _ = feats.ray.shape
+    dtype = feats.ray.dtype
+    ray_td = feats.ray - x.td * feats.vel
+    anchor = feats.anchor
+    ray_i = _gather_frame(ray_td, anchor)
+    pt_i = torch.cat([ray_i, torch.ones((F, 1), dtype=dtype,
+                                        device=ray_i.device)], -1)
+    p_ci = pt_i * (1.0 / torch.clamp(x.rho, min=1e-3))[:, None]
+    p_imu_i = lie.quat_rotate(x.qic[None], p_ci) + x.tic[None]
+    p_w = lie.quat_rotate(x.q[anchor], p_imu_i) + x.p[anchor]
+    p_imu_j = lie.quat_rotate(lie.quat_conj(x.q)[None],
+                              p_w[:, None] - x.p[None])
+    p_cj = lie.quat_rotate(lie.quat_conj(x.qic)[None, None],
+                           p_imu_j - x.tic[None, None])
+    z = p_cj[..., 2]
+    z_safe = torch.where(torch.abs(z) > min_depth, z,
+                         torch.full_like(z, min_depth))
+    pred = p_cj[..., :2] / z_safe[..., None]
+    r = (pred - ray_td) * sqrt_info
+    not_anchor = (torch.arange(W, device=anchor.device)[None, :]
+                  != anchor[:, None])
+    w = (feats.obs_valid * not_anchor.to(dtype)
+         * feats.track_valid[:, None] * (z > min_depth).to(dtype))
+    w = w * robust.huber_weight(torch.sum(r * r, -1), huber_delta)
+    return r, w[..., None].expand(F, W, 2)
+
+
+def projection_normal_equations(x0: WindowState, delta: torch.Tensor,
+                                feats: FeatureTable, layout: WindowLayout,
+                                sqrt_info: float, huber_delta: float = 1.0):
+    """(H [D, D], g [D], cost []) of the projection block linearized at
+    ``retract(x0, delta)``, with the Huber weight held constant in J.
+
+    Kernel C on the card (one warp per observation, forward-mode duals
+    over the ≤ 20 tangent columns it touches, atomics into dense H and g);
+    the plain version on the CPU."""
+    if delta.is_cuda:
+        return _projection_normal_equations_cuda(
+            x0, delta, feats, layout, sqrt_info, huber_delta)
+    return projection_normal_equations_plain(
+        x0, delta, feats, layout, sqrt_info, huber_delta)
+
+
+def projection_normal_equations_plain(x0, delta, feats, layout, sqrt_info,
+                                      huber_delta=1.0):
+    """Dense ``torch.func.jacfwd`` over the whole tangent, as the JAX
+    ``normal_equations`` does (``solver/gauss_newton.py:43-58``)."""
+    def res(d):
+        return projection_residuals(layout.retract(x0, d), feats, sqrt_info,
+                                    huber_delta)[0].reshape(-1)
+
+    r, w = projection_residuals(layout.retract(x0, delta), feats, sqrt_info,
+                                huber_delta)
+    r, w = r.reshape(-1), w.reshape(-1)
+    J = torch.func.jacfwd(res)(delta)
+    Jw = J * w[:, None]
+    rw = r * w
+    return Jw.T @ Jw, Jw.T @ rw, 0.5 * torch.sum(rw * rw)
+
+
+def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
+                                      huber_delta, min_depth: float = 0.05):
+    lib = _kernels.library()
+    F, W, _ = feats.ray.shape
+    D = layout.dim
+    dev = delta.device
+    if (layout.F, layout.W, tuple(delta.shape)) != (F, W, (D,)):
+        raise ValueError("proj_normal kernel: feature table, layout and "
+                         "delta disagree in shape")
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    ins = [f32(x0.p), f32(x0.q), f32(x0.tic), f32(x0.qic), f32(x0.td),
+           f32(x0.rho), f32(delta), f32(feats.ray), f32(feats.vel),
+           f32(feats.obs_valid),
+           feats.anchor.to(device=dev, dtype=torch.int32).contiguous(),
+           f32(feats.track_valid)]
+    H = torch.zeros((D, D), dtype=torch.float32, device=dev)
+    g = torch.zeros((D,), dtype=torch.float32, device=dev)
+    cost = torch.zeros((1,), dtype=torch.float32, device=dev)
+    err = lib.gf2_proj_normal(
+        *[ctypes.c_void_p(t.data_ptr()) for t in ins],
+        F, W, D, layout.pose_off, layout.cam_off, layout.td_off,
+        layout.rho_off, ctypes.c_float(sqrt_info),
+        ctypes.c_float(huber_delta), ctypes.c_float(min_depth),
+        ctypes.c_void_p(H.data_ptr()), ctypes.c_void_p(g.data_ptr()),
+        ctypes.c_void_p(cost.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_proj_normal")
+    _kernels.count("proj_normal")
+    return H, g, cost[0]
+
+
+def imu_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
+    """S with SᵀS = cov⁻¹: S = L⁻¹ for cov + 1e-10 I = L Lᵀ."""
+    n = cov.shape[-1]
+    eye = torch.eye(n, dtype=cov.dtype, device=cov.device)
+    L, _ = torch.linalg.cholesky_ex(cov + eye * 1e-10)
+    return torch.linalg.solve_triangular(L, eye.expand(cov.shape), upper=False)
+
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def imu_residuals(x: WindowState, pre: ImuPreint, sqrt_info, g_world, valid):
+    """15-dim preintegration residual between consecutive frames."""
+    p_i, q_i, v_i = x.p[:-1], x.q[:-1], x.v[:-1]
+    p_j, q_j, v_j = x.p[1:], x.q[1:], x.v[1:]
+    dt = pre.sum_dt[:, None]
+    dp_c, dq_c, dv_c = bias_corrected(pre, x.ba[:-1], x.bg[:-1])
+    qi_inv = lie.quat_conj(q_i)
+    r_p = lie.quat_rotate(
+        qi_inv, p_j - p_i - v_i * dt - 0.5 * g_world[None] * dt * dt) - dp_c
+    r_th = lie.quat_boxminus(lie.quat_mul(qi_inv, q_j), dq_c)
+    r_v = lie.quat_rotate(qi_inv, v_j - v_i - g_world[None] * dt) - dv_c
+    r = torch.cat([r_p, r_th, r_v, x.ba[1:] - x.ba[:-1],
+                   x.bg[1:] - x.bg[:-1]], -1)
+    r = _mv(sqrt_info, r)
+    return r, valid[:, None].to(r.dtype).expand(r.shape)
+
+
+def wheel_residuals(x: WindowState, pre: WheelPreint, sqrt_info, valid):
+    """6-dim wheel preintegration residual (td_wheel = 0)."""
+    p_i, q_i = x.p[:-1], x.q[:-1]
+    p_j, q_j = x.p[1:], x.q[1:]
+    n = p_i.shape[0]
+    dp_c, dq_c = intrinsic_corrected(pre, x.six, x.siy, x.siw)
+    dtd = torch.zeros((n, 1), dtype=p_i.dtype, device=p_i.device)
+    sv = torch.stack([x.six, x.siy, torch.ones_like(x.six)])
+    q_t0 = lie.quat_exp(x.siw * pre.gyr_begin * dtd)
+    q_t1 = lie.quat_exp(-x.siw * pre.gyr_end * dtd)
+    dq_t = lie.quat_mul(q_t0, lie.quat_mul(dq_c, q_t1))
+    dp_t = lie.quat_rotate(
+        q_t0, sv[None] * pre.vel_begin * dtd + dp_c
+        - lie.quat_rotate(dq_c, sv[None] * pre.vel_end * dtd))
+    q_wi = lie.quat_mul(q_i, x.qio[None])
+    q_wj = lie.quat_mul(q_j, x.qio[None])
+    t_wi = lie.quat_rotate(q_i, x.tio[None]) + p_i
+    t_wj = lie.quat_rotate(q_j, x.tio[None]) + p_j
+    r_p = lie.quat_rotate(lie.quat_conj(q_wi), t_wj - t_wi) - dp_t
+    r_th = lie.quat_boxminus(lie.quat_mul(lie.quat_conj(q_wi), q_wj), dq_t)
+    r = _mv(sqrt_info, torch.cat([r_p, r_th], -1))
+    return r, valid[:, None].to(r.dtype).expand(r.shape)
+
+
+def plane_residuals(x: WindowState, weight: float, valid):
+    """Planar-motion prior: (δz, δpitch, δroll) of each wheel pose vs frame 0."""
+    q_w = lie.quat_mul(x.q, x.qio[None])
+    t_w = lie.quat_rotate(x.q, x.tio[None]) + x.p
+    q0_inv = lie.quat_conj(q_w[0])
+    rel_q = lie.quat_mul(q0_inv[None], q_w[1:])
+    rel_t = lie.quat_rotate(q0_inv[None], t_w[1:] - t_w[0][None])
+    ypr = lie.mat_to_ypr(lie.quat_to_mat(rel_q))
+    r = torch.stack([rel_t[:, 2], ypr[:, 1], ypr[:, 2]], -1) * weight
+    v = torch.as_tensor(valid, dtype=r.dtype, device=r.device).expand(r.shape[0])
+    return r, v[:, None].expand(r.shape)
+
+
+def posvel_residuals(x: WindowState, frame_dt, weight: float, valid):
+    """p_{k+1} = p_k + 0.5 (v_k + v_{k+1}) dt."""
+    r = (x.p[1:] - x.p[:-1] - 0.5 * (x.v[1:] + x.v[:-1]) * frame_dt[:, None]
+         ) * weight
+    return r, valid[:, None].to(r.dtype).expand(r.shape)
+
+
+def motion_residuals(x: WindowState, weight: float, valid):
+    """Non-holonomic: wheel-frame lateral/vertical velocity ≈ 0."""
+    q_wo = lie.quat_mul(x.q, x.qio[None])
+    v_body = lie.quat_rotate(lie.quat_conj(q_wo), x.v)
+    r = v_body[:, 1:3] * weight
+    return r, valid[:, None].to(r.dtype).expand(r.shape)

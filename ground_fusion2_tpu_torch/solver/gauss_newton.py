@@ -1,0 +1,91 @@
+"""Dense masked Levenberg-Marquardt in tangent space (port of
+``ground_fusion2_tpu/solver/gauss_newton.py``, on ``torch.linalg``).
+
+The JAX solver differentiates one stacked residual function with ``jacfwd``.
+Here the caller supplies ``linearize(delta) -> (H, g, cost)`` — the window
+problem sums the projection block (kernel C) and the small factors
+(``jacfwd``) — plus ``cost_at(delta)``. Everything stays on the device: the
+accept/reject of each step is a ``torch.where``, so the loop has a fixed
+trip count and no host synchronization.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+
+class LMResult(NamedTuple):
+    delta: torch.Tensor
+    cost: torch.Tensor
+    cost0: torch.Tensor
+    H: torch.Tensor
+    g: torch.Tensor
+    lam: torch.Tensor
+    n_iters: int
+
+
+def normal_equations(residual_fn: Callable, delta: torch.Tensor):
+    """(H, g, cost) of the weighted least squares ``residual_fn(delta) ->
+    (r, w)`` with J from ``torch.func.jacfwd`` (w held constant)."""
+    r, w = residual_fn(delta)
+    J = torch.func.jacfwd(lambda d: residual_fn(d)[0])(delta)
+    Jw = J * w[:, None]
+    rw = r * w
+    return Jw.T @ Jw, Jw.T @ rw, 0.5 * torch.sum(rw * rw)
+
+
+def _solve_damped(H, g, lam, free_mask):
+    """Solve (H + lam·diag(H) + I_fixed) dx = −g, Jacobi-equilibrated
+    Cholesky; fixed dims pinned. A failed factorization gives NaN, as
+    ``jax.scipy.linalg.cho_factor`` does, so the step is rejected."""
+    fm = free_mask.to(H.dtype)
+    Hm = H * fm[:, None] * fm[None, :]
+    diag = torch.diagonal(Hm)
+    damped = Hm + torch.diag(lam * torch.clamp(diag, min=1e-8) + (1.0 - fm))
+    d = torch.sqrt(torch.clamp(torch.diagonal(damped), min=1e-12))
+    d_inv = 1.0 / d
+    Hs = damped * d_inv[:, None] * d_inv[None, :]
+    L, info = torch.linalg.cholesky_ex(Hs)
+    dx = -d_inv * torch.cholesky_solve((g * fm * d_inv)[:, None], L)[:, 0]
+    dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
+    return dx * fm
+
+
+def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
+             max_iters: int = 8, free_mask: torch.Tensor | None = None,
+             init_lambda: float = 1e-4, lambda_up: float = 10.0,
+             lambda_down: float = 0.3, device=None,
+             dtype=torch.float32) -> LMResult:
+    """LM from delta = 0: ``max_iters`` linearizations, each step accepted
+    by true-cost comparison (rejected steps raise lambda)."""
+    delta = torch.zeros((dim,), dtype=dtype, device=device)
+    if free_mask is None:
+        free_mask = torch.ones_like(delta)
+    cost0 = cost_at(delta)
+    cost = cost0
+    lam = torch.full((), init_lambda, dtype=dtype, device=device)
+    for _ in range(max_iters):
+        H, g, _ = linearize(delta)
+        new_delta = delta + _solve_damped(H, g, lam, free_mask)
+        new_cost = cost_at(new_delta)
+        accept = new_cost < cost
+        delta = torch.where(accept, new_delta, delta)
+        cost = torch.where(accept, new_cost, cost)
+        lam = torch.where(accept, torch.clamp(lam * lambda_down, min=1e-9),
+                          torch.clamp(lam * lambda_up, max=1e6))
+    H, g, _ = linearize(delta)
+    return LMResult(delta, cost, cost0, H, g, lam, max_iters)
+
+
+def schur_reduce(H, g, keep: int):
+    """Eliminate the trailing block: H' = Hkk − Hkl Hll⁻¹ Hlk,
+    g' = gk − Hkl Hll⁻¹ gl (Hll regularized by 1e-8 I)."""
+    Hkk, Hkl, Hll = H[:keep, :keep], H[:keep, keep:], H[keep:, keep:]
+    gk, gl = g[:keep], g[keep:]
+    Hll = Hll + torch.eye(Hll.shape[0], dtype=H.dtype, device=H.device) * 1e-8
+    L, _ = torch.linalg.cholesky_ex(Hll)
+    Hll_inv_Hlk = torch.cholesky_solve(Hkl.T, L)
+    Hll_inv_gl = torch.cholesky_solve(gl[:, None], L)[:, 0]
+    return Hkk - Hkl @ Hll_inv_Hlk, gk - Hkl @ Hll_inv_gl

@@ -1,0 +1,395 @@
+"""Streaming sliding-window VIO estimator for warm-up and initialization
+(port of ``ground_fusion2_tpu/vio/estimator.py``, GNSS paths excluded).
+
+:class:`~.fused.FusedVio` runs every frame through this estimator until the
+window has initialized, then takes its state into the fused carry. Raw
+IMU/wheel samples live in host buffers per window interval and are
+re-preintegrated on the device each tick at the current biases.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import EstimatorConfig
+from ..core import lie
+from ..factors.vio_factors import imu_sqrt_info
+from ..gnss.factors import GnssTable
+from ..sensors.imu_preint import ImuNoise, preintegrate, propagate_state
+from ..sensors.wheel_preint import WheelNoise, preintegrate_wheel
+from ..solver.marginalize import MargPrior
+from . import feature_window as fwin
+from .problem import (VioMeasurements, marginalize_oldest,
+                      marginalize_second_newest, solve_window)
+from .state import (NUM_FRAMES, WindowLayout, WindowState,
+                    drop_second_newest, shift_state_left)
+
+MAX_IMU_PER_INTERVAL = 128
+
+
+class VioOutput(NamedTuple):
+    t: float
+    p: np.ndarray
+    q: np.ndarray
+    v: np.ndarray
+    initialized: bool
+    is_keyframe: bool
+    stationary: bool
+    wheel_anomaly: bool
+    tracked: int
+    cost: float
+    rebooted: bool = False
+    ba: np.ndarray | None = None
+    bg: np.ndarray | None = None
+
+
+class IntervalBuffers:
+    """Host buffers of raw samples for the W-1 window intervals."""
+
+    def __init__(self, n_int: int):
+        m = MAX_IMU_PER_INTERVAL
+        self.acc = np.zeros((n_int, m + 1, 3), np.float32)
+        self.gyr = np.zeros((n_int, m + 1, 3), np.float32)
+        self.wvel = np.zeros((n_int, m + 1, 3), np.float32)
+        self.dt = np.zeros((n_int, m), np.float32)
+        self.mask = np.zeros((n_int, m), np.float32)
+
+    def set_interval(self, k, acc, gyr, wvel, dts):
+        """acc/gyr/wvel: [n+1, 3] samples (endpoints included), dts: [n]."""
+        n = min(len(dts), MAX_IMU_PER_INTERVAL)
+        for buf, src in ((self.acc, acc), (self.gyr, gyr), (self.wvel, wvel)):
+            buf[k] = 0.0
+            buf[k, : n + 1] = src[: n + 1]
+            buf[k, n + 1:] = src[n]
+        self.dt[k] = 0.0
+        self.mask[k] = 0.0
+        self.dt[k, :n] = dts[:n]
+        self.mask[k, :n] = 1.0
+
+    def shift_left(self):
+        for buf in (self.acc, self.gyr, self.wvel, self.dt, self.mask):
+            buf[:-1] = buf[1:]
+            buf[-1] = 0.0
+
+    def merge_last_two(self):
+        """SECOND_NEW slide: concat intervals [-2] and [-1] into [-2]."""
+        m = MAX_IMU_PER_INTERVAL
+        n0 = int(self.mask[-2].sum())
+        n1 = int(self.mask[-1].sum())
+        acc = np.concatenate([self.acc[-2, : n0 + 1], self.acc[-1, 1: n1 + 1]])
+        gyr = np.concatenate([self.gyr[-2, : n0 + 1], self.gyr[-1, 1: n1 + 1]])
+        wvl = np.concatenate([self.wvel[-2, : n0 + 1], self.wvel[-1, 1: n1 + 1]])
+        dts = np.concatenate([self.dt[-2, :n0], self.dt[-1, :n1]])
+        if n0 + n1 > m:   # overflow: drop the oldest samples
+            ofs = n0 + n1 - m
+            acc, gyr, wvl, dts = acc[ofs:], gyr[ofs:], wvl[ofs:], dts[ofs:]
+        self.set_interval(-2, acc, gyr, wvl, dts)
+        for buf in (self.acc, self.gyr, self.wvel, self.dt, self.mask):
+            buf[-1] = 0.0
+
+    def counts(self) -> list[int]:
+        return [int(c) for c in self.mask.sum(1)]
+
+
+def preintegrate_all(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
+                     imu_noise: ImuNoise, wheel_noise: WheelNoise, qio,
+                     n_steps: int | None = None):
+    """Re-preintegrate every window interval at the current biases. The
+    gyro channel is rotated into the wheel frame for the wheel preint."""
+    pre = preintegrate(acc, gyr, dt, ba, bg, imu_noise, mask=mask,
+                       n_steps=n_steps)
+    gyr_o = gyr @ lie.quat_to_mat(qio)
+    wpre = preintegrate_wheel(wvel, gyr_o, dt, six, siy, siw, wheel_noise,
+                              mask=mask, n_steps=n_steps)
+    return pre, wpre, imu_sqrt_info(pre.cov), imu_sqrt_info(wpre.cov)
+
+
+class VioEstimator:
+    def __init__(self, cfg: EstimatorConfig, device, tic=None, ric=None,
+                 tio=None, rio=None):
+        if cfg.use_gnss:
+            raise NotImplementedError("GNSS fusion is not ported yet")
+        self.cfg = cfg
+        self.device = device
+        F = cfg.num_feats
+        self.layout = WindowLayout(F)
+        st = WindowState.identity(F, device)
+        f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                        device=device)
+        if tic is not None:
+            st = st._replace(tic=f32(tic))
+        if ric is not None:
+            st = st._replace(qic=lie.mat_to_quat(f32(ric)))
+        if tio is not None:
+            st = st._replace(tio=f32(tio))
+        if rio is not None:
+            st = st._replace(qio=lie.mat_to_quat(f32(rio)))
+        self.state = st
+        self.fw = fwin.FeatureWindow.empty(F, device)
+        self.rho_init = torch.zeros((F,), dtype=torch.float32, device=device)
+        self.bufs = IntervalBuffers(NUM_FRAMES - 1)
+        self.imu_valid = np.zeros((NUM_FRAMES - 1,), np.float32)
+        self.wheel_valid = np.zeros((NUM_FRAMES - 1,), np.float32)
+        self.prior = MargPrior.empty(self.layout.frame_dim, device)
+        self.prior_state = self.state
+        self.frame_count = 0
+        self.initialized = False
+        self.times: list[float] = []
+        self.g_world = torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=torch.float32,
+                                    device=device)
+
+    def _t(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                               device=self.device)
+
+    # ------------------------------------------------------------------
+    def process_frame(self, t: float, obs: fwin.FrameObs, imu,
+                      wheel_vel=None) -> VioOutput:
+        """One tick. ``imu`` = (acc [n+1,3], gyr [n+1,3], dt [n]) covering
+        (t_prev, t]; ``wheel_vel`` [n+1, 3] wheel-frame velocity."""
+        cfg = self.cfg
+        W = NUM_FRAMES
+        acc, gyr, dts = imu
+        if wheel_vel is None:
+            wheel_vel = np.zeros_like(acc)
+        rebooted = False
+        if (self.initialized and cfg.allow_reboot
+                and int(obs.alive.sum().item()) < cfg.min_tracked_reboot):
+            self._reboot()
+            rebooted = True
+
+        first = self.frame_count == 0
+        if not first:
+            col = min(self.frame_count, W - 1)
+            self.bufs.set_interval(col - 1, acc, gyr, wheel_vel, dts)
+            self.imu_valid[col - 1] = 1.0
+            self.wheel_valid[col - 1] = 1.0 if cfg.use_wheel else 0.0
+        else:
+            col = 0
+
+        self.fw, rho = fwin.add_frame(self.fw, obs, col, self.state.rho)
+        self.state = self.state._replace(rho=rho)
+        self.rho_init = torch.where((obs.fresh > 0) & (obs.alive > 0),
+                                    self.fw.depth_fixed, self.rho_init)
+        self.times.append(t)
+        if first:
+            self.frame_count = 1
+            return self._output(t, 0, False, False, False, rebooted)
+
+        self._predict_frame(col)
+        is_kf, stationary, anomaly, cost = True, False, False, 0.0
+        if not self.initialized and col == W - 1:
+            self._try_initialize()
+
+        if self.initialized:
+            pre, wpre, sinfo, wsinfo = self._preints()
+            anomaly, stationary = self._detectors(pre, wpre)
+            if anomaly:
+                self.wheel_valid[col - 1] = 0.0
+            rho_new, done = fwin.triangulate(self.fw, self.state,
+                                             self.state.rho, 1.0 - self.rho_init)
+            self.state = self.state._replace(rho=rho_new)
+            self.rho_init = torch.maximum(self.rho_init, done.to(torch.float32))
+
+            fdt = np.full((W - 1,), 0.1, np.float32)
+            if len(self.times) > 1:
+                d = np.diff(np.asarray(self.times, np.float64))
+                fdt[: len(d)] = np.maximum(d[: W - 1], 1e-3)
+            meas = VioMeasurements(
+                feats=fwin.to_factor_table(self.fw),
+                imu=pre, imu_valid=self._t(self.imu_valid), imu_sqrt_info=sinfo,
+                wheel=wpre, wheel_valid=self._t(self.wheel_valid),
+                wheel_sqrt_info=wsinfo,
+                plane_valid=self._t(1.0 if cfg.vio.use_plane else 0.0),
+                stationary=self._t(1.0 if stationary else 0.0),
+                gnss=GnssTable.empty(W, self.device),
+                gnss_enabled=self._t(0.0),
+                prior=self.prior, prior_state=self.prior_state,
+                frame_dt=self._t(fdt))
+            out = solve_window(self.state, meas, self.layout, cfg.vio)
+            self.state = out.state
+            cost = float(out.cost)
+            if cfg.outlier_px > 0:
+                keep = fwin.outlier_mask(self.fw, self.state, cfg.outlier_px,
+                                         cfg.focal)
+                self.fw = self.fw._replace(track_valid=self.fw.track_valid * keep)
+            is_kf_j, _, _ = fwin.parallax_keyframe_test(
+                self.fw, cfg.min_parallax, cfg.min_tracked)
+            is_kf = bool(is_kf_j) and not stationary
+
+            if self.frame_count >= W:
+                if is_kf:
+                    self.prior = marginalize_oldest(self.state, meas,
+                                                    self.layout, cfg.vio)
+                    self.fw, rho = fwin.slide_oldest(self.fw, self.state,
+                                                     self.state.rho)
+                    self.state = shift_state_left(self.state._replace(rho=rho))
+                    self._slide_buffers_oldest()
+                else:
+                    self.prior = marginalize_second_newest(self.prior,
+                                                           self.layout)
+                    self.fw, rho = fwin.slide_second_newest(
+                        self.fw, self.state, self.state.rho)
+                    self.state = drop_second_newest(self.state._replace(rho=rho))
+                    self.bufs.merge_last_two()
+                    self.imu_valid[-2] = max(self.imu_valid[-2], self.imu_valid[-1])
+                    self.imu_valid[-1] = 0.0
+                    self.wheel_valid[-2] = min(self.wheel_valid[-2],
+                                               self.wheel_valid[-1])
+                    self.wheel_valid[-1] = 0.0
+                    self.times.pop(-2)
+                self.prior_state = self.state
+        elif col == W - 1:
+            # window full but init deferred: slide (no prior) to stay fresh
+            self.fw, rho = fwin.slide_oldest(self.fw, self.state, self.state.rho)
+            self.state = shift_state_left(self.state._replace(rho=rho))
+            self._slide_buffers_oldest()
+
+        if self.frame_count < W:
+            self.frame_count += 1
+        return self._output(t, cost, is_kf, stationary, anomaly, rebooted)
+
+    def _slide_buffers_oldest(self):
+        self.bufs.shift_left()
+        for v in (self.imu_valid, self.wheel_valid):
+            v[:-1] = v[1:]
+            v[-1] = 0.0
+        self.times.pop(0)
+
+    def _output(self, t, cost, is_kf, stationary, anomaly, rebooted=False):
+        idx = min(self.frame_count, NUM_FRAMES) - 1
+        st = self.state
+        host = lambda a: a[idx].cpu().numpy()
+        return VioOutput(
+            t=t, p=host(st.p), q=host(st.q), v=host(st.v),
+            initialized=self.initialized, is_keyframe=is_kf,
+            stationary=stationary, wheel_anomaly=anomaly,
+            tracked=int(self.fw.track_valid.sum().item()), cost=cost,
+            rebooted=rebooted, ba=host(st.ba), bg=host(st.bg))
+
+    def _reboot(self):
+        """Restart the window at the latest solved state after a visual
+        failure; features, prior and buffers are dropped."""
+        idx = min(self.frame_count, NUM_FRAMES) - 1
+        F = self.cfg.num_feats
+        st = self.state
+        keep = lambda a: a[idx][None].repeat((NUM_FRAMES,) + (1,) * (a.dim() - 1))
+        self.state = WindowState.identity(F, self.device)._replace(
+            p=keep(st.p), q=keep(st.q), v=keep(st.v), ba=keep(st.ba),
+            bg=keep(st.bg), tic=st.tic, qic=st.qic, td=st.td, tio=st.tio,
+            qio=st.qio, six=st.six, siy=st.siy, siw=st.siw)
+        self.fw = fwin.FeatureWindow.empty(F, self.device)
+        self.rho_init = torch.zeros((F,), dtype=torch.float32, device=self.device)
+        self.bufs = IntervalBuffers(NUM_FRAMES - 1)
+        self.imu_valid[:] = 0.0
+        self.wheel_valid[:] = 0.0
+        self.prior = MargPrior.empty(self.layout.frame_dim, self.device)
+        self.prior_state = self.state
+        self.frame_count = 0
+        self.times = []
+
+    def _predict_frame(self, col):
+        k = col - 1
+        st = self.state
+        p, q, v = propagate_state(
+            st.p[k], st.q[k], st.v[k], st.ba[k], st.bg[k], self.g_world,
+            self._t(self.bufs.acc[k]), self._t(self.bufs.gyr[k]),
+            self._t(self.bufs.dt[k]), mask=self._t(self.bufs.mask[k]),
+            n_steps=int(self.bufs.mask[k].sum()))
+
+        def put(a, val):
+            a = a.clone()
+            a[col] = val
+            return a
+        self.state = st._replace(p=put(st.p, p), q=put(st.q, q),
+                                 v=put(st.v, v), ba=put(st.ba, st.ba[k]),
+                                 bg=put(st.bg, st.bg[k]))
+
+    def _preints(self):
+        b = self.bufs
+        return preintegrate_all(
+            self._t(b.acc), self._t(b.gyr), self._t(b.wvel), self._t(b.dt),
+            self._t(b.mask), self.state.ba[:-1], self.state.bg[:-1],
+            self.state.six, self.state.siy, self.state.siw,
+            self.cfg.imu_noise, self.cfg.wheel_noise, self.state.qio,
+            n_steps=max(b.counts()))
+
+    def _detectors(self, pre, wpre):
+        """Wheel-vs-IMU anomaly and the fused stationary flag on the latest
+        interval (reference ``estimator.cpp:681-705, 2190-2335``)."""
+        cfg = self.cfg
+        k = -1
+        dp_imu = pre.dp[k].cpu().numpy()
+        R_io = lie.quat_to_mat(self.state.qio).cpu().numpy()
+        dp_whl = R_io @ wpre.dp[k].cpu().numpy()
+        anomaly = bool(cfg.use_wheel
+                       and np.linalg.norm(dp_whl - dp_imu) > cfg.wheel_anomaly_thresh
+                       and self.imu_valid[k] > 0)
+        wheel_static = (np.linalg.norm(dp_whl) < cfg.stationary_dp
+                        if cfg.use_wheel else True)
+        imu_static = np.linalg.norm(dp_imu) < 5 * cfg.stationary_dp
+        nsamp = int((self.bufs.mask[k] > 0).sum())
+        if nsamp >= 5:
+            acc = self.bufs.acc[k][: nsamp + 1]
+            imu_excited = float(np.linalg.norm(np.var(acc, axis=0))) \
+                > cfg.stationary_imu_var
+        else:
+            imu_excited = True
+        _, par, n_co = fwin.parallax_keyframe_test(self.fw, 1e9)
+        visual_static = float(par) < cfg.stationary_parallax and int(n_co) > 10
+        stationary = bool(visual_static and wheel_static and imu_static
+                          and not imu_excited and self.initialized)
+        return anomaly, stationary
+
+    def _try_initialize(self):
+        """Static bootstrap from interval 0 (gravity + biases), gated on the
+        whole window's accelerometer variance; in-motion starts go through
+        the dynamic initializer."""
+        cfg = self.cfg
+        m0 = self.bufs.mask[0] > 0
+        if m0.sum() < 5:
+            return
+        acc0 = self.bufs.acc[0][: int(m0.sum()) + 1]
+        gyr0 = self.bufs.gyr[0][: int(m0.sum()) + 1]
+        acc_all = self.bufs.acc[:, :-1][self.bufs.mask > 0]
+        acc_var = float(np.linalg.norm(np.var(acc_all, axis=0))) \
+            if acc_all.shape[0] > 10 else 0.0
+        if acc_var > cfg.static_acc_var:
+            self._try_dynamic_initialize()
+            return
+        bg = gyr0.mean(axis=0)
+        acc_mean = acc0.mean(axis=0)
+        R0 = lie.gravity_align(self._t(acc_mean))
+        q0 = lie.mat_to_quat(R0)
+        ba = acc_mean - R0.cpu().numpy().T @ np.array([0, 0, cfg.g_norm],
+                                                      np.float32)
+        st = self.state
+        W = NUM_FRAMES
+        self.state = st._replace(
+            p=torch.zeros_like(st.p), v=torch.zeros_like(st.v),
+            q=q0[None].repeat(W, 1),
+            ba=self._t(ba)[None].repeat(W, 1), bg=self._t(bg)[None].repeat(W, 1))
+        for col in range(1, self.frame_count):
+            self._predict_frame(col)
+        self.prior_state = self.state
+        self.initialized = True
+
+    def _try_dynamic_initialize(self):
+        from .initializer import try_dynamic_init
+        cfg = self.cfg
+        res = try_dynamic_init(
+            self.fw, self.bufs, cfg.imu_noise, self.state.tic.cpu().numpy(),
+            lie.quat_to_mat(self.state.qic).cpu().numpy(), cfg.g_norm,
+            self.device)
+        if res is None:
+            return
+        st = self.state
+        self.state = st._replace(
+            p=self._t(res.p), q=self._t(res.q), v=self._t(res.v),
+            ba=torch.zeros_like(st.ba),
+            bg=self._t(res.bg)[None].repeat(NUM_FRAMES, 1))
+        self.prior_state = self.state
+        self.initialized = True

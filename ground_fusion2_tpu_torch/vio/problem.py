@@ -1,0 +1,202 @@
+"""Window optimization problem: factors → one LM solve → marginalization
+prior (port of ``ground_fusion2_tpu/vio/problem.py``).
+
+The normal equations of a linearization are the projection block's, from
+kernel C (``factors.vio_factors.projection_normal_equations``), plus those
+of the few hundred rows of the other factors (IMU, wheel, plane, motion,
+pos-vel, prior) through ``torch.func.jacfwd`` and a matmul.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..config import VioConfig
+from ..factors import vio_factors as fac
+from ..gnss.factors import GnssTable
+from ..sensors.imu_preint import ImuPreint
+from ..sensors.wheel_preint import WheelPreint
+from ..solver.gauss_newton import lm_solve, normal_equations
+from ..solver.marginalize import MargPrior, marginalize, shift_prior
+from .state import WindowLayout, WindowState
+
+
+class VioMeasurements(NamedTuple):
+    feats: fac.FeatureTable
+    imu: ImuPreint             # batched [W-1]
+    imu_valid: torch.Tensor    # [W-1]
+    imu_sqrt_info: torch.Tensor  # [W-1, 15, 15]
+    wheel: WheelPreint         # batched [W-1]
+    wheel_valid: torch.Tensor  # [W-1]
+    wheel_sqrt_info: torch.Tensor  # [W-1, 6, 6]
+    plane_valid: torch.Tensor  # []
+    stationary: torch.Tensor   # []
+    gnss: GnssTable
+    gnss_enabled: torch.Tensor  # []
+    prior: MargPrior
+    prior_state: WindowState
+    frame_dt: torch.Tensor | None = None   # [W-1]
+
+
+def _check_supported(cfg: VioConfig):
+    if cfg.use_gnss or cfg.use_stereo:
+        raise NotImplementedError(
+            "GNSS and stereo factors are not ported yet")
+
+
+def build_residual_fn(x0: WindowState, meas: VioMeasurements,
+                      layout: WindowLayout, cfg: VioConfig,
+                      with_projection: bool = True):
+    """``residual_fn(delta) -> (r, w)`` over every factor of the window
+    (the projection block only with ``with_projection``)."""
+    _check_supported(cfg)
+    dev = x0.p.device
+    g_world = torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=x0.p.dtype,
+                           device=dev)
+
+    def residual_fn(delta):
+        x = layout.retract(x0, delta)
+        parts = []
+        if with_projection:
+            parts.append(fac.projection_residuals(
+                x, meas.feats, cfg.proj_sqrt_info, cfg.huber_delta))
+        parts.append(fac.imu_residuals(x, meas.imu, meas.imu_sqrt_info,
+                                       g_world, meas.imu_valid))
+        if cfg.use_wheel:
+            parts.append(fac.wheel_residuals(
+                x, meas.wheel, meas.wheel_sqrt_info, meas.wheel_valid))
+        if cfg.use_plane:
+            parts.append(fac.plane_residuals(x, cfg.plane_weight,
+                                             meas.plane_valid))
+        if cfg.use_motion:
+            ones_w = torch.ones((layout.W,), dtype=x.p.dtype, device=dev)
+            parts.append(fac.motion_residuals(x, cfg.motion_weight, ones_w))
+            fdt = meas.frame_dt if meas.frame_dt is not None else \
+                torch.full((layout.W - 1,), 0.1, dtype=x.p.dtype, device=dev)
+            parts.append(fac.posvel_residuals(
+                x, fdt, cfg.posvel_weight,
+                torch.ones((layout.W - 1,), dtype=x.p.dtype, device=dev)))
+        parts.append(meas.prior.residual(
+            layout.boxminus_frames(x, meas.prior_state)))
+        return (torch.cat([r.reshape(-1) for r, _ in parts]),
+                torch.cat([w.reshape(-1) for _, w in parts]))
+
+    return residual_fn
+
+
+def window_normal_equations(x0: WindowState, meas: VioMeasurements,
+                            layout: WindowLayout, cfg: VioConfig,
+                            delta: torch.Tensor):
+    """(H, g, cost) of the whole window at ``retract(x0, delta)``."""
+    Hp, gp, cp = fac.projection_normal_equations(
+        x0, delta, meas.feats, layout, cfg.proj_sqrt_info, cfg.huber_delta)
+    Hr, gr, cr = normal_equations(
+        build_residual_fn(x0, meas, layout, cfg, with_projection=False), delta)
+    return Hp + Hr, gp + gr, cp + cr
+
+
+class SolveResult(NamedTuple):
+    state: WindowState
+    cost: torch.Tensor
+    cost0: torch.Tensor
+    H: torch.Tensor
+    g: torch.Tensor
+
+
+def _fixed_dims(layout, cfg, device, **kw):
+    return layout.free_mask(
+        device,
+        fix_extrinsic=not cfg.estimate_extrinsic,
+        fix_td=not cfg.estimate_td,
+        fix_wheel_intrinsic=not (cfg.use_wheel and cfg.estimate_wheel_intrinsic),
+        fix_wheel_extrinsic=not (cfg.use_wheel and cfg.estimate_wheel_extrinsic),
+        wheel_extrinsic_type=cfg.wheel_extrinsic_type,
+        use_gnss=cfg.use_gnss, extrinsic_type=cfg.extrinsic_type, **kw)
+
+
+def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
+                 cfg: VioConfig) -> SolveResult:
+    """One full window optimization (the per-frame solve)."""
+    dev, dtype = x0.p.device, x0.p.dtype
+    residual_fn = build_residual_fn(x0, meas, layout, cfg)
+    f = meas.feats
+    landmark_mask = (f.track_valid * (1.0 - f.depth_fixed)
+                     * (f.obs_valid.sum(1) >= 2).to(dtype))
+    frame_mask = torch.where(meas.stationary > 0,
+                             torch.zeros((layout.W,), dtype=dtype, device=dev),
+                             torch.ones((layout.W,), dtype=dtype, device=dev))
+    free = _fixed_dims(layout, cfg, dev, landmark_mask=landmark_mask,
+                       frame_mask=frame_mask, fix_yaw=not cfg.refine_gnss_yaw,
+                       fix_anchor=not cfg.refine_gnss_alignment)
+    # gauge: without a prior (GNSS is off), pin frame 0's pose
+    pose0 = torch.zeros_like(free)
+    pose0[layout.pose_off:layout.pose_off + 6] = 1.0
+    free = torch.where(meas.prior.valid > 0, free, free * (1.0 - pose0))
+
+    def cost_at(delta):
+        r, w = residual_fn(delta)
+        rw = r * w
+        return 0.5 * torch.sum(rw * rw)
+
+    out = lm_solve(
+        lambda d: window_normal_equations(x0, meas, layout, cfg, d),
+        cost_at, layout.dim, cfg.max_iters, free_mask=free, device=dev,
+        dtype=dtype)
+    return SolveResult(layout.retract(x0, out.delta), out.cost, out.cost0,
+                       out.H, out.g)
+
+
+def marginalize_oldest(x: WindowState, meas: VioMeasurements,
+                       layout: WindowLayout, cfg: VioConfig) -> MargPrior:
+    """MARGIN_OLD: relinearize the factors touching frame 0 at the solved
+    state, eliminate frame 0 and the landmarks, shift into the next layout."""
+    dev, dtype = x.p.device, x.p.dtype
+    f = meas.feats
+    feats0 = f._replace(track_valid=f.track_valid * (f.anchor == 0).to(dtype))
+    first = torch.zeros((layout.W - 1,), dtype=dtype, device=dev)
+    first[0] = 1.0
+    meas0 = meas._replace(feats=feats0, imu_valid=meas.imu_valid * first,
+                          wheel_valid=meas.wheel_valid * first)
+    H, g, _ = window_normal_equations(
+        x, meas0, layout, cfg, torch.zeros((layout.dim,), dtype=dtype,
+                                           device=dev))
+    fixed = _fixed_dims(layout, cfg, dev, fix_yaw=True, fix_anchor=True)
+    H = H * fixed[:, None] * fixed[None, :]
+    g = g * fixed
+    drop = np.concatenate([layout.frame0_drop_indices(),
+                           np.arange(layout.rho_off, layout.rho_off + layout.F)])
+    prior = marginalize(H, g, layout.frame_keep_indices(), drop)
+    return shift_prior(prior, layout.shift_map_after_marg_old(),
+                       layout.frame_dim)
+
+
+def marginalize_second_newest(prior: MargPrior,
+                              layout: WindowLayout) -> MargPrior:
+    """MARGIN_SECOND_NEW: drop frame W-2's dims from the existing prior.
+    Its residual is linear (sqrt_J dx + r0), so H and g are exact."""
+    Jw = prior.sqrt_J * prior.valid
+    H = Jw.T @ Jw
+    g = Jw.T @ (prior.r0 * prior.valid)
+    W_, sec = layout.W, layout.W - 2
+    drop = np.concatenate([
+        np.arange(layout.pose_off + sec * 6, layout.pose_off + (sec + 1) * 6),
+        np.arange(layout.sb_off + sec * 9, layout.sb_off + (sec + 1) * 9),
+        np.arange(layout.gdt_off + sec * 4, layout.gdt_off + (sec + 1) * 4),
+        np.arange(layout.gddt_off + sec, layout.gddt_off + sec + 1)])
+    keep = np.setdiff1d(np.arange(layout.frame_dim), drop)
+    out_prior = marginalize(H, g, keep, drop)
+
+    def frame_block(off, width):
+        return [np.arange(off + (k if k < sec else k - 1) * width,
+                          off + (k if k < sec else k - 1) * width + width)
+                for k in range(W_) if k != sec]
+
+    old_to_new = np.concatenate(
+        frame_block(layout.pose_off, 6) + frame_block(layout.sb_off, 9)
+        + [np.arange(layout.cam_off, layout.gdt_off)]
+        + frame_block(layout.gdt_off, 4) + frame_block(layout.gddt_off, 1)
+        + [np.arange(layout.gyaw_off, layout.frame_dim)])
+    return shift_prior(out_prior, old_to_new, layout.frame_dim)

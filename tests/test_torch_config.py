@@ -1,0 +1,65 @@
+"""The port's M3DGR camera configuration against the JAX package's loader.
+
+``m3dgr_camera()`` must give what ``load_config("configs/m3dgr.yaml")`` gives
+for the VIO path, with two documented differences in the tracker:
+  * ``depth_range`` is (0.1, 20.0) instead of the YAML's (0.1, 3.0): the
+    synthetic room is deeper than 3 m (as ``bench.py`` runs it);
+  * F-RANSAC is on at ``f_threshold`` = 1 px, as the JAX M3DGR replay wires
+    its tracker (``data/m3dgr_sim.py``); ``make_tracker()`` leaves it off.
+"""
+
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ground_fusion2_tpu.config.loader import load_config
+from ground_fusion2_tpu_torch.config import m3dgr_camera
+
+torch.set_num_threads(1)
+YAML = Path(__file__).resolve().parent.parent / "configs" / "m3dgr.yaml"
+
+
+@pytest.fixture(scope="module")
+def both():
+    return m3dgr_camera(), load_config(YAML)
+
+
+def test_vio_config_matches_loader(both):
+    port, jax_cfg = both
+    assert port.estimator.vio._asdict() == jax_cfg.estimator.vio._asdict()
+    assert port.estimator.vio.num_feats == 150
+    assert not port.estimator.vio.use_gnss
+
+
+def test_estimator_config_matches_loader(both):
+    """Every field the port carries equals the loader's (the port leaves out
+    the GNSS-only fields, GNSS being off)."""
+    port, jax_cfg = both
+    for f in dataclasses.fields(port.estimator):
+        got = getattr(port.estimator, f.name)
+        want = getattr(jax_cfg.estimator, f.name)
+        if hasattr(got, "_asdict"):
+            got, want = got._asdict(), want._asdict()
+        assert got == want, f.name
+
+
+def test_tracker_config_matches_loader_except_documented(both):
+    port, jax_cfg = both
+    want = dataclasses.asdict(jax_cfg.make_tracker())
+    assert want["depth_range"] == (0.1, 3.0)
+    assert jax_cfg.raw["estimator"]["f_threshold"] == 1.0
+    want.update(depth_range=(0.1, 20.0), use_ransac=True)
+    assert dataclasses.asdict(port.tracker) == want
+
+
+def test_camera_and_extrinsics_match_loader(both):
+    port, jax_cfg = both
+    ci = jax_cfg.cam_intrinsics
+    assert port.intrinsics == (ci["fx"], ci["fy"], ci["cx"], ci["cy"])
+    assert (port.width, port.height) == (ci["width"], ci["height"])
+    for name, want in (("tic", jax_cfg.tic), ("ric", jax_cfg.ric),
+                       ("tio", jax_cfg.t_io), ("rio", jax_cfg.r_io)):
+        np.testing.assert_array_equal(getattr(port, name), want, err_msg=name)
