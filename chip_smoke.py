@@ -6,29 +6,47 @@
 Phases (any failure exits nonzero; no phase catches and carries on):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles the hand-written kernels of ground_fusion2_tpu_torch/csrc
-     with nvcc (sm_90a) and prints the build seconds;
-  3. kernels: each kernel against its plain PyTorch version at the main
+     with nvcc (sm_90a, one process a source) and prints the build seconds;
+  3. camera kernels: A-C against their plain PyTorch versions at the camera
      path's shapes (CLAHE 480×640, KLT F = 150 on two consecutive rendered
-     frames, projection normal equations F = 150 / D = 396), with the stated
-     tolerances and the median time of both;
-  4. main path: FusedVio.process_image with the M3DGR configuration over 40
-     rendered 640×480 frames of the bench.py room drive (RGB-D + IMU +
-     wheel). It must initialize, run ≥ 20 fused ticks, launch all three
-     kernels during them, stay finite, and keep the aligned ATE < 0.30 m.
-     Kernel C is also held against its plain version on the final window.
+     frames, projection normal equations F = 150 / D = 396), with the
+     stated tolerances and the median time of both;
+  4. camera main path: FusedVio.process_image with the M3DGR configuration
+     over 40 rendered 640×480 frames of the bench.py room drive (RGB-D + IMU
+     + wheel). It must initialize, run ≥ 20 fused ticks, launch A-C during
+     them, stay finite, and keep the aligned ATE < 0.30 m. Kernel C is also
+     held against its plain version on the final window;
+  5. LiDAR main path: LidarOdometry.process_scan with the M3DGR LIO
+     configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
+     iterations) over 60 scans of the bench_lio room drive (4096 rays,
+     5 mm noise, seed 0, 20 IMU samples a scan), the sensor 1 m above the
+     floor. It must initialize, run ≥ 50 fused ticks, launch D-G during
+     them, stay finite, flag no scan degenerate after the second, and keep
+     the position error after aligning the first output < 0.06 m;
+  6. LiDAR kernels: D-G against their plain versions on the map the drive
+     filled, at K = 2000 and M = 48 (F also through an insert, an insert
+     that overflows capacity and a recenter, bit-exact against the CPU).
 The last two lines are the kernels JSON and the result JSON.
 
-The rig is synthetic: the renderer's forward camera (bench.py's extrinsic)
-and an identity wheel frame replace the M3DGR extrinsics, which describe
-another physical mount; intrinsics, F, noise and factor flags are M3DGR's.
+The camera rig is synthetic: the renderer's forward camera (bench.py's
+extrinsic) and an identity wheel frame replace the M3DGR extrinsics, which
+describe another physical mount; intrinsics, F, noise and factor flags are
+M3DGR's. The LiDAR drive lifts bench_lio's sensor off the floor: at floor
+level the scan sees no floor, and every scan is degenerate (σ_min < 7) in
+the JAX package as well.
 """
 
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
+
+LIO_SCANS = 60
+LIO_Z = 1.0            # sensor height above the room's floor, m
+LIO_MAX_ERR = 0.06     # m, test_lio_e2e.py's bound; the JAX package: 0.0032 m
 
 
 def card_line() -> str:
@@ -43,6 +61,76 @@ def card_line() -> str:
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+def lidar_main_path(dev, card):
+    """Phase 5. Returns (error or None, launches during the drive, the
+    odometry, the scan after the drive)."""
+    import torch
+    from ground_fusion2_tpu_torch import _kernels, checks
+    from ground_fusion2_tpu_torch.config import m3dgr_lio
+    from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
+    from ground_fusion2_tpu_torch.lio.voxel_map import INVALID
+
+    scans = checks.lidar_drive(LIO_SCANS + 1, z=LIO_Z)
+    lo = LidarOdometry(m3dgr_lio(), device=dev)
+    tick_ms, outs, gt, syncs_seen = [], [], [], []
+    _kernels.launches.clear()
+    for k, s in enumerate(scans[:LIO_SCANS]):
+        fused = lo.initialized
+        # the last 3 ticks also count every synchronizing CUDA call
+        watch = fused and k >= LIO_SCANS - 3
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            if watch:
+                torch.cuda.set_sync_debug_mode("warn")
+            out = lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"],
+                                  s["imu"])
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if fused:
+            tick_ms.append((time.perf_counter() - t1) * 1e3)
+        if watch:
+            syncs_seen.append(sum("synchronizing" in str(w.message)
+                                  for w in seen))
+        if out is not None:
+            if not (np.all(np.isfinite(out.p_lio))
+                    and np.all(np.isfinite(out.q_lio))):
+                return f"non-finite LIO pose at t={s['t']:.2f}", {}, lo, None
+            outs.append(out)
+            gt.append(s["p_gt"])
+    launches = dict(_kernels.launches)
+    n_fused = len(tick_ms)
+    if not lo.initialized or not outs:
+        return "the LIO never initialized", launches, lo, None
+    if n_fused < 50:
+        return f"only {n_fused} fused LIO ticks ran", launches, lo, None
+    st = lo.eskf
+    if not all(bool(torch.isfinite(t).all()) for t in st):
+        return "non-finite ESKF state", launches, lo, None
+    want = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict")
+    if min(launches.get(k, 0) for k in want) <= 0:
+        return f"a LiDAR kernel did not launch: {launches}", launches, lo, None
+    off = gt[0] - outs[0].p_lio
+    errs = [float(np.linalg.norm(o.p_lio + off - g)) for o, g in zip(outs, gt)]
+    deg = [i for i, o in enumerate(outs) if o.degenerate and i >= 2]
+    fill = int((lo.vmap.code != INVALID).sum())
+    print(f"lidar path: {n_fused} fused ticks, median tick "
+          f"{float(np.median(tick_ms[2:])):.2f} ms (synchronized wall, ticks "
+          f"3..{n_fused}), host syncs (synchronizing CUDA calls) in each "
+          f"of the last 3 ticks {syncs_seen}, max position error "
+          f"{max(errs):.4f} m (final {errs[-1]:.4f} m) over {len(outs)} "
+          f"outputs, map fill {fill} of "
+          f"{lo.cfg.map_cfg.capacity}, degenerate after the second: {deg}, "
+          f"launches {launches} | {card}", flush=True)
+    if deg:
+        return f"degenerate LIO scans after the second: {deg}", launches, lo, None
+    if not max(errs) < LIO_MAX_ERR:
+        return (f"LIO position error {max(errs):.4f} m >= {LIO_MAX_ERR} m",
+                launches, lo, None)
+    return None, launches, lo, scans[LIO_SCANS]
 
 
 def main() -> int:
@@ -138,14 +226,44 @@ def main() -> int:
     if not real["ok"]:
         return fail("kernel C disagrees on the final window")
 
-    src = {"clahe": ("ground_fusion2_tpu_torch/csrc/clahe.cu",
-                     "ground_fusion2_tpu/frontend/clahe.py:33"),
-           "klt": ("ground_fusion2_tpu_torch/csrc/klt.cu",
-                   "ground_fusion2_tpu/frontend/klt.py:234"),
-           "proj_normal": ("ground_fusion2_tpu_torch/csrc/proj_normal.cu",
-                           "ground_fusion2_tpu/solver/gauss_newton.py:50")}
-    kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
-                    launches=launches.get(n, 0),
+    # 5. LiDAR main path
+    err, lio_launches, lo, next_scan = lidar_main_path(dev, card)
+    if err:
+        return fail(err)
+
+    # 6. LiDAR kernels vs plain on the map the drive filled
+    x = checks.lio_kernel_inputs(lo, next_scan)
+    lcfg = lo.cfg
+    res_lio = {
+        "lio_assoc": checks.check_assoc(dev, x, lcfg.map_cfg, lcfg.icp_cfg),
+        "ct_icp_normal": checks.check_ct_normal(dev, x, lcfg.icp_cfg),
+        "radix_sort": checks.check_radix(dev, x, lcfg.map_cfg),
+        "eskf_predict": checks.check_eskf(dev, x, lcfg.eskf_opt),
+    }
+    torch.cuda.synchronize()
+    for name, r in res_lio.items():
+        print(f"kernel {name}: " + json.dumps(r), flush=True)
+    bad = [n for n, r in res_lio.items() if not r["ok"]]
+    if bad:
+        return fail(f"kernel(s) disagree with their plain version: {bad}")
+
+    pkg = "ground_fusion2_tpu_torch/csrc/"
+    src = {"clahe": ("clahe.cu", "ground_fusion2_tpu/frontend/clahe.py:33"),
+           "klt": ("klt.cu", "ground_fusion2_tpu/frontend/klt.py:234"),
+           "proj_normal": ("proj_normal.cu",
+                           "ground_fusion2_tpu/solver/gauss_newton.py:50"),
+           "lio_assoc": ("lio_assoc.cu",
+                         "ground_fusion2_tpu/lio/voxel_map.py:196"),
+           "ct_icp_normal": ("ct_icp_normal.cu",
+                             "ground_fusion2_tpu/lio/ct_icp.py:122"),
+           "radix_sort": ("radix_sort.cu",
+                          "ground_fusion2_tpu/lio/voxel_map.py:80"),
+           "eskf_predict": ("eskf_predict.cu",
+                            "ground_fusion2_tpu/lio/eskf.py:86")}
+    res.update(res_lio)
+    launches.update(lio_launches)
+    kernels = [dict(name=n, route="cuda", source=pkg + src[n][0],
+                    replaces=src[n][1], launches=launches.get(n, 0),
                     max_abs_err=res[n]["max_abs_err"], ms=res[n]["ms"],
                     plain_ms=res[n]["plain_ms"]) for n in res]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,9 @@
 """Build, load and count the hand-written CUDA kernels of ``csrc/``.
 
-At first use ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared``
-compiles every ``csrc/*.cu`` into one shared library under
-``<repo>/build/ground_fusion2_tpu_torch/``; the plain C entry points are
-bound with ``ctypes``. Each entry point launches on the stream it is given
+At first use ``nvcc -gencode arch=compute_90a,code=sm_90a -O3`` compiles
+every ``csrc/*.cu`` (one process each, in parallel) and links them into one
+shared library under ``<repo>/build/ground_fusion2_tpu_torch/``; the plain C
+entry points are bound with ``ctypes``. Each entry point launches on the stream it is given
 and returns ``cudaGetLastError()``; :func:`check` raises on a nonzero code.
 
 ``launches`` counts kernel launches per wrapper: a wrapper adds one where it
@@ -25,8 +25,10 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ground_fusion2_tpu_torch"
 LIB_PATH = BUILD_DIR / "libgf2_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+# no --use_fast_math: divisions and floor must round as the plain versions
+COMPILE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 launches: collections.Counter = collections.Counter()
 build_seconds: float | None = None
@@ -39,6 +41,10 @@ _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
     "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 4,
+    "gf2_lio_assoc": [_P] * 5 + [_I] * 2 + [_F] + [_I] * 3 + [_P] * 5,
+    "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 2,
+    "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P, _P],
+    "gf2_eskf_predict": [_P] * 11 + [_I] + [_F] * 4 + [_P] * 5,
 }
 
 
@@ -60,12 +66,28 @@ def build(force: bool = False) -> Path:
             and LIB_PATH.stat().st_mtime >= newest):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once; then one link
+    objs = [BUILD_DIR / f"{src.stem}.{os.getpid()}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for s, o in zip(sources, objs)]
+    errors = []
+    for src, p in zip(sources, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{src.name} ({p.returncode}):\n{err}")
+    if errors:
+        raise RuntimeError("nvcc failed: " + "\n".join(errors))
+    tmp = LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for o in objs:
+        o.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, LIB_PATH)
     build_seconds = time.perf_counter() - t0
     return LIB_PATH

@@ -19,6 +19,10 @@ from ._shared import render, synthetic as sim
 from .factors import vio_factors as fac
 from .frontend import clahe as clahe_mod
 from .frontend import klt
+from .lio import ct_icp as ci
+from .lio import eskf as ekf
+from .lio import fused as lfu
+from .lio import voxel_map as vm
 from .vio.state import NUM_FRAMES, WindowLayout, WindowState
 from .core import lie
 
@@ -29,6 +33,21 @@ PROJ_REL_TOL = 1e-4    # H, cost relative to their max |entry|
 PROJ_G_TOL = 1e-3      # g per entry, relative to the magnitude of its terms:
                        # an f32 residual near the optimum (~0.1-1 px) keeps
                        # only ~eps·sqrt_info·|ray| ≈ 2.4e-5 px of its value
+# kernel D: the kNN sets are the same (d² is summed alike, ties to the lower
+# index), so only the order of the 20-term sums differs
+ASSOC_TOL = dict(normal=1e-4,    # max |n nᵀ - n' n'ᵀ| where a2D > min_planarity
+                 centroid=1e-4,  # m, on ~10 m coordinates (f32 ulp ~1e-6)
+                 # a2D = (s1 - s0)/s2, s = sqrt(eigenvalue): on a flat patch
+                 # the smallest eigenvalue sits at the f32 rounding of the
+                 # covariance sums, and its square root amplifies that
+                 # (1.4e-4 seen on the H100); the gates are held separately
+                 a2d=1e-3)
+GATE_BAND = 1e-4       # a gate (a2D, distance) may flip only this close to its threshold
+ICP_REL_TOL = 1e-4     # kernel E: H, cost relative to their max |entry|
+ICP_G_TOL = 1e-3       # kernel E: g per entry against sqrt(H_ii·2·cost)
+# kernel G walks the samples in order where the plain version's cumsum and
+# the JAX scan reassociate: f32 rounding over ≤ 48 steps
+ESKF_TOL = dict(p=1e-5, v=1e-5, q=1e-6, cov_rel=1e-5)
 
 M3DGR_INTRINSICS = (607.79772949218, 607.83526611328, 328.79772949218,
                     245.53321838378)
@@ -161,6 +180,190 @@ def check_klt(device, frames=None, F: int = 150, half: int = 10,
                                                  iters, fb)),
                 plain_ms=time_ms(lambda: klt.klt_track_plain(
                     p0, p1, uv, valid, half, iters, fb), reps=5))
+
+
+def lidar_drive(n_scans: int, z: float = 0.0, n_rays: int = 4096):
+    """The bench.py ``bench_lio`` scene and drive: a 16 × 10 × 3 m room,
+    ``n_rays`` rays with 5 mm noise, seed 0, 0.6 m/s at 0.3 rad/s after a
+    0.6 s static prefix, 20 IMU samples a scan. ``z`` lifts the sensor
+    (bench_lio keeps it on the floor, z = 0, where the scan sees no floor).
+    One dict a scan: t, pts, alpha, valid, imu (acc, gyr, dt), p_gt, q_gt."""
+    lidar = sim.LidarSim.room(n_rays=n_rays, noise=0.005, seed=0)
+    traj = sim.make_planar_trajectory(duration=n_scans * 0.1 + 1.5, speed=0.6,
+                                      yaw_rate=0.3, static_time=0.6,
+                                      ramp_time=0.5)
+    traj.p[:, 2] += z
+    rng = np.random.default_rng(0)
+    spf = 20
+    scans = []
+    for k in range(n_scans):
+        i0, i1 = k * spf, (k + 1) * spf
+        pts, alpha, valid = lidar.scan(traj.p[i0], traj.q[i0], traj.p[i1],
+                                       traj.q[i1], rng=rng)
+        imu = (traj.acc_body[i0:i1 + 1].astype(np.float32),
+               traj.gyr_body[i0:i1 + 1].astype(np.float32),
+               np.full((spf,), 0.005, np.float32))
+        scans.append(dict(t=float(traj.t[i1]), pts=pts, alpha=alpha,
+                          valid=valid, imu=imu, p_gt=traj.p[i1].copy(),
+                          q_gt=traj.q[i1].copy()))
+    return scans
+
+
+def lio_kernel_inputs(lo, scan) -> dict:
+    """The inputs kernels D–G see on the next tick of the odometry ``lo``
+    (its carry on the card) for ``scan``: the sweep's points and IMU
+    samples, the filter state and map, the K keypoints, their world points
+    at the predicted pose and an association and weights there."""
+    cfg = lo.cfg
+    c = lo.carry
+    buf = lfu.pack_scan(scan["pts"], scan["alpha"], scan["valid"],
+                        *scan["imu"], np.zeros(3, np.float32),
+                        np.array([1, 0, 0, 0], np.float32), 0.0,
+                        cfg.scan_buffer)
+    buf = torch.as_tensor(buf, device=lo.device)
+    (pts, alpha, mask, acc, gyr, dts, smask, _, _, _,
+     n_real) = lfu.unpack_scan(buf, cfg.scan_buffer)
+    M = lfu.MAX_IMU_PER_SCAN
+    s_pred = ekf.predict_batch(c.eskf, acc[:M], gyr[:M], dts, smask,
+                               cfg.eskf_opt)[0]
+    kp, ka, km = lfu.select_keypoints(pts, alpha, mask, n_real,
+                                      cfg.keypoint_cell, cfg.max_keypoints)
+    pose = ci.CtPose(c.eskf.q, c.eskf.p, s_pred.q, s_pred.p)
+    p_w = ci.transform_points(pose, kp, ka)
+    normal, centroid, a2d, valid = vm.associate_plain(c.vmap, p_w, p_w,
+                                                      cfg.map_cfg)
+    icp = cfg.icp_cfg
+    dist = torch.abs(torch.sum((p_w - centroid) * normal, -1))
+    w = km * valid.float() * (a2d > icp.min_planarity).float() \
+        * (dist < icp.max_corr_dist).float() * a2d * a2d
+    return dict(pts=pts, mask=mask, acc=acc[:M], gyr=gyr[:M], dts=dts,
+                smask=smask, eskf=c.eskf, vmap=c.vmap, kp=kp, ka=ka,
+                pose=pose, p_w=p_w, normal=normal, centroid=centroid, w=w)
+
+
+def check_assoc(device, x: dict, cfg, icp_cfg) -> dict:
+    """Kernel D against gather + kNN + plane fit at K keypoints on a map
+    filled by the drive (gather and query at the predicted pose, and the
+    query moved 3 cm, as a later CT-ICP iteration sees it)."""
+    vmap, p_g = x["vmap"], x["p_w"]
+    p_q = p_g + torch.tensor([0.03, -0.02, 0.01], device=device)
+    nk, ck, ak, vk = vm.associate(vmap, p_g, p_q, cfg)
+    npl, cp, ap, vp = vm.associate_plain(vmap, p_g, p_q, cfg)
+    planar = vp & (ap > icp_cfg.min_planarity)
+    outer = lambda n: n[:, :, None] * n[:, None, :]
+    e_n = float((outer(nk) - outer(npl))[planar].abs().max()) \
+        if bool(planar.any()) else 0.0
+    e_c = float((ck - cp)[vp].abs().max()) if bool(vp.any()) else 0.0
+    e_a = float((ak - ap)[vp].abs().max()) if bool(vp.any()) else 0.0
+    # a gate may flip only where the plain value is within GATE_BAND of it
+    d_k = torch.abs(torch.sum((p_q - ck) * nk, -1))
+    d_p = torch.abs(torch.sum((p_q - cp) * npl, -1))
+    flips = 0
+    for vk_, vp_, val, th in (
+            (ak > icp_cfg.min_planarity, ap > icp_cfg.min_planarity, ap,
+             icp_cfg.min_planarity),
+            (d_k < icp_cfg.max_corr_dist, d_p < icp_cfg.max_corr_dist, d_p,
+             icp_cfg.max_corr_dist)):
+        flips += int(((vk_ != vp_) & vp & ((val - th).abs() > GATE_BAND)).sum())
+    errs = dict(normal=e_n, centroid=e_c, a2d=e_a)
+    ok = (bool(torch.equal(vk, vp)) and flips == 0
+          and all(errs[k] <= ASSOC_TOL[k] for k in errs))
+    return dict(max_abs_err=max(errs.values()), errs=errs, tol=ASSOC_TOL,
+                valid_equal=bool(torch.equal(vk, vp)), gate_flips=flips,
+                n_valid=int(vp.sum()), n_planar=int(planar.sum()), ok=ok,
+                ms=time_ms(lambda: vm.associate(vmap, p_g, p_q, cfg)),
+                plain_ms=time_ms(lambda: vm.associate_plain(vmap, p_g, p_q,
+                                                            cfg), reps=5))
+
+
+def check_ct_normal(device, x: dict, icp_cfg) -> dict:
+    """Kernel E against ``jacfwd`` + JᵀJ at K keypoints with the drive's
+    association, at a pose 2 cm / 0.01 rad off the predicted one (so the
+    begin and end rotations differ, as after a GN step)."""
+    pose = x["pose"]
+    pose = pose._replace(
+        q_end=lie.quat_boxplus(pose.q_end, torch.tensor([0.0, 0.004, 0.01],
+                                                        device=device)),
+        t_end=pose.t_end + torch.tensor([0.02, -0.01, 0.0], device=device))
+    args = (pose, x["pose"], x["kp"], x["ka"], x["centroid"], x["normal"],
+            x["w"], icp_cfg)
+    Hk, gk, ck = ci.normal_equations(*args)
+    Hp, gp, cp = ci.normal_equations_plain(*args)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    g_scale = torch.sqrt(torch.diagonal(Hp).clamp(min=0.0) * 2.0 * cp)
+    errs = dict(H=rel(Hk, Hp), cost=rel(ck, cp),
+                g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
+    tols = dict(H=ICP_REL_TOL, g=ICP_G_TOL, cost=ICP_REL_TOL)
+    return dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
+                tol=tols, n_rows=int((x["w"] > 0).sum()),
+                ok=all(errs[k] <= tols[k] for k in errs),
+                ms=time_ms(lambda: ci.normal_equations(*args)),
+                plain_ms=time_ms(lambda: ci.normal_equations_plain(*args),
+                                 reps=5))
+
+
+def check_radix(device, x: dict, cfg) -> dict:
+    """Kernel F: the exact stable order of torch.sort on the map's codes,
+    subcells, squared distances and the keypoint hash codes; and an insert
+    at the tick's shapes, an insert that overflows capacity, and a
+    recenter, all bit-exact (codes and point order) against the same
+    operation on the CPU, where the plain sort runs."""
+    vmap = x["vmap"]
+    n_new = x["pts"].shape[0]
+    pts_all = torch.cat([vmap.pts, x["pts"]])
+    sub = vm._subcell(pts_all, vmap.origin, cfg.voxel_size)
+    code = torch.cat([vmap.code, torch.full((n_new,), vm.INVALID,
+                                             dtype=torch.int32, device=device)])
+    d2 = vm._dist2(pts_all, x["pose"].t_end)
+    hcode = lfu._subsample_codes(x["pts"], 0.05, x["mask"] > 0)
+    mism = 0
+    for keys, bits in ((code, 31), (sub, 6), (d2, 31), (hcode, 31)):
+        want = torch.sort(keys, stable=True).indices
+        mism += int((vm.stable_argsort(keys, bits) != want).sum())
+
+    cpu = lambda m: vm.VoxelMap(*(t.cpu() for t in m))
+    same = lambda a, b: (torch.equal(a.code.cpu(), b.code)
+                         and torch.equal(a.pts.cpu(), b.pts))
+    center = x["pose"].t_end
+    p_w = x["p_w"]
+    km = torch.ones(p_w.shape[0], device=device)
+    ins = vm.insert(vmap, p_w, km, cfg, center=center)
+    ok_insert = same(ins, vm.insert(cpu(vmap), p_w.cpu(), km.cpu(), cfg,
+                                    center=center.cpu()))
+    # overflow: a full map takes the scan's points 30 m away as well
+    far = p_w + torch.tensor([30.0, 0.0, 0.0], device=device)
+    pts2 = torch.cat([p_w, far])
+    m2 = torch.ones(pts2.shape[0], device=device)
+    ovf = vm.insert(ins, pts2, m2, cfg, center=center)
+    ok_overflow = same(ovf, vm.insert(cpu(ins), pts2.cpu(), m2.cpu(), cfg,
+                                      center=center.cpu()))
+    shift = center + torch.tensor([60.0, -40.0, 1.0], device=device)
+    rc = vm.recenter(vmap, shift, cfg)
+    ok_recenter = same(rc, vm.recenter(cpu(vmap), shift.cpu(), cfg))
+    n_live = lambda m: int((m.code != vm.INVALID).sum())
+    return dict(max_abs_err=float(mism), order_mismatches=mism,
+                insert=ok_insert, overflow=ok_overflow, recenter=ok_recenter,
+                fill=[n_live(vmap), n_live(ins), n_live(ovf)],
+                n_keys=int(code.shape[0]),
+                ok=mism == 0 and ok_insert and ok_overflow and ok_recenter,
+                ms=time_ms(lambda: vm.stable_argsort(code)),
+                plain_ms=time_ms(lambda: torch.sort(code, stable=True)))
+
+
+def check_eskf(device, x: dict, opt) -> dict:
+    """Kernel G against ``predict_batch`` over M = 48 sample slots (20 of
+    them valid, as a scan gives) from the drive's filter state."""
+    args = (x["eskf"], x["acc"], x["gyr"], x["dts"], x["smask"], opt)
+    sk = ekf.predict_final(*args)
+    sp = ekf.predict_batch(*args)[0]
+    e = lambda a, b: float((a - b).abs().max())
+    errs = dict(p=e(sk.p, sp.p), v=e(sk.v, sp.v), q=e(sk.q, sp.q),
+                cov_rel=e(sk.cov, sp.cov) / float(sp.cov.abs().max()))
+    return dict(max_abs_err=max(errs["p"], errs["v"], errs["q"]), errs=errs,
+                tol=ESKF_TOL, n_samples=int(x["smask"].sum()),
+                ok=all(errs[k] <= ESKF_TOL[k] for k in errs),
+                ms=time_ms(lambda: ekf.predict_final(*args)),
+                plain_ms=time_ms(lambda: ekf.predict_batch(*args), reps=5))
 
 
 def check_proj(device, x0=None, feats=None, layout=None, delta=None,

@@ -1,6 +1,7 @@
 """Configuration mirrors of the JAX package's ``VioConfig``,
-``EstimatorConfig`` and ``TrackerConfig`` (``config/loader.py`` imports JAX
-modules, so the port carries its own), and the M3DGR camera configuration.
+``EstimatorConfig``, ``TrackerConfig``, ``VoxelMapConfig``, ``CtIcpConfig``,
+``EskfOptions`` and ``LioConfig`` (``config/loader.py`` imports JAX modules,
+so the port carries its own), and the M3DGR camera and LIO configurations.
 """
 
 from __future__ import annotations
@@ -143,3 +144,65 @@ def m3dgr_camera() -> CameraConfig:
     return CameraConfig(estimator=est, tracker=trk,
                         intrinsics=(fx, fy, cx, cy), width=640, height=480,
                         tic=tic, ric=ric, tio=tio, rio=rio)
+
+
+class VoxelMapConfig(NamedTuple):
+    capacity: int = 1 << 17      # max stored points
+    voxel_size: float = 0.2
+    max_per_voxel: int = 20      # raw cap per voxel at insert
+    gather_k: int = 8            # gathered points per neighbour voxel
+    knn: int = 20                # nearest neighbours for the plane fit
+    max_range: float = 80.0      # eviction radius
+
+
+class CtIcpConfig(NamedTuple):
+    outer_iters: int = 6
+    max_corr_dist: float = 0.5
+    min_planarity: float = 0.2
+    beta_location: float = 0.001
+    beta_velocity: float = 0.001
+    beta_orientation: float = 0.0
+    damping: float = 1e-3
+    deg_sigma_min: float = 7.0
+    deg_sigma_mean: float = 10.0
+    min_normals: int = 10
+    conv_trans: float = 0.01        # metres
+    conv_rot_deg: float = 0.1       # degrees
+
+
+class EskfOptions(NamedTuple):
+    gyr_var: float = 1e-4
+    acc_var: float = 1e-2
+    bias_gyr_var: float = 1e-8
+    bias_acc_var: float = 1e-6
+    g_norm: float = 9.81
+
+
+@dataclass
+class LioConfig:
+    map_cfg: VoxelMapConfig = field(default_factory=VoxelMapConfig)
+    icp_cfg: CtIcpConfig = field(default_factory=CtIcpConfig)
+    eskf_opt: EskfOptions = field(default_factory=EskfOptions)
+    max_keypoints: int = 2048
+    keypoint_cell: float = 0.05
+    static_init_samples: int = 100
+    insert_subsample: int = 1
+    g_norm: float = 9.81
+    scan_buffer: int = 4096
+    evict_every: int = 20
+
+
+def m3dgr_lio() -> LioConfig:
+    """The values ``config/loader.py`` gives for ``configs/m3dgr.yaml``'s
+    ``lio`` block: 0.2 m voxels, ≤ 20 points a voxel, 500 m range, 2000
+    keypoints on a 0.05 m grid, 5 CT-ICP iterations, degeneracy thresholds
+    σ_min 7 / σ_mean 10, convergence 0.01 m / 0.1°, g 9.7944; the map holds
+    1<<17 points and gathers 8 points from each of 27 voxels for a kNN of 20.
+    Nothing is cut."""
+    return LioConfig(
+        map_cfg=VoxelMapConfig(voxel_size=0.2, max_per_voxel=20,
+                               max_range=500.0),
+        icp_cfg=CtIcpConfig(outer_iters=5, deg_sigma_min=7.0,
+                            deg_sigma_mean=10.0, conv_trans=0.01,
+                            conv_rot_deg=0.1),
+        max_keypoints=2000, keypoint_cell=0.05, g_norm=9.7944)

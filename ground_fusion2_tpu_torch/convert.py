@@ -2,9 +2,10 @@
 
 :func:`to_torch` turns a state tree of the JAX package — ``WindowState``,
 ``FeatureWindow``, ``MargPrior``, ``ImuPreint``, ``WheelPreint``,
-``GnssTable``, ``VioMeasurements`` or ``FusedCarry``, with its leaves as numpy arrays (for
-example ``jax.tree.map(np.asarray, carry)``) — into the port's NamedTuple of
-tensors on ``device``. :func:`to_numpy` goes back: the port's tree with numpy
+``GnssTable``, ``VioMeasurements``, ``FusedCarry``, ``EskfState``,
+``VoxelMap``, ``SwitchCarry`` or ``LioCarry``, with its leaves as numpy
+arrays (for example ``jax.tree.map(np.asarray, carry)``) — into the port's
+NamedTuple of tensors on ``device``. :func:`to_numpy` goes back: the port's tree with numpy
 leaves, field names and dtypes as in the JAX package, so a test can rebuild
 the JAX NamedTuple with ``JaxType(**tree._asdict())``.
 """
@@ -16,6 +17,9 @@ import torch
 
 from .factors.vio_factors import FeatureTable
 from .gnss.factors import GnssTable
+from .lio.eskf import EskfState
+from .lio.fused import LioCarry, SwitchCarry
+from .lio.voxel_map import VoxelMap
 from .sensors.imu_preint import ImuPreint
 from .sensors.wheel_preint import WheelPreint
 from .solver.marginalize import MargPrior
@@ -27,7 +31,8 @@ from .vio.state import WindowState
 # JAX type name -> port type (same field names)
 _TYPES = {t.__name__: t for t in (
     WindowState, FeatureWindow, FeatureTable, FrameObs, MargPrior, ImuPreint,
-    WheelPreint, GnssTable, FusedCarry, TrackerCarry, VioMeasurements)}
+    WheelPreint, GnssTable, FusedCarry, TrackerCarry, VioMeasurements,
+    EskfState, VoxelMap, SwitchCarry, LioCarry)}
 
 _INDEX_FIELDS = ("anchor",)   # int32 in JAX, int64 (index dtype) here
 
@@ -55,6 +60,11 @@ def to_torch(tree, device):
             prev_pyr=[_leaf_to_torch(p, device) for p in tree.prev_pyr],
             prev_t=_leaf_to_torch(tree.prev_t, device),
             frame_idx=int(np.asarray(tree.frame_idx)))
+    if name == "LioCarry":
+        return LioCarry(eskf=to_torch(tree.eskf, device),
+                        vmap=to_torch(tree.vmap, device),
+                        sw=to_torch(tree.sw, device),
+                        frame_idx=int(np.asarray(tree.frame_idx)))
     if name in _TYPES:
         cls = _TYPES[name]
         out = {}

@@ -121,6 +121,23 @@ def quat_log(q: torch.Tensor) -> torch.Tensor:
     return k * u
 
 
+def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
+    """Shortest-arc spherical interpolation; ``t`` [...] broadcasts against
+    [..., 4]. The ``sin θ < 1e-5`` branch is a select, so under ``jacfwd``
+    the tangent of the chosen branch is taken, as in JAX."""
+    t = torch.as_tensor(t, dtype=q0.dtype, device=q0.device)[..., None]
+    d = torch.sum(q0 * q1, -1, keepdim=True)
+    q1 = torch.where(d < 0, -q1, q1)
+    d = torch.clamp(torch.abs(d), -1.0, 1.0)
+    theta = torch.arccos(d)
+    sin_theta = torch.sin(theta)
+    small = sin_theta < 1e-5
+    safe = torch.where(small, torch.ones_like(sin_theta), sin_theta)
+    w0 = torch.where(small, 1.0 - t, torch.sin((1.0 - t) * theta) / safe)
+    w1 = torch.where(small, t, torch.sin(t * theta) / safe)
+    return quat_normalize(w0 * q0 + w1 * q1)
+
+
 def quat_boxplus(q: torch.Tensor, dphi: torch.Tensor) -> torch.Tensor:
     """Right-multiplicative update q ⊗ exp(dphi)."""
     return quat_normalize(quat_mul(q, quat_exp(dphi)))

@@ -1,0 +1,181 @@
+"""Continuous-time point-to-plane ICP against the voxel map — port of
+``ground_fusion2_tpu/lio/ct_icp.py``.
+
+The scan pose is a (begin, end) SE(3) pair; each point sits at its sweep
+fraction ``alpha`` by slerp/lerp between them. Each outer iteration
+re-associates (kernel D: kNN + plane fit) and takes one damped GN step on
+the 12-dim tangent [δθ_begin, δt_begin, δθ_end, δt_end]; the normal
+equations of the a2D-weighted point-to-plane rows and the 9 regularizer rows
+are kernel E (``csrc/ct_icp_normal.cu``) on the card, ``torch.func.jacfwd``
+in the plain version. The 12×12 damped solve and the 3×3 ``eigvalsh`` of
+the degeneracy test stay in ``torch.linalg``.
+
+The iterations never wait for the host: the fixed trip count keeps its
+frozen steps, and the mid-solve re-gather (a ``lax.cond`` in JAX) selects
+the gather points on the device, ``where(moved > voxel/2, p_w(pose_mid),
+p_w0)``; kernel D searches the map around them every iteration, which gives
+the candidates JAX caches. ``eigvalsh`` checks its convergence on the host:
+one sync a solve.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import _kernels
+from ..config import CtIcpConfig, VoxelMapConfig
+from ..core import lie
+from . import voxel_map as vm
+
+
+class CtPose(NamedTuple):
+    q_begin: torch.Tensor
+    t_begin: torch.Tensor
+    q_end: torch.Tensor
+    t_end: torch.Tensor
+
+
+class IcpResult(NamedTuple):
+    pose: CtPose
+    n_corr: torch.Tensor       # accepted normals
+    sigma: torch.Tensor        # [3] singular values of the normal matrix
+    degenerate: torch.Tensor   # bool
+    cost: torch.Tensor
+
+
+def transform_points(pose: CtPose, pts_body, alpha):
+    """Per-point continuous-time transform (reference transformKeypoints)."""
+    q = lie.quat_slerp(pose.q_begin[None], pose.q_end[None], alpha)
+    t = (1.0 - alpha)[:, None] * pose.t_begin[None] + alpha[:, None] * pose.t_end[None]
+    return lie.quat_rotate(q, pts_body) + t
+
+
+def _retract(pose: CtPose, d) -> CtPose:
+    return CtPose(q_begin=lie.quat_boxplus(pose.q_begin, d[0:3]),
+                  t_begin=pose.t_begin + d[3:6],
+                  q_end=lie.quat_boxplus(pose.q_end, d[6:9]),
+                  t_end=pose.t_end + d[9:12])
+
+
+def _residuals(d, pose, pred, pts, alpha, centroid, normal, w,
+               cfg: CtIcpConfig):
+    K = pts.shape[0]
+    p = _retract(pose, d)
+    p_w = transform_points(p, pts, alpha)
+    r_plane = torch.sum((p_w - centroid) * normal, -1) * w
+    r_loc = (p.t_begin - pred.t_begin) * cfg.beta_location * K
+    r_vel = ((p.t_end - p.t_begin) - (pred.t_end - pred.t_begin)) \
+        * cfg.beta_velocity * K
+    r_ori = lie.quat_boxminus(p.q_end, p.q_begin) * cfg.beta_orientation * K
+    return torch.cat([r_plane, r_loc, r_vel, r_ori])
+
+
+def normal_equations_plain(pose: CtPose, pred: CtPose, pts, alpha, centroid,
+                           normal, w, cfg: CtIcpConfig):
+    """(H [12, 12], g [12], cost) at δ = 0: ``jacfwd`` of the K weighted
+    point-to-plane rows and the 9 regularizer rows (``w`` held constant)."""
+    f = lambda d: _residuals(d, pose, pred, pts, alpha, centroid, normal, w,
+                             cfg)
+    zero = torch.zeros(12, dtype=pts.dtype, device=pts.device)
+    r = f(zero)
+    J = torch.func.jacfwd(f)(zero)
+    return J.T @ J, J.T @ r, 0.5 * torch.sum(r * r)
+
+
+def normal_equations(pose: CtPose, pred: CtPose, pts, alpha, centroid,
+                     normal, w, cfg: CtIcpConfig):
+    """:func:`normal_equations_plain`, by kernel E on the card."""
+    if pts.is_cuda:
+        return _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg)
+    return normal_equations_plain(pose, pred, pts, alpha, centroid, normal, w,
+                                  cfg)
+
+
+def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg):
+    ts = [t.contiguous() for t in (*pose, *pred, pts, alpha, centroid, normal,
+                                   w)]
+    if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
+        raise ValueError("ct_icp_normal kernel takes float32 CUDA tensors")
+    K = pts.shape[0]
+    dev = pts.device
+    out = torch.empty(12 * 12 + 12 + 1, device=dev)
+    P = ctypes.c_void_p
+    err = _kernels.library().gf2_ct_icp_normal(
+        *[P(t.data_ptr()) for t in ts], K,
+        ctypes.c_float(cfg.beta_location), ctypes.c_float(cfg.beta_velocity),
+        ctypes.c_float(cfg.beta_orientation), P(out.data_ptr()),
+        P(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_ct_icp_normal")
+    _kernels.count("ct_icp_normal")
+    return out[:144].view(12, 12), out[144:156], out[156]
+
+
+def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
+           map_cfg: VoxelMapConfig, vmap: vm.VoxelMap,
+           pred: CtPose | None = None) -> IcpResult:
+    """Scan-to-map registration. ``pred`` anchors the regularizers
+    (defaults to ``pose0``)."""
+    if pred is None:
+        pred = pose0
+    dtype, dev = pts_body.dtype, pts_body.device
+    eye = torch.eye(12, dtype=dtype, device=dev)
+    conv_rot = math.radians(cfg.conv_rot_deg)
+
+    def assoc(pose, p_gather):
+        p_w = transform_points(pose, pts_body, alpha)
+        normal, centroid, a2d, valid = vm.associate(vmap, p_gather, p_w,
+                                                    map_cfg)
+        dist = torch.abs(torch.sum((p_w - centroid) * normal, -1))
+        w = (kp_mask * valid.to(dtype)
+             * (a2d > cfg.min_planarity).to(dtype)
+             * (dist < cfg.max_corr_dist).to(dtype) * a2d * a2d)
+        return normal, centroid, w
+
+    def gn_iter(pose, done, p_gather):
+        normal, centroid, w = assoc(pose, p_gather)
+        H, g, cost = normal_equations(pose, pred, pts_body, alpha, centroid,
+                                      normal, w, cfg)
+        damped = H + eye * (cfg.damping * torch.clamp(
+            torch.max(torch.diagonal(H)), min=1.0))
+        d = -torch.linalg.solve_ex(damped, g).result
+        d = d * (1.0 - done)                     # frozen once converged
+        dt_norm = torch.maximum(torch.linalg.norm(d[3:6]),
+                                torch.linalg.norm(d[9:12]))
+        dth_norm = torch.maximum(torch.linalg.norm(d[0:3]),
+                                 torch.linalg.norm(d[6:9]))
+        done = torch.maximum(done, ((dt_norm < cfg.conv_trans)
+                                    & (dth_norm < conv_rot)).to(dtype))
+        return _retract(pose, d), cost, done
+
+    p_w0 = transform_points(pose0, pts_body, alpha)
+    n1 = min(max(cfg.outer_iters // 2, 1), cfg.outer_iters)
+    pose, cost = pose0, torch.zeros((), dtype=dtype, device=dev)
+    done = torch.zeros((), dtype=dtype, device=dev)
+    for _ in range(n1):
+        pose, cost, done = gn_iter(pose, done, p_w0)
+    moved = torch.maximum(torch.linalg.norm(pose.t_begin - pose0.t_begin),
+                          torch.linalg.norm(pose.t_end - pose0.t_end))
+    regathered = moved > 0.5 * map_cfg.voxel_size
+    p_gather = torch.where(regathered, transform_points(pose, pts_body, alpha),
+                           p_w0)
+    # a re-association invalidates the convergence latch
+    done = torch.where(regathered, torch.zeros_like(done), done)
+    for _ in range(cfg.outer_iters - n1):
+        pose, cost, done = gn_iter(pose, done, p_gather)
+
+    # degeneracy: eigenvalues of the accepted normals' scatter matrix
+    normal, _, w = assoc(pose, p_gather)
+    sel = (w > 0).to(dtype)
+    n_sel = torch.sum(sel)
+    A = torch.einsum("k,ki,kj->ij", sel, normal, normal)
+    evals = torch.linalg.eigvalsh(A)
+    sigma = torch.sqrt(torch.clamp(evals.flip(0), min=0.0))
+    degenerate = ((torch.mean(sigma) < cfg.deg_sigma_mean)
+                  | (sigma[2] < cfg.deg_sigma_min)
+                  | (n_sel <= cfg.min_normals))
+    return IcpResult(pose=pose, n_corr=n_sel, sigma=sigma,
+                     degenerate=degenerate, cost=cost)

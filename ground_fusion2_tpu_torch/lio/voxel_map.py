@@ -1,0 +1,275 @@
+"""Fixed-capacity sorted-code voxel map — port of
+``ground_fusion2_tpu/lio/voxel_map.py``.
+
+A flat [N, 3] point array with packed int32 voxel codes kept sorted by code
+(10 bits an axis around ``origin``; empty slots hold ``INVALID``). Insert =
+concat + stable sorts by (code, subcell) + dedup/cap + overflow-by-distance
++ compaction; query = binary search of the 27 neighbour codes + a fixed
+window of ``gather_k`` points per voxel.
+
+Two kernels carry it on the card:
+  * kernel F (``csrc/radix_sort.cu``), :func:`stable_argsort`: every sort of
+    the LiDAR tick. All keys are non-negative (codes < 2³⁰ or INVALID,
+    subcells < 64, hash codes ≤ 0x7FFFFFFF, squared distances ≥ 0 or +inf),
+    so their bit patterns sort as uint32;
+  * kernel D (``csrc/lio_assoc.cu``), :func:`associate`: gather + kNN + plane
+    fit per query, one warp each, with no [Q, 27·gk, 3] candidate array.
+
+The map must match the JAX map bit for bit, in codes and point order: every
+sort is stable, squared distances are summed ((x + y) + z) as XLA does, and
+the voxel coordinate divides by ``voxel_size`` as JAX does.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .. import _kernels
+from ..config import VoxelMapConfig
+from ..core.eig3 import sym_eig3_smallest
+
+INVALID = 2**31 - 1
+BITS = 10
+HALF = 1 << (BITS - 1)          # 512 voxels each side of the origin
+SUB = 4                         # 4³ = 64 subcells a voxel (min spacing)
+CODE_BITS = 31                  # every key of the tick fits in 31 bits
+RADIX_TILE = 1024               # keys a block in csrc/radix_sort.cu
+MIN_PTS = 5                     # neighbours a plane fit needs
+
+# 3³ neighbourhood offsets in meshgrid(..., indexing="ij") order
+NBR = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1], indexing="ij"),
+               -1).reshape(-1, 3).astype(np.int32)
+
+
+class VoxelMap(NamedTuple):
+    pts: torch.Tensor      # [N, 3]
+    code: torch.Tensor     # [N] int32, sorted; INVALID for empty slots
+    origin: torch.Tensor   # [3]
+
+    @staticmethod
+    def empty(cfg: VoxelMapConfig, device=None) -> "VoxelMap":
+        n = cfg.capacity
+        return VoxelMap(
+            pts=torch.zeros((n, 3), device=device),
+            code=torch.full((n,), INVALID, dtype=torch.int32, device=device),
+            origin=torch.zeros(3, device=device))
+
+
+# ---------------------------------------------------------------- kernel F
+def stable_argsort(keys: torch.Tensor, bits: int = CODE_BITS) -> torch.Tensor:
+    """Stable ascending argsort (int64) of non-negative int32 keys below
+    2**bits, or of non-negative float32 keys (``bits`` = 31). Kernel F on the
+    card, ``torch.sort(stable=True)`` on the CPU."""
+    if keys.is_cuda:
+        return _radix_argsort_cuda(keys, bits)
+    return torch.sort(keys, stable=True).indices
+
+
+def _radix_argsort_cuda(keys: torch.Tensor, bits: int) -> torch.Tensor:
+    if keys.dim() != 1 or keys.dtype not in (torch.int32, torch.float32):
+        raise ValueError("radix_sort kernel takes a 1-D int32 or float32 key")
+    if not 1 <= bits <= 32:
+        raise ValueError(f"radix_sort kernel: bits {bits} outside [1, 32]")
+    keys = keys.contiguous()
+    n = keys.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=keys.device)
+    if n == 0:
+        return out.long()
+    n_tiles = -(-n // RADIX_TILE)
+    scratch = torch.empty(2 * n + 256 * n_tiles, dtype=torch.int32,
+                          device=keys.device)
+    idx_tmp = torch.empty(n, dtype=torch.int32, device=keys.device)
+    P = ctypes.c_void_p
+    err = _kernels.library().gf2_radix_argsort(
+        P(keys.data_ptr()), n, bits, P(scratch.data_ptr()),
+        P(idx_tmp.data_ptr()), P(out.data_ptr()),
+        P(torch.cuda.current_stream(keys.device).cuda_stream))
+    _kernels.check(err, "gf2_radix_argsort")
+    _kernels.count("radix_sort")
+    return out.long()
+
+
+# ---------------------------------------------------------------- coding
+def _in_voxels(x, voxel_size):
+    """x / voxel_size, correctly rounded on every device. A Python-scalar
+    divisor would take PyTorch's CUDA shortcut x · (1/s), which is off by
+    an ulp at times and then moves a point on a voxel boundary; a tensor
+    divisor divides, as JAX and kernel D do."""
+    return x / torch.full((), voxel_size, dtype=x.dtype, device=x.device)
+
+
+def _coords(pts, origin, voxel_size):
+    return torch.floor(_in_voxels(pts - origin, voxel_size)).to(torch.int32)
+
+
+def _pack(ijk):
+    """[..., 3] voxel coords -> int32 code; out of range -> INVALID."""
+    shifted = ijk + HALF
+    ok = torch.all((shifted >= 0) & (shifted < (1 << BITS)), dim=-1)
+    code = (shifted[..., 0] | (shifted[..., 1] << BITS)
+            | (shifted[..., 2] << (2 * BITS)))
+    return torch.where(ok, code, torch.full_like(code, INVALID))
+
+
+def _subcell(pts, origin, voxel_size):
+    rel = _in_voxels(pts - origin, voxel_size)
+    frac = rel - torch.floor(rel)
+    sub = torch.clamp((frac * SUB).to(torch.int32), 0, SUB - 1)
+    return sub[..., 0] | (sub[..., 1] << 2) | (sub[..., 2] << 4)
+
+
+def _dist2(a, b):
+    d = a - b
+    return (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2]
+
+
+def _invalidate(code, keep):
+    return torch.where(keep, code, torch.full_like(code, INVALID))
+
+
+# ---------------------------------------------------------------- updates
+def insert(vmap: VoxelMap, new_pts, new_mask, cfg: VoxelMapConfig,
+           center=None) -> VoxelMap:
+    """Insert masked points, dedup at subcell resolution, cap per voxel and
+    keep the map sorted; existing points win ties. On overflow the points
+    farthest from ``center`` go (code-order truncation without it)."""
+    n = vmap.pts.shape[0]
+    new_code = _invalidate(_pack(_coords(new_pts, vmap.origin, cfg.voxel_size)),
+                           new_mask > 0)
+    pts = torch.cat([vmap.pts, new_pts])
+    code = torch.cat([vmap.code, new_code])
+    sub = _subcell(pts, vmap.origin, cfg.voxel_size)
+
+    # lexicographic (code, sub): secondary key first, then primary
+    o1 = stable_argsort(sub, 2 * 3)
+    pts, code, sub = pts[o1], code[o1], sub[o1]
+    o2 = stable_argsort(code)
+    pts, code, sub = pts[o2], code[o2], sub[o2]
+
+    total = pts.shape[0]
+    idx = torch.arange(total, device=pts.device)
+    first = torch.ones(1, dtype=torch.bool, device=pts.device)
+    new_voxel = torch.cat([first, code[1:] != code[:-1]])
+    new_subcell = new_voxel | torch.cat([first, sub[1:] != sub[:-1]])
+    seg_start = torch.cummax(torch.where(new_voxel, idx, 0), 0).values
+    keep = new_subcell & (idx - seg_start < cfg.max_per_voxel) & (code != INVALID)
+    code = _invalidate(code, keep)
+
+    if center is not None:
+        key = torch.where(code != INVALID, _dist2(pts, center),
+                          torch.full((total,), float("inf"), device=pts.device))
+        order_d = stable_argsort(key)
+        rank = torch.empty(total, dtype=torch.int64, device=pts.device)
+        rank[order_d] = idx
+        code = _invalidate(code, rank < n)
+
+    o3 = stable_argsort(code)
+    return VoxelMap(pts=pts[o3][:n], code=code[o3][:n], origin=vmap.origin)
+
+
+def recenter(vmap: VoxelMap, center, cfg: VoxelMapConfig) -> VoxelMap:
+    """Move the packing origin to the voxel-aligned ``center`` and re-key
+    every stored point (one repack + sort)."""
+    new_origin = torch.floor(_in_voxels(center, cfg.voxel_size)) * cfg.voxel_size
+    code = _invalidate(_pack(_coords(vmap.pts, new_origin, cfg.voxel_size)),
+                       vmap.code != INVALID)
+    order = stable_argsort(code)
+    return VoxelMap(pts=vmap.pts[order], code=code[order], origin=new_origin)
+
+
+def evict_far(vmap: VoxelMap, center, cfg: VoxelMapConfig) -> VoxelMap:
+    """Drop points beyond ``max_range`` of ``center``."""
+    d = torch.sqrt(_dist2(vmap.pts, center))
+    code = _invalidate(vmap.code, (d < cfg.max_range) & (vmap.code != INVALID))
+    order = stable_argsort(code)
+    return VoxelMap(pts=vmap.pts[order], code=code[order], origin=vmap.origin)
+
+
+# ---------------------------------------------------------------- queries
+def gather_candidates(vmap: VoxelMap, queries, cfg: VoxelMapConfig):
+    """[Q, 3] -> (cand [Q, 27·gk, 3], cand_mask [Q, 27·gk]) from each
+    query's 3³ voxel neighbourhood."""
+    Q = queries.shape[0]
+    gk = cfg.gather_k
+    nbr = torch.as_tensor(NBR, device=queries.device)
+    codes = _pack(_coords(queries, vmap.origin, cfg.voxel_size)[:, None] + nbr)
+    start = torch.searchsorted(vmap.code, codes, side="left")
+    end = torch.searchsorted(vmap.code, codes, side="right")
+    end = torch.where(codes == INVALID, start, end)
+    gidx = start[..., None] + torch.arange(gk, device=queries.device)
+    valid = gidx < end[..., None]
+    gidx = torch.clamp(gidx, 0, vmap.pts.shape[0] - 1)
+    cand = vmap.pts[gidx.reshape(-1)].reshape(Q, 27 * gk, 3)
+    return cand, valid.reshape(Q, 27 * gk)
+
+
+def knn_from_candidates(queries, cand, cand_mask, k: int):
+    """The k nearest candidates per query, ties to the lower candidate
+    index (``lax.top_k`` order): (neigh [Q, k, 3], nmask [Q, k])."""
+    d2 = _dist2(cand, queries[:, None, :])
+    d2 = torch.where(cand_mask, d2, torch.full_like(d2, float("inf")))
+    srt = torch.sort(d2, dim=1, stable=True)
+    top = srt.indices[:, :k]
+    neigh = torch.gather(cand, 1, top[..., None].expand(*top.shape, 3))
+    return neigh, torch.isfinite(srt.values[:, :k])
+
+
+def fit_planes(neigh, nmask, min_pts: int = MIN_PTS):
+    """Per-query plane fit of the kNN set: (normal [Q, 3], centroid [Q, 3],
+    planarity a2D [Q], valid [Q])."""
+    w = nmask.to(neigh.dtype)
+    cnt = torch.sum(w, 1)
+    cnt_safe = torch.clamp(cnt, min=1.0)
+    mean = torch.sum(neigh * w[..., None], 1) / cnt_safe[..., None]
+    d = (neigh - mean[:, None, :]) * w[..., None]
+    cov = torch.einsum("qki,qkj->qij", d, d) / cnt_safe[..., None, None]
+    evals, normal = sym_eig3_smallest(cov)
+    s = torch.sqrt(torch.clamp(evals, min=1e-12))
+    a2d = (s[..., 1] - s[..., 0]) / torch.clamp(s[..., 2], min=1e-9)
+    return normal, mean, a2d, cnt >= min_pts
+
+
+def associate_plain(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig):
+    """Plane fit of the kNN of ``p_query`` among the candidates gathered
+    around ``p_gather`` (the plain version of kernel D)."""
+    cand, cmask = gather_candidates(vmap, p_gather, cfg)
+    neigh, nmask = knn_from_candidates(p_query, cand, cmask, cfg.knn)
+    return fit_planes(neigh, nmask, MIN_PTS)
+
+
+def associate(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig):
+    """(normal, centroid, a2d, valid) per query: kernel D on the card."""
+    if p_query.is_cuda:
+        return _associate_cuda(vmap, p_gather, p_query, cfg)
+    return associate_plain(vmap, p_gather, p_query, cfg)
+
+
+def _associate_cuda(vmap, p_gather, p_query, cfg):
+    ts = [t.contiguous() for t in (vmap.code, vmap.pts, vmap.origin,
+                                   p_gather, p_query)]
+    if ts[0].dtype != torch.int32 or any(t.dtype != torch.float32
+                                         for t in ts[1:]):
+        raise ValueError("lio_assoc kernel takes int32 codes, float32 points")
+    if not all(t.is_cuda for t in ts):
+        raise ValueError("lio_assoc kernel takes CUDA tensors")
+    if 27 * cfg.gather_k > 448 or not 1 <= cfg.knn <= 32:
+        raise ValueError("lio_assoc kernel: 27·gather_k ≤ 448, knn ≤ 32")
+    Q, N = p_query.shape[0], vmap.code.shape[0]
+    dev = p_query.device
+    normal = torch.empty((Q, 3), device=dev)
+    centroid = torch.empty((Q, 3), device=dev)
+    a2d = torch.empty(Q, device=dev)
+    valid = torch.empty(Q, dtype=torch.bool, device=dev)
+    P = ctypes.c_void_p
+    err = _kernels.library().gf2_lio_assoc(
+        *[P(t.data_ptr()) for t in ts], N, Q, ctypes.c_float(cfg.voxel_size),
+        cfg.gather_k, cfg.knn, MIN_PTS,
+        *[P(t.data_ptr()) for t in (normal, centroid, a2d, valid)],
+        P(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_lio_assoc")
+    _kernels.count("lio_assoc")
+    return normal, centroid, a2d, valid

@@ -1,4 +1,5 @@
-"""The port's M3DGR camera configuration against the JAX package's loader.
+"""The port's M3DGR camera and LIO configurations against the JAX package's
+loader.
 
 ``m3dgr_camera()`` must give what ``load_config("configs/m3dgr.yaml")`` gives
 for the VIO path, with two documented differences in the tracker:
@@ -16,7 +17,7 @@ import pytest
 import torch
 
 from ground_fusion2_tpu.config.loader import load_config
-from ground_fusion2_tpu_torch.config import m3dgr_camera
+from ground_fusion2_tpu_torch.config import m3dgr_camera, m3dgr_lio
 
 torch.set_num_threads(1)
 YAML = Path(__file__).resolve().parent.parent / "configs" / "m3dgr.yaml"
@@ -63,3 +64,22 @@ def test_camera_and_extrinsics_match_loader(both):
     for name, want in (("tic", jax_cfg.tic), ("ric", jax_cfg.ric),
                        ("tio", jax_cfg.t_io), ("rio", jax_cfg.r_io)):
         np.testing.assert_array_equal(getattr(port, name), want, err_msg=name)
+
+
+def test_lio_config_matches_loader(both):
+    """``m3dgr_lio()`` is the loader's ``lio`` block of configs/m3dgr.yaml,
+    field by field, with the table of the M3DGR LIO settings."""
+    port = m3dgr_lio()
+    want = both[1].lio
+    for f in dataclasses.fields(want):
+        got, exp = getattr(port, f.name), getattr(want, f.name)
+        if hasattr(exp, "_asdict"):
+            got, exp = got._asdict(), exp._asdict()
+        assert got == exp, f.name
+    m, icp = port.map_cfg, port.icp_cfg
+    assert (m.voxel_size, m.max_per_voxel, m.max_range, m.capacity,
+            m.gather_k, m.knn) == (0.2, 20, 500.0, 1 << 17, 8, 20)
+    assert (icp.outer_iters, icp.deg_sigma_min, icp.deg_sigma_mean,
+            icp.conv_trans, icp.conv_rot_deg) == (5, 7.0, 10.0, 0.01, 0.1)
+    assert (port.max_keypoints, port.keypoint_cell, port.g_norm,
+            port.scan_buffer, port.evict_every) == (2000, 0.05, 9.7944, 4096, 20)

@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
-card, at the main path's shapes (the comparisons of ``chip_smoke.py`` phase
-3). Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it
-runs on a machine without it:
+card, at the main paths' shapes (the comparisons of ``chip_smoke.py``: the
+camera kernels A–C, and the LiDAR kernels D–G on a map filled by 12 scans of
+the bench_lio drive at the M3DGR LIO configuration). Marked ``cuda``;
+skipped without a GPU. This file imports no JAX, so it runs on a machine
+without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -10,6 +12,7 @@ import pytest
 import torch
 
 from ground_fusion2_tpu_torch import _kernels, checks
+from ground_fusion2_tpu_torch.config import m3dgr_lio
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +27,18 @@ def dev():
 @pytest.fixture(scope="module")
 def frames():
     return checks.room_drive(2)
+
+
+@pytest.fixture(scope="module")
+def lio(dev):
+    """An odometry on the card after 12 scans, and the kernels' inputs on
+    the 13th."""
+    from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
+    scans = checks.lidar_drive(13, z=1.0)
+    lo = LidarOdometry(m3dgr_lio(), device=dev)
+    for s in scans[:12]:
+        lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
+    return lo, scans[12], checks.lio_kernel_inputs(lo, scans[12])
 
 
 def test_clahe_kernel_matches_plain(dev, frames):
@@ -42,17 +57,75 @@ def test_proj_normal_kernel_matches_plain(dev):
     assert r["ok"], r
 
 
-def test_kernels_count_their_launches(dev, frames):
+def test_lio_assoc_kernel_matches_plain(dev, lio):
+    lo, _, x = lio
+    r = checks.check_assoc(dev, x, lo.cfg.map_cfg, lo.cfg.icp_cfg)
+    assert r["ok"], r
+    assert r["n_planar"] > 500
+
+
+def test_ct_icp_normal_kernel_matches_plain(dev, lio):
+    lo, _, x = lio
+    r = checks.check_ct_normal(dev, x, lo.cfg.icp_cfg)
+    assert r["ok"], r
+
+
+def test_radix_sort_kernel_matches_plain(dev, lio):
+    lo, _, x = lio
+    r = checks.check_radix(dev, x, lo.cfg.map_cfg)
+    assert r["ok"], r
+
+
+def test_eskf_predict_kernel_matches_plain(dev, lio):
+    lo, _, x = lio
+    r = checks.check_eskf(dev, x, lo.cfg.eskf_opt)
+    assert r["ok"], r
+
+
+def test_kernels_count_their_launches(dev, frames, lio):
     _kernels.launches.clear()
     checks.check_proj(dev, timed=False)
     assert _kernels.launches["proj_normal"] == 1
     assert _kernels.launches["clahe"] == 0
+    lo, s, _ = lio
+    _kernels.launches.clear()
+    lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
+    n = dict(_kernels.launches)
+    it = lo.cfg.icp_cfg.outer_iters
+    assert n["eskf_predict"] == 1
+    assert n["lio_assoc"] == it + 1          # every GN iteration + degeneracy
+    assert n["ct_icp_normal"] == it
+    assert n["radix_sort"] >= 2 + 4          # keypoints + insert
+    assert n.get("proj_normal", 0) == 0
 
 
-def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch):
+def _launch(name, dev):
+    from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
+    from ground_fusion2_tpu_torch.frontend.clahe import clahe
+    from ground_fusion2_tpu_torch.lio import ct_icp, eskf, voxel_map as vm
+    if name == "clahe":
+        return clahe(torch.zeros((48, 64), device=dev))
+    if name == "radix_sort":
+        return vm.stable_argsort(torch.zeros(64, dtype=torch.int32, device=dev))
+    cfg = VoxelMapConfig(capacity=64)
+    z3 = torch.zeros((8, 3), device=dev)
+    if name == "lio_assoc":
+        return vm.associate(vm.VoxelMap.empty(cfg, dev), z3, z3, cfg)
+    s = eskf.EskfState.initial(device=dev)
+    if name == "eskf_predict":
+        z = torch.zeros(4, device=dev)
+        return eskf.predict_final(s, z3[:4], z3[:4], z, z, EskfOptions())
+    pose = ct_icp.CtPose(s.q, s.p, s.q, s.p)
+    z = torch.zeros(8, device=dev)
+    return ct_icp.normal_equations(pose, pose, z3, z, z3, z3, z,
+                                   m3dgr_lio().icp_cfg)
+
+
+@pytest.mark.parametrize("name", ["clahe", "lio_assoc", "ct_icp_normal",
+                                  "radix_sort", "eskf_predict"])
+def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(
         RuntimeError(f"{name}: forced failure")))
-    from ground_fusion2_tpu_torch.frontend.clahe import clahe
     with pytest.raises(RuntimeError, match="forced failure"):
-        clahe(torch.zeros((48, 64), device=dev))
+        _launch(name, dev)

@@ -1,7 +1,8 @@
 """The port runs without JAX: in a subprocess where ``import jax`` fails,
 import every module of ``ground_fusion2_tpu_torch``, track features over two
-small rendered frames (CLAHE, KLT, RANSAC, refill) and take LM steps on a
-synthetic window through the projection normal equations."""
+small rendered frames (CLAHE, KLT, RANSAC, refill), take LM steps on a
+synthetic window through the projection normal equations, and run a few
+fused LiDAR ticks at a tiny size."""
 
 import subprocess
 import sys
@@ -54,8 +55,20 @@ def cost_at(d):
 out = lm_solve(lin, cost_at, layout.dim, 3, free_mask=free)
 assert bool(torch.isfinite(out.delta).all())
 assert float(out.cost) < float(out.cost0), (float(out.cost), float(out.cost0))
+
+from ground_fusion2_tpu_torch.config import CtIcpConfig, LioConfig, VoxelMapConfig
+from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
+lo = LidarOdometry(LioConfig(
+    map_cfg=VoxelMapConfig(capacity=1 << 11, max_range=50.0),
+    icp_cfg=CtIcpConfig(outer_iters=2), max_keypoints=64, scan_buffer=256,
+    static_init_samples=20))
+for s in checks.lidar_drive(4, z=1.0, n_rays=256):
+    lio_out = lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
+assert lo.dispatch_count == 3, lo.dispatch_count
+assert np.all(np.isfinite(lio_out.p_fused)) and lio_out.n_corr > 0, lio_out
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
-print("ok", int(obs.alive.sum()), float(out.cost0), float(out.cost))
+print("ok", int(obs.alive.sum()), float(out.cost0), float(out.cost),
+      lio_out.n_corr)
 """
 
 
