@@ -3,18 +3,26 @@
 The JAX package ``ground_fusion2_tpu`` is the reference; this package mirrors
 its layout module by module so each counterpart is easy to find:
 
-  core/      SO(3) quaternion ops, robust weights, the pinhole camera
-  sensors/   IMU + wheel preintegration (sequential loops)
+  core/      SO(3) quaternion ops, robust weights, the pinhole camera,
+             the 3×3 eigensolver, the default device
+  sensors/   IMU + wheel preintegration; every window interval in one
+             launch (window_preint.py)
   factors/   VIO residual blocks + the projection normal-equation kernel
   solver/    damped Gauss-Newton / LM, Schur, marginalization prior
   vio/       window state, feature window, problem, warm-up estimator,
-             the fused camera tick
-  frontend/  CLAHE and KLT kernels, pyramid/Shi-Tomasi/grid detection,
-             F-matrix RANSAC, the warm-up tracker
+             the fused camera tick, the IMU-rate propagator
+  frontend/  CLAHE, pyramid/Shi-Tomasi, grid detection, KLT and F-RANSAC
+             kernels, the warm-up tracker
+  lio/       ESKF, voxel map, CT-ICP, the fused LiDAR tick
   gnss/      the GNSS table container the window carry holds
+  system.py  GroundFusion: the two ticks joined by the IMU-rate handoff
+  runtime/   telemetry; data/, eval/: numpy copies of the JAX package's
+             renderer, simulator and metrics
   csrc/      hand-written CUDA C++ kernels (sm_90a), built at first use
 
-It imports torch and numpy, never jax. Plain tensor code runs eagerly; each
+It imports torch and numpy, never jax, and loads no file of the JAX
+package. Entry points run on the card unless the caller passes
+``device="cpu"``. Plain tensor code runs eagerly; each
 kernel wrapper launches its CUDA kernel for tensors on the card and takes its
 plain PyTorch version only for tensors on the CPU.
 """

@@ -45,6 +45,11 @@ _SIGNATURES = {
     "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 2,
     "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P, _P],
     "gf2_eskf_predict": [_P] * 11 + [_I] + [_F] * 4 + [_P] * 5,
+    "gf2_preint": [_P] * 9 + [_I] * 2 + [_F] * 6 + [_P, _I] + [_P] * 4,
+    "gf2_blur_decimate": [_P, _I, _I, _P, _P],
+    "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
+    "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
+    "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 6,
 }
 
 

@@ -1,11 +1,13 @@
-"""Kernel-vs-plain comparisons at the main path's shapes, shared by
-``chip_smoke.py`` and ``tests/test_torch_kernels.py``.
+"""Kernel-vs-plain comparisons at the main path's shapes, and the drives,
+shared by ``chip_smoke.py`` and the port's tests.
 
 Each ``check_*`` runs the CUDA kernel and its plain PyTorch version on the
 same tensors on the card and returns their max errors, the tolerance it
-holds them to, and the median time of each. Launches made here are counted
-by the wrappers like any other; callers reset the counts before the run they
-want to attribute.
+holds them to, the median time of each, the least time the card could take
+for the same work (``bound_ms``, :func:`bound`) and, where one PyTorch call
+computes the same function, that call's time (``library_ms``, else None).
+Launches made here are counted by the wrappers like any other; callers
+reset the counts before the run they want to attribute.
 """
 
 from __future__ import annotations
@@ -15,14 +17,16 @@ import statistics
 import numpy as np
 import torch
 
-from ._shared import render, synthetic as sim
+from .data import render, synthetic as sim
 from .factors import vio_factors as fac
 from .frontend import clahe as clahe_mod
 from .frontend import klt
+from .frontend import ransac as rs
 from .lio import ct_icp as ci
 from .lio import eskf as ekf
 from .lio import fused as lfu
 from .lio import voxel_map as vm
+from .sensors import window_preint as wp
 from .vio.state import NUM_FRAMES, WindowLayout, WindowState
 from .core import lie
 
@@ -48,6 +52,33 @@ ICP_G_TOL = 1e-3       # kernel E: g per entry against sqrt(H_ii·2·cost)
 # kernel G walks the samples in order where the plain version's cumsum and
 # the JAX scan reassociate: f32 rounding over ≤ 48 steps
 ESKF_TOL = dict(p=1e-5, v=1e-5, q=1e-6, cov_rel=1e-5)
+
+# kernel H walks each interval in order, as the plain loops do; only the
+# order of the 15-term matrix sums differs (f32 over ≤ 128 steps)
+PREINT_TOL = dict(delta=1e-6, rel=1e-5)   # dp, dv, dq abs; cov, jac / max|.|
+PYR_REL_TOL = 1e-6     # kernel I: levels, response, relative to their max
+RANSAC_F_TOL = 1e-4    # kernel K: unit-norm F against the plain solve in f64
+RANSAC_BAND = 1e-3     # a mask may differ only where d² is this close to thr²
+
+# the card's published peaks (H100 SXM, NVIDIA data sheet)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate, and its operations over the f32 peak."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    return dict(bound_ms=max(t_b, t_f),
+                bound_by="bytes" if t_b >= t_f else "operations",
+                bytes=float(nbytes), flops=float(flops))
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
 
 M3DGR_INTRINSICS = (607.79772949218, 607.83526611328, 328.79772949218,
                     245.53321838378)
@@ -154,9 +185,12 @@ def check_clahe(device, frame=None) -> dict:
     out_k = clahe_mod.clahe(img)
     out_p = clahe_mod.clahe_plain(img)
     err = float((out_k - out_p).abs().max())
+    # image in and out; ~10 flops a pixel (bin, 4 LUT reads, blend)
     return dict(max_abs_err=err, tol=CLAHE_TOL, ok=err <= CLAHE_TOL,
                 ms=time_ms(lambda: clahe_mod.clahe(img)),
-                plain_ms=time_ms(lambda: clahe_mod.clahe_plain(img)))
+                plain_ms=time_ms(lambda: clahe_mod.clahe_plain(img)),
+                library_ms=None,
+                **bound(_nbytes(img, out_k), 10 * img.numel()))
 
 
 def check_klt(device, frames=None, F: int = 150, half: int = 10,
@@ -174,8 +208,15 @@ def check_klt(device, frames=None, F: int = 150, half: int = 10,
     m = tp > 0
     mism = int((tk != tp).sum())
     err = float((pk - pp)[m].abs().max()) if bool(m.any()) else 0.0
+    # both pyramids, points and masks in, points and masks out; per valid
+    # track, level and direction: ~30 flops a patch pixel to set up and ~14
+    # an iteration
+    P = (2 * half + 1) ** 2
+    flops = int((valid > 0).sum()) * 2 * len(p0) * (iters * 14 + 30) * P
+    nb = _nbytes(*p0, *p1, uv, valid, pk, tk)
     return dict(max_abs_err=err, tol=KLT_TOL_PX, mask_mismatch=mism,
                 n_tracked=int(m.sum()), ok=(mism == 0 and err <= KLT_TOL_PX),
+                library_ms=None, **bound(nb, flops),
                 ms=time_ms(lambda: klt.klt_track(p0, p1, uv, valid, half,
                                                  iters, fb)),
                 plain_ms=time_ms(lambda: klt.klt_track_plain(
@@ -268,7 +309,13 @@ def check_assoc(device, x: dict, cfg, icp_cfg) -> dict:
     errs = dict(normal=e_n, centroid=e_c, a2d=e_a)
     ok = (bool(torch.equal(vk, vp)) and flips == 0
           and all(errs[k] <= ASSOC_TOL[k] for k in errs))
+    # the map (codes, points) and the queries in, four outputs; per query
+    # 27 voxels × gather_k candidates at 8 flops, a 20-point plane fit
+    K = p_q.shape[0]
+    nb = _nbytes(vmap.code, vmap.pts, p_g, p_q, nk, ck, ak, vk)
+    flops = K * (27 * cfg.gather_k * 8 + cfg.knn * 30 + 100)
     return dict(max_abs_err=max(errs.values()), errs=errs, tol=ASSOC_TOL,
+                library_ms=None, **bound(nb, flops),
                 valid_equal=bool(torch.equal(vk, vp)), gate_flips=flips,
                 n_valid=int(vp.sum()), n_planar=int(planar.sum()), ok=ok,
                 ms=time_ms(lambda: vm.associate(vmap, p_g, p_q, cfg)),
@@ -294,8 +341,13 @@ def check_ct_normal(device, x: dict, icp_cfg) -> dict:
     errs = dict(H=rel(Hk, Hp), cost=rel(ck, cp),
                 g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
     tols = dict(H=ICP_REL_TOL, g=ICP_G_TOL, cost=ICP_REL_TOL)
+    # per keypoint row: the 12-wide Jacobian (~100 flops) and its outer
+    # product (2·12² flops); keypoints, planes and weights in, H, g out
+    n_rows = int((x["w"] > 0).sum())
+    nb = _nbytes(x["kp"], x["ka"], x["centroid"], x["normal"], x["w"], Hk, gk)
     return dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
-                tol=tols, n_rows=int((x["w"] > 0).sum()),
+                tol=tols, n_rows=n_rows, library_ms=None,
+                **bound(nb, n_rows * (100 + 2 * 12 * 12)),
                 ok=all(errs[k] <= tols[k] for k in errs),
                 ms=time_ms(lambda: ci.normal_equations(*args)),
                 plain_ms=time_ms(lambda: ci.normal_equations_plain(*args),
@@ -341,13 +393,17 @@ def check_radix(device, x: dict, cfg) -> dict:
     rc = vm.recenter(vmap, shift, cfg)
     ok_recenter = same(rc, vm.recenter(cpu(vmap), shift.cpu(), cfg))
     n_live = lambda m: int((m.code != vm.INVALID).sum())
+    # the plain version is the library call
+    lib = time_ms(lambda: torch.sort(code, stable=True))
     return dict(max_abs_err=float(mism), order_mismatches=mism,
                 insert=ok_insert, overflow=ok_overflow, recenter=ok_recenter,
                 fill=[n_live(vmap), n_live(ins), n_live(ovf)],
                 n_keys=int(code.shape[0]),
                 ok=mism == 0 and ok_insert and ok_overflow and ok_recenter,
                 ms=time_ms(lambda: vm.stable_argsort(code)),
-                plain_ms=time_ms(lambda: torch.sort(code, stable=True)))
+                plain_ms=lib, library_ms=lib,
+                # keys in, int32 order out; no arithmetic to speak of
+                **bound(code.numel() * (code.element_size() + 4), 0))
 
 
 def check_eskf(device, x: dict, opt) -> dict:
@@ -359,8 +415,14 @@ def check_eskf(device, x: dict, opt) -> dict:
     e = lambda a, b: float((a - b).abs().max())
     errs = dict(p=e(sk.p, sp.p), v=e(sk.v, sp.v), q=e(sk.q, sp.q),
                 cov_rel=e(sk.cov, sp.cov) / float(sp.cov.abs().max()))
+    # per valid sample T = F·P and P = T·Fᵀ (2 × 2·18³ flops); state,
+    # samples in, state out
+    n_s = int(x["smask"].sum())
+    nb = _nbytes(x["acc"], x["gyr"], x["dts"], x["smask"], x["eskf"].cov,
+                 sk.cov) + 4 * 4 * 16
     return dict(max_abs_err=max(errs["p"], errs["v"], errs["q"]), errs=errs,
-                tol=ESKF_TOL, n_samples=int(x["smask"].sum()),
+                tol=ESKF_TOL, n_samples=n_s, library_ms=None,
+                **bound(nb, n_s * 4 * 18 ** 3),
                 ok=all(errs[k] <= ESKF_TOL[k] for k in errs),
                 ms=time_ms(lambda: ekf.predict_final(*args)),
                 plain_ms=time_ms(lambda: ekf.predict_batch(*args), reps=5))
@@ -385,12 +447,274 @@ def check_proj(device, x0=None, feats=None, layout=None, delta=None,
     g_err = float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max())
     errs = dict(H=rel(Hk, Hp), g=g_err, cost=rel(ck, cp))
     tols = dict(H=PROJ_REL_TOL, g=PROJ_G_TOL, cost=PROJ_REL_TOL)
+    # per observation: two residual rows with ~20 nonzero Jacobian columns
+    # (~200 flops to form, 2 rows × 2·20² to accumulate); the feature table
+    # in, H and g out
+    n_obs = int(feats.obs_valid.sum())
+    nb = _nbytes(feats.ray, feats.vel, feats.obs_valid, feats.anchor,
+                 feats.track_valid, Hk, gk)
     out = dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
                tol=tols, dim=layout.dim,
-               ok=all(errs[k] <= tols[k] for k in errs))
+               ok=all(errs[k] <= tols[k] for k in errs), library_ms=None,
+               **bound(nb, n_obs * (200 + 2 * 2 * 20 * 20)))
     if timed:
         out["ms"] = time_ms(lambda: fac.projection_normal_equations(
             x0, delta, feats, layout, sqrt_info))
         out["plain_ms"] = time_ms(lambda: fac.projection_normal_equations_plain(
             x0, delta, feats, layout, sqrt_info), reps=5)
     return out
+
+
+# ------------------------------------------------------------ kernels H–K
+def preint_inputs(carry, statics, imu_noise, wheel_noise, col: int) -> dict:
+    """Kernel H's inputs on a fused camera tick: the carry's sample
+    buffers, the biases the new column takes over and the propagation
+    through interval ``col - 1`` (as ``vio.fused.solve_tick`` builds them)."""
+    st = carry.state
+    k = col - 1
+    dev = st.p.device
+    ba, bg = st.ba.clone(), st.bg.clone()
+    ba[col], bg[col] = st.ba[k], st.bg[k]
+    g = torch.tensor([0.0, 0.0, -statics.g_norm], dtype=torch.float32,
+                     device=dev)
+    return dict(args=(carry.acc, carry.gyr, carry.wvel, carry.dt, carry.smask,
+                      ba[:-1], bg[:-1], st.six, st.siy, st.siw, imu_noise,
+                      wheel_noise, st.qio),
+                prop=wp.Propagate(st.p[k], st.q[k], st.v[k], st.ba[k],
+                                  st.bg[k], g, k))
+
+
+def check_preint(device, x: dict) -> dict:
+    """Kernel H against the sequential loops on the window's intervals."""
+    run = lambda f: f(*x["args"], prop=x["prop"])
+    pk, wk, vk = run(wp.preintegrate_window)
+    pp, wpp, vp = run(wp.preintegrate_window_plain)
+    e = lambda a, b: float((a - b).abs().max())
+    rel = lambda a, b: e(a, b) / max(float(b.abs().max()), 1e-30)
+    errs = dict(dp=e(pk.dp, pp.dp), dv=e(pk.dv, pp.dv), dq=e(pk.dq, pp.dq),
+                wdp=e(wk.dp, wpp.dp), wdq=e(wk.dq, wpp.dq),
+                p=e(vk[0], vp[0]), q=e(vk[1], vp[1]), v=e(vk[2], vp[2]))
+    rels = dict(cov=rel(pk.cov, pp.cov), jac=rel(pk.jac, pp.jac),
+                wcov=rel(wk.cov, wpp.cov), wjac=rel(wk.jac_ix, wpp.jac_ix))
+    ok = (all(v <= PREINT_TOL["delta"] for v in errs.values())
+          and all(v <= PREINT_TOL["rel"] for v in rels.values()))
+    acc, gyr, wvel, dt, mask = x["args"][:5]
+    n_s = int(mask.sum())
+    n_k = int(mask[x["prop"].k].sum())
+    # samples in, ten intervals' IMU (460) and wheel (61) results out; per
+    # valid sample 3 × 2·15³ + 2·15²·18 flops (IMU), 2 × 2·6³ + 2·6²·12
+    # (wheel); ~100 a propagated sample
+    nb = _nbytes(acc, gyr, wvel, dt, mask) + 4 * dt.shape[0] * (460 + 61)
+    flops = n_s * (3 * 2 * 15 ** 3 + 2 * 15 * 15 * 18
+                   + 2 * 2 * 6 ** 3 + 2 * 36 * 12) + 100 * n_k
+    return dict(max_abs_err=max(errs.values()), errs=errs, rel_errs=rels,
+                tol=PREINT_TOL, n_samples=n_s, ok=ok,
+                ms=time_ms(lambda: run(wp.preintegrate_window)),
+                plain_ms=time_ms(lambda: run(wp.preintegrate_window_plain),
+                                 reps=3, warmup=1),
+                library_ms=None, **bound(nb, flops))
+
+
+def _pyramid_library(img, levels):
+    """Pad + strided conv per level: the library's counterpart of the
+    blur-and-decimate pyramid (a yardstick only)."""
+    k = torch.tensor([1.0, 4.0, 6.0, 4.0, 1.0], device=img.device) / 16.0
+    w = (k[:, None] * k[None, :])[None, None]
+    x = img[None, None]
+    out = []
+    for _ in range(levels - 1):
+        x = torch.nn.functional.conv2d(
+            torch.nn.functional.pad(x, (2, 2, 2, 2), mode="replicate"), w,
+            stride=2)
+        out.append(x)
+    return out
+
+
+def check_pyramid(device, frame) -> dict:
+    """Kernel I (blur-decimate levels 1–3, the Shi-Tomasi response) against
+    the plain versions on one CLAHE'd frame."""
+    img = clahe_mod.clahe_plain(_gray(frame, device))
+    pk = klt.build_pyramid(img, 4)
+    pp = klt.build_pyramid_plain(img, 4)
+    rk = klt.shi_tomasi(img)
+    rp = klt.shi_tomasi_plain(img)
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    errs = {f"level{l}": rel(a, b) for l, (a, b) in enumerate(zip(pk, pp))
+            if l > 0}
+    errs["response"] = rel(rk, rp)
+    ok = all(v <= PYR_REL_TOL for v in errs.values())
+    max_abs = max(float((a - b).abs().max()) for a, b in
+                  list(zip(pk[1:], pp[1:])) + [(rk, rp)])
+    # levels 0–2 read, 1–3 written, the image read and the response
+    # written; ~54 flops an output pixel (blur), ~45 a pixel (response)
+    n_out = sum(p.numel() for p in pp[1:])
+    pyr_b = bound(_nbytes(*pp[:3], *pp[1:]), 54 * n_out)
+    st_b = bound(_nbytes(img, rp), 45 * img.numel())
+    pyr = dict(max_abs_err=max_abs, rel_errs=errs, tol=PYR_REL_TOL, ok=ok,
+               ms=time_ms(lambda: klt.build_pyramid(img, 4)),
+               plain_ms=time_ms(lambda: klt.build_pyramid_plain(img, 4)),
+               library_ms=time_ms(lambda: _pyramid_library(img, 4)),
+               **pyr_b)
+    st = dict(max_abs_err=float((rk - rp).abs().max()),
+              rel_err=errs["response"], tol=PYR_REL_TOL, ok=ok,
+              ms=time_ms(lambda: klt.shi_tomasi(img)),
+              plain_ms=time_ms(lambda: klt.shi_tomasi_plain(img)),
+              library_ms=None, **st_b)
+    return dict(pyramid=pyr, shi_tomasi=st)
+
+
+def klt_tracks(device, frames, F: int = 150, cell: int = 30, half: int = 10,
+               iters: int = 10, fb: float = 0.8) -> dict:
+    """KLT tracks of ``frames[0] → frames[1]`` as the tracker makes them:
+    corners detected on the first, tracked into the second."""
+    imgs = [clahe_mod.clahe_plain(_gray(f, device)) for f in frames[:2]]
+    p0, p1 = (klt.build_pyramid_plain(im, 4) for im in imgs)
+    uv, _, ok = klt.detect_grid_plain(klt.shi_tomasi_plain(p0[0]),
+                                      torch.zeros((1, 2), device=device),
+                                      cell, F,
+                                      torch.zeros(1, device=device))
+    pts1, tracked = klt.klt_track_plain(p0, p1, uv, ok, half, iters, fb)
+    return dict(uv0=uv, uv1=pts1, alive=ok * tracked,
+                resp1=klt.shi_tomasi_plain(p1[0]))
+
+
+def check_detect(device, tracks: dict, cell: int = 30, F: int = 150,
+                 min_response: float = 1e-4) -> dict:
+    """Kernel J against the plain version on the second frame's response
+    with the tracks as occupied cells: the same uv in the same order, the
+    same valid mask."""
+    args = (tracks["resp1"], tracks["uv1"], cell, F, tracks["alive"])
+    uk, sk, vk = klt.detect_grid(*args, min_response=min_response)
+    up, sp, vp = klt.detect_grid_plain(*args, min_response=min_response)
+    sel_k = {tuple(u) for u, v in zip(uk.tolist(), vk.tolist()) if v > 0}
+    sel_p = {tuple(u) for u, v in zip(up.tolist(), vp.tolist()) if v > 0}
+    same = (sel_k == sel_p and torch.equal(vk, vp))
+    resp = tracks["resp1"]
+    n_cells = (resp.shape[0] // cell) * (resp.shape[1] // cell)
+    # the response and the tracks in, F candidates out; a compare a pixel and
+    # n_cells² for the rank
+    nb = _nbytes(resp, tracks["uv1"], tracks["alive"], uk, sk, vk)
+    return dict(max_abs_err=float((uk - up).abs().max()), set_equal=same,
+                order_equal=bool(torch.equal(uk, up)), n_valid=int(vp.sum()),
+                ok=same,
+                ms=time_ms(lambda: klt.detect_grid(*args,
+                                                   min_response=min_response)),
+                plain_ms=time_ms(lambda: klt.detect_grid_plain(
+                    *args, min_response=min_response)),
+                library_ms=None,
+                **bound(nb, resp.numel() * 3 + n_cells ** 2))
+
+
+def _unit_sign(Fs: torch.Tensor) -> torch.Tensor:
+    """F / |F|, the sign fixed so that the largest |entry| is positive."""
+    f = Fs.reshape(Fs.shape[0], 9).to(torch.float64)
+    f = f / torch.linalg.norm(f, dim=1, keepdim=True)
+    big = torch.gather(f, 1, f.abs().argmax(1, keepdim=True))
+    return f * torch.sign(big)
+
+
+def check_ransac(device, cam, tracks: dict, thresh: float, seed: int = 12,
+                 hypotheses: int = 64) -> dict:
+    """Kernel K on the KLT tracks: every hypothesis's F (unit norm, sign
+    fixed) against the plain solve run in float64 on the same inputs; the
+    chosen hypothesis's inlier count against the plain version in float32,
+    and the masks equal except where d² lies within RANSAC_BAND of thr²."""
+    from .frontend.tracker import normalized
+    p1 = normalized(cam, tracks["uv0"])
+    p2 = normalized(cam, tracks["uv1"])
+    valid = tracks["alive"]
+    F = valid.shape[0]
+    g = rs.gumbel_noise(seed, hypotheses, F, device)
+    out = rs.ransac_f_detail(p1, p2, valid, g, thresh)
+    d64 = lambda t: t.to(torch.float64)
+    F64 = rs.ransac_hypotheses_plain(d64(p1), d64(p2), d64(valid), d64(g))
+    f_err = float((_unit_sign(out["Fs"]) - _unit_sign(F64)).abs().max())
+    plain = rs.ransac_f_plain(p1, p2, valid, g, thresh)
+    keep_p, counts_p, best_p = plain["keep"], plain["counts"], int(plain["best"])
+    d2 = rs._sampson(plain["Fs"], p1, p2)
+    thr2 = thresh * thresh
+    diff = (out["keep"] != keep_p)
+    near = ((d2[best_p] - thr2).abs() <= RANSAC_BAND * thr2)
+    n_near = int((diff & near).sum())
+    n_far = int((diff & ~near).sum())
+    count_k = int(out["counts"][int(out["best"])])
+    ok = (f_err <= RANSAC_F_TOL and count_k == int(counts_p[best_p])
+          and n_far == 0)
+    # per hypothesis: an 8-of-F rank count, AᵀA (8·81·2), ~10 Jacobi sweeps
+    # of 36 rotations (~160 flops each), a Sampson distance (~30 flops)
+    # per track; points, masks and Gumbel noise in, the mask out
+    flops = hypotheses * (F * F + 8 * 81 * 2 + 10 * 36 * 160 + 30 * F)
+    nb = _nbytes(p1, p2, valid, g, out["keep"])
+    return dict(max_abs_err=f_err, f_err=f_err, tol=RANSAC_F_TOL,
+                count=count_k, count_plain=int(counts_p[best_p]),
+                mask_diff_near_threshold=n_near, mask_diff=n_far,
+                n_valid=int(valid.sum()), ok=ok,
+                ms=time_ms(lambda: rs.ransac_f_reject(p1, p2, valid, g,
+                                                       thresh)),
+                plain_ms=time_ms(lambda: rs.ransac_f_plain(
+                    p1, p2, valid, g, thresh), reps=5),
+                library_ms=None, **bound(nb, flops))
+
+
+# ------------------------------------------------------------------ system
+def system_drive(n: int, W: int = 640, H: int = 480,
+                 intrinsics=M3DGR_INTRINSICS, n_rays: int = 4096,
+                 spf: int = 20):
+    """The bench.py ``bench_system`` drive: the rendered room
+    (``make_room_scene(seed=0)``) and ``LidarSim.room(x=(-6, 10),
+    y=(-5, 5), n_rays, noise=0.005, seed=0)``, 0.8 m/s at 0.3 rad/s after a
+    0.8 s static prefix, the trajectory lifted 1 m and the camera 0.4 m above
+    it, ``spf`` IMU samples a frame; plus the body-frame wheel velocity, as
+    ``room_drive`` has (M3DGR runs with the wheel on). One dict a frame: t,
+    gray uint8, depth, imu (acc, gyr, dt), wheel, pts, alpha, valid, p_gt
+    (the body), p_cam (the camera)."""
+    fx, fy, cx, cy = intrinsics
+    rend = render.SceneRenderer(render.make_room_scene(seed=0), fx, fy, cx, cy,
+                                W, H)
+    lidar = sim.LidarSim.room(x=(-6, 10), y=(-5, 5), n_rays=n_rays,
+                              noise=0.005, seed=0)
+    traj = sim.make_planar_trajectory(duration=n * 0.1 + 2.0, speed=0.8,
+                                      yaw_rate=0.3, static_time=0.8,
+                                      ramp_time=0.5)
+    traj.p[:, 2] += 1.0
+    wvel = sim.wheel_velocity_body(traj).astype(np.float32)
+    rng = np.random.default_rng(0)
+    frames = []
+    for k in range(n):
+        i0, i1 = k * spf, (k + 1) * spf
+        R_wb = np.asarray(sim._quat_to_mat(traj.q[i1]))
+        p_cam = traj.p[i1] + [0, 0, 0.4]
+        gray, depth = rend.render(p_cam, R_wb @ RIG_RIC)
+        pts, alpha, valid = lidar.scan(traj.p[i0], traj.q[i0], traj.p[i1],
+                                       traj.q[i1], rng=rng)
+        imu = (traj.acc_body[i0:i1 + 1].astype(np.float32),
+               traj.gyr_body[i0:i1 + 1].astype(np.float32),
+               np.full((spf,), 0.005, np.float32))
+        frames.append(dict(
+            t=float(traj.t[i1]),
+            gray=np.clip(gray * 255.0, 0, 255).astype(np.uint8), depth=depth,
+            imu=imu, wheel=wvel[i0:i1 + 1], pts=pts, alpha=alpha, valid=valid,
+            p_gt=traj.p[i1].copy(), p_cam=p_cam))
+    return frames
+
+
+def system_errors(trajectory, vio_outs, frames) -> dict:
+    """The system gates on a ``system_drive``: the fused position error after
+    aligning the first fused output (against the body), the VIO's aligned
+    ATE (against the camera), the switches and the degenerate scans after
+    the second. ``trajectory``: FusedOutput (fused source); ``vio_outs``:
+    the initialized VIO outputs. Either package's outputs."""
+    from .eval.metrics import ate_rmse
+    by_t = {round(f["t"], 6): f for f in frames}
+    fused = [o for o in trajectory if o.source == "fused"]
+    gt = [by_t[round(o.t, 6)]["p_gt"] for o in fused]
+    off = gt[0] - np.asarray(fused[0].p)
+    errs = [float(np.linalg.norm(np.asarray(o.p) + off - g))
+            for o, g in zip(fused, gt)]
+    est = np.asarray([o.p for o in vio_outs])
+    gt_v = np.asarray([by_t[round(o.t, 6)]["p_cam"] for o in vio_outs])
+    return dict(
+        fused_err=max(errs), fused_err_final=errs[-1], n_fused=len(fused),
+        vio_ate=float(ate_rmse(est, gt_v, align=True)), n_vio=len(vio_outs),
+        switches=[(round(o.t, 3), o.switched) for o in fused if o.switched],
+        degenerate=[i for i, o in enumerate(fused) if o.degenerate and i >= 2])

@@ -206,3 +206,18 @@ def m3dgr_lio() -> LioConfig:
                             deg_sigma_mean=10.0, conv_trans=0.01,
                             conv_rot_deg=0.1),
         max_keypoints=2000, keypoint_cell=0.05, g_norm=9.7944)
+
+
+def m3dgr_system():
+    """``m3dgr_camera()`` and ``m3dgr_lio()`` in one
+    :class:`~.system.SystemConfig`, with the system flags ``bench.py``'s
+    ``bench_system`` runs: the VIO and LIO records read one tick late
+    (``vio_pipelined``, ``lio_pipelined``) and the depth decimated by 2."""
+    from .core.cameras import Pinhole
+    from .system import SystemConfig
+    cam = m3dgr_camera()
+    return SystemConfig(vio=cam.estimator, lio=m3dgr_lio(),
+                        tracker=cam.tracker,
+                        cam=Pinhole.create(*cam.intrinsics),
+                        cam_intr=cam.intrinsics, vio_pipelined=True,
+                        lio_pipelined=True, vio_depth_stride=2)

@@ -8,9 +8,14 @@ arrays (for example ``jax.tree.map(np.asarray, carry)``) — into the port's
 NamedTuple of tensors on ``device``. :func:`to_numpy` goes back: the port's tree with numpy
 leaves, field names and dtypes as in the JAX package, so a test can rebuild
 the JAX NamedTuple with ``JaxType(**tree._asdict())``.
+:func:`system_from_jax` carries a whole JAX ``GroundFusion`` (both carries,
+the IMU-rate propagator, the last VIO output) into the port's.
 """
 
 from __future__ import annotations
+
+import copy
+import dataclasses
 
 import numpy as np
 import torch
@@ -94,3 +99,92 @@ def to_numpy(tree):
             out[f] = v
         return type(tree)(**out)
     return tree
+
+
+def _config(cls, jcfg):
+    """A port config dataclass from the JAX package's one of the same name:
+    the fields the port carries, NamedTuple members rebuilt by name."""
+    out = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(jcfg, f.name)
+        if hasattr(v, "_asdict"):
+            port_t = type(getattr(cls(), f.name))
+            v = port_t(**{k: v._asdict()[k] for k in port_t._fields})
+        out[f.name] = v
+    return cls(**out)
+
+
+def system_config_from_jax(jcfg):
+    """The port's SystemConfig for a JAX ``SystemConfig`` (the fields the
+    port carries; the options it does not port must be off)."""
+    from .config import EstimatorConfig, LioConfig, TrackerConfig
+    from .core.cameras import Pinhole
+    from .system import SystemConfig
+    cam = None
+    if jcfg.cam is not None:
+        cam = Pinhole.create(*(float(np.asarray(getattr(jcfg.cam, k)))
+                               for k in ("fx", "fy", "cx", "cy")))
+    return SystemConfig(
+        vio=_config(EstimatorConfig, jcfg.vio), lio=_config(LioConfig, jcfg.lio),
+        use_lidar=jcfg.use_lidar, vio_backend=jcfg.vio_backend,
+        tracker=(None if jcfg.tracker is None
+                 else _config(TrackerConfig, jcfg.tracker)),
+        cam=cam, vio_pipelined=jcfg.vio_pipelined,
+        vio_depth_stride=jcfg.vio_depth_stride,
+        auto_dyn_mask=jcfg.auto_dyn_mask, lio_pipelined=jcfg.lio_pipelined,
+        use_loop_closure=jcfg.use_loop_closure,
+        use_global_fusion=jcfg.use_global_fusion, use_mesh=jcfg.use_mesh,
+        use_occupancy_grid=jcfg.use_occupancy_grid,
+        cam_intr=tuple(jcfg.cam_intr))
+
+
+def system_from_jax(gf, device, cfg=None):
+    """A port ``GroundFusion`` on ``device`` in the state of the JAX
+    package's ``gf``: the VIO carry (with its interval counts, frame count
+    and held-back record), the LIO carry (with its held-back record), the
+    ``FastPropagator`` buffers and ``latest_vio``. Both of ``gf``'s carries
+    must be live (after warm-up and the LIO's first fused tick). ``cfg``:
+    the port's SystemConfig (default: converted from ``gf.cfg``)."""
+    from .system import GroundFusion
+    from .vio.estimator import VioOutput
+    jv, jl = gf.vio, gf.lio
+    if jv.carry is None or (jl is not None and jl._carry is None):
+        raise ValueError("system_from_jax needs both carries live")
+    host = lambda tree: _tree_numpy(tree)
+    ext = dict(tic=jv._tic, ric=jv._ric, tio=jv._tio, rio=jv._rio)
+    out = GroundFusion(cfg or system_config_from_jax(gf.cfg), device=device,
+                       **ext)
+    v = out.vio
+    v.carry = to_torch(host(jv.carry), out.device)
+    v.counts = [int(n) for n in np.asarray(jv.carry.smask).sum(1)]
+    v.frame_count = jv.frame_count
+    v.fused_ticks = jv.dispatch_count
+    if jv._inflight is not None:
+        t, rec = jv._inflight
+        v._inflight = (t, torch.as_tensor(np.asarray(rec)), None)
+    if jl is not None:
+        lo = out.lio
+        lo._carry = to_torch(host(jl._carry), out.device)
+        lo.initialized = jl.initialized
+        lo.frame_idx = jl.frame_idx
+        lo.dispatch_count = jl.dispatch_count
+        if jl._inflight is not None:
+            t, rec = jl._inflight
+            lo._inflight = (t, np.asarray(rec))
+    out.prop.__dict__.update(copy.deepcopy(gf.prop.__dict__))
+    if gf.latest_vio is not None:
+        out.latest_vio = VioOutput(**{k: (np.asarray(x) if hasattr(x, "shape")
+                                          else x)
+                                      for k, x in gf.latest_vio._asdict().items()})
+    return out
+
+
+def _tree_numpy(tree):
+    """A JAX state tree with numpy leaves (NamedTuples, tuples, arrays)."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_numpy(x) for x in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_numpy(x) for x in tree)
+    if tree is None:
+        return None
+    return np.asarray(tree)

@@ -1,9 +1,10 @@
 """Image pyramid, Shi-Tomasi response, grid detection and pyramidal KLT
 (port of ``ground_fusion2_tpu/frontend/klt.py``).
 
-``klt_track`` is kernel B on the card; its plain PyTorch version runs on the
-CPU. Pyramid, response and detection are plain PyTorch for now (queued as
-kernels).
+On the card, ``build_pyramid`` and ``shi_tomasi`` launch kernel I
+(``csrc/pyramid.cu``), ``detect_grid`` kernel J (``csrc/detect_grid.cu``) and
+``klt_track`` kernel B (``csrc/klt.cu``); each ``*_plain`` version beside it
+runs for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -38,10 +39,40 @@ def _blur(img: torch.Tensor) -> torch.Tensor:
 
 def build_pyramid(img: torch.Tensor, levels: int = 4) -> list[torch.Tensor]:
     """[H, W] -> levels, level 0 = full resolution."""
+    if img.is_cuda:
+        return _pyramid_cuda(img, levels)
+    return build_pyramid_plain(img, levels)
+
+
+def build_pyramid_plain(img: torch.Tensor, levels: int = 4) -> list[torch.Tensor]:
     pyr = [img]
     for _ in range(levels - 1):
         img = _blur(img)[::2, ::2].contiguous()
         pyr.append(img)
+    return pyr
+
+
+def _f32_cuda(x: torch.Tensor, name: str) -> torch.Tensor:
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f"{name} kernel takes a float32 [H, W] image")
+    return x.contiguous()
+
+
+def _pyramid_cuda(img, levels):
+    lib = _kernels.library()
+    img = _f32_cuda(img, "pyramid")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(img.device).cuda_stream)
+    pyr = [img]
+    for _ in range(levels - 1):
+        H, W = img.shape
+        out = torch.empty(((H + 1) // 2, (W + 1) // 2), dtype=torch.float32,
+                          device=img.device)
+        err = lib.gf2_blur_decimate(ctypes.c_void_p(img.data_ptr()), H, W,
+                                    ctypes.c_void_p(out.data_ptr()), stream)
+        _kernels.check(err, "gf2_blur_decimate")
+        _kernels.count("pyramid")
+        pyr.append(out)
+        img = out
     return pyr
 
 
@@ -67,6 +98,21 @@ def _box3(x: torch.Tensor) -> torch.Tensor:
 
 def shi_tomasi(img: torch.Tensor) -> torch.Tensor:
     """Min-eigenvalue corner response [H, W]."""
+    if img.is_cuda:
+        img = _f32_cuda(img, "shi_tomasi")
+        H, W = img.shape
+        out = torch.empty_like(img)
+        err = _kernels.library().gf2_shi_tomasi(
+            ctypes.c_void_p(img.data_ptr()), H, W,
+            ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(img.device).cuda_stream))
+        _kernels.check(err, "gf2_shi_tomasi")
+        _kernels.count("shi_tomasi")
+        return out
+    return shi_tomasi_plain(img)
+
+
+def shi_tomasi_plain(img: torch.Tensor) -> torch.Tensor:
     gx, gy = _gradients(img)
     a = _box3(gx * gx)
     b = _box3(gx * gy)
@@ -81,7 +127,26 @@ def detect_grid(response: torch.Tensor, occupied_uv: torch.Tensor,
                 cell: int = 30, max_new: int = 64, occupied_mask=None,
                 border: int = 8, min_response: float = 1e-4):
     """Best corner per ``cell`` px cell, skipping occupied cells; the
-    ``max_new`` strongest. Returns (uv [max_new, 2], score, valid)."""
+    ``max_new`` strongest, larger first and the lower cell index on ties
+    (``lax.top_k``'s order). Returns (uv [max_new, 2], score, valid)."""
+    H, W = response.shape
+    if max_new > (H // cell) * (W // cell):
+        raise ValueError(f"detect_grid: max_new {max_new} exceeds the "
+                         f"{(H // cell) * (W // cell)} cells")
+    if border < 1:
+        raise ValueError("detect_grid: border must be at least 1")
+    if occupied_mask is None:
+        occupied_mask = torch.ones(occupied_uv.shape[0], dtype=response.dtype,
+                                   device=response.device)
+    if response.is_cuda:
+        return _detect_cuda(response, occupied_uv, cell, max_new,
+                            occupied_mask, border, min_response)
+    return detect_grid_plain(response, occupied_uv, cell, max_new,
+                             occupied_mask, border, min_response)
+
+
+def detect_grid_plain(response, occupied_uv, cell, max_new, occupied_mask,
+                      border=8, min_response=1e-4):
     H, W = response.shape
     gh, gw = H // cell, W // cell
     dev = response.device
@@ -99,9 +164,6 @@ def detect_grid(response: torch.Tensor, occupied_uv: torch.Tensor,
     uy = (torch.arange(gh, device=dev)[:, None] * cell + by).to(torch.float32)
     ux = (torch.arange(gw, device=dev)[None, :] * cell + bx).to(torch.float32)
 
-    if occupied_mask is None:
-        occupied_mask = torch.ones(occupied_uv.shape[0], dtype=response.dtype,
-                                   device=dev)
     cy = torch.clamp((occupied_uv[:, 1] // cell).to(torch.int64), 0, gh - 1)
     cx = torch.clamp((occupied_uv[:, 0] // cell).to(torch.int64), 0, gw - 1)
     occ = torch.zeros((gh, gw), dtype=response.dtype, device=dev)
@@ -112,8 +174,32 @@ def detect_grid(response: torch.Tensor, occupied_uv: torch.Tensor,
     flat_val = best_val.reshape(-1)
     flat_uv = torch.stack([ux.expand(gh, gw).reshape(-1),
                            uy.expand(gh, gw).reshape(-1)], -1)
-    top_val, top_idx = torch.topk(flat_val, max_new)
+    # a stable descending sort keeps the lower index first among ties
+    top_val, top_idx = torch.sort(flat_val, descending=True, stable=True)
+    top_val, top_idx = top_val[:max_new], top_idx[:max_new]
     return flat_uv[top_idx], top_val, (top_val > 0).to(response.dtype)
+
+
+def _detect_cuda(response, occupied_uv, cell, max_new, occupied_mask, border,
+                 min_response):
+    resp = _f32_cuda(response, "detect_grid")
+    dev = resp.device
+    H, W = resp.shape
+    n = (H // cell) * (W // cell)
+    uv_in = occupied_uv.to(torch.float32).contiguous()
+    m_in = occupied_mask.to(torch.float32).contiguous()
+    scratch = torch.empty((3 * n,), dtype=torch.float32, device=dev)
+    uv = torch.empty((max_new, 2), dtype=torch.float32, device=dev)
+    score = torch.empty((max_new,), dtype=torch.float32, device=dev)
+    valid = torch.empty((max_new,), dtype=torch.float32, device=dev)
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = _kernels.library().gf2_detect_grid(
+        P(resp), H, W, cell, max_new, border, ctypes.c_float(min_response),
+        P(uv_in), P(m_in), uv_in.shape[0], P(scratch), P(uv), P(score),
+        P(valid), ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_detect_grid")
+    _kernels.count("detect_grid")
+    return uv, score, valid.to(response.dtype)
 
 
 # ------------------------------------------------------------------- klt

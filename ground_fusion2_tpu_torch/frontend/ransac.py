@@ -5,13 +5,19 @@ The Gumbel noise that picks each hypothesis's 8 samples is an argument, so a
 test can hand in the JAX draws; :func:`gumbel_noise` draws it from a
 ``torch.Generator`` seeded per frame (the JAX tick keys ``PRNGKey(frame_idx)``;
 the two streams differ, the distributions match).
+
+On the card :func:`ransac_f_reject` launches kernel K (``csrc/ransac_f.cu``);
+:func:`ransac_f_plain` runs for tensors on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
+
+from .. import _kernels
 
 
 def gumbel_noise(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
@@ -70,11 +76,56 @@ def ransac_f_reject(pts1: torch.Tensor, pts2: torch.Tensor, valid: torch.Tensor,
     """pts1/pts2 [F, 2] normalized-plane points, valid [F] {0,1}, gumbel
     [K, F]. Returns the surviving mask [F]; with < 12 valid correspondences
     the input mask unchanged."""
+    return ransac_f_detail(pts1, pts2, valid, gumbel, thresh)["keep"]
+
+
+def ransac_hypotheses_plain(pts1, pts2, valid, gumbel) -> torch.Tensor:
+    """The K fundamental matrices [K, 3, 3] the hypotheses solve for."""
     g = gumbel + torch.log(torch.clamp(valid, min=1e-30))[None, :]
     idx = torch.topk(g, 8, dim=1).indices                      # [K, 8]
-    Fs = _eight_point(pts1[idx], pts2[idx])
+    return _eight_point(pts1[idx], pts2[idx])
+
+
+def ransac_f_plain(pts1, pts2, valid, gumbel, thresh) -> dict:
+    """The plain version: the mask ``keep`` and the same detail as
+    :func:`ransac_f_cuda`."""
+    Fs = ransac_hypotheses_plain(pts1, pts2, valid, gumbel)
     d2 = _sampson(Fs, pts1, pts2)
     inl = (d2 < thresh * thresh) & (valid > 0)[None, :]
-    best = torch.argmax(inl.sum(1))
-    keep = inl[best].to(valid.dtype)
-    return torch.where(valid.sum() >= 12, keep, valid)
+    counts = inl.sum(1)
+    best = torch.argmax(counts)
+    keep = torch.where(valid.sum() >= 12, inl[best].to(valid.dtype), valid)
+    return dict(keep=keep, Fs=Fs, counts=counts, best=best.reshape(1))
+
+
+def ransac_f_detail(pts1, pts2, valid, gumbel, thresh) -> dict:
+    """:func:`ransac_f_cuda` on the card, :func:`ransac_f_plain` on the CPU."""
+    if pts1.is_cuda:
+        return ransac_f_cuda(pts1, pts2, valid, gumbel, thresh)
+    return ransac_f_plain(pts1, pts2, valid, gumbel, thresh)
+
+
+def ransac_f_cuda(pts1, pts2, valid, gumbel, thresh) -> dict:
+    """Kernel K: the mask ``keep`` [F], and the hypotheses ``Fs`` [K, 3, 3],
+    their inlier ``counts`` [K] and the chosen index ``best`` [1], on the
+    card."""
+    dev = pts1.device
+    c = lambda t: t.to(torch.float32).contiguous()
+    p1, p2, v, g = c(pts1), c(pts2), c(valid), c(gumbel)
+    K, F = g.shape
+    if p1.shape != (F, 2) or p2.shape != (F, 2) or v.shape != (F,):
+        raise ValueError("ransac_f kernel: expected pts [F, 2], valid [F] and "
+                         "gumbel [K, F]")
+    Fs = torch.empty((K, 3, 3), dtype=torch.float32, device=dev)
+    counts = torch.empty((K,), dtype=torch.int32, device=dev)
+    inl = torch.empty((K, F), dtype=torch.uint8, device=dev)
+    keep = torch.empty((F,), dtype=torch.float32, device=dev)
+    best = torch.empty((1,), dtype=torch.int32, device=dev)
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = _kernels.library().gf2_ransac_f(
+        P(p1), P(p2), P(v), P(g), K, F, ctypes.c_float(thresh * thresh),
+        P(Fs), P(counts), P(inl), P(keep), P(best),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_ransac_f")
+    _kernels.count("ransac_f")
+    return dict(keep=keep.to(valid.dtype), Fs=Fs, counts=counts, best=best)

@@ -9,6 +9,7 @@ import torch
 
 from ..config import TrackerConfig
 from ..core.cameras import Pinhole
+from ..core.device import resolve
 from ..vio.feature_window import FrameObs
 from . import klt
 from .clahe import clahe
@@ -37,7 +38,8 @@ def normalized(cam: Pinhole, uv: torch.Tensor) -> torch.Tensor:
 
 
 class FeatureTracker:
-    def __init__(self, cfg: TrackerConfig, cam: Pinhole, device):
+    def __init__(self, cfg: TrackerConfig, cam: Pinhole, device="cuda"):
+        device = resolve(device)
         self.cfg = cfg
         self.cam = cam
         F = cfg.num_slots

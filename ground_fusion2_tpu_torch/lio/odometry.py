@@ -21,6 +21,7 @@ import torch
 
 from ..config import LioConfig
 from ..core import lie
+from ..core.device import resolve
 from . import ct_icp as ci
 from . import eskf as ekf
 from . import fused as fu
@@ -40,11 +41,11 @@ class LioOutput(NamedTuple):
 
 
 class LidarOdometry:
-    def __init__(self, cfg: LioConfig, device="cpu", pipelined: bool = False):
+    def __init__(self, cfg: LioConfig, device="cuda", pipelined: bool = False):
         """``pipelined``: outputs lag one scan (the JAX package overlaps the
         record readback with the next tick); call :meth:`flush` at the end."""
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.pipelined = pipelined
         self._eskf = ekf.EskfState.initial(cfg.g_norm, self.device)
         self._vmap = vm.VoxelMap.empty(cfg.map_cfg, self.device)

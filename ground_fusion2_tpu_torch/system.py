@@ -1,0 +1,209 @@
+"""GroundFusion: the fused VIO + LIO system (port of
+``ground_fusion2_tpu/system.py`` with the fused camera tick and the fused
+LiDAR tick).
+
+The VIO's IMU-rate propagated pose (:class:`~.vio.fast_predict.FastPropagator`,
+rebased on every window solve) is the LIO's external pose at scan-end time;
+the LIO's degeneracy switch decides which source has authority; its output
+is the fused trajectory (the reference's ``/laser_pose``).
+
+Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
+legacy host-orchestrated VIO backend, loop closure, global fusion, meshing,
+the occupancy grid and the automatic dynamic mask. They are off in every
+shipped run of the system.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import NamedTuple
+
+import numpy as np
+
+from .config import EstimatorConfig, LioConfig, TrackerConfig
+from .core.cameras import Pinhole
+from .core.device import resolve
+from .lio.odometry import LidarOdometry
+from .runtime.telemetry import Telemetry
+from .vio.estimator import VioOutput
+from .vio.fast_predict import FastPropagator
+from .vio.fused import FusedVio
+
+
+@dataclass
+class SystemConfig:
+    vio: EstimatorConfig = field(default_factory=EstimatorConfig)
+    lio: LioConfig = field(default_factory=LioConfig)
+    use_lidar: bool = True
+    vio_backend: str = "fused"                # "legacy" is not ported
+    tracker: TrackerConfig | None = None
+    cam: Pinhole | None = None
+    vio_pipelined: bool = False               # read tick k's record at k+1
+    vio_depth_stride: int = 1                 # decimate the depth upload
+    auto_dyn_mask: bool = False               # not ported
+    lio_pipelined: bool = False
+    use_loop_closure: bool = False            # not ported
+    use_global_fusion: bool = False           # not ported
+    use_mesh: bool = False                    # not ported
+    use_occupancy_grid: bool = False          # not ported
+    cam_intr: tuple = (460.0, 460.0, 320.0, 240.0)
+
+
+_NOT_PORTED = {
+    "use_loop_closure": "loop closure (ROADMAP.md queue 2, rows 13-14)",
+    "use_global_fusion": "global fusion (ROADMAP.md queue 2, row 17)",
+    "use_mesh": "meshing (ROADMAP.md queue 2, row 15)",
+    "use_occupancy_grid": "the occupancy grid (ROADMAP.md queue 2, row 16)",
+    "auto_dyn_mask": "the automatic dynamic mask (ROADMAP.md queue 2, row 8)",
+}
+
+
+class FusedOutput(NamedTuple):
+    t: float
+    p: np.ndarray          # fused pose (switch output when LiDAR on)
+    q: np.ndarray
+    p_vio: np.ndarray | None
+    degenerate: bool
+    switched: str
+    source: str            # "lio", "vio", "fused"
+
+
+class GroundFusion:
+    """Feed sensors; read fused poses. The VIO's IMU-rate propagated pose
+    is the LIO's external fallback; the LIO's switch decides authority."""
+
+    def __init__(self, cfg: SystemConfig, tic=None, ric=None, tio=None,
+                 rio=None, device="cuda"):
+        if cfg.vio_backend != "fused":
+            raise NotImplementedError(
+                f"vio_backend={cfg.vio_backend!r}: only the fused camera tick "
+                "is ported (ROADMAP.md queue 1)")
+        for flag, what in _NOT_PORTED.items():
+            if getattr(cfg, flag):
+                raise NotImplementedError(f"{flag}: {what} is not ported yet")
+        self.cfg = cfg
+        self.device = resolve(device)
+        self._extr = dict(tic=tic, ric=ric, tio=tio, rio=rio)
+        self.telemetry = Telemetry()
+        self.trajectory: list[FusedOutput] = []
+        self._start()
+
+    def _start(self):
+        cfg = self.cfg
+        tracker = cfg.tracker or TrackerConfig(num_slots=cfg.vio.num_feats)
+        cam = cfg.cam or Pinhole.create(*cfg.cam_intr)
+        self.vio = FusedVio(cfg.vio, tracker, cam, self.device,
+                            depth_stride=cfg.vio_depth_stride,
+                            pipelined=cfg.vio_pipelined, **self._extr)
+        self.lio = (LidarOdometry(cfg.lio, self.device,
+                                  pipelined=cfg.lio_pipelined)
+                    if cfg.use_lidar else None)
+        # IMU-rate propagated odometry (the reference's
+        # /vins/odometry/imu_propagate_ros stream)
+        self.prop = FastPropagator(g_norm=cfg.vio.g_norm)
+        self.latest_vio: VioOutput | None = None
+
+    def restart(self):
+        """External estimator restart (the reference's ``/vins_restart``):
+        both estimators anew; telemetry and trajectory are kept."""
+        self._start()
+        self.telemetry.event(self.trajectory[-1].t if self.trajectory
+                             else 0.0, "restart")
+
+    # -- sensor inputs --------------------------------------------------
+    def process_camera(self, t: float, obs, imu_chunk,
+                       wheel_vel=None) -> VioOutput | None:
+        """One camera tick from pre-tracked observations (a ``FrameObs``).
+        Pipelined, the output lags one frame (``None`` on the first fused
+        tick; call :meth:`flush` at the end)."""
+        self.prop.feed_chunk(t, imu_chunk)
+        out = self.vio.process_obs(t, obs, imu_chunk, wheel_vel=wheel_vel)
+        return self._after_camera(out)
+
+    def process_camera_image(self, t: float, img, depth, imu_chunk,
+                             wheel_vel=None) -> VioOutput | None:
+        """One camera tick from a raw grayscale image + depth map: the fused
+        camera tick with the tracker (CLAHE, pyramid, KLT, RANSAC, grid
+        refill) on the card."""
+        self.prop.feed_chunk(t, imu_chunk)
+        out = self.vio.process_image(t, img, depth, imu_chunk,
+                                     wheel_vel=wheel_vel)
+        return self._after_camera(out)
+
+    def flush(self) -> VioOutput | None:
+        """Drain the pipelined estimators' held-back outputs (call at the end
+        of a sequence)."""
+        if self.lio is not None and self.lio.pipelined:
+            lout = self.lio.flush()
+            if lout is not None:
+                self._after_lidar(lout)
+        return self._after_camera(self.vio.flush())
+
+    def _after_camera(self, out: VioOutput | None) -> VioOutput | None:
+        """Propagator rebase and telemetry for one (possibly lagged)
+        output."""
+        if out is None:
+            return None
+        t = out.t
+        self.latest_vio = out
+        tm = self.telemetry
+        if out.initialized:
+            # lagged one frame in pipelined mode: the rebase replays the
+            # newer IMU samples
+            self.prop.rebase(t, out.p, out.q, out.v, ba=out.ba, bg=out.bg)
+            tm.pose("vio", t, out.p, out.q)
+        tm.tick(t, tracked=out.tracked, cost=out.cost,
+                stationary=out.stationary, wheel_anomaly=out.wheel_anomaly,
+                keyframe=out.is_keyframe, initialized=out.initialized)
+        if out.rebooted:
+            tm.event(t, "vio_reboot")
+        if out.stationary:
+            tm.event(t, "stationary")
+        if self.lio is None and out.initialized:
+            self.trajectory.append(FusedOutput(
+                t=t, p=out.p, q=out.q, p_vio=out.p, degenerate=False,
+                switched="", source="vio"))
+        return out
+
+    def process_lidar(self, t: float, pts_body, alpha, mask, imu_chunk):
+        """One sweep, with the VIO stream at scan-end time as the external
+        pose (reference ``getClosestOdom``); the last camera-tick output is
+        the fallback before the first rebase."""
+        if self.lio is None:
+            return None
+        ext = self.prop.lookup(t)
+        if ext is None and self.latest_vio is not None \
+                and self.latest_vio.initialized:
+            ext = (self.latest_vio.p, self.latest_vio.q)
+        out = self.lio.process_scan(t, pts_body, alpha, mask, imu_chunk,
+                                    external_pose=ext)
+        if out is not None:
+            self._after_lidar(out, ext=ext)
+        return out
+
+    def _after_lidar(self, out, ext=None):
+        t = out.t
+        tm = self.telemetry
+        tm.pose("lio_raw", t, out.p_lio, out.q_lio)
+        tm.pose("fused", t, out.p_fused, out.q_fused)
+        tm.tick(t, degenerate=out.degenerate, icp_corr=out.n_corr)
+        if out.switched:
+            tm.event(t, f"switch_{out.switched}")
+        self.trajectory.append(FusedOutput(
+            t=t, p=out.p_fused, q=out.q_fused,
+            p_vio=None if ext is None else np.asarray(ext[0]),
+            degenerate=out.degenerate, switched=out.switched, source="fused"))
+
+    # -- outputs ---------------------------------------------------------
+    def save_trajectory_tum(self, path: str):
+        """TUM format: t x y z qx qy qz qw."""
+        with open(path, "w") as f:
+            for o in self.trajectory:
+                q = o.q
+                f.write(f"{o.t:.6f} {o.p[0]:.6f} {o.p[1]:.6f} {o.p[2]:.6f} "
+                        f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}\n")
+
+    def save_telemetry(self, out_dir: str):
+        """Every pose stream (TUM), tick statistics (JSONL), events and the
+        summary, written to ``out_dir``."""
+        self.telemetry.save(out_dir)

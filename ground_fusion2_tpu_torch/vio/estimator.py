@@ -18,8 +18,10 @@ from ..config import EstimatorConfig
 from ..core import lie
 from ..factors.vio_factors import imu_sqrt_info
 from ..gnss.factors import GnssTable
-from ..sensors.imu_preint import ImuNoise, preintegrate, propagate_state
-from ..sensors.wheel_preint import WheelNoise, preintegrate_wheel
+from ..core.device import resolve
+from ..sensors.imu_preint import ImuNoise
+from ..sensors.wheel_preint import WheelNoise
+from ..sensors.window_preint import Propagate, preintegrate_window
 from ..solver.marginalize import MargPrior
 from . import feature_window as fwin
 from .problem import (VioMeasurements, marginalize_oldest,
@@ -96,24 +98,25 @@ class IntervalBuffers:
 
 def preintegrate_all(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
                      imu_noise: ImuNoise, wheel_noise: WheelNoise, qio,
-                     n_steps: int | None = None):
-    """Re-preintegrate every window interval at the current biases. The
-    gyro channel is rotated into the wheel frame for the wheel preint."""
-    pre = preintegrate(acc, gyr, dt, ba, bg, imu_noise, mask=mask,
-                       n_steps=n_steps)
-    gyr_o = gyr @ lie.quat_to_mat(qio)
-    wpre = preintegrate_wheel(wvel, gyr_o, dt, six, siy, siw, wheel_noise,
-                              mask=mask, n_steps=n_steps)
-    return pre, wpre, imu_sqrt_info(pre.cov), imu_sqrt_info(wpre.cov)
+                     prop: Propagate | None = None):
+    """Re-preintegrate every window interval at the current biases (kernel
+    H on the card), with the square-root informations of both covariances;
+    ``prop`` also propagates a state through its interval in the same
+    launch. Returns (pre, wpre, imu_sqrt_info, wheel_sqrt_info, (p, q, v) or
+    None)."""
+    pre, wpre, pvq = preintegrate_window(acc, gyr, wvel, dt, mask, ba, bg,
+                                         six, siy, siw, imu_noise,
+                                         wheel_noise, qio, prop=prop)
+    return pre, wpre, imu_sqrt_info(pre.cov), imu_sqrt_info(wpre.cov), pvq
 
 
 class VioEstimator:
-    def __init__(self, cfg: EstimatorConfig, device, tic=None, ric=None,
-                 tio=None, rio=None):
+    def __init__(self, cfg: EstimatorConfig, device="cuda", tic=None,
+                 ric=None, tio=None, rio=None):
         if cfg.use_gnss:
             raise NotImplementedError("GNSS fusion is not ported yet")
         self.cfg = cfg
-        self.device = device
+        self.device = device = resolve(device)
         F = cfg.num_feats
         self.layout = WindowLayout(F)
         st = WindowState.identity(F, device)
@@ -291,14 +294,19 @@ class VioEstimator:
         self.frame_count = 0
         self.times = []
 
+    def _bufs_t(self):
+        b = self.bufs
+        return [self._t(a) for a in (b.acc, b.gyr, b.wvel, b.dt, b.mask)]
+
     def _predict_frame(self, col):
         k = col - 1
         st = self.state
-        p, q, v = propagate_state(
-            st.p[k], st.q[k], st.v[k], st.ba[k], st.bg[k], self.g_world,
-            self._t(self.bufs.acc[k]), self._t(self.bufs.gyr[k]),
-            self._t(self.bufs.dt[k]), mask=self._t(self.bufs.mask[k]),
-            n_steps=int(self.bufs.mask[k].sum()))
+        acc, gyr, wvel, dt, mask = self._bufs_t()
+        _, _, (p, q, v) = preintegrate_window(
+            acc, gyr, wvel, dt, mask, st.ba[:-1], st.bg[:-1], st.six, st.siy,
+            st.siw, self.cfg.imu_noise, self.cfg.wheel_noise, st.qio,
+            prop=Propagate(st.p[k], st.q[k], st.v[k], st.ba[k], st.bg[k],
+                           self.g_world, k), intervals=False)
 
         def put(a, val):
             a = a.clone()
@@ -309,13 +317,10 @@ class VioEstimator:
                                  bg=put(st.bg, st.bg[k]))
 
     def _preints(self):
-        b = self.bufs
+        st = self.state
         return preintegrate_all(
-            self._t(b.acc), self._t(b.gyr), self._t(b.wvel), self._t(b.dt),
-            self._t(b.mask), self.state.ba[:-1], self.state.bg[:-1],
-            self.state.six, self.state.siy, self.state.siw,
-            self.cfg.imu_noise, self.cfg.wheel_noise, self.state.qio,
-            n_steps=max(b.counts()))
+            *self._bufs_t(), st.ba[:-1], st.bg[:-1], st.six, st.siy, st.siw,
+            self.cfg.imu_noise, self.cfg.wheel_noise, st.qio)[:4]
 
     def _detectors(self, pre, wpre):
         """Wheel-vs-IMU anomaly and the fused stationary flag on the latest

@@ -12,7 +12,8 @@ import numpy as np
 import torch
 
 from ..core import lie
-from ..sensors.imu_preint import preintegrate
+from ..sensors.wheel_preint import WheelNoise
+from ..sensors.window_preint import preintegrate_window
 
 
 class DynamicInit(NamedTuple):
@@ -154,10 +155,16 @@ def try_dynamic_init(fw, bufs, imu_noise, tic, ric, g_norm: float, device,
     acc, gyr, dts, mask = map(f32, (bufs.acc, bufs.gyr, bufs.dt, bufs.mask))
     n_int = acc.shape[0]
 
+    one = torch.ones((), device=device)
+    ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+
     def preint_all(bg):
-        return preintegrate(acc, gyr, dts, torch.zeros((n_int, 3), device=device),
-                            f32(bg)[None].expand(n_int, 3), imu_noise,
-                            mask=mask, n_steps=max(bufs.counts()))
+        # kernel H (its wheel role runs on zero velocities and is unused)
+        return preintegrate_window(
+            acc, gyr, torch.zeros_like(acc), dts, mask,
+            torch.zeros((n_int, 3), device=device),
+            f32(bg)[None].expand(n_int, 3).contiguous(), one, one, one,
+            imu_noise, WheelNoise(), ident)[0]
 
     def to_quat(R):
         return lie.mat_to_quat(f32(R)).cpu().numpy()

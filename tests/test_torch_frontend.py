@@ -15,7 +15,7 @@ import jax.numpy as jnp
 from ground_fusion2_tpu.frontend import clahe as jclahe
 from ground_fusion2_tpu.frontend import klt as jklt
 from ground_fusion2_tpu.frontend import ransac as jransac
-from ground_fusion2_tpu_torch._shared import render, synthetic as sim
+from ground_fusion2_tpu_torch.data import render, synthetic as sim
 from ground_fusion2_tpu_torch.frontend import clahe as tclahe
 from ground_fusion2_tpu_torch.frontend import klt as tklt
 from ground_fusion2_tpu_torch.frontend import ransac as transac

@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, at the main paths' shapes (the comparisons of ``chip_smoke.py``: the
-camera kernels A–C, and the LiDAR kernels D–G on a map filled by 12 scans of
-the bench_lio drive at the M3DGR LIO configuration). Marked ``cuda``;
+camera kernels A–C and H–K, and the LiDAR kernels D–G on a map filled by 12
+scans of the bench_lio drive at the M3DGR LIO configuration). Marked ``cuda``;
 skipped without a GPU. This file imports no JAX, so it runs on a machine
 without it:
 
@@ -27,6 +27,26 @@ def dev():
 @pytest.fixture(scope="module")
 def frames():
     return checks.room_drive(2)
+
+
+@pytest.fixture(scope="module")
+def camera(dev):
+    """The M3DGR camera path after 14 frames: the fused carry, and the
+    KLT tracks of frames 12 -> 13."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.config import m3dgr_camera
+    from ground_fusion2_tpu_torch.core.cameras import Pinhole
+    from ground_fusion2_tpu_torch.vio.fused import FusedVio
+    cfg = m3dgr_camera()
+    fs = checks.room_drive(14)
+    fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
+                  dev, tic=np.zeros(3), ric=checks.RIG_RIC, tio=np.zeros(3),
+                  rio=np.eye(3), depth_stride=2)
+    for f in fs:
+        fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
+                         wheel_vel=f["wheel"])
+    assert fv.carry is not None
+    return cfg, fv, fs, checks.klt_tracks(dev, fs[12:14])
 
 
 @pytest.fixture(scope="module")
@@ -82,6 +102,34 @@ def test_eskf_predict_kernel_matches_plain(dev, lio):
     assert r["ok"], r
 
 
+def test_preint_kernel_matches_plain(dev, camera):
+    from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
+    cfg, fv, _, _ = camera
+    r = checks.check_preint(dev, checks.preint_inputs(
+        fv.carry, fv.statics, cfg.estimator.imu_noise,
+        cfg.estimator.wheel_noise, NUM_FRAMES - 1))
+    assert r["ok"], r
+    assert r["n_samples"] >= 100
+
+
+def test_pyramid_kernels_match_plain(dev, camera):
+    r = checks.check_pyramid(dev, camera[2][12])
+    assert r["pyramid"]["ok"] and r["shi_tomasi"]["ok"], r
+
+
+def test_detect_grid_kernel_matches_plain(dev, camera):
+    r = checks.check_detect(dev, camera[3])
+    assert r["ok"] and r["order_equal"], r
+
+
+def test_ransac_kernel_matches_plain(dev, camera):
+    from ground_fusion2_tpu_torch.core.cameras import Pinhole
+    cfg = camera[0]
+    r = checks.check_ransac(dev, Pinhole.create(*cfg.intrinsics), camera[3],
+                            cfg.tracker.f_thresh_px / cfg.tracker.focal)
+    assert r["ok"], r
+
+
 def test_kernels_count_their_launches(dev, frames, lio):
     _kernels.launches.clear()
     checks.check_proj(dev, timed=False)
@@ -97,6 +145,20 @@ def test_kernels_count_their_launches(dev, frames, lio):
     assert n["ct_icp_normal"] == it
     assert n["radix_sort"] >= 2 + 4          # keypoints + insert
     assert n.get("proj_normal", 0) == 0
+    assert n.get("preint", 0) == 0
+
+
+def test_camera_tick_launches_h_to_k(dev, camera):
+    """One fused camera tick: kernel H once, I four times (three levels and
+    the response), J and K once."""
+    cfg, fv, fs, _ = camera
+    f = fs[-1]
+    _kernels.launches.clear()
+    fv.process_image(f["t"] + 0.1, f["gray"], f["depth"], f["imu"],
+                     wheel_vel=f["wheel"])
+    n = dict(_kernels.launches)
+    assert (n["preint"], n["pyramid"], n["shi_tomasi"], n["detect_grid"],
+            n["ransac_f"]) == (1, 3, 1, 1, 1), n
 
 
 def _launch(name, dev):
@@ -107,6 +169,30 @@ def _launch(name, dev):
         return clahe(torch.zeros((48, 64), device=dev))
     if name == "radix_sort":
         return vm.stable_argsort(torch.zeros(64, dtype=torch.int32, device=dev))
+    if name in ("pyramid", "shi_tomasi", "detect_grid"):
+        from ground_fusion2_tpu_torch.frontend import klt
+        img = torch.zeros((48, 64), device=dev)
+        if name == "pyramid":
+            return klt.build_pyramid(img, 2)
+        if name == "shi_tomasi":
+            return klt.shi_tomasi(img)
+        return klt.detect_grid(img, torch.zeros((4, 2), device=dev), 16, 4)
+    if name == "ransac_f":
+        from ground_fusion2_tpu_torch.frontend import ransac
+        z = torch.zeros((16, 2), device=dev)
+        return ransac.ransac_f_reject(z, z, torch.ones(16, device=dev),
+                                      torch.zeros((4, 16), device=dev))
+    if name == "preint":
+        from ground_fusion2_tpu_torch.config import m3dgr_camera
+        from ground_fusion2_tpu_torch.sensors.window_preint import (
+            preintegrate_window)
+        e = m3dgr_camera().estimator
+        b = torch.zeros((2, 5, 3), device=dev)
+        d = torch.zeros((2, 4), device=dev)
+        one = torch.ones((), device=dev)
+        q = torch.tensor([1.0, 0, 0, 0], device=dev)
+        return preintegrate_window(b, b, b, d, d, b[:, 0], b[:, 0], one, one,
+                                   one, e.imu_noise, e.wheel_noise, q)
     cfg = VoxelMapConfig(capacity=64)
     z3 = torch.zeros((8, 3), device=dev)
     if name == "lio_assoc":
@@ -122,7 +208,9 @@ def _launch(name, dev):
 
 
 @pytest.mark.parametrize("name", ["clahe", "lio_assoc", "ct_icp_normal",
-                                  "radix_sort", "eskf_predict"])
+                                  "radix_sort", "eskf_predict", "preint",
+                                  "pyramid", "shi_tomasi", "detect_grid",
+                                  "ransac_f"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

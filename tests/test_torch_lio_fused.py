@@ -65,7 +65,7 @@ def _feed(lo, scans, upto=None):
 @pytest.fixture(scope="module")
 def runs(scans):
     cfg, jcfg = _cfgs()
-    lo_t, lo_j = LidarOdometry(cfg), JaxLio(jcfg)
+    lo_t, lo_j = LidarOdometry(cfg, "cpu"), JaxLio(jcfg)
     return lo_t, _feed(lo_t, scans), lo_j, _feed(lo_j, scans)
 
 
@@ -153,7 +153,7 @@ def test_pipelined_lags_one_scan(scans):
     """``pipelined`` returns each record one scan late and ``flush`` the
     last, with the same values."""
     cfg, _ = _cfgs()
-    lo_s, lo_p = LidarOdometry(cfg), LidarOdometry(cfg, pipelined=True)
+    lo_s, lo_p = LidarOdometry(cfg, "cpu"), LidarOdometry(cfg, "cpu", pipelined=True)
     outs_s, outs_p = [], []
     for k, s in enumerate(scans[:12]):
         args = (s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])

@@ -1,0 +1,61 @@
+"""The JAX package's GroundFusion on the port's system drive, on the CPU: the
+reference figures for ``chip_smoke.py``'s phase 8 (fused position error,
+VIO ATE, switches, degenerate scans), at the M3DGR configuration the loader
+gives for ``configs/m3dgr.yaml`` with bench.py's ``bench_system`` flags.
+
+    PYTHONPATH=. python tests/torch_system_reference.py [n_frames]
+
+Not a test (pytest collects ``test_*.py`` only): a full-width run takes
+about three minutes on a CPU.
+"""
+
+import dataclasses
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+import jax
+
+from ground_fusion2_tpu.config.loader import load_config
+from ground_fusion2_tpu.core.cameras import Pinhole
+from ground_fusion2_tpu.system import GroundFusion, SystemConfig
+from ground_fusion2_tpu_torch import checks
+
+
+def main(n: int = 40) -> dict:
+    jax.config.update("jax_platforms", "cpu")
+    jc = load_config(Path(__file__).resolve().parent.parent / "configs"
+                     / "m3dgr.yaml")
+    # the port's m3dgr_camera(): depth range for the deeper room, RANSAC on
+    trk = dataclasses.replace(jc.make_tracker(), depth_range=(0.1, 20.0),
+                              use_ransac=True)
+    ci = jc.cam_intrinsics
+    cfg = SystemConfig(vio=jc.estimator, lio=jc.lio, tracker=trk,
+                       cam=Pinhole.create(ci["fx"], ci["fy"], ci["cx"],
+                                          ci["cy"]),
+                       vio_pipelined=True, vio_depth_stride=2,
+                       lio_pipelined=True)
+    frames = checks.system_drive(n)
+    gf = GroundFusion(cfg, tic=np.zeros(3), ric=checks.RIG_RIC,
+                      tio=np.zeros(3), rio=np.eye(3))
+    vio = []
+    t0 = time.time()
+    for f in frames:
+        o = gf.process_camera_image(f["t"], f["gray"], f["depth"], f["imu"],
+                                    wheel_vel=f["wheel"])
+        if o is not None and o.initialized:
+            vio.append(o)
+        gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"], f["imu"])
+    o = gf.flush()
+    if o is not None and o.initialized:
+        vio.append(o)
+    r = checks.system_errors(gf.trajectory, vio, frames)
+    r["seconds"] = time.time() - t0
+    return r
+
+
+if __name__ == "__main__":
+    print(json.dumps(main(int(sys.argv[1]) if len(sys.argv) > 1 else 40)))
