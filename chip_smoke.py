@@ -7,15 +7,21 @@ Phases (any failure exits nonzero; no phase catches and carries on):
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles the hand-written kernels of ground_fusion2_tpu_torch/csrc
      with nvcc (sm_90a, one process a source) and prints the build seconds;
-  3. camera kernels: A-C against their plain PyTorch versions at the camera
-     path's shapes (CLAHE 480×640, KLT F = 150 on two consecutive rendered
-     frames, projection normal equations F = 150 / D = 396), with the
-     stated tolerances and the median time of both;
+  3. camera kernels: A-C and L against their plain PyTorch versions at the
+     camera path's shapes (CLAHE 480×640, KLT F = 150 on two consecutive
+     rendered frames, the projection normal equations (C) and those of the
+     other rows (L) on an example window F = 150 / D = 396), with the stated
+     tolerances and the median time of both; C and L twice on the same
+     inputs give the same bits. Row 7's library calls are timed beside
+     (the damped Cholesky at D = 396, marginalize's two f64 eigh, the pose
+     graph's Cholesky at 4·64 and 4·512);
   4. camera path: FusedVio.process_image with the M3DGR configuration
      over 32 rendered 640×480 frames of the bench.py room drive (RGB-D + IMU
-     + wheel). It must initialize, run ≥ 20 fused ticks, launch A-C and H-K
-     during them, stay finite, and keep the aligned ATE < 0.30 m. Kernel C
-     is also held against its plain version on the final window;
+     + wheel), twice from the same frames. Each run must initialize, run ≥ 20
+     fused ticks, launch A-C and H-L during them, call torch.func.jacfwd no
+     time, stay finite, and keep the aligned ATE < 0.30 m; both ATEs and the
+     first tick where the two runs' windows differ are printed. Kernels C
+     and L are also held against their plain versions on the final window;
   5. LiDAR path: LidarOdometry.process_scan with the M3DGR LIO
      configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
      iterations) over 60 scans of the bench_lio room drive (4096 rays,
@@ -28,16 +34,31 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      that overflows capacity and a recenter, bit-exact against the CPU);
   7. camera kernels H-K against their plain versions: H on the final
      camera carry's 10 intervals, I on frame 12, J and K on the KLT tracks
-     of frames 12 -> 13;
+     of frames 12 -> 13; and kernel O on a 500-node graph at the 4·512 tier
+     (twice: the same bits);
   8. the system: GroundFusion(m3dgr_system()) over 40 frames of the
      bench.py bench_system drive, each frame process_camera_image then
      process_lidar, then flush. Both estimators must initialize, ≥ 20
      system ticks run with both carries live, A-K launch during them,
      every fused pose stay finite, no scan after the second be degenerate,
      the fused position error after aligning the first output stay
-     < 0.06 m and the VIO's aligned ATE < 0.30 m.
-The last two lines are the kernels JSON (launches from phase 8's run) and
-the result JSON.
+     < 0.06 m and the VIO's aligned ATE < 0.30 m;
+  9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
+     camera configuration, PoseGraphConfig at its defaults but num_feats
+     150: sim_thresh 0.88, skip_recent 50, 128 hypotheses, capacity 512,
+     4-DoF) over checks.loop_drive(60): tests/test_system_loop.py's closed
+     circle (radius 1.2 m in make_room_scene(seed=0)) rendered at 640×480
+     with the M3DGR intrinsics, the odometry drifting 0.10 rad and (0.18,
+     -0.12, 0) m. The VIO is a scripted pose source emitting the drifted
+     poses, all keyframes, as the JAX package's own system test does: a
+     real VIO needs more than 50 keyframes before a loop can be tried, at
+     about a second a tick longer than this script's time. M, N and O must
+     launch, a loop_closed event fire, and the published endpoint error stay
+     under 0.6× the raw odometry's (tests/test_system_loop.py:106); then M,
+     N and O are held against their plain versions on the phase's data (the
+     last keyframe's corners, the loop's matches, the final graph's edges).
+The last two lines are the kernels JSON (launches from phase 8's run for
+A-L, phase 9's for M-O) and the result JSON.
 
 The camera rig is synthetic: the renderer's forward camera (bench.py's
 extrinsic) and an identity wheel frame replace the M3DGR extrinsics, which
@@ -65,9 +86,13 @@ SYS_FRAMES = 40
 SYS_MAX_ERR = 0.06     # m, fused position error (test_lio_e2e.py's bound)
 SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
 CAMERA_KERNELS = ("clahe", "klt", "proj_normal", "preint", "pyramid",
-                  "shi_tomasi", "detect_grid", "ransac_f")
+                  "shi_tomasi", "detect_grid", "ransac_f", "small_normal")
+LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal")
+LOOP_KEYFRAMES = 60
+LOOP_MAX_RATIO = 0.6   # published / raw endpoint error (test_system_loop.py)
 LIDAR_KERNELS = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict")
 PKG = "ground_fusion2_tpu_torch/csrc/"
+DEVICE = "cuda:0"
 SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "clahe": ("clahe.cu", "ground_fusion2_tpu/frontend/clahe.py:33"),
     "klt": ("klt.cu", "ground_fusion2_tpu/frontend/klt.py:234"),
@@ -83,6 +108,15 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "shi_tomasi": ("pyramid.cu", "ground_fusion2_tpu/frontend/klt.py:65"),
     "detect_grid": ("detect_grid.cu", "ground_fusion2_tpu/frontend/klt.py:78"),
     "ransac_f": ("ransac_f.cu", "ground_fusion2_tpu/frontend/ransac.py:58"),
+    "small_normal": ("small_normal.cu",
+                     "ground_fusion2_tpu/solver/gauss_newton.py:50"),
+    "brief": ("brief.cu", "ground_fusion2_tpu/posegraph/brief.py:47"),
+    "simhash": ("brief.cu", "ground_fusion2_tpu/posegraph/brief.py:68"),
+    "hamming": ("brief.cu", "ground_fusion2_tpu/posegraph/brief.py:77"),
+    "loop_geom": ("loop_geom.cu",
+                  "ground_fusion2_tpu/posegraph/pose_graph.py:432"),
+    "pg_normal": ("pg_normal.cu",
+                  "ground_fusion2_tpu/posegraph/pose_graph.py:514"),
 }
 
 
@@ -184,8 +218,28 @@ def lidar_main_path(dev, card):
     return None, launches, lo, scans[LIO_SCANS]
 
 
+class CallCounter:
+    """Counts the calls of ``module.name`` while installed (a context)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapper(*a, **k):
+            self.n += 1
+            return self.orig(*a, **k)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
 def camera_main_path(dev, card, frames):
-    """Phase 4. Returns (error or None, the FusedVio, launches)."""
+    """Phase 4. Returns (error or None, the FusedVio, launches, the run:
+    its ATE and each fused tick's window state on the host)."""
     import torch
     from ground_fusion2_tpu_torch import _kernels, checks
     from ground_fusion2_tpu_torch.config import m3dgr_camera
@@ -198,46 +252,57 @@ def camera_main_path(dev, card, frames):
                   dev, tic=np.zeros(3), ric=checks.RIG_RIC,
                   tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
     _kernels.launches.clear()
-    tick_ms, est, gt = [], [], []
+    tick_ms, est, gt, windows = [], [], [], []
     launches_at_fused = None
-    for f in frames:
-        fused = fv.carry is not None
-        if fused and launches_at_fused is None:
-            launches_at_fused = dict(_kernels.launches)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
-                               wheel_vel=f["wheel"])
-        torch.cuda.synchronize()
-        if fused:
-            tick_ms.append((time.perf_counter() - t1) * 1e3)
-        if out.initialized:
-            if not np.all(np.isfinite(out.p)) or not np.all(np.isfinite(out.q)):
-                return f"non-finite state at t={f['t']:.2f}", fv, {}
-            est.append(out.p)
-            gt.append(f["p_gt"])
+    with CallCounter(torch.func, "jacfwd") as jac:
+        for f in frames:
+            fused = fv.carry is not None
+            if fused and launches_at_fused is None:
+                launches_at_fused = dict(_kernels.launches)
+                jac_at_fused = jac.n
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
+                                   wheel_vel=f["wheel"])
+            torch.cuda.synchronize()
+            if fused:
+                tick_ms.append((time.perf_counter() - t1) * 1e3)
+                st = fv.carry.state
+                windows.append(torch.cat([st.p.reshape(-1), st.q.reshape(-1),
+                                          st.v.reshape(-1), st.rho]).cpu())
+            if out.initialized:
+                if not np.all(np.isfinite(out.p)) or not np.all(np.isfinite(out.q)):
+                    return f"non-finite state at t={f['t']:.2f}", fv, {}, None
+                est.append(out.p)
+                gt.append(f["p_gt"])
     launches = dict(_kernels.launches)
     n_fused = len(tick_ms)
     if not fv.initialized or not est:
-        return "the estimator never initialized", fv, launches
+        return "the estimator never initialized", fv, launches, None
     if n_fused < 20:
-        return f"only {n_fused} fused ticks ran", fv, launches
+        return f"only {n_fused} fused ticks ran", fv, launches, None
     st = fv.carry.state
     if not all(bool(torch.isfinite(t).all()) for t in (st.p, st.q, st.v, st.rho)):
-        return "non-finite window state", fv, launches
+        return "non-finite window state", fv, launches, None
     grew = {k: launches.get(k, 0) - (launches_at_fused or {}).get(k, 0)
             for k in CAMERA_KERNELS}
     if min(grew.values()) <= 0:
-        return f"a kernel did not launch during the fused ticks: {grew}", fv, launches
+        return (f"a kernel did not launch during the fused ticks: {grew}", fv,
+                launches, None)
+    jac_fused = jac.n - jac_at_fused
     ate = float(metrics.ate_rmse(np.asarray(est), np.asarray(gt), align=True))
     print(f"camera path: {n_fused} fused ticks, median tick "
           f"{float(np.median(tick_ms[2:])):.2f} ms (synchronized wall, ticks "
           f"3..{n_fused}), ATE {ate:.4f} m aligned over {len(est)} frames, "
+          f"torch.func.jacfwd calls during the fused ticks {jac_fused}, "
           f"launches {launches}, during fused ticks {grew} | {card}",
           flush=True)
+    if jac_fused:
+        return (f"torch.func.jacfwd ran {jac_fused} times on the card", fv,
+                launches, None)
     if not ate < 0.30:
-        return f"ATE {ate:.3f} m >= 0.30 m", fv, launches
-    return None, fv, launches
+        return f"ATE {ate:.3f} m >= 0.30 m", fv, launches, None
+    return None, fv, launches, dict(ate=ate, windows=windows)
 
 
 def system_main_path(dev, card):
@@ -321,6 +386,53 @@ def system_main_path(dev, card):
     return None, launches
 
 
+def loop_main_path(dev, card):
+    """Phase 9. Returns (error or None, launches during the drive, the
+    GroundFusion, the drive)."""
+    import torch
+    from ground_fusion2_tpu_torch import _kernels, checks
+    from ground_fusion2_tpu_torch.config import PoseGraphConfig, m3dgr_camera
+    from ground_fusion2_tpu_torch.system import GroundFusion, SystemConfig
+
+    t0 = time.perf_counter()
+    drive = checks.loop_drive(LOOP_KEYFRAMES)
+    print(f"loop drive: {LOOP_KEYFRAMES} keyframes rendered in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    pg_cfg = PoseGraphConfig(num_feats=150, ric=checks.RIG_RIC,
+                             tic=np.zeros(3))
+    gf = GroundFusion(SystemConfig(
+        vio=m3dgr_camera().estimator, use_lidar=False, use_loop_closure=True,
+        pose_graph=pg_cfg, cam_intr=checks.M3DGR_INTRINSICS),
+        tic=np.zeros(3), ric=checks.RIG_RIC, device=dev)
+    gf.vio = checks.ScriptedVio([(f["p_odom"], f["q_odom"]) for f in drive])
+    tick_ms = []
+    _kernels.launches.clear()
+    for f in drive:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        gf.process_camera(f["t"], None, checks.LOOP_IMU, img=f["gray"],
+                          depth_img=f["depth"])
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = dict(_kernels.launches)
+    r = checks.loop_errors(gf, drive)
+    print(f"loop path: {LOOP_KEYFRAMES} keyframes, median keyframe "
+          f"{float(np.median(tick_ms)):.2f} ms, max {max(tick_ms):.2f} ms "
+          f"(synchronized wall, the fan-out and any optimization), loop "
+          f"events {r['events']}, edges "
+          f"{[(int(i), int(j)) for i, j, *_ in gf.pg.loops]}, endpoint error "
+          f"published {r['err_pub']:.4f} m vs raw {r['err_raw']:.4f} m (ratio "
+          f"{r['ratio']:.4f}), launches {launches} | {card}", flush=True)
+    if min(launches.get(k, 0) for k in LOOP_KERNELS) <= 0:
+        return f"a loop kernel did not launch: {launches}", launches, gf, drive
+    if not r["events"]:
+        return "no loop closed", launches, gf, drive
+    if not r["ratio"] < LOOP_MAX_RATIO:
+        return (f"published endpoint error {r['err_pub']:.4f} m >= "
+                f"{LOOP_MAX_RATIO} x raw {r['err_raw']:.4f} m"), launches, gf, drive
+    return None, launches, gf, drive
+
+
 def report(res: dict) -> int:
     import torch
     torch.cuda.synchronize()
@@ -336,7 +448,7 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false")
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     card = card_line()
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     print(card, flush=True)
@@ -354,28 +466,58 @@ def main() -> int:
 
     # 3. camera kernels vs plain at the main path's shapes
     frames = checks.room_drive(CAM_FRAMES)
+    cfg = m3dgr_camera()
+    vcfg = cfg.estimator.vio
+    x0, feats, layout, delta = checks.example_window(150, dev)
+    meas = checks.example_measurements(x0, feats, layout, dev)
     res = {
         "clahe": checks.check_clahe(dev, frames[12]),
         "klt": checks.check_klt(dev, frames[12:14]),
-        "proj_normal": checks.check_proj(dev),
+        "proj_normal": checks.check_proj(dev, x0, feats, layout, delta,
+                                         vcfg.proj_sqrt_info),
+        "small_normal": checks.check_small_normal(dev, x0, meas, layout,
+                                                  delta, vcfg),
     }
     if report(res):
         return 1
+    from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
+    H, g, _ = window_normal_equations(x0, meas, layout, vcfg, delta)
+    print("row 7 (torch.linalg, not a port kernel): " + json.dumps(
+        checks.check_linalg(dev, H, g, layout)) + f" | {card}", flush=True)
 
-    # 4. camera path
-    err, fv, _ = camera_main_path(dev, card, frames)
-    if err:
-        return fail(err)
-    cfg = m3dgr_camera()
-    # kernel C on the final (real) window against its plain version
-    from ground_fusion2_tpu_torch.vio.feature_window import to_factor_table
-    real = checks.check_proj(dev, fv.carry.state, to_factor_table(fv.carry.fw),
-                             fv.layout, torch.zeros(fv.layout.dim, device=dev),
-                             cfg.estimator.vio.proj_sqrt_info, timed=False)
-    print("kernel proj_normal on the final window: " + json.dumps(real),
+    # 4. camera path, twice from the same frames
+    runs = []
+    for _ in range(2):
+        err, fv, _, run = camera_main_path(dev, card, frames)
+        if err:
+            return fail(err)
+        runs.append((fv, run))
+    fv = runs[0][0]
+    w1, w2 = (r["windows"] for _, r in runs)
+    differ = [k for k, (a, b) in enumerate(zip(w1, w2))
+              if not torch.equal(a, b)]
+    print(f"camera path repeated: ATE {runs[0][1]['ate']:.6f} m and "
+          f"{runs[1][1]['ate']:.6f} m; windows "
+          + (f"first differ at fused tick {differ[0] + 1} of {len(w1)}"
+             if differ else f"identical over all {len(w1)} fused ticks"),
           flush=True)
-    if not real["ok"]:
-        return fail("kernel C disagrees on the final window")
+    # kernels C and L on the final (real) window against their plain versions
+    from ground_fusion2_tpu_torch.vio.feature_window import to_factor_table
+    zero = torch.zeros(fv.layout.dim, device=dev)
+    st = fv.carry.state
+    real = {
+        "proj_normal": checks.check_proj(dev, st, to_factor_table(fv.carry.fw),
+                                         fv.layout, zero, vcfg.proj_sqrt_info,
+                                         timed=False),
+        "small_normal": checks.check_small_normal(
+            dev, st, checks.carry_measurements(fv), fv.layout, zero, vcfg,
+            timed=False),
+    }
+    for name, r in real.items():
+        print(f"kernel {name} on the final window: " + json.dumps(r),
+              flush=True)
+    if not all(r["ok"] for r in real.values()):
+        return fail("kernel C or L disagrees on the final window")
 
     # 5. LiDAR path
     err, _, lo, next_scan = lidar_main_path(dev, card)
@@ -395,7 +537,7 @@ def main() -> int:
         return 1
     res.update(res_lio)
 
-    # 7. camera kernels H-K vs plain
+    # 7. camera kernels H-K vs plain, kernel O at the capacity tier
     from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
     tcfg = cfg.tracker
     tracks = checks.klt_tracks(dev, frames[12:14], F=tcfg.num_slots,
@@ -416,14 +558,41 @@ def main() -> int:
     if report(res_hk):
         return 1
     res.update(res_hk)
+    tier = checks.check_pg_normal(dev, checks.ring_graph_args(500, 512, dev))
+    print("kernel pg_normal at the 4·512 tier (500 nodes, 8 loops): "
+          + json.dumps(tier) + f" | {card}", flush=True)
+    if not tier["ok"]:
+        return fail("kernel O disagrees at the 4·512 tier")
 
     # 8. the system
     err, launches = system_main_path(dev, card)
     if err:
         return fail(err)
 
+    # 9. the loop-closure path, then M-O against their plain versions on
+    # the phase's data
+    err, loop_launches, gf, drive = loop_main_path(dev, card)
+    if err:
+        return fail(err)
+    launches.update({k: loop_launches.get(k, 0) for k in LOOP_KERNELS})
+    pg = gf.pg
+    j, i = pg.loops[-1][:2]
+    fx, fy, cx, cy = checks.M3DGR_INTRINSICS
+    uv = pg.pts_norm[i] * [fx, fy] + [cx, cy]
+    res_loop = checks.check_brief(dev, drive[i]["gray"], uv, pg.desc_valid[i],
+                                  pg.desc[j])
+    idx_i, idx_j = pg.match(i, j)
+    res_loop["loop_geom"] = checks.check_loop_geom(
+        dev, pg.loop_inputs(i, j, idx_i, idx_j), pg.cfg.inlier_thresh,
+        pg._gumbel(i, j))
+    res_loop["pg_normal"] = checks.check_pg_normal(dev,
+                                                   checks.pg_normal_args(pg))
+    if report(res_loop):
+        return 1
+    res.update(res_loop)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+            "library_ms")   # launches: phase 8 for A-L, phase 9 for M-O
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
-    "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 4,
+    "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 5,
     "gf2_lio_assoc": [_P] * 5 + [_I] * 2 + [_F] + [_I] * 3 + [_P] * 5,
     "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 2,
     "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P, _P],
@@ -50,6 +50,12 @@ _SIGNATURES = {
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
     "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 6,
+    "gf2_small_normal": [_P] * 9 + [_I] * 12 + [_F] * 4 + [_P] * 8,
+    "gf2_brief_describe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "gf2_simhash": [_P, _P, _P, _I, _P, _P, _P],
+    "gf2_hamming": [_P, _P, _I, _I, _P, _P],
+    "gf2_loop_geometry": [_P] * 6 + [_I, _I, _F, _I] + [_P] * 5,
+    "gf2_pg_normal": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 5,
 }
 
 

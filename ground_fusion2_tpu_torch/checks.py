@@ -27,6 +27,7 @@ from .lio import eskf as ekf
 from .lio import fused as lfu
 from .lio import voxel_map as vm
 from .sensors import window_preint as wp
+from .vio.feature_window import to_factor_table
 from .vio.state import NUM_FRAMES, WindowLayout, WindowState
 from .core import lie
 
@@ -133,18 +134,23 @@ def _gray(frame, device):
         * (1.0 / 255.0)
 
 
+def _example_traj():
+    W = NUM_FRAMES
+    kf = 40
+    traj = sim.make_planar_trajectory(duration=kf / 200.0 * (W + 1),
+                                      yaw_rate=0.4, wobble=0.05, ramp_time=1e-3)
+    return traj, [i * kf for i in range(W)], kf
+
+
 def example_window(F: int, device, seed: int = 0, perturb: float = 0.03):
     """A synthetic window as ``data/example.py`` builds it (numpy only):
     state x0 perturbed from the truth, the feature table, the layout and a
     nonzero accumulated delta to linearize at."""
     rng = np.random.default_rng(seed)
     W = NUM_FRAMES
-    kf = 40
-    traj = sim.make_planar_trajectory(duration=kf / 200.0 * (W + 1),
-                                      yaw_rate=0.4, wobble=0.05, ramp_time=1e-3)
+    traj, idx, _ = _example_traj()
     lms = sim.make_landmarks(traj, n=max(4 * F, 256), seed=seed)
     cam = sim.CameraSim()
-    idx = [i * kf for i in range(W)]
     obs = [cam.observe(traj.p[i], traj.q[i], lms.pts) for i in idx]
     ok = np.stack([o[2] for o in obs])
     good = np.where(ok.sum(0) >= 4)[0]
@@ -177,6 +183,73 @@ def example_window(F: int, device, seed: int = 0, perturb: float = 0.03):
     layout = WindowLayout(F)
     delta = t(rng.normal(scale=0.005, size=layout.dim))
     return x0._replace(td=t(0.002)), feats, layout, delta
+
+
+def example_measurements(x0, feats, layout, device, seed: int = 0):
+    """The window's other measurements for :func:`example_window`'s state:
+    the trajectory's IMU and wheel intervals preintegrated (plain loops),
+    their square-root informations, wheel interval 4 gated off, and a valid
+    seeded marginalization prior linearized 0.02 rad / 2 cm away from x0."""
+    from .gnss.factors import GnssTable
+    from .sensors import imu_preint as ip
+    from .sensors import wheel_preint as whp
+    from .solver.marginalize import MargPrior
+    from .vio.problem import VioMeasurements
+    rng = np.random.default_rng(seed + 1)
+    W, K = layout.W, layout.frame_dim
+    traj, idx, n = _example_traj()
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    acc = t(np.stack([traj.acc_body[i:i + n + 1] for i in idx[:-1]]))
+    gyr = t(np.stack([traj.gyr_body[i:i + n + 1] for i in idx[:-1]]))
+    vel = t(np.stack([sim.wheel_velocity_body(traj)[i:i + n + 1]
+                      for i in idx[:-1]]))
+    dt = torch.full((W - 1, n), 1.0 / 200.0, device=device)
+    z3 = torch.zeros((W - 1, 3), device=device)
+    pre = ip.preintegrate(acc, gyr, dt, z3, z3, ip.ImuNoise(0.05, 0.005))
+    one = torch.ones((), device=device)
+    wpre = whp.preintegrate_wheel(vel, gyr, dt, one, one, one,
+                                  whp.WheelNoise(0.05, 0.01))
+    wv = torch.ones(W - 1, device=device)
+    wv[4] = 0.0
+    jitter = lambda s, shape: t(rng.normal(scale=s, size=shape))
+    prior_state = x0._replace(
+        p=x0.p + jitter(0.02, (W, 3)),
+        q=lie.quat_boxplus(x0.q, jitter(0.02, (W, 3))),
+        qio=lie.quat_boxplus(x0.qio, jitter(0.02, 3)))
+    prior = MargPrior(t(rng.normal(scale=1.0, size=(K, K)) * 30.0 / np.sqrt(K)),
+                      jitter(0.5, K), one)
+    return VioMeasurements(
+        feats=feats, imu=pre, imu_valid=torch.ones(W - 1, device=device),
+        imu_sqrt_info=fac.imu_sqrt_info(pre.cov), wheel=wpre, wheel_valid=wv,
+        wheel_sqrt_info=fac.imu_sqrt_info(wpre.cov), plane_valid=one,
+        stationary=torch.zeros((), device=device),
+        gnss=GnssTable.empty(W, device), gnss_enabled=torch.zeros((), device=device),
+        prior=prior, prior_state=prior_state,
+        frame_dt=torch.full((W - 1,), 0.2, device=device))
+
+
+def carry_measurements(fv):
+    """The measurements of ``FusedVio`` ``fv``'s final window, rebuilt from
+    its carry as ``vio.fused.solve_tick`` builds them (the intervals
+    re-preintegrated at the carry's biases)."""
+    from .vio.estimator import preintegrate_all
+    from .vio.problem import VioMeasurements
+    c, e = fv.carry, fv.cfg
+    st = c.state
+    dev = st.p.device
+    pre, wpre, sinfo, wsinfo, _ = preintegrate_all(
+        c.acc, c.gyr, c.wvel, c.dt, c.smask, st.ba[:-1], st.bg[:-1], st.six,
+        st.siy, st.siw, e.imu_noise, e.wheel_noise, st.qio)
+    frame_dt = torch.clamp(c.times[1:] - c.times[:-1], min=1e-3)
+    return VioMeasurements(
+        feats=to_factor_table(c.fw), imu=pre, imu_valid=c.imu_valid,
+        imu_sqrt_info=sinfo, wheel=wpre, wheel_valid=c.wheel_valid,
+        wheel_sqrt_info=wsinfo,
+        plane_valid=torch.tensor(float(e.vio.use_plane), device=dev),
+        stationary=torch.zeros((), device=dev),
+        gnss=c.gnss._replace(frame_dt=frame_dt),
+        gnss_enabled=torch.zeros((), device=dev), prior=c.prior,
+        prior_state=c.prior_state, frame_dt=frame_dt)
 
 
 def check_clahe(device, frame=None) -> dict:
@@ -432,11 +505,15 @@ def check_proj(device, x0=None, feats=None, layout=None, delta=None,
                sqrt_info: float = 607.79772949218 / 1.5,
                timed: bool = True) -> dict:
     """Kernel C against the plain jacfwd block (default: an example window
-    with F = 150, D = 396, at a nonzero accumulated delta)."""
+    with F = 150, D = 396, at a nonzero accumulated delta), and a repeated
+    call bit for bit."""
     if x0 is None:
         x0, feats, layout, delta = example_window(150, device)
     Hk, gk, ck = fac.projection_normal_equations(x0, delta, feats, layout,
                                                  sqrt_info)
+    again = fac.projection_normal_equations(x0, delta, feats, layout,
+                                            sqrt_info)
+    same = all(bool(torch.equal(a, b)) for a, b in zip((Hk, gk, ck), again))
     Hp, gp, cp = fac.projection_normal_equations_plain(x0, delta, feats,
                                                        layout, sqrt_info)
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
@@ -454,9 +531,9 @@ def check_proj(device, x0=None, feats=None, layout=None, delta=None,
     nb = _nbytes(feats.ray, feats.vel, feats.obs_valid, feats.anchor,
                  feats.track_valid, Hk, gk)
     out = dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
-               tol=tols, dim=layout.dim,
-               ok=all(errs[k] <= tols[k] for k in errs), library_ms=None,
-               **bound(nb, n_obs * (200 + 2 * 2 * 20 * 20)))
+               tol=tols, dim=layout.dim, repeat_equal=same,
+               ok=same and all(errs[k] <= tols[k] for k in errs),
+               library_ms=None, **bound(nb, n_obs * (200 + 2 * 2 * 20 * 20)))
     if timed:
         out["ms"] = time_ms(lambda: fac.projection_normal_equations(
             x0, delta, feats, layout, sqrt_info))
@@ -718,3 +795,320 @@ def system_errors(trajectory, vio_outs, frames) -> dict:
         vio_ate=float(ate_rmse(est, gt_v, align=True)), n_vio=len(vio_outs),
         switches=[(round(o.t, 3), o.switched) for o in fused if o.switched],
         degenerate=[i for i, o in enumerate(fused) if o.degenerate and i >= 2])
+
+
+# ------------------------------------------------------------- kernel L
+SMALL_REL_TOL = 1e-5   # kernels L, O: H, cost relative to their max |entry|
+# kernel L's g near the optimum (a real window) is a small difference of
+# large terms whose f32 residuals round differently in the two evaluation
+# orders: as for C, its error is measured against sqrt(H_ii·2·cost), the
+# bound on the magnitude of its terms (PROJ_G_TOL)
+
+
+def _rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+def check_small_normal(device, x0, meas, layout, delta, cfg,
+                       timed: bool = True) -> dict:
+    """Kernel L against the plain jacfwd route over every row but the
+    projection block's, and a repeated call bit for bit."""
+    args = (x0, delta, meas, layout, cfg)
+    Hk, gk, ck = fac.small_normal_equations(*args)
+    H2, g2, c2 = fac.small_normal_equations(*args)
+    same = bool(torch.equal(Hk, H2) and torch.equal(gk, g2)
+                and torch.equal(ck, c2))
+    Hp, gp, cp = fac.small_normal_equations_plain(*args)
+    g_scale = torch.sqrt(torch.diagonal(Hp).clamp(min=0.0) * 2.0 * cp)
+    errs = dict(H=_rel(Hk, Hp), cost=_rel(ck, cp),
+                g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
+    tols = dict(H=SMALL_REL_TOL, g=PROJ_G_TOL, cost=SMALL_REL_TOL)
+    # inputs: the preintegrations, square-root informations and the prior;
+    # H and g out. Operations: ~3,000 flops a dual residual evaluation (a
+    # lane of an instance), the instances' local products, and the prior's
+    # sqrt_J·J⊟ and 246² Gram matrix (2·K³)
+    W, K = layout.W, layout.frame_dim
+    n_inst = (W - 1) * (1 + cfg.use_wheel + cfg.use_plane
+                        + 2 * cfg.use_motion) + cfg.use_motion
+    nb = _nbytes(meas.imu.jac, meas.imu_sqrt_info, meas.wheel.jac_ix,
+                 meas.wheel_sqrt_info, meas.prior.sqrt_J, meas.prior.r0, Hk,
+                 gk)
+    flops = n_inst * 30 * (3000 + 2 * 30 * 15) + 2 * K ** 3 + 6 * K * K
+    out = dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
+               g_rel_max_entry=_rel(gk, gp), tol=tols, repeat_equal=same,
+               dim=layout.dim, library_ms=None, **bound(nb, flops),
+               ok=same and all(errs[k] <= tols[k] for k in errs))
+    if timed:
+        out["ms"] = time_ms(lambda: fac.small_normal_equations(*args))
+        out["plain_ms"] = time_ms(
+            lambda: fac.small_normal_equations_plain(*args), reps=5)
+    return out
+
+
+# ---------------------------------------------------------- row 7 (linalg)
+F64_FLOPS_PER_S = 67e12   # H100 SXM, FP64 tensor core (NVIDIA data sheet)
+
+
+def check_linalg(device, H, g, layout) -> dict:
+    """Row 7 (library, as the JAX package leaves it to XLA's linalg): the
+    damped Cholesky solve at D, ``marginalize``'s two f64 ``eigh`` at their
+    sizes, and the pose graph's Cholesky at 4·64 and 4·512, each with its
+    bound (n³/3 flops a Cholesky, ~9 n³ an eigh, one read of the matrix)."""
+    from .solver.gauss_newton import _solve_damped
+    D = H.shape[0]
+    lam = torch.full((), 1e-4, device=device)
+    free = torch.ones(D, device=device)
+    out = {}
+    ms = time_ms(lambda: _solve_damped(H, g, lam, free))
+    out["cholesky_solve_D%d" % D] = dict(
+        ms=ms, library_ms=ms, **bound(_nbytes(H, g) + g.numel() * 4,
+                                      D ** 3 / 3 + 4 * D * D))
+    n_drop = 20 + layout.F
+    rng = np.random.default_rng(0)
+    for name, n in (("eigh_f64_drop%d" % n_drop, n_drop),
+                    ("eigh_f64_kept%d" % layout.frame_dim, layout.frame_dim)):
+        A = rng.normal(size=(n, n))
+        S = torch.as_tensor(A @ A.T + n * np.eye(n), dtype=torch.float64,
+                            device=device)
+        ms = time_ms(lambda: torch.linalg.eigh(S), reps=10)
+        t_b = _nbytes(S) * 2 / HBM_BYTES_PER_S * 1e3
+        t_f = 9 * n ** 3 / F64_FLOPS_PER_S * 1e3
+        out[name] = dict(ms=ms, library_ms=ms, bound_ms=max(t_b, t_f),
+                         bound_by="bytes" if t_b >= t_f else "operations")
+    for cap in (64, 512):
+        n = 4 * cap
+        A = rng.normal(size=(n, n)).astype(np.float32)
+        S = torch.as_tensor(A @ A.T / n + np.eye(n, dtype=np.float32),
+                            device=device)
+        ms = time_ms(lambda: torch.linalg.cholesky_ex(S), reps=10)
+        out["pose_graph_cholesky_%d" % n] = dict(
+            ms=ms, library_ms=ms, **bound(2 * _nbytes(S), n ** 3 / 3))
+    return out
+
+
+# ------------------------------------------------------- kernels M, N, O
+LOOP_GEOM_TOL = 1e-6   # kernel N: R, t against the plain fit in float64
+
+
+def check_brief(device, img, uv, valid, other) -> dict:
+    """Kernel M: the describe bits and signs exactly, the simhash to 1e-5,
+    Hamming exactly against ``other`` (packed words [N, 8], uint32)."""
+    from .posegraph import brief
+    img = torch.as_tensor(np.asarray(img), dtype=torch.float32, device=device)
+    uv = torch.as_tensor(np.asarray(uv), dtype=torch.float32, device=device)
+    valid = torch.as_tensor(np.asarray(valid), dtype=torch.float32,
+                            device=device)
+    p2 = torch.as_tensor(np.asarray(other, np.uint32).view(np.int32),
+                         device=device)
+    pk, sk = brief.brief_describe(img, uv, valid)
+    pp, sp = brief.brief_describe_plain(img, uv, valid)
+    bits_diff = int((pk != pp).sum()) + int((sk != sp).sum())
+    gk = brief.global_descriptor(sk, valid)
+    gp = brief.global_descriptor_plain(sp, valid)
+    g_err = float((gk - gp).abs().max())
+    hk = brief.hamming(pk, p2)
+    hp = brief.hamming_plain(pp, p2)
+    h_diff = int((hk != hp).sum())
+    F = uv.shape[0]
+    # describe: the image once, 512 bilinear samples a corner (~12 flops
+    # each) -> bits and signs; simhash: F·256·128 multiply-adds; Hamming:
+    # both sets in, F² distances out, 8 XOR+popcounts each
+    desc = dict(max_abs_err=float(bits_diff), bit_mismatches=bits_diff,
+                ok=bits_diff == 0, library_ms=None,
+                **bound(_nbytes(img, uv, valid, pk, sk), F * 512 * 12),
+                ms=time_ms(lambda: brief.brief_describe(img, uv, valid)),
+                plain_ms=time_ms(lambda: brief.brief_describe_plain(
+                    img, uv, valid)))
+    simh = dict(max_abs_err=g_err, tol=1e-5, ok=g_err <= 1e-5,
+                **bound(_nbytes(sk, valid, gk) + 256 * 128 * 4,
+                        2 * F * 256 * 128 + 2 * F * 128),
+                ms=time_ms(lambda: brief.global_descriptor(sk, valid)),
+                plain_ms=time_ms(lambda: brief.global_descriptor_plain(
+                    sp, valid)),
+                # the projection alone is one matmul: a yardstick
+                library_ms=time_ms(lambda: torch.matmul(
+                    sk, brief._const("proj", device))))
+    ham = dict(max_abs_err=float(h_diff), mismatches=h_diff, ok=h_diff == 0,
+               library_ms=None, **bound(_nbytes(pk, p2, hk), F * F * 8 * 3),
+               ms=time_ms(lambda: brief.hamming(pk, p2)),
+               plain_ms=time_ms(lambda: brief.hamming_plain(pp, p2)))
+    return dict(brief=desc, simhash=simh, hamming=ham)
+
+
+def check_loop_geom(device, x, thresh: float, gumbel) -> dict:
+    """Kernel N against the plain fit run in float64 on the same padded
+    match set and noise: R and t to LOOP_GEOM_TOL, the inlier counts equal."""
+    from .posegraph import pose_graph as pgm
+    thresh32 = float(np.float32(thresh))
+    Rk, tk, nk = pgm.loop_geometry(*x, thresh, gumbel)
+    d64 = [a.to(torch.float64) for a in x]
+    Rp, tp, np_ = pgm.loop_geometry_plain(*d64, thresh32, gumbel)
+    r32 = pgm.loop_geometry_plain(*x, thresh, gumbel)
+    e_R = float((Rk - Rp).abs().max())
+    e_t = float((tk - tp).abs().max())
+    K, F = gumbel.shape
+    n_valid = int(x[3].sum())
+    # per hypothesis: a top-3 pass over F, a 3×3 Jacobi SVD (~2,000 flops),
+    # F reprojections (~30 flops); 8 GN passes of ~150 flops a match
+    flops = K * (3 * F + 2000 + 30 * F) + 8 * 150 * F
+    return dict(max_abs_err=max(e_R, e_t), err_R=e_R, err_t=e_t,
+                tol=LOOP_GEOM_TOL, n_inliers=int(nk),
+                n_inliers_plain64=int(np_), n_inliers_plain32=int(r32[2]),
+                n_valid=n_valid,
+                ok=max(e_R, e_t) <= LOOP_GEOM_TOL and int(nk) == int(np_),
+                library_ms=None,
+                **bound(_nbytes(*x, gumbel) + 12 * 8 + 4, flops),
+                ms=time_ms(lambda: pgm.loop_geometry(*x, thresh, gumbel)),
+                plain_ms=time_ms(lambda: pgm.loop_geometry_plain(
+                    *x, thresh, gumbel), reps=5))
+
+
+def pg_normal_args(pg) -> tuple:
+    """The pose-graph LM's normal-equation inputs (``pg_normal_equations``'s
+    argument order, delta left out) for the graph ``pg`` as it stands."""
+    (p0, r0, _, seq_dp, seq_r, seq_valid, loop_i, loop_j, loop_dp, loop_r,
+     loop_valid), _ = pg.solve_inputs()
+    return (p0, r0, (seq_dp, seq_r), seq_valid, loop_i, loop_j,
+            (loop_dp, loop_r), loop_valid, *pg.weights())
+
+
+def check_pg_normal(device, args, seed: int = 0) -> dict:
+    """Kernel O against the plain jacfwd route at a small nonzero delta,
+    and a repeated call bit for bit."""
+    from .posegraph import pose_graph as pgm
+    d = 6 if args[1].dim() == 2 else 4
+    N = args[0].shape[0]
+    rng = np.random.default_rng(seed)
+    delta = torch.as_tensor(rng.normal(scale=0.01, size=N * d),
+                            dtype=torch.float32, device=device)
+    Hk, gk, ck = pgm.pg_normal_equations(*args, delta)
+    H2, g2, c2 = pgm.pg_normal_equations(*args, delta)
+    same = bool(torch.equal(Hk, H2) and torch.equal(gk, g2)
+                and torch.equal(ck, c2))
+    Hp, gp, cp = pgm.pg_normal_equations_plain(*args, delta)
+    errs = dict(H=_rel(Hk, Hp), g=_rel(gk, gp), cost=_rel(ck, cp))
+    n_edges = N - 1 + args[4].shape[0]
+    # the nodes and edges in, H [N·d]² and g out; per edge 2·d dual
+    # residual evaluations (~300 flops) and its (2·d)² local product
+    nb = _nbytes(args[0], args[1], args[2][0], args[6][0], Hk, gk)
+    flops = n_edges * (2 * d * 300 + 2 * (2 * d) ** 2 * d)
+    return dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
+                tol=SMALL_REL_TOL, repeat_equal=same, nodes=N, dof=d,
+                ok=same and all(v <= SMALL_REL_TOL for v in errs.values()),
+                library_ms=None, **bound(nb, flops),
+                ms=time_ms(lambda: pgm.pg_normal_equations(*args, delta)),
+                plain_ms=time_ms(lambda: pgm.pg_normal_equations_plain(
+                    *args, delta), reps=5))
+
+
+# ------------------------------------------------------------ loop drive
+class ScriptedVio:
+    """Stands in for the VIO: emits a prescribed pose (all keyframes) each
+    tick, as the JAX package's tests/test_system_loop.py does, so a loop
+    drive needs no 50-keyframe warm-up of a real estimator."""
+
+    def __init__(self, poses):
+        self.poses = poses   # list of (p, q)
+        self.k = 0
+
+    def process_obs(self, t, obs, imu, wheel_vel=None):
+        from .vio.estimator import VioOutput
+        p, q = self.poses[self.k]
+        self.k += 1
+        return VioOutput(t=t, p=np.asarray(p, np.float32),
+                         q=np.asarray(q, np.float32),
+                         v=np.zeros(3, np.float32), initialized=True,
+                         is_keyframe=True, stationary=False,
+                         wheel_anomaly=False, tracked=50, cost=0.0)
+
+    def flush(self):
+        return None
+
+
+def loop_drive(n: int = 60, W: int = 640, H: int = 480,
+               intrinsics=M3DGR_INTRINSICS, radius: float = 1.2,
+               drift_yaw: float = 0.10, drift_p=(0.18, -0.12, 0.0)):
+    """tests/test_system_loop.py's closed circle: n keyframes at yaw
+    2πk/(n-1) on a circle of ``radius`` 0.4 m above the floor of
+    ``make_room_scene(seed=0)``, rendered at W×H at the true poses (the
+    camera ``RIG_RIC`` on the body); the odometry drifts linearly to
+    ``drift_yaw`` rad and ``drift_p`` m. One dict a keyframe: t, gray
+    (float), depth, p_gt, q_gt, p_odom, q_odom."""
+    fx, fy, cx, cy = intrinsics
+    rend = render.SceneRenderer(render.make_room_scene(seed=0), fx, fy, cx, cy,
+                                W, H)
+    yaw_q = lambda y: lie.quat_from_yaw(
+        torch.tensor(y, dtype=torch.float32)).numpy()
+    out = []
+    for k in range(n):
+        th = 2 * np.pi * k / (n - 1)
+        p = np.array([radius * np.sin(th), radius * (1 - np.cos(th)), 0.4])
+        q = yaw_q(th)
+        a = k / (n - 1)
+        dy = drift_yaw * a
+        Rz = np.array([[np.cos(dy), -np.sin(dy), 0],
+                       [np.sin(dy), np.cos(dy), 0], [0, 0, 1.0]])
+        R_wb = lie.quat_to_mat(torch.as_tensor(q)).numpy()
+        gray, depth = rend.render(p, R_wb @ RIG_RIC)
+        out.append(dict(t=0.1 * k, gray=gray, depth=depth, p_gt=p, q_gt=q,
+                        p_odom=Rz @ p + a * np.asarray(drift_p),
+                        q_odom=yaw_q(th + dy)))
+    return out
+
+
+LOOP_IMU = (np.zeros((3, 3), np.float32), np.zeros((3, 3), np.float32),
+            np.full((2,), 0.05, np.float32))
+
+
+def loop_errors(gf, drive) -> dict:
+    """The loop path's gates on a ``loop_drive``, for either package's
+    ``GroundFusion``: loop events, and the published and raw endpoint errors
+    against the truth (tests/test_system_loop.py:96-107)."""
+    events = [ev["kind"] for ev in gf.telemetry.events
+              if ev["kind"].startswith("loop_closed")]
+    p_gt = drive[-1]["p_gt"]
+    raw = float(np.linalg.norm(drive[-1]["p_odom"] - p_gt))
+    pub = float(np.linalg.norm(np.asarray(gf.trajectory[-1].p) - p_gt))
+    return dict(events=events, err_raw=raw, err_pub=pub,
+                ratio=pub / max(raw, 1e-12))
+
+
+def ring_graph_args(n: int, cap: int, device, six: bool = False,
+                    n_loops: int = 8, max_loops: int = 64, seed: int = 0):
+    """``pg_normal_equations`` inputs (delta left out) of a synthetic graph:
+    n drifted nodes on a ring, padded to the tier ``cap``, the sequential
+    edges from the true poses and ``n_loops`` loop edges across the ring,
+    padded to ``max_loops``; the default weights."""
+    rng = np.random.default_rng(seed)
+    yaw = np.linspace(0, 2 * np.pi, n, endpoint=False)
+    p_true = np.c_[np.cos(yaw) * 5, np.sin(yaw) * 5, np.zeros(n)]
+    p0 = np.zeros((cap, 3), np.float32)
+    p0[:n] = p_true + rng.normal(scale=0.05, size=(n, 3))
+    yaw0 = np.zeros(cap, np.float32)
+    yaw0[:n] = yaw + rng.normal(scale=0.01, size=n)
+    rz = lambda a: np.array([[np.cos(a), np.sin(a), 0],
+                             [-np.sin(a), np.cos(a), 0], [0, 0, 1]])
+    seq_dp = np.zeros((cap - 1, 3), np.float32)
+    seq_dyaw = np.zeros(cap - 1, np.float32)
+    seq_valid = np.zeros(cap - 1, np.float32)
+    for k in range(n - 1):
+        seq_dp[k] = rz(yaw[k]) @ (p_true[k + 1] - p_true[k])
+        seq_dyaw[k] = yaw[k + 1] - yaw[k]
+        seq_valid[k] = 1.0
+    li = np.zeros(max_loops, np.int32)
+    lj = np.zeros(max_loops, np.int32)
+    l_dp = np.zeros((max_loops, 3), np.float32)
+    l_dyaw = np.zeros(max_loops, np.float32)
+    l_valid = np.zeros(max_loops, np.float32)
+    for k in range(n_loops):
+        i, j = k * (n // (2 * n_loops)), n - 1 - k * (n // (2 * n_loops))
+        li[k], lj[k] = i, j
+        l_dp[k] = rz(yaw[i]) @ (p_true[j] - p_true[i])
+        l_dyaw[k] = (yaw[j] - yaw[i] + np.pi) % (2 * np.pi) - np.pi
+        l_valid[k] = 1.0
+    q = lambda a: lie.quat_from_yaw(torch.as_tensor(a, dtype=torch.float32))
+    t = lambda a: torch.as_tensor(a, device=device)
+    r0, seq_r, l_r = ((q(yaw0), q(seq_dyaw), q(l_dyaw)) if six
+                      else map(torch.as_tensor, (yaw0, seq_dyaw, l_dyaw)))
+    return (t(p0), t(r0), (t(seq_dp), t(seq_r)), t(seq_valid), t(li), t(lj),
+            (t(l_dp), t(l_r)), t(l_valid), 10.0, 50.0, 20.0, 100.0)

@@ -1,7 +1,8 @@
 """Configuration mirrors of the JAX package's ``VioConfig``,
 ``EstimatorConfig``, ``TrackerConfig``, ``VoxelMapConfig``, ``CtIcpConfig``,
-``EskfOptions`` and ``LioConfig`` (``config/loader.py`` imports JAX modules,
-so the port carries its own), and the M3DGR camera and LIO configurations.
+``EskfOptions``, ``LioConfig`` and ``PoseGraphConfig`` (``config/loader.py``
+imports JAX modules, so the port carries its own), and the M3DGR camera and
+LIO configurations.
 """
 
 from __future__ import annotations
@@ -206,6 +207,30 @@ def m3dgr_lio() -> LioConfig:
                             deg_sigma_mean=10.0, conv_trans=0.01,
                             conv_rot_deg=0.1),
         max_keypoints=2000, keypoint_cell=0.05, g_norm=9.7944)
+
+
+@dataclass
+class PoseGraphConfig:
+    """``posegraph/pose_graph.py:PoseGraphConfig``, field for field."""
+
+    capacity: int = 512
+    num_feats: int = 96
+    sim_thresh: float = 0.88       # retrieval gate
+    skip_recent: int = 50          # skip the last 50 keyframes
+    top_k: int = 4                 # retrieval candidates tried a query
+    hamming_max: int = 55          # feature match gate (bits of 256)
+    min_inliers: int = 12
+    inlier_thresh: float = 0.08    # normalized-plane reprojection gate
+    ransac_iters: int = 128        # 6-DoF hypotheses
+    rel_weight_t: float = 10.0
+    rel_weight_yaw: float = 50.0
+    loop_weight_t: float = 20.0
+    loop_weight_yaw: float = 100.0
+    max_loops: int = 64
+    six_dof: bool = False          # optimize6DoF instead of optimize4DoF
+    # camera-IMU extrinsic (keyframe poses are body; features are camera)
+    ric: np.ndarray = field(default_factory=lambda: np.eye(3))
+    tic: np.ndarray = field(default_factory=lambda: np.zeros(3))
 
 
 def m3dgr_system():

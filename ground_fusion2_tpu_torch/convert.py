@@ -9,7 +9,8 @@ NamedTuple of tensors on ``device``. :func:`to_numpy` goes back: the port's tree
 leaves, field names and dtypes as in the JAX package, so a test can rebuild
 the JAX NamedTuple with ``JaxType(**tree._asdict())``.
 :func:`system_from_jax` carries a whole JAX ``GroundFusion`` (both carries,
-the IMU-rate propagator, the last VIO output) into the port's.
+the IMU-rate propagator, the last VIO output, the pose graph) into the
+port's; :func:`pose_graph_from_jax` a JAX ``PoseGraph`` alone.
 """
 
 from __future__ import annotations
@@ -114,6 +115,28 @@ def _config(cls, jcfg):
     return cls(**out)
 
 
+def pose_graph_config_from_jax(jcfg):
+    from .config import PoseGraphConfig
+    return PoseGraphConfig(**{f.name: copy.deepcopy(getattr(jcfg, f.name))
+                              for f in dataclasses.fields(PoseGraphConfig)})
+
+
+def pose_graph_from_jax(pg, device, cfg=None):
+    """A port ``PoseGraph`` on ``device`` holding the JAX ``pg``'s keyframe
+    database, loop edges, drift and session starts."""
+    from .posegraph.pose_graph import PoseGraph
+    out = PoseGraph(cfg or pose_graph_config_from_jax(pg.cfg), device)
+    out.n = pg.n
+    for name in ("p", "q", "p_odom", "q_odom", "desc", "desc_valid",
+                 "gdesc", "pts_norm", "pts_depth", "drift_p"):
+        setattr(out, name, np.array(getattr(pg, name), copy=True))
+    out.loops = [(int(i), int(j), np.array(dp, np.float32), float(dyaw),
+                  np.array(dq, np.float32)) for i, j, dp, dyaw, dq in pg.loops]
+    out.drift_yaw = float(pg.drift_yaw)
+    out.session_starts = list(pg.session_starts)
+    return out
+
+
 def system_config_from_jax(jcfg):
     """The port's SystemConfig for a JAX ``SystemConfig`` (the fields the
     port carries; the options it does not port must be off)."""
@@ -133,18 +156,23 @@ def system_config_from_jax(jcfg):
         vio_depth_stride=jcfg.vio_depth_stride,
         auto_dyn_mask=jcfg.auto_dyn_mask, lio_pipelined=jcfg.lio_pipelined,
         use_loop_closure=jcfg.use_loop_closure,
+        pose_graph=(None if jcfg.pose_graph is None
+                    else pose_graph_config_from_jax(jcfg.pose_graph)),
+        load_pose_graph=jcfg.load_pose_graph,
+        loop_optimize_min_gap=jcfg.loop_optimize_min_gap,
         use_global_fusion=jcfg.use_global_fusion, use_mesh=jcfg.use_mesh,
         use_occupancy_grid=jcfg.use_occupancy_grid,
-        cam_intr=tuple(jcfg.cam_intr))
+        cam_intr=tuple(jcfg.cam_intr), kf_cell=jcfg.kf_cell)
 
 
 def system_from_jax(gf, device, cfg=None):
     """A port ``GroundFusion`` on ``device`` in the state of the JAX
     package's ``gf``: the VIO carry (with its interval counts, frame count
     and held-back record), the LIO carry (with its held-back record), the
-    ``FastPropagator`` buffers and ``latest_vio``. Both of ``gf``'s carries
-    must be live (after warm-up and the LIO's first fused tick). ``cfg``:
-    the port's SystemConfig (default: converted from ``gf.cfg``)."""
+    ``FastPropagator`` buffers, ``latest_vio`` and the pose graph with its
+    keyframe count and pending loop. Both of ``gf``'s carries must be live
+    (after warm-up and the LIO's first fused tick). ``cfg``: the port's
+    SystemConfig (default: converted from ``gf.cfg``)."""
     from .system import GroundFusion
     from .vio.estimator import VioOutput
     jv, jl = gf.vio, gf.lio
@@ -172,6 +200,11 @@ def system_from_jax(gf, device, cfg=None):
             t, rec = jl._inflight
             lo._inflight = (t, np.asarray(rec))
     out.prop.__dict__.update(copy.deepcopy(gf.prop.__dict__))
+    if gf.pg is not None:
+        out.pg = pose_graph_from_jax(gf.pg, out.device, out.cfg.pose_graph)
+        out._n_keyframes = gf._n_keyframes
+        out._pending_loop = gf._pending_loop
+        out._last_loop_opt_kf = gf._last_loop_opt_kf
     if gf.latest_vio is not None:
         out.latest_vio = VioOutput(**{k: (np.asarray(x) if hasattr(x, "shape")
                                           else x)

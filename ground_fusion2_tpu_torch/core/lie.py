@@ -169,6 +169,18 @@ def so3_right_jacobian(phi: torch.Tensor) -> torch.Tensor:
     return so3_left_jacobian(-phi)
 
 
+def quat_yaw(q: torch.Tensor) -> torch.Tensor:
+    """Yaw (rotation about world z) of q, radians."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
+
+
+def quat_from_yaw(yaw: torch.Tensor) -> torch.Tensor:
+    half = 0.5 * yaw
+    z = torch.zeros_like(half)
+    return torch.stack([torch.cos(half), z, z, torch.sin(half)], -1)
+
+
 def mat_to_ypr(R: torch.Tensor) -> torch.Tensor:
     yaw = torch.atan2(R[..., 1, 0], R[..., 0, 0])
     pitch = torch.asin(torch.clamp(-R[..., 2, 0], -1.0, 1.0))

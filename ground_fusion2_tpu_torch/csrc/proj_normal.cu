@@ -1,219 +1,236 @@
 // Kernel C: normal equations of the visual projection block.
 //
 // Replaces, for the projection factor, the dense `jax.jacfwd` + `JᵀWJ`
-// product of ground_fusion2_tpu/solver/gauss_newton.py:43-58
+// of ground_fusion2_tpu/solver/gauss_newton.py:43-58
 // (`_linearize` / `normal_equations`) over
 // ground_fusion2_tpu/factors/vio_factors.py:58 `projection_residuals`.
 // The TPU form builds a dense [F·W·2, D] Jacobian (D = 246 + F) and one MXU
 // product; here each observation touches at most 20 tangent columns (anchor
 // pose 6, observing-frame pose 6, camera extrinsic 6, td 1, its landmark 1),
-// so one warp per (feature f, frame j) observation differentiates only those.
+// so only those are differentiated.
 //
-// Lane k < 20 evaluates the residual with a forward-mode dual number seeded
-// on local column k, starting from retract(x0, delta) at the *current*
-// accumulated delta (quaternions as q ⊗ exp(δθ), as the JAX retraction
-// does), so the Jacobian equals jacfwd's including the SO(3) right-Jacobian
-// factor. The Huber weight is taken from the value and held constant, as
-// jacfwd of `residual_fn(d)[0]` does. The warp then accumulates
-// w²·JᵀJ (20×20, exchanged by shuffles) and w²·Jᵀr into dense H and g with
-// atomicAdd, and 0.5·w²·|r|² into the cost.
+// One warp per feature walks its W observations in frame order. Lane k < 20
+// evaluates the residual with a forward-mode dual number seeded on local
+// column k, starting from retract(x0, delta) at the *current* accumulated
+// delta (quaternions as q ⊗ exp(δθ), as the JAX retraction does), so the
+// Jacobian equals jacfwd's including the SO(3) right-Jacobian factor. The
+// Huber weight is taken from the value and held constant, as jacfwd of
+// `residual_fn(d)[0]` does.
 //
-// Bounds on the card: F·W = 1650 warps of ~20×300 flops each, ~10 MFLOP,
-// and ≤ 420 atomics per live observation into a 396² matrix (627 KB, L2
-// resident). It is bound by atomic traffic on the few shared columns
-// (extrinsic, td), not by flops or HBM; a block-level reduction of those
-// columns is the next step if the profile points here.
+// Determinism: no float atomics. Each feature sums its observations' w²·JᵀJ
+// and w²·Jᵀr, in frame order, into a compact block over the 74 columns a
+// feature can touch (the W poses, the extrinsic, td, its landmark) in shared
+// memory and writes it out; a second pass sums the blocks over features in
+// index order into dense H and g. Two calls on the same inputs give the same
+// bits.
+//
+// Bounds on the card: F·W = 1650 observations of ~20×300 flops each, ~10
+// MFLOP; the per-feature blocks (150 × 74² f32, 3.3 MB) stay in L2. At this
+// size one launch's latency and the serial walk over W observations set the
+// time, not flops or bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "dual.cuh"
+
 namespace {
+
+using namespace gf2;
 
 constexpr int kCols = 20;
 
-struct Dual {
-  float v, d;
-};
-__device__ __forceinline__ Dual mk(float v, float d = 0.f) { return {v, d}; }
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) { return {a.v + b.v, a.d + b.d}; }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) { return {a.v - b.v, a.d - b.d}; }
-__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-  return {a.v * b.v, a.d * b.v + a.v * b.d};
-}
-__device__ __forceinline__ Dual operator*(float s, Dual a) { return {s * a.v, s * a.d}; }
-__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
-  float inv = 1.f / b.v;
-  return {a.v * inv, (a.d * b.v - a.v * b.d) * inv * inv};
-}
-__device__ __forceinline__ Dual dsqrt(Dual a) {
-  float s = sqrtf(a.v);
-  return {s, a.d * 0.5f / s};
-}
-
-struct V3 { Dual x, y, z; };
-struct Q4 { Dual w, x, y, z; };
-
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 scale(Dual s, V3 a) { return {s * a.x, s * a.y, s * a.z}; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-
-__device__ __forceinline__ Q4 qmul(Q4 q, Q4 r) {
-  return {q.w * r.w - q.x * r.x - q.y * r.y - q.z * r.z,
-          q.w * r.x + q.x * r.w + q.y * r.z - q.z * r.y,
-          q.w * r.y - q.x * r.z + q.y * r.w + q.z * r.x,
-          q.w * r.z + q.x * r.y - q.y * r.x + q.z * r.w};
-}
-__device__ __forceinline__ Q4 qconj(Q4 q) { return {q.w, -q.x, -q.y, -q.z}; }
-
-// lie.quat_rotate: v + 2 (w (u x v) + u x (u x v))
-__device__ __forceinline__ V3 qrot(Q4 q, V3 v) {
-  V3 u = {q.x, q.y, q.z};
-  V3 uv = cross(u, v);
-  V3 t = scale(q.w, uv) + cross(u, uv);
-  return v + scale(mk(2.f), t);
-}
-
-// lie.quat_exp with its small-angle branch (theta² < 1e-8)
-__device__ __forceinline__ Q4 qexp(V3 phi) {
-  Dual th2 = phi.x * phi.x + phi.y * phi.y + phi.z * phi.z;
-  Dual k, w;
-  if (th2.v < 1e-8f) {
-    k = mk(0.5f) - (1.f / 48.f) * th2;
-    w = mk(1.f) - (1.f / 8.f) * th2;
-  } else {
-    Dual th = th2.v > 1e-16f ? dsqrt(th2) : mk(1e-8f);
-    Dual half = 0.5f * th;
-    float s = sinf(half.v), c = cosf(half.v);
-    k = mk(s, c * half.d) / th;
-    w = mk(c, -s * half.d);
-  }
-  return {w, k * phi.x, k * phi.y, k * phi.z};
-}
-
-// lie.quat_normalize: q / max(|q|, 1e-8), sign canonicalized to w >= 0
-__device__ __forceinline__ Q4 qnormalize(Q4 q) {
-  Dual n = dsqrt(q.w * q.w + q.x * q.x + q.y * q.y + q.z * q.z);
-  if (n.v < 1e-8f) n = mk(1e-8f);
-  Q4 o = {q.w / n, q.x / n, q.y / n, q.z / n};
-  if (o.w.v < 0.f) o = {-o.w, -o.x, -o.y, -o.z};
-  return o;
-}
-
-__device__ __forceinline__ float seed(int k, int col) { return k == col ? 1.f : 0.f; }
-
-// retract a pose (p, q) by its 6 delta entries; local columns c0..c0+5
-__device__ __forceinline__ void retract_pose(const float* p0, const float* q0,
-                                             const float* dl, int k, int c0,
-                                             V3* p, Q4* q) {
-  *p = {mk(p0[0] + dl[0], seed(k, c0 + 0)), mk(p0[1] + dl[1], seed(k, c0 + 1)),
-        mk(p0[2] + dl[2], seed(k, c0 + 2))};
-  V3 dth = {mk(dl[3], seed(k, c0 + 3)), mk(dl[4], seed(k, c0 + 4)),
-            mk(dl[5], seed(k, c0 + 5))};
-  Q4 qq = {mk(q0[0]), mk(q0[1]), mk(q0[2]), mk(q0[3])};
-  *q = qnormalize(qmul(qq, qexp(dth)));
-}
-
-__global__ void proj_normal_kernel(
+__global__ void proj_feature_kernel(
     const float* __restrict__ P, const float* __restrict__ Q,
     const float* __restrict__ tic0, const float* __restrict__ qic0,
     const float* __restrict__ td0, const float* __restrict__ rho0,
     const float* __restrict__ delta, const float* __restrict__ ray,
     const float* __restrict__ vel, const float* __restrict__ obs_valid,
     const int* __restrict__ anchor, const float* __restrict__ track_valid,
-    int F, int W, int D, int pose_off, int cam_off, int td_off, int rho_off,
-    float sqrt_info, float huber_delta, float min_depth, float* __restrict__ H,
-    float* __restrict__ g, float* __restrict__ cost) {
-  const int lane = threadIdx.x & 31;
-  const int obs = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (obs >= F * W) return;
-  const int f = obs / W, j = obs % W;
+    int F, int W, int pose_off, int cam_off, int td_off, int rho_off,
+    float sqrt_info, float huber_delta, float min_depth,
+    float* __restrict__ part_H, float* __restrict__ part_g,
+    float* __restrict__ part_c) {
+  extern __shared__ float sh[];
+  const int L = 6 * W + 8;          // compact columns: poses, extrinsic, td, rho
+  float* sH = sh;                   // [L, L]
+  float* sg = sh + L * L;           // [L]
+  __shared__ float scost;
+  const int f = blockIdx.x;
+  const int lane = threadIdx.x;
+  for (int i = lane; i < L * L + L; i += 32) sh[i] = 0.f;
+  if (lane == 0) scost = 0.f;
+  __syncwarp();
+
   const int a = anchor[f];
-  const float ov = obs_valid[f * W + j], tv = track_valid[f];
-  if (ov == 0.f || tv == 0.f || a == j) return;  // weight 0 (warp-uniform)
-
+  const float tv = track_valid[f];
   const int k = lane < kCols ? lane : -1;  // seeded local column
-
-  // global tangent column of each local column
-  int col;
-  if (k < 0) col = -1;
-  else if (k < 6) col = pose_off + a * 6 + k;
-  else if (k < 12) col = pose_off + j * 6 + (k - 6);
-  else if (k < 18) col = cam_off + (k - 12);
-  else if (k == 18) col = td_off;
-  else col = rho_off + f;
-
-  V3 pa, pj, tic;
-  Q4 qa, qj, qic;
-  retract_pose(P + 3 * a, Q + 4 * a, delta + pose_off + 6 * a, k, 0, &pa, &qa);
-  retract_pose(P + 3 * j, Q + 4 * j, delta + pose_off + 6 * j, k, 6, &pj, &qj);
-  retract_pose(tic0, qic0, delta + cam_off, k, 12, &tic, &qic);
-  Dual td = mk(td0[0] + delta[td_off], seed(k, 18));
-  Dual rho = mk(rho0[f] + delta[rho_off + f], seed(k, 19));
-
-  const float* ra = ray + (f * W + a) * 2;
-  const float* va = vel + (f * W + a) * 2;
-  const float* rj = ray + (f * W + j) * 2;
-  const float* vj = vel + (f * W + j) * 2;
-  Dual ua = mk(ra[0]) - td * mk(va[0]);
-  Dual wa = mk(ra[1]) - td * mk(va[1]);
-  Dual uj = mk(rj[0]) - td * mk(vj[0]);
-  Dual wj = mk(rj[1]) - td * mk(vj[1]);
-
-  Dual depth = rho.v > 1e-3f ? mk(1.f) / rho : mk(1000.f);
-  V3 p_ci = {ua * depth, wa * depth, depth};
-  V3 p_imu_i = qrot(qic, p_ci) + tic;
-  V3 p_w = qrot(qa, p_imu_i) + pa;
-  V3 p_imu_j = qrot(qconj(qj), p_w - pj);
-  V3 p_cj = qrot(qconj(qic), p_imu_j - tic);
-
-  Dual z = p_cj.z;
-  Dual zs = fabsf(z.v) > min_depth ? z : mk(min_depth);
-  Dual rx = sqrt_info * (p_cj.x / zs - uj);
-  Dual ry = sqrt_info * (p_cj.y / zs - wj);
-
-  if (!(z.v > min_depth)) return;  // warp-uniform: values equal in all lanes
-  float sqn = fmaxf(rx.v * rx.v + ry.v * ry.v, 1e-12f);
-  float rn = sqrtf(sqn);
-  float hub = rn <= huber_delta ? 1.f : sqrtf(huber_delta / rn);
-  float w = ov * tv * hub;
-  float w2 = w * w;
-
   const unsigned full = 0xffffffffu;
-  float jx = k >= 0 ? rx.d : 0.f, jy = k >= 0 ? ry.d : 0.f;
-  for (int l = 0; l < kCols; ++l) {
-    float jxl = __shfl_sync(full, jx, l);
-    float jyl = __shfl_sync(full, jy, l);
-    int coll = __shfl_sync(full, col, l);
-    float h = w2 * (jx * jxl + jy * jyl);
-    if (k >= 0 && h != 0.f) atomicAdd(H + (size_t)col * D + coll, h);
+  for (int j = 0; j < W && tv != 0.f; ++j) {
+    const float ov = obs_valid[f * W + j];
+    if (ov == 0.f || a == j) continue;  // weight 0 (warp-uniform)
+    // compact column of each local column
+    int loc;
+    if (k < 0) loc = -1;
+    else if (k < 6) loc = a * 6 + k;
+    else if (k < 12) loc = j * 6 + (k - 6);
+    else if (k < 18) loc = 6 * W + (k - 12);
+    else if (k == 18) loc = 6 * W + 6;
+    else loc = 6 * W + 7;
+
+    V3 pa, pj, tic;
+    Q4 qa, qj, qic;
+    pa = retract_v3(P + 3 * a, delta + pose_off + 6 * a, k, 0);
+    qa = retract_q(Q + 4 * a, delta + pose_off + 6 * a + 3, k, 3);
+    pj = retract_v3(P + 3 * j, delta + pose_off + 6 * j, k, 6);
+    qj = retract_q(Q + 4 * j, delta + pose_off + 6 * j + 3, k, 9);
+    tic = retract_v3(tic0, delta + cam_off, k, 12);
+    qic = retract_q(qic0, delta + cam_off + 3, k, 15);
+    Dual td = mk(td0[0] + delta[td_off], seed(k, 18));
+    Dual rho = mk(rho0[f] + delta[rho_off + f], seed(k, 19));
+
+    const float* ra = ray + (f * W + a) * 2;
+    const float* va = vel + (f * W + a) * 2;
+    const float* rj = ray + (f * W + j) * 2;
+    const float* vj = vel + (f * W + j) * 2;
+    Dual ua = mk(ra[0]) - td * mk(va[0]);
+    Dual wa = mk(ra[1]) - td * mk(va[1]);
+    Dual uj = mk(rj[0]) - td * mk(vj[0]);
+    Dual wj = mk(rj[1]) - td * mk(vj[1]);
+
+    Dual depth = rho.v > 1e-3f ? mk(1.f) / rho : mk(1000.f);
+    V3 p_ci = {ua * depth, wa * depth, depth};
+    V3 p_imu_i = qrot(qic, p_ci) + tic;
+    V3 p_w = qrot(qa, p_imu_i) + pa;
+    V3 p_imu_j = qrot(qconj(qj), p_w - pj);
+    V3 p_cj = qrot(qconj(qic), p_imu_j - tic);
+
+    Dual z = p_cj.z;
+    Dual zs = fabsf(z.v) > min_depth ? z : mk(min_depth);
+    Dual rx = sqrt_info * (p_cj.x / zs - uj);
+    Dual ry = sqrt_info * (p_cj.y / zs - wj);
+
+    if (!(z.v > min_depth)) continue;  // warp-uniform: values equal in all lanes
+    float sqn = fmaxf(rx.v * rx.v + ry.v * ry.v, 1e-12f);
+    float rn = sqrtf(sqn);
+    float hub = rn <= huber_delta ? 1.f : sqrtf(huber_delta / rn);
+    float w = ov * tv * hub;
+    float w2 = w * w;
+
+    float jx = k >= 0 ? rx.d : 0.f, jy = k >= 0 ? ry.d : 0.f;
+    for (int l = 0; l < kCols; ++l) {
+      float jxl = __shfl_sync(full, jx, l);
+      float jyl = __shfl_sync(full, jy, l);
+      int locl = __shfl_sync(full, loc, l);
+      // the 20 columns of one observation are distinct: each lane owns a row
+      if (k >= 0) sH[loc * L + locl] += w2 * (jx * jxl + jy * jyl);
+    }
+    if (k >= 0) sg[loc] += w2 * (jx * rx.v + jy * ry.v);
+    if (lane == 0) scost += 0.5f * w2 * (rx.v * rx.v + ry.v * ry.v);
+    __syncwarp();
   }
-  if (k >= 0) {
-    float gv = w2 * (jx * rx.v + jy * ry.v);
-    if (gv != 0.f) atomicAdd(g + col, gv);
+  __syncwarp();
+  float* oH = part_H + (size_t)f * L * L;
+  for (int i = lane; i < L * L; i += 32) oH[i] = sH[i];
+  for (int i = lane; i < L; i += 32) part_g[(size_t)f * L + i] = sg[i];
+  if (lane == 0) part_c[f] = scost;
+}
+
+// dense column of compact column c (c < L - 1; the last is the feature's rho)
+__device__ __forceinline__ int dense_col(int c, int W, int pose_off, int cam_off,
+                                         int td_off) {
+  if (c < 6 * W) return pose_off + c;
+  if (c < 6 * W + 6) return cam_off + (c - 6 * W);
+  return td_off;
+}
+
+// Pass 2a: the shared columns (poses, extrinsic, td): sum over features in
+// index order. Thread (r, c) of the (L-1)² block; row 0 threads do g, the
+// first thread the cost.
+__global__ void proj_reduce_shared(const float* __restrict__ part_H,
+                                   const float* __restrict__ part_g,
+                                   const float* __restrict__ part_c, int F, int W,
+                                   int D, int pose_off, int cam_off, int td_off,
+                                   float* __restrict__ H, float* __restrict__ g,
+                                   float* __restrict__ cost) {
+  const int L = 6 * W + 8, S = L - 1;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= S * S) return;
+  const int r = t / S, c = t % S;
+  float acc = 0.f;
+  for (int f = 0; f < F; ++f) acc += part_H[(size_t)f * L * L + r * L + c];
+  H[(size_t)dense_col(r, W, pose_off, cam_off, td_off) * D +
+    dense_col(c, W, pose_off, cam_off, td_off)] = acc;
+  if (c == 0) {
+    float ga = 0.f;
+    for (int f = 0; f < F; ++f) ga += part_g[(size_t)f * L + r];
+    g[dense_col(r, W, pose_off, cam_off, td_off)] = ga;
   }
-  if (lane == 0) atomicAdd(cost, 0.5f * w2 * (rx.v * rx.v + ry.v * ry.v));
+  if (t == 0) {
+    float ca = 0.f;
+    for (int f = 0; f < F; ++f) ca += part_c[f];
+    cost[0] = ca;
+  }
+}
+
+// Pass 2b: each feature's landmark row and column (one feature touches it).
+__global__ void proj_reduce_rho(const float* __restrict__ part_H,
+                                const float* __restrict__ part_g, int F, int W,
+                                int D, int pose_off, int cam_off, int td_off,
+                                int rho_off, float* __restrict__ H,
+                                float* __restrict__ g) {
+  const int L = 6 * W + 8;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= F * L) return;
+  const int f = t / L, c = t % L;
+  const float* p = part_H + (size_t)f * L * L;
+  const int rr = rho_off + f;
+  if (c == L - 1) {
+    H[(size_t)rr * D + rr] = p[(L - 1) * L + (L - 1)];
+    g[rr] = part_g[(size_t)f * L + (L - 1)];
+  } else {
+    const int dc = dense_col(c, W, pose_off, cam_off, td_off);
+    H[(size_t)rr * D + dc] = p[(L - 1) * L + c];
+    H[(size_t)dc * D + rr] = p[c * L + (L - 1)];
+  }
 }
 
 }  // namespace
 
+// part: scratch of F·(L² + L + 1) floats, L = 6·W + 8. H, g must be zeroed
+// by the caller (only the touched entries are written).
 extern "C" int gf2_proj_normal(
     const float* p, const float* q, const float* tic, const float* qic,
     const float* td, const float* rho, const float* delta, const float* ray,
     const float* vel, const float* obs_valid, const int* anchor,
     const float* track_valid, int F, int W, int D, int pose_off, int cam_off,
     int td_off, int rho_off, float sqrt_info, float huber_delta,
-    float min_depth, float* H, float* g, float* cost, void* stream) {
-  const int warps_per_block = 4;
-  const int n_obs = F * W;
-  const int blocks = (n_obs + warps_per_block - 1) / warps_per_block;
-  if (blocks > 0)
-    proj_normal_kernel<<<blocks, 32 * warps_per_block, 0, (cudaStream_t)stream>>>(
-        p, q, tic, qic, td, rho, delta, ray, vel, obs_valid, anchor,
-        track_valid, F, W, D, pose_off, cam_off, td_off, rho_off, sqrt_info,
-        huber_delta, min_depth, H, g, cost);
+    float min_depth, float* part, float* H, float* g, float* cost,
+    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int L = 6 * W + 8;
+  float* part_H = part;
+  float* part_g = part + (size_t)F * L * L;
+  float* part_c = part_g + (size_t)F * L;
+  if (F <= 0) return (int)cudaGetLastError();
+  const size_t smem = sizeof(float) * (L * L + L);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        proj_feature_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  proj_feature_kernel<<<F, 32, smem, s>>>(
+      p, q, tic, qic, td, rho, delta, ray, vel, obs_valid, anchor, track_valid,
+      F, W, pose_off, cam_off, td_off, rho_off, sqrt_info, huber_delta,
+      min_depth, part_H, part_g, part_c);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int S = L - 1;
+  proj_reduce_shared<<<(S * S + 255) / 256, 256, 0, s>>>(
+      part_H, part_g, part_c, F, W, D, pose_off, cam_off, td_off, H, g, cost);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  proj_reduce_rho<<<(F * L + 255) / 256, 256, 0, s>>>(
+      part_H, part_g, F, W, D, pose_off, cam_off, td_off, rho_off, H, g);
   return (int)cudaGetLastError();
 }

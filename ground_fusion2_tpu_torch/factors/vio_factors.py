@@ -1,6 +1,7 @@
 """Residual blocks of the sliding-window VIO problem (port of
-``ground_fusion2_tpu/factors/vio_factors.py``) and the projection block's
-normal equations, which run as hand-written CUDA kernel C on the card.
+``ground_fusion2_tpu/factors/vio_factors.py``) and their normal equations:
+the projection block's by hand-written CUDA kernel C on the card, every
+other row's (IMU, wheel, plane, motion, pos-vel, prior) by kernel L.
 
 Each factor maps the window state plus fixed-shape measurements to
 (residuals, weights) already scaled by sqrt-information.
@@ -15,6 +16,7 @@ import torch
 
 from .. import _kernels
 from ..core import lie, robust
+from ..solver.gauss_newton import normal_equations
 from ..sensors.imu_preint import ImuPreint, bias_corrected
 from ..sensors.wheel_preint import WheelPreint, intrinsic_corrected
 from ..vio.state import WindowLayout, WindowState
@@ -72,9 +74,9 @@ def projection_normal_equations(x0: WindowState, delta: torch.Tensor,
     """(H [D, D], g [D], cost []) of the projection block linearized at
     ``retract(x0, delta)``, with the Huber weight held constant in J.
 
-    Kernel C on the card (one warp per observation, forward-mode duals
-    over the ≤ 20 tangent columns it touches, atomics into dense H and g);
-    the plain version on the CPU."""
+    Kernel C on the card (one warp a feature, forward-mode duals over the
+    ≤ 20 tangent columns each observation touches, summed in a fixed order:
+    the same inputs give the same bits); the plain version on the CPU."""
     if delta.is_cuda:
         return _projection_normal_equations_cuda(
             x0, delta, feats, layout, sqrt_info, huber_delta)
@@ -116,12 +118,15 @@ def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
            f32(feats.track_valid)]
     H = torch.zeros((D, D), dtype=torch.float32, device=dev)
     g = torch.zeros((D,), dtype=torch.float32, device=dev)
-    cost = torch.zeros((1,), dtype=torch.float32, device=dev)
+    cost = torch.empty((1,), dtype=torch.float32, device=dev)
+    L = 6 * W + 8       # the columns one feature can touch
+    part = torch.empty((F * (L * L + L + 1),), dtype=torch.float32, device=dev)
     err = lib.gf2_proj_normal(
         *[ctypes.c_void_p(t.data_ptr()) for t in ins],
         F, W, D, layout.pose_off, layout.cam_off, layout.td_off,
         layout.rho_off, ctypes.c_float(sqrt_info),
         ctypes.c_float(huber_delta), ctypes.c_float(min_depth),
+        ctypes.c_void_p(part.data_ptr()),
         ctypes.c_void_p(H.data_ptr()), ctypes.c_void_p(g.data_ptr()),
         ctypes.c_void_p(cost.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
@@ -209,3 +214,140 @@ def motion_residuals(x: WindowState, weight: float, valid):
     v_body = lie.quat_rotate(lie.quat_conj(q_wo), x.v)
     r = v_body[:, 1:3] * weight
     return r, valid[:, None].to(r.dtype).expand(r.shape)
+
+
+# ------------------------------------------- the rows other than projection
+def small_residual_parts(x: WindowState, meas, layout: WindowLayout, cfg,
+                         g_world: torch.Tensor) -> list:
+    """(r, w) of every window row but the projection block's, in
+    ``vio/problem.py:residual_fn``'s order: IMU, wheel, plane, motion,
+    pos-vel, the marginalization prior. ``meas``: a ``VioMeasurements``."""
+    dev, dtype = x.p.device, x.p.dtype
+    parts = [imu_residuals(x, meas.imu, meas.imu_sqrt_info, g_world,
+                           meas.imu_valid)]
+    if cfg.use_wheel:
+        parts.append(wheel_residuals(x, meas.wheel, meas.wheel_sqrt_info,
+                                     meas.wheel_valid))
+    if cfg.use_plane:
+        parts.append(plane_residuals(x, cfg.plane_weight, meas.plane_valid))
+    if cfg.use_motion:
+        parts.append(motion_residuals(
+            x, cfg.motion_weight, torch.ones((layout.W,), dtype=dtype,
+                                             device=dev)))
+        parts.append(posvel_residuals(
+            x, _frame_dt(meas, layout, dtype, dev), cfg.posvel_weight,
+            torch.ones((layout.W - 1,), dtype=dtype, device=dev)))
+    parts.append(meas.prior.residual(
+        layout.boxminus_frames(x, meas.prior_state)))
+    return parts
+
+
+def _frame_dt(meas, layout, dtype, dev):
+    if meas.frame_dt is not None:
+        return meas.frame_dt
+    return torch.full((layout.W - 1,), 0.1, dtype=dtype, device=dev)
+
+
+def small_normal_equations(x0: WindowState, delta: torch.Tensor, meas,
+                           layout: WindowLayout, cfg):
+    """(H [D, D], g [D], cost []) of the rows of :func:`small_residual_parts`
+    linearized at ``retract(x0, delta)``.
+
+    Kernel L on the card (a warp per factor instance, forward-mode duals
+    over the ≤ 30 columns it touches, a fixed-order sum; the prior's
+    sqrt_J·J⊟ by the same source, its Gram matrix a plain product); the
+    plain version on the CPU."""
+    if delta.is_cuda:
+        return _small_normal_equations_cuda(x0, delta, meas, layout, cfg)
+    return small_normal_equations_plain(x0, delta, meas, layout, cfg)
+
+
+def small_normal_equations_plain(x0, delta, meas, layout, cfg):
+    """``torch.func.jacfwd`` over the whole tangent, as the JAX
+    ``normal_equations`` does (``solver/gauss_newton.py:43-58``)."""
+    g_world = torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=x0.p.dtype,
+                           device=x0.p.device)
+
+    def res(d):
+        parts = small_residual_parts(layout.retract(x0, d), meas, layout, cfg,
+                                     g_world)
+        return (torch.cat([r.reshape(-1) for r, _ in parts]),
+                torch.cat([w.reshape(-1) for _, w in parts]))
+
+    return normal_equations(res, delta)
+
+
+def _linear_dims(x: WindowState, W: int) -> torch.Tensor:
+    """x in the frame dims' order (``WindowLayout.boxminus_frames``), the
+    rotation dims zero."""
+    z = torch.zeros((W, 3), dtype=x.p.dtype, device=x.p.device)
+    z3 = z[0]
+    return torch.cat([
+        torch.cat([x.p, z], 1).reshape(-1),
+        torch.cat([x.v, x.ba, x.bg], 1).reshape(-1),
+        x.tic, z3, x.td[None], x.tio, z3,
+        torch.stack([x.six, x.siy, x.siw]), x.tic2, z3,
+        x.gdt.reshape(-1), x.gddt, x.gyaw[None], x.ganchor])
+
+
+def _rotations(x: WindowState) -> torch.Tensor:
+    """[W + 3, 4]: the W poses' quaternions, qic, qio, qic2."""
+    return torch.cat([x.q, x.qic[None], x.qio[None], x.qic2[None]])
+
+
+def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
+    dev = delta.device
+    W, D, K = layout.W, layout.dim, layout.frame_dim
+    if tuple(delta.shape) != (D,) or tuple(x0.p.shape) != (W, 3):
+        raise ValueError("small_normal kernel: state, layout and delta "
+                         "disagree in shape")
+    if tuple(meas.prior.sqrt_J.shape) != (K, K):
+        raise ValueError("small_normal kernel: the prior must span the "
+                         f"{K} frame dims")
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    n = W - 1
+    pre, wp = meas.imu, meas.wheel
+    xs = torch.cat([torch.cat([x0.p, x0.q, x0.v, x0.ba, x0.bg], 1).reshape(-1),
+                    x0.tio, x0.qio, torch.stack([x0.six, x0.siy, x0.siw])])
+    imu = torch.cat([pre.dp, pre.dq, pre.dv, pre.jac.reshape(n, 225),
+                     pre.sum_dt[:, None], pre.ba, pre.bg,
+                     meas.imu_sqrt_info.reshape(n, 225),
+                     meas.imu_valid[:, None]], 1)
+    whl = torch.cat([wp.dp, wp.dq, wp.jac_ix.reshape(n, 18),
+                     torch.stack([wp.sx, wp.sy, wp.sw], 1),
+                     meas.wheel_sqrt_info.reshape(n, 36),
+                     meas.wheel_valid[:, None]], 1)
+    misc = torch.cat([torch.as_tensor(meas.plane_valid, device=dev).reshape(1),
+                      _frame_dt(meas, layout, x0.p.dtype, dev)])
+    pbase = torch.stack([_linear_dims(x0, W),
+                         _linear_dims(meas.prior_state, W)])
+    pq = torch.stack([_rotations(x0), _rotations(meas.prior_state)])
+    ins = [f32(t) for t in (xs, imu, whl, misc, delta, pbase, pq,
+                            meas.prior.sqrt_J, meas.prior.r0)]
+    n_inst = n * (1 + cfg.use_wheel + cfg.use_plane + 2 * cfg.use_motion) \
+        + cfg.use_motion
+    scratch = torch.empty((n_inst * (32 * 32 + 32 + 1) + K + 9 * (W + 3),),
+                          dtype=torch.float32, device=dev)
+    inv = torch.empty((n_inst * K,), dtype=torch.int32, device=dev)
+    H = torch.zeros((D, D), dtype=torch.float32, device=dev)
+    g = torch.zeros((D,), dtype=torch.float32, device=dev)
+    cost = torch.empty((1,), dtype=torch.float32, device=dev)
+    Jp = torch.empty((K, K), dtype=torch.float32, device=dev)
+    rp = torch.empty((K,), dtype=torch.float32, device=dev)
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    err = _kernels.library().gf2_small_normal(
+        *[P(t) for t in ins], W, D, K, layout.pose_off, layout.sb_off,
+        layout.cam_off, layout.wext_off, layout.wint_off, layout.cam2_off,
+        int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
+        ctypes.c_float(cfg.g_norm), ctypes.c_float(cfg.plane_weight),
+        ctypes.c_float(cfg.motion_weight), ctypes.c_float(cfg.posvel_weight),
+        P(scratch), P(inv), P(H), P(g), P(cost), P(Jp), P(rp),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_small_normal")
+    _kernels.count("small_normal")
+    # the prior's rows: a plain 246² Gram product
+    valid = meas.prior.valid.to(device=dev, dtype=torch.float32)
+    Jw, rw = Jp * valid, rp * valid
+    H[:K, :K] += Jw.T @ Jw
+    g[:K] += Jw.T @ rw
+    return H, g, cost[0] + 0.5 * torch.sum(rw * rw)

@@ -3,8 +3,9 @@
 
 The JAX solver differentiates one stacked residual function with ``jacfwd``.
 Here the caller supplies ``linearize(delta) -> (H, g, cost)`` — the window
-problem sums the projection block (kernel C) and the small factors
-(``jacfwd``) — plus ``cost_at(delta)``. Everything stays on the device: the
+problem sums the projection block (kernel C) and the other rows (kernel L),
+the pose graph takes kernel O; :func:`normal_equations` is their plain
+version — plus ``cost_at(delta)``. Everything stays on the device: the
 accept/reject of each step is a ``torch.where``, so the loop has a fixed
 trip count and no host synchronization.
 """

@@ -7,10 +7,16 @@ rebased on every window solve) is the LIO's external pose at scan-end time;
 the LIO's degeneracy switch decides which source has authority; its output
 is the fused trajectory (the reference's ``/laser_pose``).
 
+Loop closure (the reference's dense_map node): every VIO keyframe with an
+image feeds the :class:`~.posegraph.pose_graph.PoseGraph` (fresh Shi-Tomasi
+corners, BRIEF, retrieval, PnP-RANSAC, 4-DoF or 6-DoF optimization), and the
+accumulated drift correction applies to the published VIO-only trajectory. A
+saved graph can be loaded for relocalization.
+
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-legacy host-orchestrated VIO backend, loop closure, global fusion, meshing,
-the occupancy grid and the automatic dynamic mask. They are off in every
-shipped run of the system.
+legacy host-orchestrated VIO backend, global fusion, meshing, the occupancy
+grid and the automatic dynamic mask. They are off in every shipped run of
+the system.
 """
 
 from __future__ import annotations
@@ -20,10 +26,14 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .config import EstimatorConfig, LioConfig, TrackerConfig
+import torch
+
+from .config import EstimatorConfig, LioConfig, PoseGraphConfig, TrackerConfig
 from .core.cameras import Pinhole
 from .core.device import resolve
+from .frontend import klt
 from .lio.odometry import LidarOdometry
+from .posegraph.pose_graph import PoseGraph, _with_yaw, _yaw_rot
 from .runtime.telemetry import Telemetry
 from .vio.estimator import VioOutput
 from .vio.fast_predict import FastPropagator
@@ -42,15 +52,19 @@ class SystemConfig:
     vio_depth_stride: int = 1                 # decimate the depth upload
     auto_dyn_mask: bool = False               # not ported
     lio_pipelined: bool = False
-    use_loop_closure: bool = False            # not ported
+    use_loop_closure: bool = False
+    pose_graph: PoseGraphConfig | None = None
+    load_pose_graph: str | None = None        # relocalization source
+    loop_optimize_min_gap: int = 1            # keyframes between optimizations
     use_global_fusion: bool = False           # not ported
     use_mesh: bool = False                    # not ported
     use_occupancy_grid: bool = False          # not ported
+    # camera intrinsics for the keyframes' pixel corners (loop closure)
     cam_intr: tuple = (460.0, 460.0, 320.0, 240.0)
+    kf_cell: int = 20      # fresh keyframe corner grid, px
 
 
 _NOT_PORTED = {
-    "use_loop_closure": "loop closure (ROADMAP.md queue 2, rows 13-14)",
     "use_global_fusion": "global fusion (ROADMAP.md queue 2, row 17)",
     "use_mesh": "meshing (ROADMAP.md queue 2, row 15)",
     "use_occupancy_grid": "the occupancy grid (ROADMAP.md queue 2, row 16)",
@@ -86,6 +100,19 @@ class GroundFusion:
         self._extr = dict(tic=tic, ric=ric, tio=tio, rio=rio)
         self.telemetry = Telemetry()
         self.trajectory: list[FusedOutput] = []
+        # a pipelined output arrives one tick late: its image waits here
+        self._frame_cache: dict = {}
+        self.pg = None
+        self._n_keyframes = 0
+        self._pending_loop = None
+        self._last_loop_opt_kf = -10**9
+        if cfg.use_loop_closure:
+            pg_cfg = cfg.pose_graph or PoseGraphConfig(
+                num_feats=cfg.vio.num_feats,
+                ric=np.asarray(ric) if ric is not None else np.eye(3),
+                tic=np.asarray(tic) if tic is not None else np.zeros(3))
+            self.pg = (PoseGraph.load(cfg.load_pose_graph, pg_cfg, self.device)
+                       if cfg.load_pose_graph else PoseGraph(pg_cfg, self.device))
         self._start()
 
     def _start(self):
@@ -110,12 +137,29 @@ class GroundFusion:
         self.telemetry.event(self.trajectory[-1].t if self.trajectory
                              else 0.0, "restart")
 
+    # -- drift correction ------------------------------------------------
+    def loop_corrected(self, p, q):
+        """The pose graph's accumulated drift correction applied to (p, q)
+        (the reference's corrected-path republish)."""
+        if self.pg is None:
+            return np.asarray(p), np.asarray(q)
+        p_c = _yaw_rot(self.pg.drift_yaw) @ np.asarray(p) + self.pg.drift_p
+        return p_c.astype(np.float32), _with_yaw(self.pg.drift_yaw, q)
+
     # -- sensor inputs --------------------------------------------------
-    def process_camera(self, t: float, obs, imu_chunk,
-                       wheel_vel=None) -> VioOutput | None:
+    def _cache_frame(self, t, img, depth_img):
+        self._frame_cache = {t: (img, depth_img),
+                             **{k: v for k, v in self._frame_cache.items()
+                                if abs(k - t) < 0.5}}
+
+    def process_camera(self, t: float, obs, imu_chunk, wheel_vel=None,
+                       img=None, depth_img=None) -> VioOutput | None:
         """One camera tick from pre-tracked observations (a ``FrameObs``).
-        Pipelined, the output lags one frame (``None`` on the first fused
-        tick; call :meth:`flush` at the end)."""
+        ``img`` (grayscale [H, W]) feeds a keyframe to the pose graph,
+        ``depth_img`` seeds its loop geometry. Pipelined, the output lags
+        one frame (``None`` on the first fused tick; call :meth:`flush` at
+        the end)."""
+        self._cache_frame(t, img, depth_img)
         self.prop.feed_chunk(t, imu_chunk)
         out = self.vio.process_obs(t, obs, imu_chunk, wheel_vel=wheel_vel)
         return self._after_camera(out)
@@ -125,6 +169,7 @@ class GroundFusion:
         """One camera tick from a raw grayscale image + depth map: the fused
         camera tick with the tracker (CLAHE, pyramid, KLT, RANSAC, grid
         refill) on the card."""
+        self._cache_frame(t, img, depth)
         self.prop.feed_chunk(t, imu_chunk)
         out = self.vio.process_image(t, img, depth, imu_chunk,
                                      wheel_vel=wheel_vel)
@@ -140,11 +185,12 @@ class GroundFusion:
         return self._after_camera(self.vio.flush())
 
     def _after_camera(self, out: VioOutput | None) -> VioOutput | None:
-        """Propagator rebase and telemetry for one (possibly lagged)
-        output."""
+        """Propagator rebase, telemetry and the keyframe fan-out for one
+        (possibly lagged) output."""
         if out is None:
             return None
         t = out.t
+        img, depth_img = self._frame_cache.get(t, (None, None))
         self.latest_vio = out
         tm = self.telemetry
         if out.initialized:
@@ -159,11 +205,55 @@ class GroundFusion:
             tm.event(t, "vio_reboot")
         if out.stationary:
             tm.event(t, "stationary")
+        if out.initialized and out.is_keyframe:
+            self._n_keyframes += 1
+            self._on_keyframe(t, out, img, depth_img)
         if self.lio is None and out.initialized:
+            p_c, q_c = self.loop_corrected(out.p, out.q)
+            if self.pg is not None:
+                tm.pose("loop_corrected", t, p_c, q_c)
             self.trajectory.append(FusedOutput(
-                t=t, p=out.p, q=out.q, p_vio=out.p, degenerate=False,
+                t=t, p=p_c, q=q_c, p_vio=out.p, degenerate=False,
                 switched="", source="vio"))
         return out
+
+    def _on_keyframe(self, t, out: VioOutput, img, depth_img):
+        """Keyframe fan-out to the pose graph: this view's own Shi-Tomasi
+        corners (the tracker's slots hold corners tracked from other views),
+        their depth, then detection and, with a loop pending and the
+        minimum gap passed, the optimization."""
+        if self.pg is None or img is None:
+            return
+        F = self.pg.cfg.num_feats
+        fx, fy, cx, cy = self.cfg.cam_intr
+        dev = self.device
+        img_t = torch.as_tensor(np.asarray(img), dtype=torch.float32,
+                                device=dev)
+        uv_t, _, ok = klt.detect_grid(
+            klt.shi_tomasi(img_t), torch.zeros((F, 2), device=dev),
+            self.cfg.kf_cell, F, occupied_mask=torch.zeros((F,), device=dev))
+        uv = uv_t.cpu().numpy()
+        valid = ok.cpu().numpy()
+        ray = ((uv - [cx, cy]) / [fx, fy]).astype(np.float32)
+        if depth_img is not None:
+            depth = klt.bilinear(torch.as_tensor(np.asarray(depth_img),
+                                                 dtype=torch.float32,
+                                                 device=dev), uv_t)
+            depth = depth.cpu().numpy()
+        else:
+            depth = np.zeros((F,), np.float32)
+        i = self.pg.add_keyframe(out.p, out.q, img, uv, ray, depth, valid)
+        loop = self.pg.detect_loop(i)
+        if loop is not None:
+            self._pending_loop = (loop[0], i)
+        if self._pending_loop is not None and \
+                self._n_keyframes - self._last_loop_opt_kf \
+                >= self.cfg.loop_optimize_min_gap:
+            j, i2 = self._pending_loop
+            self.pg.optimize()
+            self.telemetry.event(t, f"loop_closed_{j}_{i2}")
+            self._pending_loop = None
+            self._last_loop_opt_kf = self._n_keyframes
 
     def process_lidar(self, t: float, pts_body, alpha, mask, imu_chunk):
         """One sweep, with the VIO stream at scan-end time as the external
@@ -202,6 +292,10 @@ class GroundFusion:
                 q = o.q
                 f.write(f"{o.t:.6f} {o.p[0]:.6f} {o.p[1]:.6f} {o.p[2]:.6f} "
                         f"{q[1]:.6f} {q[2]:.6f} {q[3]:.6f} {q[0]:.6f}\n")
+
+    def save_pose_graph(self, path: str):
+        if self.pg is not None:
+            self.pg.save(path)
 
     def save_telemetry(self, out_dir: str):
         """Every pose stream (TUM), tick statistics (JSONL), events and the

@@ -4,7 +4,7 @@ prior (port of ``ground_fusion2_tpu/vio/problem.py``).
 The normal equations of a linearization are the projection block's, from
 kernel C (``factors.vio_factors.projection_normal_equations``), plus those
 of the few hundred rows of the other factors (IMU, wheel, plane, motion,
-pos-vel, prior) through ``torch.func.jacfwd`` and a matmul.
+pos-vel, prior), from kernel L (``factors.vio_factors.small_normal_equations``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ from ..factors import vio_factors as fac
 from ..gnss.factors import GnssTable
 from ..sensors.imu_preint import ImuPreint
 from ..sensors.wheel_preint import WheelPreint
-from ..solver.gauss_newton import lm_solve, normal_equations
+from ..solver.gauss_newton import lm_solve
 from ..solver.marginalize import MargPrior, marginalize, shift_prior
 from .state import WindowLayout, WindowState
 
@@ -59,28 +59,10 @@ def build_residual_fn(x0: WindowState, meas: VioMeasurements,
 
     def residual_fn(delta):
         x = layout.retract(x0, delta)
-        parts = []
+        parts = fac.small_residual_parts(x, meas, layout, cfg, g_world)
         if with_projection:
-            parts.append(fac.projection_residuals(
+            parts.insert(0, fac.projection_residuals(
                 x, meas.feats, cfg.proj_sqrt_info, cfg.huber_delta))
-        parts.append(fac.imu_residuals(x, meas.imu, meas.imu_sqrt_info,
-                                       g_world, meas.imu_valid))
-        if cfg.use_wheel:
-            parts.append(fac.wheel_residuals(
-                x, meas.wheel, meas.wheel_sqrt_info, meas.wheel_valid))
-        if cfg.use_plane:
-            parts.append(fac.plane_residuals(x, cfg.plane_weight,
-                                             meas.plane_valid))
-        if cfg.use_motion:
-            ones_w = torch.ones((layout.W,), dtype=x.p.dtype, device=dev)
-            parts.append(fac.motion_residuals(x, cfg.motion_weight, ones_w))
-            fdt = meas.frame_dt if meas.frame_dt is not None else \
-                torch.full((layout.W - 1,), 0.1, dtype=x.p.dtype, device=dev)
-            parts.append(fac.posvel_residuals(
-                x, fdt, cfg.posvel_weight,
-                torch.ones((layout.W - 1,), dtype=x.p.dtype, device=dev)))
-        parts.append(meas.prior.residual(
-            layout.boxminus_frames(x, meas.prior_state)))
         return (torch.cat([r.reshape(-1) for r, _ in parts]),
                 torch.cat([w.reshape(-1) for _, w in parts]))
 
@@ -91,11 +73,11 @@ def window_normal_equations(x0: WindowState, meas: VioMeasurements,
                             layout: WindowLayout, cfg: VioConfig,
                             delta: torch.Tensor):
     """(H, g, cost) of the whole window at ``retract(x0, delta)``."""
+    _check_supported(cfg)
     Hp, gp, cp = fac.projection_normal_equations(
         x0, delta, meas.feats, layout, cfg.proj_sqrt_info, cfg.huber_delta)
-    Hr, gr, cr = normal_equations(
-        build_residual_fn(x0, meas, layout, cfg, with_projection=False), delta)
-    return Hp + Hr, gp + gr, cp + cr
+    Hs, gs, cs = fac.small_normal_equations(x0, delta, meas, layout, cfg)
+    return Hp + Hs, gp + gs, cp + cs
 
 
 class SolveResult(NamedTuple):

@@ -1,19 +1,22 @@
 """The port's numpy-only copies of JAX-package modules (``data/render.py``,
 ``data/synthetic.py``, ``eval/metrics.py``, ``vio/fast_predict.py``,
 ``runtime/telemetry.py``) give the same arrays as the originals on the same
-seeded inputs."""
+seeded inputs, and its BRIEF constants (the sampling pattern and the simhash
+projection, ``posegraph/brief.py``) equal the JAX package's."""
 
 import json
 
 import numpy as np
 
 from ground_fusion2_tpu.data import render as jrender
+from ground_fusion2_tpu.posegraph import brief as jbrief
 from ground_fusion2_tpu.data import synthetic as jsim
 from ground_fusion2_tpu.eval import metrics as jmetrics
 from ground_fusion2_tpu.runtime.telemetry import Telemetry as JTelemetry
 from ground_fusion2_tpu.vio.fast_predict import FastPropagator as JProp
 from ground_fusion2_tpu_torch.data import render, synthetic as sim
 from ground_fusion2_tpu_torch.eval import metrics
+from ground_fusion2_tpu_torch.posegraph import brief
 from ground_fusion2_tpu_torch.runtime.telemetry import Telemetry
 from ground_fusion2_tpu_torch.vio.fast_predict import FastPropagator
 
@@ -51,6 +54,13 @@ def test_synthetic_copy_matches():
         runs.append([traj.p, traj.q, traj.acc_body, acc, gyr, lms.pts,
                      mod.wheel_velocity_body(traj), *obs, *scan])
     for a, b in zip(*runs):
+        _equal(a, b)
+
+
+def test_brief_constants_match():
+    for name in ("_PATTERN", "_PROJ"):
+        a, b = getattr(brief, name), getattr(jbrief, name)
+        assert a.dtype == b.dtype, name
         _equal(a, b)
 
 

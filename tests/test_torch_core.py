@@ -34,7 +34,7 @@ def _close(t, j, tol=TOL):
 @pytest.mark.parametrize("name", [
     "quat_mul", "quat_rotate", "quat_to_mat", "quat_exp", "quat_log",
     "quat_boxplus", "quat_boxminus", "mat_to_quat", "so3_right_jacobian",
-    "mat_to_ypr", "gravity_align", "hat"])
+    "mat_to_ypr", "gravity_align", "hat", "quat_yaw", "quat_from_yaw"])
 def test_lie_matches_jax(name):
     rng = np.random.default_rng(0)
     q0, q1 = _quats(rng, 64), _quats(rng, 64)
@@ -52,6 +52,11 @@ def test_lie_matches_jax(name):
         args = (np.concatenate([q0, np.asarray(jlie.quat_exp(small))]),)
     elif name == "quat_boxplus":
         args = (np.concatenate([q0, q0]), np.concatenate([v, small]))
+    elif name == "quat_yaw":
+        args = (q0,)
+    elif name == "quat_from_yaw":
+        args = (np.concatenate([v[:, 0] * 3.0, [np.pi, -np.pi, 0.0]]).astype(
+            np.float32),)
     elif name in ("mat_to_quat", "mat_to_ypr"):
         args = (np.asarray(jlie.quat_to_mat(q0)),)
     else:   # gravity_align

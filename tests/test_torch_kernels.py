@@ -1,9 +1,10 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, at the main paths' shapes (the comparisons of ``chip_smoke.py``: the
-camera kernels A–C and H–K, and the LiDAR kernels D–G on a map filled by 12
-scans of the bench_lio drive at the M3DGR LIO configuration). Marked ``cuda``;
-skipped without a GPU. This file imports no JAX, so it runs on a machine
-without it:
+camera kernels A–C and H–L, the LiDAR kernels D–G on a map filled by 12
+scans of the bench_lio drive at the M3DGR LIO configuration, and the
+loop-closure kernels M–O), and C, L and O giving the same bits twice.
+Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
+on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -130,10 +131,84 @@ def test_ransac_kernel_matches_plain(dev, camera):
     assert r["ok"], r
 
 
+@pytest.fixture(scope="module")
+def window(dev):
+    """The example window at F = 150 (D = 396) with its measurements."""
+    from ground_fusion2_tpu_torch.config import m3dgr_camera
+    x0, feats, layout, delta = checks.example_window(150, dev)
+    meas = checks.example_measurements(x0, feats, layout, dev)
+    return x0, feats, layout, delta, meas, m3dgr_camera().estimator.vio
+
+
+def test_small_normal_kernel_matches_plain(dev, window):
+    x0, _, layout, delta, meas, vcfg = window
+    r = checks.check_small_normal(dev, x0, meas, layout, delta, vcfg,
+                                  timed=False)
+    assert r["ok"] and r["repeat_equal"], r
+
+
+def test_small_normal_kernel_on_a_fused_window(dev, camera):
+    cfg, fv, _, _ = camera
+    zero = torch.zeros(fv.layout.dim, device=dev)
+    r = checks.check_small_normal(dev, fv.carry.state,
+                                  checks.carry_measurements(fv), fv.layout,
+                                  zero, cfg.estimator.vio, timed=False)
+    assert r["ok"], r
+
+
+def test_proj_normal_kernel_repeats_bit_for_bit(dev, window):
+    x0, feats, layout, delta, _, vcfg = window
+    r = checks.check_proj(dev, x0, feats, layout, delta, vcfg.proj_sqrt_info,
+                          timed=False)
+    assert r["ok"] and r["repeat_equal"], r
+
+
+def test_brief_kernels_match_plain(dev, frames):
+    from ground_fusion2_tpu_torch.frontend import klt
+    from ground_fusion2_tpu_torch.posegraph import brief
+    img = torch.as_tensor(frames[0]["gray"], device=dev).float() / 255.0
+    uv, _, ok = klt.detect_grid_plain(klt.shi_tomasi_plain(img),
+                                      torch.zeros((1, 2), device=dev), 20, 150,
+                                      torch.zeros(1, device=dev))
+    other = brief.brief_describe_plain(img, uv + 0.5, ok)[0]
+    r = checks.check_brief(dev, img.cpu().numpy(), uv.cpu().numpy(),
+                           ok.cpu().numpy(), other.cpu().numpy().view("uint32"))
+    assert all(v["ok"] for v in r.values()), r
+
+
+def test_loop_geom_kernel_matches_plain(dev):
+    import numpy as np
+    from ground_fusion2_tpu_torch.frontend.ransac import gumbel_noise
+    rng = np.random.default_rng(0)
+    F, M = 150, 90
+    ang = rng.normal(scale=0.2, size=3)
+    from ground_fusion2_tpu_torch.core import lie
+    R = lie.so3_exp(torch.as_tensor(ang, dtype=torch.float32)).double().numpy()
+    t = rng.normal(scale=0.3, size=3)
+    pj = np.c_[rng.uniform(-2, 2, (M, 2)), rng.uniform(2, 6, M)]
+    pi = pj @ R.T + t
+    ni = pi[:, :2] / pi[:, 2:] + rng.normal(scale=0.002, size=(M, 2))
+    ni[:15] += rng.normal(scale=0.3, size=(15, 2))
+    pad = lambda a, w: np.r_[a, np.zeros((F - M, w))].astype(np.float32)
+    x = [torch.as_tensor(a, device=dev) for a in (
+        pad(pj, 3), pad(ni, 2), pad(pi, 3),
+        np.r_[np.ones(M), np.zeros(F - M)].astype(np.float32),
+        np.r_[rng.uniform(size=M) > 0.2, np.zeros(F - M)].astype(np.float32))]
+    r = checks.check_loop_geom(dev, x, 0.08, gumbel_noise(5, 128, F, dev))
+    assert r["ok"] and r["n_inliers"] >= 60, r
+
+
+@pytest.mark.parametrize("six", [False, True], ids=["4dof", "6dof"])
+@pytest.mark.parametrize("n,cap", [(60, 64), (500, 512)])
+def test_pg_normal_kernel_matches_plain(dev, six, n, cap):
+    r = checks.check_pg_normal(dev, checks.ring_graph_args(n, cap, dev, six))
+    assert r["ok"] and r["repeat_equal"], r
+
+
 def test_kernels_count_their_launches(dev, frames, lio):
     _kernels.launches.clear()
     checks.check_proj(dev, timed=False)
-    assert _kernels.launches["proj_normal"] == 1
+    assert _kernels.launches["proj_normal"] == 2     # the call and its repeat
     assert _kernels.launches["clahe"] == 0
     lo, s, _ = lio
     _kernels.launches.clear()
@@ -159,10 +234,38 @@ def test_camera_tick_launches_h_to_k(dev, camera):
     n = dict(_kernels.launches)
     assert (n["preint"], n["pyramid"], n["shi_tomasi"], n["detect_grid"],
             n["ransac_f"]) == (1, 3, 1, 1, 1), n
+    # kernel L beside kernel C at every linearization of the window
+    assert n["small_normal"] == n["proj_normal"] >= 9, n
 
 
 def _launch(name, dev):
     from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
+    if name == "small_normal":
+        from ground_fusion2_tpu_torch.config import VioConfig
+        from ground_fusion2_tpu_torch.factors import vio_factors as fac
+        x0, feats, layout, delta = checks.example_window(8, dev)
+        meas = checks.example_measurements(x0, feats, layout, dev)
+        return fac.small_normal_equations(x0, delta, meas, layout, VioConfig(
+            num_feats=8, use_wheel=True, use_plane=True, use_motion=True))
+    if name in ("brief", "simhash", "hamming"):
+        from ground_fusion2_tpu_torch.posegraph import brief
+        if name == "brief":
+            return brief.brief_describe(torch.zeros((48, 64), device=dev),
+                                        torch.zeros((4, 2), device=dev),
+                                        torch.ones(4, device=dev))
+        if name == "simhash":
+            return brief.global_descriptor(torch.zeros((4, 256), device=dev),
+                                           torch.ones(4, device=dev))
+        w = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+        return brief.hamming(w, w)
+    if name in ("loop_geom", "pg_normal"):
+        from ground_fusion2_tpu_torch.posegraph import pose_graph as pgm
+        if name == "loop_geom":
+            z = torch.zeros((16, 3), device=dev)
+            return pgm.loop_geometry(z, z[:, :2], z, z[:, 0], z[:, 0], 0.08,
+                                     torch.zeros((4, 16), device=dev))
+        args = checks.ring_graph_args(10, 64, dev)
+        return pgm.pg_normal_equations(*args, torch.zeros(256, device=dev))
     from ground_fusion2_tpu_torch.frontend.clahe import clahe
     from ground_fusion2_tpu_torch.lio import ct_icp, eskf, voxel_map as vm
     if name == "clahe":
@@ -210,7 +313,9 @@ def _launch(name, dev):
 @pytest.mark.parametrize("name", ["clahe", "lio_assoc", "ct_icp_normal",
                                   "radix_sort", "eskf_predict", "preint",
                                   "pyramid", "shi_tomasi", "detect_grid",
-                                  "ransac_f"])
+                                  "ransac_f", "small_normal", "brief",
+                                  "simhash", "hamming", "loop_geom",
+                                  "pg_normal"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

@@ -3,8 +3,8 @@ subprocess where ``import jax`` fails, import every module of
 ``ground_fusion2_tpu_torch`` (no loaded module may come from the JAX
 package's directory), track features over two small rendered frames (CLAHE,
 KLT, RANSAC, refill), take LM steps on a synthetic window through the
-projection normal equations, run a few fused LiDAR ticks and a GroundFusion
-system tick at a tiny size. And no source of the port, nor chip_smoke.py,
+projection normal equations, run a few fused LiDAR ticks, a GroundFusion
+system tick and a few keyframes through the loop closure at a tiny size. And no source of the port, nor chip_smoke.py,
 loads a file by path or names a path into the JAX package."""
 
 import ast
@@ -97,6 +97,20 @@ for f in checks.system_drive(14, W=128, H=96, intrinsics=intr, n_rays=256):
 gf.flush()
 assert live >= 1 and gf.vio.fused_ticks >= 1, (live, gf.vio.fused_ticks)
 assert all(np.all(np.isfinite(o.p)) for o in gf.trajectory)
+
+from ground_fusion2_tpu_torch.config import PoseGraphConfig
+gl = GroundFusion(SystemConfig(
+    vio=EstimatorConfig(num_feats=16), use_lidar=False, use_loop_closure=True,
+    pose_graph=PoseGraphConfig(num_feats=16, skip_recent=4, sim_thresh=0.5,
+                               ric=checks.RIG_RIC), cam_intr=intr),
+    tic=np.zeros(3), ric=checks.RIG_RIC, device="cpu")
+drive = checks.loop_drive(10, W=128, H=96, intrinsics=intr)
+gl.vio = checks.ScriptedVio([(f["p_odom"], f["q_odom"]) for f in drive])
+for f in drive:
+    gl.process_camera(f["t"], None, checks.LOOP_IMU, img=f["gray"],
+                      depth_img=f["depth"])
+gl.pg.optimize()
+assert gl.pg.n == 10 and len(gl.trajectory) == 10, gl.pg.n
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
 print("ok", int(obs.alive.sum()), float(out.cost0), float(out.cost),
       lio_out.n_corr, live)

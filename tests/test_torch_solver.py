@@ -92,6 +92,43 @@ def test_window_normal_equations_match_jax(window):
     assert _rel(ct, cj) < 1e-4
 
 
+@pytest.mark.parametrize("case", ["example", "masked", "prior"])
+def test_small_normal_equations_match_jax(window, solved, case):
+    """Kernel L's plain version (every row but the projection block's)
+    against JAX's jacfwd normal equations over the same rows (the JAX
+    window with its projection rows weighted 0), to 1e-5 of the largest
+    entry: on the example window; masked (stationary, IMU interval 3 and
+    wheel intervals 2 and 5 gated off, the plane off); and with the valid
+    prior of JAX's own MARGIN_OLD, linearized at the solved state."""
+    w = window
+    L, cfg, meas = w["layout"], w["cfg"], w["meas"]
+    if case == "masked":
+        iv = np.ones(L.W - 1, np.float32)
+        iv[3] = 0.0
+        wv = np.ones(L.W - 1, np.float32)
+        wv[[2, 5]] = 0.0
+        meas = meas._replace(imu_valid=jnp.asarray(iv),
+                             wheel_valid=jnp.asarray(wv),
+                             plane_valid=jnp.zeros(()),
+                             stationary=jnp.ones(()))
+    elif case == "prior":
+        oj, pj = solved
+        meas = meas._replace(prior=pj, prior_state=oj.state)
+    d = _delta(L.dim, seed=8, scale=0.003)
+    f = meas.feats
+    no_proj = meas._replace(feats=f._replace(track_valid=f.track_valid * 0))
+    res = jprob.build_residual_fn(w["x0"], no_proj, L, cfg)
+    Hj, gj, cj = jax.jit(lambda dd: jgn.normal_equations(res, dd))(
+        jnp.asarray(d))
+    tmeas = convert.to_torch(jax.tree.map(np.asarray, meas), "cpu")
+    Ht, gt, ct = tfac.small_normal_equations(
+        w["tx0"], torch.as_tensor(d), tmeas, w["tlayout"], w["tcfg"])
+    assert np.abs(np.asarray(Ht)[:, L.rho_off:]).max() == 0.0
+    assert _rel(Ht, Hj) < 1e-5
+    assert _rel(gt, gj) < 1e-5
+    assert _rel(ct, cj) < 1e-5
+
+
 @pytest.fixture(scope="module")
 def solved(window):
     w = window

@@ -201,7 +201,7 @@ def test_pipelined_outputs_lag_one_tick(drive):
 
 
 @pytest.mark.parametrize("option", [
-    dict(vio_backend="legacy"), dict(use_loop_closure=True),
+    dict(vio_backend="legacy"),
     dict(use_global_fusion=True), dict(use_mesh=True),
     dict(use_occupancy_grid=True), dict(auto_dyn_mask=True)])
 def test_unported_options_raise(option):
@@ -209,16 +209,124 @@ def test_unported_options_raise(option):
         GroundFusion(SystemConfig(**option), device="cpu")
 
 
+# ------------------------------------------------------------ loop closure
+LOOP_INTR = (160.0, 160.0, 128.0, 96.0)
+LOOP_PG = dict(num_feats=64, skip_recent=25, sim_thresh=0.6)
+
+
+class JaxScriptedVio:
+    """tests/test_system_loop.py's stand-in for the JAX VIO."""
+
+    def __init__(self, poses):
+        self.poses, self.k = poses, 0
+
+    def process_frame(self, t, obs, imu, wheel_vel=None, gnss_meas=None):
+        from ground_fusion2_tpu.vio.estimator import VioOutput as JVioOutput
+        p, q = self.poses[self.k]
+        self.k += 1
+        return JVioOutput(t=t, p=np.asarray(p, np.float32),
+                          q=np.asarray(q, np.float32),
+                          v=np.zeros(3, np.float32), initialized=True,
+                          is_keyframe=True, stationary=False,
+                          wheel_anomaly=False, tracked=50, cost=0.0)
+
+
+def _jax_gumbel(i, j, K, F):
+    keys = jax.random.split(jax.random.PRNGKey(int(i) * 7919 + int(j)), K)
+    return np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (F,)))(keys))
+
+
+@pytest.fixture(scope="module")
+def loop_runs():
+    """tests/test_system_loop.py's scripted loop drive (60 keyframes on the
+    closed circle, 256×192, F = 64) through both packages' GroundFusion with
+    loop closure, JAX's Gumbel draws handed to the port."""
+    from ground_fusion2_tpu.posegraph.pose_graph import PoseGraphConfig as JPG
+    from ground_fusion2_tpu_torch import checks
+    from ground_fusion2_tpu_torch.config import (EstimatorConfig,
+                                                 PoseGraphConfig)
+    drive = checks.loop_drive(60, W=256, H=192, intrinsics=LOOP_INTR)
+    poses = [(f["p_odom"], f["q_odom"]) for f in drive]
+    ext = dict(tic=np.zeros(3), ric=checks.RIG_RIC)
+    jg = JGroundFusion(JSystemConfig(
+        vio=JEstimatorConfig(num_feats=64), use_lidar=False,
+        use_loop_closure=True, pose_graph=JPG(**LOOP_PG, **ext),
+        cam_intr=LOOP_INTR), **ext)
+    jg.vio = JaxScriptedVio(poses)
+    tg = GroundFusion(SystemConfig(
+        vio=EstimatorConfig(num_feats=64), use_lidar=False,
+        use_loop_closure=True, pose_graph=PoseGraphConfig(**LOOP_PG, **ext),
+        cam_intr=LOOP_INTR), device="cpu", **ext)
+    tg.vio = checks.ScriptedVio(poses)
+    tg.pg._gumbel = lambda i, j: torch.as_tensor(_jax_gumbel(i, j, 128, 64))
+    for gf in (jg, tg):
+        for f in drive:
+            gf.process_camera(f["t"], None, checks.LOOP_IMU, img=f["gray"],
+                              depth_img=f["depth"])
+    return drive, jg, tg
+
+
+def test_loop_closure_matches_jax(loop_runs):
+    """The loop events are equal, the published (drift-corrected)
+    trajectories agree to 1e-4 m, and the correction pulls the endpoint
+    back (tests/test_system_loop.py:106's gate)."""
+    from ground_fusion2_tpu_torch import checks
+    drive, jg, tg = loop_runs
+    ev = lambda g: [e["kind"] for e in g.telemetry.events
+                    if e["kind"].startswith("loop_closed")]
+    assert ev(tg) == ev(jg) and ev(jg)
+    assert [l[:2] for l in tg.pg.loops] == [l[:2] for l in jg.pg.loops]
+    assert len(tg.trajectory) == len(jg.trajectory) == len(drive)
+    err = max(float(np.abs(np.asarray(a.p) - np.asarray(b.p)).max())
+              for a, b in zip(tg.trajectory, jg.trajectory))
+    assert err < 1e-4, err
+    assert checks.loop_errors(tg, drive)["ratio"] < 0.6
+
+
+def test_pose_graph_carries_over_from_jax(loop_runs, jax_run, tmp_path):
+    """``system_from_jax`` carries a JAX system's pose graph (database,
+    loops, drift, keyframe count) into the port, and a graph saved by the
+    port's system loads into the JAX package's ``PoseGraph``."""
+    from ground_fusion2_tpu.posegraph.pose_graph import PoseGraph as JPoseGraph
+    _, jg, tg = loop_runs
+    gf = jax_run["gf"]
+    kept = gf.pg, gf._n_keyframes
+    try:
+        gf.pg, gf._n_keyframes = jg.pg, jg._n_keyframes
+        out = convert.system_from_jax(gf, "cpu")
+    finally:
+        gf.pg, gf._n_keyframes = kept
+    assert out.pg.n == jg.pg.n and out._n_keyframes == jg._n_keyframes
+    for name in ("p", "q", "p_odom", "q_odom", "desc", "desc_valid", "gdesc",
+                 "pts_norm", "pts_depth", "drift_p"):
+        np.testing.assert_array_equal(getattr(out.pg, name),
+                                      getattr(jg.pg, name))
+    assert out.pg.drift_yaw == jg.pg.drift_yaw
+    assert [l[:2] for l in out.pg.loops] == [l[:2] for l in jg.pg.loops]
+    np.testing.assert_allclose(out.loop_corrected(np.ones(3), np.eye(4)[0])[0],
+                               jg.loop_corrected(np.ones(3), np.eye(4)[0])[0],
+                               atol=1e-6)
+    path = str(tmp_path / "graph.npz")
+    tg.save_pose_graph(path)
+    back = JPoseGraph.load(path, jg.pg.cfg)
+    np.testing.assert_array_equal(back.desc[:back.n], tg.pg.desc[:tg.pg.n])
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """Without a CUDA device the default device raises; it never falls
     back to the CPU."""
-    from ground_fusion2_tpu_torch.config import EstimatorConfig, LioConfig
+    from ground_fusion2_tpu_torch.config import (EstimatorConfig, LioConfig,
+                                                 PoseGraphConfig)
     from ground_fusion2_tpu_torch.frontend.tracker import FeatureTracker
     from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
+    from ground_fusion2_tpu_torch.posegraph.pose_graph import PoseGraph
     from ground_fusion2_tpu_torch.vio.estimator import VioEstimator
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cam = Pinhole.create(100.0, 100.0, 64.0, 48.0)
     makers = [lambda: GroundFusion(SystemConfig()),
+              lambda: GroundFusion(SystemConfig(use_lidar=False,
+                                                use_loop_closure=True)),
+              lambda: PoseGraph(PoseGraphConfig()),
               lambda: LidarOdometry(LioConfig()),
               lambda: FusedVio(EstimatorConfig(), TrackerConfig(), cam),
               lambda: VioEstimator(EstimatorConfig()),
