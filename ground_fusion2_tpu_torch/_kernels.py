@@ -50,12 +50,14 @@ _SIGNATURES = {
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
     "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 6,
-    "gf2_small_normal": [_P] * 9 + [_I] * 12 + [_F] * 4 + [_P] * 8,
+    "gf2_small_normal": [_P] * 11 + [_I] * 18 + [_F] * 4 + [_P] * 8,
     "gf2_brief_describe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "gf2_simhash": [_P, _P, _P, _I, _P, _P, _P],
     "gf2_hamming": [_P, _P, _I, _I, _P, _P],
     "gf2_loop_geometry": [_P] * 6 + [_I, _I, _F, _I] + [_P] * 5,
     "gf2_pg_normal": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 5,
+    "gf2_global_normal": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 5,
+    "gf2_dyn_mask": [_P] * 5 + [_I] * 5 + [_F] * 4 + [_I] * 3 + [_P] * 4,
 }
 
 

@@ -228,10 +228,39 @@ def example_measurements(x0, feats, layout, device, seed: int = 0):
         frame_dt=torch.full((W - 1,), 0.2, device=device))
 
 
+def example_gnss(x0, meas, layout, device, seed: int = 3, yaw: float = 0.3):
+    """:func:`example_window`'s state and measurements with GNSS: a GnssSim
+    sky seen from the window's frames through ``yaw``, prereduced against
+    the sky's origin into the table (S = 16 slots, a few left empty), the
+    GNSS states near their truth and the gate on."""
+    from .gnss.factors import GnssTable, prepare_frame_obs
+    from .gnss.sim import GnssSim
+    W = layout.W
+    gs = GnssSim(psr_noise=0.5, dopp_noise=0.05, seed=seed)
+    Rz = np.array([[np.cos(yaw), -np.sin(yaw), 0],
+                   [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1.0]])
+    p = x0.p.cpu().numpy().astype(np.float64)
+    v = x0.v.cpu().numpy().astype(np.float64)
+    rows = [prepare_frame_obs(gs.measurements(
+        t=50.0 + 0.2 * k, enu_pos=Rz @ p[k], enu_vel=Rz @ v[k],
+        clk_bias=5.0 + 0.1 * k, clk_drift=0.5), gs.ref_ecef) for k in range(W)]
+    tab = [np.stack([r[i] for r in rows]) for i in range(7)]
+    tab[-1][3, -3:] = 0.0
+    tab.append(np.full((W - 1,), 0.2, np.float32))
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    x = x0._replace(gyaw=t(yaw + 0.01), ganchor=t([0.2, -0.1, 0.05]),
+                    gdt=t((5.0 + 0.1 * np.arange(W))[:, None]
+                          + rng.normal(scale=0.3, size=(W, 4))),
+                    gddt=t(0.5 + rng.normal(scale=0.05, size=W)))
+    return x, meas._replace(gnss=GnssTable(*(t(a) for a in tab)),
+                            gnss_enabled=torch.ones((), device=device))
+
+
 def carry_measurements(fv):
     """The measurements of ``FusedVio`` ``fv``'s final window, rebuilt from
     its carry as ``vio.fused.solve_tick`` builds them (the intervals
-    re-preintegrated at the carry's biases)."""
+    re-preintegrated at the carry's biases, the last tick's GNSS gate)."""
     from .vio.estimator import preintegrate_all
     from .vio.problem import VioMeasurements
     c, e = fv.carry, fv.cfg
@@ -248,8 +277,9 @@ def carry_measurements(fv):
         plane_valid=torch.tensor(float(e.vio.use_plane), device=dev),
         stationary=torch.zeros((), device=dev),
         gnss=c.gnss._replace(frame_dt=frame_dt),
-        gnss_enabled=torch.zeros((), device=dev), prior=c.prior,
-        prior_state=c.prior_state, frame_dt=frame_dt)
+        gnss_enabled=(torch.zeros((), device=dev) if fv.gnss_enabled is None
+                      else fv.gnss_enabled),
+        prior=c.prior, prior_state=c.prior_state, frame_dt=frame_dt)
 
 
 def check_clahe(device, frame=None) -> dict:
@@ -803,16 +833,58 @@ SMALL_REL_TOL = 1e-5   # kernels L, O: H, cost relative to their max |entry|
 # large terms whose f32 residuals round differently in the two evaluation
 # orders: as for C, its error is measured against sqrt(H_ii·2·cost), the
 # bound on the magnitude of its terms (PROJ_G_TOL)
+# kernel P's cost: a pseudorange residual is a small difference of ~10 m
+# terms (the receiver clock, the prereduced range, u·p), so f32 rounds it by
+# ~1e-6 σ; at a solved window (residuals ~0.05 σ) that is ~3e-5 of r² in
+# either route. So the kernel's cost is held against a float64 evaluation, to
+# P_COST_VS_PLAIN times the plain route's own error there (at least
+# SMALL_REL_TOL)
+P_COST_VS_PLAIN = 3.0
+# kernels L and P by factor family: (local columns = dual lanes, rows, flops
+# of one dual evaluation of the instance's residual), counted from
+# csrc/small_normal.cu's residual() with a dual sum 2 flops, a dual product
+# 3, a retracted rotation ~190, a rotation of a vector ~80, sin or cos ~20
+SMALL_FAMILIES = dict(imu=(30, 15, 2000), wheel=(21, 6, 1600),
+                      plane=(18, 3, 1150), motion=(15, 2, 550),
+                      posvel=(12, 3, 60), gnss_psr=(11, 1, 130),
+                      gnss_dopp=(5, 1, 110), gnss_clock=(10, 5, 40))
+
+
+def small_normal_live(meas, layout, cfg) -> dict:
+    """The instances of each family that carry weight on this window: the
+    valid IMU and wheel intervals, and with the GNSS gate on, the valid
+    (frame, satellite) slots and the clock intervals."""
+    live = fac._instance_counts(layout.W, meas.gnss.u_enu.shape[1], cfg)
+    live["imu"] = int((meas.imu_valid > 0).sum())
+    if cfg.use_wheel:
+        live["wheel"] = int((meas.wheel_valid > 0).sum())
+    if cfg.use_gnss:
+        on = float(meas.gnss_enabled) > 0
+        slots = int((meas.gnss.valid > 0).sum()) if on else 0
+        live.update(gnss_psr=slots, gnss_dopp=slots,
+                    gnss_clock=live["gnss_clock"] * on)
+    return live
 
 
 def _rel(a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
 
 
+def _f64(tree):
+    """A tree of NamedTuples / tuples with its float tensors in float64."""
+    if isinstance(tree, torch.Tensor):
+        return tree.double() if tree.is_floating_point() else tree
+    if isinstance(tree, tuple):
+        items = [_f64(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+    return tree
+
+
 def check_small_normal(device, x0, meas, layout, delta, cfg,
                        timed: bool = True) -> dict:
-    """Kernel L against the plain jacfwd route over every row but the
-    projection block's, and a repeated call bit for bit."""
+    """Kernel L (with kernel P's GNSS rows when ``cfg.use_gnss``) against
+    the plain jacfwd route over every row but the projection block's, and a
+    repeated call bit for bit."""
     args = (x0, delta, meas, layout, cfg)
     Hk, gk, ck = fac.small_normal_equations(*args)
     H2, g2, c2 = fac.small_normal_equations(*args)
@@ -823,20 +895,36 @@ def check_small_normal(device, x0, meas, layout, delta, cfg,
     errs = dict(H=_rel(Hk, Hp), cost=_rel(ck, cp),
                 g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
     tols = dict(H=SMALL_REL_TOL, g=PROJ_G_TOL, cost=SMALL_REL_TOL)
-    # inputs: the preintegrations, square-root informations and the prior;
-    # H and g out. Operations: ~3,000 flops a dual residual evaluation (a
-    # lane of an instance), the instances' local products, and the prior's
-    # sqrt_J·J⊟ and 246² Gram matrix (2·K³)
-    W, K = layout.W, layout.frame_dim
-    n_inst = (W - 1) * (1 + cfg.use_wheel + cfg.use_plane
-                        + 2 * cfg.use_motion) + cfg.use_motion
+    extra = {}
+    if cfg.use_gnss:
+        c64 = fac.small_normal_equations_plain(*_f64(args))[2]
+        plain64 = _rel(cp.double(), c64)
+        extra = dict(cost_vs_plain=errs.pop("cost"),
+                     plain_cost_rel_to_f64=plain64)
+        errs["cost_rel_to_f64"] = _rel(ck.double(), c64)
+        tols.pop("cost")
+        tols["cost_rel_to_f64"] = max(P_COST_VS_PLAIN * plain64, SMALL_REL_TOL)
+    # inputs: the preintegrations, square-root informations, the GNSS table
+    # and the prior; H and g out. Operations: for each live instance, a dual
+    # evaluation a lane (SMALL_FAMILIES), its local JᵀJ, Jᵀr and r², and its
+    # sum into H; the prior's sqrt_J·J⊟ and 246² Gram matrix (2·K³)
+    K = layout.frame_dim
+    live = small_normal_live(meas, layout, cfg)
+    flops = 2 * K ** 3 + 6 * K * K
+    for fam, n in live.items():
+        lanes, rows, dual = SMALL_FAMILIES[fam]
+        flops += n * (lanes * dual + 2 * rows * (lanes * lanes + lanes + 1)
+                      + lanes * lanes + lanes)
     nb = _nbytes(meas.imu.jac, meas.imu_sqrt_info, meas.wheel.jac_ix,
                  meas.wheel_sqrt_info, meas.prior.sqrt_J, meas.prior.r0, Hk,
-                 gk)
-    flops = n_inst * 30 * (3000 + 2 * 30 * 15) + 2 * K ** 3 + 6 * K * K
+                 gk) + (_nbytes(*meas.gnss) if cfg.use_gnss else 0)
     out = dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
                g_rel_max_entry=_rel(gk, gp), tol=tols, repeat_equal=same,
-               dim=layout.dim, library_ms=None, **bound(nb, flops),
+               dim=layout.dim,
+               instances=fac._n_instances(layout.W, meas.gnss.u_enu.shape[1],
+                                          cfg),
+               live_instances=live, library_ms=None, **extra,
+               **bound(nb, flops),
                ok=same and all(errs[k] <= tols[k] for k in errs))
     if timed:
         out["ms"] = time_ms(lambda: fac.small_normal_equations(*args))
@@ -852,8 +940,9 @@ F64_FLOPS_PER_S = 67e12   # H100 SXM, FP64 tensor core (NVIDIA data sheet)
 def check_linalg(device, H, g, layout) -> dict:
     """Row 7 (library, as the JAX package leaves it to XLA's linalg): the
     damped Cholesky solve at D, ``marginalize``'s two f64 ``eigh`` at their
-    sizes, and the pose graph's Cholesky at 4·64 and 4·512, each with its
-    bound (n³/3 flops a Cholesky, ~9 n³ an eigh, one read of the matrix)."""
+    sizes, the pose graph's Cholesky at 4·64 and 4·512 and the global
+    graph's at 6·256, each with its bound (n³/3 flops a Cholesky, ~9 n³ an
+    eigh, one read of the matrix)."""
     from .solver.gauss_newton import _solve_damped
     D = H.shape[0]
     lam = torch.full((), 1e-4, device=device)
@@ -875,14 +964,15 @@ def check_linalg(device, H, g, layout) -> dict:
         t_f = 9 * n ** 3 / F64_FLOPS_PER_S * 1e3
         out[name] = dict(ms=ms, library_ms=ms, bound_ms=max(t_b, t_f),
                          bound_by="bytes" if t_b >= t_f else "operations")
-    for cap in (64, 512):
-        n = 4 * cap
+    for name, n in (("pose_graph_cholesky_256", 256),
+                    ("pose_graph_cholesky_2048", 2048),
+                    ("global_graph_cholesky_1536", 1536)):
         A = rng.normal(size=(n, n)).astype(np.float32)
         S = torch.as_tensor(A @ A.T / n + np.eye(n, dtype=np.float32),
                             device=device)
         ms = time_ms(lambda: torch.linalg.cholesky_ex(S), reps=10)
-        out["pose_graph_cholesky_%d" % n] = dict(
-            ms=ms, library_ms=ms, **bound(2 * _nbytes(S), n ** 3 / 3))
+        out[name] = dict(ms=ms, library_ms=ms,
+                         **bound(2 * _nbytes(S), n ** 3 / 3))
     return out
 
 
@@ -1011,7 +1101,7 @@ class ScriptedVio:
         self.poses = poses   # list of (p, q)
         self.k = 0
 
-    def process_obs(self, t, obs, imu, wheel_vel=None):
+    def process_obs(self, t, obs, imu, wheel_vel=None, gnss_meas=None):
         from .vio.estimator import VioOutput
         p, q = self.poses[self.k]
         self.k += 1
@@ -1112,3 +1202,234 @@ def ring_graph_args(n: int, cap: int, device, six: bool = False,
                       else map(torch.as_tensor, (yaw0, seq_dyaw, l_dyaw)))
     return (t(p0), t(r0), (t(seq_dp), t(seq_r)), t(seq_valid), t(li), t(lj),
             (t(l_dp), t(l_r)), t(l_valid), 10.0, 50.0, 20.0, 100.0)
+
+
+# ------------------------------------------------------------- GNSS drive
+GNSS_FIX_STD = 1.5     # m, the SPP fix's std as data/m3dgr_sim.py hands it
+# tests/test_gnss_fused.py:20-22's run_synthetic_sequence arguments
+GNSS_DRIVE_S = 14.0
+GNSS_SEED = 7
+GNSS_PIX_NOISE = 0.5 / 460.0
+GNSS_YAW = 0.3         # rad, the local → ENU yaw the sky is seen through
+
+
+def gnss_drive(n: int | None = None, F: int = 150):
+    """tests/test_gnss_fused.py's drive, as ``data/runner.py`` builds it with
+    ``use_gnss=True, fused=True`` (14 s at 10 Hz, 200 Hz IMU with noise, 1 m/s
+    at 0.4 rad/s after a 1.5 s static prefix, 600 landmarks, the simulated
+    tracker's F slots at 0.5/460, seed 7; a GnssSim sky (psr noise 0.5 m,
+    Doppler 0.05 m/s) seen through the local→ENU yaw 0.3 rad, an
+    epoch every 5th frame), plus, as the M3DGR replay hands global fusion
+    (``data/m3dgr_sim.py:361,375-382``), each epoch's SPP fix with ≥ 5
+    satellites as ``gps_enu`` in the ENU frame of the first fix, std 1.5 m.
+    One dict a frame: t, obs (ray, vel, depth, alive, fresh as numpy), imu,
+    wheel (body frame), gnss (a list of GnssMeas or None), gps_enu (or
+    None), p_gt (body, local frame), p_gnss (the truth in the first fix's
+    ENU frame, once a fix exists), tic, ric (the simulated camera's)."""
+    from .data import synthetic as sim
+    from .gnss.frames import ecef2rotation
+    from .gnss.sim import GnssSim
+    from .gnss.spp import spp_position
+    rng = np.random.default_rng(GNSS_SEED)
+    traj = sim.make_planar_trajectory(duration=GNSS_DRIVE_S, imu_rate=200.0,
+                                      speed=1.0, yaw_rate=0.4, wobble=0.03,
+                                      static_time=1.5, ramp_time=1.0)
+    lms = sim.make_landmarks(traj, n=600, seed=GNSS_SEED)
+    cam = sim.CameraSim()
+    tracker = sim.SimTracker(F, lms.pts, cam, pix_noise=GNSS_PIX_NOISE,
+                             seed=GNSS_SEED)
+    acc, gyr = sim.add_imu_noise(traj, rng)
+    wvel = sim.wheel_velocity_body(traj)
+    gsim = GnssSim(psr_noise=0.5, dopp_noise=0.05, seed=GNSS_SEED)
+    c, s = np.cos(GNSS_YAW), np.sin(GNSS_YAW)
+    Rz = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1.0]])
+    spf = 20
+    n_frames = int(GNSS_DRIVE_S * 10.0) - 1
+    n = n_frames if n is None else min(n, n_frames)
+    first_fix = None
+    frames = []
+    for k in range(n):
+        i0, i1 = k * spf, (k + 1) * spf
+        t = traj.t[i1]
+        ray, vel, depth, alive, fresh = tracker.track(t, traj.p[i1], traj.q[i1])
+        depth = depth * (rng.uniform(size=depth.shape) < 1.0)
+        meas = gps = None
+        if k % 5 == 0:
+            # the clock bias integrates the advertised drift
+            meas = gsim.measurements(t=50.0 + t, enu_pos=Rz @ traj.p[i1],
+                                     enu_vel=Rz @ traj.v[i1],
+                                     clk_bias=5.0 + 0.5 * t, clk_drift=0.5)
+            if len(meas) >= 5:
+                fix, _, ok = spp_position(meas)
+                if ok:
+                    if first_fix is None:
+                        first_fix = fix.copy()
+                    gps = ecef2rotation(first_fix) @ (fix - first_fix)
+        p_gnss = None
+        if first_fix is not None:
+            p_gnss = ecef2rotation(first_fix) @ (
+                gsim.enu_to_ecef_pos(Rz @ traj.p[i1]) - first_fix)
+        frames.append(dict(
+            t=float(t), obs=(ray, vel, depth, alive, fresh),
+            imu=(acc[i0:i1 + 1], gyr[i0:i1 + 1],
+                 np.full((spf,), 1.0 / 200.0, np.float32)),
+            wheel=wvel[i0:i1 + 1], gnss=meas, gps_enu=gps,
+            p_gt=traj.p[i1].copy(), p_gnss=p_gnss, tic=cam.tic, ric=cam.ric))
+    return frames
+
+
+def gnss_errors(outs, frames, gf=None) -> dict:
+    """The GNSS path's figures for either package: the unaligned ATE from
+    the first initialized output (tests/test_gnss_fused.py:25-29), and with
+    ``gf`` (a GroundFusion with global fusion on) the RMS error of its graph
+    nodes to the truth in the first fix's ENU frame. ``outs``: one VioOutput
+    (or None) a frame."""
+    from .eval.metrics import ate_rmse
+    init = [i for i, o in enumerate(outs) if o is not None and o.initialized]
+    s = init[0]
+    est = np.asarray([outs[i].p for i in range(s, len(outs))])
+    gt = np.asarray([frames[i]["p_gt"] for i in range(s, len(outs))])
+    out = dict(ate=float(ate_rmse(est, gt, align=False)), init_tick=s)
+    if gf is not None and gf.gfusion is not None:
+        kf_t = [o.t for o in outs if o is not None and o.initialized
+                and o.is_keyframe]
+        by_t = {round(f["t"], 6): f for f in frames}
+        gp = np.asarray(gf.gfusion.graph.p)[:gf.gfusion.n]
+        truth = np.asarray([by_t[round(t, 6)]["p_gnss"] for t in kf_t])
+        err = np.linalg.norm(gp - truth[:len(gp)], axis=1)
+        out.update(global_rms=float(np.sqrt(np.mean(err ** 2))),
+                   global_max=float(err.max()), global_nodes=len(gp))
+    return out
+
+
+# ---------------------------------------------------------- dynamic drive
+# data/scenarios.py's occluder: its side in pixels at the M3DGR camera's
+# 640-px width, and its texture's seed (the scenario's seed 0, + 77)
+OCCLUDER_PX = 160
+OCCLUDER_SEED = 77
+
+
+def dynamic_drive(n: int, **kw):
+    """:func:`system_drive` with ``data/scenarios.py:174-188``'s occluder
+    composited into each frame: a patch of a 192² texture (rolled by 37 px a
+    second), 160 px at 640 px of width and scaled with the frame, at 1.2 m
+    depth, sweeping the image left to right during the first 3 s of every
+    10. Each frame also holds ``box`` = (u0, v0, side) of the patch, or
+    None."""
+    frames = system_drive(n, **kw)
+    size = OCCLUDER_PX * frames[0]["gray"].shape[1] // 640
+    rng = np.random.default_rng(OCCLUDER_SEED)
+    tex = rng.uniform(0.15, 0.9, size=(192, 192)).astype(np.float32)
+    tex = 0.5 * tex + 0.5 * np.roll(tex, 1, 0)
+    for f in frames:
+        H, W = f["gray"].shape
+        t = f["t"]
+        period, dur = 10.0, 3.0
+        ph = t % period
+        f["box"] = None
+        if ph < dur:
+            u0 = int((ph / dur) * (W - size))
+            v0 = (H - size) // 2
+            patch = np.roll(tex, int(t * 37) % 192, axis=1)[:size, :size]
+            gray = f["gray"].astype(np.float32) * (1.0 / 255.0)
+            gray[v0:v0 + size, u0:u0 + size] = patch
+            f["gray"] = np.clip(gray * 255.0, 0, 255).astype(np.uint8)
+            f["depth"] = f["depth"].copy()
+            f["depth"][v0:v0 + size, u0:u0 + size] = 1.2
+            f["box"] = (u0, v0, size)
+    return frames
+
+
+def mask_on_box(mask, uv, alive, box) -> dict:
+    """The share of the patch ``box`` that ``mask`` [H, W] covers, and the
+    live slots (``uv`` [F, 2], ``alive`` [F]) that sit on it (numpy in)."""
+    u0, v0, size = box
+    cover = float(np.mean(np.asarray(mask)[v0:v0 + size, u0:u0 + size] > 0.5))
+    uv, live = np.asarray(uv), np.asarray(alive) > 0.5
+    on = ((uv[:, 0] >= u0) & (uv[:, 0] < u0 + size)
+          & (uv[:, 1] >= v0) & (uv[:, 1] < v0 + size))
+    return dict(cover=cover, live_on_patch=int(np.sum(live & on)))
+
+
+# ------------------------------------------------------- kernels P, Q, R
+def check_global_normal(device, g, seed: int = 0) -> dict:
+    """Kernel Q against the plain jacfwd route over ``global_opt``'s rows
+    on the graph ``g`` (tensors on the card) at a small nonzero delta, and a
+    repeated call bit for bit."""
+    from .gnss import global_opt as go
+    N = g.p.shape[0]
+    rng = np.random.default_rng(seed)
+    delta = torch.as_tensor(rng.normal(scale=0.01, size=6 * N),
+                            dtype=torch.float32, device=device)
+    Hk, gk, ck = go.graph_normal_equations(g, delta)
+    H2, g2, c2 = go.graph_normal_equations(g, delta)
+    same = bool(torch.equal(Hk, H2) and torch.equal(gk, g2)
+                and torch.equal(ck, c2))
+    Hp, gp, cp = go.graph_normal_equations_plain(g, delta)
+    errs = dict(H=_rel(Hk, Hp), g=_rel(gk, gp), cost=_rel(ck, cp))
+    # nodes and edges in, H [6N]² and g out; per instance ≤ 12 dual lanes
+    # of ~400 flops and its local product (2·12²·6)
+    n_inst = 3 * N - 1
+    nb = _nbytes(*g) + _nbytes(Hk, gk)
+    flops = n_inst * (12 * 400 + 2 * 12 * 12 * 6)
+    return dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
+                tol=SMALL_REL_TOL, repeat_equal=same, nodes=N,
+                live_nodes=int(g.node_valid.sum()),
+                ok=same and all(v <= SMALL_REL_TOL for v in errs.values()),
+                library_ms=None, **bound(nb, flops),
+                ms=time_ms(lambda: go.graph_normal_equations(g, delta)),
+                plain_ms=time_ms(lambda: go.graph_normal_equations_plain(
+                    g, delta), reps=3, warmup=1))
+
+
+def check_dyn_mask(device, x: dict, band: float = 1e-5) -> dict:
+    """Kernel R against the plain version on one fused tick's inputs
+    (``x``: prev, cur (lo-res gray and depth), R_pc, t_pc, K, cfg, up,
+    out_hw, base): the masks equal, or differing only in cells whose
+    dilation window holds a blurred residual within ``band`` of its
+    threshold."""
+    from .frontend import dynamic as dm
+    cfg = x["cfg"]
+    args = (*x["prev"], *x["cur"], x["R_pc"], x["t_pc"], x["K"], cfg)
+    kw = dict(up=x["up"], out_hw=x["out_hw"], base=x["base"])
+    mk = dm.dynamic_mask(*args, **kw)
+    mp = dm.dynamic_mask_plain(*args, **kw)
+    grid = dm.residual_grid_plain(*args)
+    near = (((grid["photo"] - cfg.photo_thresh).abs() <= band)
+            | ((grid["geo"] - cfg.geo_thresh).abs() <= band)).to(torch.float32)
+    k = 2 * cfg.dilate + 1
+    allowed = torch.nn.functional.max_pool2d(near[None, None], k, stride=1,
+                                             padding=cfg.dilate)[0, 0] > 0
+    diff = (mk != mp).nonzero()
+    s, up = cfg.stride, x["up"]
+    cells = torch.stack([diff[:, 0] // up // s, diff[:, 1] // up // s], 1)
+    far = int((~allowed[cells[:, 0], cells[:, 1]]).sum()) if len(diff) else 0
+    H, W = x["cur"][0].shape
+    n_cells = grid["photo"].numel()
+    r = 2 * cfg.blur + 1
+    # bytes: the 32-byte sectors of the current gray and depth that the
+    # stride-s grid reads, those of the previous two that the valid cells'
+    # bilinear gathers read, the mask in (if any) and out. Operations: per
+    # cell ~60 flops of warp and gathers, 2·2r blur adds, the (2·dilate+1)²
+    # window
+    sectors = lambda idx: int(torch.unique(idx // 8).numel()) * 32
+    dev = grid["u"].device
+    py = torch.arange(0, H, s, device=dev)[:, None]
+    px = torch.arange(0, W, s, device=dev)[None, :]
+    ok = grid["ok"]
+    x0 = torch.floor(grid["u"][ok].clamp(0.0, W - 1.001)).long()
+    y0 = torch.floor(grid["v"][ok].clamp(0.0, H - 1.001)).long()
+    corners = torch.cat([(y0 + dy) * W + x0 + dx for dy in (0, 1)
+                         for dx in (0, 1)])
+    nb = (2 * sectors((py * W + px).reshape(-1)) + 2 * sectors(corners)
+          + (mk.numel() * 4 if x["base"] is not None else 0)
+          + mk.numel() * 4)
+    flops = n_cells * (60 + 4 * r + k * k) + mk.numel()
+    return dict(max_abs_err=float((mk - mp).abs().max()),
+                mismatched_pixels=int(len(diff)), mismatched_far=far,
+                near_threshold_cells=int(near.sum()), cells=n_cells,
+                mask_share=float(mk.mean()), ok=far == 0, library_ms=None,
+                **bound(nb, flops),
+                ms=time_ms(lambda: dm.dynamic_mask(*args, **kw)),
+                plain_ms=time_ms(lambda: dm.dynamic_mask_plain(*args, **kw),
+                                 reps=5))

@@ -1,8 +1,9 @@
 """Configuration mirrors of the JAX package's ``VioConfig``,
-``EstimatorConfig``, ``TrackerConfig``, ``VoxelMapConfig``, ``CtIcpConfig``,
-``EskfOptions``, ``LioConfig`` and ``PoseGraphConfig`` (``config/loader.py``
-imports JAX modules, so the port carries its own), and the M3DGR camera and
-LIO configurations.
+``EstimatorConfig``, ``TrackerConfig``, ``DynMaskConfig``, ``VoxelMapConfig``,
+``CtIcpConfig``, ``EskfOptions``, ``LioConfig`` and ``PoseGraphConfig``
+(``config/loader.py`` imports JAX modules, so the port carries its own), the
+M3DGR camera and LIO configurations and the Ground-Challenge camera
+configuration with raw GNSS.
 """
 
 from __future__ import annotations
@@ -57,8 +58,18 @@ class EstimatorConfig:
     allow_reboot: bool = True
     use_wheel: bool = False
     use_gnss: bool = False
+    gnss_low_speed: float = 0.3          # reference estimator.cpp:2968
+    gnss_align_min_epochs: int = 5
+    gnss_align_min_speed: float = 0.4
+    gnss_refine_ticks: int = 15
+    gnss_refine_period_ticks: int = 300
+    gnss_anchor_refresh_m: float = 1000.0
     outlier_px: float = 6.0
     focal: float = 460.0
+    gnss_psr_std_thres: float = 2.0      # ingest gates (reference :1550-1578)
+    gnss_dopp_std_thres: float = 2.0
+    gnss_elev_thres_deg: float = 30.0
+    gnss_track_thres: int = 5
     g_norm: float = 9.81
 
     def __post_init__(self):
@@ -82,6 +93,19 @@ class TrackerConfig:
     use_ransac: bool = False
     f_thresh_px: float = 1.0
     focal: float = 460.0
+
+
+@dataclass(frozen=True)
+class DynMaskConfig:
+    """``frontend/dynamic.py:DynMaskConfig``, field for field."""
+
+    stride: int = 4            # compute grid (cost ∝ 1/stride²)
+    photo_thresh: float = 0.07  # intensity units (images are in [0, 1])
+    geo_thresh: float = 0.25   # m: |warped previous depth − predicted depth|
+    blur: int = 2              # box-blur half-width on the residual grid
+    dilate: int = 3            # mask dilation half-width (grid cells)
+    min_depth: float = 0.1
+    max_depth: float = 20.0
 
 
 class CameraConfig(NamedTuple):
@@ -142,6 +166,50 @@ def m3dgr_camera() -> CameraConfig:
         [0.99880293731215963, 0.042969316267296165, 0.023373709079293481]])
     tio = np.array([1.0000278019634017, 0.00477569625897234,
                     0.20902387796334685])
+    return CameraConfig(estimator=est, tracker=trk,
+                        intrinsics=(fx, fy, cx, cy), width=640, height=480,
+                        tic=tic, ric=ric, tio=tio, rio=rio)
+
+
+def groundchallenge_gnss() -> CameraConfig:
+    """The values ``config/loader.py`` gives for ``configs/groundchallenge.yaml``
+    with ``gnss_enable`` flipped to 1, the setting the file documents for the
+    GVINS-style raw-GNSS sequences: 640×480 pinhole with the Ground-Challenge
+    intrinsics (fx 620.97, so ``proj_sqrt_info`` is fx/1.5), ``max_cnt`` 150
+    (F = 150, D = 396, S = 16 satellite slots), 8 LM iterations, the wheel on,
+    plane and motion factors off, g 9.805, the yaml's IMU and wheel noise and
+    its GNSS gates (psr/dopp std 2.0, elevation 30°, track 5: the defaults).
+    The tracker is the loader's ``make_tracker()``: depth range (0.1, 3.0),
+    CLAHE off, F-RANSAC off. Nothing is cut."""
+    fx, fy = 620.97277909374247, 622.12293397677581
+    cx, cy = 311.75896455154810, 247.18077836114819
+    g_norm = 9.805
+    F = 150
+    vio = VioConfig(num_feats=F, proj_sqrt_info=fx / 1.5, max_iters=8,
+                    use_wheel=True, use_gnss=True, use_plane=False,
+                    use_motion=False, estimate_extrinsic=False,
+                    extrinsic_type=3, estimate_td=False,
+                    estimate_wheel_intrinsic=False,
+                    estimate_wheel_extrinsic=False, wheel_extrinsic_type=3,
+                    g_norm=g_norm)
+    est = EstimatorConfig(
+        num_feats=F, vio=vio,
+        imu_noise=ImuNoise(acc_n=1.2374091609523514e-02,
+                           gyr_n=3.0032654435730201e-03,
+                           acc_w=1.9218003442176448e-04,
+                           gyr_w=5.4692100664858005e-05),
+        wheel_noise=WheelNoise(vel_n=0.01, gyr_n=0.004),
+        min_parallax=10.0 / fx, use_wheel=True, use_gnss=True, g_norm=g_norm)
+    trk = TrackerConfig(num_slots=F, depth_range=(0.1, 3.0), equalize=False,
+                        focal=fx)
+    ric = np.array([[0.99957087, 0.00215313, 0.02921355],
+                    [-0.00192891, 0.99996848, -0.00770122],
+                    [-0.02922921, 0.00764156, 0.99954353]])
+    tic = np.array([0.03668114, -0.00477653, 0.0316039])
+    rio = np.array([[-0.0424561, -0.998603, -0.0314461],
+                    [0.0729004, 0.0282942, -0.996938],
+                    [0.996435, -0.0446186, 0.0715973]])
+    tio = np.array([0.0283756, 0.159482, -0.136109])
     return CameraConfig(estimator=est, tracker=trk,
                         intrinsics=(fx, fy, cx, cy), width=640, height=480,
                         tic=tic, ric=ric, tio=tio, rio=rio)

@@ -9,8 +9,11 @@ NamedTuple of tensors on ``device``. :func:`to_numpy` goes back: the port's tree
 leaves, field names and dtypes as in the JAX package, so a test can rebuild
 the JAX NamedTuple with ``JaxType(**tree._asdict())``.
 :func:`system_from_jax` carries a whole JAX ``GroundFusion`` (both carries,
-the IMU-rate propagator, the last VIO output, the pose graph) into the
-port's; :func:`pose_graph_from_jax` a JAX ``PoseGraph`` alone.
+the IMU-rate propagator, the last VIO output, the pose graph, global
+fusion) into the port's; :func:`fused_vio_from_jax` a JAX ``FusedVio``'s
+carry and host state (GNSS alignment and filters, the dynamic mask's
+previous frame); :func:`pose_graph_from_jax` a JAX ``PoseGraph`` and
+:func:`global_fusion_from_jax` a JAX ``GlobalFusion`` alone.
 """
 
 from __future__ import annotations
@@ -137,6 +140,60 @@ def pose_graph_from_jax(pg, device, cfg=None):
     return out
 
 
+def global_fusion_from_jax(gfu, device):
+    """A port ``GlobalFusion`` on ``device`` holding the JAX ``gfu``'s graph,
+    node count, last local pose and local→global alignment."""
+    from .gnss.global_opt import GlobalFusion, GlobalGraph
+    out = GlobalFusion(gfu.capacity, device)
+    out.graph = GlobalGraph(*(np.array(a, np.float32, copy=True)
+                              for a in gfu.graph))
+    out.n = gfu.n
+    out.last_local = (None if gfu.last_local is None else
+                      tuple(np.array(a, copy=True) for a in gfu.last_local))
+    out.q_align = np.array(gfu.q_align, copy=True)
+    out.t_align = np.array(gfu.t_align, copy=True)
+    return out
+
+
+def fused_vio_from_jax(jv, fv):
+    """Put the JAX ``FusedVio`` ``jv``'s live state into the port's ``fv``
+    (built with the same configuration): the carry with its interval
+    counts, frame and tick counts and held-back record; the last read-back
+    pose; the GNSS host state (alignment, anchor, refine count, both
+    quality filters' track counts, the yaw pairs, the anchor refresh
+    point, the tick count); the dynamic mask's previous lo-res frame."""
+    dev = fv.device
+    fv.carry = to_torch(_tree_numpy(jv.carry), dev)
+    fv.counts = [int(n) for n in np.asarray(jv.carry.smask).sum(1)]
+    fv.frame_count = jv.frame_count
+    fv.fused_ticks = jv.dispatch_count
+    fv._inflight = None
+    if jv._inflight is not None:
+        t, rec = jv._inflight
+        fv._inflight = (t, torch.as_tensor(np.asarray(rec)), None)
+    fv._last_p = np.array(jv._last_p, np.float32, copy=True)
+    fv._last_v = np.array(jv._last_v, np.float32, copy=True)
+    fv._last_q = None if jv._last_q is None else np.array(jv._last_q,
+                                                          copy=True)
+    lg, jlg = fv.legacy, jv.legacy
+    lg.gnss_ready = jlg.gnss_ready
+    lg.gnss_anchor = (None if jlg.gnss_anchor is None
+                      else np.array(jlg.gnss_anchor, copy=True))
+    lg.gnss_align_buf = copy.deepcopy(jlg.gnss_align_buf)
+    lg.gnss_refine_left = jlg.gnss_refine_left
+    lg.gnss_filter._track = dict(jlg.gnss_filter._track)
+    fv.gnss_refine_left = jv.gnss_refine_left
+    if hasattr(jv, "gnss_filter"):    # JAX builds it with GNSS on only
+        fv.gnss_filter._track = dict(jv.gnss_filter._track)
+    fv._gnss_vel_pairs = copy.deepcopy(jv._gnss_vel_pairs)
+    fv._gnss_anchor_p0 = np.array(jv._gnss_anchor_p0, copy=True)
+    fv._gnss_tick_count = jv._gnss_tick_count
+    fv._prev_lo = (None if jv._prev_lo is None else tuple(
+        torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        for a in jv._prev_lo))
+    return fv
+
+
 def system_config_from_jax(jcfg):
     """The port's SystemConfig for a JAX ``SystemConfig`` (the fields the
     port carries; the options it does not port must be off)."""
@@ -160,19 +217,20 @@ def system_config_from_jax(jcfg):
                     else pose_graph_config_from_jax(jcfg.pose_graph)),
         load_pose_graph=jcfg.load_pose_graph,
         loop_optimize_min_gap=jcfg.loop_optimize_min_gap,
-        use_global_fusion=jcfg.use_global_fusion, use_mesh=jcfg.use_mesh,
+        use_global_fusion=jcfg.use_global_fusion,
+        global_every=jcfg.global_every, use_mesh=jcfg.use_mesh,
         use_occupancy_grid=jcfg.use_occupancy_grid,
         cam_intr=tuple(jcfg.cam_intr), kf_cell=jcfg.kf_cell)
 
 
 def system_from_jax(gf, device, cfg=None):
     """A port ``GroundFusion`` on ``device`` in the state of the JAX
-    package's ``gf``: the VIO carry (with its interval counts, frame count
-    and held-back record), the LIO carry (with its held-back record), the
-    ``FastPropagator`` buffers, ``latest_vio`` and the pose graph with its
-    keyframe count and pending loop. Both of ``gf``'s carries must be live
-    (after warm-up and the LIO's first fused tick). ``cfg``: the port's
-    SystemConfig (default: converted from ``gf.cfg``)."""
+    package's ``gf``: the VIO (:func:`fused_vio_from_jax`), the LIO carry
+    (with its held-back record), the ``FastPropagator`` buffers,
+    ``latest_vio``, the keyframe count, the pose graph with its pending loop
+    and global fusion. Both of ``gf``'s carries must be live (after warm-up
+    and the LIO's first fused tick). ``cfg``: the port's SystemConfig
+    (default: converted from ``gf.cfg``)."""
     from .system import GroundFusion
     from .vio.estimator import VioOutput
     jv, jl = gf.vio, gf.lio
@@ -182,14 +240,7 @@ def system_from_jax(gf, device, cfg=None):
     ext = dict(tic=jv._tic, ric=jv._ric, tio=jv._tio, rio=jv._rio)
     out = GroundFusion(cfg or system_config_from_jax(gf.cfg), device=device,
                        **ext)
-    v = out.vio
-    v.carry = to_torch(host(jv.carry), out.device)
-    v.counts = [int(n) for n in np.asarray(jv.carry.smask).sum(1)]
-    v.frame_count = jv.frame_count
-    v.fused_ticks = jv.dispatch_count
-    if jv._inflight is not None:
-        t, rec = jv._inflight
-        v._inflight = (t, torch.as_tensor(np.asarray(rec)), None)
+    fused_vio_from_jax(jv, out.vio)
     if jl is not None:
         lo = out.lio
         lo._carry = to_torch(host(jl._carry), out.device)
@@ -200,9 +251,11 @@ def system_from_jax(gf, device, cfg=None):
             t, rec = jl._inflight
             lo._inflight = (t, np.asarray(rec))
     out.prop.__dict__.update(copy.deepcopy(gf.prop.__dict__))
+    out._n_keyframes = gf._n_keyframes
+    if gf.gfusion is not None:
+        out.gfusion = global_fusion_from_jax(gf.gfusion, out.device)
     if gf.pg is not None:
         out.pg = pose_graph_from_jax(gf.pg, out.device, out.cfg.pose_graph)
-        out._n_keyframes = gf._n_keyframes
         out._pending_loop = gf._pending_loop
         out._last_loop_opt_kf = gf._last_loop_opt_kf
     if gf.latest_vio is not None:

@@ -1,12 +1,13 @@
-// Kernel L: normal equations of the window's non-projection rows.
+// Kernels L and P: normal equations of the window's non-projection rows.
 //
 // Replaces the dense `jax.jacfwd` + `JᵀWJ` of
 // ground_fusion2_tpu/solver/gauss_newton.py:50 `normal_equations` over the
 // rows of ground_fusion2_tpu/vio/problem.py:87 `residual_fn` other than the
 // projection block: ground_fusion2_tpu/factors/vio_factors.py:124
 // `imu_residuals`, :159 `wheel_residuals`, :204 `plane_residuals`, :222
-// `posvel_residuals`, :234 `motion_residuals`, and the marginalization prior
-// (ground_fusion2_tpu/solver/marginalize.py, sqrt_J·(x ⊟ x_prior) + r0).
+// `posvel_residuals`, :234 `motion_residuals`, the marginalization prior
+// (ground_fusion2_tpu/solver/marginalize.py, sqrt_J·(x ⊟ x_prior) + r0) and,
+// as kernel P, ground_fusion2_tpu/gnss/factors.py:137 `gnss_residuals`.
 // The TPU form differentiates the whole stacked residual over all D = 246+F
 // columns; each factor instance here touches at most 30 of them.
 //
@@ -14,7 +15,13 @@
 // 30 columns of both frames' pose and speed-bias; wheel interval k: 6 rows
 // over both poses, the wheel extrinsic and intrinsics, 21 columns; plane row
 // k: 3 rows, 18 columns; motion row k: 2 rows, 15 columns; pos-vel row k: 3
-// rows, 12 columns). Lane l evaluates the instance's residual in
+// rows, 12 columns). Kernel P adds the GNSS instances: a (frame, satellite)
+// pseudorange row over p_i, yaw, the anchor and frame i's four clocks (11
+// columns); a Doppler row over v_i, yaw and frame i's drift (5); and an
+// interval's 4 clock-evolution rows and 1 drift row over both frames' clocks
+// and drifts (10). They are linear but for Rz(yaw). An invalid or disabled
+// row carries weight 0 and a finite residual (the std clamps), so it adds
+// exact zeros. Lane l evaluates the instance's residual in
 // single-direction duals seeded on its local column l at retract(x0, delta),
 // so each Jacobian column equals jacfwd's (SO(3) right Jacobians,
 // `bias_corrected`, `mat_to_ypr`'s atan2/asin included). The instance's
@@ -29,9 +36,11 @@
 // sqrt_J·J⊟ and sqrt_J·(x ⊟ x_prior) + r0. The caller adds the prior's Gram
 // matrix (a plain 246² product) to H.
 //
-// Bounds on the card: ~51 instances × ≤ 32 lanes × ~2,000 flops of duals,
-// a 246² reduce over 51 instances, and the prior's 246² reads: under a
-// megabyte and a few MFLOP. One launch's latency sets the time at this size.
+// Bounds on the card: ~51 instances (~420 with GNSS: W·S = 176 pseudorange
+// and 176 Doppler rows at S = 16) × ≤ 32 lanes × ≤ ~2,000 flops of duals, a
+// 246² reduce over the instances, and the prior's 246² reads: under two
+// megabytes and a few MFLOP. Launch latency and the reduce's serial walk
+// over the instances set the time at this size.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -47,11 +56,19 @@ constexpr int kMaxRows = 15;
 constexpr int kImu = 468;   // floats a packed IMU interval
 constexpr int kWhl = 65;    // floats a packed wheel interval
 
-enum FactorType { IMU = 0, WHEEL = 1, PLANE = 2, MOTION = 3, POSVEL = 4 };
+constexpr int kGtab = 12;   // floats a (frame, satellite) slot
+constexpr float kDtDdtWeight = 10.f;    // gnss_residuals' dt_ddt_weight
+constexpr float kDdtSmoothWeight = 1.f;  // and ddt_smooth_weight
+
+enum FactorType {
+  IMU = 0, WHEEL = 1, PLANE = 2, MOTION = 3, POSVEL = 4, GPSR = 5, GDOPP = 6,
+  GCLK = 7
+};
 
 struct Lay {
   int W, D, fd, pose_off, sb_off, cam_off, wext_off, wint_off, cam2_off;
-  int n_imu, n_whl, n_plane, n_motion, n_posvel;
+  int gdt_off, gddt_off, gyaw_off, ganchor_off, S;
+  int n_imu, n_whl, n_plane, n_motion, n_posvel, n_gpsr, n_gdopp, n_gclk;
 };
 
 __device__ __forceinline__ void instance(const Lay& L, int inst, int* type, int* k) {
@@ -64,7 +81,13 @@ __device__ __forceinline__ void instance(const Lay& L, int inst, int* type, int*
   n -= L.n_plane;
   if (n < L.n_motion) { *type = MOTION; *k = n; return; }
   n -= L.n_motion;
-  *type = POSVEL;
+  if (n < L.n_posvel) { *type = POSVEL; *k = n; return; }
+  n -= L.n_posvel;
+  if (n < L.n_gpsr) { *type = GPSR; *k = n; return; }
+  n -= L.n_gpsr;
+  if (n < L.n_gdopp) { *type = GDOPP; *k = n; return; }
+  n -= L.n_gdopp;
+  *type = GCLK;
   *k = n;
 }
 
@@ -94,13 +117,39 @@ __device__ __forceinline__ int dense_col(const Lay& L, int type, int k, int l) {
       if (l < 9) return so + 9 * k + (l - 6);
       if (l < 15) return we + (l - 9);
       return -1;
-    default:  // POSVEL
+    case POSVEL:
       if (l < 3) return po + 6 * k + l;
       if (l < 6) return po + 6 * (k + 1) + (l - 3);
       if (l < 9) return so + 9 * k + (l - 6);
       if (l < 12) return so + 9 * (k + 1) + (l - 9);
       return -1;
+    case GPSR: {  // k = frame·S + satellite
+      const int w = k / L.S;
+      if (l < 3) return po + 6 * w + l;
+      if (l == 3) return L.gyaw_off;
+      if (l < 7) return L.ganchor_off + (l - 4);
+      if (l < 11) return L.gdt_off + 4 * w + (l - 7);
+      return -1;
+    }
+    case GDOPP: {
+      const int w = k / L.S;
+      if (l < 3) return so + 9 * w + l;
+      if (l == 3) return L.gyaw_off;
+      if (l == 4) return L.gddt_off + w;
+      return -1;
+    }
+    default:  // GCLK, interval k
+      if (l < 8) return L.gdt_off + 4 * k + l;
+      if (l < 10) return L.gddt_off + k + (l - 8);
+      return -1;
   }
+}
+
+// Rz(yaw)·a, summed as gnss/factors.py's einsum over the matrix's columns
+__device__ __forceinline__ V3 rz_rotate(Dual c, Dual sn, V3 a) {
+  return {c * a.x + (-sn) * a.y + mk(0.f) * a.z,
+          sn * a.x + c * a.y + mk(0.f) * a.z,
+          mk(0.f) * a.x + mk(0.f) * a.y + mk(1.f) * a.z};
 }
 
 // lie.quat_to_mat rows 2 → (pitch, roll) of lie.mat_to_ypr
@@ -120,7 +169,8 @@ __device__ __forceinline__ void pitch_roll(Q4 q, Dual* pitch, Dual* roll) {
 __device__ int residual(const Lay& L, int type, int k, int s,
                         const float* __restrict__ xs, const float* __restrict__ imu,
                         const float* __restrict__ whl, const float* __restrict__ misc,
-                        const float* __restrict__ dl, float g_norm, float plane_w,
+                        const float* __restrict__ dl, const float* __restrict__ gx,
+                        const float* __restrict__ gtab, float g_norm, float plane_w,
                         float motion_w, float posvel_w, Dual* r, float* w) {
   const int W = L.W;
   const float* ext = xs + 16 * W;       // tio (3), qio (4), (six, siy, siw)
@@ -254,6 +304,53 @@ __device__ int residual(const Lay& L, int type, int k, int s,
     *w = 1.f;
     return 2;
   }
+  // gx: gyaw, ganchor (3), gdt [W, 4], gddt [W], enabled, frame_dt [W-1]
+  const float* g_dt = gx + 4;
+  const float* g_ddt = g_dt + 4 * W;
+  const float* g_fdt = g_ddt + W + 1;
+  if (type == GPSR || type == GDOPP) {
+    const float enabled = g_ddt[W];
+    const int wf = k / L.S;
+    const float* m = gtab + (size_t)kGtab * k;  // u (3), r0, d0, onehot (4),
+                                                // psr_std, dopp_std, valid
+    const Dual yaw = mk(gx[0] + dl[L.gyaw_off], seed(s, 3));
+    const Dual c = dcos(yaw), sn = dsin(yaw);
+    const V3 u = v3(m);
+    *w = m[11] * enabled;
+    if (type == GPSR) {
+      V3 p = retract_v3(xs + 16 * wf, dl + po + 6 * wf, s, 0);
+      V3 anc = retract_v3(gx + 1, dl + L.ganchor_off, s, 4);
+      V3 pr = rz_rotate(c, sn, p) + anc;
+      Dual sel = mk(0.f);
+      for (int f = 0; f < 4; ++f)
+        sel = sel + m[5 + f] * mk(g_dt[4 * wf + f] + dl[L.gdt_off + 4 * wf + f],
+                                  seed(s, 7 + f));
+      Dual up = u.x * pr.x + u.y * pr.y + u.z * pr.z;
+      r[0] = ((-up) + sel - mk(m[3])) / mk(fmaxf(m[9], 1e-2f));
+    } else {
+      V3 v = retract_v3(xs + 16 * wf + 7, dl + so + 9 * wf, s, 0);
+      V3 vr = rz_rotate(c, sn, v);
+      Dual ddt = mk(g_ddt[wf] + dl[L.gddt_off + wf], seed(s, 4));
+      Dual uv = u.x * vr.x + u.y * vr.y + u.z * vr.z;
+      r[0] = ((-uv) - ddt - mk(m[4])) / mk(fmaxf(m[10], 1e-3f));
+    }
+    return 1;
+  }
+  if (type == GCLK) {
+    Dual d0[4], d1[4];
+    for (int f = 0; f < 4; ++f) {
+      d0[f] = mk(g_dt[4 * k + f] + dl[L.gdt_off + 4 * k + f], seed(s, f));
+      d1[f] = mk(g_dt[4 * (k + 1) + f] + dl[L.gdt_off + 4 * (k + 1) + f],
+                 seed(s, 4 + f));
+    }
+    const Dual dd0 = mk(g_ddt[k] + dl[L.gddt_off + k], seed(s, 8));
+    const Dual dd1 = mk(g_ddt[k + 1] + dl[L.gddt_off + k + 1], seed(s, 9));
+    const Dual step = dd0 * mk(g_fdt[k]);
+    for (int f = 0; f < 4; ++f) r[f] = ((d1[f] - d0[f]) - step) * mk(kDtDdtWeight);
+    r[4] = (dd1 - dd0) * mk(kDdtSmoothWeight);
+    *w = g_ddt[W];
+    return 5;
+  }
   // POSVEL
   V3 p0 = retract_v3(xs + 16 * k, dl + po + 6 * k, s, 0);
   V3 p1 = retract_v3(xs + 16 * (k + 1), dl + po + 6 * (k + 1), s, 3);
@@ -273,7 +370,9 @@ __global__ void factor_kernel(Lay L, const float* __restrict__ xs,
                               const float* __restrict__ imu,
                               const float* __restrict__ whl,
                               const float* __restrict__ misc,
-                              const float* __restrict__ delta, float g_norm,
+                              const float* __restrict__ delta,
+                              const float* __restrict__ gx,
+                              const float* __restrict__ gtab, float g_norm,
                               float plane_w, float motion_w, float posvel_w,
                               float* __restrict__ part_H, float* __restrict__ part_g,
                               float* __restrict__ part_c, int* __restrict__ inv) {
@@ -292,8 +391,8 @@ __global__ void factor_kernel(Lay L, const float* __restrict__ xs,
 
   Dual r[kMaxRows];
   float w;
-  const int rows = residual(L, type, k, s, xs, imu, whl, misc, delta, g_norm,
-                            plane_w, motion_w, posvel_w, r, &w);
+  const int rows = residual(L, type, k, s, xs, imu, whl, misc, delta, gx, gtab,
+                            g_norm, plane_w, motion_w, posvel_w, r, &w);
   for (int a = 0; a < rows; ++a) {
     sJ[a][lane] = s >= 0 ? r[a].d : 0.f;
     if (lane == 0) sr[a] = r[a].v;
@@ -422,37 +521,48 @@ __global__ void prior_row_kernel(Lay L, const float* __restrict__ sqrtJ,
 
 // xs: [16·W + 10] (per frame p, q, v, ba, bg; then tio, qio, six, siy, siw);
 // imu: [W-1, 468]; whl: [W-1, 65]; misc: [W] (plane_valid, frame_dt);
+// gx: [5·W + 5 + W-1] (gyaw, ganchor, gdt [W, 4], gddt [W], enabled, the
+// table's frame_dt [W-1]); gtab: [W, S, 12] (u_enu, r0, d0, sys_onehot,
+// psr_std, dopp_std, valid); both read only with use_gnss.
 // pbase: [2, fd] linear dims of x0 and x_prior; pq: [2, W+3, 4] their
 // rotations; sqrtJ [fd, fd], r0 [fd]. scratch: n_inst·(32² + 32 + 1) + fd +
 // 9·(W+3) floats; inv: n_inst·fd ints. H [D, D] and g [D] zeroed by the
 // caller; Jp [fd, fd], rp [fd] out.
 extern "C" int gf2_small_normal(
     const float* xs, const float* imu, const float* whl, const float* misc,
-    const float* delta, const float* pbase, const float* pq, const float* sqrtJ,
-    const float* r0, int W, int D, int fd, int pose_off, int sb_off, int cam_off,
-    int wext_off, int wint_off, int cam2_off, int use_wheel, int use_plane,
-    int use_motion, float g_norm, float plane_w, float motion_w, float posvel_w,
-    float* scratch, int* inv, float* H, float* g, float* cost, float* Jp,
-    float* rp, void* stream) {
+    const float* gx, const float* gtab, const float* delta, const float* pbase,
+    const float* pq, const float* sqrtJ, const float* r0, int W, int D, int fd,
+    int pose_off, int sb_off, int cam_off, int wext_off, int wint_off,
+    int cam2_off, int gdt_off, int gddt_off, int gyaw_off, int ganchor_off,
+    int S, int use_wheel, int use_plane, int use_motion, int use_gnss,
+    float g_norm, float plane_w, float motion_w, float posvel_w, float* scratch,
+    int* inv, float* H, float* g, float* cost, float* Jp, float* rp,
+    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   Lay L;
   L.W = W; L.D = D; L.fd = fd; L.pose_off = pose_off; L.sb_off = sb_off;
   L.cam_off = cam_off; L.wext_off = wext_off; L.wint_off = wint_off;
   L.cam2_off = cam2_off;
+  L.gdt_off = gdt_off; L.gddt_off = gddt_off; L.gyaw_off = gyaw_off;
+  L.ganchor_off = ganchor_off; L.S = S;
   L.n_imu = W - 1;
   L.n_whl = use_wheel ? W - 1 : 0;
   L.n_plane = use_plane ? W - 1 : 0;
   L.n_motion = use_motion ? W : 0;
   L.n_posvel = use_motion ? W - 1 : 0;
-  const int n = L.n_imu + L.n_whl + L.n_plane + L.n_motion + L.n_posvel;
+  L.n_gpsr = use_gnss ? W * S : 0;
+  L.n_gdopp = use_gnss ? W * S : 0;
+  L.n_gclk = use_gnss ? W - 1 : 0;
+  const int n = L.n_imu + L.n_whl + L.n_plane + L.n_motion + L.n_posvel +
+                L.n_gpsr + L.n_gdopp + L.n_gclk;
   float* part_H = scratch;
   float* part_g = part_H + (size_t)n * kLanes * kLanes;
   float* part_c = part_g + (size_t)n * kLanes;
   float* dx = part_c + n;
   float* B = dx + fd;
-  factor_kernel<<<n, kLanes, 0, st>>>(L, xs, imu, whl, misc, delta, g_norm,
-                                      plane_w, motion_w, posvel_w, part_H,
-                                      part_g, part_c, inv);
+  factor_kernel<<<n, kLanes, 0, st>>>(L, xs, imu, whl, misc, delta, gx, gtab,
+                                      g_norm, plane_w, motion_w, posvel_w,
+                                      part_H, part_g, part_c, inv);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   reduce_kernel<<<(fd * fd + 255) / 256, 256, 0, st>>>(n, fd, D, part_H, part_g,

@@ -1,7 +1,8 @@
 """Residual blocks of the sliding-window VIO problem (port of
 ``ground_fusion2_tpu/factors/vio_factors.py``) and their normal equations:
 the projection block's by hand-written CUDA kernel C on the card, every
-other row's (IMU, wheel, plane, motion, pos-vel, prior) by kernel L.
+other row's (IMU, wheel, plane, motion, pos-vel, prior) by kernel L, and
+the GNSS rows (``gnss/factors.py``) by kernel P in the same launch.
 
 Each factor maps the window state plus fixed-shape measurements to
 (residuals, weights) already scaled by sqrt-information.
@@ -16,6 +17,7 @@ import torch
 
 from .. import _kernels
 from ..core import lie, robust
+from ..gnss.factors import gnss_residuals
 from ..solver.gauss_newton import normal_equations
 from ..sensors.imu_preint import ImuPreint, bias_corrected
 from ..sensors.wheel_preint import WheelPreint, intrinsic_corrected
@@ -220,7 +222,7 @@ def motion_residuals(x: WindowState, weight: float, valid):
 def small_residual_parts(x: WindowState, meas, layout: WindowLayout, cfg,
                          g_world: torch.Tensor) -> list:
     """(r, w) of every window row but the projection block's, in
-    ``vio/problem.py:residual_fn``'s order: IMU, wheel, plane, motion,
+    ``vio/problem.py:residual_fn``'s order: IMU, wheel, plane, GNSS, motion,
     pos-vel, the marginalization prior. ``meas``: a ``VioMeasurements``."""
     dev, dtype = x.p.device, x.p.dtype
     parts = [imu_residuals(x, meas.imu, meas.imu_sqrt_info, g_world,
@@ -230,6 +232,8 @@ def small_residual_parts(x: WindowState, meas, layout: WindowLayout, cfg,
                                      meas.wheel_valid))
     if cfg.use_plane:
         parts.append(plane_residuals(x, cfg.plane_weight, meas.plane_valid))
+    if cfg.use_gnss:
+        parts.append(gnss_residuals(x, meas.gnss, meas.gnss_enabled))
     if cfg.use_motion:
         parts.append(motion_residuals(
             x, cfg.motion_weight, torch.ones((layout.W,), dtype=dtype,
@@ -255,8 +259,9 @@ def small_normal_equations(x0: WindowState, delta: torch.Tensor, meas,
 
     Kernel L on the card (a warp per factor instance, forward-mode duals
     over the ≤ 30 columns it touches, a fixed-order sum; the prior's
-    sqrt_J·J⊟ by the same source, its Gram matrix a plain product); the
-    plain version on the CPU."""
+    sqrt_J·J⊟ by the same source, its Gram matrix a plain product), with
+    the GNSS rows as kernel P's instances in the same launch; the plain
+    version on the CPU."""
     if delta.is_cuda:
         return _small_normal_equations_cuda(x0, delta, meas, layout, cfg)
     return small_normal_equations_plain(x0, delta, meas, layout, cfg)
@@ -295,6 +300,34 @@ def _rotations(x: WindowState) -> torch.Tensor:
     return torch.cat([x.q, x.qic[None], x.qio[None], x.qic2[None]])
 
 
+def _instance_counts(W: int, S: int, cfg) -> dict:
+    """Kernel L's factor instances by family (``csrc/small_normal.cu``'s
+    launch order), and kernel P's with GNSS on."""
+    return dict(imu=W - 1, wheel=cfg.use_wheel * (W - 1),
+                plane=cfg.use_plane * (W - 1), motion=cfg.use_motion * W,
+                posvel=cfg.use_motion * (W - 1), gnss_psr=cfg.use_gnss * W * S,
+                gnss_dopp=cfg.use_gnss * W * S,
+                gnss_clock=cfg.use_gnss * (W - 1))
+
+
+def _n_instances(W: int, S: int, cfg) -> int:
+    return sum(_instance_counts(W, S, cfg).values())
+
+
+def _gnss_inputs(x0: WindowState, meas, dev):
+    """Kernel P's inputs: the GNSS states with the gate and the table's
+    frame spacing [5·W + 5 + W-1], and the table [W, S, 12]."""
+    tab = meas.gnss
+    col = lambda t: t[..., None]
+    en = torch.as_tensor(meas.gnss_enabled, dtype=x0.p.dtype,
+                         device=dev).reshape(1)
+    gx = torch.cat([x0.gyaw.reshape(1), x0.ganchor, x0.gdt.reshape(-1),
+                    x0.gddt, en, tab.frame_dt])
+    gtab = torch.cat([tab.u_enu, col(tab.r0), col(tab.d0), tab.sys_onehot,
+                      col(tab.psr_std), col(tab.dopp_std), col(tab.valid)], -1)
+    return gx, gtab
+
+
 def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
     dev = delta.device
     W, D, K = layout.W, layout.dim, layout.frame_dim
@@ -319,13 +352,14 @@ def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
                      meas.wheel_valid[:, None]], 1)
     misc = torch.cat([torch.as_tensor(meas.plane_valid, device=dev).reshape(1),
                       _frame_dt(meas, layout, x0.p.dtype, dev)])
+    gx, gtab = _gnss_inputs(x0, meas, dev) if cfg.use_gnss else (misc, misc)
     pbase = torch.stack([_linear_dims(x0, W),
                          _linear_dims(meas.prior_state, W)])
     pq = torch.stack([_rotations(x0), _rotations(meas.prior_state)])
-    ins = [f32(t) for t in (xs, imu, whl, misc, delta, pbase, pq,
+    ins = [f32(t) for t in (xs, imu, whl, misc, gx, gtab, delta, pbase, pq,
                             meas.prior.sqrt_J, meas.prior.r0)]
-    n_inst = n * (1 + cfg.use_wheel + cfg.use_plane + 2 * cfg.use_motion) \
-        + cfg.use_motion
+    S = meas.gnss.u_enu.shape[1]
+    n_inst = _n_instances(W, S, cfg)
     scratch = torch.empty((n_inst * (32 * 32 + 32 + 1) + K + 9 * (W + 3),),
                           dtype=torch.float32, device=dev)
     inv = torch.empty((n_inst * K,), dtype=torch.int32, device=dev)
@@ -338,13 +372,17 @@ def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
     err = _kernels.library().gf2_small_normal(
         *[P(t) for t in ins], W, D, K, layout.pose_off, layout.sb_off,
         layout.cam_off, layout.wext_off, layout.wint_off, layout.cam2_off,
-        int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
-        ctypes.c_float(cfg.g_norm), ctypes.c_float(cfg.plane_weight),
-        ctypes.c_float(cfg.motion_weight), ctypes.c_float(cfg.posvel_weight),
-        P(scratch), P(inv), P(H), P(g), P(cost), P(Jp), P(rp),
+        layout.gdt_off, layout.gddt_off, layout.gyaw_off, layout.ganchor_off,
+        S, int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
+        int(cfg.use_gnss), ctypes.c_float(cfg.g_norm),
+        ctypes.c_float(cfg.plane_weight), ctypes.c_float(cfg.motion_weight),
+        ctypes.c_float(cfg.posvel_weight), P(scratch), P(inv), P(H), P(g),
+        P(cost), P(Jp), P(rp),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_small_normal")
     _kernels.count("small_normal")
+    if cfg.use_gnss:
+        _kernels.count("gnss_normal")
     # the prior's rows: a plain 246² Gram product
     valid = meas.prior.valid.to(device=dev, dtype=torch.float32)
     Jw, rw = Jp * valid, rp * valid

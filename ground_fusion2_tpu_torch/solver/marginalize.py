@@ -39,10 +39,11 @@ class MargPrior(NamedTuple):
 
 
 def marginalize(H, g, keep_idx: np.ndarray, drop_idx: np.ndarray,
-                eig_floor: float = 1e-8) -> MargPrior:
-    """Schur-marginalize ``drop_idx`` of (H, g); prior over ``keep_idx``."""
+                eig_floor: float = 1e-8, dtype=torch.float64) -> MargPrior:
+    """Schur-marginalize ``drop_idx`` of (H, g); prior over ``keep_idx``,
+    eliminated in ``dtype``."""
     out_dtype = H.dtype
-    H, g = H.to(torch.float64), g.to(torch.float64)
+    H, g = H.to(dtype), g.to(dtype)
     perm = torch.as_tensor(np.concatenate([keep_idx, drop_idx]),
                            device=H.device)
     k = len(keep_idx)

@@ -13,10 +13,17 @@ corners, BRIEF, retrieval, PnP-RANSAC, 4-DoF or 6-DoF optimization), and the
 accumulated drift correction applies to the published VIO-only trajectory. A
 saved graph can be loaded for relocalization.
 
+Raw GNSS (``gnss_meas``, a list of ``GnssMeas`` an epoch) couples tightly
+into the camera tick's window solve once GNSS-VI alignment has completed.
+Global fusion (the reference's global_fusion node): every keyframe feeds
+:class:`~.gnss.global_opt.GlobalFusion`, with the tick's GPS fix
+(``gps_enu``) as its anchor, and the graph is optimized every
+``global_every`` keyframes. ``auto_dyn_mask`` masks moving objects in the
+tracker by the rigid-warp check (``frontend/dynamic.py``).
+
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-legacy host-orchestrated VIO backend, global fusion, meshing, the occupancy
-grid and the automatic dynamic mask. They are off in every shipped run of
-the system.
+legacy host-orchestrated VIO backend, meshing and the occupancy grid. They
+are off in every shipped run of the system.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from .config import EstimatorConfig, LioConfig, PoseGraphConfig, TrackerConfig
 from .core.cameras import Pinhole
 from .core.device import resolve
 from .frontend import klt
+from .gnss.global_opt import GlobalFusion
 from .lio.odometry import LidarOdometry
 from .posegraph.pose_graph import PoseGraph, _with_yaw, _yaw_rot
 from .runtime.telemetry import Telemetry
@@ -50,13 +58,14 @@ class SystemConfig:
     cam: Pinhole | None = None
     vio_pipelined: bool = False               # read tick k's record at k+1
     vio_depth_stride: int = 1                 # decimate the depth upload
-    auto_dyn_mask: bool = False               # not ported
+    auto_dyn_mask: bool = False               # rigid-warp dynamic masking
     lio_pipelined: bool = False
     use_loop_closure: bool = False
     pose_graph: PoseGraphConfig | None = None
     load_pose_graph: str | None = None        # relocalization source
     loop_optimize_min_gap: int = 1            # keyframes between optimizations
-    use_global_fusion: bool = False           # not ported
+    use_global_fusion: bool = False
+    global_every: int = 5                     # optimize every N keyframes
     use_mesh: bool = False                    # not ported
     use_occupancy_grid: bool = False          # not ported
     # camera intrinsics for the keyframes' pixel corners (loop closure)
@@ -65,10 +74,8 @@ class SystemConfig:
 
 
 _NOT_PORTED = {
-    "use_global_fusion": "global fusion (ROADMAP.md queue 2, row 17)",
     "use_mesh": "meshing (ROADMAP.md queue 2, row 15)",
     "use_occupancy_grid": "the occupancy grid (ROADMAP.md queue 2, row 16)",
-    "auto_dyn_mask": "the automatic dynamic mask (ROADMAP.md queue 2, row 8)",
 }
 
 
@@ -113,6 +120,8 @@ class GroundFusion:
                 tic=np.asarray(tic) if tic is not None else np.zeros(3))
             self.pg = (PoseGraph.load(cfg.load_pose_graph, pg_cfg, self.device)
                        if cfg.load_pose_graph else PoseGraph(pg_cfg, self.device))
+        self.gfusion = (GlobalFusion(device=self.device)
+                        if cfg.use_global_fusion else None)
         self._start()
 
     def _start(self):
@@ -121,7 +130,8 @@ class GroundFusion:
         cam = cfg.cam or Pinhole.create(*cfg.cam_intr)
         self.vio = FusedVio(cfg.vio, tracker, cam, self.device,
                             depth_stride=cfg.vio_depth_stride,
-                            pipelined=cfg.vio_pipelined, **self._extr)
+                            pipelined=cfg.vio_pipelined,
+                            auto_dyn_mask=cfg.auto_dyn_mask, **self._extr)
         self.lio = (LidarOdometry(cfg.lio, self.device,
                                   pipelined=cfg.lio_pipelined)
                     if cfg.use_lidar else None)
@@ -147,32 +157,38 @@ class GroundFusion:
         return p_c.astype(np.float32), _with_yaw(self.pg.drift_yaw, q)
 
     # -- sensor inputs --------------------------------------------------
-    def _cache_frame(self, t, img, depth_img):
-        self._frame_cache = {t: (img, depth_img),
+    def _cache_frame(self, t, img, depth_img, gps_enu, gps_std):
+        self._frame_cache = {t: (img, depth_img, gps_enu, gps_std),
                              **{k: v for k, v in self._frame_cache.items()
                                 if abs(k - t) < 0.5}}
 
     def process_camera(self, t: float, obs, imu_chunk, wheel_vel=None,
-                       img=None, depth_img=None) -> VioOutput | None:
+                       gnss_meas=None, img=None, depth_img=None, gps_enu=None,
+                       gps_std: float = 1.0) -> VioOutput | None:
         """One camera tick from pre-tracked observations (a ``FrameObs``).
+        ``gnss_meas``: this frame's raw GNSS epoch (a list of ``GnssMeas``);
         ``img`` (grayscale [H, W]) feeds a keyframe to the pose graph,
-        ``depth_img`` seeds its loop geometry. Pipelined, the output lags
-        one frame (``None`` on the first fused tick; call :meth:`flush` at
-        the end)."""
-        self._cache_frame(t, img, depth_img)
+        ``depth_img`` seeds its loop geometry; ``gps_enu`` (std ``gps_std``)
+        anchors this tick's keyframe in global fusion. Pipelined, the output
+        lags one frame (``None`` on the first fused tick; call :meth:`flush`
+        at the end)."""
+        self._cache_frame(t, img, depth_img, gps_enu, gps_std)
         self.prop.feed_chunk(t, imu_chunk)
-        out = self.vio.process_obs(t, obs, imu_chunk, wheel_vel=wheel_vel)
+        out = self.vio.process_obs(t, obs, imu_chunk, wheel_vel=wheel_vel,
+                                   gnss_meas=gnss_meas)
         return self._after_camera(out)
 
     def process_camera_image(self, t: float, img, depth, imu_chunk,
-                             wheel_vel=None) -> VioOutput | None:
+                             wheel_vel=None, gnss_meas=None, gps_enu=None,
+                             gps_std: float = 1.0) -> VioOutput | None:
         """One camera tick from a raw grayscale image + depth map: the fused
-        camera tick with the tracker (CLAHE, pyramid, KLT, RANSAC, grid
-        refill) on the card."""
-        self._cache_frame(t, img, depth)
+        camera tick with the tracker (the dynamic mask, CLAHE, pyramid, KLT,
+        RANSAC, grid refill) on the card; ``gnss_meas``, ``gps_enu`` and
+        ``gps_std`` as in :meth:`process_camera`."""
+        self._cache_frame(t, img, depth, gps_enu, gps_std)
         self.prop.feed_chunk(t, imu_chunk)
         out = self.vio.process_image(t, img, depth, imu_chunk,
-                                     wheel_vel=wheel_vel)
+                                     wheel_vel=wheel_vel, gnss_meas=gnss_meas)
         return self._after_camera(out)
 
     def flush(self) -> VioOutput | None:
@@ -190,7 +206,8 @@ class GroundFusion:
         if out is None:
             return None
         t = out.t
-        img, depth_img = self._frame_cache.get(t, (None, None))
+        img, depth_img, gps_enu, gps_std = self._frame_cache.get(
+            t, (None, None, None, 1.0))
         self.latest_vio = out
         tm = self.telemetry
         if out.initialized:
@@ -207,7 +224,7 @@ class GroundFusion:
             tm.event(t, "stationary")
         if out.initialized and out.is_keyframe:
             self._n_keyframes += 1
-            self._on_keyframe(t, out, img, depth_img)
+            self._on_keyframe(t, out, img, depth_img, gps_enu, gps_std)
         if self.lio is None and out.initialized:
             p_c, q_c = self.loop_corrected(out.p, out.q)
             if self.pg is not None:
@@ -217,13 +234,24 @@ class GroundFusion:
                 switched="", source="vio"))
         return out
 
-    def _on_keyframe(self, t, out: VioOutput, img, depth_img):
-        """Keyframe fan-out to the pose graph: this view's own Shi-Tomasi
-        corners (the tracker's slots hold corners tracked from other views),
-        their depth, then detection and, with a loop pending and the
-        minimum gap passed, the optimization."""
-        if self.pg is None or img is None:
-            return
+    def _on_keyframe(self, t, out: VioOutput, img, depth_img, gps_enu,
+                     gps_std):
+        """Keyframe fan-out to the pose graph and global fusion."""
+        if self.pg is not None and img is not None:
+            self._pose_graph_keyframe(t, out, img, depth_img)
+        if self.gfusion is not None:
+            self.gfusion.input_odom(out.p, out.q)
+            idx = self.gfusion.n - 1
+            if gps_enu is not None and idx >= 0:
+                self.gfusion.input_gps(idx, gps_enu, std=gps_std)
+            if idx >= 1 and self._n_keyframes % self.cfg.global_every == 0:
+                self.gfusion.optimize()
+                self.telemetry.event(t, "global_opt")
+
+    def _pose_graph_keyframe(self, t, out: VioOutput, img, depth_img):
+        """This view's own Shi-Tomasi corners (the tracker's slots hold
+        corners tracked from other views), their depth, then detection and,
+        with a loop pending and the minimum gap passed, the optimization."""
         F = self.pg.cfg.num_feats
         fx, fy, cx, cy = self.cfg.cam_intr
         dev = self.device

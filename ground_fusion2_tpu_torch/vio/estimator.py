@@ -1,10 +1,12 @@
 """Streaming sliding-window VIO estimator for warm-up and initialization
-(port of ``ground_fusion2_tpu/vio/estimator.py``, GNSS paths excluded).
+(port of ``ground_fusion2_tpu/vio/estimator.py``).
 
 :class:`~.fused.FusedVio` runs every frame through this estimator until the
-window has initialized, then takes its state into the fused carry. Raw
-IMU/wheel samples live in host buffers per window interval and are
-re-preintegrated on the device each tick at the current biases.
+window has initialized, then takes its state into the fused carry,
+including the GNSS-VI alignment's progress. Raw IMU/wheel samples live in
+host buffers per window interval and are re-preintegrated on the device
+each tick at the current biases; GNSS epochs are kept per window column
+and prereduced on the host (f64) into the window's table.
 """
 
 from __future__ import annotations
@@ -17,7 +19,8 @@ import torch
 from ..config import EstimatorConfig
 from ..core import lie
 from ..factors.vio_factors import imu_sqrt_info
-from ..gnss.factors import GnssTable
+from ..gnss.factors import (MAX_SATS, GnssQualityFilter, GnssTable,
+                            prepare_frame_obs)
 from ..core.device import resolve
 from ..sensors.imu_preint import ImuNoise
 from ..sensors.wheel_preint import WheelNoise
@@ -113,8 +116,6 @@ def preintegrate_all(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
 class VioEstimator:
     def __init__(self, cfg: EstimatorConfig, device="cuda", tic=None,
                  ric=None, tio=None, rio=None):
-        if cfg.use_gnss:
-            raise NotImplementedError("GNSS fusion is not ported yet")
         self.cfg = cfg
         self.device = device = resolve(device)
         F = cfg.num_feats
@@ -143,6 +144,17 @@ class VioEstimator:
         self.times: list[float] = []
         self.g_world = torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=torch.float32,
                                     device=device)
+        # GNSS state (reference gnss_ready / GNSSVIAlign)
+        self.gnss_filter = GnssQualityFilter(
+            psr_std_thres=cfg.gnss_psr_std_thres,
+            dopp_std_thres=cfg.gnss_dopp_std_thres,
+            elev_thres_deg=cfg.gnss_elev_thres_deg,
+            track_thres=cfg.gnss_track_thres)
+        self.gnss_frames: list = [None] * NUM_FRAMES   # epoch per column
+        self.gnss_ready = False
+        self.gnss_anchor = None          # ECEF anchor of the prereduction
+        self.gnss_align_buf: list = []   # alignment epochs
+        self.gnss_refine_left = 0
 
     def _t(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=torch.float32,
@@ -150,9 +162,10 @@ class VioEstimator:
 
     # ------------------------------------------------------------------
     def process_frame(self, t: float, obs: fwin.FrameObs, imu,
-                      wheel_vel=None) -> VioOutput:
+                      wheel_vel=None, gnss_meas=None) -> VioOutput:
         """One tick. ``imu`` = (acc [n+1,3], gyr [n+1,3], dt [n]) covering
-        (t_prev, t]; ``wheel_vel`` [n+1, 3] wheel-frame velocity."""
+        (t_prev, t]; ``wheel_vel`` [n+1, 3] wheel-frame velocity;
+        ``gnss_meas``: this frame's epoch (a list of ``GnssMeas``) or None."""
         cfg = self.cfg
         W = NUM_FRAMES
         acc, gyr, dts = imu
@@ -173,6 +186,9 @@ class VioEstimator:
         else:
             col = 0
 
+        if gnss_meas:
+            gnss_meas = self.gnss_filter.filter(gnss_meas)
+        self.gnss_frames[col] = gnss_meas
         self.fw, rho = fwin.add_frame(self.fw, obs, col, self.state.rho)
         self.state = self.state._replace(rho=rho)
         self.rho_init = torch.where((obs.fresh > 0) & (obs.alive > 0),
@@ -186,6 +202,8 @@ class VioEstimator:
         is_kf, stationary, anomaly, cost = True, False, False, 0.0
         if not self.initialized and col == W - 1:
             self._try_initialize()
+        if self.initialized and cfg.use_gnss and not self.gnss_ready:
+            self._try_gnss_align()
 
         if self.initialized:
             pre, wpre, sinfo, wsinfo = self._preints()
@@ -208,11 +226,15 @@ class VioEstimator:
                 wheel_sqrt_info=wsinfo,
                 plane_valid=self._t(1.0 if cfg.vio.use_plane else 0.0),
                 stationary=self._t(1.0 if stationary else 0.0),
-                gnss=GnssTable.empty(W, self.device),
-                gnss_enabled=self._t(0.0),
+                gnss=self._gnss_table(),
+                gnss_enabled=self._t(1.0 if self._gnss_enabled() else 0.0),
                 prior=self.prior, prior_state=self.prior_state,
                 frame_dt=self._t(fdt))
-            out = solve_window(self.state, meas, self.layout, cfg.vio)
+            vio_cfg = cfg.vio
+            if self.gnss_refine_left > 0:
+                vio_cfg = vio_cfg._replace(refine_gnss_alignment=True)
+                self.gnss_refine_left -= 1
+            out = solve_window(self.state, meas, self.layout, vio_cfg)
             self.state = out.state
             cost = float(out.cost)
             if cfg.outlier_px > 0:
@@ -244,6 +266,8 @@ class VioEstimator:
                                                self.wheel_valid[-1])
                     self.wheel_valid[-1] = 0.0
                     self.times.pop(-2)
+                    self.gnss_frames[-2] = self.gnss_frames[-1]
+                    self.gnss_frames[-1] = None
                 self.prior_state = self.state
         elif col == W - 1:
             # window full but init deferred: slide (no prior) to stay fresh
@@ -261,6 +285,7 @@ class VioEstimator:
             v[:-1] = v[1:]
             v[-1] = 0.0
         self.times.pop(0)
+        self.gnss_frames = self.gnss_frames[1:] + [None]
 
     def _output(self, t, cost, is_kf, stationary, anomaly, rebooted=False):
         idx = min(self.frame_count, NUM_FRAMES) - 1
@@ -293,6 +318,7 @@ class VioEstimator:
         self.prior_state = self.state
         self.frame_count = 0
         self.times = []
+        self.gnss_frames = [None] * NUM_FRAMES
 
     def _bufs_t(self):
         b = self.bufs
@@ -398,3 +424,58 @@ class VioEstimator:
             bg=self._t(res.bg)[None].repeat(NUM_FRAMES, 1))
         self.prior_state = self.state
         self.initialized = True
+
+    # ------------------------------------------------------------- GNSS
+    def _mean_speed(self) -> float:
+        k = min(self.frame_count, NUM_FRAMES)
+        return float(torch.linalg.norm(self.state.v[:k], dim=-1).mean())
+
+    def _gnss_enabled(self) -> bool:
+        """gnss_ready and above the low-speed gate (reference
+        ``estimator.cpp:2968-2991``: below 0.3 m/s the GNSS rows are off)."""
+        return (self.cfg.use_gnss and self.gnss_ready
+                and self._mean_speed() >= self.cfg.gnss_low_speed)
+
+    def _gnss_table(self) -> GnssTable:
+        """The window's epochs prereduced against the anchor (host f64)."""
+        W = NUM_FRAMES
+        if not (self.cfg.use_gnss and self.gnss_anchor is not None):
+            return GnssTable.empty(W, self.device)
+        S = MAX_SATS
+        u = np.zeros((W, S, 3), np.float32)
+        r0 = np.zeros((W, S), np.float32)
+        d0 = np.zeros((W, S), np.float32)
+        oh = np.zeros((W, S, 4), np.float32)
+        ps = np.ones((W, S), np.float32)
+        ds = np.ones((W, S), np.float32)
+        va = np.zeros((W, S), np.float32)
+        for k, meas in enumerate(self.gnss_frames):
+            if meas:
+                u[k], r0[k], d0[k], oh[k], ps[k], ds[k], va[k] = \
+                    prepare_frame_obs(meas, self.gnss_anchor)
+        dts = (np.diff(np.asarray(self.times, np.float64))
+               if len(self.times) > 1 else np.full((W - 1,), 0.1))
+        frame_dt = np.full((W - 1,), 0.1, np.float32)
+        frame_dt[:len(dts)] = dts[:W - 1]
+        return GnssTable(*(self._t(a) for a in (u, r0, d0, oh, ps, ds, va,
+                                                frame_dt)))
+
+    def _try_gnss_align(self):
+        """GNSS-VI alignment (reference ``GNSSVIAlign``): SPP fix, yaw from
+        velocity-direction matching, anchor placing the local origin on the
+        fix (``gnss/align.py``), then a few refine ticks with the anchor
+        free."""
+        from ..gnss.align import align_attempt
+        k = min(self.frame_count, NUM_FRAMES) - 1
+        res = align_attempt(self.gnss_frames[k],
+                            self.state.v[k].cpu().numpy(),
+                            self.state.p[k].cpu().numpy(),
+                            self.gnss_align_buf, self.cfg.gnss_align_min_speed,
+                            self.cfg.gnss_align_min_epochs)
+        if res is None:
+            return
+        yaw, anchor = res
+        self.gnss_anchor = anchor
+        self.state = self.state._replace(gyaw=self._t(yaw))
+        self.gnss_ready = True
+        self.gnss_refine_left = self.cfg.gnss_refine_ticks

@@ -1,15 +1,19 @@
-"""Fused camera tick (port of ``ground_fusion2_tpu/vio/fused.py``, VIO
-configuration: RGB-D + IMU + wheel, GNSS and LiDAR off).
+"""Fused camera tick (port of ``ground_fusion2_tpu/vio/fused.py``: RGB-D +
+IMU + wheel, with raw GNSS and the automatic dynamic mask as options).
 
 Once the window has initialized, every frame runs
 
-    CLAHE → pyramid → KLT → F-RANSAC → grid refill → depth lookup →
-    write IMU interval → propagate → re-preintegrate window →
-    degradation detectors → triangulate → window LM solve →
-    outlier gate → keyframe test → {no-slide | MARGIN_OLD | MARGIN_SECOND_NEW}
+    [dynamic mask] → CLAHE → pyramid → KLT → F-RANSAC → grid refill →
+    depth lookup → write IMU interval and GNSS epoch → propagate →
+    re-preintegrate window → degradation detectors → triangulate →
+    GNSS low-speed gate → window LM solve → outlier gate → keyframe test →
+    {no-slide | MARGIN_OLD | MARGIN_SECOND_NEW}
 
 on a device-resident carry. Warm-up and initialization run through
-:class:`~.estimator.VioEstimator`, whose state then moves into the carry.
+:class:`~.estimator.VioEstimator`, whose state (GNSS-VI alignment
+included) then moves into the carry. The host keeps the GNSS plumbing: the
+quality filter, SPP alignment, the f64 prereduction of each epoch into one
+packed row, the rolling yaw re-alignment and the anchor refresh.
 
 Differences from the JAX tick, none of which change its arithmetic:
   * no packed frame buffer: the image, the f16-decimated depth and the IMU
@@ -21,7 +25,9 @@ Differences from the JAX tick, none of which change its arithmetic:
     the host still counts each interval's samples for the SECOND_NEW merge;
   * RANSAC draws its Gumbel noise from a ``torch.Generator`` seeded with the
     frame index, where JAX keys ``PRNGKey(frame_idx)``;
-  * the automatic dynamic mask is not ported (``auto_dyn_mask`` off).
+  * the automatic dynamic mask (kernel R, ``frontend/dynamic.py``) runs
+    before the tracker frame on the cached lo-res previous frame, and a
+    tick without a previous frame skips it (JAX multiplies it by 0).
 """
 
 from __future__ import annotations
@@ -31,15 +37,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import EstimatorConfig, TrackerConfig
+from ..config import DynMaskConfig, EstimatorConfig, TrackerConfig
 from ..core import lie
 from ..core.device import resolve
 from ..frontend import klt
 from ..frontend.clahe import clahe
+from ..frontend.dynamic import dynamic_mask
 from ..frontend.ransac import gumbel_noise, ransac_f_reject
 from ..frontend.tracker import (RANSAC_HYPOTHESES, FeatureTracker, normalized,
                                 refill)
-from ..gnss.factors import GnssTable
+from ..gnss import align, frames as gframes, spp
+from ..gnss.factors import (GnssQualityFilter, GnssTable, pack_gnss_row,
+                            prepare_frame_obs, unpack_gnss_row, zero_gnss_row)
 from ..sensors.window_preint import Propagate
 from ..solver.marginalize import MargPrior
 from . import feature_window as fwin
@@ -130,6 +139,7 @@ class FusedStatics(NamedTuple):
     outlier_px: float
     g_norm: float
     depth_stride: int = 1
+    gnss_low_speed: float = 0.3   # reference estimator.cpp:2968
 
 
 class TickInputs(NamedTuple):
@@ -143,9 +153,11 @@ class TickInputs(NamedTuple):
     n: int                # valid samples
 
 
-def tracker_step(tc: TrackerCarry, img, depth_img, t, cam, s: FusedStatics):
+def tracker_step(tc: TrackerCarry, img, depth_img, t, cam, s: FusedStatics,
+                 dyn_mask=None):
     """One tracker frame on the carry (pure-function FeatureTracker.track
-    with the decimated depth). Returns (new carry, FrameObs)."""
+    with the decimated depth); ``dyn_mask`` [H, W] kills the tracks and
+    blocks the corners inside it. Returns (new carry, FrameObs)."""
     F = tc.uv.shape[0]
     if s.equalize:
         img = clahe(img)
@@ -159,6 +171,10 @@ def tracker_step(tc: TrackerCarry, img, depth_img, t, cam, s: FusedStatics):
             gumbel_noise(tc.frame_idx, RANSAC_HYPOTHESES, F, alive.device),
             thresh=s.f_thresh_px / s.focal)
     resp = klt.shi_tomasi(pyr[0])
+    if dyn_mask is not None:
+        inside = klt.bilinear(dyn_mask, pts1) > 0.5
+        alive = alive * (1.0 - inside.to(torch.float32))
+        resp = torch.where(dyn_mask > 0.5, torch.full_like(resp, -1.0), resp)
     cand_uv, _, cand_ok = klt.detect_grid(resp, pts1, s.cell, F,
                                           occupied_mask=alive,
                                           min_response=s.min_response)
@@ -249,10 +265,14 @@ def _move_last(b):
 
 def solve_tick(c: FusedCarry, obs: fwin.FrameObs, inp: TickInputs, t: float,
                col: int, full: bool, counts: list[int], layout: WindowLayout,
-               s: FusedStatics, imu_noise, wheel_noise):
+               s: FusedStatics, imu_noise, wheel_noise, gnss_row=None,
+               gnss_on: float = 0.0):
     """The estimator part of the fused tick. ``counts`` holds the samples of
-    each window interval and is updated in place with the slide. Returns
-    (carry, record [23])."""
+    each window interval and is updated in place with the slide.
+    ``gnss_row``: this frame's prereduced epoch, a [12·S] tensor
+    (:func:`~..gnss.factors.pack_gnss_row`; None: no epoch); ``gnss_on``:
+    1.0 when GNSS is aligned on the host, the device adds the low-speed
+    gate. Returns (carry, record [23], gnss_enabled [])."""
     vio_cfg = s.vio
     W = layout.W
     k = col - 1
@@ -264,8 +284,12 @@ def solve_tick(c: FusedCarry, obs: fwin.FrameObs, inp: TickInputs, t: float,
         return buf
 
     counts[k] = inp.n
+    # this frame's GNSS epoch goes to column col (the new frame's pose)
+    if gnss_row is None:
+        gnss_row = torch.as_tensor(zero_gnss_row(), device=dev)
+    row = unpack_gnss_row(gnss_row)
     g = c.gnss
-    g = g._replace(**{f: put(getattr(g, f), col, 1.0 if f in ("psr_std", "dopp_std") else 0.0)
+    g = g._replace(**{f: put(getattr(g, f), col, row[f])
                       for f in GnssTable.ROW_FIELDS})
     c = c._replace(
         acc=put(c.acc, k, inp.acc), gyr=put(c.gyr, k, inp.gyr),
@@ -308,14 +332,19 @@ def solve_tick(c: FusedCarry, obs: fwin.FrameObs, inp: TickInputs, t: float,
                    rho_init=torch.maximum(c.rho_init, done.to(torch.float32)))
 
     frame_dt = torch.clamp(c.times[1:] - c.times[:-1], min=1e-3)
+    # GNSS low-speed gate on the device (reference estimator.cpp:2968-2991):
+    # a mean window speed below the threshold turns the GNSS rows off
+    in_win = (torch.arange(W, device=dev) <= col).to(torch.float32)
+    mean_speed = (torch.linalg.norm(c.state.v, dim=-1) * in_win).sum() \
+        / torch.clamp(in_win.sum(), min=1.0)
+    gnss_enabled = gnss_on * (mean_speed >= s.gnss_low_speed).to(torch.float32)
     meas = VioMeasurements(
         feats=fwin.to_factor_table(c.fw), imu=pre, imu_valid=c.imu_valid,
         imu_sqrt_info=sinfo, wheel=wpre, wheel_valid=c.wheel_valid,
         wheel_sqrt_info=wsinfo,
         plane_valid=torch.tensor(1.0 if vio_cfg.use_plane else 0.0, device=dev),
         stationary=stationary.to(torch.float32),
-        gnss=c.gnss._replace(frame_dt=frame_dt),
-        gnss_enabled=torch.zeros((), device=dev),
+        gnss=c.gnss._replace(frame_dt=frame_dt), gnss_enabled=gnss_enabled,
         prior=c.prior, prior_state=c.prior_state, frame_dt=frame_dt)
     out = solve_window(state, meas, layout, vio_cfg)
     c = c._replace(state=out.state)
@@ -372,7 +401,26 @@ def solve_tick(c: FusedCarry, obs: fwin.FrameObs, inp: TickInputs, t: float,
         f32(out.cost), f32(is_kf), f32(stationary), f32(anomaly),
         f32(c.fw.track_valid.sum()), f32(obs.alive.sum()), f32(par),
         st.ba[col], st.bg[col]])
-    return c, rec
+    return c, rec, gnss_enabled
+
+
+def _so3_exp_np(w):
+    """Host Rodrigues (the per-tick gyro integration, ≤ 128 steps)."""
+    th = np.linalg.norm(w)
+    if th < 1e-9:
+        return np.eye(3)
+    k = w / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * (K @ K)
+
+
+def _quat_to_mat_np(q):
+    """[w, x, y, z] -> rotation matrix (host)."""
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
 
 
 class FusedVio:
@@ -380,9 +428,13 @@ class FusedVio:
 
     def __init__(self, cfg: EstimatorConfig, tracker_cfg: TrackerConfig, cam,
                  device="cuda", tic=None, ric=None, tio=None, rio=None,
-                 depth_stride: int = 1, pipelined: bool = False):
+                 depth_stride: int = 1, pipelined: bool = False,
+                 auto_dyn_mask: bool = False,
+                 dyn_cfg: DynMaskConfig | None = None):
         """``pipelined``: the output of tick k is read when tick k+1 has been
-        enqueued (it lags one frame; call :meth:`flush` at the end)."""
+        enqueued (it lags one frame; call :meth:`flush` at the end).
+        ``auto_dyn_mask``: mask moving objects by the rigid-warp check
+        (``frontend/dynamic.py``) on the depth-decimated frames."""
         self.cfg = cfg
         self.tcfg = tracker_cfg
         self.cam = cam
@@ -409,11 +461,35 @@ class FusedVio:
             stationary_imu_var=cfg.stationary_imu_var,
             min_parallax=cfg.min_parallax, min_tracked=cfg.min_tracked,
             outlier_px=cfg.outlier_px, g_norm=cfg.g_norm,
-            depth_stride=depth_stride)
+            depth_stride=depth_stride, gnss_low_speed=cfg.gnss_low_speed)
+        # the anchor is free while gnss_refine_left counts down
+        self._statics_refine = self.statics._replace(
+            vio=cfg.vio._replace(refine_gnss_alignment=True))
         self.carry: FusedCarry | None = None
         self.counts: list[int] = []
         self.frame_count = 0
         self.fused_ticks = 0
+        # the last read-back record (alignment, yaw pairs, mask prediction)
+        self._last_p = np.zeros(3, np.float32)
+        self._last_q = None
+        self._last_v = np.zeros(3, np.float32)
+        # host GNSS plumbing (the device consumes prereduced rows)
+        self.gnss_filter = GnssQualityFilter(
+            psr_std_thres=cfg.gnss_psr_std_thres,
+            dopp_std_thres=cfg.gnss_dopp_std_thres,
+            elev_thres_deg=cfg.gnss_elev_thres_deg,
+            track_thres=cfg.gnss_track_thres)
+        self.gnss_refine_left = 0
+        self._gnss_tick_count = 0
+        self._gnss_anchor_p0 = np.zeros(3)   # local p at the last anchor refresh
+        self._gnss_vel_pairs: list = []      # rolling yaw re-alignment pairs
+        self.gnss_enabled = None             # the last tick's gate (device)
+        self._zero_gnss_row = torch.as_tensor(zero_gnss_row(),
+                                              device=self.device)
+        self.auto_dyn_mask = auto_dyn_mask
+        self.dyn_cfg = dyn_cfg or DynMaskConfig()
+        self._prev_lo = None                 # (gray_lo, depth_lo) on the device
+        self.last_mask = None                # the last tick's tracker mask
 
     @property
     def initialized(self) -> bool:
@@ -440,7 +516,8 @@ class FusedVio:
                           t(dtp), t(smp), n)
 
     def build_carry(self) -> FusedCarry:
-        """Move the warm-up estimator + tracker state into the carry."""
+        """Move the warm-up estimator + tracker state into the carry (the
+        GNSS alignment's progress and the window's epoch table included)."""
         lg, tr = self.legacy, self.tracker
         dev = self.device
         W = NUM_FRAMES
@@ -458,13 +535,14 @@ class FusedVio:
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                       device=dev)
         self.counts = lg.bufs.counts()
+        self.gnss_refine_left = lg.gnss_refine_left
         return FusedCarry(
             tracker=tc, state=lg.state, fw=lg.fw, rho_init=lg.rho_init,
             acc=t(lg.bufs.acc), gyr=t(lg.bufs.gyr), wvel=t(lg.bufs.wvel),
             dt=t(lg.bufs.dt), smask=t(lg.bufs.mask),
             imu_valid=t(lg.imu_valid), wheel_valid=t(lg.wheel_valid),
             prior=lg.prior, prior_state=lg.prior_state, times=t(times),
-            gnss=GnssTable.empty(W, dev))
+            gnss=lg._gnss_table())
 
     def _reboot(self):
         """Visual-failure reboot: restart the window from the carry's latest
@@ -489,6 +567,7 @@ class FusedVio:
 
     def _make_output(self, t, vec: np.ndarray) -> VioOutput:
         rec = TickRecord.unpack(vec)
+        self._last_p, self._last_q, self._last_v = rec.p, rec.q, rec.v
         out = VioOutput(
             t=t, p=rec.p, q=rec.q, v=rec.v, initialized=True,
             is_keyframe=rec.is_kf, stationary=rec.stationary,
@@ -532,10 +611,175 @@ class FusedVio:
         prev, self._inflight = self._inflight, None
         return self._read(prev)
 
-    def _tick(self, t, obs_or_frame, imu, wheel_vel) -> VioOutput | None:
+    # ------------------------------------------------------- dynamic mask
+    def _predict_rel_motion(self, imu):
+        """The previous←current camera transform for the dynamic mask, on
+        the host: the gyro-integrated ΔR over the chunk and a
+        constant-velocity Δp from the last read-back velocity."""
+        acc, gyr, dts = imu
+        dR = np.eye(3)
+        for k in range(len(dts)):
+            dR = dR @ _so3_exp_np(0.5 * (gyr[k] + gyr[k + 1]) * dts[k])
+        ric, tic = self._extr["ric"], self._extr["tic"]
+        R_bc = np.eye(3) if ric is None else np.asarray(ric)
+        t_bc = np.zeros(3) if tic is None else np.asarray(tic)
+        dp_w = self._last_v * float(np.sum(dts))
+        R_wb_prev = (_quat_to_mat_np(self._last_q)
+                     if self._last_q is not None else np.eye(3))
+        R_pc = R_bc.T @ dR @ R_bc
+        t_pc = R_bc.T @ (R_wb_prev.T @ dp_w + (dR - np.eye(3)) @ t_bc)
+        return R_pc.astype(np.float32), t_pc.astype(np.float32)
+
+    def _K_lo(self):
+        return np.array([float(self.cam.fx), float(self.cam.fy),
+                         float(self.cam.cx), float(self.cam.cy)],
+                        np.float32) / self.depth_stride
+
+    def _compute_auto_mask(self, img_u8, depth, imu):
+        """The warm-up frames' mask (full-resolution float depth, decimated
+        here), from the cached previous frame; None on the first frame."""
+        s = self.depth_stride
+        dev = self.device
+        gray_lo = torch.as_tensor(np.ascontiguousarray(img_u8[::s, ::s]),
+                                  device=dev).to(torch.float32) * (1.0 / 255.0)
+        depth_lo = torch.as_tensor(np.ascontiguousarray(
+            np.asarray(depth, np.float32)[::s, ::s]), device=dev)
+        prev, self._prev_lo = self._prev_lo, (gray_lo, depth_lo)
+        if prev is None:
+            return None
+        R_pc, t_pc = self._predict_rel_motion(imu)
+        H, W = img_u8.shape
+        return dynamic_mask(prev[0], prev[1], gray_lo, depth_lo, R_pc, t_pc,
+                            self._K_lo(), self.dyn_cfg, up=s, out_hw=(H, W))
+
+    def _tick_mask(self, img_f, depth_lo, imu, dyn_mask):
+        """The fused tick's mask: the rigid-warp mask of the decimated frame
+        against the cached previous one, upsampled and OR-ed into
+        ``dyn_mask`` (``vio/fused.py:590-604``)."""
+        sd = self.depth_stride
+        hd, wd = depth_lo.shape
+        gray_lo = img_f[::sd, ::sd][:hd, :wd].contiguous()
+        prev, self._prev_lo = self._prev_lo, (gray_lo, depth_lo)
+        if prev is None:
+            return dyn_mask
+        R_pc, t_pc = self._predict_rel_motion(imu)
+        if dyn_mask is None:
+            dyn_mask = torch.zeros(img_f.shape, dtype=torch.float32,
+                                   device=self.device)
+        return dynamic_mask(prev[0], prev[1], gray_lo, depth_lo, R_pc, t_pc,
+                            self._K_lo(), self.dyn_cfg, up=sd,
+                            out_hw=tuple(img_f.shape), base=dyn_mask)
+
+    # --------------------------------------------------------------- GNSS
+    def _gnss_yaw_pair(self, gnss_meas):
+        """One (v_local, v_enu) velocity pair from an aligned epoch."""
+        cfg = self.cfg
+        if np.linalg.norm(self._last_v[:2]) < cfg.gnss_align_min_speed:
+            return
+        pos, _, ok = spp.spp_position(gnss_meas)
+        if not ok:
+            return
+        vel, _, ok = spp.spp_velocity(gnss_meas, pos)
+        if not ok:
+            return
+        v_enu = gframes.ecef2rotation(pos) @ vel
+        if np.linalg.norm(v_enu[:2]) < cfg.gnss_align_min_speed:
+            return
+        self._gnss_vel_pairs.append(
+            (np.asarray(self._last_v[:2], np.float64).copy(), v_enu[:2].copy()))
+        if len(self._gnss_vel_pairs) > 60:
+            self._gnss_vel_pairs = self._gnss_vel_pairs[-60:]
+
+    def _gnss_refine_yaw(self):
+        """Periodic yaw re-alignment by velocity matching over the rolling
+        pairs (reference ``gnss_vi_initializer.h:25-28``)."""
+        if len(self._gnss_vel_pairs) < 10:
+            return
+        num = den = 0.0
+        for vl, ve in self._gnss_vel_pairs:
+            num += vl[0] * ve[1] - vl[1] * ve[0]
+            den += float(vl @ ve)
+        self._set_yaw(float(np.arctan2(num, den)))
+
+    def _set_yaw(self, yaw: float):
+        st = self.carry.state
+        self.carry = self.carry._replace(state=st._replace(
+            gyaw=torch.tensor(yaw, dtype=torch.float32, device=self.device)))
+
+    def _gnss_refresh_anchor(self):
+        """Move the prereduction anchor to the current receiver position
+        (the anchor-relative linearization error grows as |p|²/2ρ); the
+        carried rows were reduced against the old anchor, so their validity
+        is cleared and fresh rows refill within a window."""
+        lg = self.legacy
+        st = self.carry.state
+        yaw = float(st.gyaw)
+        ganc = st.ganchor.cpu().numpy().astype(np.float64)
+        c, s = np.cos(yaw), np.sin(yaw)
+        Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        d_enu = Rz @ np.asarray(self._last_p, np.float64) + ganc
+        R = gframes.ecef2rotation(lg.gnss_anchor)
+        lg.gnss_anchor = np.asarray(lg.gnss_anchor, np.float64) + R.T @ d_enu
+        g = self.carry.gnss
+        self.carry = self.carry._replace(
+            state=st._replace(ganchor=torch.as_tensor(
+                (ganc - d_enu).astype(np.float32), device=self.device)),
+            gnss=g._replace(valid=torch.zeros_like(g.valid)))
+        self._gnss_anchor_p0 = np.asarray(self._last_p, np.float64).copy()
+
+    def _gnss_tick_inputs(self, gnss_meas):
+        """The host's GNSS work for one fused tick: filter the epoch, try the
+        SPP alignment until it succeeds (from the last read-back state), the
+        anchor refresh and the periodic yaw re-alignment, and prereduce the
+        epoch into a packed row. Returns (row tensor | None, gnss_on,
+        statics): the refine statics while ``gnss_refine_left`` counts
+        down."""
+        cfg = self.cfg
+        lg = self.legacy
+        statics = self.statics
+        if not cfg.use_gnss:
+            return None, 0.0, statics
+        row = None
+        if gnss_meas:
+            gnss_meas = self.gnss_filter.filter(gnss_meas)
+        if gnss_meas and not lg.gnss_ready:
+            res = align.align_attempt(gnss_meas, self._last_v, self._last_p,
+                                      lg.gnss_align_buf,
+                                      cfg.gnss_align_min_speed,
+                                      cfg.gnss_align_min_epochs)
+            if res is not None:
+                yaw, anchor = res
+                lg.gnss_anchor = anchor
+                lg.gnss_ready = True
+                self.gnss_refine_left = cfg.gnss_refine_ticks
+                self._set_yaw(yaw)
+        if lg.gnss_ready:
+            self._gnss_tick_count += 1
+            if (cfg.gnss_anchor_refresh_m > 0
+                    and np.linalg.norm(self._last_p - self._gnss_anchor_p0)
+                    > cfg.gnss_anchor_refresh_m):
+                self._gnss_refresh_anchor()
+            if gnss_meas and len(gnss_meas) >= 5:
+                self._gnss_yaw_pair(gnss_meas)
+            if (cfg.gnss_refine_period_ticks > 0 and self._gnss_tick_count
+                    % cfg.gnss_refine_period_ticks == 0):
+                self._gnss_refine_yaw()
+        if gnss_meas and lg.gnss_anchor is not None:
+            row = torch.as_tensor(pack_gnss_row(*prepare_frame_obs(
+                gnss_meas, lg.gnss_anchor)), device=self.device)
+        gnss_on = 1.0 if lg.gnss_ready else 0.0
+        if self.gnss_refine_left > 0:
+            statics = self._statics_refine
+            self.gnss_refine_left -= 1
+        return row, gnss_on, statics
+
+    # ------------------------------------------------------------ ticks
+    def _tick(self, t, obs_or_frame, imu, wheel_vel, gnss_meas,
+              dyn_mask=None) -> VioOutput | None:
         """One fused tick on the carry: the tracker frame (``(img_f,
         depth_lo)``) or pre-tracked observations (a ``FrameObs``), then
         :func:`solve_tick`."""
+        gnss_row, gnss_on, statics = self._gnss_tick_inputs(gnss_meas)
         inp = self.pad_imu(imu, wheel_vel)
         col = min(self.frame_count, NUM_FRAMES - 1)
         full = self.frame_count >= NUM_FRAMES
@@ -544,48 +788,62 @@ class FusedVio:
             obs = obs_or_frame
         else:
             tc, obs = tracker_step(carry.tracker, *obs_or_frame, t, self.cam,
-                                   self.statics)
+                                   statics, dyn_mask=dyn_mask)
             carry = carry._replace(tracker=tc)
-        self.carry, rec = solve_tick(
+        self.carry, rec, self.gnss_enabled = solve_tick(
             carry, obs, inp, t, col, full, self.counts, self.layout,
-            self.statics, self.cfg.imu_noise, self.cfg.wheel_noise)
+            statics, self.cfg.imu_noise, self.cfg.wheel_noise,
+            gnss_row=self._zero_gnss_row if gnss_row is None else gnss_row,
+            gnss_on=gnss_on)
         self.fused_ticks += 1
         if self.frame_count < NUM_FRAMES:
             self.frame_count += 1
         return self._emit(t, rec)
 
-    def _warmup(self, t, obs, imu, wheel_vel) -> VioOutput:
-        out = self.legacy.process_frame(t, obs, imu, wheel_vel=wheel_vel)
+    def _warmup(self, t, obs, imu, wheel_vel, gnss_meas) -> VioOutput:
+        out = self.legacy.process_frame(t, obs, imu, wheel_vel=wheel_vel,
+                                        gnss_meas=gnss_meas)
         self.frame_count = self.legacy.frame_count
         if self.legacy.initialized:
             self.carry = self.build_carry()
         return out
 
-    def process_image(self, t: float, img, depth, imu,
-                      wheel_vel=None) -> VioOutput | None:
+    def process_image(self, t: float, img, depth, imu, wheel_vel=None,
+                      dyn_mask=None, gnss_meas=None) -> VioOutput | None:
         """One camera tick. ``img``: [H, W] uint8 (or float in [0, 1]);
         ``depth``: [H, W] metres; ``imu``: (acc [n+1,3], gyr [n+1,3],
-        dt [n]); ``wheel_vel``: [n+1, 3] wheel-frame velocity. Pipelined,
-        a fused tick returns the previous tick's output (``None`` on the
-        first)."""
+        dt [n]); ``wheel_vel``: [n+1, 3] wheel-frame velocity; ``dyn_mask``:
+        [H, W] {0, 1} regions to avoid; ``gnss_meas``: this frame's epoch (a
+        list of ``GnssMeas``) or None. Pipelined, a fused tick returns the
+        previous tick's output (``None`` on the first)."""
         img = np.asarray(img)
         img_u8 = img if img.dtype == np.uint8 else \
             np.clip(img * 255.0, 0, 255).astype(np.uint8)
         dev = self.device
         img_f = torch.as_tensor(img_u8, device=dev).to(torch.float32) * (1.0 / 255.0)
+        if dyn_mask is not None:
+            dyn_mask = torch.as_tensor(np.asarray(dyn_mask, np.float32),
+                                       device=dev)
         if self.carry is None:
+            if self.auto_dyn_mask and dyn_mask is None and depth is not None:
+                dyn_mask = self._compute_auto_mask(img_u8, depth, imu)
+            self.last_mask = dyn_mask
             obs = self.tracker.track(
                 t, img_f, torch.as_tensor(np.asarray(depth, np.float32), device=dev)
-                if depth is not None else None)
-            return self._warmup(t, obs, imu, wheel_vel)
+                if depth is not None else None, dyn_mask=dyn_mask)
+            return self._warmup(t, obs, imu, wheel_vel, gnss_meas)
         s = self.depth_stride
         depth_lo = torch.as_tensor(
             np.ascontiguousarray(np.asarray(depth, np.float16)[::s, ::s]),
             device=dev).to(torch.float32)
-        return self._tick(t, (img_f, depth_lo), imu, wheel_vel)
+        if self.auto_dyn_mask:
+            dyn_mask = self._tick_mask(img_f, depth_lo, imu, dyn_mask)
+        self.last_mask = dyn_mask
+        return self._tick(t, (img_f, depth_lo), imu, wheel_vel, gnss_meas,
+                          dyn_mask=dyn_mask)
 
-    def process_obs(self, t: float, obs: fwin.FrameObs, imu,
-                    wheel_vel=None) -> VioOutput | None:
+    def process_obs(self, t: float, obs: fwin.FrameObs, imu, wheel_vel=None,
+                    gnss_meas=None) -> VioOutput | None:
         """One camera tick from pre-tracked observations: the same
         :func:`solve_tick` without the tracker frame (``obs`` leaves may be
         numpy or tensors)."""
@@ -594,5 +852,5 @@ class FusedVio:
             a if isinstance(a, torch.Tensor) else np.asarray(a),
             dtype=torch.float32, device=dev) for a in obs))
         if self.carry is None:
-            return self._warmup(t, obs, imu, wheel_vel)
-        return self._tick(t, obs, imu, wheel_vel)
+            return self._warmup(t, obs, imu, wheel_vel, gnss_meas)
+        return self._tick(t, obs, imu, wheel_vel, gnss_meas)

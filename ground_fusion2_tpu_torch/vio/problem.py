@@ -3,8 +3,9 @@ prior (port of ``ground_fusion2_tpu/vio/problem.py``).
 
 The normal equations of a linearization are the projection block's, from
 kernel C (``factors.vio_factors.projection_normal_equations``), plus those
-of the few hundred rows of the other factors (IMU, wheel, plane, motion,
-pos-vel, prior), from kernel L (``factors.vio_factors.small_normal_equations``).
+of the few hundred rows of the other factors (IMU, wheel, plane, GNSS,
+motion, pos-vel, prior), from kernels L and P
+(``factors.vio_factors.small_normal_equations``).
 """
 
 from __future__ import annotations
@@ -42,9 +43,8 @@ class VioMeasurements(NamedTuple):
 
 
 def _check_supported(cfg: VioConfig):
-    if cfg.use_gnss or cfg.use_stereo:
-        raise NotImplementedError(
-            "GNSS and stereo factors are not ported yet")
+    if cfg.use_stereo:
+        raise NotImplementedError("stereo factors are not ported yet")
 
 
 def build_residual_fn(x0: WindowState, meas: VioMeasurements,
@@ -113,10 +113,15 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
     free = _fixed_dims(layout, cfg, dev, landmark_mask=landmark_mask,
                        frame_mask=frame_mask, fix_yaw=not cfg.refine_gnss_yaw,
                        fix_anchor=not cfg.refine_gnss_alignment)
-    # gauge: without a prior (GNSS is off), pin frame 0's pose
+    # gauge: if neither the prior nor active GNSS anchors the window, pin
+    # frame 0's pose (GNSS observes absolute position and yaw)
+    anchored = meas.prior.valid > 0
+    if cfg.use_gnss:
+        anchored = anchored | (torch.as_tensor(meas.gnss_enabled,
+                                               device=dev) > 0)
     pose0 = torch.zeros_like(free)
     pose0[layout.pose_off:layout.pose_off + 6] = 1.0
-    free = torch.where(meas.prior.valid > 0, free, free * (1.0 - pose0))
+    free = torch.where(anchored, free, free * (1.0 - pose0))
 
     def cost_at(delta):
         r, w = residual_fn(delta)
@@ -134,7 +139,9 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
 def marginalize_oldest(x: WindowState, meas: VioMeasurements,
                        layout: WindowLayout, cfg: VioConfig) -> MargPrior:
     """MARGIN_OLD: relinearize the factors touching frame 0 at the solved
-    state, eliminate frame 0 and the landmarks, shift into the next layout."""
+    state, eliminate frame 0 and the landmarks, shift into the next layout.
+    As in the JAX package, only the features, IMU and wheel rows are masked
+    to frame 0: every frame's plane, GNSS and motion rows enter."""
     dev, dtype = x.p.device, x.p.dtype
     f = meas.feats
     feats0 = f._replace(track_valid=f.track_valid * (f.anchor == 0).to(dtype))

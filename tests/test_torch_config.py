@@ -1,5 +1,5 @@
-"""The port's M3DGR camera and LIO configurations against the JAX package's
-loader.
+"""The port's M3DGR camera and LIO configurations and its Ground-Challenge
+GNSS configuration against the JAX package's loader.
 
 ``m3dgr_camera()`` must give what ``load_config("configs/m3dgr.yaml")`` gives
 for the VIO path, with two documented differences in the tracker:
@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from ground_fusion2_tpu.config.loader import load_config
-from ground_fusion2_tpu_torch.config import m3dgr_camera, m3dgr_lio
+from ground_fusion2_tpu_torch.config import (groundchallenge_gnss,
+                                             m3dgr_camera, m3dgr_lio)
 
 torch.set_num_threads(1)
 YAML = Path(__file__).resolve().parent.parent / "configs" / "m3dgr.yaml"
@@ -83,3 +84,45 @@ def test_lio_config_matches_loader(both):
             icp.conv_trans, icp.conv_rot_deg) == (5, 7.0, 10.0, 0.01, 0.1)
     assert (port.max_keypoints, port.keypoint_cell, port.g_norm,
             port.scan_buffer, port.evict_every) == (2000, 0.05, 9.7944, 4096, 20)
+
+
+@pytest.fixture(scope="module")
+def gnss_both(tmp_path_factory):
+    """``groundchallenge_gnss()`` and the loader's configuration of a copy of
+    configs/groundchallenge.yaml with ``gnss_enable`` flipped to 1."""
+    text = (YAML.parent / "groundchallenge.yaml").read_text()
+    assert "gnss_enable: 0" in text
+    p = tmp_path_factory.mktemp("cfg") / "groundchallenge_gnss.yaml"
+    p.write_text(text.replace("gnss_enable: 0", "gnss_enable: 1"))
+    return groundchallenge_gnss(), load_config(p)
+
+
+def test_groundchallenge_gnss_matches_loader(gnss_both):
+    """Every estimator field (the GNSS gates included), the tracker, the
+    intrinsics and both extrinsics equal the loader's; F = 150, GNSS on."""
+    port, jax_cfg = gnss_both
+    for f in dataclasses.fields(port.estimator):
+        got = getattr(port.estimator, f.name)
+        want = getattr(jax_cfg.estimator, f.name)
+        if hasattr(got, "_asdict"):
+            got, want = got._asdict(), want._asdict()
+        assert got == want, f.name
+    e = port.estimator
+    assert (e.num_feats, e.vio.use_gnss, e.vio.use_wheel, e.vio.use_plane,
+            e.vio.use_motion, e.g_norm) == (150, True, True, False, False, 9.805)
+    assert (e.gnss_psr_std_thres, e.gnss_dopp_std_thres, e.gnss_elev_thres_deg,
+            e.gnss_track_thres) == (2.0, 2.0, 30.0, 5)
+    assert dataclasses.asdict(port.tracker) == \
+        dataclasses.asdict(jax_cfg.make_tracker())
+    ci = jax_cfg.cam_intrinsics
+    assert port.intrinsics == (ci["fx"], ci["fy"], ci["cx"], ci["cy"])
+    assert (port.width, port.height) == (ci["width"], ci["height"])
+    for name, want in (("tic", jax_cfg.tic), ("ric", jax_cfg.ric),
+                       ("tio", jax_cfg.t_io), ("rio", jax_cfg.r_io)):
+        np.testing.assert_array_equal(getattr(port, name), want, err_msg=name)
+
+
+def test_dyn_mask_config_matches_jax():
+    from ground_fusion2_tpu.frontend.dynamic import DynMaskConfig as J
+    from ground_fusion2_tpu_torch.config import DynMaskConfig
+    assert dataclasses.asdict(DynMaskConfig()) == dataclasses.asdict(J())

@@ -1,8 +1,9 @@
 """The port's numpy-only copies of JAX-package modules (``data/render.py``,
 ``data/synthetic.py``, ``eval/metrics.py``, ``vio/fast_predict.py``,
-``runtime/telemetry.py``) give the same arrays as the originals on the same
-seeded inputs, and its BRIEF constants (the sampling pattern and the simhash
-projection, ``posegraph/brief.py``) equal the JAX package's."""
+``runtime/telemetry.py``, ``gnss/{frames,ephemeris,spp,align,sim}.py``) give
+the same arrays as the originals on the same seeded inputs, and its BRIEF
+constants (the sampling pattern and the simhash projection,
+``posegraph/brief.py``) equal the JAX package's."""
 
 import json
 
@@ -12,10 +13,17 @@ from ground_fusion2_tpu.data import render as jrender
 from ground_fusion2_tpu.posegraph import brief as jbrief
 from ground_fusion2_tpu.data import synthetic as jsim
 from ground_fusion2_tpu.eval import metrics as jmetrics
+from ground_fusion2_tpu.gnss import align as jalign
+from ground_fusion2_tpu.gnss import ephemeris as jeph
+from ground_fusion2_tpu.gnss import frames as jframes
+from ground_fusion2_tpu.gnss import sim as jgsim
+from ground_fusion2_tpu.gnss import spp as jspp
 from ground_fusion2_tpu.runtime.telemetry import Telemetry as JTelemetry
 from ground_fusion2_tpu.vio.fast_predict import FastPropagator as JProp
 from ground_fusion2_tpu_torch.data import render, synthetic as sim
 from ground_fusion2_tpu_torch.eval import metrics
+from ground_fusion2_tpu_torch.gnss import align, ephemeris, frames, spp
+from ground_fusion2_tpu_torch.gnss import sim as gsim
 from ground_fusion2_tpu_torch.posegraph import brief
 from ground_fusion2_tpu_torch.runtime.telemetry import Telemetry
 from ground_fusion2_tpu_torch.vio.fast_predict import FastPropagator
@@ -110,3 +118,64 @@ def test_telemetry_copy_matches(tmp_path):
             (tmp_path / "jax" / name).read_text(), name
     assert json.loads((tmp_path / "port" / "summary.json").read_text()) \
         == tms[1].summary()
+
+
+def test_gnss_frames_and_ephemeris_copies_match():
+    """Geodetic/ECEF/ENU conversions and the broadcast-ephemeris orbits
+    (GPS-like Keplerian and GLONASS) of both copies, on seeded inputs."""
+    rng = np.random.default_rng(11)
+    lla = np.c_[rng.uniform(-1.2, 1.2, 20), rng.uniform(-3, 3, 20),
+                rng.uniform(-50, 3000, 20)]
+    for mod, jmod in ((frames, jframes),):
+        ecef = mod.geo2ecef(lla)
+        _equal(ecef, jmod.geo2ecef(lla))
+        _equal(mod.ecef2geo(ecef), jmod.ecef2geo(ecef))
+        _equal(mod.ecef2rotation(ecef[0]), jmod.ecef2rotation(ecef[0]))
+        _equal(mod.ecef2enu(ecef[0], ecef[1:]), jmod.ecef2enu(ecef[0], ecef[1:]))
+        _equal(mod.enu2ecef(ecef[0], ecef[1:] - ecef[0]),
+               jmod.enu2ecef(ecef[0], ecef[1:] - ecef[0]))
+        lc, jlc = mod.LocalCartesian(31.0, 121.0, 10.0), \
+            jmod.LocalCartesian(31.0, 121.0, 10.0)
+        enu = lc.forward(31.001, 121.002, 15.0)
+        _equal(enu, jlc.forward(31.001, 121.002, 15.0))
+        _equal(lc.reverse(enu), jlc.reverse(enu))
+    for ep, jep in zip(gsim.make_constellation(8, seed=3),
+                       jgsim.make_constellation(8, seed=3)):
+        for t in (0.0, 1234.5, 604000.0):
+            for a, b in zip(ephemeris.eph2pos(t, ep), jeph.eph2pos(t, jep)):
+                _equal(a, b)
+        _equal(ephemeris.satsys(ep.sat), jeph.satsys(jep.sat))
+    geph = dict(sat=40, toe=0.0, pos=np.array([1.2e7, -1.9e7, 5.0e6]),
+                vel=np.array([1.5e3, 1.0e3, -2.5e3]),
+                acc=np.array([1e-6, -2e-6, 0.0]), tau_n=1e-5, gamma=1e-12)
+    for t in (10.0, 900.0):
+        for a, b in zip(ephemeris.geph2pos(t, ephemeris.GloEphemeris(**geph)),
+                        jeph.geph2pos(t, jeph.GloEphemeris(**geph))):
+            _equal(a, b)
+
+
+def test_gnss_sim_spp_align_copies_match():
+    """The simulated sky's measurements, SPP position and velocity, and the
+    GNSS-VI alignment over a moving drive, for both copies."""
+    runs = []
+    for g, s_, al in ((gsim, spp, align), (jgsim, jspp, jalign)):
+        sky = g.GnssSim(psr_noise=0.5, dopp_noise=0.05, seed=7)
+        buf, out = [], []
+        for k in range(8):
+            t = 0.5 * k
+            p = np.array([1.2 * t, 0.3 * t, 0.0])
+            v = np.array([1.2, 0.3, 0.0])
+            meas = sky.measurements(50.0 + t, p, v, clk_bias=5.0 + 0.5 * t,
+                                    clk_drift=0.5)
+            pos, dt, ok = s_.spp_position(meas)
+            vel, ddt, ok2 = s_.spp_velocity(meas, pos)
+            res = al.align_attempt(meas, v, p, buf, 0.4, 5)
+            out.append([np.array([m.psr for m in meas]),
+                        np.array([m.dopp for m in meas]), pos, dt, vel,
+                        np.asarray(ddt), ok, ok2,
+                        np.zeros(4) if res is None else np.r_[res[0], res[1]]])
+        runs.append(out)
+    assert runs[0][-1][-1].any()     # alignment completed on the last epoch
+    for a, b in zip(runs[0], runs[1]):
+        for x, y in zip(a, b):
+            _equal(x, y)

@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch versions, on the
 card, at the main paths' shapes (the comparisons of ``chip_smoke.py``: the
 camera kernels A–C and H–L, the LiDAR kernels D–G on a map filled by 12
-scans of the bench_lio drive at the M3DGR LIO configuration, and the
-loop-closure kernels M–O), and C, L and O giving the same bits twice.
+scans of the bench_lio drive at the M3DGR LIO configuration, the
+loop-closure kernels M–O, the GNSS rows P, the global graph Q and the
+dynamic mask R), and C, L, O, P and Q giving the same bits twice.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -156,6 +157,83 @@ def test_small_normal_kernel_on_a_fused_window(dev, camera):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("case", ["enabled", "disabled", "empty"])
+def test_gnss_normal_kernel_matches_plain(dev, window, case):
+    """Kernel P (the GNSS rows, in kernel L's launch) at the Ground-Challenge
+    GNSS configuration's widths (F = 150, S = 16) on the example window with
+    a simulated sky: with the gate on, off, and over an empty table."""
+    from ground_fusion2_tpu_torch.config import groundchallenge_gnss
+    from ground_fusion2_tpu_torch.gnss.factors import GnssTable
+    x0, _, layout, delta, meas, _ = window
+    x, m = checks.example_gnss(x0, meas, layout, dev)
+    if case == "disabled":
+        m = m._replace(gnss_enabled=torch.zeros((), device=dev))
+    elif case == "empty":
+        m = m._replace(gnss=GnssTable.empty(layout.W, dev))
+    _kernels.launches.clear()
+    r = checks.check_small_normal(dev, x, m, layout, delta,
+                                  groundchallenge_gnss().estimator.vio,
+                                  timed=False)
+    assert r["ok"] and r["repeat_equal"], r
+    assert _kernels.launches["gnss_normal"] == 2
+
+
+def _global_graph(dev, n=200, cap=256):
+    """A GlobalFusion at capacity ``cap`` fed ``n`` keyframes of a drifting
+    circle with GPS on every other one and two tag anchors, on the card."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.gnss.global_opt import GlobalFusion
+    rng = np.random.default_rng(0)
+    gfu = GlobalFusion(cap, dev)
+    for k in range(n):
+        th = 0.05 * k
+        p = np.array([8 * np.sin(th), 8 * (1 - np.cos(th)), 0.0])
+        q = np.array([np.cos(th / 2), 0, 0, np.sin(th / 2)])
+        gfu.input_odom(p * 1.02 + [0.002 * k, 0, 0], q)
+        if k % 2 == 0:
+            gfu.input_gps(gfu.n - 1, p + rng.normal(scale=0.3, size=3), 1.5)
+        if k in (40, 160):
+            gfu.input_tag_pose(gfu.n - 1, p, q, 0.2)
+    return gfu
+
+
+def test_global_normal_kernel_matches_plain(dev):
+    """Kernel Q on a 200-node graph at capacity 256 (H 1536²), twice the
+    same bits; then GlobalFusion.optimize on the card."""
+    gfu = _global_graph(dev)
+    r = checks.check_global_normal(dev, gfu.graph.to(dev))
+    assert r["ok"] and r["repeat_equal"], r
+    _kernels.launches.clear()
+    gfu.optimize()
+    assert _kernels.launches["global_normal"] == 7     # 6 iterations + 1
+
+
+@pytest.mark.parametrize("up", [1, 2])
+def test_dyn_mask_kernel_matches_plain(dev, up):
+    """Kernel R on frames 10 → 11 of the occluder drive, decimated by 2 to
+    320×240 (80×60 cells): the grid mask alone (up 1), and upsampled to
+    640×480 and OR-ed into a mask as the fused tick does (up 2)."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.config import DynMaskConfig
+    fs = checks.dynamic_drive(12, n_rays=64)
+    lo = lambda f: (
+        torch.as_tensor(f["gray"][::2, ::2].astype(np.float32) / 255.0,
+                        device=dev),
+        torch.as_tensor(np.asarray(f["depth"], np.float32)[::2, ::2],
+                        device=dev))
+    base = None
+    if up == 2:
+        base = torch.zeros((480, 640), device=dev)
+        base[:16, :16] = 1.0
+    K = np.array(checks.M3DGR_INTRINSICS, np.float32) / 2
+    x = dict(prev=lo(fs[10]), cur=lo(fs[11]), R_pc=np.eye(3, dtype=np.float32),
+             t_pc=np.array([0.0, 0.0, -0.08], np.float32), K=K,
+             cfg=DynMaskConfig(), up=up,
+             out_hw=(240 * up, 320 * up), base=base)
+    r = checks.check_dyn_mask(dev, x)
+    assert r["ok"] and r["mask_share"] > 0.0, r
+
+
 def test_proj_normal_kernel_repeats_bit_for_bit(dev, window):
     x0, feats, layout, delta, _, vcfg = window
     r = checks.check_proj(dev, x0, feats, layout, delta, vcfg.proj_sqrt_info,
@@ -258,6 +336,24 @@ def _launch(name, dev):
                                            torch.ones(4, device=dev))
         w = torch.zeros((4, 8), dtype=torch.int32, device=dev)
         return brief.hamming(w, w)
+    if name == "gnss_normal":
+        from ground_fusion2_tpu_torch.config import VioConfig
+        from ground_fusion2_tpu_torch.factors import vio_factors as fac
+        x0, feats, layout, delta = checks.example_window(8, dev)
+        x, meas = checks.example_gnss(
+            x0, checks.example_measurements(x0, feats, layout, dev), layout,
+            dev)
+        return fac.small_normal_equations(x, delta, meas, layout, VioConfig(
+            num_feats=8, use_gnss=True))
+    if name == "global_normal":
+        from ground_fusion2_tpu_torch.gnss import global_opt as go
+        g = _global_graph(dev, 10, 16).graph.to(dev)
+        return go.graph_normal_equations(g, torch.zeros(96, device=dev))
+    if name == "dyn_mask":
+        from ground_fusion2_tpu_torch.frontend import dynamic
+        z = torch.zeros((48, 64), device=dev)
+        return dynamic.dynamic_mask(z, z, z, z, torch.eye(3), torch.zeros(3),
+                                    (50.0, 50.0, 32.0, 24.0))
     if name in ("loop_geom", "pg_normal"):
         from ground_fusion2_tpu_torch.posegraph import pose_graph as pgm
         if name == "loop_geom":
@@ -315,7 +411,8 @@ def _launch(name, dev):
                                   "pyramid", "shi_tomasi", "detect_grid",
                                   "ransac_f", "small_normal", "brief",
                                   "simhash", "hamming", "loop_geom",
-                                  "pg_normal"])
+                                  "pg_normal", "gnss_normal", "global_normal",
+                                  "dyn_mask"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(
