@@ -14,14 +14,20 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      tolerances and the median time of both; C and L twice on the same
      inputs give the same bits. Row 7's library calls are timed beside
      (the damped Cholesky at D = 396, marginalize's two f64 eigh, the pose
-     graph's Cholesky at 4·64 and 4·512);
+     graph's Cholesky at 4·64 and 4·512). Kernel S, the window's cost, at
+     delta = 0, at the damped LM step from there and at its reverse: within
+     max(3× the plain route's error, 1e-6) of a float64 evaluation, the
+     same bits twice, the step accepted and its reverse rejected by both
+     routes;
   4. camera path: FusedVio.process_image with the M3DGR configuration
      over 32 rendered 640×480 frames of the bench.py room drive (RGB-D + IMU
      + wheel), twice from the same frames. Each run must initialize, run ≥ 20
-     fused ticks, launch A-C and H-L during them, call torch.func.jacfwd no
-     time, stay finite, and keep the aligned ATE < 0.30 m; both ATEs and the
-     first tick where the two runs' windows differ are printed. Kernels C
-     and L are also held against their plain versions on the final window;
+     fused ticks, launch A-C, H-L and S-V during them, call
+     torch.func.jacfwd, the plain window cost and the [F, 4, 4]
+     torch.linalg.eigh no time, stay finite, and keep the aligned ATE
+     < 0.30 m; both ATEs and the first tick where the two runs' windows
+     differ are printed. Kernels C and L are also held against their plain
+     versions on the final window;
   5. LiDAR path: LidarOdometry.process_scan with the M3DGR LIO
      configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
      iterations) over 60 scans of the bench_lio room drive (4096 rays,
@@ -34,15 +40,21 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      that overflows capacity and a recenter, bit-exact against the CPU);
   7. camera kernels H-K against their plain versions: H on the final
      camera carry's 10 intervals, I on frame 12, J and K on the KLT tracks
-     of frames 12 -> 13; and kernel O on a 500-node graph at the 4·512 tier
-     (twice: the same bits);
+     of frames 12 -> 13; kernel O and its cost-only mode on a 500-node
+     graph at the 4·512 tier (twice: the same bits); T, U and V on phase
+     4's final carry (T on every live track with the depth fix cleared, U
+     before and after the solve, V's add_frame and both slides), each
+     twice for the same bits;
   8. the system: GroundFusion(m3dgr_system()) over 40 frames of the
      bench.py bench_system drive, each frame process_camera_image then
      process_lidar, then flush. Both estimators must initialize, ≥ 20
      system ticks run with both carries live, A-K launch during them,
      every fused pose stay finite, no scan after the second be degenerate,
      the fused position error after aligning the first output stay
-     < 0.06 m and the VIO's aligned ATE < 0.30 m;
+     < 0.06 m and the VIO's aligned ATE < 0.30 m. Over the last 3 ticks
+     torch.profiler prints the device time a tick of the port's kernels,
+     torch.linalg's and every other kernel, and the launches a tick (gates
+     nothing);
   9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
      camera configuration, PoseGraphConfig at its defaults but num_feats
      150: sim_thresh 0.88, skip_recent 50, 128 hypotheses, capacity 512,
@@ -75,6 +87,13 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      the JAX figure rests on its own eigh's rounding in the prior's weakly
      observed directions, which the port's elimination, in float64 or in
      float32, does not reproduce);
+ 10b. the GNSS anchor refresh and yaw refine: GroundFusion at
+     groundchallenge_gnss() with the refresh bound at 0.45 m and a refine
+     every 4 GNSS ticks over 45 frames of checks.gnss_drive with an epoch on
+     every frame; both must fire (a refine counts once it has the 10
+     velocity pairs it needs), on the frames the JAX package fires them on,
+     and each refined yaw must lie within 0.01 rad of JAX's with its
+     elimination in float64, as the port eliminates;
  11. the dynamic mask: GroundFusion(m3dgr_system() with auto_dyn_mask) over
      checks.dynamic_drive(40) (the system drive with scenarios.py's
      160-px occluder at 1.2 m sweeping the image for 3 s), each frame
@@ -89,10 +108,11 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      plain route's error there, twice the same bits), Q on phase 10's final
      global graph (1e-5, twice the same bits), R on a phase-11 frame pair
      (equal, or differing only beside a blurred residual within 1e-5 of its
-     threshold).
+     threshold), Q's cost-only mode on the same graph, and S on the final
+     GNSS window at delta = 0 and at an LM step.
 The last two lines are the kernels JSON (launches from phase 8's run for
-A-L, phase 9's for M-O, phase 10's for P and Q, phase 11's for R) and the
-result JSON.
+A-L and S-V, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
+Q's cost mode, phase 11's for R) and the result JSON.
 
 The camera rig is synthetic: the renderer's forward camera (bench.py's
 extrinsic) and an identity wheel frame replace the M3DGR extrinsics, which
@@ -122,9 +142,23 @@ SYS_FRAMES = 40
 SYS_MAX_ERR = 0.06     # m, fused position error (test_lio_e2e.py's bound)
 SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
 CAMERA_KERNELS = ("clahe", "klt", "proj_normal", "preint", "pyramid",
-                  "shi_tomasi", "detect_grid", "ransac_f", "small_normal")
-LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal")
-GNSS_KERNELS = ("gnss_normal", "global_normal")
+                  "shi_tomasi", "detect_grid", "ransac_f", "small_normal",
+                  "window_cost", "triangulate", "window_tests", "window_update")
+LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal",
+                "pg_cost")
+GNSS_KERNELS = ("gnss_normal", "global_normal", "global_cost")
+RR_FRAMES = 45         # phase 10b: tests/test_torch_gnss_fused.py's refresh
+RR_REFRESH_M = 0.45    # and refine drive (an epoch every frame), its bounds
+RR_PERIOD = 4
+# the JAX package on phase 10b's drive (tests/torch_gnss_reference.py
+# refresh / refresh-f64, CPU): the frames each branch fired on and the yaw
+# after each refine, with its float32 elimination and in float64 (the
+# port's precision, which the gate holds; the port on the CPU: within 9.6e-4)
+JAX_RR = dict(refresh=[25, 30, 35, 40], refine=[35, 39, 43],
+              yaw=[0.34168344736099243, 0.3385225832462311, 0.34762704372406006],
+              yaw_f64=[0.3999084234237671, 0.4013034701347351,
+                       0.41415417194366455])
+RR_YAW_TOL = 0.01      # rad, each refine's yaw against JAX's at float64
 MASK_KERNELS = ("dyn_mask",)
 # the JAX package on the same drives (tests/torch_gnss_reference.py, CPU);
 # ate_f64 and global_rms_f64: its run with the marginalization's elimination
@@ -170,6 +204,17 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "global_normal": ("global_normal.cu",
                       "ground_fusion2_tpu/gnss/global_opt.py:70"),
     "dyn_mask": ("dyn_mask.cu", "ground_fusion2_tpu/frontend/dynamic.py:79"),
+    "window_cost": ("window_cost.cu",
+                    "ground_fusion2_tpu/solver/gauss_newton.py:107"),
+    "triangulate": ("triangulate.cu",
+                    "ground_fusion2_tpu/vio/feature_window.py:227"),
+    "window_tests": ("window_tests.cu",
+                     "ground_fusion2_tpu/vio/feature_window.py:269"),
+    "window_update": ("window_update.cu",
+                      "ground_fusion2_tpu/vio/feature_window.py:60"),
+    "pg_cost": ("pg_normal.cu", "ground_fusion2_tpu/posegraph/pose_graph.py:514"),
+    "global_cost": ("global_normal.cu",
+                    "ground_fusion2_tpu/gnss/global_opt.py:104"),
 }
 
 
@@ -199,6 +244,62 @@ def sync_site(counter):
                  f":{frames[-1].lineno}" if frames else "?")
         counter[where] += 1
     return show
+
+
+LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
+                       "cusolver", "lapack", "sytrd", "stedc", "steqr",
+                       "ormtr", "geqrf", "getrf", "larf")
+
+
+ANON = "(anonymous namespace)::"
+
+
+def kernel_qualname(name: str) -> str:
+    """A device kernel's qualified name without its return type, template
+    arguments and parameters, from the demangled name the profiler reports:
+    ``(anonymous namespace)::row_kernel``, ``at::native::reduce_kernel``."""
+    import re
+    s = re.sub(r"^void\s+", "", name.strip())
+    return re.match(r"(?:\(anonymous namespace\)::)?[\w:]*", s).group(0)
+
+
+def port_kernel_names() -> set:
+    """The qualified names of the ``__global__`` functions of csrc/*.cu
+    (every one sits in the file's anonymous namespace)."""
+    import pathlib
+    import re
+    names = set()
+    for src in pathlib.Path(PKG).glob("*.cu"):
+        names.update(ANON + n for n in re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\s*\([^)]*\)\s*)?(\w+)",
+            src.read_text()))
+    return names
+
+
+def device_split(prof, n_ticks: int) -> dict:
+    """Device time a tick from a torch.profiler trace, in three classes (the
+    port's kernels, whose qualified names are exactly those of csrc/*.cu's
+    ``__global__`` functions; torch.linalg's cuSOLVER and triangular-solve
+    kernels; every other kernel), the kernel launches a tick and the port's
+    kernels seen."""
+    import torch
+    ours = port_kernel_names()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    ms = dict(port=0.0, linalg=0.0, other=0.0)
+    seen = set()
+    for e in kernels:
+        qual = kernel_qualname(e.name)
+        cls = ("port" if qual in ours else
+               "linalg" if any(w in e.name.lower() for w in LINALG_KERNEL_WORDS)
+               else "other")
+        if cls == "port":
+            seen.add(qual[len(ANON):])
+        ms[cls] += e.time_range.elapsed_us() / 1e3
+    return dict(device_ms_per_tick={k: v / n_ticks for k, v in ms.items()},
+                launches_per_tick=len(kernels) / n_ticks,
+                port_kernels_seen=sorted(seen))
 
 
 def lidar_main_path(dev, card):
@@ -290,6 +391,25 @@ class CallCounter:
         setattr(self.module, self.name, self.orig)
 
 
+class EighCounter(CallCounter):
+    """Counts the ``torch.linalg.eigh`` calls on a batch of 4×4 matrices
+    (the plain triangulation's) while installed."""
+
+    def __init__(self):
+        import torch
+        super().__init__(torch.linalg, "eigh")
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrapper(A, *a, **k):
+            if A.dim() == 3 and tuple(A.shape[-2:]) == (4, 4):
+                self.n += 1
+            return self.orig(A, *a, **k)
+        setattr(self.module, self.name, wrapper)
+        return self
+
+
 def camera_main_path(dev, card, frames):
     """Phase 4. Returns (error or None, the FusedVio, launches, the run:
     its ATE and each fused tick's window state on the host)."""
@@ -298,6 +418,7 @@ def camera_main_path(dev, card, frames):
     from ground_fusion2_tpu_torch.config import m3dgr_camera
     from ground_fusion2_tpu_torch.core.cameras import Pinhole
     from ground_fusion2_tpu_torch.eval import metrics
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
     from ground_fusion2_tpu_torch.vio.fused import FusedVio
 
     cfg = m3dgr_camera()
@@ -307,12 +428,14 @@ def camera_main_path(dev, card, frames):
     _kernels.launches.clear()
     tick_ms, est, gt, windows = [], [], [], []
     launches_at_fused = None
-    with CallCounter(torch.func, "jacfwd") as jac:
+    with CallCounter(torch.func, "jacfwd") as jac, \
+            CallCounter(fac, "window_cost_plain") as plain_cost, \
+            EighCounter() as eigh:
         for f in frames:
             fused = fv.carry is not None
             if fused and launches_at_fused is None:
                 launches_at_fused = dict(_kernels.launches)
-                jac_at_fused = jac.n
+                at_fused = (jac.n, plain_cost.n, eigh.n)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
@@ -342,16 +465,22 @@ def camera_main_path(dev, card, frames):
     if min(grew.values()) <= 0:
         return (f"a kernel did not launch during the fused ticks: {grew}", fv,
                 launches, None)
-    jac_fused = jac.n - jac_at_fused
+    jac_fused, cost_fused, eigh_fused = (
+        n - n0 for n, n0 in zip((jac.n, plain_cost.n, eigh.n), at_fused))
     ate = float(metrics.ate_rmse(np.asarray(est), np.asarray(gt), align=True))
     print(f"camera path: {n_fused} fused ticks, median tick "
           f"{float(np.median(tick_ms[2:])):.2f} ms (synchronized wall, ticks "
-          f"3..{n_fused}), ATE {ate:.4f} m aligned over {len(est)} frames, "
-          f"torch.func.jacfwd calls during the fused ticks {jac_fused}, "
-          f"launches {launches}, during fused ticks {grew} | {card}",
-          flush=True)
+          f"3..{n_fused}), ATE {ate:.6f} m aligned over {len(est)} frames, "
+          f"during the fused ticks: torch.func.jacfwd calls {jac_fused}, "
+          f"plain window-cost calls {cost_fused}, [F, 4, 4] torch.linalg.eigh "
+          f"calls {eigh_fused}; launches {launches}, during fused ticks "
+          f"{grew} | {card}", flush=True)
     if jac_fused:
         return (f"torch.func.jacfwd ran {jac_fused} times on the card", fv,
+                launches, None)
+    if cost_fused or eigh_fused:
+        return (f"the plain window cost ran {cost_fused} times and the "
+                f"[F, 4, 4] eigh {eigh_fused} times on the card", fv,
                 launches, None)
     if not ate < 0.30:
         return f"ATE {ate:.3f} m >= 0.30 m", fv, launches, None
@@ -374,12 +503,18 @@ def system_main_path(dev, card):
     vio, tick_ms, syncs_seen = [], [], []
     sites = collections.Counter()      # of the last tick
     launches_at_live = None
+    prof = None          # the last 3 ticks' device trace
     _kernels.launches.clear()
     for k, f in enumerate(frames):
         live = gf.vio.carry is not None and gf.lio.carry is not None
         if live and launches_at_live is None:
             launches_at_live = dict(_kernels.launches)
         watch = live and k >= SYS_FRAMES - 3
+        if watch and prof is None:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         tick_sites = collections.Counter()
@@ -401,6 +536,8 @@ def system_main_path(dev, card):
             sites = tick_sites
         if out is not None and out.initialized:
             vio.append(out)
+    if prof is not None:
+        prof.__exit__(None, None, None)
     out = gf.flush()
     if out is not None and out.initialized:
         vio.append(out)
@@ -418,6 +555,14 @@ def system_main_path(dev, card):
                for o in gf.trajectory):
         return "a non-finite fused pose", launches
     r = checks.system_errors(gf.trajectory, vio, frames)
+    split = device_split(prof, len(syncs_seen)) if prof is not None else {}
+    print("system tick split over the last 3 ticks (torch.profiler, CUDA "
+          f"activities; printed only): {json.dumps(split)}, host wall a tick "
+          f"{[round(t, 2) for t in tick_ms[-len(syncs_seen):]]} ms (profiled "
+          f"and sync-watched), synchronizing calls a tick {syncs_seen} by "
+          f"call site of the last {dict(sites.most_common())}, median of the "
+          f"unprofiled ticks {float(np.median(tick_ms[2:-3])):.2f} ms | {card}",
+          flush=True)
     print(f"system path: {n_live} system ticks with both carries live, "
           f"median system tick {float(np.median(tick_ms[2:])):.2f} ms "
           f"(synchronized wall, ticks 3..{n_live}), host syncs "
@@ -668,6 +813,99 @@ def dynamic_main_path(dev, card):
     return None, launches, pair
 
 
+def window_stage_checks(dev, fv) -> dict:
+    """Phase 7's T, U and V on FusedVio ``fv``'s final carry: triangulation
+    of every live track (the RGB-D depth fix cleared, none initialized), the
+    tests before the solve (interval W-2) and after it (at the fused tick's
+    thresholds), and the three window updates (add_frame of the newest
+    column's observations, the unobserved live tracks fresh; both slides)."""
+    import torch
+    from ground_fusion2_tpu_torch import checks
+    fw, st, obs, interval = checks.window_stage_inputs(fv)
+    W = fw.obs_valid.shape[1]
+    tri = fw._replace(depth_fixed=torch.zeros_like(fw.depth_fixed))
+    return {
+        "triangulate": checks.check_triangulate(
+            dev, tri, st, st.rho, torch.ones_like(st.rho)),
+        "window_tests": checks.check_window_tests(
+            dev, fw, st, fv.statics,
+            torch.zeros((), dtype=torch.bool, device=dev), interval, W - 2),
+        "window_update": checks.check_window_update(dev, fw, st, st.rho, obs,
+                                                    W - 1),
+    }
+
+
+def gnss_refresh_path(dev, card):
+    """Phase 10b: GroundFusion at groundchallenge_gnss() with the anchor
+    refresh bound at RR_REFRESH_M and the yaw refine every RR_PERIOD GNSS
+    ticks, over RR_FRAMES frames of checks.gnss_drive with an epoch on every
+    frame (the cut depth of tests/test_torch_gnss_fused.py's refresh and
+    refine drive). Counts the refreshes and the refines that move the yaw
+    (10 velocity pairs); fails if either count is 0, if they fire on other
+    frames than JAX's or if a refined yaw is off JAX's at float64 (JAX_RR)
+    by more than RR_YAW_TOL. Returns the error or None."""
+    import dataclasses
+    import torch
+    from ground_fusion2_tpu_torch import checks
+    from ground_fusion2_tpu_torch.config import groundchallenge_gnss
+    from ground_fusion2_tpu_torch.core.cameras import Pinhole
+    from ground_fusion2_tpu_torch.system import GroundFusion, SystemConfig
+
+    frames = checks.gnss_drive(RR_FRAMES, epoch_every=1)
+    cam = groundchallenge_gnss()
+    est = dataclasses.replace(cam.estimator, gnss_anchor_refresh_m=RR_REFRESH_M,
+                              gnss_refine_period_ticks=RR_PERIOD)
+    gf = GroundFusion(SystemConfig(
+        vio=est, use_lidar=False, tracker=cam.tracker,
+        cam=Pinhole.create(*cam.intrinsics), cam_intr=cam.intrinsics),
+        tic=frames[0]["tic"], ric=frames[0]["ric"], tio=np.zeros(3),
+        rio=np.eye(3), device=dev)
+    fv = gf.vio
+    fired = dict(refresh=[], refine=[], yaw=[])
+    refresh, refine = fv._gnss_refresh_anchor, fv._gnss_refine_yaw
+    tick = [0]
+
+    def on_refresh():
+        refresh()
+        fired["refresh"].append(tick[0])
+
+    def on_refine():
+        n = len(fv._gnss_vel_pairs)
+        refine()
+        if n >= 10:
+            fired["refine"].append(tick[0])
+            fired["yaw"].append(round(float(fv.carry.state.gyaw), 6))
+
+    fv._gnss_refresh_anchor, fv._gnss_refine_yaw = on_refresh, on_refine
+    t0 = time.perf_counter()
+    for k, f in enumerate(frames):
+        tick[0] = k
+        o = gf.process_camera(f["t"], f["obs"], f["imu"], wheel_vel=f["wheel"],
+                              gnss_meas=f["gnss"])
+        if o is not None and o.initialized and not np.all(np.isfinite(o.p)):
+            return f"non-finite state at t={f['t']:.2f} (phase 10b)"
+    torch.cuda.synchronize()
+    print(f"gnss refresh/refine: {RR_FRAMES} frames in "
+          f"{time.perf_counter() - t0:.1f} s, anchor refreshes on frames "
+          f"{fired['refresh']} (JAX {JAX_RR['refresh']}), yaw refines on "
+          f"frames {fired['refine']} (JAX {JAX_RR['refine']}), yaw after each "
+          f"{fired['yaw']} (JAX with the port's f64 elimination "
+          f"{[round(y, 6) for y in JAX_RR['yaw_f64']]}; its own f32 "
+          f"{[round(y, 6) for y in JAX_RR['yaw']]}, a recorded miss with "
+          f"phase 10's ATE, ROADMAP.md queue 3) | {card}", flush=True)
+    if not fired["refresh"] or not fired["refine"]:
+        return (f"the GNSS anchor refresh ({len(fired['refresh'])}) or the "
+                f"yaw refine ({len(fired['refine'])}) never fired")
+    if (fired["refresh"], fired["refine"]) != (JAX_RR["refresh"],
+                                               JAX_RR["refine"]):
+        return "the refresh or refine fired on other frames than JAX's"
+    off = max(abs(a - b) for a, b in zip(fired["yaw"], JAX_RR["yaw_f64"]))
+    if off > RR_YAW_TOL:
+        return (f"a refined yaw is {off:.4f} rad from JAX's at float64 "
+                f"(limit {RR_YAW_TOL})")
+    return None
+
+
 def report(res: dict) -> int:
     import torch
     torch.cuda.synchronize()
@@ -719,6 +957,22 @@ def main() -> int:
     H, g, _ = window_normal_equations(x0, meas, layout, vcfg, delta)
     print("row 7 (torch.linalg, not a port kernel): " + json.dumps(
         checks.check_linalg(dev, H, g, layout)) + f" | {card}", flush=True)
+    # kernel S at delta = 0 and at the LM step from there (accepted) and its
+    # reverse (rejected)
+    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
+    zero = torch.zeros(layout.dim, device=dev)
+    H0, g0, _ = window_normal_equations(x0, meas, layout, vcfg, zero)
+    step = _solve_damped(H0, g0, torch.full((), 1e-4, device=dev),
+                         torch.ones(layout.dim, device=dev))
+    res["window_cost"] = checks.check_window_cost(
+        dev, x0, meas, layout, vcfg,
+        dict(zero=zero, accepted=step, rejected=-step))
+    dec = res["window_cost"]["decisions"]
+    if not (dec["accepted"]["kernel"] and not dec["rejected"]["kernel"]):
+        res["window_cost"]["ok"] = False
+    res["window_cost"]["ok"] &= res["window_cost"]["decisions_equal"]
+    if report({"window_cost": res["window_cost"]}):
+        return 1
 
     # 4. camera path, twice from the same frames
     runs = []
@@ -793,11 +1047,17 @@ def main() -> int:
     if report(res_hk):
         return 1
     res.update(res_hk)
-    tier = checks.check_pg_normal(dev, checks.ring_graph_args(500, 512, dev))
+    tier_args = checks.ring_graph_args(500, 512, dev)
+    tier = checks.check_pg_normal(dev, tier_args)
     print("kernel pg_normal at the 4·512 tier (500 nodes, 8 loops): "
           + json.dumps(tier) + f" | {card}", flush=True)
     if not tier["ok"]:
         return fail("kernel O disagrees at the 4·512 tier")
+    res_w = window_stage_checks(dev, fv)
+    res_w["pg_cost"] = checks.check_pg_cost(dev, tier_args)
+    if report(res_w):
+        return 1
+    res.update(res_w)
 
     # 8. the system
     err, launches = system_main_path(dev, card)
@@ -831,6 +1091,9 @@ def main() -> int:
     if err:
         return fail(err)
     launches.update({k: gnss_launches.get(k, 0) for k in GNSS_KERNELS})
+    err = gnss_refresh_path(dev, card)
+    if err:
+        return fail(err)
 
     # 11. the dynamic mask
     err, dyn_launches, pair = dynamic_main_path(dev, card)
@@ -853,14 +1116,27 @@ def main() -> int:
         "global_normal": checks.check_global_normal(
             dev, gf.gfusion.graph.to(dev)),
         "dyn_mask": checks.check_dyn_mask(dev, pair),
+        "global_cost": checks.check_global_cost(dev, gf.gfusion.graph.to(dev)),
     }
+    zero = torch.zeros(fv.layout.dim, device=dev)
+    st = fv.carry.state
+    from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
+    H0, g0, _ = window_normal_equations(st, gmeas, fv.layout, gcfg, zero)
+    step = _solve_damped(H0, g0, torch.full((), 1e-4, device=dev),
+                         torch.ones(fv.layout.dim, device=dev))
+    s_gnss = checks.check_window_cost(dev, st, gmeas, fv.layout, gcfg,
+                                      dict(zero=zero, step=step), timed=False)
+    print("kernel window_cost on the final GNSS window: " + json.dumps(s_gnss)
+          + f" | {card}", flush=True)
+    if not s_gnss["ok"]:
+        return fail("kernel S disagrees on the final GNSS window")
     if report(res_pqr):
         return 1
     res.update(res_pqr)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")   # launches: phase 8 for A-L, 9 for M-O, 10 for P
-                            # and Q, 11 for R
+            "library_ms")   # launches: phase 8 for A-L and S-V, 9 for M-O,
+                            # 10 for P and Q, 11 for R
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

@@ -37,6 +37,7 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
@@ -58,6 +59,14 @@ _SIGNATURES = {
     "gf2_pg_normal": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 5,
     "gf2_global_normal": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 5,
     "gf2_dyn_mask": [_P] * 5 + [_I] * 5 + [_F] * 4 + [_I] * 3 + [_P] * 4,
+    "gf2_window_cost": [_P] * 23 + [_I] * 21 + [_D] + [_F] * 6 + [_P] * 4,
+    "gf2_pg_cost": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 3,
+    "gf2_global_cost": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 3,
+    "gf2_triangulate": [_P] * 11 + [_I] * 2 + [_P] * 3,
+    "gf2_window_tests": ([_I] + [_P] * 5 + [_I] * 2 + [_P] * 6 + [_F] * 3
+                         + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 5 + [_P] * 4),
+    "gf2_window_update": ([_I] + [_P] * 8 + [_I] * 2 + [_P] * 5 + [_I]
+                          + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P]),
 }
 
 

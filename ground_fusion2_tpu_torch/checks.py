@@ -69,7 +69,7 @@ F32_FLOPS_PER_S = 67e12
 def bound(nbytes: float, flops: float) -> dict:
     """The least time the card could take: the larger of the bytes the
     function must move (each input read once, each output written once)
-    over the memory rate, and its operations over the f32 peak."""
+    over the memory rate, and its f32 operations over the f32 peak."""
     t_b = nbytes / HBM_BYTES_PER_S * 1e3
     t_f = flops / F32_FLOPS_PER_S * 1e3
     return dict(bound_ms=max(t_b, t_f),
@@ -1213,13 +1213,14 @@ GNSS_PIX_NOISE = 0.5 / 460.0
 GNSS_YAW = 0.3         # rad, the local → ENU yaw the sky is seen through
 
 
-def gnss_drive(n: int | None = None, F: int = 150):
+def gnss_drive(n: int | None = None, F: int = 150, epoch_every: int = 5):
     """tests/test_gnss_fused.py's drive, as ``data/runner.py`` builds it with
     ``use_gnss=True, fused=True`` (14 s at 10 Hz, 200 Hz IMU with noise, 1 m/s
     at 0.4 rad/s after a 1.5 s static prefix, 600 landmarks, the simulated
     tracker's F slots at 0.5/460, seed 7; a GnssSim sky (psr noise 0.5 m,
     Doppler 0.05 m/s) seen through the local→ENU yaw 0.3 rad, an
-    epoch every 5th frame), plus, as the M3DGR replay hands global fusion
+    epoch every ``epoch_every``-th frame: 5 there), plus, as the M3DGR
+    replay hands global fusion
     (``data/m3dgr_sim.py:361,375-382``), each epoch's SPP fix with ≥ 5
     satellites as ``gps_enu`` in the ENU frame of the first fix, std 1.5 m.
     One dict a frame: t, obs (ray, vel, depth, alive, fresh as numpy), imu,
@@ -1254,7 +1255,7 @@ def gnss_drive(n: int | None = None, F: int = 150):
         ray, vel, depth, alive, fresh = tracker.track(t, traj.p[i1], traj.q[i1])
         depth = depth * (rng.uniform(size=depth.shape) < 1.0)
         meas = gps = None
-        if k % 5 == 0:
+        if k % epoch_every == 0:
             # the clock bias integrates the advertised drift
             meas = gsim.measurements(t=50.0 + t, enu_pos=Rz @ traj.p[i1],
                                      enu_vel=Rz @ traj.v[i1],
@@ -1433,3 +1434,323 @@ def check_dyn_mask(device, x: dict, band: float = 1e-5) -> dict:
                 ms=time_ms(lambda: dm.dynamic_mask(*args, **kw)),
                 plain_ms=time_ms(lambda: dm.dynamic_mask_plain(*args, **kw),
                                  reps=5))
+
+
+# ---------------------------------------------------- kernels S, T, U, V
+# kernel S's cost against a float64 evaluation: S_COST_VS_PLAIN times the
+# plain route's own error there, at least S_COST_REL (as P's cost)
+S_COST_VS_PLAIN = 3.0
+S_COST_REL = 1e-6
+# plain-float flops of one evaluation of a live instance's residual, by
+# family (the dual counts of SMALL_FAMILIES without the tangents), and of
+# one observation's reprojection residual
+COST_FLOPS = dict(imu=700, wheel=550, plane=400, motion=200, posvel=20,
+                  gnss_psr=45, gnss_dopp=40, gnss_clock=15)
+PROJ_OBS_FLOPS = 250
+
+
+def check_window_cost(device, x0, meas, layout, cfg, deltas: dict,
+                      timed: bool = True) -> dict:
+    """Kernel S against the plain cost and a float64 evaluation at each of
+    ``deltas`` (name -> delta), twice for the same bits; the LM's
+    accept/reject of each delta against ``deltas["zero"]`` by both routes."""
+    cost_k = fac.window_cost_fn(x0, meas, layout, cfg)
+    per, ok, same, decided = {}, True, True, {}
+    c0 = None
+    for name, d in deltas.items():
+        ck, ck2 = cost_k(d), cost_k(d)
+        same = same and bool(torch.equal(ck, ck2))
+        cp = fac.window_cost_plain(x0, d, meas, layout, cfg)
+        c64 = float(fac.window_cost_plain(*_f64((x0, d, meas)), layout, cfg))
+        rel_k = abs(float(ck) - c64) / max(abs(c64), 1e-30)
+        rel_p = abs(float(cp) - c64) / max(abs(c64), 1e-30)
+        tol = max(S_COST_VS_PLAIN * rel_p, S_COST_REL)
+        per[name] = dict(cost=float(ck), plain=float(cp), f64=c64,
+                         rel_to_f64=rel_k, plain_rel_to_f64=rel_p, tol=tol)
+        ok = ok and rel_k <= tol
+        if c0 is None:
+            c0 = (ck, cp)
+        else:
+            decided[name] = dict(kernel=bool(ck < c0[0]), plain=bool(cp < c0[1]))
+    # bytes: the feature table, the packed rows and the prior in, the cost
+    # out; operations, in the function's f32 (the kernel's own f64 is its
+    # choice, not the work): each live observation's and instance's
+    # residual once, the prior's sqrt_J·dx
+    ft = meas.feats
+    n_obs = int((ft.obs_valid * ft.track_valid[:, None]).sum()) - int(
+        (ft.track_valid > 0).sum())
+    live = small_normal_live(meas, layout, cfg)
+    K = layout.frame_dim
+    flops = (n_obs * PROJ_OBS_FLOPS + 2 * K * K
+             + sum(n * COST_FLOPS[f] for f, n in live.items()))
+    nb = (_nbytes(ft.ray, ft.vel, ft.obs_valid, ft.track_valid, meas.imu.jac,
+                  meas.imu_sqrt_info, meas.wheel.jac_ix, meas.wheel_sqrt_info,
+                  meas.prior.sqrt_J, meas.prior.r0, x0.p, x0.q, x0.v, x0.rho)
+          + ft.anchor.numel() * 4 + layout.dim * 4 + 4
+          + (_nbytes(*meas.gnss) if cfg.use_gnss else 0))
+    d = deltas["zero"]
+    out = dict(max_abs_err=max(abs(p["cost"] - p["plain"]) for p in per.values()),
+               at=per, decisions=decided, repeat_equal=same,
+               decisions_equal=all(v["kernel"] == v["plain"]
+                                   for v in decided.values()),
+               ok=ok and same, library_ms=None, **bound(nb, flops))
+    if timed:
+        out["ms"] = time_ms(lambda: cost_k(d))
+        out["plain_ms"] = time_ms(
+            lambda: fac.window_cost_plain(x0, d, meas, layout, cfg), reps=5)
+    return out
+
+
+def check_pg_cost(device, args, seed: int = 0) -> dict:
+    """Kernel O's cost-only mode against the plain cost at a small nonzero
+    delta (SMALL_REL_TOL, as O's cost), and a repeated call bit for bit."""
+    from .posegraph import pose_graph as pgm
+    d = 6 if args[1].dim() == 2 else 4
+    N = args[0].shape[0]
+    rng = np.random.default_rng(seed)
+    delta = torch.as_tensor(rng.normal(scale=0.01, size=N * d),
+                            dtype=torch.float32, device=device)
+    fn = pgm.pg_cost_fn(*args)
+    ck, ck2 = fn(delta), fn(delta)
+    cp = pgm.pg_cost_plain(*args, delta)
+    err = _rel(ck, cp)
+    n_edges = N - 1 + args[4].shape[0]
+    nb = _nbytes(args[0], args[1], args[2][0], args[6][0], delta) + 4
+    return dict(max_abs_err=float((ck - cp).abs()), rel_err=err,
+                tol=SMALL_REL_TOL, repeat_equal=bool(torch.equal(ck, ck2)),
+                ok=bool(torch.equal(ck, ck2)) and err <= SMALL_REL_TOL,
+                library_ms=None, **bound(nb, n_edges * 120),
+                ms=time_ms(lambda: fn(delta)),
+                plain_ms=time_ms(lambda: pgm.pg_cost_plain(*args, delta),
+                                 reps=5))
+
+
+def check_global_cost(device, g, seed: int = 0) -> dict:
+    """Kernel Q's cost-only mode against the plain cost over ``global_opt``'s
+    rows at a small nonzero delta (SMALL_REL_TOL), twice for the same bits."""
+    from .gnss import global_opt as go
+    N = g.p.shape[0]
+    rng = np.random.default_rng(seed)
+    delta = torch.as_tensor(rng.normal(scale=0.01, size=6 * N),
+                            dtype=torch.float32, device=device)
+    fn = go.graph_cost_fn(g)
+    ck, ck2 = fn(delta), fn(delta)
+    cp = go.graph_cost_plain(g, delta)
+    err = _rel(ck, cp)
+    nb = _nbytes(*g) + _nbytes(delta) + 4
+    return dict(max_abs_err=float((ck - cp).abs()), rel_err=err,
+                tol=SMALL_REL_TOL, repeat_equal=bool(torch.equal(ck, ck2)),
+                ok=bool(torch.equal(ck, ck2)) and err <= SMALL_REL_TOL,
+                library_ms=None, **bound(nb, (3 * N - 1) * 300),
+                ms=time_ms(lambda: fn(delta)),
+                plain_ms=time_ms(lambda: go.graph_cost_plain(g, delta),
+                                 reps=5))
+
+
+TRI_GAP = 1e-4       # kernel T: rho and done held where (λ1 − λ0)/λ3 > this
+TRI_RHO_REL = 1e-4   # rho against the plain route in float64, or 3× the
+                     # plain route's own error there where that is larger
+TRI_GATE_BAND = 1e-4  # done may differ where z lies this close to a gate
+
+
+def dlt_normals(fw, x):
+    """Each track's DLT normal matrix [F, 4, 4] as ``triangulate`` forms it,
+    in float64, with its eigenvalues' gap (λ1 − λ0)/λ3 and the anchor-frame
+    depth of its smallest eigenvector."""
+    d = lambda t: t.detach().double()
+    q_wc = lie.quat_mul(d(x.q), d(x.qic)[None])
+    t_wc = lie.quat_rotate(d(x.q), d(x.tic)[None]) + d(x.p)
+    R = lie.quat_to_mat(lie.quat_conj(q_wc))
+    t = -(R @ t_wc[..., None])[..., 0]
+    P = torch.cat([R, t[:, :, None]], -1)
+    ray, m = d(fw.ray), d(fw.obs_valid)[..., None]
+    r0 = ray[..., :1] * P[None, :, 2] - P[None, :, 0]
+    r1 = ray[..., 1:] * P[None, :, 2] - P[None, :, 1]
+    A = torch.cat([r0 * m, r1 * m], 1)
+    N = A.transpose(1, 2) @ A
+    lam, V = torch.linalg.eigh(N)
+    h = V[..., 0]
+    hw = h[:, 3:]
+    p_w = h[:, :3] / torch.where(hw.abs() > 1e-8, hw, torch.full_like(hw, 1e-8))
+    z = ((R[fw.anchor] @ p_w[..., None])[..., 0] + t[fw.anchor])[:, 2]
+    gap = (lam[:, 1] - lam[:, 0]) / lam[:, 3].clamp(min=1e-300)
+    return N, gap, z
+
+
+def check_triangulate(device, fw, x, rho, uninit) -> dict:
+    """Kernel T against the plain route (f32 ``eigh``) and its float64
+    evaluation: ``done`` equal on the tracks with an eigengap > TRI_GAP and
+    a depth off the gates, rho there within max(TRI_RHO_REL, 3× the plain
+    route's error) of float64; twice the same bits. The library column is
+    ``torch.linalg.eigh`` on the [F, 4, 4] normal matrices."""
+    from .vio import feature_window as fwm
+    rk, dk = fwm.triangulate(fw, x, rho, uninit)
+    rk2, dk2 = fwm.triangulate(fw, x, rho, uninit)
+    same = bool(torch.equal(rk, rk2) and torch.equal(dk, dk2))
+    rp, dp = fwm.triangulate_plain(fw, x, rho, uninit)
+    fw64 = _f64(fw)
+    r64, _ = fwm.triangulate_plain(fw64, _f64(x), rho.double(), uninit.double())
+    Nm, gap, z = dlt_normals(fw, x)
+    held = ((gap > TRI_GAP) & ((z - 0.1).abs() > TRI_GATE_BAND)
+            & ((z - 100.0).abs() > TRI_GATE_BAND))
+    done_ok = bool(torch.equal(dk[held], dp[held]))
+    on = held & dk & dp
+    e_k = (rk.double() - r64).abs()[on]
+    e_p = (rp.double() - r64).abs()[on]
+    tol = torch.maximum(TRI_RHO_REL * r64.abs()[on], 3.0 * e_p)
+    rho_ok = bool((e_k <= tol).all())
+    F, W = fw.obs_valid.shape
+    n_obs = int(fw.obs_valid.sum())
+    N32 = Nm.float().contiguous()
+    # bytes: rays, masks, anchors, flags, rho and the pose in, rho and done
+    # out; operations, in the function's f32 (the kernel's f64 Jacobi is its
+    # own choice, not the work): two 4-wide DLT rows (8 each) and their 4×4
+    # outer products (32 each) an observation, a 4×4 eigh with vectors
+    # (9·4³, as check_linalg counts eigh) and the finish (~30) a track
+    nb = (_nbytes(fw.ray, fw.obs_valid, fw.anchor, fw.track_valid,
+                  fw.depth_fixed, uninit, rho, x.p, x.q) + F * 4 + F)
+    flops = n_obs * 2 * (8 + 32) + F * (9 * 4 ** 3 + 30)
+    return dict(max_abs_err=float((rk - rp).abs().max()),
+                rho_rel_max=float(((rk - rp).abs() / rp.abs()).max()),
+                done_equal_held=done_ok, rho_within_tol=rho_ok,
+                held=int(held.sum()), excused=int((~held).sum()),
+                done=int(dk.sum()), repeat_equal=same,
+                ok=same and done_ok and rho_ok and bool(on.any()),
+                **bound(nb, flops),
+                ms=time_ms(lambda: fwm.triangulate(fw, x, rho, uninit)),
+                plain_ms=time_ms(lambda: fwm.triangulate_plain(
+                    fw, x, rho, uninit), reps=5),
+                library_ms=time_ms(lambda: torch.linalg.eigh(N32), reps=10))
+
+
+def window_stage_inputs(fv):
+    """FusedVio ``fv``'s final window for kernels T, U and V: the window and
+    state, a frame of the newest column's observations with the live tracks
+    it does not hold marked fresh (add_frame's input), and the detector
+    inputs of the newest interval (dp_imu, dp_whl, qio, imu_valid, acc,
+    smask)."""
+    from .vio import feature_window as fwm
+    c = fv.carry
+    fw, st = c.fw, c.state
+    W = fw.obs_valid.shape[1]
+    meas = carry_measurements(fv)
+    alive = c.tracker.alive
+    obs = fwm.FrameObs(ray=fw.ray[:, W - 1].contiguous(),
+                       vel=fw.vel[:, W - 1].contiguous(),
+                       depth=fw.depth[:, W - 1].contiguous(), alive=alive,
+                       fresh=alive * (1.0 - fw.obs_valid[:, W - 1]))
+    interval = (meas.imu.dp, meas.wheel.dp, st.qio, c.imu_valid, c.acc,
+                c.smask)
+    return fw, st, obs, interval
+
+
+U_ERR_BAND = 1e-5    # kernel U: a keep flag may differ only where the mean
+                     # error lies this close (relative) to outlier_px
+U_PAR_BAND = 1e-6    # an is_kf only where mean_par lies this close to
+                     # min_parallax
+
+
+def _mean_errors(fw, x, focal: float):
+    """Each track's mean reprojection error in pixels (``outlier_mask``)."""
+    from .vio.feature_window import to_factor_table
+    r, w = fac.projection_residuals(x, to_factor_table(fw), 1.0,
+                                    huber_delta=1e9)
+    err = torch.linalg.norm(r, dim=-1) * focal
+    wobs = w[..., 0]
+    return (err * wobs).sum(1) / torch.clamp(wobs.sum(1), min=1.0)
+
+
+def check_window_tests(device, fw, x, s, stationary, interval, k: int) -> dict:
+    """Kernel U in both modes against the plain versions: after the solve
+    (the outlier gate at ``s.outlier_px``, then the keyframe test) and before
+    it (the detectors of interval ``k``; ``interval``: dp_imu, dp_whl, qio,
+    imu_valid, acc, smask). Flags and masks equal, except a keep flag whose
+    track's mean error lies within U_ERR_BAND of outlier_px and an is_kf
+    whose mean parallax lies within U_PAR_BAND of min_parallax; twice the
+    same bits."""
+    from .vio import feature_window as fwm
+    post = (fw, x, s.outlier_px, s.focal, s.min_parallax, s.min_tracked,
+            stationary)
+    tk, kk, pk = fwm.post_solve_tests(*post)
+    again = fwm.post_solve_tests(*post)
+    tp, kp, pp = fwm.post_solve_tests_plain(*post)
+    pre = (fw, *interval, k, s)
+    ak, sk = fwm.presolve_tests(*pre)
+    ak2, sk2 = fwm.presolve_tests(*pre)
+    ap, sp = fwm.presolve_tests_plain(*pre)
+    same = (all(bool(torch.equal(a, b)) for a, b in zip((tk, kk, pk), again))
+            and bool(torch.equal(ak, ak2) and torch.equal(sk, sk2)))
+    near = ((_mean_errors(fw, x, s.focal) - s.outlier_px).abs()
+            <= U_ERR_BAND * s.outlier_px)
+    keep_ok = bool(((tk != tp) & ~near).sum() == 0)
+    kf_ok = bool(kk == kp) or abs(float(pp) - s.min_parallax) <= U_PAR_BAND
+    pre_ok = bool(ak == ap) and bool(sk == sp)
+    F, W = fw.obs_valid.shape
+    n_obs = int(fw.obs_valid.sum())
+    M = interval[5].shape[-1]
+    # bytes: the window's rays, masks and anchors, the state in, the flags
+    # out (post); the interval's samples and the two columns' rays (pre).
+    # operations: a residual an observation, the parallax a track; the
+    # interval's mean and variance
+    nb_post = (_nbytes(fw.ray, fw.vel, fw.obs_valid, fw.anchor,
+                       fw.track_valid, x.p, x.q, x.rho) + F * 4 + 12)
+    nb_pre = (F * (2 * 2 * 4 + 2 * 4 + 4) + (M + 1) * 12 + M * 4 + 16)
+    out = dict(max_abs_err=float((pk - pp).abs()), keep_equal_off_band=keep_ok,
+               keep_near_band=int(near.sum()), is_kf_ok=kf_ok,
+               presolve_flags_equal=pre_ok, repeat_equal=same,
+               is_kf=bool(kk), stationary=bool(sk), anomaly=bool(ak),
+               dropped=int((fw.track_valid - tk).sum()),
+               ok=same and keep_ok and kf_ok and pre_ok, library_ms=None,
+               **bound(nb_post, n_obs * PROJ_OBS_FLOPS + 8 * F))
+    out["presolve"] = dict(**bound(nb_pre, 8 * F + 12 * (M + 1)),
+                           ms=time_ms(lambda: fwm.presolve_tests(*pre)),
+                           plain_ms=time_ms(
+                               lambda: fwm.presolve_tests_plain(*pre), reps=5))
+    out["ms"] = time_ms(lambda: fwm.post_solve_tests(*post))
+    out["plain_ms"] = time_ms(lambda: fwm.post_solve_tests_plain(*post),
+                              reps=5)
+    return out
+
+
+V_RHO_REL = 1e-6     # kernel V: a re-anchored rho (quaternion rotations
+                     # rounded in another order); everything else bit-exact
+
+
+def check_window_update(device, fw, x, rho, obs, col: int) -> dict:
+    """Kernel V's three modes (add_frame at ``col``, slide_oldest,
+    slide_second_newest) against the plain versions: every output bit-exact
+    but a re-anchored rho (V_RHO_REL); twice the same bits."""
+    from .vio import feature_window as fwm
+    runs = dict(
+        add_frame=(lambda: fwm.add_frame(fw, obs, col, rho),
+                   lambda: fwm.add_frame_plain(fw, obs, col, rho)),
+        slide_oldest=(lambda: fwm.slide_oldest(fw, x, rho),
+                      lambda: fwm.slide_oldest_plain(fw, x, rho)),
+        slide_second_newest=(lambda: fwm.slide_second_newest(fw, x, rho),
+                             lambda: fwm.slide_second_newest_plain(fw, x, rho)))
+    F, W = fw.obs_valid.shape
+    modes, ok, err = {}, True, 0.0
+    for name, (kern, plain) in runs.items():
+        (wk, rk), (wk2, rk2), (wp, rp) = kern(), kern(), plain()
+        same = all(bool(torch.equal(a, b)) for a, b in zip((*wk, rk),
+                                                          (*wk2, rk2)))
+        fields = {f: bool(torch.equal(getattr(wk, f), getattr(wp, f)))
+                  for f in wk._fields}
+        moved = rk != rp
+        rel = float(((rk - rp).abs() / rp.abs().clamp(min=1e-30))[moved].max()) \
+            if bool(moved.any()) else 0.0
+        # bytes: the window in and out; a mode reads each [F, W] array once
+        nb = 2 * _nbytes(*wk, rk) + (_nbytes(*obs) if name == "add_frame"
+                                     else _nbytes(x.p, x.q))
+        m_ok = same and all(fields.values()) and rel <= V_RHO_REL
+        modes[name] = dict(fields_equal=fields, rho_rel=rel,
+                           rho_moved=int(moved.sum()), repeat_equal=same,
+                           ok=m_ok, **bound(nb, F * (W * 12 + 120)),
+                           ms=time_ms(kern),
+                           plain_ms=time_ms(plain, reps=5))
+        ok = ok and m_ok
+        err = max(err, float((rk - rp).abs().max()))
+    a = modes["add_frame"]
+    return dict(max_abs_err=err, modes=modes, ok=ok, library_ms=None,
+                ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
+                bound_by=a["bound_by"])

@@ -20,6 +20,9 @@
 // anchor a) and adds their rows into H and g. Each row has one writer: no
 // float atomics, the same bits from the same inputs.
 //
+// Cost-only mode (`gf2_global_cost`, the LM's trial steps): the same
+// residuals on plain values, no duals and no H or g, the same sum order.
+//
 // Bounds on the card: ~770 instances × ≤ 12 lanes of ≤ ~400-flop dual
 // residuals, and H written once (9.4 MB at N = 256, f32): bytes-bound at
 // ~3 µs.
@@ -54,6 +57,61 @@ __device__ __forceinline__ int n_cols(int kind) {
   return kind == REL ? 12 : (kind == GPS ? 3 : 6);
 }
 
+// the rows of instance e with the tangent of local column s (s < 0: none);
+// returns the row count and sets the weight
+template <class T>
+__device__ __forceinline__ int instance_residual(int N, int e, int s,
+                                                 const float* __restrict__ nodes,
+                                                 const float* __restrict__ edges,
+                                                 const float* __restrict__ delta,
+                                                 float w_t, float w_r, T* r,
+                                                 float* w) {
+  int kind, k;
+  instance(N, e, &kind, &k);
+  if (kind == REL) {
+    const float* ni = nodes + (size_t)kNode * k;
+    const float* nj = ni + kNode;
+    const float* m = edges + (size_t)kEdge * k;
+    V3T<T> pi = retract_v3<T>(ni, delta + 6 * k, s, 0);
+    Q4T<T> qi = retract_q<T>(ni + 3, delta + 6 * k + 3, s, 3);
+    V3T<T> pj = retract_v3<T>(nj, delta + 6 * (k + 1), s, 6);
+    Q4T<T> qj = retract_q<T>(nj + 3, delta + 6 * (k + 1) + 3, s, 9);
+    const Q4T<T> ci = qconj(qi);
+    V3T<T> dp = qrot(ci, pj - pi);
+    V3T<T> rr = qboxminus(qmul(ci, qj), q4<T>(m + 3));
+    r[0] = (dp.x - cst<T>(m[0])) * cst<T>(w_t);
+    r[1] = (dp.y - cst<T>(m[1])) * cst<T>(w_t);
+    r[2] = (dp.z - cst<T>(m[2])) * cst<T>(w_t);
+    r[3] = rr.x * cst<T>(w_r);
+    r[4] = rr.y * cst<T>(w_r);
+    r[5] = rr.z * cst<T>(w_r);
+    *w = m[7];
+    return 6;
+  }
+  const float* nd = nodes + (size_t)kNode * k;
+  if (kind == GPS) {
+    V3T<T> p = retract_v3<T>(nd, delta + 6 * k, s, 0);
+    const T sd = cst<T>(fmaxf(nd[10], 1e-3f));
+    r[0] = (p.x - cst<T>(nd[7])) / sd;
+    r[1] = (p.y - cst<T>(nd[8])) / sd;
+    r[2] = (p.z - cst<T>(nd[9])) / sd;
+    *w = nd[11];
+    return 3;
+  }
+  V3T<T> p = retract_v3<T>(nd, delta + 6 * k, s, 0);
+  Q4T<T> q = retract_q<T>(nd + 3, delta + 6 * k + 3, s, 3);
+  const float inv = 1.f / fmaxf(nd[19], 1e-3f);
+  V3T<T> rq = qboxminus(q, q4<T>(nd + 15));
+  r[0] = (p.x - cst<T>(nd[12])) * cst<T>(inv);
+  r[1] = (p.y - cst<T>(nd[13])) * cst<T>(inv);
+  r[2] = (p.z - cst<T>(nd[14])) * cst<T>(inv);
+  r[3] = (rq.x * cst<T>(inv)) * cst<T>(10.f);
+  r[4] = (rq.y * cst<T>(inv)) * cst<T>(10.f);
+  r[5] = (rq.z * cst<T>(inv)) * cst<T>(10.f);
+  *w = nd[20];
+  return 6;
+}
+
 __global__ void instance_kernel(int N, const float* __restrict__ nodes,
                                 const float* __restrict__ edges,
                                 const float* __restrict__ delta, float w_t,
@@ -68,51 +126,8 @@ __global__ void instance_kernel(int N, const float* __restrict__ nodes,
   const int ncol = n_cols(kind);
   const int s = lane < ncol ? lane : -1;
   Dual r[6];
-  int rows;
   float w;
-  if (kind == REL) {
-    const float* ni = nodes + (size_t)kNode * k;
-    const float* nj = ni + kNode;
-    const float* m = edges + (size_t)kEdge * k;
-    V3 pi = retract_v3(ni, delta + 6 * k, s, 0);
-    Q4 qi = retract_q(ni + 3, delta + 6 * k + 3, s, 3);
-    V3 pj = retract_v3(nj, delta + 6 * (k + 1), s, 6);
-    Q4 qj = retract_q(nj + 3, delta + 6 * (k + 1) + 3, s, 9);
-    const Q4 ci = qconj(qi);
-    V3 dp = qrot(ci, pj - pi);
-    V3 rr = qboxminus(qmul(ci, qj), q4(m + 3));
-    r[0] = (dp.x - mk(m[0])) * mk(w_t);
-    r[1] = (dp.y - mk(m[1])) * mk(w_t);
-    r[2] = (dp.z - mk(m[2])) * mk(w_t);
-    r[3] = rr.x * mk(w_r);
-    r[4] = rr.y * mk(w_r);
-    r[5] = rr.z * mk(w_r);
-    rows = 6;
-    w = m[7];
-  } else if (kind == GPS) {
-    const float* nd = nodes + (size_t)kNode * k;
-    V3 p = retract_v3(nd, delta + 6 * k, s, 0);
-    const Dual sd = mk(fmaxf(nd[10], 1e-3f));
-    r[0] = (p.x - mk(nd[7])) / sd;
-    r[1] = (p.y - mk(nd[8])) / sd;
-    r[2] = (p.z - mk(nd[9])) / sd;
-    rows = 3;
-    w = nd[11];
-  } else {
-    const float* nd = nodes + (size_t)kNode * k;
-    V3 p = retract_v3(nd, delta + 6 * k, s, 0);
-    Q4 q = retract_q(nd + 3, delta + 6 * k + 3, s, 3);
-    const float inv = 1.f / fmaxf(nd[19], 1e-3f);
-    V3 rq = qboxminus(q, q4(nd + 15));
-    r[0] = (p.x - mk(nd[12])) * mk(inv);
-    r[1] = (p.y - mk(nd[13])) * mk(inv);
-    r[2] = (p.z - mk(nd[14])) * mk(inv);
-    r[3] = (rq.x * mk(inv)) * mk(10.f);
-    r[4] = (rq.y * mk(inv)) * mk(10.f);
-    r[5] = (rq.z * mk(inv)) * mk(10.f);
-    rows = 6;
-    w = nd[20];
-  }
+  const int rows = instance_residual(N, e, s, nodes, edges, delta, w_t, w_r, r, &w);
   for (int a = 0; a < rows; ++a) {
     sJ[a][lane] = s >= 0 ? r[a].d : 0.f;
     if (lane == 0) sr[a] = r[a].v;
@@ -171,6 +186,30 @@ __global__ void row_kernel(int N, const float* __restrict__ part_H,
   }
 }
 
+// Cost-only mode: the same residuals on plain values, each instance's
+// 0.5·Σ(w·r)² as the instance pass forms it, summed over the instances in
+// index order as the row pass does. One block; no duals, no H or g.
+__global__ void cost_kernel(int N, const float* __restrict__ nodes,
+                            const float* __restrict__ edges,
+                            const float* __restrict__ delta, float w_t, float w_r,
+                            float* __restrict__ part_c, float* __restrict__ cost) {
+  const int n_inst = 3 * N - 1;
+  for (int e = threadIdx.x; e < n_inst; e += blockDim.x) {
+    float r[6], w;
+    const int rows = instance_residual<float>(N, e, -1, nodes, edges, delta, w_t,
+                                              w_r, r, &w);
+    float c = 0.f;
+    for (int a = 0; a < rows; ++a) c += (r[a] * w) * (r[a] * w);
+    part_c[e] = 0.5f * c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float c = 0.f;
+    for (int e = 0; e < n_inst; ++e) c += part_c[e];
+    cost[0] = c;
+  }
+}
+
 }  // namespace
 
 // nodes: [N, 21] (p, q, anchor_p, anchor_std, anchor_valid, tag_p, tag_q,
@@ -193,5 +232,15 @@ extern "C" int gf2_global_normal(const float* nodes, const float* edges,
   if (e != cudaSuccess) return (int)e;
   const int D = 6 * N;
   row_kernel<<<(D + 127) / 128, 128, 0, st>>>(N, part_H, part_g, part_c, H, g, cost);
+  return (int)cudaGetLastError();
+}
+
+// The cost alone at delta (the LM's trial steps); scratch: 3N-1 floats.
+extern "C" int gf2_global_cost(const float* nodes, const float* edges,
+                               const float* delta, int N, float w_t, float w_r,
+                               float* scratch, float* cost, void* stream) {
+  if (N < 2) return (int)cudaErrorInvalidValue;
+  cost_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(N, nodes, edges, delta, w_t, w_r,
+                                                   scratch, cost);
   return (int)cudaGetLastError();
 }

@@ -19,6 +19,9 @@
 // loop edges in index order) and adds their rows into H and g. Each row has
 // one writer: no float atomics, the same bits from the same inputs.
 //
+// Cost-only mode (`gf2_pg_cost`, the LM's trial steps): the same edge
+// residuals on plain values, no duals and no H or g, the same sum order.
+//
 // Bounds on the card: ≤ 575 edges × ≤ 24 lanes of ~300-flop dual residuals,
 // and H written once (16.8 MB at 4·512, 37.7 MB at 6·512, f32): bytes bound
 // at the large tiers, launch bound at the small.
@@ -50,12 +53,70 @@ __device__ __forceinline__ void edge_nodes(const Edges& E, int e, int* i, int* j
 }
 
 // (a + π) mod 2π − π, the remainder taking the divisor's sign
-__device__ __forceinline__ Dual wrap(Dual a) {
+__device__ __forceinline__ float wrap(float a) {
   const float pi = 3.14159265358979323846f, two_pi = 6.28318530717958647692f;
-  const float x = a.v + pi;
+  const float x = a + pi;
   float m = fmodf(x, two_pi);
   if (m != 0.f && (m < 0.f) != (two_pi < 0.f)) m += two_pi;
-  return {m - pi, a.d};
+  return m - pi;
+}
+__device__ __forceinline__ Dual wrap(Dual a) { return {wrap(a.v), a.d}; }
+
+// the rows of edge e with the tangent of local column s (s < 0: none);
+// returns the row count and sets the weight
+template <class T>
+__device__ __forceinline__ int edge_residual(
+    const Edges& E, int e, int s, const float* __restrict__ p0,
+    const float* __restrict__ r0, const float* __restrict__ delta,
+    const float* __restrict__ meas, const float* __restrict__ valid, float w_t,
+    float w_r, float wl_t, float wl_r, T* r, float* w) {
+  int i, j;
+  edge_nodes(E, e, &i, &j);
+  const bool loop = e >= E.n_seq;
+  const float wt = loop ? wl_t : w_t, wr = loop ? wl_r : w_r;
+  *w = valid[e];
+  if (E.d == 4) {
+    const float* m = meas + 4 * e;
+    V3T<T> pi = retract_v3<T>(p0 + 3 * i, delta + 4 * i, s, 0);
+    T yi = var<T>(r0[i] + delta[4 * i + 3], s, 3);
+    V3T<T> pj = retract_v3<T>(p0 + 3 * j, delta + 4 * j, s, 4);
+    T yj = var<T>(r0[j] + delta[4 * j + 3], s, 7);
+    T c = dcos(yi), sn = dsin(yi);
+    V3T<T> dp = pj - pi;
+    // rzT(yaw) @ dp with its zero entries, as the einsum sums them
+    T ex = c * dp.x + sn * dp.y + cst<T>(0.f) * dp.z;
+    T ey = (-sn) * dp.x + c * dp.y + cst<T>(0.f) * dp.z;
+    T ez = cst<T>(0.f) * dp.x + cst<T>(0.f) * dp.y + cst<T>(1.f) * dp.z;
+    r[0] = (ex - cst<T>(m[0])) * cst<T>(wt);
+    r[1] = (ey - cst<T>(m[1])) * cst<T>(wt);
+    r[2] = (ez - cst<T>(m[2])) * cst<T>(wt);
+    r[3] = wrap((yj - yi) - cst<T>(m[3])) * cst<T>(wr);
+    return 4;
+  }
+  const float* m = meas + 7 * e;
+  V3T<T> pi = retract_v3<T>(p0 + 3 * i, delta + 6 * i, s, 0);
+  Q4T<T> qi = retract_q<T>(r0 + 4 * i, delta + 6 * i + 3, s, 3);
+  V3T<T> pj = retract_v3<T>(p0 + 3 * j, delta + 6 * j, s, 6);
+  Q4T<T> qj = retract_q<T>(r0 + 4 * j, delta + 6 * j + 3, s, 9);
+  // quat_to_mat(conj(qi)) @ (pj - pi)
+  Q4T<T> c = qconj(qi);
+  T xx = c.x * c.x, yy = c.y * c.y, zz = c.z * c.z;
+  T wx = c.w * c.x, wy = c.w * c.y, wz = c.w * c.z;
+  T xy = c.x * c.y, xz = c.x * c.z, yz = c.y * c.z;
+  T M[3][3] = {{cst<T>(1.f) - 2.f * (yy + zz), 2.f * (xy - wz), 2.f * (xz + wy)},
+               {2.f * (xy + wz), cst<T>(1.f) - 2.f * (xx + zz), 2.f * (yz - wx)},
+               {2.f * (xz - wy), 2.f * (yz + wx), cst<T>(1.f) - 2.f * (xx + yy)}};
+  V3T<T> dp = pj - pi;
+  T v[3] = {dp.x, dp.y, dp.z};
+  for (int a = 0; a < 3; ++a) {
+    T acc = M[a][0] * v[0] + M[a][1] * v[1] + M[a][2] * v[2];
+    r[a] = (acc - cst<T>(m[a])) * cst<T>(wt);
+  }
+  V3T<T> rr = qboxminus(qmul(c, qj), q4<T>(m + 3));
+  r[3] = rr.x * cst<T>(wr);
+  r[4] = rr.y * cst<T>(wr);
+  r[5] = rr.z * cst<T>(wr);
+  return 6;
 }
 
 __global__ void edge_kernel(Edges E, const float* __restrict__ p0,
@@ -71,56 +132,10 @@ __global__ void edge_kernel(Edges E, const float* __restrict__ p0,
   const int e = blockIdx.x, lane = threadIdx.x, d = E.d;
   const int ncol = 2 * d;
   const int s = lane < ncol ? lane : -1;
-  int i, j;
-  edge_nodes(E, e, &i, &j);
-  const bool loop = e >= E.n_seq;
-  const float wt = loop ? wl_t : w_t, wr = loop ? wl_r : w_r;
-  const float w = valid[e];
   Dual r[6];
-  int rows;
-  if (d == 4) {
-    const float* m = meas + 4 * e;
-    V3 pi = retract_v3(p0 + 3 * i, delta + 4 * i, s, 0);
-    Dual yi = mk(r0[i] + delta[4 * i + 3], seed(s, 3));
-    V3 pj = retract_v3(p0 + 3 * j, delta + 4 * j, s, 4);
-    Dual yj = mk(r0[j] + delta[4 * j + 3], seed(s, 7));
-    Dual c = dcos(yi), sn = dsin(yi);
-    V3 dp = pj - pi;
-    // rzT(yaw) @ dp with its zero entries, as the einsum sums them
-    Dual ex = c * dp.x + sn * dp.y + mk(0.f) * dp.z;
-    Dual ey = (-sn) * dp.x + c * dp.y + mk(0.f) * dp.z;
-    Dual ez = mk(0.f) * dp.x + mk(0.f) * dp.y + mk(1.f) * dp.z;
-    r[0] = (ex - mk(m[0])) * mk(wt);
-    r[1] = (ey - mk(m[1])) * mk(wt);
-    r[2] = (ez - mk(m[2])) * mk(wt);
-    r[3] = wrap((yj - yi) - mk(m[3])) * mk(wr);
-    rows = 4;
-  } else {
-    const float* m = meas + 7 * e;
-    V3 pi = retract_v3(p0 + 3 * i, delta + 6 * i, s, 0);
-    Q4 qi = retract_q(r0 + 4 * i, delta + 6 * i + 3, s, 3);
-    V3 pj = retract_v3(p0 + 3 * j, delta + 6 * j, s, 6);
-    Q4 qj = retract_q(r0 + 4 * j, delta + 6 * j + 3, s, 9);
-    // quat_to_mat(conj(qi)) @ (pj - pi)
-    Q4 c = qconj(qi);
-    Dual xx = c.x * c.x, yy = c.y * c.y, zz = c.z * c.z;
-    Dual wx = c.w * c.x, wy = c.w * c.y, wz = c.w * c.z;
-    Dual xy = c.x * c.y, xz = c.x * c.z, yz = c.y * c.z;
-    Dual M[3][3] = {{mk(1.f) - 2.f * (yy + zz), 2.f * (xy - wz), 2.f * (xz + wy)},
-                    {2.f * (xy + wz), mk(1.f) - 2.f * (xx + zz), 2.f * (yz - wx)},
-                    {2.f * (xz - wy), 2.f * (yz + wx), mk(1.f) - 2.f * (xx + yy)}};
-    V3 dp = pj - pi;
-    Dual v[3] = {dp.x, dp.y, dp.z};
-    for (int a = 0; a < 3; ++a) {
-      Dual acc = M[a][0] * v[0] + M[a][1] * v[1] + M[a][2] * v[2];
-      r[a] = (acc - mk(m[a])) * mk(wt);
-    }
-    V3 rr = qboxminus(qmul(c, qj), q4(m + 3));
-    r[3] = rr.x * mk(wr);
-    r[4] = rr.y * mk(wr);
-    r[5] = rr.z * mk(wr);
-    rows = 6;
-  }
+  float w;
+  const int rows = edge_residual(E, e, s, p0, r0, delta, meas, valid, w_t, w_r,
+                                 wl_t, wl_r, r, &w);
   for (int a = 0; a < rows; ++a) {
     sJ[a][lane] = s >= 0 ? r[a].d : 0.f;
     if (lane == 0) sr[a] = r[a].v;
@@ -188,6 +203,33 @@ __global__ void row_kernel(Edges E, const float* __restrict__ part_H,
   }
 }
 
+// Cost-only mode: the same residuals on plain values, each edge's
+// 0.5·Σ(w·r)² as the edge pass forms it, summed over the edges in index
+// order as the row pass does. One block; no duals, no H or g.
+__global__ void cost_kernel(Edges E, const float* __restrict__ p0,
+                            const float* __restrict__ r0,
+                            const float* __restrict__ delta,
+                            const float* __restrict__ meas,
+                            const float* __restrict__ valid, float w_t, float w_r,
+                            float wl_t, float wl_r, float* __restrict__ part_c,
+                            float* __restrict__ cost) {
+  const int n_edges = E.n_seq + E.n_loop;
+  for (int e = threadIdx.x; e < n_edges; e += blockDim.x) {
+    float r[6], w;
+    const int rows = edge_residual<float>(E, e, -1, p0, r0, delta, meas, valid, w_t,
+                                          w_r, wl_t, wl_r, r, &w);
+    float c = 0.f;
+    for (int a = 0; a < rows; ++a) c += (r[a] * w) * (r[a] * w);
+    part_c[e] = 0.5f * c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float c = 0.f;
+    for (int e = 0; e < n_edges; ++e) c += part_c[e];
+    cost[0] = c;
+  }
+}
+
 }  // namespace
 
 // d = 4: r0 = yaw0 [N], meas [E, 4] (dp, dyaw); d = 6: r0 = q0 [N, 4], meas
@@ -214,5 +256,18 @@ extern "C" int gf2_pg_normal(const float* p0, const float* r0, const float* delt
   if (e != cudaSuccess) return (int)e;
   const int D = N * d;
   row_kernel<<<(D + 127) / 128, 128, 0, st>>>(E, part_H, part_g, part_c, H, g, cost);
+  return (int)cudaGetLastError();
+}
+
+// The cost alone at delta (the LM's trial steps); scratch: E floats.
+extern "C" int gf2_pg_cost(const float* p0, const float* r0, const float* delta,
+                           const float* meas, const float* valid, const int* loop_i,
+                           const int* loop_j, int N, int d, int n_loop, float w_t,
+                           float w_r, float wl_t, float wl_r, float* scratch,
+                           float* cost, void* stream) {
+  if (d != 4 && d != 6) return (int)cudaErrorInvalidValue;
+  Edges E{N, d, N - 1, n_loop, loop_i, loop_j};
+  cost_kernel<<<1, 256, 0, (cudaStream_t)stream>>>(E, p0, r0, delta, meas, valid, w_t,
+                                                   w_r, wl_t, wl_r, scratch, cost);
   return (int)cudaGetLastError();
 }

@@ -15,7 +15,8 @@
 // delta (quaternions as q ⊗ exp(δθ), as the JAX retraction does), so the
 // Jacobian equals jacfwd's including the SO(3) right-Jacobian factor. The
 // Huber weight is taken from the value and held constant, as jacfwd of
-// `residual_fn(d)[0]` does.
+// `residual_fn(d)[0]` does. The residual is csrc/window_rows.cuh's
+// `proj_residual`, which kernels S and U evaluate without duals.
 //
 // Determinism: no float atomics. Each feature sums its observations' w²·JᵀJ
 // and w²·Jᵀr, in frame order, into a compact block over the 74 columns a
@@ -32,7 +33,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "dual.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
@@ -78,43 +79,13 @@ __global__ void proj_feature_kernel(
     else if (k == 18) loc = 6 * W + 6;
     else loc = 6 * W + 7;
 
-    V3 pa, pj, tic;
-    Q4 qa, qj, qic;
-    pa = retract_v3(P + 3 * a, delta + pose_off + 6 * a, k, 0);
-    qa = retract_q(Q + 4 * a, delta + pose_off + 6 * a + 3, k, 3);
-    pj = retract_v3(P + 3 * j, delta + pose_off + 6 * j, k, 6);
-    qj = retract_q(Q + 4 * j, delta + pose_off + 6 * j + 3, k, 9);
-    tic = retract_v3(tic0, delta + cam_off, k, 12);
-    qic = retract_q(qic0, delta + cam_off + 3, k, 15);
-    Dual td = mk(td0[0] + delta[td_off], seed(k, 18));
-    Dual rho = mk(rho0[f] + delta[rho_off + f], seed(k, 19));
+    Dual rx, ry;
+    const float z = proj_residual<Dual>(f, a, j, k, W, P, Q, tic0, qic0, td0, rho0,
+                                        delta, ray, vel, pose_off, cam_off, td_off,
+                                        rho_off, sqrt_info, min_depth, &rx, &ry);
 
-    const float* ra = ray + (f * W + a) * 2;
-    const float* va = vel + (f * W + a) * 2;
-    const float* rj = ray + (f * W + j) * 2;
-    const float* vj = vel + (f * W + j) * 2;
-    Dual ua = mk(ra[0]) - td * mk(va[0]);
-    Dual wa = mk(ra[1]) - td * mk(va[1]);
-    Dual uj = mk(rj[0]) - td * mk(vj[0]);
-    Dual wj = mk(rj[1]) - td * mk(vj[1]);
-
-    Dual depth = rho.v > 1e-3f ? mk(1.f) / rho : mk(1000.f);
-    V3 p_ci = {ua * depth, wa * depth, depth};
-    V3 p_imu_i = qrot(qic, p_ci) + tic;
-    V3 p_w = qrot(qa, p_imu_i) + pa;
-    V3 p_imu_j = qrot(qconj(qj), p_w - pj);
-    V3 p_cj = qrot(qconj(qic), p_imu_j - tic);
-
-    Dual z = p_cj.z;
-    Dual zs = fabsf(z.v) > min_depth ? z : mk(min_depth);
-    Dual rx = sqrt_info * (p_cj.x / zs - uj);
-    Dual ry = sqrt_info * (p_cj.y / zs - wj);
-
-    if (!(z.v > min_depth)) continue;  // warp-uniform: values equal in all lanes
-    float sqn = fmaxf(rx.v * rx.v + ry.v * ry.v, 1e-12f);
-    float rn = sqrtf(sqn);
-    float hub = rn <= huber_delta ? 1.f : sqrtf(huber_delta / rn);
-    float w = ov * tv * hub;
+    if (!(z > min_depth)) continue;  // warp-uniform: values equal in all lanes
+    float w = ov * tv * huber(rx.v, ry.v, huber_delta);
     float w2 = w * w;
 
     float jx = k >= 0 ? rx.d : 0.f, jy = k >= 0 ? ry.d : 0.f;

@@ -2,7 +2,9 @@
 ``ground_fusion2_tpu/factors/vio_factors.py``) and their normal equations:
 the projection block's by hand-written CUDA kernel C on the card, every
 other row's (IMU, wheel, plane, motion, pos-vel, prior) by kernel L, and
-the GNSS rows (``gnss/factors.py``) by kernel P in the same launch.
+the GNSS rows (``gnss/factors.py``) by kernel P in the same launch. The
+whole window's cost at a trial step, the LM's accept/reject test, is kernel
+S (``csrc/window_cost.cu``), on the same residual code.
 
 Each factor maps the window state plus fixed-shape measurements to
 (residuals, weights) already scaled by sqrt-information.
@@ -328,12 +330,14 @@ def _gnss_inputs(x0: WindowState, meas, dev):
     return gx, gtab
 
 
-def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
-    dev = delta.device
-    W, D, K = layout.W, layout.dim, layout.frame_dim
-    if tuple(delta.shape) != (D,) or tuple(x0.p.shape) != (W, 3):
-        raise ValueError("small_normal kernel: state, layout and delta "
-                         "disagree in shape")
+def _small_inputs(x0: WindowState, meas, layout: WindowLayout, cfg) -> list:
+    """Kernel L's (and S's) packed inputs of the non-projection rows, f32 on
+    the device: xs, imu, whl, misc, gx, gtab, pbase, pq, sqrt_J, r0."""
+    dev = x0.p.device
+    W, K = layout.W, layout.frame_dim
+    if tuple(x0.p.shape) != (W, 3):
+        raise ValueError("small_normal kernel: state and layout disagree in "
+                         "shape")
     if tuple(meas.prior.sqrt_J.shape) != (K, K):
         raise ValueError("small_normal kernel: the prior must span the "
                          f"{K} frame dims")
@@ -356,8 +360,27 @@ def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
     pbase = torch.stack([_linear_dims(x0, W),
                          _linear_dims(meas.prior_state, W)])
     pq = torch.stack([_rotations(x0), _rotations(meas.prior_state)])
-    ins = [f32(t) for t in (xs, imu, whl, misc, gx, gtab, delta, pbase, pq,
+    return [f32(t) for t in (xs, imu, whl, misc, gx, gtab, pbase, pq,
                             meas.prior.sqrt_J, meas.prior.r0)]
+
+
+def _offsets(layout: WindowLayout) -> list:
+    """The layout's offsets as kernels L and S take them after (W, D, fd)."""
+    return [layout.pose_off, layout.sb_off, layout.cam_off, layout.wext_off,
+            layout.wint_off, layout.cam2_off, layout.gdt_off, layout.gddt_off,
+            layout.gyaw_off, layout.ganchor_off]
+
+
+def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
+    dev = delta.device
+    W, D, K = layout.W, layout.dim, layout.frame_dim
+    if tuple(delta.shape) != (D,):
+        raise ValueError("small_normal kernel: state, layout and delta "
+                         "disagree in shape")
+    xs, imu, whl, misc, gx, gtab, pbase, pq, sqrt_J, r0 = _small_inputs(
+        x0, meas, layout, cfg)
+    ins = [xs, imu, whl, misc, gx, gtab,
+           delta.to(dtype=torch.float32).contiguous(), pbase, pq, sqrt_J, r0]
     S = meas.gnss.u_enu.shape[1]
     n_inst = _n_instances(W, S, cfg)
     scratch = torch.empty((n_inst * (32 * 32 + 32 + 1) + K + 9 * (W + 3),),
@@ -370,9 +393,7 @@ def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
     rp = torch.empty((K,), dtype=torch.float32, device=dev)
     P = lambda t: ctypes.c_void_p(t.data_ptr())
     err = _kernels.library().gf2_small_normal(
-        *[P(t) for t in ins], W, D, K, layout.pose_off, layout.sb_off,
-        layout.cam_off, layout.wext_off, layout.wint_off, layout.cam2_off,
-        layout.gdt_off, layout.gddt_off, layout.gyaw_off, layout.ganchor_off,
+        *[P(t) for t in ins], W, D, K, *_offsets(layout),
         S, int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
         int(cfg.use_gnss), ctypes.c_float(cfg.g_norm),
         ctypes.c_float(cfg.plane_weight), ctypes.c_float(cfg.motion_weight),
@@ -389,3 +410,75 @@ def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
     H[:K, :K] += Jw.T @ Jw
     g[:K] += Jw.T @ rw
     return H, g, cost[0] + 0.5 * torch.sum(rw * rw)
+
+
+# ------------------------------------------------ kernel S: the window cost
+def window_cost_plain(x0: WindowState, delta: torch.Tensor, meas,
+                      layout: WindowLayout, cfg) -> torch.Tensor:
+    """0.5·Σ(w·r)² of every row of the window at ``retract(x0, delta)``, as
+    the JAX ``lm_solve``'s ``cost_at`` evaluates ``residual_fn``."""
+    x = layout.retract(x0, delta)
+    g_world = torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=x0.p.dtype,
+                           device=x0.p.device)
+    parts = [projection_residuals(x, meas.feats, cfg.proj_sqrt_info,
+                                  cfg.huber_delta)]
+    parts += small_residual_parts(x, meas, layout, cfg, g_world)
+    rw = torch.cat([(r * w).reshape(-1) for r, w in parts])
+    return 0.5 * torch.sum(rw * rw)
+
+
+def window_cost_fn(x0: WindowState, meas, layout: WindowLayout, cfg):
+    """``cost_at(delta)`` of the window linearized around ``x0``: kernel S
+    on the card (the inputs packed once, one launch a call; the rows
+    evaluated in f64 from the f32 inputs and summed in a fixed order, so the
+    same delta gives the same bits), :func:`window_cost_plain` on the
+    CPU."""
+    if not x0.p.is_cuda:
+        return lambda delta: window_cost_plain(x0, delta, meas, layout, cfg)
+    return _window_cost_cuda_fn(x0, meas, layout, cfg)
+
+
+def _window_cost_cuda_fn(x0, meas, layout, cfg):
+    dev = x0.p.device
+    F, W, _ = meas.feats.ray.shape
+    D, K = layout.dim, layout.frame_dim
+    if (layout.F, layout.W) != (F, W):
+        raise ValueError("window_cost kernel: feature table and layout "
+                         "disagree in shape")
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    ft = meas.feats
+    proj = [f32(x0.p), f32(x0.q), f32(x0.tic), f32(x0.qic), f32(x0.td),
+            f32(x0.rho), f32(ft.ray), f32(ft.vel), f32(ft.obs_valid),
+            ft.anchor.to(device=dev, dtype=torch.int32).contiguous(),
+            f32(ft.track_valid)]
+    rows = _small_inputs(x0, meas, layout, cfg) + [
+        f32(meas.prior.valid.reshape(1))]
+    ptrs = [ctypes.c_void_p(t.data_ptr()) for t in proj + rows]
+    S = meas.gnss.u_enu.shape[1]
+    n_part = F + _n_instances(W, S, cfg) + K
+    scalars = [F, W, D, K, *_offsets(layout), layout.td_off, layout.rho_off, S,
+               int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
+               int(cfg.use_gnss), ctypes.c_double(cfg.g_norm)] + [
+                   ctypes.c_float(v) for v in (
+                       cfg.plane_weight, cfg.motion_weight, cfg.posvel_weight,
+                       cfg.proj_sqrt_info, cfg.huber_delta, 0.05)]
+    lib = _kernels.library()
+
+    def cost_at(delta: torch.Tensor) -> torch.Tensor:
+        if tuple(delta.shape) != (D,):
+            raise ValueError(f"window_cost kernel: delta must be [{D}]")
+        d = f32(delta)
+        part = torch.empty((n_part,), dtype=torch.float64, device=dev)
+        dx = torch.empty((K,), dtype=torch.float64, device=dev)
+        cost = torch.empty((1,), dtype=torch.float32, device=dev)
+        err = lib.gf2_window_cost(
+            *ptrs, ctypes.c_void_p(d.data_ptr()), *scalars,
+            ctypes.c_void_p(part.data_ptr()), ctypes.c_void_p(dx.data_ptr()),
+            ctypes.c_void_p(cost.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _kernels.check(err, "gf2_window_cost")
+        _kernels.count("window_cost")
+        return cost[0]
+
+    cost_at.inputs = proj + rows   # held alive with the closure
+    return cost_at

@@ -108,17 +108,25 @@ def graph_normal_equations_plain(g: GlobalGraph, delta: torch.Tensor):
     return normal_equations(lambda d: graph_residuals(g, d), delta)
 
 
+def _graph_pack(g: GlobalGraph, dev):
+    """Kernel Q's inputs: nodes [N, 21] (p, q, anchor_p, anchor_std,
+    anchor_valid, tag_p, tag_q, tag_std, tag_valid) and edges [N-1, 8]
+    (rel_dp, rel_dq, rel_valid), f32 on the device."""
+    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
+    col = lambda t: t[:, None]
+    edges = torch.cat([g.rel_dp, g.rel_dq, col(g.rel_valid)], 1)
+    nodes = torch.cat([g.p, g.q, g.anchor_p, col(g.anchor_std),
+                       col(g.anchor_valid), g.tag_p, g.tag_q, col(g.tag_std),
+                       col(g.tag_valid)], 1)
+    return f32(nodes), f32(edges)
+
+
 def _graph_normal_cuda(g: GlobalGraph, delta):
     dev = delta.device
     N = g.p.shape[0]
     if tuple(delta.shape) != (6 * N,) or g.rel_dp.shape[0] != N - 1:
         raise ValueError("global_normal kernel: graph and delta disagree")
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
-    col = lambda t: t[:, None]
-    edges = torch.cat([g.rel_dp, g.rel_dq, col(g.rel_valid)], 1)      # [N-1, 8]
-    nodes = torch.cat([g.p, g.q, g.anchor_p, col(g.anchor_std),
-                       col(g.anchor_valid), g.tag_p, g.tag_q, col(g.tag_std),
-                       col(g.tag_valid)], 1)                             # [N, 21]
+    nodes, edges = _graph_pack(g, dev)
     n_inst = 3 * N - 1
     scratch = torch.empty((n_inst * (12 * 12 + 12 + 1),), dtype=torch.float32,
                           device=dev)
@@ -126,7 +134,7 @@ def _graph_normal_cuda(g: GlobalGraph, delta):
     gv = torch.zeros((6 * N,), dtype=torch.float32, device=dev)
     cost = torch.empty((1,), dtype=torch.float32, device=dev)
     P = lambda t: ctypes.c_void_p(t.data_ptr())
-    ins = [f32(nodes), f32(edges), f32(delta)]
+    ins = [nodes, edges, delta.to(dtype=torch.float32).contiguous()]
     err = _kernels.library().gf2_global_normal(
         *[P(t) for t in ins], N, ctypes.c_float(REL_WEIGHT_T),
         ctypes.c_float(REL_WEIGHT_R), P(scratch), P(H), P(gv), P(cost),
@@ -136,20 +144,58 @@ def _graph_normal_cuda(g: GlobalGraph, delta):
     return H, gv, cost[0]
 
 
+def graph_cost_plain(g: GlobalGraph, delta: torch.Tensor) -> torch.Tensor:
+    """0.5·Σ(w·r)² of the graph's rows at ``delta`` (the JAX LM's
+    ``cost_at``)."""
+    r, w = graph_residuals(g, delta)
+    rw = r * w
+    return 0.5 * torch.sum(rw * rw)
+
+
+def graph_cost_fn(g: GlobalGraph):
+    """``cost_at(delta)`` of the global graph's LM: kernel Q's cost-only
+    mode on the card (the graph packed once, one launch a call, the
+    instance pass's residuals and sum order), :func:`graph_cost_plain` on
+    the CPU."""
+    if not g.p.is_cuda:
+        return lambda delta: graph_cost_plain(g, delta)
+    return _graph_cost_cuda_fn(g)
+
+
+def _graph_cost_cuda_fn(g: GlobalGraph):
+    dev = g.p.device
+    N = g.p.shape[0]
+    if g.rel_dp.shape[0] != N - 1:
+        raise ValueError("global_cost kernel: nodes and edges disagree")
+    nodes, edges = _graph_pack(g, dev)
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    lib = _kernels.library()
+
+    def cost_at(delta):
+        if tuple(delta.shape) != (6 * N,):
+            raise ValueError("global_cost kernel: graph and delta disagree")
+        dl = delta.to(dtype=torch.float32).contiguous()
+        scratch = torch.empty((3 * N - 1,), dtype=torch.float32, device=dev)
+        cost = torch.empty((1,), dtype=torch.float32, device=dev)
+        err = lib.gf2_global_cost(
+            P(nodes), P(edges), P(dl), N, ctypes.c_float(REL_WEIGHT_T),
+            ctypes.c_float(REL_WEIGHT_R), P(scratch), P(cost),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _kernels.check(err, "gf2_global_cost")
+        _kernels.count("global_cost")
+        return cost[0]
+
+    return cost_at
+
+
 def optimize_graph(g: GlobalGraph, iters: int = 6) -> GlobalGraph:
     """LM over all node poses (the reference's background solve); ``g``
     holds tensors on the device the solve runs on."""
     N = g.p.shape[0]
     dev = g.p.device
     free = g.node_valid.repeat_interleave(6)
-
-    def cost_at(delta):
-        r, w = graph_residuals(g, delta)
-        rw = r * w
-        return 0.5 * torch.sum(rw * rw)
-
-    out = lm_solve(lambda d: graph_normal_equations(g, d), cost_at, N * 6,
-                   max_iters=iters, free_mask=free, device=dev)
+    out = lm_solve(lambda d: graph_normal_equations(g, d), graph_cost_fn(g),
+                   N * 6, max_iters=iters, free_mask=free, device=dev)
     dp6 = out.delta.reshape(N, 6)
     return g._replace(p=g.p + dp6[:, :3], q=lie.quat_boxplus(g.q, dp6[:, 3:]))
 

@@ -529,28 +529,39 @@ def pg_normal_equations_plain(p0, r0, seq_meas, seq_valid, loop_i, loop_j,
         w_t, w_r, wl_t, wl_r), delta)
 
 
-def _pg_normal_cuda(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
-                    loop_valid, w_t, w_r, wl_t, wl_r, delta):
-    dev = delta.device
-    N = p0.shape[0]
-    d = 6 if r0.dim() == 2 else 4
+def _pg_pack(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+             loop_valid, dev):
+    """Kernel O's inputs: (p0, r0, meas [E, 4 or 7], valid [E], loop_i,
+    loop_j) on the device, f32 / int32."""
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     i32 = lambda t: t.to(device=dev, dtype=torch.int32).contiguous()
     col = lambda a: a if a.dim() == 2 else a[:, None]
     meas = torch.cat([torch.cat([seq_meas[0], col(seq_meas[1])], 1),
                       torch.cat([loop_meas[0], col(loop_meas[1])], 1)])
     valid = torch.cat([seq_valid, loop_valid])
+    if meas.shape[0] != p0.shape[0] - 1 + loop_i.shape[0]:
+        raise ValueError("pg_normal kernel: nodes and edges disagree")
+    return [f32(p0), f32(r0), f32(meas), f32(valid), i32(loop_i), i32(loop_j)]
+
+
+def _pg_normal_cuda(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+                    loop_valid, w_t, w_r, wl_t, wl_r, delta):
+    dev = delta.device
+    N = p0.shape[0]
+    d = 6 if r0.dim() == 2 else 4
     n_loop = loop_i.shape[0]
     n_edges = N - 1 + n_loop
-    if tuple(delta.shape) != (N * d,) or meas.shape[0] != n_edges:
+    if tuple(delta.shape) != (N * d,):
         raise ValueError("pg_normal kernel: nodes, edges and delta disagree")
+    p0, r0, meas, valid, li, lj = _pg_pack(p0, r0, seq_meas, seq_valid, loop_i,
+                                           loop_j, loop_meas, loop_valid, dev)
     scratch = torch.empty((n_edges * (12 * 12 + 12 + 1),), dtype=torch.float32,
                           device=dev)
     H = torch.zeros((N * d, N * d), dtype=torch.float32, device=dev)
     g = torch.zeros((N * d,), dtype=torch.float32, device=dev)
     cost = torch.empty((1,), dtype=torch.float32, device=dev)
-    ins = [f32(p0), f32(r0), f32(delta), f32(meas), f32(valid), i32(loop_i),
-           i32(loop_j)]
+    ins = [p0, r0, delta.to(dtype=torch.float32).contiguous(), meas, valid, li,
+           lj]
     P = lambda t: ctypes.c_void_p(t.data_ptr())
     err = _kernels.library().gf2_pg_normal(
         *[P(t) for t in ins], N, d, n_loop, ctypes.c_float(w_t),
@@ -562,23 +573,70 @@ def _pg_normal_cuda(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
     return H, g, cost[0]
 
 
+def pg_cost_plain(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+                  loop_valid, w_t, w_r, wl_t, wl_r, delta):
+    """0.5·Σ(w·r)² of the pose-graph rows at ``delta`` (the JAX LM's
+    ``cost_at``)."""
+    r, w = pg_residual_fn(p0, r0, seq_meas, seq_valid, loop_i, loop_j,
+                          loop_meas, loop_valid, w_t, w_r, wl_t, wl_r)(delta)
+    rw = r * w
+    return 0.5 * torch.sum(rw * rw)
+
+
+def pg_cost_fn(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+               loop_valid, w_t, w_r, wl_t, wl_r):
+    """``cost_at(delta)`` of the pose-graph LM: kernel O's cost-only mode on
+    the card (the edges packed once, one launch a call, the edge pass's
+    residuals and sum order), :func:`pg_cost_plain` on the CPU."""
+    args = (p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+            loop_valid, w_t, w_r, wl_t, wl_r)
+    if not p0.is_cuda:
+        return lambda delta: pg_cost_plain(*args, delta)
+    return _pg_cost_cuda_fn(*args)
+
+
+def _pg_cost_cuda_fn(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+                     loop_valid, w_t, w_r, wl_t, wl_r):
+    dev = p0.device
+    N = p0.shape[0]
+    d = 6 if r0.dim() == 2 else 4
+    n_loop = loop_i.shape[0]
+    ins = _pg_pack(p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
+                   loop_valid, dev)
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    lib = _kernels.library()
+
+    def cost_at(delta):
+        if tuple(delta.shape) != (N * d,):
+            raise ValueError("pg_cost kernel: nodes and delta disagree")
+        dl = delta.to(dtype=torch.float32).contiguous()
+        scratch = torch.empty((N - 1 + n_loop,), dtype=torch.float32,
+                              device=dev)
+        cost = torch.empty((1,), dtype=torch.float32, device=dev)
+        p, r, meas, valid, li, lj = ins
+        err = lib.gf2_pg_cost(
+            P(p), P(r), P(dl), P(meas), P(valid), P(li), P(lj), N, d, n_loop,
+            ctypes.c_float(w_t), ctypes.c_float(w_r), ctypes.c_float(wl_t),
+            ctypes.c_float(wl_r), P(scratch), P(cost),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        _kernels.check(err, "gf2_pg_cost")
+        _kernels.count("pg_cost")
+        return cost[0]
+
+    return cost_at
+
+
 def _solve(p0, r0, node_valid, seq_meas, seq_valid, loop_i, loop_j,
            loop_meas, loop_valid, w_t, w_r, wl_t, wl_r, iters):
     N = p0.shape[0]
     d = 6 if r0.dim() == 2 else 4
     args = (p0, r0, seq_meas, seq_valid, loop_i, loop_j, loop_meas,
             loop_valid, w_t, w_r, wl_t, wl_r)
-    res = pg_residual_fn(*args)
-
-    def cost_at(delta):
-        r, w = res(delta)
-        rw = r * w
-        return 0.5 * torch.sum(rw * rw)
-
     free = node_valid.repeat_interleave(d).clone()
     free[:d] = 0.0                     # gauge: pin node 0
-    out = lm_solve(lambda dl: pg_normal_equations(*args, dl), cost_at, N * d,
-                   iters, free_mask=free, device=p0.device, dtype=p0.dtype)
+    out = lm_solve(lambda dl: pg_normal_equations(*args, dl),
+                   pg_cost_fn(*args), N * d, iters, free_mask=free,
+                   device=p0.device, dtype=p0.dtype)
     return out.delta.reshape(N, d)
 
 

@@ -237,13 +237,11 @@ class VioEstimator:
             out = solve_window(self.state, meas, self.layout, vio_cfg)
             self.state = out.state
             cost = float(out.cost)
-            if cfg.outlier_px > 0:
-                keep = fwin.outlier_mask(self.fw, self.state, cfg.outlier_px,
-                                         cfg.focal)
-                self.fw = self.fw._replace(track_valid=self.fw.track_valid * keep)
-            is_kf_j, _, _ = fwin.parallax_keyframe_test(
-                self.fw, cfg.min_parallax, cfg.min_tracked)
-            is_kf = bool(is_kf_j) and not stationary
+            track_valid, is_kf_j, _ = fwin.post_solve_tests(
+                self.fw, self.state, cfg.outlier_px, cfg.focal,
+                cfg.min_parallax, cfg.min_tracked, stationary)
+            self.fw = self.fw._replace(track_valid=track_valid)
+            is_kf = bool(is_kf_j)
 
             if self.frame_count >= W:
                 if is_kf:
@@ -369,7 +367,7 @@ class VioEstimator:
                 > cfg.stationary_imu_var
         else:
             imu_excited = True
-        _, par, n_co = fwin.parallax_keyframe_test(self.fw, 1e9)
+        par, n_co = fwin.co_parallax(self.fw)
         visual_static = float(par) < cfg.stationary_parallax and int(n_co) > 10
         stationary = bool(visual_static and wheel_static and imu_static
                           and not imu_excited and self.initialized)

@@ -38,7 +38,6 @@ import numpy as np
 import torch
 
 from ..config import DynMaskConfig, EstimatorConfig, TrackerConfig
-from ..core import lie
 from ..core.device import resolve
 from ..frontend import klt
 from ..frontend.clahe import clahe
@@ -198,27 +197,9 @@ def tracker_step(tc: TrackerCarry, img, depth_img, t, cam, s: FusedStatics,
 
 def detectors(c: FusedCarry, pre, wpre, k: int, s: FusedStatics):
     """Device-side degradation detectors on interval ``k``:
-    (anomaly, stationary) as bool tensors."""
-    dp_imu = pre.dp[k]
-    dp_whl = lie.quat_rotate(c.state.qio, wpre.dp[k])
-    if s.use_wheel:
-        anomaly = (torch.linalg.norm(dp_whl - dp_imu) > s.wheel_anomaly_thresh) \
-            & (c.imu_valid[k] > 0)
-        wheel_static = torch.linalg.norm(dp_whl) < s.stationary_dp
-    else:
-        anomaly = torch.zeros((), dtype=torch.bool, device=dp_imu.device)
-        wheel_static = torch.ones((), dtype=torch.bool, device=dp_imu.device)
-    imu_static = torch.linalg.norm(dp_imu) < 5 * s.stationary_dp
-    m = c.smask[k]
-    wv = torch.cat([torch.ones((1,), dtype=m.dtype, device=m.device), m])
-    nsamp = m.sum()
-    denom = torch.clamp(wv.sum(), min=1.0)
-    mean = (c.acc[k] * wv[:, None]).sum(0) / denom
-    var = (((c.acc[k] - mean) ** 2) * wv[:, None]).sum(0) / denom
-    imu_excited = (torch.linalg.norm(var) > s.stationary_imu_var) | (nsamp < 5)
-    _, par, n_co = fwin.parallax_keyframe_test(c.fw, 1e9)
-    visual_static = (par < s.stationary_parallax) & (n_co > 10)
-    return anomaly, visual_static & wheel_static & imu_static & ~imu_excited
+    (anomaly, stationary) as bool tensors (kernel U's pre-solve mode)."""
+    return fwin.presolve_tests(c.fw, pre.dp, wpre.dp, c.state.qio,
+                               c.imu_valid, c.acc, c.smask, k, s)
 
 
 def merge_last_two(acc, gyr, wvel, dt, sm, n0: int, n1: int):
@@ -349,13 +330,10 @@ def solve_tick(c: FusedCarry, obs: fwin.FrameObs, inp: TickInputs, t: float,
     out = solve_window(state, meas, layout, vio_cfg)
     c = c._replace(state=out.state)
 
-    if s.outlier_px > 0:
-        keep = fwin.outlier_mask(c.fw, c.state, s.outlier_px, s.focal)
-        c = c._replace(fw=c.fw._replace(track_valid=c.fw.track_valid * keep))
-
-    is_kf_j, par, _ = fwin.parallax_keyframe_test(c.fw, s.min_parallax,
-                                                  s.min_tracked)
-    is_kf = is_kf_j & ~stationary
+    track_valid, is_kf, par = fwin.post_solve_tests(
+        c.fw, c.state, s.outlier_px, s.focal, s.min_parallax, s.min_tracked,
+        stationary)
+    c = c._replace(fw=c.fw._replace(track_valid=track_valid))
 
     idx = 0 if not full else (1 if bool(is_kf) else 2)
     if idx == 1:

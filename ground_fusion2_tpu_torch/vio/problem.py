@@ -5,7 +5,8 @@ The normal equations of a linearization are the projection block's, from
 kernel C (``factors.vio_factors.projection_normal_equations``), plus those
 of the few hundred rows of the other factors (IMU, wheel, plane, GNSS,
 motion, pos-vel, prior), from kernels L and P
-(``factors.vio_factors.small_normal_equations``).
+(``factors.vio_factors.small_normal_equations``). The LM's trial costs are
+kernel S (``factors.vio_factors.window_cost_fn``).
 """
 
 from __future__ import annotations
@@ -47,28 +48,6 @@ def _check_supported(cfg: VioConfig):
         raise NotImplementedError("stereo factors are not ported yet")
 
 
-def build_residual_fn(x0: WindowState, meas: VioMeasurements,
-                      layout: WindowLayout, cfg: VioConfig,
-                      with_projection: bool = True):
-    """``residual_fn(delta) -> (r, w)`` over every factor of the window
-    (the projection block only with ``with_projection``)."""
-    _check_supported(cfg)
-    dev = x0.p.device
-    g_world = torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=x0.p.dtype,
-                           device=dev)
-
-    def residual_fn(delta):
-        x = layout.retract(x0, delta)
-        parts = fac.small_residual_parts(x, meas, layout, cfg, g_world)
-        if with_projection:
-            parts.insert(0, fac.projection_residuals(
-                x, meas.feats, cfg.proj_sqrt_info, cfg.huber_delta))
-        return (torch.cat([r.reshape(-1) for r, _ in parts]),
-                torch.cat([w.reshape(-1) for _, w in parts]))
-
-    return residual_fn
-
-
 def window_normal_equations(x0: WindowState, meas: VioMeasurements,
                             layout: WindowLayout, cfg: VioConfig,
                             delta: torch.Tensor):
@@ -102,8 +81,8 @@ def _fixed_dims(layout, cfg, device, **kw):
 def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
                  cfg: VioConfig) -> SolveResult:
     """One full window optimization (the per-frame solve)."""
+    _check_supported(cfg)
     dev, dtype = x0.p.device, x0.p.dtype
-    residual_fn = build_residual_fn(x0, meas, layout, cfg)
     f = meas.feats
     landmark_mask = (f.track_valid * (1.0 - f.depth_fixed)
                      * (f.obs_valid.sum(1) >= 2).to(dtype))
@@ -123,15 +102,10 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
     pose0[layout.pose_off:layout.pose_off + 6] = 1.0
     free = torch.where(anchored, free, free * (1.0 - pose0))
 
-    def cost_at(delta):
-        r, w = residual_fn(delta)
-        rw = r * w
-        return 0.5 * torch.sum(rw * rw)
-
     out = lm_solve(
         lambda d: window_normal_equations(x0, meas, layout, cfg, d),
-        cost_at, layout.dim, cfg.max_iters, free_mask=free, device=dev,
-        dtype=dtype)
+        fac.window_cost_fn(x0, meas, layout, cfg), layout.dim, cfg.max_iters,
+        free_mask=free, device=dev, dtype=dtype)
     return SolveResult(layout.retract(x0, out.delta), out.cost, out.cost0,
                        out.H, out.g)
 

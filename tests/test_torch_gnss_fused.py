@@ -130,3 +130,83 @@ def test_short_drive_aligns_like_jax(drive, jax_drive):
     assert abs(float(fv.carry.state.gyaw) - jax_drive["yaw"]) < 0.02
     assert abs(jax_drive["yaw"] - YAW) < 0.1
     np.testing.assert_allclose(outs[-1].p, jax_drive["outs"][-1].p, atol=0.02)
+
+
+# ------------------------------------- the anchor refresh and yaw refine
+# The short form of tests/test_gnss_fused.py:77: the drive with an epoch on
+# every frame, the anchor refresh bound below the 0.5 m the drive covers in
+# 5 frames and the yaw refine every 4 GNSS ticks, so that after alignment
+# (frame 21) the anchor moves 3 times and the yaw is refined twice (a refine
+# needs 10 velocity pairs) within 38 frames.
+N_RR = 38
+RR_REFRESH_M = 0.45
+RR_PERIOD = 4
+
+
+def _rr_cfg(cls):
+    return cls(num_feats=DRIVE_F, use_gnss=True, gnss_track_thres=1,
+               gnss_align_min_epochs=2, gnss_anchor_refresh_m=RR_REFRESH_M,
+               gnss_refine_period_ticks=RR_PERIOD)
+
+
+def _watch(v, tick):
+    """Wrap ``v``'s anchor refresh and yaw refine: the ticks each fired on
+    (a refine with the 10 pairs it needs to move the yaw), the ECEF anchor
+    after each refresh and the yaw after each refine."""
+    fired = dict(refresh=[], refine=[], anchor=[], yaw=[])
+    refresh, refine = v._gnss_refresh_anchor, v._gnss_refine_yaw
+
+    def on_refresh():
+        refresh()
+        fired["refresh"].append(tick[0])
+        fired["anchor"].append(np.array(v.legacy.gnss_anchor, np.float64))
+
+    def on_refine():
+        n = len(v._gnss_vel_pairs)
+        refine()
+        if n >= 10:
+            fired["refine"].append(tick[0])
+            fired["yaw"].append(float(np.asarray(v.carry.state.gyaw)))
+
+    v._gnss_refresh_anchor, v._gnss_refine_yaw = on_refresh, on_refine
+    return fired
+
+
+def test_gnss_refresh_and_refine_fire_like_jax():
+    """JAX's FusedVio over the drive, and the port from JAX's state on the
+    frame alignment completes on: both refresh the anchor and refine the yaw
+    on the same ticks (at least once and twice), and the anchors agree to
+    0.02 m and the yaws to 5e-3 rad (measured with PyTorch and JAX on the
+    CPU: 6 mm and 1.2e-3 rad, the two runs' f32 divergence over 16 ticks
+    carried by the read-back positions and velocities)."""
+    drive = checks.gnss_drive(N_RR, F=DRIVE_F, epoch_every=1)
+    ext = dict(tic=drive[0]["tic"], ric=drive[0]["ric"])
+    jv = JFusedVio(_rr_cfg(JEstimatorConfig), JTrackerConfig(num_slots=DRIVE_F),
+                   JPinhole.create(460.0, 460.0, 320.0, 240.0), **ext)
+    tick = [0]
+    jfired = _watch(jv, tick)
+    fv = align = None
+    for k, f in enumerate(drive):
+        tick[0] = k
+        jv.process_obs(f["t"], JFrameObs(*(jnp.asarray(a) for a in f["obs"])),
+                       f["imu"], wheel_vel=f["wheel"], gnss_meas=f["gnss"])
+        if align is None and jv.legacy.gnss_ready:
+            align = k
+            fv = convert.fused_vio_from_jax(jv, FusedVio(
+                _rr_cfg(EstimatorConfig), TrackerConfig(num_slots=DRIVE_F),
+                Pinhole.create(460.0, 460.0, 320.0, 240.0), "cpu", **ext))
+    assert align is not None and align < N_RR - 12
+    tfired = _watch(fv, tick)
+    for k in range(align + 1, N_RR):
+        tick[0] = k
+        f = drive[k]
+        fv.process_obs(f["t"], f["obs"], f["imu"], wheel_vel=f["wheel"],
+                       gnss_meas=f["gnss"])
+    assert len(jfired["refresh"]) >= 1 and len(jfired["refine"]) >= 2
+    assert min(jfired["refresh"] + jfired["refine"]) > align
+    assert tfired["refresh"] == jfired["refresh"]
+    assert tfired["refine"] == jfired["refine"]
+    np.testing.assert_allclose(tfired["anchor"], jfired["anchor"], atol=0.02)
+    np.testing.assert_allclose(tfired["yaw"], jfired["yaw"], atol=5e-3)
+    np.testing.assert_allclose(fv.carry.state.ganchor.numpy(),
+                               np.asarray(jv.carry.state.ganchor), atol=0.02)

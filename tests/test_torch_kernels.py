@@ -2,8 +2,10 @@
 card, at the main paths' shapes (the comparisons of ``chip_smoke.py``: the
 camera kernels A–C and H–L, the LiDAR kernels D–G on a map filled by 12
 scans of the bench_lio drive at the M3DGR LIO configuration, the
-loop-closure kernels M–O, the GNSS rows P, the global graph Q and the
-dynamic mask R), and C, L, O, P and Q giving the same bits twice.
+loop-closure kernels M–O, the GNSS rows P, the global graph Q, the
+dynamic mask R, the window cost S and the feature-window stages T–V, and
+O's and Q's cost-only modes), and C, L, O, P, Q and S–V giving the same
+bits twice.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -283,6 +285,117 @@ def test_pg_normal_kernel_matches_plain(dev, six, n, cap):
     assert r["ok"] and r["repeat_equal"], r
 
 
+def _lm_deltas(dev, x0, meas, layout, vcfg):
+    """delta = 0, the damped LM step from there and its reverse."""
+    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
+    from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
+    zero = torch.zeros(layout.dim, device=dev)
+    H, g, _ = window_normal_equations(x0, meas, layout, vcfg, zero)
+    step = _solve_damped(H, g, torch.full((), 1e-4, device=dev),
+                         torch.ones(layout.dim, device=dev))
+    return dict(zero=zero, accepted=step, rejected=-step)
+
+
+@pytest.mark.parametrize("rows", ["camera", "gnss"])
+def test_window_cost_kernel_matches_plain(dev, window, rows):
+    """Kernel S at delta = 0, an accepted and a rejected LM step: within
+    max(3× the plain route's error, 1e-6) of float64, the same bits twice,
+    the same accept/reject as the plain route."""
+    from ground_fusion2_tpu_torch.config import VioConfig
+    x0, feats, layout, _, meas, vcfg = window
+    if rows == "gnss":
+        x0, meas = checks.example_gnss(x0, meas, layout, dev)
+        vcfg = VioConfig(num_feats=150, use_gnss=True)
+    r = checks.check_window_cost(dev, x0, meas, layout, vcfg,
+                                 _lm_deltas(dev, x0, meas, layout, vcfg),
+                                 timed=False)
+    assert r["ok"] and r["repeat_equal"] and r["decisions_equal"], r
+    assert r["decisions"]["accepted"]["kernel"], r
+    assert not r["decisions"]["rejected"]["kernel"], r
+
+
+def test_window_cost_kernel_on_a_fused_window(dev, camera):
+    cfg, fv, _, _ = camera
+    meas = checks.carry_measurements(fv)
+    vcfg = cfg.estimator.vio
+    r = checks.check_window_cost(dev, fv.carry.state, meas, fv.layout, vcfg,
+                                 _lm_deltas(dev, fv.carry.state, meas,
+                                            fv.layout, vcfg), timed=False)
+    assert r["ok"] and r["decisions_equal"], r
+
+
+@pytest.mark.parametrize("six", [False, True], ids=["4dof", "6dof"])
+@pytest.mark.parametrize("n,cap", [(60, 64), (500, 512)])
+def test_pg_cost_kernel_matches_plain(dev, six, n, cap):
+    r = checks.check_pg_cost(dev, checks.ring_graph_args(n, cap, dev, six))
+    assert r["ok"] and r["repeat_equal"], r
+
+
+def test_global_cost_kernel_matches_plain(dev):
+    r = checks.check_global_cost(dev, _global_graph(dev).graph.to(dev))
+    assert r["ok"] and r["repeat_equal"], r
+
+
+@pytest.mark.parametrize("tracks", ["live", "two_observations"])
+def test_triangulate_kernel_matches_plain(dev, camera, tracks):
+    """Kernel T on every live track of a fused window (the depth fix
+    cleared), and with every third track cut to 2 observations."""
+    _, fv, _, _ = camera
+    fw, st, _, _ = checks.window_stage_inputs(fv)
+    fw = fw._replace(depth_fixed=torch.zeros_like(fw.depth_fixed))
+    if tracks == "two_observations":
+        ov = fw.obs_valid.clone()
+        W = ov.shape[1]
+        ov[::3] = 0.0
+        ov[::3, W - 2:] = 1.0
+        fw = fw._replace(obs_valid=ov,
+                         anchor=torch.where(torch.arange(ov.shape[0],
+                                                         device=dev) % 3 == 0,
+                                            W - 2, fw.anchor))
+    r = checks.check_triangulate(dev, fw, st, st.rho, torch.ones_like(st.rho))
+    assert r["ok"] and r["done"] > 0, r
+
+
+@pytest.mark.parametrize("outlier_px", [None, 0.5])
+def test_window_tests_kernel_matches_plain(dev, camera, outlier_px):
+    """Kernel U's two modes on a fused window, at the tick's outlier gate
+    and at a 0.5 px gate that drops tracks."""
+    _, fv, _, _ = camera
+    fw, st, _, interval = checks.window_stage_inputs(fv)
+    s = fv.statics if outlier_px is None else fv.statics._replace(
+        outlier_px=outlier_px)
+    W = fw.obs_valid.shape[1]
+    r = checks.check_window_tests(dev, fw, st, s, torch.zeros(
+        (), dtype=torch.bool, device=dev), interval, W - 2)
+    assert r["ok"], r
+    if outlier_px is not None:
+        assert r["dropped"] > 0, r
+
+
+def test_window_update_kernel_matches_plain(dev, camera):
+    _, fv, _, _ = camera
+    fw, st, obs, _ = checks.window_stage_inputs(fv)
+    W = fw.obs_valid.shape[1]
+    r = checks.check_window_update(dev, fw, st, st.rho, obs, W - 1)
+    assert r["ok"], r
+    assert r["modes"]["slide_oldest"]["rho_moved"] >= 0
+
+
+def test_camera_tick_launches_s_to_v(dev, camera):
+    """One more fused tick launches S once a trial cost (1 + 8), T, U
+    twice (before and after the solve) and V (add_frame, and a slide when
+    the window is full), and no plain cost."""
+    cfg, fv, fs, _ = camera
+    f = fs[-1]
+    _kernels.launches.clear()
+    fv.process_image(f["t"] + 0.05, f["gray"], f["depth"], f["imu"],
+                     wheel_vel=f["wheel"])
+    n = dict(_kernels.launches)
+    assert n["window_cost"] == 1 + cfg.estimator.vio.max_iters, n
+    assert n["triangulate"] == 1 and n["window_tests"] == 2, n
+    assert n["window_update"] in (1, 2), n
+
+
 def test_kernels_count_their_launches(dev, frames, lio):
     _kernels.launches.clear()
     checks.check_proj(dev, timed=False)
@@ -349,6 +462,32 @@ def _launch(name, dev):
         from ground_fusion2_tpu_torch.gnss import global_opt as go
         g = _global_graph(dev, 10, 16).graph.to(dev)
         return go.graph_normal_equations(g, torch.zeros(96, device=dev))
+    if name in ("window_cost", "triangulate", "window_tests",
+                "window_update"):
+        from ground_fusion2_tpu_torch.config import VioConfig
+        from ground_fusion2_tpu_torch.factors import vio_factors as fac
+        from ground_fusion2_tpu_torch.vio import feature_window as fwm
+        x0, feats, layout, delta = checks.example_window(8, dev)
+        if name == "window_cost":
+            meas = checks.example_measurements(x0, feats, layout, dev)
+            return fac.window_cost_fn(x0, meas, layout,
+                                      VioConfig(num_feats=8))(delta)
+        fw = fwm.FeatureWindow(feats.ray, feats.vel, feats.obs_valid,
+                               feats.obs_valid, feats.anchor,
+                               feats.track_valid, feats.depth_fixed)
+        if name == "triangulate":
+            return fwm.triangulate(fw, x0, x0.rho)
+        if name == "window_tests":
+            return fwm.co_parallax(fw)
+        return fwm.slide_oldest(fw, x0, x0.rho)
+    if name in ("pg_cost", "global_cost"):
+        if name == "pg_cost":
+            from ground_fusion2_tpu_torch.posegraph import pose_graph as pgm
+            args = checks.ring_graph_args(10, 64, dev)
+            return pgm.pg_cost_fn(*args)(torch.zeros(256, device=dev))
+        from ground_fusion2_tpu_torch.gnss import global_opt as go
+        g = _global_graph(dev, 10, 16).graph.to(dev)
+        return go.graph_cost_fn(g)(torch.zeros(96, device=dev))
     if name == "dyn_mask":
         from ground_fusion2_tpu_torch.frontend import dynamic
         z = torch.zeros((48, 64), device=dev)
@@ -412,7 +551,9 @@ def _launch(name, dev):
                                   "ransac_f", "small_normal", "brief",
                                   "simhash", "hamming", "loop_geom",
                                   "pg_normal", "gnss_normal", "global_normal",
-                                  "dyn_mask"])
+                                  "dyn_mask", "window_cost", "triangulate",
+                                  "window_tests", "window_update", "pg_cost",
+                                  "global_cost"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

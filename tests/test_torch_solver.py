@@ -129,6 +129,34 @@ def test_small_normal_equations_match_jax(window, solved, case):
     assert _rel(ct, cj) < 1e-5
 
 
+@pytest.mark.parametrize("at", ["zero", "step", "solved"])
+def test_window_cost_matches_jax(window, solved, at):
+    """Kernel S's plain version, the LM's trial cost 0.5·Σ(w·r)² over every
+    row of the window, against JAX's ``lm_solve`` ``cost_at``: at delta = 0,
+    at an accumulated step, and at the state JAX's solve ends in (where the
+    cost is a small sum of small residuals). f32 sums over ~900 rows in
+    another order: 1e-5 relative."""
+    w = window
+    L, cfg, meas = w["layout"], w["cfg"], w["meas"]
+    x0, tx0 = w["x0"], w["tx0"]
+    d = np.zeros(L.dim, np.float32)
+    if at == "step":
+        d = _delta(L.dim, seed=9, scale=0.003)
+    elif at == "solved":
+        x0 = solved[0].state
+        tx0 = convert.to_torch(jax.tree.map(np.asarray, x0), "cpu")
+    res = jprob.build_residual_fn(x0, meas, L, cfg)
+
+    def jcost(dd):
+        r, wt = res(dd)
+        rw = r * wt
+        return 0.5 * jnp.sum(rw * rw)
+    cj = float(jax.jit(jcost)(jnp.asarray(d)))
+    ct = float(tfac.window_cost_plain(tx0, torch.as_tensor(d), w["tmeas"],
+                                      w["tlayout"], w["tcfg"]))
+    assert abs(ct - cj) <= 1e-5 * cj
+
+
 @pytest.fixture(scope="module")
 def solved(window):
     w = window

@@ -2,7 +2,7 @@
 on the CPU: the reference figures that ``chip_smoke.py``'s phases 10 and 11
 cite.
 
-    PYTHONPATH=. python tests/torch_gnss_reference.py [gnss|gnss-f64|prior-swap|dynamic|all]
+    PYTHONPATH=. python tests/torch_gnss_reference.py [gnss|gnss-f64|prior-swap|refresh|refresh-f64|dynamic|all]
 
 GNSS (``checks.gnss_drive``, 139 frames): GroundFusion with global fusion
 every 5 keyframes and LiDAR off, at two estimator configurations: the
@@ -29,6 +29,15 @@ the port's float64 elimination, one with the same elimination in float32
 JAX package's float32 ``marginalize`` swapped in, printing each one's
 position error to the truth every 10 frames, its largest distance from
 JAX's output, and the frame and yaw of its alignment (~15 min).
+
+``refresh`` runs ``chip_smoke.py``'s phase 10b drive (45 frames of
+``checks.gnss_drive`` with an epoch on every frame, F = 150, the anchor
+refresh bound at 0.45 m and a yaw refine every 4 GNSS ticks, LiDAR and
+global fusion off) through the JAX package's GroundFusion and the port's
+(on the CPU), printing for each the frames the anchor refresh and the yaw
+refine fired on, the frame and yaw of the alignment and the yaw after each
+refine (~5 min); ``refresh-f64`` runs the JAX package alone there with its
+elimination in float64, as in ``gnss-f64``.
 
 Dynamic (``checks.dynamic_drive(40)``): GroundFusion at the M3DGR system
 configuration with ``auto_dyn_mask`` on. Each tick's mask is recomputed
@@ -208,6 +217,85 @@ def prior_swap_main(F: int = 32) -> dict:
                 torch_f32_eigh_failures=f32_failed[0])
 
 
+RR_FRAMES, RR_REFRESH_M, RR_PERIOD = 45, 0.45, 4   # chip_smoke.py phase 10b
+
+
+def _watch_refresh(v, tick):
+    """Wrap a FusedVio's anchor refresh and yaw refine (either package):
+    the frames each fired on (a refine with the 10 velocity pairs it needs
+    to move the yaw) and the yaw after each refine."""
+    fired = dict(refresh=[], refine=[], yaw=[])
+    refresh, refine = v._gnss_refresh_anchor, v._gnss_refine_yaw
+
+    def on_refresh():
+        refresh()
+        fired["refresh"].append(tick[0])
+
+    def on_refine():
+        n = len(v._gnss_vel_pairs)
+        refine()
+        if n >= 10:
+            fired["refine"].append(tick[0])
+            fired["yaw"].append(float(np.asarray(v.carry.state.gyaw)))
+
+    v._gnss_refresh_anchor, v._gnss_refine_yaw = on_refresh, on_refine
+    return fired
+
+
+def refresh_main(f64_prior: bool = False) -> dict:
+    """Phase 10b's drive through both packages' GroundFusion (CPU); with
+    ``f64_prior``, the JAX package's alone, its marginalization eliminating
+    in float64 as the port's does."""
+    import torch
+    from ground_fusion2_tpu_torch.config import groundchallenge_gnss as tgc
+    from ground_fusion2_tpu_torch.core.cameras import Pinhole as TPinhole
+    from ground_fusion2_tpu_torch.system import (GroundFusion as TGroundFusion,
+                                                 SystemConfig as TSystemConfig)
+    jax.config.update("jax_platforms", "cpu")
+    torch.set_num_threads(4)
+    if f64_prior:
+        from ground_fusion2_tpu.vio import problem
+        problem.marginalize = _marginalize_f64
+    frames = checks.gnss_drive(RR_FRAMES, epoch_every=1)
+    ext = dict(tic=frames[0]["tic"], ric=frames[0]["ric"], tio=np.zeros(3),
+               rio=np.eye(3))
+    jc = groundchallenge_gnss().estimator
+    jc.gnss_anchor_refresh_m = RR_REFRESH_M
+    jc.gnss_refine_period_ticks = RR_PERIOD
+    gfs = dict(jax=GroundFusion(SystemConfig(vio=jc, use_lidar=False), **ext))
+    if not f64_prior:
+        cam = tgc()
+        gfs["port"] = TGroundFusion(TSystemConfig(
+            vio=dataclasses.replace(cam.estimator,
+                                    gnss_anchor_refresh_m=RR_REFRESH_M,
+                                    gnss_refine_period_ticks=RR_PERIOD),
+            use_lidar=False, tracker=cam.tracker,
+            cam=TPinhole.create(*cam.intrinsics), cam_intr=cam.intrinsics),
+            device="cpu", **ext)
+    tick = [0]
+    fired = {name: _watch_refresh(gf.vio, tick) for name, gf in gfs.items()}
+    far = 0.0
+    for k, f in enumerate(frames):
+        tick[0] = k
+        out = {}
+        for name, gf in gfs.items():
+            obs = (FrameObs(*(jnp.asarray(a) for a in f["obs"]))
+                   if name == "jax" else f["obs"])
+            out[name] = gf.process_camera(f["t"], obs, f["imu"],
+                                          wheel_vel=f["wheel"],
+                                          gnss_meas=f["gnss"])
+            if "align" not in fired[name] and gf.vio.legacy.gnss_ready:
+                fired[name]["align"] = (
+                    k, float(np.asarray(gf.vio.carry.state.gyaw)))
+        if len(out) == 2 and all(o is not None and o.initialized
+                                 for o in out.values()):
+            far = max(far, float(np.abs(np.asarray(out["jax"].p)
+                                        - out["port"].p).max()))
+    return dict(fired, max_position_gap=far, f64_prior=f64_prior,
+                final_yaw={name: float(np.asarray(gf.vio.carry.state.gyaw))
+                           for name, gf in gfs.items()})
+
+
 def dynamic_main(n: int = 40) -> dict:
     jax.config.update("jax_platforms", "cpu")
     from ground_fusion2_tpu.vio.fused import _auto_mask_step
@@ -279,6 +367,10 @@ if __name__ == "__main__":
         out["gnss_f64_prior"] = gnss_main(f64_prior=True)
     if which == "prior-swap":
         out["prior_swap"] = prior_swap_main()
+    if which == "refresh":
+        out["refresh"] = refresh_main()
+    if which == "refresh-f64":
+        out["refresh_f64_prior"] = refresh_main(f64_prior=True)
     if which in ("dynamic", "all"):
         out["dynamic"] = dynamic_main()
     print(json.dumps(out))

@@ -1,0 +1,115 @@
+"""Which of kernels S–V moves a trajectory, on the card: ``chip_smoke.py``'s
+phase 4 drive (``FusedVio`` at ``m3dgr_camera()`` over 32 rendered room
+frames) and phase 10 drive (``GroundFusion`` at ``groundchallenge_gnss()``
+with global fusion over ``checks.gnss_drive()``), each run three times:
+
+- ``kernels``: as shipped, every stage on its kernel;
+- ``plain_S``: the LM's trial cost on its plain f32 twin
+  (``window_cost_plain``), every other stage on its kernel;
+- ``plain_S_to_V``: the trial cost, triangulation, the window tests and the
+  window updates all on their plain twins, the routes the camera tick took
+  before kernels S–V existed.
+
+Printed: each run's ATE (phase 4: aligned; phase 10: unaligned after init)
+and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
+
+    PYTHONPATH=. python tests/torch_route_attribution.py
+"""
+
+import contextlib
+import json
+import time
+
+import numpy as np
+import torch
+
+from ground_fusion2_tpu_torch import checks
+from ground_fusion2_tpu_torch.config import groundchallenge_gnss, m3dgr_camera
+from ground_fusion2_tpu_torch.core.cameras import Pinhole
+from ground_fusion2_tpu_torch.eval import metrics
+from ground_fusion2_tpu_torch.factors import vio_factors as fac
+from ground_fusion2_tpu_torch.system import GroundFusion, SystemConfig
+from ground_fusion2_tpu_torch.vio import feature_window as fwin
+from ground_fusion2_tpu_torch.vio.fused import FusedVio
+
+CAM_FRAMES = 32   # chip_smoke.py phase 4
+
+
+def _plain_cost_fn(x0, meas, layout, cfg):
+    return lambda delta: fac.window_cost_plain(x0, delta, meas, layout, cfg)
+
+
+PLAIN = {
+    "plain_S": [(fac, "window_cost_fn", _plain_cost_fn)],
+    "plain_S_to_V": [
+        (fac, "window_cost_fn", _plain_cost_fn),
+        (fwin, "triangulate", fwin.triangulate_plain),
+        (fwin, "post_solve_tests", fwin.post_solve_tests_plain),
+        (fwin, "presolve_tests", fwin.presolve_tests_plain),
+        (fwin, "co_parallax", fwin._co_parallax_plain),
+        (fwin, "add_frame", fwin.add_frame_plain),
+        (fwin, "slide_oldest", fwin.slide_oldest_plain),
+        (fwin, "slide_second_newest", fwin.slide_second_newest_plain),
+    ],
+}
+
+
+@contextlib.contextmanager
+def route(name: str):
+    saved = [(m, a, getattr(m, a)) for m, a, _ in PLAIN.get(name, [])]
+    for m, a, f in PLAIN.get(name, []):
+        setattr(m, a, f)
+    try:
+        yield
+    finally:
+        for m, a, f in saved:
+            setattr(m, a, f)
+
+
+def camera_ate(dev, frames) -> float:
+    cfg = m3dgr_camera()
+    fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
+                  dev, tic=np.zeros(3), ric=checks.RIG_RIC, tio=np.zeros(3),
+                  rio=np.eye(3), depth_stride=2)
+    est, gt = [], []
+    for f in frames:
+        out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
+                               wheel_vel=f["wheel"])
+        if out.initialized:
+            est.append(out.p)
+            gt.append(f["p_gt"])
+    return float(metrics.ate_rmse(np.asarray(est), np.asarray(gt), align=True))
+
+
+def gnss_run(dev, frames) -> dict:
+    cam = groundchallenge_gnss()
+    gf = GroundFusion(SystemConfig(
+        vio=cam.estimator, use_lidar=False, use_global_fusion=True,
+        global_every=5, tracker=cam.tracker,
+        cam=Pinhole.create(*cam.intrinsics), cam_intr=cam.intrinsics),
+        tic=frames[0]["tic"], ric=frames[0]["ric"], tio=np.zeros(3),
+        rio=np.eye(3), device=dev)
+    outs = [gf.process_camera(f["t"], f["obs"], f["imu"], wheel_vel=f["wheel"],
+                              gnss_meas=f["gnss"], gps_enu=f["gps_enu"],
+                              gps_std=checks.GNSS_FIX_STD) for f in frames]
+    r = checks.gnss_errors(outs, frames, gf)
+    return dict(ate=r["ate"], yaw=float(gf.vio.carry.state.gyaw),
+                global_rms=r["global_rms"])
+
+
+def main() -> dict:
+    dev = torch.device("cuda:0")
+    cam_frames = checks.room_drive(CAM_FRAMES)
+    gnss_frames = checks.gnss_drive()
+    out = {}
+    for name in ("kernels", "plain_S", "plain_S_to_V"):
+        t0 = time.perf_counter()
+        with route(name):
+            out[name] = dict(camera_ate=camera_ate(dev, cam_frames),
+                             gnss=gnss_run(dev, gnss_frames))
+        out[name]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+if __name__ == "__main__":
+    print(json.dumps(main()))
