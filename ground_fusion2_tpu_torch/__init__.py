@@ -15,6 +15,7 @@ its layout module by module so each counterpart is easy to find:
              kernels, the warm-up tracker
   lio/       ESKF, voxel map, CT-ICP, the fused LiDAR tick
   gnss/      the GNSS table container the window carry holds
+  mapping/   the log-odds occupancy grid fed by the fused LiDAR cloud
   system.py  GroundFusion: the two ticks joined by the IMU-rate handoff
   runtime/   telemetry; data/, eval/: numpy copies of the JAX package's
              renderer, simulator and metrics

@@ -12,6 +12,7 @@ reset the counts before the run they want to attribute.
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 
 import numpy as np
@@ -835,10 +836,10 @@ SMALL_REL_TOL = 1e-5   # kernels L, O: H, cost relative to their max |entry|
 # bound on the magnitude of its terms (PROJ_G_TOL)
 # kernel P's cost: a pseudorange residual is a small difference of ~10 m
 # terms (the receiver clock, the prereduced range, u·p), so f32 rounds it by
-# ~1e-6 σ; at a solved window (residuals ~0.05 σ) that is ~3e-5 of r² in
-# either route. So the kernel's cost is held against a float64 evaluation, to
-# P_COST_VS_PLAIN times the plain route's own error there (at least
-# SMALL_REL_TOL)
+# ~1e-6 σ; at a solved window (residuals ~0.05 σ) that is ~3e-5 of r² in an
+# f32 evaluation. The kernel evaluates its cost in double (as kernel S), and
+# is held against a float64 evaluation to P_COST_VS_PLAIN times the plain f32
+# route's own error there (at least SMALL_REL_TOL)
 P_COST_VS_PLAIN = 3.0
 # kernels L and P by factor family: (local columns = dual lanes, rows, flops
 # of one dual evaluation of the instance's residual), counted from
@@ -933,46 +934,357 @@ def check_small_normal(device, x0, meas, layout, delta, cfg,
     return out
 
 
-# ---------------------------------------------------------- row 7 (linalg)
+# ------------------------------------------------- row 7 (W, X, Y), row 16 (Z)
 F64_FLOPS_PER_S = 67e12   # H100 SXM, FP64 tensor core (NVIDIA data sheet)
+# kernel W: dx against a float64 solve of the same damped system, within
+# CHOL_VS_PLAIN × the plain float32 route's error there, or CHOL_REL_FLOOR
+# relative to max |dx| where that is larger. Both are float32 Cholesky
+# factorizations in different orders: each error is the system's condition
+# times f32 rounding, and their ratio is the luck of the order (0.30–3.0 over
+# seven systems of the window, the pose graph and the global graph on the
+# H100)
+CHOL_VS_PLAIN = 10.0
+CHOL_REL_FLOOR = 1e-5
+# kernel X: the prior's invariants H* = sqrt_Jᵀ sqrt_J and g* = sqrt_Jᵀ r0
+# (both in float64) relative to their max entry, against the twin's
+EIG_INV_TOL = 1e-9
+EIG_NEAR = (1e-7, 1e-5)   # eigenvalues within a factor 10 of the 1e-6 gates
+# kernel Y: against a float64 evaluation, within max(this, 3× the plain
+# float32 route's error), relative to the max entry
+SMALL_LINALG_TOL = 1e-5
+DEG_BAND = 1e-4    # a degeneracy flag may differ only this close (relative)
+                   # to its threshold
 
 
-def check_linalg(device, H, g, layout) -> dict:
-    """Row 7 (library, as the JAX package leaves it to XLA's linalg): the
-    damped Cholesky solve at D, ``marginalize``'s two f64 ``eigh`` at their
-    sizes, the pose graph's Cholesky at 4·64 and 4·512 and the global
-    graph's at 6·256, each with its bound (n³/3 flops a Cholesky, ~9 n³ an
-    eigh, one read of the matrix)."""
-    from .solver.gauss_newton import _solve_damped
-    D = H.shape[0]
-    lam = torch.full((), 1e-4, device=device)
-    free = torch.ones(D, device=device)
-    out = {}
-    ms = time_ms(lambda: _solve_damped(H, g, lam, free))
-    out["cholesky_solve_D%d" % D] = dict(
-        ms=ms, library_ms=ms, **bound(_nbytes(H, g) + g.numel() * 4,
-                                      D ** 3 / 3 + 4 * D * D))
-    n_drop = 20 + layout.F
-    rng = np.random.default_rng(0)
-    for name, n in (("eigh_f64_drop%d" % n_drop, n_drop),
-                    ("eigh_f64_kept%d" % layout.frame_dim, layout.frame_dim)):
-        A = rng.normal(size=(n, n))
-        S = torch.as_tensor(A @ A.T + n * np.eye(n), dtype=torch.float64,
-                            device=device)
-        ms = time_ms(lambda: torch.linalg.eigh(S), reps=10)
-        t_b = _nbytes(S) * 2 / HBM_BYTES_PER_S * 1e3
-        t_f = 9 * n ** 3 / F64_FLOPS_PER_S * 1e3
-        out[name] = dict(ms=ms, library_ms=ms, bound_ms=max(t_b, t_f),
-                         bound_by="bytes" if t_b >= t_f else "operations")
-    for name, n in (("pose_graph_cholesky_256", 256),
-                    ("pose_graph_cholesky_2048", 2048),
-                    ("global_graph_cholesky_1536", 1536)):
-        A = rng.normal(size=(n, n)).astype(np.float32)
-        S = torch.as_tensor(A @ A.T / n + np.eye(n, dtype=np.float32),
-                            device=device)
-        ms = time_ms(lambda: torch.linalg.cholesky_ex(S), reps=10)
-        out[name] = dict(ms=ms, library_ms=ms,
-                         **bound(2 * _nbytes(S), n ** 3 / 3))
+def _time_pair(a, b, reps: int = 20):
+    """Median ms of ``a()``, then of ``b()`` (:func:`time_ms` each)."""
+    return time_ms(a, reps=reps), time_ms(b, reps=reps)
+
+
+def check_chol_solve(device, H, g, free=None, lam: float = 1e-4,
+                     timed: bool = True) -> dict:
+    """Kernel W against ``_solve_damped_plain`` (cholesky_ex +
+    cholesky_solve) on one damped system: dx against the float64 solve,
+    NaN on a non-PD input, the same bits twice. ``library_ms``: the two
+    ``torch.linalg`` calls alone on the equilibrated matrix."""
+    from .solver.gauss_newton import _solve_damped, _solve_damped_plain
+    n = H.shape[0]
+    free = torch.ones(n, device=device) if free is None else free
+    lam_t = torch.full((), lam, device=device)
+    dk = _solve_damped(H, g, lam_t, free)
+    same = bool(torch.equal(dk, _solve_damped(H, g, lam_t, free)))
+    dp = _solve_damped_plain(H, g, lam_t, free)
+    d64 = _solve_damped_plain(H.double(), g.double(), lam_t.double(),
+                              free.double())
+    err_k, err_p = _rel(dk.double(), d64), _rel(dp.double(), d64)
+    tol = max(CHOL_VS_PLAIN * err_p, CHOL_REL_FLOOR)
+    bad = H.clone()
+    i = int(torch.nonzero(free)[0, 0])
+    bad[i, i] = -1.0                      # a negative pivot at a free dim
+    nan_k = bool(torch.isnan(_solve_damped(bad, g, lam_t, free)).all())
+    nan_p = bool(torch.isnan(_solve_damped_plain(bad, g, lam_t, free)).all())
+    out = dict(n=n, max_abs_err=float((dk - dp).abs().max()),
+               rel_err_vs_plain=_rel(dk, dp), rel_err_f64=err_k,
+               plain_rel_err_f64=err_p, tol=tol, repeat_equal=same,
+               nan_on_non_pd=nan_k, plain_nan_on_non_pd=nan_p,
+               finite=bool(torch.isfinite(dk).all()),
+               ok=(same and nan_k and err_k <= tol
+                   and bool(torch.isfinite(dk).all())),
+               # H, g, the mask in, dx out; n³/3 for the factor, 2n² for
+               # each triangular solve
+               **bound(_nbytes(H, g, free, dk), n ** 3 / 3 + 4 * n * n))
+    if timed:
+        fm = free.to(H.dtype)
+        Hm = H * fm[:, None] * fm[None, :]
+        dmp = Hm + torch.diag(lam * torch.clamp(torch.diagonal(Hm), min=1e-8)
+                              + (1.0 - fm))
+        dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(dmp), min=1e-12))
+        Hs = dmp * dinv[:, None] * dinv[None, :]
+        b = (g * fm * dinv)[:, None]
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: _solve_damped(H, g, lam_t, free),
+            lambda: _solve_damped_plain(H, g, lam_t, free))
+        out["library_ms"] = time_ms(lambda: torch.cholesky_solve(
+            b, torch.linalg.cholesky_ex(Hs)[0]))
+    return out
+
+
+def pg_free_mask(n: int, cap: int, d: int, device) -> torch.Tensor:
+    """The pose-graph LM's free mask on a graph of n nodes at the tier
+    ``cap`` (``posegraph/pose_graph.py``): live nodes free, node 0 pinned."""
+    free = torch.zeros(cap * d, device=device)
+    free[d:n * d] = 1.0
+    return free
+
+
+def marg_systems(x, meas, layout, cfg) -> dict:
+    """The two eliminations a window goes through, as (H, g, keep, drop):
+    MARGIN_OLD on ``x`` and MARGIN_SECOND_NEW of the prior that leaves."""
+    from .vio import problem
+    old = problem.marg_old_system(x, meas, layout, cfg)
+    prior = problem.marginalize_oldest(x, meas, layout, cfg)
+    return {"margin_old": old,
+            "margin_second_new": problem.marg_second_system(prior, layout)}
+
+
+@contextlib.contextmanager
+def _swapped(module, name: str, fn):
+    """``module.name`` is ``fn`` inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
+    """Kernel X against ``torch.linalg.eigh`` through ``marginalize`` in
+    float64 on each elimination of ``systems`` (name -> (H, g, keep,
+    drop)): the invariants H*, g* against the twin's, the same bits twice,
+    the eigenvalues and the kernel's residual ‖V diag(w) Vᵀ − A‖ and
+    ‖VᵀV − I‖ on each eigensolver input, and how many eigenvalues lie within
+    a factor 10 of the 1e-6 gates. Timed per input size: the kernel,
+    ``eigh`` (plain = library)."""
+    from .solver import marginalize as mg
+    out, sizes, ok = {}, {}, True
+    for name, (H, g, keep, drop) in systems.items():
+        H64, g64 = H.double(), g.double()
+        seen = []
+
+        def recording(A, kernel=mg.sym_eig):
+            seen.append(A.clone())
+            return kernel(A)
+        with _swapped(mg, "sym_eig", recording):
+            pk = mg.marginalize(H64, g64, keep, drop)
+        pk2 = mg.marginalize(H64, g64, keep, drop)
+        same = bool(torch.equal(pk.sqrt_J, pk2.sqrt_J)
+                    and torch.equal(pk.r0, pk2.r0))
+        with _swapped(mg, "sym_eig", mg.sym_eig_plain):
+            pp = mg.marginalize(H64, g64, keep, drop)
+        inv = lambda p: (p.sqrt_J.T @ p.sqrt_J, p.sqrt_J.T @ p.r0)
+        (Hk, gk), (Hp, gp) = inv(pk), inv(pp)
+        errs = dict(H=_rel(Hk, Hp), g=_rel(gk, gp))
+        eig = []
+        for A in seen:
+            wk, Vk = mg.sym_eig(A)
+            wp, _ = mg.sym_eig_plain(A)
+            n = A.shape[0]
+            Al = torch.tril(A) + torch.tril(A, -1).T
+            eye = torch.eye(n, dtype=A.dtype, device=device)
+            near = int(((wp > EIG_NEAR[0]) & (wp < EIG_NEAR[1])).sum())
+            eig.append(dict(
+                n=n, w_rel_err=_rel(wk, wp),
+                residual=_rel(Vk @ torch.diag(wk) @ Vk.T, Al),
+                orthogonality=float((Vk.T @ Vk - eye).abs().max()),
+                near_1e6=near, w_min=float(wp[0]), w_max=float(wp[-1])))
+            if timed and n not in sizes:
+                ms, lib = _time_pair(lambda: mg.sym_eig(A),
+                                     lambda: mg.sym_eig_plain(A), reps=10)
+                t_b = 2 * _nbytes(A) / HBM_BYTES_PER_S * 1e3
+                t_f = 9 * n ** 3 / F64_FLOPS_PER_S * 1e3
+                sizes[n] = dict(ms=ms, plain_ms=lib, library_ms=lib,
+                                bound_ms=max(t_b, t_f),
+                                bound_by="bytes" if t_b >= t_f else "operations")
+        good = same and all(v <= EIG_INV_TOL for v in errs.values())
+        ok &= good
+        out[name] = dict(rel_err=errs, tol=EIG_INV_TOL, repeat_equal=same,
+                         dims=(len(keep), len(drop)), eigh=eig, ok=good)
+    res = dict(systems=out, ok=ok, library_ms=None,
+               max_abs_err=max(max(v["rel_err"].values()) for v in out.values()))
+    if sizes:
+        n = max(sizes)      # the MARGIN_OLD kept block: the largest
+        res.update(sizes[n], sizes=sizes, timed_n=n)
+    return res
+
+
+def sqrt_info_inputs(fv):
+    """The IMU [W-1, 15, 15] and wheel [W-1, 6, 6] covariances whose
+    square-root informations ``FusedVio`` ``fv``'s final window uses."""
+    from .vio.estimator import preintegrate_all
+    c, e = fv.carry, fv.cfg
+    st = c.state
+    pre, wpre, *_ = preintegrate_all(
+        c.acc, c.gyr, c.wvel, c.dt, c.smask, st.ba[:-1], st.bg[:-1], st.six,
+        st.siy, st.siw, e.imu_noise, e.wheel_noise, st.qio)
+    return dict(imu=pre.cov, wheel=wpre.cov)
+
+
+def _against_f64(k, p, p64) -> dict:
+    e_k, e_p = _rel(k.double(), p64), _rel(p.double(), p64)
+    tol = max(SMALL_LINALG_TOL, 3.0 * e_p)
+    return dict(rel_err_f64=e_k, plain_rel_err_f64=e_p, tol=tol,
+                rel_err_vs_plain=_rel(k, p), ok=e_k <= tol)
+
+
+def _check_sqrt_info(device, covs: dict, timed: bool = True) -> dict:
+    """Kernel Y's entry 1 against ``imu_sqrt_info_plain`` on each batch of
+    ``covs`` (name -> [B, n, n]): against float64, the upper triangle
+    exactly 0, the same bits twice. Timed on the first batch."""
+    out, ok = {}, True
+    for name, cov in covs.items():
+        Sk = fac.imu_sqrt_info(cov)
+        same = bool(torch.equal(Sk, fac.imu_sqrt_info(cov)))
+        Sp = fac.imu_sqrt_info_plain(cov)
+        r = _against_f64(Sk, Sp, fac.imu_sqrt_info_plain(cov.double()))
+        upper0 = bool((torch.triu(Sk, 1) == 0).all())
+        r.update(shape=list(cov.shape), upper_zero=upper0, repeat_equal=same,
+                 max_abs_err=float((Sk - Sp).abs().max()))
+        r["ok"] &= upper0 and same
+        ok &= r["ok"]
+        out[name] = r
+    name, cov = next(iter(covs.items()))
+    n = cov.shape[-1]
+    res = dict(batches=out, ok=ok, max_abs_err=out[name]["max_abs_err"],
+               # the covariances in, S out; n³/3 + n³/3 (the factor and the
+               # triangular inverse) a matrix
+               **bound(2 * _nbytes(cov), cov.shape[0] * 2 * n ** 3 / 3))
+    if timed:
+        eye = torch.eye(n, device=device)
+        res["ms"], res["plain_ms"] = _time_pair(
+            lambda: fac.imu_sqrt_info(cov), lambda: fac.imu_sqrt_info_plain(cov))
+        res["library_ms"] = time_ms(lambda: torch.linalg.solve_triangular(
+            torch.linalg.cholesky_ex(cov)[0], eye.expand(cov.shape),
+            upper=False))
+    return res
+
+
+def _check_spd_inverse(device, S, timed: bool = True) -> dict:
+    """Kernel Y's entry 1 in its inverse mode against ``inv_ex`` on the
+    ESKF's 6×6 innovation covariance ``S``."""
+    Ik = ekf.spd_inverse(S)
+    same = bool(torch.equal(Ik, ekf.spd_inverse(S)))
+    Ip = ekf.spd_inverse_plain(S)
+    r = _against_f64(Ik, Ip, ekf.spd_inverse_plain(S.double()))
+    r.update(repeat_equal=same, max_abs_err=float((Ik - Ip).abs().max()),
+             **bound(2 * _nbytes(S), S.shape[-1] ** 3))
+    r["ok"] &= same
+    if timed:
+        r["ms"], r["plain_ms"] = _time_pair(lambda: ekf.spd_inverse(S),
+                                            lambda: ekf.spd_inverse_plain(S))
+        r["library_ms"] = r["plain_ms"]
+    return r
+
+
+def eskf_innovation(lo) -> torch.Tensor:
+    """The 6×6 innovation covariance of the SE(3) observation on the
+    odometry ``lo``'s filter (the LiDAR pose's noise, 1e-2)."""
+    cov = lo.carry.eskf.cov
+    idx = torch.tensor([0, 1, 2, 6, 7, 8], device=cov.device)
+    return cov[idx][:, idx] + torch.eye(6, device=cov.device) * 1e-4
+
+
+def _check_icp_solve(device, H, g, damping: float, timed: bool = True) -> dict:
+    """Kernel Y's entry 2 against ``damped_solve_plain`` (LU) on CT-ICP's
+    12×12 normal equations."""
+    dk = ci.damped_solve(H, g, damping)
+    same = bool(torch.equal(dk, ci.damped_solve(H, g, damping)))
+    dp = ci.damped_solve_plain(H, g, damping)
+    r = _against_f64(dk, dp, ci.damped_solve_plain(H.double(), g.double(),
+                                                   damping))
+    r.update(repeat_equal=same, max_abs_err=float((dk - dp).abs().max()),
+             **bound(_nbytes(H, g, dk), 12 ** 3 / 3 + 4 * 144))
+    r["ok"] &= same
+    if timed:
+        r["ms"], r["plain_ms"] = _time_pair(
+            lambda: ci.damped_solve(H, g, damping),
+            lambda: ci.damped_solve_plain(H, g, damping))
+        eye = torch.eye(12, device=device)
+        damped = H + eye * (damping * torch.clamp(torch.max(torch.diagonal(H)),
+                                                  min=1.0))
+        r["library_ms"] = time_ms(lambda: torch.linalg.solve_ex(damped, g))
+    return r
+
+
+def _check_degeneracy(device, normal, w, cfg, timed: bool = True) -> dict:
+    """Kernel Y's entry 3 against ``degeneracy_plain``: σ against float64,
+    n_sel equal, each flag equal unless the plain value lies within
+    DEG_BAND (relative) of its threshold."""
+    sk, nk, dk = ci.degeneracy(normal, w, cfg)
+    s2, n2, d2 = ci.degeneracy(normal, w, cfg)
+    same = bool(torch.equal(sk, s2) and torch.equal(nk, n2)
+                and torch.equal(dk, d2))
+    sp, npl, dp = ci.degeneracy_plain(normal, w, cfg)
+    s64 = ci.degeneracy_plain(normal.double(), w.double(), cfg)[0]
+    r = _against_f64(sk, sp, s64)
+    mean_p, min_p = float(sp.mean()), float(sp[2])
+    near = (abs(mean_p - cfg.deg_sigma_mean) <= DEG_BAND * cfg.deg_sigma_mean
+            or abs(min_p - cfg.deg_sigma_min) <= DEG_BAND * cfg.deg_sigma_min)
+    flags_ok = bool(dk == dp) or near
+    r.update(sigma=sk.tolist(), sigma_plain=sp.tolist(), n_sel=float(nk),
+             n_sel_plain=float(npl), degenerate=bool(dk),
+             degenerate_plain=bool(dp), flag_near_threshold=near,
+             repeat_equal=same, max_abs_err=float((sk - sp).abs().max()),
+             **bound(_nbytes(normal, w) + 3 * 4 + 8,
+                     normal.shape[0] * 7 + 500))
+    r["ok"] &= same and flags_ok and float(nk) == float(npl)
+    if timed:
+        r["ms"], r["plain_ms"] = _time_pair(
+            lambda: ci.degeneracy(normal, w, cfg),
+            lambda: ci.degeneracy_plain(normal, w, cfg))
+        A = torch.einsum("k,ki,kj->ij", (w > 0).float(), normal, normal)
+        r["library_ms"] = time_ms(lambda: torch.linalg.eigvalsh(A))
+    return r
+
+
+def check_small_linalg(device, covs: dict, S, H, g, damping: float, normal,
+                       w, icp_cfg, timed: bool = True) -> dict:
+    """Kernel Y's entries against their plain versions, each against a
+    float64 evaluation: the square-root informations of ``covs`` (name ->
+    [B, n, n]), the inverse of the ESKF's innovation ``S``, CT-ICP's damped
+    solve of (H, g) and its degeneracy test on (normal, w). Returns one
+    result a kernel entry (the names ``chip_smoke.py`` reports)."""
+    return {
+        "sqrt_info": _check_sqrt_info(device, covs, timed),
+        "spd_inverse": _check_spd_inverse(device, S, timed),
+        "icp_solve": _check_icp_solve(device, H, g, damping, timed),
+        "degeneracy": _check_degeneracy(device, normal, w, icp_cfg, timed),
+    }
+
+
+def check_occupancy(device, cfg, origin, pts, valid, logodds0=None,
+                    timed: bool = True) -> dict:
+    """Kernel Z against ``scatter_scan_plain`` on one scan: every sample's
+    cell index equal, each cell's log-odds within the rounding bound of two
+    sums of its m increments in different orders (2·(m − 1)·2⁻²⁴·Σ|terms|,
+    the grid's prior value a term). ``library_ms``: ``index_add_`` of the
+    plain version's increments alone (the scatter, not the ray walk)."""
+    from .mapping import occupancy as occ
+    if logodds0 is None:
+        logodds0 = torch.zeros((cfg.size_y, cfg.size_x), device=device)
+    gk, ik = occ.scatter_scan(logodds0.clone(), origin, pts, valid, cfg,
+                              with_index=True)
+    gp, ip = occ.scatter_scan_plain(logodds0.clone(), origin, pts, valid, cfg,
+                                    with_index=True)
+    idx_equal = bool(torch.equal(ik, ip))
+    hit = ip[ip >= 0].long()
+    m = torch.bincount(hit, minlength=gp.numel()).view_as(gp).float()
+    lmax = max(abs(occ._logit(cfg.p_occ)), abs(occ._logit(cfg.p_free)))
+    terms = m * lmax + logodds0.abs()
+    tol = 2.0 * torch.clamp(m, min=1.0) * 2.0 ** -24 * terms
+    diff = (gk - gp).abs()
+    ok = idx_equal and bool((diff <= tol).all())
+    N, S = ik.shape
+    touched = int((m > 0).sum())
+    out = dict(max_abs_err=float(diff.max()),
+               worst_over_tol=float((diff / tol.clamp(min=1e-30)).max()),
+               idx_equal=idx_equal, samples=N * S, increments=int(hit.numel()),
+               cells_touched=touched, max_hits_a_cell=int(m.max()),
+               ok=ok,
+               # points and masks in, each touched cell read and written
+               # once; ~20 f32 operations a sample
+               **bound(_nbytes(pts, valid) + 2 * 4 * touched, 20 * N * S))
+    if timed:
+        grid = logodds0.clone()
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: occ.scatter_scan(grid, origin, pts, valid, cfg),
+            lambda: occ.scatter_scan_plain(grid, origin, pts, valid, cfg),
+            reps=10)
+        flat = torch.clamp(ip, min=0).reshape(-1).long()
+        inc = torch.where(ip >= 0, torch.full_like(ip, 1, dtype=torch.float32),
+                          torch.zeros_like(ip, dtype=torch.float32)).reshape(-1)
+        out["library_ms"] = time_ms(lambda: grid.view(-1).index_add_(0, flat,
+                                                                     inc))
     return out
 
 
@@ -1606,7 +1918,7 @@ def check_triangulate(device, fw, x, rho, uninit) -> dict:
     # out; operations, in the function's f32 (the kernel's f64 Jacobi is its
     # own choice, not the work): two 4-wide DLT rows (8 each) and their 4×4
     # outer products (32 each) an observation, a 4×4 eigh with vectors
-    # (9·4³, as check_linalg counts eigh) and the finish (~30) a track
+    # (9·4³, as check_sym_eig counts eigh) and the finish (~30) a track
     nb = (_nbytes(fw.ray, fw.obs_valid, fw.anchor, fw.track_valid,
                   fw.depth_fixed, uninit, rho, x.p, x.q) + F * 4 + F)
     flops = n_obs * 2 * (8 + 32) + F * (9 * 4 ** 3 + 30)

@@ -10,10 +10,11 @@ leaves, field names and dtypes as in the JAX package, so a test can rebuild
 the JAX NamedTuple with ``JaxType(**tree._asdict())``.
 :func:`system_from_jax` carries a whole JAX ``GroundFusion`` (both carries,
 the IMU-rate propagator, the last VIO output, the pose graph, global
-fusion) into the port's; :func:`fused_vio_from_jax` a JAX ``FusedVio``'s
-carry and host state (GNSS alignment and filters, the dynamic mask's
-previous frame); :func:`pose_graph_from_jax` a JAX ``PoseGraph`` and
-:func:`global_fusion_from_jax` a JAX ``GlobalFusion`` alone.
+fusion, the occupancy grid) into the port's; :func:`fused_vio_from_jax` a
+JAX ``FusedVio``'s carry and host state (GNSS alignment and filters, the
+dynamic mask's previous frame); :func:`pose_graph_from_jax` a JAX
+``PoseGraph``, :func:`global_fusion_from_jax` a JAX ``GlobalFusion`` and
+:func:`occupancy_from_jax` a JAX ``OccupancyGrid``'s log-odds alone.
 """
 
 from __future__ import annotations
@@ -155,6 +156,17 @@ def global_fusion_from_jax(gfu, device):
     return out
 
 
+def occupancy_from_jax(grid) -> np.ndarray:
+    """The log-odds [size_y, size_x] of a JAX ``OccupancyGrid``, as numpy."""
+    return np.array(grid.logodds, np.float32, copy=True)
+
+
+def grid_config_from_jax(jcfg):
+    from .mapping.occupancy import GridConfig
+    return GridConfig(**{f.name: getattr(jcfg, f.name)
+                         for f in dataclasses.fields(GridConfig)})
+
+
 def fused_vio_from_jax(jv, fv):
     """Put the JAX ``FusedVio`` ``jv``'s live state into the port's ``fv``
     (built with the same configuration): the carry with its interval
@@ -220,6 +232,9 @@ def system_config_from_jax(jcfg):
         use_global_fusion=jcfg.use_global_fusion,
         global_every=jcfg.global_every, use_mesh=jcfg.use_mesh,
         use_occupancy_grid=jcfg.use_occupancy_grid,
+        occupancy=(None if jcfg.occupancy is None
+                   else grid_config_from_jax(jcfg.occupancy)),
+        load_grid_map=jcfg.load_grid_map,
         cam_intr=tuple(jcfg.cam_intr), kf_cell=jcfg.kf_cell)
 
 
@@ -227,8 +242,8 @@ def system_from_jax(gf, device, cfg=None):
     """A port ``GroundFusion`` on ``device`` in the state of the JAX
     package's ``gf``: the VIO (:func:`fused_vio_from_jax`), the LIO carry
     (with its held-back record), the ``FastPropagator`` buffers,
-    ``latest_vio``, the keyframe count, the pose graph with its pending loop
-    and global fusion. Both of ``gf``'s carries must be live (after warm-up
+    ``latest_vio``, the keyframe count, the pose graph with its pending loop,
+    global fusion and the occupancy grid's log-odds. Both of ``gf``'s carries must be live (after warm-up
     and the LIO's first fused tick). ``cfg``: the port's SystemConfig
     (default: converted from ``gf.cfg``)."""
     from .system import GroundFusion
@@ -258,6 +273,10 @@ def system_from_jax(gf, device, cfg=None):
         out.pg = pose_graph_from_jax(gf.pg, out.device, out.cfg.pose_graph)
         out._pending_loop = gf._pending_loop
         out._last_loop_opt_kf = gf._last_loop_opt_kf
+    if gf.occ_grid is not None:
+        out.occ_grid.cfg = grid_config_from_jax(gf.occ_grid.cfg)
+        out.occ_grid.logodds = torch.as_tensor(occupancy_from_jax(gf.occ_grid),
+                                               device=out.device)
     if gf.latest_vio is not None:
         out.latest_vio = VioOutput(**{k: (np.asarray(x) if hasattr(x, "shape")
                                           else x)

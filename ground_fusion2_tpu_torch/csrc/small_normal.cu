@@ -27,7 +27,8 @@
 // `bias_corrected`, `mat_to_ypr`'s atan2/asin included). The instance's
 // w²·JᵀJ (≤ 30×30), w²·Jᵀr and cost go to scratch with a map from dense to
 // local column. The residuals are csrc/window_rows.cuh's, which kernel S
-// evaluates without duals for the LM's cost.
+// evaluates without duals for the LM's cost; the cost here is evaluated as
+// S does, in double from the f32 inputs (lane 0), and summed in double.
 // Reduce pass: a thread per entry of the [frame_dim]² block of H sums the
 // instances in index order (g and the cost alike): no float atomics, so two
 // calls on the same inputs give the same bits.
@@ -118,7 +119,7 @@ __global__ void factor_kernel(Lay L, const float* __restrict__ xs,
                               const float* __restrict__ gtab, float g_norm,
                               float plane_w, float motion_w, float posvel_w,
                               float* __restrict__ part_H, float* __restrict__ part_g,
-                              float* __restrict__ part_c, int* __restrict__ inv) {
+                              double* __restrict__ part_c, int* __restrict__ inv) {
   __shared__ float sJ[kMaxRows][kLanes];
   __shared__ float sr[kMaxRows];
   const int inst = blockIdx.x, lane = threadIdx.x;
@@ -154,16 +155,27 @@ __global__ void factor_kernel(Lay L, const float* __restrict__ xs,
     part_g[(size_t)inst * kLanes + lane] = gv;
   }
   if (lane == 0) {
-    float c = 0.f;
-    for (int a = 0; a < rows; ++a) c += (sr[a] * w) * (sr[a] * w);
-    part_c[inst] = 0.5f * c;
+    // the cost from the residual in double on the same f32 inputs, as
+    // kernel S evaluates it: a pseudorange residual is a small difference
+    // of ~10 m terms, which f32 rounds by ~3e-5 of r² at a solved window
+    double rd[kMaxRows];
+    float wd;
+    const int nd = residual<double>(L, type, k, -1, xs, imu, whl, misc, delta, gx,
+                                    gtab, g_norm, plane_w, motion_w, posvel_w, rd,
+                                    &wd);
+    double c = 0.0;
+    for (int a = 0; a < nd; ++a) {
+      const double e = rd[a] * wd;
+      c += e * e;
+    }
+    part_c[inst] = 0.5 * c;
   }
 }
 
 __global__ void reduce_kernel(int n_inst, int fd, int D,
                               const float* __restrict__ part_H,
                               const float* __restrict__ part_g,
-                              const float* __restrict__ part_c,
+                              const double* __restrict__ part_c,
                               const int* __restrict__ inv, float* __restrict__ H,
                               float* __restrict__ g, float* __restrict__ cost) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
@@ -180,9 +192,9 @@ __global__ void reduce_kernel(int n_inst, int fd, int D,
   H[(size_t)rr * D + cc] = acc;
   if (cc == 0) g[rr] = ga;
   if (t == 0) {
-    float c = 0.f;
+    double c = 0.0;
     for (int n = 0; n < n_inst; ++n) c += part_c[n];
-    cost[0] = c;
+    cost[0] = (float)c;
   }
 }
 
@@ -268,8 +280,9 @@ extern "C" int gf2_small_normal(
   const int n = n_instances(L);
   float* part_H = scratch;
   float* part_g = part_H + (size_t)n * kLanes * kLanes;
-  float* part_c = part_g + (size_t)n * kLanes;
-  float* dx = part_c + n;
+  // n·(kLanes² + kLanes) floats before it: 8-byte aligned
+  double* part_c = reinterpret_cast<double*>(part_g + (size_t)n * kLanes);
+  float* dx = reinterpret_cast<float*>(part_c + n);
   float* B = dx + fd;
   factor_kernel<<<n, kLanes, 0, st>>>(L, xs, imu, whl, misc, delta, gx, gtab,
                                       g_norm, plane_w, motion_w, posvel_w,

@@ -21,6 +21,7 @@ from .. import _kernels
 from ..core import lie, robust
 from ..gnss.factors import gnss_residuals
 from ..solver.gauss_newton import normal_equations
+from ..solver.small_linalg import small_spd_cuda
 from ..sensors.imu_preint import ImuPreint, bias_corrected
 from ..sensors.wheel_preint import WheelPreint, intrinsic_corrected
 from ..vio.state import WindowLayout, WindowState
@@ -139,12 +140,21 @@ def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
     return H, g, cost[0]
 
 
-def imu_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
+def imu_sqrt_info_plain(cov: torch.Tensor) -> torch.Tensor:
     """S with SᵀS = cov⁻¹: S = L⁻¹ for cov + 1e-10 I = L Lᵀ."""
     n = cov.shape[-1]
     eye = torch.eye(n, dtype=cov.dtype, device=cov.device)
     L, _ = torch.linalg.cholesky_ex(cov + eye * 1e-10)
     return torch.linalg.solve_triangular(L, eye.expand(cov.shape), upper=False)
+
+
+def imu_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
+    """:func:`imu_sqrt_info_plain`, by kernel Y (``csrc/small_linalg.cu``,
+    one warp a matrix) on the card."""
+    if not cov.is_cuda:
+        return imu_sqrt_info_plain(cov)
+    return small_spd_cuda(cov, inverse=False)
+
 
 
 def _mv(M, v):
@@ -383,7 +393,8 @@ def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
            delta.to(dtype=torch.float32).contiguous(), pbase, pq, sqrt_J, r0]
     S = meas.gnss.u_enu.shape[1]
     n_inst = _n_instances(W, S, cfg)
-    scratch = torch.empty((n_inst * (32 * 32 + 32 + 1) + K + 9 * (W + 3),),
+    # per instance: H and g partials (f32), its cost (f64: two f32 slots)
+    scratch = torch.empty((n_inst * (32 * 32 + 32 + 2) + K + 9 * (W + 3),),
                           dtype=torch.float32, device=dev)
     inv = torch.empty((n_inst * K,), dtype=torch.int32, device=dev)
     H = torch.zeros((D, D), dtype=torch.float32, device=dev)

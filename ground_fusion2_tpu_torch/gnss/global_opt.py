@@ -6,7 +6,8 @@ from the local (VIO) odometry, absolute position anchors from GPS fixes in
 the local-cartesian ENU frame, 6-DoF tag anchors, solved by the dense
 tangent-space LM (``solver/gauss_newton.py``) whose normal equations come
 from kernel Q (``csrc/global_normal.cu``) on the card. The 6·N damped
-Cholesky stays ``torch.linalg``, as the JAX package leaves it to XLA.
+Cholesky solve is kernel W (``csrc/chol_solve.cu``, a cooperative grid at
+6·256).
 
 The node bookkeeping stays on the host in numpy (f32, the JAX package's
 quaternion formulas); the graph moves to the device once an optimization.

@@ -7,15 +7,18 @@ re-associates (kernel D: kNN + plane fit) and takes one damped GN step on
 the 12-dim tangent [δθ_begin, δt_begin, δθ_end, δt_end]; the normal
 equations of the a2D-weighted point-to-plane rows and the 9 regularizer rows
 are kernel E (``csrc/ct_icp_normal.cu``) on the card, ``torch.func.jacfwd``
-in the plain version. The 12×12 damped solve and the 3×3 ``eigvalsh`` of
-the degeneracy test stay in ``torch.linalg``.
+in the plain version. The 12×12 damped solve and the degeneracy test (the
+selected normals' scatter matrix, its 3×3 eigenvalues and the flags) are
+kernel Y's entries 2 and 3 (``csrc/small_linalg.cu``); their plain versions
+are ``torch.linalg.solve_ex`` and ``eigvalsh``.
 
 The iterations never wait for the host: the fixed trip count keeps its
 frozen steps, and the mid-solve re-gather (a ``lax.cond`` in JAX) selects
 the gather points on the device, ``where(moved > voxel/2, p_w(pose_mid),
 p_w0)``; kernel D searches the map around them every iteration, which gives
-the candidates JAX caches. ``eigvalsh`` checks its convergence on the host:
-one sync a solve.
+the candidates JAX caches. On the card the solve has no host sync at all
+(the plain ``eigvalsh`` checks its convergence on the host: one sync a
+solve).
 """
 
 from __future__ import annotations
@@ -114,6 +117,71 @@ def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg):
     return out[:144].view(12, 12), out[144:156], out[156]
 
 
+def damped_solve_plain(H, g, damping: float):
+    """d = −(H + damping·max(max diag H, 1)·I)⁻¹ g (pivoted LU)."""
+    eye = torch.eye(H.shape[0], dtype=H.dtype, device=H.device)
+    damped = H + eye * (damping * torch.clamp(torch.max(torch.diagonal(H)),
+                                              min=1.0))
+    return -torch.linalg.solve_ex(damped, g).result
+
+
+def damped_solve(H, g, damping: float):
+    """:func:`damped_solve_plain`, by kernel Y's entry 2 on the card (the
+    damped matrix is SPD: a one-warp Cholesky and two substitutions)."""
+    if not H.is_cuda:
+        return damped_solve_plain(H, g, damping)
+    Hc, gc = H.contiguous(), g.contiguous()
+    n = Hc.shape[0]
+    if Hc.dtype != torch.float32 or gc.dtype != torch.float32 or n > 32:
+        raise ValueError("icp_solve kernel takes float32, n ≤ 32")
+    d = torch.empty_like(gc)
+    P = ctypes.c_void_p
+    err = _kernels.library().gf2_icp_solve(
+        P(Hc.data_ptr()), P(gc.data_ptr()), n, ctypes.c_float(damping),
+        P(d.data_ptr()), P(torch.cuda.current_stream(H.device).cuda_stream))
+    _kernels.check(err, "gf2_icp_solve")
+    _kernels.count("icp_solve")
+    return d
+
+
+def degeneracy_plain(normal, w, cfg: CtIcpConfig):
+    """(σ [3] descending, n_sel, degenerate) of the normals with w > 0:
+    the square roots of their scatter matrix's eigenvalues."""
+    sel = (w > 0).to(normal.dtype)
+    n_sel = torch.sum(sel)
+    A = torch.einsum("k,ki,kj->ij", sel, normal, normal)
+    evals = torch.linalg.eigvalsh(A)
+    sigma = torch.sqrt(torch.clamp(evals.flip(0), min=0.0))
+    degenerate = ((torch.mean(sigma) < cfg.deg_sigma_mean)
+                  | (sigma[2] < cfg.deg_sigma_min)
+                  | (n_sel <= cfg.min_normals))
+    return sigma, n_sel, degenerate
+
+
+def degeneracy(normal, w, cfg: CtIcpConfig):
+    """:func:`degeneracy_plain`, by kernel Y's entry 3 on the card (one
+    launch, fixed-order sums, no host sync)."""
+    if not normal.is_cuda:
+        return degeneracy_plain(normal, w, cfg)
+    nc, wc = normal.contiguous(), w.contiguous()
+    if nc.dtype != torch.float32 or wc.dtype != torch.float32:
+        raise ValueError("degeneracy kernel takes float32 CUDA tensors")
+    dev = nc.device
+    sigma = torch.empty(3, device=dev)
+    n_sel = torch.empty((), device=dev)
+    degenerate = torch.empty((), dtype=torch.bool, device=dev)
+    P = ctypes.c_void_p
+    err = _kernels.library().gf2_degeneracy(
+        P(nc.data_ptr()), P(wc.data_ptr()), nc.shape[0],
+        ctypes.c_float(cfg.deg_sigma_mean), ctypes.c_float(cfg.deg_sigma_min),
+        ctypes.c_float(cfg.min_normals), P(sigma.data_ptr()),
+        P(n_sel.data_ptr()), P(degenerate.data_ptr()),
+        P(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_degeneracy")
+    _kernels.count("degeneracy")
+    return sigma, n_sel, degenerate
+
+
 def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
            map_cfg: VoxelMapConfig, vmap: vm.VoxelMap,
            pred: CtPose | None = None) -> IcpResult:
@@ -122,7 +190,6 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
     if pred is None:
         pred = pose0
     dtype, dev = pts_body.dtype, pts_body.device
-    eye = torch.eye(12, dtype=dtype, device=dev)
     conv_rot = math.radians(cfg.conv_rot_deg)
 
     def assoc(pose, p_gather):
@@ -139,9 +206,7 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
         normal, centroid, w = assoc(pose, p_gather)
         H, g, cost = normal_equations(pose, pred, pts_body, alpha, centroid,
                                       normal, w, cfg)
-        damped = H + eye * (cfg.damping * torch.clamp(
-            torch.max(torch.diagonal(H)), min=1.0))
-        d = -torch.linalg.solve_ex(damped, g).result
+        d = damped_solve(H, g, cfg.damping)
         d = d * (1.0 - done)                     # frozen once converged
         dt_norm = torch.maximum(torch.linalg.norm(d[3:6]),
                                 torch.linalg.norm(d[9:12]))
@@ -169,13 +234,6 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
 
     # degeneracy: eigenvalues of the accepted normals' scatter matrix
     normal, _, w = assoc(pose, p_gather)
-    sel = (w > 0).to(dtype)
-    n_sel = torch.sum(sel)
-    A = torch.einsum("k,ki,kj->ij", sel, normal, normal)
-    evals = torch.linalg.eigvalsh(A)
-    sigma = torch.sqrt(torch.clamp(evals.flip(0), min=0.0))
-    degenerate = ((torch.mean(sigma) < cfg.deg_sigma_mean)
-                  | (sigma[2] < cfg.deg_sigma_min)
-                  | (n_sel <= cfg.min_normals))
+    sigma, n_sel, degenerate = degeneracy(normal, w, cfg)
     return IcpResult(pose=pose, n_corr=n_sel, sigma=sigma,
                      degenerate=degenerate, cost=cost)

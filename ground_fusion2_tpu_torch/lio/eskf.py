@@ -8,7 +8,8 @@ transition F·P·Fᵀ + Q; an SE(3) observation fuses with a Kalman update.
 per-sample trajectory) and is the plain version. :func:`predict_final` is
 what the LiDAR tick calls: kernel G (``csrc/eskf_predict.cu``) for tensors on
 the card, which walks the ≤ 48 samples in order and returns only the final
-state, the trajectory being unused there.
+state, the trajectory being unused there. The observation's 6×6 innovation
+inverse is kernel Y's entry 1 (``csrc/small_linalg.cu``) on the card.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 from .. import _kernels
 from ..config import EskfOptions
 from ..core import lie
+from ..solver.small_linalg import small_spd_cuda
 
 # error-state ordering: [δp(0:3), δv(3:6), δθ(6:9), δbg(9:12), δba(12:15), δg(15:18)]
 DIM = 18
@@ -142,6 +144,20 @@ def _predict_cuda(s: EskfState, acc, gyr, dt, mask, opt) -> EskfState:
     return s._replace(p=p, v=v, q=q, cov=cov)
 
 
+def spd_inverse_plain(S: torch.Tensor) -> torch.Tensor:
+    """S⁻¹ of the SPD innovation covariance (an LU, without a checked
+    inverse's host sync)."""
+    return torch.linalg.inv_ex(S).inverse
+
+
+def spd_inverse(S: torch.Tensor) -> torch.Tensor:
+    """:func:`spd_inverse_plain`, by kernel Y's entry 1 on the card (a
+    one-warp Cholesky in double)."""
+    if S.is_cuda:
+        return small_spd_cuda(S, inverse=True)
+    return spd_inverse_plain(S)
+
+
 def observe_se3(s: EskfState, p_obs, q_obs, trans_noise: float = 1e-2,
                 ang_noise: float = 1e-2) -> EskfState:
     """Fuse an SE(3) pose observation (reference ``ObserveSE3``). Built
@@ -154,7 +170,7 @@ def observe_se3(s: EskfState, p_obs, q_obs, trans_noise: float = 1e-2,
     full = lambda v: torch.full((3,), v, dtype=dtype, device=dev)
     noise = torch.diag(torch.cat([full(trans_noise ** 2), full(ang_noise ** 2)]))
     S = H @ s.cov @ H.T + noise
-    K = s.cov @ H.T @ torch.linalg.inv_ex(S).inverse
+    K = s.cov @ H.T @ spd_inverse(S)
     innov = torch.cat([p_obs - s.p, lie.quat_boxminus(q_obs, s.q)])
     dx = K @ innov
     cov1 = (torch.eye(DIM, dtype=dtype, device=dev) - K @ H) @ s.cov

@@ -13,8 +13,9 @@ Differences from the JAX tick, none of which change its arithmetic:
     per-sample ESKF trajectory is not computed;
   * the record and the recenter predicate come back in ONE read: the
     record is complete before the map update, and the map update then runs
-    only the branch it needs (the tick's other host sync is ``eigvalsh``'s
-    check in CT-ICP);
+    only the branch it needs. On the card that read is the tick's only host
+    sync (CT-ICP's degeneracy test is kernel Y; its plain ``eigvalsh``
+    checks its convergence on the host);
   * ``evict_far`` runs on the host-known ``frame_idx % evict_every``.
 """
 

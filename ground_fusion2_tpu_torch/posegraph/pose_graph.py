@@ -7,8 +7,9 @@ package saves loads in the other. On the card the descriptors run through
 kernel M (``posegraph/brief.py``), the loop geometry through kernel N
 (``csrc/loop_geom.cu``) and the LM's normal equations through kernel O
 (``csrc/pg_normal.cu``); each ``*_plain`` version beside them runs for
-tensors on the CPU. The damped Cholesky stays ``torch.linalg``, as the JAX
-package leaves it to XLA's linalg.
+tensors on the CPU. The LM's damped Cholesky solve is kernel W
+(``csrc/chol_solve.cu``, through ``solver/gauss_newton.py``; one CTA at
+4·64, a cooperative grid at 4·512).
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
 """Dense masked Levenberg-Marquardt in tangent space (port of
-``ground_fusion2_tpu/solver/gauss_newton.py``, on ``torch.linalg``).
+``ground_fusion2_tpu/solver/gauss_newton.py``); each damped step is one
+launch of kernel W (``csrc/chol_solve.cu``) on the card.
 
 The JAX solver differentiates one stacked residual function with ``jacfwd``.
 Here the caller supplies ``linearize(delta) -> (H, g, cost)`` — the window
@@ -12,9 +13,12 @@ trip count and no host synchronization.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, NamedTuple
 
 import torch
+
+from .. import _kernels
 
 
 class LMResult(NamedTuple):
@@ -37,7 +41,7 @@ def normal_equations(residual_fn: Callable, delta: torch.Tensor):
     return Jw.T @ Jw, Jw.T @ rw, 0.5 * torch.sum(rw * rw)
 
 
-def _solve_damped(H, g, lam, free_mask):
+def _solve_damped_plain(H, g, lam, free_mask):
     """Solve (H + lam·diag(H) + I_fixed) dx = −g, Jacobi-equilibrated
     Cholesky; fixed dims pinned. A failed factorization gives NaN, as
     ``jax.scipy.linalg.cho_factor`` does, so the step is rejected."""
@@ -52,6 +56,33 @@ def _solve_damped(H, g, lam, free_mask):
     dx = -d_inv * torch.cholesky_solve((g * fm * d_inv)[:, None], L)[:, 0]
     dx = torch.where(info == 0, dx, torch.full_like(dx, float("nan")))
     return dx * fm
+
+
+def _solve_damped(H, g, lam, free_mask):
+    """:func:`_solve_damped_plain`, by kernel W on the card (one launch:
+    the masking, damping and equilibration, the f32 Cholesky, both
+    triangular solves and the unscaling; NaN where a pivot fails)."""
+    if H.is_cuda:
+        return _solve_damped_cuda(H, g, lam, free_mask)
+    return _solve_damped_plain(H, g, lam, free_mask)
+
+
+def _solve_damped_cuda(H, g, lam, free_mask):
+    n = H.shape[0]
+    ts = [t.contiguous() for t in (H, g, lam.reshape(1),
+                                   free_mask.to(H.dtype))]
+    if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
+        raise ValueError("chol_solve kernel takes float32 CUDA tensors")
+    A = torch.empty((n, n), device=H.device)
+    b = torch.empty((n,), device=H.device)
+    dx = torch.empty((n,), device=H.device)
+    P = ctypes.c_void_p
+    err = _kernels.library().gf2_chol_solve(
+        *[P(t.data_ptr()) for t in ts], n, P(A.data_ptr()), P(b.data_ptr()),
+        P(dx.data_ptr()), P(torch.cuda.current_stream(H.device).cuda_stream))
+    _kernels.check(err, "gf2_chol_solve")
+    _kernels.count("chol_solve")
+    return dx
 
 
 def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
@@ -82,7 +113,9 @@ def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
 
 def schur_reduce(H, g, keep: int):
     """Eliminate the trailing block: H' = Hkk − Hkl Hll⁻¹ Hlk,
-    g' = gk − Hkl Hll⁻¹ gl (Hll regularized by 1e-8 I)."""
+    g' = gk − Hkl Hll⁻¹ gl (Hll regularized by 1e-8 I). No path of the
+    port calls it (the distributed bundle adjustment that does is not
+    ported), so it stays on ``torch.linalg``."""
     Hkk, Hkl, Hll = H[:keep, :keep], H[:keep, keep:], H[keep:, keep:]
     gk, gl = g[:keep], g[keep:]
     Hll = Hll + torch.eye(Hll.shape[0], dtype=H.dtype, device=H.device) * 1e-8

@@ -1,5 +1,7 @@
 """Dense marginalization prior: Schur complement + eigen square root (port
-of ``ground_fusion2_tpu/solver/marginalize.py``, on ``torch.linalg``).
+of ``ground_fusion2_tpu/solver/marginalize.py``). Both symmetric
+eigensolvers are kernel X (``csrc/sym_eig.cu``) on the card; the
+permutation gathers and the products around them stay PyTorch.
 
     H* = D V S Vᵀ D   (Jacobi-equilibrated eigh, S clamped ≥ 0)
     sqrt_J = √S Vᵀ D,   r0 = √S⁻¹ Vᵀ D⁻¹ g*
@@ -16,10 +18,13 @@ the f64 elimination does not.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .. import _kernels
 
 
 class MargPrior(NamedTuple):
@@ -38,6 +43,45 @@ class MargPrior(NamedTuple):
         return r, self.valid.expand(r.shape)
 
 
+def sym_eig_plain(A: torch.Tensor):
+    """(w ascending, V) of the symmetric ``A``: ``torch.linalg.eigh``."""
+    return torch.linalg.eigh(A)
+
+
+def sym_eig(A: torch.Tensor):
+    """:func:`sym_eig_plain`, by kernel X on the card (float64 or float32;
+    no host check of convergence: where an eigenvalue is still unconverged
+    after 30 QL sweeps, every w and V is NaN, where the plain eigh raises).
+    Within a repeated eigenvalue the kernel's eigenvectors are another basis
+    of the same space than torch's."""
+    if A.is_cuda:
+        return _sym_eig_cuda(A)
+    return sym_eig_plain(A)
+
+
+def _sym_eig_cuda(A, max_sweeps: int = 30):
+    n = A.shape[0]
+    if A.dtype not in (torch.float64, torch.float32) or A.shape != (n, n):
+        raise ValueError("sym_eig kernel takes a square float64 or float32 "
+                         "CUDA matrix")
+    A = A.contiguous()
+    dev, dt = A.device, A.dtype
+    new = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
+    n_log = 15 * n * n + n      # ≤ 30 sweeps of ≤ n − l rotations for each l
+    V, w = new(n, n), new(n)
+    scratch = (new(n, n), V, w, new(n), new(n), new(n), new(n_log),
+               new(n_log), new(n_log, dtype=torch.int32),
+               new(1, dtype=torch.int32))
+    fn = (_kernels.library().gf2_sym_eig_f64 if dt == torch.float64
+          else _kernels.library().gf2_sym_eig_f32)
+    P = ctypes.c_void_p
+    err = fn(P(A.data_ptr()), n, *[P(t.data_ptr()) for t in scratch],
+             max_sweeps, P(torch.cuda.current_stream(dev).cuda_stream))
+    _kernels.check(err, "gf2_sym_eig")
+    _kernels.count("sym_eig")
+    return w, V
+
+
 def marginalize(H, g, keep_idx: np.ndarray, drop_idx: np.ndarray,
                 eig_floor: float = 1e-8, dtype=torch.float64) -> MargPrior:
     """Schur-marginalize ``drop_idx`` of (H, g); prior over ``keep_idx``,
@@ -54,7 +98,7 @@ def marginalize(H, g, keep_idx: np.ndarray, drop_idx: np.ndarray,
     dd = torch.sqrt(torch.clamp(torch.diagonal(Hdd), min=eig_floor))
     Dd_inv = 1.0 / dd
     Hdd_s = Hdd * Dd_inv[:, None] * Dd_inv[None, :]
-    wd, Vd = torch.linalg.eigh(0.5 * (Hdd_s + Hdd_s.T))
+    wd, Vd = sym_eig(0.5 * (Hdd_s + Hdd_s.T))
     inv_wd = torch.where(wd > 1e-6, 1.0 / torch.clamp(wd, min=1e-6),
                          torch.zeros_like(wd))
     Hdd_inv = (Dd_inv[:, None] * (Vd * inv_wd[None, :]) @ Vd.T) * Dd_inv[None, :]
@@ -64,7 +108,7 @@ def marginalize(H, g, keep_idx: np.ndarray, drop_idx: np.ndarray,
     Hs = 0.5 * (Hs + Hs.T)
     dk = torch.sqrt(torch.clamp(torch.diagonal(Hs), min=eig_floor))
     Dk_inv = 1.0 / dk
-    w, V = torch.linalg.eigh(Hs * Dk_inv[:, None] * Dk_inv[None, :])
+    w, V = sym_eig(Hs * Dk_inv[:, None] * Dk_inv[None, :])
     s = torch.sqrt(torch.clamp(w, min=0.0))
     s_inv = torch.where(w > 1e-6, 1.0 / torch.clamp(s, min=1e-3),
                         torch.zeros_like(s))

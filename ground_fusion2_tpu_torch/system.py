@@ -19,11 +19,13 @@ Global fusion (the reference's global_fusion node): every keyframe feeds
 :class:`~.gnss.global_opt.GlobalFusion`, with the tick's GPS fix
 (``gps_enu``) as its anchor, and the graph is optimized every
 ``global_every`` keyframes. ``auto_dyn_mask`` masks moving objects in the
-tracker by the rigid-warp check (``frontend/dynamic.py``).
+tracker by the rigid-warp check (``frontend/dynamic.py``). With
+``use_occupancy_grid`` every fused sweep's world-frame cloud (still on the
+device) feeds the 2D log-odds grid (``mapping/occupancy.py``, kernel Z) from
+the fused position; ``load_grid_map`` starts it from a saved PGM.
 
 Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-legacy host-orchestrated VIO backend, meshing and the occupancy grid. They
-are off in every shipped run of the system.
+legacy host-orchestrated VIO backend and meshing.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from .core.device import resolve
 from .frontend import klt
 from .gnss.global_opt import GlobalFusion
 from .lio.odometry import LidarOdometry
+from .mapping.occupancy import GridConfig, OccupancyGrid
 from .posegraph.pose_graph import PoseGraph, _with_yaw, _yaw_rot
 from .runtime.telemetry import Telemetry
 from .vio.estimator import VioOutput
@@ -67,7 +70,11 @@ class SystemConfig:
     use_global_fusion: bool = False
     global_every: int = 5                     # optimize every N keyframes
     use_mesh: bool = False                    # not ported
-    use_occupancy_grid: bool = False          # not ported
+    # 2D occupancy grid (support_files/grid_mapping; prior-map load =
+    # LOAD_GRID_MAP, pose_graph_node.cpp:861-900)
+    use_occupancy_grid: bool = False
+    occupancy: GridConfig | None = None
+    load_grid_map: str | None = None          # prior PGM path
     # camera intrinsics for the keyframes' pixel corners (loop closure)
     cam_intr: tuple = (460.0, 460.0, 320.0, 240.0)
     kf_cell: int = 20      # fresh keyframe corner grid, px
@@ -75,7 +82,6 @@ class SystemConfig:
 
 _NOT_PORTED = {
     "use_mesh": "meshing (ROADMAP.md queue 2, row 15)",
-    "use_occupancy_grid": "the occupancy grid (ROADMAP.md queue 2, row 16)",
 }
 
 
@@ -122,6 +128,12 @@ class GroundFusion:
                        if cfg.load_pose_graph else PoseGraph(pg_cfg, self.device))
         self.gfusion = (GlobalFusion(device=self.device)
                         if cfg.use_global_fusion else None)
+        self.occ_grid = None
+        if cfg.use_occupancy_grid:
+            self.occ_grid = (
+                OccupancyGrid.load(cfg.load_grid_map, cfg.occupancy,
+                                   self.device) if cfg.load_grid_map
+                else OccupancyGrid(cfg.occupancy or GridConfig(), self.device))
         self._start()
 
     def _start(self):
@@ -311,6 +323,9 @@ class GroundFusion:
             t=t, p=out.p_fused, q=out.q_fused,
             p_vio=None if ext is None else np.asarray(ext[0]),
             degenerate=out.degenerate, switched=out.switched, source="fused"))
+        if self.occ_grid is not None and self.lio.last_cloud is not None:
+            p_w, m = self.lio.last_cloud
+            self.occ_grid.update(np.asarray(out.p_fused)[:2], p_w, m > 0.5)
 
     # -- outputs ---------------------------------------------------------
     def save_trajectory_tum(self, path: str):
@@ -324,6 +339,11 @@ class GroundFusion:
     def save_pose_graph(self, path: str):
         if self.pg is not None:
             self.pg.save(path)
+
+    def save_grid_map(self, img_path: str, cfg_path: str):
+        """Occupancy-map export (map_server PGM + YAML)."""
+        if self.occ_grid is not None:
+            self.occ_grid.save(img_path, cfg_path)
 
     def save_telemetry(self, out_dir: str):
         """Every pose stream (TUM), tick statistics (JSONL), events and the

@@ -110,12 +110,12 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
                        out.H, out.g)
 
 
-def marginalize_oldest(x: WindowState, meas: VioMeasurements,
-                       layout: WindowLayout, cfg: VioConfig) -> MargPrior:
-    """MARGIN_OLD: relinearize the factors touching frame 0 at the solved
-    state, eliminate frame 0 and the landmarks, shift into the next layout.
-    As in the JAX package, only the features, IMU and wheel rows are masked
-    to frame 0: every frame's plane, GNSS and motion rows enter."""
+def marg_old_system(x: WindowState, meas: VioMeasurements,
+                    layout: WindowLayout, cfg: VioConfig):
+    """(H, g, keep, drop) that MARGIN_OLD eliminates: the factors touching
+    frame 0 relinearized at the solved state. As in the JAX package, only
+    the features, IMU and wheel rows are masked to frame 0: every frame's
+    plane, GNSS and motion rows enter."""
     dev, dtype = x.p.device, x.p.dtype
     f = meas.feats
     feats0 = f._replace(track_valid=f.track_valid * (f.anchor == 0).to(dtype))
@@ -131,26 +131,41 @@ def marginalize_oldest(x: WindowState, meas: VioMeasurements,
     g = g * fixed
     drop = np.concatenate([layout.frame0_drop_indices(),
                            np.arange(layout.rho_off, layout.rho_off + layout.F)])
-    prior = marginalize(H, g, layout.frame_keep_indices(), drop)
+    return H, g, layout.frame_keep_indices(), drop
+
+
+def marginalize_oldest(x: WindowState, meas: VioMeasurements,
+                       layout: WindowLayout, cfg: VioConfig) -> MargPrior:
+    """MARGIN_OLD: eliminate frame 0 and the landmarks
+    (:func:`marg_old_system`), shift into the next layout."""
+    prior = marginalize(*marg_old_system(x, meas, layout, cfg))
     return shift_prior(prior, layout.shift_map_after_marg_old(),
                        layout.frame_dim)
 
 
-def marginalize_second_newest(prior: MargPrior,
-                              layout: WindowLayout) -> MargPrior:
-    """MARGIN_SECOND_NEW: drop frame W-2's dims from the existing prior.
-    Its residual is linear (sqrt_J dx + r0), so H and g are exact."""
+def marg_second_system(prior: MargPrior, layout: WindowLayout):
+    """(H, g, keep, drop) that MARGIN_SECOND_NEW eliminates: frame W-2's
+    dims of the existing prior. Its residual is linear (sqrt_J dx + r0),
+    so H and g are exact."""
     Jw = prior.sqrt_J * prior.valid
     H = Jw.T @ Jw
     g = Jw.T @ (prior.r0 * prior.valid)
-    W_, sec = layout.W, layout.W - 2
+    sec = layout.W - 2
     drop = np.concatenate([
         np.arange(layout.pose_off + sec * 6, layout.pose_off + (sec + 1) * 6),
         np.arange(layout.sb_off + sec * 9, layout.sb_off + (sec + 1) * 9),
         np.arange(layout.gdt_off + sec * 4, layout.gdt_off + (sec + 1) * 4),
         np.arange(layout.gddt_off + sec, layout.gddt_off + sec + 1)])
     keep = np.setdiff1d(np.arange(layout.frame_dim), drop)
-    out_prior = marginalize(H, g, keep, drop)
+    return H, g, keep, drop
+
+
+def marginalize_second_newest(prior: MargPrior,
+                              layout: WindowLayout) -> MargPrior:
+    """MARGIN_SECOND_NEW: drop frame W-2's dims from the existing prior
+    (:func:`marg_second_system`), shift into the next layout."""
+    out_prior = marginalize(*marg_second_system(prior, layout))
+    W_, sec = layout.W, layout.W - 2
 
     def frame_block(off, width):
         return [np.arange(off + (k if k < sec else k - 1) * width,

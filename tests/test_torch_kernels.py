@@ -3,9 +3,10 @@ card, at the main paths' shapes (the comparisons of ``chip_smoke.py``: the
 camera kernels A–C and H–L, the LiDAR kernels D–G on a map filled by 12
 scans of the bench_lio drive at the M3DGR LIO configuration, the
 loop-closure kernels M–O, the GNSS rows P, the global graph Q, the
-dynamic mask R, the window cost S and the feature-window stages T–V, and
-O's and Q's cost-only modes), and C, L, O, P, Q and S–V giving the same
-bits twice.
+dynamic mask R, the window cost S, the feature-window stages T–V, the
+damped Cholesky W, the eigensolver X, the small solves Y and the occupancy
+grid Z, and O's and Q's cost-only modes), and C, L, O, P, Q and S–Y giving
+the same bits twice.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -429,8 +430,134 @@ def test_camera_tick_launches_h_to_k(dev, camera):
     assert n["small_normal"] == n["proj_normal"] >= 9, n
 
 
+@pytest.mark.parametrize("n,cap,six", [(396, None, False), (60, 64, False),
+                                       (500, 512, False), (250, 256, True)],
+                         ids=["window396", "pg256", "pg2048", "global1536"])
+def test_chol_solve_kernel_matches_plain(dev, window, n, cap, six):
+    """Kernel W at the main path's sizes: the window's D = 396 (one CTA),
+    the pose graph's 4·64 and 4·512 and a 6·256 graph (the global graph's
+    1536, cooperative)."""
+    free = None
+    if cap is None:
+        x0, _, layout, delta, meas, vcfg = window
+        from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
+        H, g, _ = window_normal_equations(x0, meas, layout, vcfg, delta)
+    else:
+        from ground_fusion2_tpu_torch.posegraph import pose_graph as pgm
+        args = checks.ring_graph_args(n, cap, dev, six)
+        d = 6 if six else 4
+        H, g, _ = pgm.pg_normal_equations(*args, torch.zeros(cap * d,
+                                                             device=dev))
+        free = checks.pg_free_mask(n, cap, d, dev)
+    r = checks.check_chol_solve(dev, H, g, free, timed=False)
+    assert r["ok"] and r["repeat_equal"] and r["nan_on_non_pd"], r
+
+
+def test_sym_eig_kernel_matches_plain(dev, window):
+    """Kernel X through ``marginalize`` on the example window's MARGIN_OLD
+    (drop 170 / keep 226) and MARGIN_SECOND_NEW (drop 20 of the 246-dim
+    prior / keep 226)."""
+    x0, _, layout, _, meas, vcfg = window
+    r = checks.check_sym_eig(dev, checks.marg_systems(x0, meas, layout, vcfg),
+                             timed=False)
+    assert r["ok"], r
+    dims = {k: v["dims"] for k, v in r["systems"].items()}
+    assert dims == {"margin_old": (226, 170),
+                    "margin_second_new": (226, 20)}, dims
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_sym_eig_kernel_nan_when_unconverged(dev, dtype, tol):
+    """Kernel X on matrices it cannot finish: a seeded symmetric 40×40 with
+    no QL sweep allowed, and the same matrix holding a NaN pair (no sweep
+    converges). Every w and every entry of V is NaN, where the plain eigh
+    raises. With its 30 sweeps the finite matrix is solved: eigenvalues
+    within ``tol`` of ``eigh``'s, relative to the largest."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.solver.marginalize import (_sym_eig_cuda,
+                                                             sym_eig)
+    a = np.random.default_rng(7).standard_normal((40, 40))
+    A = torch.as_tensor(a + a.T, dtype=dtype, device=dev)
+    w, V = _sym_eig_cuda(A, max_sweeps=0)
+    assert bool(torch.isnan(w).all()) and bool(torch.isnan(V).all())
+    bad = A.clone()
+    bad[5, 3] = bad[3, 5] = float("nan")
+    w, V = sym_eig(bad)
+    assert bool(torch.isnan(w).all()) and bool(torch.isnan(V).all())
+    w, V = sym_eig(A)
+    ref = torch.linalg.eigvalsh(A.double())
+    err = float((w.double() - ref).abs().max() / ref.abs().max())
+    assert bool(torch.isfinite(V).all()) and err <= tol, err
+
+
+def test_small_linalg_kernels_match_plain(dev, camera, lio):
+    """Kernel Y: the camera window's square-root informations, the ESKF's
+    innovation inverse, CT-ICP's damped solve and degeneracy test."""
+    from ground_fusion2_tpu_torch.lio import ct_icp as ci
+    _, fv, _, _ = camera
+    lo, _, x = lio
+    icp = lo.cfg.icp_cfg
+    H, g, _ = ci.normal_equations(x["pose"], x["pose"], x["kp"], x["ka"],
+                                  x["centroid"], x["normal"], x["w"], icp)
+    r = checks.check_small_linalg(
+        dev, checks.sqrt_info_inputs(fv), checks.eskf_innovation(lo), H, g,
+        icp.damping, x["normal"], x["w"], icp, timed=False)
+    assert all(v["ok"] for v in r.values()), r
+    assert r["degeneracy"]["n_sel"] > icp.min_normals, r
+
+
+def test_occupancy_kernel_matches_plain(dev):
+    """Kernel Z on a lifted room sweep seen from 0.3 m off the origin: the
+    cell of every sample equal, the log-odds within their rounding bound,
+    from an empty grid and from one that already holds a scan."""
+    from ground_fusion2_tpu_torch.mapping.occupancy import GridConfig
+    s = checks.lidar_drive(2, z=1.0)[1]
+    pts = torch.as_tensor(s["pts"], device=dev)
+    valid = torch.as_tensor(s["valid"] > 0.5, device=dev)
+    origin = torch.tensor([0.3, -0.2], device=dev)
+    r = checks.check_occupancy(dev, GridConfig(), origin, pts, valid,
+                               timed=False)
+    assert r["ok"] and r["increments"] > 10_000, r
+    grid = torch.zeros((400, 400), device=dev)
+    from ground_fusion2_tpu_torch.mapping.occupancy import scatter_scan_plain
+    scatter_scan_plain(grid, origin, pts, valid, GridConfig())
+    r = checks.check_occupancy(dev, GridConfig(), origin, pts, valid, grid,
+                               timed=False)
+    assert r["ok"], r
+
+
 def _launch(name, dev):
     from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
+    if name == "chol_solve":
+        from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
+        one = torch.ones(8, device=dev)
+        return _solve_damped(torch.eye(8, device=dev), one,
+                             torch.full((), 1e-4, device=dev), one)
+    if name == "sym_eig":
+        from ground_fusion2_tpu_torch.solver.marginalize import sym_eig
+        return sym_eig(torch.eye(8, dtype=torch.float64, device=dev))
+    if name in ("sqrt_info", "spd_inverse"):
+        from ground_fusion2_tpu_torch.factors.vio_factors import imu_sqrt_info
+        from ground_fusion2_tpu_torch.lio.eskf import spd_inverse
+        eye = torch.eye(6, device=dev)
+        return (imu_sqrt_info(eye[None]) if name == "sqrt_info"
+                else spd_inverse(eye))
+    if name in ("icp_solve", "degeneracy"):
+        from ground_fusion2_tpu_torch.lio import ct_icp
+        if name == "icp_solve":
+            return ct_icp.damped_solve(torch.eye(12, device=dev),
+                                       torch.ones(12, device=dev), 1e-3)
+        return ct_icp.degeneracy(torch.ones((8, 3), device=dev),
+                                 torch.ones(8, device=dev), m3dgr_lio().icp_cfg)
+    if name == "occupancy":
+        from ground_fusion2_tpu_torch.mapping.occupancy import (
+            GridConfig, scatter_scan)
+        return scatter_scan(torch.zeros((400, 400), device=dev),
+                            torch.zeros(2, device=dev),
+                            torch.ones((4, 3), device=dev),
+                            torch.ones(4, dtype=torch.bool, device=dev),
+                            GridConfig())
     if name == "small_normal":
         from ground_fusion2_tpu_torch.config import VioConfig
         from ground_fusion2_tpu_torch.factors import vio_factors as fac
@@ -553,7 +680,9 @@ def _launch(name, dev):
                                   "pg_normal", "gnss_normal", "global_normal",
                                   "dyn_mask", "window_cost", "triangulate",
                                   "window_tests", "window_update", "pg_cost",
-                                  "global_cost"])
+                                  "global_cost", "chol_solve", "sym_eig",
+                                  "sqrt_info", "spd_inverse", "icp_solve",
+                                  "degeneracy", "occupancy"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

@@ -43,6 +43,11 @@ FUSED_TOL = 1e-3        # m, fused LiDAR positions
 VIO_TOL = 1e-4          # m, VIO outputs before the first MARGIN_OLD
 ATE_GATE = 0.1          # m, both VIO ATEs after it
 CARRY_TOL = 1e-4        # m, one tick from a carried-over JAX state
+# share of grid cells off by > 1e-4 in log-odds: the systems' clouds differ
+# by ~1e-5 m, so ~4·1e-5 / 0.05 of the ~2e6 samples a drive flip to the
+# neighbouring cell (each flip moves two cells' log-odds)
+GRID_CELLS_OFF = 1e-2
+GRID_COUNT_REL = 1e-2   # occupied / free cell counts, relative
 
 
 def _drive(n=N_FRAMES, imu_rate=200.0, cam_rate=10.0, seed=0):
@@ -88,7 +93,8 @@ def _jax_cfg(pipelined=False):
                                                deg_sigma_min=3.0,
                                                deg_sigma_mean=5.0),
                        max_keypoints=256, scan_buffer=1024),
-        vio_pipelined=pipelined, lio_pipelined=pipelined)
+        vio_pipelined=pipelined, lio_pipelined=pipelined,
+        use_occupancy_grid=True)
 
 
 def _feed(gf, f, obs):
@@ -108,14 +114,17 @@ def jax_run(drive):
     system carried over from its state before frame ``k_carry``."""
     frames, cam = drive
     gf = JGroundFusion(_jax_cfg(), tic=cam.tic, ric=cam.ric)
-    outs, carried, k_carry = [], None, None
+    outs, carried, k_carry, grids_at_carry = [], None, None, None
     for k, f in enumerate(frames):
         live = gf.vio.carry is not None and gf.lio._carry is not None
         if live and gf.vio.dispatch_count >= 2 and carried is None:
             carried, k_carry = convert.system_from_jax(gf, "cpu"), k
+            grids_at_carry = (np.asarray(gf.occ_grid.logodds),
+                              carried.occ_grid.logodds.clone().numpy())
         obs = jfwin.FrameObs(*(jax.numpy.asarray(a) for a in f["obs"]))
         outs.append(_feed(gf, f, obs))
-    return dict(outs=outs, gf=gf, carried=carried, k_carry=k_carry)
+    return dict(outs=outs, gf=gf, carried=carried, k_carry=k_carry,
+                grids_at_carry=grids_at_carry)
 
 
 @pytest.fixture(scope="module")
@@ -155,6 +164,31 @@ def test_system_matches_jax(drive, jax_run, port_run):
     for i in (0, 1):
         est = np.asarray([np.asarray(x[i].p) for x in vio])
         assert ate_rmse(est, gt, align=True) < ATE_GATE
+
+
+def test_occupancy_grid_matches_jax(jax_run, port_run):
+    """The grid fed by every fused sweep (it feeds nothing back): the two
+    systems' clouds and fused positions differ by ~1e-6 m, so a sample may
+    round into the neighbouring cell; the maps agree cell by cell all but
+    there, and their occupied / free counts agree."""
+    lj = np.asarray(jax_run["gf"].occ_grid.logodds)
+    lt = port_run["gf"].occ_grid.logodds.numpy()
+    assert (lj != 0).sum() > 5000
+    off = np.abs(lt - lj) > 1e-4
+    assert off.mean() < GRID_CELLS_OFF, off.mean()
+    pj, pt = jax_run["gf"].occ_grid.prob(), port_run["gf"].occ_grid.prob()
+    for thr in (0.65, 0.2):
+        nj = int((pj > thr).sum()) if thr > 0.5 else int((pj < thr).sum())
+        nt = int((pt > thr).sum()) if thr > 0.5 else int((pt < thr).sum())
+        assert abs(nt - nj) <= GRID_COUNT_REL * nj, (thr, nt, nj)
+
+
+def test_system_from_jax_carries_the_grid(jax_run):
+    lj, lt = jax_run["grids_at_carry"]
+    assert (lj != 0).any()
+    np.testing.assert_array_equal(lt, lj)
+    gf = jax_run["carried"]
+    assert gf.cfg.use_occupancy_grid and gf.occ_grid.cfg.size_x == 400
 
 
 def test_one_tick_from_a_jax_state(drive, jax_run):
@@ -202,7 +236,7 @@ def test_pipelined_outputs_lag_one_tick(drive):
 
 @pytest.mark.parametrize("option", [
     dict(vio_backend="legacy"), dict(use_mesh=True),
-    dict(use_occupancy_grid=True)])
+    dict(use_mesh=True, use_occupancy_grid=True)])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         GroundFusion(SystemConfig(**option), device="cpu")

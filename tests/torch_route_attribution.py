@@ -1,14 +1,20 @@
-"""Which of kernels S–V moves a trajectory, on the card: ``chip_smoke.py``'s
-phase 4 drive (``FusedVio`` at ``m3dgr_camera()`` over 32 rendered room
-frames) and phase 10 drive (``GroundFusion`` at ``groundchallenge_gnss()``
-with global fusion over ``checks.gnss_drive()``), each run three times:
+"""Which kernel moves a trajectory, on the card: ``chip_smoke.py``'s phase 4
+drive (``FusedVio`` at ``m3dgr_camera()`` over 32 rendered room frames) and
+phase 10 drive (``GroundFusion`` at ``groundchallenge_gnss()`` with global
+fusion over ``checks.gnss_drive()``), each run once a route:
 
 - ``kernels``: as shipped, every stage on its kernel;
 - ``plain_S``: the LM's trial cost on its plain f32 twin
   (``window_cost_plain``), every other stage on its kernel;
 - ``plain_S_to_V``: the trial cost, triangulation, the window tests and the
   window updates all on their plain twins, the routes the camera tick took
-  before kernels S–V existed.
+  before kernels S–V existed;
+- ``plain_W_X_Y``: the damped Cholesky solve (W), the marginalization's
+  eigensolver (X) and the square-root informations (Y) on their plain
+  ``torch.linalg`` twins, the routes before kernels W–Y existed;
+- ``X_float``: the marginalization eliminated in float32, kernel X
+  instantiated in float (the JAX package's precision; the port eliminates
+  in float64).
 
 Printed: each run's ATE (phase 4: aligned; phase 10: unaligned after init)
 and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
@@ -17,6 +23,7 @@ and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
 """
 
 import contextlib
+import functools
 import json
 import time
 
@@ -28,8 +35,13 @@ from ground_fusion2_tpu_torch.config import groundchallenge_gnss, m3dgr_camera
 from ground_fusion2_tpu_torch.core.cameras import Pinhole
 from ground_fusion2_tpu_torch.eval import metrics
 from ground_fusion2_tpu_torch.factors import vio_factors as fac
+from ground_fusion2_tpu_torch.lio import eskf
+from ground_fusion2_tpu_torch.solver import gauss_newton as gn
+from ground_fusion2_tpu_torch.solver import marginalize as mg
 from ground_fusion2_tpu_torch.system import GroundFusion, SystemConfig
+from ground_fusion2_tpu_torch.vio import estimator as vest
 from ground_fusion2_tpu_torch.vio import feature_window as fwin
+from ground_fusion2_tpu_torch.vio import problem as vprob
 from ground_fusion2_tpu_torch.vio.fused import FusedVio
 
 CAM_FRAMES = 32   # chip_smoke.py phase 4
@@ -51,7 +63,16 @@ PLAIN = {
         (fwin, "slide_oldest", fwin.slide_oldest_plain),
         (fwin, "slide_second_newest", fwin.slide_second_newest_plain),
     ],
+    "plain_W_X_Y": [
+        (gn, "_solve_damped", gn._solve_damped_plain),
+        (mg, "sym_eig", mg.sym_eig_plain),
+        (vest, "imu_sqrt_info", fac.imu_sqrt_info_plain),
+        (eskf, "spd_inverse", eskf.spd_inverse_plain),
+    ],
+    "X_float": [(vprob, "marginalize",
+                 functools.partial(mg.marginalize, dtype=torch.float32))],
 }
+ROUTES = ("kernels", "plain_S", "plain_S_to_V", "plain_W_X_Y", "X_float")
 
 
 @contextlib.contextmanager
@@ -102,7 +123,7 @@ def main() -> dict:
     cam_frames = checks.room_drive(CAM_FRAMES)
     gnss_frames = checks.gnss_drive()
     out = {}
-    for name in ("kernels", "plain_S", "plain_S_to_V"):
+    for name in ROUTES:
         t0 = time.perf_counter()
         with route(name):
             out[name] = dict(camera_ate=camera_ate(dev, cam_frames),

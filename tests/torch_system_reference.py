@@ -1,7 +1,9 @@
 """The JAX package's GroundFusion on the port's system drive, on the CPU: the
 reference figures for ``chip_smoke.py``'s phase 8 (fused position error,
-VIO ATE, switches, degenerate scans), at the M3DGR configuration the loader
-gives for ``configs/m3dgr.yaml`` with bench.py's ``bench_system`` flags.
+VIO ATE, switches, degenerate scans) and phase 13 (the occupancy grid's
+occupied (p > 0.65) and free (p < 0.2) cells), at the M3DGR configuration
+the loader gives for ``configs/m3dgr.yaml`` with bench.py's ``bench_system``
+flags and the grid on (it feeds nothing back into the poses).
 
     PYTHONPATH=. python tests/torch_system_reference.py [n_frames]
 
@@ -37,7 +39,7 @@ def main(n: int = 40) -> dict:
                        cam=Pinhole.create(ci["fx"], ci["fy"], ci["cx"],
                                           ci["cy"]),
                        vio_pipelined=True, vio_depth_stride=2,
-                       lio_pipelined=True)
+                       lio_pipelined=True, use_occupancy_grid=True)
     frames = checks.system_drive(n)
     gf = GroundFusion(cfg, tic=np.zeros(3), ric=checks.RIG_RIC,
                       tio=np.zeros(3), rio=np.eye(3))
@@ -53,6 +55,8 @@ def main(n: int = 40) -> dict:
     if o is not None and o.initialized:
         vio.append(o)
     r = checks.system_errors(gf.trajectory, vio, frames)
+    p = gf.occ_grid.prob()
+    r.update(grid_occupied=int((p > 0.65).sum()), grid_free=int((p < 0.2).sum()))
     r["seconds"] = time.time() - t0
     return r
 
