@@ -137,8 +137,27 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      OccupancyGrid.load must give prob() back within 1/255, and the system
      tick with the grid on is printed beside phase 8's and beside the same
      drive with the grid off right after it, with phase 8's torch.profiler
-     split of the last 3 ticks and the grid feed's host wall.
-Phases 4, 5, 8, 9, 10, 10b, 11 and 13 run with a counter on every
+     split of the last 3 ticks and the grid feed's host wall;
+ 14. the online mesh: GroundFusion(m3dgr_system() with use_mesh at the JAX
+     package's MeshConfig() defaults and the M3DGR intrinsics as
+     mesh_intrinsics) over phase 8's drive, each frame process_camera_image
+     then process_lidar with the grey frame as a three-channel texture and
+     the latest VIO pose composed with the rig's extrinsic as its camera
+     pose (checks.mesh_texture, as data/m3dgr_sim.py:392-404), then flush.
+     AA must launch on every insert chunk, AB on every textured sweep, AC on
+     every drained batch; every fused pose stay finite and the fused error
+     < 0.06 m; AA, AB and AC are held against their plain versions on the
+     last chunk, the last textured sweep and the last full dirty batch
+     (AA's means bit for bit against the CPU's pass; AB's visibility equal
+     but within 1e-5 of a border, colours to 1e-3; AC's verdicts equal but
+     where a test's margin is within 1e-5 of its terms, each such triple
+     named; each twice the same bits); export_mesh's PLY header counts must
+     equal stats(). The mesh's vertices, meshed voxels and triangles and
+     its textured share are printed beside the JAX package's on the same
+     drive (tests/torch_system_reference.py mesh), and the system tick
+     beside phase 8's, with the mesh feed's host wall and syncs a sweep and
+     torch.profiler's split of the last 3 ticks.
+Phases 4, 5, 8, 9, 10, 10b, 11, 13 and 14 run with a counter on every
 torch.linalg function but the norms and cross, and on torch's own
 factorizations, solves and inverses (cholesky_solve, cholesky_inverse,
 inverse, lu_solve, ...): every count must be 0, each kernel W-Z replacing
@@ -147,7 +166,8 @@ marginalization prior (kernel X's NaN where its QL does not converge;
 phase 10 on any unconverged eigensolve).
 The last two lines are the kernels JSON (launches from phase 8's run for
 A-L and S-Y, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
-Q's cost mode, phase 11's for R, phase 13's for Z) and the result JSON.
+Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC)
+and the result JSON.
 
 The camera rig is synthetic: the renderer's forward camera (bench.py's
 extrinsic) and an identity wheel frame replace the M3DGR extrinsics, which
@@ -206,6 +226,12 @@ JAX_MASK_FREE = dict(mean=0.014753787878787878, max=0.16229166666666667)
 # the JAX package's occupancy grid on phase 8's drive (p > 0.65 / p < 0.2;
 # tests/torch_system_reference.py, CPU)
 JAX_GRID = dict(occupied=1079, free=63662)
+# the JAX package's mesh on phase 14's drive and feed, and the share of its
+# live vertices that took a colour (tests/torch_system_reference.py mesh,
+# CPU)
+JAX_MESH = dict(stats=dict(vertices=32178, voxels_meshed=2979,
+                           triangles=42979, frames=36, evicted_vertices=0),
+                textured=0.3044005220958419)
 GNSS_MAX_ATE = 0.30    # m, tests/test_gnss_fused.py:29
 GNSS_YAW_TOL = 0.05   # rad, tests/test_gnss_fused.py:73
 MASK_COVER = 0.7       # tests/test_dynamic_mask.py:57
@@ -267,7 +293,13 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "icp_solve": ("small_linalg.cu", "ground_fusion2_tpu/lio/ct_icp.py:143"),
     "degeneracy": ("small_linalg.cu", "ground_fusion2_tpu/lio/ct_icp.py:180"),
     "occupancy": ("occupancy.cu", "ground_fusion2_tpu/mapping/occupancy.py:51"),
+    "mesh_insert": ("mesh_insert.cu",
+                    "ground_fusion2_tpu/mesh/incremental.py:123"),
+    "mesh_rgb": ("mesh_rgb.cu", "ground_fusion2_tpu/mesh/incremental.py:198"),
+    "mesh_delaunay": ("mesh_delaunay.cu",
+                      "ground_fusion2_tpu/mesh/incremental.py:348"),
 }
+MESH_KERNELS = ("mesh_insert", "mesh_rgb", "mesh_delaunay")
 
 
 def card_line() -> str:
@@ -439,16 +471,19 @@ def lidar_main_path(dev, card):
 
 
 class CallCounter:
-    """Counts the calls of ``module.name`` while installed (a context)."""
+    """Counts the calls of ``module.name`` while installed (a context) and
+    keeps the positional arguments of the last 8."""
 
     def __init__(self, module, name):
         self.module, self.name, self.n = module, name, 0
+        self.recent = collections.deque(maxlen=8)
 
     def __enter__(self):
         self.orig = getattr(self.module, self.name)
 
         def wrapper(*a, **k):
             self.n += 1
+            self.recent.append(a)
             return self.orig(*a, **k)
         setattr(self.module, self.name, wrapper)
         return self
@@ -1081,6 +1116,156 @@ def occupancy_main_path(dev, card, frames, sys_median_ms):
     return None, launches, z
 
 
+def mesh_main_path(dev, card, frames, sys_median_ms):
+    """Phase 14: GroundFusion(m3dgr_system() with use_mesh and the M3DGR
+    intrinsics as mesh_intrinsics) over ``frames`` (phase 8's drive), each
+    frame process_camera_image then process_lidar with the grey frame as a
+    three-channel texture and the latest VIO pose composed with the rig's
+    extrinsic (checks.mesh_texture, as data/m3dgr_sim.py:392-404 feeds it),
+    then flush. AA must launch once an insert chunk, AB once a textured
+    sweep, AC once a drained batch; every fused pose finite and the fused
+    error < SYS_MAX_ERR; on the last calls AA, AB and AC are held against
+    their plain versions; export_mesh's PLY header counts equal stats().
+    Printed: the mesh's figures beside the JAX package's, the system tick
+    beside phase 8's, the mesh feed's host wall and syncs a sweep and
+    torch.profiler's split of the last 3 ticks. Returns (error or None,
+    launches, the three checks)."""
+    import dataclasses
+    import pathlib
+
+    import torch
+    from ground_fusion2_tpu_torch import _kernels, checks
+    from ground_fusion2_tpu_torch.config import m3dgr_system
+    from ground_fusion2_tpu_torch.mesh import incremental as mi
+    from ground_fusion2_tpu_torch.system import GroundFusion
+
+    gf = GroundFusion(dataclasses.replace(
+        m3dgr_system(), use_mesh=True,
+        mesh_intrinsics=checks.M3DGR_INTRINSICS), tic=np.zeros(3),
+        ric=checks.RIG_RIC, tio=np.zeros(3), rio=np.eye(3), device=dev)
+    mesher, cfg = gf.mesher, gf.mesher.cfg
+    feed_ms, feed_syncs, sites = [], [], collections.Counter()
+    add_frame = mesher.add_frame
+    watch = [False]
+
+    def timed_add(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if not watch[0]:
+            add_frame(*a, **k)
+            torch.cuda.synchronize()
+            feed_ms.append((time.perf_counter() - t) * 1e3)
+            return
+        got = collections.Counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = sync_site(got)
+            torch.cuda.set_sync_debug_mode("warn")
+            add_frame(*a, **k)
+            torch.cuda.set_sync_debug_mode("default")
+        feed_syncs.append(sum(got.values()))
+        sites.update(got)
+    mesher.add_frame = timed_add
+    vio, tick_ms, prof = [], [], None
+    _kernels.launches.clear()
+    with CallCounter(mi, "insert") as ins, \
+            CallCounter(mi, "update_rgb") as rgb, \
+            CallCounter(mi, "retriangulate") as tri:
+        for k, f in enumerate(frames):
+            live = gf.vio.carry is not None and gf.lio.carry is not None
+            watch[0] = live and k >= len(frames) - 3
+            if watch[0] and prof is None:
+                prof = start_profiler()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = gf.process_camera_image(f["t"], f["gray"], f["depth"],
+                                          f["imu"], wheel_vel=f["wheel"])
+            gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"],
+                             f["imu"], **checks.mesh_texture(gf, f["gray"]))
+            torch.cuda.synchronize()
+            if live:
+                tick_ms.append((time.perf_counter() - t1) * 1e3)
+            if out is not None and out.initialized:
+                vio.append(out)
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        watch[0] = False
+        out = gf.flush()
+        if out is not None and out.initialized:
+            vio.append(out)
+        torch.cuda.synchronize()
+    del mesher.add_frame
+    launches = dict(_kernels.launches)
+    calls = dict(mesh_insert=ins.n, mesh_rgb=rgb.n, mesh_delaunay=tri.n)
+    res = {}
+    if ins.recent and rgb.recent and tri.recent:
+        # the last sweep's chunk, the last textured sweep, and the last full
+        # batch the last drain retriangulated
+        m0, p, msk, _ = ins.recent[-1]
+        res["mesh_insert"] = checks.check_mesh_insert(dev, m0, p, msk, cfg)
+        m1, img, intr, r_wc, t_wc, _ = rgb.recent[-1]
+        res["mesh_rgb"] = checks.check_mesh_rgb(dev, m1, img, intr, r_wc,
+                                                t_wc, cfg)
+        full = [a for a in tri.recent if bool((a[1] != mi.INVALID).all())]
+        m2, codes, _ = (full or list(tri.recent))[-1]
+        res["mesh_delaunay"] = checks.check_mesh_delaunay(dev, m2, codes, cfg)
+    st = mesher.stats()
+    live_rows = mesher.mesh.code != mi.INVALID
+    textured = float((mesher.mesh.w[live_rows] > 0).float().mean()) \
+        if bool(live_rows.any()) else 0.0
+    out_dir = pathlib.Path("build") / "phase14"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nv, nf = gf.export_mesh(str(out_dir / "mesh.ply"))
+    with open(out_dir / "mesh.ply") as fh:
+        head = [next(fh).strip() for _ in range(12)]
+    header_ok = (f"element vertex {st['vertices']}" in head
+                 and f"element face {st['triangles']}" in head
+                 and (nv, nf) == (st["vertices"], st["triangles"]))
+    r = checks.system_errors(gf.trajectory, vio, frames)
+    split = device_split(prof, 3) if prof is not None else {}
+    median = float(np.median(tick_ms[2:])) if len(tick_ms) > 2 else np.nan
+    print("system tick split with the mesh on over the last 3 ticks "
+          f"(torch.profiler, as phase 8's; printed only): {json.dumps(split)}, "
+          f"host wall a tick {[round(t, 2) for t in tick_ms[-3:]]} ms; mesh "
+          f"feed (add_frame: inserts, texture, the drain) synchronized host "
+          f"wall a sweep median {float(np.median(feed_ms or [np.nan])):.3f} "
+          f"ms, max {max(feed_ms, default=np.nan):.3f} ms over "
+          f"{len(feed_ms)} unwatched sweeps; synchronizing calls a sweep "
+          f"{feed_syncs} over the last 3 (by call site "
+          f"{dict(sites.most_common())}) | {card}", flush=True)
+    print(f"mesh path: {len(tick_ms)} system ticks with the mesh on, median "
+          f"system tick {median:.2f} ms (phase 8 without it: "
+          f"{sys_median_ms:.2f} ms; synchronized wall), fused position error "
+          f"{r['fused_err']:.4f} m max over {r['n_fused']} outputs, VIO ATE "
+          f"{r['vio_ate']:.4f} m; mesh {st} (JAX {JAX_MESH['stats']}), "
+          f"textured share of live vertices {textured:.4f} (JAX "
+          f"{JAX_MESH['textured']:.4f}); PLY header {nv} vertices / {nf} "
+          f"faces; wrapper calls {calls}, launches {launches} | {card}",
+          flush=True)
+    for name, c in res.items():
+        print(f"kernel {name} on the last call: " + json.dumps(c) + f" | {card}",
+              flush=True)
+    grew = {k: launches.get(k, 0) for k in calls}
+    if grew != calls or min(calls.values()) == 0:
+        return (f"mesh kernels launched {grew} for wrapper calls {calls}",
+                launches, res)
+    if not all(np.all(np.isfinite(o.p)) and np.all(np.isfinite(o.q))
+               for o in gf.trajectory):
+        return "a non-finite fused pose", launches, res
+    if not r["fused_err"] < SYS_MAX_ERR:
+        return (f"fused position error {r['fused_err']:.4f} m >= "
+                f"{SYS_MAX_ERR} m"), launches, res
+    if not prior_finite(gf.vio):
+        return "non-finite marginalization prior", launches, res
+    bad = [n for n, c in res.items() if not c["ok"]]
+    if bad:
+        return f"kernel(s) disagree with their plain version: {bad}", \
+            launches, res
+    if not header_ok or st["triangles"] == 0:
+        return f"the exported PLY's header {head} against {st}", launches, res
+    return None, launches, res
+
+
 def window_stage_checks(dev, fv) -> dict:
     """Phase 7's T, U and V on FusedVio ``fv``'s final carry: triangulation
     of every live track (the RGB-D depth fix cleared, none initialized), the
@@ -1474,9 +1659,17 @@ def main() -> int:
         return fail(err or lin)
     launches["occupancy"] = grid_launches.get("occupancy", 0)
 
+    # 14. the online mesh on phase 8's drive
+    (err, mesh_launches, res_mesh), lin = linalg_free(
+        "14", mesh_main_path, dev, card, sys_frames, sys_median)
+    if err or lin:
+        return fail(err or lin)
+    launches.update({k: mesh_launches.get(k, 0) for k in MESH_KERNELS})
+    res.update(res_mesh)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")   # launches: phase 8 for A-L and S-Y, 9 for M-O,
-                            # 10 for P and Q, 11 for R, 13 for Z
+                            # 10 for P and Q, 11 for R, 13 for Z, 14 for AA-AC
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

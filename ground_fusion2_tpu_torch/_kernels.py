@@ -75,6 +75,10 @@ _SIGNATURES = {
     "gf2_degeneracy": [_P, _P, _I] + [_F] * 3 + [_P] * 4,
     "gf2_occupancy": ([_P, _P, _F, _F, _P, _I, _P, _I, _I, _F] + [_I] * 4
                       + [_F, _F, _P, _P]),
+    "gf2_mesh_insert": [_P] * 4 + [_I] * 2 + [_P] * 4,
+    "gf2_mesh_rgb": [_P] * 5 + [_I, _P, _I, _I, _P] + [_F] * 4 + [_P] * 5,
+    "gf2_mesh_delaunay": ([_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P, _I]
+                          + [_F] * 4 + [_P] * 4),
 }
 
 

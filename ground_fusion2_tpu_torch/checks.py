@@ -775,7 +775,7 @@ def system_drive(n: int, W: int = 640, H: int = 480,
     it, ``spf`` IMU samples a frame; plus the body-frame wheel velocity, as
     ``room_drive`` has (M3DGR runs with the wheel on). One dict a frame: t,
     gray uint8, depth, imu (acc, gyr, dt), wheel, pts, alpha, valid, p_gt
-    (the body), p_cam (the camera)."""
+    and q_gt (the body), p_cam (the camera)."""
     fx, fy, cx, cy = intrinsics
     rend = render.SceneRenderer(render.make_room_scene(seed=0), fx, fy, cx, cy,
                                 W, H)
@@ -802,7 +802,7 @@ def system_drive(n: int, W: int = 640, H: int = 480,
             t=float(traj.t[i1]),
             gray=np.clip(gray * 255.0, 0, 255).astype(np.uint8), depth=depth,
             imu=imu, wheel=wvel[i0:i1 + 1], pts=pts, alpha=alpha, valid=valid,
-            p_gt=traj.p[i1].copy(), p_cam=p_cam))
+            p_gt=traj.p[i1].copy(), q_gt=traj.q[i1].copy(), p_cam=p_cam))
     return frames
 
 
@@ -826,6 +826,23 @@ def system_errors(trajectory, vio_outs, frames) -> dict:
         vio_ate=float(ate_rmse(est, gt_v, align=True)), n_vio=len(vio_outs),
         switches=[(round(o.t, 3), o.switched) for o in fused if o.switched],
         degenerate=[i for i, o in enumerate(fused) if o.degenerate and i >= 2])
+
+
+def mesh_texture(gf, gray, ric=RIG_RIC, tic=(0.0, 0.0, 0.0)) -> dict:
+    """``process_lidar``'s texture arguments as ``data/m3dgr_sim.py:392-404``
+    builds them, for either package's GroundFusion ``gf``: ``img`` the grey
+    frame (uint8) as three float32 channels 0..255, ``cam_pose_world`` the
+    latest VIO body pose composed with the camera extrinsic (``ric``,
+    ``tic``). Empty before the VIO has initialized."""
+    out = gf.latest_vio
+    if out is None or not out.initialized:
+        return {}
+    R_wb = np.asarray(sim._quat_to_mat(np.asarray(out.q, np.float64)))
+    r_wc = (R_wb @ np.asarray(ric)).astype(np.float32)
+    t_wc = (np.asarray(out.p, np.float64) + R_wb @ np.asarray(tic)).astype(
+        np.float32)
+    img = np.repeat(np.asarray(gray, np.float32)[:, :, None], 3, axis=2)
+    return dict(img=img, cam_pose_world=(r_wc, t_wc))
 
 
 # ------------------------------------------------------------- kernel L
@@ -2066,3 +2083,271 @@ def check_window_update(device, fw, x, rho, obs, col: int) -> dict:
     return dict(max_abs_err=err, modes=modes, ok=ok, library_ms=None,
                 ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
                 bound_by=a["bound_by"])
+
+
+# ------------------------------------------------------- kernels AA, AB, AC
+MESH_PTS_ULPS = 4      # kernel AA: a mean against the plain pass on the card
+                       # (index_add_'s atomics sum a subcell in any order):
+                       # 2·(m − 1) + 2 roundings of 2⁻²⁴·max|p| for a subcell
+                       # of m rows; on the CPU the order is the kernel's
+RGB_TOL = 1e-3         # kernel AB: colour (0..255) where the masks agree
+RGB_BAND = 1e-5        # a visibility may differ only where u, v, z or the
+                       # distance lies this close (relative) to its border
+DELAUNAY_BAND = 1e-5   # kernel AC: a triple's verdict may differ only where
+                       # a test's margin is this small against its terms
+
+
+def mesh_room_cloud(n: int, seed: int = 0, noise: float = 5e-3):
+    """``n`` points on the floor (z = 0) and the four walls (to z = 2.5 m)
+    of a 16 × 10 m room around the origin, uniform by area, with ``noise``
+    m of Gaussian noise along each surface's normal: [n, 3] float32."""
+    rng = np.random.default_rng(seed)
+    area = np.array([160.0, 40.0, 40.0, 25.0, 25.0])
+    which = rng.choice(5, size=n, p=area / area.sum())
+    u, v = rng.uniform(size=n), rng.uniform(size=n)
+    x, y = -8 + 16 * u, -5 + 10 * v
+    z = 2.5 * v
+    pts = np.stack([x, y, np.zeros(n)], -1)
+    wall_y = np.where(which == 1, -5.0, 5.0)
+    pts[which >= 1] = np.stack([x, wall_y, z], -1)[which >= 1]
+    wall_x = np.where(which == 3, -8.0, 8.0)
+    side = np.stack([wall_x, -5 + 10 * u, z], -1)
+    pts[which >= 3] = side[which >= 3]
+    normal_axis = np.where(which == 0, 2, np.where(which <= 2, 1, 0))
+    pts[np.arange(n), normal_axis] += rng.normal(0, noise, n)
+    return pts.astype(np.float32)
+
+
+def check_mesh_insert(device, mesh, new_pts, new_mask, cfg,
+                      timed: bool = True) -> dict:
+    """Kernel AA against its plain pass on the rows kernel F sorted from
+    ``mesh`` and one chunk (``new_pts`` [m, 3], ``new_mask`` [m]): codes and
+    pw equal to the plain pass on the card and on the CPU, the means bit
+    for bit against the CPU's (which sums each subcell in row order, as the
+    kernel) and within their rounding against the card's; twice the same
+    bits; and the whole insert (F and AA) against ``insert_plain``: codes,
+    vids and the evicted codes equal. ``library_ms``: ``torch.sort(stable
+    =True)`` of the codes, one of the sorts around AA."""
+    from .mesh import incremental as mi
+    rows = mi.sorted_rows(mesh, new_pts, new_mask, cfg)
+    args = (rows["code"], rows["sub"], rows["pts"], rows["pw"],
+            cfg.max_per_voxel)
+    ck, pk, wk = mi.insert_pass(*args)
+    ck2, pk2, wk2 = mi.insert_pass(*args)
+    cp, pp, wp = mi.insert_pass_plain(*args)
+    cc, pc, wc = mi.insert_pass_plain(*(a.cpu() if isinstance(a, torch.Tensor)
+                                        else a for a in args))
+    kept = ck != mi.INVALID
+    live = rows["code"] != mi.INVALID
+    key = rows["code"].long()[live] * 64 + rows["sub"].long()[live]
+    seg = (torch.unique_consecutive(key, return_counts=True)[1].max()
+           if key.numel() else torch.ones(()))
+    tol = (2 * (int(seg) - 1) + 2) * 2.0 ** -24 * float(
+        rows["pts"].abs().max())
+    err = float((pk - pp)[kept].abs().max()) if bool(kept.any()) else 0.0
+    full_k, ev_k = mi.insert(mesh, new_pts, new_mask, cfg)
+    full_p, ev_p = mi.insert_plain(mesh, new_pts, new_mask, cfg)
+    store_equal = all(torch.equal(getattr(full_k, f), getattr(full_p, f))
+                      for f in ("code", "vid", "rgb", "w", "obs_dist", "pw"))
+    out = dict(max_abs_err=err, tol=tol,
+               cpu_bit_equal=bool(torch.equal(pk.cpu(), pc)
+                                  and torch.equal(ck.cpu(), cc)
+                                  and torch.equal(wk.cpu(), wc)),
+               codes_equal=bool(torch.equal(ck, cp)),
+               pw_equal=bool(torch.equal(wk, wp)),
+               repeat_equal=bool(torch.equal(ck, ck2) and torch.equal(pk, pk2)
+                                 and torch.equal(wk, wk2)),
+               store_equal=store_equal,
+               evicted_equal=bool(torch.equal(ev_k, ev_p)),
+               rows=int(ck.numel()), kept=int(kept.sum()),
+               longest_subcell=int(seg),
+               # code, sub, pts, pw in; code, pts, pw out; a multiply and
+               # an add a coordinate and pw, a division a kept coordinate
+               **bound(_nbytes(*args[:4], ck, pk, wk),
+                       8 * ck.numel() + 3 * int(kept.sum())))
+    out["ok"] = (out["cpu_bit_equal"] and out["codes_equal"]
+                 and out["pw_equal"] and out["repeat_equal"] and store_equal
+                 and out["evicted_equal"] and err <= tol)
+    if timed:
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: mi.insert_pass(*args), lambda: mi.insert_pass_plain(*args))
+        out["insert_ms"], out["insert_plain_ms"] = _time_pair(
+            lambda: mi.insert(mesh, new_pts, new_mask, cfg),
+            lambda: mi.insert_plain(mesh, new_pts, new_mask, cfg), reps=10)
+        out["library_ms"] = time_ms(lambda: torch.sort(rows["code"],
+                                                       stable=True))
+    return out
+
+
+def _border_margin(mesh, image, intr, r_wc, t_wc, cfg):
+    """Each row's least relative distance (float64) to a visibility border:
+    u and v to 0 and the image's last texel, z to min_z, the distance to
+    1.2 × obs_dist."""
+    R = torch.as_tensor(np.asarray(r_wc, np.float64), device=mesh.pts.device)
+    t = torch.as_tensor(np.asarray(t_wc, np.float64), device=mesh.pts.device)
+    fx, fy, cx, cy = (float(v) for v in np.asarray(intr, np.float64))
+    q = (mesh.pts.double() - t) @ R
+    z = q[:, 2]
+    zs = torch.where(z.abs() > 1e-6, z, torch.full_like(z, 1e-6))
+    u, v = fx * q[:, 0] / zs + cx, fy * q[:, 1] / zs + cy
+    H, W = image.shape[0], image.shape[1]
+    d = q.norm(dim=1)
+    lim = 1.2 * mesh.obs_dist.double()
+    ms = [u.abs() / (1 + u.abs()), (u - (W - 1.001)).abs() / W,
+          v.abs() / (1 + v.abs()), (v - (H - 1.001)).abs() / H,
+          (z - cfg.min_z).abs() / (1 + z.abs()), (d - lim).abs() / (1 + d)]
+    return torch.stack(ms, 0).min(0).values
+
+
+def check_mesh_rgb(device, mesh, image, intr, r_wc, t_wc, cfg,
+                   timed: bool = True) -> dict:
+    """Kernel AB against ``update_rgb_plain`` on the card, on one store and
+    frame: the visibility equal but on rows within ``RGB_BAND`` of a border
+    (counted), and where it agrees the colour within ``RGB_TOL``, the weight
+    and obs_dist equal; twice the same bits. ``library_ms``: ``grid_sample``
+    of the image at the rows' pixels (the bilinear sample alone)."""
+    from .mesh import incremental as mi
+    k, vk = mi.update_rgb(mesh, image, intr, r_wc, t_wc, cfg, with_vis=True)
+    k2 = mi.update_rgb(mesh, image, intr, r_wc, t_wc, cfg)
+    p, vp = mi.update_rgb_plain(mesh, image, intr, r_wc, t_wc, cfg,
+                                with_vis=True)
+    differ = vk != vp
+    margin = _border_margin(mesh, image, intr, r_wc, t_wc, cfg)
+    same = ~differ
+    err = float((k.rgb - p.rgb)[same].abs().max()) if bool(same.any()) else 0.0
+    n_vis = int(vp.sum())
+    out = dict(max_abs_err=err, tol=RGB_TOL, visible=n_vis,
+               vis_differ=int(differ.sum()),
+               vis_differ_off_border=int((differ & (margin > RGB_BAND)).sum()),
+               w_equal=bool(torch.equal(k.w[same], p.w[same])),
+               obs_dist_equal=bool(torch.equal(k.obs_dist[same],
+                                               p.obs_dist[same])),
+               repeat_equal=bool(torch.equal(k.rgb, k2.rgb)
+                                 and torch.equal(k.w, k2.w)
+                                 and torch.equal(k.obs_dist, k2.obs_dist)))
+    out["ok"] = (out["vis_differ_off_border"] == 0 and err <= RGB_TOL
+                 and out["w_equal"] and out["obs_dist_equal"]
+                 and out["repeat_equal"])
+    # the texels the visible rows need, each read once
+    H, W = image.shape[0], image.shape[1]
+    (fx, fy, cx, cy), R, t = mi._view(intr, r_wc, t_wc)
+    q = (mesh.pts - torch.as_tensor(t, device=device)) @ torch.as_tensor(
+        R, device=device)
+    zs = torch.where(q[:, 2].abs() > 1e-6, q[:, 2],
+                     torch.full_like(q[:, 2], 1e-6))
+    u = torch.clamp(fx * q[:, 0] / zs + cx, 0, W - 1.001)
+    v = torch.clamp(fy * q[:, 1] / zs + cy, 0, H - 1.001)
+    corner = (torch.floor(v).long() * W + torch.floor(u).long())[vp]
+    texels = torch.unique(torch.cat([corner, corner + 1, corner + W,
+                                     corner + W + 1])).numel()
+    out.update(bound(_nbytes(mesh.pts, mesh.rgb, mesh.w, mesh.obs_dist,
+                             mesh.code, k.rgb, k.w, k.obs_dist)
+                     + 12 * texels, 60 * mesh.pts.shape[0]),
+               texels=texels)
+    if timed:
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: mi.update_rgb(mesh, image, intr, r_wc, t_wc, cfg),
+            lambda: mi.update_rgb_plain(mesh, image, intr, r_wc, t_wc, cfg))
+        img = image.permute(2, 0, 1)[None].contiguous()
+        grid = torch.stack([u / (W - 1) * 2 - 1, v / (H - 1) * 2 - 1],
+                           -1)[None, None]
+        out["library_ms"] = time_ms(lambda: torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", align_corners=True))
+    return out
+
+
+def _triple_margins(p2, pts, mask, origin, cfg, t: int) -> dict:
+    """The margins (float64, relative to the terms they round) of triple
+    ``t``'s tests for one voxel: the sliver and edge filters, the closest
+    in-circle test to its threshold, the centroid's nearest voxel face."""
+    from .mesh import incremental as mi
+    i, j, k = (int(x) for x in mi._combos(mask.shape[0])[t])
+    P = p2.double()
+    a, b, c = P[i], P[j], P[k]
+    o = float((b[0] - a[0]) * (c[1] - a[1]) - (b[1] - a[1]) * (c[0] - a[0]))
+    l2 = max(float(((b - a) ** 2).sum()), float(((c - b) ** 2).sum()),
+             float(((a - c) ** 2).sum()))
+    vs = cfg.voxel_size
+    me2 = (vs / mi.SUB * 0.8) ** 2
+    thr = 1e-9 * vs ** 4
+    incircle = float("inf")
+    for m in range(mask.shape[0]):
+        if m in (i, j, k) or not bool(mask[m]):
+            continue
+        A, B, C = a - P[m], b - P[m], c - P[m]
+        a2, b2, c2 = (A ** 2).sum(), (B ** 2).sum(), (C ** 2).sum()
+        terms = (A[0] * (B[1] * c2 - b2 * C[1]), A[1] * (B[0] * c2 - b2 * C[0]),
+                 a2 * (B[0] * C[1] - B[1] * C[0]))
+        det = float(terms[0] - terms[1] + terms[2])
+        scale = sum(abs(float(x)) for x in terms) + thr
+        incircle = min(incircle, abs(np.sign(o) * det - thr) / scale)
+    cen = (pts[i].double() + pts[j].double() + pts[k].double()) / 3.0
+    rel = (cen - origin.double()) / vs
+    face = float((rel - torch.round(rel)).abs().min())
+    return dict(triple=(i, j, k), sliver=abs(abs(o) - 0.3 * l2) / max(l2, 1e-30),
+                edge=abs(l2 - me2) / me2, incircle=incircle, ownership=face)
+
+
+def check_mesh_delaunay(device, mesh, codes, cfg, timed: bool = True) -> dict:
+    """Kernel AC against ``retriangulate_plain`` on the card, on one dirty
+    batch: every triple's verdict equal but where one of its tests lies
+    within ``DELAUNAY_BAND`` of its threshold (each such triple named with
+    its margins), and the written triangles equal on every voxel whose
+    verdicts agree; twice the same bits. No PyTorch call computes the
+    function or a large part of it: ``library_ms`` is None."""
+    from .mesh import incremental as mi
+    codes = codes.to(device=device, dtype=torch.int32)
+    tk, mk, kk = mi.retriangulate(mesh, codes, cfg, with_keep=True)
+    tk2, mk2, kk2 = mi.retriangulate(mesh, codes, cfg, with_keep=True)
+    tp, mp, kp = mi.retriangulate_plain(mesh, codes, cfg, with_keep=True)
+    sel, vid, mask = mi.gather_candidates(mesh, codes, cfg)
+    p2 = mi.plane_coords(sel, vid, mask, cfg)
+    differ = (kk != kp).nonzero().tolist()
+    named = []
+    for b, t in differ[:64]:
+        mg = _triple_margins(p2[b], sel[b], mask[b], mesh.origin, cfg, t)
+        mg["voxel"] = int(codes[b])
+        mg["within_band"] = min(mg["sliver"], mg["edge"], mg["incircle"],
+                                mg["ownership"]) <= DELAUNAY_BAND
+        named.append(mg)
+    agree = ~(kk != kp).any(1)
+    slot_diff = (tk[agree] - tp[agree]).abs()[mp[agree]]
+    err = float(slot_diff.max()) if slot_diff.numel() else 0.0
+    out_equal = bool(torch.equal(tk[agree], tp[agree])
+                     and torch.equal(mk[agree], mp[agree]))
+    # the work this batch needs: the filters on every triple of three
+    # candidates, then in-circle tests up to the first point inside
+    tt = mi.triple_tests(p2, mask, cfg)
+    tested = tt["tri_valid"][..., None] & mask[:, None, :] & torch.as_tensor(
+        mi._not_in_triple(mask.shape[1]), device=device)[None]
+    first_in = torch.where(tt["inside"].any(-1),
+                           tt["inside"].int().argmax(-1),
+                           torch.full_like(tt["o"], mask.shape[1],
+                                           dtype=torch.int64))
+    upto = torch.arange(mask.shape[1], device=device)[None, None] \
+        <= first_in[..., None]
+    n_tests = int((tested & upto).sum())
+    combos = tt["combos"]
+    n_triples = int((mask[:, combos[:, 0]] & mask[:, combos[:, 1]]
+                     & mask[:, combos[:, 2]]).sum())
+    out = dict(max_abs_err=err, differing_triples=len(differ),
+               differing_off_band=sum(not m["within_band"] for m in named)
+               + max(0, len(differ) - len(named)),
+               named=named[:8], outputs_equal=out_equal,
+               repeat_equal=bool(torch.equal(tk, tk2) and torch.equal(mk, mk2)
+                                 and torch.equal(kk, kk2)),
+               voxels=int((codes != mi.INVALID).sum()),
+               candidates=int(mask.sum()), triangles=int(mp.sum()),
+               in_circle_tests=n_tests,
+               # the 7 row ranges' searches and the gathered rows in, the
+               # slots out; ~30 f32 operations a test, ~20 a triple
+               **bound(_nbytes(codes, tk, mk) + 16 * 7 * cfg.gather_k
+                       * codes.numel(), 30 * n_tests + 20 * n_triples))
+    out["ok"] = (out["differing_off_band"] == 0 and out_equal
+                 and out["repeat_equal"])
+    if timed:
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: mi.retriangulate(mesh, codes, cfg),
+            lambda: mi.retriangulate_plain(mesh, codes, cfg), reps=10)
+        out["library_ms"] = None
+    return out

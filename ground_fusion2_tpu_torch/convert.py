@@ -10,11 +10,14 @@ leaves, field names and dtypes as in the JAX package, so a test can rebuild
 the JAX NamedTuple with ``JaxType(**tree._asdict())``.
 :func:`system_from_jax` carries a whole JAX ``GroundFusion`` (both carries,
 the IMU-rate propagator, the last VIO output, the pose graph, global
-fusion, the occupancy grid) into the port's; :func:`fused_vio_from_jax` a
+fusion, the occupancy grid, the online mesh) into the port's;
+:func:`fused_vio_from_jax` a
 JAX ``FusedVio``'s carry and host state (GNSS alignment and filters, the
 dynamic mask's previous frame); :func:`pose_graph_from_jax` a JAX
 ``PoseGraph``, :func:`global_fusion_from_jax` a JAX ``GlobalFusion`` and
-:func:`occupancy_from_jax` a JAX ``OccupancyGrid``'s log-odds alone.
+:func:`occupancy_from_jax` a JAX ``OccupancyGrid``'s log-odds alone;
+:func:`mesher_from_jax` a JAX ``OnlineMesher`` (the store by
+:func:`mesh_map_from_jax`, the host registry, the dirty set, the counters).
 """
 
 from __future__ import annotations
@@ -167,6 +170,38 @@ def grid_config_from_jax(jcfg):
                          for f in dataclasses.fields(GridConfig)})
 
 
+def mesh_config_from_jax(jcfg):
+    from .mesh.incremental import MeshConfig
+    return MeshConfig(**jcfg._asdict())
+
+
+def mesh_map_from_jax(jm, device):
+    """A port ``MeshMap`` on ``device`` holding the JAX store ``jm``."""
+    from .mesh.incremental import MeshMap
+    t = lambda a: torch.as_tensor(np.array(a, copy=True), device=device)
+    return MeshMap(pts=t(jm.pts), rgb=t(jm.rgb), w=t(jm.w), pw=t(jm.pw),
+                   obs_dist=t(jm.obs_dist), vid=t(jm.vid), code=t(jm.code),
+                   origin=t(jm.origin), next_vid=int(np.asarray(jm.next_vid)))
+
+
+def mesher_from_jax(jmesher, device):
+    """A port ``OnlineMesher`` on ``device`` in the state of the JAX
+    ``jmesher``: its configuration, intrinsics and drain cadence, the
+    vertex store, the triangle registry, the pending dirty voxels, the frame
+    count and the eviction counter."""
+    from .mesh.incremental import OnlineMesher
+    out = OnlineMesher(mesh_config_from_jax(jmesher.cfg),
+                       intrinsics=jmesher.intr,
+                       drain_every=jmesher.drain_every, device=device)
+    out.mesh = mesh_map_from_jax(jmesher.mesh, out.device)
+    out.tris = {int(c): np.array(t, np.int32, copy=True)
+                for c, t in jmesher.tris.items()}
+    out._pending = jmesher._pending.copy()
+    out.frames = jmesher.frames
+    out.evicted_vertices = jmesher.evicted_vertices
+    return out
+
+
 def fused_vio_from_jax(jv, fv):
     """Put the JAX ``FusedVio`` ``jv``'s live state into the port's ``fv``
     (built with the same configuration): the carry with its interval
@@ -231,6 +266,10 @@ def system_config_from_jax(jcfg):
         loop_optimize_min_gap=jcfg.loop_optimize_min_gap,
         use_global_fusion=jcfg.use_global_fusion,
         global_every=jcfg.global_every, use_mesh=jcfg.use_mesh,
+        mesh=None if jcfg.mesh is None else mesh_config_from_jax(jcfg.mesh),
+        mesh_intrinsics=(None if jcfg.mesh_intrinsics is None
+                         else tuple(jcfg.mesh_intrinsics)),
+        mesh_drain_every=jcfg.mesh_drain_every, mesh_every=jcfg.mesh_every,
         use_occupancy_grid=jcfg.use_occupancy_grid,
         occupancy=(None if jcfg.occupancy is None
                    else grid_config_from_jax(jcfg.occupancy)),
@@ -242,8 +281,9 @@ def system_from_jax(gf, device, cfg=None):
     """A port ``GroundFusion`` on ``device`` in the state of the JAX
     package's ``gf``: the VIO (:func:`fused_vio_from_jax`), the LIO carry
     (with its held-back record), the ``FastPropagator`` buffers,
-    ``latest_vio``, the keyframe count, the pose graph with its pending loop,
-    global fusion and the occupancy grid's log-odds. Both of ``gf``'s carries must be live (after warm-up
+    ``latest_vio``, the keyframe and sweep counts, the pose graph with its
+    pending loop, global fusion, the occupancy grid's log-odds and the
+    online mesh (:func:`mesher_from_jax`). Both of ``gf``'s carries must be live (after warm-up
     and the LIO's first fused tick). ``cfg``: the port's SystemConfig
     (default: converted from ``gf.cfg``)."""
     from .system import GroundFusion
@@ -267,6 +307,9 @@ def system_from_jax(gf, device, cfg=None):
             lo._inflight = (t, np.asarray(rec))
     out.prop.__dict__.update(copy.deepcopy(gf.prop.__dict__))
     out._n_keyframes = gf._n_keyframes
+    out._n_sweeps = gf._n_sweeps
+    if gf.mesher is not None:
+        out.mesher = mesher_from_jax(gf.mesher, out.device)
     if gf.gfusion is not None:
         out.gfusion = global_fusion_from_jax(gf.gfusion, out.device)
     if gf.pg is not None:

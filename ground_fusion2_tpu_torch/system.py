@@ -22,10 +22,14 @@ Global fusion (the reference's global_fusion node): every keyframe feeds
 tracker by the rigid-warp check (``frontend/dynamic.py``). With
 ``use_occupancy_grid`` every fused sweep's world-frame cloud (still on the
 device) feeds the 2D log-odds grid (``mapping/occupancy.py``, kernel Z) from
-the fused position; ``load_grid_map`` starts it from a saved PGM.
+the fused position; ``load_grid_map`` starts it from a saved PGM. With
+``use_mesh`` every ``mesh_every``-th fused sweep's world-frame cloud (still
+on the device) feeds the online mesh (``mesh/incremental.py``, kernels AA-AC
+beside kernel F), textured by the ``img`` and ``cam_pose_world`` that
+:meth:`GroundFusion.process_lidar` is given; ``export_mesh`` writes it.
 
-Not ported here (each raises ``NotImplementedError``; see ROADMAP.md): the
-legacy host-orchestrated VIO backend and meshing.
+Not ported here (raises ``NotImplementedError``; see ROADMAP.md): the
+legacy host-orchestrated VIO backend.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .frontend import klt
 from .gnss.global_opt import GlobalFusion
 from .lio.odometry import LidarOdometry
 from .mapping.occupancy import GridConfig, OccupancyGrid
+from .mesh.incremental import MeshConfig, OnlineMesher
 from .posegraph.pose_graph import PoseGraph, _with_yaw, _yaw_rot
 from .runtime.telemetry import Telemetry
 from .vio.estimator import VioOutput
@@ -69,7 +74,12 @@ class SystemConfig:
     loop_optimize_min_gap: int = 1            # keyframes between optimizations
     use_global_fusion: bool = False
     global_every: int = 5                     # optimize every N keyframes
-    use_mesh: bool = False                    # not ported
+    # online mesh (ImMesh analog)
+    use_mesh: bool = False
+    mesh: MeshConfig | None = None
+    mesh_intrinsics: tuple | None = None      # (fx, fy, cx, cy) for texture
+    mesh_drain_every: int = 1                 # retriangulation cadence
+    mesh_every: int = 1                       # feed every Nth fused sweep
     # 2D occupancy grid (support_files/grid_mapping; prior-map load =
     # LOAD_GRID_MAP, pose_graph_node.cpp:861-900)
     use_occupancy_grid: bool = False
@@ -78,11 +88,6 @@ class SystemConfig:
     # camera intrinsics for the keyframes' pixel corners (loop closure)
     cam_intr: tuple = (460.0, 460.0, 320.0, 240.0)
     kf_cell: int = 20      # fresh keyframe corner grid, px
-
-
-_NOT_PORTED = {
-    "use_mesh": "meshing (ROADMAP.md queue 2, row 15)",
-}
 
 
 class FusedOutput(NamedTuple):
@@ -105,9 +110,6 @@ class GroundFusion:
             raise NotImplementedError(
                 f"vio_backend={cfg.vio_backend!r}: only the fused camera tick "
                 "is ported (ROADMAP.md queue 1)")
-        for flag, what in _NOT_PORTED.items():
-            if getattr(cfg, flag):
-                raise NotImplementedError(f"{flag}: {what} is not ported yet")
         self.cfg = cfg
         self.device = resolve(device)
         self._extr = dict(tic=tic, ric=ric, tio=tio, rio=rio)
@@ -117,6 +119,7 @@ class GroundFusion:
         self._frame_cache: dict = {}
         self.pg = None
         self._n_keyframes = 0
+        self._n_sweeps = 0
         self._pending_loop = None
         self._last_loop_opt_kf = -10**9
         if cfg.use_loop_closure:
@@ -134,6 +137,11 @@ class GroundFusion:
                 OccupancyGrid.load(cfg.load_grid_map, cfg.occupancy,
                                    self.device) if cfg.load_grid_map
                 else OccupancyGrid(cfg.occupancy or GridConfig(), self.device))
+        self.mesher = (OnlineMesher(cfg.mesh or MeshConfig(),
+                                    intrinsics=cfg.mesh_intrinsics,
+                                    drain_every=cfg.mesh_drain_every,
+                                    device=self.device)
+                       if cfg.use_mesh else None)
         self._start()
 
     def _start(self):
@@ -295,10 +303,13 @@ class GroundFusion:
             self._pending_loop = None
             self._last_loop_opt_kf = self._n_keyframes
 
-    def process_lidar(self, t: float, pts_body, alpha, mask, imu_chunk):
+    def process_lidar(self, t: float, pts_body, alpha, mask, imu_chunk,
+                      img=None, cam_pose_world=None):
         """One sweep, with the VIO stream at scan-end time as the external
         pose (reference ``getClosestOdom``); the last camera-tick output is
-        the fallback before the first rebase."""
+        the fallback before the first rebase. ``img`` [H, W, 3] (0..255) and
+        ``cam_pose_world`` (R_wc, t_wc) texture the online mesh (the
+        reference's /img into ImMesh)."""
         if self.lio is None:
             return None
         ext = self.prop.lookup(t)
@@ -308,10 +319,11 @@ class GroundFusion:
         out = self.lio.process_scan(t, pts_body, alpha, mask, imu_chunk,
                                     external_pose=ext)
         if out is not None:
-            self._after_lidar(out, ext=ext)
+            self._after_lidar(out, ext=ext, img=img,
+                              cam_pose_world=cam_pose_world)
         return out
 
-    def _after_lidar(self, out, ext=None):
+    def _after_lidar(self, out, ext=None, img=None, cam_pose_world=None):
         t = out.t
         tm = self.telemetry
         tm.pose("lio_raw", t, out.p_lio, out.q_lio)
@@ -326,6 +338,15 @@ class GroundFusion:
         if self.occ_grid is not None and self.lio.last_cloud is not None:
             p_w, m = self.lio.last_cloud
             self.occ_grid.update(np.asarray(out.p_fused)[:2], p_w, m > 0.5)
+        self._n_sweeps += 1
+        if self.mesher is not None and self.lio.last_cloud is not None \
+                and (self._n_sweeps - 1) % self.cfg.mesh_every == 0:
+            p_w, m = self.lio.last_cloud
+            texture = {}
+            if img is not None and cam_pose_world is not None:
+                texture = dict(image=img, r_wc=cam_pose_world[0],
+                               t_wc=cam_pose_world[1])
+            self.mesher.add_frame(p_w, m, **texture)
 
     # -- outputs ---------------------------------------------------------
     def save_trajectory_tum(self, path: str):
@@ -339,6 +360,12 @@ class GroundFusion:
     def save_pose_graph(self, path: str):
         if self.pg is not None:
             self.pg.save(path)
+
+    def export_mesh(self, path: str):
+        """The online mesh as PLY: (vertices, faces), or None without it."""
+        if self.mesher is not None:
+            return self.mesher.export_ply(path)
+        return None
 
     def save_grid_map(self, img_path: str, cfg_path: str):
         """Occupancy-map export (map_server PGM + YAML)."""

@@ -4,9 +4,10 @@ camera kernels A–C and H–L, the LiDAR kernels D–G on a map filled by 12
 scans of the bench_lio drive at the M3DGR LIO configuration, the
 loop-closure kernels M–O, the GNSS rows P, the global graph Q, the
 dynamic mask R, the window cost S, the feature-window stages T–V, the
-damped Cholesky W, the eigensolver X, the small solves Y and the occupancy
-grid Z, and O's and Q's cost-only modes), and C, L, O, P, Q and S–Y giving
-the same bits twice.
+damped Cholesky W, the eigensolver X, the small solves Y, the occupancy
+grid Z, the mesh's insert pass AA, texturing AB and retriangulation AC on a
+store filled from a synthetic room cloud, and O's and Q's cost-only modes),
+and C, L, O, P, Q, S–Y and AA–AC giving the same bits twice.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -527,6 +528,64 @@ def test_occupancy_kernel_matches_plain(dev):
     assert r["ok"], r
 
 
+@pytest.fixture(scope="module")
+def mesh_case(dev):
+    """A store at the JAX package's MeshConfig() defaults filled on the card
+    from 8 chunks of a synthetic room cloud, the next chunk, a 480×640
+    texture seen from 4 m above the floor with the M3DGR intrinsics, and 32
+    live voxels to retriangulate."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.mesh import incremental as mi
+    cfg = mi.MeshConfig()
+    cloud = torch.as_tensor(checks.mesh_room_cloud(9 * cfg.insert_chunk),
+                            device=dev)
+    mesh = mi.MeshMap.empty(cfg, device=dev)
+    ones = torch.ones(cfg.insert_chunk, device=dev)
+    for k in range(8):
+        mesh, _ = mi.insert(mesh, cloud[k * cfg.insert_chunk:
+                                        (k + 1) * cfg.insert_chunk], ones, cfg)
+    v, u = np.mgrid[0:480, 0:640].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(u / 37 + c) * np.cos(v / 23)
+                    for c in range(3)], -1).astype(np.float32)
+    view = (checks.M3DGR_INTRINSICS,
+            np.array([[1, 0, 0], [0, -1, 0], [0, 0, -1]], np.float32),
+            np.array([0.3, -0.2, 4.0], np.float32))
+    live = torch.unique(mesh.code[mesh.code != mi.INVALID])
+    codes = live[torch.randperm(live.numel(), generator=torch.Generator()
+                                .manual_seed(0))[:cfg.dirty_batch].to(dev)]
+    return (cfg, mesh, cloud[8 * cfg.insert_chunk:], ones,
+            torch.as_tensor(img, device=dev), view, codes.to(torch.int32))
+
+
+def test_mesh_insert_kernel_matches_plain(dev, mesh_case):
+    """Kernel AA on the next chunk: codes and pw equal, the means bit for
+    bit against the CPU's pass and within rounding of the card's, the same
+    bits twice, the whole insert equal to insert_plain; and an insert that
+    overflows a small store, with its evicted codes equal."""
+    from ground_fusion2_tpu_torch.mesh import incremental as mi
+    cfg, mesh, chunk, ones = mesh_case[:4]
+    r = checks.check_mesh_insert(dev, mesh, chunk, ones, cfg, timed=False)
+    assert r["ok"] and r["kept"] > 5000, r
+    small = cfg._replace(capacity=1024)
+    store = mi.MeshMap.empty(small, device=dev)
+    r = checks.check_mesh_insert(dev, store, chunk, ones, small, timed=False)
+    assert r["ok"], r
+    _, ev = mi.insert(store, chunk, ones, small)
+    assert int((ev != mi.INVALID).sum()) > 100
+
+
+def test_mesh_rgb_kernel_matches_plain(dev, mesh_case):
+    cfg, mesh, img, view = mesh_case[0], mesh_case[1], mesh_case[4], mesh_case[5]
+    r = checks.check_mesh_rgb(dev, mesh, img, *view, cfg, timed=False)
+    assert r["ok"] and r["visible"] > 300, r
+
+
+def test_mesh_delaunay_kernel_matches_plain(dev, mesh_case):
+    cfg, mesh, codes = mesh_case[0], mesh_case[1], mesh_case[6]
+    r = checks.check_mesh_delaunay(dev, mesh, codes, cfg, timed=False)
+    assert r["ok"] and r["triangles"] > 200, r
+
+
 def _launch(name, dev):
     from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
     if name == "chol_solve":
@@ -550,6 +609,20 @@ def _launch(name, dev):
                                        torch.ones(12, device=dev), 1e-3)
         return ct_icp.degeneracy(torch.ones((8, 3), device=dev),
                                  torch.ones(8, device=dev), m3dgr_lio().icp_cfg)
+    if name in ("mesh_insert", "mesh_rgb", "mesh_delaunay"):
+        from ground_fusion2_tpu_torch.mesh import incremental as mi
+        cfg = mi.MeshConfig(capacity=64, insert_chunk=16)
+        mesh = mi.MeshMap.empty(cfg, device=dev)
+        if name == "mesh_insert":
+            z = torch.zeros(16, dtype=torch.int32, device=dev)
+            return mi.insert_pass(z, z, torch.zeros((16, 3), device=dev),
+                                  torch.ones(16, device=dev), 12)
+        if name == "mesh_rgb":
+            return mi.update_rgb(mesh, torch.zeros((8, 8, 3), device=dev),
+                                 (4.0, 4.0, 4.0, 4.0), torch.eye(3).numpy(),
+                                 (0.0, 0.0, -1.0), cfg)
+        return mi.retriangulate(mesh, torch.zeros(4, dtype=torch.int32,
+                                                  device=dev), cfg)
     if name == "occupancy":
         from ground_fusion2_tpu_torch.mapping.occupancy import (
             GridConfig, scatter_scan)
@@ -682,7 +755,8 @@ def _launch(name, dev):
                                   "window_tests", "window_update", "pg_cost",
                                   "global_cost", "chol_solve", "sym_eig",
                                   "sqrt_info", "spd_inverse", "icp_solve",
-                                  "degeneracy", "occupancy"])
+                                  "degeneracy", "occupancy", "mesh_insert",
+                                  "mesh_rgb", "mesh_delaunay"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

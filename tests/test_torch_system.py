@@ -23,11 +23,12 @@ import jax
 from ground_fusion2_tpu.lio import ct_icp as jci
 from ground_fusion2_tpu.lio import voxel_map as jvm
 from ground_fusion2_tpu.lio.odometry import LioConfig as JLioConfig
+from ground_fusion2_tpu.mesh.incremental import MeshConfig as JMeshConfig
 from ground_fusion2_tpu.system import GroundFusion as JGroundFusion
 from ground_fusion2_tpu.system import SystemConfig as JSystemConfig
 from ground_fusion2_tpu.vio import feature_window as jfwin
 from ground_fusion2_tpu.vio.estimator import EstimatorConfig as JEstimatorConfig
-from ground_fusion2_tpu_torch import convert
+from ground_fusion2_tpu_torch import checks, convert
 from ground_fusion2_tpu_torch.config import TrackerConfig
 from ground_fusion2_tpu_torch.core.cameras import Pinhole
 from ground_fusion2_tpu_torch.data import synthetic as sim
@@ -48,6 +49,21 @@ CARRY_TOL = 1e-4        # m, one tick from a carried-over JAX state
 # neighbouring cell (each flip moves two cells' log-odds)
 GRID_CELLS_OFF = 1e-2
 GRID_COUNT_REL = 1e-2   # occupied / free cell counts, relative
+# the online mesh, every sweep textured from one synthetic 640×480 frame
+# through the simulated rig, drained every 5 sweeps; 16 candidates a voxel
+# keep the plain retriangulation's dense tests short on the CPU
+MESH_INTR = (460.0, 460.0, 320.0, 240.0)
+_V, _U = np.mgrid[0:480, 0:640].astype(np.float32)
+MESH_GRAY = (128 + 100 * np.sin(_U / 37) * np.cos(_V / 23)).astype(np.uint8)
+MESH_RIC = sim.CameraSim().ric
+# the mesh's stats() against JAX's, relative: the two systems' clouds
+# differ by ~1e-6 m, which can move a vertex across a subcell or voxel
+# border, and LAPACK's eigenvector signs reflect the jitter that decides
+# near-cocircular triangles (tests/test_torch_mesh.py). Measured on a CPU:
+# vertices and textured share equal (11,737; 0.3134), meshed voxels 1,894
+# against 1,893, triangles 13,708 against 13,712
+MESH_STATS_REL = dict(vertices=1e-3, voxels_meshed=5e-3, triangles=5e-3)
+MESH_TEXTURED_TOL = 5e-3
 
 
 def _drive(n=N_FRAMES, imu_rate=200.0, cam_rate=10.0, seed=0):
@@ -94,12 +110,15 @@ def _jax_cfg(pipelined=False):
                                                deg_sigma_mean=5.0),
                        max_keypoints=256, scan_buffer=1024),
         vio_pipelined=pipelined, lio_pipelined=pipelined,
-        use_occupancy_grid=True)
+        use_occupancy_grid=True, use_mesh=True,
+        mesh=JMeshConfig(capacity=1 << 15, insert_chunk=1024, cand=16),
+        mesh_intrinsics=MESH_INTR, mesh_drain_every=5)
 
 
 def _feed(gf, f, obs):
     out = gf.process_camera(f["t"], obs, f["imu"], wheel_vel=f["wheel"])
-    lout = gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"], f["imu"])
+    lout = gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"], f["imu"],
+                            **checks.mesh_texture(gf, MESH_GRAY, MESH_RIC))
     return out, lout
 
 
@@ -115,16 +134,28 @@ def jax_run(drive):
     frames, cam = drive
     gf = JGroundFusion(_jax_cfg(), tic=cam.tic, ric=cam.ric)
     outs, carried, k_carry, grids_at_carry = [], None, None, None
+    mesh_at_carry = None
     for k, f in enumerate(frames):
         live = gf.vio.carry is not None and gf.lio._carry is not None
         if live and gf.vio.dispatch_count >= 2 and carried is None:
             carried, k_carry = convert.system_from_jax(gf, "cpu"), k
             grids_at_carry = (np.asarray(gf.occ_grid.logodds),
                               carried.occ_grid.logodds.clone().numpy())
+            mesh_at_carry = dict(
+                jax={f: np.asarray(getattr(gf.mesher.mesh, f)) for f in
+                     ("pts", "code", "vid", "w")},
+                port={f: getattr(carried.mesher.mesh, f).clone().numpy()
+                      for f in ("pts", "code", "vid", "w")},
+                tris=({c: t.tolist() for c, t in gf.mesher.tris.items()},
+                      {c: t.tolist() for c, t in carried.mesher.tris.items()}),
+                pending=(set(gf.mesher._pending),
+                         set(carried.mesher._pending)),
+                sweeps=(gf._n_sweeps, carried._n_sweeps),
+                frames=(gf.mesher.frames, carried.mesher.frames))
         obs = jfwin.FrameObs(*(jax.numpy.asarray(a) for a in f["obs"]))
         outs.append(_feed(gf, f, obs))
     return dict(outs=outs, gf=gf, carried=carried, k_carry=k_carry,
-                grids_at_carry=grids_at_carry)
+                grids_at_carry=grids_at_carry, mesh_at_carry=mesh_at_carry)
 
 
 @pytest.fixture(scope="module")
@@ -191,6 +222,22 @@ def test_system_from_jax_carries_the_grid(jax_run):
     assert gf.cfg.use_occupancy_grid and gf.occ_grid.cfg.size_x == 400
 
 
+def test_system_from_jax_carries_the_mesh(jax_run):
+    """system_from_jax carries the mesh options and the mesher: the store,
+    the triangle registry, the pending dirty voxels and the sweep count."""
+    gf, jcfg = jax_run["carried"], _jax_cfg()
+    assert gf.cfg.use_mesh and gf.cfg.mesh_intrinsics == MESH_INTR
+    assert gf.cfg.mesh._asdict() == jcfg.mesh._asdict()
+    assert (gf.cfg.mesh_drain_every, gf.cfg.mesh_every) == (5, 1)
+    at = jax_run["mesh_at_carry"]
+    assert (at["jax"]["code"] != 2**31 - 1).sum() > 100
+    for f in at["jax"]:
+        np.testing.assert_array_equal(at["port"][f], at["jax"][f], err_msg=f)
+    for key in ("tris", "pending", "sweeps", "frames"):
+        assert at[key][1] == at[key][0], key
+    assert at["sweeps"][0] > 0 and at["tris"][0]
+
+
 def test_one_tick_from_a_jax_state(drive, jax_run):
     """``system_from_jax`` carries the JAX system's state (both carries, the
     propagator, the last VIO output) into the port, which runs the next
@@ -234,12 +281,57 @@ def test_pipelined_outputs_lag_one_tick(drive):
         np.testing.assert_array_equal(a.q, b.q)
 
 
-@pytest.mark.parametrize("option", [
-    dict(vio_backend="legacy"), dict(use_mesh=True),
-    dict(use_mesh=True, use_occupancy_grid=True)])
+@pytest.mark.parametrize("option", [dict(vio_backend="legacy")])
 def test_unported_options_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         GroundFusion(SystemConfig(**option), device="cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(use_mesh=True), dict(use_mesh=True, use_occupancy_grid=True)])
+def test_mesh_options_build_and_export(drive, tmp_path, option):
+    """GroundFusion with the mesh on (and the grid beside it) builds on the
+    CPU, takes camera frames and sweeps until a sweep has fed the mesh, and
+    exports it."""
+    frames, cam = drive
+    cfg = convert.system_config_from_jax(_jax_cfg())
+    cfg.use_occupancy_grid = option.get("use_occupancy_grid", False)
+    gf = GroundFusion(cfg, tic=cam.tic, ric=cam.ric, device="cpu")
+    assert gf.mesher is not None and gf.mesher.device.type == "cpu"
+    for f in frames:
+        _feed(gf, f, FrameObs(*f["obs"]))
+        if gf.mesher.frames:
+            break
+    nv, nf = gf.export_mesh(str(tmp_path / "mesh.ply"))
+    assert gf.mesher.frames == 1 and nv == gf.mesher.stats()["vertices"] > 0
+    assert (gf.occ_grid is not None) == bool(cfg.use_occupancy_grid)
+    assert (tmp_path / "mesh.ply").read_text().startswith("ply\n")
+
+
+def test_mesh_matches_jax(jax_run, port_run, tmp_path):
+    """The mesh both systems built over the drive (it feeds nothing back):
+    stats() within MESH_STATS_REL of JAX's, the share of textured vertices
+    within MESH_TEXTURED_TOL;
+    the PLY's header counts equal stats() and every face indexes a live
+    vertex."""
+    mj, mt = jax_run["gf"].mesher, port_run["gf"].mesher
+    sj, st = mj.stats(), mt.stats()
+    assert st["frames"] == sj["frames"] > 10
+    assert st["evicted_vertices"] == sj["evicted_vertices"]
+    for key, rel in MESH_STATS_REL.items():
+        assert abs(st[key] - sj[key]) <= rel * sj[key], (key, st, sj)
+    assert st["triangles"] > 500, (st, sj)
+    share = lambda w, code: float((w[code != 2**31 - 1] > 0).mean())
+    tj = share(np.asarray(mj.mesh.w), np.asarray(mj.mesh.code))
+    tt = share(mt.mesh.w.numpy(), mt.mesh.code.numpy())
+    assert tt > 0.05 and abs(tt - tj) <= MESH_TEXTURED_TOL, (tt, tj)
+    nv, nf = port_run["gf"].export_mesh(str(tmp_path / "m.ply"))
+    lines = (tmp_path / "m.ply").read_text().splitlines()
+    head = lines[:lines.index("end_header")]
+    assert f"element vertex {st['vertices']}" in head and nv == st["vertices"]
+    assert f"element face {st['triangles']}" in head and nf == st["triangles"]
+    faces = np.array([l.split()[1:] for l in lines[len(head) + 1 + nv:]], int)
+    assert faces.shape == (nf, 3) and 0 <= faces.min() and faces.max() < nv
 
 
 # ---------------------------------------------------------- global fusion

@@ -5,7 +5,15 @@ occupied (p > 0.65) and free (p < 0.2) cells), at the M3DGR configuration
 the loader gives for ``configs/m3dgr.yaml`` with bench.py's ``bench_system``
 flags and the grid on (it feeds nothing back into the poses).
 
-    PYTHONPATH=. python tests/torch_system_reference.py [n_frames]
+``mesh`` runs the same drive with the online mesh on instead of the grid, at
+the JAX package's ``MeshConfig()`` defaults with the M3DGR intrinsics as
+``mesh_intrinsics``, every frame's LiDAR sweep textured as ``chip_smoke.py``'s
+phase 14 textures the port's (``checks.mesh_texture``: the grey frame as
+three channels, the latest VIO pose composed with the rig's extrinsic); it
+prints the mesh's vertices, meshed voxels and triangles and the share of
+live vertices that took a colour (w > 0), the figures phase 14 cites.
+
+    PYTHONPATH=. python tests/torch_system_reference.py [mesh] [n_frames]
 
 Not a test (pytest collects ``test_*.py`` only): a full-width run takes
 about three minutes on a CPU.
@@ -27,7 +35,7 @@ from ground_fusion2_tpu.system import GroundFusion, SystemConfig
 from ground_fusion2_tpu_torch import checks
 
 
-def main(n: int = 40) -> dict:
+def main(n: int = 40, mesh: bool = False) -> dict:
     jax.config.update("jax_platforms", "cpu")
     jc = load_config(Path(__file__).resolve().parent.parent / "configs"
                      / "m3dgr.yaml")
@@ -39,7 +47,9 @@ def main(n: int = 40) -> dict:
                        cam=Pinhole.create(ci["fx"], ci["fy"], ci["cx"],
                                           ci["cy"]),
                        vio_pipelined=True, vio_depth_stride=2,
-                       lio_pipelined=True, use_occupancy_grid=True)
+                       lio_pipelined=True, use_occupancy_grid=not mesh,
+                       use_mesh=mesh,
+                       mesh_intrinsics=(ci["fx"], ci["fy"], ci["cx"], ci["cy"]))
     frames = checks.system_drive(n)
     gf = GroundFusion(cfg, tic=np.zeros(3), ric=checks.RIG_RIC,
                       tio=np.zeros(3), rio=np.eye(3))
@@ -50,16 +60,27 @@ def main(n: int = 40) -> dict:
                                     wheel_vel=f["wheel"])
         if o is not None and o.initialized:
             vio.append(o)
-        gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"], f["imu"])
+        gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"], f["imu"],
+                         **(checks.mesh_texture(gf, f["gray"]) if mesh else {}))
     o = gf.flush()
     if o is not None and o.initialized:
         vio.append(o)
     r = checks.system_errors(gf.trajectory, vio, frames)
-    p = gf.occ_grid.prob()
-    r.update(grid_occupied=int((p > 0.65).sum()), grid_free=int((p < 0.2).sum()))
+    if mesh:
+        st = gf.mesher.stats()
+        live = np.asarray(gf.mesher.mesh.code) != 2**31 - 1
+        r.update(mesh=st, textured=float(
+            (np.asarray(gf.mesher.mesh.w)[live] > 0).mean()))
+    else:
+        p = gf.occ_grid.prob()
+        r.update(grid_occupied=int((p > 0.65).sum()),
+                 grid_free=int((p < 0.2).sum()))
     r["seconds"] = time.time() - t0
     return r
 
 
 if __name__ == "__main__":
-    print(json.dumps(main(int(sys.argv[1]) if len(sys.argv) > 1 else 40)))
+    args = sys.argv[1:]
+    mesh = bool(args) and args[0] == "mesh"
+    args = args[1:] if mesh else args
+    print(json.dumps(main(int(args[0]) if args else 40, mesh=mesh)))
