@@ -156,8 +156,32 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      its textured share are printed beside the JAX package's on the same
      drive (tests/torch_system_reference.py mesh), and the system tick
      beside phase 8's, with the mesh feed's host wall and syncs a sweep and
-     torch.profiler's split of the last 3 ticks.
-Phases 4, 5, 8, 9, 10, 10b, 11, 13 and 14 run with a counter on every
+     torch.profiler's split of the last 3 ticks;
+ 15. the line path (frontend/lines.py): detect_lines on each of the 32
+     frames of phase 3's drive (grey ÷ 255) and track_lines on each
+     consecutive pair with 3-level pyramids. AD must launch once a frame, AE
+     twice a pair, B once a pair; the valid and tracked segments, printed
+     beside the JAX package's on the same frames (tests/
+     torch_lines_reference.py), must total within 2 % of its. AD, AE and B
+     (at the line path's arguments) are held against their plain versions
+     on the last pair (AD's thresholds bit for bit, the flags equal but
+     where a test's margin is within 1e-5 of its terms, each such segment
+     named; AE's samples bit for bit; twice the same bits);
+ 16. the distributed solves over a one-rank NCCL group (FileStore):
+     make_distributed_solver (8 LM iterations) on the F = 150 example window
+     (D = 396) must end within 0.02 m of the port's solve_window result and,
+     started from that result, stay within 1e-4 m (tests/test_dist_ba.py's
+     gates); make_mapping_solver at K = 64, 128 landmarks a keyframe, halo 3
+     (tools/bench_weak_scaling.py's widths: 8,192 landmarks, 384 dims),
+     seed 1, perturbation 0.05, 6 iterations, must bring every pose within
+     0.01 m of the truth and the cost under 1e-4 (tests/
+     test_dist_mapping.py's gates), printed beside the JAX package's figure
+     (tests/torch_parallel_reference.py). AF and AG must launch; AF, AG and
+     W's explicit-diagonal mode are held against their plain versions on
+     both problems (twice the same bits). The card is one: the multi-rank
+     collectives and the halo's send/recv run only over gloo in the CPU
+     tests.
+Phases 4, 5, 8, 9, 10, 10b, 11, 13, 14, 15 and 16 run with a counter on every
 torch.linalg function but the norms and cross, and on torch's own
 factorizations, solves and inverses (cholesky_solve, cholesky_inverse,
 inverse, lu_solve, ...): every count must be 0, each kernel W-Z replacing
@@ -166,8 +190,8 @@ marginalization prior (kernel X's NaN where its QL does not converge;
 phase 10 on any unconverged eigensolve).
 The last two lines are the kernels JSON (launches from phase 8's run for
 A-L and S-Y, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
-Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC)
-and the result JSON.
+Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
+phase 15's for AD and AE, phase 16's for AF and AG) and the result JSON.
 
 The camera rig is synthetic: the renderer's forward camera (bench.py's
 extrinsic) and an identity wheel frame replace the M3DGR extrinsics, which
@@ -300,6 +324,34 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
                       "ground_fusion2_tpu/mesh/incremental.py:348"),
 }
 MESH_KERNELS = ("mesh_insert", "mesh_rgb", "mesh_delaunay")
+SOURCES.update({
+    "line_detect": ("line_detect.cu", "ground_fusion2_tpu/frontend/lines.py:56"),
+    "line_refit": ("line_refit.cu", "ground_fusion2_tpu/frontend/lines.py:124"),
+    "dist_schur": ("dist_schur.cu",
+                   "ground_fusion2_tpu/parallel/dist_ba.py:55"),
+    "map_schur": ("map_schur.cu",
+                  "ground_fusion2_tpu/parallel/dist_mapping.py:95"),
+})
+LINE_KERNELS = ("line_detect", "line_refit")
+DIST_KERNELS = ("dist_schur", "map_schur")
+# the JAX package's line path on phase 3's 32 frames (tests/
+# torch_lines_reference.py, CPU): valid segments a frame, tracked a pair
+JAX_LINES = dict(
+    valid=[39, 39, 39, 39, 39, 39, 39, 39, 38, 33, 29, 35, 43, 36, 40, 44,
+           39, 42, 34, 30, 38, 32, 44, 39, 48, 43, 47, 49, 47, 42, 47, 41],
+    tracked=[39, 39, 39, 39, 39, 39, 39, 39, 38, 33, 29, 30, 33, 25, 29, 36,
+             28, 29, 25, 25, 31, 29, 41, 32, 35, 36, 39, 38, 33, 31, 35])
+LINE_COUNT_TOL = 0.02  # the totals against JAX's (KLT rounds otherwise on the card)
+DIST_F = 150
+DIST_ITERS = 8         # tests/test_dist_ba.py's solver
+DIST_MAX_D = 0.02      # m, distributed vs solve_window (test_dist_ba.py)
+DIST_STAY = 1e-4       # m, warm-started from solve_window's result
+MAP_K, MAP_LPK, MAP_HALO, MAP_ITERS = 64, 128, 3, 6
+MAP_MAX_ERR = 0.01     # m, tests/test_dist_mapping.py:33
+MAP_MAX_COST = 1e-4    # tests/test_dist_mapping.py:34
+# the JAX package on phase 16's mapping problem, 6 iterations, one CPU
+# device (tests/torch_parallel_reference.py)
+JAX_MAP = dict(max_pose_err=0.008773226290941238, cost=3.3809077759627826e-10)
 
 
 def card_line() -> str:
@@ -1266,6 +1318,166 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
     return None, launches, res
 
 
+def lines_main_path(dev, card, frames):
+    """Phase 15: detect_lines on every frame, track_lines on every pair
+    (3-level pyramids). Returns (error or None, launches, the last pair's
+    pyramids, segments and flags for :func:`line_checks`)."""
+    import torch
+    from ground_fusion2_tpu_torch import _kernels
+    from ground_fusion2_tpu_torch.frontend import klt, lines
+
+    imgs = [torch.as_tensor(f["gray"], device=dev).to(torch.float32) / 255.0
+            for f in frames]
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    t0 = time.perf_counter()
+    valid, tracked, prev, last = [], [], None, None
+    for img in imgs:
+        segs, ok = lines.detect_lines(img)
+        pyr = klt.build_pyramid(img, 3)
+        if prev is not None:
+            tracked.append(lines.track_lines(prev[0], pyr, prev[1], prev[2])[1])
+            last = (prev[0], pyr, prev[1], prev[2])
+        valid.append(ok)
+        prev = (pyr, segs, ok)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / len(imgs)
+    launches = dict(_kernels.launches)
+    valid = [int(v.sum()) for v in valid]
+    tracked = [int(v.sum()) for v in tracked]
+    n = len(imgs)
+    print(f"line path: {n} frames, {wall:.3f} ms a frame (synchronized host "
+          f"wall, detection + pyramid + tracking); valid segments a frame "
+          f"{valid} (JAX {JAX_LINES['valid']}), tracked a pair {tracked} "
+          f"(JAX {JAX_LINES['tracked']}); launches {launches} | {card}",
+          flush=True)
+    want = dict(line_detect=n, line_refit=2 * (n - 1), klt=n - 1)
+    got = {k: launches.get(k, 0) for k in want}
+    if got != want:
+        return f"line path launches {got}, expected {want}", launches, last
+    for key, port in (("valid", valid), ("tracked", tracked)):
+        ref = sum(JAX_LINES[key][:len(port)])
+        if abs(sum(port) - ref) > LINE_COUNT_TOL * ref:
+            return (f"{key} segments {sum(port)} against JAX's {ref} (more "
+                    f"than {LINE_COUNT_TOL:.0%} apart)"), launches, last
+    return None, launches, last
+
+
+def line_checks(dev, last) -> dict:
+    """AD on the last pair's first frame, AE and B on the pair."""
+    from ground_fusion2_tpu_torch import checks
+    pyr0 = last[0]
+    return {"line_detect": checks.check_line_detect(dev, pyr0[0]),
+            "line_refit": checks.check_line_refit(dev, *last)}
+
+
+def dist_main_path(dev, card):
+    """Phase 16: the two distributed solvers over a one-rank NCCL group
+    and their gates. Returns (error or None, launches, what
+    :func:`dist_checks` holds AF, AG and W on)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from ground_fusion2_tpu_torch import _kernels, checks
+    from ground_fusion2_tpu_torch.config import VioConfig
+    from ground_fusion2_tpu_torch.core import lie
+    from ground_fusion2_tpu_torch.parallel import dist_ba as db
+    from ground_fusion2_tpu_torch.parallel import dist_mapping as dm
+    from ground_fusion2_tpu_torch.parallel.dryrun import process_group
+    from ground_fusion2_tpu_torch.vio.problem import solve_window
+
+    cfg = VioConfig(num_feats=DIST_F)
+    x0, feats, layout, _ = checks.example_window(DIST_F, dev)
+    meas = checks.example_measurements(x0, feats, layout, dev)
+    x_single = solve_window(x0, meas, layout, cfg).state
+    prob, (gt_p, _, _) = dm.make_mapping_problem(
+        MAP_K, MAP_LPK, MAP_HALO, seed=1, pix_noise=0.0, perturb=0.05)
+    store = tempfile.mkdtemp(prefix="gf2_nccl_")
+    try:
+        with process_group("nccl", 0, 1, store) as group:
+            solver = db.make_distributed_solver(group, layout, cfg,
+                                                DIST_ITERS, dev)
+            msolve = dm.make_mapping_solver(group, MAP_K, MAP_HALO,
+                                            MAP_ITERS, device=dev)
+            torch.cuda.synchronize()
+            _kernels.launches.clear()
+            t0 = time.perf_counter()
+            x_dist, cost = solver(*db.shard_window(x0, meas, 0, 1))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x_stay, _ = solver(*db.shard_window(x_single, meas, 0, 1))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            p, q, rho, mcost = msolve(dm.shard_problem(prob, 0, 1))
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            launches = dict(_kernels.launches)
+            sh = dm.MappingProblem(*(t.to(dev) for t in prob))
+            pe, qe = dm.halo_exchange(sh.kf_p, sh.kf_q, MAP_HALO, group)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+    d = float((x_dist.p - x_single.p).norm(dim=-1).max())
+    moved = float((x_stay.p - x_single.p).norm(dim=-1).max())
+    dth = float(lie.quat_boxminus(x_dist.q, x_single.q).norm(dim=-1).max())
+    m_err = float(np.linalg.norm(p.cpu().numpy() - gt_p, axis=1).max())
+    finite = bool(torch.isfinite(x_dist.p).all() and torch.isfinite(p).all()
+                  and torch.isfinite(rho).all())
+    print(f"distributed window solve (world 1, NCCL, F = {DIST_F}, "
+          f"{DIST_ITERS} LM iterations): cost {float(cost):.6f}, "
+          f"{(t1 - t0) * 1e3:.2f} ms; against solve_window: max position "
+          f"gap {d:.6f} m (gate {DIST_MAX_D}), rotation {dth:.6f} rad; warm "
+          f"start moved {moved:.3e} m (gate {DIST_STAY}), "
+          f"{(t2 - t1) * 1e3:.2f} ms | {card}", flush=True)
+    print(f"distributed mapping solve (world 1, NCCL, K = {MAP_K}, lpk "
+          f"{MAP_LPK}, halo {MAP_HALO}, {MAP_ITERS} iterations): max pose "
+          f"error {m_err:.6f} m (gate {MAP_MAX_ERR}), cost {float(mcost):.3e} "
+          f"(gate {MAP_MAX_COST}); JAX on one CPU device {JAX_MAP}; "
+          f"{(t3 - t2) * 1e3:.2f} ms; launches {launches} | {card}",
+          flush=True)
+    ctx = (x0, feats, meas, layout, cfg, pe, qe, sh)
+    if any(launches.get(k, 0) <= 0 for k in DIST_KERNELS + ("chol_solve",)):
+        return f"distributed solves launched {launches}", launches, ctx
+    if not finite:
+        return "a non-finite distributed solve", launches, ctx
+    if not (d < DIST_MAX_D and moved < DIST_STAY):
+        return (f"distributed window: gap {d:.6f} m, warm start moved "
+                f"{moved:.3e} m"), launches, ctx
+    if not (m_err < MAP_MAX_ERR and float(mcost) < MAP_MAX_COST):
+        return (f"mapping: pose error {m_err:.6f} m, cost "
+                f"{float(mcost):.3e}"), launches, ctx
+    return None, launches, ctx
+
+
+def dist_checks(dev, ctx) -> dict:
+    """AF at the window's start, AG at the mapping's, and W's
+    explicit-diagonal mode on the systems the two solvers damp there."""
+    import torch
+    from ground_fusion2_tpu_torch import checks
+    from ground_fusion2_tpu_torch.parallel import dist_ba as db
+    from ground_fusion2_tpu_torch.parallel import dist_mapping as dm
+    x0, feats, meas, layout, cfg, pe, qe, sh = ctx
+    lam = torch.full((), 1e-4, device=dev)
+    res = {"dist_schur": checks.check_dist_schur(dev, x0, feats, layout, cfg),
+           "map_schur": checks.check_map_schur(dev, pe, qe, sh, MAP_HALO,
+                                               MAP_K, 0)}
+    red = db.shard_reduce(x0, feats, layout, cfg, lam)
+    Hr, gr, dr = red.unpack(layout.frame_dim)
+    Hd, gd, _ = db.dense_normal_equations(x0, meas, layout, cfg)
+    free = db.free_mask(layout, cfg, meas, dev)
+    res["chol_solve (window, explicit diagonal)"] = checks.check_chol_solve(
+        dev, Hr + Hd, gr + gd, free, damp_diag=(dr + torch.diagonal(Hd)) * free,
+        timed=False)
+    b = dm.map_build(pe, qe, sh, MAP_HALO, MAP_K, 0, lam)
+    K6 = MAP_K * 6
+    mfree = torch.ones(K6, device=dev)
+    mfree[:6] = 0.0
+    res["chol_solve (mapping, explicit diagonal)"] = checks.check_chol_solve(
+        dev, b.pay[:, :K6], b.pay[:, K6], mfree,
+        damp_diag=b.pay[:, K6 + 1] * mfree)
+    return res
+
+
 def window_stage_checks(dev, fv) -> dict:
     """Phase 7's T, U and V on FusedVio ``fv``'s final carry: triangulation
     of every live track (the RGB-D depth fix cleared, none initialized), the
@@ -1667,9 +1879,39 @@ def main() -> int:
     launches.update({k: mesh_launches.get(k, 0) for k in MESH_KERNELS})
     res.update(res_mesh)
 
+    # 15. the line path on phase 3's frames, then AD, AE and B on the last
+    # pair
+    (err, line_launches, last), lin = linalg_free(
+        "15", lines_main_path, dev, card, frames)
+    if err or lin:
+        return fail(err or lin)
+    launches.update({k: line_launches.get(k, 0) for k in LINE_KERNELS})
+    res_lines = line_checks(dev, last)
+    if report(res_lines):
+        return 1
+    res.update(res_lines)
+
+    # 16. the distributed solves, one rank over NCCL, then AF, AG and W's
+    # explicit-diagonal mode
+    (err, dist_launches, ctx), lin = linalg_free("16", dist_main_path, dev,
+                                                 card)
+    if err or lin:
+        return fail(err or lin)
+    launches.update({k: dist_launches.get(k, 0) for k in DIST_KERNELS})
+    res_dist = dist_checks(dev, ctx)
+    if report(res_dist):
+        return 1
+    w384 = res_dist.pop("chol_solve (mapping, explicit diagonal)")
+    res["chol_solve"]["sizes"]["384 (explicit diagonal)"] = {
+        k: w384[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                             "rel_err_f64", "tol")}
+    res_dist.pop("chol_solve (window, explicit diagonal)")
+    res.update(res_dist)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")   # launches: phase 8 for A-L and S-Y, 9 for M-O,
-                            # 10 for P and Q, 11 for R, 13 for Z, 14 for AA-AC
+                            # 10 for P and Q, 11 for R, 13 for Z, 14 for
+                            # AA-AC, 15 for AD-AE, 16 for AF-AG
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

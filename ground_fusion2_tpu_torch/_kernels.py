@@ -67,7 +67,7 @@ _SIGNATURES = {
                          + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 5 + [_P] * 4),
     "gf2_window_update": ([_I] + [_P] * 8 + [_I] * 2 + [_P] * 5 + [_I]
                           + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P]),
-    "gf2_chol_solve": [_P] * 4 + [_I] + [_P] * 4,
+    "gf2_chol_solve": [_P] * 5 + [_I] + [_P] * 4,
     "gf2_sym_eig_f64": [_P, _I] + [_P] * 10 + [_I, _P],
     "gf2_sym_eig_f32": [_P, _I] + [_P] * 10 + [_I, _P],
     "gf2_sqrt_info": [_P, _I, _I, _I, _P, _P],
@@ -79,6 +79,11 @@ _SIGNATURES = {
     "gf2_mesh_rgb": [_P] * 5 + [_I, _P, _I, _I, _P] + [_F] * 4 + [_P] * 5,
     "gf2_mesh_delaunay": ([_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P, _I]
                           + [_F] * 4 + [_P] * 4),
+    "gf2_line_detect": [_P] + [_I] * 5 + [_F] * 5 + [_P] * 4,
+    "gf2_line_refit": [_I] * 3 + [_P] * 5 + [_I, _F, _F] + [_P] * 3,
+    "gf2_dist_schur": ([_P] * 14 + [_I] * 7 + [_F] * 3 + [_I] + [_P] * 8
+                       + [_P]),
+    "gf2_map_schur": [_P] * 7 + [_I] * 5 + [_P] * 7 + [_P],
 }
 
 

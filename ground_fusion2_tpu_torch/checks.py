@@ -979,32 +979,36 @@ def _time_pair(a, b, reps: int = 20):
 
 
 def check_chol_solve(device, H, g, free=None, lam: float = 1e-4,
-                     timed: bool = True) -> dict:
+                     timed: bool = True, damp_diag=None) -> dict:
     """Kernel W against ``_solve_damped_plain`` (cholesky_ex +
     cholesky_solve) on one damped system: dx against the float64 solve,
-    NaN on a non-PD input, the same bits twice. ``library_ms``: the two
-    ``torch.linalg`` calls alone on the equilibrated matrix."""
+    NaN on a non-PD input, the same bits twice. ``damp_diag``: W's
+    explicit-diagonal mode (the distributed solves' damping). ``library_ms``:
+    the two ``torch.linalg`` calls alone on the equilibrated matrix."""
     from .solver.gauss_newton import _solve_damped, _solve_damped_plain
     n = H.shape[0]
     free = torch.ones(n, device=device) if free is None else free
     lam_t = torch.full((), lam, device=device)
-    dk = _solve_damped(H, g, lam_t, free)
-    same = bool(torch.equal(dk, _solve_damped(H, g, lam_t, free)))
-    dp = _solve_damped_plain(H, g, lam_t, free)
+    dd = damp_diag
+    dk = _solve_damped(H, g, lam_t, free, dd)
+    same = bool(torch.equal(dk, _solve_damped(H, g, lam_t, free, dd)))
+    dp = _solve_damped_plain(H, g, lam_t, free, dd)
     d64 = _solve_damped_plain(H.double(), g.double(), lam_t.double(),
-                              free.double())
+                              free.double(), None if dd is None else dd.double())
     err_k, err_p = _rel(dk.double(), d64), _rel(dp.double(), d64)
     tol = max(CHOL_VS_PLAIN * err_p, CHOL_REL_FLOOR)
     bad = H.clone()
     i = int(torch.nonzero(free)[0, 0])
     bad[i, i] = -1.0                      # a negative pivot at a free dim
-    nan_k = bool(torch.isnan(_solve_damped(bad, g, lam_t, free)).all())
-    nan_p = bool(torch.isnan(_solve_damped_plain(bad, g, lam_t, free)).all())
+    nan_k = bool(torch.isnan(_solve_damped(bad, g, lam_t, free, dd)).all())
+    nan_p = bool(torch.isnan(_solve_damped_plain(bad, g, lam_t, free,
+                                                 dd)).all())
     out = dict(n=n, max_abs_err=float((dk - dp).abs().max()),
                rel_err_vs_plain=_rel(dk, dp), rel_err_f64=err_k,
                plain_rel_err_f64=err_p, tol=tol, repeat_equal=same,
                nan_on_non_pd=nan_k, plain_nan_on_non_pd=nan_p,
                finite=bool(torch.isfinite(dk).all()),
+               explicit_diagonal=dd is not None,
                ok=(same and nan_k and err_k <= tol
                    and bool(torch.isfinite(dk).all())),
                # H, g, the mask in, dx out; n³/3 for the factor, 2n² for
@@ -1013,14 +1017,14 @@ def check_chol_solve(device, H, g, free=None, lam: float = 1e-4,
     if timed:
         fm = free.to(H.dtype)
         Hm = H * fm[:, None] * fm[None, :]
-        dmp = Hm + torch.diag(lam * torch.clamp(torch.diagonal(Hm), min=1e-8)
-                              + (1.0 - fm))
+        dg = torch.diagonal(Hm) if dd is None else dd
+        dmp = Hm + torch.diag(lam * torch.clamp(dg, min=1e-8) + (1.0 - fm))
         dinv = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(dmp), min=1e-12))
         Hs = dmp * dinv[:, None] * dinv[None, :]
         b = (g * fm * dinv)[:, None]
         out["ms"], out["plain_ms"] = _time_pair(
-            lambda: _solve_damped(H, g, lam_t, free),
-            lambda: _solve_damped_plain(H, g, lam_t, free))
+            lambda: _solve_damped(H, g, lam_t, free, dd),
+            lambda: _solve_damped_plain(H, g, lam_t, free, dd))
         out["library_ms"] = time_ms(lambda: torch.cholesky_solve(
             b, torch.linalg.cholesky_ex(Hs)[0]))
     return out
@@ -2349,5 +2353,304 @@ def check_mesh_delaunay(device, mesh, codes, cfg, timed: bool = True) -> dict:
         out["ms"], out["plain_ms"] = _time_pair(
             lambda: mi.retriangulate(mesh, codes, cfg),
             lambda: mi.retriangulate_plain(mesh, codes, cfg), reps=10)
+        out["library_ms"] = None
+    return out
+
+
+# ---------------------------------------------- row 18: the line path (AD, AE)
+LINE_SEG_TOL_PX = 1e-4   # endpoints, sums in another order, where the
+                         # closed-form axis is well conditioned
+LINE_FLAG_BAND = 1e-5    # a flag may differ only where one of its tests'
+                         # margins lies this close (relative) to its terms
+
+
+def line_seg_tol(segs: torch.Tensor) -> torch.Tensor:
+    """Per endpoint: LINE_SEG_TOL_PX plus, near vertical, the rounding the
+    closed-form axis amplifies (its x component (l1 − dyy)/‖·‖ cancels as
+    vx²·dyy): half_len · 4·eps32 / max(|vx|, 1e-3)."""
+    d = segs[:, 2:] - segs[:, :2]
+    half = torch.linalg.vector_norm(d, dim=1) / 2
+    vx = d[:, 0].abs() / torch.clamp(2 * half, min=1e-12)
+    eps = torch.finfo(torch.float32).eps
+    return (LINE_SEG_TOL_PX + half * 4 * eps
+            / torch.clamp(vx, min=1e-3))[:, None]
+
+
+def _flag_check(fk, fp, sk, sp, margins) -> dict:
+    """Flags equal but where a margin lies within LINE_FLAG_BAND (each such
+    cell named), endpoints within :func:`line_seg_tol` where both agree."""
+    differ = (fk != fp).nonzero().flatten().tolist()
+    named = [dict(cell=i, margins=[float(m) for m in margins[i]])
+             for i in differ]
+    off = [n for n in named if min(abs(m) for m in n["margins"])
+           > LINE_FLAG_BAND]
+    both = (fk > 0) & (fp > 0)
+    err = (sk - sp).abs()[both]
+    within = bool((err <= line_seg_tol(sp[both])).all())
+    return dict(max_abs_err=float(err.max()) if err.numel() else 0.0,
+                segments_within_tol=within, differing_flags=len(differ),
+                differing_off_band=len(off), named=named[:8],
+                valid=int((fk > 0).sum()), valid_plain=int((fp > 0).sum()))
+
+
+def check_line_detect(device, img, cfg=None, timed: bool = True) -> dict:
+    """Kernel AD against ``detect_lines``' plain twin on one image on the
+    card: the per-cell thresholds bit for bit, the flags (see
+    :func:`_flag_check`), the same bits twice. ``library_ms``:
+    ``torch.quantile`` of the cells' magnitudes, the selection alone."""
+    from .frontend import lines as ln
+    cfg = cfg or ln.LineConfig()
+    img = img.to(device=device, dtype=torch.float32)
+    kern = (ln._detect_cuda if img.is_cuda
+            else lambda i, c: ln._detect_plain(i, c)[:3])
+    sk, fk, tk = kern(img, cfg)
+    sk2, fk2, tk2 = kern(img, cfg)
+    sp, fp, tp, mg = ln._detect_plain(img, cfg)
+    out = _flag_check(fk, fp, sk, sp, mg)
+    out["thresholds_equal"] = bool(torch.equal(tk, tp))
+    out["repeat_equal"] = bool(torch.equal(sk, sk2) and torch.equal(fk, fk2)
+                               and torch.equal(tk, tk2))
+    out["ok"] = (out["thresholds_equal"] and out["repeat_equal"]
+                 and out["segments_within_tol"]
+                 and out["differing_off_band"] == 0)
+    # image in, segments, flags out; ~35 f32 operations a pixel (gradients,
+    # magnitude, a selection's log2(c²) comparisons, the weighted sums)
+    c = cfg.cell
+    L = sk.shape[0]
+    out.update(bound(_nbytes(img, sk, fk), 35 * L * c * c))
+    if timed:
+        gx, gy = klt._gradients(img)
+        cells = ln._cell_view(ln._magnitude(gx, gy), c)[0].reshape(L, c * c)
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: ln.detect_lines(img, cfg),
+            lambda: ln.detect_lines_plain(img, cfg))
+        out["library_ms"] = time_ms(lambda: torch.quantile(cells, 0.9, dim=-1))
+    return out
+
+
+def check_line_refit(device, pyr0, pyr1, segs, valid, cfg=None,
+                     timed: bool = True) -> dict:
+    """Kernel AE (sample, then refit mode) against its plain twin on one
+    frame pair's segments on the card: the samples bit for bit, the refit's
+    flags and segments as :func:`_flag_check` (margins of the straightness
+    and extent tests), the same bits twice; between them kernel B at the
+    line path's arguments against ``klt_track_plain`` (flags equal, points
+    within KLT_TOL_PX)."""
+    from .frontend import lines as ln
+    cfg = cfg or ln.LineConfig()
+    P = cfg.track_points
+    pk, vk = ln.line_samples(segs, valid, P)
+    pp, vp = ln.line_samples_plain(segs, valid, P)
+    samples_equal = bool(torch.equal(pk, pp) and torch.equal(vk, vp))
+    args = dict(half=3, iters=6, fb_thresh=8.0)     # ln.track_lines' mapping
+    p1, v1 = klt.klt_track(pyr0, pyr1, pk, vk, **args)
+    p1p, v1p = klt.klt_track_plain(pyr0, pyr1, pk, vk, **args)
+    live = (v1 > 0) & (v1p > 0)
+    klt_err = float((p1 - p1p).abs()[live].max()) if bool(live.any()) else 0.0
+    klt_ok = bool(torch.equal(v1, v1p)) and klt_err <= KLT_TOL_PX
+    sk, fk = ln.line_refit(p1, v1, valid, cfg)
+    sk2, fk2 = ln.line_refit(p1, v1, valid, cfg)
+    sp, fp, mg = ln._refit_plain(p1, v1, valid, cfg)
+    out = _flag_check(fk, fp, sk, sp, mg)
+    out.update(samples_equal=samples_equal,
+               repeat_equal=bool(torch.equal(sk, sk2) and torch.equal(fk, fk2)),
+               klt=dict(tracked=int(v1.sum()), tracked_plain=int(v1p.sum()),
+                        max_abs_err=klt_err, ok=klt_ok))
+    out["ok"] = (samples_equal and out["repeat_equal"] and klt_ok
+                 and out["segments_within_tol"]
+                 and out["differing_off_band"] == 0)
+    # both modes: segments and flags in, samples out; samples in, segments
+    # out; ~10 operations a sample in each, ~60 a segment
+    L = segs.shape[0]
+    out.update(bound(_nbytes(segs, valid, pk, vk, p1, v1, sk, fk),
+                     20 * L * P + 60 * L))
+    if timed:
+        def kern():
+            a, b = ln.line_samples(segs, valid, P)
+            return ln.line_refit(p1, v1, valid, cfg), a, b
+
+        def plain():
+            a, b = ln.line_samples_plain(segs, valid, P)
+            return ln.line_refit_plain(p1, v1, valid, cfg), a, b
+        out["ms"], out["plain_ms"] = _time_pair(kern, plain)
+        out["library_ms"] = None
+    return out
+
+
+# ------------------------------- row 19: the distributed solves (AF, AG)
+# AF/AG against their twins, each entry over its own scale (_dist_errs):
+# the reduced system (H, g, diag, cost; 5.8e-6 seen on the H100) and the
+# per-landmark operators (S, inv_S, g_r, G; 2.2e-5 seen: S = ΣJr² carries
+# Jr's rounding, which cancels for a distant landmark), ~9x the errors seen
+DIST_SYS_TOL = 5e-5
+DIST_LM_TOL = 2e-4
+_DIST_LM_KEYS = ("S_rr", "inv_S", "g_r", "G_rf", "G")
+
+
+def _dist_ok(errs) -> bool:
+    return all(v <= (DIST_LM_TOL if k in _DIST_LM_KEYS else DIST_SYS_TOL)
+               for k, v in errs.items())
+
+
+def _eq_err(a, ref, scale) -> float:
+    """max |a − ref| / scale; where the scale is 0 the entries must be equal
+    (an entry there that differs gives inf)."""
+    if not ref.numel():
+        return 0.0
+    diff = (a.double() - ref.double()).abs()
+    scale = torch.broadcast_to(scale.double(), diff.shape)
+    if bool(((scale <= 0) & (diff > 0)).any()):
+        return float("inf")
+    return float(torch.where(scale > 0, diff / scale.clamp(min=1e-300),
+                             torch.zeros_like(diff)).max())
+
+
+def _dist_errs(H, Hp, g, gp, d, dp, cost_p) -> dict:
+    """The reduced system's errors against the plain twin's, each entry over
+    its own scale: H_ij over sqrt(D_i·D_j) and g_i over sqrt(D_i)·‖r‖, where
+    D is the unreduced diagonal (Σ J², each column's scale: |H_ij| and |g_i|
+    are below these by Cauchy-Schwarz); D itself entry by entry."""
+    D = dp.double().clamp(min=0.0)
+    sd = D.sqrt()
+    rn = float(cost_p.double().clamp(min=0.0) * 2.0) ** 0.5
+    return dict(H=_eq_err(H, Hp, sd[:, None] * sd[None, :]),
+                g=_eq_err(g, gp, sd * rn), diag=_eq_err(d, dp, D))
+
+
+def _schur_flops(cols, width, elim, lanes, lane_ops):
+    """Operations one landmark's rows need: the duals (``lanes`` carrying a
+    tangent, ~``lane_ops`` each), and per row its ``cols`` non-zero frame
+    columns against the projected row over the landmark's ``width``
+    columns (2·cols·width, Jr·coef 2·width, coef, g and diag 6·cols), or
+    against its own columns where the landmark is not eliminated; then the
+    width² block summed into the system. Tensors over the landmarks' rows
+    (``cols``, ``lanes`` [N, R], 0 for a dead row; ``width``, ``elim``
+    [N])."""
+    w = torch.where(elim[:, None], width[:, None].expand_as(cols), cols)
+    rows = 2 * (2 * cols * w + 2 * w * elim[:, None] + 6 * cols) * (cols > 0)
+    return float(lanes.sum() * lane_ops + rows.sum() + (width * width).sum())
+
+
+def check_dist_schur(device, x, feats, layout, cfg, lam: float = 1e-4,
+                     timed: bool = True) -> dict:
+    """Kernel AF against ``shard_reduce_plain`` (jacfwd + jvp and the
+    one-sided Schur in einsums) on one rank's shard on the card, in the
+    equilibrated form: H_red, g_red and diag_full as :func:`_dist_errs`
+    scales them and the costs relative, within DIST_SYS_TOL; S_rr and inv_S
+    entry by entry, g_r over sqrt(S_f)·‖r‖ and G_rf over sqrt(S_f·D_i),
+    within DIST_LM_TOL; the same bits twice. No PyTorch call computes the
+    function: ``library_ms`` None."""
+    from .parallel import dist_ba as db
+    lam_t = torch.full((), lam, device=device)
+    rk = db.shard_reduce(x, feats, layout, cfg, lam_t)
+    rk2 = db.shard_reduce(x, feats, layout, cfg, lam_t)
+    rp = db.shard_reduce_plain(x, feats, layout, cfg, lam_t)
+    ck = db.shard_cost(x, feats, layout, cfg)
+    Df = layout.frame_dim
+    Hk, gk, dk = rk.unpack(Df)
+    Hp, gp, dp = rp.unpack(Df)
+    errs = _dist_errs(Hk, Hp, gk, gp, dk, dp, rp.cost)
+    rn = float(rp.cost.double().clamp(min=0.0) * 2.0) ** 0.5
+    sS = rp.S_rr.double().clamp(min=0.0).sqrt()
+    sD = dp.double().clamp(min=0.0).sqrt()
+    errs.update(S_rr=_eq_err(rk.S_rr, rp.S_rr, rp.S_rr.abs()),
+                inv_S=_eq_err(rk.inv_S, rp.inv_S, rp.inv_S.abs()),
+                g_r=_eq_err(rk.g_r, rp.g_r, sS * rn),
+                G_rf=_eq_err(rk.G_rf, rp.G_rf, sS[:, None] * sD[None, :]),
+                cost=_eq_err(rk.cost, rp.cost, rp.cost.abs()),
+                cost_mode=_eq_err(ck, rp.cost, rp.cost.abs()))
+    same = all(torch.equal(a, b) for a, b in (
+        (rk.pay, rk2.pay), (rk.G_rf, rk2.G_rf), (rk.inv_S, rk2.inv_S),
+        (rk.g_r, rk2.g_r), (rk.cost, rk2.cost)))
+    # rows: two a live observation (its anchor excluded), each touching 19
+    # frame columns (anchor pose, observing pose, extrinsic, td) and 20
+    # dual lanes with rho; a feature of k frames spans 6k + 7 columns
+    W = layout.W
+    anchor_col = torch.nn.functional.one_hot(feats.anchor, W).to(torch.bool)
+    live = (feats.obs_valid > 0) & ~anchor_col & (feats.track_valid[:, None] > 0)
+    n = live.sum(1)
+    cols = torch.where(live, 19, 0)
+    flops = _schur_flops(cols, torch.where(n > 0, 6 * (n + 1) + 7, 0),
+                         rk.inv_S != 0, torch.where(live, 20, 0), 250)
+    out = dict(max_abs_err=float((rk.pay - rp.pay).abs().max()),
+               eq_errs=errs, tol=dict(system=DIST_SYS_TOL,
+                                      landmarks=DIST_LM_TOL),
+               repeat_equal=same, features=int(feats.ray.shape[0]),
+               rows=2 * int(n.sum()), ok=same and _dist_ok(errs),
+               **bound(_nbytes(x.p, x.q, x.rho, *feats, rk.pay, rk.S_rr,
+                               rk.inv_S, rk.g_r, rk.G_rf), flops))
+    if timed:
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: db.shard_reduce(x, feats, layout, cfg, lam_t),
+            lambda: db.shard_reduce_plain(x, feats, layout, cfg, lam_t),
+            reps=10)
+        out["library_ms"] = None
+    return out
+
+
+def check_map_schur(device, p_ext, q_ext, prob, halo: int, K: int,
+                    base: int, lam: float = 1e-4, timed: bool = True) -> dict:
+    """Kernel AG against ``map_build_plain`` (compact jacfwd, the block
+    assembled by index, the wrap-and-mask scatter) on one rank's shard on
+    the card, in the equilibrated form: the payload's H, g and diag as
+    :func:`_dist_errs` scales them and its cost relative, within
+    DIST_SYS_TOL; inv_S entry by entry, g_r over sqrt(S_l)·‖r‖ and G over
+    sqrt(S_l·D) of its global column, within DIST_LM_TOL (G only where the
+    landmark is eliminated and the column lies inside K·6: elsewhere the
+    back-substitution multiplies it by 0); the same bits twice.
+    ``library_ms`` None."""
+    from .parallel import dist_mapping as dm
+    lam_t = torch.full((), lam, device=device)
+    bk = dm.map_build(p_ext, q_ext, prob, halo, K, base, lam_t)
+    bk2 = dm.map_build(p_ext, q_ext, prob, halo, K, base, lam_t)
+    bp = dm.map_build_plain(p_ext, q_ext, prob, halo, K, base, lam_t)
+    K6 = K * 6
+    cost_k, cost_p = bk.pay[:, K6 + 2].sum(), bp.pay[:, K6 + 2].sum()
+    errs = _dist_errs(bk.pay[:, :K6], bp.pay[:, :K6], bk.pay[:, K6],
+                      bp.pay[:, K6], bk.pay[:, K6 + 1], bp.pay[:, K6 + 1],
+                      cost_p)
+    rn = float(cost_p.double().clamp(min=0.0) * 2.0) ** 0.5
+    inv = bp.inv_S.double()
+    S = torch.where(inv > 0, 1.0 / (inv.clamp(min=1e-300) * (1.0 + lam)),
+                    torch.full_like(inv, 1e-8))       # S ≤ 1e-8 where 0
+    N, Ho = bk.inv_S.numel(), halo + 1
+    C = 6 * Ho
+    # landmark l (anchored at local keyframe l // Lk): compact column c is
+    # global column 6·(base + l // Lk) + c
+    gcol = (6 * (base + torch.arange(N, device=device)[:, None]
+                 // prob.lm_rho.shape[1])
+            + torch.arange(C, device=device)[None, :])
+    used = (inv.reshape(N, 1) > 0) & (gcol < K6)
+    D = bp.pay[:, K6 + 1].double().clamp(min=0.0)
+    errs.update(cost=_eq_err(cost_k, cost_p, cost_p.abs()),
+                inv_S=_eq_err(bk.inv_S, bp.inv_S, bp.inv_S.abs()),
+                g_r=_eq_err(bk.g_r, bp.g_r, S.sqrt() * rn),
+                G=_eq_err(bk.G_c.reshape(N, C)[used],
+                          bp.G_c.reshape(N, C)[used],
+                          (S.reshape(N, 1).sqrt()
+                           * D[gcol.clamp(max=K6 - 1)].sqrt())[used]))
+    same = all(torch.equal(a, b) for a, b in zip(bk, bk2))
+    # per landmark: observation 0 (its anchor) touches the anchor's 6
+    # columns with 7 lanes carrying a tangent, observation d ≥ 1 the
+    # anchor's and keyframe d's 12 with 13; the landmark spans 6·(1 + its
+    # live observers) columns
+    live = prob.obs_valid.reshape(N, Ho) > 0
+    per = torch.tensor([6] + [12] * halo, device=live.device)
+    cols = torch.where(live, per, 0)
+    n1 = live[:, 1:].sum(1)
+    flops = _schur_flops(cols, torch.where(live.any(1), 6 * (1 + n1), 0),
+                         bk.inv_S.reshape(N) != 0,
+                         torch.where(live, per + 1, 0), 200)
+    out = dict(max_abs_err=float((bk.pay - bp.pay).abs().max()),
+               eq_errs=errs, tol=dict(system=DIST_SYS_TOL,
+                                      landmarks=DIST_LM_TOL),
+               repeat_equal=same, landmarks=N, ok=same and _dist_ok(errs),
+               **bound(_nbytes(p_ext, q_ext, *prob, bk.pay, bk.inv_S, bk.g_r,
+                               bk.G_c), flops))
+    if timed:
+        out["ms"], out["plain_ms"] = _time_pair(
+            lambda: dm.map_build(p_ext, q_ext, prob, halo, K, base, lam_t),
+            lambda: dm.map_build_plain(p_ext, q_ext, prob, halo, K, base,
+                                       lam_t), reps=10)
         out["library_ms"] = None
     return out

@@ -17,7 +17,8 @@ dynamic mask's previous frame); :func:`pose_graph_from_jax` a JAX
 ``PoseGraph``, :func:`global_fusion_from_jax` a JAX ``GlobalFusion`` and
 :func:`occupancy_from_jax` a JAX ``OccupancyGrid``'s log-odds alone;
 :func:`mesher_from_jax` a JAX ``OnlineMesher`` (the store by
-:func:`mesh_map_from_jax`, the host registry, the dirty set, the counters).
+:func:`mesh_map_from_jax`, the host registry, the dirty set, the counters);
+:func:`mapping_problem_from_jax` a JAX ``MappingProblem``.
 """
 
 from __future__ import annotations
@@ -336,3 +337,14 @@ def _tree_numpy(tree):
     if tree is None:
         return None
     return np.asarray(tree)
+
+
+def mapping_problem_from_jax(prob, device):
+    """A JAX ``parallel.dist_mapping.MappingProblem`` (arrays or numpy
+    leaves) → the port's, on ``device``. A sharded window needs no helper:
+    :func:`to_torch` carries the whole ``WindowState`` and
+    ``VioMeasurements``, and ``parallel.dist_ba.shard_window`` cuts a
+    rank's block from them."""
+    from .parallel.dist_mapping import MappingProblem
+    return MappingProblem(*(_leaf_to_torch(np.asarray(a), device)
+                            for a in prob))

@@ -6,6 +6,10 @@
 //   Hm = H·fm fmᵀ,  A = Hm + diag(lam·max(diag Hm, 1e-8) + 1 − fm),
 //   d = sqrt(max(diag A, 1e-12)),  As = D⁻¹ A D⁻¹ = L Lᵀ (f32),
 //   dx = −D⁻¹ L⁻ᵀ L⁻¹ (D⁻¹ g·fm), then dx·fm.
+// With an explicit damping diagonal dd (the distributed solves of
+// parallel/dist_ba.py:209-219 and dist_mapping.py:150-161 damp with the
+// unreduced diagonal, not diag Hm) lam·max(dd, 1e-8) takes the place of
+// lam·max(diag Hm, 1e-8); dd = nullptr is the form above, bit for bit.
 // A pivot that is not positive (or NaN) gives an all-NaN dx, as
 // `cholesky_ex`'s info does in the plain version: the LM rejects the step
 // without a host read. Every sum runs in a fixed order and nothing is
@@ -61,24 +65,29 @@ __device__ __forceinline__ float hm_entry(const float* H, const float* fm, int n
 }
 
 __device__ __forceinline__ float damped_diag(const float* H, const float* fm,
-                                             float lam, int n, int i) {
+                                             const float* dd, float lam, int n,
+                                             int i) {
   const float hm = hm_entry(H, fm, n, i, i);
-  return __fadd_rn(hm, __fadd_rn(__fmul_rn(lam, fmaxf(hm, 1e-8f)),
+  const float dm = dd ? dd[i] : hm;
+  return __fadd_rn(hm, __fadd_rn(__fmul_rn(lam, fmaxf(dm, 1e-8f)),
                                  __fsub_rn(1.f, fm[i])));
 }
 
 __device__ __forceinline__ float dinv_of(const float* H, const float* fm,
-                                         float lam, int n, int i) {
-  return __fdiv_rn(1.f, __fsqrt_rn(fmaxf(damped_diag(H, fm, lam, n, i), 1e-12f)));
+                                         const float* dd, float lam, int n,
+                                         int i) {
+  return __fdiv_rn(1.f, __fsqrt_rn(fmaxf(damped_diag(H, fm, dd, lam, n, i),
+                                         1e-12f)));
 }
 
 // the prologue: dv = D⁻¹ (thread-strided), then b = D⁻¹ g·fm and the lower
 // triangle of As, a warp a row (rows warp0, warp0 + nw, ...), into A
 __device__ void scale_system(const float* H, const float* g, const float* fm,
-                             float lam, int n, float* dv, float* b, float* A,
-                             int warp0, int nw, bool write_b) {
+                             const float* dd, float lam, int n, float* dv,
+                             float* b, float* A, int warp0, int nw, bool write_b) {
   const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dv[i] = dinv_of(H, fm, lam, n, i);
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    dv[i] = dinv_of(H, fm, dd, lam, n, i);
   __syncthreads();
   if (write_b)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
@@ -86,7 +95,8 @@ __device__ void scale_system(const float* H, const float* g, const float* fm,
   for (int i = warp0; i < n; i += nw) {
     const float di = dv[i];
     for (int j = lane; j <= i; j += 32) {
-      const float a = i == j ? damped_diag(H, fm, lam, n, i) : hm_entry(H, fm, n, i, j);
+      const float a = i == j ? damped_diag(H, fm, dd, lam, n, i)
+                             : hm_entry(H, fm, n, i, j);
       A[(size_t)i * n + j] = __fmul_rn(__fmul_rn(a, di), dv[j]);
     }
   }
@@ -201,7 +211,8 @@ __device__ void write_dx(const float* dv, const float* fm, const float* b, int n
 __global__ void __launch_bounds__(kCtaThreads)
 chol_cta_kernel(const float* __restrict__ H, const float* __restrict__ g,
                 const float* __restrict__ lam_p, const float* __restrict__ fm,
-                int n, float* __restrict__ A, float* __restrict__ dx) {
+                const float* __restrict__ dd, int n, float* __restrict__ A,
+                float* __restrict__ dx) {
   extern __shared__ float smem[];
   float* P = smem;
   float* b = smem + (size_t)n * LD;
@@ -210,7 +221,7 @@ chol_cta_kernel(const float* __restrict__ H, const float* __restrict__ g,
   const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31, warp = tid >> 5;
   const float lam = *lam_p;
   if (tid == 0) fail = 0;
-  scale_system(H, g, fm, lam, n, dv, b, A, warp, nt / 32, true);
+  scale_system(H, g, fm, dd, lam, n, dv, b, A, warp, nt / 32, true);
   __syncthreads();
   for (int k0 = 0; k0 < n; k0 += NB) {
     const int kb = min(NB, n - k0), m = n - k0;
@@ -291,8 +302,8 @@ chol_cta_kernel(const float* __restrict__ H, const float* __restrict__ g,
 __global__ void __launch_bounds__(kCoopThreads)
 chol_coop_kernel(const float* __restrict__ H, const float* __restrict__ g,
                  const float* __restrict__ lam_p, const float* __restrict__ fm,
-                 int n, float* __restrict__ A, float* __restrict__ bg,
-                 float* __restrict__ dx) {
+                 const float* __restrict__ dd, int n, float* __restrict__ A,
+                 float* __restrict__ bg, float* __restrict__ dx) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float Dg[NB * LD], Ti[NB * LD], Tj[NB * LD];
   __shared__ float bs[kCoopMaxN];
@@ -304,8 +315,8 @@ chol_coop_kernel(const float* __restrict__ H, const float* __restrict__ g,
   const float lam = *lam_p;
   if (tid == 0) fail = 0;
   // every CTA holds all of D⁻¹; CTA 0 writes b
-  scale_system(H, g, fm, lam, n, dv, bg, A, cta * (nt / 32) + warp, G * (nt / 32),
-               cta == 0);
+  scale_system(H, g, fm, dd, lam, n, dv, bg, A, cta * (nt / 32) + warp,
+               G * (nt / 32), cta == 0);
   grid.sync();
   for (int k0 = 0; k0 < n; k0 += NB) {
     const int kb = min(NB, n - k0);
@@ -413,11 +424,12 @@ int coop_grid(int* G) {
 
 }  // namespace
 
-// H [n, n] f32, g [n], lam [1] (device), fm [n] (1 free, 0 pinned);
-// A [n, n] and b [n] f32 scratch; dx [n] out. n ≤ 4096.
+// H [n, n] f32, g [n], lam [1] (device), fm [n] (1 free, 0 pinned), dd [n]
+// the damping diagonal or nullptr (diag Hm); A [n, n] and b [n] f32 scratch;
+// dx [n] out. n ≤ 4096.
 extern "C" int gf2_chol_solve(const float* H, const float* g, const float* lam,
-                              const float* fm, int n, float* A, float* b, float* dx,
-                              void* stream) {
+                              const float* fm, const float* dd, int n, float* A,
+                              float* b, float* dx, void* stream) {
   if (n < 1 || n > kCoopMaxN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= kCtaMaxN) {
@@ -430,13 +442,13 @@ extern "C" int gf2_chol_solve(const float* H, const float* g, const float* lam,
       if (e != cudaSuccess) return (int)e;
       attr = true;
     }
-    chol_cta_kernel<<<1, kCtaThreads, shmem, s>>>(H, g, lam, fm, n, A, dx);
+    chol_cta_kernel<<<1, kCtaThreads, shmem, s>>>(H, g, lam, fm, dd, n, A, dx);
     return (int)cudaGetLastError();
   }
   int G = 0;
   const int err = coop_grid(&G);
   if (err) return err;
-  void* args[] = {(void*)&H, (void*)&g, (void*)&lam, (void*)&fm,
+  void* args[] = {(void*)&H, (void*)&g, (void*)&lam, (void*)&fm, (void*)&dd,
                   (void*)&n, (void*)&A, (void*)&b, (void*)&dx};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)chol_coop_kernel, dim3(G), dim3(kCoopThreads), args, 0, s);

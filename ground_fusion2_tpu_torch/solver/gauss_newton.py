@@ -41,13 +41,15 @@ def normal_equations(residual_fn: Callable, delta: torch.Tensor):
     return Jw.T @ Jw, Jw.T @ rw, 0.5 * torch.sum(rw * rw)
 
 
-def _solve_damped_plain(H, g, lam, free_mask):
+def _solve_damped_plain(H, g, lam, free_mask, damp_diag=None):
     """Solve (H + lam·diag(H) + I_fixed) dx = −g, Jacobi-equilibrated
-    Cholesky; fixed dims pinned. A failed factorization gives NaN, as
+    Cholesky; fixed dims pinned. ``damp_diag`` replaces diag(H) in the
+    damping term (the distributed solves damp with the unreduced diagonal,
+    ``parallel/dist_ba.py``). A failed factorization gives NaN, as
     ``jax.scipy.linalg.cho_factor`` does, so the step is rejected."""
     fm = free_mask.to(H.dtype)
     Hm = H * fm[:, None] * fm[None, :]
-    diag = torch.diagonal(Hm)
+    diag = torch.diagonal(Hm) if damp_diag is None else damp_diag
     damped = Hm + torch.diag(lam * torch.clamp(diag, min=1e-8) + (1.0 - fm))
     d = torch.sqrt(torch.clamp(torch.diagonal(damped), min=1e-12))
     d_inv = 1.0 / d
@@ -58,28 +60,32 @@ def _solve_damped_plain(H, g, lam, free_mask):
     return dx * fm
 
 
-def _solve_damped(H, g, lam, free_mask):
+def _solve_damped(H, g, lam, free_mask, damp_diag=None):
     """:func:`_solve_damped_plain`, by kernel W on the card (one launch:
     the masking, damping and equilibration, the f32 Cholesky, both
     triangular solves and the unscaling; NaN where a pivot fails)."""
     if H.is_cuda:
-        return _solve_damped_cuda(H, g, lam, free_mask)
-    return _solve_damped_plain(H, g, lam, free_mask)
+        return _solve_damped_cuda(H, g, lam, free_mask, damp_diag)
+    return _solve_damped_plain(H, g, lam, free_mask, damp_diag)
 
 
-def _solve_damped_cuda(H, g, lam, free_mask):
+def _solve_damped_cuda(H, g, lam, free_mask, damp_diag=None):
     n = H.shape[0]
     ts = [t.contiguous() for t in (H, g, lam.reshape(1),
                                    free_mask.to(H.dtype))]
+    if damp_diag is not None:
+        ts.append(damp_diag.contiguous())
     if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
         raise ValueError("chol_solve kernel takes float32 CUDA tensors")
     A = torch.empty((n, n), device=H.device)
     b = torch.empty((n,), device=H.device)
     dx = torch.empty((n,), device=H.device)
     P = ctypes.c_void_p
+    dd = P(ts[4].data_ptr()) if damp_diag is not None else P(None)
     err = _kernels.library().gf2_chol_solve(
-        *[P(t.data_ptr()) for t in ts], n, P(A.data_ptr()), P(b.data_ptr()),
-        P(dx.data_ptr()), P(torch.cuda.current_stream(H.device).cuda_stream))
+        *[P(t.data_ptr()) for t in ts[:4]], dd, n, P(A.data_ptr()),
+        P(b.data_ptr()), P(dx.data_ptr()),
+        P(torch.cuda.current_stream(H.device).cuda_stream))
     _kernels.check(err, "gf2_chol_solve")
     _kernels.count("chol_solve")
     return dx
@@ -114,8 +120,11 @@ def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
 def schur_reduce(H, g, keep: int):
     """Eliminate the trailing block: H' = Hkk − Hkl Hll⁻¹ Hlk,
     g' = gk − Hkl Hll⁻¹ gl (Hll regularized by 1e-8 I). No path of the
-    port calls it (the distributed bundle adjustment that does is not
-    ported), so it stays on ``torch.linalg``."""
+    port calls it: the distributed bundle adjustments
+    (``parallel/dist_ba.py``, ``dist_mapping.py``) eliminate their
+    landmarks one rank-1 block at a time in kernels AF and AG, as the JAX
+    package does; it stays on ``torch.linalg`` as the JAX function's
+    counterpart."""
     Hkk, Hkl, Hll = H[:keep, :keep], H[:keep, keep:], H[keep:, keep:]
     gk, gl = g[:keep], g[keep:]
     Hll = Hll + torch.eye(Hll.shape[0], dtype=H.dtype, device=H.device) * 1e-8

@@ -6,8 +6,10 @@ loop-closure kernels M–O, the GNSS rows P, the global graph Q, the
 dynamic mask R, the window cost S, the feature-window stages T–V, the
 damped Cholesky W, the eigensolver X, the small solves Y, the occupancy
 grid Z, the mesh's insert pass AA, texturing AB and retriangulation AC on a
-store filled from a synthetic room cloud, and O's and Q's cost-only modes),
-and C, L, O, P, Q, S–Y and AA–AC giving the same bits twice.
+store filled from a synthetic room cloud, O's and Q's cost-only modes, the
+line path's AD and AE on a room frame pair, the distributed solves' AF and
+AG and W's explicit-diagonal mode), and C, L, O, P, Q, S–Y and AA–AG
+giving the same bits twice.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -586,6 +588,99 @@ def test_mesh_delaunay_kernel_matches_plain(dev, mesh_case):
     assert r["ok"] and r["triangles"] > 200, r
 
 
+@pytest.fixture(scope="module")
+def line_pair(dev, frames):
+    """Frames 0 and 1 of the room drive (÷ 255) on the card, their 3-level
+    pyramids and frame 0's segments, as the line path takes them."""
+    from ground_fusion2_tpu_torch.frontend import klt, lines
+    g = [torch.as_tensor(f["gray"], device=dev).float() / 255.0
+         for f in frames]
+    segs, valid = lines.detect_lines(g[0])
+    return g, klt.build_pyramid(g[0], 3), klt.build_pyramid(g[1], 3), segs, \
+        valid
+
+
+def test_line_detect_kernel_matches_plain(dev, line_pair):
+    """Kernel AD on a 640×480 frame: thresholds bit for bit, flags equal
+    (or named within the band), endpoints within tolerance, twice the same
+    bits."""
+    r = checks.check_line_detect(dev, line_pair[0][0], timed=False)
+    assert r["ok"] and r["valid"] > 20, r
+
+
+def test_line_refit_kernel_matches_plain(dev, line_pair):
+    """Kernel AE's sample mode bit for bit, B at the line path's arguments,
+    the refit's flags and segments; twice the same bits."""
+    _, p0, p1, segs, valid = line_pair
+    r = checks.check_line_refit(dev, p0, p1, segs, valid, timed=False)
+    assert r["ok"] and r["valid"] > 20 and r["klt"]["tracked"] > 100, r
+
+
+def test_track_lines_launches_ae_and_b(dev, line_pair):
+    from ground_fusion2_tpu_torch.frontend import lines
+    _, p0, p1, segs, valid = line_pair
+    _kernels.launches.clear()
+    s1, v1 = lines.track_lines(p0, p1, segs, valid)
+    assert _kernels.launches["line_refit"] == 2
+    assert _kernels.launches["klt"] == 1
+    assert s1.is_cuda and int(v1.sum()) > 20
+
+
+@pytest.mark.parametrize("world", [1, 2])
+def test_dist_schur_kernel_matches_plain(dev, world):
+    """Kernel AF on rank 0's shard of the F = 150 example window (the whole
+    window at world 1, half of it at 2), λ = 1e-3."""
+    from ground_fusion2_tpu_torch.config import VioConfig
+    from ground_fusion2_tpu_torch.parallel import dist_ba
+    from ground_fusion2_tpu_torch.vio.state import WindowLayout
+    x0, feats, layout, _ = checks.example_window(150, dev)
+    meas = checks.example_measurements(x0, feats, layout, dev)
+    xs, ms = dist_ba.shard_window(x0, meas, 0, world)
+    r = checks.check_dist_schur(dev, xs, ms.feats, WindowLayout(150 // world),
+                                VioConfig(num_feats=150), lam=1e-3,
+                                timed=False)
+    assert r["ok"] and r["rows"] > 500 // world, r
+
+
+@pytest.mark.parametrize("shard", [0, 1])
+def test_map_schur_kernel_matches_plain(dev, shard):
+    """Kernel AG at tools/bench_weak_scaling.py's widths (K = 64, 128
+    landmarks a keyframe, halo 3) on shard 0 of 1 and on the last of two
+    (its halo wraps past K·6 and is masked)."""
+    from ground_fusion2_tpu_torch.parallel import dist_mapping as dm
+    world = 1 + shard
+    prob, _ = dm.make_mapping_problem(64, 128, 3, seed=1, perturb=0.05)
+    prob = dm.MappingProblem(*(t.to(dev) for t in prob))
+    sh = dm.shard_problem(prob, shard, world)
+    pe, qe = dm.halo_exchange(sh.kf_p, sh.kf_q, 3, None)
+    r = checks.check_map_schur(dev, pe, qe, sh, 3, 64, shard * 64 // world,
+                               lam=2e-3, timed=False)
+    assert r["ok"] and r["landmarks"] == 8192 // world, r
+
+
+def test_chol_solve_explicit_diagonal(dev):
+    """W's explicit-diagonal mode against its twin on the mapping system
+    (K = 64: 384 dims), and diag(Hm) handed explicitly gives the default
+    mode's bits."""
+    from ground_fusion2_tpu_torch.parallel import dist_mapping as dm
+    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
+    prob, _ = dm.make_mapping_problem(64, 128, 3, seed=1, perturb=0.05)
+    prob = dm.MappingProblem(*(t.to(dev) for t in prob))
+    pe, qe = dm.halo_exchange(prob.kf_p, prob.kf_q, 3, None)
+    b = dm.map_build(pe, qe, prob, 3, 64, 0, torch.full((), 1e-4, device=dev))
+    K6 = 64 * 6
+    H, g, diag = b.pay[:, :K6], b.pay[:, K6], b.pay[:, K6 + 1]
+    free = torch.ones(K6, device=dev)
+    free[:6] = 0.0
+    r = checks.check_chol_solve(dev, H, g, free, damp_diag=diag * free,
+                                timed=False)
+    assert r["ok"] and r["explicit_diagonal"], r
+    lam = torch.full((), 1e-4, device=dev)
+    hm = torch.diagonal(H) * free * free
+    assert torch.equal(_solve_damped(H, g, lam, free),
+                       _solve_damped(H, g, lam, free, damp_diag=hm))
+
+
 def _launch(name, dev):
     from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
     if name == "chol_solve":
@@ -623,6 +718,25 @@ def _launch(name, dev):
                                  (0.0, 0.0, -1.0), cfg)
         return mi.retriangulate(mesh, torch.zeros(4, dtype=torch.int32,
                                                   device=dev), cfg)
+    if name in ("line_detect", "line_refit"):
+        from ground_fusion2_tpu_torch.frontend import lines
+        if name == "line_detect":
+            return lines.detect_lines(torch.zeros((48, 64), device=dev))
+        return lines.line_samples(torch.zeros((4, 4), device=dev),
+                                  torch.ones(4, device=dev), 8)
+    if name == "dist_schur":
+        from ground_fusion2_tpu_torch.config import VioConfig
+        from ground_fusion2_tpu_torch.parallel import dist_ba
+        x0, feats, layout, _ = checks.example_window(8, dev)
+        return dist_ba.shard_reduce(x0, feats, layout, VioConfig(num_feats=8),
+                                    torch.full((), 1e-4, device=dev))
+    if name == "map_schur":
+        from ground_fusion2_tpu_torch.parallel import dist_mapping as dm
+        prob, _ = dm.make_mapping_problem(4, 4, 2)
+        prob = dm.MappingProblem(*(t.to(dev) for t in prob))
+        pe, qe = dm.halo_exchange(prob.kf_p, prob.kf_q, 2, None)
+        return dm.map_build(pe, qe, prob, 2, 4, 0,
+                            torch.full((), 1e-4, device=dev))
     if name == "occupancy":
         from ground_fusion2_tpu_torch.mapping.occupancy import (
             GridConfig, scatter_scan)
@@ -756,7 +870,8 @@ def _launch(name, dev):
                                   "global_cost", "chol_solve", "sym_eig",
                                   "sqrt_info", "spd_inverse", "icp_solve",
                                   "degeneracy", "occupancy", "mesh_insert",
-                                  "mesh_rgb", "mesh_delaunay"])
+                                  "mesh_rgb", "mesh_delaunay", "line_detect",
+                                  "line_refit", "dist_schur", "map_schur"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

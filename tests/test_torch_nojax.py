@@ -4,8 +4,10 @@ subprocess where ``import jax`` fails, import every module of
 package's directory), track features over two small rendered frames (CLAHE,
 KLT, RANSAC, refill), take LM steps on a synthetic window through the
 projection normal equations, run a few fused LiDAR ticks, a GroundFusion
-system tick and a few keyframes through the loop closure at a tiny size. And no source of the port, nor chip_smoke.py,
-loads a file by path or names a path into the JAX package."""
+system tick, a few keyframes through the loop closure, the line path on the
+two frames and a mapping solve at a tiny size. And no source of the port,
+nor chip_smoke.py, loads a file by path or names a path into the JAX
+package."""
 
 import ast
 import re
@@ -111,6 +113,19 @@ for f in drive:
                       depth_img=f["depth"])
 gl.pg.optimize()
 assert gl.pg.n == 10 and len(gl.trajectory) == 10, gl.pg.n
+
+from ground_fusion2_tpu_torch.frontend import klt, lines
+img0 = torch.as_tensor(frames[0]["gray"]).to(torch.float32) / 255.0
+img1 = torch.as_tensor(frames[1]["gray"]).to(torch.float32) / 255.0
+segs, ok = lines.detect_lines(img0, lines.LineConfig(cell=16))
+segs1, ok1 = lines.track_lines(klt.build_pyramid(img0, 3),
+                               klt.build_pyramid(img1, 3), segs, ok,
+                               lines.LineConfig(cell=16))
+assert segs1.shape == segs.shape and bool(torch.isfinite(segs1[ok1 > 0]).all())
+from ground_fusion2_tpu_torch.parallel import dist_mapping as dm
+mprob, (gt_p, _, _) = dm.make_mapping_problem(8, 8, 2, seed=1, perturb=0.02)
+mp, _, _, mcost = dm.make_mapping_solver(None, 8, 2, 3, device="cpu")(mprob)
+assert float(mcost) < 1e-3 and float((mp - torch.as_tensor(gt_p)).abs().max()) < 0.05
 assert "jax" not in [m.split(".")[0] for m in sys.modules if sys.modules[m]]
 print("ok", int(obs.alive.sum()), float(out.cost0), float(out.cost),
       lio_out.n_corr, live)
