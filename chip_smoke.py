@@ -18,7 +18,9 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      twice) and kernel X, the float64 eigensolver, through marginalize on
      the window's MARGIN_OLD (drop 170 / keep 226) and MARGIN_SECOND_NEW
      (drop 20 / keep 226): the prior's H* and g* within 1e-9 of the eigh
-     route's, the same bits twice. Kernel S, the window's cost, at
+     route's, the same bits twice, its device ms by stage
+     (tridiagonalization, divide and conquer, back-transform; torch.profiler)
+     beside eigh's at each size. Kernel S, the window's cost, at
      delta = 0, at the damped LM step from there and at its reverse: within
      max(3× the plain route's error, 1e-6) of a float64 evaluation, the
      same bits twice, the step accepted and its reverse rejected by both
@@ -64,9 +66,10 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      every fused pose stay finite, no scan after the second be degenerate,
      the fused position error after aligning the first output stay
      < 0.06 m and the VIO's aligned ATE < 0.30 m. Over the last 3 ticks
-     torch.profiler prints the device time a tick of the port's kernels,
-     torch.linalg's and every other kernel, and the launches a tick; the
-     torch.linalg class must be empty;
+     torch.profiler prints the device time a tick of the port's kernels
+     (W's and X's summed under w_x_ms_per_tick), torch.linalg's and every
+     other kernel, and the launches a tick; the torch.linalg class must be
+     empty;
   9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
      camera configuration, PoseGraphConfig at its defaults but num_feats
      150: sim_thresh 0.88, skip_recent 50, 128 hypotheses, capacity 512,
@@ -186,8 +189,8 @@ torch.linalg function but the norms and cross, and on torch's own
 factorizations, solves and inverses (cholesky_solve, cholesky_inverse,
 inverse, lu_solve, ...): every count must be 0, each kernel W-Z replacing
 its call. Phases 4, 8, 10, 11 and 13 also fail on a non-finite
-marginalization prior (kernel X's NaN where its QL does not converge;
-phase 10 on any unconverged eigensolve).
+marginalization prior (kernel X's NaN where its secular iterations do not
+converge; phase 10 on any unconverged eigensolve).
 The last two lines are the kernels JSON (launches from phase 8's run for
 A-L and S-Y, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
@@ -382,6 +385,10 @@ def sync_site(counter):
     return show
 
 
+# kernels W and X by their __global__ names (csrc/chol_solve.cu,
+# csrc/sym_eig.cu): phase 8 prints their device ms a tick
+W_X_KERNELS = {"W": ("chol_cluster_kernel", "chol_coop_kernel", "chol_back_kernel"),
+               "X": ("tridiag_kernel", "dc_kernel", "back_kernel")}
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -744,6 +751,10 @@ def system_main_path(dev, card, frames):
         return "non-finite marginalization prior", launches, None
     r = checks.system_errors(gf.trajectory, vio, frames)
     split = device_split(prof, len(syncs_seen)) if prof is not None else {}
+    if split:
+        per = split["port_kernel_ms_per_tick"]
+        split["w_x_ms_per_tick"] = {
+            k: sum(per.get(n, 0.0) for n in names) for k, names in W_X_KERNELS.items()}
     print("system tick split over the last 3 ticks (torch.profiler, CUDA "
           f"activities; printed only): {json.dumps(split)}, host wall a tick "
           f"{[round(t, 2) for t in tick_ms[-len(syncs_seen):]]} ms (profiled "

@@ -68,8 +68,8 @@ _SIGNATURES = {
     "gf2_window_update": ([_I] + [_P] * 8 + [_I] * 2 + [_P] * 5 + [_I]
                           + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P]),
     "gf2_chol_solve": [_P] * 5 + [_I] + [_P] * 4,
-    "gf2_sym_eig_f64": [_P, _I] + [_P] * 10 + [_I, _P],
-    "gf2_sym_eig_f32": [_P, _I] + [_P] * 10 + [_I, _P],
+    "gf2_sym_eig_f64": [_P, _I] + [_P] * 4 + [_I, _P],
+    "gf2_sym_eig_f32": [_P, _I] + [_P] * 4 + [_I, _P],
     "gf2_sqrt_info": [_P, _I, _I, _I, _P, _P],
     "gf2_icp_solve": [_P, _P, _I, _F, _P, _P],
     "gf2_degeneracy": [_P, _P, _I] + [_F] * 3 + [_P] * 4,

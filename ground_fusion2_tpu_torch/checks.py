@@ -910,17 +910,15 @@ def check_small_normal(device, x0, meas, layout, delta, cfg,
                 and torch.equal(ck, c2))
     Hp, gp, cp = fac.small_normal_equations_plain(*args)
     g_scale = torch.sqrt(torch.diagonal(Hp).clamp(min=0.0) * 2.0 * cp)
-    errs = dict(H=_rel(Hk, Hp), cost=_rel(ck, cp),
+    # the kernel evaluates the cost in float64 (the plain route in float32):
+    # it is held against a float64 evaluation of the same rows
+    c64 = fac.small_normal_equations_plain(*_f64(args))[2]
+    plain64 = _rel(cp.double(), c64)
+    errs = dict(H=_rel(Hk, Hp), cost_rel_to_f64=_rel(ck.double(), c64),
                 g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
-    tols = dict(H=SMALL_REL_TOL, g=PROJ_G_TOL, cost=SMALL_REL_TOL)
-    extra = {}
+    tols = dict(H=SMALL_REL_TOL, g=PROJ_G_TOL, cost_rel_to_f64=SMALL_REL_TOL)
+    extra = dict(cost_vs_plain=_rel(ck, cp), plain_cost_rel_to_f64=plain64)
     if cfg.use_gnss:
-        c64 = fac.small_normal_equations_plain(*_f64(args))[2]
-        plain64 = _rel(cp.double(), c64)
-        extra = dict(cost_vs_plain=errs.pop("cost"),
-                     plain_cost_rel_to_f64=plain64)
-        errs["cost_rel_to_f64"] = _rel(ck.double(), c64)
-        tols.pop("cost")
         tols["cost_rel_to_f64"] = max(P_COST_VS_PLAIN * plain64, SMALL_REL_TOL)
     # inputs: the preintegrations, square-root informations, the GNSS table
     # and the prior; H and g out. Operations: for each live instance, a dual
@@ -962,8 +960,11 @@ F64_FLOPS_PER_S = 67e12   # H100 SXM, FP64 tensor core (NVIDIA data sheet)
 # H100)
 CHOL_VS_PLAIN = 10.0
 CHOL_REL_FLOOR = 1e-5
-# kernel X: the prior's invariants H* = sqrt_Jᵀ sqrt_J and g* = sqrt_Jᵀ r0
-# (both in float64) relative to their max entry, against the twin's
+# kernel X (a divide-and-conquer eigensolver: its eigenvectors within a
+# repeated or deflated eigenvalue are another basis of the space than
+# eigh's, so the prior is held through invariants, not V): the prior's
+# H* = sqrt_Jᵀ sqrt_J and g* = sqrt_Jᵀ r0 (both in float64) relative to
+# their max entry, against the twin's
 EIG_INV_TOL = 1e-9
 EIG_NEAR = (1e-7, 1e-5)   # eigenvalues within a factor 10 of the 1e-6 gates
 # kernel Y: against a float64 evaluation, within max(this, 3× the plain
@@ -1059,6 +1060,38 @@ def _swapped(module, name: str, fn):
         setattr(module, name, saved)
 
 
+# kernel X's three launches (csrc/sym_eig.cu), by stage
+X_STAGES = (("tridiagonalization", "tridiag_kernel"),
+            ("divide_and_conquer", "dc_kernel"),
+            ("back_transform", "back_kernel"))
+
+
+def sym_eig_stages_ms(A, reps: int = 10) -> dict:
+    """Kernel X's device ms a call on ``A`` by stage, from a torch.profiler
+    trace of ``reps`` calls (CUDA activity, the kernels by name); empty for
+    a CPU tensor (the plain eigh has no stages)."""
+    from .solver import marginalize as mg
+    if not A.is_cuda:
+        return {}
+    mg.sym_eig(A)
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(reps):
+            mg.sym_eig(A)
+        torch.cuda.synchronize()
+    us = dict.fromkeys((k for k, _ in X_STAGES), 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for stage, name in X_STAGES:
+            if f"::{name}<" in e.name:
+                us[stage] += e.time_range.elapsed_us()
+    return {k: v / 1e3 / reps for k, v in us.items()}
+
+
 def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
     """Kernel X against ``torch.linalg.eigh`` through ``marginalize`` in
     float64 on each elimination of ``systems`` (name -> (H, g, keep,
@@ -1066,7 +1099,9 @@ def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
     the eigenvalues and the kernel's residual ‖V diag(w) Vᵀ − A‖ and
     ‖VᵀV − I‖ on each eigensolver input, and how many eigenvalues lie within
     a factor 10 of the 1e-6 gates. Timed per input size: the kernel,
-    ``eigh`` (plain = library)."""
+    ``eigh`` (plain = library), and the kernel's device ms by stage (its
+    tridiagonalization, divide and conquer and back-transform launches,
+    :func:`sym_eig_stages_ms`)."""
     from .solver import marginalize as mg
     out, sizes, ok = {}, {}, True
     for name, (H, g, keep, drop) in systems.items():
@@ -1106,7 +1141,8 @@ def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
                 t_f = 9 * n ** 3 / F64_FLOPS_PER_S * 1e3
                 sizes[n] = dict(ms=ms, plain_ms=lib, library_ms=lib,
                                 bound_ms=max(t_b, t_f),
-                                bound_by="bytes" if t_b >= t_f else "operations")
+                                bound_by="bytes" if t_b >= t_f else "operations",
+                                stages_ms=sym_eig_stages_ms(A))
         good = same and all(v <= EIG_INV_TOL for v in errs.values())
         ok &= good
         out[name] = dict(rel_err=errs, tol=EIG_INV_TOL, repeat_equal=same,
@@ -1117,6 +1153,55 @@ def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
         n = max(sizes)      # the MARGIN_OLD kept block: the largest
         res.update(sizes[n], sizes=sizes, timed_n=n)
     return res
+
+
+EIG_CASES = ("diagonal", "identity_plus_rank_one", "zero_rows", "graded",
+             "wilkinson", "tiny_entries")
+
+
+def eig_case(kind: str, n: int, seed: int = 0) -> np.ndarray:
+    """A symmetric float64 n×n that is hard for a divide-and-conquer
+    eigensolver: ``diagonal`` (every off-diagonal 0, repeated values),
+    ``identity_plus_rank_one`` (I + uuᵀ: n − 1 equal eigenvalues),
+    ``zero_rows`` (a random symmetric matrix with every fifth row and column
+    exactly 0, as the pinned extrinsic and GNSS dims give), ``graded``
+    (eigenvalues 1e-10..1e2 in a random basis), ``wilkinson`` (Wilkinson's
+    W⁺ in a random basis: close eigenvalue pairs), ``tiny_entries`` (a
+    random symmetric matrix whose every seventh row and column is 1e-160
+    off the diagonal, as a camera window's Schur block gave: a column norm
+    that underflows when squared)."""
+    rng = np.random.default_rng(seed + 1000 * n)
+
+    def basis():
+        q, r = np.linalg.qr(rng.standard_normal((n, n)))
+        return q * np.sign(np.diag(r))[None, :]
+    if kind == "diagonal":
+        return np.diag(rng.integers(-3, 4, n) * 0.5)
+    if kind == "identity_plus_rank_one":
+        u = rng.standard_normal(n) / np.sqrt(n)
+        return np.eye(n) + np.outer(u, u)
+    if kind == "zero_rows":
+        a = rng.standard_normal((n, n))
+        a = a + a.T
+        a[::5], a[:, ::5] = 0.0, 0.0
+        return a
+    if kind == "graded":
+        q = basis()
+        return (q * np.logspace(-10, 2, n)[None, :]) @ q.T
+    if kind == "tiny_entries":
+        a = rng.standard_normal((n, n))
+        a = a + a.T
+        d = np.diag(a).copy()
+        a[::7] *= 1e-160
+        a[:, ::7] *= 1e-160
+        np.fill_diagonal(a, d)
+        return a
+    if kind == "wilkinson":
+        q = basis()
+        t = np.diag(np.abs(np.arange(n) - (n - 1) / 2.0))
+        t += np.diag(np.ones(n - 1), 1) + np.diag(np.ones(n - 1), -1)
+        return q @ t @ q.T
+    raise ValueError(kind)
 
 
 def sqrt_info_inputs(fv):

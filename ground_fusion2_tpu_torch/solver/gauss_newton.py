@@ -20,6 +20,10 @@ import torch
 
 from .. import _kernels
 
+# kernel W's cluster mode (the matrix in 8 CTAs' shared memory) up to this
+# size, its cooperative mode (the matrix in L2) above; csrc/chol_solve.cu
+CHOL_CLUSTER_MAX_N = 512
+
 
 class LMResult(NamedTuple):
     delta: torch.Tensor
@@ -61,9 +65,10 @@ def _solve_damped_plain(H, g, lam, free_mask, damp_diag=None):
 
 
 def _solve_damped(H, g, lam, free_mask, damp_diag=None):
-    """:func:`_solve_damped_plain`, by kernel W on the card (one launch:
-    the masking, damping and equilibration, the f32 Cholesky, both
-    triangular solves and the unscaling; NaN where a pivot fails)."""
+    """:func:`_solve_damped_plain`, by kernel W on the card (the masking,
+    damping and equilibration, the f32 Cholesky, both triangular solves and
+    the unscaling: one cluster launch up to 512 dims, a cooperative launch
+    and the backward solve's above; NaN where a pivot fails)."""
     if H.is_cuda:
         return _solve_damped_cuda(H, g, lam, free_mask, damp_diag)
     return _solve_damped_plain(H, g, lam, free_mask, damp_diag)
@@ -77,14 +82,17 @@ def _solve_damped_cuda(H, g, lam, free_mask, damp_diag=None):
         ts.append(damp_diag.contiguous())
     if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
         raise ValueError("chol_solve kernel takes float32 CUDA tensors")
-    A = torch.empty((n, n), device=H.device)
-    b = torch.empty((n,), device=H.device)
     dx = torch.empty((n,), device=H.device)
     P = ctypes.c_void_p
+    A = b = P(None)          # the cluster mode (n <= 512) keeps all on chip
+    if n > CHOL_CLUSTER_MAX_N:
+        np_ = -(-n // 32) * 32
+        scratch = (torch.empty((np_, np_), device=H.device),
+                   torch.empty((2 * np_ + 1,), device=H.device))
+        A, b = (P(t.data_ptr()) for t in scratch)
     dd = P(ts[4].data_ptr()) if damp_diag is not None else P(None)
     err = _kernels.library().gf2_chol_solve(
-        *[P(t.data_ptr()) for t in ts[:4]], dd, n, P(A.data_ptr()),
-        P(b.data_ptr()), P(dx.data_ptr()),
+        *[P(t.data_ptr()) for t in ts[:4]], dd, n, A, b, P(dx.data_ptr()),
         P(torch.cuda.current_stream(H.device).cuda_stream))
     _kernels.check(err, "gf2_chol_solve")
     _kernels.count("chol_solve")

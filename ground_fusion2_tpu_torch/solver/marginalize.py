@@ -50,33 +50,35 @@ def sym_eig_plain(A: torch.Tensor):
 
 def sym_eig(A: torch.Tensor):
     """:func:`sym_eig_plain`, by kernel X on the card (float64 or float32;
-    no host check of convergence: where an eigenvalue is still unconverged
-    after 30 QL sweeps, every w and V is NaN, where the plain eigh raises).
-    Within a repeated eigenvalue the kernel's eigenvectors are another basis
-    of the same space than torch's."""
+    divide and conquer, no host check of convergence: where a secular root
+    is still unconverged after 30 steps, or the input is not finite, every
+    w and V is NaN, where the plain eigh raises). Within a repeated
+    eigenvalue the kernel's eigenvectors are another basis of the same
+    space than torch's."""
     if A.is_cuda:
         return _sym_eig_cuda(A)
     return sym_eig_plain(A)
 
 
-def _sym_eig_cuda(A, max_sweeps: int = 30):
+def _sym_eig_cuda(A, max_iters: int = 30):
     n = A.shape[0]
     if A.dtype not in (torch.float64, torch.float32) or A.shape != (n, n):
         raise ValueError("sym_eig kernel takes a square float64 or float32 "
                          "CUDA matrix")
     A = A.contiguous()
     dev, dt = A.device, A.dtype
-    new = lambda *shape, dtype=dt: torch.empty(shape, dtype=dtype, device=dev)
-    n_log = 15 * n * n + n      # ≤ 30 sweeps of ≤ n − l rotations for each l
-    V, w = new(n, n), new(n)
-    scratch = (new(n, n), V, w, new(n), new(n), new(n), new(n_log),
-               new(n_log), new(n_log, dtype=torch.int32),
-               new(1, dtype=torch.int32))
+    V = torch.empty((n, n), dtype=dt, device=dev)
+    w = torch.empty((n,), dtype=dt, device=dev)
+    # csrc/sym_eig.cu: the packed triangle (the reflectors), two n×n blocks
+    # (the merges' ping-pong partner of V, and W), 14 vectors, the scale
+    work = torch.empty((n * (n + 1) // 2 + 2 * n * n + 14 * n + 1,),
+                       dtype=dt, device=dev)
+    iwork = torch.empty((9 * n + 1,), dtype=torch.int32, device=dev)
     fn = (_kernels.library().gf2_sym_eig_f64 if dt == torch.float64
           else _kernels.library().gf2_sym_eig_f32)
     P = ctypes.c_void_p
-    err = fn(P(A.data_ptr()), n, *[P(t.data_ptr()) for t in scratch],
-             max_sweeps, P(torch.cuda.current_stream(dev).cuda_stream))
+    err = fn(P(A.data_ptr()), n, *[P(t.data_ptr()) for t in (V, w, work, iwork)],
+             max_iters, P(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_sym_eig")
     _kernels.count("sym_eig")
     return w, V
