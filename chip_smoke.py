@@ -67,9 +67,9 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      the fused position error after aligning the first output stay
      < 0.06 m and the VIO's aligned ATE < 0.30 m. Over the last 3 ticks
      torch.profiler prints the device time a tick of the port's kernels
-     (W's and X's summed under w_x_ms_per_tick), torch.linalg's and every
-     other kernel, and the launches a tick; the torch.linalg class must be
-     empty;
+     (F's, C's, W's and X's summed under by_kernel_ms_per_tick),
+     torch.linalg's and every other kernel, and the launches a tick; the
+     torch.linalg class must be empty;
   9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
      camera configuration, PoseGraphConfig at its defaults but num_feats
      150: sim_thresh 0.88, skip_recent 50, 128 hypotheses, capacity 512,
@@ -191,6 +191,16 @@ inverse, lu_solve, ...): every count must be 0, each kernel W-Z replacing
 its call. Phases 4, 8, 10, 11 and 13 also fail on a non-finite
 marginalization prior (kernel X's NaN where its secular iterations do not
 converge; phase 10 on any unconverged eigensolve).
+Every timed check reports the host-inclusive call ms (CUDA events around
+one call) and the device ms a call with the launches a call
+(checks.device_ms: torch.profiler's CUDA activities of 20 warm calls), the
+kernel's and, where one PyTorch call computes the same function, that
+call's, measured in turns (kernel, library, library, kernel). Phase 3
+prints kernel C's device ms and launches a call; phase 6 kernel F's beside
+torch.sort(stable=True)'s at each of the main path's sorts (the map's
+codes, subcells and squared distances at 135,168 keys, the recenter's
+131,072, a mesh-sized 69,632, the keypoints' hash codes and flags); phase
+14 F's on the mesh's own 69,632 codes.
 The last two lines are the kernels JSON (launches from phase 8's run for
 A-L and S-Y, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
@@ -385,10 +395,14 @@ def sync_site(counter):
     return show
 
 
-# kernels W and X by their __global__ names (csrc/chol_solve.cu,
-# csrc/sym_eig.cu): phase 8 prints their device ms a tick
-W_X_KERNELS = {"W": ("chol_cluster_kernel", "chol_coop_kernel", "chol_back_kernel"),
-               "X": ("tridiag_kernel", "dc_kernel", "back_kernel")}
+# kernels F, C, W and X by their __global__ names (csrc/radix_sort.cu,
+# proj_normal.cu, chol_solve.cu, sym_eig.cu): phase 8 prints their device
+# ms a tick
+KERNEL_GROUPS = {
+    "F": ("radix_kernel",),
+    "C": ("proj_feature_kernel", "proj_reduce_kernel"),
+    "W": ("chol_cluster_kernel", "chol_coop_kernel", "chol_back_kernel"),
+    "X": ("tridiag_kernel", "dc_kernel", "back_kernel")}
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -753,8 +767,9 @@ def system_main_path(dev, card, frames):
     split = device_split(prof, len(syncs_seen)) if prof is not None else {}
     if split:
         per = split["port_kernel_ms_per_tick"]
-        split["w_x_ms_per_tick"] = {
-            k: sum(per.get(n, 0.0) for n in names) for k, names in W_X_KERNELS.items()}
+        split["by_kernel_ms_per_tick"] = {
+            k: sum(per.get(n, 0.0) for n in names)
+            for k, names in KERNEL_GROUPS.items()}
     print("system tick split over the last 3 ticks (torch.profiler, CUDA "
           f"activities; printed only): {json.dumps(split)}, host wall a tick "
           f"{[round(t, 2) for t in tick_ms[-len(syncs_seen):]]} ms (profiled "
@@ -1629,6 +1644,11 @@ def main() -> int:
     }
     if report(res):
         return 1
+    c = res["proj_normal"]
+    print(f"kernel C (proj_normal) at F = 150, D = {c['dim']}: device ms a "
+          f"call {c['device_ms']:.4f}, launches a call "
+          f"{c['launches_per_call']:g} (torch.profiler, every CUDA activity; "
+          f"host-inclusive call ms {c['ms']:.4f}) | {card}", flush=True)
     from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
     H, g, _ = window_normal_equations(x0, meas, layout, vcfg, delta)
     # W on the window's damped step, X on its two eliminations
@@ -1696,6 +1716,7 @@ def main() -> int:
     if err or lin:
         return fail(err or lin)
     from ground_fusion2_tpu_torch.lio import ct_icp as ci
+    from ground_fusion2_tpu_torch.lio.voxel_map import radix_plan
     x = checks.lio_kernel_inputs(lo, next_scan)
     lcfg = lo.cfg
     icp = lcfg.icp_cfg
@@ -1718,6 +1739,18 @@ def main() -> int:
     if report(res_lio):
         return 1
     res.update(res_lio)
+    print("kernel F against torch.sort(stable=True), device ms a call in "
+          "turns (F, sort, sort, F) and launches a call, by size: "
+          + json.dumps({k: {n: v[n] for n in (
+              "device_ms", "library_device_ms", "launches_per_call",
+              "library_launches_per_call")}
+              for k, v in res_lio["radix_sort"]["sizes"].items()})
+          + f" | {card}", flush=True)
+    print("kernel F's launch shape, by size (CTAs G, keys a tile S, tiles a "
+          "CTA T, the card's co-resident CTAs): " + json.dumps({
+              k: radix_plan(_kernels.library(), keys.numel(), bits)
+              for k, (keys, bits) in checks.radix_sizes(
+                  x, dev, lcfg.map_cfg).items()}), flush=True)
 
     # 7. camera kernels H-K vs plain, kernel O at the capacity tier
     from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
@@ -1757,7 +1790,8 @@ def main() -> int:
     if report(res_w):
         return 1
     res["chol_solve"]["sizes"] = {r["n"]: {k: r[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "rel_err_f64", "tol")}
+        "ms", "plain_ms", "library_ms", "bound_ms", "rel_err_f64", "tol",
+        "device_ms", "library_device_ms", "launches_per_call")}
         for r in (res["chol_solve"], *res_w.values())}
     res_w = window_stage_checks(dev, fv)
     res_w["pg_cost"] = checks.check_pg_cost(dev, tier_args)
@@ -1826,7 +1860,8 @@ def main() -> int:
     if not w_global["ok"]:
         return fail("kernel W disagrees on the global graph")
     res["chol_solve"]["sizes"][Hg.shape[0]] = {k: w_global[k] for k in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "rel_err_f64", "tol")}
+        "ms", "plain_ms", "library_ms", "bound_ms", "rel_err_f64", "tol",
+        "device_ms", "library_device_ms", "launches_per_call")}
     err, lin = linalg_free("10b", gnss_refresh_path, dev, card)
     if err or lin:
         return fail(err or lin)
@@ -1915,14 +1950,16 @@ def main() -> int:
     w384 = res_dist.pop("chol_solve (mapping, explicit diagonal)")
     res["chol_solve"]["sizes"]["384 (explicit diagonal)"] = {
         k: w384[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                             "rel_err_f64", "tol")}
+                             "rel_err_f64", "tol", "device_ms",
+                             "library_device_ms", "launches_per_call")}
     res_dist.pop("chol_solve (window, explicit diagonal)")
     res.update(res_dist)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")   # launches: phase 8 for A-L and S-Y, 9 for M-O,
-                            # 10 for P and Q, 11 for R, 13 for Z, 14 for
-                            # AA-AC, 15 for AD-AE, 16 for AF-AG
+            "library_ms", "device_ms", "library_device_ms",
+            "launches_per_call")
+    # launches: phase 8 for A-L and S-Y, 9 for M-O, 10 for P and Q, 11 for
+    # R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

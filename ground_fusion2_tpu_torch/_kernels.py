@@ -44,7 +44,8 @@ _SIGNATURES = {
     "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 5,
     "gf2_lio_assoc": [_P] * 5 + [_I] * 2 + [_F] + [_I] * 3 + [_P] * 5,
     "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 2,
-    "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P, _P],
+    "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P],
+    "gf2_radix_plan": [_I] * 2 + [_P] * 6,
     "gf2_eskf_predict": [_P] * 11 + [_I] + [_F] * 4 + [_P] * 5,
     "gf2_preint": [_P] * 9 + [_I] * 2 + [_F] * 6 + [_P, _I] + [_P] * 4,
     "gf2_blur_decimate": [_P, _I, _I, _P, _P],

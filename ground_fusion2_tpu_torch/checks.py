@@ -3,9 +3,13 @@ shared by ``chip_smoke.py`` and the port's tests.
 
 Each ``check_*`` runs the CUDA kernel and its plain PyTorch version on the
 same tensors on the card and returns their max errors, the tolerance it
-holds them to, the median time of each, the least time the card could take
-for the same work (``bound_ms``, :func:`bound`) and, where one PyTorch call
-computes the same function, that call's time (``library_ms``, else None).
+holds them to, the median time of a call of each (``ms``, ``plain_ms``:
+:func:`time_ms`, the wrapper's host time included), the kernel's device
+time and launches a call (``device_ms``, ``launches_per_call``:
+:func:`device_ms`), the least time the card could take for the same work
+(``bound_ms``, :func:`bound`) and, where one PyTorch call computes the same
+function, that call's times (``library_ms``, ``library_device_ms``, else
+None; device times measured in turns with the kernel's).
 Launches made here are counted by the wrappers like any other; callers
 reset the counts before the run they want to attribute.
 """
@@ -14,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import statistics
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -102,6 +107,93 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+class DeviceTime(NamedTuple):
+    ms: float            # device ms a call: every CUDA activity summed
+    launches: float      # CUDA activities a call (kernels, memsets, copies)
+    kernels: dict        # device ms a call by activity name
+    calls: int           # calls of fn made, warm-up and every trace taken
+
+
+MARKER = "spin_kernel"     # torch.cuda._sleep's kernel: one before each call
+_PROFILER_STARTED = False
+
+
+def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
+    """Device time of ``fn()`` alone: a torch.profiler trace (CPU and CUDA
+    activity) of ``reps`` warm calls, every CUDA activity summed (kernels,
+    memsets and copies; a library call's internal launches count too), with
+    the activities a call. A marker kernel (``torch.cuda._sleep``) runs
+    before each call and is left out; the sums are divided by the markers
+    the trace holds, counted from the first, so a trace that lost its first
+    records still reads per call; a trace that caught no marker at all (the
+    profiler misses a whole trace now and then) is taken again, three times
+    at most. Unlike :func:`time_ms` it holds none of the wrapper's host
+    time. Raises when the calls ran no CUDA activity (CPU tensors); it never
+    falls back to events."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("device_ms needs a CUDA device")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    global _PROFILER_STARTED
+    if not _PROFILER_STARTED:       # the process's first trace sets CUPTI up
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]):
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        _PROFILER_STARTED = True
+    calls = warmup
+    for _ in range(3):              # a trace that caught no marker: again
+        calls += reps
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            for _ in range(reps):
+                torch.cuda._sleep(1)
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        first = next((i for i, e in enumerate(evs) if MARKER in e.name), None)
+        if first is not None:
+            break
+    else:
+        raise RuntimeError(f"device_ms: three traces held no marker (the "
+                           f"last {len(evs)} CUDA activities)")
+    traced = sum(MARKER in e.name for e in evs[first:])
+    by_name: dict = {}
+    n = 0
+    for e in evs[first:]:
+        if MARKER in e.name:
+            continue
+        n += 1
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if n == 0:
+        raise RuntimeError("device_ms: the calls ran no CUDA activity "
+                           "(CPU tensors?)")
+    kernels = {k: v / 1e3 / traced for k, v in by_name.items()}
+    return DeviceTime(sum(kernels.values()), n / traced, kernels, calls)
+
+
+def device_pair(kernel, library=None, reps: int = 20) -> dict:
+    """The device columns of a check: :func:`device_ms` of the kernel's
+    wrapper and, where one PyTorch call computes the same function, of that
+    call, measured in turns (kernel, library, library, kernel), each the
+    mean of its turns; launches a call beside each."""
+    k = [device_ms(kernel, reps)]
+    lib = None
+    if library is not None:
+        lib = [device_ms(library, reps), device_ms(library, reps)]
+        k.append(device_ms(kernel, reps))
+    mean = lambda ts: sum(t.ms for t in ts) / len(ts)
+    return dict(device_ms=mean(k), launches_per_call=k[0].launches,
+                library_device_ms=None if lib is None else mean(lib),
+                library_launches_per_call=None if lib is None
+                else lib[0].launches)
 
 
 def room_drive(n_frames: int, W: int = 640, H: int = 480,
@@ -294,6 +386,7 @@ def check_clahe(device, frame=None) -> dict:
                 ms=time_ms(lambda: clahe_mod.clahe(img)),
                 plain_ms=time_ms(lambda: clahe_mod.clahe_plain(img)),
                 library_ms=None,
+                **device_pair(lambda: clahe_mod.clahe(img)),
                 **bound(_nbytes(img, out_k), 10 * img.numel()))
 
 
@@ -324,7 +417,9 @@ def check_klt(device, frames=None, F: int = 150, half: int = 10,
                 ms=time_ms(lambda: klt.klt_track(p0, p1, uv, valid, half,
                                                  iters, fb)),
                 plain_ms=time_ms(lambda: klt.klt_track_plain(
-                    p0, p1, uv, valid, half, iters, fb), reps=5))
+                    p0, p1, uv, valid, half, iters, fb), reps=5),
+                **device_pair(lambda: klt.klt_track(p0, p1, uv, valid, half,
+                                                    iters, fb)))
 
 
 def lidar_drive(n_scans: int, z: float = 0.0, n_rays: int = 4096):
@@ -424,7 +519,8 @@ def check_assoc(device, x: dict, cfg, icp_cfg) -> dict:
                 n_valid=int(vp.sum()), n_planar=int(planar.sum()), ok=ok,
                 ms=time_ms(lambda: vm.associate(vmap, p_g, p_q, cfg)),
                 plain_ms=time_ms(lambda: vm.associate_plain(vmap, p_g, p_q,
-                                                            cfg), reps=5))
+                                                            cfg), reps=5),
+                **device_pair(lambda: vm.associate(vmap, p_g, p_q, cfg)))
 
 
 def check_ct_normal(device, x: dict, icp_cfg) -> dict:
@@ -455,25 +551,78 @@ def check_ct_normal(device, x: dict, icp_cfg) -> dict:
                 ok=all(errs[k] <= tols[k] for k in errs),
                 ms=time_ms(lambda: ci.normal_equations(*args)),
                 plain_ms=time_ms(lambda: ci.normal_equations_plain(*args),
-                                 reps=5))
+                                 reps=5),
+                **device_pair(lambda: ci.normal_equations(*args)))
 
 
-def check_radix(device, x: dict, cfg) -> dict:
-    """Kernel F: the exact stable order of torch.sort on the map's codes,
-    subcells, squared distances and the keypoint hash codes; and an insert
-    at the tick's shapes, an insert that overflows capacity, and a
-    recenter, all bit-exact (codes and point order) against the same
-    operation on the CPU, where the plain sort runs."""
+RADIX_FAMILIES = ("map_codes", "subcells", "flag", "dist2", "hash_codes",
+                  "all_equal")
+
+
+def radix_key_families(n: int, seed: int = 0) -> dict:
+    """Kernel F's key families at n keys, as numpy (keys, bits): the map's
+    voxel codes, mostly INVALID; the 6-bit subcells; a 1-bit flag; squared
+    distances as float32, a third +inf; the keypoint hash codes (few
+    distinct, the sentinel for invalid points); all keys equal."""
+    rng = np.random.default_rng(seed)
+    codes = np.where(rng.random(n) < 0.25,
+                     rng.integers(0, 1 << 30, n), vm.INVALID).astype(np.int32)
+    d2 = (rng.standard_normal((n, 3)).astype(np.float32) * 20) ** 2
+    d2 = np.where(rng.random(n) < 1 / 3, np.inf,
+                  d2.sum(1)).astype(np.float32)
+    pool = rng.integers(0, 1 << 31, max(n // 8, 1)) & 0x7FFFFFFE
+    hashes = np.where(rng.random(n) < 0.1, lfu.CODE_SENTINEL,
+                      pool[rng.integers(0, pool.size, n)]).astype(np.int32)
+    return dict(map_codes=(codes, 31),
+                subcells=(rng.integers(0, 64, n).astype(np.int32), 6),
+                flag=(rng.integers(0, 2, n).astype(np.int32), 1),
+                dist2=(d2, 31), hash_codes=(hashes, 31),
+                all_equal=(np.full(n, 5, np.int32), 31))
+
+
+def radix_sizes(x: dict, device, cfg) -> dict:
+    """The main path's sorts at the shapes of the LiDAR drive's map ``x``
+    (:func:`lio_kernel_inputs`): name -> (keys, bits)."""
     vmap = x["vmap"]
     n_new = x["pts"].shape[0]
     pts_all = torch.cat([vmap.pts, x["pts"]])
-    sub = vm._subcell(pts_all, vmap.origin, cfg.voxel_size)
     code = torch.cat([vmap.code, torch.full((n_new,), vm.INVALID,
                                              dtype=torch.int32, device=device)])
-    d2 = vm._dist2(pts_all, x["pose"].t_end)
     hcode = lfu._subsample_codes(x["pts"], 0.05, x["mask"] > 0)
+    from .mesh.incremental import MeshConfig
+    mcfg = MeshConfig()
+    new = torch.full((mcfg.insert_chunk,), vm.INVALID, dtype=torch.int32,
+                     device=device)
+    kp = vm._pack(vm._coords(x["p_w"], vmap.origin, cfg.voxel_size))
+    new[:kp.numel()] = kp[:mcfg.insert_chunk]
+    half = mcfg.capacity
+    return {
+        f"codes {code.numel()}": (code, 31),
+        f"subcells {code.numel()}": (vm._subcell(pts_all, vmap.origin,
+                                                 cfg.voxel_size), 6),
+        f"dist2 {code.numel()}": (vm._dist2(pts_all, x["pose"].t_end), 31),
+        f"recenter codes {vmap.code.numel()}": (vmap.code, 31),
+        # the mesh's rows: a store's worth of the map's codes and a chunk
+        f"mesh codes {half + new.numel()}": (torch.cat([vmap.code[:half],
+                                                        new]), 31),
+        f"hash codes {hcode.numel()}": (hcode, 31),
+        f"flag {hcode.numel()}": ((hcode == lfu.CODE_SENTINEL).to(
+            torch.int32), 1),
+    }
+
+
+def check_radix(device, x: dict, cfg, timed: bool = True) -> dict:
+    """Kernel F: the exact stable order of torch.sort on the map's codes,
+    subcells, squared distances, the keypoint hash codes and flags, and
+    the mesh's and the recenter's codes (:func:`radix_sizes`); and an
+    insert at the tick's shapes, an insert that overflows capacity, and a
+    recenter, all bit-exact (codes and point order) against the same
+    operation on the CPU, where the plain sort runs. Timed: each size's
+    device ms against ``torch.sort(stable=True)`` in turns."""
+    vmap = x["vmap"]
+    sizes = radix_sizes(x, device, cfg)
     mism = 0
-    for keys, bits in ((code, 31), (sub, 6), (d2, 31), (hcode, 31)):
+    for keys, bits in sizes.values():
         want = torch.sort(keys, stable=True).indices
         mism += int((vm.stable_argsort(keys, bits) != want).sum())
 
@@ -497,17 +646,29 @@ def check_radix(device, x: dict, cfg) -> dict:
     rc = vm.recenter(vmap, shift, cfg)
     ok_recenter = same(rc, vm.recenter(cpu(vmap), shift.cpu(), cfg))
     n_live = lambda m: int((m.code != vm.INVALID).sum())
-    # the plain version is the library call
-    lib = time_ms(lambda: torch.sort(code, stable=True))
-    return dict(max_abs_err=float(mism), order_mismatches=mism,
-                insert=ok_insert, overflow=ok_overflow, recenter=ok_recenter,
-                fill=[n_live(vmap), n_live(ins), n_live(ovf)],
-                n_keys=int(code.shape[0]),
-                ok=mism == 0 and ok_insert and ok_overflow and ok_recenter,
-                ms=time_ms(lambda: vm.stable_argsort(code)),
-                plain_ms=lib, library_ms=lib,
-                # keys in, int32 order out; no arithmetic to speak of
-                **bound(code.numel() * (code.element_size() + 4), 0))
+    code = next(iter(sizes.values()))[0]
+    out = dict(max_abs_err=float(mism), order_mismatches=mism,
+               insert=ok_insert, overflow=ok_overflow, recenter=ok_recenter,
+               fill=[n_live(vmap), n_live(ins), n_live(ovf)],
+               n_keys=int(code.shape[0]),
+               ok=mism == 0 and ok_insert and ok_overflow and ok_recenter,
+               # keys in, int64 order out; no arithmetic to speak of
+               **bound(code.numel() * (code.element_size() + 8), 0))
+    if timed:
+        # the plain version is the library call
+        lib = time_ms(lambda: torch.sort(code, stable=True))
+        out.update(ms=time_ms(lambda: vm.stable_argsort(code)),
+                   plain_ms=lib, library_ms=lib,
+                   **device_pair(lambda: vm.stable_argsort(code),
+                                 lambda: torch.sort(code, stable=True)))
+        out["sizes"] = {}
+        for name, (keys, bits) in sizes.items():
+            d = device_pair(lambda: vm.stable_argsort(keys, bits),
+                            lambda: torch.sort(keys, stable=True))
+            d["bound_ms"] = bound(keys.numel() * (keys.element_size() + 8),
+                                  0)["bound_ms"]
+            out["sizes"][name] = d
+    return out
 
 
 def check_eskf(device, x: dict, opt) -> dict:
@@ -529,7 +690,8 @@ def check_eskf(device, x: dict, opt) -> dict:
                 **bound(nb, n_s * 4 * 18 ** 3),
                 ok=all(errs[k] <= ESKF_TOL[k] for k in errs),
                 ms=time_ms(lambda: ekf.predict_final(*args)),
-                plain_ms=time_ms(lambda: ekf.predict_batch(*args), reps=5))
+                plain_ms=time_ms(lambda: ekf.predict_batch(*args), reps=5),
+                **device_pair(lambda: ekf.predict_final(*args)))
 
 
 def check_proj(device, x0=None, feats=None, layout=None, delta=None,
@@ -570,6 +732,8 @@ def check_proj(device, x0=None, feats=None, layout=None, delta=None,
             x0, delta, feats, layout, sqrt_info))
         out["plain_ms"] = time_ms(lambda: fac.projection_normal_equations_plain(
             x0, delta, feats, layout, sqrt_info), reps=5)
+        out.update(device_pair(lambda: fac.projection_normal_equations(
+            x0, delta, feats, layout, sqrt_info)))
     return out
 
 
@@ -620,7 +784,8 @@ def check_preint(device, x: dict) -> dict:
                 ms=time_ms(lambda: run(wp.preintegrate_window)),
                 plain_ms=time_ms(lambda: run(wp.preintegrate_window_plain),
                                  reps=3, warmup=1),
-                library_ms=None, **bound(nb, flops))
+                library_ms=None, **bound(nb, flops),
+                **device_pair(lambda: run(wp.preintegrate_window)))
 
 
 def _pyramid_library(img, levels):
@@ -662,12 +827,14 @@ def check_pyramid(device, frame) -> dict:
                ms=time_ms(lambda: klt.build_pyramid(img, 4)),
                plain_ms=time_ms(lambda: klt.build_pyramid_plain(img, 4)),
                library_ms=time_ms(lambda: _pyramid_library(img, 4)),
-               **pyr_b)
+               **pyr_b, **device_pair(lambda: klt.build_pyramid(img, 4),
+                                      lambda: _pyramid_library(img, 4)))
     st = dict(max_abs_err=float((rk - rp).abs().max()),
               rel_err=errs["response"], tol=PYR_REL_TOL, ok=ok,
               ms=time_ms(lambda: klt.shi_tomasi(img)),
               plain_ms=time_ms(lambda: klt.shi_tomasi_plain(img)),
-              library_ms=None, **st_b)
+              library_ms=None, **st_b,
+              **device_pair(lambda: klt.shi_tomasi(img)))
     return dict(pyramid=pyr, shi_tomasi=st)
 
 
@@ -710,6 +877,8 @@ def check_detect(device, tracks: dict, cell: int = 30, F: int = 150,
                 plain_ms=time_ms(lambda: klt.detect_grid_plain(
                     *args, min_response=min_response)),
                 library_ms=None,
+                **device_pair(lambda: klt.detect_grid(
+                    *args, min_response=min_response)),
                 **bound(nb, resp.numel() * 3 + n_cells ** 2))
 
 
@@ -761,7 +930,9 @@ def check_ransac(device, cam, tracks: dict, thresh: float, seed: int = 12,
                                                        thresh)),
                 plain_ms=time_ms(lambda: rs.ransac_f_plain(
                     p1, p2, valid, g, thresh), reps=5),
-                library_ms=None, **bound(nb, flops))
+                library_ms=None, **bound(nb, flops),
+                **device_pair(lambda: rs.ransac_f_reject(p1, p2, valid, g,
+                                                         thresh)))
 
 
 # ------------------------------------------------------------------ system
@@ -946,6 +1117,7 @@ def check_small_normal(device, x0, meas, layout, delta, cfg,
         out["ms"] = time_ms(lambda: fac.small_normal_equations(*args))
         out["plain_ms"] = time_ms(
             lambda: fac.small_normal_equations_plain(*args), reps=5)
+        out.update(device_pair(lambda: fac.small_normal_equations(*args)))
     return out
 
 
@@ -1028,6 +1200,9 @@ def check_chol_solve(device, H, g, free=None, lam: float = 1e-4,
             lambda: _solve_damped_plain(H, g, lam_t, free, dd))
         out["library_ms"] = time_ms(lambda: torch.cholesky_solve(
             b, torch.linalg.cholesky_ex(Hs)[0]))
+        out.update(device_pair(
+            lambda: _solve_damped(H, g, lam_t, free, dd),
+            lambda: torch.cholesky_solve(b, torch.linalg.cholesky_ex(Hs)[0])))
     return out
 
 
@@ -1067,29 +1242,15 @@ X_STAGES = (("tridiagonalization", "tridiag_kernel"),
 
 
 def sym_eig_stages_ms(A, reps: int = 10) -> dict:
-    """Kernel X's device ms a call on ``A`` by stage, from a torch.profiler
-    trace of ``reps`` calls (CUDA activity, the kernels by name); empty for
-    a CPU tensor (the plain eigh has no stages)."""
+    """Kernel X's device ms a call on ``A`` by stage, from
+    :func:`device_ms`'s activities by kernel name; empty for a CPU tensor
+    (the plain eigh has no stages)."""
     from .solver import marginalize as mg
     if not A.is_cuda:
         return {}
-    mg.sym_eig(A)
-    torch.cuda.synchronize()
-    prof = torch.profiler.profile(activities=[
-        torch.profiler.ProfilerActivity.CPU,
-        torch.profiler.ProfilerActivity.CUDA])
-    with prof:
-        for _ in range(reps):
-            mg.sym_eig(A)
-        torch.cuda.synchronize()
-    us = dict.fromkeys((k for k, _ in X_STAGES), 0.0)
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        for stage, name in X_STAGES:
-            if f"::{name}<" in e.name:
-                us[stage] += e.time_range.elapsed_us()
-    return {k: v / 1e3 / reps for k, v in us.items()}
+    by_name = device_ms(lambda: mg.sym_eig(A), reps, warmup=1).kernels
+    return {stage: sum(ms for k, ms in by_name.items() if f"::{name}<" in k)
+            for stage, name in X_STAGES}
 
 
 def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
@@ -1142,7 +1303,10 @@ def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
                 sizes[n] = dict(ms=ms, plain_ms=lib, library_ms=lib,
                                 bound_ms=max(t_b, t_f),
                                 bound_by="bytes" if t_b >= t_f else "operations",
-                                stages_ms=sym_eig_stages_ms(A))
+                                stages_ms=sym_eig_stages_ms(A),
+                                **device_pair(lambda: mg.sym_eig(A),
+                                              lambda: mg.sym_eig_plain(A),
+                                              reps=10))
         good = same and all(v <= EIG_INV_TOL for v in errs.values())
         ok &= good
         out[name] = dict(rel_err=errs, tol=EIG_INV_TOL, repeat_equal=same,
@@ -1249,9 +1413,11 @@ def _check_sqrt_info(device, covs: dict, timed: bool = True) -> dict:
         eye = torch.eye(n, device=device)
         res["ms"], res["plain_ms"] = _time_pair(
             lambda: fac.imu_sqrt_info(cov), lambda: fac.imu_sqrt_info_plain(cov))
-        res["library_ms"] = time_ms(lambda: torch.linalg.solve_triangular(
+        lib = lambda: torch.linalg.solve_triangular(
             torch.linalg.cholesky_ex(cov)[0], eye.expand(cov.shape),
-            upper=False))
+            upper=False)
+        res["library_ms"] = time_ms(lib)
+        res.update(device_pair(lambda: fac.imu_sqrt_info(cov), lib))
     return res
 
 
@@ -1269,6 +1435,8 @@ def _check_spd_inverse(device, S, timed: bool = True) -> dict:
         r["ms"], r["plain_ms"] = _time_pair(lambda: ekf.spd_inverse(S),
                                             lambda: ekf.spd_inverse_plain(S))
         r["library_ms"] = r["plain_ms"]
+        r.update(device_pair(lambda: ekf.spd_inverse(S),
+                             lambda: ekf.spd_inverse_plain(S)))
     return r
 
 
@@ -1299,6 +1467,8 @@ def _check_icp_solve(device, H, g, damping: float, timed: bool = True) -> dict:
         damped = H + eye * (damping * torch.clamp(torch.max(torch.diagonal(H)),
                                                   min=1.0))
         r["library_ms"] = time_ms(lambda: torch.linalg.solve_ex(damped, g))
+        r.update(device_pair(lambda: ci.damped_solve(H, g, damping),
+                             lambda: torch.linalg.solve_ex(damped, g)))
     return r
 
 
@@ -1330,6 +1500,8 @@ def _check_degeneracy(device, normal, w, cfg, timed: bool = True) -> dict:
             lambda: ci.degeneracy_plain(normal, w, cfg))
         A = torch.einsum("k,ki,kj->ij", (w > 0).float(), normal, normal)
         r["library_ms"] = time_ms(lambda: torch.linalg.eigvalsh(A))
+        r.update(device_pair(lambda: ci.degeneracy(normal, w, cfg),
+                             lambda: torch.linalg.eigvalsh(A)))
     return r
 
 
@@ -1391,6 +1563,9 @@ def check_occupancy(device, cfg, origin, pts, valid, logodds0=None,
                           torch.zeros_like(ip, dtype=torch.float32)).reshape(-1)
         out["library_ms"] = time_ms(lambda: grid.view(-1).index_add_(0, flat,
                                                                      inc))
+        out.update(device_pair(
+            lambda: occ.scatter_scan(grid, origin, pts, valid, cfg),
+            lambda: grid.view(-1).index_add_(0, flat, inc), reps=10))
     return out
 
 
@@ -1426,7 +1601,8 @@ def check_brief(device, img, uv, valid, other) -> dict:
                 **bound(_nbytes(img, uv, valid, pk, sk), F * 512 * 12),
                 ms=time_ms(lambda: brief.brief_describe(img, uv, valid)),
                 plain_ms=time_ms(lambda: brief.brief_describe_plain(
-                    img, uv, valid)))
+                    img, uv, valid)),
+                **device_pair(lambda: brief.brief_describe(img, uv, valid)))
     simh = dict(max_abs_err=g_err, tol=1e-5, ok=g_err <= 1e-5,
                 **bound(_nbytes(sk, valid, gk) + 256 * 128 * 4,
                         2 * F * 256 * 128 + 2 * F * 128),
@@ -1435,11 +1611,15 @@ def check_brief(device, img, uv, valid, other) -> dict:
                     sp, valid)),
                 # the projection alone is one matmul: a yardstick
                 library_ms=time_ms(lambda: torch.matmul(
-                    sk, brief._const("proj", device))))
+                    sk, brief._const("proj", device))),
+                **device_pair(lambda: brief.global_descriptor(sk, valid),
+                              lambda: torch.matmul(
+                                  sk, brief._const("proj", device))))
     ham = dict(max_abs_err=float(h_diff), mismatches=h_diff, ok=h_diff == 0,
                library_ms=None, **bound(_nbytes(pk, p2, hk), F * F * 8 * 3),
                ms=time_ms(lambda: brief.hamming(pk, p2)),
-               plain_ms=time_ms(lambda: brief.hamming_plain(pp, p2)))
+               plain_ms=time_ms(lambda: brief.hamming_plain(pp, p2)),
+               **device_pair(lambda: brief.hamming(pk, p2)))
     return dict(brief=desc, simhash=simh, hamming=ham)
 
 
@@ -1468,7 +1648,8 @@ def check_loop_geom(device, x, thresh: float, gumbel) -> dict:
                 **bound(_nbytes(*x, gumbel) + 12 * 8 + 4, flops),
                 ms=time_ms(lambda: pgm.loop_geometry(*x, thresh, gumbel)),
                 plain_ms=time_ms(lambda: pgm.loop_geometry_plain(
-                    *x, thresh, gumbel), reps=5))
+                    *x, thresh, gumbel), reps=5),
+                **device_pair(lambda: pgm.loop_geometry(*x, thresh, gumbel)))
 
 
 def pg_normal_args(pg) -> tuple:
@@ -1506,7 +1687,8 @@ def check_pg_normal(device, args, seed: int = 0) -> dict:
                 library_ms=None, **bound(nb, flops),
                 ms=time_ms(lambda: pgm.pg_normal_equations(*args, delta)),
                 plain_ms=time_ms(lambda: pgm.pg_normal_equations_plain(
-                    *args, delta), reps=5))
+                    *args, delta), reps=5),
+                **device_pair(lambda: pgm.pg_normal_equations(*args, delta)))
 
 
 # ------------------------------------------------------------ loop drive
@@ -1798,7 +1980,8 @@ def check_global_normal(device, g, seed: int = 0) -> dict:
                 library_ms=None, **bound(nb, flops),
                 ms=time_ms(lambda: go.graph_normal_equations(g, delta)),
                 plain_ms=time_ms(lambda: go.graph_normal_equations_plain(
-                    g, delta), reps=3, warmup=1))
+                    g, delta), reps=3, warmup=1),
+                **device_pair(lambda: go.graph_normal_equations(g, delta)))
 
 
 def check_dyn_mask(device, x: dict, band: float = 1e-5) -> dict:
@@ -1851,7 +2034,8 @@ def check_dyn_mask(device, x: dict, band: float = 1e-5) -> dict:
                 **bound(nb, flops),
                 ms=time_ms(lambda: dm.dynamic_mask(*args, **kw)),
                 plain_ms=time_ms(lambda: dm.dynamic_mask_plain(*args, **kw),
-                                 reps=5))
+                                 reps=5),
+                **device_pair(lambda: dm.dynamic_mask(*args, **kw)))
 
 
 # ---------------------------------------------------- kernels S, T, U, V
@@ -1916,6 +2100,7 @@ def check_window_cost(device, x0, meas, layout, cfg, deltas: dict,
         out["ms"] = time_ms(lambda: cost_k(d))
         out["plain_ms"] = time_ms(
             lambda: fac.window_cost_plain(x0, d, meas, layout, cfg), reps=5)
+        out.update(device_pair(lambda: cost_k(d)))
     return out
 
 
@@ -1940,7 +2125,8 @@ def check_pg_cost(device, args, seed: int = 0) -> dict:
                 library_ms=None, **bound(nb, n_edges * 120),
                 ms=time_ms(lambda: fn(delta)),
                 plain_ms=time_ms(lambda: pgm.pg_cost_plain(*args, delta),
-                                 reps=5))
+                                 reps=5),
+                **device_pair(lambda: fn(delta)))
 
 
 def check_global_cost(device, g, seed: int = 0) -> dict:
@@ -1962,7 +2148,8 @@ def check_global_cost(device, g, seed: int = 0) -> dict:
                 library_ms=None, **bound(nb, (3 * N - 1) * 300),
                 ms=time_ms(lambda: fn(delta)),
                 plain_ms=time_ms(lambda: go.graph_cost_plain(g, delta),
-                                 reps=5))
+                                 reps=5),
+                **device_pair(lambda: fn(delta)))
 
 
 TRI_GAP = 1e-4       # kernel T: rho and done held where (λ1 − λ0)/λ3 > this
@@ -2038,7 +2225,9 @@ def check_triangulate(device, fw, x, rho, uninit) -> dict:
                 ms=time_ms(lambda: fwm.triangulate(fw, x, rho, uninit)),
                 plain_ms=time_ms(lambda: fwm.triangulate_plain(
                     fw, x, rho, uninit), reps=5),
-                library_ms=time_ms(lambda: torch.linalg.eigh(N32), reps=10))
+                library_ms=time_ms(lambda: torch.linalg.eigh(N32), reps=10),
+                **device_pair(lambda: fwm.triangulate(fw, x, rho, uninit),
+                              lambda: torch.linalg.eigh(N32), reps=10))
 
 
 def window_stage_inputs(fv):
@@ -2123,10 +2312,12 @@ def check_window_tests(device, fw, x, s, stationary, interval, k: int) -> dict:
     out["presolve"] = dict(**bound(nb_pre, 8 * F + 12 * (M + 1)),
                            ms=time_ms(lambda: fwm.presolve_tests(*pre)),
                            plain_ms=time_ms(
-                               lambda: fwm.presolve_tests_plain(*pre), reps=5))
+                               lambda: fwm.presolve_tests_plain(*pre), reps=5),
+                           **device_pair(lambda: fwm.presolve_tests(*pre)))
     out["ms"] = time_ms(lambda: fwm.post_solve_tests(*post))
     out["plain_ms"] = time_ms(lambda: fwm.post_solve_tests_plain(*post),
                               reps=5)
+    out.update(device_pair(lambda: fwm.post_solve_tests(*post)))
     return out
 
 
@@ -2165,13 +2356,17 @@ def check_window_update(device, fw, x, rho, obs, col: int) -> dict:
                            rho_moved=int(moved.sum()), repeat_equal=same,
                            ok=m_ok, **bound(nb, F * (W * 12 + 120)),
                            ms=time_ms(kern),
-                           plain_ms=time_ms(plain, reps=5))
+                           plain_ms=time_ms(plain, reps=5),
+                           **device_pair(kern))
         ok = ok and m_ok
         err = max(err, float((rk - rp).abs().max()))
     a = modes["add_frame"]
     return dict(max_abs_err=err, modes=modes, ok=ok, library_ms=None,
                 ms=a["ms"], plain_ms=a["plain_ms"], bound_ms=a["bound_ms"],
-                bound_by=a["bound_by"])
+                bound_by=a["bound_by"],
+                **{k: a[k] for k in ("device_ms", "launches_per_call",
+                                     "library_device_ms",
+                                     "library_launches_per_call")})
 
 
 # ------------------------------------------------------- kernels AA, AB, AC
@@ -2263,8 +2458,12 @@ def check_mesh_insert(device, mesh, new_pts, new_mask, cfg,
         out["insert_ms"], out["insert_plain_ms"] = _time_pair(
             lambda: mi.insert(mesh, new_pts, new_mask, cfg),
             lambda: mi.insert_plain(mesh, new_pts, new_mask, cfg), reps=10)
-        out["library_ms"] = time_ms(lambda: torch.sort(rows["code"],
-                                                       stable=True))
+        sort = lambda: torch.sort(rows["code"], stable=True)
+        out["library_ms"] = time_ms(sort)
+        out.update(device_pair(lambda: mi.insert_pass(*args), sort))
+        # kernel F on the same codes, the sort after AA (69,632 rows)
+        out["radix_sort"] = dict(n=int(rows["code"].numel()), **device_pair(
+            lambda: vm.stable_argsort(rows["code"], 31), sort))
     return out
 
 
@@ -2340,8 +2539,11 @@ def check_mesh_rgb(device, mesh, image, intr, r_wc, t_wc, cfg,
         img = image.permute(2, 0, 1)[None].contiguous()
         grid = torch.stack([u / (W - 1) * 2 - 1, v / (H - 1) * 2 - 1],
                            -1)[None, None]
-        out["library_ms"] = time_ms(lambda: torch.nn.functional.grid_sample(
-            img, grid, mode="bilinear", align_corners=True))
+        sample = lambda: torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", align_corners=True)
+        out["library_ms"] = time_ms(sample)
+        out.update(device_pair(
+            lambda: mi.update_rgb(mesh, image, intr, r_wc, t_wc, cfg), sample))
     return out
 
 
@@ -2439,6 +2641,8 @@ def check_mesh_delaunay(device, mesh, codes, cfg, timed: bool = True) -> dict:
             lambda: mi.retriangulate(mesh, codes, cfg),
             lambda: mi.retriangulate_plain(mesh, codes, cfg), reps=10)
         out["library_ms"] = None
+        out.update(device_pair(lambda: mi.retriangulate(mesh, codes, cfg),
+                               reps=10))
     return out
 
 
@@ -2509,7 +2713,9 @@ def check_line_detect(device, img, cfg=None, timed: bool = True) -> dict:
         out["ms"], out["plain_ms"] = _time_pair(
             lambda: ln.detect_lines(img, cfg),
             lambda: ln.detect_lines_plain(img, cfg))
-        out["library_ms"] = time_ms(lambda: torch.quantile(cells, 0.9, dim=-1))
+        quantile = lambda: torch.quantile(cells, 0.9, dim=-1)
+        out["library_ms"] = time_ms(quantile)
+        out.update(device_pair(lambda: ln.detect_lines(img, cfg), quantile))
     return out
 
 
@@ -2559,6 +2765,7 @@ def check_line_refit(device, pyr0, pyr1, segs, valid, cfg=None,
             return ln.line_refit_plain(p1, v1, valid, cfg), a, b
         out["ms"], out["plain_ms"] = _time_pair(kern, plain)
         out["library_ms"] = None
+        out.update(device_pair(kern))
     return out
 
 
@@ -2670,6 +2877,8 @@ def check_dist_schur(device, x, feats, layout, cfg, lam: float = 1e-4,
             lambda: db.shard_reduce_plain(x, feats, layout, cfg, lam_t),
             reps=10)
         out["library_ms"] = None
+        out.update(device_pair(
+            lambda: db.shard_reduce(x, feats, layout, cfg, lam_t), reps=10))
     return out
 
 
@@ -2738,4 +2947,7 @@ def check_map_schur(device, p_ext, q_ext, prob, halo: int, K: int,
             lambda: dm.map_build_plain(p_ext, q_ext, prob, halo, K, base,
                                        lam_t), reps=10)
         out["library_ms"] = None
+        out.update(device_pair(
+            lambda: dm.map_build(p_ext, q_ext, prob, halo, K, base, lam_t),
+            reps=10))
     return out

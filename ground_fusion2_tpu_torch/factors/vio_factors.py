@@ -79,9 +79,10 @@ def projection_normal_equations(x0: WindowState, delta: torch.Tensor,
     """(H [D, D], g [D], cost []) of the projection block linearized at
     ``retract(x0, delta)``, with the Huber weight held constant in J.
 
-    Kernel C on the card (one warp a feature, forward-mode duals over the
-    ≤ 20 tangent columns each observation touches, summed in a fixed order:
-    the same inputs give the same bits); the plain version on the CPU."""
+    Kernel C on the card (a warp an observation, forward-mode duals over
+    the ≤ 20 tangent columns it touches; each feature's block summed in
+    frame order, H over the features in index order: the same inputs give
+    the same bits); the plain version on the CPU."""
     if delta.is_cuda:
         return _projection_normal_equations_cuda(
             x0, delta, feats, layout, sqrt_info, huber_delta)
@@ -119,10 +120,11 @@ def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
     ins = [f32(x0.p), f32(x0.q), f32(x0.tic), f32(x0.qic), f32(x0.td),
            f32(x0.rho), f32(delta), f32(feats.ray), f32(feats.vel),
            f32(feats.obs_valid),
-           feats.anchor.to(device=dev, dtype=torch.int32).contiguous(),
+           feats.anchor.to(device=dev, dtype=torch.int64).contiguous(),
            f32(feats.track_valid)]
-    H = torch.zeros((D, D), dtype=torch.float32, device=dev)
-    g = torch.zeros((D,), dtype=torch.float32, device=dev)
+    # the kernel writes every entry of H, g and the cost
+    H = torch.empty((D, D), dtype=torch.float32, device=dev)
+    g = torch.empty((D,), dtype=torch.float32, device=dev)
     cost = torch.empty((1,), dtype=torch.float32, device=dev)
     L = 6 * W + 8       # the columns one feature can touch
     part = torch.empty((F * (L * L + L + 1),), dtype=torch.float32, device=dev)

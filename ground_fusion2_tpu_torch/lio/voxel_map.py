@@ -37,7 +37,6 @@ BITS = 10
 HALF = 1 << (BITS - 1)          # 512 voxels each side of the origin
 SUB = 4                         # 4³ = 64 subcells a voxel (min spacing)
 CODE_BITS = 31                  # every key of the tick fits in 31 bits
-RADIX_TILE = 1024               # keys a block in csrc/radix_sort.cu
 MIN_PTS = 5                     # neighbours a plane fit needs
 
 # 3³ neighbourhood offsets in meshgrid(..., indexing="ij") order
@@ -76,21 +75,47 @@ def _radix_argsort_cuda(keys: torch.Tensor, bits: int) -> torch.Tensor:
         raise ValueError(f"radix_sort kernel: bits {bits} outside [1, 32]")
     keys = keys.contiguous()
     n = keys.shape[0]
-    out = torch.empty(n, dtype=torch.int32, device=keys.device)
+    out = torch.empty(n, dtype=torch.int64, device=keys.device)
     if n == 0:
-        return out.long()
-    n_tiles = -(-n // RADIX_TILE)
-    scratch = torch.empty(2 * n + 256 * n_tiles, dtype=torch.int32,
-                          device=keys.device)
-    idx_tmp = torch.empty(n, dtype=torch.int32, device=keys.device)
+        return out
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream(keys.device).cuda_stream
+    scratch = _radix_scratch(lib, keys.device, stream, n, bits)
     P = ctypes.c_void_p
-    err = _kernels.library().gf2_radix_argsort(
-        P(keys.data_ptr()), n, bits, P(scratch.data_ptr()),
-        P(idx_tmp.data_ptr()), P(out.data_ptr()),
-        P(torch.cuda.current_stream(keys.device).cuda_stream))
+    err = lib.gf2_radix_argsort(P(keys.data_ptr()), n, bits,
+                                P(scratch.data_ptr()), P(out.data_ptr()),
+                                P(stream))
     _kernels.check(err, "gf2_radix_argsort")
     _kernels.count("radix_sort")
-    return out.long()
+    return out
+
+
+def radix_plan(lib, n: int, bits: int) -> dict:
+    """Kernel F's launch shape for n keys of ``bits`` bits on the current
+    device: CTAs ``G``, keys a tile ``S``, tiles a CTA ``T``, ``passes``,
+    the ``ctas`` the card holds at once, and the ``scratch`` ints."""
+    v = [ctypes.c_int() for _ in range(5)]
+    need = ctypes.c_longlong()
+    _kernels.check(lib.gf2_radix_plan(n, bits, *map(ctypes.byref, v),
+                                      ctypes.byref(need)), "gf2_radix_plan")
+    return dict(zip(("G", "S", "T", "passes", "ctas"), (x.value for x in v)),
+                scratch=need.value)
+
+
+_RADIX_SCRATCH: dict = {}
+
+
+def _radix_scratch(lib, device, stream, n, bits):
+    """Kernel F's scratch (two key and two index buffers, the passes'
+    digit counts), sized once per shape, device and stream by the kernel's
+    own plan: the kernel writes every word before it reads it."""
+    key = (device, stream, n, bits)
+    buf = _RADIX_SCRATCH.get(key)
+    if buf is None:
+        buf = torch.empty(radix_plan(lib, n, bits)["scratch"],
+                          dtype=torch.int32, device=device)
+        _RADIX_SCRATCH[key] = buf
+    return buf
 
 
 # ---------------------------------------------------------------- coding

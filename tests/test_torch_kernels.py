@@ -100,8 +100,87 @@ def test_ct_icp_normal_kernel_matches_plain(dev, lio):
 
 def test_radix_sort_kernel_matches_plain(dev, lio):
     lo, _, x = lio
-    r = checks.check_radix(dev, x, lo.cfg.map_cfg)
+    r = checks.check_radix(dev, x, lo.cfg.map_cfg, timed=False)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("n", [64, 4097, 69_632, 131_072, 135_168])
+@pytest.mark.parametrize("family", checks.RADIX_FAMILIES)
+def test_radix_sort_kernel_order_equals_torch_sort(dev, family, n):
+    """Kernel F's order is torch.sort(stable=True)'s, index for index, on
+    each key family at the main path's sizes and off a chunk's edge."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    keys, bits = checks.radix_key_families(n, seed=n)[family]
+    k = torch.as_tensor(keys, device=dev)
+    got = vm.stable_argsort(k, bits)
+    assert got.dtype == torch.int64
+    assert torch.equal(got, torch.sort(k, stable=True).indices)
+
+
+def _radix_one_tile_limit():
+    """Keys kernel F sorts with one tile a CTA: the card's CTAs × 4,096."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    return vm.radix_plan(_kernels.library(), 1, 31)["ctas"] * 4096
+
+
+@pytest.mark.parametrize("where", ["limit - 1", "limit + 1", "4,000,000"])
+@pytest.mark.parametrize("family", ["map_codes", "dist2", "subcells"])
+def test_radix_sort_kernel_orders_any_size(dev, family, where):
+    """A map of millions of points sorts: one tile a CTA up to the card's
+    CTAs × 4,096 keys, then more tiles a CTA; the order is torch.sort's."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    limit = _radix_one_tile_limit()
+    n = {"limit - 1": limit - 1, "limit + 1": limit + 1,
+         "4,000,000": 4_000_000}[where]
+    plan = vm.radix_plan(_kernels.library(), n, 31)
+    assert (plan["T"] == 1) == (n <= limit), plan
+    keys, bits = checks.radix_key_families(n, seed=3)[family]
+    k = torch.as_tensor(keys, device=dev)
+    assert torch.equal(vm.stable_argsort(k, bits),
+                       torch.sort(k, stable=True).indices)
+
+
+@pytest.mark.parametrize("n", [1, 4097, 69_632, 135_168, 600_000,
+                               1_100_000, 4_000_000])
+@pytest.mark.parametrize("bits", [31, 6])
+def test_radix_sort_plan_is_the_models(dev, n, bits):
+    """gf2_radix_plan's (G, S, T, passes) are the numpy model's
+    (tests/torch_radix_model.py) at the card's own CTA count."""
+    import torch_radix_model as model
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    plan = vm.radix_plan(_kernels.library(), n, bits)
+    assert (plan["G"], plan["S"], plan["T"], plan["passes"]) == model.plan(
+        n, bits, max_ctas=plan["ctas"]), plan
+
+
+@pytest.mark.parametrize("bits", [31, 6, 1])
+def test_radix_sort_kernel_launches_once_a_sort(dev, bits):
+    """One launch a sort (at most passes + 1), the wrapper counted once a
+    call."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    keys, _ = checks.radix_key_families(135_168)["map_codes"]
+    k = torch.as_tensor(keys, device=dev) & ((1 << bits) - 1)
+    _kernels.launches.clear()
+    t = checks.device_ms(lambda: vm.stable_argsort(k, bits), reps=5)
+    passes = vm.radix_plan(_kernels.library(), k.numel(), bits)["passes"]
+    assert t.launches <= passes + 1, t
+    assert t.launches == 1, t
+    assert _kernels.launches["radix_sort"] == t.calls, t
+
+
+@pytest.mark.parametrize("F", [150, 16])
+def test_proj_normal_kernel_matches_plain_and_repeats(dev, F):
+    """Kernel C against its plain version within checks.py's tolerances,
+    the same bits twice, at F = 150 (D = 396) and at a small window; two
+    launches a call and no memset."""
+    x0, feats, layout, delta = checks.example_window(F, dev)
+    r = checks.check_proj(dev, x0, feats, layout, delta, timed=False)
+    assert r["ok"] and r["repeat_equal"], r
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
+    t = checks.device_ms(lambda: fac.projection_normal_equations(
+        x0, delta, feats, layout, 607.79772949218 / 1.5), reps=5)
+    assert t.launches == 2, t
+    assert not any(k.startswith("Memset") for k in t.kernels), t
 
 
 def test_eskf_predict_kernel_matches_plain(dev, lio):
