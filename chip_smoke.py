@@ -11,8 +11,9 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      camera path's shapes (CLAHE 480×640, KLT F = 150 on two consecutive
      rendered frames, the projection normal equations (C) and those of the
      other rows (L) on an example window F = 150 / D = 396), with the stated
-     tolerances and the median time of both; C and L twice on the same
-     inputs give the same bits. Kernel W, the damped Cholesky solve, on the
+     tolerances and the median time of both; C twice on the same inputs,
+     and L's closure of a solve beside its one-shot form, give the same
+     bits. Kernel W, the damped Cholesky solve, on the
      window's LM step at D = 396 (against float64, within 10× the plain
      cuSOLVER route's error there; NaN on a non-PD input; the same bits
      twice) and kernel X, the float64 eigensolver, through marginalize on
@@ -67,7 +68,8 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      the fused position error after aligning the first output stay
      < 0.06 m and the VIO's aligned ATE < 0.30 m. Over the last 3 ticks
      torch.profiler prints the device time a tick of the port's kernels
-     (F's, C's, W's and X's summed under by_kernel_ms_per_tick),
+     (F's, C's, L's with P's, W's, X's and AC's summed under
+     by_kernel_ms_per_tick),
      torch.linalg's and every other kernel, and the launches a tick; the
      torch.linalg class must be empty;
   9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
@@ -97,7 +99,9 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      unaligned ATE after init < 0.30 m and within 0.05 m of JAX's run at the
      port's float64 elimination of the marginalization, the yaw within 0.05
      rad of 0.3, the graph nodes' RMS error to the truth in the first fix's
-     ENU frame ≤ 1.5× JAX's + 0.05 m. W and X must launch; the eigenvalues
+     ENU frame ≤ 1.5× JAX's + 0.05 m. Over the last 3 ticks torch.profiler
+     prints L's and P's device ms and launches a tick beside the tick's. W
+     and X must launch; the eigenvalues
      of every marginalization within a factor 10 of the 1e-6 gates are
      counted and printed; W is held on the final global graph's system
      (6·256 = 1536). The comparison with the JAX package's own (float32)
@@ -147,15 +151,17 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      then process_lidar with the grey frame as a three-channel texture and
      the latest VIO pose composed with the rig's extrinsic as its camera
      pose (checks.mesh_texture, as data/m3dgr_sim.py:392-404), then flush.
-     AA must launch on every insert chunk, AB on every textured sweep, AC on
-     every drained batch; every fused pose stay finite and the fused error
-     < 0.06 m; AA, AB and AC are held against their plain versions on the
-     last chunk, the last textured sweep and the last full dirty batch
-     (AA's means bit for bit against the CPU's pass; AB's visibility equal
-     but within 1e-5 of a border, colours to 1e-3; AC's verdicts equal but
-     where a test's margin is within 1e-5 of its terms, each such triple
-     named; each twice the same bits); export_mesh's PLY header counts must
-     equal stats(). The mesh's vertices, meshed voxels and triangles and
+     AA must launch on every insert chunk, AB on every textured sweep, AC
+     once a drain (one launch over every pending voxel); every fused pose stay finite and the fused error < 0.06 m; AA, AB
+     and AC are held against their plain versions on the last chunk, the
+     last textured sweep and the last drain's voxels (AA's means bit for bit
+     against the CPU's pass; AB's visibility equal but within 1e-5 of a
+     border, colours to 1e-3; AC's verdicts equal but where a test's margin
+     is within 1e-5 of its terms, each such triple named, and bit for bit
+     the launches of 32 voxels on the same codes; each twice the same
+     bits); export_mesh's PLY header counts must equal stats(). AC's
+     launches a drain, its device ms a tick and the syncs a sweep by call
+     site are printed. The mesh's vertices, meshed voxels and triangles and
      its textured share are printed beside the JAX package's on the same
      drive (tests/torch_system_reference.py mesh), and the system tick
      beside phase 8's, with the mesh feed's host wall and syncs a sweep and
@@ -395,14 +401,17 @@ def sync_site(counter):
     return show
 
 
-# kernels F, C, W and X by their __global__ names (csrc/radix_sort.cu,
-# proj_normal.cu, chol_solve.cu, sym_eig.cu): phase 8 prints their device
-# ms a tick
+# kernels F, C, W, X, L (with P's rows) and AC by their __global__ names
+# (csrc/radix_sort.cu, proj_normal.cu, chol_solve.cu, sym_eig.cu,
+# small_normal.cu, mesh_delaunay.cu): phases 8, 10 and 14 print their
+# device ms a tick
 KERNEL_GROUPS = {
     "F": ("radix_kernel",),
     "C": ("proj_feature_kernel", "proj_reduce_kernel"),
     "W": ("chol_cluster_kernel", "chol_coop_kernel", "chol_back_kernel"),
-    "X": ("tridiag_kernel", "dc_kernel", "back_kernel")}
+    "X": ("tridiag_kernel", "dc_kernel", "back_kernel"),
+    "L": ("small_rows_kernel", "small_reduce_kernel"),
+    "AC": ("mesh_delaunay_kernel",)}
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -438,14 +447,15 @@ def device_split(prof, n_ticks: int) -> dict:
     port's kernels, whose qualified names are exactly those of csrc/*.cu's
     ``__global__`` functions; torch.linalg's cuSOLVER and triangular-solve
     kernels; every other kernel), the kernel launches a tick and the device
-    time a tick of each port kernel seen."""
+    time and launches a tick of each port kernel seen, and each group of
+    ``KERNEL_GROUPS`` summed (``by_kernel_ms_per_tick``)."""
     import torch
     ours = port_kernel_names()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.name.startswith(("Memcpy", "Memset"))]
     ms = dict(port=0.0, linalg=0.0, other=0.0)
-    seen = collections.Counter()
+    seen, count = collections.Counter(), collections.Counter()
     for e in kernels:
         qual = kernel_qualname(e.name)
         cls = ("port" if qual in ours else
@@ -453,11 +463,17 @@ def device_split(prof, n_ticks: int) -> dict:
                else "other")
         if cls == "port":
             seen[qual[len(ANON):]] += e.time_range.elapsed_us() / 1e3
+            count[qual[len(ANON):]] += 1
         ms[cls] += e.time_range.elapsed_us() / 1e3
+    per = {k: v / n_ticks for k, v in sorted(seen.items())}
     return dict(device_ms_per_tick={k: v / n_ticks for k, v in ms.items()},
                 launches_per_tick=len(kernels) / n_ticks,
-                port_kernel_ms_per_tick={k: v / n_ticks
-                                         for k, v in sorted(seen.items())})
+                port_kernel_ms_per_tick=per,
+                port_kernel_launches_per_tick={
+                    k: v / n_ticks for k, v in sorted(count.items())},
+                by_kernel_ms_per_tick={
+                    k: sum(per.get(n, 0.0) for n in names)
+                    for k, names in KERNEL_GROUPS.items()})
 
 
 def start_profiler():
@@ -765,11 +781,6 @@ def system_main_path(dev, card, frames):
         return "non-finite marginalization prior", launches, None
     r = checks.system_errors(gf.trajectory, vio, frames)
     split = device_split(prof, len(syncs_seen)) if prof is not None else {}
-    if split:
-        per = split["port_kernel_ms_per_tick"]
-        split["by_kernel_ms_per_tick"] = {
-            k: sum(per.get(n, 0.0) for n in names)
-            for k, names in KERNEL_GROUPS.items()}
     print("system tick split over the last 3 ticks (torch.profiler, CUDA "
           f"activities; printed only): {json.dumps(split)}, host wall a tick "
           f"{[round(t, 2) for t in tick_ms[-len(syncs_seen):]]} ms (profiled "
@@ -883,12 +894,25 @@ def gnss_main_path(dev, card):
     mg.sym_eig = recording
     _kernels.launches.clear()
     try:
-        outs, tick_ms, opt_ms, enabled, align = _gnss_drive(gf, frames)
+        outs, tick_ms, opt_ms, enabled, align, prof = _gnss_drive(
+            gf, frames, profile_last=3)
     finally:
         mg.sym_eig = sym_eig
     if isinstance(outs, str):
         return outs, {}, gf
     launches = dict(_kernels.launches)
+    if prof is not None:
+        split = device_split(prof, 3)
+        n = split["port_kernel_launches_per_tick"]
+        print(f"gnss tick split over the last 3 ticks (torch.profiler, CUDA "
+              f"activities; printed only): kernels L and P "
+              f"{split['by_kernel_ms_per_tick']['L']:.4f} device ms a tick in "
+              f"{sum(n.get(k, 0.0) for k in KERNEL_GROUPS['L']):g} launches "
+              f"a tick (by kernel {json.dumps({k: n.get(k, 0.0) for k in KERNEL_GROUPS['L']})}), "
+              f"the tick {split['device_ms_per_tick']} device ms in "
+              f"{split['launches_per_tick']:g} launches; by kernel "
+              f"{json.dumps(split['by_kernel_ms_per_tick'])} | {card}",
+              flush=True)
     near = [int(((w > 1e-7) & (w < 1e-5)).sum()) for w in eig_w]
     print(f"gnss path: {len(eig_w)} eigensolves in the marginalizations "
           f"(sizes {sorted({int(w.numel()) for w in eig_w})}), eigenvalues "
@@ -905,14 +929,17 @@ def gnss_main_path(dev, card):
                        launches, card)
 
 
-def _gnss_drive(gf, frames):
-    """Phase 10's drive loop; (outs, tick_ms, opt_ms, enabled, align), or
+def _gnss_drive(gf, frames, profile_last: int = 0):
+    """Phase 10's drive loop; (outs, tick_ms, opt_ms, enabled, align, the
+    torch.profiler trace of the last ``profile_last`` frames or None), or
     the error message in place of outs."""
     import torch
     from ground_fusion2_tpu_torch import checks
     outs, tick_ms, opt_ms, enabled = [], [], [], []
-    align = None
+    align, prof = None, None
     for k, f in enumerate(frames):
+        if k == len(frames) - profile_last and prof is None:
+            prof = start_profiler()
         fused = gf.vio.carry is not None
         n_opt = len(gf.telemetry.events)
         torch.cuda.synchronize()
@@ -932,9 +959,14 @@ def _gnss_drive(gf, frames):
             align = k
         if o is not None and o.initialized and not (
                 np.all(np.isfinite(o.p)) and np.all(np.isfinite(o.q))):
-            return f"non-finite state at t={f['t']:.2f}", None, None, None, None
+            if prof is not None:
+                prof.__exit__(None, None, None)
+            return (f"non-finite state at t={f['t']:.2f}", None, None, None,
+                    None, None)
         outs.append(o)
-    return outs, tick_ms, opt_ms, enabled, align
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    return outs, tick_ms, opt_ms, enabled, align, prof
 
 
 def _gnss_gates(gf, frames, outs, tick_ms, opt_ms, enabled, align, launches,
@@ -1201,9 +1233,10 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
     three-channel texture and the latest VIO pose composed with the rig's
     extrinsic (checks.mesh_texture, as data/m3dgr_sim.py:392-404 feeds it),
     then flush. AA must launch once an insert chunk, AB once a textured
-    sweep, AC once a drained batch; every fused pose finite and the fused
-    error < SYS_MAX_ERR; on the last calls AA, AB and AC are held against
-    their plain versions; export_mesh's PLY header counts equal stats().
+    sweep, AC once a drain that has voxels pending (its wrapper calls equal
+    those drains); every fused pose finite and the fused error <
+    SYS_MAX_ERR; on the last calls AA, AB and AC are held against their
+    plain versions; export_mesh's PLY header counts equal stats().
     Printed: the mesh's figures beside the JAX package's, the system tick
     beside phase 8's, the mesh feed's host wall and syncs a sweep and
     torch.profiler's split of the last 3 ticks. Returns (error or None,
@@ -1244,11 +1277,17 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
         feed_syncs.append(sum(got.values()))
         sites.update(got)
     mesher.add_frame = timed_add
+    drain, drains = mesher._drain, [0]
+
+    def counted_drain():
+        drains[0] += bool(mesher._pending)
+        drain()
+    mesher._drain = counted_drain
     vio, tick_ms, prof = [], [], None
     _kernels.launches.clear()
     with CallCounter(mi, "insert") as ins, \
             CallCounter(mi, "update_rgb") as rgb, \
-            CallCounter(mi, "retriangulate") as tri:
+            CallCounter(mi, "retriangulate_packed") as tri:
         for k, f in enumerate(frames):
             live = gf.vio.carry is not None and gf.lio.carry is not None
             watch[0] = live and k >= len(frames) - 3
@@ -1272,7 +1311,7 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
         if out is not None and out.initialized:
             vio.append(out)
         torch.cuda.synchronize()
-    del mesher.add_frame
+    del mesher.add_frame, mesher._drain
     launches = dict(_kernels.launches)
     calls = dict(mesh_insert=ins.n, mesh_rgb=rgb.n, mesh_delaunay=tri.n)
     res = {}
@@ -1284,8 +1323,8 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
         m1, img, intr, r_wc, t_wc, _ = rgb.recent[-1]
         res["mesh_rgb"] = checks.check_mesh_rgb(dev, m1, img, intr, r_wc,
                                                 t_wc, cfg)
-        full = [a for a in tri.recent if bool((a[1] != mi.INVALID).all())]
-        m2, codes, _ = (full or list(tri.recent))[-1]
+        # the largest of the last drains' voxel sets, in one launch
+        m2, codes, _ = max(tri.recent, key=lambda a: a[1].numel())
         res["mesh_delaunay"] = checks.check_mesh_delaunay(dev, m2, codes, cfg)
     st = mesher.stats()
     live_rows = mesher.mesh.code != mi.INVALID
@@ -1311,6 +1350,14 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
           f"{len(feed_ms)} unwatched sweeps; synchronizing calls a sweep "
           f"{feed_syncs} over the last 3 (by call site "
           f"{dict(sites.most_common())}) | {card}", flush=True)
+    ac_tick = split.get("by_kernel_ms_per_tick", {}).get("AC", float("nan"))
+    print(f"kernel AC on the mesh path: {launches.get('mesh_delaunay', 0)} "
+          f"launches over {drains[0]} drains with voxels pending "
+          f"({launches.get('mesh_delaunay', 0) / max(drains[0], 1):g} a "
+          f"drain; {tri.n} wrapper calls), {ac_tick:.4f} device ms a tick "
+          f"over the last 3 ticks (torch.profiler), the last drains' voxels "
+          f"{[int((a[1] != mi.INVALID).sum()) for a in tri.recent]} | {card}",
+          flush=True)
     print(f"mesh path: {len(tick_ms)} system ticks with the mesh on, median "
           f"system tick {median:.2f} ms (phase 8 without it: "
           f"{sys_median_ms:.2f} ms; synchronized wall), fused position error "
@@ -1327,6 +1374,9 @@ def mesh_main_path(dev, card, frames, sys_median_ms):
     if grew != calls or min(calls.values()) == 0:
         return (f"mesh kernels launched {grew} for wrapper calls {calls}",
                 launches, res)
+    if tri.n != drains[0]:
+        return (f"kernel AC ran {tri.n} calls over {drains[0]} drains: one "
+                "launch a drain", launches, res)
     if not all(np.all(np.isfinite(o.p)) and np.all(np.isfinite(o.q))
                for o in gf.trajectory):
         return "a non-finite fused pose", launches, res
@@ -1649,6 +1699,13 @@ def main() -> int:
           f"call {c['device_ms']:.4f}, launches a call "
           f"{c['launches_per_call']:g} (torch.profiler, every CUDA activity; "
           f"host-inclusive call ms {c['ms']:.4f}) | {card}", flush=True)
+    c = res["small_normal"]
+    print(f"kernel L (small_normal) at F = 150, D = {c['dim']}: device ms a "
+          f"linearization {c['device_ms']:.4f} in {c['launches_per_call']:g} "
+          f"CUDA activities (its two kernels, the prior's plain products), "
+          f"the pack once a solve {c['pack_device_ms']:.4f} ms in "
+          f"{c['pack_launches']:g} (torch.profiler; host-inclusive call ms "
+          f"{c['ms']:.4f}) | {card}", flush=True)
     from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
     H, g, _ = window_normal_equations(x0, meas, layout, vcfg, delta)
     # W on the window's damped step, X on its two eliminations

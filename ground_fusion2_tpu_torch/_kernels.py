@@ -52,7 +52,8 @@ _SIGNATURES = {
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
     "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 6,
-    "gf2_small_normal": [_P] * 11 + [_I] * 18 + [_F] * 4 + [_P] * 8,
+    "gf2_small_rows": [_P] * 13 + [_I] * 18 + [_F] * 4 + [_P] * 4,
+    "gf2_small_reduce": [_I] * 3 + [_P] * 12,
     "gf2_brief_describe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "gf2_simhash": [_P, _P, _P, _I, _P, _P, _P],
     "gf2_hamming": [_P, _P, _I, _I, _P, _P],
@@ -79,7 +80,7 @@ _SIGNATURES = {
     "gf2_mesh_insert": [_P] * 4 + [_I] * 2 + [_P] * 4,
     "gf2_mesh_rgb": [_P] * 5 + [_I, _P, _I, _I, _P] + [_F] * 4 + [_P] * 5,
     "gf2_mesh_delaunay": ([_P] * 3 + [_I] + [_P] * 2 + [_I] * 4 + [_P, _I]
-                          + [_F] * 4 + [_P] * 4),
+                          + [_F] * 4 + [_P] * 6),
     "gf2_line_detect": [_P] + [_I] * 5 + [_F] * 5 + [_P] * 4,
     "gf2_line_refit": [_I] * 3 + [_P] * 5 + [_I, _F, _F] + [_P] * 3,
     "gf2_dist_schur": ([_P] * 14 + [_I] * 7 + [_F] * 3 + [_I] + [_P] * 8

@@ -1072,10 +1072,14 @@ def _f64(tree):
 def check_small_normal(device, x0, meas, layout, delta, cfg,
                        timed: bool = True) -> dict:
     """Kernel L (with kernel P's GNSS rows when ``cfg.use_gnss``) against
-    the plain jacfwd route over every row but the projection block's, and a
-    repeated call bit for bit."""
+    the plain jacfwd route over every row but the projection block's; the
+    closure of a solve (:func:`fac.small_normal_fn`, inputs packed once)
+    and the one-shot form bit for bit. Timed: the
+    closure's calls (the LM's linearizations), and the pack once a solve
+    beside them (``pack_device_ms``, ``pack_launches``)."""
     args = (x0, delta, meas, layout, cfg)
-    Hk, gk, ck = fac.small_normal_equations(*args)
+    fn = fac.small_normal_fn(x0, meas, layout, cfg)
+    Hk, gk, ck = fn(delta)
     H2, g2, c2 = fac.small_normal_equations(*args)
     same = bool(torch.equal(Hk, H2) and torch.equal(gk, g2)
                 and torch.equal(ck, c2))
@@ -1114,10 +1118,12 @@ def check_small_normal(device, x0, meas, layout, delta, cfg,
                **bound(nb, flops),
                ok=same and all(errs[k] <= tols[k] for k in errs))
     if timed:
-        out["ms"] = time_ms(lambda: fac.small_normal_equations(*args))
+        out["ms"] = time_ms(lambda: fn(delta))
         out["plain_ms"] = time_ms(
             lambda: fac.small_normal_equations_plain(*args), reps=5)
-        out.update(device_pair(lambda: fac.small_normal_equations(*args)))
+        out.update(device_pair(lambda: fn(delta)))
+        pack = device_ms(lambda: fac.small_normal_fn(x0, meas, layout, cfg))
+        out.update(pack_device_ms=pack.ms, pack_launches=pack.launches)
     return out
 
 
@@ -2580,23 +2586,43 @@ def _triple_margins(p2, pts, mask, origin, cfg, t: int) -> dict:
 
 
 def check_mesh_delaunay(device, mesh, codes, cfg, timed: bool = True) -> dict:
-    """Kernel AC against ``retriangulate_plain`` on the card, on one dirty
-    batch: every triple's verdict equal but where one of its tests lies
-    within ``DELAUNAY_BAND`` of its threshold (each such triple named with
-    its margins), and the written triangles equal on every voxel whose
-    verdicts agree; twice the same bits. No PyTorch call computes the
-    function or a large part of it: ``library_ms`` is None."""
+    """Kernel AC against ``retriangulate_plain`` on the card, over the dirty
+    voxels ``codes`` in one launch (any number, as a drain launches it):
+    every triple's verdict equal but where one of its tests lies within
+    ``DELAUNAY_BAND`` of its threshold (each such triple named with its
+    margins), and the written triangles equal on every voxel whose verdicts
+    agree; twice the same bits; the same bits as launches of
+    ``dirty_batch`` voxels; the drain's packed form holding each voxel's
+    kept slots at disjoint offsets. The plain side runs in chunks of
+    ``dirty_batch``. No PyTorch call computes the function or a large part
+    of it: ``library_ms`` is None."""
     from .mesh import incremental as mi
     codes = codes.to(device=device, dtype=torch.int32)
+    B, db, T = codes.shape[0], cfg.dirty_batch, cfg.tri_cap
     tk, mk, kk = mi.retriangulate(mesh, codes, cfg, with_keep=True)
     tk2, mk2, kk2 = mi.retriangulate(mesh, codes, cfg, with_keep=True)
+    parts = [mi.retriangulate(mesh, codes[s:s + db], cfg, with_keep=True)
+             for s in range(0, B, db)]
+    batch_equal = all(torch.equal(torch.cat(p), x)
+                      for p, x in zip(zip(*parts), (tk, mk, kk)))
+    meta, packed = mi.retriangulate_packed(mesh, codes, cfg)
+    cnt, off = meta[:B].long(), meta[B:2 * B].long()
+    # the voxels with triangles tile [0, total) in offset order
+    lo = torch.sort(off[cnt > 0]).values
+    hi = torch.sort((off + cnt)[cnt > 0]).values
+    rows = off[:, None] + torch.arange(T, device=device)[None]
+    packed_equal = bool(
+        torch.equal(cnt, mk.sum(1)) and int(meta[-1]) == int(mk.sum())
+        and (lo.numel() == 0 or (int(lo[0]) == 0 and int(hi[-1]) == int(
+            meta[-1]) and torch.equal(lo[1:], hi[:-1])))
+        and torch.equal(packed[rows[mk]], tk[mk]))
     tp, mp, kp = mi.retriangulate_plain(mesh, codes, cfg, with_keep=True)
-    sel, vid, mask = mi.gather_candidates(mesh, codes, cfg)
-    p2 = mi.plane_coords(sel, vid, mask, cfg)
     differ = (kk != kp).nonzero().tolist()
     named = []
     for b, t in differ[:64]:
-        mg = _triple_margins(p2[b], sel[b], mask[b], mesh.origin, cfg, t)
+        sel, vid, mask = mi.gather_candidates(mesh, codes[b:b + 1], cfg)
+        p2 = mi.plane_coords(sel, vid, mask, cfg)
+        mg = _triple_margins(p2[0], sel[0], mask[0], mesh.origin, cfg, t)
         mg["voxel"] = int(codes[b])
         mg["within_band"] = min(mg["sliver"], mg["edge"], mg["incircle"],
                                 mg["ownership"]) <= DELAUNAY_BAND
@@ -2606,43 +2632,55 @@ def check_mesh_delaunay(device, mesh, codes, cfg, timed: bool = True) -> dict:
     err = float(slot_diff.max()) if slot_diff.numel() else 0.0
     out_equal = bool(torch.equal(tk[agree], tp[agree])
                      and torch.equal(mk[agree], mp[agree]))
-    # the work this batch needs: the filters on every triple of three
+    # the work these voxels need: the filters on every triple of three
     # candidates, then in-circle tests up to the first point inside
-    tt = mi.triple_tests(p2, mask, cfg)
-    tested = tt["tri_valid"][..., None] & mask[:, None, :] & torch.as_tensor(
-        mi._not_in_triple(mask.shape[1]), device=device)[None]
-    first_in = torch.where(tt["inside"].any(-1),
-                           tt["inside"].int().argmax(-1),
-                           torch.full_like(tt["o"], mask.shape[1],
-                                           dtype=torch.int64))
-    upto = torch.arange(mask.shape[1], device=device)[None, None] \
-        <= first_in[..., None]
-    n_tests = int((tested & upto).sum())
-    combos = tt["combos"]
-    n_triples = int((mask[:, combos[:, 0]] & mask[:, combos[:, 1]]
-                     & mask[:, combos[:, 2]]).sum())
+    n_tests = n_triples = n_cand = 0
+    for s in range(0, B, db):
+        sel, vid, mask = mi.gather_candidates(mesh, codes[s:s + db], cfg)
+        tt = mi.triple_tests(mi.plane_coords(sel, vid, mask, cfg), mask, cfg)
+        tested = tt["tri_valid"][..., None] & mask[:, None, :] & torch.as_tensor(
+            mi._not_in_triple(mask.shape[1]), device=device)[None]
+        first_in = torch.where(tt["inside"].any(-1),
+                               tt["inside"].int().argmax(-1),
+                               torch.full_like(tt["o"], mask.shape[1],
+                                               dtype=torch.int64))
+        upto = torch.arange(mask.shape[1], device=device)[None, None] \
+            <= first_in[..., None]
+        n_tests += int((tested & upto).sum())
+        combos = tt["combos"]
+        n_triples += int((mask[:, combos[:, 0]] & mask[:, combos[:, 1]]
+                          & mask[:, combos[:, 2]]).sum())
+        n_cand += int(mask.sum())
     out = dict(max_abs_err=err, differing_triples=len(differ),
                differing_off_band=sum(not m["within_band"] for m in named)
                + max(0, len(differ) - len(named)),
                named=named[:8], outputs_equal=out_equal,
                repeat_equal=bool(torch.equal(tk, tk2) and torch.equal(mk, mk2)
                                  and torch.equal(kk, kk2)),
-               voxels=int((codes != mi.INVALID).sum()),
-               candidates=int(mask.sum()), triangles=int(mp.sum()),
+               batch_equal=batch_equal, packed_equal=packed_equal,
+               voxels=int((codes != mi.INVALID).sum()), launch_voxels=B,
+               candidates=n_cand, triangles=int(mp.sum()),
                in_circle_tests=n_tests,
                # the 7 row ranges' searches and the gathered rows in, the
                # slots out; ~30 f32 operations a test, ~20 a triple
                **bound(_nbytes(codes, tk, mk) + 16 * 7 * cfg.gather_k
                        * codes.numel(), 30 * n_tests + 20 * n_triples))
     out["ok"] = (out["differing_off_band"] == 0 and out_equal
-                 and out["repeat_equal"])
+                 and out["repeat_equal"] and batch_equal and packed_equal)
     if timed:
-        out["ms"], out["plain_ms"] = _time_pair(
-            lambda: mi.retriangulate(mesh, codes, cfg),
-            lambda: mi.retriangulate_plain(mesh, codes, cfg), reps=10)
+        big = B > 4 * db
+        out["ms"] = time_ms(lambda: mi.retriangulate(mesh, codes, cfg),
+                            reps=10)
+        out["plain_ms"] = time_ms(
+            lambda: mi.retriangulate_plain(mesh, codes, cfg),
+            reps=3 if big else 10, warmup=1 if big else 3)
         out["library_ms"] = None
         out.update(device_pair(lambda: mi.retriangulate(mesh, codes, cfg),
                                reps=10))
+        packed_dt = device_ms(
+            lambda: mi.retriangulate_packed(mesh, codes, cfg), reps=10)
+        out.update(packed_device_ms=packed_dt.ms,
+                   packed_launches=packed_dt.launches)
     return out
 
 

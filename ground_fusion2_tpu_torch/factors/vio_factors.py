@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import _kernels
@@ -269,16 +270,29 @@ def _frame_dt(meas, layout, dtype, dev):
 def small_normal_equations(x0: WindowState, delta: torch.Tensor, meas,
                            layout: WindowLayout, cfg):
     """(H [D, D], g [D], cost []) of the rows of :func:`small_residual_parts`
-    linearized at ``retract(x0, delta)``.
+    linearized at ``retract(x0, delta)``: one call of
+    :func:`small_normal_fn`, kernels L and P on the card (inputs packed for
+    this call alone), the plain version on the CPU."""
+    if delta.is_cuda:
+        return _small_normal_cuda_fn(x0, meas, layout, cfg)(delta)
+    return small_normal_equations_plain(x0, delta, meas, layout, cfg)
+
+
+def small_normal_fn(x0: WindowState, meas, layout: WindowLayout, cfg):
+    """``delta -> (H, g, cost)`` of :func:`small_normal_equations` around
+    ``x0``, for the LM's linearizations within one solve.
 
     Kernel L on the card (a warp per factor instance, forward-mode duals
-    over the ≤ 30 columns it touches, a fixed-order sum; the prior's
-    sqrt_J·J⊟ by the same source, its Gram matrix a plain product), with
-    the GNSS rows as kernel P's instances in the same launch; the plain
-    version on the CPU."""
-    if delta.is_cuda:
-        return _small_normal_equations_cuda(x0, delta, meas, layout, cfg)
-    return small_normal_equations_plain(x0, delta, meas, layout, cfg)
+    over the ≤ 30 columns it touches; a reduce that walks each row's
+    instances in a fixed order; the prior's sqrt_J·J⊟ by the same source,
+    its Gram product a plain ``matmul``), with the GNSS rows as kernel P's
+    instances in the same launches: the inputs packed and the scratch
+    allocated once, two kernel launches and two plain products a call.
+    The plain version on the CPU."""
+    if not x0.p.is_cuda:
+        return lambda delta: small_normal_equations_plain(x0, delta, meas,
+                                                          layout, cfg)
+    return _small_normal_cuda_fn(x0, meas, layout, cfg)
 
 
 def small_normal_equations_plain(x0, delta, meas, layout, cfg):
@@ -383,46 +397,142 @@ def _offsets(layout: WindowLayout) -> list:
             layout.gyaw_off, layout.ganchor_off]
 
 
-def _small_normal_equations_cuda(x0, delta, meas, layout, cfg):
-    dev = delta.device
+def instance_columns(W: int, S: int, layout: WindowLayout, cfg) -> np.ndarray:
+    """[n_inst, 32] int32: the dense column of each lane of each factor
+    instance of kernels L and P, -1 past its columns, in the kernel's
+    instance order (``csrc/window_rows.cuh:instance``): IMU interval k (both
+    frames' pose and speed-bias), wheel interval k (both poses, the wheel
+    extrinsic and intrinsics), plane row k = 1..W-1 (pose 0, pose k, the
+    wheel extrinsic), motion row k (pose k, v_k, the wheel extrinsic),
+    pos-vel interval k (both positions and speeds), the (frame, satellite)
+    pseudoranges (p_w, yaw, the anchor, frame w's clocks), Dopplers (v_w,
+    yaw, frame w's drift) and the clock intervals (both frames' clocks and
+    drifts). The lanes' order is the one ``residual()`` seeds its duals
+    in."""
+    po, so, we = layout.pose_off, layout.sb_off, layout.wext_off
+    ar = np.arange
+    pose = lambda k, n=6: po + 6 * k + ar(n)
+    sb = lambda k, n=9: so + 9 * k + ar(n)
+    wext = we + ar(6)
+    fam = {
+        "imu": [np.r_[pose(k), sb(k), pose(k + 1), sb(k + 1)]
+                for k in range(W - 1)],
+        "wheel": [np.r_[pose(k), pose(k + 1), wext, layout.wint_off + ar(3)]
+                  for k in range(W - 1)],
+        "plane": [np.r_[pose(0), pose(k), wext] for k in range(1, W)],
+        "motion": [np.r_[pose(k), sb(k, 3), wext] for k in range(W)],
+        "posvel": [np.r_[pose(k, 3), pose(k + 1, 3), sb(k, 3), sb(k + 1, 3)]
+                   for k in range(W - 1)],
+        "gnss_psr": [np.r_[pose(w, 3), layout.gyaw_off,
+                           layout.ganchor_off + ar(3),
+                           layout.gdt_off + 4 * w + ar(4)]
+                     for w in range(W) for _ in range(S)],
+        "gnss_dopp": [np.r_[sb(w, 3), layout.gyaw_off, layout.gddt_off + w]
+                      for w in range(W) for _ in range(S)],
+        "gnss_clock": [np.r_[layout.gdt_off + 4 * k + ar(8),
+                             layout.gddt_off + k + ar(2)]
+                       for k in range(W - 1)],
+    }
+    rows = []
+    for name, n in _instance_counts(W, S, cfg).items():
+        rows += fam[name][:n]
+    out = np.full((len(rows), 32), -1, np.int32)
+    for n, cols in enumerate(rows):
+        out[n, :len(cols)] = cols
+    return out
+
+
+class SmallLayout(NamedTuple):
+    """Kernel L's per-layout tables on the device: ``lcol`` [n_inst, 32]
+    (:func:`instance_columns`) and the CSR lists of each frame row's
+    instances in increasing index order: ``rowptr`` [fd + 1], ``rinst`` and
+    ``rlane`` [nnz] (the instance and its lane on the row)."""
+    lcol: torch.Tensor
+    rowptr: torch.Tensor
+    rinst: torch.Tensor
+    rlane: torch.Tensor
+
+
+def small_row_lists(lcol: np.ndarray, fd: int):
+    """(rowptr [fd + 1], rinst [nnz], rlane [nnz]) from the lane columns
+    ``lcol``: row r's instances are those with a lane on column r, in
+    increasing index order."""
+    n_idx, lane = np.nonzero(lcol >= 0)
+    col = lcol[n_idx, lane]
+    order = np.lexsort((n_idx, col))                 # by row, then instance
+    rowptr = np.r_[0, np.cumsum(np.bincount(col, minlength=fd))]
+    return (rowptr.astype(np.int32), n_idx[order].astype(np.int32),
+            lane[order].astype(np.int32))
+
+
+_SMALL_LAYOUTS: dict = {}
+
+
+def small_layout(layout: WindowLayout, S: int, cfg, device) -> SmallLayout:
+    """:class:`SmallLayout` of this layout, GNSS width and factor set, built
+    on the host once and cached on ``device``."""
+    key = (layout.W, layout.frame_dim, tuple(_offsets(layout)), S,
+           tuple(_instance_counts(layout.W, S, cfg).values()), str(device))
+    if key not in _SMALL_LAYOUTS:
+        lcol = instance_columns(layout.W, S, layout, cfg)
+        _SMALL_LAYOUTS[key] = SmallLayout(*(
+            torch.as_tensor(np.ascontiguousarray(a), device=device)
+            for a in (lcol, *small_row_lists(lcol, layout.frame_dim))))
+    return _SMALL_LAYOUTS[key]
+
+
+def _small_normal_cuda_fn(x0, meas, layout, cfg):
+    dev = x0.p.device
     W, D, K = layout.W, layout.dim, layout.frame_dim
-    if tuple(delta.shape) != (D,):
-        raise ValueError("small_normal kernel: state, layout and delta "
-                         "disagree in shape")
-    xs, imu, whl, misc, gx, gtab, pbase, pq, sqrt_J, r0 = _small_inputs(
-        x0, meas, layout, cfg)
-    ins = [xs, imu, whl, misc, gx, gtab,
-           delta.to(dtype=torch.float32).contiguous(), pbase, pq, sqrt_J, r0]
     S = meas.gnss.u_enu.shape[1]
     n_inst = _n_instances(W, S, cfg)
+    ins = _small_inputs(x0, meas, layout, cfg)
+    valid = meas.prior.valid.to(device=dev, dtype=torch.float32).reshape(1)
+    tab = small_layout(layout, S, cfg, dev)
     # per instance: H and g partials (f32), its cost (f64: two f32 slots)
-    scratch = torch.empty((n_inst * (32 * 32 + 32 + 2) + K + 9 * (W + 3),),
-                          dtype=torch.float32, device=dev)
-    inv = torch.empty((n_inst * K,), dtype=torch.int32, device=dev)
-    H = torch.zeros((D, D), dtype=torch.float32, device=dev)
-    g = torch.zeros((D,), dtype=torch.float32, device=dev)
-    cost = torch.empty((1,), dtype=torch.float32, device=dev)
-    Jp = torch.empty((K, K), dtype=torch.float32, device=dev)
-    rp = torch.empty((K,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_inst * (32 * 32 + 32 + 2),), dtype=torch.float32,
+                          device=dev)
+    # the prior's weighted rows, each its own allocation as the plain
+    # products read them
+    Jw = torch.empty((K, K), dtype=torch.float32, device=dev)
+    rw = torch.empty((K,), dtype=torch.float32, device=dev)
     P = lambda t: ctypes.c_void_p(t.data_ptr())
-    err = _kernels.library().gf2_small_normal(
-        *[P(t) for t in ins], W, D, K, *_offsets(layout),
-        S, int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
-        int(cfg.use_gnss), ctypes.c_float(cfg.g_norm),
-        ctypes.c_float(cfg.plane_weight), ctypes.c_float(cfg.motion_weight),
-        ctypes.c_float(cfg.posvel_weight), P(scratch), P(inv), P(H), P(g),
-        P(cost), P(Jp), P(rp),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _kernels.check(err, "gf2_small_normal")
-    _kernels.count("small_normal")
-    if cfg.use_gnss:
-        _kernels.count("gnss_normal")
-    # the prior's rows: a plain 246² Gram product
-    valid = meas.prior.valid.to(device=dev, dtype=torch.float32)
-    Jw, rw = Jp * valid, rp * valid
-    H[:K, :K] += Jw.T @ Jw
-    g[:K] += Jw.T @ rw
-    return H, g, cost[0] + 0.5 * torch.sum(rw * rw)
+    head = [P(t) for t in ins[:6]]
+    prior = [P(t) for t in ins[6:]] + [P(valid), P(tab.lcol)]
+    scalars = [W, D, K, *_offsets(layout), S, int(cfg.use_wheel),
+               int(cfg.use_plane), int(cfg.use_motion), int(cfg.use_gnss),
+               ctypes.c_float(cfg.g_norm), ctypes.c_float(cfg.plane_weight),
+               ctypes.c_float(cfg.motion_weight),
+               ctypes.c_float(cfg.posvel_weight)]
+    lists = [P(t) for t in (tab.rowptr, tab.rinst, tab.rlane, tab.lcol)]
+    lib = _kernels.library()
+
+    def linearize(delta: torch.Tensor):
+        if tuple(delta.shape) != (D,) or delta.device != dev:
+            raise ValueError("small_normal kernel: state, layout and delta "
+                             "disagree in shape or device")
+        d = delta.to(dtype=torch.float32).contiguous()
+        stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+        err = lib.gf2_small_rows(*head, P(d), *prior, *scalars, P(scratch),
+                                 P(Jw), P(rw), stream)
+        _kernels.check(err, "gf2_small_rows")
+        # the prior's Gram rows: plain products, as the JAX package leaves
+        # them to XLA
+        G = Jw.T @ Jw
+        gv = Jw.T @ rw
+        H = torch.empty((D, D), dtype=torch.float32, device=dev)
+        g = torch.empty((D,), dtype=torch.float32, device=dev)
+        cost = torch.empty((1,), dtype=torch.float32, device=dev)
+        err = lib.gf2_small_reduce(n_inst, K, D, *lists, P(scratch), P(G),
+                                   P(gv), P(rw), P(H), P(g), P(cost), stream)
+        _kernels.check(err, "gf2_small_reduce")
+        _kernels.count("small_normal")
+        if cfg.use_gnss:
+            _kernels.count("gnss_normal")
+        return H, g, cost[0]
+
+    linearize.inputs = ins + [valid]   # held alive with the closure
+    return linearize
 
 
 # ------------------------------------------------ kernel S: the window cost

@@ -29,8 +29,10 @@ breaks cocircular ties does (it is added in plane coordinates), so the port
 fixes this convention in the kernel and its twin alike.
 
 :class:`OnlineMesher` runs on the host: the per-voxel triangle registry
-and the dirty set live on the host, as in the JAX package; each drained
-batch of ``dirty_batch`` voxels is one device call and one read-back.
+and the dirty set live on the host, as in the JAX package; a drain is one
+device call over every pending voxel and two read-backs (the JAX package
+calls the device and reads back once a batch of ``dirty_batch`` voxels; the
+batches are independent, so only the syncs differ).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ class MeshConfig(NamedTuple):
     gather_k: int = 12           # per-voxel gather window at retriangulation
     cand: int = 32               # candidate vertices per triangulated voxel
     tri_cap: int = 48            # triangle slots per voxel
-    dirty_batch: int = 32        # voxels retriangulated per device call
+    dirty_batch: int = 32        # a drain's pad unit; the plain route's chunk
     insert_chunk: int = 4096     # fixed host->device insert batch
     rgb_max_weight: float = 16.0  # cap on the running color weight
     min_z: float = 0.1           # camera near plane for texturing
@@ -588,47 +590,86 @@ def retriangulate_plain(mesh: MeshMap, codes, cfg: MeshConfig,
                         with_keep: bool = False):
     """JAX ``retriangulate``: (tri_vid [B, T, 3] stable vertex ids,
     tri_mask [B, T]) for the dirty voxel ``codes`` [B] int32 (INVALID
-    padded); with ``with_keep`` also every triple's keep flag [B, C]."""
-    sel, vid, mask = gather_candidates(mesh, codes, cfg)
-    return delaunay_plain(sel, vid, mask, codes, mesh.origin, cfg, with_keep)
+    padded); with ``with_keep`` also every triple's keep flag [B, C]. Any
+    B, in chunks of ``dirty_batch`` voxels (the dense tests hold ~4 MB a
+    voxel at cand = 32)."""
+    outs = []
+    for s in range(0, max(codes.shape[0], 1), cfg.dirty_batch):
+        c = codes[s:s + cfg.dirty_batch]
+        sel, vid, mask = gather_candidates(mesh, c, cfg)
+        outs.append(delaunay_plain(sel, vid, mask, c, mesh.origin, cfg,
+                                   with_keep))
+    return tuple(torch.cat(x) for x in zip(*outs))
 
 
-def retriangulate(mesh: MeshMap, codes, cfg: MeshConfig,
-                  with_keep: bool = False):
-    """Retriangulate a batch of dirty voxels (kernel AC on the card: one CTA
-    a voxel). See :func:`retriangulate_plain`; with ``with_keep`` the kernel
-    also writes every triple's keep flag [B, C]."""
-    if not mesh.pts.is_cuda:
-        return retriangulate_plain(mesh, codes, cfg, with_keep)
+def _delaunay_launch(mesh: MeshMap, codes, cfg: MeshConfig, tri_vid=None,
+                     tri_mask=None, keep=None, meta=None, packed=None):
+    """Kernel AC over every voxel of ``codes`` in one launch, into the
+    outputs given (see ``csrc/mesh_delaunay.cu``)."""
     M, T, gk = cfg.cand, cfg.tri_cap, cfg.gather_k
     if not (3 <= M <= MAX_CAND and 1 <= T <= MAX_TRI and gk <= MAX_GATHER
             and M <= 7 * gk and T <= len(_combos(M))):
         raise ValueError(f"mesh_delaunay kernel: 3 ≤ cand ≤ {MAX_CAND}, "
                          f"cand ≤ 7·gather_k, gather_k ≤ {MAX_GATHER}, "
                          f"tri_cap ≤ {MAX_TRI} and ≤ C(cand, 3)")
-    codes = codes.to(torch.int32).contiguous()
-    if codes.device != mesh.pts.device:
-        raise ValueError("mesh_delaunay kernel: codes on the store's device")
-    B, dev = codes.shape[0], codes.device
-    combos = _device_combos(M, dev)
-    C = combos.shape[0]
-    tri_vid = torch.empty((B, T, 3), dtype=torch.int32, device=dev)
-    tri_mask = torch.empty((B, T), dtype=torch.bool, device=dev)
-    keep = (torch.empty((B, C), dtype=torch.bool, device=dev) if with_keep
-            else None)
+    if codes.device != mesh.pts.device or codes.dtype != torch.int32:
+        raise ValueError("mesh_delaunay kernel: int32 codes on the store's "
+                         "device")
+    combos = _device_combos(M, codes.device)
     vs = cfg.voxel_size
     code, pts, vid, origin = (t.contiguous() for t in (
         mesh.code, mesh.pts, mesh.vid, mesh.origin))
     F = ctypes.c_float
     err = _kernels.library().gf2_mesh_delaunay(
         _ptr(code), _ptr(pts), _ptr(vid), pts.shape[0], _ptr(origin),
-        _ptr(codes), B, gk, M, T,
-        _ptr(combos), C, F(vs), F(np.float32((vs / SUB * 0.8) ** 2)),
-        F(np.float32(1e-9 * vs ** 4)), F(np.float32(1e-3 * vs)),
-        _ptr(tri_vid), _ptr(tri_mask), _ptr(keep), _stream(codes))
+        _ptr(codes), codes.shape[0], gk, M, T,
+        _ptr(combos), combos.shape[0], F(vs),
+        F(np.float32((vs / SUB * 0.8) ** 2)), F(np.float32(1e-9 * vs ** 4)),
+        F(np.float32(1e-3 * vs)), _ptr(tri_vid), _ptr(tri_mask), _ptr(keep),
+        _ptr(meta), _ptr(packed), _stream(codes))
     _kernels.check(err, "gf2_mesh_delaunay")
     _kernels.count("mesh_delaunay")
+
+
+def retriangulate(mesh: MeshMap, codes, cfg: MeshConfig,
+                  with_keep: bool = False):
+    """Retriangulate the dirty voxels ``codes`` [B], any B (kernel AC on the
+    card: one launch, one CTA a voxel). See :func:`retriangulate_plain`;
+    with ``with_keep`` the kernel also writes every triple's keep flag
+    [B, C]."""
+    if not mesh.pts.is_cuda:
+        return retriangulate_plain(mesh, codes, cfg, with_keep)
+    codes = codes.to(torch.int32).contiguous()
+    B, dev = codes.shape[0], codes.device
+    tri_vid = torch.empty((B, cfg.tri_cap, 3), dtype=torch.int32, device=dev)
+    tri_mask = torch.empty((B, cfg.tri_cap), dtype=torch.bool, device=dev)
+    keep = (torch.empty((B, len(_combos(cfg.cand))), dtype=torch.bool,
+                        device=dev) if with_keep else None)
+    _delaunay_launch(mesh, codes, cfg, tri_vid, tri_mask, keep)
     return (tri_vid, tri_mask, keep) if with_keep else (tri_vid, tri_mask)
+
+
+def retriangulate_packed(mesh: MeshMap, codes, cfg: MeshConfig):
+    """The kept triangles of the dirty voxels ``codes`` [B], packed: (meta
+    [2B + 1] int32: each voxel's count, its offset into ``packed``, and the
+    total; packed [B·T, 3] int32, the first ``total`` rows each voxel's
+    triangles in slot order at its offset). Kernel AC in one launch on the
+    card (the offsets follow the order its CTAs finish in); on the CPU the
+    plain version in chunks, the offsets in voxel order."""
+    B, T = codes.shape[0], cfg.tri_cap
+    if not mesh.pts.is_cuda:
+        tv, tm = retriangulate_plain(mesh, codes, cfg)
+        cnt = tm.sum(1, dtype=torch.int32)
+        packed = torch.zeros((B * T, 3), dtype=torch.int32)
+        kept = tv[tm]                    # kept slots lead their row
+        packed[:kept.shape[0]] = kept
+        return torch.cat([cnt, torch.cumsum(cnt, 0, dtype=torch.int32) - cnt,
+                          cnt.sum(dtype=torch.int32).reshape(1)]), packed
+    codes = codes.to(torch.int32).contiguous()
+    meta = torch.empty((2 * B + 1,), dtype=torch.int32, device=codes.device)
+    packed = torch.empty((B * T, 3), dtype=torch.int32, device=codes.device)
+    _delaunay_launch(mesh, codes, cfg, meta=meta, packed=packed)
+    return meta, packed
 
 
 # --------------------------------------------------------------------------
@@ -638,9 +679,9 @@ def retriangulate(mesh: MeshMap, codes, cfg: MeshConfig,
 class OnlineMesher:
     """Streaming mesh reconstruction from (world cloud, pose, image) frames,
     the vertex store on ``device`` (the card unless the caller names
-    another). Dirty voxels are retriangulated in fixed-size device batches;
-    each voxel's triangle set is atomically replaced in the host registry
-    (``tris``: voxel code -> [t, 3] vids)."""
+    another). Each drain retriangulates every dirty voxel in one device
+    call; each voxel's triangle set is atomically replaced in the host
+    registry (``tris``: voxel code -> [t, 3] vids)."""
 
     def __init__(self, cfg: MeshConfig | None = None, origin=None,
                  intrinsics=None, drain_every: int = 1, device="cuda"):
@@ -732,32 +773,28 @@ class OnlineMesher:
         return t.pin_memory().to(self.device, non_blocking=True)
 
     def _drain(self):
-        """Retriangulate every pending voxel, ``dirty_batch`` a device call
-        in the order the set pops them; each batch's triangles are read back
-        in one transfer (one sync a batch) and replace the voxels' sets."""
+        """Retriangulate every pending voxel in one device call, in the order
+        the set pops them (padded to a multiple of ``dirty_batch``); two
+        read-backs (the counts and offsets, then the packed triangles)
+        replace the voxels' sets in the same order."""
         cfg = self.cfg
-        B, T = cfg.dirty_batch, cfg.tri_cap
-        batches = []
+        order = []
         while self._pending:
-            batches.append([self._pending.pop()
-                            for _ in range(min(B, len(self._pending)))])
-        if not batches:
+            order.append(self._pending.pop())
+        if not order:
             return
-        codes = np.full((len(batches), B), INVALID, np.int32)
-        for i, batch in enumerate(batches):
-            codes[i, :len(batch)] = batch
-        codes = self._upload(codes, np.int32)
-        for i, batch in enumerate(batches):
-            tv, tm = retriangulate(self.mesh, codes[i], cfg)
-            got = torch.cat([tv.reshape(B, 3 * T), tm.to(torch.int32)],
-                            1).cpu().numpy()
-            tv, tm = got[:, :3 * T].reshape(B, T, 3), got[:, 3 * T:] != 0
-            for j, c in enumerate(batch):
-                tris = tv[j][tm[j]]
-                if tris.size:
-                    self.tris[c] = tris
-                else:
-                    self.tris.pop(c, None)
+        B = len(order) + (-len(order)) % cfg.dirty_batch
+        codes = np.full(B, INVALID, np.int32)
+        codes[:len(order)] = order
+        meta, packed = retriangulate_packed(
+            self.mesh, self._upload(codes, np.int32), cfg)
+        meta = meta.cpu().numpy()
+        tris = packed[:int(meta[-1])].cpu().numpy()
+        for c, n, o in zip(order, meta[:B].tolist(), meta[B:2 * B].tolist()):
+            if n:
+                self.tris[c] = tris[o:o + n].copy()
+            else:
+                self.tris.pop(c, None)
 
     # -- outputs -----------------------------------------------------------
     def vertices(self):

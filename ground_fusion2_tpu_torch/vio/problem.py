@@ -5,7 +5,7 @@ The normal equations of a linearization are the projection block's, from
 kernel C (``factors.vio_factors.projection_normal_equations``), plus those
 of the few hundred rows of the other factors (IMU, wheel, plane, GNSS,
 motion, pos-vel, prior), from kernels L and P
-(``factors.vio_factors.small_normal_equations``). The LM's trial costs are
+(``factors.vio_factors.small_normal_fn``, packed once a solve). The LM's trial costs are
 kernel S (``factors.vio_factors.window_cost_fn``).
 """
 
@@ -52,11 +52,25 @@ def window_normal_equations(x0: WindowState, meas: VioMeasurements,
                             layout: WindowLayout, cfg: VioConfig,
                             delta: torch.Tensor):
     """(H, g, cost) of the whole window at ``retract(x0, delta)``."""
+    return window_normal_fn(x0, meas, layout, cfg)(delta)
+
+
+def window_normal_fn(x0: WindowState, meas: VioMeasurements,
+                     layout: WindowLayout, cfg: VioConfig):
+    """``delta -> (H, g, cost)`` of :func:`window_normal_equations` around
+    ``x0``: the non-projection rows' inputs packed once
+    (:func:`fac.small_normal_fn`), for every linearization of a solve."""
     _check_supported(cfg)
-    Hp, gp, cp = fac.projection_normal_equations(
-        x0, delta, meas.feats, layout, cfg.proj_sqrt_info, cfg.huber_delta)
-    Hs, gs, cs = fac.small_normal_equations(x0, delta, meas, layout, cfg)
-    return Hp + Hs, gp + gs, cp + cs
+    small = fac.small_normal_fn(x0, meas, layout, cfg)
+
+    def linearize(delta: torch.Tensor):
+        Hp, gp, cp = fac.projection_normal_equations(
+            x0, delta, meas.feats, layout, cfg.proj_sqrt_info,
+            cfg.huber_delta)
+        Hs, gs, cs = small(delta)
+        return Hp + Hs, gp + gs, cp + cs
+
+    return linearize
 
 
 class SolveResult(NamedTuple):
@@ -103,7 +117,7 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
     free = torch.where(anchored, free, free * (1.0 - pose0))
 
     out = lm_solve(
-        lambda d: window_normal_equations(x0, meas, layout, cfg, d),
+        window_normal_fn(x0, meas, layout, cfg),
         fac.window_cost_fn(x0, meas, layout, cfg), layout.dim, cfg.max_iters,
         free_mask=free, device=dev, dtype=dtype)
     return SolveResult(layout.retract(x0, out.delta), out.cost, out.cost0,

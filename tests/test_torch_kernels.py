@@ -9,7 +9,9 @@ grid Z, the mesh's insert pass AA, texturing AB and retriangulation AC on a
 store filled from a synthetic room cloud, O's and Q's cost-only modes, the
 line path's AD and AE on a room frame pair, the distributed solves' AF and
 AG and W's explicit-diagonal mode), and C, L, O, P, Q, S–Y and AA–AG
-giving the same bits twice.
+giving the same bits twice; L and P's launches a linearization, and AC over
+any number of voxels in one launch (1 to 10,000), bit-equal to launches of
+32.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -261,6 +263,28 @@ def test_gnss_normal_kernel_matches_plain(dev, window, case):
                                   timed=False)
     assert r["ok"] and r["repeat_equal"], r
     assert _kernels.launches["gnss_normal"] == 2
+
+
+@pytest.mark.parametrize("gnss", [False, True], ids=["L", "P"])
+def test_small_normal_launches_a_call(dev, window, gnss):
+    """Kernels L and P in a solve's closure (inputs packed once): a
+    linearization is at most 5 CUDA activities (two kernels, the prior's
+    three plain products), the wrapper counts one a call, and a second
+    call gives the same bits."""
+    from ground_fusion2_tpu_torch.config import groundchallenge_gnss
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
+    x0, _, layout, delta, meas, vcfg = window
+    if gnss:
+        x0, meas = checks.example_gnss(x0, meas, layout, dev)
+        vcfg = groundchallenge_gnss().estimator.vio
+    fn = fac.small_normal_fn(x0, meas, layout, vcfg)
+    _kernels.launches.clear()
+    dt = checks.device_ms(lambda: fn(delta))
+    assert dt.launches <= 5, dt
+    assert _kernels.launches["small_normal"] == dt.calls, (
+        dict(_kernels.launches), dt)
+    a, b = fn(delta), fn(delta)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def _global_graph(dev, n=200, cap=256):
@@ -689,6 +713,34 @@ def test_mesh_rgb_kernel_matches_plain(dev, mesh_case):
     cfg, mesh, img, view = mesh_case[0], mesh_case[1], mesh_case[4], mesh_case[5]
     r = checks.check_mesh_rgb(dev, mesh, img, *view, cfg, timed=False)
     assert r["ok"] and r["visible"] > 300, r
+
+
+@pytest.mark.parametrize("B", [1, 32, 33, 4544, 10000])
+def test_mesh_delaunay_one_launch_any_batch(dev, mesh_case, B):
+    """Kernel AC over B voxels in one launch, as a drain launches it (the
+    store's dirty set, its live voxels and their face neighbours in a
+    seeded order, cycled to B): against retriangulate_plain by the band rule, bit-equal to launches
+    of 32 voxels on the same codes and to itself, the packed form at
+    disjoint offsets; one launch a call."""
+    from ground_fusion2_tpu_torch.mesh import incremental as mi
+    cfg, mesh = mesh_case[0], mesh_case[1]
+    live = torch.unique(mesh.code[mesh.code != mi.INVALID])
+    nb = mi._pack(mi._unpack(live)[:, None, :]
+                  + torch.as_tensor(mi.FACE_NBR, device=dev))
+    dirty = torch.unique(nb.reshape(-1)).to(torch.int32)
+    dirty = dirty[torch.randperm(dirty.numel(), generator=torch.Generator()
+                                 .manual_seed(0)).to(dev)]
+    codes = dirty.repeat(-(-B // dirty.numel()))[:B]
+    _kernels.launches.clear()
+    mi.retriangulate_packed(mesh, codes, cfg)
+    assert _kernels.launches["mesh_delaunay"] == 1
+    r = checks.check_mesh_delaunay(dev, mesh, codes, cfg, timed=False)
+    flags = {k: r[k] for k in ("ok", "batch_equal", "packed_equal",
+                               "repeat_equal", "outputs_equal",
+                               "differing_triples", "differing_off_band",
+                               "named", "triangles")}
+    assert r["ok"] and r["batch_equal"] and r["packed_equal"], flags
+    assert B == 1 or r["triangles"] > 10, flags
 
 
 def test_mesh_delaunay_kernel_matches_plain(dev, mesh_case):

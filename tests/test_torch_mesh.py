@@ -361,6 +361,81 @@ def test_mesher_from_jax(sign_convention, drive):
     assert _tris(tme) == _tris(jme) and tme.stats() == jme.stats()
 
 
+def test_retriangulate_plain_any_batch():
+    """retriangulate_plain over B = 3·dirty_batch + 5 voxels (INVALID
+    padding among them) equals its calls on each dirty_batch chunk,
+    concatenated; the packed form holds each voxel's kept slots at its
+    offset, in voxel order."""
+    cfg = tim.MeshConfig(capacity=4096, insert_chunk=1024, cand=12,
+                         dirty_batch=4)
+    cloud = torch.as_tensor(checks.mesh_room_cloud(2048, seed=5))
+    mesh = tim.MeshMap.empty(cfg, device="cpu")
+    for k in range(2):
+        mesh, _ = tim.insert(mesh, cloud[k * 1024:(k + 1) * 1024],
+                             torch.ones(1024), cfg)
+    live = torch.unique(mesh.code[mesh.code != INVALID])
+    B = 3 * cfg.dirty_batch + 5
+    codes = live[torch.randperm(live.numel(), generator=torch.Generator()
+                                .manual_seed(1))[:B]].to(torch.int32)
+    codes[[2, 9]] = INVALID
+    tv, tm, keep = tim.retriangulate_plain(mesh, codes, cfg, with_keep=True)
+    parts = [tim.retriangulate_plain(mesh, codes[s:s + cfg.dirty_batch], cfg,
+                                     with_keep=True)
+             for s in range(0, B, cfg.dirty_batch)]
+    assert tv.shape[0] == B and len(parts) == 5
+    for got, want in zip((tv, tm, keep), zip(*parts)):
+        assert torch.equal(got, torch.cat(want))
+    assert int(tm.sum()) > 10 and not tm[[2, 9]].any()
+    meta, packed = tim.retriangulate_packed(mesh, codes, cfg)
+    cnt, off = meta[:B], meta[B:2 * B]
+    assert torch.equal(cnt, tm.sum(1, dtype=torch.int32))
+    assert int(meta[-1]) == int(tm.sum())
+    for b in range(B):
+        n, o = int(cnt[b]), int(off[b])
+        assert torch.equal(packed[o:o + n], tv[b, :n])
+
+
+def _batch_drain(mesher):
+    """The drain as the JAX package runs it: ``dirty_batch`` voxels a call
+    in the order the set pops them, each batch read back and booked."""
+    cfg = mesher.cfg
+    while mesher._pending:
+        batch = [mesher._pending.pop()
+                 for _ in range(min(cfg.dirty_batch, len(mesher._pending)))]
+        codes = np.full(cfg.dirty_batch, INVALID, np.int32)
+        codes[:len(batch)] = batch
+        tv, tm = (x.numpy() for x in tim.retriangulate(
+            mesher.mesh, torch.as_tensor(codes), cfg))
+        for i, c in enumerate(batch):
+            tris = tv[i][tm[i]]
+            if tris.size:
+                mesher.tris[c] = tris
+            else:
+                mesher.tris.pop(c, None)
+
+
+def test_one_call_drain_equals_batch_drain(drive):
+    """Two meshers fed the same frames (so their dirty sets pop in the same
+    order): the one-call drain and the batch-by-batch drain leave the same
+    registry, voxel by voxel and in insertion order, after each of two
+    drains (the second re-meshes voxels of the first)."""
+    cfg = _tcfg(MESHER_CFG)._replace(dirty_batch=8, cand=10)
+    one, ref = (tim.OnlineMesher(cfg, intrinsics=DRIVE_INTR, drain_every=99,
+                                 device="cpu") for _ in range(2))
+    for f in drive[:2]:
+        for m in (one, ref):
+            _feed(m, f)
+        assert one._pending == ref._pending and len(one._pending) > 8
+        one._drain()
+        _batch_drain(ref)
+        assert not one._pending
+        assert list(one.tris) == list(ref.tris)
+        for c, t in ref.tris.items():
+            np.testing.assert_array_equal(one.tris[c], t)
+    assert sum(len(t) for t in one.tris.values()) > 100
+    np.testing.assert_array_equal(one.triangles(), ref.triangles())
+
+
 def test_voxel_export_matches_jax(rng, tmp_path):
     """mesh/export.py on test_voxel_mesh_export's floor map carried into the
     port: the same vertices and faces, the same PLY text."""
