@@ -33,8 +33,9 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      torch.func.jacfwd and the plain window cost no time (nor, with the
      counter below, any torch.linalg eigensolver, which the plain
      triangulation's [F, 4, 4] eigh was), stay finite, and keep the aligned ATE
-     < 0.30 m; both ATEs and the first tick where the two runs' windows
-     differ are printed. Kernels C and L are also held against their plain
+     < 0.30 m; both ATEs, the JAX package's on the same drive beside them
+     (not gated) and the first tick where the two runs' windows differ are
+     printed. Kernels C and L are also held against their plain
      versions on the final window;
   5. LiDAR path: LidarOdometry.process_scan with the M3DGR LIO
      configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
@@ -54,7 +55,8 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      that overflows capacity and a recenter, bit-exact against the CPU);
   7. camera kernels H-K against their plain versions: H on the final
      camera carry's 10 intervals, I on frame 12, J and K on the KLT tracks
-     of frames 12 -> 13; kernel O and its cost-only mode on a 500-node
+     of frames 12 -> 13 (K's device ms, launches and Jacobi sweeps a
+     hypothesis printed); kernel O and its cost-only mode on a 500-node
      graph at the 4·512 tier (twice: the same bits), and W on the pose
      graph's systems at 4·64 and 4·512; T, U and V on phase
      4's final carry (T on every live track with the depth fix cleared, U
@@ -131,7 +133,7 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      global graph (1e-5, twice the same bits), R on a phase-11 frame pair
      (equal, or differing only beside a blurred residual within 1e-5 of its
      threshold), Q's cost-only mode on the same graph, S on the final
-     GNSS window at delta = 0 and at an LM step, and W and X on that
+     GNSS window at delta = 0 and at an LM step (timed), and W and X on that
      window's damped step and eliminations;
  13. the occupancy grid: GroundFusion(m3dgr_system() with
      use_occupancy_grid) over phase 8's drive, each frame
@@ -236,6 +238,10 @@ CAM_FRAMES = 32
 LIO_SCANS = 60
 LIO_Z = 1.0            # sensor height above the room's floor, m
 LIO_MAX_ERR = 0.06     # m, test_lio_e2e.py's bound; the JAX package: 0.0032 m
+# the JAX package's FusedVio on phase 4's drive, aligned ATE over its 22
+# initialized frames (tests/torch_system_reference.py camera, CPU); printed
+# beside phase 4's, not gated
+JAX_CAMERA_ATE = 0.09645292800512928
 SYS_FRAMES = 40
 SYS_MAX_ERR = 0.06     # m, fused position error (test_lio_e2e.py's bound)
 SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
@@ -401,17 +407,19 @@ def sync_site(counter):
     return show
 
 
-# kernels F, C, W, X, L (with P's rows) and AC by their __global__ names
-# (csrc/radix_sort.cu, proj_normal.cu, chol_solve.cu, sym_eig.cu,
-# small_normal.cu, mesh_delaunay.cu): phases 8, 10 and 14 print their
-# device ms a tick
+# kernels F, C, W, X, L (with P's rows), AC, S and K by their __global__
+# names (csrc/radix_sort.cu, proj_normal.cu, chol_solve.cu, sym_eig.cu,
+# small_normal.cu, mesh_delaunay.cu, window_cost.cu, ransac_f.cu): phases
+# 8, 10 and 14 print their device ms a tick
 KERNEL_GROUPS = {
     "F": ("radix_kernel",),
     "C": ("proj_feature_kernel", "proj_reduce_kernel"),
     "W": ("chol_cluster_kernel", "chol_coop_kernel", "chol_back_kernel"),
     "X": ("tridiag_kernel", "dc_kernel", "back_kernel"),
     "L": ("small_rows_kernel", "small_reduce_kernel"),
-    "AC": ("mesh_delaunay_kernel",)}
+    "AC": ("mesh_delaunay_kernel",),
+    "S": ("window_cost_kernel",),
+    "K": ("ransac_kernel",)}
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -1730,6 +1738,11 @@ def main() -> int:
     res["window_cost"]["ok"] &= res["window_cost"]["decisions_equal"]
     if report({"window_cost": res["window_cost"]}):
         return 1
+    c = res["window_cost"]
+    print(f"kernel S (window_cost) at F = 150, D = {layout.dim}: device ms a "
+          f"call {c['device_ms']:.4f}, launches a call "
+          f"{c['launches_per_call']:g} (torch.profiler; host-inclusive call "
+          f"ms {c['ms']:.4f}) | {card}", flush=True)
 
     # 4. camera path, twice from the same frames
     runs = []
@@ -1744,7 +1757,8 @@ def main() -> int:
     differ = [k for k, (a, b) in enumerate(zip(w1, w2))
               if not torch.equal(a, b)]
     print(f"camera path repeated: ATE {runs[0][1]['ate']:.6f} m and "
-          f"{runs[1][1]['ate']:.6f} m; windows "
+          f"{runs[1][1]['ate']:.6f} m (the JAX package on the same drive: "
+          f"{JAX_CAMERA_ATE:.6f} m, printed, not gated); windows "
           + (f"first differ at fused tick {differ[0] + 1} of {len(w1)}"
              if differ else f"identical over all {len(w1)} fused ticks"),
           flush=True)
@@ -1830,6 +1844,12 @@ def main() -> int:
     if report(res_hk):
         return 1
     res.update(res_hk)
+    c = res["ransac_f"]
+    print(f"kernel K (ransac_f) on frames 12 -> 13's tracks "
+          f"({c['n_valid']} valid, 64 hypotheses): device ms a call "
+          f"{c['device_ms']:.4f}, launches a call {c['launches_per_call']:g}; "
+          f"Jacobi sweeps a hypothesis {json.dumps(c['sweeps'])} | {card}",
+          flush=True)
     tier_args = checks.ring_graph_args(500, 512, dev)
     tier = checks.check_pg_normal(dev, tier_args)
     print("kernel pg_normal at the 4·512 tier (500 nodes, 8 loops): "
@@ -1954,7 +1974,7 @@ def main() -> int:
     step = _solve_damped(H0, g0, torch.full((), 1e-4, device=dev),
                          torch.ones(fv.layout.dim, device=dev))
     s_gnss = checks.check_window_cost(dev, st, gmeas, fv.layout, gcfg,
-                                      dict(zero=zero, step=step), timed=False)
+                                      dict(zero=zero, step=step))
     print("kernel window_cost on the final GNSS window: " + json.dumps(s_gnss)
           + f" | {card}", flush=True)
     if not s_gnss["ok"]:

@@ -51,7 +51,7 @@ _SIGNATURES = {
     "gf2_blur_decimate": [_P, _I, _I, _P, _P],
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
-    "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 6,
+    "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 8,
     "gf2_small_rows": [_P] * 13 + [_I] * 18 + [_F] * 4 + [_P] * 4,
     "gf2_small_reduce": [_I] * 3 + [_P] * 12,
     "gf2_brief_describe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],

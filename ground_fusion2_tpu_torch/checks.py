@@ -127,11 +127,12 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
     the activities a call. A marker kernel (``torch.cuda._sleep``) runs
     before each call and is left out; the sums are divided by the markers
     the trace holds, counted from the first, so a trace that lost its first
-    records still reads per call; a trace that caught no marker at all (the
-    profiler misses a whole trace now and then) is taken again, three times
-    at most. Unlike :func:`time_ms` it holds none of the wrapper's host
-    time. Raises when the calls ran no CUDA activity (CPU tensors); it never
-    falls back to events."""
+    records still reads per call; a trace that caught no marker, or no
+    activity but the markers (the profiler drops a whole trace, or its
+    kernels, now and then), is taken again, three times at most. Unlike
+    :func:`time_ms` it holds none of the wrapper's host time. Raises when
+    the calls ran no CUDA activity in any of the three (CPU tensors); it
+    never falls back to events."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms needs a CUDA device")
     for _ in range(warmup):
@@ -145,7 +146,7 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
             torch.cuda.synchronize()
         _PROFILER_STARTED = True
     calls = warmup
-    for _ in range(3):              # a trace that caught no marker: again
+    for _ in range(3):              # a trace that lost the calls: again
         calls += reps
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -159,11 +160,15 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
                       if e.device_type == torch.autograd.DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
         first = next((i for i, e in enumerate(evs) if MARKER in e.name), None)
-        if first is not None:
+        if first is not None and any(MARKER not in e.name
+                                     for e in evs[first:]):
             break
     else:
-        raise RuntimeError(f"device_ms: three traces held no marker (the "
-                           f"last {len(evs)} CUDA activities)")
+        if first is None:
+            raise RuntimeError(f"device_ms: three traces held no marker (the "
+                               f"last {len(evs)} CUDA activities)")
+        raise RuntimeError("device_ms: the calls ran no CUDA activity "
+                           "(CPU tensors?)")
     traced = sum(MARKER in e.name for e in evs[first:])
     by_name: dict = {}
     n = 0
@@ -172,9 +177,6 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
             continue
         n += 1
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    if n == 0:
-        raise RuntimeError("device_ms: the calls ran no CUDA activity "
-                           "(CPU tensors?)")
     kernels = {k: v / 1e3 / traced for k, v in by_name.items()}
     return DeviceTime(sum(kernels.values()), n / traced, kernels, calls)
 
@@ -890,18 +892,63 @@ def _unit_sign(Fs: torch.Tensor) -> torch.Tensor:
     return f * torch.sign(big)
 
 
+def ransac_points(device, F: int = 150, n_valid: int | None = None,
+                  seed: int = 0, outliers: int = 10, line: bool = False,
+                  turn: float = 0.05, noise: float = 1e-3):
+    """Normalized-plane correspondences p1, p2 [F, 2] of F room points seen
+    from two poses (a turn of ``turn`` rad about y and a small step,
+    ``noise`` on every coordinate, ``outliers`` spread evenly from index 0
+    moved off their epipolar lines) and the mask [F] of the first
+    ``n_valid`` (all by default); with ``line`` every point lies within 1e-6
+    of one image line (near-degenerate samples) and there is no noise."""
+    rng = np.random.default_rng(seed)
+    X = rng.uniform([-3.0, -2.0, 3.0], [3.0, 2.0, 9.0], (F, 3))
+    if line:
+        X[:, 1] = 0.2 * X[:, 2] + 1e-6 * rng.standard_normal(F)
+        noise = 0.0
+    th = turn
+    R = np.array([[np.cos(th), 0.0, np.sin(th)], [0.0, 1.0, 0.0],
+                  [-np.sin(th), 0.0, np.cos(th)]])
+    X2 = X @ R.T + np.array([0.3, 0.02, 0.05])
+    p1 = X[:, :2] / X[:, 2:] + rng.normal(0.0, 1.0, (F, 2)) * noise
+    p2 = X2[:, :2] / X2[:, 2:] + rng.normal(0.0, 1.0, (F, 2)) * noise
+    out = np.arange(0, F, max(F // max(outliers, 1), 1))[:outliers]
+    p2[out] += rng.uniform(-0.1, 0.1, (len(out), 2))
+    valid = np.zeros(F, np.float32)
+    valid[:F if n_valid is None else n_valid] = 1.0
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    return t(p1), t(p2), t(valid)
+
+
 def check_ransac(device, cam, tracks: dict, thresh: float, seed: int = 12,
                  hypotheses: int = 64) -> dict:
-    """Kernel K on the KLT tracks: every hypothesis's F (unit norm, sign
-    fixed) against the plain solve run in float64 on the same inputs; the
-    chosen hypothesis's inlier count against the plain version in float32,
-    and the masks equal except where d² lies within RANSAC_BAND of thr²."""
+    """Kernel K on the KLT tracks (:func:`check_ransac_points` on their
+    normalized points, the Gumbel draw of ``seed``)."""
     from .frontend.tracker import normalized
-    p1 = normalized(cam, tracks["uv0"])
-    p2 = normalized(cam, tracks["uv1"])
     valid = tracks["alive"]
-    F = valid.shape[0]
-    g = rs.gumbel_noise(seed, hypotheses, F, device)
+    g = rs.gumbel_noise(seed, hypotheses, valid.shape[0], device)
+    return check_ransac_points(device, normalized(cam, tracks["uv0"]),
+                               normalized(cam, tracks["uv1"]), valid, thresh,
+                               g)
+
+
+# the least flops of one hypothesis's solve (Golub & Van Loan's counts):
+# A's null vector from a Householder QR of Aᵀ (9×8: 2mn² − 2n³/3) and its Q's
+# last column (8 reflections of 4·9), then the SVD of the 3×3 Fn with U and
+# V (4m²n + 8mn² + 9n³)
+RANSAC_SOLVE_FLOPS = (2 * 9 * 8 ** 2 - 2 * 8 ** 3 // 3 + 8 * 4 * 9
+                      + 4 * 27 + 8 * 27 + 9 * 27)
+
+
+def check_ransac_points(device, p1, p2, valid, thresh: float, g,
+                        timed: bool = True) -> dict:
+    """Kernel K on the points p1, p2 [F, 2] with the draw g [K, F]: every
+    hypothesis's F (unit norm, sign fixed) against the plain solve run in
+    float64 on the same inputs; the chosen hypothesis's inlier count
+    against the plain version in float32, and the masks equal except where
+    d² lies within RANSAC_BAND of thr²; the Jacobi sweeps a hypothesis and
+    the hypotheses that met the cap."""
+    F, hypotheses = valid.shape[0], g.shape[0]
     out = rs.ransac_f_detail(p1, p2, valid, g, thresh)
     d64 = lambda t: t.to(torch.float64)
     F64 = rs.ransac_hypotheses_plain(d64(p1), d64(p2), d64(valid), d64(g))
@@ -917,20 +964,31 @@ def check_ransac(device, cam, tracks: dict, thresh: float, seed: int = 12,
     count_k = int(out["counts"][int(out["best"])])
     ok = (f_err <= RANSAC_F_TOL and count_k == int(counts_p[best_p])
           and n_far == 0)
-    # per hypothesis: an 8-of-F rank count, AᵀA (8·81·2), ~10 Jacobi sweeps
-    # of 36 rotations (~160 flops each), a Sampson distance (~30 flops)
-    # per track; points, masks and Gumbel noise in, the mask out
-    flops = hypotheses * (F * F + 8 * 81 * 2 + 10 * 36 * 160 + 30 * F)
+    r = dict(max_abs_err=f_err, f_err=f_err, tol=RANSAC_F_TOL,
+             count=count_k, count_plain=int(counts_p[best_p]),
+             mask_diff_near_threshold=n_near, mask_diff=n_far,
+             n_valid=int(valid.sum()), ok=ok, library_ms=None)
+    if "sweeps" in out:
+        sw = out["sweeps"].to(torch.float64)
+        r["sweeps"] = dict(null_vector_mean=float(sw[:, 0].mean()),
+                           null_vector_max=int(sw[:, 0].max()),
+                           rank2_mean=float(sw[:, 1].mean()),
+                           rank2_max=int(sw[:, 1].max()),
+                           at_cap=int((sw >= rs.SWEEP_CAP).any(1).sum()))
+    if not timed:
+        return r
+    # what the function needs, from F and the hypotheses alone (the sweeps
+    # a kernel takes are its own): per hypothesis 8 selection rounds over F,
+    # A (8·9), its null vector and the rank-2 step (RANSAC_SOLVE_FLOPS) and
+    # a Sampson distance (~30 flops) per track; points, masks and Gumbel
+    # noise in, the mask out
+    flops = hypotheses * (8 * F + 8 * 9 * 2 + RANSAC_SOLVE_FLOPS + 30 * F)
     nb = _nbytes(p1, p2, valid, g, out["keep"])
-    return dict(max_abs_err=f_err, f_err=f_err, tol=RANSAC_F_TOL,
-                count=count_k, count_plain=int(counts_p[best_p]),
-                mask_diff_near_threshold=n_near, mask_diff=n_far,
-                n_valid=int(valid.sum()), ok=ok,
-                ms=time_ms(lambda: rs.ransac_f_reject(p1, p2, valid, g,
-                                                       thresh)),
+    return dict(r, ms=time_ms(lambda: rs.ransac_f_reject(p1, p2, valid, g,
+                                                          thresh)),
                 plain_ms=time_ms(lambda: rs.ransac_f_plain(
                     p1, p2, valid, g, thresh), reps=5),
-                library_ms=None, **bound(nb, flops),
+                **bound(nb, flops),
                 **device_pair(lambda: rs.ransac_f_reject(p1, p2, valid, g,
                                                          thresh)))
 

@@ -552,16 +552,18 @@ def window_cost_plain(x0: WindowState, delta: torch.Tensor, meas,
 
 def window_cost_fn(x0: WindowState, meas, layout: WindowLayout, cfg):
     """``cost_at(delta)`` of the window linearized around ``x0``: kernel S
-    on the card (the inputs packed once, one launch a call; the rows
-    evaluated in f64 from the f32 inputs and summed in a fixed order, so the
-    same delta gives the same bits), :func:`window_cost_plain` on the
-    CPU."""
+    on the card (the inputs and the scratch allocated once, one launch a
+    call; the rows evaluated in f64 from the f32 inputs and summed in a
+    fixed order, so the same delta gives the same bits),
+    :func:`window_cost_plain` on the CPU."""
     if not x0.p.is_cuda:
         return lambda delta: window_cost_plain(x0, delta, meas, layout, cfg)
     return _window_cost_cuda_fn(x0, meas, layout, cfg)
 
 
-def _window_cost_cuda_fn(x0, meas, layout, cfg):
+def window_cost_args(x0, meas, layout, cfg):
+    """Kernel S's inputs packed for ``gf2_window_cost``: (the tensors, held
+    alive by the caller; their pointers; the scalars; the partials' count)."""
     dev = x0.p.device
     F, W, _ = meas.feats.ray.shape
     D, K = layout.dim, layout.frame_dim
@@ -585,23 +587,38 @@ def _window_cost_cuda_fn(x0, meas, layout, cfg):
                    ctypes.c_float(v) for v in (
                        cfg.plane_weight, cfg.motion_weight, cfg.posvel_weight,
                        cfg.proj_sqrt_info, cfg.huber_delta, 0.05)]
+    return proj + rows, ptrs, scalars, n_part
+
+
+def _window_cost_cuda_fn(x0, meas, layout, cfg):
+    dev = x0.p.device
+    D = layout.dim
+    inputs, ptrs, scalars, n_part = window_cost_args(x0, meas, layout, cfg)
     lib = _kernels.library()
+    # scratch of the closure: the partials, and the ticket of the CTA that
+    # sums them (each launch leaves it 0). Launches on one stream run one
+    # after another and may share them; the closure is bound to the stream
+    # it was made on, so two launches never overlap on its scratch.
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    part = torch.empty((n_part,), dtype=torch.float64, device=dev)
+    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    scratch = [ctypes.c_void_p(t.data_ptr()) for t in (part, ticket)]
 
     def cost_at(delta: torch.Tensor) -> torch.Tensor:
         if tuple(delta.shape) != (D,):
             raise ValueError(f"window_cost kernel: delta must be [{D}]")
-        d = f32(delta)
-        part = torch.empty((n_part,), dtype=torch.float64, device=dev)
-        dx = torch.empty((K,), dtype=torch.float64, device=dev)
+        if torch.cuda.current_stream(dev).cuda_stream != stream:
+            raise RuntimeError("window_cost kernel: called on another stream "
+                               "than the one its scratch was made for")
+        d = delta.to(device=dev, dtype=torch.float32).contiguous()
+        # a fresh output each call: lm_solve keeps earlier costs as views
         cost = torch.empty((1,), dtype=torch.float32, device=dev)
         err = lib.gf2_window_cost(
-            *ptrs, ctypes.c_void_p(d.data_ptr()), *scalars,
-            ctypes.c_void_p(part.data_ptr()), ctypes.c_void_p(dx.data_ptr()),
-            ctypes.c_void_p(cost.data_ptr()),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+            *ptrs, ctypes.c_void_p(d.data_ptr()), *scalars, *scratch,
+            ctypes.c_void_p(cost.data_ptr()), ctypes.c_void_p(stream))
         _kernels.check(err, "gf2_window_cost")
         _kernels.count("window_cost")
         return cost[0]
 
-    cost_at.inputs = proj + rows   # held alive with the closure
+    cost_at.inputs = inputs + [part, ticket]   # held alive with the closure
     return cost_at

@@ -19,6 +19,8 @@ import torch
 
 from .. import _kernels
 
+SWEEP_CAP = 32    # kernel K's Jacobi sweeps (csrc/ransac_f.cu's kCap)
+
 
 def gumbel_noise(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
     gen = torch.Generator(device=device)
@@ -105,10 +107,26 @@ def ransac_f_detail(pts1, pts2, valid, gumbel, thresh) -> dict:
     return ransac_f_plain(pts1, pts2, valid, gumbel, thresh)
 
 
+# (device, stream) -> kernel K's ticket: zeroed once, and each launch leaves
+# it 0. Launches on one stream run one after another, so they may share it;
+# launches on two streams could overlap, so each stream has its own.
+_TICKETS: dict = {}
+
+
+def _ticket(dev, stream) -> torch.Tensor:
+    key = (dev, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros((1,), dtype=torch.int32, device=dev)
+    return t
+
+
 def ransac_f_cuda(pts1, pts2, valid, gumbel, thresh) -> dict:
-    """Kernel K: the mask ``keep`` [F], and the hypotheses ``Fs`` [K, 3, 3],
-    their inlier ``counts`` [K] and the chosen index ``best`` [1], on the
-    card."""
+    """Kernel K, one launch: the mask ``keep`` [F], and the hypotheses
+    ``Fs`` [K, 3, 3], their inlier ``counts`` [K] and masks ``inl`` [K, F]
+    (uint8), the chosen index ``best`` [1] and ``sweeps`` [K, 2] (the
+    Jacobi sweeps of A's null vector and of the rank-2 step; ``SWEEP_CAP``
+    where a solve met the cap), on the card."""
     dev = pts1.device
     c = lambda t: t.to(torch.float32).contiguous()
     p1, p2, v, g = c(pts1), c(pts2), c(valid), c(gumbel)
@@ -116,16 +134,19 @@ def ransac_f_cuda(pts1, pts2, valid, gumbel, thresh) -> dict:
     if p1.shape != (F, 2) or p2.shape != (F, 2) or v.shape != (F,):
         raise ValueError("ransac_f kernel: expected pts [F, 2], valid [F] and "
                          "gumbel [K, F]")
+    stream = torch.cuda.current_stream(dev).cuda_stream
     Fs = torch.empty((K, 3, 3), dtype=torch.float32, device=dev)
     counts = torch.empty((K,), dtype=torch.int32, device=dev)
     inl = torch.empty((K, F), dtype=torch.uint8, device=dev)
+    sweeps = torch.empty((K, 2), dtype=torch.int32, device=dev)
     keep = torch.empty((F,), dtype=torch.float32, device=dev)
     best = torch.empty((1,), dtype=torch.int32, device=dev)
     P = lambda t: ctypes.c_void_p(t.data_ptr())
     err = _kernels.library().gf2_ransac_f(
         P(p1), P(p2), P(v), P(g), K, F, ctypes.c_float(thresh * thresh),
-        P(Fs), P(counts), P(inl), P(keep), P(best),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+        P(Fs), P(counts), P(inl), P(sweeps), P(keep), P(best),
+        P(_ticket(dev, stream)), ctypes.c_void_p(stream))
     _kernels.check(err, "gf2_ransac_f")
     _kernels.count("ransac_f")
-    return dict(keep=keep.to(valid.dtype), Fs=Fs, counts=counts, best=best)
+    return dict(keep=keep.to(valid.dtype), Fs=Fs, counts=counts, best=best,
+                inl=inl, sweeps=sweeps)

@@ -11,7 +11,9 @@ line path's AD and AE on a room frame pair, the distributed solves' AF and
 AG and W's explicit-diagonal mode), and C, L, O, P, Q, S–Y and AA–AG
 giving the same bits twice; L and P's launches a linearization, and AC over
 any number of voxels in one launch (1 to 10,000), bit-equal to launches of
-32.
+32; K at kMaxF (and refusing one more), at 11 and 12 valid, on tied draws
+and near-degenerate samples, and S with the prior off and after another
+window's call, each one launch a call.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -217,6 +219,102 @@ def test_ransac_kernel_matches_plain(dev, camera):
     r = checks.check_ransac(dev, Pinhole.create(*cfg.intrinsics), camera[3],
                             cfg.tracker.f_thresh_px / cfg.tracker.focal)
     assert r["ok"], r
+
+
+def test_device_ms_raises_when_the_calls_run_nothing_on_the_card(dev):
+    """Three traces with only the markers in them (CPU tensors): a raise,
+    no figure."""
+    with pytest.raises(RuntimeError, match="no CUDA activity"):
+        checks.device_ms(lambda: torch.zeros(3) + 1, reps=3)
+
+
+def _gumbel(dev, F, seed=12, hypotheses=64):
+    from ground_fusion2_tpu_torch.frontend.ransac import gumbel_noise
+    return gumbel_noise(seed, hypotheses, F, dev)
+
+
+@pytest.mark.parametrize("F,n_valid", [(1024, None), (150, 11), (150, 12)])
+def test_ransac_kernel_at_kmaxf_and_the_valid_floor(dev, F, n_valid):
+    """Kernel K at kMaxF = 1024 correspondences, and at 11 valid (the mask
+    comes back unchanged) and 12 (RANSAC runs), against the plain version."""
+    p1, p2, valid = checks.ransac_points(dev, F, n_valid)
+    r = checks.check_ransac_points(dev, p1, p2, valid, 1.0 / 460.0,
+                                   _gumbel(dev, F), timed=False)
+    assert r["ok"] and r["sweeps"]["at_cap"] == 0, r
+    from ground_fusion2_tpu_torch.frontend import ransac as rs
+    keep = rs.ransac_f_reject(p1, p2, valid, _gumbel(dev, F), 1.0 / 460.0)
+    if n_valid == 11:
+        assert torch.equal(keep, valid)
+    else:
+        assert bool((keep <= valid).all()) and not torch.equal(keep, valid)
+
+
+def test_ransac_kernel_refuses_more_than_kmaxf(dev):
+    from ground_fusion2_tpu_torch.frontend import ransac as rs
+    p1, p2, valid = checks.ransac_points(dev, 1025)
+    with pytest.raises(RuntimeError, match="gf2_ransac_f"):
+        rs.ransac_f_cuda(p1, p2, valid, _gumbel(dev, 1025), 1.0 / 460.0)
+
+
+def test_ransac_kernel_takes_the_lower_index_on_tied_g(dev):
+    """Gumbel noise rounded to 0.5 ties most slots: each hypothesis's 8
+    samples are the largest g, the lower index first (lax.top_k's order);
+    its F against the plain 8-point solve on those samples in float64."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.frontend import ransac as rs
+    p1, p2, valid = checks.ransac_points(dev, 150)
+    g = torch.round(_gumbel(dev, 150) * 2.0) / 2.0
+    out = rs.ransac_f_cuda(p1, p2, valid, g, 1.0 / 460.0)
+    gn = g.cpu().numpy()
+    idx = torch.as_tensor(np.stack([np.lexsort((np.arange(150), -row))[:8]
+                                    for row in gn]), device=dev)
+    d64 = lambda t: t.to(torch.float64)
+    want = rs._eight_point(d64(p1)[idx], d64(p2)[idx])
+    err = float((checks._unit_sign(out["Fs"])
+                 - checks._unit_sign(want)).abs().max())
+    assert err <= checks.RANSAC_F_TOL, err
+
+
+def test_ransac_kernel_on_near_degenerate_samples(dev):
+    """Every point within 1e-6 of one image line: each hypothesis's null
+    space has several dimensions; the kernel ends, finite, within the cap."""
+    from ground_fusion2_tpu_torch.frontend import ransac as rs
+    p1, p2, valid = checks.ransac_points(dev, 150, line=True)
+    out = rs.ransac_f_cuda(p1, p2, valid, _gumbel(dev, 150), 1.0 / 460.0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out["Fs"]).all()), out["Fs"]
+    assert int(out["sweeps"].max()) < rs.SWEEP_CAP, out["sweeps"]
+
+
+def test_ransac_kernel_on_two_streams(dev):
+    """Calls on two streams at once, each stream with its own ticket: every
+    call's best, keep and counts equal the same call's made alone."""
+    from ground_fusion2_tpu_torch.frontend import ransac as rs
+    p1, p2, valid = checks.ransac_points(dev, 1024)
+    gs = [_gumbel(dev, 1024, seed=s) for s in range(8)]
+    want = [rs.ransac_f_cuda(p1, p2, valid, g, 1.0 / 460.0) for g in gs]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for i, g in enumerate(gs):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(rs.ransac_f_cuda(p1, p2, valid, g, 1.0 / 460.0))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        for key in ("best", "keep", "counts"):
+            assert torch.equal(a[key], b[key]), (key, a[key], b[key])
+
+
+def test_ransac_kernel_launches_once_a_call(dev):
+    from ground_fusion2_tpu_torch.frontend import ransac as rs
+    p1, p2, valid = checks.ransac_points(dev, 150)
+    g = _gumbel(dev, 150)
+    _kernels.launches.clear()
+    dt = checks.device_ms(lambda: rs.ransac_f_reject(p1, p2, valid, g,
+                                                     1.0 / 460.0))
+    assert dt.launches == 1, dt
+    assert _kernels.launches["ransac_f"] == dt.calls, (
+        dict(_kernels.launches), dt)
 
 
 @pytest.fixture(scope="module")
@@ -429,6 +527,64 @@ def test_window_cost_kernel_on_a_fused_window(dev, camera):
                                  _lm_deltas(dev, fv.carry.state, meas,
                                             fv.layout, vcfg), timed=False)
     assert r["ok"] and r["decisions_equal"], r
+
+
+def test_window_cost_kernel_with_the_prior_invalid(dev, window):
+    """Kernel S with the marginalization prior switched off (its rows
+    weighted 0) at zero, an accepted and a rejected step."""
+    x0, _, layout, _, meas, vcfg = window
+    m = meas._replace(prior=meas.prior._replace(
+        valid=torch.zeros_like(meas.prior.valid)))
+    r = checks.check_window_cost(dev, x0, m, layout, vcfg,
+                                 _lm_deltas(dev, x0, m, layout, vcfg),
+                                 timed=False)
+    assert r["ok"] and r["repeat_equal"] and r["decisions_equal"], r
+
+
+def test_window_cost_kernel_repeats_after_another_window(dev, window):
+    """The same bits from one closure before and after a call on another
+    window (the GNSS one): each launch leaves its ticket at 0."""
+    from ground_fusion2_tpu_torch.config import VioConfig
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
+    x0, _, layout, delta, meas, vcfg = window
+    xg, mg = checks.example_gnss(x0, meas, layout, dev)
+    cam = fac.window_cost_fn(x0, meas, layout, vcfg)
+    gnss = fac.window_cost_fn(xg, mg, layout, VioConfig(num_feats=150,
+                                                        use_gnss=True))
+    a = cam(delta)
+    b = gnss(delta)
+    c = cam(delta)
+    assert torch.equal(a, c) and torch.equal(b, gnss(delta)), (a, b, c)
+    assert torch.equal(cam(torch.zeros_like(delta)),
+                       cam(torch.zeros_like(delta)))
+
+
+def test_window_cost_kernel_refuses_another_stream(dev, window):
+    """A closure's scratch (partials, ticket) belongs to the stream it was
+    made on: a call on another stream raises."""
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
+    x0, _, layout, delta, meas, vcfg = window
+    cam = fac.window_cost_fn(x0, meas, layout, vcfg)
+    with torch.cuda.stream(torch.cuda.Stream(dev)):
+        with pytest.raises(RuntimeError, match="another stream"):
+            cam(delta)
+
+
+@pytest.mark.parametrize("rows", ["camera", "gnss"])
+def test_window_cost_kernel_launches_once_a_call(dev, window, rows):
+    from ground_fusion2_tpu_torch.config import VioConfig
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
+    x0, _, layout, delta, meas, vcfg = window
+    if rows == "gnss":
+        x0, meas = checks.example_gnss(x0, meas, layout, dev)
+        vcfg = VioConfig(num_feats=150, use_gnss=True)
+    fn = fac.window_cost_fn(x0, meas, layout, vcfg)
+    d = delta.to(torch.float32).contiguous()
+    _kernels.launches.clear()
+    dt = checks.device_ms(lambda: fn(d))
+    assert dt.launches == 1, dt
+    assert _kernels.launches["window_cost"] == dt.calls, (
+        dict(_kernels.launches), dt)
 
 
 @pytest.mark.parametrize("six", [False, True], ids=["4dof", "6dof"])

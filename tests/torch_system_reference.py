@@ -13,7 +13,14 @@ three channels, the latest VIO pose composed with the rig's extrinsic); it
 prints the mesh's vertices, meshed voxels and triangles and the share of
 live vertices that took a colour (w > 0), the figures phase 14 cites.
 
-    PYTHONPATH=. python tests/torch_system_reference.py [mesh] [n_frames]
+``camera`` runs the JAX package's ``FusedVio`` alone on ``chip_smoke.py``'s
+phase 4 drive (``checks.room_drive(32)``: 640×480 RGB-D + IMU + wheel) as
+phase 4 drives the port's: the same configuration, the synthetic rig
+(``checks.RIG_RIC``, zero offsets, an identity wheel frame), depth decimated
+by 2, not pipelined; it prints the aligned ATE of the initialized outputs,
+the figure phase 4 prints beside its own.
+
+    PYTHONPATH=. python tests/torch_system_reference.py [mesh | camera] [n_frames]
 
 Not a test (pytest collects ``test_*.py`` only): a full-width run takes
 about three minutes on a CPU.
@@ -35,17 +42,46 @@ from ground_fusion2_tpu.system import GroundFusion, SystemConfig
 from ground_fusion2_tpu_torch import checks
 
 
-def main(n: int = 40, mesh: bool = False) -> dict:
-    jax.config.update("jax_platforms", "cpu")
+def jax_camera_config():
+    """The port's ``m3dgr_camera()`` in the JAX package: the loader's
+    configuration for ``configs/m3dgr.yaml``, with the deeper room's depth
+    range and RANSAC on."""
     jc = load_config(Path(__file__).resolve().parent.parent / "configs"
                      / "m3dgr.yaml")
-    # the port's m3dgr_camera(): depth range for the deeper room, RANSAC on
     trk = dataclasses.replace(jc.make_tracker(), depth_range=(0.1, 20.0),
                               use_ransac=True)
     ci = jc.cam_intrinsics
-    cfg = SystemConfig(vio=jc.estimator, lio=jc.lio, tracker=trk,
-                       cam=Pinhole.create(ci["fx"], ci["fy"], ci["cx"],
-                                          ci["cy"]),
+    return jc, trk, Pinhole.create(ci["fx"], ci["fy"], ci["cx"], ci["cy"])
+
+
+def camera(n: int = 32) -> dict:
+    """Phase 4's drive through the JAX package's FusedVio: its aligned
+    ATE over the initialized frames."""
+    from ground_fusion2_tpu.eval.metrics import ate_rmse
+    from ground_fusion2_tpu.vio.fused import FusedVio
+    jax.config.update("jax_platforms", "cpu")
+    jc, trk, cam = jax_camera_config()
+    fv = FusedVio(jc.estimator, trk, cam, tic=np.zeros(3), ric=checks.RIG_RIC,
+                  tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
+    est, gt = [], []
+    t0 = time.time()
+    for f in checks.room_drive(n):
+        out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
+                               wheel_vel=f["wheel"])
+        if out is not None and out.initialized:
+            est.append(np.asarray(out.p))
+            gt.append(f["p_gt"])
+    return dict(frames=n, initialized=len(est),
+                ate=float(ate_rmse(np.asarray(est), np.asarray(gt),
+                                   align=True)),
+                seconds=time.time() - t0)
+
+
+def main(n: int = 40, mesh: bool = False) -> dict:
+    jax.config.update("jax_platforms", "cpu")
+    jc, trk, cam = jax_camera_config()
+    ci = jc.cam_intrinsics
+    cfg = SystemConfig(vio=jc.estimator, lio=jc.lio, tracker=trk, cam=cam,
                        vio_pipelined=True, vio_depth_stride=2,
                        lio_pipelined=True, use_occupancy_grid=not mesh,
                        use_mesh=mesh,
@@ -81,6 +117,9 @@ def main(n: int = 40, mesh: bool = False) -> dict:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    mesh = bool(args) and args[0] == "mesh"
-    args = args[1:] if mesh else args
-    print(json.dumps(main(int(args[0]) if args else 40, mesh=mesh)))
+    mode = args.pop(0) if args and args[0] in ("mesh", "camera") else None
+    if mode == "camera":
+        print(json.dumps(camera(int(args[0]) if args else 32)))
+    else:
+        print(json.dumps(main(int(args[0]) if args else 40,
+                              mesh=mode == "mesh")))
