@@ -242,6 +242,11 @@ LIO_MAX_ERR = 0.06     # m, test_lio_e2e.py's bound; the JAX package: 0.0032 m
 # initialized frames (tests/torch_system_reference.py camera, CPU); printed
 # beside phase 4's, not gated
 JAX_CAMERA_ATE = 0.09645292800512928
+# the port's FusedVio on the CPU over the same drive, with JAX's RANSAC draws
+# and with its own CPU draws (tests/torch_system_reference.py port-jax-draws
+# and port-cpu-draws); printed beside phase 4's, not gated
+PORT_CPU_JAX_DRAWS_ATE = 0.14668776783459836
+PORT_CPU_ATE = 0.14676329781205139
 SYS_FRAMES = 40
 SYS_MAX_ERR = 0.06     # m, fused position error (test_lio_e2e.py's bound)
 SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
@@ -407,11 +412,14 @@ def sync_site(counter):
     return show
 
 
-# kernels F, C, W, X, L (with P's rows), AC, S and K by their __global__
-# names (csrc/radix_sort.cu, proj_normal.cu, chol_solve.cu, sym_eig.cu,
-# small_normal.cu, mesh_delaunay.cu, window_cost.cu, ransac_f.cu): phases
-# 8, 10 and 14 print their device ms a tick
+# kernels D, E, F, C, W, X, L (with P's rows), AC, S and K by their
+# __global__ names (csrc/lio_assoc.cu, ct_icp_normal.cu, radix_sort.cu,
+# proj_normal.cu, chol_solve.cu, sym_eig.cu, small_normal.cu,
+# mesh_delaunay.cu, window_cost.cu, ransac_f.cu): phases 8, 10 and 14 print
+# their device ms a tick
 KERNEL_GROUPS = {
+    "D": ("lio_assoc_kernel",),
+    "E": ("ct_icp_normal_kernel",),
     "F": ("radix_kernel",),
     "C": ("proj_feature_kernel", "proj_reduce_kernel"),
     "W": ("chol_cluster_kernel", "chol_coop_kernel", "chol_back_kernel"),
@@ -624,6 +632,29 @@ class LinalgCounter:
         return {c.name: c.n for c in self.counters if c.n}
 
 
+class AssocSearches:
+    """While installed, keeps kernel D's ``search`` argument of every
+    ``voxel_map.associate`` call (True, False, or CT-ICP's device flag, by
+    reference: no launch); :meth:`searched`, read once the drive is over,
+    counts the calls that searched the map."""
+
+    def __enter__(self):
+        from ground_fusion2_tpu_torch.lio import voxel_map as vm
+        self.vm, self.own, self.calls = vm, vm.associate, []
+
+        def associate(vmap, p_gather, p_query, cfg, ranges=None, search=True):
+            self.calls.append(search)
+            return self.own(vmap, p_gather, p_query, cfg, ranges, search)
+        vm.associate = associate
+        return self
+
+    def __exit__(self, *exc):
+        self.vm.associate = self.own
+
+    def searched(self) -> int:
+        return sum(bool(s) for s in self.calls)
+
+
 def prior_finite(fv) -> bool:
     """Whether FusedVio ``fv``'s marginalization prior is finite (kernel X
     gives NaN where it does not converge, and the NaN stays in every later
@@ -737,6 +768,7 @@ def system_main_path(dev, card, frames):
     launches_at_live = None
     prof = None          # the last 3 ticks' device trace
     _kernels.launches.clear()
+    searches = AssocSearches().__enter__()
     for k, f in enumerate(frames):
         live = gf.vio.carry is not None and gf.lio.carry is not None
         if live and launches_at_live is None:
@@ -768,6 +800,7 @@ def system_main_path(dev, card, frames):
     if prof is not None:
         prof.__exit__(None, None, None)
     out = gf.flush()
+    searches.__exit__()
     if out is not None and out.initialized:
         vio.append(out)
     launches = dict(_kernels.launches)
@@ -796,6 +829,17 @@ def system_main_path(dev, card, frames):
           f"call site of the last {dict(sites.most_common())}, median of the "
           f"unprofiled ticks {float(np.median(tick_ms[2:-3])):.2f} ms | {card}",
           flush=True)
+    if split:
+        per_tick = split["port_kernel_launches_per_tick"]
+        print(f"kernels D and E in the system tick: launches a LiDAR tick "
+              f"D {per_tick.get('lio_assoc_kernel', 0):g}, E "
+              f"{per_tick.get('ct_icp_normal_kernel', 0):g} (torch.profiler, "
+              f"the last 3 ticks), device ms a tick D "
+              f"{split['by_kernel_ms_per_tick']['D']:.4f}, E "
+              f"{split['by_kernel_ms_per_tick']['E']:.4f}; D's calls that "
+              f"searched the map {searches.searched()} of "
+              f"{len(searches.calls)} over the drive (the rest ranked the "
+              f"solve's cached candidates) | {card}", flush=True)
     print(f"system path: {n_live} system ticks with both carries live, "
           f"median system tick {float(np.median(tick_ms[2:])):.2f} ms "
           f"(synchronized wall, ticks 3..{n_live}), host syncs "
@@ -1758,7 +1802,9 @@ def main() -> int:
               if not torch.equal(a, b)]
     print(f"camera path repeated: ATE {runs[0][1]['ate']:.6f} m and "
           f"{runs[1][1]['ate']:.6f} m (the JAX package on the same drive: "
-          f"{JAX_CAMERA_ATE:.6f} m, printed, not gated); windows "
+          f"{JAX_CAMERA_ATE:.6f} m; the port on the CPU with JAX's draws "
+          f"{PORT_CPU_JAX_DRAWS_ATE:.6f} m, with its own "
+          f"{PORT_CPU_ATE:.6f} m; printed, not gated); windows "
           + (f"first differ at fused tick {differ[0] + 1} of {len(w1)}"
              if differ else f"identical over all {len(w1)} fused ticks"),
           flush=True)
@@ -1810,6 +1856,17 @@ def main() -> int:
     if report(res_lio):
         return 1
     res.update(res_lio)
+    d, e = res_lio["lio_assoc"], res_lio["ct_icp_normal"]
+    print(f"kernel D (lio_assoc) on phase 5's {x['p_w'].shape[0]} keypoints, "
+          f"device ms a call: search mode {d['device_ms']:.4f}, cached mode "
+          f"{d['cached_device_ms']:.4f} (query 3 cm off the gather point), "
+          f"launches a call {d['launches_per_call']:g} / "
+          f"{d['cached_launches_per_call']:g}, the modes' outputs equal: "
+          f"{d['modes_equal']}; kernel E (ct_icp_normal) on its "
+          f"association: {e['device_ms']:.4f}, launches a call "
+          f"{e['launches_per_call']:g} (torch.profiler; host-inclusive call "
+          f"ms {d['ms']:.4f} / {d['cached_ms']:.4f} / {e['ms']:.4f}) | {card}",
+          flush=True)
     print("kernel F against torch.sort(stable=True), device ms a call in "
           "turns (F, sort, sort, F) and launches a call, by size: "
           + json.dumps({k: {n: v[n] for n in (

@@ -42,8 +42,9 @@ _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
     "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 5,
-    "gf2_lio_assoc": [_P] * 5 + [_I] * 2 + [_F] + [_I] * 3 + [_P] * 5,
-    "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 2,
+    "gf2_lio_assoc": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 4 + [_P] * 5,
+    "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 4,
+    "gf2_ct_icp_scratch": [_I],
     "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P],
     "gf2_radix_plan": [_I] * 2 + [_P] * 6,
     "gf2_eskf_predict": [_P] * 11 + [_I] + [_F] * 4 + [_P] * 5,

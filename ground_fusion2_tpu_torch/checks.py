@@ -56,6 +56,7 @@ ASSOC_TOL = dict(normal=1e-4,    # max |n nᵀ - n' n'ᵀ| where a2D > min_plana
 GATE_BAND = 1e-4       # a gate (a2D, distance) may flip only this close to its threshold
 ICP_REL_TOL = 1e-4     # kernel E: H, cost relative to their max |entry|
 ICP_G_TOL = 1e-3       # kernel E: g per entry against sqrt(H_ii·2·cost)
+ICP_TOLS = dict(H=ICP_REL_TOL, g=ICP_G_TOL, cost=ICP_REL_TOL)
 # kernel G walks the samples in order where the plain version's cumsum and
 # the JAX scan reassociate: f32 rounding over ≤ 48 steps
 ESKF_TOL = dict(p=1e-5, v=1e-5, q=1e-6, cov_rel=1e-5)
@@ -483,14 +484,38 @@ def lio_kernel_inputs(lo, scan) -> dict:
                 pose=pose, p_w=p_w, normal=normal, centroid=centroid, w=w)
 
 
-def check_assoc(device, x: dict, cfg, icp_cfg) -> dict:
-    """Kernel D against gather + kNN + plane fit at K keypoints on a map
-    filled by the drive (gather and query at the predicted pose, and the
-    query moved 3 cm, as a later CT-ICP iteration sees it)."""
-    vmap, p_g = x["vmap"], x["p_w"]
-    p_q = p_g + torch.tensor([0.03, -0.02, 0.01], device=device)
-    nk, ck, ak, vk = vm.associate(vmap, p_g, p_q, cfg)
-    npl, cp, ap, vp = vm.associate_plain(vmap, p_g, p_q, cfg)
+def lio_drive_inputs(device, at, n_scans: int = 60, z: float = 1.0) -> dict:
+    """:func:`lio_kernel_inputs` along ``chip_smoke.py``'s phase 5 drive
+    (``LidarOdometry`` at ``m3dgr_lio()`` over ``lidar_drive(n_scans + 1,
+    z)``): {k: the inputs of scan k + 1} for each scan index k in ``at``
+    (once the odometry is initialized)."""
+    from .config import m3dgr_lio
+    from .lio.odometry import LidarOdometry
+    scans = lidar_drive(n_scans + 1, z=z)
+    lo = LidarOdometry(m3dgr_lio(), device=device)
+    out = {}
+    for k, s in enumerate(scans[:n_scans]):
+        lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
+        if k in at and lo.carry is not None:
+            out[k] = lio_kernel_inputs(lo, scans[k + 1])
+    return out
+
+
+def assoc_points(device, x: dict):
+    """Kernel D's gather and query points on :func:`lio_kernel_inputs`: the
+    keypoints at the predicted pose, and the same moved 3 cm, as a later
+    CT-ICP iteration sees them."""
+    p_g = x["p_w"]
+    return p_g, p_g + torch.tensor([0.03, -0.02, 0.01], device=device)
+
+
+def assoc_errors(new, plain, p_q, icp_cfg) -> dict:
+    """Kernel D's outputs against the plain version's: the normals (as n nᵀ,
+    where planar), centroids and a2D where valid, the valid flags, and the
+    gates (planarity, distance) that flip farther than GATE_BAND from
+    their threshold."""
+    nk, ck, ak, vk = new
+    npl, cp, ap, vp = plain
     planar = vp & (ap > icp_cfg.min_planarity)
     outer = lambda n: n[:, :, None] * n[:, None, :]
     e_n = float((outer(nk) - outer(npl))[planar].abs().max()) \
@@ -508,41 +533,110 @@ def check_assoc(device, x: dict, cfg, icp_cfg) -> dict:
              icp_cfg.max_corr_dist)):
         flips += int(((vk_ != vp_) & vp & ((val - th).abs() > GATE_BAND)).sum())
     errs = dict(normal=e_n, centroid=e_c, a2d=e_a)
-    ok = (bool(torch.equal(vk, vp)) and flips == 0
-          and all(errs[k] <= ASSOC_TOL[k] for k in errs))
+    valid_equal = bool(torch.equal(vk, vp))
+    return dict(errs=errs, valid_equal=valid_equal, gate_flips=flips,
+                n_valid=int(vp.sum()), n_planar=int(planar.sum()),
+                ok=(valid_equal and flips == 0
+                    and all(errs[k] <= ASSOC_TOL[k] for k in errs)))
+
+
+def check_assoc(device, x: dict, cfg, icp_cfg) -> dict:
+    """Kernel D against gather + kNN + plane fit at K keypoints on a map
+    filled by the drive (gather at the predicted pose, query moved 3 cm, as
+    a later CT-ICP iteration sees it), in search mode and in cached mode
+    (from the ranges the search wrote): each against the plain version,
+    and the two modes ``torch.equal``. Device ms and launches for each
+    mode; the bound counts the function (the map, both points in, four
+    outputs), whatever a mode reads."""
+    vmap = x["vmap"]
+    p_g, p_q = assoc_points(device, x)
+    ranges = torch.empty((p_q.shape[0], 27), dtype=torch.int32, device=device)
+    search = lambda: vm.associate(vmap, p_g, p_q, cfg, ranges, True)
+    cached = lambda: vm.associate(vmap, None, p_q, cfg, ranges, False)
+    new = search()
+    new_cached = cached()
+    plain = vm.associate_plain(vmap, p_g, p_q, cfg)
+    e = assoc_errors(new, plain, p_q, icp_cfg)
+    e_cached = assoc_errors(new_cached, plain, p_q, icp_cfg)
+    modes_equal = all(bool(torch.equal(a, b)) for a, b in zip(new, new_cached))
     # the map (codes, points) and the queries in, four outputs; per query
     # 27 voxels × gather_k candidates at 8 flops, a 20-point plane fit
     K = p_q.shape[0]
-    nb = _nbytes(vmap.code, vmap.pts, p_g, p_q, nk, ck, ak, vk)
+    nb = _nbytes(vmap.code, vmap.pts, p_g, p_q, *new)
     flops = K * (27 * cfg.gather_k * 8 + cfg.knn * 30 + 100)
-    return dict(max_abs_err=max(errs.values()), errs=errs, tol=ASSOC_TOL,
-                library_ms=None, **bound(nb, flops),
-                valid_equal=bool(torch.equal(vk, vp)), gate_flips=flips,
-                n_valid=int(vp.sum()), n_planar=int(planar.sum()), ok=ok,
-                ms=time_ms(lambda: vm.associate(vmap, p_g, p_q, cfg)),
+    dc = device_ms(cached)
+    search_ok = e.pop("ok")
+    return dict(max_abs_err=max(e["errs"].values()), tol=ASSOC_TOL,
+                library_ms=None, **bound(nb, flops), **e,
+                cached_ok=e_cached["ok"], modes_equal=modes_equal,
+                ok=search_ok and e_cached["ok"] and modes_equal,
+                ms=time_ms(search), cached_ms=time_ms(cached),
                 plain_ms=time_ms(lambda: vm.associate_plain(vmap, p_g, p_q,
                                                             cfg), reps=5),
-                **device_pair(lambda: vm.associate(vmap, p_g, p_q, cfg)))
+                **device_pair(search), cached_device_ms=dc.ms,
+                cached_launches_per_call=dc.launches)
+
+
+def ct_normal_errors(new, plain) -> dict:
+    """Kernel E's (H, g, cost) against the plain version's: H and the cost
+    relative to their largest entry, g per entry against sqrt(H_ii·2·cost)
+    (``ICP_TOLS``)."""
+    (Hk, gk, ck), (Hp, gp, cp) = new, plain
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    g_scale = torch.sqrt(torch.diagonal(Hp).clamp(min=0.0) * 2.0 * cp)
+    return dict(H=rel(Hk, Hp), cost=rel(ck, cp),
+                g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
+
+
+def ct_normal_case(device, K: int, seed: int = 0, weights: bool = True):
+    """Kernel E's arguments at any K: a scan's K points 2–20 m out on a
+    sweep (alpha 0..1), planes 1–5 cm off them, a quarter of the weights 0
+    (all 0 without ``weights``), begin and end poses 0.02 rad and 5 cm
+    apart, the prediction 1 cm off; at m3dgr_lio()'s ICP configuration."""
+    from .config import m3dgr_lio
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g)
+    pts = (u(K, 3) - 0.5) * 2.0
+    pts = pts / pts.norm(dim=1, keepdim=True) * (2.0 + 18.0 * u(K, 1))
+    normal = u(K, 3) - 0.5
+    normal = normal / normal.norm(dim=1, keepdim=True)
+    alpha = torch.sort(u(K)).values
+    centroid = pts + normal * (0.01 + 0.04 * u(K, 1))
+    w = u(K) * (u(K) > 0.25) if weights else torch.zeros(K)
+    q0 = torch.tensor([1.0, 0.0, 0.0, 0.0])
+    q1 = lie.quat_boxplus(q0, torch.tensor([0.0, 0.004, 0.02]))
+    t0 = torch.tensor([0.3, -0.2, 0.1])
+    pose = ci.CtPose(q0, t0, q1, t0 + torch.tensor([0.05, 0.0, 0.0]))
+    pred = ci.CtPose(q0, t0 + 0.01, q1, pose.t_end - 0.01)
+    to = lambda p: ci.CtPose(*(t.to(device) for t in p))
+    return (to(pose), to(pred), *(t.to(device) for t in (pts, alpha, centroid,
+                                                          normal, w)),
+            m3dgr_lio().icp_cfg)
+
+
+def ct_normal_args(device, x: dict, icp_cfg, moved: bool = True) -> tuple:
+    """Kernel E's arguments on :func:`lio_kernel_inputs`: the drive's
+    association at the predicted pose, or (``moved``) at a pose 2 cm / 0.01
+    rad off it, so the begin and end rotations differ, as after a GN step."""
+    pose = x["pose"]
+    if moved:
+        pose = pose._replace(
+            q_end=lie.quat_boxplus(pose.q_end, torch.tensor(
+                [0.0, 0.004, 0.01], device=device)),
+            t_end=pose.t_end + torch.tensor([0.02, -0.01, 0.0], device=device))
+    return (pose, x["pose"], x["kp"], x["ka"], x["centroid"], x["normal"],
+            x["w"], icp_cfg)
 
 
 def check_ct_normal(device, x: dict, icp_cfg) -> dict:
     """Kernel E against ``jacfwd`` + JᵀJ at K keypoints with the drive's
     association, at a pose 2 cm / 0.01 rad off the predicted one (so the
     begin and end rotations differ, as after a GN step)."""
-    pose = x["pose"]
-    pose = pose._replace(
-        q_end=lie.quat_boxplus(pose.q_end, torch.tensor([0.0, 0.004, 0.01],
-                                                        device=device)),
-        t_end=pose.t_end + torch.tensor([0.02, -0.01, 0.0], device=device))
-    args = (pose, x["pose"], x["kp"], x["ka"], x["centroid"], x["normal"],
-            x["w"], icp_cfg)
+    args = ct_normal_args(device, x, icp_cfg)
     Hk, gk, ck = ci.normal_equations(*args)
     Hp, gp, cp = ci.normal_equations_plain(*args)
-    rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-    g_scale = torch.sqrt(torch.diagonal(Hp).clamp(min=0.0) * 2.0 * cp)
-    errs = dict(H=rel(Hk, Hp), cost=rel(ck, cp),
-                g=float(((gk - gp).abs() / g_scale.clamp(min=1e-30)).max()))
-    tols = dict(H=ICP_REL_TOL, g=ICP_G_TOL, cost=ICP_REL_TOL)
+    errs = ct_normal_errors((Hk, gk, ck), (Hp, gp, cp))
+    tols = ICP_TOLS
     # per keypoint row: the 12-wide Jacobian (~100 flops) and its outer
     # product (2·12² flops); keypoints, planes and weights in, H, g out
     n_rows = int((x["w"] > 0).sum())

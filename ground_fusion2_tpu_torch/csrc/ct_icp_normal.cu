@@ -6,7 +6,7 @@
 // and 9 regularizer rows (location, constant velocity, orientation, each
 // scaled by the static K). The TPU form materializes J [K + 9, 12] and one
 // MXU product; here each thread evaluates one row with forward-mode dual
-// numbers and the block reduces the rows into H, g and the cost.
+// numbers and one CTA reduces the rows into H, g and the cost.
 //
 // Tangent order [δθ_begin, δt_begin, δθ_end, δt_end]. The rotations go
 // through the same retraction as JAX (q ⊗ exp(δ), normalized) and through
@@ -17,21 +17,44 @@
 // is inf, and it is never formed. The weight w is held constant, as jacfwd
 // of `residuals(d)` does with the associated planes.
 //
-// Reduction: tiles of 256 rows write [J | r] to shared memory; 91 threads
-// sum the 78 entries of H's upper triangle, the 12 of g and the cost in row
-// order (deterministic). Bounds on the card: ~2000 rows × ~1.5 kFLOP of dual
-// arithmetic ≈ 3 MFLOP in one block: latency-bound; the gain is the ~200
-// launches of jacfwd folded into one.
+// One launch of ⌈(K + 9) / 128⌉ CTAs of 128 threads, a row a thread: each
+// CTA writes its rows' [J | r] (13 floats a row) column by column
+// (coalesced) to a scratch buffer. The last CTA to finish
+// (a fence and an atomicInc ticket that wraps to 0) streams the rows
+// through a ring of shared memory (cp.async, 256-row slots, columns padded
+// apart) while 91 of its threads walk every row in order, each summing one
+// of the 78 entries of H's upper triangle, the 12 of g or the cost with one
+// FMA a row, its two columns read 16 rows ahead of the FMAs: the first
+// version's order and contraction, so H, g and the cost are its bits.
+// Bounds on the card: ~2000 rows × ~1.5 kFLOP of dual arithmetic, spread
+// over 16 SMs; then the serial sum, ~2000 dependent FMAs (~4 cycles each,
+// ~4 µs): the floor that keeping the bits allows (the walk measures near
+// three times that, PERF.md §6).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "stage_stamps.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;               // rows a CTA, a thread each
 constexpr int kN = 6;          // dual width: δθ_begin, δθ_end
 constexpr int kCols = 12;
+constexpr int kStride = kCols + 1;           // a row of [J | r]
 constexpr int kAcc = 78 + 12 + 1;
+constexpr int kChunk = kThreads * kStride;   // floats of a CTA's rows
+constexpr int kSlotCtas = 2;                 // CTAs' rows a ring slot holds
+constexpr int kSlotRows = kSlotCtas * kThreads;
+constexpr int kPad = kSlotRows + 4;          // a column's stride in a slot
+constexpr int kSlot = kStride * kPad;        // floats of a ring slot
+constexpr int kSlots = 3;                    // the ring: 40,560 B
+constexpr int kStep = 16;                    // rows a walk step reads ahead
+
+// stage stamps (stage_stamps.cuh), a CTA's: its entry, its rows written;
+// the last CTA's ticket and its sum; named by GF2_STAGE_NAMES below
+enum { kStEntry, kStRows, kStTicket, kStSum };
 
 struct D {
   float v;
@@ -198,7 +221,96 @@ __device__ __forceinline__ Q retract(const float* q, int c0) {
   return qnormalize(qmul(qconst(q), qexp(phi)));
 }
 
-__global__ void ct_icp_normal_kernel(
+// row `row` of [J | r] (zeros past the K + 9 rows and where w = 0)
+__device__ __forceinline__ void eval_row(
+    int row, int K, const Q& qb1, const Q& qe1, const float* __restrict__ tb,
+    const float* __restrict__ te, const float* __restrict__ ptb,
+    const float* __restrict__ pte, const float* __restrict__ pts,
+    const float* __restrict__ alpha, const float* __restrict__ centroid,
+    const float* __restrict__ normal, const float* __restrict__ wgt,
+    float beta_loc, float beta_vel, float beta_ori, float J[kStride]) {
+  const float Kf = (float)K;
+  const int rows = K + 9;
+#pragma unroll
+  for (int c = 0; c <= kCols; ++c) J[c] = 0.f;
+  if (row < K) {
+    const float w = wgt[row];
+    if (w != 0.f) {
+      const float a = alpha[row];
+      const float* n = normal + 3 * row;
+      const float* ce = centroid + 3 * row;
+      V rot = qrot(qslerp(qb1, qe1, a), pts + 3 * row);
+      float tt[3];
+      for (int k = 0; k < 3; ++k) tt[k] = (1.f - a) * tb[k] + a * te[k];
+      D ex = (rot.x + cst(tt[0])) - cst(ce[0]);
+      D ey = (rot.y + cst(tt[1])) - cst(ce[1]);
+      D ez = (rot.z + cst(tt[2])) - cst(ce[2]);
+      D r = ((ex * cst(n[0]) + ey * cst(n[1])) + ez * cst(n[2])) * cst(w);
+      for (int k = 0; k < 3; ++k) {
+        J[k] = r.d[k];
+        J[6 + k] = r.d[3 + k];
+        J[3 + k] = ((1.f - a) * n[k]) * w;
+        J[9 + k] = (a * n[k]) * w;
+      }
+      J[kCols] = r.v;
+    }
+  } else if (row < rows) {
+    const int m = row - K, i = m % 3;
+    if (m < 3) {          // location consistency of the begin pose
+      J[3 + i] = (1.f * beta_loc) * Kf;
+      J[kCols] = ((tb[i] - ptb[i]) * beta_loc) * Kf;
+    } else if (m < 6) {   // constant velocity
+      J[9 + i] = (1.f * beta_vel) * Kf;
+      J[3 + i] = (-1.f * beta_vel) * Kf;
+      J[kCols] = (((te[i] - tb[i]) - (pte[i] - ptb[i])) * beta_vel) * Kf;
+    } else {              // orientation consistency
+      V lg = qlog(qmul(qconj(qb1), qe1));
+      const D& c = i == 0 ? lg.x : (i == 1 ? lg.y : lg.z);
+      for (int k = 0; k < 3; ++k) {
+        J[k] = (c.d[k] * beta_ori) * Kf;
+        J[6 + k] = (c.d[3 + k] * beta_ori) * Kf;
+      }
+      J[kCols] = (c.v * beta_ori) * Kf;
+    }
+  }
+}
+
+// slot c of the rows (kSlotCtas CTAs' blocks of [13][128]) into the ring,
+// columns kPad apart (float4 reads of a column spread over the banks), one
+// commit group
+__device__ __forceinline__ void stage_slot(const float* __restrict__ rows_buf,
+                                           int c, int n_slots, int ctas,
+                                           float* ring) {
+  if (c < n_slots) {
+    float* dst = ring + (c % kSlots) * kSlot;
+    const int blocks = min(kSlotCtas, ctas - c * kSlotCtas);
+    for (int i = threadIdx.x; i < blocks * kChunk / 4; i += kThreads) {
+      const int blk = i / (kChunk / 4), j = i % (kChunk / 4);
+      const int col = j / (kThreads / 4), k = 4 * (j % (kThreads / 4));
+      __pipeline_memcpy_async(
+          dst + col * kPad + blk * kThreads + k,
+          rows_buf + (size_t)(c * kSlotCtas + blk) * kChunk + col * kThreads + k,
+          sizeof(float4));
+    }
+  }
+  __pipeline_commit();
+}
+
+// acc += a[k]·b[k] over kStep rows, in row order
+__device__ __forceinline__ float fma_step(const float4 (&x)[kStep / 4],
+                                          const float4 (&y)[kStep / 4],
+                                          float acc) {
+#pragma unroll
+  for (int i = 0; i < kStep / 4; ++i) {
+    acc = __fmaf_rn(x[i].x, y[i].x, acc);
+    acc = __fmaf_rn(x[i].y, y[i].y, acc);
+    acc = __fmaf_rn(x[i].z, y[i].z, acc);
+    acc = __fmaf_rn(x[i].w, y[i].w, acc);
+  }
+  return acc;
+}
+
+__global__ void __launch_bounds__(kThreads) ct_icp_normal_kernel(
     const float* __restrict__ qb, const float* __restrict__ tb,
     const float* __restrict__ qe, const float* __restrict__ te,
     const float* __restrict__ pqb, const float* __restrict__ ptb,
@@ -206,95 +318,109 @@ __global__ void ct_icp_normal_kernel(
     const float* __restrict__ pts, const float* __restrict__ alpha,
     const float* __restrict__ centroid, const float* __restrict__ normal,
     const float* __restrict__ wgt, int K, float beta_loc, float beta_vel,
-    float beta_ori, float* __restrict__ out) {
-  __shared__ float Js[kThreads][kCols + 1];
-  __shared__ int ei[78], ej[78];
+    float beta_ori, float* __restrict__ rows_buf,
+    unsigned* __restrict__ ticket, float* __restrict__ out) {
+  __shared__ __align__(16) float ring[kSlots * kSlot];
+  __shared__ bool last;
   const int t = threadIdx.x;
-  if (t == 0) {
-    int e = 0;
-    for (int i = 0; i < kCols; ++i)
-      for (int j = i; j < kCols; ++j) { ei[e] = i; ej[e] = j; ++e; }
-  }
-  const float Kf = (float)K;
+  GF2_STAMP(t == 0, blockIdx.x, kStEntry);
   const Q qb1 = retract(qb, 0), qe1 = retract(qe, 3);
+  const int row = blockIdx.x * kThreads + t;
+  float J[kStride];
+  eval_row(row, K, qb1, qe1, tb, te, ptb, pte, pts, alpha, centroid, normal,
+           wgt, beta_loc, beta_vel, beta_ori, J);
+  // the CTA's rows column by column: [13][128]
+#pragma unroll
+  for (int c = 0; c <= kCols; ++c)
+    rows_buf[(size_t)blockIdx.x * kChunk + c * kThreads + t] = J[c];
+
+  // the last CTA to finish sums every row in order
+  __threadfence();
+  __syncthreads();
+  GF2_STAMP(t == 0, blockIdx.x, kStRows);
+  if (t == 0) last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  GF2_STAMP(t == 0, blockIdx.x, kStTicket);
+  // thread t's entry: H's upper triangle row by row, then g, then the cost
+  int a = kCols, b = kCols;
+  if (t < 78) {
+    int e = t;
+    a = 0;
+    while (e >= kCols - a) { e -= kCols - a; ++a; }
+    b = a + e;
+  } else if (t < 90) {
+    a = t - 78;
+  }
+  // every row the CTAs wrote, in order; the rows past K + 9 of the last
+  // CTA's block are zeros, and acc + 0·0 is acc (acc is never −0)
+  const int ctas = gridDim.x, n_slots = (ctas + kSlotCtas - 1) / kSlotCtas;
+  for (int c = 0; c < kSlots - 1; ++c) stage_slot(rows_buf, c, n_slots, ctas, ring);
   float acc = 0.f;
-  const int rows = K + 9;
-  for (int base = 0; base < rows; base += kThreads) {
-    const int row = base + t;
-    float J[kCols + 1];
-#pragma unroll
-    for (int c = 0; c <= kCols; ++c) J[c] = 0.f;
-    if (row < K) {
-      const float w = wgt[row];
-      if (w != 0.f) {
-        const float a = alpha[row];
-        const float* n = normal + 3 * row;
-        const float* ce = centroid + 3 * row;
-        V rot = qrot(qslerp(qb1, qe1, a), pts + 3 * row);
-        float tt[3];
-        for (int k = 0; k < 3; ++k) tt[k] = (1.f - a) * tb[k] + a * te[k];
-        D ex = (rot.x + cst(tt[0])) - cst(ce[0]);
-        D ey = (rot.y + cst(tt[1])) - cst(ce[1]);
-        D ez = (rot.z + cst(tt[2])) - cst(ce[2]);
-        D r = ((ex * cst(n[0]) + ey * cst(n[1])) + ez * cst(n[2])) * cst(w);
-        for (int k = 0; k < 3; ++k) {
-          J[k] = r.d[k];
-          J[6 + k] = r.d[3 + k];
-          J[3 + k] = ((1.f - a) * n[k]) * w;
-          J[9 + k] = (a * n[k]) * w;
-        }
-        J[kCols] = r.v;
-      }
-    } else if (row < rows) {
-      const int m = row - K, i = m % 3;
-      if (m < 3) {          // location consistency of the begin pose
-        J[3 + i] = (1.f * beta_loc) * Kf;
-        J[kCols] = ((tb[i] - ptb[i]) * beta_loc) * Kf;
-      } else if (m < 6) {   // constant velocity
-        J[9 + i] = (1.f * beta_vel) * Kf;
-        J[3 + i] = (-1.f * beta_vel) * Kf;
-        J[kCols] = (((te[i] - tb[i]) - (pte[i] - ptb[i])) * beta_vel) * Kf;
-      } else {              // orientation consistency
-        V lg = qlog(qmul(qconj(qb1), qe1));
-        const D& c = i == 0 ? lg.x : (i == 1 ? lg.y : lg.z);
-        for (int k = 0; k < 3; ++k) {
-          J[k] = (c.d[k] * beta_ori) * Kf;
-          J[6 + k] = (c.d[3 + k] * beta_ori) * Kf;
-        }
-        J[kCols] = (c.v * beta_ori) * Kf;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c <= kCols; ++c) Js[t][c] = J[c];
+  for (int c = 0; c < n_slots; ++c) {
+    // the slot c + kSlots − 1 takes was walked last round
+    stage_slot(rows_buf, c + kSlots - 1, n_slots, ctas, ring);
+    __pipeline_wait_prior(kSlots - 1);
     __syncthreads();
     if (t < kAcc) {
-      const int n_rows = min(kThreads, rows - base);
-      const int a = t < 78 ? ei[t] : (t < 90 ? t - 78 : kCols);
-      const int b = t < 78 ? ej[t] : kCols;
-      for (int k = 0; k < n_rows; ++k) acc += Js[k][a] * Js[k][b];
+      const float* Sa = ring + (c % kSlots) * kSlot + a * kPad;
+      const float* Sb = ring + (c % kSlots) * kSlot + b * kPad;
+      const int n = min(kSlotCtas, ctas - c * kSlotCtas) * kThreads;
+      // the next step's rows load while this step's FMAs run
+      float4 x[kStep / 4], y[kStep / 4];
+#pragma unroll
+      for (int i = 0; i < kStep / 4; ++i) {
+        x[i] = *reinterpret_cast<const float4*>(Sa + 4 * i);
+        y[i] = *reinterpret_cast<const float4*>(Sb + 4 * i);
+      }
+      for (int k = kStep; k < n; k += kStep) {
+        float4 nx[kStep / 4], ny[kStep / 4];
+#pragma unroll
+        for (int i = 0; i < kStep / 4; ++i) {
+          nx[i] = *reinterpret_cast<const float4*>(Sa + k + 4 * i);
+          ny[i] = *reinterpret_cast<const float4*>(Sb + k + 4 * i);
+        }
+        acc = fma_step(x, y, acc);
+#pragma unroll
+        for (int i = 0; i < kStep / 4; ++i) { x[i] = nx[i]; y[i] = ny[i]; }
+      }
+      acc = fma_step(x, y, acc);
     }
     __syncthreads();
   }
   if (t < 78) {
-    out[ei[t] * kCols + ej[t]] = acc;
-    out[ej[t] * kCols + ei[t]] = acc;
+    out[a * kCols + b] = acc;
+    out[b * kCols + a] = acc;
   } else if (t < 90) {
     out[kCols * kCols + (t - 78)] = acc;
   } else if (t == 90) {
     out[kCols * kCols + kCols] = 0.5f * acc;
   }
+  GF2_STAMP(t == 0, blockIdx.x, kStSum);
 }
 
 }  // namespace
 
+GF2_STAGE_NAMES("entry,rows,ticket,sum")
+
+// floats of the rows' scratch for K keypoint rows (all CTAs' rows)
+extern "C" int gf2_ct_icp_scratch(int K) {
+  return (K + 9 + kThreads - 1) / kThreads * kChunk;
+}
+
+// `ticket`: zero before the first launch on its stream; each launch leaves
+// it at zero again
 extern "C" int gf2_ct_icp_normal(
     const float* qb, const float* tb, const float* qe, const float* te,
     const float* pqb, const float* ptb, const float* pqe, const float* pte,
     const float* pts, const float* alpha, const float* centroid,
     const float* normal, const float* w, int K, float beta_loc,
-    float beta_vel, float beta_ori, float* out, void* stream) {
-  ct_icp_normal_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
+    float beta_vel, float beta_ori, float* rows, unsigned* ticket, float* out,
+    void* stream) {
+  const int ctas = (K + 9 + kThreads - 1) / kThreads;
+  ct_icp_normal_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
       qb, tb, qe, te, pqb, ptb, pqe, pte, pts, alpha, centroid, normal, w, K,
-      beta_loc, beta_vel, beta_ori, out);
+      beta_loc, beta_vel, beta_ori, rows, ticket, out);
   return (int)cudaGetLastError();
 }

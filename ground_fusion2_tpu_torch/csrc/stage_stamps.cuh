@@ -5,9 +5,10 @@
 // cycles) and `tag` as the next stamp of `unit` (a CTA or a warp, as the
 // kernel counts them). GF2_STAGE_NAMES("a,b,...") names the tags in order.
 // Both expand to nothing unless the source is built with
-// -DGF2_STAGE_STAMPS, as tools/window_cost_stages.py and
-// tools/ransac_stages.py build it; the build then also exports
-// gf2_stage_reset(), gf2_stage_read(st, n) and gf2_stage_names(). A stamp
+// -DGF2_STAGE_STAMPS, as tools/window_cost_stages.py,
+// tools/ransac_stages.py and tools/lio_stages.py build it; the build then
+// also exports gf2_stage_reset(), gf2_stage_read(st, n) and
+// gf2_stage_names(). A stamp
 // waits for its warp (__syncwarp), so it sits where the warp is converged.
 #pragma once
 

@@ -13,12 +13,15 @@ kernel Y's entries 2 and 3 (``csrc/small_linalg.cu``); their plain versions
 are ``torch.linalg.solve_ex`` and ``eigvalsh``.
 
 The iterations never wait for the host: the fixed trip count keeps its
-frozen steps, and the mid-solve re-gather (a ``lax.cond`` in JAX) selects
-the gather points on the device, ``where(moved > voxel/2, p_w(pose_mid),
-p_w0)``; kernel D searches the map around them every iteration, which gives
-the candidates JAX caches. On the card the solve has no host sync at all
-(the plain ``eigvalsh`` checks its convergence on the host: one sync a
-solve).
+frozen steps. As JAX caches the candidates it gathers at ``p_w0``, the
+solve's first call of kernel D searches the map there and writes the
+candidates' ranges into a buffer of the solve; the other calls rank what the
+ranges hold. The mid-solve re-gather (a ``lax.cond`` in JAX) is the first
+call after the midpoint: it searches around its own query points,
+``p_w(pose_mid)``, where the device flag ``moved > voxel/2`` is set, and
+uses the ranges where it is not (the plain route: ``where(regathered, new,
+old)``). On the card the solve has no host sync at all (the plain
+``eigvalsh`` checks its convergence on the host: one sync a solve).
 """
 
 from __future__ import annotations
@@ -98,6 +101,22 @@ def normal_equations(pose: CtPose, pred: CtPose, pts, alpha, centroid,
                                   cfg)
 
 
+# (device, stream) -> kernel E's row scratch (grown with K) and ticket
+# (zeroed once; each launch leaves it at zero)
+_SCRATCH: dict = {}
+
+
+def _normal_scratch(lib, dev, stream, K):
+    need = lib.gf2_ct_icp_scratch(K)
+    rows, ticket = _SCRATCH.get((dev, stream), (None, None))
+    if ticket is None:
+        ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if rows is None or rows.numel() < need:
+        rows = torch.empty(need, device=dev)
+    _SCRATCH[(dev, stream)] = rows, ticket
+    return rows, ticket
+
+
 def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg):
     ts = [t.contiguous() for t in (*pose, *pred, pts, alpha, centroid, normal,
                                    w)]
@@ -105,13 +124,16 @@ def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg):
         raise ValueError("ct_icp_normal kernel takes float32 CUDA tensors")
     K = pts.shape[0]
     dev = pts.device
+    lib = _kernels.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rows, ticket = _normal_scratch(lib, dev, stream, K)
     out = torch.empty(12 * 12 + 12 + 1, device=dev)
     P = ctypes.c_void_p
-    err = _kernels.library().gf2_ct_icp_normal(
+    err = lib.gf2_ct_icp_normal(
         *[P(t.data_ptr()) for t in ts], K,
         ctypes.c_float(cfg.beta_location), ctypes.c_float(cfg.beta_velocity),
-        ctypes.c_float(cfg.beta_orientation), P(out.data_ptr()),
-        P(torch.cuda.current_stream(dev).cuda_stream))
+        ctypes.c_float(cfg.beta_orientation), P(rows.data_ptr()),
+        P(ticket.data_ptr()), P(out.data_ptr()), P(stream))
     _kernels.check(err, "gf2_ct_icp_normal")
     _kernels.count("ct_icp_normal")
     return out[:144].view(12, 12), out[144:156], out[156]
@@ -192,18 +214,22 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
     dtype, dev = pts_body.dtype, pts_body.device
     conv_rot = math.radians(cfg.conv_rot_deg)
 
-    def assoc(pose, p_gather):
+    # the candidates' ranges of the solve (kernel D writes or reads them)
+    ranges = torch.empty((pts_body.shape[0], 27), dtype=torch.int32,
+                         device=dev)
+
+    def assoc(pose, search):
         p_w = transform_points(pose, pts_body, alpha)
-        normal, centroid, a2d, valid = vm.associate(vmap, p_gather, p_w,
-                                                    map_cfg)
+        normal, centroid, a2d, valid = vm.associate(vmap, p_w, p_w, map_cfg,
+                                                    ranges, search)
         dist = torch.abs(torch.sum((p_w - centroid) * normal, -1))
         w = (kp_mask * valid.to(dtype)
              * (a2d > cfg.min_planarity).to(dtype)
              * (dist < cfg.max_corr_dist).to(dtype) * a2d * a2d)
         return normal, centroid, w
 
-    def gn_iter(pose, done, p_gather):
-        normal, centroid, w = assoc(pose, p_gather)
+    def gn_iter(pose, done, search):
+        normal, centroid, w = assoc(pose, search)
         H, g, cost = normal_equations(pose, pred, pts_body, alpha, centroid,
                                       normal, w, cfg)
         d = damped_solve(H, g, cfg.damping)
@@ -216,24 +242,26 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
                                     & (dth_norm < conv_rot)).to(dtype))
         return _retract(pose, d), cost, done
 
-    p_w0 = transform_points(pose0, pts_body, alpha)
     n1 = min(max(cfg.outer_iters // 2, 1), cfg.outer_iters)
     pose, cost = pose0, torch.zeros((), dtype=dtype, device=dev)
     done = torch.zeros((), dtype=dtype, device=dev)
+    search = True            # the first call gathers at p_w0
     for _ in range(n1):
-        pose, cost, done = gn_iter(pose, done, p_w0)
+        pose, cost, done = gn_iter(pose, done, search)
+        search = False
     moved = torch.maximum(torch.linalg.norm(pose.t_begin - pose0.t_begin),
                           torch.linalg.norm(pose.t_end - pose0.t_end))
     regathered = moved > 0.5 * map_cfg.voxel_size
-    p_gather = torch.where(regathered, transform_points(pose, pts_body, alpha),
-                           p_w0)
+    if search is False:      # the next call gathers at p_w(pose_mid) or not
+        search = regathered
     # a re-association invalidates the convergence latch
     done = torch.where(regathered, torch.zeros_like(done), done)
     for _ in range(cfg.outer_iters - n1):
-        pose, cost, done = gn_iter(pose, done, p_gather)
+        pose, cost, done = gn_iter(pose, done, search)
+        search = False
 
     # degeneracy: eigenvalues of the accepted normals' scatter matrix
-    normal, _, w = assoc(pose, p_gather)
+    normal, _, w = assoc(pose, search)
     sigma, n_sel, degenerate = degeneracy(normal, w, cfg)
     return IcpResult(pose=pose, n_corr=n_sel, sigma=sigma,
                      degenerate=degenerate, cost=cost)

@@ -14,6 +14,11 @@ Two kernels carry it on the card:
     so their bit patterns sort as uint32;
   * kernel D (``csrc/lio_assoc.cu``), :func:`associate`: gather + kNN + plane
     fit per query, one warp each, with no [Q, 27·gk, 3] candidate array.
+    What JAX caches between a solve's iterations (the candidates) is kept
+    as ranges [Q, 27] int32, a word a neighbour voxel: its first slot in
+    the sorted codes, and above ``RANGE_BITS`` how many of its points are
+    candidates (``min(run, gather_k)``); a call searches the map and writes
+    them, or ranks the candidates they hold.
 
 The map must match the JAX map bit for bit, in codes and point order: every
 sort is stable, squared distances are summed ((x + y) + z) as XLA does, and
@@ -38,6 +43,7 @@ HALF = 1 << (BITS - 1)          # 512 voxels each side of the origin
 SUB = 4                         # 4³ = 64 subcells a voxel (min spacing)
 CODE_BITS = 31                  # every key of the tick fits in 31 bits
 MIN_PTS = 5                     # neighbours a plane fit needs
+RANGE_BITS = 27                 # a range's start below 2**27, its count above
 
 # 3³ neighbourhood offsets in meshgrid(..., indexing="ij") order
 NBR = np.stack(np.meshgrid([-1, 0, 1], [-1, 0, 1], [-1, 0, 1], indexing="ij"),
@@ -215,21 +221,38 @@ def evict_far(vmap: VoxelMap, center, cfg: VoxelMapConfig) -> VoxelMap:
 
 
 # ---------------------------------------------------------------- queries
-def gather_candidates(vmap: VoxelMap, queries, cfg: VoxelMapConfig):
-    """[Q, 3] -> (cand [Q, 27·gk, 3], cand_mask [Q, 27·gk]) from each
-    query's 3³ voxel neighbourhood."""
-    Q = queries.shape[0]
-    gk = cfg.gather_k
-    nbr = torch.as_tensor(NBR, device=queries.device)
-    codes = _pack(_coords(queries, vmap.origin, cfg.voxel_size)[:, None] + nbr)
+def gather_ranges_plain(vmap: VoxelMap, p_gather, cfg: VoxelMapConfig):
+    """[Q, 3] -> ranges [Q, 27] int32: each 3³ neighbour voxel's first slot
+    (``searchsorted`` left) and, from bit ``RANGE_BITS`` up, its points that
+    are candidates, ``min(run, gather_k)``; an out-of-range code matches
+    nothing."""
+    nbr = torch.as_tensor(NBR, device=p_gather.device)
+    codes = _pack(_coords(p_gather, vmap.origin, cfg.voxel_size)[:, None] + nbr)
     start = torch.searchsorted(vmap.code, codes, side="left")
     end = torch.searchsorted(vmap.code, codes, side="right")
     end = torch.where(codes == INVALID, start, end)
-    gidx = start[..., None] + torch.arange(gk, device=queries.device)
-    valid = gidx < end[..., None]
-    gidx = torch.clamp(gidx, 0, vmap.pts.shape[0] - 1)
+    cnt = torch.clamp(end - start, max=cfg.gather_k)
+    word = start | (cnt << RANGE_BITS)
+    return torch.where(word >= 2**31, word - 2**32, word).to(torch.int32)
+
+
+def candidates_from_ranges(vmap: VoxelMap, ranges, cfg: VoxelMapConfig):
+    """ranges [Q, 27] -> (cand [Q, 27·gk, 3], cand_mask [Q, 27·gk])."""
+    Q = ranges.shape[0]
+    gk = cfg.gather_k
+    word = ranges.to(torch.int64) & 0xFFFFFFFF
+    start, cnt = word & ((1 << RANGE_BITS) - 1), word >> RANGE_BITS
+    j = torch.arange(gk, device=ranges.device)
+    gidx = torch.clamp(start[..., None] + j, 0, vmap.pts.shape[0] - 1)
     cand = vmap.pts[gidx.reshape(-1)].reshape(Q, 27 * gk, 3)
-    return cand, valid.reshape(Q, 27 * gk)
+    return cand, (j < cnt[..., None]).reshape(Q, 27 * gk)
+
+
+def gather_candidates(vmap: VoxelMap, queries, cfg: VoxelMapConfig):
+    """[Q, 3] -> (cand [Q, 27·gk, 3], cand_mask [Q, 27·gk]) from each
+    query's 3³ voxel neighbourhood."""
+    return candidates_from_ranges(vmap, gather_ranges_plain(vmap, queries,
+                                                            cfg), cfg)
 
 
 def knn_from_candidates(queries, cand, cand_mask, k: int):
@@ -258,32 +281,69 @@ def fit_planes(neigh, nmask, min_pts: int = MIN_PTS):
     return normal, mean, a2d, cnt >= min_pts
 
 
-def associate_plain(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig):
-    """Plane fit of the kNN of ``p_query`` among the candidates gathered
-    around ``p_gather`` (the plain version of kernel D)."""
-    cand, cmask = gather_candidates(vmap, p_gather, cfg)
+def associate_ranges_plain(vmap: VoxelMap, ranges, p_query,
+                           cfg: VoxelMapConfig):
+    """Plane fit of the kNN of ``p_query`` among the candidates ``ranges``
+    holds (JAX's ``knn_from_candidates`` + ``fit_planes``)."""
+    cand, cmask = candidates_from_ranges(vmap, ranges, cfg)
     neigh, nmask = knn_from_candidates(p_query, cand, cmask, cfg.knn)
     return fit_planes(neigh, nmask, MIN_PTS)
 
 
-def associate(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig):
-    """(normal, centroid, a2d, valid) per query: kernel D on the card."""
+def associate_plain(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig):
+    """Plane fit of the kNN of ``p_query`` among the candidates gathered
+    around ``p_gather`` (the plain version of kernel D)."""
+    return associate_ranges_plain(
+        vmap, gather_ranges_plain(vmap, p_gather, cfg), p_query, cfg)
+
+
+def associate(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig,
+              ranges=None, search=True):
+    """(normal, centroid, a2d, valid) per query: kernel D on the card.
+
+    ``ranges`` [Q, 27] int32 (a fresh buffer when None) is read or written
+    in place: ``search`` True searches the map around ``p_gather`` and
+    writes them; False ranks the candidates they hold (``p_gather`` unused);
+    a bool tensor of one element searches where it is set and uses the
+    ranges where it is not, on the device (JAX's ``lax.cond`` at CT-ICP's
+    midpoint)."""
+    if ranges is None:
+        ranges = torch.empty((p_query.shape[0], 27), dtype=torch.int32,
+                             device=p_query.device)
     if p_query.is_cuda:
-        return _associate_cuda(vmap, p_gather, p_query, cfg)
-    return associate_plain(vmap, p_gather, p_query, cfg)
+        return _associate_cuda(vmap, p_gather, p_query, cfg, ranges, search)
+    if search is not False:
+        new = gather_ranges_plain(vmap, p_gather, cfg)
+        ranges.copy_(new if search is True else torch.where(search, new,
+                                                            ranges))
+    return associate_ranges_plain(vmap, ranges, p_query, cfg)
 
 
-def _associate_cuda(vmap, p_gather, p_query, cfg):
+def _associate_cuda(vmap, p_gather, p_query, cfg, ranges, search):
+    mode = 0 if search is True else 1 if search is False else 2
     ts = [t.contiguous() for t in (vmap.code, vmap.pts, vmap.origin,
-                                   p_gather, p_query)]
+                                   p_query if mode == 1 else p_gather,
+                                   p_query)]
     if ts[0].dtype != torch.int32 or any(t.dtype != torch.float32
                                          for t in ts[1:]):
         raise ValueError("lio_assoc kernel takes int32 codes, float32 points")
-    if not all(t.is_cuda for t in ts):
+    flags = [search] if mode == 2 else []
+    if mode == 2 and (search.dtype != torch.bool or search.numel() != 1):
+        raise ValueError("lio_assoc kernel: the search flag is one bool")
+    if not all(t.is_cuda for t in (*ts, ranges, *flags)):
         raise ValueError("lio_assoc kernel takes CUDA tensors")
+    if ts[3].shape != p_query.shape:
+        raise ValueError("lio_assoc kernel: one gather point a query")
     if 27 * cfg.gather_k > 448 or not 1 <= cfg.knn <= 32:
         raise ValueError("lio_assoc kernel: 27·gather_k ≤ 448, knn ≤ 32")
     Q, N = p_query.shape[0], vmap.code.shape[0]
+    if N >= 1 << RANGE_BITS:
+        raise ValueError(f"lio_assoc kernel: a map of {N} points; its ranges "
+                         f"hold starts below 2**{RANGE_BITS}")
+    if (ranges.shape != (Q, 27) or ranges.dtype != torch.int32
+            or not ranges.is_contiguous()):
+        raise ValueError("lio_assoc kernel: ranges are a contiguous [Q, 27] "
+                         "int32 buffer")
     dev = p_query.device
     normal = torch.empty((Q, 3), device=dev)
     centroid = torch.empty((Q, 3), device=dev)
@@ -291,8 +351,10 @@ def _associate_cuda(vmap, p_gather, p_query, cfg):
     valid = torch.empty(Q, dtype=torch.bool, device=dev)
     P = ctypes.c_void_p
     err = _kernels.library().gf2_lio_assoc(
-        *[P(t.data_ptr()) for t in ts], N, Q, ctypes.c_float(cfg.voxel_size),
-        cfg.gather_k, cfg.knn, MIN_PTS,
+        *[P(t.data_ptr()) for t in ts], P(ranges.data_ptr()),
+        P(search.data_ptr() if mode == 2 else None), N, Q,
+        ctypes.c_float(cfg.voxel_size),
+        cfg.gather_k, cfg.knn, MIN_PTS, mode,
         *[P(t.data_ptr()) for t in (normal, centroid, a2d, valid)],
         P(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_lio_assoc")

@@ -13,7 +13,11 @@ giving the same bits twice; L and P's launches a linearization, and AC over
 any number of voxels in one launch (1 to 10,000), bit-equal to launches of
 32; K at kMaxF (and refusing one more), at 11 and 12 valid, on tied draws
 and near-degenerate samples, and S with the prior off and after another
-window's call, each one launch a call.
+window's call, each one launch a call; D in its search, cached and flag
+modes (equal to each other, following handed-in ranges, at 1 and 4,096
+queries, on voxel runs past gather_k and on an empty map) and E at 1 to
+8,192 rows, with every weight 0, after a call of another size and on two
+streams, each one launch a call.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -100,6 +104,164 @@ def test_ct_icp_normal_kernel_matches_plain(dev, lio):
     lo, _, x = lio
     r = checks.check_ct_normal(dev, x, lo.cfg.icp_cfg)
     assert r["ok"], r
+
+
+def _assoc_call(x, p_g, p_q, ranges, search):
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    return vm.associate(x["vmap"], p_g, p_q, m3dgr_lio().map_cfg, ranges,
+                        search)
+
+
+def _ranges(dev, Q):
+    return torch.empty((Q, 27), dtype=torch.int32, device=dev)
+
+
+def test_lio_assoc_kernel_modes_are_equal(dev, lio):
+    """Search, cached, and the flag set or clear: the same four outputs."""
+    _, _, x = lio
+    p_g, p_q = checks.assoc_points(dev, x)
+    r = _ranges(dev, p_q.shape[0])
+    want = _assoc_call(x, p_g, p_q, r, True)
+    for search in (False, torch.tensor(True, device=dev),
+                   torch.tensor(False, device=dev)):
+        got = _assoc_call(x, p_g, p_q, r, search)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), search
+
+
+def test_lio_assoc_kernel_follows_the_ranges_with_the_flag_clear(dev, lio):
+    """Ranges searched around another gather point (0.5 m off): with the
+    flag clear the outputs are that gather's, with it set the query's own."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    lo, _, x = lio
+    cfg = lo.cfg
+    p_g, p_q = checks.assoc_points(dev, x)
+    other = p_g + torch.tensor([0.5, 0.0, 0.0], device=dev)
+    r = _ranges(dev, p_q.shape[0])
+    want = _assoc_call(x, other, p_q, r, True)
+    got = _assoc_call(x, p_q, p_q, r, torch.tensor(False, device=dev))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    e = checks.assoc_errors(got, vm.associate_plain(x["vmap"], other, p_q,
+                                                    cfg.map_cfg),
+                            p_q, cfg.icp_cfg)
+    assert e["ok"], e
+    got = _assoc_call(x, p_q, p_q, r, torch.tensor(True, device=dev))
+    e = checks.assoc_errors(got, vm.associate_plain(x["vmap"], p_q, p_q,
+                                                    cfg.map_cfg),
+                            p_q, cfg.icp_cfg)
+    assert e["ok"], e
+    assert torch.equal(r, vm.gather_ranges_plain(x["vmap"], p_q, cfg.map_cfg))
+
+
+@pytest.mark.parametrize("Q", [1, 4096])
+def test_lio_assoc_kernel_at_any_query_count(dev, lio, Q):
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    lo, _, x = lio
+    cfg = lo.cfg
+    p_g, p_q = checks.assoc_points(dev, x)
+    reps = -(-Q // p_g.shape[0])
+    shift = torch.arange(reps, device=dev).repeat_interleave(p_g.shape[0])
+    shift = (shift[:, None] * torch.tensor([0.07, 0.0, 0.0], device=dev))[:Q]
+    p_g, p_q = p_g.repeat(reps, 1)[:Q] + shift, p_q.repeat(reps, 1)[:Q] + shift
+    r = _ranges(dev, Q)
+    new = _assoc_call(x, p_g, p_q, r, True)
+    e = checks.assoc_errors(new, vm.associate_plain(x["vmap"], p_g, p_q,
+                                                    cfg.map_cfg),
+                            p_q, cfg.icp_cfg)
+    assert e["ok"], e
+    for a, b in zip(_assoc_call(x, None, p_q, r, False), new):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["dense", "empty"])
+def test_lio_assoc_kernel_on_long_runs_and_an_empty_map(dev, case):
+    """A map whose voxels hold up to max_per_voxel points (runs longer than
+    gather_k), and a map of INVALID codes only (no candidate anywhere)."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    cfg = m3dgr_lio()
+    mcfg = cfg.map_cfg
+    g = torch.Generator().manual_seed(4)
+    cube = (torch.rand((40_000, 3), generator=g) * 2.0).to(dev)
+    vmap = vm.VoxelMap.empty(mcfg, dev)
+    if case == "dense":
+        vmap = vm.insert(vmap, cube, torch.ones(cube.shape[0], device=dev),
+                         mcfg)
+        runs = torch.unique_consecutive(vmap.code[vmap.code != vm.INVALID],
+                                        return_counts=True)[1]
+        assert int(runs.max()) > mcfg.gather_k
+    p_g = cube[:2000]
+    p_q = p_g + torch.tensor([0.03, -0.02, 0.01], device=dev)
+    r = _ranges(dev, 2000)
+    new = vm.associate(vmap, p_g, p_q, mcfg, r, True)
+    e = checks.assoc_errors(new, vm.associate_plain(vmap, p_g, p_q, mcfg),
+                            p_q, cfg.icp_cfg)
+    assert e["ok"], e
+    assert torch.equal(r, vm.gather_ranges_plain(vmap, p_g, mcfg))
+    assert (e["n_valid"] > 1000) if case == "dense" else (e["n_valid"] == 0)
+    for a, b in zip(vm.associate(vmap, None, p_q, mcfg, r, False), new):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K,weights", [(1, True), (2000, True),
+                                       (8192, True), (2000, False)])
+def test_ct_icp_normal_kernel_at_any_row_count(dev, K, weights):
+    """K = 1 to 8,192 rows (the scratch grows), and every weight 0."""
+    from ground_fusion2_tpu_torch.lio import ct_icp as ci
+    args = checks.ct_normal_case(dev, K, weights=weights)
+    e = checks.ct_normal_errors(ci.normal_equations(*args),
+                                ci.normal_equations_plain(*args))
+    assert all(e[k] <= checks.ICP_TOLS[k] for k in e), e
+
+
+def test_ct_icp_normal_kernel_repeats_after_another_size(dev):
+    """The same bits before and after a call at another K: the ticket and
+    the scratch are left as the next call needs them."""
+    from ground_fusion2_tpu_torch.lio import ct_icp as ci
+    args = checks.ct_normal_case(dev, 2000)
+    want = ci.normal_equations(*args)
+    ci.normal_equations(*checks.ct_normal_case(dev, 8192, seed=1))
+    ci.normal_equations(*checks.ct_normal_case(dev, 1, seed=2))
+    for a, b in zip(ci.normal_equations(*args), want):
+        assert torch.equal(a, b)
+
+
+def test_ct_icp_normal_kernel_on_two_streams(dev):
+    """Calls on two streams at once, each stream with its own ticket and
+    scratch: every call's bits equal the same call's made alone."""
+    from ground_fusion2_tpu_torch.lio import ct_icp as ci
+    cases = [checks.ct_normal_case(dev, 2000, seed=s) for s in range(8)]
+    want = [ci.normal_equations(*a) for a in cases]
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = []
+    for i, a in enumerate(cases):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(ci.normal_equations(*a))
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got, want):
+        for a, b in zip(g_, w_):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("call", ["search", "cached", "flag", "E"])
+def test_lio_kernels_launch_once_a_call(dev, lio, call):
+    from ground_fusion2_tpu_torch.lio import ct_icp as ci
+    lo, _, x = lio
+    p_g, p_q = checks.assoc_points(dev, x)
+    r = _ranges(dev, p_q.shape[0])
+    _assoc_call(x, p_g, p_q, r, True)
+    flag = torch.tensor(True, device=dev)
+    args = checks.ct_normal_args(dev, x, lo.cfg.icp_cfg)
+    fn, name = {
+        "search": (lambda: _assoc_call(x, p_g, p_q, r, True), "lio_assoc"),
+        "cached": (lambda: _assoc_call(x, None, p_q, r, False), "lio_assoc"),
+        "flag": (lambda: _assoc_call(x, p_g, p_q, r, flag), "lio_assoc"),
+        "E": (lambda: ci.normal_equations(*args), "ct_icp_normal")}[call]
+    _kernels.launches.clear()
+    dt = checks.device_ms(fn)
+    assert dt.launches == 1, dt
+    assert _kernels.launches[name] == dt.calls, (dict(_kernels.launches), dt)
 
 
 def test_radix_sort_kernel_matches_plain(dev, lio):

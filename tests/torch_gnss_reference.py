@@ -153,23 +153,26 @@ def gnss_main(f64_prior: bool = False) -> dict:
     return out
 
 
+def jax_f32_elimination(H, g, keep, drop, eig_floor=1e-8):
+    """The port's marginalization through the JAX package's (float32)."""
+    import torch
+    from ground_fusion2_tpu.solver import marginalize as jmarg
+    from ground_fusion2_tpu_torch.solver.marginalize import MargPrior
+    p = jmarg.marginalize(jnp.asarray(H.numpy()), jnp.asarray(g.numpy()),
+                          keep, drop, eig_floor)
+    return MargPrior(torch.as_tensor(np.array(p.sqrt_J)),
+                     torch.as_tensor(np.array(p.r0)), torch.ones(()))
+
+
 def prior_swap_main(F: int = 32) -> dict:
     import torch
     from ground_fusion2_tpu.frontend.tracker import TrackerConfig as JTC
-    from ground_fusion2_tpu.solver import marginalize as jmarg
     from ground_fusion2_tpu.vio.fused import FusedVio as JFusedVio
     from ground_fusion2_tpu_torch import config, convert
     from ground_fusion2_tpu_torch.core.cameras import Pinhole as TPinhole
-    from ground_fusion2_tpu_torch.solver.marginalize import MargPrior
     from ground_fusion2_tpu_torch.vio import fused as tfused, problem as tprob
     jax.config.update("jax_platforms", "cpu")
     torch.set_num_threads(4)
-
-    def f32_elimination(H, g, keep, drop, eig_floor=1e-8):
-        p = jmarg.marginalize(jnp.asarray(H.numpy()), jnp.asarray(g.numpy()),
-                              keep, drop)
-        return MargPrior(torch.as_tensor(np.array(p.sqrt_J)),
-                         torch.as_tensor(np.array(p.r0)), torch.ones(()))
 
     f32_failed = [0]
 
@@ -191,7 +194,7 @@ def prior_swap_main(F: int = 32) -> dict:
     pc = convert._config(config.EstimatorConfig, jc)
     f64_elimination = tprob.marginalize
     eliminations = dict(f64=f64_elimination, torch_f32=torch_f32_elimination,
-                        jax_f32=f32_elimination)
+                        jax_f32=jax_f32_elimination)
     port = {name: tfused.FusedVio(pc, config.TrackerConfig(num_slots=F),
                                   TPinhole.create(*cam), "cpu", **ext)
             for name in eliminations}

@@ -14,17 +14,27 @@ fusion over ``checks.gnss_drive()``), each run once a route:
   ``torch.linalg`` twins, the routes before kernels W–Y existed;
 - ``X_float``: the marginalization eliminated in float32, kernel X
   instantiated in float (the JAX package's precision; the port eliminates
-  in float64).
+  in float64);
+- ``cpu_draws``: every kernel, with RANSAC's Gumbel draws taken from a CPU
+  ``torch.Generator`` (as ``FusedVio(device="cpu")`` draws them) and moved
+  to the card, in place of the card's own generator: step C of the chain
+  J, A, B, C, P that splits phase 4's gap to the JAX package
+  (``tests/torch_system_reference.py`` runs J, A and B on the CPU). The draw
+  sites are patched from here (the fused tick's and the warm-up tracker's);
+  the port has no knob for it.
 
 Printed: each run's ATE (phase 4: aligned; phase 10: unaligned after init)
 and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
 
-    PYTHONPATH=. python tests/torch_route_attribution.py
+    PYTHONPATH=. python tests/torch_route_attribution.py [route ...]
+
+(every route when none is named; about 15 s a route).
 """
 
 import contextlib
 import functools
 import json
+import sys
 import time
 
 import numpy as np
@@ -35,12 +45,15 @@ from ground_fusion2_tpu_torch.config import groundchallenge_gnss, m3dgr_camera
 from ground_fusion2_tpu_torch.core.cameras import Pinhole
 from ground_fusion2_tpu_torch.eval import metrics
 from ground_fusion2_tpu_torch.factors import vio_factors as fac
+from ground_fusion2_tpu_torch.frontend import ransac
+from ground_fusion2_tpu_torch.frontend import tracker as ftracker
 from ground_fusion2_tpu_torch.lio import eskf
 from ground_fusion2_tpu_torch.solver import gauss_newton as gn
 from ground_fusion2_tpu_torch.solver import marginalize as mg
 from ground_fusion2_tpu_torch.system import GroundFusion, SystemConfig
 from ground_fusion2_tpu_torch.vio import estimator as vest
 from ground_fusion2_tpu_torch.vio import feature_window as fwin
+from ground_fusion2_tpu_torch.vio import fused as vfused
 from ground_fusion2_tpu_torch.vio import problem as vprob
 from ground_fusion2_tpu_torch.vio.fused import FusedVio
 
@@ -49,6 +62,17 @@ CAM_FRAMES = 32   # chip_smoke.py phase 4
 
 def _plain_cost_fn(x0, meas, layout, cfg):
     return lambda delta: fac.window_cost_plain(x0, delta, meas, layout, cfg)
+
+
+def draw_sites(fn):
+    """The (module, attribute, replacement) triples that route every RANSAC
+    draw of the camera path (the fused tick's and the warm-up tracker's)
+    through ``fn(seed, hypotheses, n, device)``."""
+    return [(vfused, "gumbel_noise", fn), (ftracker, "gumbel_noise", fn)]
+
+
+def _cpu_draws(seed, hypotheses, n, device):
+    return ransac.gumbel_noise(seed, hypotheses, n, "cpu").to(device)
 
 
 PLAIN = {
@@ -71,14 +95,17 @@ PLAIN = {
     ],
     "X_float": [(vprob, "marginalize",
                  functools.partial(mg.marginalize, dtype=torch.float32))],
+    "cpu_draws": draw_sites(_cpu_draws),
 }
-ROUTES = ("kernels", "plain_S", "plain_S_to_V", "plain_W_X_Y", "X_float")
+ROUTES = ("kernels", "plain_S", "plain_S_to_V", "plain_W_X_Y", "X_float",
+          "cpu_draws")
 
 
 @contextlib.contextmanager
-def route(name: str):
-    saved = [(m, a, getattr(m, a)) for m, a, _ in PLAIN.get(name, [])]
-    for m, a, f in PLAIN.get(name, []):
+def patched(triples):
+    """Set each (module, attribute) to its replacement for the block."""
+    saved = [(m, a, getattr(m, a)) for m, a, _ in triples]
+    for m, a, f in triples:
         setattr(m, a, f)
     try:
         yield
@@ -87,7 +114,13 @@ def route(name: str):
             setattr(m, a, f)
 
 
-def camera_ate(dev, frames) -> float:
+def route(name: str):
+    return patched(PLAIN.get(name, []))
+
+
+def camera_run(dev, frames) -> dict:
+    """Phase 4's drive: the aligned ATE and each initialized output's
+    position."""
     cfg = m3dgr_camera()
     fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
                   dev, tic=np.zeros(3), ric=checks.RIG_RIC, tio=np.zeros(3),
@@ -99,7 +132,9 @@ def camera_ate(dev, frames) -> float:
         if out.initialized:
             est.append(out.p)
             gt.append(f["p_gt"])
-    return float(metrics.ate_rmse(np.asarray(est), np.asarray(gt), align=True))
+    return dict(ate=float(metrics.ate_rmse(np.asarray(est), np.asarray(gt),
+                                           align=True)),
+                p=np.asarray(est).tolist())
 
 
 def gnss_run(dev, frames) -> dict:
@@ -118,19 +153,23 @@ def gnss_run(dev, frames) -> dict:
                 global_rms=r["global_rms"])
 
 
-def main() -> dict:
+def main(routes=ROUTES) -> dict:
     dev = torch.device("cuda:0")
     cam_frames = checks.room_drive(CAM_FRAMES)
     gnss_frames = checks.gnss_drive()
     out = {}
-    for name in ROUTES:
+    for name in routes:
         t0 = time.perf_counter()
         with route(name):
-            out[name] = dict(camera_ate=camera_ate(dev, cam_frames),
+            out[name] = dict(camera_ate=camera_run(dev, cam_frames)["ate"],
                              gnss=gnss_run(dev, gnss_frames))
         out[name]["seconds"] = time.perf_counter() - t0
     return out
 
 
 if __name__ == "__main__":
-    print(json.dumps(main()))
+    names = sys.argv[1:] or ROUTES
+    unknown = set(names) - set(ROUTES)
+    if unknown:
+        raise SystemExit(f"unknown routes {sorted(unknown)}; known: {ROUTES}")
+    print(json.dumps(main(names)))

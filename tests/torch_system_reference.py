@@ -20,7 +20,19 @@ phase 4 drives the port's: the same configuration, the synthetic rig
 by 2, not pipelined; it prints the aligned ATE of the initialized outputs,
 the figure phase 4 prints beside its own.
 
-    PYTHONPATH=. python tests/torch_system_reference.py [mesh | camera] [n_frames]
+``port-jax-draws`` and ``port-cpu-draws`` run the port's ``FusedVio`` on
+the CPU over the same drive (``tests/torch_route_attribution.py``'s
+``camera_run``), with RANSAC's Gumbel draws taken from
+``jax.random.gumbel(PRNGKey(frame_idx), (64, F))`` as the JAX tick takes
+them, or from the port's own CPU ``torch.Generator``. With ``camera`` (J)
+and ``torch_route_attribution.py``'s ``cpu_draws`` and ``kernels`` routes on
+the card (C, P) they make the chain J, A, B, C, P that splits phase 4's gap
+to JAX: A − J is the port's route against JAX's on the same draws, B − A
+the draw, C − B the kernels, P − C the card's own draw. Each prints the
+initialized outputs' positions beside the ATE.
+
+    PYTHONPATH=. python tests/torch_system_reference.py \
+        [mesh | camera | port-jax-draws | port-cpu-draws] [n_frames]
 
 Not a test (pytest collects ``test_*.py`` only): a full-width run takes
 about three minutes on a CPU.
@@ -54,12 +66,17 @@ def jax_camera_config():
     return jc, trk, Pinhole.create(ci["fx"], ci["fy"], ci["cx"], ci["cy"])
 
 
-def camera(n: int = 32) -> dict:
+def camera(n: int = 32, f64_prior: bool = False) -> dict:
     """Phase 4's drive through the JAX package's FusedVio: its aligned
-    ATE over the initialized frames."""
+    ATE over the initialized frames; with ``f64_prior``, its marginalization
+    eliminating in float64 as the port's does."""
     from ground_fusion2_tpu.eval.metrics import ate_rmse
     from ground_fusion2_tpu.vio.fused import FusedVio
     jax.config.update("jax_platforms", "cpu")
+    if f64_prior:
+        from ground_fusion2_tpu.vio import problem
+        from torch_gnss_reference import _marginalize_f64
+        problem.marginalize = _marginalize_f64
     jc, trk, cam = jax_camera_config()
     fv = FusedVio(jc.estimator, trk, cam, tic=np.zeros(3), ric=checks.RIG_RIC,
                   tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
@@ -74,6 +91,36 @@ def camera(n: int = 32) -> dict:
     return dict(frames=n, initialized=len(est),
                 ate=float(ate_rmse(np.asarray(est), np.asarray(gt),
                                    align=True)),
+                p=np.asarray(est).tolist(), seconds=time.time() - t0)
+
+
+def jax_draws(seed, hypotheses, n, device):
+    """The JAX tick's RANSAC draws, ``jax.random.gumbel(PRNGKey(frame_idx),
+    (hypotheses, F))``, as a torch tensor on ``device``."""
+    import torch
+    g = jax.random.gumbel(jax.random.PRNGKey(int(seed)), (hypotheses, n))
+    return torch.from_numpy(np.asarray(g, np.float32)).to(device)
+
+
+def port_camera(n: int = 32, draws: str = "jax",
+                jax_prior: bool = False) -> dict:
+    """Phase 4's drive through the port's FusedVio on the CPU, with JAX's
+    draws (``draws="jax"``, step A) or the port's own CPU draws
+    (``"cpu"``, B); with ``jax_prior``, its marginalization eliminating
+    through the JAX package's float32 one."""
+    import torch
+    import torch_route_attribution as ra
+    from torch_gnss_reference import jax_f32_elimination
+    from ground_fusion2_tpu_torch.vio import problem
+    jax.config.update("jax_platforms", "cpu")
+    frames = checks.room_drive(n)
+    sites = ra.draw_sites(jax_draws) if draws == "jax" else []
+    if jax_prior:
+        sites.append((problem, "marginalize", jax_f32_elimination))
+    t0 = time.time()
+    with ra.patched(sites):
+        r = ra.camera_run(torch.device("cpu"), frames)
+    return dict(frames=n, draws=draws, jax_prior=jax_prior, **r,
                 seconds=time.time() - t0)
 
 
@@ -117,9 +164,15 @@ def main(n: int = 40, mesh: bool = False) -> dict:
 
 if __name__ == "__main__":
     args = sys.argv[1:]
-    mode = args.pop(0) if args and args[0] in ("mesh", "camera") else None
-    if mode == "camera":
-        print(json.dumps(camera(int(args[0]) if args else 32)))
+    modes = ("mesh", "camera", "camera-f64", "port-jax-draws",
+             "port-jax-draws-jax-prior", "port-cpu-draws")
+    mode = args.pop(0) if args and args[0] in modes else None
+    n = int(args[0]) if args else 32
+    if mode in ("camera", "camera-f64"):
+        print(json.dumps(camera(n, f64_prior=mode == "camera-f64")))
+    elif mode is not None and mode.startswith("port-"):
+        print(json.dumps(port_camera(n, mode.split("-")[1],
+                                     jax_prior=mode.endswith("jax-prior"))))
     else:
         print(json.dumps(main(int(args[0]) if args else 40,
                               mesh=mode == "mesh")))

@@ -1,6 +1,7 @@
 """A kernel's source built with its stage stamps (``csrc/stage_stamps.cuh``,
 ``-DGF2_STAGE_STAMPS``) and the stamps read back after a call; shared by
-``tools/window_cost_stages.py`` and ``tools/ransac_stages.py``. Needs nvcc
+``tools/window_cost_stages.py``, ``tools/ransac_stages.py`` and
+``tools/lio_stages.py``. Needs nvcc
 (sm_90a) and a CUDA card; builds under ``build/stages/``."""
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ OUT = _kernels.BUILD_DIR.parent / "stages"
 UNITS, STAMPS = 512, 12          # stage_stamps.cuh's kStampUnits, kStamps
 
 
-def build(csrc: Path, source: str, tag: str, entry: str, text: str | None = None):
+def build(csrc: Path, source: str, tag: str, entry: str, text: str | None = None,
+          argtypes=None):
     """``csrc/source`` (or ``text`` in its place, with csrc's headers and this
     tree's ``stage_stamps.cuh`` on the include path) built with the stamps,
-    and ``entry`` typed as ``_kernels`` types it; the library and its stage
-    names."""
+    and ``entry`` typed as ``_kernels`` types it (or by ``argtypes``: another
+    commit's C interface); the library and its stage names."""
     d = OUT / tag
     d.mkdir(parents=True, exist_ok=True)
     src = csrc / source
@@ -35,7 +37,7 @@ def build(csrc: Path, source: str, tag: str, entry: str, text: str | None = None
                     str(src)], check=True)
     lib = ctypes.CDLL(str(lib_path))
     fn = getattr(lib, entry)
-    fn.argtypes = _kernels._SIGNATURES[entry]
+    fn.argtypes = argtypes or _kernels._SIGNATURES[entry]
     fn.restype = ctypes.c_int
     lib.gf2_stage_names.restype = ctypes.c_char_p
     return lib, lib.gf2_stage_names().decode().split(",")
