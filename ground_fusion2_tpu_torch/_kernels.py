@@ -48,7 +48,7 @@ _SIGNATURES = {
     "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P],
     "gf2_radix_plan": [_I] * 2 + [_P] * 6,
     "gf2_eskf_predict": [_P] * 11 + [_I] + [_F] * 4 + [_P] * 5,
-    "gf2_preint": [_P] * 9 + [_I] * 2 + [_F] * 6 + [_P, _I] + [_P] * 4,
+    "gf2_preint": [_P] * 11 + [_I] * 2 + [_F] * 6 + [_P] * 6 + [_I] + [_P] * 5,
     "gf2_blur_decimate": [_P, _I, _I, _P, _P],
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,

@@ -393,9 +393,10 @@ def check_clahe(device, frame=None) -> dict:
                 **bound(_nbytes(img, out_k), 10 * img.numel()))
 
 
-def check_klt(device, frames=None, F: int = 150, half: int = 10,
-              iters: int = 10, fb: float = 0.8, cell: int = 30) -> dict:
-    frames = frames or room_drive(2)
+def klt_inputs(device, frames, F: int = 150, cell: int = 30):
+    """Kernel B's inputs on ``frames[0] → frames[1]``: both 4-level
+    pyramids, the first frame's F detected corners and their valid mask
+    with every seventh slot off (an invalid feature is tracked too)."""
     imgs = [clahe_mod.clahe_plain(_gray(f, device)) for f in frames[:2]]
     p0, p1 = (klt.build_pyramid(im, 4) for im in imgs)
     uv, _, ok = klt.detect_grid(klt.shi_tomasi(p0[0]),
@@ -403,6 +404,12 @@ def check_klt(device, frames=None, F: int = 150, half: int = 10,
                                 occupied_mask=torch.zeros(1, device=device))
     valid = ok.clone()
     valid[::7] = 0.0
+    return p0, p1, uv, valid
+
+
+def check_klt(device, frames=None, F: int = 150, half: int = 10,
+              iters: int = 10, fb: float = 0.8, cell: int = 30) -> dict:
+    p0, p1, uv, valid = klt_inputs(device, frames or room_drive(2), F, cell)
     pk, tk = klt.klt_track(p0, p1, uv, valid, half, iters, fb)
     pp, tp = klt.klt_track_plain(p0, p1, uv, valid, half, iters, fb)
     m = tp > 0
@@ -840,11 +847,9 @@ def preint_inputs(carry, statics, imu_noise, wheel_noise, col: int) -> dict:
     through interval ``col - 1`` (as ``vio.fused.solve_tick`` builds them)."""
     st = carry.state
     k = col - 1
-    dev = st.p.device
     ba, bg = st.ba.clone(), st.bg.clone()
     ba[col], bg[col] = st.ba[k], st.bg[k]
-    g = torch.tensor([0.0, 0.0, -statics.g_norm], dtype=torch.float32,
-                     device=dev)
+    g = statics.g_world
     return dict(args=(carry.acc, carry.gyr, carry.wvel, carry.dt, carry.smask,
                       ba[:-1], bg[:-1], st.six, st.siy, st.siw, imu_noise,
                       wheel_noise, st.qio),
@@ -852,11 +857,23 @@ def preint_inputs(carry, statics, imu_noise, wheel_noise, col: int) -> dict:
                                   st.bg[k], g, k))
 
 
-def check_preint(device, x: dict) -> dict:
-    """Kernel H against the sequential loops on the window's intervals."""
+def check_preint(device, x: dict, timed: bool = True) -> dict:
+    """Kernel H against the sequential loops on the window's intervals; the
+    glue it folds in (the wheel-frame gyro's first and last samples, the end
+    velocities, the intrinsics) and sum_dt (torch's sum of the kernel's
+    dt·mask rows) equal to the plain version's torch ops bit for bit."""
     run = lambda f: f(*x["args"], prop=x["prop"])
     pk, wk, vk = run(wp.preintegrate_window)
     pp, wpp, vp = run(wp.preintegrate_window_plain)
+    glue = {k: bool(torch.equal(a, b)) for k, a, b in (
+        ("sum_dt", pk.sum_dt, pp.sum_dt), ("wheel sum_dt", wk.sum_dt,
+                                           wpp.sum_dt),
+        ("gyr_begin", wk.gyr_begin, wpp.gyr_begin),
+        ("gyr_end", wk.gyr_end, wpp.gyr_end),
+        ("vel_begin", wk.vel_begin, wpp.vel_begin),
+        ("vel_end", wk.vel_end, wpp.vel_end),
+        ("sx sy sw", torch.stack([wk.sx, wk.sy, wk.sw]),
+         torch.stack([wpp.sx, wpp.sy, wpp.sw])))}
     e = lambda a, b: float((a - b).abs().max())
     rel = lambda a, b: e(a, b) / max(float(b.abs().max()), 1e-30)
     errs = dict(dp=e(pk.dp, pp.dp), dv=e(pk.dv, pp.dv), dq=e(pk.dq, pp.dq),
@@ -865,7 +882,8 @@ def check_preint(device, x: dict) -> dict:
     rels = dict(cov=rel(pk.cov, pp.cov), jac=rel(pk.jac, pp.jac),
                 wcov=rel(wk.cov, wpp.cov), wjac=rel(wk.jac_ix, wpp.jac_ix))
     ok = (all(v <= PREINT_TOL["delta"] for v in errs.values())
-          and all(v <= PREINT_TOL["rel"] for v in rels.values()))
+          and all(v <= PREINT_TOL["rel"] for v in rels.values())
+          and all(glue.values()))
     acc, gyr, wvel, dt, mask = x["args"][:5]
     n_s = int(mask.sum())
     n_k = int(mask[x["prop"].k].sum())
@@ -875,13 +893,15 @@ def check_preint(device, x: dict) -> dict:
     nb = _nbytes(acc, gyr, wvel, dt, mask) + 4 * dt.shape[0] * (460 + 61)
     flops = n_s * (3 * 2 * 15 ** 3 + 2 * 15 * 15 * 18
                    + 2 * 2 * 6 ** 3 + 2 * 36 * 12) + 100 * n_k
-    return dict(max_abs_err=max(errs.values()), errs=errs, rel_errs=rels,
-                tol=PREINT_TOL, n_samples=n_s, ok=ok,
-                ms=time_ms(lambda: run(wp.preintegrate_window)),
-                plain_ms=time_ms(lambda: run(wp.preintegrate_window_plain),
-                                 reps=3, warmup=1),
-                library_ms=None, **bound(nb, flops),
-                **device_pair(lambda: run(wp.preintegrate_window)))
+    out = dict(max_abs_err=max(errs.values()), errs=errs, rel_errs=rels,
+               glue_equal=glue, tol=PREINT_TOL, n_samples=n_s, ok=ok,
+               library_ms=None, **bound(nb, flops))
+    if timed:
+        out.update(ms=time_ms(lambda: run(wp.preintegrate_window)),
+                   plain_ms=time_ms(lambda: run(wp.preintegrate_window_plain),
+                                    reps=3, warmup=1),
+                   **device_pair(lambda: run(wp.preintegrate_window)))
+    return out
 
 
 def _pyramid_library(img, levels):

@@ -3,13 +3,17 @@
 // GF2_STAMP(who, unit, tag) marks a point of a kernel: where `who` holds
 // (one lane of the unit), it records the global timer (ns), clock64 (SM
 // cycles) and `tag` as the next stamp of `unit` (a CTA or a warp, as the
-// kernel counts them). GF2_STAGE_NAMES("a,b,...") names the tags in order.
-// Both expand to nothing unless the source is built with
+// kernel counts them). GF2_LAP(who, unit, tag) marks the end of a stage
+// that runs many times in a loop: it adds the time since the warp's last
+// stamp or lap to the unit's sums for the tag (ns, cycles, count), so a
+// loop's stages need no stamp each; a unit's first mark is a stamp. GF2_STAGE_NAMES("a,b,...") names the tags in order.
+// All three expand to nothing unless the source is built with
 // -DGF2_STAGE_STAMPS, as tools/window_cost_stages.py,
-// tools/ransac_stages.py and tools/lio_stages.py build it; the build then
-// also exports gf2_stage_reset(), gf2_stage_read(st, n) and
-// gf2_stage_names(). A stamp
-// waits for its warp (__syncwarp), so it sits where the warp is converged.
+// tools/ransac_stages.py, tools/lio_stages.py and tools/camera_stages.py
+// build it; the build then also exports gf2_stage_reset(),
+// gf2_stage_read(st, n), gf2_lap_read(acc) and gf2_stage_names(). A stamp
+// or lap waits for its warp (__syncwarp), so it sits where the warp is
+// converged.
 #pragma once
 
 #ifdef GF2_STAGE_STAMPS
@@ -18,27 +22,62 @@
 
 constexpr int kStampUnits = 512;
 constexpr int kStamps = 12;
+constexpr int kLapTags = 16;
 
 // [unit][stamp]: global timer, clock64, tag
 __device__ unsigned long long gf2_st[kStampUnits][kStamps][3];
 __device__ int gf2_n[kStampUnits];
+// [unit][tag]: summed ns, summed cycles, count
+__device__ unsigned long long gf2_acc[kStampUnits][kLapTags][3];
+// the last mark of each warp of the block (a unit is stamped by one lane
+// of one warp): global timer, clock64
+static __shared__ unsigned long long gf2_last[32][2];
+
+__device__ __forceinline__ unsigned long long gf2_now() {
+  unsigned long long g;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
+  return g;
+}
 
 __device__ __forceinline__ void gf2_stamp(bool who, int unit, int tag) {
   __syncwarp();
   if (!who || unit >= kStampUnits) return;
+  const unsigned long long g = gf2_now(), c = clock64();
+  gf2_last[threadIdx.x >> 5][0] = g;
+  gf2_last[threadIdx.x >> 5][1] = c;
   const int i = gf2_n[unit];
   if (i >= kStamps) return;
-  unsigned long long g;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g));
   gf2_st[unit][i][0] = g;
-  gf2_st[unit][i][1] = clock64();
+  gf2_st[unit][i][1] = c;
   gf2_st[unit][i][2] = (unsigned long long)tag;
   gf2_n[unit] = i + 1;
 }
 
+// the sums are fire-and-forget atomics and the last mark sits in shared
+// memory, so a lap costs its lane a few shared accesses, not a global
+// round trip
+__device__ __forceinline__ void gf2_lap(bool who, int unit, int tag) {
+  __syncwarp();
+  if (!who || unit >= kStampUnits || tag >= kLapTags) return;
+  const unsigned long long g = gf2_now(), c = clock64();
+  const int w = threadIdx.x >> 5;
+  atomicAdd(&gf2_acc[unit][tag][0], g - gf2_last[w][0]);
+  atomicAdd(&gf2_acc[unit][tag][1], c - gf2_last[w][1]);
+  atomicAdd(&gf2_acc[unit][tag][2], 1ull);
+  gf2_last[w][0] = g;
+  gf2_last[w][1] = c;
+}
+
 extern "C" int gf2_stage_reset() {
   static int z[kStampUnits] = {0};
-  return (int)cudaMemcpyToSymbol(gf2_n, z, sizeof z);
+  static unsigned long long za[kStampUnits][kLapTags][3] = {};
+  const int e = (int)cudaMemcpyToSymbol(gf2_n, z, sizeof z);
+  return e ? e : (int)cudaMemcpyToSymbol(gf2_acc, za, sizeof za);
+}
+
+// acc [kStampUnits, kLapTags, 3] out
+extern "C" int gf2_lap_read(unsigned long long* acc) {
+  return (int)cudaMemcpyFromSymbol(acc, gf2_acc, sizeof gf2_acc);
 }
 
 // st [kStampUnits, kStamps, 3] and n [kStampUnits] out
@@ -48,12 +87,14 @@ extern "C" int gf2_stage_read(unsigned long long* st, int* n) {
 }
 
 #define GF2_STAMP(who, unit, tag) gf2_stamp((who), (unit), (tag))
+#define GF2_LAP(who, unit, tag) gf2_lap((who), (unit), (tag))
 #define GF2_STAGE_NAMES(names) \
   extern "C" const char* gf2_stage_names() { return names; }
 
 #else
 
 #define GF2_STAMP(who, unit, tag) ((void)0)
+#define GF2_LAP(who, unit, tag) ((void)0)
 #define GF2_STAGE_NAMES(names)
 
 #endif

@@ -3,8 +3,9 @@
 
 On the card, ``build_pyramid`` and ``shi_tomasi`` launch kernel I
 (``csrc/pyramid.cu``), ``detect_grid`` kernel J (``csrc/detect_grid.cu``) and
-``klt_track`` kernel B (``csrc/klt.cu``); each ``*_plain`` version beside it
-runs for tensors on the CPU.
+``klt_track`` kernel B (``csrc/klt.cu``: one launch a call, each level of
+both pyramids read in place; the levels must be float32); each ``*_plain``
+version beside it runs for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -325,6 +326,8 @@ def klt_track_plain(pyr0, pyr1, pts0, valid0, half=10, iters=10,
 
 
 def _klt_track_cuda(pyr0, pyr1, pts0, valid0, half, iters, fb_thresh):
+    """One launch: the kernel reads each level of both pyramids through its
+    own pointer (no flat copies)."""
     L = len(pyr0)
     F = pts0.shape[0]
     dev = pts0.device
@@ -333,25 +336,24 @@ def _klt_track_cuda(pyr0, pyr1, pts0, valid0, half, iters, fb_thresh):
     if any(p.device != dev for p in (*pyr0, *pyr1, valid0)):
         raise ValueError("klt kernel: pyramids, points and mask must lie on "
                          "one CUDA device")
-    levels, off = [], 0
-    for p in pyr0:
-        h, w = p.shape
-        levels += [h, w, off]
-        off += h * w
-    flat0 = torch.cat([p.reshape(-1) for p in pyr0]).to(torch.float32)
-    flat1 = torch.cat([p.reshape(-1) for p in pyr1]).to(torch.float32)
+    lv0 = [_f32_cuda(p, "klt") for p in pyr0]
+    lv1 = [_f32_cuda(p, "klt") for p in pyr1]
+    hw = [d for p in lv0 for d in p.shape]
     pts0c = pts0.to(torch.float32).contiguous()
     valid = valid0.to(torch.float32).contiguous()
     pts1 = torch.empty((F, 2), dtype=torch.float32, device=dev)
     tracked = torch.empty((F,), dtype=torch.float32, device=dev)
-    lv = (ctypes.c_int * len(levels))(*levels)
+    # host arrays the C function reads at launch
+    p0 = (ctypes.c_void_p * L)(*[p.data_ptr() for p in lv0])
+    p1 = (ctypes.c_void_p * L)(*[p.data_ptr() for p in lv1])
+    dims = (ctypes.c_int * (2 * L))(*hw)
     lib = _kernels.library()
     err = lib.gf2_klt_track(
-        ctypes.c_void_p(flat0.data_ptr()), ctypes.c_void_p(flat1.data_ptr()),
-        ctypes.cast(lv, ctypes.c_void_p), ctypes.c_void_p(pts0c.data_ptr()),
+        ctypes.cast(p0, ctypes.c_void_p), ctypes.cast(p1, ctypes.c_void_p),
+        ctypes.cast(dims, ctypes.c_void_p), ctypes.c_void_p(pts0c.data_ptr()),
         ctypes.c_void_p(valid.data_ptr()), F, L, half, iters, MAX_DISP,
-        ctypes.c_float(fb_thresh), ctypes.c_void_p(pts1.data_ptr()),
-        ctypes.c_void_p(tracked.data_ptr()),
+        ctypes.c_float(fb_thresh),
+        ctypes.c_void_p(pts1.data_ptr()), ctypes.c_void_p(tracked.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_klt_track")
     _kernels.count("klt")

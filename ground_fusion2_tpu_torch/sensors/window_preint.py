@@ -5,7 +5,11 @@ state propagation through the newest interval, in one launch (port of
 ``imu_preint.py:propagate_state``).
 
 :func:`preintegrate_window` launches ``csrc/preint.cu`` for tensors on the
-card; :func:`preintegrate_window_plain`, the sequential loops of
+card (on float32 contiguous inputs two CUDA activities a call with the
+intervals, the kernel and torch's sum of its ``dt·mask`` rows into
+``sum_dt``, one for the propagation alone: the wheel-frame gyro, the
+wheel's end samples and the propagation's inputs are the kernel's);
+:func:`preintegrate_window_plain`, the sequential loops of
 :mod:`.imu_preint` and :mod:`.wheel_preint`, runs for tensors on the CPU.
 """
 
@@ -77,58 +81,72 @@ def preintegrate_window_plain(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
 
 def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
                  wheel_noise, qio, prop, intervals):
+    """One launch, then torch's sum of the kernel's dt·mask rows (sum_dt
+    keeps torch's reduce order); the wrapper only checks, allocates and
+    takes views (the wheel-frame gyro, the wheel's end samples and the
+    propagation's state are the kernel's)."""
     dev = acc.device
+    n_int, M = dt.shape
+    # float32 and contiguous: views of the caller's tensors on the main
+    # path (a copy only for another dtype or layout)
     f32 = lambda x: torch.as_tensor(x, dtype=torch.float32,
                                     device=dev).contiguous()
-    n_int, M = dt.shape
-    acc, gyr, wvel, dt, mask = (f32(t) for t in (acc, gyr, wvel, dt, mask))
-    ba, bg = f32(ba), f32(bg)
-    gyr_o = _wheel_gyro(gyr, f32(qio)).contiguous()
-    sxyw = torch.stack([f32(six).reshape(()), f32(siy).reshape(()),
-                        f32(siw).reshape(())])
-    if acc.shape != (n_int, M + 1, 3) or ba.shape != (n_int, 3):
-        raise ValueError("preint kernel: expected acc [n, M+1, 3], dt [n, M] "
-                         "and biases [n, 3]")
+    ins = dict(acc=acc, gyr=gyr, wvel=wvel, dt=dt, mask=mask, ba=ba, bg=bg,
+               six=six, siy=siy, siw=siw, qio=qio)
+    if prop is not None:
+        ins.update(p=prop.p, q=prop.q, v=prop.v, pba=prop.ba, pbg=prop.bg,
+                   g=prop.g_world)
+    ins = {k: f32(t) for k, t in ins.items()}
+    sizes = dict(acc=(n_int, M + 1, 3), gyr=(n_int, M + 1, 3),
+                 wvel=(n_int, M + 1, 3), mask=(n_int, M), ba=(n_int, 3),
+                 bg=(n_int, 3), qio=(4,), p=(3,), q=(4,), v=(3,), pba=(3,),
+                 pbg=(3,), g=(3,))
+    for name, t in ins.items():
+        if name in sizes and tuple(t.shape) != sizes[name]:
+            raise ValueError(f"preint kernel: {name} must be {sizes[name]}")
+    if any(ins[k].numel() != 1 for k in ("six", "siy", "siw")):
+        raise ValueError("preint kernel: six, siy, siw take one value each")
     B = n_int if intervals else 0
     imu_out = torch.empty((B, 460), dtype=torch.float32, device=dev)
-    whl_out = torch.empty((B, 61), dtype=torch.float32, device=dev)
+    whl_out = torch.empty((B, 70), dtype=torch.float32, device=dev)
+    h_out = torch.empty((B, M), dtype=torch.float32, device=dev)
     prop_out = torch.empty((10,), dtype=torch.float32, device=dev)
-    if prop is not None:
-        prop_in = torch.cat([f32(prop.p), f32(prop.q), f32(prop.v),
-                             f32(prop.ba), f32(prop.bg), f32(prop.g_world)])
-        prop_k = prop.k % n_int
-    else:
-        prop_in, prop_k = prop_out, -1
-    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    prop_k = prop.k % n_int if prop is not None else -1
+    P = lambda name: ctypes.c_void_p(ins[name].data_ptr() if name in ins
+                                     else prop_out.data_ptr())
     F = ctypes.c_float
     err = _kernels.library().gf2_preint(
-        P(acc), P(gyr), P(gyr_o), P(wvel), P(dt), P(mask), P(ba), P(bg),
-        P(sxyw), B, M,
+        *(P(k) for k in ("acc", "gyr", "wvel", "dt", "mask", "ba", "bg",
+                         "six", "siy", "siw", "qio")), B, M,
         F(imu_noise.acc_n ** 2), F(imu_noise.gyr_n ** 2),
         F(imu_noise.acc_w ** 2), F(imu_noise.gyr_w ** 2),
         F(wheel_noise.vel_n ** 2), F(wheel_noise.gyr_n ** 2),
-        P(prop_in), prop_k, P(imu_out), P(whl_out), P(prop_out),
+        *(P(k) for k in ("p", "q", "v", "pba", "pbg", "g")), prop_k,
+        ctypes.c_void_p(imu_out.data_ptr()),
+        ctypes.c_void_p(whl_out.data_ptr()),
+        ctypes.c_void_p(h_out.data_ptr()),
+        ctypes.c_void_p(prop_out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_preint")
     _kernels.count("preint")
 
     pre = wpre = pvq = None
     if intervals:
-        sum_dt = (dt * mask).sum(-1)
+        sum_dt = h_out.sum(-1)      # (dt * mask).sum(-1), torch's order
         pre = ImuPreint(dp=imu_out[:, 0:3], dq=imu_out[:, 3:7],
                         dv=imu_out[:, 7:10],
                         cov=imu_out[:, 10:235].reshape(B, 15, 15),
                         jac=imu_out[:, 235:460].reshape(B, 15, 15),
-                        sum_dt=sum_dt, ba=ba, bg=bg)
-        idx = mask.to(torch.int64).sum(-1)[:, None, None].expand(B, 1, 3)
+                        sum_dt=sum_dt, ba=ins["ba"], bg=ins["bg"])
+        sx, sy, sw = (ins[k].reshape(()).expand(B)
+                      for k in ("six", "siy", "siw"))
         wpre = WheelPreint(
             dp=whl_out[:, 0:3], dq=whl_out[:, 3:7],
             cov=whl_out[:, 7:43].reshape(B, 6, 6),
             jac_ix=whl_out[:, 43:61].reshape(B, 6, 3), sum_dt=sum_dt,
-            sx=sxyw[0].expand(B), sy=sxyw[1].expand(B), sw=sxyw[2].expand(B),
-            vel_begin=wvel[:, 0], gyr_begin=gyr_o[:, 0],
-            vel_end=torch.gather(wvel, 1, idx)[:, 0],
-            gyr_end=torch.gather(gyr_o, 1, idx)[:, 0])
+            sx=sx, sy=sy, sw=sw, vel_begin=ins["wvel"][:, 0],
+            gyr_begin=whl_out[:, 61:64], vel_end=whl_out[:, 64:67],
+            gyr_end=whl_out[:, 67:70])
     if prop is not None:
         pvq = (prop_out[0:3], prop_out[3:7], prop_out[7:10])
     return pre, wpre, pvq

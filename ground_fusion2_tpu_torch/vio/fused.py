@@ -137,6 +137,7 @@ class FusedStatics(NamedTuple):
     min_tracked: int
     outlier_px: float
     g_norm: float
+    g_world: torch.Tensor         # [0, 0, -g_norm] on the device
     depth_stride: int = 1
     gnss_low_speed: float = 0.3   # reference estimator.cpp:2968
 
@@ -289,15 +290,13 @@ def solve_tick(c: FusedCarry, obs: fwin.FrameObs, inp: TickInputs, t: float,
 
     # kernel H: propagate through interval k and re-preintegrate every
     # interval at the biases the new column takes over, in one launch
-    g_world = torch.tensor([0.0, 0.0, -s.g_norm], dtype=torch.float32,
-                           device=dev)
     ba = put(state.ba, col, state.ba[k])
     bg = put(state.bg, col, state.bg[k])
     pre, wpre, sinfo, wsinfo, (p_pred, q_pred, v_pred) = preintegrate_all(
         c.acc, c.gyr, c.wvel, c.dt, c.smask, ba[:-1], bg[:-1],
         state.six, state.siy, state.siw, imu_noise, wheel_noise, state.qio,
         prop=Propagate(state.p[k], state.q[k], state.v[k], state.ba[k],
-                       state.bg[k], g_world, k))
+                       state.bg[k], s.g_world, k))
     state = state._replace(
         p=put(state.p, col, p_pred), q=put(state.q, col, q_pred),
         v=put(state.v, col, v_pred), ba=ba, bg=bg)
@@ -439,6 +438,8 @@ class FusedVio:
             stationary_imu_var=cfg.stationary_imu_var,
             min_parallax=cfg.min_parallax, min_tracked=cfg.min_tracked,
             outlier_px=cfg.outlier_px, g_norm=cfg.g_norm,
+            g_world=torch.tensor([0.0, 0.0, -cfg.g_norm], dtype=torch.float32,
+                                 device=self.device),
             depth_stride=depth_stride, gnss_low_speed=cfg.gnss_low_speed)
         # the anchor is free while gnss_refine_left counts down
         self._statics_refine = self.statics._replace(

@@ -11,7 +11,10 @@ line path's AD and AE on a room frame pair, the distributed solves' AF and
 AG and W's explicit-diagonal mode), and C, L, O, P, Q, S–Y and AA–AG
 giving the same bits twice; L and P's launches a linearization, and AC over
 any number of voxels in one launch (1 to 10,000), bit-equal to launches of
-32; K at kMaxF (and refusing one more), at 11 and 12 valid, on tied draws
+32; H with no valid sample, one and all 128, at other buffer shapes and
+propagating alone, B at the image border, on levels smaller than its
+window and at half 12, each one launch a call; K at kMaxF (and refusing
+one more), at 11 and 12 valid, on tied draws
 and near-degenerate samples, and S with the prior off and after another
 window's call, each one launch a call; D in its search, cached and flag
 modes (equal to each other, following handed-in ranges, at 1 and 4,096
@@ -363,6 +366,136 @@ def test_preint_kernel_matches_plain(dev, camera):
         cfg.estimator.wheel_noise, NUM_FRAMES - 1))
     assert r["ok"], r
     assert r["n_samples"] >= 100
+
+
+def _preint_case(camera, n_valid: int, dt: float = 0.001) -> dict:
+    """The fused window's kernel H inputs with each interval's first
+    ``n_valid`` slots valid at ``dt`` (0: none; 128: all)."""
+    from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
+    cfg, fv, _, _ = camera
+    x = checks.preint_inputs(fv.carry, fv.statics, cfg.estimator.imu_noise,
+                             cfg.estimator.wheel_noise, NUM_FRAMES - 1)
+    args = list(x["args"])
+    args[3] = torch.full_like(args[3], dt)
+    args[4] = torch.zeros_like(args[4])
+    args[4][:, :n_valid] = 1.0
+    return dict(args=tuple(args), prop=x["prop"])
+
+
+def _preint_random(dev, n_int: int, M: int, seed: int = 0) -> dict:
+    """Kernel H's inputs at any [n_int, M] from a seed: valid prefixes of
+    random length (one interval empty, one full), 1–3 ms samples."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.config import m3dgr_camera
+    from ground_fusion2_tpu_torch.sensors import window_preint as wp
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    e = m3dgr_camera().estimator
+    mask = np.zeros((n_int, M), np.float32)
+    for i, n in enumerate(rng.integers(0, M + 1, n_int)):
+        mask[i, :n] = 1.0
+    mask[0], mask[-1] = 0.0, 1.0
+    q = rng.normal(size=4)
+    q = q / np.linalg.norm(q) * np.sign(q[0])
+    args = (t(rng.normal(0, 0.5, (n_int, M + 1, 3))),
+            t(rng.normal(0, 0.3, (n_int, M + 1, 3))),
+            t(rng.normal(0, 0.5, (n_int, M + 1, 3))),
+            t(rng.uniform(0.001, 0.003, (n_int, M))), t(mask),
+            t(rng.normal(0, 0.05, (n_int, 3))),
+            t(rng.normal(0, 0.01, (n_int, 3))), t(1.02), t(0.97), t(1.01),
+            e.imu_noise, e.wheel_noise, t(q))
+    prop = wp.Propagate(t(rng.normal(size=3)), t([1.0, 0.0, 0.0, 0.0]),
+                        t(rng.normal(size=3)), t(rng.normal(0, 0.05, 3)),
+                        t(rng.normal(0, 0.01, 3)), t([0.0, 0.0, -9.81]),
+                        n_int - 1)
+    return dict(args=args, prop=prop)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 128])
+def test_preint_kernel_at_any_valid_count(dev, camera, n_valid):
+    """Kernel H with no valid sample, one, and all 128 of every interval:
+    the plain loops' results, the folded glue bit for bit."""
+    r = checks.check_preint(dev, _preint_case(camera, n_valid), timed=False)
+    assert r["ok"], r
+    assert r["n_samples"] == n_valid * camera[1].carry.dt.shape[0]
+
+
+@pytest.mark.parametrize("n_int,M", [(10, 128), (3, 129), (10, 37), (1, 300)])
+def test_preint_kernel_at_any_slot_count(dev, n_int, M):
+    """Kernel H at other buffer shapes: torch's sum_dt over the kernel's
+    dt·mask rows, vectorized (M ≥ 128, rows off a 16-byte boundary at
+    M = 129) and strided (M < 128), tiles past 32 samples; the propagation
+    alone too."""
+    from ground_fusion2_tpu_torch.sensors import window_preint as wp
+    x = _preint_random(dev, n_int, M)
+    r = checks.check_preint(dev, x, timed=False)
+    assert r["ok"], r
+    _, _, vk = wp.preintegrate_window(*x["args"], prop=x["prop"],
+                                      intervals=False)
+    _, _, vp = wp.preintegrate_window_plain(*x["args"], prop=x["prop"],
+                                            intervals=False)
+    for a, b in zip(vk, vp):
+        assert float((a - b).abs().max()) <= checks.PREINT_TOL["delta"]
+
+
+def _klt_compare(p0, p1, uv, valid, half=10, iters=10, fb=0.8):
+    """Kernel B against the plain version on the card: (tracked flags that
+    differ, max |Δpts| over the plain version's tracks, tracks)."""
+    from ground_fusion2_tpu_torch.frontend import klt
+    pk, tk = klt.klt_track(p0, p1, uv, valid, half, iters, fb)
+    pp, tp = klt.klt_track_plain(p0, p1, uv, valid, half, iters, fb)
+    m = tp > 0
+    err = float((pk - pp)[m].abs().max()) if bool(m.any()) else 0.0
+    return int((tk != tp).sum()), err, int(m.sum())
+
+
+@pytest.mark.parametrize("case", ["border", "small levels", "half 12"])
+def test_klt_kernel_at_the_border_and_on_small_levels(dev, frames, case):
+    """Kernel B with features on and next to the image border, on a
+    64×48 frame whose levels are smaller than the window (negative window
+    origins), and at half 12 (three taps a parent thread)."""
+    from ground_fusion2_tpu_torch.frontend import klt
+    p0, p1, uv, valid = checks.klt_inputs(dev, frames)
+    half = 12 if case == "half 12" else 10
+    if case == "border":
+        H, W = p0[0].shape
+        edge = torch.tensor([[0.0, 0.0], [0.3, 0.2], [W - 1.0, H - 1.0],
+                             [W - 1.4, H - 1.6], [5.0, H / 2], [W / 2, 2.5],
+                             [W - 4.0, 100.0], [3.2, H - 3.7]], device=dev)
+        uv = torch.cat([edge, uv[:24]])
+        valid = torch.ones(uv.shape[0], device=dev)
+    elif case == "small levels":
+        crop = lambda p: [x.contiguous() for x in klt.build_pyramid(
+            p[0][200:248, 300:364].contiguous(), 4)]
+        p0, p1 = crop(p0), crop(p1)
+        g = torch.Generator().manual_seed(0)
+        uv = torch.rand((40, 2), generator=g).to(dev) \
+            * torch.tensor([60.0, 44.0], device=dev) + 2.0
+        valid = torch.ones(40, device=dev)
+    mism, err, n = _klt_compare(p0, p1, uv, valid, half)
+    assert mism == 0 and err <= checks.KLT_TOL_PX, (mism, err, n)
+    if case != "border":
+        assert n > 10
+
+
+@pytest.mark.parametrize("kernel,activities", [
+    ("preint", 2), ("preint alone", 1), ("klt", 1)])
+def test_preint_and_klt_activities_a_call(dev, camera, frames, kernel,
+                                          activities):
+    """CUDA activities a call (the profiler's count): H is its kernel and
+    torch's sum_dt with the intervals, its kernel alone for the propagation
+    alone; B is one."""
+    from ground_fusion2_tpu_torch.frontend import klt
+    from ground_fusion2_tpu_torch.sensors import window_preint as wp
+    if kernel.startswith("preint"):
+        x = _preint_case(camera, 18)
+        fn = lambda: wp.preintegrate_window(
+            *x["args"], prop=x["prop"], intervals=kernel == "preint")
+    else:
+        p0, p1, uv, valid = checks.klt_inputs(dev, frames)
+        fn = lambda: klt.klt_track(p0, p1, uv, valid, 10, 10, 0.8)
+    t = checks.device_ms(fn, reps=5)
+    assert t.launches == activities, t
 
 
 def test_pyramid_kernels_match_plain(dev, camera):

@@ -1,31 +1,42 @@
-"""Kernels D, E, S, K, L/P and AC of this tree against the parent commit's
-build, on the card.
+"""Kernels H, B, D, E, S, K, L/P and AC of this tree against the parent
+commit's build, on the card.
 
     mkdir -p build/parent
     git archive <parent> ground_fusion2_tpu_torch/csrc | tar -x -C build/parent
     PYTHONPATH=. python tests/torch_parent_bits.py build/parent
 
-Builds the parent's ``csrc/lio_assoc.cu``, ``ct_icp_normal.cu``,
-``window_cost.cu``, ``ransac_f.cu``, ``small_normal.cu`` and
-``mesh_delaunay.cu`` (with the headers beside them) into
-``build/parent_bits/`` and compares, each output with ``torch.equal``:
+Builds the parent's ``csrc/preint.cu``, ``klt.cu``, ``lio_assoc.cu``,
+``ct_icp_normal.cu``, ``window_cost.cu``, ``ransac_f.cu``,
+``small_normal.cu`` and ``mesh_delaunay.cu`` (with the headers beside them)
+into ``build/parent_bits/`` and compares, each output with ``torch.equal``:
 
-* kernel D's four outputs (normal, centroid, a2D, valid) against the parent's
-  one call (commit 0307a71's C interface: a search on every call) on
-  ``checks.lio_kernel_inputs`` after scans 7, 20 and 59 of ``chip_smoke.py``'s
-  phase 5 drive (the map early, filling and full), with the query at the
-  gather point and moved 3 cm (``checks.assoc_points``): in search mode, in
-  cached mode on the ranges the search wrote, and in flag mode with the flag
-  set and clear (CT-ICP's midpoint call);
-* kernel E's (H, g, cost) against the parent's one-CTA launch (0307a71's
-  interface) on the same inputs, at the predicted pose and at
-  ``checks.check_ct_normal``'s moved pose;
+* kernel H (every ``ImuPreint``, ``WheelPreint`` and (p, q, v) output)
+  against the parent's wrapper (commit 4141781's C interface and glue:
+  ``parent_preint``) on the inputs of every fused tick of ``chip_smoke.py``'s
+  phase 4 drive (recorded as ``preintegrate_all`` takes them: ticks after a
+  keyframe slide, after a non-keyframe merge and while the window fills),
+  and on each of them the propagation alone (``intervals=False``);
+* kernel B (points and flags) against the parent's (4141781's flat
+  pyramids: ``parent_klt``) on every tracker call of the same drive (the
+  track pairs of phase 4's 32 frames), on phase 3's frames 12 → 13
+  (``checks.klt_inputs``) and on the line path's call (frames 0 → 1:
+  ``lines.track_lines``' samples at half 3, 6 iterations, threshold 8);
+* kernel D's four outputs (normal, centroid, a2D, valid) on
+  ``checks.lio_kernel_inputs`` after scans 7, 20 and 59 of phase 5's drive
+  (the map early, filling and full), with the query at the gather point and
+  moved 3 cm (``checks.assoc_points``): in search mode, in cached mode on
+  the ranges the search wrote, and in flag mode with the flag set and
+  clear; kernel E's (H, g, cost) on the same inputs, at the predicted pose
+  and at ``checks.check_ct_normal``'s moved pose;
 * kernels S (phase 3's window at zero, the damped LM step and its reverse;
   phase 12's GNSS window at zero and a step), K (phase 7's KLT tracks and
   the track pairs of each of phase 4's 32 frames: every output), L with P
-  (phase 3's and phase 12's windows) and AC (4,544 voxels of a room store)
-  through this tree's wrappers on the parent's library: their C interfaces
-  are the parent's.
+  (phase 3's and phase 12's windows) and AC (4,544 voxels of a room store);
+
+D, E, S, K, L/P and AC through this tree's wrappers on the parent's
+library (their C interfaces are the parent's). ``parent_assoc`` and
+``parent_ct_normal`` call commit 0307a71's D and E (``tools/lio_stages.py``'s
+``parent:`` sources).
 
 Prints one JSON line a comparison and exits nonzero on any difference.
 Needs the card (the kernels have no CPU mode).
@@ -53,13 +64,14 @@ from ground_fusion2_tpu_torch.lio import voxel_map as vm  # noqa: E402
 from ground_fusion2_tpu_torch.mesh import incremental as mi  # noqa: E402
 
 OUT = ROOT / "build" / "parent_bits"
-SOURCES = ("lio_assoc", "ct_icp_normal", "window_cost", "ransac_f",
-           "small_normal", "mesh_delaunay")
+SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "window_cost",
+           "ransac_f", "small_normal", "mesh_delaunay")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # commit 0307a71's kernels D (one search a call) and E (one CTA)
 PARENT_ASSOC = [P] * 5 + [I] * 2 + [F] + [I] * 3 + [P] * 5
 PARENT_CT_NORMAL = [P] * 13 + [I] + [F] * 3 + [P] * 2
-SAME_INTERFACE = ("gf2_window_cost", "gf2_ransac_f", "gf2_small_rows",
+SAME_INTERFACE = ("gf2_lio_assoc", "gf2_ct_icp_normal", "gf2_ct_icp_scratch",
+                  "gf2_window_cost", "gf2_ransac_f", "gf2_small_rows",
                   "gf2_small_reduce", "gf2_mesh_delaunay")
 HYPOTHESES, SEED = 64, 12          # checks.check_ransac's draw
 LIO_SCANS = (7, 20, 59)            # the map early, filling, full
@@ -87,9 +99,9 @@ def build_parent(parent: Path) -> ctypes.CDLL:
     for fn in SAME_INTERFACE:
         getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
         getattr(lib, fn).restype = I
-    lib.gf2_lio_assoc.argtypes = PARENT_ASSOC
-    lib.gf2_ct_icp_normal.argtypes = PARENT_CT_NORMAL
-    lib.gf2_lio_assoc.restype = lib.gf2_ct_icp_normal.restype = I
+    lib.gf2_preint.argtypes = PARENT_PREINT
+    lib.gf2_klt_track.argtypes = PARENT_KLT
+    lib.gf2_preint.restype = lib.gf2_klt_track.restype = I
     return lib
 
 
@@ -141,13 +153,127 @@ def parent_ct_normal(lib, pose, pred, pts, alpha, centroid, normal, w, cfg):
     return out[:144].view(12, 12), out[144:156], out[156]
 
 
+# commit 4141781's kernels H (the sample buffers, a wheel-frame gyro and the
+# propagation's state stacked by the wrapper) and B (both pyramids flat)
+PARENT_PREINT = [P] * 9 + [I] * 2 + [F] * 6 + [P, I] + [P] * 4
+PARENT_KLT = [P] * 5 + [I] * 5 + [F] + [P] * 3
+
+
+def parent_preint(lib, acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
+                  imu_noise, wheel_noise, qio, prop=None, intervals=True):
+    """The parent's kernel H through its wrapper (commit 4141781's
+    ``window_preint._preint_cuda``, its glue included): (ImuPreint |
+    None, WheelPreint | None, (p, q, v) | None)."""
+    from ground_fusion2_tpu_torch.core import lie
+    from ground_fusion2_tpu_torch.sensors.imu_preint import ImuPreint
+    from ground_fusion2_tpu_torch.sensors.wheel_preint import WheelPreint
+    dev = acc.device
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32,
+                                    device=dev).contiguous()
+    n_int, M = dt.shape
+    acc, gyr, wvel, dt, mask = (f32(t) for t in (acc, gyr, wvel, dt, mask))
+    ba, bg = f32(ba), f32(bg)
+    gyr_o = (gyr @ lie.quat_to_mat(f32(qio))).contiguous()
+    sxyw = torch.stack([f32(six).reshape(()), f32(siy).reshape(()),
+                        f32(siw).reshape(())])
+    B = n_int if intervals else 0
+    imu_out = torch.empty((B, 460), dtype=torch.float32, device=dev)
+    whl_out = torch.empty((B, 61), dtype=torch.float32, device=dev)
+    prop_out = torch.empty((10,), dtype=torch.float32, device=dev)
+    if prop is not None:
+        prop_in = torch.cat([f32(prop.p), f32(prop.q), f32(prop.v),
+                             f32(prop.ba), f32(prop.bg), f32(prop.g_world)])
+        prop_k = prop.k % n_int
+    else:
+        prop_in, prop_k = prop_out, -1
+    ptr = lambda t: P(t.data_ptr())
+    err = lib.gf2_preint(
+        ptr(acc), ptr(gyr), ptr(gyr_o), ptr(wvel), ptr(dt), ptr(mask),
+        ptr(ba), ptr(bg), ptr(sxyw), B, M,
+        F(imu_noise.acc_n ** 2), F(imu_noise.gyr_n ** 2),
+        F(imu_noise.acc_w ** 2), F(imu_noise.gyr_w ** 2),
+        F(wheel_noise.vel_n ** 2), F(wheel_noise.gyr_n ** 2),
+        ptr(prop_in), prop_k, ptr(imu_out), ptr(whl_out), ptr(prop_out),
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"parent gf2_preint: CUDA error {err}")
+    pre = wpre = pvq = None
+    if intervals:
+        sum_dt = (dt * mask).sum(-1)
+        pre = ImuPreint(dp=imu_out[:, 0:3], dq=imu_out[:, 3:7],
+                        dv=imu_out[:, 7:10],
+                        cov=imu_out[:, 10:235].reshape(B, 15, 15),
+                        jac=imu_out[:, 235:460].reshape(B, 15, 15),
+                        sum_dt=sum_dt, ba=ba, bg=bg)
+        idx = mask.to(torch.int64).sum(-1)[:, None, None].expand(B, 1, 3)
+        wpre = WheelPreint(
+            dp=whl_out[:, 0:3], dq=whl_out[:, 3:7],
+            cov=whl_out[:, 7:43].reshape(B, 6, 6),
+            jac_ix=whl_out[:, 43:61].reshape(B, 6, 3), sum_dt=sum_dt,
+            sx=sxyw[0].expand(B), sy=sxyw[1].expand(B), sw=sxyw[2].expand(B),
+            vel_begin=wvel[:, 0], gyr_begin=gyr_o[:, 0],
+            vel_end=torch.gather(wvel, 1, idx)[:, 0],
+            gyr_end=torch.gather(gyr_o, 1, idx)[:, 0])
+    if prop is not None:
+        pvq = (prop_out[0:3], prop_out[3:7], prop_out[7:10])
+    return pre, wpre, pvq
+
+
+def parent_klt(lib, pyr0, pyr1, pts0, valid0, half=10, iters=10,
+               fb_thresh=0.5):
+    """The parent's kernel B through its wrapper (commit 4141781's
+    ``klt._klt_track_cuda``: both pyramids copied flat): (pts1, tracked)."""
+    from ground_fusion2_tpu_torch.frontend.klt import MAX_DISP
+    F_, L = pts0.shape[0], len(pyr0)
+    dev = pts0.device
+    levels, off = [], 0
+    for p in pyr0:
+        h, w = p.shape
+        levels += [h, w, off]
+        off += h * w
+    flat0 = torch.cat([p.reshape(-1) for p in pyr0]).to(torch.float32)
+    flat1 = torch.cat([p.reshape(-1) for p in pyr1]).to(torch.float32)
+    pts0c = pts0.to(torch.float32).contiguous()
+    valid = valid0.to(torch.float32).contiguous()
+    pts1 = torch.empty((F_, 2), dtype=torch.float32, device=dev)
+    tracked = torch.empty((F_,), dtype=torch.float32, device=dev)
+    lv = (I * len(levels))(*levels)
+    err = lib.gf2_klt_track(
+        P(flat0.data_ptr()), P(flat1.data_ptr()), ctypes.cast(lv, P),
+        P(pts0c.data_ptr()), P(valid.data_ptr()), F_, L, half, iters,
+        MAX_DISP, F(fb_thresh), P(pts1.data_ptr()), P(tracked.data_ptr()),
+        _stream(dev))
+    if err:
+        raise RuntimeError(f"parent gf2_klt_track: CUDA error {err}")
+    return pts1, tracked
+
+
 def equal(new, old, names) -> dict:
     return {k: bool(torch.equal(a, b)) for k, a, b in zip(names, new, old)}
 
 
 def compare_lio(lib, dev) -> bool:
+    """D in every mode and E, this tree's wrappers on both libraries."""
     from ground_fusion2_tpu_torch.config import m3dgr_lio
     cfg = m3dgr_lio()
+    names = ("normal", "centroid", "a2d", "valid")
+    flag = lambda b: torch.tensor(b, device=dev)
+
+    def modes(p_g, p_q):
+        ranges = torch.empty((p_q.shape[0], 27), dtype=torch.int32,
+                             device=dev)
+        out = {"search": vm.associate(vmap, p_g, p_q, cfg.map_cfg, ranges,
+                                      True)}
+        out["cached"] = vm.associate(vmap, None, p_q, cfg.map_cfg, ranges,
+                                     False)
+        # flag clear: the ranges of the search at p_g; flag set: a search
+        # around the query itself, as the midpoint call's
+        out["flag clear"] = vm.associate(vmap, p_q, p_q, cfg.map_cfg, ranges,
+                                         flag(False))
+        out["flag set"] = vm.associate(vmap, p_q, p_q, cfg.map_cfg, ranges,
+                                       flag(True))
+        return out
+
     ok = True
     for k, x in checks.lio_drive_inputs(dev, LIO_SCANS).items():
         vmap = x["vmap"]
@@ -155,24 +281,10 @@ def compare_lio(lib, dev) -> bool:
         fill = int((vmap.code != vm.INVALID).sum())
         for label, p_q in (("at the gather point", p_g),
                            ("moved 3 cm", p_moved)):
-            old = parent_assoc(lib, vmap, p_g, p_q, cfg.map_cfg)
-            ranges = torch.empty((p_q.shape[0], 27), dtype=torch.int32,
-                                 device=dev)
-            flag = lambda b: torch.tensor(b, device=dev)
-            runs = {"search": (p_g, True), "cached": (None, False)}
-            same = {m: equal(vm.associate(vmap, g, p_q, cfg.map_cfg, ranges,
-                                          s), old,
-                             ("normal", "centroid", "a2d", "valid"))
-                    for m, (g, s) in runs.items()}
-            # flag clear: the ranges of the search at p_g; flag set: a search
-            # around the query itself, as the midpoint call's
-            same["flag clear"] = equal(vm.associate(
-                vmap, p_q, p_q, cfg.map_cfg, ranges, flag(False)), old,
-                ("normal", "centroid", "a2d", "valid"))
-            own = parent_assoc(lib, vmap, p_q, p_q, cfg.map_cfg)
-            same["flag set"] = equal(vm.associate(
-                vmap, p_q, p_q, cfg.map_cfg, ranges, flag(True)), own,
-                ("normal", "centroid", "a2d", "valid"))
+            new = modes(p_g, p_q)
+            with library(lib):
+                old = modes(p_g, p_q)
+            same = {m: equal(new[m], old[m], names) for m in new}
             good = all(all(v.values()) for v in same.values())
             ok &= good
             print(json.dumps(dict(kernel="lio_assoc", scan=k, map_fill=fill,
@@ -180,13 +292,137 @@ def compare_lio(lib, dev) -> bool:
                   flush=True)
         for moved in (False, True):
             args = checks.ct_normal_args(dev, x, cfg.icp_cfg, moved=moved)
-            same = equal(ci.normal_equations(*args),
-                         parent_ct_normal(lib, *args), ("H", "g", "cost"))
+            new = ci.normal_equations(*args)
+            with library(lib):
+                old = ci.normal_equations(*args)
+            same = equal(new, old, ("H", "g", "cost"))
             ok &= all(same.values())
             print(json.dumps(dict(kernel="ct_icp_normal", scan=k,
                                   pose="moved" if moved else "predicted",
                                   rows=int((x["w"] > 0).sum()), equal=same)),
                   flush=True)
+    return ok
+
+
+PREINT_NAMES = (
+    [f"imu {f}" for f in ("dp", "dq", "dv", "cov", "jac", "sum_dt", "ba",
+                          "bg")]
+    + [f"wheel {f}" for f in ("dp", "dq", "cov", "jac_ix", "sum_dt", "sx",
+                              "sy", "sw", "vel_begin", "gyr_begin",
+                              "vel_end", "gyr_end")] + ["p", "q", "v"])
+
+
+def _preint_outputs(res) -> list:
+    pre, wpre, pvq = res
+    out = []
+    for part, n in ((pre, 8), (wpre, 12), (pvq, 3)):
+        out += list(part) if part is not None else [torch.zeros(0)] * n
+    return out
+
+
+def _clone(x):
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_clone(v) for v in x])
+    return x
+
+
+def record_drive(dev):
+    """Phase 4's drive through FusedVio, recording kernel H's inputs as
+    ``preintegrate_all`` hands them over and kernel B's as the tracker
+    does, with each call's frame and the previous tick's keyframe flag."""
+    import chip_smoke
+    import numpy as np
+    from ground_fusion2_tpu_torch.config import m3dgr_camera
+    from ground_fusion2_tpu_torch.core.cameras import Pinhole
+    from ground_fusion2_tpu_torch.frontend import klt
+    from ground_fusion2_tpu_torch.vio import estimator
+    from ground_fusion2_tpu_torch.vio.fused import FusedVio
+    cfg = m3dgr_camera()
+    fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
+                  dev, tic=np.zeros(3), ric=checks.RIG_RIC,
+                  tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
+    rec = dict(preint=[], klt=[])
+    state = dict(frame=0, prev_kf=None)
+    pw, kt = estimator.preintegrate_window, klt.klt_track
+
+    def preint(*a, **k):
+        rec["preint"].append((state["frame"], state["prev_kf"], _clone(a),
+                              {n: _clone(v) for n, v in k.items()}))
+        return pw(*a, **k)
+
+    def track(*a, **k):
+        rec["klt"].append((state["frame"], _clone(a), dict(k)))
+        return kt(*a, **k)
+
+    estimator.preintegrate_window, klt.klt_track = preint, track
+    try:
+        for i, f in enumerate(checks.room_drive(chip_smoke.CAM_FRAMES)):
+            state["frame"] = i
+            out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
+                                   wheel_vel=f["wheel"])
+            if fv.carry is not None:
+                state["prev_kf"] = bool(out.is_keyframe)
+    finally:
+        estimator.preintegrate_window, klt.klt_track = pw, kt
+    return rec
+
+
+def compare_preint(lib, calls) -> bool:
+    from ground_fusion2_tpu_torch.sensors import window_preint as wp
+    ok = True
+    for frame, prev_kf, args, kw in calls:
+        for intervals in (True, False):
+            k = dict(kw, intervals=intervals)
+            new = _preint_outputs(wp.preintegrate_window(*args, **k))
+            old = _preint_outputs(parent_preint(lib, *args, **k))
+            same = equal(new, old, PREINT_NAMES)
+            ok &= all(same.values())
+            after = ("the window filling" if prev_kf is None else
+                     "a keyframe slide" if prev_kf else "a non-keyframe merge")
+            print(json.dumps(dict(
+                kernel="preint", frame=frame, after=after,
+                call="intervals and propagation" if intervals
+                else "propagation alone",
+                valid=int(args[4].sum()), equal=same)), flush=True)
+    return ok
+
+
+def compare_klt(lib, name, pyr0, pyr1, pts0, valid0, half, iters, fb) -> bool:
+    from ground_fusion2_tpu_torch.frontend import klt
+    new = klt.klt_track(pyr0, pyr1, pts0, valid0, half, iters, fb)
+    old = parent_klt(lib, pyr0, pyr1, pts0, valid0, half, iters, fb)
+    same = equal(new, old, ("pts1", "tracked"))
+    print(json.dumps(dict(kernel="klt", call=name, features=pts0.shape[0],
+                          tracked=int(new[1].sum()), half=half,
+                          equal=same)), flush=True)
+    return all(same.values())
+
+
+def compare_tracks(lib, dev, calls) -> bool:
+    from ground_fusion2_tpu_torch.frontend import klt, lines
+    ok = True
+    for frame, a, kw in calls:
+        pyr0, pyr1, pts0, valid0, *rest = a
+        names = ("half", "iters", "fb_thresh")
+        opt = dict(zip(names, rest), **kw)
+        ok &= compare_klt(lib, f"tracker, frames {frame - 1} -> {frame}",
+                          pyr0, pyr1, pts0, valid0, opt["half"],
+                          opt["iters"], opt["fb_thresh"])
+    import chip_smoke
+    frames = checks.room_drive(chip_smoke.CAM_FRAMES)
+    p0, p1, uv, valid = checks.klt_inputs(dev, frames[12:14])
+    ok &= compare_klt(lib, "phase 3, frames 12 -> 13", p0, p1, uv, valid,
+                      10, 10, 0.8)
+    g = [torch.as_tensor(f["gray"], device=dev).float() / 255.0
+         for f in frames[:2]]
+    segs, valid = lines.detect_lines(g[0])
+    cfg = lines.LineConfig()
+    pts0, v0 = lines.line_samples(segs, valid, cfg.track_points)
+    ok &= compare_klt(lib, "the line path, frames 0 -> 1",
+                      klt.build_pyramid(g[0], 3), klt.build_pyramid(g[1], 3),
+                      pts0, v0, 3, 6, 8.0)
     return ok
 
 
@@ -235,7 +471,10 @@ def main(parent: str) -> int:
     dev = torch.device("cuda:0")
     _kernels.build()
     lib = build_parent(Path(parent))
-    ok = compare_lio(lib, dev)
+    rec = record_drive(dev)
+    ok = compare_preint(lib, rec["preint"])
+    ok &= compare_tracks(lib, dev, rec["klt"])
+    ok &= compare_lio(lib, dev)
     cfg = m3dgr_camera()
     vcfg = cfg.estimator.vio
 
