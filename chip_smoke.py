@@ -72,8 +72,22 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      torch.profiler prints the device time a tick of the port's kernels
      (F's, C's, L's with P's, W's, X's and AC's summed under
      by_kernel_ms_per_tick),
-     torch.linalg's and every other kernel, and the launches a tick; the
-     torch.linalg class must be empty;
+     torch.linalg's and every other kernel, and the launches a tick, and
+     split the same by profiler range (utils/profiling.py stage: each
+     stretch of the tick named after the JAX function it ports, every CUDA
+     activity given to the innermost range open at its launch), with the
+     synchronizing calls a tick by call site; the torch.linalg class must
+     be empty;
+  8b. the tick's glue kernels on the card against their plain routes:
+     AH (frontend/track_tail.py: lift, kill, tail) on phase 4's frames 12
+     → 13 with a dynamic-mask box, at the configuration's camera and a
+     distorted one, the tail also with t = prev_t; AI (vio/window_carry.py)
+     on phase 8's final carry, the write at two columns and the slide in
+     each branch, MARGIN_SECOND_NEW also past M = 128 samples; AJ
+     (solver/marginalize.py) on phase 8's final window, MARGIN_OLD and
+     MARGIN_SECOND_NEW with the layout's device tables, both routes on
+     kernel X. Every output torch.equal to the plain route's, the same
+     bits twice;
   9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
      camera configuration, PoseGraphConfig at its defaults but num_feats
      150: sim_thresh 0.88, skip_recent 50, 128 hypotheses, capacity 512,
@@ -210,7 +224,7 @@ codes, subcells and squared distances at 135,168 keys, the recenter's
 131,072, a mesh-sized 69,632, the keypoints' hash codes and flags); phase
 14 F's on the mesh's own 69,632 codes.
 The last two lines are the kernels JSON (launches from phase 8's run for
-A-L and S-Y, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
+A-L, S-Y and AH-AJ, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
 phase 15's for AD and AE, phase 16's for AF and AG) and the result JSON.
 
@@ -253,7 +267,8 @@ SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
 CAMERA_KERNELS = ("clahe", "klt", "proj_normal", "preint", "pyramid",
                   "shi_tomasi", "detect_grid", "ransac_f", "small_normal",
                   "window_cost", "triangulate", "window_tests", "window_update",
-                  "chol_solve", "sym_eig", "sqrt_info")
+                  "chol_solve", "sym_eig", "sqrt_info", "track_tail",
+                  "window_carry", "marg_schur")
 LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal",
                 "pg_cost")
 GNSS_KERNELS = ("gnss_normal", "global_normal", "global_cost")
@@ -352,6 +367,10 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "mesh_rgb": ("mesh_rgb.cu", "ground_fusion2_tpu/mesh/incremental.py:198"),
     "mesh_delaunay": ("mesh_delaunay.cu",
                       "ground_fusion2_tpu/mesh/incremental.py:348"),
+    "track_tail": ("track_tail.cu", "ground_fusion2_tpu/vio/fused.py:183"),
+    "window_carry": ("window_carry.cu", "ground_fusion2_tpu/vio/fused.py:297"),
+    "marg_schur": ("marg_schur.cu",
+                   "ground_fusion2_tpu/solver/marginalize.py:57"),
 }
 MESH_KERNELS = ("mesh_insert", "mesh_rgb", "mesh_delaunay")
 SOURCES.update({
@@ -427,7 +446,11 @@ KERNEL_GROUPS = {
     "L": ("small_rows_kernel", "small_reduce_kernel"),
     "AC": ("mesh_delaunay_kernel",),
     "S": ("window_cost_kernel",),
-    "K": ("ransac_kernel",)}
+    "K": ("ransac_kernel",),
+    "AH": ("track_lift_kernel", "track_kill_kernel", "track_tail_kernel"),
+    "AI": ("carry_write_kernel", "carry_slide_kernel"),
+    "AJ": ("marg_gather_kernel", "marg_factors_kernel", "marg_scale_kernel",
+           "marg_schur_kernel", "marg_prior_kernel")}
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -467,9 +490,12 @@ def device_split(prof, n_ticks: int) -> dict:
     ``KERNEL_GROUPS`` summed (``by_kernel_ms_per_tick``)."""
     import torch
     ours = port_kernel_names()
+    from ground_fusion2_tpu_torch.utils.profiling import STAGE_PREFIX
+    # the profiler's own spans of the ranges on the device's timeline
+    # (gpu_user_annotation) are not activities
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith(("Memcpy", "Memset"))]
+               and not e.name.startswith(("Memcpy", "Memset", STAGE_PREFIX))]
     ms = dict(port=0.0, linalg=0.0, other=0.0)
     seen, count = collections.Counter(), collections.Counter()
     for e in kernels:
@@ -483,6 +509,7 @@ def device_split(prof, n_ticks: int) -> dict:
         ms[cls] += e.time_range.elapsed_us() / 1e3
     per = {k: v / n_ticks for k, v in sorted(seen.items())}
     return dict(device_ms_per_tick={k: v / n_ticks for k, v in ms.items()},
+                **split_by_range(prof, n_ticks),
                 launches_per_tick=len(kernels) / n_ticks,
                 port_kernel_ms_per_tick=per,
                 port_kernel_launches_per_tick={
@@ -490,6 +517,60 @@ def device_split(prof, n_ticks: int) -> dict:
                 by_kernel_ms_per_tick={
                     k: sum(per.get(n, 0.0) for n in names)
                     for k, names in KERNEL_GROUPS.items()})
+
+
+# the CUDA API calls a trace records on the host ("cuda...", "cu..."): each
+# shares its correlation id with what it launched
+RUNTIME_PREFIX = "cu"
+
+
+def split_by_range(prof, n_ticks: int) -> dict:
+    """Device ms and activities a tick by profiler range: each CUDA
+    activity goes to the innermost ``gf2::`` range (``utils/profiling.py
+    stage``, named after the JAX function the stretch ports) that was open
+    when the host launched it (the runtime call with the same correlation
+    id), "(outside)" where none was. Per range: kernel ms and launches, the
+    port's kernels' share of both, and the copies and memsets."""
+    import torch
+    from ground_fusion2_tpu_torch.utils.profiling import STAGE_PREFIX
+    ours = port_kernel_names()
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = sorted(((e.time_range.start, e.time_range.end,
+                      e.name[len(STAGE_PREFIX):]) for e in cpu
+                     if e.name.startswith(STAGE_PREFIX)), key=lambda r: r[0])
+    launched = {e.id: e.time_range.start for e in cpu
+                if e.name.startswith(RUNTIME_PREFIX)}
+    out = collections.defaultdict(lambda: dict(
+        ms=0.0, launches=0, port_ms=0.0, port_launches=0, copies=0,
+        copy_ms=0.0))
+    unmatched = 0
+    for e in prof.events():
+        if (e.device_type != torch.autograd.DeviceType.CUDA
+                or e.name.startswith(STAGE_PREFIX)):
+            continue
+        t = launched.get(e.id)
+        name = "(outside)"
+        if t is None:
+            unmatched += 1
+        else:
+            inner = [r for r in ranges if r[0] <= t <= r[1]]
+            if inner:
+                name = max(inner, key=lambda r: r[0])[2]
+        r = out[name]
+        us = e.time_range.elapsed_us() / 1e3
+        if e.name.startswith(("Memcpy", "Memset")):
+            r["copies"] += 1
+            r["copy_ms"] += us
+            continue
+        r["ms"] += us
+        r["launches"] += 1
+        if kernel_qualname(e.name) in ours:
+            r["port_ms"] += us
+            r["port_launches"] += 1
+    per = {k: {f: round(v / n_ticks, 5) for f, v in r.items()}
+           for k, r in sorted(out.items(), key=lambda kv: -kv[1]["ms"])}
+    return dict(by_range=per, unmatched_activities=unmatched)
 
 
 def start_profiler():
@@ -755,7 +836,8 @@ def camera_main_path(dev, card, frames):
 
 def system_main_path(dev, card, frames):
     """Phase 8 over ``frames`` (checks.system_drive). Returns (error or
-    None, launches during the drive, the median system tick in ms)."""
+    None, launches during the drive, the median system tick in ms, the
+    GroundFusion)."""
     import torch
     from ground_fusion2_tpu_torch import _kernels, checks
     from ground_fusion2_tpu_torch.config import m3dgr_system
@@ -806,20 +888,20 @@ def system_main_path(dev, card, frames):
     launches = dict(_kernels.launches)
     n_live = len(tick_ms)
     if not (gf.vio.initialized and gf.lio.initialized) or not vio:
-        return "an estimator never initialized", launches, None
+        return "an estimator never initialized", launches, None, gf
     if n_live < 20:
         return (f"only {n_live} system ticks ran with both carries live",
-                launches, None)
+                launches, None, gf)
     grew = {k: launches.get(k, 0) - (launches_at_live or {}).get(k, 0)
             for k in CAMERA_KERNELS + LIDAR_KERNELS}
     if min(grew.values()) <= 0:
         return (f"a kernel did not launch during the system ticks: {grew}",
-                launches, None)
+                launches, None, gf)
     if not all(np.all(np.isfinite(o.p)) and np.all(np.isfinite(o.q))
                for o in gf.trajectory):
-        return "a non-finite fused pose", launches, None
+        return "a non-finite fused pose", launches, None, gf
     if not prior_finite(gf.vio):
-        return "non-finite marginalization prior", launches, None
+        return "non-finite marginalization prior", launches, None, gf
     r = checks.system_errors(gf.trajectory, vio, frames)
     split = device_split(prof, len(syncs_seen)) if prof is not None else {}
     print("system tick split over the last 3 ticks (torch.profiler, CUDA "
@@ -830,6 +912,19 @@ def system_main_path(dev, card, frames):
           f"unprofiled ticks {float(np.median(tick_ms[2:-3])):.2f} ms | {card}",
           flush=True)
     if split:
+        rows = {k: (round(v["ms"], 4), v["launches"], round(v["port_ms"], 4))
+                for k, v in split["by_range"].items()}
+        print(f"system tick by profiler range over the last 3 ticks (device "
+              f"ms, kernel launches, of which the port's kernels' ms, a "
+              f"tick; printed only): {json.dumps(rows)}; kernels AH, AI, AJ "
+              f"launches a tick "
+              + json.dumps({g: sum(split['port_kernel_launches_per_tick']
+                                   .get(n, 0) for n in KERNEL_GROUPS[g])
+                            for g in ("AH", "AI", "AJ")})
+              + f", device ms a tick "
+              + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
+                            for g in ("AH", "AI", "AJ")}) + f" | {card}",
+              flush=True)
         per_tick = split["port_kernel_launches_per_tick"]
         print(f"kernels D and E in the system tick: launches a LiDAR tick "
               f"D {per_tick.get('lio_assoc_kernel', 0):g}, E "
@@ -854,18 +949,32 @@ def system_main_path(dev, card, frames):
     median = float(np.median(tick_ms[2:]))
     if r["degenerate"]:
         return (f"degenerate scans after the second: {r['degenerate']}",
-                launches, median)
+                launches, median, gf)
     if not r["fused_err"] < SYS_MAX_ERR:
         return (f"fused position error {r['fused_err']:.4f} m >= "
-                f"{SYS_MAX_ERR} m"), launches, median
+                f"{SYS_MAX_ERR} m"), launches, median, gf
     if not r["vio_ate"] < SYS_MAX_ATE:
         return (f"VIO ATE {r['vio_ate']:.4f} m >= {SYS_MAX_ATE} m", launches,
-                median)
+                median, gf)
     if split and split["device_ms_per_tick"]["linalg"] > 0:
         return (f"cuSOLVER / triangular-solve kernels ran in the system tick: "
                 f"{split['device_ms_per_tick']['linalg']:.4f} ms a tick",
-                launches, median)
-    return None, launches, median
+                launches, median, gf)
+    return None, launches, median, gf
+
+
+def glue_checks(dev, frames, gf, frame) -> dict:
+    """Phase 8b: kernels AH (on ``frames`` 12 → 13, phase 4's), AI and AJ
+    (on ``gf``'s final fused window, phase 8's, and ``frame``'s IMU chunk)
+    against their plain routes on the card."""
+    from ground_fusion2_tpu_torch import checks
+    fv = gf.vio
+    out = {"track_tail": checks.check_track_tail(
+               dev, frames[12:14], fv.cam,
+               (fv.tcfg.depth_range[0], fv.tcfg.depth_range[1])),
+           "window_carry": checks.check_window_carry(dev, fv, frame),
+           "marg_schur": checks.check_marg_schur(dev, fv)}
+    return out
 
 
 def loop_main_path(dev, card):
@@ -1938,10 +2047,16 @@ def main() -> int:
     sys_frames = checks.system_drive(SYS_FRAMES)
     print(f"system drive: {SYS_FRAMES} frames rendered and scanned in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    (err, launches, sys_median), lin = linalg_free("8", system_main_path, dev,
-                                                   card, sys_frames)
+    (err, launches, sys_median, sys_gf), lin = linalg_free(
+        "8", system_main_path, dev, card, sys_frames)
     if err or lin:
         return fail(err or lin)
+
+    # 8b. the tick's glue kernels AH, AI, AJ against their plain routes
+    res_glue = glue_checks(dev, frames, sys_gf, sys_frames[-1])
+    if report(res_glue):
+        return 1
+    res.update(res_glue)
 
     # 9. the loop-closure path, then M-O against their plain versions on
     # the phase's data
@@ -2092,8 +2207,8 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms",
             "launches_per_call")
-    # launches: phase 8 for A-L and S-Y, 9 for M-O, 10 for P and Q, 11 for
-    # R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG
+    # launches: phase 8 for A-L, S-Y and AH-AJ, 9 for M-O, 10 for P and Q,
+    # 11 for R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

@@ -87,6 +87,17 @@ _SIGNATURES = {
     "gf2_dist_schur": ([_P] * 14 + [_I] * 7 + [_F] * 3 + [_I] + [_P] * 8
                        + [_P]),
     "gf2_map_schur": [_P] * 7 + [_I] * 5 + [_P] * 7 + [_P],
+    "gf2_track_lift": [_P, _P, _I, _P, _P],
+    "gf2_track_kill": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _P, _P, _P],
+    "gf2_track_tail": ([_P] * 8 + [_I, _P, _I, _I] + [_F] * 5 + [_P] * 7
+                       + [_P]),
+    "gf2_carry_write": [_I] + [_P] * 9,
+    "gf2_carry_slide": [_I] + [_P] * 8 + [_I] + [_P] * 2 + [_I] + [_P] * 2,
+    "gf2_marg_gather": [_I, _I] + [_P] * 4 + [_I] * 3 + [_D] + [_P] * 5,
+    "gf2_marg_factors": [_I] + [_P] * 3 + [_I] + [_P] * 2,
+    "gf2_marg_scale": [_I] + [_P] * 2 + [_I] + [_P] * 2,
+    "gf2_marg_schur": [_I, _P, _I] + [_P] * 3 + [_I, _D] + [_P] * 4,
+    "gf2_marg_prior": [_I, _I] + [_P] * 4 + [_I, _P, _I] + [_P] * 4,
 }
 
 

@@ -3161,3 +3161,341 @@ def check_map_schur(device, p_ext, q_ext, prob, halo: int, K: int,
             lambda: dm.map_build(p_ext, q_ext, prob, halo, K, base, lam_t),
             reps=10))
     return out
+
+
+# ------------------------------------------------------- kernels AH, AI, AJ
+# a distorted pinhole (EuRoC's cam0 radial-tangential terms) beside the
+# configuration's, so that kernel AH's lift runs every term
+DISTORTED = dict(k1=-0.28340811, k2=0.07395907, p1=0.00019359,
+                 p2=1.76187114e-05)
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest gap between two float32 tensors in units of b's ulp."""
+    if a.numel() == 0:
+        return 0.0
+    a64, b64 = a.double(), b.double()
+    sp = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))).double() \
+        - b64.abs()
+    return float(((a64 - b64).abs() / sp.clamp(min=1e-45)).max())
+
+
+def _equal_fields(a, b) -> dict:
+    return {f: bool(torch.equal(x, y)) for f, x, y in zip(a._fields, a, b)}
+
+
+def track_tail_inputs(device, frames, cam, F: int = 150, stride: int = 2):
+    """Kernel AH's inputs on ``frames[0] → frames[1]`` as the fused tick
+    makes them: the tracked slots (:func:`klt_tracks`), their previous
+    rays, a dynamic-mask box over the middle of the frame (it covers some
+    of the tracks), the second frame's response and its depth decimated by
+    ``stride`` through float16, t and prev_t on the device."""
+    from .frontend import track_tail as tt
+    tr = klt_tracks(device, frames[:2], F)
+    H, W = tr["resp1"].shape
+    mask = torch.zeros((H, W), device=device)
+    mask[H // 4:H // 2, W // 3:2 * W // 3] = 1.0
+    depth = np.asarray(frames[1]["depth"], np.float16)[::stride, ::stride]
+    t = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    return dict(pts1=tr["uv1"], alive=tr["alive"], resp=tr["resp1"],
+                mask=mask, prev_norm=tt.lift_norm_plain(cam, tr["uv0"]),
+                depth=torch.as_tensor(np.ascontiguousarray(depth),
+                                      device=device).float(),
+                t=t(frames[1]["t"]), prev_t=t(frames[0]["t"]), stride=stride)
+
+
+def check_track_tail(device, frames, cam, depth_range=(0.1, 7.0),
+                     timed: bool = True) -> dict:
+    """Kernel AH's three modes against the plain route on ``frames``
+    (:func:`track_tail_inputs`), with the configuration's camera and a
+    distorted one, the tail also with t = prev_t (no velocity): every
+    output ``torch.equal``, the rays' and velocities' gap in ulps where not.
+    Timed per mode at the configuration's camera; the totals are a tick's
+    (one launch of each mode)."""
+    import dataclasses
+    from .frontend import track_tail as tt
+    x = track_tail_inputs(device, frames, cam)
+    cams = dict(config=cam, distorted=dataclasses.replace(cam, **DISTORTED))
+    F = x["alive"].shape[0]
+    lo, hi = depth_range
+    modes, ok, ulps = {}, True, 0.0
+    for cname, c in cams.items():
+        alive_k, resp_k = tt.kill(x["alive"], x["pts1"], x["mask"], x["resp"])
+        alive_p, resp_p = tt.kill_plain(x["alive"], x["pts1"], x["mask"],
+                                        x["resp"])
+        cand_uv, _, cand_ok = klt.detect_grid_plain(
+            resp_p, x["pts1"], 30, F, alive_p)
+        runs = dict(
+            lift=(lambda c=c: tt.lift_norm(c, x["pts1"]),
+                  lambda c=c: tt.lift_norm_plain(c, x["pts1"])),
+            kill=(lambda: tt.kill(x["alive"], x["pts1"], x["mask"], x["resp"]),
+                  lambda: tt.kill_plain(x["alive"], x["pts1"], x["mask"],
+                                        x["resp"])))
+        for name, prev_t in (("tail", x["prev_t"]), ("tail_static", x["t"])):
+            args = (c, alive_p, x["pts1"], cand_uv, cand_ok, x["prev_norm"],
+                    x["t"], prev_t, x["depth"], x["stride"], lo, hi)
+            runs[name] = (lambda a=args: tt.tail(*a),
+                          lambda a=args: tt.tail_plain(*a))
+        for name, (kern, plain) in runs.items():
+            k, k2, p = kern(), kern(), plain()
+            k, k2, p = ((v,) if isinstance(v, torch.Tensor) else tuple(v)
+                        for v in (k, k2, p))
+            eq = [bool(torch.equal(a, b)) for a, b in zip(k, p)]
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k, k2))
+            gap = max(_ulps(a, b) for a, b in zip(k, p)
+                      if a.dtype == torch.float32)
+            m = dict(equal=eq, repeat_equal=same, max_ulps=gap,
+                     max_abs_err=max(float((a.float() - b.float()).abs().max())
+                                     for a, b in zip(k, p)),
+                     ok=all(eq) and same)
+            if timed and cname == "config" and name != "tail_static":
+                H, W = x["resp"].shape
+                nb = dict(lift=16 * F, kill=12 * H * W + 20 * F,
+                          tail=(4 * 5 + 8 * 3 + 16) * F + 8 + 4 * 4 * F)[name]
+                ops = dict(lift=230 * F, kill=H * W + 20 * F,
+                           tail=260 * F + 3 * F * F)[name]
+                m.update(**bound(nb, ops), ms=time_ms(kern),
+                         plain_ms=time_ms(plain, reps=5), **device_pair(kern))
+            modes[f"{name} ({cname} camera)"] = m
+            ok = ok and m["ok"]
+            ulps = max(ulps, gap)
+    timed_modes = [m for m in modes.values() if "ms" in m]
+    tot = lambda key: sum(m[key] for m in timed_modes) if timed_modes else None
+    res = dict(modes=modes, ok=ok, max_ulps=ulps,
+               max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+               library_ms=None, library_device_ms=None, tol="torch.equal")
+    if timed_modes:
+        b = bound(sum(m["bytes"] for m in timed_modes),
+                  sum(m["flops"] for m in timed_modes))
+        res.update(ms=tot("ms"), plain_ms=tot("plain_ms"),
+                   device_ms=tot("device_ms"),
+                   launches_per_call=tot("launches_per_call"), **b)
+    return res
+
+
+def carry_arrays(seed: int, n0: int, n1: int, W: int = NUM_FRAMES,
+                 M: int = 128, S: int = 16):
+    """Seeded numpy fields of a window carry that kernel AI touches (the
+    interval buffers, flags and times; the GNSS table; the frame states);
+    the last two intervals hold n0 and n1 samples."""
+    rng = np.random.default_rng(seed)
+    f = lambda *sh: rng.normal(size=sh).astype(np.float32)
+    sm = np.zeros((W - 1, M), np.float32)
+    for i in range(W - 1):
+        sm[i, :rng.integers(5, M)] = 1.0
+    sm[-2], sm[-1] = 0.0, 0.0
+    sm[-2, :n0], sm[-1, :n1] = 1.0, 1.0
+    dt = (0.005 + 1e-4 * f(W - 1, M) ** 2) * sm
+    carry = dict(acc=f(W - 1, M + 1, 3), gyr=f(W - 1, M + 1, 3),
+                 wvel=f(W - 1, M + 1, 3), dt=dt, smask=sm,
+                 imu_valid=(rng.uniform(size=W - 1) > 0.3).astype(np.float32),
+                 wheel_valid=(rng.uniform(size=W - 1) > 0.3).astype(np.float32),
+                 times=np.cumsum(np.abs(f(W))).astype(np.float32))
+    gnss = dict(u_enu=f(W, S, 3), r0=f(W, S), d0=f(W, S),
+                sys_onehot=f(W, S, 4), psr_std=f(W, S), dopp_std=f(W, S),
+                valid=f(W, S), frame_dt=f(W - 1))
+    state = dict(p=f(W, 3), q=f(W, 4), v=f(W, 3), ba=f(W, 3), bg=f(W, 3),
+                 gdt=f(W, 4), gddt=f(W))
+    return carry, gnss, state
+
+
+class CarryStandIn(tuple):
+    """The fields of a FusedCarry that kernel AI reads and writes, with its
+    ``_replace``."""
+
+    _fields = ("acc", "gyr", "wvel", "dt", "smask", "imu_valid",
+               "wheel_valid", "times", "gnss", "state", "fw")
+
+    def __new__(cls, **kw):
+        obj = tuple.__new__(cls, [kw.get(f) for f in cls._fields])
+        obj.__dict__.update(kw)
+        return obj
+
+    def _replace(self, **kw):
+        d = {f: getattr(self, f) for f in self._fields}
+        d.update(kw)
+        return CarryStandIn(**d)
+
+
+class _TrackValid(NamedTuple):
+    track_valid: torch.Tensor
+
+
+def carry_from_arrays(carry, gnss, state, device, F: int = 8):
+    """:func:`carry_arrays`' fields as a :class:`CarryStandIn` on
+    ``device`` (a window of F tracks, every third off)."""
+    from .gnss.factors import GnssTable
+    t = lambda a: torch.as_tensor(np.asarray(a), device=device)
+    z = lambda *sh: torch.zeros(sh, device=device)
+    ws = WindowState(**{k: t(v) for k, v in state.items()}, tic=z(3),
+                     qic=z(4), td=z(), tio=z(3), qio=z(4), six=z(), siy=z(),
+                     siw=z(), tic2=z(3), qic2=z(4), gyaw=z(), ganchor=z(3),
+                     rho=z(F))
+    fw = _TrackValid(t((np.arange(F) % 3 > 0).astype(np.float32)))
+    return CarryStandIn(**{k: t(v) for k, v in carry.items()},
+                        gnss=GnssTable(**{k: t(v) for k, v in gnss.items()}),
+                        state=ws, fw=fw)
+
+
+def carry_frame_inputs(device, frame, col: int, full: bool, gnss_row=None):
+    """A tick's unpacked inputs on ``device``, packed as ``FusedVio._tick``
+    packs them (no image: the tracker is not run)."""
+    from .vio import fused as fu
+    buf = fu.pack_frame(np.zeros((0, 0), np.uint8),
+                        np.zeros((0, 0), np.float16),
+                        *fu.FusedVio.pad_imu(frame["imu"], frame.get("wheel")),
+                        frame["t"], col, full, gnss_row=gnss_row,
+                        gnss_on=0.0)
+    return fu.unpack_frame(torch.from_numpy(buf).to(device), 0, 0, 0, 0)
+
+
+def _overflowing(c, n0: int = 100, n1: int = 60):
+    """The carry with its last two intervals holding n0 and n1 samples
+    (n0 + n1 past M: the merge drops the oldest)."""
+    sm, dt = c.smask.clone(), c.dt.clone()
+    M = sm.shape[1]
+    for row, n in ((-2, n0), (-1, n1)):
+        sm[row] = (torch.arange(M, device=sm.device) < n).to(sm.dtype)
+        dt[row] = sm[row] * (0.005 + 1e-4 * torch.arange(M, device=sm.device))
+    acc = c.acc + torch.arange(c.acc.numel(), device=sm.device).reshape(
+        c.acc.shape) * 1e-3
+    return c._replace(smask=sm, dt=dt, acc=acc)
+
+
+def check_window_carry(device, fv, frame, timed: bool = True) -> dict:
+    """Kernel AI against the plain route on ``fv``'s carry (a live fused
+    window) and ``frame``'s IMU chunk: the write at the last column and at
+    a middle one, the slide in each branch (none, MARGIN_OLD, MARGIN_SECOND
+    _NEW) and MARGIN_SECOND_NEW past M samples; every carry field and the
+    record ``torch.equal``."""
+    from .vio import window_carry as wc
+    c = fv.carry
+    W = fv.layout.W
+    use_wheel = bool(fv.cfg.use_wheel)
+    dev = c.acc.device
+    b = lambda v: torch.tensor(v, device=dev)
+    rec_args = dict(cost=torch.tensor(3.25, device=dev), stationary=b(False),
+                    anomaly=b(True), alive=c.tracker.alive,
+                    par=torch.tensor(17.5, device=dev))
+
+    def fields(cc):
+        return ([cc.acc, cc.gyr, cc.wvel, cc.dt, cc.smask, cc.imu_valid,
+                 cc.wheel_valid, cc.times] + list(cc.gnss)
+                + [getattr(cc.state, f) for f in wc.STATE])
+    cases = {}
+    for col in (W - 1, W // 2):
+        inp = carry_frame_inputs(dev, frame, col, col == W - 1)
+        cases[f"write col {col}"] = (
+            lambda inp=inp: (wc.write(c, inp, use_wheel), None),
+            lambda inp=inp: (wc.write_plain(c, inp, use_wheel), None))
+    for name, cc, full, kf in (("slide none", c, False, False),
+                               ("slide MARGIN_OLD", c, True, True),
+                               ("slide MARGIN_SECOND_NEW", c, True, False),
+                               ("slide MARGIN_SECOND_NEW past M",
+                                _overflowing(c), True, False)):
+        inp = carry_frame_inputs(dev, frame, W - 1 if full else W // 2, full)
+        cases[name] = (
+            lambda cc=cc, inp=inp, kf=kf: wc.slide(cc, inp, b(kf), **rec_args),
+            lambda cc=cc, inp=inp, kf=kf: wc.slide_plain(cc, inp, b(kf),
+                                                         **rec_args))
+    out, ok, err = {}, True, 0.0
+    for name, (kern, plain) in cases.items():
+        (ck, rk), (ck2, rk2), (cp, rp) = kern(), kern(), plain()
+        fk, fp = fields(ck), fields(cp)
+        eq = [bool(torch.equal(a, b_)) for a, b_ in zip(fk, fp)]
+        if rk is not None:
+            eq.append(bool(torch.equal(rk, rp)))
+        same = all(bool(torch.equal(a, b_)) for a, b_ in
+                   zip(fk, fields(ck2)))
+        e = max(float((a - b_).abs().max()) for a, b_ in zip(fk, fp))
+        out[name] = dict(equal=all(eq), n_fields=len(eq),
+                         unequal=[i for i, v in enumerate(eq) if not v],
+                         repeat_equal=same, max_abs_err=e)
+        ok = ok and all(eq) and same
+        err = max(err, e)
+    res = dict(cases=out, ok=ok, max_abs_err=err, library_ms=None,
+               library_device_ms=None, tol="torch.equal")
+    if timed:
+        inp = carry_frame_inputs(dev, frame, W - 1, True)
+        kf = b(False)
+        write = lambda: wc.write(c, inp, use_wheel)
+        slide = lambda: wc.slide(c, inp, kf, **rec_args)
+        nb = 2 * _nbytes(*fields(c))
+        # a tick: one write and one slide; each reads and writes the carry
+        res.update(**bound(2 * nb, 0), ms=time_ms(write) + time_ms(slide),
+                   plain_ms=time_ms(lambda: wc.write_plain(c, inp, use_wheel),
+                                    reps=5)
+                   + time_ms(lambda: wc.slide_plain(c, inp, kf, **rec_args),
+                             reps=5))
+        dw, ds = device_pair(write), device_pair(slide)
+        res.update(device_ms=dw["device_ms"] + ds["device_ms"],
+                   launches_per_call=dw["launches_per_call"]
+                   + ds["launches_per_call"])
+    return res
+
+
+MARG_KERNELS = ("marg_gather_kernel", "marg_factors_kernel",
+                "marg_scale_kernel", "marg_schur_kernel", "marg_prior_kernel")
+
+
+def check_marg_schur(device, fv, timed: bool = True) -> dict:
+    """Kernel AJ against the plain route on ``fv``'s window (a live fused
+    carry): MARGIN_OLD's elimination at the solved state and MARGIN_SECOND
+    _NEW's of its prior, each with the layout's index tables, both routes on
+    kernel X: the prior (sqrt_J, r0, valid) ``torch.equal``. Timed: the
+    whole marginalization by either route, and AJ's five launches alone
+    (their device ms in the kernel route's trace)."""
+    from .solver import marginalize as mg
+    from .vio import problem
+    x, layout, cfg = fv.carry.state, fv.layout, fv.cfg.vio
+    meas = carry_measurements(fv)
+    H, g, fixed = problem._marg_old_inputs(x, meas, layout, cfg)
+    old_plan = problem.marg_old_plan(layout, H.device)
+    prior = mg.marginalize_plan(H, g, old_plan, fixed=fixed)
+    H2, g2, _, _ = problem.marg_second_system(prior, layout)
+    systems = dict(
+        margin_old=(H, g, old_plan, fixed),
+        margin_second_new=(H2, g2, problem.marg_second_plan(layout, H.device),
+                           None))
+    out, ok, err = {}, True, 0.0
+    for name, (Hs, gs, plan, fx) in systems.items():
+        kern = lambda: mg.marginalize_plan(Hs, gs, plan, fixed=fx)
+        plain = lambda: mg.marginalize_plan_plain(Hs, gs, plan, fixed=fx)
+        pk, pk2, pp = kern(), kern(), plain()
+        eq = _equal_fields(pk, pp)
+        same = all(_equal_fields(pk, pk2).values())
+        e = float((pk.sqrt_J - pp.sqrt_J).abs().max())
+        m = dict(equal=eq, repeat_equal=same, max_abs_err=e,
+                 max_ulps=max(_ulps(pk.sqrt_J, pp.sqrt_J), _ulps(pk.r0, pp.r0)),
+                 dims=(plan.k, plan.perm.shape[0] - plan.k),
+                 ok=all(eq.values()) and same)
+        if timed:
+            k, n = plan.k, plan.perm.shape[0]
+            d, nd = n - k, plan.new_dim
+            # each mode's inputs read once and outputs written once: the
+            # gather, the factors, the scale, the Schur step, the prior
+            D = Hs.shape[0]
+            nb = (4 * n * n + 12 * n + 4 * D + 8 * (n * n + d * d + n + d)
+                  + 8 * (2 * d + 2 * d * d) + 8 * (2 * d * d + d)
+                  + 8 * (3 * k * k + 4 * k)
+                  + 8 * (k * k + 3 * k) + 4 * (2 * nd + nd * nd + 1))
+            t = device_ms(kern)
+            m.update(**bound(nb, 12 * (n * n + d * d + k * k)),
+                     ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                     device_ms=sum(v for kk, v in t.kernels.items()
+                                   if any(a in kk for a in MARG_KERNELS)),
+                     route_device_ms=t.ms, route_launches=t.launches,
+                     launches_per_call=sum(
+                         1 for kk in t.kernels if any(a in kk for a in
+                                                      MARG_KERNELS)))
+        out[name] = m
+        ok = ok and m["ok"]
+        err = max(err, e)
+    res = dict(systems=out, ok=ok, max_abs_err=err, library_ms=None,
+               library_device_ms=None, tol="torch.equal")
+    if timed:
+        o = out["margin_old"]
+        res.update({k: o[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "device_ms",
+                                      "launches_per_call")})
+    return res

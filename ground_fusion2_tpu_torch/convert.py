@@ -205,14 +205,13 @@ def mesher_from_jax(jmesher, device):
 
 def fused_vio_from_jax(jv, fv):
     """Put the JAX ``FusedVio`` ``jv``'s live state into the port's ``fv``
-    (built with the same configuration): the carry with its interval
-    counts, frame and tick counts and held-back record; the last read-back
+    (built with the same configuration): the carry, the frame and tick
+    counts and the held-back record; the last read-back
     pose; the GNSS host state (alignment, anchor, refine count, both
     quality filters' track counts, the yaw pairs, the anchor refresh
     point, the tick count); the dynamic mask's previous lo-res frame."""
     dev = fv.device
     fv.carry = to_torch(_tree_numpy(jv.carry), dev)
-    fv.counts = [int(n) for n in np.asarray(jv.carry.smask).sum(1)]
     fv.frame_count = jv.frame_count
     fv.fused_ticks = jv.dispatch_count
     fv._inflight = None

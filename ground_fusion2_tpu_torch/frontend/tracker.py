@@ -14,27 +14,13 @@ from ..vio.feature_window import FrameObs
 from . import klt
 from .clahe import clahe
 from .ransac import gumbel_noise, ransac_f_reject
+from .track_tail import lift_norm_plain, refill  # noqa: F401 (re-export)
 
 RANSAC_HYPOTHESES = 64
 
 
-def refill(alive, pts1, cand_uv, cand_ok):
-    """Fill dead slots (in stable argsort order of ``alive``) with the
-    ranked candidates; returns (uv, fresh)."""
-    F = alive.shape[0]
-    free_order = torch.argsort(alive, stable=True)      # dead slots first
-    n_free = (alive <= 0).sum()
-    take = (torch.arange(F, device=alive.device) < n_free) & (cand_ok > 0)
-    uv = pts1.clone()
-    uv[free_order] = torch.where(take[:, None], cand_uv, pts1[free_order])
-    fresh = torch.zeros_like(alive)
-    fresh[free_order] = take.to(alive.dtype)
-    return uv, fresh
-
-
 def normalized(cam: Pinhole, uv: torch.Tensor) -> torch.Tensor:
-    ray = cam.lift(uv)
-    return ray[:, :2] / torch.clamp(ray[:, 2:3], min=1e-6)
+    return lift_norm_plain(cam, uv)
 
 
 class FeatureTracker:

@@ -26,6 +26,7 @@ from . import ct_icp as ci
 from . import eskf as ekf
 from . import fused as fu
 from . import voxel_map as vm
+from ..utils.profiling import stage
 
 
 class LioOutput(NamedTuple):
@@ -124,11 +125,12 @@ class LidarOdometry:
             ext_p = np.zeros(3, np.float32)
             ext_q = np.array([1, 0, 0, 0], np.float32)
             ext_valid = 0.0
-        buf = fu.pack_scan(pts_body, alpha, mask, acc, gyr, dts, ext_p, ext_q,
-                           ext_valid, self.cfg.scan_buffer)
-        buf = torch.from_numpy(buf).to(self.device, non_blocking=True)
-        self._carry, rec, p_w, m_w = fu.lidar_tick(
-            self._statics, self.cfg.scan_buffer, self._carry, buf)
+        with stage("lidar_tick"):
+            buf = fu.pack_scan(pts_body, alpha, mask, acc, gyr, dts, ext_p,
+                               ext_q, ext_valid, self.cfg.scan_buffer)
+            buf = torch.from_numpy(buf).to(self.device, non_blocking=True)
+            self._carry, rec, p_w, m_w = fu.lidar_tick(
+                self._statics, self.cfg.scan_buffer, self._carry, buf)
         self.dispatch_count += 1
         self.frame_idx += 1
         self.last_cloud = (p_w, m_w)

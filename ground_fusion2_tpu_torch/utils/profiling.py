@@ -74,3 +74,16 @@ class Timer:
 
 
 GLOBAL_TIMER = Timer()
+
+
+STAGE_PREFIX = "gf2::"
+
+
+def stage(name: str):
+    """A torch.profiler range ``gf2::<name>`` around a stretch of a tick,
+    named after the JAX function it ports (``_tracker_step``,
+    ``solve_window``, ``lidar_tick``, ...). A trace attributes each CUDA
+    activity to the innermost range open when it was launched
+    (``chip_smoke.py``'s split by range); with no profiler running a range
+    costs about a microsecond of host time."""
+    return torch.profiler.record_function(STAGE_PREFIX + name)

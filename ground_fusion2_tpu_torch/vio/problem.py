@@ -22,7 +22,9 @@ from ..gnss.factors import GnssTable
 from ..sensors.imu_preint import ImuPreint
 from ..sensors.wheel_preint import WheelPreint
 from ..solver.gauss_newton import lm_solve
-from ..solver.marginalize import MargPrior, marginalize, shift_prior
+from ..solver.marginalize import (MargPlan, MargPrior, marg_plan,
+                                  marginalize_plan)
+from ..utils.profiling import stage
 from .state import WindowLayout, WindowState
 
 
@@ -112,8 +114,8 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
     if cfg.use_gnss:
         anchored = anchored | (torch.as_tensor(meas.gnss_enabled,
                                                device=dev) > 0)
-    pose0 = torch.zeros_like(free)
-    pose0[layout.pose_off:layout.pose_off + 6] = 1.0
+    pose0 = layout.cached(("pose0", free.dtype), dev, lambda d: torch.arange(
+        layout.dim, device=d).lt(layout.pose_off + 6).to(free.dtype))
     free = torch.where(anchored, free, free * (1.0 - pose0))
 
     out = lm_solve(
@@ -124,37 +126,90 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
                        out.H, out.g)
 
 
-def marg_old_system(x: WindowState, meas: VioMeasurements,
-                    layout: WindowLayout, cfg: VioConfig):
-    """(H, g, keep, drop) that MARGIN_OLD eliminates: the factors touching
-    frame 0 relinearized at the solved state. As in the JAX package, only
-    the features, IMU and wheel rows are masked to frame 0: every frame's
-    plane, GNSS and motion rows enter."""
+def _marg_old_inputs(x: WindowState, meas: VioMeasurements,
+                     layout: WindowLayout, cfg: VioConfig):
+    """(H, g, fixed) of MARGIN_OLD: the factors touching frame 0
+    relinearized at the solved state, and the mask of its fixed dims."""
     dev, dtype = x.p.device, x.p.dtype
     f = meas.feats
     feats0 = f._replace(track_valid=f.track_valid * (f.anchor == 0).to(dtype))
-    first = torch.zeros((layout.W - 1,), dtype=dtype, device=dev)
-    first[0] = 1.0
+    first = layout.cached(("first_interval", dtype), dev, lambda d: torch.eye(
+        1, layout.W - 1, dtype=dtype, device=d)[0])
     meas0 = meas._replace(feats=feats0, imu_valid=meas.imu_valid * first,
                           wheel_valid=meas.wheel_valid * first)
     H, g, _ = window_normal_equations(
         x, meas0, layout, cfg, torch.zeros((layout.dim,), dtype=dtype,
                                            device=dev))
     fixed = _fixed_dims(layout, cfg, dev, fix_yaw=True, fix_anchor=True)
-    H = H * fixed[:, None] * fixed[None, :]
-    g = g * fixed
+    return H, g, fixed
+
+
+def _marg_old_indices(layout: WindowLayout):
     drop = np.concatenate([layout.frame0_drop_indices(),
                            np.arange(layout.rho_off, layout.rho_off + layout.F)])
-    return H, g, layout.frame_keep_indices(), drop
+    return layout.frame_keep_indices(), drop
+
+
+def marg_old_system(x: WindowState, meas: VioMeasurements,
+                    layout: WindowLayout, cfg: VioConfig):
+    """(H, g, keep, drop) that MARGIN_OLD eliminates: the factors touching
+    frame 0 relinearized at the solved state. As in the JAX package, only
+    the features, IMU and wheel rows are masked to frame 0: every frame's
+    plane, GNSS and motion rows enter."""
+    H, g, fixed = _marg_old_inputs(x, meas, layout, cfg)
+    return (H * fixed[:, None] * fixed[None, :], g * fixed,
+            *_marg_old_indices(layout))
 
 
 def marginalize_oldest(x: WindowState, meas: VioMeasurements,
                        layout: WindowLayout, cfg: VioConfig) -> MargPrior:
     """MARGIN_OLD: eliminate frame 0 and the landmarks
-    (:func:`marg_old_system`), shift into the next layout."""
-    prior = marginalize(*marg_old_system(x, meas, layout, cfg))
-    return shift_prior(prior, layout.shift_map_after_marg_old(),
-                       layout.frame_dim)
+    (:func:`marg_old_system`), shift into the next layout (kernel AJ
+    around kernel X, the index tables built once per layout)."""
+    with stage("marginalize"):
+        H, g, fixed = _marg_old_inputs(x, meas, layout, cfg)
+        return marginalize_plan(H, g, marg_old_plan(layout, H.device),
+                                fixed=fixed)
+
+
+def marg_old_plan(layout: WindowLayout, device) -> MargPlan:
+    """MARGIN_OLD's device index tables (built once per layout)."""
+    return layout.cached("marg_old", device, lambda dev: marg_plan(
+        *_marg_old_indices(layout), dev, layout.shift_map_after_marg_old(),
+        layout.frame_dim))
+
+
+def marg_second_plan(layout: WindowLayout, device) -> MargPlan:
+    """MARGIN_SECOND_NEW's device index tables (built once per layout)."""
+    return layout.cached("marg_second", device, lambda dev: marg_plan(
+        *_marg_second_indices(layout), dev, _marg_second_shift(layout),
+        layout.frame_dim))
+
+
+def _marg_second_indices(layout: WindowLayout):
+    sec = layout.W - 2
+    drop = np.concatenate([
+        np.arange(layout.pose_off + sec * 6, layout.pose_off + (sec + 1) * 6),
+        np.arange(layout.sb_off + sec * 9, layout.sb_off + (sec + 1) * 9),
+        np.arange(layout.gdt_off + sec * 4, layout.gdt_off + (sec + 1) * 4),
+        np.arange(layout.gddt_off + sec, layout.gddt_off + sec + 1)])
+    keep = np.setdiff1d(np.arange(layout.frame_dim), drop)
+    return keep, drop
+
+
+def _marg_second_shift(layout: WindowLayout) -> np.ndarray:
+    W_, sec = layout.W, layout.W - 2
+
+    def frame_block(off, width):
+        return [np.arange(off + (k if k < sec else k - 1) * width,
+                          off + (k if k < sec else k - 1) * width + width)
+                for k in range(W_) if k != sec]
+
+    return np.concatenate(
+        frame_block(layout.pose_off, 6) + frame_block(layout.sb_off, 9)
+        + [np.arange(layout.cam_off, layout.gdt_off)]
+        + frame_block(layout.gdt_off, 4) + frame_block(layout.gddt_off, 1)
+        + [np.arange(layout.gyaw_off, layout.frame_dim)])
 
 
 def marg_second_system(prior: MargPrior, layout: WindowLayout):
@@ -164,31 +219,13 @@ def marg_second_system(prior: MargPrior, layout: WindowLayout):
     Jw = prior.sqrt_J * prior.valid
     H = Jw.T @ Jw
     g = Jw.T @ (prior.r0 * prior.valid)
-    sec = layout.W - 2
-    drop = np.concatenate([
-        np.arange(layout.pose_off + sec * 6, layout.pose_off + (sec + 1) * 6),
-        np.arange(layout.sb_off + sec * 9, layout.sb_off + (sec + 1) * 9),
-        np.arange(layout.gdt_off + sec * 4, layout.gdt_off + (sec + 1) * 4),
-        np.arange(layout.gddt_off + sec, layout.gddt_off + sec + 1)])
-    keep = np.setdiff1d(np.arange(layout.frame_dim), drop)
-    return H, g, keep, drop
+    return (H, g, *_marg_second_indices(layout))
 
 
 def marginalize_second_newest(prior: MargPrior,
                               layout: WindowLayout) -> MargPrior:
     """MARGIN_SECOND_NEW: drop frame W-2's dims from the existing prior
     (:func:`marg_second_system`), shift into the next layout."""
-    out_prior = marginalize(*marg_second_system(prior, layout))
-    W_, sec = layout.W, layout.W - 2
-
-    def frame_block(off, width):
-        return [np.arange(off + (k if k < sec else k - 1) * width,
-                          off + (k if k < sec else k - 1) * width + width)
-                for k in range(W_) if k != sec]
-
-    old_to_new = np.concatenate(
-        frame_block(layout.pose_off, 6) + frame_block(layout.sb_off, 9)
-        + [np.arange(layout.cam_off, layout.gdt_off)]
-        + frame_block(layout.gdt_off, 4) + frame_block(layout.gddt_off, 1)
-        + [np.arange(layout.gyaw_off, layout.frame_dim)])
-    return shift_prior(out_prior, old_to_new, layout.frame_dim)
+    with stage("marginalize"):
+        H, g, _, _ = marg_second_system(prior, layout)
+        return marginalize_plan(H, g, marg_second_plan(layout, H.device))

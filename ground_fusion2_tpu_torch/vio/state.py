@@ -83,6 +83,16 @@ class WindowLayout:
         self.frame_dim = o
         self.rho_off = o; o += num_feats
         self.dim = o
+        self._cache: dict = {}
+
+    def cached(self, key, device, build):
+        """A device constant of this layout (index tables, fixed masks),
+        ``build(device)`` once per key and device."""
+        device = torch.device(device)
+        k = (key, str(device))
+        if k not in self._cache:
+            self._cache[k] = build(device)
+        return self._cache[k]
 
     def retract(self, x: WindowState, delta: torch.Tensor) -> WindowState:
         W = self.W
@@ -161,7 +171,30 @@ class WindowLayout:
                   wheel_extrinsic_type=3, landmark_mask=None, frame_mask=None,
                   use_gnss=False, fix_yaw=True, fix_anchor=True,
                   extrinsic_type=0, fix_cam2=True) -> torch.Tensor:
-        """[D] {0,1} mask of optimizable dims (see the JAX docstring)."""
+        """[D] {0,1} mask of optimizable dims (see the JAX docstring); the
+        fixed part is built once per flags and device, the frame and
+        landmark masks applied on the device."""
+        flags = (fix_extrinsic, fix_td, fix_wheel_intrinsic,
+                 fix_wheel_extrinsic, wheel_extrinsic_type, use_gnss, fix_yaw,
+                 fix_anchor, extrinsic_type, fix_cam2)
+        mask = self.cached(("free_mask", flags), device,
+                           lambda dev: torch.as_tensor(self._fixed_part(*flags),
+                                                       device=dev))
+        if frame_mask is None and landmark_mask is None:
+            return mask
+        mask = mask.clone()
+        if frame_mask is not None:
+            W = self.W
+            fm = frame_mask.to(mask.dtype)
+            mask[self.pose_off:self.pose_off + W * 6] *= fm.repeat_interleave(6)
+            mask[self.sb_off:self.sb_off + W * 9] *= fm.repeat_interleave(9)
+        if landmark_mask is not None:
+            mask[self.rho_off:self.rho_off + self.F] = landmark_mask.to(mask.dtype)
+        return mask
+
+    def _fixed_part(self, fix_extrinsic, fix_td, fix_wheel_intrinsic,
+                    fix_wheel_extrinsic, wheel_extrinsic_type, use_gnss,
+                    fix_yaw, fix_anchor, extrinsic_type, fix_cam2):
         m = np.ones((self.dim,), np.float32)
         if fix_extrinsic:
             m[self.cam_off:self.cam_off + 6] = 0
@@ -196,15 +229,7 @@ class WindowLayout:
                 m[self.gyaw_off] = 0
             if fix_anchor:
                 m[self.ganchor_off:self.ganchor_off + 3] = 0
-        mask = torch.as_tensor(m, device=device)
-        if frame_mask is not None:
-            W = self.W
-            fm = frame_mask.to(mask.dtype)
-            mask[self.pose_off:self.pose_off + W * 6] *= fm.repeat_interleave(6)
-            mask[self.sb_off:self.sb_off + W * 9] *= fm.repeat_interleave(9)
-        if landmark_mask is not None:
-            mask[self.rho_off:self.rho_off + self.F] = landmark_mask.to(mask.dtype)
-        return mask
+        return m
 
 
 def shift_state_left(x: WindowState) -> WindowState:

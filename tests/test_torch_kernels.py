@@ -20,7 +20,10 @@ window's call, each one launch a call; D in its search, cached and flag
 modes (equal to each other, following handed-in ranges, at 1 and 4,096
 queries, on voxel runs past gather_k and on an empty map) and E at 1 to
 8,192 rows, with every weight 0, after a call of another size and on two
-streams, each one launch a call.
+streams, each one launch a call; the camera tick's glue AH (the tracker's
+tail), AI (the carry's writes and slides) and AJ (the marginalization
+around X) bit for bit, with their launches a fused tick; the mesh and the
+grid on the card equal to their plain routes on the same sweeps.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -1346,6 +1349,24 @@ def test_chol_solve_explicit_diagonal_at_both_modes(dev, n):
 
 def _launch(name, dev):
     from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
+    if name == "track_tail":
+        from ground_fusion2_tpu_torch.core.cameras import Pinhole
+        from ground_fusion2_tpu_torch.frontend import track_tail
+        return track_tail.lift_norm(Pinhole.create(80.0, 80.0, 64.0, 48.0),
+                                    torch.ones((8, 2), device=dev))
+    if name == "window_carry":
+        from ground_fusion2_tpu_torch.vio import window_carry
+        c = checks.carry_from_arrays(*checks.carry_arrays(0, 30, 40), dev)
+        f = dict(t=1.0, imu=(torch.zeros(3, 3).numpy(),
+                             torch.zeros(3, 3).numpy(),
+                             torch.full((2,), 0.005).numpy()))
+        return window_carry.write(c, checks.carry_frame_inputs(dev, f, 5,
+                                                               False), True)
+    if name == "marg_schur":
+        from ground_fusion2_tpu_torch.solver.marginalize import marginalize
+        import numpy as np
+        return marginalize(torch.eye(8, device=dev), torch.ones(8, device=dev),
+                           np.arange(5), np.arange(5, 8))
     if name == "chol_solve":
         from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
         one = torch.ones(8, device=dev)
@@ -1522,6 +1543,91 @@ def _launch(name, dev):
                                    m3dgr_lio().icp_cfg)
 
 
+def test_track_tail_kernel_matches_plain(dev, camera):
+    """AH's lift, kill and tail modes bit for bit, at the configuration's
+    and a distorted camera, the tail also with t = prev_t."""
+    _, fv, fs, _ = camera
+    r = checks.check_track_tail(dev, fs[12:14], fv.cam, fv.tcfg.depth_range,
+                                timed=False)
+    assert r["ok"], r
+
+
+def test_window_carry_kernel_matches_plain(dev, camera):
+    """AI's write at two columns and its slide in every branch, past M
+    samples too, bit for bit."""
+    _, fv, fs, _ = camera
+    r = checks.check_window_carry(dev, fv, fs[-1], timed=False)
+    assert r["ok"], r
+
+
+def test_marg_schur_kernel_matches_plain(dev, camera):
+    """AJ around X: both marginalizations' priors bit for bit."""
+    _, fv, _, _ = camera
+    r = checks.check_marg_schur(dev, fv, timed=False)
+    assert r["ok"], r
+
+
+def test_glue_kernels_launch_a_tick(dev, camera):
+    """A fused tick with the window full: AH twice (lift, tail), AI twice
+    (write, slide), AJ five times (one marginalization)."""
+    import copy
+    _, fv, fs, _ = camera
+    fv2 = copy.copy(fv)
+    f = fs[-1]
+    _kernels.launches.clear()
+    fv2.process_image(f["t"] + 0.1, f["gray"], f["depth"], f["imu"],
+                      wheel_vel=f["wheel"])
+    got = {k: _kernels.launches[k] for k in ("track_tail", "window_carry",
+                                              "marg_schur")}
+    full = fv.frame_count >= checks.NUM_FRAMES
+    assert got == dict(track_tail=2, window_carry=2,
+                       marg_schur=5 if full else 0), got
+
+
+def test_mesh_and_grid_on_the_card_equal_the_plain_route(dev):
+    """Fault 2's bound: fed the same sweeps (the system drive's clouds at
+    their true poses, each textured by its frame at the true camera pose),
+    the card's mesh (AA, AB, AC) and occupancy grid (Z) give the plain
+    route's figures exactly: vertices, meshed voxels, triangles, textured
+    vertices, occupied and free cells. Fed the JAX package's own inputs on
+    phases 13 and 14's drive, both give JAX's textured share and grid
+    exactly and its triangles once JAX's eigenvectors take the port's sign
+    convention (tests/torch_mesh_chain.py); the card alone parts from JAX
+    only through its inputs (ROADMAP.md, known sources of divergence)."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.data import synthetic as sim
+    from ground_fusion2_tpu_torch.mapping.occupancy import (GridConfig,
+                                                            OccupancyGrid)
+    from ground_fusion2_tpu_torch.mesh import incremental as mi
+    intr = (160.0, 160.0, 80.0, 60.0)
+    frames = checks.system_drive(6, W=160, H=120, intrinsics=intr,
+                                 n_rays=1024)
+    cfg = mi.MeshConfig(capacity=1 << 14, insert_chunk=1024, cand=16)
+
+    def run(device):
+        mesher = mi.OnlineMesher(cfg, intrinsics=intr, device=device)
+        grid = OccupancyGrid(GridConfig(), device)
+        for f in frames:
+            R = np.asarray(sim._quat_to_mat(f["q_gt"]))
+            pw = (f["pts"] @ R.T + f["p_gt"]).astype(np.float32)
+            m = f["valid"].astype(np.float32)
+            img = np.repeat(f["gray"].astype(np.float32)[:, :, None], 3, 2)
+            mesher.add_frame(pw, m, image=img,
+                             r_wc=(R @ checks.RIG_RIC).astype(np.float32),
+                             t_wc=f["p_cam"].astype(np.float32))
+            grid.update(f["p_gt"][:2], pw, m > 0.5)
+        st = mesher.stats()
+        code = mesher.mesh.code.cpu().numpy()
+        textured = int((mesher.mesh.w.cpu().numpy()[code != mi.INVALID]
+                        > 0).sum())
+        p = grid.prob()
+        return dict(st, textured=textured, occupied=int((p > 0.65).sum()),
+                    free=int((p < 0.2).sum()))
+    card, plain = run(dev), run("cpu")
+    assert card["triangles"] > 0 and card["textured"] > 0, card
+    assert card == plain
+
+
 @pytest.mark.parametrize("name", ["clahe", "lio_assoc", "ct_icp_normal",
                                   "radix_sort", "eskf_predict", "preint",
                                   "pyramid", "shi_tomasi", "detect_grid",
@@ -1534,7 +1640,8 @@ def _launch(name, dev):
                                   "sqrt_info", "spd_inverse", "icp_solve",
                                   "degeneracy", "occupancy", "mesh_insert",
                                   "mesh_rgb", "mesh_delaunay", "line_detect",
-                                  "line_refit", "dist_schur", "map_schur"])
+                                  "line_refit", "dist_schur", "map_schur",
+                                  "track_tail", "window_carry", "marg_schur"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(
