@@ -41,11 +41,15 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
      iterations) over 60 scans of the bench_lio room drive (4096 rays,
      5 mm noise, seed 0, 20 IMU samples a scan), the sensor 1 m above the
-     floor. It must initialize, run ≥ 50 fused ticks, launch D-G during
-     them, stay finite, flag no scan degenerate after the second, sync the
-     host once a tick (the record read), and keep the position error after
-     aligning the first output < 0.06 m. Then kernel Y against its plain
-     versions: the ESKF's 6×6 innovation inverse, CT-ICP's damped 12×12
+     floor. It must initialize, run ≥ 50 fused ticks, launch D-G and the
+     glue kernels AK (CT-ICP's step, points and weights), AL (the keypoint
+     and voxel-map glue around F) and AM (the ESKF's observations, the
+     select, the switch and the record) during them, stay finite, flag no
+     scan degenerate after the second, sync the host once a tick (the
+     record read), and keep the position error after aligning the first
+     output < 0.06 m. Then kernel Y against its plain versions: the ESKF's
+     6×6 innovation inverse (the plain route's; AM runs the same device
+     code), CT-ICP's damped 12×12
      solve and degeneracy test on the next scan's inputs, the square-root
      informations of phase 4's final window (each against float64 within
      max(1e-5, 3× the plain route's error), the flags equal unless within
@@ -53,6 +57,16 @@ Phases (any failure exits nonzero; no phase catches and carries on):
   6. LiDAR kernels: D-G against their plain versions on the map the drive
      filled, at K = 2000 and M = 48 (F also through an insert, an insert
      that overflows capacity and a recenter, bit-exact against the CPU);
+     AK's points (keypoints, the scan), weights and step (from done = 0,
+     frozen, at the midpoint with and without a re-gather), AL's every
+     mode (kp_codes, kp_first, kp_take, ins_key, permute, dedup, drop,
+     compact, rc_key, ev_key; and an insert, an overflowing insert, a
+     recenter and an eviction on the card against the CPU) and AM through a
+     scripted sequence of (degenerate, external pose) inputs that takes
+     the switch through all four branches (entering with and without an
+     external pose, staying, exiting) and the filter through its three
+     observe selects, the recenter predicate both ways: every output
+     torch.equal to the plain route's, twice the same bits;
   7. camera kernels H-K against their plain versions: H on the final
      camera carry's 10 intervals, I on frame 12, J and K on the KLT tracks
      of frames 12 -> 13 (K's device ms, launches and Jacobi sweeps a
@@ -76,8 +90,10 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      split the same by profiler range (utils/profiling.py stage: each
      stretch of the tick named after the JAX function it ports, every CUDA
      activity given to the innermost range open at its launch), with the
-     synchronizing calls a tick by call site; the torch.linalg class must
-     be empty;
+     synchronizing calls a tick by call site, and the LiDAR tick's own
+     ranges (select_keypoints, ct_icp, observe_switch, record, map_update)
+     with AK's, AL's and AM's launches and device ms a tick; the
+     torch.linalg class must be empty;
   8b. the tick's glue kernels on the card against their plain routes:
      AH (frontend/track_tail.py: lift, kill, tail) on phase 4's frames 12
      → 13 with a dynamic-mask box, at the configuration's camera and a
@@ -224,7 +240,8 @@ codes, subcells and squared distances at 135,168 keys, the recenter's
 131,072, a mesh-sized 69,632, the keypoints' hash codes and flags); phase
 14 F's on the mesh's own 69,632 codes.
 The last two lines are the kernels JSON (launches from phase 8's run for
-A-L, S-Y and AH-AJ, phase 9's for M-O and O's cost mode, phase 10's for P, Q and
+A-L, S-Y and AH-AM (Y's inverse entry serves the plain route alone: its
+device code runs inside AM), phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
 phase 15's for AD and AE, phase 16's for AF and AG) and the result JSON.
 
@@ -308,7 +325,8 @@ DYN_FRAMES = 40
 LOOP_KEYFRAMES = 60
 LOOP_MAX_RATIO = 0.6   # published / raw endpoint error (test_system_loop.py)
 LIDAR_KERNELS = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict",
-                 "icp_solve", "degeneracy", "spd_inverse")
+                 "icp_solve", "degeneracy", "ct_glue", "voxel_glue",
+                 "lio_update")
 # save_grid_map -> load: one PGM grey level (the writer truncates) and the
 # float32 rounding of the logit and sigmoid around it
 OCC_MAX_DIFF = 1.0 / 255.0 + 1e-6
@@ -358,7 +376,6 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "sym_eig": ("sym_eig.cu", "ground_fusion2_tpu/solver/marginalize.py:88"),
     "sqrt_info": ("small_linalg.cu",
                   "ground_fusion2_tpu/factors/vio_factors.py:115"),
-    "spd_inverse": ("small_linalg.cu", "ground_fusion2_tpu/lio/eskf.py:178"),
     "icp_solve": ("small_linalg.cu", "ground_fusion2_tpu/lio/ct_icp.py:143"),
     "degeneracy": ("small_linalg.cu", "ground_fusion2_tpu/lio/ct_icp.py:180"),
     "occupancy": ("occupancy.cu", "ground_fusion2_tpu/mapping/occupancy.py:51"),
@@ -371,6 +388,9 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "window_carry": ("window_carry.cu", "ground_fusion2_tpu/vio/fused.py:297"),
     "marg_schur": ("marg_schur.cu",
                    "ground_fusion2_tpu/solver/marginalize.py:57"),
+    "ct_glue": ("ct_glue.cu", "ground_fusion2_tpu/lio/ct_icp.py:56"),
+    "voxel_glue": ("voxel_glue.cu", "ground_fusion2_tpu/lio/fused.py:240"),
+    "lio_update": ("lio_update.cu", "ground_fusion2_tpu/lio/eskf.py:165"),
 }
 MESH_KERNELS = ("mesh_insert", "mesh_rgb", "mesh_delaunay")
 SOURCES.update({
@@ -450,7 +470,15 @@ KERNEL_GROUPS = {
     "AH": ("track_lift_kernel", "track_kill_kernel", "track_tail_kernel"),
     "AI": ("carry_write_kernel", "carry_slide_kernel"),
     "AJ": ("marg_gather_kernel", "marg_factors_kernel", "marg_scale_kernel",
-           "marg_schur_kernel", "marg_prior_kernel")}
+           "marg_schur_kernel", "marg_prior_kernel"),
+    "AK": ("ct_points_kernel", "ct_weights_kernel", "ct_step_kernel"),
+    "AL": ("kp_codes_kernel", "kp_first_kernel", "kp_take_kernel",
+           "ins_key_kernel", "permute_kernel", "dedup_kernel", "drop_kernel",
+           "rc_key_kernel", "ev_key_kernel"),
+    "AM": ("lio_update_kernel",)}
+# the LiDAR tick's profiler ranges (lio/odometry.py, lio/fused.py)
+LIDAR_RANGES = ("lidar_tick", "select_keypoints", "ct_icp", "observe_switch",
+                "record", "map_update")
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -583,6 +611,13 @@ def start_profiler():
     return prof
 
 
+def lio_rc_thresh(lo) -> float:
+    """The recenter threshold of the odometry ``lo``'s tick."""
+    from ground_fusion2_tpu_torch.lio import voxel_map as vm
+    st = lo._statics
+    return st.recenter_margin * (vm.HALF * st.map_cfg.voxel_size)
+
+
 def lidar_main_path(dev, card):
     """Phase 5. Returns (error or None, launches during the drive, the
     odometry, the scan after the drive)."""
@@ -630,7 +665,8 @@ def lidar_main_path(dev, card):
     st = lo.eskf
     if not all(bool(torch.isfinite(t).all()) for t in st):
         return "non-finite ESKF state", launches, lo, None
-    want = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict")
+    want = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict",
+            "ct_glue", "voxel_glue", "lio_update")
     if min(launches.get(k, 0) for k in want) <= 0:
         return f"a LiDAR kernel did not launch: {launches}", launches, lo, None
     off = gt[0] - outs[0].p_lio
@@ -924,6 +960,25 @@ def system_main_path(dev, card, frames):
               + f", device ms a tick "
               + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
                             for g in ("AH", "AI", "AJ")}) + f" | {card}",
+              flush=True)
+        lr = {k: split["by_range"].get(k, dict(ms=0.0, launches=0,
+                                                  port_ms=0.0, copies=0))
+              for k in LIDAR_RANGES}
+        print("the LiDAR tick by profiler range over the last 3 ticks (device "
+              "ms, kernel launches, of which the port's kernels' ms, copies, "
+              "a tick; printed only): "
+              + json.dumps({k: (round(v["ms"], 4), v["launches"],
+                                round(v["port_ms"], 4), v["copies"])
+                            for k, v in lr.items()})
+              + f"; in all {sum(v['ms'] for v in lr.values()):.4f} ms in "
+              f"{sum(v['launches'] for v in lr.values()):g} launches; kernels "
+              "AK, AL, AM launches a tick "
+              + json.dumps({g: sum(split['port_kernel_launches_per_tick']
+                                   .get(n, 0) for n in KERNEL_GROUPS[g])
+                            for g in ("AK", "AL", "AM")})
+              + ", device ms a tick "
+              + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
+                            for g in ("AK", "AL", "AM")}) + f" | {card}",
               flush=True)
         per_tick = split["port_kernel_launches_per_tick"]
         print(f"kernels D and E in the system tick: launches a LiDAR tick "
@@ -1961,6 +2016,9 @@ def main() -> int:
         "ct_icp_normal": checks.check_ct_normal(dev, x, lcfg.icp_cfg),
         "radix_sort": checks.check_radix(dev, x, lcfg.map_cfg),
         "eskf_predict": checks.check_eskf(dev, x, lcfg.eskf_opt),
+        "ct_glue": checks.check_ct_glue(dev, x, lcfg.icp_cfg, lcfg.map_cfg),
+        "voxel_glue": checks.check_voxel_glue(dev, x, lcfg.map_cfg, lcfg),
+        "lio_update": checks.check_lio_update(dev, x, lio_rc_thresh(lo)),
     }
     if report(res_lio):
         return 1
@@ -2207,7 +2265,7 @@ def main() -> int:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms",
             "launches_per_call")
-    # launches: phase 8 for A-L, S-Y and AH-AJ, 9 for M-O, 10 for P and Q,
+    # launches: phase 8 for A-L, S-Y and AH-AM, 9 for M-O, 10 for P and Q,
     # 11 for R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),

@@ -98,6 +98,21 @@ _SIGNATURES = {
     "gf2_marg_scale": [_I] + [_P] * 2 + [_I] + [_P] * 2,
     "gf2_marg_schur": [_I, _P, _I] + [_P] * 3 + [_I, _D] + [_P] * 4,
     "gf2_marg_prior": [_I, _I] + [_P] * 4 + [_I, _P, _I] + [_P] * 4,
+    "gf2_ct_points": [_P] * 6 + [_I] + [_P] * 2,
+    "gf2_ct_weights": [_P] * 6 + [_I] + [_F] * 2 + [_P] * 2,
+    "gf2_ct_step": ([_P] * 10 + [_F] * 3 + [_I] + [_P] * 2 + [_I]
+                    + [_P] * 4 + [_P]),
+    "gf2_kp_codes": [_P] * 3 + [_I, _F] + [_P] * 2,
+    "gf2_kp_first": [_P] * 2 + [_I] + [_P] * 2,
+    "gf2_kp_take": [_P] * 6 + [_I] + [_P] * 4,
+    "gf2_vm_ins_key": [_P] * 2 + [_I] + [_P] * 3 + [_I, _F] + [_P] * 4,
+    "gf2_vm_permute": [_P] * 4 + [_I] + [_P] * 4,
+    "gf2_vm_dedup": [_P] * 3 + [_I] * 2 + [_P] * 4,
+    "gf2_vm_drop": [_P, _I, _I, _P, _P],
+    "gf2_vm_rc_key": [_P] * 2 + [_I, _P, _F] + [_P] * 3,
+    "gf2_vm_ev_key": [_P] * 2 + [_I, _P, _F] + [_P] * 2,
+    "gf2_lio_update_size": [],
+    "gf2_lio_update": [_P] * 3,
 }
 
 

@@ -486,9 +486,10 @@ def lio_kernel_inputs(lo, scan) -> dict:
     dist = torch.abs(torch.sum((p_w - centroid) * normal, -1))
     w = km * valid.float() * (a2d > icp.min_planarity).float() \
         * (dist < icp.max_corr_dist).float() * a2d * a2d
-    return dict(pts=pts, mask=mask, acc=acc[:M], gyr=gyr[:M], dts=dts,
-                smask=smask, eskf=c.eskf, vmap=c.vmap, kp=kp, ka=ka,
-                pose=pose, p_w=p_w, normal=normal, centroid=centroid, w=w)
+    return dict(pts=pts, alpha=alpha, mask=mask, n_real=n_real, acc=acc[:M],
+                gyr=gyr[:M], dts=dts, smask=smask, eskf=c.eskf, s_pred=s_pred,
+                sw=c.sw, vmap=c.vmap, kp=kp, ka=ka, km=km, pose=pose, p_w=p_w,
+                normal=normal, centroid=centroid, a2d=a2d, valid=valid, w=w)
 
 
 def lio_drive_inputs(device, at, n_scans: int = 60, z: float = 1.0) -> dict:
@@ -3498,4 +3499,319 @@ def check_marg_schur(device, fv, timed: bool = True) -> dict:
         res.update({k: o[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "device_ms",
                                       "launches_per_call")})
+    return res
+
+
+# ------------------------------------------------------------------ AK-AM
+def _glue_case(kern, plain, fields=None) -> dict:
+    """A glue kernel's call against its plain route's on the same inputs:
+    each output ``torch.equal`` (and twice the same bits), the largest gap.
+    Outputs are tensors, tuples of them or None."""
+    def flat(v):
+        if v is None:
+            return []
+        if isinstance(v, torch.Tensor):
+            return [v]
+        return [t for x in v for t in flat(x)]
+    k, k2, p = flat(kern()), flat(kern()), flat(plain())
+    eq = [bool(torch.equal(a, b)) for a, b in zip(k, p)]
+    same = all(bool(torch.equal(a, b)) for a, b in zip(k, k2))
+    gap = lambda a, b: (float((a.double() - b.double()).abs().max())
+                        if a.numel() and a.dtype.is_floating_point
+                        else float((a != b).sum()))
+    errs = [gap(a, b) for a, b in zip(k, p)]
+    out = dict(equal=all(eq) and len(k) == len(p), repeat_equal=same,
+               max_abs_err=max(errs, default=0.0),
+               unequal=[i if fields is None else fields[i]
+                        for i, v in enumerate(eq) if not v])
+    out["ok"] = out["equal"] and same
+    return out
+
+
+def _glue_timed(res: dict, runs: dict, nbytes: dict, flops: dict,
+                tick: dict, timed: bool):
+    """Times each mode of ``runs`` (name -> (kernel, plain)) and sums a
+    tick's calls of each (``tick``: name -> calls a tick) into ``res``'s
+    columns: call ms, plain ms, device ms, launches, bound."""
+    if not timed:
+        return res
+    per = {}
+    for name, (kern, plain) in runs.items():
+        d = device_pair(kern)
+        per[name] = dict(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                         device_ms=d["device_ms"],
+                         launches_per_call=d["launches_per_call"],
+                         **bound(nbytes[name], flops[name]))
+        res["modes"][name].update(per[name])
+    tot = lambda key: sum(per[n][key] * c for n, c in tick.items())
+    b = bound(sum(nbytes[n] * c for n, c in tick.items()),
+              sum(flops[n] * c for n, c in tick.items()))
+    res.update(ms=tot("ms"), plain_ms=tot("plain_ms"),
+               device_ms=tot("device_ms"),
+               launches_per_call=tot("launches_per_call"), **b,
+               tick_calls=tick)
+    return res
+
+
+def check_ct_glue(device, x: dict, icp_cfg, map_cfg, timed: bool = True) -> dict:
+    """Kernel AK's modes against their plain routes on ``x``
+    (:func:`lio_kernel_inputs`, the next scan on the drive's map): the
+    points mode on the keypoints and on the whole scan at the predicted
+    pose, the weights on kernel D's association there, and the step on
+    kernel Y's damped solve of kernel E's system: from done = 0, frozen
+    (done = 1), and at the midpoint with and without a re-gather (pose0 the
+    pose itself, and 0.5 m away). Every output ``torch.equal``. Timed per
+    mode; the totals are a tick's (5 iterations: the points twice, the
+    weights six times, the step five times)."""
+    pose, kp, ka, km = x["pose"], x["kp"], x["ka"], x["km"]
+    p_w = ci.transform_points(pose, kp, ka)
+    normal, centroid, a2d, valid = vm.associate(x["vmap"], p_w, p_w, map_cfg)
+    w = ci.weights(p_w, centroid, normal, a2d, valid, km, icp_cfg)
+    H, g, _ = ci.normal_equations(pose, pose, kp, ka, centroid, normal, w,
+                                  icp_cfg)
+    d = ci.damped_solve(H, g, icp_cfg.damping)
+    one = torch.ones((), device=device)
+    far = ci.CtPose(pose.q_begin, pose.t_begin + 0.5, pose.q_end,
+                    pose.t_end - 0.5)
+    runs = {
+        "points (keypoints)": (lambda: ci.transform_points(pose, kp, ka),
+                               lambda: ci.transform_points_plain(pose, kp, ka)),
+        "points (scan)": (
+            lambda: ci.transform_points(pose, x["pts"], x["alpha"]),
+            lambda: ci.transform_points_plain(pose, x["pts"], x["alpha"])),
+        "weights": (lambda: ci.weights(p_w, centroid, normal, a2d, valid, km,
+                                       icp_cfg),
+                    lambda: ci.weights_plain(p_w, centroid, normal, a2d,
+                                             valid, km, icp_cfg)),
+    }
+    for name, done, mid in (("step", None, None), ("step (frozen)", one, None),
+                            ("step (midpoint)", None,
+                             (pose, map_cfg.voxel_size)),
+                            ("step (midpoint, re-gather)", one,
+                             (far, map_cfg.voxel_size))):
+        runs[name] = (lambda done=done, mid=mid: ci.step(
+                          pose, d, done, kp, ka, icp_cfg, mid),
+                      lambda done=done, mid=mid: ci.step_plain(
+                          pose, d, done, kp, ka, icp_cfg, mid))
+    modes = {n: _glue_case(k, p) for n, (k, p) in runs.items()}
+    reg = ci.step(pose, d, one, kp, ka, icp_cfg, (far, map_cfg.voxel_size))[3]
+    K, N = kp.shape[0], x["pts"].shape[0]
+    res = dict(modes=modes, ok=all(m["ok"] for m in modes.values())
+               and bool(reg), regathered_branch=bool(reg),
+               max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+               library_ms=None, library_device_ms=None, tol="torch.equal")
+    # bytes: a point in and out (and the pose); operations: ~300 a point
+    # for the transform, ~15 for a weight
+    nbytes = {"points (keypoints)": 28 * K + 56, "points (scan)": 28 * N + 56,
+              "weights": 49 * K, "step": 28 * K + 160}
+    flops = {"points (keypoints)": 300 * K, "points (scan)": 300 * N,
+             "weights": 15 * K, "step": 300 * K + 400}
+    runs = {n: runs[n] for n in nbytes}
+    return _glue_timed(res, runs, nbytes, flops,
+                       {"points (keypoints)": 1, "points (scan)": 1,
+                        "weights": 6, "step": 5}, timed)
+
+
+def check_voxel_glue(device, x: dict, cfg, lcfg, timed: bool = True) -> dict:
+    """Kernel AL's modes against their plain routes on ``x`` (the next scan
+    on the drive's map): the keypoint modes on the scan, each insert mode
+    on the plain route's own intermediates at the tick's shapes, rc_key and
+    ev_key; and whole operations on the card against the CPU's plain route
+    (as kernel F's check): the insert, an insert that overflows capacity,
+    a recenter and an eviction. Every output ``torch.equal``. Timed per
+    mode; the totals are a tick's (the keypoint modes, an insert)."""
+    pts, alpha, mask, n_real = x["pts"], x["alpha"], x["mask"], x["n_real"]
+    vmap, center, p_w = x["vmap"], x["pose"].t_end, x["p_w"]
+    code = lfu.keypoint_codes_plain(pts, mask, n_real, lcfg.keypoint_cell)
+    order = vm.stable_argsort(code)
+    sel = vm.stable_argsort(lfu.not_first_plain(code, order), 1)[
+        :lcfg.max_keypoints]
+    scan_w = ci.transform_points(x["pose"], pts, alpha)
+    kw = vm.insert_keys_plain(vmap, scan_w, mask, cfg)
+    o1 = vm.stable_argsort(kw[2], 6)
+    s1 = vm.permute_plain(o1, *kw)
+    o2 = vm.stable_argsort(s1[1])
+    s2 = vm.permute_plain(o2, *s1)
+    dcode, key = vm.dedup_plain(*s2, cfg.max_per_voxel, center)
+    od = vm.stable_argsort(key)
+    n = vmap.code.shape[0]
+    dropped = vm.drop_plain(dcode, od, n)
+    o3 = vm.stable_argsort(dropped)
+    scratch = dcode.clone()
+    shift = center + torch.tensor([60.0, -40.0, 1.0], device=device)
+    runs = {
+        "kp_codes": (lambda: lfu.keypoint_codes(pts, mask, n_real,
+                                                lcfg.keypoint_cell),
+                     lambda: lfu.keypoint_codes_plain(pts, mask, n_real,
+                                                      lcfg.keypoint_cell)),
+        "kp_first": (lambda: lfu.not_first(code, order),
+                     lambda: lfu.not_first_plain(code, order)),
+        "kp_take": (lambda: lfu.keypoint_take(pts, alpha, mask, code, order,
+                                              sel),
+                    lambda: lfu.keypoint_take_plain(pts, alpha, mask, code,
+                                                    order, sel)),
+        "ins_key": (lambda: vm.insert_keys(vmap, scan_w, mask, cfg),
+                    lambda: vm.insert_keys_plain(vmap, scan_w, mask, cfg)),
+        "permute": (lambda: vm.permute(o1, *kw), lambda: vm.permute_plain(
+            o1, *kw)),
+        "dedup": (lambda: vm.dedup(*s2, cfg.max_per_voxel, center),
+                  lambda: vm.dedup_plain(*s2, cfg.max_per_voxel, center)),
+        # in place, and the same codes again on a second call
+        "drop": (lambda: vm.drop(scratch, od, n),
+                 lambda: vm.drop_plain(dcode, od, n)),
+        "compact": (lambda: vm.permute(o3, s2[0], dropped, count=n),
+                    lambda: vm.permute_plain(o3, s2[0], dropped, count=n)),
+        "rc_key": (lambda: vm.recenter_keys(vmap, shift, cfg),
+                   lambda: vm.recenter_keys_plain(vmap, shift, cfg)),
+        "ev_key": (lambda: vm.evict_keys(vmap, shift, cfg._replace(
+                       max_range=30.0)),
+                   lambda: vm.evict_keys_plain(vmap, shift, cfg._replace(
+                       max_range=30.0))),
+    }
+    modes = {nm: _glue_case(k, p) for nm, (k, p) in runs.items()}
+    cpu = lambda m: vm.VoxelMap(*(t.cpu() for t in m))
+    same = lambda a, b: all(torch.equal(u.cpu(), v) for u, v in zip(a, b))
+    km = torch.ones(p_w.shape[0], device=device)
+    ins = vm.insert(vmap, scan_w, mask, cfg, center=center)
+    whole = dict(insert=same(ins, vm.insert(cpu(vmap), scan_w.cpu(),
+                                            mask.cpu(), cfg,
+                                            center=center.cpu())))
+    far = p_w + torch.tensor([30.0, 0.0, 0.0], device=device)
+    pts2 = torch.cat([p_w, far])
+    m2 = torch.ones(pts2.shape[0], device=device)
+    small = cfg._replace(capacity=4096)
+    base = vm.VoxelMap.empty(small, device)
+    base = vm.insert(base, p_w, km, small, center=center)
+    whole["overflow"] = same(vm.insert(base, pts2, m2, small, center=center),
+                             vm.insert(cpu(base), pts2.cpu(), m2.cpu(), small,
+                                       center=center.cpu()))
+    whole["recenter"] = same(vm.recenter(ins, shift, cfg),
+                             vm.recenter(cpu(ins), shift.cpu(), cfg))
+    near = cfg._replace(max_range=3.0)
+    whole["evict"] = same(vm.evict_far(ins, center, near),
+                          vm.evict_far(cpu(ins), center.cpu(), near))
+    n_live = lambda m: int((m.code != vm.INVALID).sum())
+    res = dict(modes=modes, whole=whole,
+               ok=all(m["ok"] for m in modes.values()) and all(whole.values()),
+               max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+               fill=[n_live(vmap), n_live(ins)], library_ms=None,
+               library_device_ms=None, tol="torch.equal")
+    N, T, K = pts.shape[0], kw[1].shape[0], sel.shape[0]
+    # bytes a mode: its inputs read once, its outputs written once
+    nbytes = {"kp_codes": 20 * N + 4, "kp_first": 16 * N,
+              "kp_take": 40 * K + 16 * N, "ins_key": 20 * T + 8 * N,
+              "permute": 44 * T, "dedup": 28 * T, "drop": 12 * (T - n),
+              "compact": 36 * n + 8 * n}
+    flops = {"kp_codes": 12 * N, "kp_first": N, "kp_take": K,
+             "ins_key": 40 * T, "permute": 0, "dedup": 8 * T, "drop": 0,
+             "compact": 0}
+    runs = {k: runs[k] for k in nbytes}
+    return _glue_timed(res, runs, nbytes, flops,
+                       {"kp_codes": 1, "kp_first": 1, "kp_take": 1,
+                        "ins_key": 1, "permute": 2, "dedup": 1, "drop": 1,
+                        "compact": 1}, timed)
+
+
+# kernel AM's scripted switch drive: (degenerate, ext_valid) a step, so
+# that the switch takes each of its four branches (healthy, enter with an
+# external pose, stay degenerate, exit, enter without one) and the filter
+# each of its three observe selects (the LIO pose, the external pose, the
+# prediction)
+SWITCH_SCRIPT = ((False, True), (True, True), (True, True), (False, True),
+                 (True, False), (True, False), (False, False), (False, True))
+
+
+def switch_inputs(step: int, t_lo, q_lo, seed: int = 0) -> dict:
+    """Step ``step`` of :data:`SWITCH_SCRIPT` as numpy float32 inputs around
+    the pose (t_lo, q_lo): the LIO pose moved a few cm and a few mrad, an
+    external pose ~0.3 m away (a VIO drift), the degeneracy flag, the
+    external pose's validity, n_corr and σ."""
+    rng = np.random.default_rng(seed + step)
+    f = np.float32
+    deg, ev = SWITCH_SCRIPT[step]
+
+    def turn(q, s):
+        dq = np.concatenate([[1.0], rng.normal(scale=s, size=3)])
+        w0, x0, y0, z0 = q
+        w1, x1, y1, z1 = dq / np.linalg.norm(dq)
+        out = np.array([w0 * w1 - x0 * x1 - y0 * y1 - z0 * z1,
+                        w0 * x1 + x0 * w1 + y0 * z1 - z0 * y1,
+                        w0 * y1 - x0 * z1 + y0 * w1 + z0 * x1,
+                        w0 * z1 + x0 * y1 - y0 * x1 + z0 * w1])
+        return (out / np.linalg.norm(out)).astype(f)
+    t = np.asarray(t_lo, np.float64)
+    return dict(t_lo=(t + rng.normal(scale=0.03, size=3)).astype(f),
+                q_lo=turn(np.asarray(q_lo, np.float64), 0.003),
+                ext_p=(t + rng.normal(scale=0.3, size=3)).astype(f),
+                ext_q=turn(np.asarray(q_lo, np.float64), 0.05),
+                ext_valid=f(1.0 if ev else 0.0), deg=bool(deg),
+                n_corr=f(rng.integers(5, 2000)),
+                sigma=np.sort(rng.uniform(1, 40, 3))[::-1].astype(f))
+
+
+def check_lio_update(device, x: dict, rc_thresh: float,
+                     timed: bool = True) -> dict:
+    """Kernel AM against the plain route: on ``x``'s predicted filter and
+    switch state (the next scan on the drive) through every step of
+    :data:`SWITCH_SCRIPT`, each step's switch state fed to the next (the
+    kernel's to the kernel, the plain route's to the plain route), the map
+    origin once near and once far (the recenter predicate either way).
+    Every output ``torch.equal``; the branches taken are reported."""
+    s_pred, sw0 = x["s_pred"], x["sw"]
+    origin = x["vmap"].origin
+    far_origin = origin + torch.tensor([80.0, 0.0, 0.0], device=device)
+    T = lambda a, dt=torch.float32: torch.as_tensor(np.asarray(a), dtype=dt,
+                                                    device=device)
+    steps, ok, err = [], True, 0.0
+    swk, swp = sw0, sw0
+    branches = {"switch": set(), "select": set(), "recenter": set()}
+    last = None
+    for k in range(len(SWITCH_SCRIPT)):
+        inp = switch_inputs(k, x["pose"].t_end.cpu().numpy(),
+                            x["pose"].q_end.cpu().numpy())
+        args = (T(inp["t_lo"]), T(inp["q_lo"]), T(inp["ext_p"]),
+                T(inp["ext_q"]), T(inp["ext_valid"]), T(inp["deg"], torch.bool),
+                T(inp["n_corr"]), T(inp["sigma"]))
+        org = far_origin if k % 2 else origin
+        kern = lambda a=args, s=swk, o=org: lfu.lio_update(
+            s_pred, *a[:6], *a[6:], s, o, rc_thresh)
+        plain = lambda a=args, s=swp, o=org: lfu.lio_update_plain(
+            s_pred, *a[:6], *a[6:], s, o, rc_thresh)
+        fields = ([f"state.{f}" for f in ekf.EskfState._fields]
+                  + [f"switch.{f}" for f in lfu.SwitchCarry._fields]
+                  + ["record"])
+        m = _glue_case(kern, plain, fields)
+        (_, swk, head), (_, swp, _) = kern(), plain()
+        code = int(head[15])
+        branches["switch"].add(
+            {0: "degenerate" if inp["deg"] else "healthy", 1: "enter",
+             2: "exit"}[code] + (" with an external pose" if code == 1
+                                 and inp["ext_valid"] else
+                                 " without one" if code == 1 else ""))
+        branches["select"].add("lio" if not inp["deg"] else
+                               "external" if inp["ext_valid"] else "predicted")
+        branches["recenter"].add(bool(head[20] > 0.5))
+        m.update(deg=inp["deg"], ext_valid=bool(inp["ext_valid"]),
+                 switched=code)
+        steps.append(m)
+        ok = ok and m["ok"]
+        err = max(err, m["max_abs_err"])
+        last = kern, plain
+    branches = {k: sorted(map(str, v)) for k, v in branches.items()}
+    covered = (len(branches["switch"]) == 5 and len(branches["select"]) == 3
+               and len(branches["recenter"]) == 2)
+    res = dict(steps=steps, branches=branches, all_branches=covered,
+               ok=ok and covered, max_abs_err=err, library_ms=None,
+               library_device_ms=None, tol="torch.equal")
+    if timed:
+        kern, plain = last
+        d = device_pair(kern)
+        # inputs (the filter's 343 floats, the switch's 30, ~40 more) and
+        # the 394 floats out; two 6×6 inverses, the K products and the two
+        # (I − K H) P products
+        res.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                   device_ms=d["device_ms"],
+                   launches_per_call=d["launches_per_call"],
+                   **bound(4 * (343 + 30 + 40 + 394),
+                           2 * (2 * 18 ** 3 + 2 * 18 * 6 * 6 + 600)))
     return res

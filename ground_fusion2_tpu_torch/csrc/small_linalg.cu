@@ -36,35 +36,12 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "spd_warp.cuh"
+
 namespace {
 
 constexpr int kWarps = 2;      // matrices a CTA in entry 1
-constexpr int LD = 33;
 constexpr int kDegThreads = 256;
-
-// One warp: the lower Cholesky factor of the n×n L (row stride LD) in
-// place, lane i a row. Returns false if a pivot is not > 0 (taken as 1).
-__device__ bool warp_chol(double* L, int n, int lane) {
-  bool ok = true;
-  for (int j = 0; j < n; ++j) {
-    double piv = L[j * LD + j];
-    if (!(piv > 0.0)) {
-      ok = false;
-      piv = 1.0;
-    }
-    const double ljj = sqrt(piv);
-    __syncwarp();
-    if (lane > j && lane < n) L[lane * LD + j] = L[lane * LD + j] / ljj;
-    if (lane == j) L[j * LD + j] = ljj;
-    __syncwarp();
-    if (lane > j && lane < n) {
-      const double lij = L[lane * LD + j];
-      for (int c = j + 1; c <= lane; ++c) L[lane * LD + c] -= lij * L[c * LD + j];
-    }
-    __syncwarp();
-  }
-  return ok;
-}
 
 __global__ void __launch_bounds__(kWarps * 32)
 sqrt_info_kernel(const float* __restrict__ cov, int B, int n, int inverse,
@@ -74,34 +51,8 @@ sqrt_info_kernel(const float* __restrict__ cov, int B, int n, int inverse,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + w;
   if (b >= B) return;
-  double* L = Ls[w];
-  double* X = Xs[w];
-  const float* C = cov + (size_t)b * n * n;
-  const double jitter = inverse ? 0.0 : 1e-10;
-  if (lane < n)
-    for (int c = 0; c < n; ++c)
-      L[lane * LD + c] = (double)C[lane * n + c] + (c == lane ? jitter : 0.0);
-  __syncwarp();
-  warp_chol(L, n, lane);
-  if (lane < n) {                      // column `lane` of L⁻¹
-    for (int i = 0; i < n; ++i) {
-      double s = i == lane ? 1.0 : 0.0;
-      for (int l = lane; l < i; ++l) s -= L[i * LD + l] * X[l * LD + lane];
-      X[i * LD + lane] = i < lane ? 0.0 : s / L[i * LD + i];
-    }
-  }
-  __syncwarp();
-  float* O = out + (size_t)b * n * n;
-  if (lane >= n) return;
-  if (!inverse) {
-    for (int c = 0; c < n; ++c) O[lane * n + c] = (float)X[lane * LD + c];
-    return;
-  }
-  for (int c = 0; c < n; ++c) {        // row `lane` of L⁻ᵀ L⁻¹
-    double s = 0.0;
-    for (int k = max(lane, c); k < n; ++k) s += X[k * LD + lane] * X[k * LD + c];
-    O[lane * n + c] = (float)s;
-  }
+  warp_spd(cov + (size_t)b * n * n, n, inverse, Ls[w], Xs[w], lane,
+           out + (size_t)b * n * n);
 }
 
 __global__ void __launch_bounds__(32)

@@ -9,7 +9,10 @@ per-sample trajectory) and is the plain version. :func:`predict_final` is
 what the LiDAR tick calls: kernel G (``csrc/eskf_predict.cu``) for tensors on
 the card, which walks the ≤ 48 samples in order and returns only the final
 state, the trajectory being unused there. The observation's 6×6 innovation
-inverse is kernel Y's entry 1 (``csrc/small_linalg.cu``) on the card.
+inverse is kernel Y's entry 1 (``csrc/small_linalg.cu``) on the card. The
+LiDAR tick's two observations and their select run in kernel AM
+(``lio/fused.py:lio_update``, with Y's inverse code); :func:`observe_se3`
+is its plain route.
 """
 
 from __future__ import annotations

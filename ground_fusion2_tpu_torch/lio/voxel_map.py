@@ -7,7 +7,7 @@ concat + stable sorts by (code, subcell) + dedup/cap + overflow-by-distance
 + compaction; query = binary search of the 27 neighbour codes + a fixed
 window of ``gather_k`` points per voxel.
 
-Two kernels carry it on the card:
+Three kernels carry it on the card:
   * kernel F (``csrc/radix_sort.cu``), :func:`stable_argsort`: every sort of
     the LiDAR tick. All keys are non-negative (codes < 2³⁰ or INVALID,
     subcells < 64, hash codes ≤ 0x7FFFFFFF, squared distances ≥ 0 or +inf),
@@ -18,7 +18,12 @@ Two kernels carry it on the card:
     as ranges [Q, 27] int32, a word a neighbour voxel: its first slot in
     the sorted codes, and above ``RANGE_BITS`` how many of its points are
     candidates (``min(run, gather_k)``); a call searches the map and writes
-    them, or ranks the candidates they hold.
+    them, or ranks the candidates they hold;
+  * kernel AL (``csrc/voxel_glue.cu``): the glue between F's sorts in
+    :func:`insert`, :func:`recenter` and :func:`evict_far` (codes and
+    subcells, the gathers by each order, the dedup and cap, the distance
+    key and the overflow drop), one launch a stretch; each mode's plain
+    route is the chain of ops it replaces.
 
 The map must match the JAX map bit for bit, in codes and point order: every
 sort is stable, squared distances are summed ((x + y) + z) as XLA does, and
@@ -162,62 +167,223 @@ def _invalidate(code, keep):
     return torch.where(keep, code, torch.full_like(code, INVALID))
 
 
-# ---------------------------------------------------------------- updates
-def insert(vmap: VoxelMap, new_pts, new_mask, cfg: VoxelMapConfig,
-           center=None) -> VoxelMap:
-    """Insert masked points, dedup at subcell resolution, cap per voxel and
-    keep the map sorted; existing points win ties. On overflow the points
-    farthest from ``center`` go (code-order truncation without it)."""
-    n = vmap.pts.shape[0]
+# ---------------------------------------------------------------- kernel AL
+def _ptr(t):
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _al_args(*ts):
+    """Kernel AL's inputs as contiguous CUDA tensors (None passes)."""
+    out = []
+    for t in ts:
+        if t is not None:
+            if not t.is_cuda or t.dtype not in (torch.float32, torch.int32,
+                                                torch.int64):
+                raise ValueError(f"kernel AL takes float32 / int32 / int64 "
+                                 f"CUDA tensors ({t.dtype} on {t.device})")
+            t = t.contiguous()
+        out.append(t)
+    return out
+
+
+def _al_launch(name: str, *args):
+    err = getattr(_kernels.library(), name)(*args)
+    _kernels.check(err, name)
+    _kernels.count("voxel_glue")
+
+
+def insert_keys_plain(vmap: VoxelMap, new_pts, new_mask, cfg: VoxelMapConfig):
+    """The map's points then the new ones, their codes (the new ones at the
+    map origin, INVALID where masked) and every point's subcell."""
     new_code = _invalidate(_pack(_coords(new_pts, vmap.origin, cfg.voxel_size)),
                            new_mask > 0)
     pts = torch.cat([vmap.pts, new_pts])
     code = torch.cat([vmap.code, new_code])
-    sub = _subcell(pts, vmap.origin, cfg.voxel_size)
+    return pts, code, _subcell(pts, vmap.origin, cfg.voxel_size)
 
-    # lexicographic (code, sub): secondary key first, then primary
-    o1 = stable_argsort(sub, 2 * 3)
-    pts, code, sub = pts[o1], code[o1], sub[o1]
-    o2 = stable_argsort(code)
-    pts, code, sub = pts[o2], code[o2], sub[o2]
 
+def insert_keys(vmap: VoxelMap, new_pts, new_mask, cfg: VoxelMapConfig):
+    """:func:`insert_keys_plain`, by kernel AL's ins_key mode on the card."""
+    if not new_pts.is_cuda:
+        return insert_keys_plain(vmap, new_pts, new_mask, cfg)
+    mp, mc, org, npt, nm = _al_args(vmap.pts, vmap.code, vmap.origin, new_pts,
+                                    new_mask)
+    n, m = mc.shape[0], nm.shape[0]
+    if mp.shape != (n, 3) or npt.shape != (m, 3) or mc.dtype != torch.int32:
+        raise ValueError("kernel AL ins_key: map pts [n, 3] with int32 codes "
+                         "[n], new pts [m, 3] with a mask [m]")
+    dev = npt.device
+    pts = torch.empty((n + m, 3), device=dev)
+    code = torch.empty(n + m, dtype=torch.int32, device=dev)
+    sub = torch.empty(n + m, dtype=torch.int32, device=dev)
+    _al_launch("gf2_vm_ins_key", _ptr(mp), _ptr(mc), n, _ptr(org), _ptr(npt),
+               _ptr(nm), m, ctypes.c_float(cfg.voxel_size), _ptr(pts),
+               _ptr(code), _ptr(sub), _stream(npt))
+    return pts, code, sub
+
+
+def permute_plain(order, pts, code, sub=None, count=None):
+    """(pts, code[, sub]) gathered by ``order`` (its first ``count``)."""
+    o = order if count is None else order[:count]
+    return (pts[o], code[o]) + (() if sub is None else (sub[o],))
+
+
+def permute(order, pts, code, sub=None, count=None):
+    """:func:`permute_plain`, by kernel AL's permute mode on the card (the
+    compaction to n too, with ``count``)."""
+    if not pts.is_cuda:
+        return permute_plain(order, pts, code, sub, count)
+    order, pts, code, sub = _al_args(order, pts, code, sub)
+    T = order.shape[0] if count is None else count
+    if (order.dtype != torch.int64 or T > order.shape[0]
+            or pts.shape != (code.shape[0], 3)):
+        raise ValueError("kernel AL permute: an int64 order, pts [N, 3], "
+                         "codes [N]")
+    dev = pts.device
+    p = torch.empty((T, 3), device=dev)
+    c = torch.empty(T, dtype=code.dtype, device=dev)
+    s = None if sub is None else torch.empty(T, dtype=sub.dtype, device=dev)
+    _al_launch("gf2_vm_permute", _ptr(pts), _ptr(code), _ptr(sub),
+               _ptr(order), T, _ptr(p), _ptr(c), _ptr(s), _stream(pts))
+    return (p, c) + (() if s is None else (s,))
+
+
+def dedup_plain(pts, code, sub, max_per_voxel: int, center=None):
+    """On the (code, subcell)-sorted points: (codes with the repeats of a
+    subcell and the entries past a voxel's first ``max_per_voxel``
+    invalidated, the squared distance to ``center`` of each live point, inf
+    elsewhere; None without a center)."""
     total = pts.shape[0]
     idx = torch.arange(total, device=pts.device)
     first = torch.ones(1, dtype=torch.bool, device=pts.device)
     new_voxel = torch.cat([first, code[1:] != code[:-1]])
     new_subcell = new_voxel | torch.cat([first, sub[1:] != sub[:-1]])
     seg_start = torch.cummax(torch.where(new_voxel, idx, 0), 0).values
-    keep = new_subcell & (idx - seg_start < cfg.max_per_voxel) & (code != INVALID)
+    keep = new_subcell & (idx - seg_start < max_per_voxel) & (code != INVALID)
     code = _invalidate(code, keep)
+    if center is None:
+        return code, None
+    key = torch.where(code != INVALID, _dist2(pts, center),
+                      torch.full((total,), float("inf"), device=pts.device))
+    return code, key
 
+
+def dedup(pts, code, sub, max_per_voxel: int, center=None):
+    """:func:`dedup_plain`, by kernel AL's dedup mode on the card (a voxel's
+    first m entries are those whose code differs from the code m places
+    before; no scan)."""
+    if not pts.is_cuda:
+        return dedup_plain(pts, code, sub, max_per_voxel, center)
+    pts, code, sub, center = _al_args(pts, code, sub, center)
+    T = code.shape[0]
+    if pts.shape != (T, 3) or sub.shape != (T,):
+        raise ValueError("kernel AL dedup: pts [T, 3], codes and subcells [T]")
+    c = torch.empty_like(code)
+    key = None if center is None else torch.empty(T, device=pts.device)
+    _al_launch("gf2_vm_dedup", _ptr(pts), _ptr(code), _ptr(sub), T,
+               max_per_voxel, _ptr(center), _ptr(c), _ptr(key), _stream(pts))
+    return c, key
+
+
+def drop_plain(code, order_d, n: int):
+    """``code`` with every entry whose place in the distance order
+    ``order_d`` is n or more invalidated (the overflow)."""
+    total = code.shape[0]
+    idx = torch.arange(total, device=code.device)
+    rank = torch.empty(total, dtype=torch.int64, device=code.device)
+    rank[order_d] = idx
+    return _invalidate(code, rank < n)
+
+
+def drop(code, order_d, n: int):
+    """:func:`drop_plain`, in place by kernel AL's drop mode on the card (no
+    rank array: the order's entries from n on lose their codes)."""
+    if not code.is_cuda:
+        return drop_plain(code, order_d, n)
+    code, order_d = _al_args(code, order_d)
+    if order_d.shape != code.shape or order_d.dtype != torch.int64:
+        raise ValueError("kernel AL drop: an int64 order of the codes")
+    _al_launch("gf2_vm_drop", _ptr(order_d), code.shape[0], n, _ptr(code),
+               _stream(code))
+    return code
+
+
+def recenter_keys_plain(vmap: VoxelMap, center, cfg: VoxelMapConfig):
+    """(codes at the voxel-aligned origin of ``center``, that origin)."""
+    new_origin = torch.floor(_in_voxels(center, cfg.voxel_size)) * cfg.voxel_size
+    code = _invalidate(_pack(_coords(vmap.pts, new_origin, cfg.voxel_size)),
+                       vmap.code != INVALID)
+    return code, new_origin
+
+
+def recenter_keys(vmap: VoxelMap, center, cfg: VoxelMapConfig):
+    """:func:`recenter_keys_plain`, by kernel AL's rc_key mode on the card."""
+    if not center.is_cuda:
+        return recenter_keys_plain(vmap, center, cfg)
+    pts, code, center = _al_args(vmap.pts, vmap.code, center)
+    c = torch.empty_like(code)
+    origin = torch.empty(3, device=pts.device)
+    _al_launch("gf2_vm_rc_key", _ptr(pts), _ptr(code), code.shape[0],
+               _ptr(center), ctypes.c_float(cfg.voxel_size), _ptr(c),
+               _ptr(origin), _stream(pts))
+    return c, origin
+
+
+def evict_keys_plain(vmap: VoxelMap, center, cfg: VoxelMapConfig):
+    """The codes with every point beyond ``max_range`` of ``center``
+    invalidated."""
+    d = torch.sqrt(_dist2(vmap.pts, center))
+    return _invalidate(vmap.code, (d < cfg.max_range) & (vmap.code != INVALID))
+
+
+def evict_keys(vmap: VoxelMap, center, cfg: VoxelMapConfig):
+    """:func:`evict_keys_plain`, by kernel AL's ev_key mode on the card."""
+    if not center.is_cuda:
+        return evict_keys_plain(vmap, center, cfg)
+    pts, code, center = _al_args(vmap.pts, vmap.code, center)
+    c = torch.empty_like(code)
+    _al_launch("gf2_vm_ev_key", _ptr(pts), _ptr(code), code.shape[0],
+               _ptr(center), ctypes.c_float(cfg.max_range), _ptr(c),
+               _stream(pts))
+    return c
+
+
+# ---------------------------------------------------------------- updates
+def insert(vmap: VoxelMap, new_pts, new_mask, cfg: VoxelMapConfig,
+           center=None) -> VoxelMap:
+    """Insert masked points, dedup at subcell resolution, cap per voxel and
+    keep the map sorted; existing points win ties. On overflow the points
+    farthest from ``center`` go (code-order truncation without it). On the
+    card: kernel AL's modes between kernel F's four sorts."""
+    n = vmap.pts.shape[0]
+    pts, code, sub = insert_keys(vmap, new_pts, new_mask, cfg)
+    # lexicographic (code, sub): secondary key first, then primary
+    pts, code, sub = permute(stable_argsort(sub, 2 * 3), pts, code, sub)
+    pts, code, sub = permute(stable_argsort(code), pts, code, sub)
+    code, key = dedup(pts, code, sub, cfg.max_per_voxel, center)
     if center is not None:
-        key = torch.where(code != INVALID, _dist2(pts, center),
-                          torch.full((total,), float("inf"), device=pts.device))
-        order_d = stable_argsort(key)
-        rank = torch.empty(total, dtype=torch.int64, device=pts.device)
-        rank[order_d] = idx
-        code = _invalidate(code, rank < n)
-
-    o3 = stable_argsort(code)
-    return VoxelMap(pts=pts[o3][:n], code=code[o3][:n], origin=vmap.origin)
+        code = drop(code, stable_argsort(key), n)
+    pts, code = permute(stable_argsort(code), pts, code, count=n)
+    return VoxelMap(pts=pts, code=code, origin=vmap.origin)
 
 
 def recenter(vmap: VoxelMap, center, cfg: VoxelMapConfig) -> VoxelMap:
     """Move the packing origin to the voxel-aligned ``center`` and re-key
     every stored point (one repack + sort)."""
-    new_origin = torch.floor(_in_voxels(center, cfg.voxel_size)) * cfg.voxel_size
-    code = _invalidate(_pack(_coords(vmap.pts, new_origin, cfg.voxel_size)),
-                       vmap.code != INVALID)
-    order = stable_argsort(code)
-    return VoxelMap(pts=vmap.pts[order], code=code[order], origin=new_origin)
+    code, new_origin = recenter_keys(vmap, center, cfg)
+    pts, code = permute(stable_argsort(code), vmap.pts, code)
+    return VoxelMap(pts=pts, code=code, origin=new_origin)
 
 
 def evict_far(vmap: VoxelMap, center, cfg: VoxelMapConfig) -> VoxelMap:
     """Drop points beyond ``max_range`` of ``center``."""
-    d = torch.sqrt(_dist2(vmap.pts, center))
-    code = _invalidate(vmap.code, (d < cfg.max_range) & (vmap.code != INVALID))
-    order = stable_argsort(code)
-    return VoxelMap(pts=vmap.pts[order], code=code[order], origin=vmap.origin)
+    code = evict_keys(vmap, center, cfg)
+    pts, code = permute(stable_argsort(code), vmap.pts, code)
+    return VoxelMap(pts=pts, code=code, origin=vmap.origin)
 
 
 # ---------------------------------------------------------------- queries

@@ -22,7 +22,10 @@ queries, on voxel runs past gather_k and on an empty map) and E at 1 to
 8,192 rows, with every weight 0, after a call of another size and on two
 streams, each one launch a call; the camera tick's glue AH (the tracker's
 tail), AI (the carry's writes and slides) and AJ (the marginalization
-around X) bit for bit, with their launches a fused tick; the mesh and the
+around X) bit for bit, with their launches a fused tick; the LiDAR tick's
+glue AK (CT-ICP's points, weights and step), AL (the keypoint and map
+glue around F) and AM (the observations, the select, the switch) bit for
+bit, AM through every switch branch, with their launches a LiDAR tick; the mesh and the
 grid on the card equal to their plain routes on the same sweeps.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
@@ -1349,6 +1352,28 @@ def test_chol_solve_explicit_diagonal_at_both_modes(dev, n):
 
 def _launch(name, dev):
     from ground_fusion2_tpu_torch.config import EskfOptions, VoxelMapConfig
+    if name == "ct_glue":
+        from ground_fusion2_tpu_torch.lio import ct_icp
+        q = torch.tensor([1.0, 0, 0, 0], device=dev)
+        z3 = torch.zeros(3, device=dev)
+        return ct_icp.transform_points(ct_icp.CtPose(q, z3, q, z3),
+                                       torch.ones((8, 3), device=dev),
+                                       torch.zeros(8, device=dev))
+    if name == "voxel_glue":
+        from ground_fusion2_tpu_torch.lio import voxel_map as vm
+        cfg = VoxelMapConfig(capacity=64)
+        return vm.insert_keys(vm.VoxelMap.empty(cfg, dev),
+                              torch.ones((8, 3), device=dev),
+                              torch.ones(8, device=dev), cfg)
+    if name == "lio_update":
+        from ground_fusion2_tpu_torch.lio import eskf, fused
+        s = eskf.EskfState.initial(device=dev)
+        sw = fused.SwitchCarry.initial([1.0, 0, 0, 0], [0.0] * 3,
+                                       [1.0, 0, 0, 0], [0.0] * 3, dev)
+        z = torch.zeros((), device=dev)
+        return fused.lio_update(s, s.p, s.q, s.p, s.q, z,
+                                torch.zeros((), dtype=torch.bool, device=dev),
+                                z, s.p, sw, s.p, 50.0)
     if name == "track_tail":
         from ground_fusion2_tpu_torch.core.cameras import Pinhole
         from ground_fusion2_tpu_torch.frontend import track_tail
@@ -1584,6 +1609,53 @@ def test_glue_kernels_launch_a_tick(dev, camera):
                        marg_schur=5 if full else 0), got
 
 
+def test_ct_glue_kernel_matches_plain(dev, lio):
+    """AK's points (keypoints, scan), weights and step (from 0, frozen, at
+    the midpoint with and without a re-gather) bit for bit."""
+    lo, _, x = lio
+    r = checks.check_ct_glue(dev, x, lo.cfg.icp_cfg, lo.cfg.map_cfg,
+                             timed=False)
+    assert r["ok"], r
+
+
+def test_voxel_glue_kernel_matches_plain(dev, lio):
+    """AL's every mode bit for bit; an insert, an overflowing insert, a
+    recenter and an eviction on the card equal to the CPU's."""
+    lo, _, x = lio
+    r = checks.check_voxel_glue(dev, x, lo.cfg.map_cfg, lo.cfg, timed=False)
+    assert r["ok"], r
+
+
+def test_lio_update_kernel_matches_plain_through_the_switch(dev, lio):
+    """AM bit for bit through the scripted switch sequence: every switch
+    branch, every observe select, the recenter predicate both ways."""
+    import chip_smoke
+    lo, _, x = lio
+    r = checks.check_lio_update(dev, x, chip_smoke.lio_rc_thresh(lo),
+                                timed=False)
+    assert r["ok"] and r["all_branches"], r
+
+
+@pytest.mark.parametrize("kernel", ["ct_glue", "voxel_glue", "lio_update"])
+def test_lidar_glue_kernels_launch_a_tick(dev, kernel):
+    """A fused LiDAR tick: AK 13 times (the keypoints, 6 weights, 5 steps,
+    the scan), AL 9 (3 keypoint modes, 6 insert modes; 2 more on a
+    recenter or an eviction), AM once, and kernel Y's inverse entry no
+    time (AM runs its device code)."""
+    from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
+    scans = checks.lidar_drive(6, z=1.0)
+    lo = LidarOdometry(m3dgr_lio(), device=dev)
+    for s in scans[:5]:
+        lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
+    _kernels.launches.clear()
+    s = scans[5]
+    lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
+    got = _kernels.launches[kernel]
+    want = dict(ct_glue=13, voxel_glue=9, lio_update=1)[kernel]
+    assert got == want, dict(_kernels.launches)
+    assert _kernels.launches["spd_inverse"] == 0
+
+
 def test_mesh_and_grid_on_the_card_equal_the_plain_route(dev):
     """Fault 2's bound: fed the same sweeps (the system drive's clouds at
     their true poses, each textured by its frame at the true camera pose),
@@ -1641,7 +1713,8 @@ def test_mesh_and_grid_on_the_card_equal_the_plain_route(dev):
                                   "degeneracy", "occupancy", "mesh_insert",
                                   "mesh_rgb", "mesh_delaunay", "line_detect",
                                   "line_refit", "dist_schur", "map_schur",
-                                  "track_tail", "window_carry", "marg_schur"])
+                                  "track_tail", "window_carry", "marg_schur",
+                                  "ct_glue", "voxel_glue", "lio_update"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(
