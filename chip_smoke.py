@@ -29,7 +29,11 @@ Phases (any failure exits nonzero; no phase catches and carries on):
   4. camera path: FusedVio.process_image with the M3DGR configuration
      over 32 rendered 640×480 frames of the bench.py room drive (RGB-D + IMU
      + wheel), twice from the same frames. Each run must initialize, run ≥ 20
-     fused ticks, launch A-C, H-L and S-Y during them, call
+     fused ticks, launch A-C, H-L, S-Y and AH-AJ, AN, AO during them,
+     make no synchronizing CUDA call on any tick with the window full (the
+     slide chosen on the device; the record's read, the tick's output
+     reaching the host, aside), take both MARGIN_OLD and
+     MARGIN_SECOND_NEW on such ticks, call
      torch.func.jacfwd and the plain window cost no time (nor, with the
      counter below, any torch.linalg eigensolver, which the plain
      triangulation's [F, 4, 4] eigh was), stay finite, and keep the aligned ATE
@@ -285,7 +289,7 @@ CAMERA_KERNELS = ("clahe", "klt", "proj_normal", "preint", "pyramid",
                   "shi_tomasi", "detect_grid", "ransac_f", "small_normal",
                   "window_cost", "triangulate", "window_tests", "window_update",
                   "chol_solve", "sym_eig", "sqrt_info", "track_tail",
-                  "window_carry", "marg_schur")
+                  "window_carry", "marg_schur", "lm_glue", "tick_glue")
 LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal",
                 "pg_cost")
 GNSS_KERNELS = ("gnss_normal", "global_normal", "global_cost")
@@ -391,6 +395,8 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "ct_glue": ("ct_glue.cu", "ground_fusion2_tpu/lio/ct_icp.py:56"),
     "voxel_glue": ("voxel_glue.cu", "ground_fusion2_tpu/lio/fused.py:240"),
     "lio_update": ("lio_update.cu", "ground_fusion2_tpu/lio/eskf.py:165"),
+    "lm_glue": ("lm_glue.cu", "ground_fusion2_tpu/solver/gauss_newton.py:85"),
+    "tick_glue": ("tick_glue.cu", "ground_fusion2_tpu/vio/fused.py:297"),
 }
 MESH_KERNELS = ("mesh_insert", "mesh_rgb", "mesh_delaunay")
 SOURCES.update({
@@ -475,7 +481,14 @@ KERNEL_GROUPS = {
     "AL": ("kp_codes_kernel", "kp_first_kernel", "kp_take_kernel",
            "ins_key_kernel", "permute_kernel", "dedup_kernel", "drop_kernel",
            "rc_key_kernel", "ev_key_kernel"),
-    "AM": ("lio_update_kernel",)}
+    "AM": ("lio_update_kernel",),
+    "AN": ("lm_pack_kernel", "lm_step_kernel", "lm_retract_kernel",
+           "lm_weigh_kernel"),
+    "AO": ("tick_track_kernel", "tick_pre_kernel", "tick_post_kernel")}
+# the camera tick's profiler ranges (vio/fused.py, vio/problem.py)
+CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
+                 "tick_glue", "marginalize", "marginalize_oldest",
+                 "marginalize_second_newest", "slide")
 # the LiDAR tick's profiler ranges (lio/odometry.py, lio/fused.py)
 LIDAR_RANGES = ("lidar_tick", "select_keypoints", "ct_icp", "observe_switch",
                 "record", "map_update")
@@ -804,25 +817,52 @@ def camera_main_path(dev, card, frames):
     from ground_fusion2_tpu_torch.factors import vio_factors as fac
     from ground_fusion2_tpu_torch.vio.fused import FusedVio
 
+    from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
+
     cfg = m3dgr_camera()
     fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
                   dev, tic=np.zeros(3), ric=checks.RIG_RIC,
                   tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
+    # the record's read is the tick's output reaching the host: the sync
+    # watch stops there
+    emit = fv._emit
+
+    def emit_unwatched(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        return emit(*a, **k)
+    fv._emit = emit_unwatched
     _kernels.launches.clear()
     tick_ms, est, gt, windows = [], [], [], []
+    full_syncs, sites_seen = [], collections.Counter()
+    branches = collections.Counter()
     launches_at_fused = None
     with CallCounter(torch.func, "jacfwd") as jac, \
             CallCounter(fac, "window_cost_plain") as plain_cost:
         for f in frames:
             fused = fv.carry is not None
+            full = fused and fv.frame_count >= NUM_FRAMES
             if fused and launches_at_fused is None:
                 launches_at_fused = dict(_kernels.launches)
                 at_fused = (jac.n, plain_cost.n)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            out = fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
-                                   wheel_vel=f["wheel"])
+            tick_sites = collections.Counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("always")
+                warnings.showwarning = sync_site(tick_sites)
+                if full:
+                    torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fv.process_image(f["t"], f["gray"], f["depth"],
+                                           f["imu"], wheel_vel=f["wheel"])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
+            if full:
+                full_syncs.append(sum(tick_sites.values()))
+                sites_seen.update(tick_sites)
+                branches["MARGIN_OLD" if out.is_keyframe
+                         else "MARGIN_SECOND_NEW"] += 1
             if fused:
                 tick_ms.append((time.perf_counter() - t1) * 1e3)
                 st = fv.carry.state
@@ -854,11 +894,21 @@ def camera_main_path(dev, card, frames):
     ate = float(metrics.ate_rmse(np.asarray(est), np.asarray(gt), align=True))
     print(f"camera path: {n_fused} fused ticks, median tick "
           f"{float(np.median(tick_ms[2:])):.2f} ms (synchronized wall, ticks "
-          f"3..{n_fused}), ATE {ate:.6f} m aligned over {len(est)} frames, "
+          f"3..{n_fused}), synchronizing calls on each of the "
+          f"{len(full_syncs)} ticks with the window full {full_syncs} (by "
+          f"call site {dict(sites_seen.most_common())}), their slides "
+          f"{dict(branches)}, ATE {ate:.6f} m aligned over {len(est)} frames, "
           f"during the fused ticks: torch.func.jacfwd calls {jac_fused}, "
           f"plain window-cost calls {cost_fused}; launches {launches}, during "
           f"fused ticks "
           f"{grew} | {card}", flush=True)
+    if any(full_syncs):
+        return (f"synchronizing calls on a camera tick with the window full: "
+                f"{full_syncs} ({dict(sites_seen.most_common())})", fv,
+                launches, None)
+    if min(branches["MARGIN_OLD"], branches["MARGIN_SECOND_NEW"]) < 1:
+        return (f"the full ticks took one slide only: {dict(branches)}", fv,
+                launches, None)
     if jac_fused:
         return (f"torch.func.jacfwd ran {jac_fused} times on the card", fv,
                 launches, None)
@@ -980,6 +1030,26 @@ def system_main_path(dev, card, frames):
               + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
                             for g in ("AK", "AL", "AM")}) + f" | {card}",
               flush=True)
+        cr = {k: split["by_range"].get(k, dict(ms=0.0, launches=0,
+                                                 port_ms=0.0, copies=0))
+              for k in CAMERA_RANGES}
+        kf = [bool(o.is_keyframe) for o in vio[-len(syncs_seen):]]
+        print("the camera tick by profiler range over the last 3 ticks "
+              "(device ms, kernel launches, of which the port's kernels' ms, "
+              "copies, a tick; printed only): "
+              + json.dumps({k: (round(v["ms"], 4), v["launches"],
+                                round(v["port_ms"], 4), v["copies"])
+                            for k, v in cr.items()})
+              + f"; their keyframe flags {kf} (MARGIN_OLD where set, both "
+              "marginalizations launched on every full tick, the skipped "
+              "one's kernels leaving at once); kernels AN, AO launches a tick "
+              + json.dumps({g: sum(split['port_kernel_launches_per_tick']
+                                   .get(n, 0) for n in KERNEL_GROUPS[g])
+                            for g in ("AN", "AO")})
+              + ", device ms a tick "
+              + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
+                            for g in ("AN", "AO")}) + f" | {card}",
+              flush=True)
         per_tick = split["port_kernel_launches_per_tick"]
         print(f"kernels D and E in the system tick: launches a LiDAR tick "
               f"D {per_tick.get('lio_assoc_kernel', 0):g}, E "
@@ -1019,16 +1089,21 @@ def system_main_path(dev, card, frames):
 
 
 def glue_checks(dev, frames, gf, frame) -> dict:
-    """Phase 8b: kernels AH (on ``frames`` 12 → 13, phase 4's), AI and AJ
-    (on ``gf``'s final fused window, phase 8's, and ``frame``'s IMU chunk)
-    against their plain routes on the card."""
+    """Phase 8b: kernels AH (on ``frames`` 12 → 13, phase 4's), AI, AJ, AN
+    and AO (on ``gf``'s final fused window, phase 8's, and ``frame``'s IMU
+    chunk) against their plain routes on the card; the slide chosen on the
+    device against the host's choice in both branches, and every predicated
+    kernel off its branch leaving its outputs untouched."""
     from ground_fusion2_tpu_torch import checks
     fv = gf.vio
     out = {"track_tail": checks.check_track_tail(
                dev, frames[12:14], fv.cam,
                (fv.tcfg.depth_range[0], fv.tcfg.depth_range[1])),
            "window_carry": checks.check_window_carry(dev, fv, frame),
-           "marg_schur": checks.check_marg_schur(dev, fv)}
+           "marg_schur": checks.check_marg_schur(dev, fv),
+           "lm_glue": checks.check_lm_glue(dev, fv),
+           "tick_glue": checks.check_tick_glue(dev, fv),
+           "device_slide": checks.check_device_slide(dev, fv)}
     return out
 
 
@@ -1100,12 +1175,14 @@ def gnss_main_path(dev, card):
         tic=frames[0]["tic"], ric=frames[0]["ric"], tio=np.zeros(3),
         rio=np.eye(3), device=dev)
     # every eigensolve's eigenvalues, to count those near the 1e-6 gates
+    # (on a full window both marginalizations launch, each on its branch:
+    # the skipped one's solves are left out once the drive has run)
     from ground_fusion2_tpu_torch.solver import marginalize as mg
-    eig_w, sym_eig = [], mg.sym_eig
+    solves, sym_eig = [], mg.sym_eig
 
-    def recording(A):
-        w, V = sym_eig(A)
-        eig_w.append(w)
+    def recording(A, *branch):
+        w, V = sym_eig(A, *branch)
+        solves.append((w, branch[0] if branch else None))
         return w, V
     mg.sym_eig = recording
     _kernels.launches.clear()
@@ -1129,6 +1206,8 @@ def gnss_main_path(dev, card):
               f"{split['launches_per_tick']:g} launches; by kernel "
               f"{json.dumps(split['by_kernel_ms_per_tick'])} | {card}",
               flush=True)
+    eig_w = [w for w, br in solves
+             if br is None or bool(br[0]) == bool(br[1])]
     near = [int(((w > 1e-7) & (w < 1e-5)).sum()) for w in eig_w]
     print(f"gnss path: {len(eig_w)} eigensolves in the marginalizations "
           f"(sizes {sorted({int(w.numel()) for w in eig_w})}), eigenvalues "
@@ -2110,10 +2189,20 @@ def main() -> int:
     if err or lin:
         return fail(err or lin)
 
-    # 8b. the tick's glue kernels AH, AI, AJ against their plain routes
+    # 8b. the tick's glue kernels AH, AI, AJ, AN, AO against their plain
+    # routes, the slide chosen on the device
     res_glue = glue_checks(dev, frames, sys_gf, sys_frames[-1])
     if report(res_glue):
         return 1
+    slide = res_glue.pop("device_slide")
+    print("the slide chosen on the device (phase 8's final window): each "
+          "marginalization's device ms and activities on its branch and "
+          "skipped (its kernels leaving at once, the cuBLAS products on "
+          "unwritten buffers; torch.profiler) "
+          + json.dumps(slide["branches"]) + "; chosen on the device equal "
+          "to the host's choice " + json.dumps(slide["chosen"])
+          + "; predicated kernels off their branch "
+          + json.dumps(slide["predicated"]) + f" | {card}", flush=True)
     res.update(res_glue)
 
     # 9. the loop-closure path, then M-O against their plain versions on

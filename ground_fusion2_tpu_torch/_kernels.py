@@ -41,7 +41,7 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
-    "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 5,
+    "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 5 + [_I, _P],
     "gf2_lio_assoc": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 4 + [_P] * 5,
     "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 4,
     "gf2_ct_icp_scratch": [_I],
@@ -53,8 +53,8 @@ _SIGNATURES = {
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
     "gf2_ransac_f": [_P] * 4 + [_I, _I, _F] + [_P] * 8,
-    "gf2_small_rows": [_P] * 13 + [_I] * 18 + [_F] * 4 + [_P] * 4,
-    "gf2_small_reduce": [_I] * 3 + [_P] * 12,
+    "gf2_small_rows": [_P] * 13 + [_I] * 18 + [_F] * 4 + [_P] * 4 + [_I, _P],
+    "gf2_small_reduce": [_I] * 3 + [_P] * 15 + [_I, _P],
     "gf2_brief_describe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P],
     "gf2_simhash": [_P, _P, _P, _I, _P, _P, _P],
     "gf2_hamming": [_P, _P, _I, _I, _P, _P],
@@ -69,10 +69,10 @@ _SIGNATURES = {
     "gf2_window_tests": ([_I] + [_P] * 5 + [_I] * 2 + [_P] * 6 + [_F] * 3
                          + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 5 + [_P] * 4),
     "gf2_window_update": ([_I] + [_P] * 8 + [_I] * 2 + [_P] * 5 + [_I]
-                          + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P]),
-    "gf2_chol_solve": [_P] * 5 + [_I] + [_P] * 4,
-    "gf2_sym_eig_f64": [_P, _I] + [_P] * 4 + [_I, _P],
-    "gf2_sym_eig_f32": [_P, _I] + [_P] * 4 + [_I, _P],
+                          + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P] * 2),
+    "gf2_chol_solve": [_P] * 5 + [_I] + [_P] * 6,
+    "gf2_sym_eig_f64": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
+    "gf2_sym_eig_f32": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "gf2_sqrt_info": [_P, _I, _I, _I, _P, _P],
     "gf2_icp_solve": [_P, _P, _I, _F, _P, _P],
     "gf2_degeneracy": [_P, _P, _I] + [_F] * 3 + [_P] * 4,
@@ -93,11 +93,12 @@ _SIGNATURES = {
                        + [_P]),
     "gf2_carry_write": [_I] + [_P] * 9,
     "gf2_carry_slide": [_I] + [_P] * 8 + [_I] + [_P] * 2 + [_I] + [_P] * 2,
-    "gf2_marg_gather": [_I, _I] + [_P] * 4 + [_I] * 3 + [_D] + [_P] * 5,
-    "gf2_marg_factors": [_I] + [_P] * 3 + [_I] + [_P] * 2,
-    "gf2_marg_scale": [_I] + [_P] * 2 + [_I] + [_P] * 2,
-    "gf2_marg_schur": [_I, _P, _I] + [_P] * 3 + [_I, _D] + [_P] * 4,
-    "gf2_marg_prior": [_I, _I] + [_P] * 4 + [_I, _P, _I] + [_P] * 4,
+    "gf2_marg_gather": ([_I, _I] + [_P] * 4 + [_I] * 3 + [_D] + [_P] * 5
+                        + [_I, _P]),
+    "gf2_marg_factors": [_I] + [_P] * 3 + [_I] + [_P] * 2 + [_I, _P],
+    "gf2_marg_scale": [_I] + [_P] * 2 + [_I] + [_P] * 2 + [_I, _P],
+    "gf2_marg_schur": [_I, _P, _I] + [_P] * 3 + [_I, _D] + [_P] * 4 + [_I, _P],
+    "gf2_marg_prior": [_I, _I] + [_P] * 4 + [_I, _P, _I] + [_P] * 4 + [_I, _P],
     "gf2_ct_points": [_P] * 6 + [_I] + [_P] * 2,
     "gf2_ct_weights": [_P] * 6 + [_I] + [_F] * 2 + [_P] * 2,
     "gf2_ct_step": ([_P] * 10 + [_F] * 3 + [_I] + [_P] * 2 + [_I]
@@ -113,6 +114,13 @@ _SIGNATURES = {
     "gf2_vm_ev_key": [_P] * 2 + [_I, _P, _F] + [_P] * 2,
     "gf2_lio_update_size": [],
     "gf2_lio_update": [_P] * 3,
+    "gf2_lm_pack": [_I] + [_P] * 8 + [_F] + [_P] * 3 + [_I] + [_P] * 2,
+    "gf2_lm_step": [_P] * 5 + [_I] + [_F] * 4 + [_P] * 3,
+    "gf2_lm_retract": [_P] * 5,
+    "gf2_lm_weigh": [_P] * 3 + [_I, _P, _I] + [_P] * 3,
+    "gf2_tick_pre": [_P] * 2 + [_I] * 3 + [_P],
+    "gf2_tick_post": [_P] * 2 + [_I] * 3 + [_F, _P],
+    "gf2_tick_track": [_P] * 5 + [_I] * 2 + [_F, _P],
 }
 
 
@@ -181,3 +189,18 @@ def check(err: int, name: str) -> None:
 
 def count(name: str) -> None:
     launches[name] += 1
+
+
+def branch_args(branch) -> tuple:
+    """The trailing ``(flag, want)`` arguments of a kernel that runs on the
+    camera tick's slide branch (``csrc/branch.cuh``): ``branch`` is the
+    keyframe flag kernel U leaves on the device (a one-element bool CUDA
+    tensor) and the value the kernel runs on, or None (always run: a null
+    byte)."""
+    import torch
+    if branch is None:
+        return ctypes.c_void_p(None), 0
+    flag, want = branch
+    if flag.dtype != torch.bool or flag.numel() != 1 or not flag.is_cuda:
+        raise ValueError("the slide's branch is a one-element bool CUDA tensor")
+    return ctypes.c_void_p(flag.data_ptr()), int(want)

@@ -33,6 +33,7 @@ from .lio import eskf as ekf
 from .lio import fused as lfu
 from .lio import voxel_map as vm
 from .sensors import window_preint as wp
+from .utils.profiling import STAGE_PREFIX
 from .vio.feature_window import to_factor_table
 from .vio.state import NUM_FRAMES, WindowLayout, WindowState
 from .core import lie
@@ -157,8 +158,11 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
                 torch.cuda._sleep(1)
                 fn()
             torch.cuda.synchronize()
+        # the profiler also lays the calls' ``stage`` ranges on the device's
+        # timeline (gpu_user_annotation): spans, not activities
         evs = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and not e.name.startswith(STAGE_PREFIX)),
                      key=lambda e: e.time_range.start)
         first = next((i for i, e in enumerate(evs) if MARKER in e.name), None)
         if first is not None and any(MARKER not in e.name
@@ -1448,9 +1452,9 @@ def check_sym_eig(device, systems: dict, timed: bool = True) -> dict:
         H64, g64 = H.double(), g.double()
         seen = []
 
-        def recording(A, kernel=mg.sym_eig):
+        def recording(A, branch=None, kernel=mg.sym_eig):
             seen.append(A.clone())
-            return kernel(A)
+            return kernel(A, branch)
         with _swapped(mg, "sym_eig", recording):
             pk = mg.marginalize(H64, g64, keep, drop)
         pk2 = mg.marginalize(H64, g64, keep, drop)
@@ -3815,3 +3819,347 @@ def check_lio_update(device, x: dict, rc_thresh: float,
                    **bound(4 * (343 + 30 + 40 + 394),
                            2 * (2 * 18 ** 3 + 2 * 18 * 6 * 6 + 600)))
     return res
+
+
+# ------------------------------------------------------------------ AN-AO
+SENTINEL = -7.25
+
+
+@contextlib.contextmanager
+def sentinel_allocations(value: float = SENTINEL):
+    """Within the block every ``torch.empty`` / ``torch.empty_like`` comes
+    back filled (floats with ``value``, bools True, ints -7), so the
+    outputs of a kernel that writes nothing keep the fill."""
+    empty, empty_like = torch.empty, torch.empty_like
+
+    def fill(t):
+        if t.dtype == torch.bool:
+            return t.fill_(True)
+        return t.fill_(value if t.dtype.is_floating_point else -7)
+    torch.empty = lambda *a, **k: fill(empty(*a, **k))
+    torch.empty_like = lambda *a, **k: fill(empty_like(*a, **k))
+    try:
+        yield
+    finally:
+        torch.empty, torch.empty_like = empty, empty_like
+
+
+def _untouched(*ts, value: float = SENTINEL) -> bool:
+    """Every entry still holds :func:`sentinel_allocations`' fill."""
+    def one(t):
+        if t.dtype == torch.bool:
+            return bool(t.all())
+        return bool((t == (value if t.dtype.is_floating_point
+                           else -7)).all())
+    return all(one(t) for t in ts)
+
+
+def _pack_fields(p) -> list:
+    out = list(p.rows) + [p.valid, p.track_valid, p.delta]
+    out += [t for t in (p.anchor32, p.free, p.lam) if t is not None]
+    return out
+
+
+def _solve_flags(cfg) -> dict:
+    from .vio import problem
+    return problem._fixed_flags(cfg, fix_yaw=not cfg.refine_gnss_yaw,
+                                fix_anchor=not cfg.refine_gnss_alignment)
+
+
+def check_lm_glue(device, fv, timed: bool = True) -> dict:
+    """Kernel AN's modes against their plain routes on ``fv``'s final
+    window (a live fused carry): the pack of a solve (as the tick's,
+    stationary with no prior: the frames' and the gauge's other branches,
+    with the frames' spacing left to its default, and from sources it
+    must convert first) and of MARGIN_OLD's relinearization; kernel L's reduce adding kernel
+    C's block against torch's sum of the two; the step accepting,
+    rejecting, on a tie, on a NaN cost, with λ at both clamps and updating
+    its cost and λ in place; the retraction of a solve-sized step, of a zero
+    step, of tiny and of large rotations; MARGIN_SECOND_NEW's weighed prior
+    rows. Every output ``torch.equal``. Timed per mode; the totals are a
+    tick's with the window full (two packs, eight steps, one retraction,
+    one weigh)."""
+    from .solver import lm_glue as lg
+    from .vio import problem
+    x, layout, cfg = fv.carry.state, fv.layout, fv.cfg.vio
+    meas = carry_measurements(fv)
+    flags = _solve_flags(cfg)
+    dev = x.p.device
+    one, zero = (torch.ones((), device=dev), torch.zeros((), device=dev))
+    still = meas._replace(stationary=one, prior=meas.prior._replace(
+        valid=zero))
+    runs = {}
+    for name, m, old in (("pack", meas, False),
+                         ("pack (stationary, no prior)", still, False),
+                         ("pack (frame_dt by default)",
+                          meas._replace(frame_dt=None), False),
+                         ("pack (MARGIN_OLD)", meas, True)):
+        fl = None if old else flags
+        runs[name] = (
+            lambda m=m, fl=fl, old=old: _pack_fields(lg.pack(
+                x, m, layout, cfg, fl, marg_old=old)),
+            lambda m=m, fl=fl, old=old: _pack_fields(lg.pack_plain(
+                x, m, layout, cfg, fl, marg_old=old)))
+    # sources the pack must convert first (float64 flags, a strided state
+    # field): each converted copy must outlive the launch
+    xc = x._replace(p=x.p.t().contiguous().t(), v=x.v.t().contiguous().t())
+    mc = meas._replace(imu_valid=meas.imu_valid.double(),
+                       wheel_valid=meas.wheel_valid.double(),
+                       plane_valid=meas.plane_valid.double())
+    runs["pack (converted sources)"] = (
+        lambda: _pack_fields(lg.pack(xc, mc, layout, cfg, flags)),
+        lambda: _pack_fields(lg.pack_plain(xc, mc, layout, cfg, flags)))
+    pk = lg.pack(x, meas, layout, cfg, flags)
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen)
+                                 * scale).to(dev)
+    D = layout.dim
+    delta = rnd(D, scale=0.01) * pk.free
+
+    def linearize_sum():
+        return problem.window_normal_fn(x, meas, layout, cfg, pk)(delta)
+
+    def linearize_torch():
+        small = fac.small_normal_fn(x, meas, layout, cfg, pk)
+        Hp, gp, cp = fac.projection_normal_equations(
+            x, delta, meas.feats, layout, cfg.proj_sqrt_info, cfg.huber_delta)
+        Hs, gs, cs = small(delta)
+        return Hp + Hs, gp + gs, cp + cs
+    runs["sum (L's reduce adding C's block)"] = (linearize_sum,
+                                                 linearize_torch)
+    trial = delta + rnd(D, scale=0.01)
+    nan = float("nan")
+    for name, c, nc, lam in (("step (accept)", 2.0, 1.0, 1e-4),
+                             ("step (reject)", 2.0, 3.0, 1e-4),
+                             ("step (tie)", 2.0, 2.0, 1e-4),
+                             ("step (NaN cost)", 2.0, nan, 1e-4),
+                             ("step (λ at 1e-9)", 2.0, 1.0, 1e-9),
+                             ("step (λ at 1e6)", 2.0, 3.0, 1e6)):
+        t = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+        runs[name] = (
+            lambda c=c, nc=nc, lam=lam: lg.step(
+                delta.clone(), trial, t(c), t(nc), t(lam), 0.3, 10.0,
+                torch.empty((2,), device=dev)),
+            lambda c=c, nc=nc, lam=lam: lg.step_plain(
+                delta.clone(), trial, t(c), t(nc), t(lam), 0.3, 10.0))
+
+    def step_in_place():
+        sc = torch.tensor([2.0, 1e-4], device=dev)
+        return lg.step(delta.clone(), trial, sc[0:1].reshape(()),
+                       torch.tensor(1.0, device=dev), sc[1:2].reshape(()),
+                       0.3, 10.0, sc)
+    runs["step (in place)"] = (step_in_place, lambda: lg.step_plain(
+        delta.clone(), trial, torch.tensor(2.0, device=dev),
+        torch.tensor(1.0, device=dev), torch.tensor(1e-4, device=dev), 0.3,
+        10.0))
+    for name, d in (("retract", delta),
+                    ("retract (zero step)", torch.zeros(D, device=dev)),
+                    ("retract (tiny rotations)", rnd(D, scale=1e-5)),
+                    ("retract (large rotations)", rnd(D, scale=0.5))):
+        runs[name] = (lambda d=d: tuple(lg.retract(layout, x, d)),
+                      lambda d=d: tuple(layout.retract(x, d)))
+    runs["weigh"] = (lambda: lg.weigh(meas.prior),
+                     lambda: lg.weigh_plain(meas.prior))
+    modes = {n: _glue_case(k, p) for n, (k, p) in runs.items()}
+    # timed: a step on inputs made once (it updates δ, the cost and λ in
+    # place, so each call accepts the same trial)
+    d_t, sc_t = delta.clone(), torch.empty((2,), device=dev)
+    c_t, nc_t, lam_t = (torch.tensor(v, device=dev) for v in (2.0, 1.0, 1e-4))
+    runs["step (accept)"] = (
+        lambda: lg.step(d_t, trial, c_t, nc_t, lam_t, 0.3, 10.0, sc_t),
+        lambda: lg.step_plain(d_t, trial, c_t, nc_t, lam_t, 0.3, 10.0))
+    res = dict(modes=modes, ok=all(m["ok"] for m in modes.values()),
+               max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+               library_ms=None, library_device_ms=None, tol="torch.equal")
+    F, W, K = layout.F, layout.W, layout.frame_dim
+    rows_b = _nbytes(*pk.rows[:8])
+    st_b = _nbytes(*x)
+    nbytes = {"pack": 2 * rows_b + 4 * (F * W + 4 * F + 3 * D),
+              "pack (MARGIN_OLD)": 2 * rows_b + 4 * (3 * F + 2 * D),
+              "step (accept)": 4 * (3 * D + 5),
+              "retract": 2 * st_b + 4 * D,
+              "weigh": 8 * (K * K + K)}
+    flops = {"pack": 0, "pack (MARGIN_OLD)": 0, "step (accept)": 4,
+             "retract": 60 * (W + 3) + 2 * D, "weigh": K * K + K}
+    runs = {n: runs[n] for n in nbytes}
+    return _glue_timed(res, runs, nbytes, flops,
+                       {"pack": 1, "pack (MARGIN_OLD)": 1, "step (accept)": 8,
+                        "retract": 1, "weigh": 1}, timed)
+
+
+def check_tick_glue(device, fv, timed: bool = True) -> dict:
+    """Kernel AO's modes against their plain routes on ``fv``'s final
+    window: track on the carry's tracks and a frame's 64 × F draws; pre
+    with the new column last and in the middle; post with and
+    without an anomaly, at the window's speeds, at rest and fast (the GNSS
+    gate both ways), at the last column and a middle one. Every output
+    ``torch.equal``. Timed per mode (one call of each a tick)."""
+    from .vio import tick_glue as tg
+    from .vio.feature_window import FrameObs
+    c, layout = fv.carry, fv.layout
+    st, F, W = c.state, layout.F, layout.W
+    dev = st.p.device
+    gen = torch.Generator(device="cpu").manual_seed(18)
+    bits = lambda n: (torch.rand(n, generator=gen) < 0.5).to(dev)
+    obs = FrameObs(ray=torch.zeros((F, 2), device=dev),
+                   vel=torch.zeros((F, 2), device=dev),
+                   depth=torch.zeros((F,), device=dev),
+                   alive=bits(F).float(), fresh=bits(F).float())
+    p_new, q_new, v_new = st.p[2] + 0.125, st.q[3].flip(0), st.v[4] * 2.0
+    b = lambda v: torch.tensor(v, device=dev)
+    done = bits(F)
+    gnss_on = torch.ones((), device=dev)
+    runs = {}
+    for col in (W - 1, W // 2):
+        runs[f"pre (col {col})"] = (
+            lambda col=col: tg.pre(obs, c.fw, c.rho_init, st.p, st.q, st.v,
+                                   p_new, q_new, v_new, col),
+            lambda col=col: tg.pre_plain(obs, c.fw, c.rho_init, st.p, st.q,
+                                         st.v, p_new, q_new, v_new, col))
+    for name, an, v, col in (("post", False, st.v, W - 1),
+                             ("post (anomaly)", True, st.v, W - 1),
+                             ("post (at rest)", False, st.v * 0.0, W - 1),
+                             ("post (fast, col 5)", True, st.v * 50.0 + 1.0,
+                              5)):
+        args = (c.wheel_valid, b(an), b(not an), done, c.rho_init, c.times,
+                v.contiguous(), gnss_on, col, fv.cfg.gnss_low_speed)
+        runs[name] = (lambda args=args: tg.post(*args),
+                      lambda args=args: tg.post_plain(*args))
+    from .frontend.ransac import uniform_draws
+    u = uniform_draws(12, 64, F, dev)
+    tracked = bits(F).float()
+    runs["track"] = (lambda: tg.track(c.tracker.alive, tracked, u),
+                     lambda: tg.track_plain(c.tracker.alive, tracked, u))
+    modes = {n: _glue_case(k, p) for n, (k, p) in runs.items()}
+    gates = {n: float(tg.post(*a)[3]) for n, a in (
+        ("at rest", (c.wheel_valid, b(False), b(True), done, c.rho_init,
+                     c.times, (st.v * 0.0).contiguous(), gnss_on, W - 1,
+                     fv.cfg.gnss_low_speed)),
+        ("fast", (c.wheel_valid, b(False), b(True), done, c.rho_init,
+                  c.times, (st.v * 50.0 + 1.0).contiguous(), gnss_on, W - 1,
+                  fv.cfg.gnss_low_speed)))}
+    res = dict(modes=modes, gates=gates,
+               ok=all(m["ok"] for m in modes.values())
+               and gates == {"at rest": 0.0, "fast": 1.0},
+               max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+               library_ms=None, library_device_ms=None, tol="torch.equal")
+    nbytes = {"track": 4 * (3 * F + 2 * 64 * F),
+              f"pre (col {W - 1})": 4 * (6 * F + 20 * W + 10),
+              "post": 4 * (2 * F + 5 * W + 2) + F + 2}
+    flops = {"track": F + 4 * 64 * F, f"pre (col {W - 1})": F,
+             "post": F + 10 * W}
+    runs = {n: runs[n] for n in nbytes}
+    return _glue_timed(res, runs, nbytes, flops,
+                       {"track": 1, f"pre (col {W - 1})": 1, "post": 1}, timed)
+
+
+def check_device_slide(device, fv, timed: bool = True) -> dict:
+    """The slide chosen on the device against the host's choice, on
+    ``fv``'s final window: for each keyframe flag, the prior of
+    ``problem.marginalize_chosen`` (both branches launched) and the window
+    of ``feature_window.slide_chosen`` (kernel V's mode 3) ``torch.equal``
+    to MARGIN_OLD's or MARGIN_SECOND_NEW's alone. Then every predicated
+    kernel off its branch, its outputs from :func:`sentinel_allocations`:
+    AN's pack and weigh, C, L, X and AJ (the whole marginalization into a
+    sentinel prior) leave them untouched, and on its branch give the
+    unpredicated call's bits. Timed: each marginalization's device ms on
+    its branch and skipped (its predicated kernels and the cuBLAS products
+    on unwritten buffers)."""
+    from .solver import lm_glue as lg
+    from .solver import marginalize as mg
+    from .solver.marginalize import MargPrior
+    from .vio import feature_window as fwin
+    from .vio import problem
+    c, layout, cfg = fv.carry, fv.layout, fv.cfg.vio
+    x = c.state
+    meas = carry_measurements(fv)
+    dev = x.p.device
+    flag = lambda v: torch.tensor(v, device=dev)
+    chosen = {}
+    for name, kf in (("MARGIN_OLD", True), ("MARGIN_SECOND_NEW", False)):
+        host = (problem.marginalize_oldest(x, meas, layout, cfg) if kf else
+                problem.marginalize_second_newest(meas.prior, layout))
+        got = problem.marginalize_chosen(x, meas, layout, cfg, flag(kf))
+        slide = fwin.slide_oldest if kf else fwin.slide_second_newest
+        fw_h, rho_h = slide(c.fw, x, x.rho)
+        fw_d, rho_d = fwin.slide_chosen(c.fw, x, x.rho, flag(kf))
+        eq_p = [bool(torch.equal(a, b)) for a, b in zip(got, host)]
+        eq_w = [bool(torch.equal(a, b)) for a, b in
+                zip(list(fw_d) + [rho_d], list(fw_h) + [rho_h])]
+        chosen[name] = dict(prior_equal=all(eq_p), window_equal=all(eq_w),
+                            ok=all(eq_p) and all(eq_w))
+    H, g, fixed = problem._marg_old_inputs(x, meas, layout, cfg)
+    plan = problem.marg_old_plan(layout, dev)
+    pk = lg.pack(x, meas, layout, cfg, marg_old=True)
+    A = (H[:64, :64] + H[:64, :64].T).double().contiguous()
+    K = layout.frame_dim
+    on_old, off_old = (flag(True), 1), (flag(False), 1)
+    on_sec, off_sec = (flag(False), 0), (flag(True), 0)
+    zero_d = torch.zeros((layout.dim,), device=dev)
+
+    def prior_out():
+        return MargPrior(torch.empty((K, K), device=dev),
+                         torch.empty((K,), device=dev),
+                         torch.empty((), device=dev))
+    calls = {
+        "AN pack (MARGIN_OLD)": lambda br: (lambda p: p.rows[:8] + [
+            p.track_valid, p.delta])(lg.pack(x, meas, layout, cfg,
+                                             marg_old=True, branch=br)),
+        "C": lambda br: fac.projection_normal_equations(
+            x, zero_d, meas.feats, layout, cfg.proj_sqrt_info,
+            cfg.huber_delta, branch=br),
+        "L": lambda br: fac.small_normal_fn(x, meas, layout, cfg, pk, br)(
+            zero_d),
+        "X": lambda br: mg.sym_eig(A, br),
+        "AJ (with X)": lambda br: mg.marginalize_plan(
+            H, g, plan, fixed=fixed, branch=br, out=prior_out()),
+    }
+    second = {"AN weigh": lambda br: lg.weigh(meas.prior, br),
+              "AJ (with X), MARGIN_SECOND_NEW": lambda br:
+              problem.marginalize_second_newest(meas.prior, layout, br,
+                                                prior_out())}
+    predicated = {}
+    # on the CPU every route is plain and takes no branch
+    items = (list(calls.items()) + list(second.items())
+             if dev.type == "cuda" else [])
+    for name, fn in items:
+        on, off = (on_sec, off_sec) if name in second else (on_old, off_old)
+        with sentinel_allocations():
+            kept = _untouched(*_flat(fn(off)))
+        ran, ref = _flat(fn(on)), _flat(fn(None))
+        same = all(bool(torch.equal(a, b)) for a, b in zip(ran, ref))
+        predicated[name] = dict(untouched_off_branch=kept,
+                                equal_on_branch=same, ok=kept and same)
+    res = dict(chosen=chosen, predicated=predicated,
+               ok=all(v["ok"] for v in chosen.values())
+               and all(v["ok"] for v in predicated.values()),
+               max_abs_err=0.0, tol="torch.equal")
+    if timed:
+        t = {}
+        for name, fn in (
+                ("MARGIN_OLD", lambda br: problem.marginalize_oldest(
+                    x, meas, layout, cfg, br, prior_out())),
+                ("MARGIN_SECOND_NEW", lambda br:
+                 problem.marginalize_second_newest(meas.prior, layout, br,
+                                                   prior_out()))):
+            on, off = (on_old, off_old) if name == "MARGIN_OLD" else (
+                on_sec, off_sec)
+            d_on, d_off = device_ms(lambda: fn(on)), device_ms(lambda: fn(off))
+            top = lambda d: dict(sorted(d.kernels.items(),
+                                        key=lambda kv: -kv[1])[:4])
+            t[name] = dict(device_ms=d_on.ms, launches=d_on.launches,
+                           skipped_device_ms=d_off.ms,
+                           skipped_launches=d_off.launches,
+                           ms=time_ms(lambda: fn(on)),
+                           skipped_ms=time_ms(lambda: fn(off)),
+                           skipped_top=top(d_off), top=top(d_on))
+        res["branches"] = t
+    return res
+
+
+def _flat(v) -> list:
+    if v is None:
+        return []
+    if isinstance(v, torch.Tensor):
+        return [v]
+    return [t for x in v for t in _flat(x)]

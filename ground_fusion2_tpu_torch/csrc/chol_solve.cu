@@ -283,7 +283,8 @@ __device__ __forceinline__ void cl_factor(const ClShared& s, int rank, int k, in
 __global__ void __launch_bounds__(kClThreads)
 chol_cluster_kernel(const float* __restrict__ H, const float* __restrict__ g,
                     const float* __restrict__ lam_p, const float* __restrict__ fm,
-                    const float* __restrict__ dd, int n, float* __restrict__ dx) {
+                    const float* __restrict__ dd, int n, float* __restrict__ dx,
+                    const float* __restrict__ base, float* __restrict__ trial) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   cg::cluster_group cluster = cg::this_cluster();
@@ -431,7 +432,9 @@ chol_cluster_kernel(const float* __restrict__ H, const float* __restrict__ g,
     const int gi = i * NB + tid;
     if (gi < n) {
       const float v = failed ? nan_f() : __fmul_rn(-s.dv[gi], s.z[slot * NB + tid]);
-      dx[gi] = __fmul_rn(v, fm[gi]);
+      const float x = __fmul_rn(v, fm[gi]);
+      dx[gi] = x;
+      if (trial) trial[gi] = __fadd_rn(base[gi], x);
     }
   }
   cluster.sync();   // no CTA leaves while another reads its shared memory
@@ -652,7 +655,8 @@ __global__ void __launch_bounds__(kBackThreads)
 chol_back_kernel(const float* __restrict__ A, int n, int np,
                  const float* __restrict__ bg, const float* __restrict__ dvg,
                  const float* __restrict__ flag, const float* __restrict__ fm,
-                 float* __restrict__ dx) {
+                 float* __restrict__ dx, const float* __restrict__ base,
+                 float* __restrict__ trial) {
   __shared__ float bs[kCoopMaxN];
   __shared__ float LI[2][TILE];
   __shared__ float zs[NB];
@@ -691,7 +695,9 @@ chol_back_kernel(const float* __restrict__ A, int n, int np,
   const bool failed = *flag != 0.f;
   for (int i = tid; i < n; i += kBackThreads) {
     const float v = failed ? nan_f() : __fmul_rn(-dvg[i], bs[i]);
-    dx[i] = __fmul_rn(v, fm[i]);
+    const float x = __fmul_rn(v, fm[i]);
+    dx[i] = x;
+    if (trial) trial[i] = __fadd_rn(base[i], x);
   }
 }
 
@@ -722,10 +728,13 @@ constexpr int kClShmem =
 // H [n, n] f32, g [n], lam [1] (device), fm [n] (1 free, 0 pinned), dd [n]
 // the damping diagonal or nullptr (diag Hm); dx [n] out. n ≤ 4096. For
 // n > 512 the cooperative mode's scratch: A [np, np] and b [2·np + 1] f32,
-// np = n rounded up to 32 (unused, may be null, for n ≤ 512).
+// np = n rounded up to 32 (unused, may be null, for n ≤ 512). base [n]
+// and trial [n], or both null: the epilogue also writes trial = base + dx,
+// the LM's trial step (the sum `delta + dx` rounds).
 extern "C" int gf2_chol_solve(const float* H, const float* g, const float* lam,
                               const float* fm, const float* dd, int n, float* A,
-                              float* b, float* dx, void* stream) {
+                              float* b, float* dx, const float* base,
+                              float* trial, void* stream) {
   if (n < 1 || n > kCoopMaxN) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (n <= kClMaxN) {
@@ -749,7 +758,7 @@ extern "C" int gf2_chol_solve(const float* H, const float* g, const float* lam,
     cfg.attrs = at;
     cfg.numAttrs = 1;
     const cudaError_t e = cudaLaunchKernelEx(&cfg, chol_cluster_kernel, H, g, lam, fm,
-                                             dd, n, dx);
+                                             dd, n, dx, base, trial);
     if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
   }
@@ -766,6 +775,7 @@ extern "C" int gf2_chol_solve(const float* H, const float* g, const float* lam,
   cudaError_t e = cudaLaunchCooperativeKernel((const void*)chol_coop_kernel, dim3(G),
                                               dim3(kCoopThreads), args, 0, s);
   if (e != cudaSuccess) return (int)e;
-  chol_back_kernel<<<1, kBackThreads, 0, s>>>(A, n, np, bg, dvg, flag, fm, dx);
+  chol_back_kernel<<<1, kBackThreads, 0, s>>>(A, n, np, bg, dvg, flag, fm, dx, base,
+                                              trial);
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,10 @@
 // views of Hp): the plain route's bits. Hdd⁻¹ has to be materialized
 // between two products for that, so the scale is a launch of its own.
 //
+// On a full window the fused tick launches both marginalizations; each
+// launch takes the slide's branch byte (csrc/branch.cuh) and, off its
+// branch, writes nothing, so both write one prior's buffers.
+//
 // Bounds on the card: the gather reads a 396² float32 H and writes ~1.5
 // MB of float64 blocks; the other modes read and write one n² block each
 // (n = 226 or 170, MARGIN_OLD); a few operations an element. Bytes bound
@@ -42,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "branch.cuh"
 
 namespace {
 
@@ -82,7 +88,8 @@ marg_gather_kernel(const TH* __restrict__ H, const TH* __restrict__ g,
                    const TH* __restrict__ fixed,
                    const int64_t* __restrict__ perm, int D, int n, int k,
                    T floor, T* __restrict__ Hp, T* __restrict__ Hsym,
-                   T* __restrict__ gp, T* __restrict__ dinv) {
+                   T* __restrict__ gp, T* __restrict__ dinv, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   const int d = n - k;
   const int64_t total = (int64_t)n * n + (int64_t)d * d + n + d;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
@@ -120,7 +127,9 @@ marg_gather_kernel(const TH* __restrict__ H, const TH* __restrict__ g,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 marg_factors_kernel(const T* __restrict__ w, const T* __restrict__ V,
-                    const T* __restrict__ dinv, int d, T* __restrict__ A) {
+                    const T* __restrict__ dinv, int d, T* __restrict__ A,
+                    gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   const int64_t total = (int64_t)d * d;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x) {
@@ -135,7 +144,8 @@ marg_factors_kernel(const T* __restrict__ w, const T* __restrict__ V,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 marg_scale_kernel(const T* __restrict__ M, const T* __restrict__ dinv, int d,
-                  T* __restrict__ out) {
+                  T* __restrict__ out, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   const int64_t total = (int64_t)d * d;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x)
@@ -147,7 +157,8 @@ __global__ void __launch_bounds__(kThreads)
 marg_schur_kernel(const T* __restrict__ Hp, int ld, const T* __restrict__ P,
                   const T* __restrict__ gk, const T* __restrict__ q, int k,
                   T floor, T* __restrict__ Hs_eq, T* __restrict__ dk,
-                  T* __restrict__ u) {
+                  T* __restrict__ u, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   const int64_t total = (int64_t)k * k + k;
   // Hkk = Hp[:k, :k] (leading dimension ld), P [k, k]
   auto hs = [&](int i, int j) {
@@ -178,7 +189,8 @@ marg_prior_kernel(const T* __restrict__ w, const T* __restrict__ V,
              const T* __restrict__ dk, const T* __restrict__ y, int k,
              const int* __restrict__ new_to_old, int nd,
              TO* __restrict__ sqrt_J, TO* __restrict__ r0,
-             TO* __restrict__ valid) {
+             TO* __restrict__ valid, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   const int64_t total = (int64_t)nd * nd + nd;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (int64_t)gridDim.x * blockDim.x) {
@@ -218,7 +230,9 @@ int blocks(int64_t n) {
 extern "C" int gf2_marg_gather(int t64, int h64, const void* H, const void* g,
                                const void* fixed, const int64_t* perm, int D,
                                int n, int k, double floor, void* Hp,
-                               void* Hsym, void* gp, void* dinv, void* stream) {
+                               void* Hsym, void* gp, void* dinv,
+                               const uint8_t* branch, int want, void* stream) {
+  const gf2b::Branch br{branch, want};
   if (k <= 0 || k >= n || n > D) return (int)cudaErrorInvalidValue;
   const int d = n - k;
   const int64_t total = (int64_t)n * n + (int64_t)d * d + n + d;
@@ -226,7 +240,7 @@ extern "C" int gf2_marg_gather(int t64, int h64, const void* H, const void* g,
 #define GF2_GATHER(TH, T)                                                     \
   marg_gather_kernel<TH, T><<<blocks(total), kThreads, 0, s>>>(               \
       (const TH*)H, (const TH*)g, (const TH*)fixed, perm, D, n, k, (T)floor,  \
-      (T*)Hp, (T*)Hsym, (T*)gp, (T*)dinv)
+      (T*)Hp, (T*)Hsym, (T*)gp, (T*)dinv, br)
   if (t64 && h64) GF2_GATHER(double, double);
   else if (t64) GF2_GATHER(float, double);
   else if (h64) GF2_GATHER(double, float);
@@ -237,27 +251,30 @@ extern "C" int gf2_marg_gather(int t64, int h64, const void* H, const void* g,
 
 extern "C" int gf2_marg_factors(int t64, const void* w, const void* V,
                                 const void* dinv, int d, void* A,
-                                void* stream) {
+                                const uint8_t* branch, int want, void* stream) {
+  const gf2b::Branch br{branch, want};
   cudaStream_t s = (cudaStream_t)stream;
   if (t64)
     marg_factors_kernel<double><<<blocks((int64_t)d * d), kThreads, 0, s>>>(
         (const double*)w, (const double*)V, (const double*)dinv, d,
-        (double*)A);
+        (double*)A, br);
   else
     marg_factors_kernel<float><<<blocks((int64_t)d * d), kThreads, 0, s>>>(
-        (const float*)w, (const float*)V, (const float*)dinv, d, (float*)A);
+        (const float*)w, (const float*)V, (const float*)dinv, d, (float*)A, br);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gf2_marg_scale(int t64, const void* M, const void* dinv, int d,
-                              void* out, void* stream) {
+                              void* out, const uint8_t* branch, int want,
+                              void* stream) {
+  const gf2b::Branch br{branch, want};
   cudaStream_t s = (cudaStream_t)stream;
   if (t64)
     marg_scale_kernel<double><<<blocks((int64_t)d * d), kThreads, 0, s>>>(
-        (const double*)M, (const double*)dinv, d, (double*)out);
+        (const double*)M, (const double*)dinv, d, (double*)out, br);
   else
     marg_scale_kernel<float><<<blocks((int64_t)d * d), kThreads, 0, s>>>(
-        (const float*)M, (const float*)dinv, d, (float*)out);
+        (const float*)M, (const float*)dinv, d, (float*)out, br);
   return (int)cudaGetLastError();
 }
 
@@ -265,18 +282,19 @@ extern "C" int gf2_marg_scale(int t64, const void* M, const void* dinv, int d,
 extern "C" int gf2_marg_schur(int t64, const void* Hp, int ld, const void* P,
                               const void* gk, const void* q, int k,
                               double floor, void* Hs_eq, void* dk, void* u,
-                              void* stream) {
+                              const uint8_t* branch, int want, void* stream) {
+  const gf2b::Branch br{branch, want};
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t total = (int64_t)k * k + k;
   if (t64)
     marg_schur_kernel<double><<<blocks(total), kThreads, 0, s>>>(
         (const double*)Hp, ld, (const double*)P, (const double*)gk,
-        (const double*)q, k, floor, (double*)Hs_eq, (double*)dk, (double*)u);
+        (const double*)q, k, floor, (double*)Hs_eq, (double*)dk, (double*)u, br);
   else
     marg_schur_kernel<float><<<blocks(total), kThreads, 0, s>>>(
         (const float*)Hp, ld, (const float*)P, (const float*)gk,
         (const float*)q, k, (float)floor, (float*)Hs_eq, (float*)dk,
-        (float*)u);
+        (float*)u, br);
   return (int)cudaGetLastError();
 }
 
@@ -284,14 +302,16 @@ extern "C" int gf2_marg_schur(int t64, const void* Hp, int ld, const void* P,
 extern "C" int gf2_marg_prior(int t64, int o64, const void* w, const void* V,
                               const void* dk, const void* y, int k,
                               const int* new_to_old, int nd, void* sqrt_J,
-                              void* r0, void* valid, void* stream) {
+                              void* r0, void* valid, const uint8_t* branch,
+                              int want, void* stream) {
+  const gf2b::Branch br{branch, want};
   if (nd < k) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int64_t total = (int64_t)nd * nd + nd;
 #define GF2_PRIOR(T, TO)                                                      \
   marg_prior_kernel<T, TO><<<blocks(total), kThreads, 0, s>>>(                     \
       (const T*)w, (const T*)V, (const T*)dk, (const T*)y, k, new_to_old, nd, \
-      (TO*)sqrt_J, (TO*)r0, (TO*)valid)
+      (TO*)sqrt_J, (TO*)r0, (TO*)valid, br)
   if (t64 && o64) GF2_PRIOR(double, double);
   else if (t64) GF2_PRIOR(double, float);
   else if (o64) GF2_PRIOR(float, double);

@@ -43,6 +43,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "branch.cuh"
 #include "window_rows.cuh"
 
 namespace {
@@ -67,7 +68,8 @@ __global__ void proj_feature_kernel(
     int F, int W, int pose_off, int cam_off, int td_off, int rho_off,
     float sqrt_info, float huber_delta, float min_depth,
     float* __restrict__ part_H, float* __restrict__ part_g,
-    float* __restrict__ part_c) {
+    float* __restrict__ part_c, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   __shared__ float sjx[kMaxW][kCols], sjy[kMaxW][kCols];
   __shared__ float sr[kMaxW][2], sw2[kMaxW];
   __shared__ int sok[kMaxW];
@@ -200,7 +202,8 @@ __global__ void proj_reduce_kernel(const float* __restrict__ part_H,
                                    int W, int D, int pose_off, int cam_off,
                                    int td_off, int rho_off, int n_sum,
                                    float* __restrict__ H, float* __restrict__ g,
-                                   float* __restrict__ cost) {
+                                   float* __restrict__ cost, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   const int L = 6 * W + 8, S = L - 1;
   if ((int)blockIdx.x < n_sum) {
     const int t = blockIdx.x * kReduceThreads + threadIdx.x;
@@ -267,7 +270,8 @@ __global__ void proj_reduce_kernel(const float* __restrict__ part_H,
 }  // namespace
 
 // part: scratch of F·(L² + L + 1) floats, L = 6·W + 8. Every entry of H,
-// g and cost is written.
+// g and cost is written, on the slide's branch (csrc/branch.cuh: a null
+// byte runs always; off its branch neither launch writes anything).
 extern "C" int gf2_proj_normal(
     const float* p, const float* q, const float* tic, const float* qic,
     const float* td, const float* rho, const float* delta, const float* ray,
@@ -275,7 +279,8 @@ extern "C" int gf2_proj_normal(
     const float* track_valid, int F, int W, int D, int pose_off, int cam_off,
     int td_off, int rho_off, float sqrt_info, float huber_delta,
     float min_depth, float* part, float* H, float* g, float* cost,
-    void* stream) {
+    const uint8_t* branch, int want, void* stream) {
+  const gf2b::Branch br{branch, want};
   cudaStream_t s = (cudaStream_t)stream;
   if (W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
   const int L = 6 * W + 8, S = L - 1;
@@ -286,12 +291,12 @@ extern "C" int gf2_proj_normal(
     proj_feature_kernel<<<F, 32 * W, 0, s>>>(
         p, q, tic, qic, td, rho, delta, ray, vel, obs_valid, anchor,
         track_valid, F, W, pose_off, cam_off, td_off, rho_off, sqrt_info,
-        huber_delta, min_depth, part_H, part_g, part_c);
+        huber_delta, min_depth, part_H, part_g, part_c, br);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int n_sum = (S * S + S + 1 + kReduceThreads - 1) / kReduceThreads;
   proj_reduce_kernel<<<n_sum + kFillBlocks, kReduceThreads, 0, s>>>(
       part_H, part_g, part_c, F, W, D, pose_off, cam_off, td_off, rho_off,
-      n_sum, H, g, cost);
+      n_sum, H, g, cost, br);
   return (int)cudaGetLastError();
 }

@@ -66,6 +66,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "branch.cuh"
 #include "window_rows.cuh"
 
 namespace {
@@ -219,7 +220,8 @@ small_rows_kernel(Lay L, int n_inst, int factor_blocks, int cost_blocks,
                   const float* __restrict__ sqrtJ, const float* __restrict__ r0,
                   const float* __restrict__ valid, float* __restrict__ part_H,
                   float* __restrict__ part_g, double* __restrict__ part_c,
-                  float* __restrict__ Jw, float* __restrict__ rw) {
+                  float* __restrict__ Jw, float* __restrict__ rw, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   __shared__ float sJ[kWarps][kMaxRows][kLanes];
   __shared__ float sr[kWarps][kMaxRows];
   extern __shared__ float dyn[];   // the prior's dx [fd] and B [9·(W+3)]
@@ -267,9 +269,16 @@ small_reduce_kernel(int n_inst, int fd, int D, int row_blocks,
                     const float* __restrict__ part_H, const float* __restrict__ part_g,
                     const double* __restrict__ part_c, const float* __restrict__ G,
                     const float* __restrict__ gv, const float* __restrict__ rw,
-                    float* __restrict__ H, float* __restrict__ g,
-                    float* __restrict__ cost) {
+                    const float* __restrict__ addH, const float* __restrict__ addg,
+                    const float* __restrict__ addc, float* __restrict__ H,
+                    float* __restrict__ g, float* __restrict__ cost, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   extern __shared__ float s_row[];   // [kWarps][fd]
+  // with kernel C's block (addH, addg, addc), each output is C's entry
+  // plus this one, the sum `Hp + Hs` of vio/problem.py rounds
+  auto plus = [](const float* a, size_t i, float v) {
+    return a != nullptr ? __fadd_rn(a[i], v) : v;
+  };
   const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
   if ((int)blockIdx.x < row_blocks) {
     const int r = blockIdx.x * kWarps + warp;
@@ -313,17 +322,20 @@ small_reduce_kernel(int n_inst, int fd, int D, int row_blocks,
       load(p + kBatch, ln, llr);
     }
     for (int c = lane; c < fd; c += kLanes)
-      H[(size_t)r * D + c] = __fadd_rn(row[c], G[(size_t)r * fd + c]);
-    for (int c = fd + lane; c < D; c += kLanes) H[(size_t)r * D + c] = 0.f;
-    if (lane == 0) g[r] = __fadd_rn(ga, gv[r]);
+      H[(size_t)r * D + c] =
+          plus(addH, (size_t)r * D + c, __fadd_rn(row[c], G[(size_t)r * fd + c]));
+    for (int c = fd + lane; c < D; c += kLanes)
+      H[(size_t)r * D + c] = plus(addH, (size_t)r * D + c, 0.f);
+    if (lane == 0) g[r] = plus(addg, r, __fadd_rn(ga, gv[r]));
     return;
   }
   const int zb = gridDim.x - row_blocks, z = blockIdx.x - row_blocks;
   const long long n0 = (long long)fd * D, nz = (long long)D * D - n0;
   for (long long t = (long long)z * kThreads + threadIdx.x; t < nz;
        t += (long long)zb * kThreads)
-    H[n0 + t] = 0.f;
-  for (int r = fd + z * kThreads + threadIdx.x; r < D; r += zb * kThreads) g[r] = 0.f;
+    H[n0 + t] = plus(addH, n0 + t, 0.f);
+  for (int r = fd + z * kThreads + threadIdx.x; r < D; r += zb * kThreads)
+    g[r] = plus(addg, r, 0.f);
   if (z == zb - 1 && warp == 0) {
     double c = 0.0;
     double x = lane < n_inst ? part_c[lane] : 0.0;
@@ -347,7 +359,7 @@ small_reduce_kernel(int n_inst, int fd, int D, int row_blocks,
     }
     float v = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), a[2]), a[3]);
     for (int o = 1; o < kLanes; o <<= 1) v = __fadd_rn(v, __shfl_down_sync(kFull, v, o));
-    if (lane == 0) cost[0] = __fadd_rn((float)c, __fmul_rn(0.5f, v));
+    if (lane == 0) cost[0] = plus(addc, 0, __fadd_rn((float)c, __fmul_rn(0.5f, v)));
   }
 }
 
@@ -370,7 +382,8 @@ extern "C" int gf2_small_rows(
     int wext_off, int wint_off, int cam2_off, int gdt_off, int gddt_off,
     int gyaw_off, int ganchor_off, int S, int use_wheel, int use_plane,
     int use_motion, int use_gnss, float g_norm, float plane_w, float motion_w,
-    float posvel_w, float* scratch, float* Jw, float* rw, void* stream) {
+    float posvel_w, float* scratch, float* Jw, float* rw, const uint8_t* branch,
+    int want, void* stream) {
   const Lay L = make_lay(W, D, fd, pose_off, sb_off, cam_off, wext_off, wint_off,
                          cam2_off, gdt_off, gddt_off, gyaw_off, ganchor_off, S,
                          use_wheel, use_plane, use_motion, use_gnss);
@@ -389,18 +402,24 @@ extern "C" int gf2_small_rows(
                       (cudaStream_t)stream>>>(
       L, n, factor_blocks, cost_blocks, lcol, xs, imu, whl, misc, delta, gx, gtab,
       g_norm, plane_w, motion_w, posvel_w, pbase, pq, sqrtJ, r0, valid, part_H,
-      part_g, part_c, Jw, rw);
+      part_g, part_c, Jw, rw, gf2b::Branch{branch, want});
   return (int)cudaGetLastError();
 }
 
 // Launch 2. rowptr [fd + 1], rinst/rlane [nnz], lcol [n_inst, 32]: the
 // layout's tables; scratch as launch 1 left it; G [fd, fd], gv [fd]: the
-// prior's Jwᵀ·Jw and Jwᵀ·rw; rw [fd]. Writes H [D, D], g [D], cost [1].
+// prior's Jwᵀ·Jw and Jwᵀ·rw; rw [fd]; addH [D, D], addg [D], addc [1]:
+// kernel C's projection block, added to each output (or all null). Writes
+// H [D, D], g [D], cost [1]. Both launches run on the slide's branch
+// (csrc/branch.cuh; a null byte: always).
 extern "C" int gf2_small_reduce(int n_inst, int fd, int D, const int* rowptr,
                                 const int* rinst, const int* rlane, const int* lcol,
                                 const float* scratch, const float* G,
-                                const float* gv, const float* rw, float* H,
-                                float* g, float* cost, void* stream) {
+                                const float* gv, const float* rw,
+                                const float* addH, const float* addg,
+                                const float* addc, float* H, float* g,
+                                float* cost, const uint8_t* branch, int want,
+                                void* stream) {
   if (n_inst < 1 || fd < 1 || D < fd) return (int)cudaErrorInvalidValue;
   const float* part_H = scratch;
   const float* part_g = part_H + (size_t)n_inst * kLanes * kLanes;
@@ -414,6 +433,6 @@ extern "C" int gf2_small_reduce(int n_inst, int fd, int D, const int* rowptr,
   if (dyn > 48 * 1024) return (int)cudaErrorInvalidValue;
   small_reduce_kernel<<<row_blocks + zero_blocks, kThreads, dyn, (cudaStream_t)stream>>>(
       n_inst, fd, D, row_blocks, rowptr, rinst, rlane, lcol, part_H, part_g,
-      part_c, G, gv, rw, H, g, cost);
+      part_c, G, gv, rw, addH, addg, addc, H, g, cost, gf2b::Branch{branch, want});
   return (int)cudaGetLastError();
 }

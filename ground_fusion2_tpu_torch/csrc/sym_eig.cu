@@ -57,6 +57,8 @@
 // grid barriers and their serial deflation scans.
 
 #include <cooperative_groups.h>
+
+#include "branch.cuh"
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -243,7 +245,8 @@ __host__ __device__ inline size_t tri_colp(int n) {
 template <typename T, bool SMEM>
 __global__ void __launch_bounds__(kTriThreads)
 tridiag_kernel(const T* __restrict__ Ain, int n, T* __restrict__ Pg, T* __restrict__ d,
-               T* __restrict__ e, T* __restrict__ beta) {
+               T* __restrict__ e, T* __restrict__ beta, gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* xs = reinterpret_cast<T*>(smem_raw);   // [2][n]
   T* ps = xs + 2 * n;                       // [n]
@@ -863,7 +866,9 @@ __host__ __device__ constexpr int kLocWords() {
 template <typename T>
 __global__ void __launch_bounds__(kDcThreads, 1)
 dc_kernel(int n, const T* __restrict__ d, const T* __restrict__ e, int max_iters,
-          DcWork<T> wk) {
+          DcWork<T> wk, gf2b::Branch br) {
+  // off the branch every CTA leaves before the first grid barrier
+  if (gf2b::off_branch(br)) return;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T As[kT][kT + 1], Bs[kT][kT + 1];
@@ -1006,7 +1011,9 @@ template <typename T, bool REG>
 __global__ void __launch_bounds__(kBackWarps * 32, 1)
 back_kernel(int n, const T* __restrict__ Pg, const T* __restrict__ beta,
             const T* __restrict__ Z, T* __restrict__ V, const T* __restrict__ lam,
-            const T* __restrict__ scale, const int* __restrict__ fail, T* __restrict__ w) {
+            const T* __restrict__ scale, const int* __restrict__ fail, T* __restrict__ w,
+            gf2b::Branch br) {
+  if (gf2b::off_branch(br)) return;
   constexpr int NS = kBackRegRows / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* bs = reinterpret_cast<T*>(smem_raw);      // [n]
@@ -1088,7 +1095,7 @@ back_kernel(int n, const T* __restrict__ Pg, const T* __restrict__ beta,
 
 template <typename T, bool REG>
 int launch_back(int n, const T* Pg, const T* beta, const T* Z, T* V, const T* lam,
-                const T* scale, const int* fail, T* w, cudaStream_t s) {
+                const T* scale, const int* fail, T* w, gf2b::Branch br, cudaStream_t s) {
   static bool attr = false;
   const size_t words = (2 * kChunk + 1 + (REG ? 0 : kBackWarps)) * (size_t)n;
   if (!attr) {
@@ -1099,7 +1106,7 @@ int launch_back(int n, const T* Pg, const T* beta, const T* Z, T* V, const T* la
     attr = true;
   }
   back_kernel<T, REG><<<(n + kBackWarps - 1) / kBackWarps, kBackWarps * 32,
-                        words * sizeof(T), s>>>(n, Pg, beta, Z, V, lam, scale, fail, w);
+                        words * sizeof(T), s>>>(n, Pg, beta, Z, V, lam, scale, fail, w, br);
   return (int)cudaGetLastError();
 }
 
@@ -1132,7 +1139,7 @@ int dc_grid(int* G) {
 
 template <typename T>
 int sym_eig(const T* Ain, int n, T* V, T* w, T* work, int* iwork, int max_iters,
-            cudaStream_t s) {
+            gf2b::Branch br, cudaStream_t s) {
   if (n < 1 || n > kMaxN || max_iters < 0 || max_iters > kMaxIters)
     return (int)cudaErrorInvalidValue;
   const size_t nn = (size_t)n * n;
@@ -1184,9 +1191,9 @@ int sym_eig(const T* Ain, int n, T* V, T* w, T* work, int* iwork, int max_iters,
   const size_t vec = (3 * (size_t)n + tri_colp(n)) * sizeof(T);
   const size_t packed = (size_t)n * (n + 1) / 2 * sizeof(T);
   if (vec + packed + kTriStatic<T>() <= (size_t)kSmemLimit)
-    tridiag_kernel<T, true><<<1, kTriThreads, vec + packed, s>>>(Ain, n, Pg, d, e, beta);
+    tridiag_kernel<T, true><<<1, kTriThreads, vec + packed, s>>>(Ain, n, Pg, d, e, beta, br);
   else
-    tridiag_kernel<T, false><<<1, kTriThreads, vec, s>>>(Ain, n, Pg, d, e, beta);
+    tridiag_kernel<T, false><<<1, kTriThreads, vec, s>>>(Ain, n, Pg, d, e, beta, br);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   int G = 0;
@@ -1194,7 +1201,8 @@ int sym_eig(const T* Ain, int n, T* V, T* w, T* work, int* iwork, int max_iters,
   if (gerr) return gerr;
   const T* dc = d;
   const T* ec = e;
-  void* args[] = {(void*)&n, (void*)&dc, (void*)&ec, (void*)&max_iters, (void*)&wk};
+  void* args[] = {(void*)&n, (void*)&dc, (void*)&ec, (void*)&max_iters, (void*)&wk,
+                  (void*)&br};
   err = cudaLaunchCooperativeKernel((const void*)dc_kernel<T>, dim3(G), dim3(kDcThreads),
                                     args, dc_shmem<T>(), s);
   if (err != cudaSuccess) return (int)err;
@@ -1203,8 +1211,8 @@ int sym_eig(const T* Ain, int n, T* V, T* w, T* work, int* iwork, int max_iters,
   const T* Z = levels & 1 ? wk.Qb : wk.Qa;
   const T* lam = levels & 1 ? wk.lamB : wk.lamA;
   if (n <= kBackRegRows)
-    return launch_back<T, true>(n, Pg, beta, Z, V, lam, wk.scale, wk.fail, w, s);
-  return launch_back<T, false>(n, Pg, beta, Z, V, lam, wk.scale, wk.fail, w, s);
+    return launch_back<T, true>(n, Pg, beta, Z, V, lam, wk.scale, wk.fail, w, br, s);
+  return launch_back<T, false>(n, Pg, beta, Z, V, lam, wk.scale, wk.fail, w, br, s);
 }
 
 }  // namespace
@@ -1213,14 +1221,20 @@ int sym_eig(const T* Ain, int n, T* V, T* w, T* work, int* iwork, int max_iters,
 // and w [n] out (eigenvectors in the columns, w ascending; all NaN when the
 // solve cannot finish: a secular root still unconverged after max_iters
 // ≤ 30 steps, or a non-finite input); work [n(n+1)/2 + 2n² + 14n + 1] of
-// the same type and iwork [9n + 1] ints scratch. n ≤ 768.
+// the same type and iwork [9n + 1] ints scratch. n ≤ 768. The three
+// launches run on the slide's branch (csrc/branch.cuh; a null byte:
+// always); off it they write nothing.
 
 extern "C" int gf2_sym_eig_f64(const double* Ain, int n, double* V, double* w,
-                               double* work, int* iwork, int max_iters, void* stream) {
-  return sym_eig<double>(Ain, n, V, w, work, iwork, max_iters, (cudaStream_t)stream);
+                               double* work, int* iwork, int max_iters,
+                               const uint8_t* branch, int want, void* stream) {
+  return sym_eig<double>(Ain, n, V, w, work, iwork, max_iters,
+                         gf2b::Branch{branch, want}, (cudaStream_t)stream);
 }
 
 extern "C" int gf2_sym_eig_f32(const float* Ain, int n, float* V, float* w, float* work,
-                               int* iwork, int max_iters, void* stream) {
-  return sym_eig<float>(Ain, n, V, w, work, iwork, max_iters, (cudaStream_t)stream);
+                               int* iwork, int max_iters, const uint8_t* branch,
+                               int want, void* stream) {
+  return sym_eig<float>(Ain, n, V, w, work, iwork, max_iters,
+                        gf2b::Branch{branch, want}, (cudaStream_t)stream);
 }

@@ -10,7 +10,10 @@
 //      (:122 `reanchor`), drop the ones that have none, shift the columns
 //      left;
 //   2  :181 `slide_second_newest` (MARGIN_SECOND_NEW): re-anchor W-2 → W-1,
-//      move column W-1 into W-2.
+//      move column W-1 into W-2;
+//   3  the fused tick's slide, 1 or 2 as the keyframe byte on the device
+//      says (the `lax.switch` of vio/fused.py:470; csrc/branch.cuh), so the
+//      host reads no branch.
 // The plain PyTorch versions are chains of ~20-60 small launches each.
 //
 // One thread per track walks its W columns and writes new tensors (the
@@ -27,6 +30,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "window_rows.cuh"
 
@@ -111,7 +115,10 @@ __global__ void window_update_kernel(int mode, Fw in, FwOut o, Obs ob,
                                      const float* __restrict__ p,
                                      const float* __restrict__ q,
                                      const float* __restrict__ tic,
-                                     const float* __restrict__ qic, int F, int W) {
+                                     const float* __restrict__ qic, int F, int W,
+                                     const uint8_t* __restrict__ is_kf) {
+  // mode 3: the slide's branch read on the device (csrc/branch.cuh)
+  if (mode == 3) mode = is_kf[0] ? 1 : 2;
   __shared__ float qwc[kMaxW][4];
   __shared__ float twc[kMaxW][3];
   if (mode != 0) {
@@ -185,7 +192,8 @@ __global__ void window_update_kernel(int mode, Fw in, FwOut o, Obs ob,
 
 }  // namespace
 
-// mode 0 (add_frame at col), 1 (slide_oldest), 2 (slide_second_newest).
+// mode 0 (add_frame at col), 1 (slide_oldest), 2 (slide_second_newest),
+// 3 the slide the keyframe byte is_kf [] picks (set: 1, clear: 2).
 // The window in: ray, vel [F, W, 2], depth, obs_valid [F, W], anchor [F]
 // int64, track_valid, depth_fixed, rho [F]; the same shapes out. mode 0: the
 // frame's ray, vel [F, 2], depth, alive, fresh [F] and the depth range;
@@ -198,14 +206,16 @@ extern "C" int gf2_window_update(
     const float* o_fresh, int col, float depth_lo, float depth_hi, const float* p,
     const float* q, const float* tic, const float* qic, float* ray_out,
     float* vel_out, float* depth_out, float* obs_valid_out, long long* anchor_out,
-    float* track_valid_out, float* depth_fixed_out, float* rho_out, void* stream) {
-  if (W > kMaxW || W < 3 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+    float* track_valid_out, float* depth_fixed_out, float* rho_out,
+    const uint8_t* is_kf, void* stream) {
+  if (W > kMaxW || W < 3 || mode < 0 || mode > 3 || (mode == 3 && !is_kf))
+    return (int)cudaErrorInvalidValue;
   if (F <= 0) return (int)cudaGetLastError();
   Fw in{ray, vel, depth, obs_valid, track_valid, depth_fixed, rho, anchor};
   FwOut o{ray_out, vel_out, depth_out, obs_valid_out, track_valid_out,
           depth_fixed_out, rho_out, anchor_out};
   Obs ob{o_ray, o_vel, o_depth, o_alive, o_fresh, col, depth_lo, depth_hi};
   window_update_kernel<<<(F + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(mode, in, o, ob, p, q, tic, qic, F, W);
+                         (cudaStream_t)stream>>>(mode, in, o, ob, p, q, tic, qic, F, W, is_kf);
   return (int)cudaGetLastError();
 }

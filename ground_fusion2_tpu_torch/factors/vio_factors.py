@@ -21,6 +21,7 @@ import torch
 from .. import _kernels
 from ..core import lie, robust
 from ..gnss.factors import gnss_residuals
+from ..solver import lm_glue
 from ..solver.gauss_newton import normal_equations
 from ..solver.small_linalg import small_spd_cuda
 from ..sensors.imu_preint import ImuPreint, bias_corrected
@@ -76,17 +77,19 @@ def projection_residuals(x: WindowState, feats: FeatureTable,
 
 def projection_normal_equations(x0: WindowState, delta: torch.Tensor,
                                 feats: FeatureTable, layout: WindowLayout,
-                                sqrt_info: float, huber_delta: float = 1.0):
+                                sqrt_info: float, huber_delta: float = 1.0,
+                                branch=None):
     """(H [D, D], g [D], cost []) of the projection block linearized at
     ``retract(x0, delta)``, with the Huber weight held constant in J.
 
     Kernel C on the card (a warp an observation, forward-mode duals over
     the ≤ 20 tangent columns it touches; each feature's block summed in
     frame order, H over the features in index order: the same inputs give
-    the same bits); the plain version on the CPU."""
+    the same bits; on the slide's ``branch``, ``solver/lm_glue.py``); the
+    plain version on the CPU."""
     if delta.is_cuda:
         return _projection_normal_equations_cuda(
-            x0, delta, feats, layout, sqrt_info, huber_delta)
+            x0, delta, feats, layout, sqrt_info, huber_delta, branch=branch)
     return projection_normal_equations_plain(
         x0, delta, feats, layout, sqrt_info, huber_delta)
 
@@ -109,7 +112,8 @@ def projection_normal_equations_plain(x0, delta, feats, layout, sqrt_info,
 
 
 def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
-                                      huber_delta, min_depth: float = 0.05):
+                                      huber_delta, min_depth: float = 0.05,
+                                      branch=None):
     lib = _kernels.library()
     F, W, _ = feats.ray.shape
     D = layout.dim
@@ -136,7 +140,7 @@ def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
         ctypes.c_float(huber_delta), ctypes.c_float(min_depth),
         ctypes.c_void_p(part.data_ptr()),
         ctypes.c_void_p(H.data_ptr()), ctypes.c_void_p(g.data_ptr()),
-        ctypes.c_void_p(cost.data_ptr()),
+        ctypes.c_void_p(cost.data_ptr()), *_kernels.branch_args(branch),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_proj_normal")
     _kernels.count("proj_normal")
@@ -157,7 +161,6 @@ def imu_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
     if not cov.is_cuda:
         return imu_sqrt_info_plain(cov)
     return small_spd_cuda(cov, inverse=False)
-
 
 
 def _mv(M, v):
@@ -254,17 +257,11 @@ def small_residual_parts(x: WindowState, meas, layout: WindowLayout, cfg,
             x, cfg.motion_weight, torch.ones((layout.W,), dtype=dtype,
                                              device=dev)))
         parts.append(posvel_residuals(
-            x, _frame_dt(meas, layout, dtype, dev), cfg.posvel_weight,
+            x, lm_glue.frame_dt(meas, layout, dtype, dev), cfg.posvel_weight,
             torch.ones((layout.W - 1,), dtype=dtype, device=dev)))
     parts.append(meas.prior.residual(
         layout.boxminus_frames(x, meas.prior_state)))
     return parts
-
-
-def _frame_dt(meas, layout, dtype, dev):
-    if meas.frame_dt is not None:
-        return meas.frame_dt
-    return torch.full((layout.W - 1,), 0.1, dtype=dtype, device=dev)
 
 
 def small_normal_equations(x0: WindowState, delta: torch.Tensor, meas,
@@ -278,7 +275,8 @@ def small_normal_equations(x0: WindowState, delta: torch.Tensor, meas,
     return small_normal_equations_plain(x0, delta, meas, layout, cfg)
 
 
-def small_normal_fn(x0: WindowState, meas, layout: WindowLayout, cfg):
+def small_normal_fn(x0: WindowState, meas, layout: WindowLayout, cfg,
+                    packed=None, branch=None):
     """``delta -> (H, g, cost)`` of :func:`small_normal_equations` around
     ``x0``, for the LM's linearizations within one solve.
 
@@ -286,13 +284,16 @@ def small_normal_fn(x0: WindowState, meas, layout: WindowLayout, cfg):
     over the ≤ 30 columns it touches; a reduce that walks each row's
     instances in a fixed order; the prior's sqrt_J·J⊟ by the same source,
     its Gram product a plain ``matmul``), with the GNSS rows as kernel P's
-    instances in the same launches: the inputs packed and the scratch
-    allocated once, two kernel launches and two plain products a call.
+    instances in the same launches: the inputs packed once by kernel AN
+    (``solver/lm_glue.py``; ``packed``: a solve's pack, else one made here)
+    and the scratch allocated once, two kernel launches and two plain
+    products a call; ``linearize(delta, add=(H, g, cost))`` adds kernel C's
+    block in L's reduce, and the launches run on the slide's ``branch``.
     The plain version on the CPU."""
     if not x0.p.is_cuda:
         return lambda delta: small_normal_equations_plain(x0, delta, meas,
                                                           layout, cfg)
-    return _small_normal_cuda_fn(x0, meas, layout, cfg)
+    return _small_normal_cuda_fn(x0, meas, layout, cfg, packed, branch)
 
 
 def small_normal_equations_plain(x0, delta, meas, layout, cfg):
@@ -310,24 +311,6 @@ def small_normal_equations_plain(x0, delta, meas, layout, cfg):
     return normal_equations(res, delta)
 
 
-def _linear_dims(x: WindowState, W: int) -> torch.Tensor:
-    """x in the frame dims' order (``WindowLayout.boxminus_frames``), the
-    rotation dims zero."""
-    z = torch.zeros((W, 3), dtype=x.p.dtype, device=x.p.device)
-    z3 = z[0]
-    return torch.cat([
-        torch.cat([x.p, z], 1).reshape(-1),
-        torch.cat([x.v, x.ba, x.bg], 1).reshape(-1),
-        x.tic, z3, x.td[None], x.tio, z3,
-        torch.stack([x.six, x.siy, x.siw]), x.tic2, z3,
-        x.gdt.reshape(-1), x.gddt, x.gyaw[None], x.ganchor])
-
-
-def _rotations(x: WindowState) -> torch.Tensor:
-    """[W + 3, 4]: the W poses' quaternions, qic, qio, qic2."""
-    return torch.cat([x.q, x.qic[None], x.qio[None], x.qic2[None]])
-
-
 def _instance_counts(W: int, S: int, cfg) -> dict:
     """Kernel L's factor instances by family (``csrc/small_normal.cu``'s
     launch order), and kernel P's with GNSS on."""
@@ -340,54 +323,6 @@ def _instance_counts(W: int, S: int, cfg) -> dict:
 
 def _n_instances(W: int, S: int, cfg) -> int:
     return sum(_instance_counts(W, S, cfg).values())
-
-
-def _gnss_inputs(x0: WindowState, meas, dev):
-    """Kernel P's inputs: the GNSS states with the gate and the table's
-    frame spacing [5·W + 5 + W-1], and the table [W, S, 12]."""
-    tab = meas.gnss
-    col = lambda t: t[..., None]
-    en = torch.as_tensor(meas.gnss_enabled, dtype=x0.p.dtype,
-                         device=dev).reshape(1)
-    gx = torch.cat([x0.gyaw.reshape(1), x0.ganchor, x0.gdt.reshape(-1),
-                    x0.gddt, en, tab.frame_dt])
-    gtab = torch.cat([tab.u_enu, col(tab.r0), col(tab.d0), tab.sys_onehot,
-                      col(tab.psr_std), col(tab.dopp_std), col(tab.valid)], -1)
-    return gx, gtab
-
-
-def _small_inputs(x0: WindowState, meas, layout: WindowLayout, cfg) -> list:
-    """Kernel L's (and S's) packed inputs of the non-projection rows, f32 on
-    the device: xs, imu, whl, misc, gx, gtab, pbase, pq, sqrt_J, r0."""
-    dev = x0.p.device
-    W, K = layout.W, layout.frame_dim
-    if tuple(x0.p.shape) != (W, 3):
-        raise ValueError("small_normal kernel: state and layout disagree in "
-                         "shape")
-    if tuple(meas.prior.sqrt_J.shape) != (K, K):
-        raise ValueError("small_normal kernel: the prior must span the "
-                         f"{K} frame dims")
-    f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
-    n = W - 1
-    pre, wp = meas.imu, meas.wheel
-    xs = torch.cat([torch.cat([x0.p, x0.q, x0.v, x0.ba, x0.bg], 1).reshape(-1),
-                    x0.tio, x0.qio, torch.stack([x0.six, x0.siy, x0.siw])])
-    imu = torch.cat([pre.dp, pre.dq, pre.dv, pre.jac.reshape(n, 225),
-                     pre.sum_dt[:, None], pre.ba, pre.bg,
-                     meas.imu_sqrt_info.reshape(n, 225),
-                     meas.imu_valid[:, None]], 1)
-    whl = torch.cat([wp.dp, wp.dq, wp.jac_ix.reshape(n, 18),
-                     torch.stack([wp.sx, wp.sy, wp.sw], 1),
-                     meas.wheel_sqrt_info.reshape(n, 36),
-                     meas.wheel_valid[:, None]], 1)
-    misc = torch.cat([torch.as_tensor(meas.plane_valid, device=dev).reshape(1),
-                      _frame_dt(meas, layout, x0.p.dtype, dev)])
-    gx, gtab = _gnss_inputs(x0, meas, dev) if cfg.use_gnss else (misc, misc)
-    pbase = torch.stack([_linear_dims(x0, W),
-                         _linear_dims(meas.prior_state, W)])
-    pq = torch.stack([_rotations(x0), _rotations(meas.prior_state)])
-    return [f32(t) for t in (xs, imu, whl, misc, gx, gtab, pbase, pq,
-                            meas.prior.sqrt_J, meas.prior.r0)]
 
 
 def _offsets(layout: WindowLayout) -> list:
@@ -481,13 +416,15 @@ def small_layout(layout: WindowLayout, S: int, cfg, device) -> SmallLayout:
     return _SMALL_LAYOUTS[key]
 
 
-def _small_normal_cuda_fn(x0, meas, layout, cfg):
+def _small_normal_cuda_fn(x0, meas, layout, cfg, packed=None, branch=None):
     dev = x0.p.device
     W, D, K = layout.W, layout.dim, layout.frame_dim
     S = meas.gnss.u_enu.shape[1]
     n_inst = _n_instances(W, S, cfg)
-    ins = _small_inputs(x0, meas, layout, cfg)
-    valid = meas.prior.valid.to(device=dev, dtype=torch.float32).reshape(1)
+    if packed is None:
+        packed = lm_glue.pack(x0, meas, layout, cfg)
+    ins, valid = packed.rows, packed.valid
+    br = _kernels.branch_args(branch)
     tab = small_layout(layout, S, cfg, dev)
     # per instance: H and g partials (f32), its cost (f64: two f32 slots)
     scratch = torch.empty((n_inst * (32 * 32 + 32 + 2),), dtype=torch.float32,
@@ -507,14 +444,14 @@ def _small_normal_cuda_fn(x0, meas, layout, cfg):
     lists = [P(t) for t in (tab.rowptr, tab.rinst, tab.rlane, tab.lcol)]
     lib = _kernels.library()
 
-    def linearize(delta: torch.Tensor):
+    def linearize(delta: torch.Tensor, add=None):
         if tuple(delta.shape) != (D,) or delta.device != dev:
             raise ValueError("small_normal kernel: state, layout and delta "
                              "disagree in shape or device")
         d = delta.to(dtype=torch.float32).contiguous()
         stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
         err = lib.gf2_small_rows(*head, P(d), *prior, *scalars, P(scratch),
-                                 P(Jw), P(rw), stream)
+                                 P(Jw), P(rw), *br, stream)
         _kernels.check(err, "gf2_small_rows")
         # the prior's Gram rows: plain products, as the JAX package leaves
         # them to XLA
@@ -523,8 +460,17 @@ def _small_normal_cuda_fn(x0, meas, layout, cfg):
         H = torch.empty((D, D), dtype=torch.float32, device=dev)
         g = torch.empty((D,), dtype=torch.float32, device=dev)
         cost = torch.empty((1,), dtype=torch.float32, device=dev)
+        addp = [ctypes.c_void_p(None)] * 3
+        if add is not None:
+            for t, shape in zip(add, ((D, D), (D,), ())):
+                if (tuple(t.shape) != shape or t.dtype != torch.float32
+                        or not t.is_contiguous()):
+                    raise ValueError("small_normal kernel: the added block "
+                                     "is float32 H [D, D], g [D], cost []")
+            addp = [P(t) for t in add]
         err = lib.gf2_small_reduce(n_inst, K, D, *lists, P(scratch), P(G),
-                                   P(gv), P(rw), P(H), P(g), P(cost), stream)
+                                   P(gv), P(rw), *addp, P(H), P(g), P(cost),
+                                   *br, stream)
         _kernels.check(err, "gf2_small_reduce")
         _kernels.count("small_normal")
         if cfg.use_gnss:
@@ -550,20 +496,24 @@ def window_cost_plain(x0: WindowState, delta: torch.Tensor, meas,
     return 0.5 * torch.sum(rw * rw)
 
 
-def window_cost_fn(x0: WindowState, meas, layout: WindowLayout, cfg):
+def window_cost_fn(x0: WindowState, meas, layout: WindowLayout, cfg,
+                   packed=None):
     """``cost_at(delta)`` of the window linearized around ``x0``: kernel S
-    on the card (the inputs and the scratch allocated once, one launch a
-    call; the rows evaluated in f64 from the f32 inputs and summed in a
-    fixed order, so the same delta gives the same bits),
-    :func:`window_cost_plain` on the CPU."""
+    on the card (the inputs packed once by kernel AN, ``packed`` a solve's
+    pack or one made here, the scratch kept per stream, one launch a call;
+    the rows
+    evaluated in f64 from the f32 inputs and summed in a fixed order, so the
+    same delta gives the same bits), :func:`window_cost_plain` on the CPU."""
     if not x0.p.is_cuda:
         return lambda delta: window_cost_plain(x0, delta, meas, layout, cfg)
-    return _window_cost_cuda_fn(x0, meas, layout, cfg)
+    return _window_cost_cuda_fn(x0, meas, layout, cfg, packed)
 
 
-def window_cost_args(x0, meas, layout, cfg):
+def window_cost_args(x0, meas, layout, cfg, packed=None):
     """Kernel S's inputs packed for ``gf2_window_cost``: (the tensors, held
-    alive by the caller; their pointers; the scalars; the partials' count)."""
+    alive by the caller; their pointers; the scalars; the partials' count).
+    ``packed``: a solve's pack by kernel AN (its rows, valid and int32
+    anchors), else one made here."""
     dev = x0.p.device
     F, W, _ = meas.feats.ray.shape
     D, K = layout.dim, layout.frame_dim
@@ -572,12 +522,12 @@ def window_cost_args(x0, meas, layout, cfg):
                          "disagree in shape")
     f32 = lambda t: t.to(device=dev, dtype=torch.float32).contiguous()
     ft = meas.feats
+    if packed is None:
+        packed = lm_glue.pack(x0, meas, layout, cfg)
     proj = [f32(x0.p), f32(x0.q), f32(x0.tic), f32(x0.qic), f32(x0.td),
             f32(x0.rho), f32(ft.ray), f32(ft.vel), f32(ft.obs_valid),
-            ft.anchor.to(device=dev, dtype=torch.int32).contiguous(),
-            f32(ft.track_valid)]
-    rows = _small_inputs(x0, meas, layout, cfg) + [
-        f32(meas.prior.valid.reshape(1))]
+            packed.anchor32, f32(ft.track_valid)]
+    rows = packed.rows + [packed.valid]
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in proj + rows]
     S = meas.gnss.u_enu.shape[1]
     n_part = F + _n_instances(W, S, cfg) + K
@@ -590,18 +540,27 @@ def window_cost_args(x0, meas, layout, cfg):
     return proj + rows, ptrs, scalars, n_part
 
 
-def _window_cost_cuda_fn(x0, meas, layout, cfg):
+# kernel S's scratch a (device, stream, partials' count): the partials and
+# the ticket of the CTA that sums them (each launch leaves it 0)
+_COST_SCRATCH: dict = {}
+
+
+def _window_cost_cuda_fn(x0, meas, layout, cfg, packed=None):
     dev = x0.p.device
     D = layout.dim
-    inputs, ptrs, scalars, n_part = window_cost_args(x0, meas, layout, cfg)
+    inputs, ptrs, scalars, n_part = window_cost_args(x0, meas, layout, cfg,
+                                                     packed)
     lib = _kernels.library()
-    # scratch of the closure: the partials, and the ticket of the CTA that
-    # sums them (each launch leaves it 0). Launches on one stream run one
-    # after another and may share them; the closure is bound to the stream
-    # it was made on, so two launches never overlap on its scratch.
+    # Launches on one stream run one after another and may share the
+    # scratch; the closure is bound to the stream it was made on, so two
+    # launches never overlap on it.
     stream = torch.cuda.current_stream(dev).cuda_stream
-    part = torch.empty((n_part,), dtype=torch.float64, device=dev)
-    ticket = torch.zeros((1,), dtype=torch.int32, device=dev)
+    key = (str(dev), stream, n_part)
+    if key not in _COST_SCRATCH:
+        _COST_SCRATCH[key] = (
+            torch.empty((n_part,), dtype=torch.float64, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+    part, ticket = _COST_SCRATCH[key]
     scratch = [ctypes.c_void_p(t.data_ptr()) for t in (part, ticket)]
 
     def cost_at(delta: torch.Tensor) -> torch.Tensor:

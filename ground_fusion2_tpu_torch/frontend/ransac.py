@@ -22,12 +22,22 @@ from .. import _kernels
 SWEEP_CAP = 32    # kernel K's Jacobi sweeps (csrc/ransac_f.cu's kCap)
 
 
-def gumbel_noise(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
+def uniform_draws(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
+    """[hypotheses, n] uniforms from a ``torch.Generator`` seeded with
+    ``seed``: the draws :func:`gumbel_noise` transforms."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed))
-    u = torch.rand((hypotheses, n), generator=gen, device=device)
+    return torch.rand((hypotheses, n), generator=gen, device=device)
+
+
+def gumbel(u: torch.Tensor) -> torch.Tensor:
+    """−log(−log(u)), u clamped to float32's smallest normal."""
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
+    return gumbel(uniform_draws(seed, hypotheses, n, device))
 
 
 def _hartley(p: torch.Tensor):

@@ -6,9 +6,10 @@ The JAX solver differentiates one stacked residual function with ``jacfwd``.
 Here the caller supplies ``linearize(delta) -> (H, g, cost)`` — the window
 problem sums the projection block (kernel C) and the other rows (kernel L),
 the pose graph takes kernel O; :func:`normal_equations` is their plain
-version — plus ``cost_at(delta)``. Everything stays on the device: the
-accept/reject of each step is a ``torch.where``, so the loop has a fixed
-trip count and no host synchronization.
+version — plus ``cost_at(delta)``. Everything stays on the device: kernel W
+writes the trial step δ + dx, and the accept/reject of each step is kernel
+AN's step mode (``solver/lm_glue.py``; a ``torch.where`` chain on the CPU),
+so the loop has a fixed trip count and no host synchronization.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .. import _kernels
+from . import lm_glue
 
 # kernel W's cluster mode (the matrix in 8 CTAs' shared memory) up to this
 # size, its cooperative mode (the matrix in L2) above; csrc/chol_solve.cu
@@ -64,17 +66,22 @@ def _solve_damped_plain(H, g, lam, free_mask, damp_diag=None):
     return dx * fm
 
 
-def _solve_damped(H, g, lam, free_mask, damp_diag=None):
+def _solve_damped(H, g, lam, free_mask, damp_diag=None, base=None,
+                  trial=None):
     """:func:`_solve_damped_plain`, by kernel W on the card (the masking,
     damping and equilibration, the f32 Cholesky, both triangular solves and
     the unscaling: one cluster launch up to 512 dims, a cooperative launch
-    and the backward solve's above; NaN where a pivot fails)."""
+    and the backward solve's above; NaN where a pivot fails). With ``base``
+    it returns the trial step ``base + dx`` instead (on the card written by
+    W's epilogue into ``trial``, or a fresh tensor)."""
     if H.is_cuda:
-        return _solve_damped_cuda(H, g, lam, free_mask, damp_diag)
-    return _solve_damped_plain(H, g, lam, free_mask, damp_diag)
+        return _solve_damped_cuda(H, g, lam, free_mask, damp_diag, base, trial)
+    dx = _solve_damped_plain(H, g, lam, free_mask, damp_diag)
+    return dx if base is None else base + dx
 
 
-def _solve_damped_cuda(H, g, lam, free_mask, damp_diag=None):
+def _solve_damped_cuda(H, g, lam, free_mask, damp_diag=None, base=None,
+                       trial=None):
     n = H.shape[0]
     ts = [t.contiguous() for t in (H, g, lam.reshape(1),
                                    free_mask.to(H.dtype))]
@@ -83,6 +90,14 @@ def _solve_damped_cuda(H, g, lam, free_mask, damp_diag=None):
     if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
         raise ValueError("chol_solve kernel takes float32 CUDA tensors")
     dx = torch.empty((n,), device=H.device)
+    if base is not None:
+        if trial is None:
+            trial = torch.empty((n,), device=H.device)
+        for t in (base, trial):
+            if (t.dtype != torch.float32 or not t.is_contiguous()
+                    or tuple(t.shape) != (n,)):
+                raise ValueError("chol_solve kernel: the trial step's base "
+                                 "and output are contiguous float32 [n]")
     P = ctypes.c_void_p
     A = b = P(None)          # the cluster mode (n <= 512) keeps all on chip
     if n > CHOL_CLUSTER_MAX_N:
@@ -93,34 +108,45 @@ def _solve_damped_cuda(H, g, lam, free_mask, damp_diag=None):
     dd = P(ts[4].data_ptr()) if damp_diag is not None else P(None)
     err = _kernels.library().gf2_chol_solve(
         *[P(t.data_ptr()) for t in ts[:4]], dd, n, A, b, P(dx.data_ptr()),
+        P(None if base is None else base.data_ptr()),
+        P(None if base is None else trial.data_ptr()),
         P(torch.cuda.current_stream(H.device).cuda_stream))
     _kernels.check(err, "gf2_chol_solve")
     _kernels.count("chol_solve")
-    return dx
+    return dx if base is None else trial
 
 
 def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
              max_iters: int = 8, free_mask: torch.Tensor | None = None,
              init_lambda: float = 1e-4, lambda_up: float = 10.0,
              lambda_down: float = 0.3, device=None,
-             dtype=torch.float32) -> LMResult:
+             dtype=torch.float32, start=None) -> LMResult:
     """LM from delta = 0: ``max_iters`` linearizations, each step accepted
-    by true-cost comparison (rejected steps raise lambda)."""
-    delta = torch.zeros((dim,), dtype=dtype, device=device)
+    by true-cost comparison (rejected steps raise lambda). ``start``: kernel
+    AN's packed buffers (``lm_glue.Packed``: δ = 0, the trial step, the
+    cost and λ at ``init_lambda``), or None to allocate them here. On the
+    card δ, the cost and λ are updated in place by AN's step mode."""
+    cuda = torch.device(device).type == "cuda" if device is not None else False
+    if start is not None:
+        delta, trial, sc, lam = start.delta, start.trial, start.sc, start.lam
+    else:
+        delta = torch.zeros((dim,), dtype=dtype, device=device)
+        lam = torch.full((), init_lambda, dtype=dtype, device=device)
+        trial = sc = None
+        if cuda:
+            trial = torch.empty_like(delta)
+            sc = torch.empty((2,), dtype=dtype, device=device)
     if free_mask is None:
         free_mask = torch.ones_like(delta)
     cost0 = cost_at(delta)
     cost = cost0
-    lam = torch.full((), init_lambda, dtype=dtype, device=device)
     for _ in range(max_iters):
         H, g, _ = linearize(delta)
-        new_delta = delta + _solve_damped(H, g, lam, free_mask)
+        new_delta = _solve_damped(H, g, lam, free_mask, base=delta,
+                                  trial=trial)
         new_cost = cost_at(new_delta)
-        accept = new_cost < cost
-        delta = torch.where(accept, new_delta, delta)
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.where(accept, torch.clamp(lam * lambda_down, min=1e-9),
-                          torch.clamp(lam * lambda_up, max=1e6))
+        delta, cost, lam = lm_glue.step(delta, new_delta, cost, new_cost, lam,
+                                        lambda_down, lambda_up, sc)
     H, g, _ = linearize(delta)
     return LMResult(delta, cost, cost0, H, g, lam, max_iters)
 

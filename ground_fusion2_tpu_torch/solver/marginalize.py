@@ -44,24 +44,27 @@ class MargPrior(NamedTuple):
         return r, self.valid.expand(r.shape)
 
 
-def sym_eig_plain(A: torch.Tensor):
-    """(w ascending, V) of the symmetric ``A``: ``torch.linalg.eigh``."""
+def sym_eig_plain(A: torch.Tensor, branch=None):
+    """(w ascending, V) of the symmetric ``A``: ``torch.linalg.eigh``
+    (``branch``: :func:`sym_eig`'s, ignored: the plain route always
+    solves)."""
     return torch.linalg.eigh(A)
 
 
-def sym_eig(A: torch.Tensor):
+def sym_eig(A: torch.Tensor, branch=None):
     """:func:`sym_eig_plain`, by kernel X on the card (float64 or float32;
     divide and conquer, no host check of convergence: where a secular root
     is still unconverged after 30 steps, or the input is not finite, every
-    w and V is NaN, where the plain eigh raises). Within a repeated
+    w and V is NaN, where the plain eigh raises; on the slide's ``branch``,
+    ``csrc/branch.cuh``: off it nothing is written). Within a repeated
     eigenvalue the kernel's eigenvectors are another basis of the same
     space than torch's."""
     if A.is_cuda:
-        return _sym_eig_cuda(A)
+        return _sym_eig_cuda(A, branch=branch)
     return sym_eig_plain(A)
 
 
-def _sym_eig_cuda(A, max_iters: int = 30):
+def _sym_eig_cuda(A, max_iters: int = 30, branch=None):
     n = A.shape[0]
     if A.dtype not in (torch.float64, torch.float32) or A.shape != (n, n):
         raise ValueError("sym_eig kernel takes a square float64 or float32 "
@@ -79,7 +82,8 @@ def _sym_eig_cuda(A, max_iters: int = 30):
           else _kernels.library().gf2_sym_eig_f32)
     P = ctypes.c_void_p
     err = fn(P(A.data_ptr()), n, *[P(t.data_ptr()) for t in (V, w, work, iwork)],
-             max_iters, P(torch.cuda.current_stream(dev).cuda_stream))
+             max_iters, *_kernels.branch_args(branch),
+             P(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_sym_eig")
     _kernels.count("sym_eig")
     return w, V
@@ -133,14 +137,17 @@ def marginalize(H, g, keep_idx, drop_idx, eig_floor: float = 1e-8,
 
 def marginalize_plan(H, g, plan: MargPlan, fixed=None,
                      eig_floor: float = 1e-8,
-                     dtype=torch.float64) -> MargPrior:
+                     dtype=torch.float64, branch=None,
+                     out: MargPrior | None = None) -> MargPrior:
     """:func:`marginalize` by ``plan``'s device tables, with H and g first
     masked by ``fixed`` ([D] {0,1} or None) and the prior scattered into
     ``plan``'s next layout (:func:`shift_prior`): kernel AJ's five launches
-    around kernel X's two on the card, :func:`marginalize_plan_plain` on the
-    CPU. The prior is in H's type."""
+    around kernel X's two on the card (each on the slide's ``branch``, the
+    prior written into ``out``'s buffers when given),
+    :func:`marginalize_plan_plain` on the CPU. The prior is in H's type."""
     if H.is_cuda:
-        return _marginalize_cuda(H, g, plan, fixed, eig_floor, dtype)
+        return _marginalize_cuda(H, g, plan, fixed, eig_floor, dtype, branch,
+                                 out)
     return marginalize_plan_plain(H, g, plan, fixed, eig_floor, dtype)
 
 
@@ -181,7 +188,8 @@ def marginalize_plan_plain(H, g, plan: MargPlan, fixed=None,
     return _shift(prior, plan) if plan.shifts else prior
 
 
-def _marginalize_cuda(H, g, plan: MargPlan, fixed, eig_floor, dtype):
+def _marginalize_cuda(H, g, plan: MargPlan, fixed, eig_floor, dtype,
+                      branch=None, out=None):
     if dtype not in (torch.float64, torch.float32):
         raise ValueError("kernel AJ eliminates in float64 or float32")
     if H.dtype not in (torch.float64, torch.float32) or g.dtype != H.dtype:
@@ -199,6 +207,7 @@ def _marginalize_cuda(H, g, plan: MargPlan, fixed, eig_floor, dtype):
     P_ = ctypes.c_void_p
     ptr = lambda t: P_(None if t is None else t.data_ptr())
     stream = P_(torch.cuda.current_stream(dev).cuda_stream)
+    br = _kernels.branch_args(branch)
 
     def launched(err, name):
         _kernels.check(err, name)
@@ -206,16 +215,16 @@ def _marginalize_cuda(H, g, plan: MargPlan, fixed, eig_floor, dtype):
     launched(lib.gf2_marg_gather(
         t64, int(H.dtype == torch.float64), ptr(H), ptr(g), ptr(fixed),
         ptr(plan.perm), D, n, k, float(eig_floor), ptr(Hp), ptr(Hsym),
-        ptr(gp), ptr(dinv), stream), "gf2_marg_gather")
-    wd, Vd = sym_eig(Hsym)
+        ptr(gp), ptr(dinv), *br, stream), "gf2_marg_gather")
+    wd, Vd = sym_eig(Hsym, branch)
     A = e(d, d)
     launched(lib.gf2_marg_factors(t64, ptr(wd), ptr(Vd.contiguous()),
-                                  ptr(dinv), d, ptr(A), stream),
+                                  ptr(dinv), d, ptr(A), *br, stream),
              "gf2_marg_factors")
     M = (A @ Vd.T).contiguous()
     Hdd_inv = e(d, d)
     launched(lib.gf2_marg_scale(t64, ptr(M), ptr(dinv), d, ptr(Hdd_inv),
-                                stream), "gf2_marg_scale")
+                                *br, stream), "gf2_marg_scale")
     # the products on views of Hp, as the plain route takes them
     Hkd = Hp[:k, k:]
     P = (Hkd @ Hdd_inv @ Hkd.T).contiguous()
@@ -223,17 +232,25 @@ def _marginalize_cuda(H, g, plan: MargPlan, fixed, eig_floor, dtype):
     Hs_eq, dk, u = e(k, k), e(k), e(k)
     launched(lib.gf2_marg_schur(t64, ptr(Hp), n, ptr(P), ptr(gp), ptr(q), k,
                                 float(eig_floor), ptr(Hs_eq), ptr(dk), ptr(u),
-                                stream), "gf2_marg_schur")
-    w, V = sym_eig(Hs_eq)
+                                *br, stream), "gf2_marg_schur")
+    w, V = sym_eig(Hs_eq, branch)
     V = V.contiguous()
     y = (V.T @ u).contiguous()
     nd = plan.new_dim
     f = lambda *s: torch.empty(s, dtype=H.dtype, device=dev)
-    sqrt_J, r0, valid = f(nd, nd), f(nd), f()
+    if out is None:
+        sqrt_J, r0, valid = f(nd, nd), f(nd), f()
+    else:
+        sqrt_J, r0, valid = out
+        if (tuple(sqrt_J.shape), tuple(r0.shape), tuple(valid.shape)) != (
+                (nd, nd), (nd,), ()) or any(
+                t.dtype != H.dtype or not t.is_contiguous() for t in out):
+            raise ValueError("kernel AJ: the prior's buffers disagree with "
+                             "the plan in shape or type")
     launched(lib.gf2_marg_prior(
         t64, int(H.dtype == torch.float64), ptr(w), ptr(V), ptr(dk), ptr(y),
         k, ptr(plan.new_to_old), nd, ptr(sqrt_J), ptr(r0), ptr(valid),
-        stream), "gf2_marg_prior")
+        *br, stream), "gf2_marg_prior")
     return MargPrior(sqrt_J, r0, valid)
 
 

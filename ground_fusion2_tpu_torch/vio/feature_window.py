@@ -64,9 +64,11 @@ def _f32(t, dev):
 
 
 def _window_update(mode: int, fw: FeatureWindow, rho, obs=None, col=0,
-                   depth_range=(0.1, 7.0), x: WindowState | None = None):
+                   depth_range=(0.1, 7.0), x: WindowState | None = None,
+                   is_kf=None):
     """Kernel V: a new window (and rho) from ``fw`` by ``mode`` (0 add_frame,
-    1 slide_oldest, 2 slide_second_newest)."""
+    1 slide_oldest, 2 slide_second_newest, 3 the slide the keyframe flag
+    ``is_kf`` [] bool picks on the device)."""
     dev = fw.ray.device
     F, W, _ = fw.ray.shape
     f32 = lambda t: _f32(t, dev)
@@ -79,10 +81,15 @@ def _window_update(mode: int, fw: FeatureWindow, rho, obs=None, col=0,
             else [None] * 4)
     out = FeatureWindow(*(torch.empty_like(t) for t in ins[:7]))
     rho_out = torch.empty_like(ins[7])
+    if mode == 3 and (is_kf is None or is_kf.dtype != torch.bool
+                      or is_kf.numel() != 1):
+        raise ValueError("window_update kernel: the slide's flag is a "
+                         "one-element bool tensor")
     err = _kernels.library().gf2_window_update(
         mode, *map(_ptr, ins), F, W, *map(_ptr, frame), col,
         ctypes.c_float(depth_range[0]), ctypes.c_float(depth_range[1]),
-        *map(_ptr, pose), *map(_ptr, out), _ptr(rho_out), _stream(fw.ray))
+        *map(_ptr, pose), *map(_ptr, out), _ptr(rho_out), _ptr(is_kf),
+        _stream(fw.ray))
     _kernels.check(err, "gf2_window_update")
     _kernels.count("window_update")
     return out, rho_out
@@ -235,6 +242,25 @@ def slide_second_newest_plain(fw: FeatureWindow, x: WindowState,
     fw3 = fw3._replace(track_valid=torch.where(
         nobs < 1, torch.zeros_like(fw3.track_valid), fw3.track_valid))
     return fw3, rho2
+
+
+def slide_chosen(fw: FeatureWindow, x: WindowState, rho: torch.Tensor,
+                 is_kf: torch.Tensor):
+    """The full window's slide by the keyframe flag ``is_kf`` ([] bool, on
+    the device): :func:`slide_oldest` where set, :func:`slide_second_newest`
+    where clear, with no host read (JAX's ``lax.switch``). Kernel V's mode 3
+    on the card (one launch, the branch read on the device); on the CPU
+    both slides and a select."""
+    if fw.ray.is_cuda:
+        return _window_update(3, fw, rho, x=x, is_kf=is_kf)
+    return slide_chosen_plain(fw, x, rho, is_kf)
+
+
+def slide_chosen_plain(fw, x, rho, is_kf):
+    old, rho_old = slide_oldest_plain(fw, x, rho)
+    sec, rho_sec = slide_second_newest_plain(fw, x, rho)
+    fw2 = FeatureWindow(*(torch.where(is_kf, a, b) for a, b in zip(old, sec)))
+    return fw2, torch.where(is_kf, rho_old, rho_sec)
 
 
 def parallax_keyframe_test(fw: FeatureWindow, min_parallax: float,

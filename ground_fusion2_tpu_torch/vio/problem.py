@@ -6,7 +6,15 @@ kernel C (``factors.vio_factors.projection_normal_equations``), plus those
 of the few hundred rows of the other factors (IMU, wheel, plane, GNSS,
 motion, pos-vel, prior), from kernels L and P
 (``factors.vio_factors.small_normal_fn``, packed once a solve). The LM's trial costs are
-kernel S (``factors.vio_factors.window_cost_fn``).
+kernel S (``factors.vio_factors.window_cost_fn``). Kernel AN
+(``solver/lm_glue.py``) packs L's and S's inputs and the free mask once a
+solve, takes each iteration's accept / reject and retracts the solved
+step; L's reduce adds C's block.
+
+On a full window the fused tick launches both marginalizations with the
+slide's ``branch`` (``(is_kf, want)``, ``solver/lm_glue.py``): each kernel
+off its branch writes nothing, so both write one prior's buffers and no
+host reads the branch.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from ..factors import vio_factors as fac
 from ..gnss.factors import GnssTable
 from ..sensors.imu_preint import ImuPreint
 from ..sensors.wheel_preint import WheelPreint
+from ..solver import lm_glue
 from ..solver.gauss_newton import lm_solve
 from ..solver.marginalize import (MargPlan, MargPrior, marg_plan,
                                   marginalize_plan)
@@ -58,18 +67,26 @@ def window_normal_equations(x0: WindowState, meas: VioMeasurements,
 
 
 def window_normal_fn(x0: WindowState, meas: VioMeasurements,
-                     layout: WindowLayout, cfg: VioConfig):
+                     layout: WindowLayout, cfg: VioConfig, packed=None,
+                     branch=None):
     """``delta -> (H, g, cost)`` of :func:`window_normal_equations` around
     ``x0``: the non-projection rows' inputs packed once
-    (:func:`fac.small_normal_fn`), for every linearization of a solve."""
+    (:func:`fac.small_normal_fn`; ``packed``: kernel AN's pack), for every
+    linearization of a solve. On the card kernel L's reduce adds kernel C's
+    block (the sum ``Hp + Hs``), both on ``branch``."""
     _check_supported(cfg)
-    small = fac.small_normal_fn(x0, meas, layout, cfg)
+    small = fac.small_normal_fn(x0, meas, layout, cfg, packed, branch)
+    feats = meas.feats if packed is None else meas.feats._replace(
+        track_valid=packed.track_valid)
 
     def linearize(delta: torch.Tensor):
-        Hp, gp, cp = fac.projection_normal_equations(
-            x0, delta, meas.feats, layout, cfg.proj_sqrt_info,
-            cfg.huber_delta)
+        proj = fac.projection_normal_equations(
+            x0, delta, feats, layout, cfg.proj_sqrt_info, cfg.huber_delta,
+            branch=branch)
+        if delta.is_cuda:
+            return small(delta, add=proj)
         Hs, gs, cs = small(delta)
+        Hp, gp, cp = proj
         return Hp + Hs, gp + gs, cp + cs
 
     return linearize
@@ -83,9 +100,9 @@ class SolveResult(NamedTuple):
     g: torch.Tensor
 
 
-def _fixed_dims(layout, cfg, device, **kw):
-    return layout.free_mask(
-        device,
+def _fixed_flags(cfg, **kw) -> dict:
+    """The fixed dims' flags of ``WindowLayout.free_mask``."""
+    return dict(
         fix_extrinsic=not cfg.estimate_extrinsic,
         fix_td=not cfg.estimate_td,
         fix_wheel_intrinsic=not (cfg.use_wheel and cfg.estimate_wheel_intrinsic),
@@ -94,52 +111,43 @@ def _fixed_dims(layout, cfg, device, **kw):
         use_gnss=cfg.use_gnss, extrinsic_type=cfg.extrinsic_type, **kw)
 
 
+def _fixed_dims(layout, cfg, device, **kw):
+    return layout.free_mask(device, **_fixed_flags(cfg, **kw))
+
+
 def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
                  cfg: VioConfig) -> SolveResult:
-    """One full window optimization (the per-frame solve)."""
+    """One full window optimization (the per-frame solve). Kernel AN packs
+    the solve (the free mask with its gauge: where neither the prior nor
+    active GNSS anchors the window, frame 0's pose is pinned, since GNSS
+    observes absolute position and yaw), steps each iteration and retracts
+    the result."""
     _check_supported(cfg)
     dev, dtype = x0.p.device, x0.p.dtype
-    f = meas.feats
-    landmark_mask = (f.track_valid * (1.0 - f.depth_fixed)
-                     * (f.obs_valid.sum(1) >= 2).to(dtype))
-    frame_mask = torch.where(meas.stationary > 0,
-                             torch.zeros((layout.W,), dtype=dtype, device=dev),
-                             torch.ones((layout.W,), dtype=dtype, device=dev))
-    free = _fixed_dims(layout, cfg, dev, landmark_mask=landmark_mask,
-                       frame_mask=frame_mask, fix_yaw=not cfg.refine_gnss_yaw,
-                       fix_anchor=not cfg.refine_gnss_alignment)
-    # gauge: if neither the prior nor active GNSS anchors the window, pin
-    # frame 0's pose (GNSS observes absolute position and yaw)
-    anchored = meas.prior.valid > 0
-    if cfg.use_gnss:
-        anchored = anchored | (torch.as_tensor(meas.gnss_enabled,
-                                               device=dev) > 0)
-    pose0 = layout.cached(("pose0", free.dtype), dev, lambda d: torch.arange(
-        layout.dim, device=d).lt(layout.pose_off + 6).to(free.dtype))
-    free = torch.where(anchored, free, free * (1.0 - pose0))
-
+    pk = lm_glue.pack(x0, meas, layout, cfg, flags=_fixed_flags(
+        cfg, fix_yaw=not cfg.refine_gnss_yaw,
+        fix_anchor=not cfg.refine_gnss_alignment))
     out = lm_solve(
-        window_normal_fn(x0, meas, layout, cfg),
-        fac.window_cost_fn(x0, meas, layout, cfg), layout.dim, cfg.max_iters,
-        free_mask=free, device=dev, dtype=dtype)
-    return SolveResult(layout.retract(x0, out.delta), out.cost, out.cost0,
-                       out.H, out.g)
+        window_normal_fn(x0, meas, layout, cfg, pk),
+        fac.window_cost_fn(x0, meas, layout, cfg, pk), layout.dim,
+        cfg.max_iters, free_mask=pk.free, device=dev, dtype=dtype, start=pk)
+    return SolveResult(lm_glue.retract(layout, x0, out.delta), out.cost,
+                       out.cost0, out.H, out.g)
 
 
 def _marg_old_inputs(x: WindowState, meas: VioMeasurements,
-                     layout: WindowLayout, cfg: VioConfig):
+                     layout: WindowLayout, cfg: VioConfig, branch=None):
     """(H, g, fixed) of MARGIN_OLD: the factors touching frame 0
-    relinearized at the solved state, and the mask of its fixed dims."""
-    dev, dtype = x.p.device, x.p.dtype
-    f = meas.feats
-    feats0 = f._replace(track_valid=f.track_valid * (f.anchor == 0).to(dtype))
-    first = layout.cached(("first_interval", dtype), dev, lambda d: torch.eye(
-        1, layout.W - 1, dtype=dtype, device=d)[0])
-    meas0 = meas._replace(feats=feats0, imu_valid=meas.imu_valid * first,
-                          wheel_valid=meas.wheel_valid * first)
-    H, g, _ = window_normal_equations(
-        x, meas0, layout, cfg, torch.zeros((layout.dim,), dtype=dtype,
-                                           device=dev))
+    relinearized at the solved state (kernel AN's pack with frame 0's
+    masks, then C and L, on ``branch``), and the mask of its fixed dims."""
+    dev = x.p.device
+    if x.p.is_cuda:
+        pk = lm_glue.pack(x, meas, layout, cfg, marg_old=True, branch=branch)
+        H, g, _ = window_normal_fn(x, meas, layout, cfg, pk, branch)(pk.delta)
+    else:
+        H, g, _ = window_normal_equations(
+            x, lm_glue.marg_old_meas(meas, layout), layout, cfg,
+            torch.zeros((layout.dim,), dtype=x.p.dtype, device=dev))
     fixed = _fixed_dims(layout, cfg, dev, fix_yaw=True, fix_anchor=True)
     return H, g, fixed
 
@@ -162,14 +170,29 @@ def marg_old_system(x: WindowState, meas: VioMeasurements,
 
 
 def marginalize_oldest(x: WindowState, meas: VioMeasurements,
-                       layout: WindowLayout, cfg: VioConfig) -> MargPrior:
+                       layout: WindowLayout, cfg: VioConfig, branch=None,
+                       out: MargPrior | None = None) -> MargPrior:
     """MARGIN_OLD: eliminate frame 0 and the landmarks
     (:func:`marg_old_system`), shift into the next layout (kernel AJ
-    around kernel X, the index tables built once per layout)."""
-    with stage("marginalize"):
-        H, g, fixed = _marg_old_inputs(x, meas, layout, cfg)
+    around kernel X, the index tables built once per layout); on the card
+    on ``branch``, into ``out``'s buffers when given."""
+    with stage("marginalize_oldest"):
+        H, g, fixed = _marg_old_inputs(x, meas, layout, cfg, branch)
         return marginalize_plan(H, g, marg_old_plan(layout, H.device),
-                                fixed=fixed)
+                                fixed=fixed, branch=branch, out=out)
+
+
+def prepare_layout(layout: WindowLayout, cfg: VioConfig, device):
+    """Builds the device tables a full window's tick reads from the layout's
+    cache (both marginalizations' index tables, MARGIN_OLD's and the solve's
+    fixed dims, the anchor free or not), so that no fused tick uploads them
+    from the host."""
+    marg_old_plan(layout, device)
+    marg_second_plan(layout, device)
+    _fixed_dims(layout, cfg, device, fix_yaw=True, fix_anchor=True)
+    for anchor in (False, True):
+        _fixed_dims(layout, cfg, device, fix_yaw=not cfg.refine_gnss_yaw,
+                    fix_anchor=anchor)
 
 
 def marg_old_plan(layout: WindowLayout, device) -> MargPlan:
@@ -212,20 +235,47 @@ def _marg_second_shift(layout: WindowLayout) -> np.ndarray:
         + [np.arange(layout.gyaw_off, layout.frame_dim)])
 
 
-def marg_second_system(prior: MargPrior, layout: WindowLayout):
+def marg_second_system(prior: MargPrior, layout: WindowLayout, branch=None):
     """(H, g, keep, drop) that MARGIN_SECOND_NEW eliminates: frame W-2's
     dims of the existing prior. Its residual is linear (sqrt_J dx + r0),
-    so H and g are exact."""
-    Jw = prior.sqrt_J * prior.valid
+    so H and g are exact. The weighted rows are kernel AN's weigh mode on
+    the card (on ``branch``; the products then run whichever branch is
+    taken, on its rows or on unwritten ones)."""
+    Jw, rw = lm_glue.weigh(prior, branch)
     H = Jw.T @ Jw
-    g = Jw.T @ (prior.r0 * prior.valid)
+    g = Jw.T @ rw
     return (H, g, *_marg_second_indices(layout))
 
 
-def marginalize_second_newest(prior: MargPrior,
-                              layout: WindowLayout) -> MargPrior:
+def marginalize_second_newest(prior: MargPrior, layout: WindowLayout,
+                              branch=None,
+                              out: MargPrior | None = None) -> MargPrior:
     """MARGIN_SECOND_NEW: drop frame W-2's dims from the existing prior
-    (:func:`marg_second_system`), shift into the next layout."""
-    with stage("marginalize"):
-        H, g, _, _ = marg_second_system(prior, layout)
-        return marginalize_plan(H, g, marg_second_plan(layout, H.device))
+    (:func:`marg_second_system`), shift into the next layout; on the card
+    on ``branch``, into ``out``'s buffers when given."""
+    with stage("marginalize_second_newest"):
+        H, g, _, _ = marg_second_system(prior, layout, branch)
+        return marginalize_plan(H, g, marg_second_plan(layout, H.device),
+                                branch=branch, out=out)
+
+
+def marginalize_chosen(x: WindowState, meas: VioMeasurements,
+                       layout: WindowLayout, cfg: VioConfig, is_kf
+                       ) -> MargPrior:
+    """The full window's prior by the branch the keyframe flag ``is_kf``
+    ([] bool, on the device) picks: MARGIN_OLD where set, MARGIN_SECOND_NEW
+    (of ``meas.prior``) where clear, with no host read (JAX's
+    ``lax.switch``, ``vio/fused.py:470``). On the card both branches are
+    launched, each kernel on its branch, into one prior's buffers; on the
+    CPU both are computed and the prior selected (a copy: an unselected
+    branch's values never mix in)."""
+    if not x.p.is_cuda:
+        old = marginalize_oldest(x, meas, layout, cfg)
+        sec = marginalize_second_newest(meas.prior, layout)
+        return MargPrior(*(torch.where(is_kf, a, b) for a, b in zip(old, sec)))
+    K, dev = layout.frame_dim, x.p.device
+    out = MargPrior(torch.empty((K, K), device=dev),
+                    torch.empty((K,), device=dev), torch.empty((), device=dev))
+    marginalize_oldest(x, meas, layout, cfg, branch=(is_kf, 1), out=out)
+    marginalize_second_newest(meas.prior, layout, branch=(is_kf, 0), out=out)
+    return out

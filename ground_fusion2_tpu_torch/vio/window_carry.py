@@ -130,12 +130,13 @@ def _move_last(b):
 def merge_last_two(acc, gyr, wvel, dt, sm):
     """SECOND_NEW buffers: concat the last two intervals into slot [-2],
     dropping the oldest samples on overflow; the counts n0, n1 are the
-    last two rows' sums of ``sm``, as JAX derives them."""
+    last two rows' sums of ``sm``, as JAX derives them (device integers:
+    nothing is read on the host)."""
     M = dt.shape[1]
-    n0 = int(sm[-2].sum())
-    n1 = int(sm[-1].sum())
+    n0 = sm[-2].sum().to(torch.int64)
+    n1 = sm[-1].sum().to(torch.int64)
     total = n0 + n1
-    ofs = max(total - M, 0)
+    ofs = torch.clamp(total - M, min=0)
     dev = dt.device
     k = torch.arange(M + 1, device=dev) + ofs
     from0 = k <= n0
@@ -172,42 +173,61 @@ def _record_plain(st, col: int, cost, is_kf, stationary, anomaly,
         st.ba[col], st.bg[col]])
 
 
+def _fields(c):
+    """The slid buffers of the carry, in a fixed order."""
+    g, st = c.gnss, c.state
+    return ([c.acc, c.gyr, c.wvel, c.dt, c.smask, c.imu_valid,
+             c.wheel_valid, c.times]
+            + [getattr(g, f) for f in GnssTable.ROW_FIELDS]
+            + [getattr(st, f) for f in STATE])
+
+
+def _with_fields(c, vals):
+    g = c.gnss._replace(**dict(zip(GnssTable.ROW_FIELDS, vals[8:15])))
+    st = c.state._replace(**dict(zip(STATE, vals[15:])))
+    return c._replace(**dict(zip(INTERVAL + ("imu_valid", "wheel_valid",
+                                             "times"), vals[:8])),
+                      gnss=g, state=st)
+
+
 def slide_plain(c, inp, is_kf, cost, stationary, anomaly, alive, par):
+    """Both slides and a select by ``full`` and ``is_kf`` (no host read of
+    either; a select copies, so an unselected branch never mixes in)."""
     col = int(inp.col)
     rec = _record_plain(c.state, col, cost, is_kf, stationary, anomaly,
                         c.fw.track_valid, alive, par)
-    mode = 0 if not bool(inp.full > 0.5) else (1 if bool(is_kf) else 2)
     st, g = c.state, c.gnss
-    if mode == 1:
-        sh = lambda a: torch.cat([a[1:], a[-1:]], 0)
-        c = c._replace(
-            acc=_roll_left(c.acc), gyr=_roll_left(c.gyr),
-            wvel=_roll_left(c.wvel), dt=_roll_left(c.dt),
-            smask=_roll_left(c.smask), imu_valid=_roll_left(c.imu_valid),
-            wheel_valid=_roll_left(c.wheel_valid), times=sh(c.times),
-            gnss=g._replace(**{f: _roll_left(getattr(g, f))
-                               for f in GnssTable.ROW_FIELDS}),
-            state=st._replace(**{f: sh(getattr(st, f)) for f in STATE}))
-    elif mode == 2:
-        acc, gyr, wvel, dt, sm = merge_last_two(c.acc, c.gyr, c.wvel, c.dt,
-                                                c.smask)
-        iv, wv = c.imu_valid.clone(), c.wheel_valid.clone()
-        iv[-2] = torch.maximum(iv[-2], iv[-1])
-        iv[-1] = 0.0
-        wv[-2] = torch.minimum(wv[-2], wv[-1])
-        wv[-1] = 0.0
+    sh = lambda a: torch.cat([a[1:], a[-1:]], 0)
+    old = _fields(c._replace(
+        acc=_roll_left(c.acc), gyr=_roll_left(c.gyr),
+        wvel=_roll_left(c.wvel), dt=_roll_left(c.dt),
+        smask=_roll_left(c.smask), imu_valid=_roll_left(c.imu_valid),
+        wheel_valid=_roll_left(c.wheel_valid), times=sh(c.times),
+        gnss=g._replace(**{f: _roll_left(getattr(g, f))
+                           for f in GnssTable.ROW_FIELDS}),
+        state=st._replace(**{f: sh(getattr(st, f)) for f in STATE})))
+    acc, gyr, wvel, dt, sm = merge_last_two(c.acc, c.gyr, c.wvel, c.dt,
+                                            c.smask)
+    iv, wv = c.imu_valid.clone(), c.wheel_valid.clone()
+    iv[-2] = torch.maximum(iv[-2], iv[-1])
+    iv[-1] = 0.0
+    wv[-2] = torch.minimum(wv[-2], wv[-1])
+    wv[-1] = 0.0
 
-        def mv(a):
-            a = a.clone()
-            a[-2] = a[-1]
-            return a
-        c = c._replace(
-            acc=acc, gyr=gyr, wvel=wvel, dt=dt, smask=sm, imu_valid=iv,
-            wheel_valid=wv, times=mv(c.times),
-            gnss=g._replace(**{f: _move_last(getattr(g, f))
-                               for f in GnssTable.ROW_FIELDS}),
-            state=st._replace(**{f: mv(getattr(st, f)) for f in STATE}))
-    return c, rec
+    def mv(a):
+        a = a.clone()
+        a[-2] = a[-1]
+        return a
+    second = _fields(c._replace(
+        acc=acc, gyr=gyr, wvel=wvel, dt=dt, smask=sm, imu_valid=iv,
+        wheel_valid=wv, times=mv(c.times),
+        gnss=g._replace(**{f: _move_last(getattr(g, f))
+                           for f in GnssTable.ROW_FIELDS}),
+        state=st._replace(**{f: mv(getattr(st, f)) for f in STATE})))
+    full, kf = inp.full > 0.5, _bool(is_kf)
+    vals = [torch.where(full, torch.where(kf, a, b), n)
+            for a, b, n in zip(old, second, _fields(c))]
+    return _with_fields(c, vals), rec
 
 
 def slide(c, inp, is_kf, cost, stationary, anomaly, alive, par):

@@ -21,8 +21,13 @@ modes (equal to each other, following handed-in ranges, at 1 and 4,096
 queries, on voxel runs past gather_k and on an empty map) and E at 1 to
 8,192 rows, with every weight 0, after a call of another size and on two
 streams, each one launch a call; the camera tick's glue AH (the tracker's
-tail), AI (the carry's writes and slides) and AJ (the marginalization
-around X) bit for bit, with their launches a fused tick; the LiDAR tick's
+tail), AI (the carry's writes and slides), AJ (the marginalization
+around X), AN (the LM loop's pack, step, retraction and weigh; L's reduce
+adding C's block) and AO (the tick's own ops) bit for bit, with their
+launches a fused tick and the window solve's; the slide chosen on the
+device equal to the host's choice in both branches, and each predicated
+kernel (AN's pack and weigh, C, L, X, AJ) leaving its sentinel-filled
+outputs untouched off its branch; the LiDAR tick's
 glue AK (CT-ICP's points, weights and step), AL (the keypoint and map
 glue around F) and AM (the observations, the select, the switch) bit for
 bit, AM through every switch branch, with their launches a LiDAR tick; the mesh and the
@@ -1594,19 +1599,67 @@ def test_marg_schur_kernel_matches_plain(dev, camera):
 
 def test_glue_kernels_launch_a_tick(dev, camera):
     """A fused tick with the window full: AH twice (lift, tail), AI twice
-    (write, slide), AJ five times (one marginalization)."""
+    (write, slide), AJ ten times (both marginalizations, each on its
+    branch), AN once a solve's pack, step (8) and retraction and once
+    each MARGIN_OLD's pack and MARGIN_SECOND_NEW's weigh, AO twice (three
+    times with RANSAC: its noise)."""
     import copy
-    _, fv, fs, _ = camera
+    cfg, fv, fs, _ = camera
     fv2 = copy.copy(fv)
     f = fs[-1]
     _kernels.launches.clear()
     fv2.process_image(f["t"] + 0.1, f["gray"], f["depth"], f["imu"],
                       wheel_vel=f["wheel"])
     got = {k: _kernels.launches[k] for k in ("track_tail", "window_carry",
-                                              "marg_schur")}
+                                              "marg_schur", "lm_glue",
+                                              "tick_glue")}
     full = fv.frame_count >= checks.NUM_FRAMES
+    iters = cfg.estimator.vio.max_iters
     assert got == dict(track_tail=2, window_carry=2,
-                       marg_schur=5 if full else 0), got
+                       marg_schur=10 if full else 0,
+                       lm_glue=iters + 2 + (2 if full else 0),
+                       tick_glue=2 + cfg.tracker.use_ransac), got
+
+
+def test_lm_glue_kernel_matches_plain(dev, camera):
+    """AN's pack (a tick's, stationary with no prior, MARGIN_OLD's), L's
+    reduce adding C's block, the step (accept, reject, tie, NaN cost, λ at
+    both clamps, in place), the retraction (a solve's step, zero, tiny and
+    large rotations) and the weigh, bit for bit."""
+    _, fv, _, _ = camera
+    r = checks.check_lm_glue(dev, fv, timed=False)
+    assert r["ok"], {k: v for k, v in r["modes"].items() if not v["ok"]}
+
+
+def test_tick_glue_kernel_matches_plain(dev, camera):
+    """AO's track (the tracked mask, the Gumbel noise), pre (the new column
+    last and in the middle) and post (with and without an anomaly, the GNSS
+    gate both ways, a middle column), bit for bit."""
+    _, fv, _, _ = camera
+    r = checks.check_tick_glue(dev, fv, timed=False)
+    assert r["ok"], r
+
+
+def test_device_slide_equals_the_host_slide_and_skips_off_branch(dev, camera):
+    """The prior and window slid by the keyframe flag on the device equal
+    MARGIN_OLD's and MARGIN_SECOND_NEW's alone; AN's pack and weigh, C, L,
+    X and AJ off their branch leave sentinel-filled outputs untouched and
+    on it give the unpredicated call's bits."""
+    _, fv, _, _ = camera
+    r = checks.check_device_slide(dev, fv, timed=False)
+    assert r["ok"], r
+
+
+def test_solve_window_launches_at_most_90_activities(dev, camera):
+    """The window solve: C (2) and L (2) with the prior's two products a
+    linearization (9), W and S an iteration (8) and S's first cost, AN's
+    pack, 8 steps and the retraction: 81 CUDA activities, ≤ 90."""
+    from ground_fusion2_tpu_torch.vio import problem
+    _, fv, _, _ = camera
+    meas = checks.carry_measurements(fv)
+    t = checks.device_ms(lambda: problem.solve_window(
+        fv.carry.state, meas, fv.layout, fv.cfg.vio), reps=3)
+    assert t.launches <= 90, (t.launches, sorted(t.kernels))
 
 
 def test_ct_glue_kernel_matches_plain(dev, lio):

@@ -1,24 +1,29 @@
-"""Kernels H, B, D, E, S, K, L/P and AC of this tree against the parent
-commit's build, on the card.
+"""Kernels H, B, D, E, S, K, L/P (with C and AN's pack) and AC of this tree
+against the parent commit's build, on the card.
 
     mkdir -p build/parent
-    git archive <parent> ground_fusion2_tpu_torch/csrc | tar -x -C build/parent
+    git archive <parent> ground_fusion2_tpu_torch/csrc \
+        ground_fusion2_tpu_torch/_kernels.py | tar -x -C build/parent
     PYTHONPATH=. python tests/torch_parent_bits.py build/parent
 
 Builds the parent's ``csrc/preint.cu``, ``klt.cu``, ``lio_assoc.cu``,
 ``ct_icp_normal.cu``, ``window_cost.cu``, ``ransac_f.cu``,
-``small_normal.cu`` and ``mesh_delaunay.cu`` (with the headers beside them)
-into ``build/parent_bits/`` and compares, each output with ``torch.equal``:
+``small_normal.cu``, ``proj_normal.cu`` and ``mesh_delaunay.cu`` (with the
+headers beside them) into ``build/parent_bits/`` and binds each entry point
+with the argument list of the parent's own ``_kernels.py``
+(:class:`ParentLib`): where it is this tree's, this tree's wrapper calls
+it; where this tree only added the slide's branch (and L's reduce kernel
+C's added block), a shim drops them (null in every call here); H's and B's
+interfaces of commit 4141781 go through ``parent_preint`` and
+``parent_klt``. Compares, each output with ``torch.equal``:
 
 * kernel H (every ``ImuPreint``, ``WheelPreint`` and (p, q, v) output)
-  against the parent's wrapper (commit 4141781's C interface and glue:
-  ``parent_preint``) on the inputs of every fused tick of ``chip_smoke.py``'s
-  phase 4 drive (recorded as ``preintegrate_all`` takes them: ticks after a
-  keyframe slide, after a non-keyframe merge and while the window fills),
-  and on each of them the propagation alone (``intervals=False``);
-* kernel B (points and flags) against the parent's (4141781's flat
-  pyramids: ``parent_klt``) on every tracker call of the same drive (the
-  track pairs of phase 4's 32 frames), on phase 3's frames 12 → 13
+  on the inputs of every fused tick of ``chip_smoke.py``'s phase 4 drive
+  (recorded as ``preintegrate_all`` takes them: ticks after a keyframe
+  slide, after a non-keyframe merge and while the window fills), and on
+  each of them the propagation alone (``intervals=False``);
+* kernel B (points and flags) on every tracker call of the same drive
+  (the track pairs of phase 4's 32 frames), on phase 3's frames 12 → 13
   (``checks.klt_inputs``) and on the line path's call (frames 0 → 1:
   ``lines.track_lines``' samples at half 3, 6 iterations, threshold 8);
 * kernel D's four outputs (normal, centroid, a2D, valid) on
@@ -28,15 +33,17 @@ into ``build/parent_bits/`` and compares, each output with ``torch.equal``:
   the ranges the search wrote, and in flag mode with the flag set and
   clear; kernel E's (H, g, cost) on the same inputs, at the predicted pose
   and at ``checks.check_ct_normal``'s moved pose;
-* kernels S (phase 3's window at zero, the damped LM step and its reverse;
-  phase 12's GNSS window at zero and a step), K (phase 7's KLT tracks and
-  the track pairs of each of phase 4's 32 frames: every output), L with P
-  (phase 3's and phase 12's windows) and AC (4,544 voxels of a room store);
+* kernels S and L/P on phase 3's window (at zero, the damped LM step and
+  its reverse) and phase 12's GNSS window (at zero and a step), this
+  tree's inputs packed by kernel AN against the parent's packed by its
+  PyTorch ops (``lm_glue.pack_plain`` on the card): S's cost, L's (H, g,
+  cost), and the window's sum (this tree's L reduce adding C's block
+  against the parent's ``Hp + Hs`` of its C and L); K (phase 7's KLT
+  tracks and the track pairs of each of phase 4's 32 frames: every
+  output) and AC (4,544 voxels of a room store).
 
-D, E, S, K, L/P and AC through this tree's wrappers on the parent's
-library (their C interfaces are the parent's). ``parent_assoc`` and
-``parent_ct_normal`` call commit 0307a71's D and E (``tools/lio_stages.py``'s
-``parent:`` sources).
+``parent_assoc`` and ``parent_ct_normal`` call commit 0307a71's D and E
+(``tools/lio_stages.py``'s ``parent:`` sources).
 
 Prints one JSON line a comparison and exits nonzero on any difference.
 Needs the card (the kernels have no CPU mode).
@@ -46,6 +53,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import importlib.util
 import json
 import subprocess
 import sys
@@ -65,22 +73,99 @@ from ground_fusion2_tpu_torch.mesh import incremental as mi  # noqa: E402
 
 OUT = ROOT / "build" / "parent_bits"
 SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "window_cost",
-           "ransac_f", "small_normal", "mesh_delaunay")
+           "ransac_f", "small_normal", "proj_normal", "mesh_delaunay")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # commit 0307a71's kernels D (one search a call) and E (one CTA)
 PARENT_ASSOC = [P] * 5 + [I] * 2 + [F] + [I] * 3 + [P] * 5
 PARENT_CT_NORMAL = [P] * 13 + [I] + [F] * 3 + [P] * 2
-SAME_INTERFACE = ("gf2_lio_assoc", "gf2_ct_icp_normal", "gf2_ct_icp_scratch",
-                  "gf2_window_cost", "gf2_ransac_f", "gf2_small_rows",
-                  "gf2_small_reduce", "gf2_mesh_delaunay")
+ENTRY_POINTS = ("gf2_preint", "gf2_klt_track", "gf2_lio_assoc",
+                "gf2_ct_icp_normal", "gf2_ct_icp_scratch", "gf2_window_cost",
+                "gf2_ransac_f", "gf2_small_rows", "gf2_small_reduce",
+                "gf2_proj_normal", "gf2_mesh_delaunay")
 HYPOTHESES, SEED = 64, 12          # checks.check_ransac's draw
 LIO_SCANS = (7, 20, 59)            # the map early, filling, full
 
 
-def build_parent(parent: Path) -> ctypes.CDLL:
+def _null(arg) -> bool:
+    return isinstance(arg, ctypes.c_void_p) and arg.value is None
+
+
+class ParentLib:
+    """The parent's library as this tree's wrappers call it. ``interface``
+    maps an entry point to how it is called: "same" (the parent's argument
+    list is this tree's), "branch added" (this tree appended the slide's
+    ``branch, want`` before the stream: dropped, the branch must be null),
+    "branch and block added" (L's reduce: also kernel C's ``addH, addg,
+    addc`` before its outputs, which must be null) or "parent's own" (H's
+    and B's of commit 4141781: ``parent_preint``, ``parent_klt``)."""
+
+    def __init__(self, lib, parent_sigs: dict):
+        self._lib = lib
+        self.interface = {}
+        own = _kernels._SIGNATURES
+        for fn in ENTRY_POINTS:
+            theirs, ours = parent_sigs[fn], own[fn]
+            entry = getattr(lib, fn)
+            entry.argtypes, entry.restype = theirs, I
+            if theirs == ours:
+                self.interface[fn] = "same"
+            elif ours == theirs[:-1] + [P, I, P]:
+                self.interface[fn] = "branch added"
+                setattr(self, fn, self._drop_branch(entry))
+            elif (fn == "gf2_small_reduce"
+                  and ours == theirs[:11] + [P] * 3 + theirs[11:-1] + [P, I, P]):
+                self.interface[fn] = "branch and block added"
+                setattr(self, fn, self._drop_block(entry))
+            elif (fn, theirs) in (("gf2_preint", PARENT_PREINT),
+                                  ("gf2_klt_track", PARENT_KLT)):
+                self.interface[fn] = "parent's own"
+            else:
+                raise RuntimeError(f"the parent's {fn} takes neither this "
+                                   "tree's arguments nor a known older list")
+        # B's flat pyramids of 4141781 take the same argument types as this
+        # tree's per-level pointers; they went with H's old interface
+        if self.interface["gf2_preint"] == "parent's own":
+            self.interface["gf2_klt_track"] = "parent's own"
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
+
+    @staticmethod
+    def _drop_branch(entry):
+        def call(*args):
+            *head, branch, _want, stream = args
+            if not _null(branch):
+                raise ValueError("the parent's kernels take no branch")
+            return entry(*head, stream)
+        return call
+
+    @staticmethod
+    def _drop_block(entry):
+        def call(*args):
+            head, block, outs = args[:11], args[11:14], args[14:17]
+            branch, _want, stream = args[17:]
+            if not all(map(_null, block + (branch,))):
+                raise ValueError("the parent's L reduce takes no added block "
+                                 "and no branch")
+            return entry(*head, *outs, stream)
+        return call
+
+
+def parent_signatures(parent: Path) -> dict:
+    """``_SIGNATURES`` of the parent's ``_kernels.py``."""
+    path = parent / "ground_fusion2_tpu_torch" / "_kernels.py"
+    spec = importlib.util.spec_from_file_location("parent_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod._SIGNATURES
+
+
+def build_parent(parent: Path) -> ParentLib:
     """The parent's sources, one nvcc each (in parallel), linked into one
-    library with the port's flags."""
+    library with the port's flags and bound with the parent's argument
+    lists."""
     csrc = parent / "ground_fusion2_tpu_torch" / "csrc"
+    sigs = parent_signatures(parent)
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _kernels._nvcc()
     objs = [OUT / f"{name}.o" for name in SOURCES]
@@ -95,13 +180,9 @@ def build_parent(parent: Path) -> ctypes.CDLL:
     lib_path = OUT / "libparent.so"
     subprocess.run([nvcc, *_kernels.LINK_FLAGS, "-o", str(lib_path),
                     *map(str, objs)], check=True)
-    lib = ctypes.CDLL(str(lib_path))
-    for fn in SAME_INTERFACE:
-        getattr(lib, fn).argtypes = _kernels._SIGNATURES[fn]
-        getattr(lib, fn).restype = I
-    lib.gf2_preint.argtypes = PARENT_PREINT
-    lib.gf2_klt_track.argtypes = PARENT_KLT
-    lib.gf2_preint.restype = lib.gf2_klt_track.restype = I
+    lib = ParentLib(ctypes.CDLL(str(lib_path)), sigs)
+    print(json.dumps(dict(parent=str(parent), interface=lib.interface)),
+          flush=True)
     return lib
 
 
@@ -376,7 +457,11 @@ def compare_preint(lib, calls) -> bool:
         for intervals in (True, False):
             k = dict(kw, intervals=intervals)
             new = _preint_outputs(wp.preintegrate_window(*args, **k))
-            old = _preint_outputs(parent_preint(lib, *args, **k))
+            if lib.interface["gf2_preint"] == "parent's own":
+                old = _preint_outputs(parent_preint(lib, *args, **k))
+            else:
+                with library(lib):
+                    old = _preint_outputs(wp.preintegrate_window(*args, **k))
             same = equal(new, old, PREINT_NAMES)
             ok &= all(same.values())
             after = ("the window filling" if prev_kf is None else
@@ -392,7 +477,11 @@ def compare_preint(lib, calls) -> bool:
 def compare_klt(lib, name, pyr0, pyr1, pts0, valid0, half, iters, fb) -> bool:
     from ground_fusion2_tpu_torch.frontend import klt
     new = klt.klt_track(pyr0, pyr1, pts0, valid0, half, iters, fb)
-    old = parent_klt(lib, pyr0, pyr1, pts0, valid0, half, iters, fb)
+    if lib.interface["gf2_klt_track"] == "parent's own":
+        old = parent_klt(lib, pyr0, pyr1, pts0, valid0, half, iters, fb)
+    else:
+        with library(lib):
+            old = klt.klt_track(pyr0, pyr1, pts0, valid0, half, iters, fb)
     same = equal(new, old, ("pts1", "tracked"))
     print(json.dumps(dict(kernel="klt", call=name, features=pts0.shape[0],
                           tracked=int(new[1].sum()), half=half,
@@ -427,20 +516,41 @@ def compare_tracks(lib, dev, calls) -> bool:
 
 
 def compare_window(lib, name, x0, meas, layout, c, deltas) -> bool:
-    """Kernels S and L/P on one window, through this tree's wrappers."""
-    cost = fac.window_cost_fn(x0, meas, layout, c)
-    small = fac.small_normal_fn(x0, meas, layout, c)
+    """Kernels S and L/P on one window through this tree's wrappers, this
+    tree's inputs packed by kernel AN and the parent's by its PyTorch ops
+    (``lm_glue.pack_plain`` on the card); and the window's (H, g, cost):
+    this tree's L reduce adding kernel C's block against the parent's
+    ``Hp + Hs`` of its own C and L (``vio/problem.py:window_normal_fn``)."""
+    from ground_fusion2_tpu_torch.solver import lm_glue
+    from ground_fusion2_tpu_torch.vio.problem import window_normal_fn
+    pk = lm_glue.pack(x0, meas, layout, c)
+    pk_old = lm_glue.pack_plain(x0, meas, layout, c)
+    cost = fac.window_cost_fn(x0, meas, layout, c, pk)
+    small = fac.small_normal_fn(x0, meas, layout, c, pk)
+    window = window_normal_fn(x0, meas, layout, c, pk)
+    proj = lambda d: fac.projection_normal_equations(
+        x0, d, meas.feats, layout, c.proj_sqrt_info, c.huber_delta)
     with library(lib):
-        cost_old = fac.window_cost_fn(x0, meas, layout, c)
-        small_old = fac.small_normal_fn(x0, meas, layout, c)
+        cost_old = fac.window_cost_fn(x0, meas, layout, c, pk_old)
+        small_old = fac.small_normal_fn(x0, meas, layout, c, pk_old)
+
+        def window_old(d):
+            Hp, gp, cp = proj(d)
+            Hs, gs, cs = small_old(d)
+            return Hp + Hs, gp + gs, cp + cs
     ok = True
     for label, d in deltas.items():
-        same = dict(cost=bool(torch.equal(cost(d), cost_old(d))),
-                    **equal(small(d), small_old(d), ("H", "g", "small cost")))
+        with library(lib):
+            old = (cost_old(d), small_old(d), window_old(d))
+        same = dict(cost=bool(torch.equal(cost(d), old[0])),
+                    **equal(small(d), old[1], ("H", "g", "small cost")),
+                    **equal(window(d), old[2], ("H + C", "g + C",
+                                                "cost + C")))
         ok &= all(same.values())
-        print(json.dumps(dict(kernel="window_cost, small_normal", window=name,
-                              delta=label, equal=same, dim=layout.dim,
-                              gnss=bool(c.use_gnss))), flush=True)
+        print(json.dumps(dict(kernel="window_cost, small_normal, proj_normal",
+                              window=name, delta=label, equal=same,
+                              dim=layout.dim, gnss=bool(c.use_gnss))),
+              flush=True)
     return ok
 
 

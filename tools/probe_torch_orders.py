@@ -1,6 +1,7 @@
 """Which order of operations PyTorch's ops take on this device, for the
 small reductions, cross products and matrix products of the LiDAR tick's
-glue (kernels AK, AL, AM replay them bit for bit).
+glue (kernels AK, AL, AM replay them bit for bit) and of the camera tick's
+(kernel AN's retraction of the window, kernel AO's GNSS gate).
 
     PYTHONPATH=. python3 tools/probe_torch_orders.py [--device cuda] [--n 65536]
 
@@ -190,6 +191,30 @@ def split_dots(A, B) -> dict:
     return out
 
 
+def small_sums(x) -> dict:
+    """torch.sum of a contiguous vector x [..., n] (n ≤ 32) as a CUDA
+    reduce may take it: B lanes, lane l adding entries l, l + B, ... into
+    vt slots in turn, the slots combined in order, the lanes by a shuffle
+    tree with ascending or descending offsets; and the plain orders."""
+    n = x.shape[-1]
+    a = [x[..., i] for i in range(n)]
+    out = {"seq": _tree(a, "seq"), "pair": _tree(a, "pair")}
+    for B in (1, 2, 4, 8, 16, 32):
+        for vt in (1, 2, 4):
+            lanes = []
+            for lane in range(B):
+                slots = [torch.zeros_like(a[0]) for _ in range(vt)]
+                for i, j in enumerate(range(lane, n, B)):
+                    slots[i % vt] = slots[i % vt] + a[j]
+                v = slots[0]
+                for sl in slots[1:]:
+                    v = v + sl
+                lanes.append(v)
+            for how, name in (("down", "ascending"), ("xor", "descending")):
+                out[f"B={B} vt={vt} {name}"] = _tree(lanes, how)
+    return out
+
+
 def cross(a, b) -> dict:
     a0, a1, a2 = a.unbind(-1)
     b0, b1, b2 = b.unbind(-1)
@@ -256,6 +281,37 @@ def probe(dev, n: int, seed: int = 0, only_best: bool = True) -> dict:
     cands = dots(torch.stack(A), torch.stack(v)[..., None])
     row("mv [18,6]@[6] (K innov)", ref, {kk: c[..., 0]
                                         for kk, c in cands.items()})
+    # the camera tick's shapes (W = 11 frames): lie.quat_exp's and
+    # quat_normalize's reductions and quat_mul's product over the window's
+    # rotations (WindowLayout.retract), the GNSS gate's speeds and their sum
+    W = 11
+    xs = [r(W, 3) for _ in range(256)]
+    row("sum [11,3] dim -1 keepdim (the window's quat_exp)",
+        torch.stack([torch.sum(x, -1, keepdim=True)[:, 0] for x in xs]),
+        sums(torch.stack(xs), 3))
+    row("norm [11,3] dim -1 (the GNSS gate's speeds)",
+        torch.stack([torch.linalg.norm(x, dim=-1) for x in xs]),
+        norms(torch.stack(xs), 3))
+    x4s = [r(W, 4) for _ in range(256)]
+    row("norm [11,4] dim -1 keepdim (the window's quat_normalize)",
+        torch.stack([torch.linalg.norm(x, dim=-1, keepdim=True)[:, 0]
+                     for x in x4s]), norms(torch.stack(x4s), 4))
+    A = [r(W, 4, 4) for _ in range(64)]
+    B = [r(W, 4, 1) for _ in range(64)]
+    ref = torch.stack([x @ y for x, y in zip(A, B)])
+    At, Bt = torch.stack(A), torch.stack(B)
+    cands = {**dots(At, Bt), **split_dots(At, Bt)}
+    name = "bmm [11,4,4]@[11,4,1] (the window's quat_mul)"
+    res[name] = {kk: share(ref, v) for kk, v in cands.items()}
+    top = sorted(res[name].items(), key=lambda kv: -kv[1])[:8]
+    print(f"{name}: " + json.dumps(dict(top)), flush=True)
+    vs = [r(W).abs() for _ in range(2048)]
+    ref = torch.stack([v.sum() for v in vs])
+    cands = small_sums(torch.stack(vs))
+    name = "sum [11] (the GNSS gate's mean speed)"
+    res[name] = {kk: share(ref, v) for kk, v in cands.items()}
+    top = sorted(res[name].items(), key=lambda kv: -kv[1])[:8]
+    print(f"{name}: " + json.dumps(dict(top)), flush=True)
     # a float32 tensor divided by a Python float: by its float reciprocal?
     x = r(n)
     for s in (48.0, 8.0, 3.0, 0.2):
