@@ -226,7 +226,33 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      both problems (twice the same bits). The card is one: the multi-rank
      collectives and the halo's send/recv run only over gloo in the CPU
      tests.
-Phases 4, 5, 8, 9, 10, 10b, 11, 13, 14, 15 and 16 run with a counter on every
+ 17. the camera models: kernel AH's lift and tail modes for five cameras,
+     one a model (configs/hilti22.yaml's Equidistant at 720×540 and
+     configs/idc.yaml's radtan Pinhole through the port's loader,
+     tests/test_cameras.py's Mei, PinholeFull and Scaramuzza), F = 150
+     slots drawn over the whole image from a seed (tracked, dead and
+     fresh): every output torch.equal to the plain route and finite, twice
+     the same bits, each mode's device ms and launches a model printed.
+     Then phase 4's drive once with the M3DGR intrinsics as a PinholeFull
+     of zero coefficients: its windows must equal phase 4's first run's,
+     tick for tick, with no synchronizing call on a full tick. No fisheye
+     rig is driven: the renderer, a copy of the JAX package's, is
+     pinhole-only;
+ 18. the chessboard calibration: calibrate_pinhole_full and
+     calibrate_pinhole on 40 views of a 12 × 8 board with 3 cm squares
+     (checks.calib_views: tests/test_calib_intrinsics.py's pose draw and
+     cameras; 7,680 rows, D = 252 and 248), then calibrate_pinhole again
+     on the radtan views with 0.3 px of Gaussian noise (the JAX suite's
+     test_calibration_with_pixel_noise), where the rms and the final cost
+     sit far above float32 rounding. Each must reach rms < 0.1 px and fx fy
+     cx cy within 1.5 px (rational) or 2 px (radtan) of the truth, the
+     noisy one rms < 0.6 px and fx cx within 8 px (the JAX suite's gates),
+     launch AP, W and AN and call torch.func.jacfwd no time; its wall, device
+     ms and launches are printed. Kernel AP is held against its plain
+     version (jacfwd, then JᵀJ) at δ = 0 and at the LM's final δ within
+     checks.calib_tolerances (H within 1e-5 of its largest entry), twice
+     the same bits, its cost mode equal to its normal mode's cost.
+Phases 4, 5, 8, 9, 10, 10b, 11, 13, 14, 15, 16, 17 and 18 run with a counter on every
 torch.linalg function but the norms and cross, and on torch's own
 factorizations, solves and inverses (cholesky_solve, cholesky_inverse,
 inverse, lu_solve, ...): every count must be 0, each kernel W-Z replacing
@@ -247,7 +273,8 @@ The last two lines are the kernels JSON (launches from phase 8's run for
 A-L, S-Y and AH-AM (Y's inverse entry serves the plain route alone: its
 device code runs inside AM), phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
-phase 15's for AD and AE, phase 16's for AF and AG) and the result JSON.
+phase 15's for AD and AE, phase 16's for AF and AG, phase 18's for AP) and
+the result JSON.
 
 The camera rig is synthetic: the renderer's forward camera (bench.py's
 extrinsic) and an identity wheel frame replace the M3DGR extrinsics, which
@@ -406,6 +433,8 @@ SOURCES.update({
                    "ground_fusion2_tpu/parallel/dist_ba.py:55"),
     "map_schur": ("map_schur.cu",
                   "ground_fusion2_tpu/parallel/dist_mapping.py:95"),
+    "calib_normal": ("calib_normal.cu",
+                     "ground_fusion2_tpu/calib/intrinsics.py:106"),
 })
 LINE_KERNELS = ("line_detect", "line_refit")
 DIST_KERNELS = ("dist_schur", "map_schur")
@@ -806,9 +835,10 @@ def linalg_free(phase: str, fn, *args):
                  if lc.calls else None)
 
 
-def camera_main_path(dev, card, frames):
-    """Phase 4. Returns (error or None, the FusedVio, launches, the run:
-    its ATE and each fused tick's window state on the host)."""
+def camera_main_path(dev, card, frames, cam=None):
+    """Phase 4 (and phase 17's drive with ``cam`` in place of the M3DGR
+    pinhole). Returns (error or None, the FusedVio, launches, the run: its
+    ATE and each fused tick's window state on the host)."""
     import torch
     from ground_fusion2_tpu_torch import _kernels, checks
     from ground_fusion2_tpu_torch.config import m3dgr_camera
@@ -820,7 +850,8 @@ def camera_main_path(dev, card, frames):
     from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
 
     cfg = m3dgr_camera()
-    fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
+    fv = FusedVio(cfg.estimator, cfg.tracker,
+                  cam or Pinhole.create(*cfg.intrinsics),
                   dev, tic=np.zeros(3), ric=checks.RIG_RIC,
                   tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
     # the record's read is the tick's output reaching the host: the sync
@@ -1942,6 +1973,124 @@ def gnss_refresh_path(dev, card):
     return None
 
 
+def camera_models_path(dev, card, frames, windows):
+    """Phase 17: kernel AH's lift and tail modes against the plain route for
+    each camera model, then phase 4's drive with the M3DGR intrinsics as a
+    PinholeFull of zero coefficients, whose windows must equal ``windows``
+    (phase 4's first run) tick for tick. Returns (error or None, the
+    check)."""
+    import torch
+    from ground_fusion2_tpu_torch import checks
+    from ground_fusion2_tpu_torch.config import m3dgr_camera
+    from ground_fusion2_tpu_torch.core.cameras import PinholeFull
+    res = checks.check_camera_models(dev, checks.camera_cases())
+    for name, m in res["models"].items():
+        print(f"kernel AH with the {name} camera ({m['model']}, "
+              f"{m['image'][0]}×{m['image'][1]}, F = 150 slots: "
+              f"{json.dumps(m['slots'])}): "
+              + ", ".join(
+                  f"{mode} mode torch.equal {m[mode]['equal']}, twice the "
+                  f"same bits {m[mode]['repeat_equal']}, device ms a call "
+                  f"{m[mode]['device_ms']:.4f}, launches a call "
+                  f"{m[mode]['launches_per_call']:g} (host-inclusive call ms "
+                  f"{m[mode]['ms']:.4f}, the plain route "
+                  f"{m[mode]['plain_ms']:.4f})" for mode in ("lift", "tail"))
+              + f" | {card}", flush=True)
+    if not res["ok"]:
+        return "kernel AH disagrees with its plain route for a camera model", res
+    print("phase 17: no drive of a fisheye rig is rendered: the port's "
+          "renderer (data/render.py, a copy of the JAX package's) is "
+          "pinhole-only, so the JAX package has no such drive either",
+          flush=True)
+    cfg = m3dgr_camera()
+    (err, _, _, run), lin = linalg_free(
+        "17", camera_main_path, dev, card, frames,
+        PinholeFull.create(*cfg.intrinsics))
+    if err or lin:
+        return err or lin, res
+    got = run["windows"]
+    differ = [k for k, (a, b) in enumerate(zip(windows, got))
+              if not torch.equal(a, b)]
+    print(f"phase 17: phase 4's drive with the camera as a PinholeFull of "
+          f"zero coefficients: ATE {run['ate']:.6f} m, windows "
+          + (f"first differ from phase 4's at fused tick {differ[0] + 1}"
+             if differ else f"equal to phase 4's on all {len(got)} fused "
+             "ticks") + f" | {card}", flush=True)
+    if differ or len(got) != len(windows):
+        return (f"the PinholeFull drive's windows differ from phase 4's "
+                f"({len(got)} ticks against {len(windows)}, first differing "
+                f"{differ[:1]})"), res
+    return None, res
+
+
+def calib_main_path(dev, card):
+    """Phase 18: calibrate_pinhole_full and calibrate_pinhole on 40 views of
+    a 12 × 8 board (checks.calib_views), and calibrate_pinhole on them with
+    0.3 px of noise, each gated on tests/test_calib_intrinsics.py's truths,
+    then kernel AP against its plain version at δ = 0 and at the LM's final
+    δ. Returns (error or None, AP's launches over the three calibrations,
+    AP's check at D = 252)."""
+    import torch
+    from ground_fusion2_tpu_torch import _kernels, checks
+    from ground_fusion2_tpu_torch.calib import intrinsics as ci
+    ap_launches, ap = 0, None
+    xy = ("fx", "fy", "cx", "cy")
+    for name, rational, noise, iters, fn, px, rms_max, keys in (
+            ("calibrate_pinhole_full", True, 0.0, 40,
+             ci.calibrate_pinhole_full, 1.5, 0.1, xy),
+            ("calibrate_pinhole", False, 0.0, 30, ci.calibrate_pinhole, 2.0,
+             0.1, xy),
+            ("calibrate_pinhole, 0.3 px noise", False, 0.3, 30,
+             ci.calibrate_pinhole, 8.0, 0.6, ("fx", "cx"))):
+        obj, uv = checks.calib_views(rational, noise=noise)
+        truth = checks.CALIB_RATIONAL if rational else checks.CALIB_RADTAN
+        _kernels.launches.clear()
+        torch.cuda.synchronize()
+        with CallCounter(torch.func, "jacfwd") as jac:
+            t0 = time.perf_counter()
+            out = fn(obj, uv, device=dev)
+            wall = (time.perf_counter() - t0) * 1e3
+        launches = {k: _kernels.launches.get(k, 0)
+                    for k in ("calib_normal", "chol_solve", "lm_glue")}
+        ap_launches += launches["calib_normal"]
+        dt = checks.device_ms(lambda: fn(obj, uv, device=dev), reps=3,
+                              warmup=1)
+        errs = {k: abs(float(getattr(out, k)) - truth[k]) for k in xy}
+        D = (12 if rational else 8) + 6 * uv.shape[0]
+        print(f"{name}: {uv.shape[0]} views of a 12 × 8 board ("
+              f"{2 * uv.shape[0] * uv.shape[1]} rows, D = {D}), {iters} LM "
+              f"iterations: rms {out.rms_px:.3e} px, |Δ| from the truth "
+              + json.dumps({k: round(v, 6) for k, v in errs.items()})
+              + f" px; wall {wall:.1f} ms (numpy initialization included), "
+              f"device ms a calibration {dt.ms:.4f} in {dt.launches:g} CUDA "
+              f"activities (torch.profiler; by kernel: "
+              + json.dumps({kernel_qualname(k).replace(ANON, ""): round(v, 4)
+                            for k, v in sorted(dt.kernels.items(),
+                                               key=lambda kv: -kv[1])[:5]})
+              + f"), launches {json.dumps(launches)}, "
+              f"torch.func.jacfwd calls {jac.n} | {card}", flush=True)
+        if not (out.rms_px < rms_max
+                and max(errs[k] for k in keys) < px):
+            return (f"{name} misses the truth gates (rms {out.rms_px} "
+                    f"< {rms_max}, {errs} < {px} px on {keys})"), \
+                ap_launches, ap
+        if jac.n or min(launches.values()) <= 0:
+            return (f"{name} ran jacfwd {jac.n} times or left a kernel "
+                    f"unlaunched: {launches}"), ap_launches, ap
+        prob = ci.calib_problem(obj, uv, 12 if rational else 8, dev)
+        lm = ci.solve(prob, iters)
+        chk = checks.check_calib(
+            dev, prob, dict(zero=torch.zeros(prob.dim, device=dev),
+                            final=lm.delta), timed=rational)
+        print(f"kernel AP ({name}, D = {prob.dim}) against its plain version: "
+              + json.dumps(chk) + f" | {card}", flush=True)
+        if not chk["ok"]:
+            return f"kernel AP disagrees with its plain version ({name})", \
+                ap_launches, ap
+        ap = ap or chk
+    return None, ap_launches, ap
+
+
 def report(res: dict) -> int:
     import torch
     torch.cuda.synchronize()
@@ -2351,11 +2500,22 @@ def main() -> int:
     res_dist.pop("chol_solve (window, explicit diagonal)")
     res.update(res_dist)
 
+    # 17. the camera models: AH for each, phase 4's drive as a PinholeFull
+    err, res_models = camera_models_path(dev, card, frames, w1)
+    if err:
+        return fail(err)
+
+    # 18. the chessboard calibration: AP, W and AN
+    (err, launches["calib_normal"], res["calib_normal"]), lin = linalg_free(
+        "18", calib_main_path, dev, card)
+    if err or lin:
+        return fail(err or lin)
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms",
             "launches_per_call")
     # launches: phase 8 for A-L, S-Y and AH-AM, 9 for M-O, 10 for P and Q,
-    # 11 for R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG
+    # 11 for R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG, 18 for AP
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

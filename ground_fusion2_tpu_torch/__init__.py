@@ -3,8 +3,10 @@
 The JAX package ``ground_fusion2_tpu`` is the reference; this package mirrors
 its layout module by module so each counterpart is easy to find:
 
-  core/      SO(3) quaternion ops, robust weights, the pinhole camera,
-             the 3×3 eigensolver, the default device
+  core/      SO(3) quaternion ops, robust weights, the camera models
+             (pinhole, rational, equidistant, Mei, Scaramuzza), the 3×3
+             eigensolver, the default device
+  calib/     the chessboard intrinsic calibration
   sensors/   IMU + wheel preintegration; every window interval in one
              launch (window_preint.py)
   factors/   VIO residual blocks + the projection normal-equation kernel
@@ -17,8 +19,9 @@ its layout module by module so each counterpart is easy to find:
   gnss/      the GNSS table container the window carry holds
   mapping/   the log-odds occupancy grid fed by the fused LiDAR cloud
   system.py  GroundFusion: the two ticks joined by the IMU-rate handoff
+  config/    configuration classes, the M3DGR mirrors, the YAML loader
   runtime/   telemetry; data/, eval/: numpy copies of the JAX package's
-             renderer, simulator and metrics
+             renderer, simulator, LiDAR decoders and metrics
   csrc/      hand-written CUDA C++ kernels (sm_90a), built at first use
 
 It imports torch and numpy, never jax, and loads no file of the JAX

@@ -121,6 +121,7 @@ _SIGNATURES = {
     "gf2_tick_pre": [_P] * 2 + [_I] * 3 + [_P],
     "gf2_tick_post": [_P] * 2 + [_I] * 3 + [_F, _P],
     "gf2_tick_track": [_P] * 5 + [_I] * 2 + [_F, _P],
+    "gf2_calib_normal": [_I] * 3 + [_P] * 9,
 }
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import contextlib
 import statistics
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -119,6 +120,7 @@ class DeviceTime(NamedTuple):
 
 
 MARKER = "spin_kernel"     # torch.cuda._sleep's kernel: one before each call
+TRACE_TRIES = 6
 _PROFILER_STARTED = False
 
 
@@ -131,9 +133,10 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
     the trace holds, counted from the first, so a trace that lost its first
     records still reads per call; a trace that caught no marker, or no
     activity but the markers (the profiler drops a whole trace, or its
-    kernels, now and then), is taken again, three times at most. Unlike
+    kernels, now and then, and has dropped three in a row), is taken
+    again, after a pause of 0.1 s a try, six times at most. Unlike
     :func:`time_ms` it holds none of the wrapper's host time. Raises when
-    the calls ran no CUDA activity in any of the three (CPU tensors); it
+    the calls ran no CUDA activity in any of the six (CPU tensors); it
     never falls back to events."""
     if not torch.cuda.is_available():
         raise RuntimeError("device_ms needs a CUDA device")
@@ -148,7 +151,8 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
             torch.cuda.synchronize()
         _PROFILER_STARTED = True
     calls = warmup
-    for _ in range(3):              # a trace that lost the calls: again
+    for attempt in range(TRACE_TRIES):   # a trace that lost the calls: again
+        time.sleep(0.1 * attempt)
         calls += reps
         prof = torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -170,8 +174,9 @@ def device_ms(fn, reps: int = 20, warmup: int = 3) -> DeviceTime:
             break
     else:
         if first is None:
-            raise RuntimeError(f"device_ms: three traces held no marker (the "
-                               f"last {len(evs)} CUDA activities)")
+            raise RuntimeError(f"device_ms: {TRACE_TRIES} traces held no "
+                               f"marker (the last {len(evs)} CUDA "
+                               f"activities)")
         raise RuntimeError("device_ms: the calls ran no CUDA activity "
                            "(CPU tensors?)")
     traced = sum(MARKER in e.name for e in evs[first:])
@@ -4163,3 +4168,235 @@ def _flat(v) -> list:
     if isinstance(v, torch.Tensor):
         return [v]
     return [t for x in v for t in _flat(x)]
+
+
+# ------------------------------------------------------- the camera models
+# tests/test_cameras.py's Equidistant, Mei, PinholeFull and Scaramuzza
+CAMERA_PARAMS = {
+    "Equidistant": dict(fx=350.0, fy=350.0, cx=367.0, cy=248.0, k2=-0.02,
+                        k3=0.002, k4=-0.001, k5=0.0002),
+    "Mei": dict(xi=1.5, fx=600.0, fy=600.0, cx=320.0, cy=240.0, k1=-0.1,
+                k2=0.02),
+    "PinholeFull": dict(fx=460.0, fy=460.0, cx=320.0, cy=240.0, k1=-0.28,
+                        k2=0.07, k3=-0.005, k4=-0.01, k5=0.002, k6=-0.0005,
+                        p1=1e-4, p2=-2e-4),
+    "Scaramuzza": dict(cx=321.5, cy=243.2, a0=-380.0, a2=6e-4, a3=-9e-7,
+                       a4=3e-10, c=1.001, d=3e-4, e=-2e-4),
+}
+
+
+def camera_cases() -> dict:
+    """Five cameras, one a model, name → (camera, (W, H)): the port's
+    loader's ``make_camera()`` of ``configs/hilti22.yaml`` (an Equidistant)
+    and ``configs/idc.yaml`` (a radtan Pinhole) at their image sizes, and
+    :data:`CAMERA_PARAMS`'s Mei, PinholeFull and Scaramuzza at 640×480."""
+    from pathlib import Path
+    from .config.loader import load_config
+    from .core import cameras
+    root = Path(__file__).resolve().parent.parent / "configs"
+    out = {}
+    for name in ("hilti22", "idc"):
+        yc = load_config(root / f"{name}.yaml")
+        ci = yc.cam_intrinsics
+        out[name] = (yc.make_camera(), (int(ci["width"]), int(ci["height"])))
+    for cls in ("Mei", "PinholeFull", "Scaramuzza"):
+        out[cls] = (getattr(cameras, cls).create(**CAMERA_PARAMS[cls]),
+                    (640, 480))
+    return out
+
+
+def camera_inputs(device, cam, W: int, H: int, F: int = 150, seed: int = 0,
+                  stride: int = 2) -> dict:
+    """Kernel AH's inputs for one camera: F slots' pixels drawn over the
+    whole W×H image from ``seed``, a third of them dead, candidates (a
+    quarter not ok), the previous pixels 2 px away (their rays through the
+    camera), a depth image decimated by ``stride``, t 0.1 s after prev_t."""
+    from .frontend import track_tail as tt
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    hi = [W - 1, H - 1]
+    pts1 = rng.uniform([0, 0], hi, (F, 2))
+    uv0 = np.clip(pts1 + rng.normal(scale=2.0, size=(F, 2)), 0, hi)
+    return dict(pts1=f32(pts1), alive=f32(rng.uniform(size=F) > 1 / 3),
+                cand_uv=f32(rng.uniform([0, 0], hi, (F, 2))),
+                cand_ok=f32(rng.uniform(size=F) > 0.25),
+                prev_norm=tt.lift_norm_plain(cam, f32(uv0)),
+                depth=f32(rng.uniform(0.05, 8.0, (H // stride, W // stride))),
+                t=f32(3.1), prev_t=f32(3.0), stride=stride)
+
+
+def check_camera_models(device, cases: dict, F: int = 150, seed: int = 0,
+                        timed: bool = True) -> dict:
+    """Kernel AH's lift and tail modes against the plain route for each of
+    ``cases`` (:func:`camera_cases`) on :func:`camera_inputs`: every output
+    ``torch.equal`` and finite, twice the same bits; the tail's slots
+    tracked, dead and fresh counted. Timed: each mode's call ms, device ms
+    and launches a call, the plain route's ms."""
+    from .frontend import track_tail as tt
+    models, ok = {}, True
+    for name, (cam, (W, H)) in cases.items():
+        x = camera_inputs(device, cam, W, H, F, seed)
+        args = (cam, x["alive"], x["pts1"], x["cand_uv"], x["cand_ok"],
+                x["prev_norm"], x["t"], x["prev_t"], x["depth"], x["stride"],
+                0.1, 20.0)
+        runs = dict(lift=(lambda c=cam, x=x: tt.lift_norm(c, x["pts1"]),
+                          lambda c=cam, x=x: tt.lift_norm_plain(c, x["pts1"])),
+                    tail=(lambda a=args: tt.tail(*a),
+                          lambda a=args: tt.tail_plain(*a)))
+        m = dict(model=type(cam).__name__, image=[W, H])
+        for mode, (kern, plain) in runs.items():
+            k, k2, p = (_flat(fn()) for fn in (kern, kern, plain))
+            eq = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k, k2))
+            finite = all(bool(torch.isfinite(a).all()) for a in p)
+            r = dict(equal=eq, repeat_equal=same, finite=finite,
+                     max_ulps=max(_ulps(a, b) for a, b in zip(k, p)),
+                     ok=eq and same and finite)
+            if timed:
+                r.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                         **device_pair(kern))
+            m[mode] = r
+            ok = ok and r["ok"]
+        fresh = tt.tail_plain(*args).fresh
+        m["slots"] = dict(tracked=int((x["alive"] > 0).sum()),
+                          dead=int((x["alive"] <= 0).sum()),
+                          fresh=int(fresh.sum()))
+        models[name] = m
+    return dict(models=models, ok=ok, max_abs_err=0.0, tol="torch.equal")
+
+
+# --------------------------------------------------------- the calibration
+# tests/test_calib_intrinsics.py's cameras: the radtan one of
+# _synthesize_views and the rational one of the full-model round trip
+CALIB_RADTAN = dict(fx=610.0, fy=608.0, cx=320.0, cy=240.0, k1=-0.05,
+                    k2=0.01)
+CALIB_RATIONAL = dict(fx=480.0, fy=475.0, cx=322.0, cy=241.0, k1=-0.25,
+                      k2=0.06, k3=-0.004, k4=-0.02, k5=0.004, k6=-0.001,
+                      p1=5e-4, p2=-3e-4)
+
+
+def calib_views(rational: bool, n_views: int = 40, nx: int = 12, ny: int = 8,
+                square: float = 0.03, seed: int = 0, noise: float = 0.0):
+    """Chessboard corners (obj_xy [N, 2], centred) seen from ``n_views``
+    poses drawn as tests/test_calib_intrinsics.py's ``_synthesize_views``
+    draws them (tilts within ±0.4 rad, the board 0.4–0.7 m away), projected
+    in float64 through :data:`CALIB_RATIONAL` or :data:`CALIB_RADTAN`:
+    img_uv [V, N, 2], plus Gaussian pixel noise of ``noise`` px (drawn
+    from ``seed + 1``) as test_calibration_with_pixel_noise adds."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(nx), np.arange(ny))
+    obj = np.stack([gx.reshape(-1) * square, gy.reshape(-1) * square], -1)
+    obj = obj - obj.mean(axis=0)
+    N = obj.shape[0]
+    c = CALIB_RATIONAL if rational else CALIB_RADTAN
+    uv = np.zeros((n_views, N, 2))
+    for v in range(n_views):
+        ang = rng.uniform(-0.4, 0.4, 3)
+        th = np.linalg.norm(ang) + 1e-9
+        w = ang / th
+        Wx = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]])
+        R = np.eye(3) + np.sin(th) * Wx + (1 - np.cos(th)) * Wx @ Wx
+        t = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
+                      rng.uniform(0.4, 0.7)])
+        p3 = np.concatenate([obj, np.zeros((N, 1))], 1) @ R.T + t
+        x, y = p3[:, 0] / p3[:, 2], p3[:, 1] / p3[:, 2]
+        r2 = x * x + y * y
+        if rational:
+            rad = ((1 + c["k1"] * r2 + c["k2"] * r2 ** 2 + c["k3"] * r2 ** 3)
+                   / (1 + c["k4"] * r2 + c["k5"] * r2 ** 2 + c["k6"] * r2 ** 3))
+            xd = x * rad + 2 * c["p1"] * x * y + c["p2"] * (r2 + 2 * x * x)
+            yd = y * rad + c["p1"] * (r2 + 2 * y * y) + 2 * c["p2"] * x * y
+        else:
+            rad = 1 + c["k1"] * r2 + c["k2"] * r2 * r2
+            xd, yd = x * rad, y * rad
+        uv[v, :, 0] = c["fx"] * xd + c["cx"]
+        uv[v, :, 1] = c["fy"] * yd + c["cy"]
+    if noise:
+        uv = uv + np.random.default_rng(seed + 1).normal(scale=noise,
+                                                         size=uv.shape)
+    return obj, uv
+
+
+# AP against its plain version: H within CALIB_REL of its largest entry.
+# g's and the cost's bounds add the residuals' rounding: a corner's pixel
+# (up to ~1000) is rounded in float32 on both routes in orders that differ,
+# so each residual may differ by a few ulps of the pixel, e_r = 4 ulp; then
+# |Δg_a| ≤ √H_aa (√M e_r + CALIB_REL |r|) and |Δcost| ≤ |r| √M e_r
+# + M e_r² / 2 + CALIB_REL cost over M rows.
+CALIB_REL = 1e-5
+
+
+def calib_tolerances(H, cost, M: int, uv_max: float) -> dict:
+    e_r = 4.0 * float(np.spacing(np.float32(uv_max)))
+    r = float(np.sqrt(2.0 * float(cost)))
+    Hd = torch.clamp(torch.diagonal(H), min=0).double()
+    return dict(H=CALIB_REL * float(H.abs().max()),
+                g=torch.sqrt(Hd) * (np.sqrt(M) * e_r + CALIB_REL * r),
+                cost=r * np.sqrt(M) * e_r + M * e_r * e_r / 2
+                + CALIB_REL * float(cost), e_r=e_r)
+
+
+def check_calib(device, prob, deltas: dict, timed: bool = True) -> dict:
+    """Kernel AP's normal equations and cost against its plain version
+    (``calib/intrinsics.py``: jacfwd, then JᵀJ) at each of ``deltas``
+    within :func:`calib_tolerances`; the normal and the cost mode twice the
+    same bits, the cost mode's cost equal to the normal mode's. Timed at
+    the first delta: the normal mode's call ms, device ms and launches, the
+    plain version's ms, and torch.matmul's device ms for JᵀJ of the dense
+    J (a part of the function: ``library_part_device_ms``)."""
+    from .calib import intrinsics as ci
+    V, N, _ = prob.uv.shape
+    M = 2 * V * N
+    uv_max = float(prob.uv.abs().max())
+    res = dict(points={}, ok=True, dim=prob.dim, rows=M, tol=(
+        f"H within {CALIB_REL:g}·max|H|; g within √H_aa (√M e_r + "
+        f"{CALIB_REL:g} |r|), the cost within |r| √M e_r + M e_r²/2 + "
+        f"{CALIB_REL:g} cost, e_r = 4 ulp of the largest pixel"))
+    err = 0.0
+    for name, d in deltas.items():
+        d = d.to(device=device, dtype=torch.float32).contiguous()
+        H, g, c = ci.normal_equations(prob, d)
+        H2, g2, c2 = ci.normal_equations(prob, d)
+        cc = ci.cost_at(prob, d)
+        Hp, gp, cp = ci.normal_equations_plain(prob, d)
+        tol = calib_tolerances(Hp, cp, M, uv_max)
+        dH = float((H - Hp).abs().max())
+        dg = (g - gp).abs().double()
+        dc = abs(float(c) - float(cp))
+        p = dict(H_err=dH, H_tol=tol["H"], g_err=float(dg.max()),
+                 g_within=bool((dg <= tol["g"]).all()),
+                 g_worst_share=float((dg / tol["g"].clamp(min=1e-30)).max()),
+                 cost=float(c), plain_cost=float(cp), cost_err=dc,
+                 cost_tol=tol["cost"],
+                 repeat_equal=bool(torch.equal(H, H2) and torch.equal(g, g2)
+                                   and torch.equal(c, c2)),
+                 cost_mode_equal=bool(torch.equal(cc, c)),
+                 symmetric=bool(torch.equal(H, H.T)))
+        p["ok"] = (dH <= tol["H"] and p["g_within"] and dc <= tol["cost"]
+                   and p["repeat_equal"] and p["cost_mode_equal"]
+                   and bool(torch.isfinite(H).all()))
+        res["points"][name] = p
+        res["ok"] = res["ok"] and p["ok"]
+        err = max(err, dH, p["g_err"], dc)
+    res["max_abs_err"] = err
+    if timed:
+        d0 = next(iter(deltas.values())).to(device=device,
+                                            dtype=torch.float32)
+        kern = lambda: ci.normal_equations(prob, d0)
+        plain = lambda: ci.normal_equations_plain(prob, d0)
+        J = torch.func.jacfwd(lambda d: ci.residuals(prob, d)[0])(d0)
+        D = prob.dim
+        C = prob.P + 6
+        nb = 4 * (2 * D + 3 * N + 2 * M + D * D + D + 1)
+        # the function's own work, not AP's dual numbers: a view's rotation
+        # and its derivative (quat_exp, the matrix, ∂R/∂ω: ~300), a
+        # corner's two residuals (~60) and their chain-rule Jacobian over
+        # the C columns (~190); then JᵀJ's view blocks, Jᵀr and the cost
+        ops = V * 300 + V * N * 250 + M * (C * (C + 1) + 2 * C + 2)
+        res.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=5),
+                   cost_ms=time_ms(lambda: ci.cost_at(prob, d0)),
+                   **bound(nb, ops), **device_pair(kern),
+                   library_ms=None,
+                   library_part_device_ms=device_ms(lambda: J.T @ J).ms,
+                   library_part="torch.matmul(J.T, J), J [M, D] dense")
+    return res

@@ -13,8 +13,8 @@ from typing import NamedTuple
 
 import numpy as np
 
-from .sensors.imu_preint import ImuNoise
-from .sensors.wheel_preint import WheelNoise
+from ..sensors.imu_preint import ImuNoise
+from ..sensors.wheel_preint import WheelNoise
 
 
 class VioConfig(NamedTuple):
@@ -306,8 +306,8 @@ def m3dgr_system():
     :class:`~.system.SystemConfig`, with the system flags ``bench.py``'s
     ``bench_system`` runs: the VIO and LIO records read one tick late
     (``vio_pipelined``, ``lio_pipelined``) and the depth decimated by 2."""
-    from .core.cameras import Pinhole
-    from .system import SystemConfig
+    from ..core.cameras import Pinhole
+    from ..system import SystemConfig
     cam = m3dgr_camera()
     return SystemConfig(vio=cam.estimator, lio=m3dgr_lio(),
                         tracker=cam.tracker,

@@ -241,22 +241,31 @@ def fused_vio_from_jax(jv, fv):
     return fv
 
 
+def camera_from_jax(jcam):
+    """The port's camera of the JAX camera's class (``Pinhole``,
+    ``PinholeFull``, ``Equidistant``, ``Mei``, ``Scaramuzza``) with every
+    field; any other class raises."""
+    from .core import cameras
+    name = type(jcam).__name__
+    cls = next((c for c in cameras.CAMERA_MODELS if c.__name__ == name), None)
+    if cls is None:
+        raise ValueError(f"the port has no camera model {name!r}")
+    return cls(**{f.name: float(np.asarray(getattr(jcam, f.name)))
+                  for f in dataclasses.fields(cls)})
+
+
 def system_config_from_jax(jcfg):
     """The port's SystemConfig for a JAX ``SystemConfig`` (the fields the
     port carries; the options it does not port must be off)."""
     from .config import EstimatorConfig, LioConfig, TrackerConfig
-    from .core.cameras import Pinhole
     from .system import SystemConfig
-    cam = None
-    if jcfg.cam is not None:
-        cam = Pinhole.create(*(float(np.asarray(getattr(jcfg.cam, k)))
-                               for k in ("fx", "fy", "cx", "cy")))
     return SystemConfig(
         vio=_config(EstimatorConfig, jcfg.vio), lio=_config(LioConfig, jcfg.lio),
         use_lidar=jcfg.use_lidar, vio_backend=jcfg.vio_backend,
         tracker=(None if jcfg.tracker is None
                  else _config(TrackerConfig, jcfg.tracker)),
-        cam=cam, vio_pipelined=jcfg.vio_pipelined,
+        cam=None if jcfg.cam is None else camera_from_jax(jcfg.cam),
+        vio_pipelined=jcfg.vio_pipelined,
         vio_depth_stride=jcfg.vio_depth_stride,
         auto_dyn_mask=jcfg.auto_dyn_mask, lio_pipelined=jcfg.lio_pipelined,
         use_loop_closure=jcfg.use_loop_closure,

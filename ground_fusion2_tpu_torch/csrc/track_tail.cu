@@ -3,8 +3,9 @@
 //
 // Replaces the stretch of ground_fusion2_tpu/vio/fused.py:183
 // `_tracker_step` that XLA fuses into the camera tick around the kernels
-// (lines 196-197, 201-205 and 210-228), over core/cameras.py:64
-// `Pinhole.lift` and frontend/klt.py:120 `_bilinear`. Three launches a
+// (lines 196-197, 201-205 and 210-228), over core/cameras.py's `lift` of
+// every camera model (Pinhole :64, PinholeFull :133, Equidistant :178, Mei
+// :226, Scaramuzza :278) and frontend/klt.py:120 `_bilinear`. Three launches a
 // tick at most, each one mode of this source:
 //   lift  the slots' rays for RANSAC (K): `lift(pts1)` → [F, 2];
 //   kill  the dynamic mask's bilinear test on the tracked slots and the
@@ -23,13 +24,20 @@
 // an FMA. Two places follow what torch does on the card rather than on the
 // CPU: a division by a Python scalar is a multiplication by its float
 // reciprocal (`inv_fx`, `inv_fy`, computed by the wrapper as torch computes
-// them), and the ray's norm is `torch.linalg.norm`'s reduce of (x, y, 1) on
-// the card, `sqrt((x·x + 1) + y·y)` (torch 2.11's reduce configuration for
-// a 3-entry row: two threads, x and 1 on the first; equal to it on every
-// one of 2²⁰ random rays; checks.check_track_tail holds it).
+// them, as are the plain route's other constants: 2·p, Equidistant's 3·k2,
+// 5·k3, 7·k4, Mei's 1 − xi², Scaramuzza's 1 / (c − d·e)), and the ray's
+// norm is `torch.linalg.norm`'s reduce of (x, y, z) on the card,
+// `sqrt((x·x + z·z) + y·y)` of the rounded squares (torch 2.11's reduce
+// configuration for a 3-entry row: two threads, x and z on the first;
+// equal to it on every one of 38,400 rows with z = 1 and with any z at
+// F = 150, tools/probe_torch_orders.py; checks.check_track_tail holds it).
 //
-// The camera model is a template parameter (`Pinhole` is the only
-// instance); a model supplies `distort`, and `lift` iterates it.
+// The camera model is a template parameter, one instance a model of
+// core/cameras.py; each supplies `ray`, the unnormalized ray of a pixel by
+// the model's own iteration (8 fixed-point steps for Pinhole and Mei, 10
+// for PinholeFull, 10 Newton steps for Equidistant, none for Scaramuzza).
+// The host array's first entry is the model's id, and the entry points
+// launch the instance it names.
 //
 // Bounds on the card: the lift and the tail read and write ~10 KB (F = 150
 // slots) and the kill mode reads and writes the 640×480 response and mask
@@ -41,54 +49,200 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "torch_order.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Pinhole {
-  float fx, fy, cx, cy, k1, k2, p1, p2;
-  float inv_fx, inv_fy, two_p1, two_p2;   // torch's float reciprocals; 2·p
+using gf2t::clamp_min;
 
-  // cameras.py Pinhole.distort, op for op
+// Pinhole.distort / Mei's radtan, op for op
+__device__ __forceinline__ void radtan(float k1, float k2, float p1, float p2,
+                                       float two_p1, float two_p2, float x,
+                                       float y, float& ox, float& oy) {
+  const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
+  const float radial = __fadd_rn(__fadd_rn(1.0f, __fmul_rn(k1, r2)),
+                                 __fmul_rn(__fmul_rn(k2, r2), r2));
+  const float dx = __fadd_rn(
+      __fmul_rn(__fmul_rn(two_p1, x), y),
+      __fmul_rn(p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, x), x))));
+  const float dy = __fadd_rn(
+      __fmul_rn(p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, y), y))),
+      __fmul_rn(__fmul_rn(two_p2, x), y));
+  ox = __fadd_rn(__fmul_rn(x, radial), dx);
+  oy = __fadd_rn(__fmul_rn(y, radial), dy);
+}
+
+// the fixed-point undistortion xy = xy_d − (distort(xy) − xy), `iters` steps
+template <class D>
+__device__ __forceinline__ void undistort(const D& distort, float mx, float my,
+                                          int iters, float& x, float& y) {
+  x = mx;
+  y = my;
+  for (int it = 0; it < iters; ++it) {
+    float dx, dy;
+    distort(x, y, dx, dy);
+    x = __fsub_rn(mx, __fsub_rn(dx, x));
+    y = __fsub_rn(my, __fsub_rn(dy, y));
+  }
+}
+
+// (u − c) / f on the card: a product with torch's float reciprocal
+__device__ __forceinline__ float centered(float u, float c, float inv_f) {
+  return __fmul_rn(__fsub_rn(u, c), inv_f);
+}
+
+struct Pinhole {   // id 0: fx fy cx cy k1 k2 p1 p2, 1/fx 1/fy 2·p1 2·p2
+  float fx, fy, cx, cy, k1, k2, p1, p2, inv_fx, inv_fy, two_p1, two_p2;
+  static Pinhole make(const float* c) {
+    return {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9],
+            c[10], c[11]};
+  }
+  __device__ __forceinline__ void ray(float u, float v, float& x, float& y,
+                                      float& z) const {
+    const auto d = [this](float a, float b, float& oa, float& ob) {
+      radtan(k1, k2, p1, p2, two_p1, two_p2, a, b, oa, ob);
+    };
+    undistort(d, centered(u, cx, inv_fx), centered(v, cy, inv_fy), 8, x, y);
+    z = 1.0f;
+  }
+};
+
+struct PinholeFull {   // id 1: fx fy cx cy k1..k6 p1 p2, 1/fx 1/fy
+  float fx, fy, cx, cy, k1, k2, k3, k4, k5, k6, p1, p2, inv_fx, inv_fy;
+  static PinholeFull make(const float* c) {
+    return {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9],
+            c[10], c[11], c[12], c[13]};
+  }
+  // cameras.py PinholeFull.distort, op for op
   __device__ __forceinline__ void distort(float x, float y, float& ox,
                                           float& oy) const {
     const float r2 = __fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y));
-    const float radial = __fadd_rn(__fadd_rn(1.0f, __fmul_rn(k1, r2)),
-                                   __fmul_rn(__fmul_rn(k2, r2), r2));
-    const float dx = __fadd_rn(
-        __fmul_rn(__fmul_rn(two_p1, x), y),
-        __fmul_rn(p2, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, x), x))));
-    const float dy = __fadd_rn(
-        __fmul_rn(p1, __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, y), y))),
-        __fmul_rn(__fmul_rn(two_p2, x), y));
-    ox = __fadd_rn(__fmul_rn(x, radial), dx);
-    oy = __fadd_rn(__fmul_rn(y, radial), dy);
+    const float r4 = __fmul_rn(r2, r2);
+    const float r6 = __fmul_rn(r4, r2);
+    const float cdist = __fadd_rn(
+        __fadd_rn(__fadd_rn(1.0f, __fmul_rn(k1, r2)), __fmul_rn(k2, r4)),
+        __fmul_rn(k3, r6));
+    const float icdist2 = __fdiv_rn(
+        1.0f, __fadd_rn(__fadd_rn(__fadd_rn(1.0f, __fmul_rn(k4, r2)),
+                                  __fmul_rn(k5, r4)),
+                        __fmul_rn(k6, r6)));
+    const float a1 = __fmul_rn(__fmul_rn(2.0f, x), y);
+    const float a2 = __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, x), x));
+    const float a3 = __fadd_rn(r2, __fmul_rn(__fmul_rn(2.0f, y), y));
+    ox = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(x, cdist), icdist2),
+                             __fmul_rn(p1, a1)),
+                   __fmul_rn(p2, a2));
+    oy = __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(y, cdist), icdist2),
+                             __fmul_rn(p1, a3)),
+                   __fmul_rn(p2, a1));
   }
-
-  // the normalized coordinates (x/z, y/z) of lift(u, v): 8 fixed-point
-  // undistortion steps, the unit ray, the division by max(z, 1e-6)
-  __device__ __forceinline__ void lift_norm(float u, float v, float& nx,
-                                            float& ny) const {
-    const float mx = __fmul_rn(__fsub_rn(u, cx), inv_fx);
-    const float my = __fmul_rn(__fsub_rn(v, cy), inv_fy);
-    float x = mx, y = my;
-    for (int it = 0; it < 8; ++it) {
-      float dx, dy;
-      distort(x, y, dx, dy);
-      x = __fsub_rn(mx, __fsub_rn(dx, x));
-      y = __fsub_rn(my, __fsub_rn(dy, y));
-    }
-    // torch.linalg.norm of (x, y, 1) on the card: two threads split the
-    // three entries (x and 1 on one), then a shuffle adds y's square
-    const float n = __fsqrt_rn(
-        __fadd_rn(__fadd_rn(__fmul_rn(x, x), 1.0f), __fmul_rn(y, y)));
-    const float rx = __fdiv_rn(x, n), ry = __fdiv_rn(y, n);
-    const float rz = __fdiv_rn(1.0f, n);
-    const float den = rz < 1e-6f ? 1e-6f : rz;   // clamp(min): NaN stays
-    nx = __fdiv_rn(rx, den);
-    ny = __fdiv_rn(ry, den);
+  __device__ __forceinline__ void ray(float u, float v, float& x, float& y,
+                                      float& z) const {
+    const auto d = [this](float a, float b, float& oa, float& ob) {
+      distort(a, b, oa, ob);
+    };
+    undistort(d, centered(u, cx, inv_fx), centered(v, cy, inv_fy), 10, x, y);
+    z = 1.0f;
   }
 };
+
+struct Equidistant {   // id 2: fx fy cx cy k2..k5, 1/fx 1/fy 3·k2 5·k3 7·k4
+  float fx, fy, cx, cy, k2, k3, k4, k5, inv_fx, inv_fy, c3, c5, c7;
+  static Equidistant make(const float* c) {
+    return {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9],
+            c[10], c[11], c[12]};
+  }
+  // 10 Newton steps on θ_d(θ) = |m| from θ = |m|, as cameras.py
+  // Equidistant.lift takes them
+  __device__ __forceinline__ void ray(float u, float v, float& x, float& y,
+                                      float& z) const {
+    const float mx = centered(u, cx, inv_fx), my = centered(v, cy, inv_fy);
+    const float td = __fsqrt_rn(__fadd_rn(__fmul_rn(mx, mx), __fmul_rn(my, my)));
+    float th = td;
+    for (int it = 0; it < 10; ++it) {
+      const float t2 = __fmul_rn(th, th);
+      const float poly = __fadd_rn(
+          1.0f, __fmul_rn(t2, __fadd_rn(k2, __fmul_rn(t2, __fadd_rn(
+                                  k3, __fmul_rn(t2, __fadd_rn(
+                                          k4, __fmul_rn(t2, k5))))))));
+      const float f = __fsub_rn(__fmul_rn(th, poly), td);
+      const float df = __fadd_rn(
+          1.0f,
+          __fmul_rn(t2, __fadd_rn(c3, __fmul_rn(t2, __fadd_rn(
+                                          c5, __fmul_rn(t2, __fadd_rn(
+                                                  c7, __fmul_rn(__fmul_rn(t2, 9.0f),
+                                                                k5))))))));
+      th = __fsub_rn(th, __fdiv_rn(f, clamp_min(df, 1e-9f)));
+    }
+    const float scale = __fdiv_rn(sinf(th), clamp_min(td, 1e-9f));
+    x = __fmul_rn(mx, scale);
+    y = __fmul_rn(my, scale);
+    z = cosf(th);
+  }
+};
+
+struct Mei {   // id 3: xi fx fy cx cy k1 k2 p1 p2, 1/fx 1/fy 2·p1 2·p2 1−xi²
+  float xi, fx, fy, cx, cy, k1, k2, p1, p2, inv_fx, inv_fy, two_p1, two_p2,
+      one_m_xi2;
+  static Mei make(const float* c) {
+    return {c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], c[8], c[9],
+            c[10], c[11], c[12], c[13]};
+  }
+  __device__ __forceinline__ void ray(float u, float v, float& x, float& y,
+                                      float& z) const {
+    const auto d = [this](float a, float b, float& oa, float& ob) {
+      radtan(k1, k2, p1, p2, two_p1, two_p2, a, b, oa, ob);
+    };
+    float px, py;
+    undistort(d, centered(u, cx, inv_fx), centered(v, cy, inv_fy), 8, px, py);
+    // the point on the unit sphere offset by xi
+    const float r2 = __fadd_rn(__fmul_rn(px, px), __fmul_rn(py, py));
+    const float disc = __fadd_rn(1.0f, __fmul_rn(one_m_xi2, r2));
+    const float zs = __fdiv_rn(__fadd_rn(xi, __fsqrt_rn(clamp_min(disc, 0.0f))),
+                               __fadd_rn(1.0f, r2));
+    x = __fmul_rn(zs, px);
+    y = __fmul_rn(zs, py);
+    z = __fsub_rn(zs, xi);
+  }
+};
+
+struct Scaramuzza {   // id 4: cx cy a0 a2 a3 a4 c d e, 1/(c − d·e), −e
+  float cx, cy, a0, a2, a3, a4, c, d, e, inv_det, neg_e;
+  static Scaramuzza make(const float* p) {
+    return {p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9],
+            p[10]};
+  }
+  // the affine undone, then the polynomial: (mx, my, −poly(ρ))
+  __device__ __forceinline__ void ray(float u, float v, float& x, float& y,
+                                      float& z) const {
+    const float du = __fsub_rn(u, cx), dv = __fsub_rn(v, cy);
+    x = __fmul_rn(inv_det, __fsub_rn(du, __fmul_rn(d, dv)));
+    y = __fmul_rn(inv_det, __fadd_rn(__fmul_rn(neg_e, du), __fmul_rn(c, dv)));
+    const float rho = __fsqrt_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)));
+    const float r2 = __fmul_rn(rho, rho);
+    const float poly = __fadd_rn(
+        a0, __fmul_rn(r2, __fadd_rn(a2, __fmul_rn(rho, __fadd_rn(
+                                            a3, __fmul_rn(rho, a4))))));
+    z = -poly;
+  }
+};
+
+// the normalized coordinates (x/z, y/z) of lift(u, v): the model's ray, the
+// unit ray, the division by max(z, 1e-6)
+template <class Cam>
+__device__ __forceinline__ void lift_norm(const Cam& cam, float u, float v,
+                                          float& nx, float& ny) {
+  float x, y, z;
+  cam.ray(u, v, x, y, z);
+  const float n = gf2t::norm3(x, y, z);
+  const float rx = __fdiv_rn(x, n), ry = __fdiv_rn(y, n);
+  const float rz = __fdiv_rn(z, n);
+  const float den = rz < 1e-6f ? 1e-6f : rz;   // clamp(min): NaN stays
+  nx = __fdiv_rn(rx, den);
+  ny = __fdiv_rn(ry, den);
+}
 
 // klt.py bilinear: clip to [0, dim - 1.001], floor, the four taps
 __device__ __forceinline__ float bilinear(const float* img, int H, int W,
@@ -113,7 +267,7 @@ __global__ void track_lift_kernel(Cam cam, const float* __restrict__ uv, int F,
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= F) return;
   float nx, ny;
-  cam.lift_norm(uv[2 * i], uv[2 * i + 1], nx, ny);
+  lift_norm(cam, uv[2 * i], uv[2 * i + 1], nx, ny);
   norm[2 * i] = nx;
   norm[2 * i + 1] = ny;
 }
@@ -180,7 +334,7 @@ track_tail_kernel(Cam cam, const float* __restrict__ alive,
     const float fresh = take ? 1.0f : 0.0f;
     const float al = isnan(a) ? a : fmaxf(a, fresh);
     float nx, ny;
-    cam.lift_norm(u, v, nx, ny);
+    lift_norm(cam, u, v, nx, ny);
     const float w = __fmul_rn(al, __fsub_rn(1.0f, fresh));
     float vx = 0.0f, vy = 0.0f;
     if (moving) {
@@ -202,23 +356,49 @@ track_tail_kernel(Cam cam, const float* __restrict__ alive,
   }
 }
 
-Pinhole make_pinhole(const float* c) {
-  Pinhole cam;
-  cam.fx = c[0]; cam.fy = c[1]; cam.cx = c[2]; cam.cy = c[3];
-  cam.k1 = c[4]; cam.k2 = c[5]; cam.p1 = c[6]; cam.p2 = c[7];
-  cam.inv_fx = c[8]; cam.inv_fy = c[9]; cam.two_p1 = c[10]; cam.two_p2 = c[11];
-  return cam;
+template <class Cam>
+void launch_lift(const float* c, const float* uv, int F, float* norm,
+                 cudaStream_t stream) {
+  track_lift_kernel<Cam><<<(F + kThreads - 1) / kThreads, kThreads, 0,
+                           stream>>>(Cam::make(c), uv, F, norm);
 }
+
+template <class Cam>
+void launch_tail(const float* c, const float* alive, const float* pts1,
+                 const float* cand_uv, const float* cand_ok,
+                 const float* prev_norm, const float* t, const float* prev_t,
+                 int F, const float* depth, int Hd, int Wd, float hi_x,
+                 float hi_y, float inv_stride, float d_lo, float d_hi,
+                 float* uv_out, float* alive_out, float* fresh_out,
+                 float* norm_out, float* vel_out, float* depth_out,
+                 float* prev_t_out, cudaStream_t stream) {
+  track_tail_kernel<Cam><<<1, kThreads, F * sizeof(float), stream>>>(
+      Cam::make(c), alive, pts1, cand_uv, cand_ok, prev_norm, t, prev_t, F,
+      depth, Hd, Wd, hi_x, hi_y, inv_stride, d_lo, d_hi, uv_out, alive_out,
+      fresh_out, norm_out, vel_out, depth_out, prev_t_out);
+}
+
+// the camera's id, as core/cameras.py's CAMERA_MODELS orders them
+enum { kPinhole = 0, kPinholeFull, kEquidistant, kMei, kScaramuzza };
 
 }  // namespace
 
-// cam: host float[12] (fx fy cx cy k1 k2 p1 p2, 1/fx 1/fy 2·p1 2·p2 in
-// float, as torch rounds them)
+// cam: host float[1 + P]: the model's id, then its parameters and the
+// constants the plain route rounds on the host (frontend/track_tail.py
+// _cam_args lists them a model)
 extern "C" int gf2_track_lift(const float* cam, const float* uv, int F,
                               float* norm, void* stream) {
   if (F <= 0) return (int)cudaGetLastError();
-  track_lift_kernel<Pinhole><<<(F + kThreads - 1) / kThreads, kThreads, 0,
-                         (cudaStream_t)stream>>>(make_pinhole(cam), uv, F, norm);
+  const float* c = cam + 1;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((int)cam[0]) {
+    case kPinhole: launch_lift<Pinhole>(c, uv, F, norm, s); break;
+    case kPinholeFull: launch_lift<PinholeFull>(c, uv, F, norm, s); break;
+    case kEquidistant: launch_lift<Equidistant>(c, uv, F, norm, s); break;
+    case kMei: launch_lift<Mei>(c, uv, F, norm, s); break;
+    case kScaramuzza: launch_lift<Scaramuzza>(c, uv, F, norm, s); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
@@ -245,10 +425,21 @@ extern "C" int gf2_track_tail(const float* cam, const float* alive,
                               float* depth_out, float* prev_t_out,
                               void* stream) {
   if (F <= 0 || F > 12288) return (int)cudaErrorInvalidValue;
-  track_tail_kernel<Pinhole><<<1, kThreads, F * sizeof(float),
-                         (cudaStream_t)stream>>>(
-      make_pinhole(cam), alive, pts1, cand_uv, cand_ok, prev_norm, t, prev_t,
-      F, depth, Hd, Wd, hi_x, hi_y, inv_stride, d_lo, d_hi, uv_out, alive_out,
-      fresh_out, norm_out, vel_out, depth_out, prev_t_out);
+  const float* c = cam + 1;
+  cudaStream_t s = (cudaStream_t)stream;
+#define GF2_TAIL(Cam)                                                        \
+  launch_tail<Cam>(c, alive, pts1, cand_uv, cand_ok, prev_norm, t, prev_t, F, \
+                   depth, Hd, Wd, hi_x, hi_y, inv_stride, d_lo, d_hi, uv_out, \
+                   alive_out, fresh_out, norm_out, vel_out, depth_out,        \
+                   prev_t_out, s)
+  switch ((int)cam[0]) {
+    case kPinhole: GF2_TAIL(Pinhole); break;
+    case kPinholeFull: GF2_TAIL(PinholeFull); break;
+    case kEquidistant: GF2_TAIL(Equidistant); break;
+    case kMei: GF2_TAIL(Mei); break;
+    case kScaramuzza: GF2_TAIL(Scaramuzza); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef GF2_TAIL
   return (int)cudaGetLastError();
 }

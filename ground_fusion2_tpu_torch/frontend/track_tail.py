@@ -1,7 +1,7 @@
 """The tracker's tail on the fused tick: kernel AH (``csrc/track_tail.cu``),
 port of the stretch of ``ground_fusion2_tpu/vio/fused.py:183
-_tracker_step`` around the kernels, over ``core/cameras.py:64
-Pinhole.lift`` and ``frontend/klt.py:120 _bilinear``.
+_tracker_step`` around the kernels, over ``core/cameras.py``'s ``lift`` of
+every camera model and ``frontend/klt.py:120 _bilinear``.
 
 Three entry points, one launch each on the card and a chain of plain
 PyTorch ops for CPU tensors (the same ops, in the same order):
@@ -18,13 +18,15 @@ PyTorch ops for CPU tensors (the same ops, in the same order):
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from .. import _kernels
-from ..core.cameras import Pinhole
+from ..core import cameras
+from ..core.cameras import Camera
 from . import klt
 
 
@@ -53,16 +55,31 @@ def _f32c(t: torch.Tensor, name: str) -> torch.Tensor:
     return t.contiguous()
 
 
-def _cam_args(cam: Pinhole):
-    """fx fy cx cy k1 k2 p1 p2, then the float reciprocals of fx and fy
-    (torch divides a CUDA tensor by a Python scalar as a multiply by the
-    scalar's float reciprocal) and 2·p1, 2·p2 (the plain route's
-    ``2.0 * p`` in float64, rounded to float)."""
+def _cam_args(cam: Camera):
+    """The model's id (its place in ``cameras.CAMERA_MODELS``), its
+    parameters and the constants the plain route rounds on the host: the
+    float reciprocals of fx and fy (torch divides a CUDA tensor by a Python
+    scalar as a multiply by the scalar's float reciprocal) and the products
+    of Python floats (2·p1, 2·p2; Equidistant's 3·k2, 5·k3, 7·k4; Mei's
+    1 − xi²; Scaramuzza's 1 / (c − d·e) and −e), each computed in float64
+    and rounded to float, as torch rounds a Python scalar."""
     f = np.float32
-    vals = [f(cam.fx), f(cam.fy), f(cam.cx), f(cam.cy), f(cam.k1),
-            f(cam.k2), f(cam.p1), f(cam.p2), f(1.0) / f(cam.fx),
-            f(1.0) / f(cam.fy), f(2.0 * cam.p1), f(2.0 * cam.p2)]
-    arr = (ctypes.c_float * 12)(*(float(v) for v in vals))
+    kind = type(cam)
+    if kind not in cameras.CAMERA_MODELS:
+        raise ValueError(f"kernel AH has no camera model {kind.__name__!r}")
+    vals = [getattr(cam, f.name) for f in dataclasses.fields(cam)]
+    if kind is not cameras.Scaramuzza:
+        vals += [f(1.0) / f(cam.fx), f(1.0) / f(cam.fy)]
+    if kind in (cameras.Pinhole, cameras.Mei):
+        vals += [2.0 * cam.p1, 2.0 * cam.p2]
+    if kind is cameras.Equidistant:
+        vals += [3 * cam.k2, 5 * cam.k3, 7 * cam.k4]
+    if kind is cameras.Mei:
+        vals += [1.0 - cam.xi * cam.xi]
+    if kind is cameras.Scaramuzza:
+        vals += [1.0 / (cam.c - cam.d * cam.e), -cam.e]
+    vals = [cameras.CAMERA_MODELS.index(kind)] + [float(f(v)) for v in vals]
+    arr = (ctypes.c_float * len(vals))(*vals)
     return arr, ctypes.cast(arr, ctypes.c_void_p)
 
 
@@ -72,14 +89,14 @@ def _hi(n: int) -> float:
 
 
 # ------------------------------------------------------------------ lift
-def lift_norm_plain(cam: Pinhole, uv: torch.Tensor) -> torch.Tensor:
+def lift_norm_plain(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     ray = cam.lift(uv)
     return ray[:, :2] / torch.clamp(ray[:, 2:3], min=1e-6)
 
 
-def lift_norm(cam: Pinhole, uv: torch.Tensor) -> torch.Tensor:
-    """[F, 2] pixels → [F, 2] normalized rays: kernel AH's lift mode on the
-    card, :func:`lift_norm_plain` on the CPU."""
+def lift_norm(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
+    """[F, 2] pixels → [F, 2] normalized rays of any camera model: kernel
+    AH's lift mode on the card, :func:`lift_norm_plain` on the CPU."""
     if not uv.is_cuda:
         return lift_norm_plain(cam, uv)
     uv = _f32c(uv, "uv")

@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 
 from ..config import TrackerConfig
-from ..core.cameras import Pinhole
+from ..core.cameras import Camera
 from ..core.device import resolve
 from ..vio.feature_window import FrameObs
 from . import klt
@@ -19,12 +19,12 @@ from .track_tail import lift_norm_plain, refill  # noqa: F401 (re-export)
 RANSAC_HYPOTHESES = 64
 
 
-def normalized(cam: Pinhole, uv: torch.Tensor) -> torch.Tensor:
+def normalized(cam: Camera, uv: torch.Tensor) -> torch.Tensor:
     return lift_norm_plain(cam, uv)
 
 
 class FeatureTracker:
-    def __init__(self, cfg: TrackerConfig, cam: Pinhole, device="cuda"):
+    def __init__(self, cfg: TrackerConfig, cam: Camera, device="cuda"):
         device = resolve(device)
         self.cfg = cfg
         self.cam = cam

@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .config import EstimatorConfig, LioConfig, PoseGraphConfig, TrackerConfig
-from .core.cameras import Pinhole
+from .core.cameras import Camera, Pinhole
 from .core.device import resolve
 from .frontend import klt
 from .gnss.global_opt import GlobalFusion
@@ -63,7 +63,7 @@ class SystemConfig:
     use_lidar: bool = True
     vio_backend: str = "fused"                # "legacy" is not ported
     tracker: TrackerConfig | None = None
-    cam: Pinhole | None = None
+    cam: Camera | None = None
     vio_pipelined: bool = False               # read tick k's record at k+1
     vio_depth_stride: int = 1                 # decimate the depth upload
     auto_dyn_mask: bool = False               # rigid-warp dynamic masking

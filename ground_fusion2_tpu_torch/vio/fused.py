@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..config import DynMaskConfig, EstimatorConfig, TrackerConfig
+from ..core.cameras import Camera
 from ..core.device import resolve
 from ..frontend import klt
 from ..frontend.clahe import clahe
@@ -243,8 +244,8 @@ def unpack_frame(buf: torch.Tensor, h, w, hd, wd) -> FrameInputs:
         relmo=misc[o + 4 + GNSS_ROW_LEN:o + 4 + GNSS_ROW_LEN + RELMO_LEN])
 
 
-def tracker_step(tc: TrackerCarry, img, depth_img, t, cam, s: FusedStatics,
-                 dyn_mask=None):
+def tracker_step(tc: TrackerCarry, img, depth_img, t, cam: Camera,
+                 s: FusedStatics, dyn_mask=None):
     """One tracker frame on the carry (pure-function FeatureTracker.track
     with the decimated depth; ``t`` a [] float32 device scalar);
     ``dyn_mask`` [H, W] kills the tracks and blocks the corners inside it.
@@ -404,9 +405,9 @@ def _quat_to_mat_np(q):
 class FusedVio:
     """Streaming VIO with the fused camera tick on one device."""
 
-    def __init__(self, cfg: EstimatorConfig, tracker_cfg: TrackerConfig, cam,
-                 device="cuda", tic=None, ric=None, tio=None, rio=None,
-                 depth_stride: int = 1, pipelined: bool = False,
+    def __init__(self, cfg: EstimatorConfig, tracker_cfg: TrackerConfig,
+                 cam: Camera, device="cuda", tic=None, ric=None, tio=None,
+                 rio=None, depth_stride: int = 1, pipelined: bool = False,
                  auto_dyn_mask: bool = False,
                  dyn_cfg: DynMaskConfig | None = None):
         """``pipelined``: the output of tick k is read when tick k+1 has been
@@ -640,6 +641,10 @@ class FusedVio:
         return R_pc.astype(np.float32), t_pc.astype(np.float32)
 
     def _K_lo(self):
+        if not hasattr(self.cam, "fx"):
+            raise ValueError(
+                "the automatic dynamic mask warps with the pinhole intrinsics "
+                f"fx, fy, cx, cy; a {type(self.cam).__name__} camera has none")
         return np.array([float(self.cam.fx), float(self.cam.fy),
                          float(self.cam.cx), float(self.cam.cy)],
                         np.float32) / self.depth_stride

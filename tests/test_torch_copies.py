@@ -1,5 +1,5 @@
 """The port's numpy-only copies of JAX-package modules (``data/render.py``,
-``data/synthetic.py``, ``eval/metrics.py``, ``vio/fast_predict.py``,
+``data/synthetic.py``, ``data/cloud_convert.py``, ``eval/metrics.py``, ``vio/fast_predict.py``,
 ``runtime/telemetry.py``, ``gnss/{frames,ephemeris,spp,align,sim}.py``) give
 the same arrays as the originals on the same seeded inputs, and its BRIEF
 constants (the sampling pattern and the simhash projection,
@@ -9,6 +9,7 @@ import json
 
 import numpy as np
 
+from ground_fusion2_tpu.data import cloud_convert as jcc
 from ground_fusion2_tpu.data import render as jrender
 from ground_fusion2_tpu.posegraph import brief as jbrief
 from ground_fusion2_tpu.data import synthetic as jsim
@@ -20,6 +21,7 @@ from ground_fusion2_tpu.gnss import sim as jgsim
 from ground_fusion2_tpu.gnss import spp as jspp
 from ground_fusion2_tpu.runtime.telemetry import Telemetry as JTelemetry
 from ground_fusion2_tpu.vio.fast_predict import FastPropagator as JProp
+from ground_fusion2_tpu_torch.data import cloud_convert as cc
 from ground_fusion2_tpu_torch.data import render, synthetic as sim
 from ground_fusion2_tpu_torch.eval import metrics
 from ground_fusion2_tpu_torch.gnss import align, ephemeris, frames, spp
@@ -179,3 +181,55 @@ def test_gnss_sim_spp_align_copies_match():
     for a, b in zip(runs[0], runs[1]):
         for x, y in zip(a, b):
             _equal(x, y)
+
+
+def _vendor_packets(rng, n: int = 300) -> dict:
+    """One seeded packet a vendor, with the fields each handler reads (and
+    a few points inside the blind range and non-finite)."""
+    f32 = lambda *s: rng.normal(scale=5.0, size=s).astype(np.float32)
+    xyz = [("x", np.float32), ("y", np.float32), ("z", np.float32)]
+    out = {}
+    a = np.zeros(n, xyz + [("reflectivity", np.uint8),
+                           ("offset_time", np.uint32), ("tag", np.uint8)])
+    a["offset_time"] = rng.integers(0, 100_000_000, n)
+    a["tag"] = rng.integers(0, 64, n)
+    a["reflectivity"] = rng.integers(0, 255, n)
+    out["AVIA"] = a
+    v = np.zeros(n, xyz + [("intensity", np.float32), ("time", np.float32)])
+    v["time"] = rng.uniform(0, 0.1, n)
+    out["VELO32"] = v
+    v2 = np.zeros(n, xyz + [("intensity", np.float32)])   # azimuth timing
+    out["VELO32 (no time)"] = v2
+    o = np.zeros(n, xyz + [("intensity", np.float32), ("t", np.uint32)])
+    o["t"] = rng.integers(0, 100_000_000, n)
+    out["OUST64"] = o
+    for name in ("ROBOSENSE16", "PANDAR"):
+        r = np.zeros(n, xyz + [("intensity", np.float32),
+                               ("timestamp", np.float64)])
+        r["timestamp"] = 1700000000.0 + rng.uniform(0, 0.1, n)
+        out[name] = r
+    for arr in out.values():
+        for k in ("x", "y", "z"):
+            arr[k] = f32(n)
+        arr["x"][:5] = 0.01           # inside the blind range
+        arr["y"][5] = np.nan
+        if "intensity" in arr.dtype.names:
+            arr["intensity"] = rng.uniform(0, 100, n)
+    return out
+
+
+def test_cloud_convert_copy_matches():
+    """Every vendor's decoding, with point decimation, and the LidarType
+    enum, in both copies."""
+    assert [(t.name, int(t)) for t in cc.LidarType] == \
+        [(t.name, int(t)) for t in jcc.LidarType]
+    packets = _vendor_packets(np.random.default_rng(13))
+    for vendor, arr in packets.items():
+        lt = vendor.split()[0]
+        for keep in (1, 3):
+            outs = [mod.CloudConvert(mod.CloudConvertConfig(
+                lidar_type=mod.LidarType[lt], point_filter_num=keep))
+                .process(arr, 100.0) for mod in (cc, jcc)]
+            assert outs[0][0].shape[0] > 0, vendor
+            for a, b in zip(*outs):
+                _equal(a, b)

@@ -31,7 +31,10 @@ outputs untouched off its branch; the LiDAR tick's
 glue AK (CT-ICP's points, weights and step), AL (the keypoint and map
 glue around F) and AM (the observations, the select, the switch) bit for
 bit, AM through every switch branch, with their launches a LiDAR tick; the mesh and the
-grid on the card equal to their plain routes on the same sweeps.
+grid on the card equal to their plain routes on the same sweeps; AH's lift
+and tail for every camera model bit for bit; AP (the calibration's normal
+equations and cost) against jacfwd + JᵀJ at δ = 0 and at a seeded δ, and a
+whole calibration on the card meeting the truth gates.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -1384,6 +1387,11 @@ def _launch(name, dev):
         from ground_fusion2_tpu_torch.frontend import track_tail
         return track_tail.lift_norm(Pinhole.create(80.0, 80.0, 64.0, 48.0),
                                     torch.ones((8, 2), device=dev))
+    if name == "calib_normal":
+        from ground_fusion2_tpu_torch.calib import intrinsics as ci
+        obj, uv = checks.calib_views(False, n_views=3, nx=4, ny=3)
+        prob = ci.calib_problem(obj, uv, 8, dev)
+        return ci.normal_equations(prob, torch.zeros(prob.dim, device=dev))
     if name == "window_carry":
         from ground_fusion2_tpu_torch.vio import window_carry
         c = checks.carry_from_arrays(*checks.carry_arrays(0, 30, 40), dev)
@@ -1582,6 +1590,94 @@ def test_track_tail_kernel_matches_plain(dev, camera):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("name", ["hilti22", "idc", "Mei", "PinholeFull",
+                                  "Scaramuzza"])
+def test_track_tail_kernel_matches_plain_for_each_camera_model(dev, name):
+    """AH's lift and tail modes bit for bit for every camera model (the
+    loader's Equidistant and radtan Pinhole, tests/test_cameras.py's Mei,
+    PinholeFull and Scaramuzza), over the whole image, twice the same
+    bits."""
+    r = checks.check_camera_models(dev, {name: checks.camera_cases()[name]},
+                                   timed=False)
+    assert r["ok"], r
+
+
+def test_track_tail_kernel_refuses_an_unknown_camera(dev):
+    from dataclasses import dataclass
+    from ground_fusion2_tpu_torch.frontend import track_tail
+
+    @dataclass(frozen=True)
+    class Other:
+        fx: float = 1.0
+    with pytest.raises(ValueError, match="Other"):
+        track_tail.lift_norm(Other(), torch.ones((4, 2), device=dev))
+
+
+@pytest.mark.parametrize("rational", [True, False])
+def test_calib_normal_kernel_matches_plain(dev, rational):
+    """AP's H, g and cost against jacfwd + JᵀJ at δ = 0 and at a seeded δ
+    on 12 views of a 12 × 8 board (checks.calib_tolerances), twice the same
+    bits, its cost mode equal to its normal mode's cost; a count a call of
+    each mode."""
+    import numpy as np
+    from ground_fusion2_tpu_torch.calib import intrinsics as ci
+    obj, uv = checks.calib_views(rational, n_views=12)
+    prob = ci.calib_problem(obj, uv, 12 if rational else 8, dev)
+    rng = np.random.default_rng(3)
+    step = torch.as_tensor(rng.normal(scale=1e-3, size=prob.dim),
+                           dtype=torch.float32, device=dev)
+    r = checks.check_calib(dev, prob, dict(zero=torch.zeros_like(step),
+                                           seeded=step), timed=False)
+    assert r["ok"], r
+    _kernels.launches.clear()
+    ci.normal_equations(prob, step)
+    ci.cost_at(prob, step)
+    assert _kernels.launches["calib_normal"] == 2
+
+
+def test_calibration_on_the_card_meets_the_truth_gates(dev):
+    """calibrate_pinhole_full on 40 views (D = 252, kernel W's cluster
+    mode): rms < 0.1 px, fx fy cx cy within 1.5 px; AP, W and AN launch
+    and jacfwd never runs."""
+    from ground_fusion2_tpu_torch.calib import intrinsics as ci
+    obj, uv = checks.calib_views(True)
+    calls = []
+    orig = torch.func.jacfwd
+    torch.func.jacfwd = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    _kernels.launches.clear()
+    try:
+        res = ci.calibrate_pinhole_full(obj, uv, device=dev)
+    finally:
+        torch.func.jacfwd = orig
+    assert res.rms_px < 0.1, res
+    for k in ("fx", "fy", "cx", "cy"):
+        assert abs(getattr(res, k) - checks.CALIB_RATIONAL[k]) < 1.5, res
+    assert not calls
+    # a count a call of each mode (two launches a call): the first cost,
+    # a linearization and a trial cost an iteration, the last linearization
+    assert _kernels.launches["calib_normal"] == 1 + 40 * 2 + 1
+    assert _kernels.launches["chol_solve"] == 40
+    assert _kernels.launches["lm_glue"] == 40
+
+
+def test_noisy_calibration_on_the_card(dev):
+    """calibrate_pinhole on 40 views with 0.3 px of noise (the JAX suite's
+    gates: rms < 0.6 px, fx cx within 8 px), then AP against its plain
+    version at δ = 0 and at the LM's final δ, where the cost (~300) sits
+    far above float32 rounding."""
+    from ground_fusion2_tpu_torch.calib import intrinsics as ci
+    obj, uv = checks.calib_views(False, noise=0.3)
+    res = ci.calibrate_pinhole(obj, uv, device=dev)
+    assert 0.3 < res.rms_px < 0.6, res
+    for k in ("fx", "cx"):
+        assert abs(getattr(res, k) - checks.CALIB_RADTAN[k]) < 8.0, res
+    prob = ci.calib_problem(obj, uv, 8, dev)
+    lm = ci.solve(prob, 30)
+    r = checks.check_calib(dev, prob, dict(
+        zero=torch.zeros(prob.dim, device=dev), final=lm.delta), timed=False)
+    assert r["ok"], r
+
+
 def test_window_carry_kernel_matches_plain(dev, camera):
     """AI's write at two columns and its slide in every branch, past M
     samples too, bit for bit."""
@@ -1767,7 +1863,8 @@ def test_mesh_and_grid_on_the_card_equal_the_plain_route(dev):
                                   "mesh_rgb", "mesh_delaunay", "line_detect",
                                   "line_refit", "dist_schur", "map_schur",
                                   "track_tail", "window_carry", "marg_schur",
-                                  "ct_glue", "voxel_glue", "lio_update"])
+                                  "ct_glue", "voxel_glue", "lio_update",
+                                  "calib_normal"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(

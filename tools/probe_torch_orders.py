@@ -1,7 +1,8 @@
 """Which order of operations PyTorch's ops take on this device, for the
 small reductions, cross products and matrix products of the LiDAR tick's
 glue (kernels AK, AL, AM replay them bit for bit) and of the camera tick's
-(kernel AN's retraction of the window, kernel AO's GNSS gate).
+(kernel AN's retraction of the window, kernel AO's GNSS gate), and for the
+norms of kernel AH's rays.
 
     PYTHONPATH=. python3 tools/probe_torch_orders.py [--device cuda] [--n 65536]
 
@@ -296,6 +297,17 @@ def probe(dev, n: int, seed: int = 0, only_best: bool = True) -> dict:
     row("norm [11,4] dim -1 keepdim (the window's quat_normalize)",
         torch.stack([torch.linalg.norm(x, dim=-1, keepdim=True)[:, 0]
                      for x in x4s]), norms(torch.stack(x4s), 4))
+    # kernel AH's rays at F = 150 slots: (x, y, 1) for the pinhole models,
+    # rows with any z for Equidistant (cos θ), Mei (zs − xi) and
+    # Scaramuzza (−poly)
+    for name, z in (("z = 1", 1.0), ("any z", None)):
+        xs = [r(150, 3) for _ in range(256)]
+        if z is not None:
+            xs = [torch.cat([x[:, :2], torch.ones_like(x[:, 2:])], -1)
+                  for x in xs]
+        row(f"norm [150,3] dim -1 keepdim ({name}: kernel AH's rays)",
+            torch.stack([torch.linalg.norm(x, dim=-1, keepdim=True)[:, 0]
+                         for x in xs]), norms(torch.stack(xs), 3))
     A = [r(W, 4, 4) for _ in range(64)]
     B = [r(W, 4, 1) for _ in range(64)]
     ref = torch.stack([x @ y for x, y in zip(A, B)])
