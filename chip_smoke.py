@@ -251,8 +251,22 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      ms and launches are printed. Kernel AP is held against its plain
      version (jacfwd, then JᵀJ) at δ = 0 and at the LM's final δ within
      checks.calib_tolerances (H within 1e-5 of its largest entry), twice
-     the same bits, its cost mode equal to its normal mode's cost.
-Phases 4, 5, 8, 9, 10, 10b, 11, 13, 14, 15, 16, 17 and 18 run with a counter on every
+     the same bits, its cost mode equal to its normal mode's cost;
+ 19. the stereo window (checks.stereo_window: the example window at F =
+     150, W = 11 and a second camera 0.05 m along the first's x axis, its
+     rays and mask built by numpy from a seed): kernel C's stereo family
+     against its plain route within PROJ_REL_TOL / PROJ_G_TOL, kernel S's
+     at the start, the damped step and its reverse within its cost
+     tolerances, then solve_window and marginalize_oldest with use_stereo:
+     positions under 0.01 m of the truth (tests/test_window_ba.py's gate),
+     a finite prior, C and S launched, no synchronizing call;
+ 20. kernel AQ (JAX's threefry draws): the tick's [64, 150] uniforms from
+     a device word, a seed's Gumbel noise and the loop's 128 split keys and
+     their noise, each torch.equal to the plain route (core/prng.py) and to
+     jax 0.9.0's recorded answers (checks.JAX_PRNG_ANSWERS), beside
+     torch.rand's time at the tick's shape. Phase 8 requires AQ launched on
+     the live ticks, phase 9 its split mode on the loop drive.
+Phases 4, 5, 8, 9, 10, 10b, 11, 13, 14, 15, 16, 17, 18 and 19 run with a counter on every
 torch.linalg function but the norms and cross, and on torch's own
 factorizations, solves and inverses (cholesky_solve, cholesky_inverse,
 inverse, lu_solve, ...): every count must be 0, each kernel W-Z replacing
@@ -270,10 +284,11 @@ codes, subcells and squared distances at 135,168 keys, the recenter's
 131,072, a mesh-sized 69,632, the keypoints' hash codes and flags); phase
 14 F's on the mesh's own 69,632 codes.
 The last two lines are the kernels JSON (launches from phase 8's run for
-A-L, S-Y and AH-AM (Y's inverse entry serves the plain route alone: its
+A-L, S-Y, AH-AO and AQ (Y's inverse entry serves the plain route alone: its
 device code runs inside AM), phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
-phase 15's for AD and AE, phase 16's for AF and AG, phase 18's for AP) and
+phase 15's for AD and AE, phase 16's for AF and AG, phase 18's for AP,
+phase 19's for C's and S's stereo family) and
 the result JSON.
 
 The camera rig is synthetic: the renderer's forward camera (bench.py's
@@ -304,11 +319,10 @@ LIO_MAX_ERR = 0.06     # m, test_lio_e2e.py's bound; the JAX package: 0.0032 m
 # initialized frames (tests/torch_system_reference.py camera, CPU); printed
 # beside phase 4's, not gated
 JAX_CAMERA_ATE = 0.09645292800512928
-# the port's FusedVio on the CPU over the same drive, with JAX's RANSAC draws
-# and with its own CPU draws (tests/torch_system_reference.py port-jax-draws
-# and port-cpu-draws); printed beside phase 4's, not gated
-PORT_CPU_JAX_DRAWS_ATE = 0.14668776783459836
-PORT_CPU_ATE = 0.14676329781205139
+# the port's FusedVio on the CPU over the same drive with its own RANSAC
+# draws, JAX's (tests/torch_system_reference.py port-jax-draws); printed
+# beside phase 4's, not gated
+PORT_CPU_ATE = 0.14668776783459836
 SYS_FRAMES = 40
 SYS_MAX_ERR = 0.06     # m, fused position error (test_lio_e2e.py's bound)
 SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
@@ -316,7 +330,8 @@ CAMERA_KERNELS = ("clahe", "klt", "proj_normal", "preint", "pyramid",
                   "shi_tomasi", "detect_grid", "ransac_f", "small_normal",
                   "window_cost", "triangulate", "window_tests", "window_update",
                   "chol_solve", "sym_eig", "sqrt_info", "track_tail",
-                  "window_carry", "marg_schur", "lm_glue", "tick_glue")
+                  "window_carry", "marg_schur", "lm_glue", "tick_glue",
+                  "threefry")
 LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal",
                 "pg_cost")
 GNSS_KERNELS = ("gnss_normal", "global_normal", "global_cost")
@@ -424,6 +439,12 @@ SOURCES = {   # kernel: (source, the TPU kernel's function it replaces)
     "lio_update": ("lio_update.cu", "ground_fusion2_tpu/lio/eskf.py:165"),
     "lm_glue": ("lm_glue.cu", "ground_fusion2_tpu/solver/gauss_newton.py:85"),
     "tick_glue": ("tick_glue.cu", "ground_fusion2_tpu/vio/fused.py:297"),
+    "threefry": ("threefry.cu", "ground_fusion2_tpu/vio/fused.py:198"),
+    # the stereo rows' family of C and S (phase 19's window)
+    "proj_normal_stereo": ("proj_normal.cu",
+                           "ground_fusion2_tpu/factors/vio_factors.py:247"),
+    "window_cost_stereo": ("window_cost.cu",
+                           "ground_fusion2_tpu/factors/vio_factors.py:247"),
 }
 MESH_KERNELS = ("mesh_insert", "mesh_rgb", "mesh_delaunay")
 SOURCES.update({
@@ -513,7 +534,9 @@ KERNEL_GROUPS = {
     "AM": ("lio_update_kernel",),
     "AN": ("lm_pack_kernel", "lm_step_kernel", "lm_retract_kernel",
            "lm_weigh_kernel"),
-    "AO": ("tick_track_kernel", "tick_pre_kernel", "tick_post_kernel")}
+    "AO": ("tick_unpack_kernel", "tick_track_kernel", "tick_pre_kernel",
+           "tick_post_kernel"),
+    "AQ": ("draw_kernel", "split_kernel")}
 # the camera tick's profiler ranges (vio/fused.py, vio/problem.py)
 CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
                  "tick_glue", "marginalize", "marginalize_oldest",
@@ -521,6 +544,14 @@ CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
 # the LiDAR tick's profiler ranges (lio/odometry.py, lio/fused.py)
 LIDAR_RANGES = ("lidar_tick", "select_keypoints", "ct_icp", "observe_switch",
                 "record", "map_update")
+# cuBLAS's product kernels (and the cuBLASLt ones it picks on Hopper)
+CUBLAS_KERNEL_WORDS = ("gemm", "gemv", "nvjet", "cublas", "xmma", "cutlass",
+                       "splitkreduce", "dot_kernel")
+# every profiler range a camera tick opens (vio/fused.py, vio/problem.py)
+CAMERA_TICK_RANGES = CAMERA_RANGES + ("upload", "_solve_tick.write",
+                                      "add_frame", "preintegrate",
+                                      "_detectors", "triangulate",
+                                      "post_solve_tests")
 LINALG_KERNEL_WORDS = ("syevj", "syevd", "potrf", "potrs", "trsm", "trsv",
                        "cusolver", "lapack", "sytrd", "stedc", "steqr",
                        "ormtr", "geqrf", "getrf", "larf")
@@ -614,6 +645,7 @@ def split_by_range(prof, n_ticks: int) -> dict:
     out = collections.defaultdict(lambda: dict(
         ms=0.0, launches=0, port_ms=0.0, port_launches=0, copies=0,
         copy_ms=0.0))
+    foreign = collections.defaultdict(collections.Counter)
     unmatched = 0
     for e in prof.events():
         if (e.device_type != torch.autograd.DeviceType.CUDA
@@ -638,9 +670,28 @@ def split_by_range(prof, n_ticks: int) -> dict:
         if kernel_qualname(e.name) in ours:
             r["port_ms"] += us
             r["port_launches"] += 1
+        elif not any(w in e.name.lower() for w in CUBLAS_KERNEL_WORDS):
+            # torch's copy kernels count: the one kernel both copies and
+            # converts dtypes, and its name does not say which
+            if "copy_kernel" in e.name:
+                r["copy_kernels"] = r.get("copy_kernels", 0) + 1
+            foreign[name][kernel_qualname(e.name)[:80]] += 1
     per = {k: {f: round(v / n_ticks, 5) for f, v in r.items()}
            for k, r in sorted(out.items(), key=lambda kv: -kv[1]["ms"])}
-    return dict(by_range=per, unmatched_activities=unmatched)
+    return dict(by_range=per, unmatched_activities=unmatched,
+                foreign_by_range={k: {n: c / n_ticks for n, c in v.items()}
+                                  for k, v in sorted(foreign.items())})
+
+
+def camera_foreign(split: dict) -> dict:
+    """The CUDA kernels a camera tick launches (in its profiler ranges)
+    that are neither the port's nor cuBLAS's products, torch's copy kernels
+    (copies and dtype conversions alike) included, by name: launches a tick
+    (the memcpy and memset activities are not kernels)."""
+    got = collections.Counter()
+    for rng in CAMERA_TICK_RANGES:
+        got.update(split.get("foreign_by_range", {}).get(rng, {}))
+    return dict(got)
 
 
 def start_profiler():
@@ -1076,11 +1127,19 @@ def system_main_path(dev, card, frames):
               "one's kernels leaving at once); kernels AN, AO launches a tick "
               + json.dumps({g: sum(split['port_kernel_launches_per_tick']
                                    .get(n, 0) for n in KERNEL_GROUPS[g])
-                            for g in ("AN", "AO")})
+                            for g in ("AN", "AO", "AQ")})
               + ", device ms a tick "
               + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
-                            for g in ("AN", "AO")}) + f" | {card}",
+                            for g in ("AN", "AO", "AQ")}) + f" | {card}",
               flush=True)
+        fc = camera_foreign(split)
+        copies = sum(split["by_range"].get(k, {}).get("copy_kernels", 0)
+                     for k in CAMERA_TICK_RANGES)
+        print("the camera tick's kernels that are neither the port's nor "
+              "cuBLAS products, launches a tick over the last 3 ticks: "
+              f"{sum(fc.values()):g} {json.dumps(fc)} (of which torch's copy "
+              f"kernels, copies and conversions alike, {copies:g}; memcpy / "
+              f"memset activities aside) | {card}", flush=True)
         per_tick = split["port_kernel_launches_per_tick"]
         print(f"kernels D and E in the system tick: launches a LiDAR tick "
               f"D {per_tick.get('lio_assoc_kernel', 0):g}, E "
@@ -1112,6 +1171,10 @@ def system_main_path(dev, card, frames):
     if not r["vio_ate"] < SYS_MAX_ATE:
         return (f"VIO ATE {r['vio_ate']:.4f} m >= {SYS_MAX_ATE} m", launches,
                 median, gf)
+    if split and camera_foreign(split):
+        return (f"the camera tick launched kernels that are neither the "
+                f"port's nor cuBLAS products: {camera_foreign(split)}",
+                launches, median, gf)
     if split and split["device_ms_per_tick"]["linalg"] > 0:
         return (f"cuSOLVER / triangular-solve kernels ran in the system tick: "
                 f"{split['device_ms_per_tick']['linalg']:.4f} ms a tick",
@@ -2091,6 +2154,85 @@ def calib_main_path(dev, card):
     return None, ap_launches, ap
 
 
+STEREO_F = 150
+STEREO_MAX_ERR = 0.01   # m, tests/test_window_ba.py's stereo gate
+
+
+def stereo_main_path(dev, card):
+    """Phase 19: the stereo window on the card (``checks.stereo_window`` at
+    F = 150, W = 11: the example window and a second camera 0.05 m along
+    the first's x axis): kernel C's stereo family against its plain route,
+    kernel S's at the start, the damped step and its reverse, then
+    ``solve_window`` and ``marginalize_oldest`` with ``use_stereo``, their
+    synchronizing calls counted and both kernels' launches. Returns (error
+    or None, the checks)."""
+    import torch
+    from ground_fusion2_tpu_torch import _kernels, checks
+    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
+    from ground_fusion2_tpu_torch.vio import problem
+    sw = checks.stereo_window(STEREO_F, dev)
+    cfg = checks.stereo_config(STEREO_F)
+    x0, meas, layout = sw["x0"], sw["meas"], sw["layout"]
+    res = {"proj_normal (stereo)": checks.check_proj(
+        dev, x0, sw["feats"], layout, sw["delta"], cfg.proj_sqrt_info,
+        stereo=sw["stereo"])}
+    zero = torch.zeros(layout.dim, device=dev)
+    H0, g0, _ = problem.window_normal_equations(x0, meas, layout, cfg, zero)
+    step = _solve_damped(H0, g0, torch.full((), 1e-4, device=dev),
+                         torch.ones(layout.dim, device=dev))
+    res["window_cost (stereo)"] = checks.check_window_cost(
+        dev, x0, meas, layout, cfg, dict(zero=zero, step=step, back=-step))
+    print("phase 19: kernels C and S with the stereo rows on the stereo "
+          f"window (F = {STEREO_F}, W = {layout.W}, "
+          f"{int(sw['stereo'][1].sum())} second-camera observations): "
+          + json.dumps(res) + f" | {card}", flush=True)
+    if report(res):
+        return "kernel C or S disagrees on the stereo window", res
+    solve = lambda: problem.solve_window(x0, meas, layout, cfg)
+    # the layout's device tables once, as FusedVio.build_carry makes them,
+    # then a warm solve and elimination
+    problem.prepare_layout(layout, cfg, dev)
+    problem.marginalize_oldest(solve().state, meas, layout, cfg)
+    torch.cuda.synchronize()
+    _kernels.launches.clear()
+    sites = collections.Counter()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = sync_site(sites)
+        torch.cuda.set_sync_debug_mode("warn")
+        out = solve()
+        prior = problem.marginalize_oldest(out.state, meas, layout, cfg)
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = dict(_kernels.launches)
+    err = float((out.state.p - sw["p_true"]).norm(dim=-1).max())
+    err0 = float((x0.p - sw["p_true"]).norm(dim=-1).max())
+    finite = bool(torch.isfinite(prior.sqrt_J).all()
+                  and torch.isfinite(prior.r0).all())
+    res["solve"] = dict(max_pos_err=err, start_err=err0, wall_ms=wall,
+                        syncs=dict(sites), launches=launches,
+                        prior_finite=finite, cost0=float(out.cost0),
+                        cost=float(out.cost))
+    print(f"phase 19: solve_window + marginalize_oldest with use_stereo: "
+          f"positions {err:.6f} m from the truth at most (start {err0:.4f} "
+          f"m; gate {STEREO_MAX_ERR} m), cost {float(out.cost0):.4f} -> "
+          f"{float(out.cost):.6f}, prior finite {finite}, synchronizing "
+          f"calls {sum(sites.values())} {dict(sites)}, launches {launches}, "
+          f"wall {wall:.2f} ms (synchronized) | {card}", flush=True)
+    if not err < STEREO_MAX_ERR:
+        return (f"the stereo solve leaves a position {err:.4f} m from the "
+                f"truth"), res
+    if sites:
+        return f"the stereo solve synchronized: {dict(sites)}", res
+    if not finite:
+        return "the stereo MARGIN_OLD prior is not finite", res
+    if min(launches.get(k, 0) for k in ("proj_normal", "window_cost")) == 0:
+        return f"C or S did not launch in the stereo solve: {launches}", res
+    return None, res
+
+
 def report(res: dict) -> int:
     import torch
     torch.cuda.synchronize()
@@ -2194,9 +2336,8 @@ def main() -> int:
               if not torch.equal(a, b)]
     print(f"camera path repeated: ATE {runs[0][1]['ate']:.6f} m and "
           f"{runs[1][1]['ate']:.6f} m (the JAX package on the same drive: "
-          f"{JAX_CAMERA_ATE:.6f} m; the port on the CPU with JAX's draws "
-          f"{PORT_CPU_JAX_DRAWS_ATE:.6f} m, with its own "
-          f"{PORT_CPU_ATE:.6f} m; printed, not gated); windows "
+          f"{JAX_CAMERA_ATE:.6f} m; the port on the CPU, drawing JAX's "
+          f"noise, {PORT_CPU_ATE:.6f} m; printed, not gated); windows "
           + (f"first differ at fused tick {differ[0] + 1} of {len(w1)}"
              if differ else f"identical over all {len(w1)} fused ticks"),
           flush=True)
@@ -2361,6 +2502,12 @@ def main() -> int:
     if err or lin:
         return fail(err or lin)
     launches.update({k: loop_launches.get(k, 0) for k in LOOP_KERNELS})
+    loop_draws = loop_launches.get("threefry", 0)
+    print(f"phase 9: kernel AQ's split mode (the loop hypotheses' noise, "
+          f"JAX's split keys) launched {loop_draws} times over the drive "
+          f"| {card}", flush=True)
+    if loop_draws == 0:
+        return fail("kernel AQ never drew the loop geometry's noise")
     pg = gf.pg
     j, i = pg.loops[-1][:2]
     fx, fy, cx, cy = checks.M3DGR_INTRINSICS
@@ -2511,11 +2658,30 @@ def main() -> int:
     if err or lin:
         return fail(err or lin)
 
+    # 19. the stereo window: C and S's stereo family, the solve and the
+    # marginalization with use_stereo
+    (err, res_stereo), lin = linalg_free("19", stereo_main_path, dev, card)
+    if err or lin:
+        return fail(err or lin)
+    for name, fam in (("proj_normal", "proj_normal (stereo)"),
+                      ("window_cost", "window_cost (stereo)")):
+        res[f"{name}_stereo"] = res_stereo[fam]
+        launches[f"{name}_stereo"] = res_stereo["solve"]["launches"][name]
+
+    # 20. kernel AQ against its plain route and jax 0.9.0's answers
+    res["threefry"] = checks.check_threefry(dev)
+    res["threefry"]["loop_launches"] = loop_draws
+    print("kernel threefry (AQ): " + json.dumps(res["threefry"])
+          + f" | {card}", flush=True)
+    if report({"threefry": res["threefry"]}):
+        return 1
+
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "device_ms", "library_device_ms",
             "launches_per_call")
-    # launches: phase 8 for A-L, S-Y and AH-AM, 9 for M-O, 10 for P and Q,
-    # 11 for R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG, 18 for AP
+    # launches: phase 8 for A-L, S-Y, AH-AO and AQ, 9 for M-O, 10 for P and
+    # Q, 11 for R, 13 for Z, 14 for AA-AC, 15 for AD-AE, 16 for AF-AG, 18
+    # for AP, 19 for C's and S's stereo family
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]

@@ -38,6 +38,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_U = ctypes.c_uint
 _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
@@ -67,13 +68,13 @@ _SIGNATURES = {
     "gf2_global_cost": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 3,
     "gf2_triangulate": [_P] * 11 + [_I] * 2 + [_P] * 3,
     "gf2_window_tests": ([_I] + [_P] * 5 + [_I] * 2 + [_P] * 6 + [_F] * 3
-                         + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 5 + [_P] * 4),
+                         + [_I] + [_P] * 7 + [_I] * 5 + [_F] * 5 + [_P] * 5),
     "gf2_window_update": ([_I] + [_P] * 8 + [_I] * 2 + [_P] * 5 + [_I]
                           + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P] * 2),
     "gf2_chol_solve": [_P] * 5 + [_I] + [_P] * 6,
     "gf2_sym_eig_f64": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
     "gf2_sym_eig_f32": [_P, _I] + [_P] * 4 + [_I, _P, _I, _P],
-    "gf2_sqrt_info": [_P, _I, _I, _I, _P, _P],
+    "gf2_sqrt_info": [_P, _I, _I, ctypes.c_longlong, _I, _P, _P],
     "gf2_icp_solve": [_P, _P, _I, _F, _P, _P],
     "gf2_degeneracy": [_P, _P, _I] + [_F] * 3 + [_P] * 4,
     "gf2_occupancy": ([_P, _P, _F, _F, _P, _I, _P, _I, _I, _F] + [_I] * 4
@@ -121,7 +122,14 @@ _SIGNATURES = {
     "gf2_tick_pre": [_P] * 2 + [_I] * 3 + [_P],
     "gf2_tick_post": [_P] * 2 + [_I] * 3 + [_F, _P],
     "gf2_tick_track": [_P] * 5 + [_I] * 2 + [_F, _P],
+    "gf2_tick_unpack": [_P, _I, _I, _F, _P, _P, _P],
     "gf2_calib_normal": [_I] * 3 + [_P] * 9,
+    "gf2_proj_normal_stereo": ([_P] * 16 + [_I] * 8 + [_F] * 3 + [_P] * 5
+                               + [_I, _P]),
+    "gf2_window_cost_stereo": ([_P] * 27 + [_I] * 21 + [_D] + [_F] * 6
+                               + [_P] * 4),
+    "gf2_threefry_draw": [_P, _U, _I, _I, _I, _F, _P, _P, _P],
+    "gf2_threefry_split_gumbel": [_U, _U, _I, _I, _F, _P, _P, _P],
 }
 
 

@@ -69,6 +69,16 @@ PREINT_TOL = dict(delta=1e-6, rel=1e-5)   # dp, dv, dq abs; cov, jac / max|.|
 PYR_REL_TOL = 1e-6     # kernel I: levels, response, relative to their max
 RANSAC_F_TOL = 1e-4    # kernel K: unit-norm F against the plain solve in f64
 RANSAC_BAND = 1e-3     # a mask may differ only where d² is this close to thr²
+# what jax 0.9.0 draws (threefry2x32, partitionable; computed with jax on
+# the CPU), the answers kernel AQ and its plain route are held to where
+# there is no jax: random_bits(PRNGKey(5), (64, 150)) at [0, :3] and
+# [63, 149], uniform(PRNGKey(5), (64, 150), tiny, 1)[0, :3] (float.hex),
+# split(PRNGKey(15841), 3)
+JAX_PRNG_ANSWERS = dict(
+    bits_5_first=[2003086470, 3955154020, 3160280976], bits_5_last=897815947,
+    uniform_5_first=["0x1.dd92bp-2", "0x1.d77db8p-1", "0x1.78bc1cp-1"],
+    split_15841=[[2187813553, 1626673799], [4243602770, 4218965222],
+                 [3727838932, 1133852685]])
 
 # the card's published peaks (H100 SXM, NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
@@ -611,8 +621,8 @@ def ct_normal_case(device, K: int, seed: int = 0, weights: bool = True):
     (all 0 without ``weights``), begin and end poses 0.02 rad and 5 cm
     apart, the prediction 1 cm off; at m3dgr_lio()'s ICP configuration."""
     from .config import m3dgr_lio
-    g = torch.Generator().manual_seed(seed)
-    u = lambda *s: torch.rand(*s, generator=g)
+    g = np.random.default_rng(seed)
+    u = lambda *s: torch.as_tensor(g.random(s, dtype=np.float32))
     pts = (u(K, 3) - 0.5) * 2.0
     pts = pts / pts.norm(dim=1, keepdim=True) * (2.0 + 18.0 * u(K, 1))
     normal = u(K, 3) - 0.5
@@ -809,19 +819,20 @@ def check_eskf(device, x: dict, opt) -> dict:
 
 def check_proj(device, x0=None, feats=None, layout=None, delta=None,
                sqrt_info: float = 607.79772949218 / 1.5,
-               timed: bool = True) -> dict:
+               timed: bool = True, stereo=None) -> dict:
     """Kernel C against the plain jacfwd block (default: an example window
     with F = 150, D = 396, at a nonzero accumulated delta), and a repeated
-    call bit for bit."""
+    call bit for bit; ``stereo`` (ray2, valid2): with the second camera's
+    rows (the stereo family)."""
     if x0 is None:
         x0, feats, layout, delta = example_window(150, device)
-    Hk, gk, ck = fac.projection_normal_equations(x0, delta, feats, layout,
-                                                 sqrt_info)
-    again = fac.projection_normal_equations(x0, delta, feats, layout,
-                                            sqrt_info)
+    call = lambda: fac.projection_normal_equations(
+        x0, delta, feats, layout, sqrt_info, stereo=stereo)
+    Hk, gk, ck = call()
+    again = call()
     same = all(bool(torch.equal(a, b)) for a, b in zip((Hk, gk, ck), again))
-    Hp, gp, cp = fac.projection_normal_equations_plain(x0, delta, feats,
-                                                       layout, sqrt_info)
+    Hp, gp, cp = fac.projection_normal_equations_plain(
+        x0, delta, feats, layout, sqrt_info, stereo=stereo)
     rel = lambda a, b: float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
     # g_i sums terms whose magnitudes add up to at most sqrt(H_ii · 2·cost)
     # (Cauchy-Schwarz); near the optimum g itself is a small difference of
@@ -836,17 +847,20 @@ def check_proj(device, x0=None, feats=None, layout=None, delta=None,
     n_obs = int(feats.obs_valid.sum())
     nb = _nbytes(feats.ray, feats.vel, feats.obs_valid, feats.anchor,
                  feats.track_valid, Hk, gk)
+    flops = n_obs * (200 + 2 * 2 * 20 * 20)
+    if stereo is not None:   # a stereo row: ~200 flops, 26 columns
+        nb += _nbytes(*stereo)
+        n_st = int((stereo[1] * feats.track_valid[:, None]).sum())
+        flops += n_st * (200 + 2 * 2 * 26 * 26)
     out = dict(max_abs_err=float((Hk - Hp).abs().max()), rel_err=errs,
                tol=tols, dim=layout.dim, repeat_equal=same,
                ok=same and all(errs[k] <= tols[k] for k in errs),
-               library_ms=None, **bound(nb, n_obs * (200 + 2 * 2 * 20 * 20)))
+               library_ms=None, **bound(nb, flops))
     if timed:
-        out["ms"] = time_ms(lambda: fac.projection_normal_equations(
-            x0, delta, feats, layout, sqrt_info))
+        out["ms"] = time_ms(call)
         out["plain_ms"] = time_ms(lambda: fac.projection_normal_equations_plain(
-            x0, delta, feats, layout, sqrt_info), reps=5)
-        out.update(device_pair(lambda: fac.projection_normal_equations(
-            x0, delta, feats, layout, sqrt_info)))
+            x0, delta, feats, layout, sqrt_info, stereo=stereo), reps=5)
+        out.update(device_pair(call))
     return out
 
 
@@ -870,8 +884,8 @@ def preint_inputs(carry, statics, imu_noise, wheel_noise, col: int) -> dict:
 def check_preint(device, x: dict, timed: bool = True) -> dict:
     """Kernel H against the sequential loops on the window's intervals; the
     glue it folds in (the wheel-frame gyro's first and last samples, the end
-    velocities, the intrinsics) and sum_dt (torch's sum of the kernel's
-    dt·mask rows) equal to the plain version's torch ops bit for bit."""
+    velocities, the intrinsics, sum_dt in torch's reduce order) equal to the
+    plain version's torch ops bit for bit."""
     run = lambda f: f(*x["args"], prop=x["prop"])
     pk, wk, vk = run(wp.preintegrate_window)
     pp, wpp, vp = run(wp.preintegrate_window_plain)
@@ -884,6 +898,11 @@ def check_preint(device, x: dict, timed: bool = True) -> dict:
         ("vel_end", wk.vel_end, wpp.vel_end),
         ("sx sy sw", torch.stack([wk.sx, wk.sy, wk.sw]),
          torch.stack([wpp.sx, wpp.sy, wpp.sw])))}
+    if pk.cov.is_cuda:   # kernel Y reads H's covariances in place
+        for name, cov in (("sqrt_info in place", pk.cov),
+                          ("wheel sqrt_info in place", wk.cov)):
+            glue[name] = bool(torch.equal(fac.imu_sqrt_info(cov),
+                                          fac.imu_sqrt_info(cov.contiguous())))
     e = lambda a, b: float((a - b).abs().max())
     rel = lambda a, b: e(a, b) / max(float(b.abs().max()), 1e-30)
     errs = dict(dp=e(pk.dp, pp.dp), dv=e(pk.dv, pp.dv), dq=e(pk.dq, pp.dq),
@@ -1050,7 +1069,8 @@ def check_ransac(device, cam, tracks: dict, thresh: float, seed: int = 12,
     normalized points, the Gumbel draw of ``seed``)."""
     from .frontend.tracker import normalized
     valid = tracks["alive"]
-    g = rs.gumbel_noise(seed, hypotheses, valid.shape[0], device)
+    from .core import prng
+    g = prng.gumbel_noise(seed, hypotheses, valid.shape[0], device)
     return check_ransac_points(device, normalized(cam, tracks["uv0"]),
                                normalized(cam, tracks["uv1"]), valid, thresh,
                                g)
@@ -2262,8 +2282,9 @@ def check_window_cost(device, x0, meas, layout, cfg, deltas: dict,
             c0 = (ck, cp)
         else:
             decided[name] = dict(kernel=bool(ck < c0[0]), plain=bool(cp < c0[1]))
-    # bytes: the feature table, the packed rows and the prior in, the cost
-    # out; operations, in the function's f32 (the kernel's own f64 is its
+    # bytes: the feature table (and camera 2's rays and extrinsic), the
+    # packed rows and the prior in, the cost out; operations, in the
+    # function's f32 (the kernel's own f64 is its
     # choice, not the work): each live observation's and instance's
     # residual once, the prior's sqrt_J·dx
     ft = meas.feats
@@ -2278,6 +2299,10 @@ def check_window_cost(device, x0, meas, layout, cfg, deltas: dict,
                   meas.prior.sqrt_J, meas.prior.r0, x0.p, x0.q, x0.v, x0.rho)
           + ft.anchor.numel() * 4 + layout.dim * 4 + 4
           + (_nbytes(*meas.gnss) if cfg.use_gnss else 0))
+    if cfg.use_stereo:   # a stereo observation's pair, as a projection's
+        nb += _nbytes(meas.stereo_ray, meas.stereo_valid, x0.tic2, x0.qic2)
+        flops += PROJ_OBS_FLOPS * int(
+            (meas.stereo_valid * ft.track_valid[:, None]).sum())
     d = deltas["zero"]
     out = dict(max_abs_err=max(abs(p["cost"] - p["plain"]) for p in per.values()),
                at=per, decisions=decided, repeat_equal=same,
@@ -2473,6 +2498,15 @@ def check_window_tests(device, fw, x, s, stationary, interval, k: int) -> dict:
     ak, sk = fwm.presolve_tests(*pre)
     ak2, sk2 = fwm.presolve_tests(*pre)
     ap, sp = fwm.presolve_tests_plain(*pre)
+    # the folded flags: U's bytes against torch's `out > 0.5` of its floats
+    flags_equal = True
+    if fw.ray.is_cuda:
+        _, o1, f1 = fwm._window_tests(1, fw, x, s.outlier_px, s.focal,
+                                      s.min_parallax, s.min_tracked,
+                                      stationary)
+        o0, f0 = fwm._window_tests(0, fw, interval=interval, k=k, statics=s)
+        flags_equal = (bool(torch.equal(f1, (o1[2:3] > 0.5)))
+                       and bool(torch.equal(f0, o0[2:4] > 0.5)))
     same = (all(bool(torch.equal(a, b)) for a, b in zip((tk, kk, pk), again))
             and bool(torch.equal(ak, ak2) and torch.equal(sk, sk2)))
     near = ((_mean_errors(fw, x, s.focal) - s.outlier_px).abs()
@@ -2493,9 +2527,11 @@ def check_window_tests(device, fw, x, s, stationary, interval, k: int) -> dict:
     out = dict(max_abs_err=float((pk - pp).abs()), keep_equal_off_band=keep_ok,
                keep_near_band=int(near.sum()), is_kf_ok=kf_ok,
                presolve_flags_equal=pre_ok, repeat_equal=same,
+               folded_flags_equal=flags_equal,
                is_kf=bool(kk), stationary=bool(sk), anomaly=bool(ak),
                dropped=int((fw.track_valid - tk).sum()),
-               ok=same and keep_ok and kf_ok and pre_ok, library_ms=None,
+               ok=same and keep_ok and kf_ok and pre_ok and flags_equal,
+               library_ms=None,
                **bound(nb_post, n_obs * PROJ_OBS_FLOPS + 8 * F))
     out["presolve"] = dict(**bound(nb_pre, 8 * F + 12 * (M + 1)),
                            ms=time_ms(lambda: fwm.presolve_tests(*pre)),
@@ -3915,9 +3951,9 @@ def check_lm_glue(device, fv, timed: bool = True) -> dict:
         lambda: _pack_fields(lg.pack(xc, mc, layout, cfg, flags)),
         lambda: _pack_fields(lg.pack_plain(xc, mc, layout, cfg, flags)))
     pk = lg.pack(x, meas, layout, cfg, flags)
-    gen = torch.Generator(device="cpu").manual_seed(18)
-    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen)
-                                 * scale).to(dev)
+    gen = np.random.default_rng(18)
+    rnd = lambda *s, scale=1.0: (torch.as_tensor(
+        gen.standard_normal(s, dtype=np.float32)) * scale).to(dev)
     D = layout.dim
     delta = rnd(D, scale=0.01) * pk.free
 
@@ -3994,7 +4030,8 @@ def check_lm_glue(device, fv, timed: bool = True) -> dict:
 
 def check_tick_glue(device, fv, timed: bool = True) -> dict:
     """Kernel AO's modes against their plain routes on ``fv``'s final
-    window: track on the carry's tracks and a frame's 64 × F draws; pre
+    window: unpack on a packed 640 × 480 frame (and an odd-sized one);
+    track on the carry's tracks and a frame's 64 × F draws; pre
     with the new column last and in the middle; post with and
     without an anomaly, at the window's speeds, at rest and fast (the GNSS
     gate both ways), at the last column and a middle one. Every output
@@ -4004,8 +4041,8 @@ def check_tick_glue(device, fv, timed: bool = True) -> dict:
     c, layout = fv.carry, fv.layout
     st, F, W = c.state, layout.F, layout.W
     dev = st.p.device
-    gen = torch.Generator(device="cpu").manual_seed(18)
-    bits = lambda n: (torch.rand(n, generator=gen) < 0.5).to(dev)
+    gen = np.random.default_rng(18)
+    bits = lambda n: torch.as_tensor(gen.random(n) < 0.5).to(dev)
     obs = FrameObs(ray=torch.zeros((F, 2), device=dev),
                    vel=torch.zeros((F, 2), device=dev),
                    depth=torch.zeros((F,), device=dev),
@@ -4030,11 +4067,26 @@ def check_tick_glue(device, fv, timed: bool = True) -> dict:
                 v.contiguous(), gnss_on, col, fv.cfg.gnss_low_speed)
         runs[name] = (lambda args=args: tg.post(*args),
                       lambda args=args: tg.post_plain(*args))
-    from .frontend.ransac import uniform_draws
-    u = uniform_draws(12, 64, F, dev)
+    from .core import prng
+    u, _ = prng.tick_uniforms(torch.full((), 12, dtype=torch.int32,
+                                         device=dev), 64, F)
     tracked = bits(F).float()
     runs["track"] = (lambda: tg.track(c.tracker.alive, tracked, u),
                      lambda: tg.track_plain(c.tracker.alive, tracked, u))
+    # the upload's conversions: a seeded 640 × 480 image and 320 × 240
+    # depth packed as the tick packs them, and an odd-sized image (its
+    # depth's bytes off a 2-byte boundary)
+    rng = np.random.default_rng(18)
+    for name, (h, w) in (("unpack", (480, 640)), ("unpack (odd)", (31, 17))):
+        img = rng.integers(0, 256, h * w, dtype=np.uint8)
+        dep = rng.uniform(0.0, 20.0, (h // 2) * (w // 2)).astype(np.float16)
+        dep[:6] = [0.0, np.inf, -0.0, 6e-8, 1e-5, 65504.0]
+        buf = torch.as_tensor(np.concatenate([img, dep.view(np.uint8)]),
+                              device=dev)
+        runs[name] = (lambda buf=buf, n=img.size, m=dep.size:
+                      tg.unpack(buf, n, m),
+                      lambda buf=buf, n=img.size, m=dep.size:
+                      tg.unpack_plain(buf, n, m))
     modes = {n: _glue_case(k, p) for n, (k, p) in runs.items()}
     gates = {n: float(tg.post(*a)[3]) for n, a in (
         ("at rest", (c.wheel_valid, b(False), b(True), done, c.rho_init,
@@ -4048,14 +4100,17 @@ def check_tick_glue(device, fv, timed: bool = True) -> dict:
                and gates == {"at rest": 0.0, "fast": 1.0},
                max_abs_err=max(m["max_abs_err"] for m in modes.values()),
                library_ms=None, library_device_ms=None, tol="torch.equal")
+    n_img, n_dep = 480 * 640, 240 * 320
     nbytes = {"track": 4 * (3 * F + 2 * 64 * F),
               f"pre (col {W - 1})": 4 * (6 * F + 20 * W + 10),
-              "post": 4 * (2 * F + 5 * W + 2) + F + 2}
+              "post": 4 * (2 * F + 5 * W + 2) + F + 2,
+              "unpack": n_img + 2 * n_dep + 4 * (n_img + n_dep)}
     flops = {"track": F + 4 * 64 * F, f"pre (col {W - 1})": F,
-             "post": F + 10 * W}
+             "post": F + 10 * W, "unpack": n_img}
     runs = {n: runs[n] for n in nbytes}
     return _glue_timed(res, runs, nbytes, flops,
-                       {"track": 1, f"pre (col {W - 1})": 1, "post": 1}, timed)
+                       {"track": 1, f"pre (col {W - 1})": 1, "post": 1,
+                        "unpack": 1}, timed)
 
 
 def check_device_slide(device, fv, timed: bool = True) -> dict:
@@ -4400,3 +4455,132 @@ def check_calib(device, prob, deltas: dict, timed: bool = True) -> dict:
                    library_part_device_ms=device_ms(lambda: J.T @ J).ms,
                    library_part="torch.matmul(J.T, J), J [M, D] dense")
     return res
+
+
+# ------------------------------------------------------ kernel AQ: the draws
+# integer operations a threefry2x32 (20 rounds of an add, a rotate, a xor;
+# 6 key injections) and the uniform and logs after it
+THREEFRY_OPS = 20 * 3 + 6 * 3
+UNIFORM_OPS = 5
+GUMBEL_OPS = 2 * 20     # two logf, ~20 operations each
+
+
+def check_threefry(device, hypotheses: int = 64, n: int = 150,
+                   loop_k: int = 128, seed: int = 12,
+                   loop_seed: int = 3 * 7919 + 40, timed: bool = True) -> dict:
+    """Kernel AQ against its plain route (``core/prng.py``), every output
+    ``torch.equal``: the camera tick's [hypotheses, n] uniforms keyed by a
+    device word (and the next word; the word alone, a tick without RANSAC),
+    a seed's Gumbel noise, the loop
+    geometry's split keys and their [loop_k, n] noise; twice the same bits;
+    and the answers jax 0.9.0 gives (``JAX_PRNG_ANSWERS``). Library: one
+    ``torch.rand`` of the tick's shape on a seeded generator (the draw the
+    port made before this kernel; Philox, not JAX's stream)."""
+    from .core import prng
+    word = torch.full((), seed, dtype=torch.int32, device=device)
+    tick = lambda: prng.tick_uniforms(word, hypotheses, n)
+    runs = dict(
+        tick=(tick, lambda: prng.tick_uniforms_plain(word, hypotheses, n)),
+        word=(lambda: prng.tick_uniforms(word, 0, n),
+              lambda: prng.tick_uniforms_plain(word, 0, n)),
+        gumbel=(lambda: prng.gumbel_noise(seed, hypotheses, n, device),
+                lambda: prng.gumbel_noise_plain(seed, hypotheses, n, device)),
+        split=(lambda: prng.split_gumbel(loop_seed, loop_k, n, device),
+               lambda: prng.split_gumbel_plain(loop_seed, loop_k, n, device)))
+    modes = {k: _glue_case(a, b) for k, (a, b) in runs.items()}
+    ans = JAX_PRNG_ANSWERS
+    u5, _ = prng.tick_uniforms(torch.full((), 5, dtype=torch.int32,
+                                          device=device), 64, 150)
+    keys, _ = prng.split_gumbel(15841, 3, n, device)
+    bits = prng.random_bits(prng.key(5, device), (64, 150))
+    jax_equal = dict(
+        uniforms=[float(v).hex() for v in u5[0, :3].cpu()]
+        == [float.fromhex(h).hex() for h in ans["uniform_5_first"]],
+        split=keys.cpu().tolist() == ans["split_15841"],
+        bits=bits[0, :3].cpu().tolist() == ans["bits_5_first"]
+        and int(bits[63, 149]) == ans["bits_5_last"])
+    ok = all(m["ok"] for m in modes.values()) and all(jax_equal.values())
+    words = hypotheses * n
+    nb = 4 * words + 4 + 4
+    flops = words * (THREEFRY_OPS + UNIFORM_OPS)
+    out = dict(modes=modes, jax_answers_equal=jax_equal, ok=ok,
+               max_abs_err=max(m["max_abs_err"] for m in modes.values()),
+               tol="torch.equal", words=words, **bound(nb, flops))
+    out["split_bound"] = bound(4 * loop_k * (n + 2),
+                               loop_k * n * (2 * THREEFRY_OPS + UNIFORM_OPS
+                                             + GUMBEL_OPS))
+    if not timed:
+        out.update(library_ms=None, library_device_ms=None)
+        return out
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rand = lambda: torch.rand((hypotheses, n), generator=gen, device=device)
+    out.update(ms=time_ms(tick), plain_ms=time_ms(runs["tick"][1], reps=5),
+               library_ms=time_ms(rand), **device_pair(tick, rand))
+    split = runs["split"][0]
+    out["split_timing"] = dict(ms=time_ms(split),
+                               plain_ms=time_ms(runs["split"][1], reps=5),
+                               **device_pair(split))
+    return out
+
+
+# -------------------------------------------------- the stereo window (C, S)
+STEREO_BASELINE = 0.05   # m, tests/test_window_ba.py's second camera
+
+
+def stereo_window(F: int, device, seed: int = 0,
+                  baseline: float = STEREO_BASELINE) -> dict:
+    """:func:`example_window`'s window with a second camera ``baseline``
+    metres along the first's x axis (tests/test_window_ba.py's rig): its
+    rays (seeded noise of 0.5 px at 460 px) and mask (in front of it by
+    0.3 m, a seeded tenth dropped) built by numpy from the same landmarks
+    and true poses, the state's tic2 / qic2, and a scene to solve from:
+    frame 0 at the truth, td 0, the measurements' prior empty. Returns
+    dict(x0, feats, layout, delta, stereo (ray2, valid2), meas, p_true)."""
+    from .solver.marginalize import MargPrior
+    x0, feats, layout, delta = example_window(F, device, seed)
+    rng = np.random.default_rng(seed)          # example_window's draws
+    W = NUM_FRAMES
+    traj, idx, _ = _example_traj()
+    lms = sim.make_landmarks(traj, n=max(4 * F, 256), seed=seed)
+    cam = sim.CameraSim()
+    ok = np.stack([cam.observe(traj.p[i], traj.q[i], lms.pts)[2] for i in idx])
+    good = np.where(ok.sum(0) >= 4)[0]
+    rng.shuffle(good)
+    chosen = good[:F]
+    tic2 = cam.tic + cam.ric @ np.array([baseline, 0.0, 0.0])
+    r2 = np.random.default_rng(seed + 2)
+    ray2 = np.zeros((F, W, 2), np.float32)
+    valid2 = np.zeros((F, W), np.float32)
+    ov = feats.obs_valid.cpu().numpy()
+    for s, li in enumerate(chosen):
+        for k, i in enumerate(idx):
+            if not ov[s, k]:
+                continue
+            R_wb = sim._quat_to_mat(traj.q[i])
+            p_c2 = cam.ric.T @ (R_wb.T @ (lms.pts[li] - traj.p[i]) - tic2)
+            if p_c2[2] > 0.3:
+                ray2[s, k] = p_c2[:2] / p_c2[2] + r2.normal(scale=0.5 / 460, size=2)
+                valid2[s, k] = 1.0
+    valid2 *= r2.uniform(size=valid2.shape) > 0.1
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    p_true = t(traj.p[idx])
+    q_true = t(traj.q[idx])
+    p0, q0 = x0.p.clone(), x0.q.clone()
+    p0[0], q0[0] = p_true[0], q_true[0]
+    x0 = x0._replace(p=p0, q=q0, td=torch.zeros((), device=device),
+                     tic2=t(tic2), qic2=x0.qic.clone())
+    meas = example_measurements(x0, feats, layout, device, seed)
+    stereo = (t(ray2), t(valid2))
+    meas = meas._replace(prior=MargPrior.empty(layout.frame_dim, device),
+                         prior_state=x0, stereo_ray=stereo[0],
+                         stereo_valid=stereo[1])
+    return dict(x0=x0, feats=feats, layout=layout, delta=delta,
+                stereo=stereo, meas=meas, p_true=p_true)
+
+
+def stereo_config(F: int):
+    """The stereo window's solve configuration: M3DGR's VIO factors with
+    the second camera's rows on."""
+    from .config import m3dgr_camera
+    return m3dgr_camera().estimator.vio._replace(num_feats=F, use_stereo=True)

@@ -73,7 +73,8 @@ def to_torch(tree, device):
             prev_norm=_leaf_to_torch(tree.prev_norm, device),
             prev_pyr=[_leaf_to_torch(p, device) for p in tree.prev_pyr],
             prev_t=_leaf_to_torch(tree.prev_t, device),
-            frame_idx=int(np.asarray(tree.frame_idx)))
+            frame_idx=_leaf_to_torch(
+                np.asarray(tree.frame_idx, np.int32).reshape(()), device))
     if name == "LioCarry":
         return LioCarry(eskf=to_torch(tree.eskf, device),
                         vmap=to_torch(tree.vmap, device),

@@ -10,8 +10,7 @@
 //
 // Three block roles in one grid:
 //   blocks [0, B)      IMU preintegration of interval b: dp, dq, dv, the
-//                      15×15 covariance and Jacobian, and the row dt·mask
-//                      (summed into sum_dt by the wrapper);
+//                      15×15 covariance and Jacobian, and sum_dt;
 //   blocks [B, 2B)     wheel preintegration of interval b: dp, dq, the 6×6
 //                      covariance, the 6×3 intrinsic Jacobian and the
 //                      wheel-frame gyro's first and last samples;
@@ -40,10 +39,14 @@
 // The wrapper's glue is folded in: the wheel-frame gyro gyr·R(qio) (a K = 3
 // product summed as cuBLAS sums it: a product, then two FMAs), the wheel's
 // end samples (the int64 mask count) and the propagation's state read
-// through its own pointers. sum_dt stays torch's: the IMU blocks write the
-// products dt·mask (one rounding each, as torch's multiply) and the
-// wrapper sums those rows with torch's (dt * mask).sum(-1) reduce, whose
-// order belongs to torch, so a call with intervals is two launches.
+// through its own pointers. sum_dt is torch's (dt * mask).sum(-1): the
+// products dt·mask round once each, as torch's multiply, and the IMU
+// block's first warp sums them in the order torch's CUDA reduce takes a
+// [B, 128] row (tools/probe_torch_orders.py: lane l adds its float4
+// ((h₄ₗ + h₄ₗ₊₁) + h₄ₗ₊₂) + h₄ₗ₊₃, then the lanes by xor shuffles at
+// offsets 16, 8, 4, 2, 1), so a call is one launch. That order is the one
+// of the camera tick's kSumSlots = 128 slots an interval, the only slot
+// count the intervals take (the propagation alone takes any).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -188,6 +191,7 @@ __device__ __forceinline__ void copy(float* d, const float* s, int n) {
 
 constexpr int kThreads = 256;
 constexpr int kTile = 32;      // samples a tile
+constexpr int kSumSlots = 128; // an interval's slots: a warp's float4 each
 
 struct Noise {
   float imu[18];
@@ -202,10 +206,9 @@ struct Slots {
 };
 
 // the list of samples with dt·mask != 0 (NaN included, as the parent's
-// `h == 0.f` test keeps it); returns their count. Each dt·mask also goes
-// to h_out when it is given.
+// `h == 0.f` test keeps it); returns their count.
 __device__ int valid_samples(const float* dt, const float* mask, int M,
-                             const Slots& sl, float* h_out = nullptr) {
+                             const Slots& sl) {
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   int n = 0;
   for (int base = 0; base < M; base += kThreads) {
@@ -214,7 +217,6 @@ __device__ int valid_samples(const float* dt, const float* mask, int M,
     if (k < M) {
       h = MUL(dt[k], mask[k]);
       sl.h[k] = h;
-      if (h_out) h_out[k] = h;
     }
     const bool v = k < M && !(h == 0.f);
     const unsigned bal = __ballot_sync(0xffffffffu, v);
@@ -286,17 +288,30 @@ __device__ __forceinline__ void imu_fv(ImuTile& s, int t, float h,
   }
 }
 
+// torch's sum of a [B, kSumSlots] row of dt·mask (sl.h) on the card: each
+// lane's float4 in slot order, then the lanes' xor tree; written by lane 0
+__device__ __forceinline__ void torch_row_sum128(const Slots& sl, float* out) {
+  const int lane = threadIdx.x & 31;
+  float v = ADD(ADD(ADD(sl.h[4 * lane], sl.h[4 * lane + 1]), sl.h[4 * lane + 2]),
+                sl.h[4 * lane + 3]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    v = ADD(v, __shfl_xor_sync(0xffffffffu, v, off));
+  if (lane == 0) out[0] = v;
+}
+
 __device__ void imu_block(const float* acc, const float* gyr, const float* dt,
                           const float* mask, const float* ba, const float* bg,
-                          int M, const Noise& noise, float* out, float* h_out,
-                          const Slots& sl, ImuTile& s) {
+                          int M, const Noise& noise, float* out,
+                          float* sum_out, const Slots& sl, ImuTile& s) {
   const int t = threadIdx.x;
   const int r = t / 15, c = t % 15;
   GF2_STAMP(t == 0, blockIdx.x, kStEntry);
   float qd[18];
 #pragma unroll
   for (int k2 = 0; k2 < 18; ++k2) qd[k2] = noise.imu[k2];
-  const int n = valid_samples(dt, mask, M, sl, h_out);
+  const int n = valid_samples(dt, mask, M, sl);
+  if (t < 32) torch_row_sum128(sl, sum_out);
   if (t < 225) {
     s.cov[t] = 0.f;
     s.J[t] = (r == c) ? 1.f : 0.f;
@@ -718,7 +733,7 @@ __global__ void __launch_bounds__(kThreads) preint_kernel(
     const float* __restrict__ siy, const float* __restrict__ siw,
     const float* __restrict__ qio, int B, int M, Noise noise, Prop prop,
     int prop_k, float* __restrict__ imu_out, float* __restrict__ whl_out,
-    float* __restrict__ h_out, float* __restrict__ prop_out) {
+    float* __restrict__ sum_out, float* __restrict__ prop_out) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   Slots sl;
@@ -730,7 +745,7 @@ __global__ void __launch_bounds__(kThreads) preint_kernel(
   const int S = 3 * (M + 1);
   if (b < B) {
     imu_block(acc + b * S, gyr + b * S, dt + b * M, mask + b * M, ba + 3 * b,
-              bg + 3 * b, M, noise, imu_out + 460 * b, h_out + b * M, sl,
+              bg + 3 * b, M, noise, imu_out + 460 * b, sum_out + b, sl,
               *reinterpret_cast<ImuTile*>(role));
   } else if (b < 2 * B) {
     const int i = b - B;
@@ -756,8 +771,8 @@ GF2_STAGE_NAMES("entry,slots,samples,chain,terms,cov,out")
 // g3), each through its own pointer. The noise variances come squared (in
 // double on the host, then rounded), as the plain versions build them.
 // Outputs: imu_out [B, 460] (dp dq dv cov jac), whl_out [B, 70] (dp dq cov
-// jac_ix gyr_begin vel_end gyr_end), h_out [B, M] (dt·mask), prop_out [10]
-// (p q v).
+// jac_ix gyr_begin vel_end gyr_end), sum_out [B] (sum_dt; B > 0 takes
+// M = kSumSlots), prop_out [10] (p q v).
 extern "C" int gf2_preint(
     const float* acc, const float* gyr, const float* wvel, const float* dt,
     const float* mask, const float* ba, const float* bg, const float* six,
@@ -765,7 +780,7 @@ extern "C" int gf2_preint(
     float acc_n2, float gyr_n2, float acc_w2, float gyr_w2, float vel_n2,
     float wgyr_n2, const float* pp, const float* pq, const float* pv,
     const float* pba, const float* pbg, const float* pg, int prop_k,
-    float* imu_out, float* whl_out, float* h_out, float* prop_out,
+    float* imu_out, float* whl_out, float* sum_out, float* prop_out,
     void* stream) {
   Noise nz;
   for (int i = 0; i < 3; ++i) {
@@ -774,7 +789,7 @@ extern "C" int gf2_preint(
     nz.whl[i] = vel_n2; nz.whl[3 + i] = wgyr_n2; nz.whl[6 + i] = vel_n2;
     nz.whl[9 + i] = wgyr_n2;
   }
-  if (M < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || (B > 0 && M != kSumSlots)) return (int)cudaErrorInvalidValue;
   Prop prop{pp, pq, pv, pba, pbg, pg};
   const int grid = 2 * B + (prop_k >= 0 ? 1 : 0);
   if (grid == 0) return 0;
@@ -789,6 +804,6 @@ extern "C" int gf2_preint(
   }
   preint_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, qio, B, M, nz, prop,
-      prop_k, imu_out, whl_out, h_out, prop_out);
+      prop_k, imu_out, whl_out, sum_out, prop_out);
   return (int)cudaGetLastError();
 }

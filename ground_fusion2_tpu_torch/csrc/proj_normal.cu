@@ -36,6 +36,16 @@
 // calls on the same inputs give the same bits, and H is symmetric bit for
 // bit.
 //
+// With the stereo rows (factors/vio_factors.py:247, the second camera's
+// 2F2C / 1F2C residuals, `gf2_proj_normal_stereo`) warp j also evaluates
+// observation (f, j) in camera 2 (lanes 0-25: the projection's columns and
+// camera 2's extrinsic 20-25; the anchor's own frame included, its pose
+// taking both roles' tangent on columns 0-5), and the feature's block grows
+// by camera 2's 6 columns: L = 6W + 14, 20 shared columns. Each entry then
+// sums, frame by frame, the projection's term and the second camera's. The
+// mono launch is the same code (the template's other instance) and the
+// same sums in the same order.
+//
 // Bounds on the card: F·W = 1650 observations of ~20×300 flops each, ~10
 // MFLOP; the feature blocks (150 × 74² f32, 3.3 MB) stay in L2. What is
 // left is one observation's dependent dual chain and the index-order sum.
@@ -50,14 +60,28 @@ namespace {
 
 using namespace gf2;
 
-constexpr int kCols = 20;
 constexpr int kMaxW = 32;        // frames (warps) a feature CTA
-constexpr int kMaxL = 6 * kMaxW + 8;
-constexpr int kShared = 14;      // the columns every observation touches
 constexpr int kReduceThreads = 64;  // small blocks: the sums spread over SMs
 constexpr int kBatch = 50;          // loads in flight a summing thread
 constexpr int kFillBlocks = 512;    // the other entries, grid-stride
 
+// the columns an observation's lanes differentiate, the columns every
+// observation of a feature shares, and camera 2's compact columns
+template <bool kStereo>
+struct Cols {
+  static constexpr int kCols = kStereo ? 26 : 20;
+  static constexpr int kShared = kStereo ? 20 : 14;
+  static constexpr int kExtra = kStereo ? 6 : 0;
+  static constexpr int kMaxL = 6 * kMaxW + 8 + kExtra;
+};
+
+// the second camera's inputs (null in the mono instance)
+struct Stereo {
+  const float *tic2, *qic2, *ray2, *valid2;
+  int cam2_off;
+};
+
+template <bool kStereo>
 __global__ void proj_feature_kernel(
     const float* __restrict__ P, const float* __restrict__ Q,
     const float* __restrict__ tic0, const float* __restrict__ qic0,
@@ -65,14 +89,20 @@ __global__ void proj_feature_kernel(
     const float* __restrict__ delta, const float* __restrict__ ray,
     const float* __restrict__ vel, const float* __restrict__ obs_valid,
     const long long* __restrict__ anchor, const float* __restrict__ track_valid,
-    int F, int W, int pose_off, int cam_off, int td_off, int rho_off,
-    float sqrt_info, float huber_delta, float min_depth,
+    Stereo st, int F, int W, int pose_off, int cam_off, int td_off,
+    int rho_off, float sqrt_info, float huber_delta, float min_depth,
     float* __restrict__ part_H, float* __restrict__ part_g,
     float* __restrict__ part_c, gf2b::Branch br) {
+  using C = Cols<kStereo>;
+  constexpr int kCols = C::kCols, kShared = C::kShared, kMaxL = C::kMaxL;
   if (gf2b::off_branch(br)) return;
   __shared__ float sjx[kMaxW][kCols], sjy[kMaxW][kCols];
   __shared__ float sr[kMaxW][2], sw2[kMaxW];
   __shared__ int sok[kMaxW];
+  // the second camera's rows (kStereo)
+  __shared__ float s2x[kStereo ? kMaxW : 1][kCols], s2y[kStereo ? kMaxW : 1][kCols];
+  __shared__ float s2r[kStereo ? kMaxW : 1][2], s2w2[kStereo ? kMaxW : 1];
+  __shared__ int s2ok[kStereo ? kMaxW : 1];
   const int f = blockIdx.x;
   const int j = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int a = (int)anchor[f];
@@ -100,31 +130,76 @@ __global__ void proj_feature_kernel(
       sw2[j] = w * w;
       sok[j] = ok;
     }
+    if constexpr (kStereo) {  // observation (f, j) in camera 2
+      const float v2 = st.valid2[f * W + j];
+      bool ok2 = tv != 0.f && v2 != 0.f;
+      Dual qx = {0.f, 0.f}, qy = {0.f, 0.f};
+      if (ok2) {
+        const int k = lane < kCols ? lane : -1;
+        const float z = stereo_residual<Dual>(
+            f, a, j, k, W, P, Q, tic0, qic0, st.tic2, st.qic2, rho0, delta,
+            ray, st.ray2, pose_off, cam_off, st.cam2_off, rho_off, sqrt_info,
+            min_depth, &qx, &qy);
+        ok2 = z > min_depth;
+      }
+      if (lane < kCols) {
+        s2x[j][lane] = ok2 ? qx.d : 0.f;
+        s2y[j][lane] = ok2 ? qy.d : 0.f;
+      }
+      if (lane == 0) {
+        const float w = ok2 ? v2 * tv * huber(qx.v, qy.v, huber_delta) : 0.f;
+        s2r[j][0] = qx.v;
+        s2r[j][1] = qy.v;
+        s2w2[j] = w * w;
+        s2ok[j] = ok2;
+      }
+    }
   }
   __syncthreads();
   // each compact column's local column: a frame's own pose (6-11, in that
-  // frame's observation alone), or one of the 14 every observation shares
-  // (anchor pose 0-5, extrinsic 12-17, td 18, rho 19) and its index there
+  // frame's observation alone), or one of those every observation shares
+  // (anchor pose 0-5, extrinsic 12-17, td 18, rho 19, camera 2's extrinsic
+  // 20-25) and its index there
   __shared__ signed char s_loc[kMaxL], s_frame[kMaxL], s_idx[kMaxL];
   __shared__ float s_aa[kShared][kShared];
-  const int L = 6 * W + 8;
+  const int L = 6 * W + 8 + C::kExtra;
   for (int c = threadIdx.x; c < L; c += blockDim.x) {
     const int m = c / 6;
     const bool own = c < 6 * W && m != a;
     s_frame[c] = own ? m : -1;
-    s_loc[c] = c >= 6 * W ? 12 + (c - 6 * W) : (own ? 6 : 0) + (c - 6 * m);
-    s_idx[c] = c >= 6 * W ? 6 + (c - 6 * W) : (own ? -1 : c - 6 * a);
+    if (c < 6 * W) {
+      s_loc[c] = (own ? 6 : 0) + (c - 6 * m);
+      s_idx[c] = own ? -1 : c - 6 * a;
+    } else if (c == L - 1) {                  // rho
+      s_loc[c] = 19;
+      s_idx[c] = 13;
+    } else if (c < 6 * W + 7) {               // extrinsic, td
+      s_loc[c] = 12 + (c - 6 * W);
+      s_idx[c] = 6 + (c - 6 * W);
+    } else {                                  // camera 2's extrinsic
+      s_loc[c] = 20 + (c - 6 * W - 7);
+      s_idx[c] = 14 + (c - 6 * W - 7);
+    }
   }
-  // the shared columns' block: every observation, in frame order
+  // the shared columns' block: every observation, in frame order (the
+  // projection's term, then camera 2's)
   for (int q = threadIdx.x; q < kShared * kShared; q += blockDim.x) {
     const int ia = q / kShared, ib = q % kShared;
     const int ka = ia < 6 ? ia : ia + 6, kb = ib < 6 ? ib : ib + 6;
     float acc = 0.f;
     for (int jj = 0; jj < W; ++jj) {
-      if (!sok[jj]) continue;
-      const float t = __fmaf_rn(sjx[jj][ka], sjx[jj][kb],
-                                __fmul_rn(sjy[jj][ka], sjy[jj][kb]));
-      acc = __fmaf_rn(sw2[jj], t, acc);
+      if (sok[jj]) {
+        const float t = __fmaf_rn(sjx[jj][ka], sjx[jj][kb],
+                                  __fmul_rn(sjy[jj][ka], sjy[jj][kb]));
+        acc = __fmaf_rn(sw2[jj], t, acc);
+      }
+      if constexpr (kStereo) {
+        if (s2ok[jj]) {
+          const float t = __fmaf_rn(s2x[jj][ka], s2x[jj][kb],
+                                    __fmul_rn(s2y[jj][ka], s2y[jj][kb]));
+          acc = __fmaf_rn(s2w2[jj], t, acc);
+        }
+      }
     }
     s_aa[ia][ib] = acc;
   }
@@ -147,6 +222,13 @@ __global__ void proj_feature_kernel(
                                     __fmul_rn(sjy[m][kr], sjy[m][kc]));
           v = __fmaf_rn(sw2[m], t, 0.f);
         }
+        if constexpr (kStereo) {
+          if ((fc < 0 || fc == m) && s2ok[m]) {
+            const float t = __fmaf_rn(s2x[m][kr], s2x[m][kc],
+                                      __fmul_rn(s2y[m][kr], s2y[m][kc]));
+            v = __fmaf_rn(s2w2[m], t, v);
+          }
+        }
       }
       oH[r * L + c] = v;
     }
@@ -155,56 +237,79 @@ __global__ void proj_feature_kernel(
     const int fr = s_frame[r], kr = s_loc[r];
     float acc = 0.f;
     for (int jj = fr < 0 ? 0 : fr; jj < (fr < 0 ? W : fr + 1); ++jj) {
-      if (!sok[jj]) continue;
-      const float t = __fmaf_rn(sjx[jj][kr], sr[jj][0],
-                                __fmul_rn(sjy[jj][kr], sr[jj][1]));
-      acc = __fmaf_rn(sw2[jj], t, acc);
+      if (sok[jj]) {
+        const float t = __fmaf_rn(sjx[jj][kr], sr[jj][0],
+                                  __fmul_rn(sjy[jj][kr], sr[jj][1]));
+        acc = __fmaf_rn(sw2[jj], t, acc);
+      }
+      if constexpr (kStereo) {
+        if (s2ok[jj]) {
+          const float t = __fmaf_rn(s2x[jj][kr], s2r[jj][0],
+                                    __fmul_rn(s2y[jj][kr], s2r[jj][1]));
+          acc = __fmaf_rn(s2w2[jj], t, acc);
+        }
+      }
     }
     part_g[(size_t)f * L + r] = acc;
   }
   if (threadIdx.x == 0) {
     float acc = 0.f;
     for (int jj = 0; jj < W; ++jj) {
-      if (!sok[jj]) continue;
-      const float s = __fmaf_rn(sr[jj][0], sr[jj][0],
-                                __fmul_rn(sr[jj][1], sr[jj][1]));
-      acc = __fmaf_rn(__fmul_rn(0.5f, sw2[jj]), s, acc);
+      if (sok[jj]) {
+        const float s = __fmaf_rn(sr[jj][0], sr[jj][0],
+                                  __fmul_rn(sr[jj][1], sr[jj][1]));
+        acc = __fmaf_rn(__fmul_rn(0.5f, sw2[jj]), s, acc);
+      }
+      if constexpr (kStereo) {
+        if (s2ok[jj]) {
+          const float s = __fmaf_rn(s2r[jj][0], s2r[jj][0],
+                                    __fmul_rn(s2r[jj][1], s2r[jj][1]));
+          acc = __fmaf_rn(__fmul_rn(0.5f, s2w2[jj]), s, acc);
+        }
+      }
     }
     part_c[f] = acc;
   }
 }
 
 // compact column of dense column i: the shared columns (poses, extrinsic,
-// td) 0..L-2, a landmark -(f + 2), or -1 (a column C does not touch)
+// td, camera 2's extrinsic) 0..L-2, a landmark -(f + 2), or -1 (a column C
+// does not touch)
+template <int kExtra>
 __device__ __forceinline__ int compact_col(int i, int W, int pose_off,
                                            int cam_off, int td_off, int rho_off,
-                                           int F) {
+                                           int cam2_off, int F) {
   if (i >= pose_off && i < pose_off + 6 * W) return i - pose_off;
   if (i >= cam_off && i < cam_off + 6) return 6 * W + (i - cam_off);
   if (i == td_off) return 6 * W + 6;
+  if (kExtra && i >= cam2_off && i < cam2_off + kExtra)
+    return 6 * W + 7 + (i - cam2_off);
   if (i >= rho_off && i < rho_off + F) return -(i - rho_off + 2);
   return -1;
 }
 
 __device__ __forceinline__ int dense_col(int c, int W, int pose_off, int cam_off,
-                                         int td_off) {
+                                         int td_off, int cam2_off) {
   if (c < 6 * W) return pose_off + c;
   if (c < 6 * W + 6) return cam_off + (c - 6 * W);
-  return td_off;
+  if (c == 6 * W + 6) return td_off;
+  return cam2_off + (c - 6 * W - 7);
 }
 
 // Pass 2. Blocks [0, n_sum): one thread a shared entry of H (S² of them,
 // S = L - 1), of g (S), and the cost, each the sum over the F feature
 // blocks in index order. Blocks after: every other entry of H and g.
+template <int kExtra>
 __global__ void proj_reduce_kernel(const float* __restrict__ part_H,
                                    const float* __restrict__ part_g,
                                    const float* __restrict__ part_c, int F,
                                    int W, int D, int pose_off, int cam_off,
-                                   int td_off, int rho_off, int n_sum,
-                                   float* __restrict__ H, float* __restrict__ g,
+                                   int td_off, int rho_off, int cam2_off,
+                                   int n_sum, float* __restrict__ H,
+                                   float* __restrict__ g,
                                    float* __restrict__ cost, gf2b::Branch br) {
   if (gf2b::off_branch(br)) return;
-  const int L = 6 * W + 8, S = L - 1;
+  const int L = 6 * W + 8 + kExtra, S = L - 1;
   if ((int)blockIdx.x < n_sum) {
     const int t = blockIdx.x * kReduceThreads + threadIdx.x;
     if (t > S * S + S) return;
@@ -231,10 +336,10 @@ __global__ void proj_reduce_kernel(const float* __restrict__ part_H,
         if (f0 + b < F) acc += v[b];
     }
     if (t < S * S) {
-      H[(size_t)dense_col(t / S, W, pose_off, cam_off, td_off) * D +
-        dense_col(t % S, W, pose_off, cam_off, td_off)] = acc;
+      H[(size_t)dense_col(t / S, W, pose_off, cam_off, td_off, cam2_off) * D +
+        dense_col(t % S, W, pose_off, cam_off, td_off, cam2_off)] = acc;
     } else if (t < S * S + S) {
-      g[dense_col(t - S * S, W, pose_off, cam_off, td_off)] = acc;
+      g[dense_col(t - S * S, W, pose_off, cam_off, td_off, cam2_off)] = acc;
     } else {
       cost[0] = acc;
     }
@@ -244,16 +349,19 @@ __global__ void proj_reduce_kernel(const float* __restrict__ part_H,
                     threadIdx.x;
        e < (long long)D * D + D; e += (long long)kFillBlocks * kReduceThreads) {
     if (e >= (long long)D * D) {        // g: a landmark's from its block
-      const int ci = compact_col((int)(e - (long long)D * D), W, pose_off,
-                                 cam_off, td_off, rho_off, F);
+      const int ci = compact_col<kExtra>((int)(e - (long long)D * D), W,
+                                         pose_off, cam_off, td_off, rho_off,
+                                         cam2_off, F);
       if (ci < 0)                       // shared entries: the sums above
         g[e - (long long)D * D] =
             ci == -1 ? 0.f : part_g[(size_t)(-ci - 2) * L + (L - 1)];
       continue;
     }
     const int i = (int)(e / D), k = (int)(e % D);
-    const int ci = compact_col(i, W, pose_off, cam_off, td_off, rho_off, F);
-    const int ck = compact_col(k, W, pose_off, cam_off, td_off, rho_off, F);
+    const int ci = compact_col<kExtra>(i, W, pose_off, cam_off, td_off, rho_off,
+                                       cam2_off, F);
+    const int ck = compact_col<kExtra>(k, W, pose_off, cam_off, td_off, rho_off,
+                                       cam2_off, F);
     if (ci >= 0 && ck >= 0) continue;   // a shared entry: the sums above
     float v = 0.f;
     if (ci <= -2 && ck >= 0) {          // landmark row, shared column
@@ -265,6 +373,34 @@ __global__ void proj_reduce_kernel(const float* __restrict__ part_H,
     }
     H[e] = v;
   }
+}
+
+template <bool kStereo>
+int launch(const float* p, const float* q, const float* tic, const float* qic,
+           const float* td, const float* rho, const float* delta,
+           const float* ray, const float* vel, const float* obs_valid,
+           const long long* anchor, const float* track_valid, Stereo st, int F,
+           int W, int D, int pose_off, int cam_off, int td_off, int rho_off,
+           float sqrt_info, float huber_delta, float min_depth, float* part,
+           float* H, float* g, float* cost, gf2b::Branch br, cudaStream_t s) {
+  constexpr int kExtra = Cols<kStereo>::kExtra;
+  if (W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
+  const int L = 6 * W + 8 + kExtra, S = L - 1;
+  float* part_H = part;
+  float* part_g = part + (size_t)F * L * L;
+  float* part_c = part_g + (size_t)F * L;
+  if (F > 0)
+    proj_feature_kernel<kStereo><<<F, 32 * W, 0, s>>>(
+        p, q, tic, qic, td, rho, delta, ray, vel, obs_valid, anchor,
+        track_valid, st, F, W, pose_off, cam_off, td_off, rho_off, sqrt_info,
+        huber_delta, min_depth, part_H, part_g, part_c, br);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int n_sum = (S * S + S + 1 + kReduceThreads - 1) / kReduceThreads;
+  proj_reduce_kernel<kExtra><<<n_sum + kFillBlocks, kReduceThreads, 0, s>>>(
+      part_H, part_g, part_c, F, W, D, pose_off, cam_off, td_off, rho_off,
+      st.cam2_off, n_sum, H, g, cost, br);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -280,23 +416,30 @@ extern "C" int gf2_proj_normal(
     int td_off, int rho_off, float sqrt_info, float huber_delta,
     float min_depth, float* part, float* H, float* g, float* cost,
     const uint8_t* branch, int want, void* stream) {
-  const gf2b::Branch br{branch, want};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
-  const int L = 6 * W + 8, S = L - 1;
-  float* part_H = part;
-  float* part_g = part + (size_t)F * L * L;
-  float* part_c = part_g + (size_t)F * L;
-  if (F > 0)
-    proj_feature_kernel<<<F, 32 * W, 0, s>>>(
-        p, q, tic, qic, td, rho, delta, ray, vel, obs_valid, anchor,
-        track_valid, F, W, pose_off, cam_off, td_off, rho_off, sqrt_info,
-        huber_delta, min_depth, part_H, part_g, part_c, br);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  const int n_sum = (S * S + S + 1 + kReduceThreads - 1) / kReduceThreads;
-  proj_reduce_kernel<<<n_sum + kFillBlocks, kReduceThreads, 0, s>>>(
-      part_H, part_g, part_c, F, W, D, pose_off, cam_off, td_off, rho_off,
-      n_sum, H, g, cost, br);
-  return (int)cudaGetLastError();
+  return launch<false>(p, q, tic, qic, td, rho, delta, ray, vel, obs_valid,
+                       anchor, track_valid, Stereo{nullptr, nullptr, nullptr,
+                                                   nullptr, 0},
+                       F, W, D, pose_off, cam_off, td_off, rho_off, sqrt_info,
+                       huber_delta, min_depth, part, H, g, cost,
+                       gf2b::Branch{branch, want}, (cudaStream_t)stream);
+}
+
+// The same with the second camera's rows: tic2 [3], qic2 [4] (the state's),
+// ray2 [F, W, 2], valid2 [F, W]; part holds F·(L² + L + 1) floats at
+// L = 6·W + 14.
+extern "C" int gf2_proj_normal_stereo(
+    const float* p, const float* q, const float* tic, const float* qic,
+    const float* td, const float* rho, const float* delta, const float* ray,
+    const float* vel, const float* obs_valid, const long long* anchor,
+    const float* track_valid, const float* tic2, const float* qic2,
+    const float* ray2, const float* valid2, int F, int W, int D, int pose_off,
+    int cam_off, int td_off, int rho_off, int cam2_off, float sqrt_info,
+    float huber_delta, float min_depth, float* part, float* H, float* g,
+    float* cost, const uint8_t* branch, int want, void* stream) {
+  return launch<true>(p, q, tic, qic, td, rho, delta, ray, vel, obs_valid,
+                      anchor, track_valid,
+                      Stereo{tic2, qic2, ray2, valid2, cam2_off}, F, W, D,
+                      pose_off, cam_off, td_off, rho_off, sqrt_info,
+                      huber_delta, min_depth, part, H, g, cost,
+                      gf2b::Branch{branch, want}, (cudaStream_t)stream);
 }

@@ -44,14 +44,14 @@ constexpr int kWarps = 2;      // matrices a CTA in entry 1
 constexpr int kDegThreads = 256;
 
 __global__ void __launch_bounds__(kWarps * 32)
-sqrt_info_kernel(const float* __restrict__ cov, int B, int n, int inverse,
-                 float* __restrict__ out) {
+sqrt_info_kernel(const float* __restrict__ cov, int B, int n, long long stride,
+                 int inverse, float* __restrict__ out) {
   __shared__ double Ls[kWarps][32 * LD];
   __shared__ double Xs[kWarps][32 * LD];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + w;
   if (b >= B) return;
-  warp_spd(cov + (size_t)b * n * n, n, inverse, Ls[w], Xs[w], lane,
+  warp_spd(cov + (size_t)b * stride, n, inverse, Ls[w], Xs[w], lane,
            out + (size_t)b * n * n);
 }
 
@@ -172,14 +172,16 @@ degeneracy_kernel(const float* __restrict__ normal, const float* __restrict__ w,
 
 }  // namespace
 
-// cov [B, n, n] f32, n ≤ 32; out [B, n, n] f32: L⁻¹ of cov + 1e-10 I, or
-// with inverse = 1 cov⁻¹ (cov SPD).
-extern "C" int gf2_sqrt_info(const float* cov, int B, int n, int inverse, float* out,
-                             void* stream) {
+// cov [B, n, n] f32, n ≤ 32, rows contiguous, `stride` floats between
+// matrices (n·n where packed; the camera tick reads kernel H's covariances
+// in place); out [B, n, n] f32: L⁻¹ of cov + 1e-10 I, or with inverse = 1
+// cov⁻¹ (cov SPD).
+extern "C" int gf2_sqrt_info(const float* cov, int B, int n, long long stride,
+                             int inverse, float* out, void* stream) {
   if (n < 1 || n > 32) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
   sqrt_info_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      cov, B, n, inverse, out);
+      cov, B, n, stride, inverse, out);
   return (int)cudaGetLastError();
 }
 

@@ -12,10 +12,13 @@
 // and the stationary flag as a float (383). The port's plain PyTorch route
 // is 27 small launches a tick (vio/fused.py `tracker_step`, `solve_tick`).
 //
-// Three launches a tick:
+// Four launches a tick:
+//   unpack the upload's conversions (vio/fused.py:228-230): the packed
+//          tick buffer's uint8 image times 1/255 as float32 and its float16
+//          decimated depth as float32, for every kernel that reads them;
 //   track  after KLT: alive · tracked, and −log(−log(max(u, tiny))) of the
-//          uniform draws (torch's generator draws them, one launch of its
-//          own);
+//          frame's uniform draws (kernel AQ draws them, JAX's threefry
+//          keyed by the frame index);
 //   pre    after the propagation (kernel H): rho_init where the frame's
 //          fresh, alive tracks take their fixed depth flag, triangulation's
 //          `1 − rho_init`, and p, q, v with column col set;
@@ -30,6 +33,7 @@
 // Bounds on the card: < 4 KB in and out a launch; launch latency sets the
 // time.
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -146,12 +150,47 @@ tick_track_kernel(const float* __restrict__ alive,
   }
 }
 
+// uint8 → float32 and a product with the float scale (torch's `.to(float32)
+// * (1.0 / 255.0)`, the Python scalar rounded to float), float16 → float32
+// from little-endian byte pairs (exact)
+__global__ void __launch_bounds__(kThreads)
+tick_unpack_kernel(const uint8_t* __restrict__ buf, int n_img, int n_depth,
+                   float scale, float* __restrict__ img,
+                   float* __restrict__ depth) {
+  const int n = n_img + n_depth;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n;
+       e += gridDim.x * blockDim.x) {
+    if (e < n_img) {
+      img[e] = __fmul_rn((float)buf[e], scale);
+      continue;
+    }
+    const int j = e - n_img;
+    const uint8_t* b = buf + n_img + 2 * j;
+    depth[j] = __half2float(__ushort_as_half(
+        (unsigned short)(b[0] | (b[1] << 8))));
+  }
+}
+
 int blocks(int n) {
   const int b = (n + kThreads - 1) / kThreads;
   return b < 1 ? 1 : b;
 }
 
 }  // namespace
+
+// unpack: buf holds n_img uint8 pixels, then n_depth float16 depths (2
+// bytes each, any alignment); img [n_img] and depth [n_depth] float32 out.
+extern "C" int gf2_tick_unpack(const uint8_t* buf, int n_img, int n_depth,
+                               float scale, float* img, float* depth,
+                               void* stream) {
+  if (n_img < 0 || n_depth < 0) return (int)cudaErrorInvalidValue;
+  const int n = n_img + n_depth;
+  const int b = blocks(n);
+  tick_unpack_kernel<<<b < 1024 ? b : 1024, kThreads, 0,
+                       (cudaStream_t)stream>>>(buf, n_img, n_depth, scale, img,
+                                               depth);
+  return (int)cudaGetLastError();
+}
 
 // track: alive, tracked [F], u [K, F] in; alive · tracked [F] and the
 // Gumbel noise [K, F] out.

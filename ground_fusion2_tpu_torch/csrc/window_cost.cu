@@ -40,6 +40,14 @@
 // sum (~450 dependent f64 adds at F = 150, ~820 with GNSS) is the floor
 // that keeping the bits allows.
 //
+// With the second camera's rows (`gf2_window_cost_stereo`, the template's
+// other instance) each feature lane also evaluates its observation in
+// camera 2 (window_rows.cuh's `stereo_residual`, f64), the first of the 16
+// adds them in frame order into the feature's stereo partial, and the last
+// CTA adds those, features in index order, after the GNSS families (where
+// `build_residual_fn` concatenates the stereo rows). The mono instance is
+// the same code and the same sums.
+//
 // Bounds on the card: the prior's sqrt_J (242 KB at 246²) dominates the
 // bytes; ~1,650 observations × ~250 flops, ~50 instances (~420 with GNSS) ×
 // ≤ ~700 flops and 246² multiply-adds are ~0.6 MFLOP of f64. Both are well
@@ -71,6 +79,9 @@ struct Proj {
   const int* anchor;
   int F, cam_off, td_off, rho_off;
   float sqrt_info, huber_delta, min_depth;
+  // the second camera (the stereo instance): tic2, qic2, ray2 [F, W, 2],
+  // valid2 [F, W]
+  const float *tic2, *qic2, *ray2, *valid2;
 };
 
 struct Rows {
@@ -107,6 +118,27 @@ __device__ bool obs_cost(const Proj& X, const Lay& L, int f, int j,
       &ry);
   if (!(z > X.min_depth)) return false;
   const double w = ov * tv * huber(rx, ry, (double)X.huber_delta);
+  const double ex = rx * w, ey = ry * w;
+  *t = ex * ex + ey * ey;
+  return true;
+}
+
+// observation j of feature f in camera 2: (w·r)² in *t, false where its
+// weight is 0 (a dead track or slot, behind camera 2)
+__device__ bool stereo_cost(const Proj& X, const Lay& L, int f, int j,
+                            const float* __restrict__ delta, double* t) {
+  const int W = L.W;
+  const float tv = X.track_valid[f];
+  if (tv == 0.f) return false;
+  const float v2 = X.valid2[f * W + j];
+  if (v2 == 0.f) return false;
+  double rx, ry;
+  const float z = stereo_residual<double>(
+      f, X.anchor[f], j, -1, W, X.p, X.q, X.tic, X.qic, X.tic2, X.qic2, X.rho,
+      delta, X.ray, X.ray2, L.pose_off, X.cam_off, L.cam2_off, X.rho_off,
+      X.sqrt_info, X.min_depth, &rx, &ry);
+  if (!(z > X.min_depth)) return false;
+  const double w = v2 * tv * huber(rx, ry, (double)X.huber_delta);
   const double ex = rx * w, ey = ry * w;
   *t = ex * ex + ey * ey;
   return true;
@@ -181,6 +213,7 @@ __device__ void stage_rows(const float* __restrict__ src, int n, int K, int Kp,
   }
 }
 
+template <bool kStereo>
 __global__ void __launch_bounds__(kThreads) window_cost_kernel(
     Proj X, Rows R, Lay L, Grid G, const float* __restrict__ delta,
     double* __restrict__ part, unsigned* __restrict__ ticket,
@@ -192,6 +225,7 @@ __global__ void __launch_bounds__(kThreads) window_cost_kernel(
   double* part_f = part;              // [F]
   double* part_i = part + F;          // [n_inst]
   double* part_p = part_i + n_inst;   // [K]
+  double* part_s = part_p + K;        // [F] the stereo rows (kStereo)
   int b = blockIdx.x;
   if (b < G.inst_ctas) {
     // a warp: 32 instances of one family
@@ -235,7 +269,7 @@ __global__ void __launch_bounds__(kThreads) window_cost_kernel(
     b -= G.prior_ctas;
     const int f = b * kFeatsPerCta + tid / kObsLanes;
     const int sub = lane & (kObsLanes - 1), seg = lane & ~(kObsLanes - 1);
-    double acc = 0.0;
+    double acc = 0.0, acc2 = 0.0;
     for (int j0 = 0; j0 < L.W; j0 += kObsLanes) {
       const int j = j0 + sub;
       double t = 0.0;
@@ -246,8 +280,22 @@ __global__ void __launch_bounds__(kThreads) window_cost_kernel(
         const double tk = __shfl_sync(kFull, t, k, kObsLanes);
         if ((m >> k) & 1u) acc += tk;
       }
+      if constexpr (kStereo) {
+        double t2 = 0.0;
+        const bool live2 =
+            f < F && j < L.W && stereo_cost(X, L, f, j, delta, &t2);
+        const unsigned m2 = (__ballot_sync(kFull, live2) >> seg) & 0xffffu;
+#pragma unroll
+        for (int k = 0; k < kObsLanes; ++k) {
+          const double tk = __shfl_sync(kFull, t2, k, kObsLanes);
+          if ((m2 >> k) & 1u) acc2 += tk;
+        }
+      }
     }
-    if (f < F && sub == 0) part_f[f] = acc;
+    if (f < F && sub == 0) {
+      part_f[f] = acc;
+      if constexpr (kStereo) part_s[f] = acc2;
+    }
   }
   // the last CTA to finish sums every partial in the fixed order
   __threadfence();
@@ -257,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) window_cost_kernel(
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int n_part = F + n_inst + K;
+  const int n_part = F + n_inst + K + (kStereo ? F : 0);
 #pragma unroll 8
   for (int i = tid; i < n_part; i += kThreads) smem[i] = __ldcg(part + i);
   __syncthreads();
@@ -276,6 +324,11 @@ __global__ void __launch_bounds__(kThreads) window_cost_kernel(
     for (int n = 0; n < n_a; ++n) c += si[n];
 #pragma unroll 8
     for (int n = n_a + n_mp; n < n_a + n_mp + n_g; ++n) c += si[n];
+    if constexpr (kStereo) {
+      const double* ss = sp + K;
+#pragma unroll 8
+      for (int f = 0; f < F; ++f) c += ss[f];
+    }
 #pragma unroll 8
     for (int n = n_a; n < n_a + n_mp; ++n) c += si[n];
 #pragma unroll 8
@@ -291,6 +344,34 @@ int prior_rows(int K) {
   while (rows > 1 && (size_t)rows * (K | 1) * 4 + (size_t)K * 8 > kStageBytes)
     rows /= 2;
   return rows;
+}
+
+template <bool kStereo>
+int launch(const Proj& X, const Rows& R, const Lay& L, const float* delta,
+           double* part, unsigned* ticket, float* cost, cudaStream_t stream) {
+  const int F = X.F, fd = L.fd;
+  const int n[8] = {L.n_imu, L.n_whl, L.n_plane, L.n_motion, L.n_posvel,
+                    L.n_gpsr, L.n_gdopp, L.n_gclk};
+  int warps = 0;
+  for (int f = 0; f < 8; ++f) warps += (n[f] + 31) / 32;
+  Grid G;
+  G.prior_rows = prior_rows(fd);
+  G.inst_ctas = (warps + kWarps - 1) / kWarps;
+  G.prior_ctas = (fd + G.prior_rows - 1) / G.prior_rows;
+  G.feat_ctas = (F + kFeatsPerCta - 1) / kFeatsPerCta;
+  const size_t stage = (size_t)G.prior_rows * (fd | 1) * 4 + (size_t)fd * 8;
+  const size_t sum = (size_t)(F + n_instances(L) + fd + (kStereo ? F : 0)) * 8;
+  const size_t smem = stage > sum ? stage : sum;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        window_cost_kernel<kStereo>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int ctas = G.inst_ctas + G.prior_ctas + G.feat_ctas;
+  window_cost_kernel<kStereo><<<ctas, kThreads, smem, stream>>>(
+      X, R, L, G, delta, part, ticket, cost);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -322,28 +403,40 @@ extern "C" int gf2_window_cost(
                          cam2_off, gdt_off, gddt_off, gyaw_off, ganchor_off, S,
                          use_wheel, use_plane, use_motion, use_gnss);
   Proj X{p, q, tic, qic, td, rho, ray, vel, obs_valid, track_valid, anchor,
-         F, cam_off, td_off, rho_off, sqrt_info, huber_delta, min_depth};
+         F, cam_off, td_off, rho_off, sqrt_info, huber_delta, min_depth,
+         nullptr, nullptr, nullptr, nullptr};
   Rows R{xs, imu, whl, misc, gx, gtab, pbase, pq, sqrtJ, r0, prior_valid,
          g_norm, plane_w, motion_w, posvel_w};
-  const int n[8] = {L.n_imu, L.n_whl, L.n_plane, L.n_motion, L.n_posvel,
-                    L.n_gpsr, L.n_gdopp, L.n_gclk};
-  int warps = 0;
-  for (int f = 0; f < 8; ++f) warps += (n[f] + 31) / 32;
-  Grid G;
-  G.prior_rows = prior_rows(fd);
-  G.inst_ctas = (warps + kWarps - 1) / kWarps;
-  G.prior_ctas = (fd + G.prior_rows - 1) / G.prior_rows;
-  G.feat_ctas = (F + kFeatsPerCta - 1) / kFeatsPerCta;
-  const size_t stage = (size_t)G.prior_rows * (fd | 1) * 4 + (size_t)fd * 8;
-  const size_t sum = (size_t)(F + n_instances(L) + fd) * 8;
-  const size_t smem = stage > sum ? stage : sum;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        window_cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int ctas = G.inst_ctas + G.prior_ctas + G.feat_ctas;
-  window_cost_kernel<<<ctas, kThreads, smem, (cudaStream_t)stream>>>(
-      X, R, L, G, delta, part, ticket, cost);
-  return (int)cudaGetLastError();
+  return launch<false>(X, R, L, delta, part, ticket, cost,
+                       (cudaStream_t)stream);
+}
+
+// The same with the second camera's rows: tic2 [3], qic2 [4] (the state's),
+// ray2 [F, W, 2], valid2 [F, W] after the projection's inputs; part holds
+// F more doubles (the features' stereo partials).
+extern "C" int gf2_window_cost_stereo(
+    const float* p, const float* q, const float* tic, const float* qic,
+    const float* td, const float* rho, const float* ray, const float* vel,
+    const float* obs_valid, const int* anchor, const float* track_valid,
+    const float* tic2, const float* qic2, const float* ray2,
+    const float* valid2, const float* xs, const float* imu, const float* whl,
+    const float* misc, const float* gx, const float* gtab, const float* pbase,
+    const float* pq, const float* sqrtJ, const float* r0,
+    const float* prior_valid, const float* delta, int F, int W, int D, int fd,
+    int pose_off, int sb_off, int cam_off, int wext_off, int wint_off,
+    int cam2_off, int gdt_off, int gddt_off, int gyaw_off, int ganchor_off,
+    int td_off, int rho_off, int S, int use_wheel, int use_plane,
+    int use_motion, int use_gnss, double g_norm, float plane_w, float motion_w,
+    float posvel_w, float sqrt_info, float huber_delta, float min_depth,
+    double* part, unsigned* ticket, float* cost, void* stream) {
+  const Lay L = make_lay(W, D, fd, pose_off, sb_off, cam_off, wext_off, wint_off,
+                         cam2_off, gdt_off, gddt_off, gyaw_off, ganchor_off, S,
+                         use_wheel, use_plane, use_motion, use_gnss);
+  Proj X{p, q, tic, qic, td, rho, ray, vel, obs_valid, track_valid, anchor,
+         F, cam_off, td_off, rho_off, sqrt_info, huber_delta, min_depth,
+         tic2, qic2, ray2, valid2};
+  Rows R{xs, imu, whl, misc, gx, gtab, pbase, pq, sqrtJ, r0, prior_valid,
+         g_norm, plane_w, motion_w, posvel_w};
+  return launch<true>(X, R, L, delta, part, ticket, cost,
+                      (cudaStream_t)stream);
 }

@@ -396,6 +396,61 @@ __device__ __forceinline__ float proj_residual(
       ray, vel, sqrt_info, min_depth, rx, ry);
 }
 
+// one observation's second-camera residual (factors/vio_factors.py:247
+// `stereo_projection_residuals`, the 2F2C / 1F2C factors) of feature f:
+// the anchor a's ray (no td shift) at depth 1 / rho into the world, then
+// into camera 2 at frame j through (tic2, qic2); r = sqrt_info·(p_c2.xy /
+// z_safe - ray2_j). Returns z in camera 2.
+template <class T>
+__device__ __forceinline__ float stereo_residual_at(
+    int f, int a, int j, int W, V3T<T> pa, Q4T<T> qa, V3T<T> pj, Q4T<T> qj,
+    V3T<T> tic, Q4T<T> qic, V3T<T> tic2, Q4T<T> qic2, T rho,
+    const float* __restrict__ ray, const float* __restrict__ ray2,
+    float sqrt_info, float min_depth, T* rx, T* ry) {
+  const float* ra = ray + (f * W + a) * 2;
+  const float* r2 = ray2 + (f * W + j) * 2;
+  T depth = val(rho) > 1e-3f ? cst<T>(1.f) / rho : cst<T>(1000.f);
+  V3T<T> p_ci = {cst<T>(ra[0]) * depth, cst<T>(ra[1]) * depth, depth};
+  V3T<T> p_imu_i = qrot(qic, p_ci) + tic;
+  V3T<T> p_w = qrot(qa, p_imu_i) + pa;
+  V3T<T> p_imu_j = qrot(qconj(qj), p_w - pj);
+  V3T<T> p_c2 = qrot(qconj(qic2), p_imu_j - tic2);
+
+  T z = p_c2.z;
+  T zs = fabs(val(z)) > min_depth ? z : cst<T>(min_depth);
+  *rx = sqrt_info * (p_c2.x / zs - cst<T>(r2[0]));
+  *ry = sqrt_info * (p_c2.y / zs - cst<T>(r2[1]));
+  return val(z);
+}
+
+// the same at retract(x0, delta), with the tangent of local column k: the
+// projection's columns (anchor pose 0-5, frame j's pose 6-11, the
+// extrinsic 12-17, rho 19; td 18 untouched) and camera 2's extrinsic
+// 20-25. Where j is the anchor (1F2C) both roles of the one pose take the
+// anchor's columns 0-5, so their tangent sums there and 6-11 stay 0.
+template <class T>
+__device__ __forceinline__ float stereo_residual(
+    int f, int a, int j, int k, int W, const float* __restrict__ P,
+    const float* __restrict__ Q, const float* __restrict__ tic0,
+    const float* __restrict__ qic0, const float* __restrict__ tic20,
+    const float* __restrict__ qic20, const float* __restrict__ rho0,
+    const float* __restrict__ delta, const float* __restrict__ ray,
+    const float* __restrict__ ray2, int pose_off, int cam_off, int cam2_off,
+    int rho_off, float sqrt_info, float min_depth, T* rx, T* ry) {
+  const int cj = j == a ? 0 : 6;
+  return stereo_residual_at<T>(
+      f, a, j, W, retract_v3<T>(P + 3 * a, delta + pose_off + 6 * a, k, 0),
+      retract_q<T>(Q + 4 * a, delta + pose_off + 6 * a + 3, k, 3),
+      retract_v3<T>(P + 3 * j, delta + pose_off + 6 * j, k, cj),
+      retract_q<T>(Q + 4 * j, delta + pose_off + 6 * j + 3, k, cj + 3),
+      retract_v3<T>(tic0, delta + cam_off, k, 12),
+      retract_q<T>(qic0, delta + cam_off + 3, k, 15),
+      retract_v3<T>(tic20, delta + cam2_off, k, 20),
+      retract_q<T>(qic20, delta + cam2_off + 3, k, 23),
+      var_sum<T>(rho0[f], delta[rho_off + f], k, 19), ray, ray2, sqrt_info,
+      min_depth, rx, ry);
+}
+
 // core/robust.py:8 huber_weight of an observation's squared norm
 __device__ __forceinline__ float huber(float rx, float ry, float delta) {
   const float sqn = fmaxf(rx * rx + ry * ry, 1e-12f);

@@ -21,7 +21,10 @@
 // (the outlier test reuses csrc/window_rows.cuh's projection residual, the
 // code kernels C and S run); after a barrier one thread sums them in track
 // order and evaluates the scalar tests, so the same inputs give the same
-// bits. Outputs stay on the device.
+// bits. Outputs stay on the device, the flags also as bytes (the bool
+// tensors the tick branches on: `out[2] > 0.5` and `out[2:4] > 0.5`, folded
+// in); the detectors read the preintegrations' displacements where kernel
+// H left them (a row stride, no copy).
 //
 // Bounds on the card: ~20 KB in (rays, masks, the interval's samples), the
 // flags out; ~1,650 residuals × ~250 flops. Launch latency and the serial
@@ -51,6 +54,7 @@ struct State {   // the solved window (mode 1)
 
 struct Interval {   // the newest interval's detector inputs (mode 0)
   const float *dp_imu, *dp_whl, *qio, *imu_valid, *acc, *smask;
+  int dp_imu_stride, dp_whl_stride;   // floats between intervals' rows
   int k, M, use_wheel;
   float anomaly_thresh, stationary_dp, imu_static_dp, imu_var, parallax;
 };
@@ -85,7 +89,8 @@ __global__ void window_tests_kernel(int mode, Window Wn, State X, Interval I,
                                     const unsigned char* __restrict__ stationary,
                                     float* __restrict__ scratch,
                                     float* __restrict__ track_valid_out,
-                                    float* __restrict__ out) {
+                                    float* __restrict__ out,
+                                    bool* __restrict__ flags) {
   const int F = Wn.F, W = Wn.W, i = W - 3, j = W - 2;
   float* co = scratch;          // [F]
   float* par = scratch + F;     // [F]
@@ -120,12 +125,14 @@ __global__ void window_tests_kernel(int mode, Window Wn, State X, Interval I,
   if (mode == 1) {
     const bool is_kf = n_co < (float)min_tracked || mean_par >= min_parallax;
     out[2] = (is_kf && stationary[0] == 0) ? 1.f : 0.f;
+    if (flags) flags[0] = out[2] > 0.5f;
     return;
   }
   if (I.acc == nullptr) return;   // the parallax alone
   const int k = I.k, M = I.M;
-  const V3T<float> dpi = v3<float>(I.dp_imu + 3 * k);
-  const V3T<float> dpw = qrot(q4<float>(I.qio), v3<float>(I.dp_whl + 3 * k));
+  const V3T<float> dpi = v3<float>(I.dp_imu + (size_t)I.dp_imu_stride * k);
+  const V3T<float> dpw =
+      qrot(q4<float>(I.qio), v3<float>(I.dp_whl + (size_t)I.dp_whl_stride * k));
   const float n_imu = sqrtf(dpi.x * dpi.x + dpi.y * dpi.y + dpi.z * dpi.z);
   bool anomaly = false, wheel_static = true;
   if (I.use_wheel) {
@@ -165,6 +172,10 @@ __global__ void window_tests_kernel(int mode, Window Wn, State X, Interval I,
   const bool visual_static = mean_par < I.parallax && n_co > 10.f;
   out[2] = anomaly ? 1.f : 0.f;
   out[3] = (visual_static && wheel_static && imu_static && !excited) ? 1.f : 0.f;
+  if (flags) {
+    flags[0] = out[2] > 0.5f;
+    flags[1] = out[3] > 0.5f;
+  }
 }
 
 }  // namespace
@@ -173,9 +184,11 @@ __global__ void window_tests_kernel(int mode, Window Wn, State X, Interval I,
 // track_valid [F]. mode 1: the solved state (p, q, tic, qic, td, rho) and
 // outlier_px (≤ 0: no outlier test), focal, min_parallax, min_tracked, the
 // stationary flag [1] bool; out: track_valid_out [F] and (mean_par, n_co, is_kf).
-// mode 0: interval k's dp_imu, dp_whl [W-1, 3], qio [4], imu_valid [W-1],
-// acc [W-1, M+1, 3], smask [W-1, M] (acc null: the parallax alone);
-// out: (mean_par, n_co, anomaly, stationary). scratch: 2F floats.
+// mode 0: interval k's dp_imu, dp_whl (rows of 3, dp_imu_stride and
+// dp_whl_stride floats apart), qio [4], imu_valid [W-1], acc [W-1, M+1, 3],
+// smask [W-1, M] (acc null: the parallax alone); out: (mean_par, n_co,
+// anomaly, stationary). flags (null: none): is_kf [1] (mode 1) or
+// (anomaly, stationary) [2] (mode 0) as bools. scratch: 2F floats.
 extern "C" int gf2_window_tests(
     int mode, const float* ray, const float* vel, const float* obs_valid,
     const long long* anchor, const float* track_valid, int F, int W,
@@ -183,18 +196,19 @@ extern "C" int gf2_window_tests(
     const float* td, const float* rho, float outlier_px, float focal,
     float min_parallax, int min_tracked, const unsigned char* stationary,
     const float* dp_imu, const float* dp_whl, const float* qio,
-    const float* imu_valid, const float* acc, const float* smask, int k, int M,
-    int use_wheel, float anomaly_thresh, float stationary_dp, float imu_static_dp,
+    const float* imu_valid, const float* acc, const float* smask,
+    int dp_imu_stride, int dp_whl_stride, int k, int M, int use_wheel,
+    float anomaly_thresh, float stationary_dp, float imu_static_dp,
     float imu_var, float stationary_parallax, float* scratch,
-    float* track_valid_out, float* out, void* stream) {
+    float* track_valid_out, float* out, bool* flags, void* stream) {
   if (W < 3 || (mode != 0 && mode != 1)) return (int)cudaErrorInvalidValue;
   Window Wn{ray, vel, obs_valid, track_valid, anchor, F, W};
   State X{p, q, tic, qic, td, rho, outlier_px, focal, 0.05f};
-  Interval I{dp_imu, dp_whl, qio, imu_valid, acc, smask, k, M, use_wheel,
-             anomaly_thresh, stationary_dp, imu_static_dp, imu_var,
-             stationary_parallax};
+  Interval I{dp_imu, dp_whl, qio, imu_valid, acc, smask, dp_imu_stride,
+             dp_whl_stride, k, M, use_wheel, anomaly_thresh, stationary_dp,
+             imu_static_dp, imu_var, stationary_parallax};
   window_tests_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(
       mode, Wn, X, I, min_parallax, min_tracked, stationary, scratch,
-      track_valid_out, out);
+      track_valid_out, out, flags);
   return (int)cudaGetLastError();
 }

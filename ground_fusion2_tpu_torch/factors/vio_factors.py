@@ -1,6 +1,8 @@
 """Residual blocks of the sliding-window VIO problem (port of
 ``ground_fusion2_tpu/factors/vio_factors.py``) and their normal equations:
-the projection block's by hand-written CUDA kernel C on the card, every
+the projection block's (with the second camera's stereo rows where the
+configuration sets ``use_stereo``) by hand-written CUDA kernel C on the
+card, every
 other row's (IMU, wheel, plane, motion, pos-vel, prior) by kernel L, and
 the GNSS rows (``gnss/factors.py``) by kernel P in the same launch. The
 whole window's cost at a trial step, the LM's accept/reject test, is kernel
@@ -75,36 +77,90 @@ def projection_residuals(x: WindowState, feats: FeatureTable,
     return r, w[..., None].expand(F, W, 2)
 
 
+def stereo_projection_residuals(x: WindowState, feats: FeatureTable,
+                                ray2: torch.Tensor, valid2: torch.Tensor,
+                                sqrt_info: float, huber_delta: float = 1.0,
+                                min_depth: float = 0.05):
+    """Second-camera reprojection (the 2F2C / 1F2C factors): each landmark,
+    anchored in camera 1, into camera 2 at every frame (the anchor's own
+    included) through ``tic2``, ``qic2``. ray2 [F, W, 2], valid2 [F, W].
+    Returns r [F, W, 2], w [F, W, 2]."""
+    F, W, _ = feats.ray.shape
+    dtype = feats.ray.dtype
+    anchor = feats.anchor
+    ray_i = _gather_frame(feats.ray, anchor)
+    pt_i = torch.cat([ray_i, torch.ones((F, 1), dtype=dtype,
+                                        device=ray_i.device)], -1)
+    p_ci = pt_i * (1.0 / torch.clamp(x.rho, min=1e-3))[:, None]
+    p_imu_i = lie.quat_rotate(x.qic[None], p_ci) + x.tic[None]
+    p_w = lie.quat_rotate(x.q[anchor], p_imu_i) + x.p[anchor]
+    p_imu_j = lie.quat_rotate(lie.quat_conj(x.q)[None],
+                              p_w[:, None] - x.p[None])
+    p_c2 = lie.quat_rotate(lie.quat_conj(x.qic2)[None, None],
+                           p_imu_j - x.tic2[None, None])
+    z = p_c2[..., 2]
+    z_safe = torch.where(torch.abs(z) > min_depth, z,
+                         torch.full_like(z, min_depth))
+    pred = p_c2[..., :2] / z_safe[..., None]
+    r = (pred - ray2) * sqrt_info
+    w = valid2 * feats.track_valid[:, None] * (z > min_depth).to(dtype)
+    w = w * robust.huber_weight(torch.sum(r * r, -1), huber_delta)
+    return r, w[..., None].expand(F, W, 2)
+
+
+def stereo_inputs(meas, cfg):
+    """(ray2, valid2) of ``meas`` where the configuration sets
+    ``use_stereo``, else None."""
+    if not cfg.use_stereo:
+        return None
+    if meas.stereo_ray is None or meas.stereo_valid is None:
+        raise ValueError("use_stereo needs the measurements' stereo_ray and "
+                         "stereo_valid")
+    return meas.stereo_ray, meas.stereo_valid
+
+
 def projection_normal_equations(x0: WindowState, delta: torch.Tensor,
                                 feats: FeatureTable, layout: WindowLayout,
                                 sqrt_info: float, huber_delta: float = 1.0,
-                                branch=None):
+                                branch=None, stereo=None):
     """(H [D, D], g [D], cost []) of the projection block linearized at
-    ``retract(x0, delta)``, with the Huber weight held constant in J.
+    ``retract(x0, delta)``, with the Huber weight held constant in J;
+    ``stereo``: (ray2, valid2), the second camera's rows added
+    (:func:`stereo_projection_residuals`).
 
     Kernel C on the card (a warp an observation, forward-mode duals over
-    the ≤ 20 tangent columns it touches; each feature's block summed in
-    frame order, H over the features in index order: the same inputs give
-    the same bits; on the slide's ``branch``, ``solver/lm_glue.py``); the
-    plain version on the CPU."""
+    the ≤ 20 tangent columns it touches, ≤ 26 with camera 2's; each
+    feature's block summed in frame order, H over the features in index
+    order: the same inputs give the same bits; on the slide's ``branch``,
+    ``solver/lm_glue.py``); the plain version on the CPU."""
     if delta.is_cuda:
         return _projection_normal_equations_cuda(
-            x0, delta, feats, layout, sqrt_info, huber_delta, branch=branch)
+            x0, delta, feats, layout, sqrt_info, huber_delta, branch=branch,
+            stereo=stereo)
     return projection_normal_equations_plain(
-        x0, delta, feats, layout, sqrt_info, huber_delta)
+        x0, delta, feats, layout, sqrt_info, huber_delta, stereo=stereo)
+
+
+def _projection_rows(x, feats, sqrt_info, huber_delta, stereo):
+    """(r, w) flat: the projection rows, then camera 2's."""
+    parts = [projection_residuals(x, feats, sqrt_info, huber_delta)]
+    if stereo is not None:
+        parts.append(stereo_projection_residuals(x, feats, *stereo, sqrt_info,
+                                                 huber_delta))
+    return (torch.cat([r.reshape(-1) for r, _ in parts]),
+            torch.cat([w.reshape(-1) for _, w in parts]))
 
 
 def projection_normal_equations_plain(x0, delta, feats, layout, sqrt_info,
-                                      huber_delta=1.0):
+                                      huber_delta=1.0, stereo=None):
     """Dense ``torch.func.jacfwd`` over the whole tangent, as the JAX
     ``normal_equations`` does (``solver/gauss_newton.py:43-58``)."""
     def res(d):
-        return projection_residuals(layout.retract(x0, d), feats, sqrt_info,
-                                    huber_delta)[0].reshape(-1)
+        return _projection_rows(layout.retract(x0, d), feats, sqrt_info,
+                                huber_delta, stereo)[0]
 
-    r, w = projection_residuals(layout.retract(x0, delta), feats, sqrt_info,
-                                huber_delta)
-    r, w = r.reshape(-1), w.reshape(-1)
+    r, w = _projection_rows(layout.retract(x0, delta), feats, sqrt_info,
+                            huber_delta, stereo)
     J = torch.func.jacfwd(res)(delta)
     Jw = J * w[:, None]
     rw = r * w
@@ -113,7 +169,7 @@ def projection_normal_equations_plain(x0, delta, feats, layout, sqrt_info,
 
 def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
                                       huber_delta, min_depth: float = 0.05,
-                                      branch=None):
+                                      branch=None, stereo=None):
     lib = _kernels.library()
     F, W, _ = feats.ray.shape
     D = layout.dim
@@ -131,18 +187,28 @@ def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
     H = torch.empty((D, D), dtype=torch.float32, device=dev)
     g = torch.empty((D,), dtype=torch.float32, device=dev)
     cost = torch.empty((1,), dtype=torch.float32, device=dev)
-    L = 6 * W + 8       # the columns one feature can touch
+    # the columns one feature can touch (camera 2's 6 more with stereo)
+    L = 6 * W + 8 + (6 if stereo is not None else 0)
     part = torch.empty((F * (L * L + L + 1),), dtype=torch.float32, device=dev)
-    err = lib.gf2_proj_normal(
-        *[ctypes.c_void_p(t.data_ptr()) for t in ins],
-        F, W, D, layout.pose_off, layout.cam_off, layout.td_off,
-        layout.rho_off, ctypes.c_float(sqrt_info),
-        ctypes.c_float(huber_delta), ctypes.c_float(min_depth),
-        ctypes.c_void_p(part.data_ptr()),
-        ctypes.c_void_p(H.data_ptr()), ctypes.c_void_p(g.data_ptr()),
-        ctypes.c_void_p(cost.data_ptr()), *_kernels.branch_args(branch),
-        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _kernels.check(err, "gf2_proj_normal")
+    P = lambda t: ctypes.c_void_p(t.data_ptr())
+    offs = [layout.pose_off, layout.cam_off, layout.td_off, layout.rho_off]
+    tail = [ctypes.c_float(sqrt_info), ctypes.c_float(huber_delta),
+            ctypes.c_float(min_depth), P(part), P(H), P(g), P(cost),
+            *_kernels.branch_args(branch),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)]
+    if stereo is None:
+        name = "gf2_proj_normal"
+        err = lib.gf2_proj_normal(*map(P, ins), F, W, D, *offs, *tail)
+    else:
+        name = "gf2_proj_normal_stereo"
+        cam2 = [f32(x0.tic2), f32(x0.qic2), f32(stereo[0]), f32(stereo[1])]
+        if (tuple(cam2[2].shape) != (F, W, 2)
+                or tuple(cam2[3].shape) != (F, W)):
+            raise ValueError("proj_normal kernel: stereo rays [F, W, 2] and "
+                             "mask [F, W]")
+        err = lib.gf2_proj_normal_stereo(*map(P, ins + cam2), F, W, D, *offs,
+                                         layout.cam2_off, *tail)
+    _kernels.check(err, name)
     _kernels.count("proj_normal")
     return H, g, cost[0]
 
@@ -492,6 +558,12 @@ def window_cost_plain(x0: WindowState, delta: torch.Tensor, meas,
     parts = [projection_residuals(x, meas.feats, cfg.proj_sqrt_info,
                                   cfg.huber_delta)]
     parts += small_residual_parts(x, meas, layout, cfg, g_world)
+    stereo = stereo_inputs(meas, cfg)
+    if stereo is not None:
+        # after the GNSS rows, where the JAX package's residual_fn puts them
+        at = 2 + int(cfg.use_wheel) + int(cfg.use_plane) + int(cfg.use_gnss)
+        parts.insert(at, stereo_projection_residuals(
+            x, meas.feats, *stereo, cfg.proj_sqrt_info, cfg.huber_delta))
     rw = torch.cat([(r * w).reshape(-1) for r, w in parts])
     return 0.5 * torch.sum(rw * rw)
 
@@ -510,7 +582,9 @@ def window_cost_fn(x0: WindowState, meas, layout: WindowLayout, cfg,
 
 
 def window_cost_args(x0, meas, layout, cfg, packed=None):
-    """Kernel S's inputs packed for ``gf2_window_cost``: (the tensors, held
+    """Kernel S's inputs packed for ``gf2_window_cost`` (with the stereo
+    rows ``gf2_window_cost_stereo``, camera 2's inputs after the
+    projection's): (the tensors, held
     alive by the caller; their pointers; the scalars; the partials' count).
     ``packed``: a solve's pack by kernel AN (its rows, valid and int32
     anchors), else one made here."""
@@ -527,10 +601,13 @@ def window_cost_args(x0, meas, layout, cfg, packed=None):
     proj = [f32(x0.p), f32(x0.q), f32(x0.tic), f32(x0.qic), f32(x0.td),
             f32(x0.rho), f32(ft.ray), f32(ft.vel), f32(ft.obs_valid),
             packed.anchor32, f32(ft.track_valid)]
+    stereo = stereo_inputs(meas, cfg)
+    if stereo is not None:          # gf2_window_cost_stereo's inputs
+        proj += [f32(x0.tic2), f32(x0.qic2), f32(stereo[0]), f32(stereo[1])]
     rows = packed.rows + [packed.valid]
     ptrs = [ctypes.c_void_p(t.data_ptr()) for t in proj + rows]
     S = meas.gnss.u_enu.shape[1]
-    n_part = F + _n_instances(W, S, cfg) + K
+    n_part = F + _n_instances(W, S, cfg) + K + (F if stereo is not None else 0)
     scalars = [F, W, D, K, *_offsets(layout), layout.td_off, layout.rho_off, S,
                int(cfg.use_wheel), int(cfg.use_plane), int(cfg.use_motion),
                int(cfg.use_gnss), ctypes.c_double(cfg.g_norm)] + [
@@ -551,6 +628,8 @@ def _window_cost_cuda_fn(x0, meas, layout, cfg, packed=None):
     inputs, ptrs, scalars, n_part = window_cost_args(x0, meas, layout, cfg,
                                                      packed)
     lib = _kernels.library()
+    name = "gf2_window_cost_stereo" if cfg.use_stereo else "gf2_window_cost"
+    entry = getattr(lib, name)
     # Launches on one stream run one after another and may share the
     # scratch; the closure is bound to the stream it was made on, so two
     # launches never overlap on it.
@@ -572,10 +651,9 @@ def _window_cost_cuda_fn(x0, meas, layout, cfg, packed=None):
         d = delta.to(device=dev, dtype=torch.float32).contiguous()
         # a fresh output each call: lm_solve keeps earlier costs as views
         cost = torch.empty((1,), dtype=torch.float32, device=dev)
-        err = lib.gf2_window_cost(
-            *ptrs, ctypes.c_void_p(d.data_ptr()), *scalars, *scratch,
-            ctypes.c_void_p(cost.data_ptr()), ctypes.c_void_p(stream))
-        _kernels.check(err, "gf2_window_cost")
+        err = entry(*ptrs, ctypes.c_void_p(d.data_ptr()), *scalars, *scratch,
+                    ctypes.c_void_p(cost.data_ptr()), ctypes.c_void_p(stream))
+        _kernels.check(err, name)
         _kernels.count("window_cost")
         return cost[0]
 

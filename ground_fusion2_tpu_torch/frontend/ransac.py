@@ -1,10 +1,10 @@
 """Batched fundamental-matrix RANSAC outlier rejection (port of
 ``ground_fusion2_tpu/frontend/ransac.py``).
 
-The Gumbel noise that picks each hypothesis's 8 samples is an argument, so a
-test can hand in the JAX draws; :func:`gumbel_noise` draws it from a
-``torch.Generator`` seeded per frame (the JAX tick keys ``PRNGKey(frame_idx)``;
-the two streams differ, the distributions match).
+The Gumbel noise that picks each hypothesis's 8 samples is an argument:
+JAX's ``jax.random.gumbel(PRNGKey(seed), (K, F))``, drawn by
+``core/prng.py`` (kernel AQ on the card), so the hypotheses and the mask
+are the JAX package's on the same points.
 
 On the card :func:`ransac_f_reject` launches kernel K (``csrc/ransac_f.cu``);
 :func:`ransac_f_plain` runs for tensors on the CPU.
@@ -22,22 +22,10 @@ from .. import _kernels
 SWEEP_CAP = 32    # kernel K's Jacobi sweeps (csrc/ransac_f.cu's kCap)
 
 
-def uniform_draws(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
-    """[hypotheses, n] uniforms from a ``torch.Generator`` seeded with
-    ``seed``: the draws :func:`gumbel_noise` transforms."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return torch.rand((hypotheses, n), generator=gen, device=device)
-
-
 def gumbel(u: torch.Tensor) -> torch.Tensor:
     """−log(−log(u)), u clamped to float32's smallest normal."""
     u = torch.clamp(u, min=torch.finfo(torch.float32).tiny)
     return -torch.log(-torch.log(u))
-
-
-def gumbel_noise(seed: int, hypotheses: int, n: int, device) -> torch.Tensor:
-    return gumbel(uniform_draws(seed, hypotheses, n, device))
 
 
 def _hartley(p: torch.Tensor):

@@ -13,7 +13,8 @@ from ..core.device import resolve
 from ..vio.feature_window import FrameObs
 from . import klt
 from .clahe import clahe
-from .ransac import gumbel_noise, ransac_f_reject
+from ..core.prng import gumbel_noise
+from .ransac import ransac_f_reject
 from .track_tail import lift_norm_plain, refill  # noqa: F401 (re-export)
 
 RANSAC_HYPOTHESES = 64

@@ -23,7 +23,7 @@ from .. import _kernels
 from ..config import PoseGraphConfig
 from ..core import lie
 from ..core.device import resolve
-from ..frontend.ransac import gumbel_noise
+from ..core.prng import split_gumbel
 from ..solver.gauss_newton import lm_solve, normal_equations
 from . import brief
 
@@ -163,12 +163,11 @@ class PoseGraph:
         return j, dp, dyaw
 
     def _gumbel(self, i: int, j: int) -> torch.Tensor:
-        """The hypotheses' Gumbel noise [K, F] for the pair (i, j), drawn
-        from a generator seeded i·7919 + j (the JAX package keys
-        ``PRNGKey(i·7919 + j)``: the streams differ, the distributions
-        match)."""
-        return gumbel_noise(int(i) * 7919 + int(j), self.cfg.ransac_iters,
-                            self.cfg.num_feats, self.device)
+        """The hypotheses' Gumbel noise [K, F] for the pair (i, j), as the
+        JAX package draws it: ``gumbel(k, (F,))`` of each key of
+        ``split(PRNGKey(i·7919 + j), K)`` (kernel AQ on the card)."""
+        return split_gumbel(int(i) * 7919 + int(j), self.cfg.ransac_iters,
+                            self.cfg.num_feats, self.device)[1]
 
     def loop_inputs(self, i, j, idx_i, idx_j):
         """The padded [F] match set of ``_loop_geometry_dev`` for keyframes

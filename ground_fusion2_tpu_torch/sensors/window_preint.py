@@ -5,10 +5,10 @@ state propagation through the newest interval, in one launch (port of
 ``imu_preint.py:propagate_state``).
 
 :func:`preintegrate_window` launches ``csrc/preint.cu`` for tensors on the
-card (on float32 contiguous inputs two CUDA activities a call with the
-intervals, the kernel and torch's sum of its ``dt·mask`` rows into
-``sum_dt``, one for the propagation alone: the wheel-frame gyro, the
-wheel's end samples and the propagation's inputs are the kernel's);
+card (on float32 contiguous inputs one CUDA activity a call: the
+wheel-frame gyro, the wheel's end samples, the propagation's inputs and
+``sum_dt``, in torch's order, are the kernel's; the intervals take the
+camera tick's 128 slots, the propagation alone any count);
 :func:`preintegrate_window_plain`, the sequential loops of
 :mod:`.imu_preint` and :mod:`.wheel_preint`, runs for tensors on the CPU.
 """
@@ -43,12 +43,18 @@ def _wheel_gyro(gyr, qio):
     return gyr @ lie.quat_to_mat(qio)
 
 
+# the slots an interval kernel H preintegrates (sum_dt in torch's order at
+# this row length): vio.estimator.MAX_IMU_PER_INTERVAL
+SUM_SLOTS = 128
+
+
 def preintegrate_window(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
                         imu_noise: ImuNoise, wheel_noise: WheelNoise, qio,
                         prop: Propagate | None = None, intervals: bool = True):
     """Preintegrate the IMU and wheel samples of every interval at biases
     ``ba``, ``bg`` [n, 3] (``intervals``) and propagate ``prop`` through its
-    interval. acc, gyr, wvel: [n, M+1, 3]; dt, mask: [n, M].
+    interval. acc, gyr, wvel: [n, M+1, 3]; dt, mask: [n, M] (on the card
+    M = ``SUM_SLOTS`` where ``intervals``).
 
     Returns (ImuPreint | None, WheelPreint | None, (p, q, v) | None)."""
     if acc.is_cuda:
@@ -81,10 +87,9 @@ def preintegrate_window_plain(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
 
 def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
                  wheel_noise, qio, prop, intervals):
-    """One launch, then torch's sum of the kernel's dt·mask rows (sum_dt
-    keeps torch's reduce order); the wrapper only checks, allocates and
-    takes views (the wheel-frame gyro, the wheel's end samples and the
-    propagation's state are the kernel's)."""
+    """One launch; the wrapper only checks, allocates and takes views (the
+    wheel-frame gyro, the wheel's end samples, sum_dt and the propagation's
+    state are the kernel's)."""
     dev = acc.device
     n_int, M = dt.shape
     # float32 and contiguous: views of the caller's tensors on the main
@@ -107,9 +112,12 @@ def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
     if any(ins[k].numel() != 1 for k in ("six", "siy", "siw")):
         raise ValueError("preint kernel: six, siy, siw take one value each")
     B = n_int if intervals else 0
+    if B and M != SUM_SLOTS:
+        raise ValueError(f"preint kernel: the intervals take {SUM_SLOTS} "
+                         f"slots, not {M}")
     imu_out = torch.empty((B, 460), dtype=torch.float32, device=dev)
     whl_out = torch.empty((B, 70), dtype=torch.float32, device=dev)
-    h_out = torch.empty((B, M), dtype=torch.float32, device=dev)
+    sum_dt = torch.empty((B,), dtype=torch.float32, device=dev)
     prop_out = torch.empty((10,), dtype=torch.float32, device=dev)
     prop_k = prop.k % n_int if prop is not None else -1
     P = lambda name: ctypes.c_void_p(ins[name].data_ptr() if name in ins
@@ -124,7 +132,7 @@ def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
         *(P(k) for k in ("p", "q", "v", "pba", "pbg", "g")), prop_k,
         ctypes.c_void_p(imu_out.data_ptr()),
         ctypes.c_void_p(whl_out.data_ptr()),
-        ctypes.c_void_p(h_out.data_ptr()),
+        ctypes.c_void_p(sum_dt.data_ptr()),
         ctypes.c_void_p(prop_out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_preint")
@@ -132,7 +140,6 @@ def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
 
     pre = wpre = pvq = None
     if intervals:
-        sum_dt = h_out.sum(-1)      # (dt * mask).sum(-1), torch's order
         pre = ImuPreint(dp=imu_out[:, 0:3], dq=imu_out[:, 3:7],
                         dv=imu_out[:, 7:10],
                         cov=imu_out[:, 10:235].reshape(B, 15, 15),

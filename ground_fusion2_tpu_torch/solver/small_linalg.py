@@ -16,16 +16,21 @@ from .. import _kernels
 
 def small_spd_cuda(A: torch.Tensor, inverse: bool) -> torch.Tensor:
     """Kernel Y's entry 1 on [..., n, n] float32 SPD matrices (n ≤ 32):
-    L⁻¹ of A + 1e-10 I = L Lᵀ, or with ``inverse`` A⁻¹."""
+    L⁻¹ of A + 1e-10 I = L Lᵀ, or with ``inverse`` A⁻¹. A batch [B, n, n]
+    of row-contiguous matrices is read in place at its batch stride (kernel
+    H's covariances, views of its output rows)."""
     n = A.shape[-1]
-    c = A.contiguous()
-    if (c.dtype != torch.float32 or not c.is_cuda or n > 32
-            or c.shape[-2] != n):
+    if (A.dtype != torch.float32 or not A.is_cuda or n > 32
+            or A.shape[-2] != n):
         raise ValueError("sqrt_info kernel takes float32 CUDA [..., n, n], "
                          "n ≤ 32")
-    out = torch.empty_like(c)
+    c = A
+    if not (A.dim() == 3 and A.stride(2) == 1 and A.stride(1) == n):
+        c = A.contiguous().reshape(-1, n, n)
+    B = c.shape[0]
+    out = torch.empty(A.shape, dtype=torch.float32, device=A.device)
     err = _kernels.library().gf2_sqrt_info(
-        ctypes.c_void_p(c.data_ptr()), c.numel() // (n * n), n, int(inverse),
+        ctypes.c_void_p(c.data_ptr()), B, n, c.stride(0), int(inverse),
         ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream(c.device).cuda_stream))
     _kernels.check(err, "gf2_sqrt_info")

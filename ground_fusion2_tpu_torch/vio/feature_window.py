@@ -286,7 +286,7 @@ def co_parallax(fw: FeatureWindow):
     """(mean parallax between frames W-3 and W-2, co-observed count) of the
     live tracks: kernel U's parallax alone on the card."""
     if fw.ray.is_cuda:
-        out = _window_tests(0, fw)
+        out, _ = _window_tests(0, fw)
         return out[0], out[1]
     return _co_parallax_plain(fw)
 
@@ -366,8 +366,10 @@ def _window_tests(mode: int, fw: FeatureWindow, x: WindowState | None = None,
                   min_parallax: float = 0.0, min_tracked: int = 0,
                   stationary=None, interval=None, k: int = 0, statics=None):
     """Kernel U. mode 1: (track_valid [F], out [3] = mean parallax, n_co,
-    is_kf & ~stationary); mode 0: out [4] = mean parallax, n_co, anomaly,
-    stationary (``interval`` None: the parallax alone)."""
+    is_kf & ~stationary, flags [1] bool = out[2] > 0.5); mode 0: (out [4] =
+    mean parallax, n_co, anomaly, stationary, flags [2] bool = out[2:4] >
+    0.5) (``interval`` None: the parallax alone). The interval's
+    displacements are read in place (rows of 3 at their row stride)."""
     dev = fw.ray.device
     F, W, _ = fw.ray.shape
     f32 = lambda t: _f32(t, dev)
@@ -380,8 +382,15 @@ def _window_tests(mode: int, fw: FeatureWindow, x: WindowState | None = None,
     if mode == 1:
         stat = torch.as_tensor(stationary, device=dev).to(torch.bool).reshape(1)
     det, M, use_wheel, th = [None] * 6, 0, 0, (0.0,) * 5
+    strides = [3, 3]
     if interval is not None:
-        det = [f32(t) for t in interval]
+        det = [f32(t) for t in interval[2:]]
+        for i, t in enumerate(interval[:2]):
+            if not (t.dtype == torch.float32 and t.device == dev
+                    and t.dim() == 2 and t.shape[1] == 3 and t.stride(1) == 1):
+                t = f32(t).reshape(-1, 3)
+            strides[i] = t.stride(0)
+            det.insert(i, t)
         M = interval[5].shape[-1]
         s = statics
         use_wheel = int(s.use_wheel)
@@ -391,15 +400,16 @@ def _window_tests(mode: int, fw: FeatureWindow, x: WindowState | None = None,
     tv_out = torch.empty((F,), dtype=torch.float32, device=dev) if mode == 1 \
         else None
     out = torch.empty((4,), dtype=torch.float32, device=dev)
+    flags = torch.empty((2 - mode,), dtype=torch.bool, device=dev)
     err = _kernels.library().gf2_window_tests(
         mode, *map(_ptr, win), F, W, *map(_ptr, st),
         ctypes.c_float(outlier_px), ctypes.c_float(focal),
         ctypes.c_float(min_parallax), int(min_tracked), _ptr(stat),
-        *map(_ptr, det), k, M, use_wheel, *map(ctypes.c_float, th),
-        _ptr(scratch), _ptr(tv_out), _ptr(out), _stream(fw.ray))
+        *map(_ptr, det), *strides, k, M, use_wheel, *map(ctypes.c_float, th),
+        _ptr(scratch), _ptr(tv_out), _ptr(out), _ptr(flags), _stream(fw.ray))
     _kernels.check(err, "gf2_window_tests")
     _kernels.count("window_tests")
-    return (tv_out, out) if mode == 1 else out
+    return (tv_out, out, flags) if mode == 1 else (out, flags)
 
 
 def post_solve_tests(fw: FeatureWindow, x: WindowState, outlier_px: float,
@@ -411,9 +421,9 @@ def post_solve_tests(fw: FeatureWindow, x: WindowState, outlier_px: float,
     parallax): kernel U on the card, :func:`post_solve_tests_plain` on the
     CPU. ``stationary``: a bool (tensor)."""
     if fw.ray.is_cuda:
-        tv, out = _window_tests(1, fw, x, outlier_px, focal, min_parallax,
-                                min_tracked, stationary)
-        return tv, out[2] > 0.5, out[0]
+        tv, out, flags = _window_tests(1, fw, x, outlier_px, focal,
+                                       min_parallax, min_tracked, stationary)
+        return tv, flags[0], out[0]
     return post_solve_tests_plain(fw, x, outlier_px, focal, min_parallax,
                                   min_tracked, stationary)
 
@@ -438,9 +448,9 @@ def presolve_tests(fw: FeatureWindow, dp_imu, dp_whl, qio, imu_valid, acc,
     buffers; ``s``: the statics (use_wheel and the thresholds). Kernel U on
     the card, :func:`presolve_tests_plain` on the CPU."""
     if fw.ray.is_cuda:
-        out = _window_tests(0, fw, interval=(dp_imu, dp_whl, qio, imu_valid,
-                                             acc, smask), k=k, statics=s)
-        flags = out[2:4] > 0.5
+        _, flags = _window_tests(0, fw, interval=(dp_imu, dp_whl, qio,
+                                                  imu_valid, acc, smask),
+                                 k=k, statics=s)
         return flags[0], flags[1]
     return presolve_tests_plain(fw, dp_imu, dp_whl, qio, imu_valid, acc,
                                 smask, k, s)

@@ -23,8 +23,10 @@ turn behind a CUDA event) and copied without blocking; the device unpacks
 it by views (:func:`unpack_frame`). The tracker's tail is kernel AH
 (``frontend/track_tail.py``), the carry's writes, slides and record kernel
 AI (``vio/window_carry.py``), the marginalization's algebra kernel AJ, the
-LM loop's glue kernel AN (``solver/lm_glue.py``) and the tick's own small
-ops kernel AO (``vio/tick_glue.py``).
+LM loop's glue kernel AN (``solver/lm_glue.py``), the tick's own small
+ops and the upload's conversions kernel AO (``vio/tick_glue.py``) and
+RANSAC's draws, JAX's ``PRNGKey(frame_idx)`` noise keyed by a device word,
+kernel AQ (``core/prng.py``).
 
 The slide's branch is chosen on the device, as JAX's ``lax.switch`` does:
 on a full window both marginalizations are launched with the keyframe
@@ -37,8 +39,6 @@ Differences from the JAX tick, none of which change its arithmetic:
     run on unwritten buffers (their results unused);
   * the propagation through the new interval and the re-preintegration of
     every interval run as one launch of kernel H (sensors/window_preint.py);
-  * RANSAC draws its Gumbel noise from a ``torch.Generator`` seeded with the
-    frame index, where JAX keys ``PRNGKey(frame_idx)``;
   * the automatic dynamic mask (kernel R, ``frontend/dynamic.py``) runs
     before the tracker frame on the cached lo-res previous frame, and a
     tick without a previous frame skips it (JAX multiplies it by 0).
@@ -57,7 +57,8 @@ from ..core.device import resolve
 from ..frontend import klt
 from ..frontend.clahe import clahe
 from ..frontend.dynamic import dynamic_mask
-from ..frontend.ransac import ransac_f_reject, uniform_draws
+from ..core import prng
+from ..frontend.ransac import ransac_f_reject
 from ..frontend import track_tail
 from ..frontend.tracker import RANSAC_HYPOTHESES, FeatureTracker
 from ..gnss import align, frames as gframes, spp
@@ -81,7 +82,7 @@ class TrackerCarry(NamedTuple):
     prev_norm: torch.Tensor   # [F, 2]
     prev_pyr: list            # [H/2^l, W/2^l] per level
     prev_t: torch.Tensor      # [] f32
-    frame_idx: int            # RANSAC seed
+    frame_idx: torch.Tensor   # [] int32 on the device: RANSAC's key
 
 
 class FusedCarry(NamedTuple):
@@ -222,12 +223,12 @@ def _view_as(b: torch.Tensor, dtype) -> torch.Tensor:
 
 def unpack_frame(buf: torch.Tensor, h, w, hd, wd) -> FrameInputs:
     """The packed buffer (uint8, on the device) as the tick's tensors: views
-    by offset, the image and the depth converted to float32."""
+    by offset, the image and the depth converted to float32 (kernel AO)."""
     M = MAX_IMU_PER_INTERVAL
     n_img, n_depth, _ = _frame_layout(h, w, hd, wd)
-    img = buf[:n_img].view(h, w).to(torch.float32) * (1.0 / 255.0)
-    depth = _view_as(buf[n_img:n_img + n_depth],
-                     torch.float16).view(hd, wd).to(torch.float32)
+    # kernel AO: the image and the depth as float32, one launch
+    img, depth = tick_glue.unpack(buf, n_img, hd * wd)
+    img, depth = img.view(h, w), depth.view(hd, wd)
     misc = _view_as(buf[n_img + n_depth:], torch.float32)
     o = 0
     parts = {}
@@ -249,23 +250,24 @@ def tracker_step(tc: TrackerCarry, img, depth_img, t, cam: Camera,
     """One tracker frame on the carry (pure-function FeatureTracker.track
     with the decimated depth; ``t`` a [] float32 device scalar);
     ``dyn_mask`` [H, W] kills the tracks and blocks the corners inside it.
-    The tail around the kernels is kernel AH, the tracked mask and the
-    Gumbel noise kernel AO. Returns (new carry, FrameObs)."""
+    The tail around the kernels is kernel AH, the draws under
+    ``PRNGKey(frame_idx)`` (read on the device) kernel AQ, the tracked mask
+    and the Gumbel noise kernel AO. Returns (new carry, FrameObs)."""
     F = tc.uv.shape[0]
     if s.equalize:
         img = clahe(img)
     pyr = klt.build_pyramid(img, s.levels)
     pts1, tracked = klt.klt_track(tc.prev_pyr, pyr, tc.uv, tc.alive,
                                   s.half_patch, s.klt_iters, s.fb_thresh)
+    # kernel AQ: the frame's uniforms (none without RANSAC) and the next
+    # frame's index; kernel AO: the tracked mask and the Gumbel noise
+    u, frame_idx = prng.tick_uniforms(
+        tc.frame_idx, RANSAC_HYPOTHESES if s.use_ransac else 0, F)
+    alive, noise = tick_glue.track(tc.alive, tracked, u)
     if s.use_ransac:
-        # kernel AO: the tracked mask and the frame's Gumbel noise
-        alive, noise = tick_glue.track(tc.alive, tracked, uniform_draws(
-            tc.frame_idx, RANSAC_HYPOTHESES, F, tracked.device))
         alive = ransac_f_reject(
             tc.prev_norm, track_tail.lift_norm(cam, pts1), alive, noise,
             thresh=s.f_thresh_px / s.focal)
-    else:
-        alive = tc.alive * tracked
     resp = klt.shi_tomasi(pyr[0])
     if dyn_mask is not None:
         alive, resp = track_tail.kill(alive, pts1, dyn_mask, resp)
@@ -279,7 +281,7 @@ def tracker_step(tc: TrackerCarry, img, depth_img, t, cam: Camera,
                         alive=tl.alive, fresh=tl.fresh)
     return TrackerCarry(uv=tl.uv, alive=tl.alive, prev_norm=tl.norm,
                         prev_pyr=pyr, prev_t=tl.prev_t,
-                        frame_idx=tc.frame_idx + 1), obs
+                        frame_idx=frame_idx), obs
 
 
 def detectors(c: FusedCarry, pre, wpre, k: int, s: FusedStatics):
@@ -541,7 +543,8 @@ class FusedVio:
         tc = TrackerCarry(
             uv=tr.uv, alive=tr.alive, prev_norm=tr.prev_norm, prev_pyr=pyr,
             prev_t=torch.tensor(tr.prev_t or 0.0, dtype=torch.float32, device=dev),
-            frame_idx=tr.frame_idx)
+            frame_idx=torch.tensor(tr.frame_idx, dtype=torch.int32,
+                                   device=dev))
         t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,
                                       device=dev)
         self.gnss_refine_left = lg.gnss_refine_left
@@ -571,7 +574,7 @@ class FusedVio:
         tr.uv, tr.alive, tr.prev_norm = tc.uv, tc.alive, tc.prev_norm
         tr.prev_pyr = list(tc.prev_pyr)
         tr.prev_t = float(tc.prev_t)
-        tr.frame_idx = tc.frame_idx
+        tr.frame_idx = int(tc.frame_idx)
         self.carry = None
         self.frame_count = 0
 

@@ -1,8 +1,9 @@
 """Window optimization problem: factors → one LM solve → marginalization
 prior (port of ``ground_fusion2_tpu/vio/problem.py``).
 
-The normal equations of a linearization are the projection block's, from
-kernel C (``factors.vio_factors.projection_normal_equations``), plus those
+The normal equations of a linearization are the projection block's (with
+the second camera's stereo rows where ``use_stereo`` is set), from kernel C
+(``factors.vio_factors.projection_normal_equations``), plus those
 of the few hundred rows of the other factors (IMU, wheel, plane, GNSS,
 motion, pos-vel, prior), from kernels L and P
 (``factors.vio_factors.small_normal_fn``, packed once a solve). The LM's trial costs are
@@ -52,11 +53,9 @@ class VioMeasurements(NamedTuple):
     prior: MargPrior
     prior_state: WindowState
     frame_dt: torch.Tensor | None = None   # [W-1]
-
-
-def _check_supported(cfg: VioConfig):
-    if cfg.use_stereo:
-        raise NotImplementedError("stereo factors are not ported yet")
+    # the second camera's observations (use_stereo); None when mono
+    stereo_ray: torch.Tensor | None = None    # [F, W, 2]
+    stereo_valid: torch.Tensor | None = None  # [F, W]
 
 
 def window_normal_equations(x0: WindowState, meas: VioMeasurements,
@@ -74,15 +73,15 @@ def window_normal_fn(x0: WindowState, meas: VioMeasurements,
     (:func:`fac.small_normal_fn`; ``packed``: kernel AN's pack), for every
     linearization of a solve. On the card kernel L's reduce adds kernel C's
     block (the sum ``Hp + Hs``), both on ``branch``."""
-    _check_supported(cfg)
     small = fac.small_normal_fn(x0, meas, layout, cfg, packed, branch)
+    stereo = fac.stereo_inputs(meas, cfg)
     feats = meas.feats if packed is None else meas.feats._replace(
         track_valid=packed.track_valid)
 
     def linearize(delta: torch.Tensor):
         proj = fac.projection_normal_equations(
             x0, delta, feats, layout, cfg.proj_sqrt_info, cfg.huber_delta,
-            branch=branch)
+            branch=branch, stereo=stereo)
         if delta.is_cuda:
             return small(delta, add=proj)
         Hs, gs, cs = small(delta)
@@ -122,7 +121,6 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
     active GNSS anchors the window, frame 0's pose is pinned, since GNSS
     observes absolute position and yaw), steps each iteration and retracts
     the result."""
-    _check_supported(cfg)
     dev, dtype = x0.p.device, x0.p.dtype
     pk = lm_glue.pack(x0, meas, layout, cfg, flags=_fixed_flags(
         cfg, fix_yaw=not cfg.refine_gnss_yaw,

@@ -2,15 +2,17 @@
 between its kernels (port of what XLA fuses into
 ``ground_fusion2_tpu/vio/fused.py:297 _solve_tick`` around them).
 
+:func:`unpack` converts the upload (the packed tick buffer's uint8 image
+and float16 depth to float32) for every kernel that reads them.
 :func:`track` runs in the tracker frame after KLT: the tracked mask and
-RANSAC's Gumbel noise from the frame's uniform draws. :func:`pre` runs
-after the propagation (kernel H): the fresh tracks' ``rho_init``,
-triangulation's ``1 − rho_init`` and the propagated pose and speed put
-into column col. :func:`post` runs after the triangulation (kernel T): the
-wheel flag of interval k cleared on an anomaly, ``rho_init`` raised by the
-triangulated tracks, the frames' spacing, the GNSS low-speed gate and the
-stationary flag as a float. Each is one launch on the card and the
-parent's PyTorch ops (``*_plain``) on the CPU.
+RANSAC's Gumbel noise from the frame's uniform draws (kernel AQ's).
+:func:`pre` runs after the propagation (kernel H): the fresh tracks'
+``rho_init``, triangulation's ``1 − rho_init`` and the propagated pose and
+speed put into column col. :func:`post` runs after the triangulation
+(kernel T): the wheel flag of interval k cleared on an anomaly,
+``rho_init`` raised by the triangulated tracks, the frames' spacing, the
+GNSS low-speed gate and the stationary flag as a float. Each is one launch
+on the card and the parent's PyTorch ops (``*_plain``) on the CPU.
 """
 
 from __future__ import annotations
@@ -60,6 +62,36 @@ def _b8(t, name):
 
 def _arr(ctype, vals):
     return (ctype * len(vals))(*vals)
+
+
+def unpack_plain(buf, n_img: int, n_depth: int):
+    img = buf[:n_img].to(torch.float32) * (1.0 / 255.0)
+    raw = buf[n_img:n_img + 2 * n_depth]
+    if raw.storage_offset() % 2:
+        raw = raw.clone()
+    return img, raw.view(torch.float16).to(torch.float32)
+
+
+def unpack(buf, n_img: int, n_depth: int):
+    """(image [n_img], depth [n_depth]) float32 of the packed tick buffer
+    ``buf`` (uint8): its first ``n_img`` bytes, the pixels, times 1/255;
+    the ``2·n_depth`` bytes after them float16 depths. One launch on the
+    card."""
+    if not buf.is_cuda:
+        return unpack_plain(buf, n_img, n_depth)
+    if buf.dtype != torch.uint8 or buf.numel() < n_img + 2 * n_depth:
+        raise ValueError("kernel AO: the tick buffer is uint8, the image's "
+                         "bytes then the depth's")
+    out = torch.empty((n_img + n_depth,), dtype=torch.float32,
+                      device=buf.device)
+    err = _kernels.library().gf2_tick_unpack(
+        ctypes.c_void_p(buf.data_ptr()), n_img, n_depth,
+        ctypes.c_float(1.0 / 255.0), ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(out[n_img:].data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(buf.device).cuda_stream))
+    _kernels.check(err, "gf2_tick_unpack")
+    _kernels.count("tick_glue")
+    return out[:n_img], out[n_img:]
 
 
 def track_plain(alive, tracked, u):

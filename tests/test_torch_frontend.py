@@ -18,6 +18,7 @@ from ground_fusion2_tpu.frontend import ransac as jransac
 from ground_fusion2_tpu_torch.data import render, synthetic as sim
 from ground_fusion2_tpu_torch.frontend import clahe as tclahe
 from ground_fusion2_tpu_torch.frontend import klt as tklt
+from ground_fusion2_tpu_torch.core import prng
 from ground_fusion2_tpu_torch.frontend import ransac as transac
 from ground_fusion2_tpu_torch.frontend.tracker import refill
 
@@ -127,8 +128,9 @@ def test_bilinear_matches_jax(frames):
 
 
 def test_ransac_with_jax_gumbel_draws_matches_jax():
-    """JAX's Gumbel draws for PRNGKey(frame_idx) injected into the port:
-    the same hypotheses, the same surviving mask."""
+    """The port's own Gumbel draws for PRNGKey(frame_idx), JAX's threefry
+    noise (``core/prng.py``): the same hypotheses, the same surviving
+    mask."""
     rng = np.random.default_rng(2)
     F = 150
     X = np.concatenate([rng.uniform(-3, 3, (F, 2)), rng.uniform(2, 8, (F, 1))], 1)
@@ -145,10 +147,9 @@ def test_ransac_with_jax_gumbel_draws_matches_jax():
     keep_j = np.asarray(jransac.ransac_f_reject(
         jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(valid), key,
         thresh=1.0 / 600))
-    g = np.asarray(jax.random.gumbel(key, (64, F)))
     keep_t = transac.ransac_f_reject(
         torch.as_tensor(p1), torch.as_tensor(p2), torch.as_tensor(valid),
-        torch.as_tensor(g), thresh=1.0 / 600).numpy()
+        prng.gumbel_noise(7, 64, F, "cpu"), thresh=1.0 / 600).numpy()
     np.testing.assert_array_equal(keep_t, keep_j)
     assert keep_j[out].sum() == 0 and keep_j.sum() > 0.7 * valid.sum()
 

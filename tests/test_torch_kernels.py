@@ -34,7 +34,11 @@ bit, AM through every switch branch, with their launches a LiDAR tick; the mesh 
 grid on the card equal to their plain routes on the same sweeps; AH's lift
 and tail for every camera model bit for bit; AP (the calibration's normal
 equations and cost) against jacfwd + JᵀJ at δ = 0 and at a seeded δ, and a
-whole calibration on the card meeting the truth gates.
+whole calibration on the card meeting the truth gates; AQ (JAX's threefry
+draws) bit for bit its plain route and jax 0.9.0's answers, one launch a
+draw; C and S's stereo family on the stereo window and its solve; the
+camera tick's folded conversions (AO's unpack, U's flags, H's sum_dt in
+torch's order, Y reading H's covariances in place).
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -436,14 +440,17 @@ def test_preint_kernel_at_any_valid_count(dev, camera, n_valid):
 
 @pytest.mark.parametrize("n_int,M", [(10, 128), (3, 129), (10, 37), (1, 300)])
 def test_preint_kernel_at_any_slot_count(dev, n_int, M):
-    """Kernel H at other buffer shapes: torch's sum_dt over the kernel's
-    dt·mask rows, vectorized (M ≥ 128, rows off a 16-byte boundary at
-    M = 129) and strided (M < 128), tiles past 32 samples; the propagation
-    alone too."""
+    """Kernel H's intervals at the tick's 128 slots (random valid prefixes,
+    tiles past 32 samples, sum_dt in torch's order) and refused at another
+    slot count; the propagation alone at every slot count."""
     from ground_fusion2_tpu_torch.sensors import window_preint as wp
     x = _preint_random(dev, n_int, M)
-    r = checks.check_preint(dev, x, timed=False)
-    assert r["ok"], r
+    if M == wp.SUM_SLOTS:
+        r = checks.check_preint(dev, x, timed=False)
+        assert r["ok"], r
+    else:
+        with pytest.raises(ValueError, match="slots"):
+            wp.preintegrate_window(*x["args"], prop=x["prop"])
     _, _, vk = wp.preintegrate_window(*x["args"], prop=x["prop"],
                                       intervals=False)
     _, _, vp = wp.preintegrate_window_plain(*x["args"], prop=x["prop"],
@@ -493,12 +500,12 @@ def test_klt_kernel_at_the_border_and_on_small_levels(dev, frames, case):
 
 
 @pytest.mark.parametrize("kernel,activities", [
-    ("preint", 2), ("preint alone", 1), ("klt", 1)])
+    ("preint", 1), ("preint alone", 1), ("klt", 1)])
 def test_preint_and_klt_activities_a_call(dev, camera, frames, kernel,
                                           activities):
-    """CUDA activities a call (the profiler's count): H is its kernel and
-    torch's sum_dt with the intervals, its kernel alone for the propagation
-    alone; B is one."""
+    """CUDA activities a call (the profiler's count): H is its kernel alone,
+    with the intervals (sum_dt its own at the tick's 128 slots) and for the
+    propagation alone; B is one."""
     from ground_fusion2_tpu_torch.frontend import klt
     from ground_fusion2_tpu_torch.sensors import window_preint as wp
     if kernel.startswith("preint"):
@@ -538,7 +545,7 @@ def test_device_ms_raises_when_the_calls_run_nothing_on_the_card(dev):
 
 
 def _gumbel(dev, F, seed=12, hypotheses=64):
-    from ground_fusion2_tpu_torch.frontend.ransac import gumbel_noise
+    from ground_fusion2_tpu_torch.core.prng import gumbel_noise
     return gumbel_noise(seed, hypotheses, F, dev)
 
 
@@ -772,7 +779,7 @@ def test_brief_kernels_match_plain(dev, frames):
 
 def test_loop_geom_kernel_matches_plain(dev):
     import numpy as np
-    from ground_fusion2_tpu_torch.frontend.ransac import gumbel_noise
+    from ground_fusion2_tpu_torch.core.prng import gumbel_noise
     rng = np.random.default_rng(0)
     F, M = 150, 90
     ang = rng.normal(scale=0.2, size=3)
@@ -1387,6 +1394,9 @@ def _launch(name, dev):
         from ground_fusion2_tpu_torch.frontend import track_tail
         return track_tail.lift_norm(Pinhole.create(80.0, 80.0, 64.0, 48.0),
                                     torch.ones((8, 2), device=dev))
+    if name == "threefry":
+        from ground_fusion2_tpu_torch.core import prng
+        return prng.gumbel_noise(1, 4, 8, dev)
     if name == "calib_normal":
         from ground_fusion2_tpu_torch.calib import intrinsics as ci
         obj, uv = checks.calib_views(False, n_views=3, nx=4, ny=3)
@@ -1561,8 +1571,8 @@ def _launch(name, dev):
         from ground_fusion2_tpu_torch.sensors.window_preint import (
             preintegrate_window)
         e = m3dgr_camera().estimator
-        b = torch.zeros((2, 5, 3), device=dev)
-        d = torch.zeros((2, 4), device=dev)
+        b = torch.zeros((2, 129, 3), device=dev)
+        d = torch.zeros((2, 128), device=dev)
         one = torch.ones((), device=dev)
         q = torch.tensor([1.0, 0, 0, 0], device=dev)
         return preintegrate_window(b, b, b, d, d, b[:, 0], b[:, 0], one, one,
@@ -1697,8 +1707,9 @@ def test_glue_kernels_launch_a_tick(dev, camera):
     """A fused tick with the window full: AH twice (lift, tail), AI twice
     (write, slide), AJ ten times (both marginalizations, each on its
     branch), AN once a solve's pack, step (8) and retraction and once
-    each MARGIN_OLD's pack and MARGIN_SECOND_NEW's weigh, AO twice (three
-    times with RANSAC: its noise)."""
+    each MARGIN_OLD's pack and MARGIN_SECOND_NEW's weigh, AO four times
+    (the upload's conversions, the tracked mask with RANSAC's noise, pre,
+    post), AQ once (the frame's draw and next index, RANSAC on or off)."""
     import copy
     cfg, fv, fs, _ = camera
     fv2 = copy.copy(fv)
@@ -1708,13 +1719,13 @@ def test_glue_kernels_launch_a_tick(dev, camera):
                       wheel_vel=f["wheel"])
     got = {k: _kernels.launches[k] for k in ("track_tail", "window_carry",
                                               "marg_schur", "lm_glue",
-                                              "tick_glue")}
+                                              "tick_glue", "threefry")}
     full = fv.frame_count >= checks.NUM_FRAMES
     iters = cfg.estimator.vio.max_iters
     assert got == dict(track_tail=2, window_carry=2,
                        marg_schur=10 if full else 0,
                        lm_glue=iters + 2 + (2 if full else 0),
-                       tick_glue=2 + cfg.tracker.use_ransac), got
+                       tick_glue=4, threefry=1), got
 
 
 def test_lm_glue_kernel_matches_plain(dev, camera):
@@ -1728,9 +1739,10 @@ def test_lm_glue_kernel_matches_plain(dev, camera):
 
 
 def test_tick_glue_kernel_matches_plain(dev, camera):
-    """AO's track (the tracked mask, the Gumbel noise), pre (the new column
-    last and in the middle) and post (with and without an anomaly, the GNSS
-    gate both ways, a middle column), bit for bit."""
+    """AO's unpack (a 640 × 480 frame and an odd-sized one), track (the
+    tracked mask, the Gumbel noise), pre (the new column last and in the
+    middle) and post (with and without an anomaly, the GNSS gate both ways,
+    a middle column), bit for bit."""
     _, fv, _, _ = camera
     r = checks.check_tick_glue(dev, fv, timed=False)
     assert r["ok"], r
@@ -1864,10 +1876,128 @@ def test_mesh_and_grid_on_the_card_equal_the_plain_route(dev):
                                   "line_refit", "dist_schur", "map_schur",
                                   "track_tail", "window_carry", "marg_schur",
                                   "ct_glue", "voxel_glue", "lio_update",
-                                  "calib_normal"])
+                                  "calib_normal", "threefry"])
 def test_cuda_tensor_never_takes_the_plain_path(dev, monkeypatch, name):
     """A failed launch raises; nothing falls back to the plain version."""
     monkeypatch.setattr(_kernels, "check", lambda err, name: (_ for _ in ()).throw(
         RuntimeError(f"{name}: forced failure")))
     with pytest.raises(RuntimeError, match="forced failure"):
         _launch(name, dev)
+
+
+def test_threefry_kernel_matches_plain_and_jax(dev):
+    """AQ's tick draw (a device word, and the next word), a seed's Gumbel
+    noise and the loop's split keys and noise, each bit for bit its plain
+    route and jax 0.9.0's recorded answers, twice the same bits."""
+    r = checks.check_threefry(dev, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("mode", ["tick", "gumbel", "split", "word"])
+def test_threefry_one_launch_a_draw(dev, mode):
+    from ground_fusion2_tpu_torch.core import prng
+    word = torch.full((), 7, dtype=torch.int32, device=dev)
+    fn = dict(tick=lambda: prng.tick_uniforms(word, 64, 150),
+              word=lambda: prng.tick_uniforms(word, 0, 150),
+              gumbel=lambda: prng.gumbel_noise(7, 64, 150, dev),
+              split=lambda: prng.split_gumbel(7, 128, 150, dev))[mode]
+    t = checks.device_ms(fn, reps=5)
+    assert t.launches == 1, t
+
+
+def test_threefry_tick_word_is_read_on_the_device(dev):
+    """The tick's draw reads its key from the word: the launches are the
+    same for every frame, and the word's value (not the launch) picks the
+    noise."""
+    from ground_fusion2_tpu_torch.core import prng
+    w = torch.full((), 3, dtype=torch.int32, device=dev)
+    a, n1 = prng.tick_uniforms(w, 64, 150)
+    w.fill_(4)
+    b, n2 = prng.tick_uniforms(w, 64, 150)
+    assert torch.equal(a, prng.uniform(prng.key(3, dev), (64, 150)))
+    assert torch.equal(b, prng.uniform(prng.key(4, dev), (64, 150)))
+    assert int(n1) == 4 and int(n2) == 5
+    u, n3 = prng.tick_uniforms(w, 0, 150)     # a tick without RANSAC
+    assert tuple(u.shape) == (0, 150) and int(n3) == 5
+
+
+@pytest.fixture(scope="module")
+def stereo(dev):
+    return checks.stereo_window(150, dev), checks.stereo_config(150)
+
+
+def test_stereo_rows_in_kernel_c_match_plain(dev, stereo):
+    sw, cfg = stereo
+    r = checks.check_proj(dev, sw["x0"], sw["feats"], sw["layout"],
+                          sw["delta"], cfg.proj_sqrt_info, timed=False,
+                          stereo=sw["stereo"])
+    assert r["ok"], r
+
+
+def test_stereo_rows_in_kernel_s_match_plain(dev, stereo):
+    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
+    from ground_fusion2_tpu_torch.vio import problem
+    sw, cfg = stereo
+    zero = torch.zeros(sw["layout"].dim, device=dev)
+    H, g, _ = problem.window_normal_equations(sw["x0"], sw["meas"],
+                                              sw["layout"], cfg, zero)
+    step = _solve_damped(H, g, torch.full((), 1e-4, device=dev),
+                         torch.ones(sw["layout"].dim, device=dev))
+    r = checks.check_window_cost(dev, sw["x0"], sw["meas"], sw["layout"], cfg,
+                                 dict(zero=zero, step=step, back=-step),
+                                 timed=False)
+    assert r["ok"], r
+
+
+def test_stereo_off_is_the_mono_launch(dev, stereo):
+    """The stereo inputs present but use_stereo clear: C and S give the
+    bits of the measurements without them."""
+    from ground_fusion2_tpu_torch.factors import vio_factors as fac
+    sw, cfg = stereo
+    mono = cfg._replace(use_stereo=False)
+    bare = sw["meas"]._replace(stereo_ray=None, stereo_valid=None)
+    a = fac.projection_normal_equations(sw["x0"], sw["delta"], sw["feats"],
+                                        sw["layout"], cfg.proj_sqrt_info)
+    b = fac.projection_normal_equations(sw["x0"], sw["delta"], sw["feats"],
+                                        sw["layout"], cfg.proj_sqrt_info,
+                                        stereo=None)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    c1 = fac.window_cost_fn(sw["x0"], sw["meas"], sw["layout"], mono)(
+        sw["delta"])
+    c2 = fac.window_cost_fn(sw["x0"], bare, sw["layout"], mono)(sw["delta"])
+    assert torch.equal(c1, c2)
+
+
+def test_stereo_solve_on_the_card(dev, stereo):
+    """solve_window and marginalize_oldest with use_stereo: positions under
+    tests/test_window_ba.py's 0.01 m of the truth, C and S launched, a
+    finite prior."""
+    from ground_fusion2_tpu_torch.vio import problem
+    sw, cfg = stereo
+    _kernels.launches.clear()
+    out = problem.solve_window(sw["x0"], sw["meas"], sw["layout"], cfg)
+    prior = problem.marginalize_oldest(out.state, sw["meas"], sw["layout"],
+                                       cfg)
+    err = float((out.state.p - sw["p_true"]).norm(dim=-1).max())
+    assert err < 0.01, err
+    assert _kernels.launches["proj_normal"] > 0
+    assert _kernels.launches["window_cost"] > 0
+    assert bool(torch.isfinite(prior.sqrt_J).all())
+
+
+def test_folded_conversions_equal_torchs(dev, camera):
+    """The camera tick's conversions folded into kernels: U's flags equal
+    torch's ``out > 0.5`` of its floats, H's sum_dt torch's sum of its
+    rows, Y on H's covariances in place equal to Y on their copies."""
+    from ground_fusion2_tpu_torch.vio.state import NUM_FRAMES
+    cfg, fv, _, _ = camera
+    fw, st, _, interval = checks.window_stage_inputs(fv)
+    W = fw.obs_valid.shape[1]
+    r = checks.check_window_tests(dev, fw, st, fv.statics, torch.zeros(
+        (), dtype=torch.bool, device=dev), interval, W - 2)
+    assert r["folded_flags_equal"], r
+    p = checks.check_preint(dev, checks.preint_inputs(
+        fv.carry, fv.statics, cfg.estimator.imu_noise,
+        cfg.estimator.wheel_noise, NUM_FRAMES - 1), timed=False)
+    assert p["ok"] and p["glue_equal"]["sum_dt"], p
+    assert p["glue_equal"]["sqrt_info in place"], p

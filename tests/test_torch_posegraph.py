@@ -6,8 +6,9 @@ Tolerances: BRIEF bits and Hamming distances exact (the same bilinear
 samples in the same operation order); the simhash descriptor 1e-5 (an f32
 256-term product in another order); the loop geometry's R, t 1e-4 with an
 equal inlier count, and the pose-graph solves 1e-4 m / 1e-4 rad (8 f32 LM
-steps of a Cholesky in another order). The hypotheses' Gumbel noise is JAX's
-own draws, handed to the port (the two generators give different streams).
+steps of a Cholesky in another order). The hypotheses' Gumbel noise is the
+port's own draw (``core/prng.py``), JAX's threefry noise: nothing is handed
+across.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ from ground_fusion2_tpu.frontend import klt as jklt
 from ground_fusion2_tpu.posegraph import brief as jbrief
 from ground_fusion2_tpu.posegraph import pose_graph as jpg
 from ground_fusion2_tpu_torch.config import PoseGraphConfig
+from ground_fusion2_tpu_torch.core import prng
 from ground_fusion2_tpu_torch.posegraph import brief, pose_graph as pg
 
 torch.set_num_threads(1)
@@ -53,11 +55,6 @@ def rot_angle(qa, qb):
     v = (qb[..., :1] * qa[..., 1:] - qa[..., :1] * qb[..., 1:]
          - np.cross(qb[..., 1:], qa[..., 1:]))
     return 2 * np.arctan2(np.linalg.norm(v, axis=-1), w)
-
-
-def jax_gumbel(i, j, K, F):
-    keys = jax.random.split(jax.random.PRNGKey(int(i) * 7919 + int(j)), K)
-    return np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (F,)))(keys))
 
 
 @pytest.fixture(scope="module")
@@ -131,7 +128,7 @@ def test_loop_geometry_matches_jax(seed):
     Rj, tj, nj = jpg._loop_geometry_dev(
         *(jnp.asarray(a) for a in x), jnp.asarray(thresh, jnp.float32),
         jax.random.PRNGKey(seed * 7919 + 3), K=K)
-    g = torch.as_tensor(jax_gumbel(seed, 3, K, F))
+    g = prng.split_gumbel(seed * 7919 + 3, K, F, "cpu")[1]   # JAX's noise
     Rt, tt, nt = pg.loop_geometry(*(torch.as_tensor(a) for a in x), thresh, g)
     assert int(nt) == int(nj) >= 40
     assert np.abs(Rt.numpy() - np.asarray(Rj)).max() < 1e-4
@@ -227,7 +224,6 @@ def test_pose_graph_sequence_matches_jax(six):
               six_dof=six)
     jg = jpg.PoseGraph(jpg.PoseGraphConfig(**kw))
     tg = pg.PoseGraph(PoseGraphConfig(**kw), device="cpu")
-    tg._gumbel = lambda i, j: torch.as_tensor(jax_gumbel(i, j, 128, 48))
     for fr in _square_sequence(six):
         for graph in (jg, tg):
             graph.detect_loop(graph.add_keyframe(*fr))

@@ -17,6 +17,7 @@ import torch
 
 import torch_ransac_model as model
 from ground_fusion2_tpu_torch import checks
+from ground_fusion2_tpu_torch.core import prng
 
 torch.set_num_threads(1)
 SOURCE = (Path(__file__).resolve().parents[1] / "ground_fusion2_tpu_torch"
@@ -36,8 +37,10 @@ def tracks(seed: int, n_valid: int = F - 2, **kw):
 
 
 def jax_draws(valid: np.ndarray, seed: int, k: int = HYPOTHESES):
-    """g and the sample indices as JAX's ``ransac_f_reject`` draws them."""
-    g = jax.random.gumbel(jax.random.PRNGKey(seed), (k, valid.shape[0])) + \
+    """g and the sample indices as JAX's ``ransac_f_reject`` draws them
+    (the noise the port's own, ``core/prng.py``: JAX's bits)."""
+    noise = prng.gumbel_noise(seed, k, valid.shape[0], "cpu").numpy()
+    g = jnp.asarray(noise) + \
         jnp.log(jnp.maximum(jnp.asarray(valid), 1e-30))[None, :]
     return np.asarray(g), np.asarray(jax.lax.top_k(g, 8)[1])
 

@@ -410,16 +410,11 @@ class JaxScriptedVio:
                           wheel_anomaly=False, tracked=50, cost=0.0)
 
 
-def _jax_gumbel(i, j, K, F):
-    keys = jax.random.split(jax.random.PRNGKey(int(i) * 7919 + int(j)), K)
-    return np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, (F,)))(keys))
-
-
 @pytest.fixture(scope="module")
 def loop_runs():
     """tests/test_system_loop.py's scripted loop drive (60 keyframes on the
     closed circle, 256×192, F = 64) through both packages' GroundFusion with
-    loop closure, JAX's Gumbel draws handed to the port."""
+    loop closure, each drawing its own noise (the port's is JAX's)."""
     from ground_fusion2_tpu.posegraph.pose_graph import PoseGraphConfig as JPG
     from ground_fusion2_tpu_torch import checks
     from ground_fusion2_tpu_torch.config import (EstimatorConfig,
@@ -437,7 +432,6 @@ def loop_runs():
         use_loop_closure=True, pose_graph=PoseGraphConfig(**LOOP_PG, **ext),
         cam_intr=LOOP_INTR), device="cpu", **ext)
     tg.vio = checks.ScriptedVio(poses)
-    tg.pg._gumbel = lambda i, j: torch.as_tensor(_jax_gumbel(i, j, 128, 64))
     for gf in (jg, tg):
         for f in drive:
             gf.process_camera(f["t"], None, checks.LOOP_IMU, img=f["gray"],

@@ -13,7 +13,10 @@ headers beside them) into ``build/parent_bits/`` and binds each entry point
 with the argument list of the parent's own ``_kernels.py``
 (:class:`ParentLib`): where it is this tree's, this tree's wrapper calls
 it; where this tree only added the slide's branch (and L's reduce kernel
-C's added block), a shim drops them (null in every call here); H's and B's
+C's added block), a shim drops them (null in every call here); where this
+tree's H writes sum_dt where the parent's wrote its dt·mask rows, a shim
+gives the parent's H a buffer for the rows and writes their torch sum
+into sum_dt, as the parent's wrapper summed them; H's and B's
 interfaces of commit 4141781 go through ``parent_preint`` and
 ``parent_klt``. Compares, each output with ``torch.equal``:
 
@@ -65,6 +68,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from ground_fusion2_tpu_torch import _kernels, checks  # noqa: E402
+from ground_fusion2_tpu_torch.core import prng  # noqa: E402
 from ground_fusion2_tpu_torch.factors import vio_factors as fac  # noqa: E402
 from ground_fusion2_tpu_torch.frontend import ransac as rs  # noqa: E402
 from ground_fusion2_tpu_torch.lio import ct_icp as ci  # noqa: E402
@@ -90,16 +94,27 @@ def _null(arg) -> bool:
     return isinstance(arg, ctypes.c_void_p) and arg.value is None
 
 
+def _device_floats(ptr, n: int) -> torch.Tensor:
+    """The n float32 on the current card at ``ptr`` as a tensor (no copy)."""
+    class Floats:
+        __cuda_array_interface__ = dict(shape=(n,), typestr="<f4",
+                                        data=(ptr.value, False), strides=None,
+                                        version=2)
+    return torch.as_tensor(Floats(), device="cuda")
+
+
 class ParentLib:
     """The parent's library as this tree's wrappers call it. ``interface``
     maps an entry point to how it is called: "same" (the parent's argument
     list is this tree's), "branch added" (this tree appended the slide's
     ``branch, want`` before the stream: dropped, the branch must be null),
     "branch and block added" (L's reduce: also kernel C's ``addH, addg,
-    addc`` before its outputs, which must be null) or "parent's own" (H's
-    and B's of commit 4141781: ``parent_preint``, ``parent_klt``)."""
+    addc`` before its outputs, which must be null), "rows summed here" (an
+    H of this tree's arguments that writes the dt·mask rows, ``preint_rows``:
+    ``_sum_rows``) or "parent's own" (H's and B's of commit 4141781:
+    ``parent_preint``, ``parent_klt``)."""
 
-    def __init__(self, lib, parent_sigs: dict):
+    def __init__(self, lib, parent_sigs: dict, preint_rows: bool):
         self._lib = lib
         self.interface = {}
         own = _kernels._SIGNATURES
@@ -107,7 +122,10 @@ class ParentLib:
             theirs, ours = parent_sigs[fn], own[fn]
             entry = getattr(lib, fn)
             entry.argtypes, entry.restype = theirs, I
-            if theirs == ours:
+            if fn == "gf2_preint" and theirs == ours and preint_rows:
+                self.interface[fn] = "rows summed here"
+                setattr(self, fn, self._sum_rows(entry))
+            elif theirs == ours:
                 self.interface[fn] = "same"
             elif ours == theirs[:-1] + [P, I, P]:
                 self.interface[fn] = "branch added"
@@ -137,6 +155,22 @@ class ParentLib:
             if not _null(branch):
                 raise ValueError("the parent's kernels take no branch")
             return entry(*head, stream)
+        return call
+
+    @staticmethod
+    def _sum_rows(entry):
+        """The parent's H, whose output before the propagation's is the
+        dt·mask rows [B, M] where this tree's is sum_dt [B]: the rows go to
+        a buffer of their own, and torch's sum of each into sum_dt, on the
+        launch's stream (the parent's wrapper's ``h_out.sum(-1)``)."""
+        def call(*args):
+            B, M = args[11], args[12]
+            *head, sum_out, prop_out, stream = args
+            rows = torch.empty((B, M), dtype=torch.float32, device="cuda")
+            err = entry(*head, P(rows.data_ptr()), prop_out, stream)
+            if not err and B:
+                _device_floats(sum_out, B).copy_(rows.sum(-1))
+            return err
         return call
 
     @staticmethod
@@ -180,7 +214,9 @@ def build_parent(parent: Path) -> ParentLib:
     lib_path = OUT / "libparent.so"
     subprocess.run([nvcc, *_kernels.LINK_FLAGS, "-o", str(lib_path),
                     *map(str, objs)], check=True)
-    lib = ParentLib(ctypes.CDLL(str(lib_path)), sigs)
+    # every H before its sum_dt moved into the kernel writes the rows
+    rows = "sum_out" not in (csrc / "preint.cu").read_text()
+    lib = ParentLib(ctypes.CDLL(str(lib_path)), sigs, rows)
     print(json.dumps(dict(parent=str(parent), interface=lib.interface)),
           flush=True)
     return lib
@@ -559,7 +595,7 @@ def compare_ransac(lib, name, cam, tracks, thresh) -> bool:
     p1 = normalized(cam, tracks["uv0"]).contiguous()
     p2 = normalized(cam, tracks["uv1"]).contiguous()
     valid = tracks["alive"].to(torch.float32).contiguous()
-    g = rs.gumbel_noise(SEED, HYPOTHESES, valid.shape[0], p1.device)
+    g = prng.gumbel_noise(SEED, HYPOTHESES, valid.shape[0], p1.device)
     new = rs.ransac_f_cuda(p1, p2, valid, g, thresh)
     with library(lib):
         old = rs.ransac_f_cuda(p1, p2, valid, g, thresh)

@@ -15,13 +15,13 @@ fusion over ``checks.gnss_drive()``), each run once a route:
 - ``X_float``: the marginalization eliminated in float32, kernel X
   instantiated in float (the JAX package's precision; the port eliminates
   in float64);
-- ``cpu_draws``: every kernel, with RANSAC's Gumbel draws taken from a CPU
-  ``torch.Generator`` (as ``FusedVio(device="cpu")`` draws them) and moved
-  to the card, in place of the card's own generator: step C of the chain
-  J, A, B, C, P that splits phase 4's gap to the JAX package
-  (``tests/torch_system_reference.py`` runs J, A and B on the CPU). The draw
-  sites are patched from here (the fused tick's and the warm-up tracker's);
-  the port has no knob for it.
+- ``cpu_draws``: every kernel, with RANSAC's draws computed on the CPU by
+  kernel AQ's plain route (``core/prng.py``, as ``FusedVio(device="cpu")``
+  draws them) and moved to the card in place of AQ's: AQ gives the plain
+  route's bits, so this run must print the ``kernels`` figures (the chain
+  J, A, P of ``tests/torch_system_reference.py``). The draw sites are
+  patched from here (the fused tick's and the warm-up tracker's); the port
+  has no knob for it.
 
 Printed: each run's ATE (phase 4: aligned; phase 10: unaligned after init)
 and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
@@ -42,6 +42,7 @@ import torch
 
 from ground_fusion2_tpu_torch import checks
 from ground_fusion2_tpu_torch.config import groundchallenge_gnss, m3dgr_camera
+from ground_fusion2_tpu_torch.core import prng
 from ground_fusion2_tpu_torch.core.cameras import Pinhole
 from ground_fusion2_tpu_torch.eval import metrics
 from ground_fusion2_tpu_torch.factors import vio_factors as fac
@@ -64,15 +65,29 @@ def _plain_cost_fn(x0, meas, layout, cfg):
     return lambda delta: fac.window_cost_plain(x0, delta, meas, layout, cfg)
 
 
+class _TickDraws:
+    """``core/prng`` as the fused tick sees it, its ``tick_uniforms``
+    drawing through ``fn`` (the frame's word read on the host)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def tick_uniforms(self, word, hypotheses, n):
+        return self.fn(int(word), hypotheses, n, word.device), word + 1
+
+
 def draw_sites(fn):
     """The (module, attribute, replacement) triples that route every RANSAC
-    draw of the camera path (the fused tick's and the warm-up tracker's)
-    through ``fn(seed, hypotheses, n, device)``."""
-    return [(vfused, "gumbel_noise", fn), (ftracker, "gumbel_noise", fn)]
+    draw of the camera path (the fused tick's uniforms and the warm-up
+    tracker's Gumbel noise) through ``fn(seed, hypotheses, n, device)``,
+    the uniforms of ``PRNGKey(seed)``."""
+    return [(vfused, "prng", _TickDraws(fn)),
+            (ftracker, "gumbel_noise",
+             lambda seed, k, n, device: ransac.gumbel(fn(seed, k, n, device)))]
 
 
 def _cpu_draws(seed, hypotheses, n, device):
-    return ransac.gumbel_noise(seed, hypotheses, n, "cpu").to(device)
+    return prng.uniform(prng.key(seed), (hypotheses, n)).to(device)
 
 
 PLAIN = {

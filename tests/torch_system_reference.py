@@ -20,19 +20,17 @@ phase 4 drives the port's: the same configuration, the synthetic rig
 by 2, not pipelined; it prints the aligned ATE of the initialized outputs,
 the figure phase 4 prints beside its own.
 
-``port-jax-draws`` and ``port-cpu-draws`` run the port's ``FusedVio`` on
-the CPU over the same drive (``tests/torch_route_attribution.py``'s
-``camera_run``), with RANSAC's Gumbel draws taken from
-``jax.random.gumbel(PRNGKey(frame_idx), (64, F))`` as the JAX tick takes
-them, or from the port's own CPU ``torch.Generator``. With ``camera`` (J)
-and ``torch_route_attribution.py``'s ``cpu_draws`` and ``kernels`` routes on
-the card (C, P) they make the chain J, A, B, C, P that splits phase 4's gap
-to JAX: A − J is the port's route against JAX's on the same draws, B − A
-the draw, C − B the kernels, P − C the card's own draw. Each prints the
-initialized outputs' positions beside the ATE.
+``port-jax-draws`` runs the port's ``FusedVio`` on the CPU over the same
+drive (``tests/torch_route_attribution.py``'s ``camera_run``) with its own
+RANSAC draws, which are the JAX tick's (``core/prng.py``: JAX's threefry
+``gumbel(PRNGKey(frame_idx), (64, F))``): the port-CPU figure phase 4
+prints. With ``camera`` (J) and ``torch_route_attribution.py``'s
+``kernels`` route on the card (P) it splits phase 4's gap to JAX: A − J is
+the port's route against JAX's on the same draws, P − A the kernels. It
+prints the initialized outputs' positions beside the ATE.
 
     PYTHONPATH=. python tests/torch_system_reference.py \
-        [mesh | camera | port-jax-draws | port-cpu-draws] [n_frames]
+        [mesh | camera | port-jax-draws] [n_frames]
 
 Not a test (pytest collects ``test_*.py`` only): a full-width run takes
 about three minutes on a CPU.
@@ -94,33 +92,24 @@ def camera(n: int = 32, f64_prior: bool = False) -> dict:
                 p=np.asarray(est).tolist(), seconds=time.time() - t0)
 
 
-def jax_draws(seed, hypotheses, n, device):
-    """The JAX tick's RANSAC draws, ``jax.random.gumbel(PRNGKey(frame_idx),
-    (hypotheses, F))``, as a torch tensor on ``device``."""
-    import torch
-    g = jax.random.gumbel(jax.random.PRNGKey(int(seed)), (hypotheses, n))
-    return torch.from_numpy(np.asarray(g, np.float32)).to(device)
-
-
-def port_camera(n: int = 32, draws: str = "jax",
-                jax_prior: bool = False) -> dict:
-    """Phase 4's drive through the port's FusedVio on the CPU, with JAX's
-    draws (``draws="jax"``, step A) or the port's own CPU draws
-    (``"cpu"``, B); with ``jax_prior``, its marginalization eliminating
-    through the JAX package's float32 one."""
+def port_camera(n: int = 32, jax_prior: bool = False) -> dict:
+    """Phase 4's drive through the port's FusedVio on the CPU, with its own
+    draws (JAX's, step A); with ``jax_prior``, its marginalization
+    eliminating through the JAX package's float32 one."""
     import torch
     import torch_route_attribution as ra
     from torch_gnss_reference import jax_f32_elimination
     from ground_fusion2_tpu_torch.vio import problem
     jax.config.update("jax_platforms", "cpu")
     frames = checks.room_drive(n)
-    sites = ra.draw_sites(jax_draws) if draws == "jax" else []
+    sites = []
     if jax_prior:
         sites.append((problem, "marginalize", jax_f32_elimination))
     t0 = time.time()
     with ra.patched(sites):
         r = ra.camera_run(torch.device("cpu"), frames)
-    return dict(frames=n, draws=draws, jax_prior=jax_prior, **r,
+    return dict(frames=n, draws="the port's own (JAX's)", jax_prior=jax_prior,
+                **r,
                 seconds=time.time() - t0)
 
 
@@ -165,14 +154,13 @@ def main(n: int = 40, mesh: bool = False) -> dict:
 if __name__ == "__main__":
     args = sys.argv[1:]
     modes = ("mesh", "camera", "camera-f64", "port-jax-draws",
-             "port-jax-draws-jax-prior", "port-cpu-draws")
+             "port-jax-draws-jax-prior")
     mode = args.pop(0) if args and args[0] in modes else None
     n = int(args[0]) if args else 32
     if mode in ("camera", "camera-f64"):
         print(json.dumps(camera(n, f64_prior=mode == "camera-f64")))
     elif mode is not None and mode.startswith("port-"):
-        print(json.dumps(port_camera(n, mode.split("-")[1],
-                                     jax_prior=mode.endswith("jax-prior"))))
+        print(json.dumps(port_camera(n, jax_prior=mode.endswith("jax-prior"))))
     else:
         print(json.dumps(main(int(args[0]) if args else 40,
                               mesh=mode == "mesh")))

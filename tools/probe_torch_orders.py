@@ -1,8 +1,8 @@
 """Which order of operations PyTorch's ops take on this device, for the
 small reductions, cross products and matrix products of the LiDAR tick's
 glue (kernels AK, AL, AM replay them bit for bit) and of the camera tick's
-(kernel AN's retraction of the window, kernel AO's GNSS gate), and for the
-norms of kernel AH's rays.
+(kernel AN's retraction of the window, kernel AO's GNSS gate, kernel H's
+sum_dt), and for the norms of kernel AH's rays.
 
     PYTHONPATH=. python3 tools/probe_torch_orders.py [--device cuda] [--n 65536]
 
@@ -216,6 +216,32 @@ def small_sums(x) -> dict:
     return out
 
 
+def row_sums(x) -> dict:
+    """torch.sum of the contiguous rows x [..., n] (n a multiple of 4·32):
+    serially, pairwise, or as a CUDA reduce may take a row: B lanes, lane l
+    loading vectors of vec entries l, l + B, ... (vector i, entry e into
+    slot e), its slots combined in order, the lanes by a shuffle tree with
+    ascending or descending offsets."""
+    n = x.shape[-1]
+    a = [x[..., i] for i in range(n)]
+    out = {"seq": _tree(a, "seq"), "pair": _tree(a, "pair")}
+    for vec in (1, 2, 4):
+        for B in (4, 8, 16, 32):
+            lanes = []
+            for lane in range(B):
+                slots = [torch.zeros_like(a[0]) for _ in range(vec)]
+                for v0 in range(lane * vec, n, B * vec):
+                    for e in range(vec):
+                        slots[e] = slots[e] + a[v0 + e]
+                s = slots[0]
+                for sl in slots[1:]:
+                    s = s + sl
+                lanes.append(s)
+            for how, name in (("down", "ascending"), ("xor", "descending")):
+                out[f"vec={vec} B={B} {name}"] = _tree(lanes, how)
+    return out
+
+
 def cross(a, b) -> dict:
     a0, a1, a2 = a.unbind(-1)
     b0, b1, b2 = b.unbind(-1)
@@ -321,6 +347,20 @@ def probe(dev, n: int, seed: int = 0, only_best: bool = True) -> dict:
     ref = torch.stack([v.sum() for v in vs])
     cands = small_sums(torch.stack(vs))
     name = "sum [11] (the GNSS gate's mean speed)"
+    res[name] = {kk: share(ref, v) for kk, v in cands.items()}
+    top = sorted(res[name].items(), key=lambda kv: -kv[1])[:8]
+    print(f"{name}: " + json.dumps(dict(top)), flush=True)
+    # kernel H's sum_dt: the [10, 128] rows of dt·mask (a prefix of each
+    # interval's 128 slots valid, the rest 0) summed over the last dim
+    M = 128
+    rows = []
+    for _ in range(256):
+        d = torch.rand(10, M, generator=g) * 0.01
+        n_valid = torch.randint(1, M + 1, (10, 1), generator=g)
+        rows.append((d * (torch.arange(M)[None] < n_valid)).to(dev))
+    ref = torch.stack([t.sum(-1) for t in rows])
+    cands = row_sums(torch.stack(rows))
+    name = "sum [10,128] dim -1 (kernel H's sum_dt)"
     res[name] = {kk: share(ref, v) for kk, v in cands.items()}
     top = sorted(res[name].items(), key=lambda kv: -kv[1])[:8]
     print(f"{name}: " + json.dumps(dict(top)), flush=True)

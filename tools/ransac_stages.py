@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ground_fusion2_tpu_torch import _kernels, checks
-from ground_fusion2_tpu_torch.frontend import ransac as rs
+from ground_fusion2_tpu_torch.core import prng
 from stage_stamps import build, card, read, reset
 
 REPS = 20
@@ -81,7 +81,7 @@ def main(dirs) -> int:
         return 2
     dev = torch.device("cuda:0")
     p1, p2, valid = checks.ransac_points(dev, 150)
-    g = rs.gumbel_noise(12, 64, 150, dev)
+    g = prng.gumbel_noise(12, 64, 150, dev)
     name_power = card()
     for d in dirs:
         lib, names = build(Path(d), "ransac_f.cu",
