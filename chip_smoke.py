@@ -45,21 +45,25 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
      iterations) over 60 scans of the bench_lio room drive (4096 rays,
      5 mm noise, seed 0, 20 IMU samples a scan), the sensor 1 m above the
-     floor. It must initialize, run ≥ 50 fused ticks, launch D-G and the
-     glue kernels AK (CT-ICP's step, points and weights), AL (the keypoint
-     and voxel-map glue around F) and AM (the ESKF's observations, the
-     select, the switch and the record) during them, stay finite, flag no
-     scan degenerate after the second, sync the host once a tick (the
-     record read), and keep the position error after aligning the first
-     output < 0.06 m. Then kernel Y against its plain versions: the ESKF's
-     6×6 innovation inverse (the plain route's; AM runs the same device
-     code), CT-ICP's damped 12×12
-     solve and degeneracy test on the next scan's inputs, the square-root
+     floor. It must initialize, run ≥ 50 fused ticks, launch D-G (E on
+     every GN iteration with Y's damped solve in its last CTA, Y's own
+     solve launch never) and the glue kernels AK (CT-ICP's step, points
+     and weights), AL (the keypoint and voxel-map glue around F) and AM
+     (the ESKF's observations, the select, the switch and the record)
+     during them, stay finite, flag no scan degenerate after the second,
+     sync the host once a tick (the record read), and keep the position
+     error after aligning the first output < 0.06 m; the last 3 ticks'
+     launches and device ms by kernel are printed (torch.profiler). Then
+     kernel Y against its plain versions: the ESKF's 6×6 innovation
+     inverse (the plain route's; AM runs the same device code), CT-ICP's
+     damped 12×12 solve (its standalone launch; E runs the same device
+     code) and degeneracy test on the next scan's inputs, the square-root
      informations of phase 4's final window (each against float64 within
      max(1e-5, 3× the plain route's error), the flags equal unless within
      1e-4 of a threshold);
   6. LiDAR kernels: D-G against their plain versions on the map the drive
-     filled, at K = 2000 and M = 48 (F also through an insert, an insert
+     filled, at K = 2000 and M = 48, and E with the solve against E alone
+     and Y's launch bit for bit (F also through an insert, an insert
      that overflows capacity and a recenter, bit-exact against the CPU);
      AK's points (keypoints, the scan), weights and step (from done = 0,
      frozen, at the midpoint with and without a re-gather), AL's every
@@ -370,9 +374,16 @@ MASK_COVER = 0.7       # tests/test_dynamic_mask.py:57
 DYN_FRAMES = 40
 LOOP_KEYFRAMES = 60
 LOOP_MAX_RATIO = 0.6   # published / raw endpoint error (test_system_loop.py)
+# ct_icp_solve: kernel E's launches whose last CTA runs Y's damped solve
+# (icp_solve_warp.cuh), the solve's only route on the path
 LIDAR_KERNELS = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict",
-                 "icp_solve", "degeneracy", "ct_glue", "voxel_glue",
+                 "ct_icp_solve", "degeneracy", "ct_glue", "voxel_glue",
                  "lio_update")
+# phase 5: each launched during the drive; Y's standalone solve never
+LIO_PATH_KERNELS = ("lio_assoc", "ct_icp_normal", "ct_icp_solve",
+                    "radix_sort", "eskf_predict", "ct_glue", "voxel_glue",
+                    "lio_update")
+LIO_OFF_PATH = ("icp_solve",)
 # save_grid_map -> load: one PGM grey level (the writer truncates) and the
 # float32 rounding of the logit and sigmoid around it
 OCC_MAX_DIFF = 1.0 / 255.0 + 1e-6
@@ -536,7 +547,9 @@ KERNEL_GROUPS = {
            "lm_weigh_kernel"),
     "AO": ("tick_unpack_kernel", "tick_track_kernel", "tick_pre_kernel",
            "tick_post_kernel"),
-    "AQ": ("draw_kernel", "split_kernel")}
+    "AQ": ("draw_kernel", "split_kernel"),
+    "G": ("eskf_predict_kernel",),
+    "Y": ("sqrt_info_kernel", "icp_solve_kernel", "degeneracy_kernel")}
 # the camera tick's profiler ranges (vio/fused.py, vio/problem.py)
 CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
                  "tick_glue", "marginalize", "marginalize_oldest",
@@ -723,11 +736,15 @@ def lidar_main_path(dev, card):
     scans = checks.lidar_drive(LIO_SCANS + 1, z=LIO_Z)
     lo = LidarOdometry(m3dgr_lio(), device=dev)
     tick_ms, outs, gt, syncs_seen = [], [], [], []
+    prof = None          # the last 3 ticks' device trace
     _kernels.launches.clear()
     for k, s in enumerate(scans[:LIO_SCANS]):
         fused = lo.initialized
-        # the last 3 ticks also count every synchronizing CUDA call
+        # the last 3 ticks also count every synchronizing CUDA call, and
+        # are traced
         watch = fused and k >= LIO_SCANS - 3
+        if watch and prof is None:
+            prof = start_profiler()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         with warnings.catch_warnings(record=True) as seen:
@@ -749,6 +766,8 @@ def lidar_main_path(dev, card):
                 return f"non-finite LIO pose at t={s['t']:.2f}", {}, lo, None
             outs.append(out)
             gt.append(s["p_gt"])
+    if prof is not None:
+        prof.__exit__(None, None, None)
     launches = dict(_kernels.launches)
     n_fused = len(tick_ms)
     if not lo.initialized or not outs:
@@ -758,10 +777,14 @@ def lidar_main_path(dev, card):
     st = lo.eskf
     if not all(bool(torch.isfinite(t).all()) for t in st):
         return "non-finite ESKF state", launches, lo, None
-    want = ("lio_assoc", "ct_icp_normal", "radix_sort", "eskf_predict",
-            "ct_glue", "voxel_glue", "lio_update")
-    if min(launches.get(k, 0) for k in want) <= 0:
+    if min(launches.get(k, 0) for k in LIO_PATH_KERNELS) <= 0:
         return f"a LiDAR kernel did not launch: {launches}", launches, lo, None
+    if any(launches.get(k, 0) for k in LIO_OFF_PATH):
+        return (f"a kernel off the LiDAR path launched ({LIO_OFF_PATH}): "
+                f"{launches}", launches, lo, None)
+    if prof is not None:
+        lidar_split_line("phase 5, the LiDAR tick alone",
+                         device_split(prof, len(syncs_seen)), card)
     off = gt[0] - outs[0].p_lio
     errs = [float(np.linalg.norm(o.p_lio + off - g)) for o, g in zip(outs, gt)]
     deg = [i for i, o in enumerate(outs) if o.degenerate and i >= 2]
@@ -783,6 +806,37 @@ def lidar_main_path(dev, card):
         return (f"LIO position error {max(errs):.4f} m >= {LIO_MAX_ERR} m",
                 launches, lo, None)
     return None, launches, lo, scans[LIO_SCANS]
+
+
+def lidar_split_line(what: str, split: dict, card: str,
+                     ranges: bool = False) -> dict:
+    """Prints the LiDAR tick's launches and device ms a tick, with the
+    LiDAR kernels' launches and device ms a tick (KERNEL_GROUPS D-G, Y,
+    AK-AM), from a ``device_split`` over whole LiDAR ticks or (``ranges``)
+    over LIDAR_RANGES of system ticks; returns the figures."""
+    if ranges:
+        lr = [split["by_range"].get(k, {}) for k in LIDAR_RANGES]
+        launches = sum(v.get("launches", 0) for v in lr)
+        ms = sum(v.get("ms", 0.0) for v in lr)
+    else:
+        launches = split["launches_per_tick"]
+        ms = sum(split["device_ms_per_tick"].values())
+    per = split["port_kernel_launches_per_tick"]
+    groups = ("G", "D", "E", "Y", "F", "AK", "AL", "AM")
+    fig = dict(launches_per_tick=launches, device_ms_per_tick=ms,
+               kernel_launches_per_tick={
+                   g: sum(per.get(n, 0) for n in KERNEL_GROUPS[g])
+                   for g in groups},
+               kernel_device_ms_per_tick={
+                   g: round(split["by_kernel_ms_per_tick"][g], 5)
+                   for g in groups})
+    print(f"LiDAR tick split ({what}; torch.profiler over the last 3 ticks, "
+          f"printed only): {launches:g} kernel launches and {ms:.4f} device "
+          f"ms a tick; by kernel, launches "
+          + json.dumps(fig["kernel_launches_per_tick"]) + " and device ms "
+          + json.dumps(fig["kernel_device_ms_per_tick"]) + f" a tick | {card}",
+          flush=True)
+    return fig
 
 
 class CallCounter:
@@ -1112,6 +1166,8 @@ def system_main_path(dev, card, frames):
               + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
                             for g in ("AK", "AL", "AM")}) + f" | {card}",
               flush=True)
+        lidar_split_line("phase 8, the LiDAR ranges of the system tick",
+                         split, card, ranges=True)
         cr = {k: split["by_range"].get(k, dict(ms=0.0, launches=0,
                                                  port_ms=0.0, copies=0))
               for k in CAMERA_RANGES}
@@ -2383,6 +2439,7 @@ def main() -> int:
     res_lio = {
         "lio_assoc": checks.check_assoc(dev, x, lcfg.map_cfg, lcfg.icp_cfg),
         "ct_icp_normal": checks.check_ct_normal(dev, x, lcfg.icp_cfg),
+        "ct_icp_solve": checks.check_ct_solve(dev, x, lcfg.icp_cfg),
         "radix_sort": checks.check_radix(dev, x, lcfg.map_cfg),
         "eskf_predict": checks.check_eskf(dev, x, lcfg.eskf_opt),
         "ct_glue": checks.check_ct_glue(dev, x, lcfg.icp_cfg, lcfg.map_cfg),
@@ -2402,6 +2459,21 @@ def main() -> int:
           f"association: {e['device_ms']:.4f}, launches a call "
           f"{e['launches_per_call']:g} (torch.profiler; host-inclusive call "
           f"ms {d['ms']:.4f} / {d['cached_ms']:.4f} / {e['ms']:.4f}) | {card}",
+          flush=True)
+    c = res_lio["ct_icp_solve"]
+    print(f"kernel E with kernel Y's solve in its last CTA (as CT-ICP "
+          f"launches it) on phase 5's association: device ms a call "
+          f"{c['device_ms']:.4f} in {c['launches_per_call']:g} launches, E "
+          f"without the solve {c['without_solve_device_ms']:.4f}, Y's "
+          f"standalone solve {c['icp_solve_device_ms']:.4f} (in turns; "
+          f"host-inclusive call ms {c['ms']:.4f} / "
+          f"{c['without_solve_ms']:.4f}); H, g, cost equal to E's without "
+          f"the solve: {c['normal_equal']}, d equal to Y's standalone: "
+          f"{c['standalone_equal']}, d against float64 {c['rel_err_f64']:.3g} "
+          f"(the plain LU {c['plain_rel_err_f64']:.3g}); kernel G "
+          f"(eskf_predict): device ms a call {res_lio['eskf_predict']['device_ms']:.4f}, "
+          f"launches a call {res_lio['eskf_predict']['launches_per_call']:g}, "
+          f"{res_lio['eskf_predict']['n_samples']} valid samples | {card}",
           flush=True)
     print("kernel F against torch.sort(stable=True), device ms a call in "
           "turns (F, sort, sort, F) and launches a call, by size: "
@@ -2685,6 +2757,12 @@ def main() -> int:
     kernels = [dict(name=n, route="cuda", source=PKG + SOURCES[n][0],
                     replaces=SOURCES[n][1], launches=launches.get(n, 0),
                     **{k: res[n][k] for k in keys}) for n in SOURCES]
+    # Y's damped solve runs inside E on the path (its standalone launch
+    # serves the checks): where its device code is, and E's launches that
+    # ran it
+    next(k for k in kernels if k["name"] == "icp_solve").update(
+        device_code=PKG + "icp_solve_warp.cuh", runs_inside="ct_icp_normal",
+        inside_launches=launches.get("ct_icp_solve", 0))
     # the GNSS rows P was held on: live pseudorange, Doppler and clock rows
     next(k for k in kernels if k["name"] == "gnss_normal")[
         "gnss_live_rows"] = 2 * live["gnss_psr"] + 5 * live["gnss_clock"]

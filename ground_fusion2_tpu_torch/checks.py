@@ -794,27 +794,39 @@ def check_radix(device, x: dict, cfg, timed: bool = True) -> dict:
     return out
 
 
-def check_eskf(device, x: dict, opt) -> dict:
+def eskf_flops(n_samples: int) -> int:
+    """The operations of ESKF prediction through ``n_samples`` valid
+    samples: T = F·P and P = T·Fᵀ over F's nonzeros (``eskf.F_NONZERO``:
+    2 × 2·18·51), Q's diagonal, and ~200 for the nominal state and F's
+    entries."""
+    nnz = sum(len(row) for row in ekf.F_NONZERO)
+    return n_samples * (2 * 2 * ekf.DIM * nnz + ekf.DIM + 200)
+
+
+def check_eskf(device, x: dict, opt, timed: bool = True) -> dict:
     """Kernel G against ``predict_batch`` over M = 48 sample slots (20 of
-    them valid, as a scan gives) from the drive's filter state."""
+    them valid, as a scan gives) from the drive's filter state, and the
+    same bits twice."""
     args = (x["eskf"], x["acc"], x["gyr"], x["dts"], x["smask"], opt)
     sk = ekf.predict_final(*args)
+    same = all(torch.equal(a, b) for a, b in zip(sk, ekf.predict_final(*args)))
     sp = ekf.predict_batch(*args)[0]
     e = lambda a, b: float((a - b).abs().max())
     errs = dict(p=e(sk.p, sp.p), v=e(sk.v, sp.v), q=e(sk.q, sp.q),
                 cov_rel=e(sk.cov, sp.cov) / float(sp.cov.abs().max()))
-    # per valid sample T = F·P and P = T·Fᵀ (2 × 2·18³ flops); state,
-    # samples in, state out
+    # state, samples in, state out
     n_s = int(x["smask"].sum())
     nb = _nbytes(x["acc"], x["gyr"], x["dts"], x["smask"], x["eskf"].cov,
                  sk.cov) + 4 * 4 * 16
-    return dict(max_abs_err=max(errs["p"], errs["v"], errs["q"]), errs=errs,
-                tol=ESKF_TOL, n_samples=n_s, library_ms=None,
-                **bound(nb, n_s * 4 * 18 ** 3),
-                ok=all(errs[k] <= ESKF_TOL[k] for k in errs),
-                ms=time_ms(lambda: ekf.predict_final(*args)),
-                plain_ms=time_ms(lambda: ekf.predict_batch(*args), reps=5),
-                **device_pair(lambda: ekf.predict_final(*args)))
+    out = dict(max_abs_err=max(errs["p"], errs["v"], errs["q"]), errs=errs,
+               tol=ESKF_TOL, n_samples=n_s, library_ms=None,
+               repeat_equal=same, **bound(nb, eskf_flops(n_s)),
+               ok=same and all(errs[k] <= ESKF_TOL[k] for k in errs))
+    if timed:
+        out.update(ms=time_ms(lambda: ekf.predict_final(*args)),
+                   plain_ms=time_ms(lambda: ekf.predict_batch(*args), reps=5),
+                   **device_pair(lambda: ekf.predict_final(*args)))
+    return out
 
 
 def check_proj(device, x0=None, feats=None, layout=None, delta=None,
@@ -1710,6 +1722,42 @@ def _check_degeneracy(device, normal, w, cfg, timed: bool = True) -> dict:
         r["library_ms"] = time_ms(lambda: torch.linalg.eigvalsh(A))
         r.update(device_pair(lambda: ci.degeneracy(normal, w, cfg),
                              lambda: torch.linalg.eigvalsh(A)))
+    return r
+
+
+def check_ct_solve(device, x: dict, icp_cfg, timed: bool = True) -> dict:
+    """Kernel E with the solve in its last CTA (``normal_solve``, as CT-ICP
+    launches it) on :func:`ct_normal_args`' inputs: its H, g and cost the
+    bits of E without the solve, its d the bits of Y's standalone solve on
+    that H and g, and d against the plain LU, both against float64. Timed:
+    the device ms of E with and without the solve, and of Y's launch."""
+    args = ct_normal_args(device, x, icp_cfg)
+    H, g, cost, d = ci.normal_solve(*args)
+    He, ge, ce = ci.normal_equations(*args)
+    ds = ci.damped_solve(H, g, icp_cfg.damping)
+    dp = ci.damped_solve_plain(H, g, icp_cfg.damping)
+    r = _against_f64(d, dp, ci.damped_solve_plain(H.double(), g.double(),
+                                                  icp_cfg.damping))
+    r.update(
+        normal_equal=all(torch.equal(a, b) for a, b in
+                         zip((H, g, cost), (He, ge, ce))),
+        standalone_equal=bool(torch.equal(d, ds)),
+        repeat_equal=all(torch.equal(a, b) for a, b in
+                         zip((H, g, cost, d), ci.normal_solve(*args))),
+        max_abs_err=float((d - dp).abs().max()))
+    r["ok"] &= (r["normal_equal"] and r["standalone_equal"]
+                and r["repeat_equal"])
+    if timed:
+        # in turns: with, without, without, with
+        fns = (lambda: ci.normal_solve(*args),
+               lambda: ci.normal_equations(*args))
+        t = [device_ms(fns[k]) for k in (0, 1, 1, 0)]
+        y = device_ms(lambda: ci.damped_solve(H, g, icp_cfg.damping))
+        r.update(device_ms=(t[0].ms + t[3].ms) / 2,
+                 launches_per_call=t[0].launches,
+                 without_solve_device_ms=(t[1].ms + t[2].ms) / 2,
+                 icp_solve_device_ms=y.ms,
+                 ms=time_ms(fns[0]), without_solve_ms=time_ms(fns[1]))
     return r
 
 

@@ -1,10 +1,11 @@
-// Kernel AK: CT-ICP's glue around kernels D, E and Y, three modes.
+// Kernel AK: CT-ICP's glue around kernels D and E, three modes.
 //
 // Replaces what XLA fuses around the association and the solve in
 // ground_fusion2_tpu/lio/ct_icp.py: `transform_points` (:56), `_retract`
 // (:63), `assoc`'s weights (:109-120), `gn_iter`'s freeze, norms and
 // convergence latch (:144-153) and the midpoint (:156-176). A GN iteration
-// on the card is then D → AK weights → E → Y → AK step.
+// on the card is then D → AK weights → E (with Y's solve in its last CTA)
+// → AK step.
 //   points   the continuous-time transform of K keypoints or N scan points
 //            (slerp and lerp of the (begin, end) pose at each point's
 //            sweep fraction, then the rotation), one thread a point: the

@@ -30,11 +30,19 @@
 // over 16 SMs; then the serial sum, ~2000 dependent FMAs (~4 cycles each,
 // ~4 µs): the floor that keeping the bits allows (the walk measures near
 // three times that, PERF.md §6).
+//
+// Given `d`, the last CTA then solves the damped step of CT-ICP's GN
+// iteration, d = −(H + λ·I)⁻¹ g (ground_fusion2_tpu/lio/ct_icp.py:143),
+// with kernel Y's one-warp solve (icp_solve_warp.cuh: the bits of Y's
+// entry gf2_icp_solve) on the H and g it has just summed, kept in shared
+// memory: the solve costs no launch of its own and H and g no round trip
+// through device memory. H, g and the cost are the same with or without it.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "icp_solve_warp.cuh"
 #include "stage_stamps.cuh"
 
 namespace {
@@ -53,8 +61,9 @@ constexpr int kSlots = 3;                    // the ring: 40,560 B
 constexpr int kStep = 16;                    // rows a walk step reads ahead
 
 // stage stamps (stage_stamps.cuh), a CTA's: its entry, its rows written;
-// the last CTA's ticket and its sum; named by GF2_STAGE_NAMES below
-enum { kStEntry, kStRows, kStTicket, kStSum };
+// the last CTA's ticket, its sum and its solve; named by GF2_STAGE_NAMES
+// below
+enum { kStEntry, kStRows, kStTicket, kStSum, kStSolve };
 
 struct D {
   float v;
@@ -319,8 +328,10 @@ __global__ void __launch_bounds__(kThreads) ct_icp_normal_kernel(
     const float* __restrict__ centroid, const float* __restrict__ normal,
     const float* __restrict__ wgt, int K, float beta_loc, float beta_vel,
     float beta_ori, float* __restrict__ rows_buf,
-    unsigned* __restrict__ ticket, float* __restrict__ out) {
+    unsigned* __restrict__ ticket, float* __restrict__ out, float damping,
+    float* __restrict__ d) {
   __shared__ __align__(16) float ring[kSlots * kSlot];
+  __shared__ float sys[kCols * kCols + kCols];   // H and g for the solve
   __shared__ bool last;
   const int t = threadIdx.x;
   GF2_STAMP(t == 0, blockIdx.x, kStEntry);
@@ -392,17 +403,27 @@ __global__ void __launch_bounds__(kThreads) ct_icp_normal_kernel(
   if (t < 78) {
     out[a * kCols + b] = acc;
     out[b * kCols + a] = acc;
+    sys[a * kCols + b] = acc;
+    sys[b * kCols + a] = acc;
   } else if (t < 90) {
     out[kCols * kCols + (t - 78)] = acc;
+    sys[kCols * kCols + (t - 78)] = acc;
   } else if (t == 90) {
     out[kCols * kCols + kCols] = 0.5f * acc;
   }
   GF2_STAMP(t == 0, blockIdx.x, kStSum);
+  if (d == nullptr) return;
+  __syncthreads();
+  if (t < 32) {
+    const float x = warp_icp_solve(sys, sys + kCols * kCols, damping, t);
+    if (t < kSolveN) d[t] = x;
+  }
+  GF2_STAMP(t == 0, blockIdx.x, kStSolve);
 }
 
 }  // namespace
 
-GF2_STAGE_NAMES("entry,rows,ticket,sum")
+GF2_STAGE_NAMES("entry,rows,ticket,sum,solve")
 
 // floats of the rows' scratch for K keypoint rows (all CTAs' rows)
 extern "C" int gf2_ct_icp_scratch(int K) {
@@ -410,17 +431,18 @@ extern "C" int gf2_ct_icp_scratch(int K) {
 }
 
 // `ticket`: zero before the first launch on its stream; each launch leaves
-// it at zero again
+// it at zero again. out [157]: H [12, 12], g [12], the cost; `d` [12] (or
+// null: no solve) the damped step at `damping`.
 extern "C" int gf2_ct_icp_normal(
     const float* qb, const float* tb, const float* qe, const float* te,
     const float* pqb, const float* ptb, const float* pqe, const float* pte,
     const float* pts, const float* alpha, const float* centroid,
     const float* normal, const float* w, int K, float beta_loc,
     float beta_vel, float beta_ori, float* rows, unsigned* ticket, float* out,
-    void* stream) {
+    float damping, float* d, void* stream) {
   const int ctas = (K + 9 + kThreads - 1) / kThreads;
   ct_icp_normal_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
       qb, tb, qe, te, pqb, ptb, pqe, pte, pts, alpha, centroid, normal, w, K,
-      beta_loc, beta_vel, beta_ori, rows, ticket, out);
+      beta_loc, beta_vel, beta_ori, rows, ticket, out, damping, d);
   return (int)cudaGetLastError();
 }

@@ -15,9 +15,10 @@
 // 2. gf2_icp_solve replaces the damped 12×12 solve of
 //    ground_fusion2_tpu/lio/ct_icp.py:143 (`jnp.linalg.solve`; the plain
 //    version's `solve_ex` is a pivoted LU): d = −(H + λ·max(max diag H, 1)·I)⁻¹ g.
-//    The damped matrix is SPD, so one warp takes its Cholesky factor (lane i
-//    a row) and lane 0 the two substitutions; a pivot that is not > 0 gives
-//    NaN.
+//    The damped matrix is SPD: one warp, its rows in registers
+//    (icp_solve_warp.cuh, which kernel E's last CTA runs on the CT-ICP path);
+//    a pivot that is not > 0 gives NaN. This entry serves the plain route's
+//    checks and the card tests.
 // 3. gf2_degeneracy replaces the degeneracy test of
 //    ground_fusion2_tpu/lio/ct_icp.py:180-189 (an einsum, `eigvalsh` and the
 //    flags; the plain version's `eigvalsh` checks its convergence on the
@@ -36,6 +37,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "icp_solve_warp.cuh"
 #include "spd_warp.cuh"
 
 namespace {
@@ -56,31 +58,11 @@ sqrt_info_kernel(const float* __restrict__ cov, int B, int n, long long stride,
 }
 
 __global__ void __launch_bounds__(32)
-icp_solve_kernel(const float* __restrict__ H, const float* __restrict__ g, int n,
+icp_solve_kernel(const float* __restrict__ H, const float* __restrict__ g,
                  float damping, float* __restrict__ d) {
-  __shared__ double L[32 * LD];
-  __shared__ double y[32];
   const int lane = threadIdx.x;
-  float dmax = -INFINITY;
-  for (int i = 0; i < n; ++i) dmax = fmaxf(dmax, H[i * n + i]);
-  const float lam = damping * fmaxf(dmax, 1.f);
-  if (lane < n)
-    for (int c = 0; c < n; ++c)
-      L[lane * LD + c] = (double)H[lane * n + c] + (c == lane ? (double)lam : 0.0);
-  __syncwarp();
-  const bool ok = warp_chol(L, n, lane);
-  if (lane != 0) return;
-  for (int i = 0; i < n; ++i) {        // L y = g
-    double s = g[i];
-    for (int l = 0; l < i; ++l) s -= L[i * LD + l] * y[l];
-    y[i] = s / L[i * LD + i];
-  }
-  for (int i = n - 1; i >= 0; --i) {   // Lᵀ x = y
-    double s = y[i];
-    for (int l = i + 1; l < n; ++l) s -= L[l * LD + i] * y[l];
-    y[i] = s / L[i * LD + i];
-  }
-  for (int i = 0; i < n; ++i) d[i] = ok ? (float)(-y[i]) : __int_as_float(0x7fc00000);
+  const float x = warp_icp_solve(H, g, damping, lane);
+  if (lane < kSolveN) d[lane] = x;
 }
 
 // eigenvalues of the symmetric 3×3 a (destroyed) by cyclic Jacobi, ascending
@@ -185,11 +167,11 @@ extern "C" int gf2_sqrt_info(const float* cov, int B, int n, long long stride,
   return (int)cudaGetLastError();
 }
 
-// H [n, n], g [n] f32, n ≤ 32; d [n] out.
+// H [n, n], g [n] f32, n = 12 (CT-ICP's tangent); d [n] out.
 extern "C" int gf2_icp_solve(const float* H, const float* g, int n, float damping,
                              float* d, void* stream) {
-  if (n < 1 || n > 32) return (int)cudaErrorInvalidValue;
-  icp_solve_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(H, g, n, damping, d);
+  if (n != kSolveN) return (int)cudaErrorInvalidValue;
+  icp_solve_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(H, g, damping, d);
   return (int)cudaGetLastError();
 }
 

@@ -7,10 +7,12 @@ re-associates (kernel D: kNN + plane fit) and takes one damped GN step on
 the 12-dim tangent [δθ_begin, δt_begin, δθ_end, δt_end]; the normal
 equations of the a2D-weighted point-to-plane rows and the 9 regularizer rows
 are kernel E (``csrc/ct_icp_normal.cu``) on the card, ``torch.func.jacfwd``
-in the plain version. The 12×12 damped solve and the degeneracy test (the
-selected normals' scatter matrix, its 3×3 eigenvalues and the flags) are
-kernel Y's entries 2 and 3 (``csrc/small_linalg.cu``); their plain versions
-are ``torch.linalg.solve_ex`` and ``eigvalsh``.
+in the plain version. The 12×12 damped solve runs in E's last CTA
+(:func:`normal_solve`), with kernel Y's one-warp solve
+(``csrc/icp_solve_warp.cuh``, the device code of Y's entry 2); the
+degeneracy test (the selected normals' scatter matrix, its 3×3 eigenvalues
+and the flags) is Y's entry 3 (``csrc/small_linalg.cu``). Their plain
+versions are ``torch.linalg.solve_ex`` and ``eigvalsh``.
 
 Kernel AK (``csrc/ct_glue.cu``) carries the glue between them on the card:
 the keypoints' transform (:func:`transform_points`), the rows' weights
@@ -221,9 +223,31 @@ def normal_equations(pose: CtPose, pred: CtPose, pts, alpha, centroid,
                      normal, w, cfg: CtIcpConfig):
     """:func:`normal_equations_plain`, by kernel E on the card."""
     if pts.is_cuda:
-        return _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg)
+        return _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg,
+                            solve=False)
     return normal_equations_plain(pose, pred, pts, alpha, centroid, normal, w,
                                   cfg)
+
+
+def normal_solve_plain(pose: CtPose, pred: CtPose, pts, alpha, centroid,
+                       normal, w, cfg: CtIcpConfig):
+    """(H, g, cost, d): :func:`normal_equations_plain`, then the damped step
+    ``d`` of :func:`damped_solve_plain` at ``cfg.damping``."""
+    H, g, cost = normal_equations_plain(pose, pred, pts, alpha, centroid,
+                                        normal, w, cfg)
+    return H, g, cost, damped_solve_plain(H, g, cfg.damping)
+
+
+def normal_solve(pose: CtPose, pred: CtPose, pts, alpha, centroid, normal, w,
+                 cfg: CtIcpConfig):
+    """:func:`normal_solve_plain`, on the card by one launch of kernel E
+    whose last CTA also solves for ``d`` (the bits of :func:`damped_solve`
+    on E's H and g)."""
+    if pts.is_cuda:
+        return _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg,
+                            solve=True)
+    return normal_solve_plain(pose, pred, pts, alpha, centroid, normal, w,
+                              cfg)
 
 
 # (device, stream) -> kernel E's row scratch (grown with K) and ticket
@@ -242,7 +266,7 @@ def _normal_scratch(lib, dev, stream, K):
     return rows, ticket
 
 
-def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg):
+def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg, solve):
     ts = [t.contiguous() for t in (*pose, *pred, pts, alpha, centroid, normal,
                                    w)]
     if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
@@ -252,16 +276,21 @@ def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg):
     lib = _kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows, ticket = _normal_scratch(lib, dev, stream, K)
-    out = torch.empty(12 * 12 + 12 + 1, device=dev)
+    # H, g, the cost; then d where the last CTA solves
+    out = torch.empty(12 * 12 + 12 + 1 + (12 if solve else 0), device=dev)
     P = ctypes.c_void_p
     err = lib.gf2_ct_icp_normal(
         *[P(t.data_ptr()) for t in ts], K,
         ctypes.c_float(cfg.beta_location), ctypes.c_float(cfg.beta_velocity),
         ctypes.c_float(cfg.beta_orientation), P(rows.data_ptr()),
-        P(ticket.data_ptr()), P(out.data_ptr()), P(stream))
+        P(ticket.data_ptr()), P(out.data_ptr()), ctypes.c_float(cfg.damping),
+        P(out[157:].data_ptr() if solve else None), P(stream))
     _kernels.check(err, "gf2_ct_icp_normal")
     _kernels.count("ct_icp_normal")
-    return out[:144].view(12, 12), out[144:156], out[156]
+    if solve:          # the launches whose last CTA also solved
+        _kernels.count("ct_icp_solve")
+    H, g, cost = out[:144].view(12, 12), out[144:156], out[156]
+    return (H, g, cost, out[157:]) if solve else (H, g, cost)
 
 
 def damped_solve_plain(H, g, damping: float):
@@ -274,13 +303,16 @@ def damped_solve_plain(H, g, damping: float):
 
 def damped_solve(H, g, damping: float):
     """:func:`damped_solve_plain`, by kernel Y's entry 2 on the card (the
-    damped matrix is SPD: a one-warp Cholesky and two substitutions)."""
+    damped matrix is SPD: a one-warp Cholesky and two substitutions). The
+    CT-ICP loop runs the same device code inside kernel E
+    (:func:`normal_solve`); this launch serves the checks."""
     if not H.is_cuda:
         return damped_solve_plain(H, g, damping)
     Hc, gc = H.contiguous(), g.contiguous()
     n = Hc.shape[0]
-    if Hc.dtype != torch.float32 or gc.dtype != torch.float32 or n > 32:
-        raise ValueError("icp_solve kernel takes float32, n ≤ 32")
+    if (Hc.dtype != torch.float32 or gc.dtype != torch.float32
+            or Hc.shape != (12, 12) or gc.shape != (12,)):
+        raise ValueError("icp_solve kernel takes float32 H [12, 12], g [12]")
     d = torch.empty_like(gc)
     P = ctypes.c_void_p
     err = _kernels.library().gf2_icp_solve(
@@ -334,7 +366,7 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
            pred: CtPose | None = None) -> IcpResult:
     """Scan-to-map registration. ``pred`` anchors the regularizers
     (defaults to ``pose0``). On the card an iteration is D → AK weights →
-    E → Y → AK step, and nothing waits for the host."""
+    E (with the solve) → AK step, and nothing waits for the host."""
     if pred is None:
         pred = pose0
     dtype, dev = pts_body.dtype, pts_body.device
@@ -355,9 +387,8 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
     search = True            # the first call gathers at p_w0
     for it in range(cfg.outer_iters):
         normal, centroid, w = assoc(p_w, search)
-        H, g, cost = normal_equations(pose, pred, pts_body, alpha, centroid,
-                                      normal, w, cfg)
-        d = damped_solve(H, g, cfg.damping)
+        _, _, cost, d = normal_solve(pose, pred, pts_body, alpha, centroid,
+                                     normal, w, cfg)
         # the first half's last step gathers the next call at p_w(pose_mid)
         # or not, and a re-association resets the convergence latch
         mid = (pose0, map_cfg.voxel_size) if it == n1 - 1 else None

@@ -8,7 +8,8 @@ transition F·P·Fᵀ + Q; an SE(3) observation fuses with a Kalman update.
 per-sample trajectory) and is the plain version. :func:`predict_final` is
 what the LiDAR tick calls: kernel G (``csrc/eskf_predict.cu``) for tensors on
 the card, which walks the ≤ 48 samples in order and returns only the final
-state, the trajectory being unused there. The observation's 6×6 innovation
+state, the trajectory being unused there; its covariance products walk only
+F's nonzero entries, :data:`F_NONZERO`. The observation's 6×6 innovation
 inverse is kernel Y's entry 1 (``csrc/small_linalg.cu``) on the card. The
 LiDAR tick's two observations and their select run in kernel AM
 (``lio/fused.py:lio_update``, with Y's inverse code); :func:`observe_se3`
@@ -29,6 +30,17 @@ from ..solver.small_linalg import small_spd_cuda
 
 # error-state ordering: [δp(0:3), δv(3:6), δθ(6:9), δbg(9:12), δba(12:15), δg(15:18)]
 DIM = 18
+
+# The columns where a row of :func:`_transition`'s F can be nonzero,
+# ascending: I·d beside I (δp); I, −(R·hat(a))·d, −R·d and I·d (δv); Rg and
+# −I·d (δθ); I (the biases, gravity). Kernel G's products walk these alone
+# (``csrc/eskf_predict.cu``'s kFStart / kFCols mirror them).
+F_NONZERO = (
+    (0, 3), (1, 4), (2, 5),
+    (3, 6, 7, 8, 12, 13, 14, 15), (4, 6, 7, 8, 12, 13, 14, 16),
+    (5, 6, 7, 8, 12, 13, 14, 17),
+    (6, 7, 8, 9), (6, 7, 8, 10), (6, 7, 8, 11),
+    *((i,) for i in range(9, DIM)))
 
 
 class EskfState(NamedTuple):

@@ -4,7 +4,7 @@ One sweep on a device-resident :class:`LioCarry`:
 
     ESKF predict (kernel G) → 0.05 m spatial keypoint subsample (kernel
     F, kernel AL's keypoint modes) → CT-ICP against the voxel map
-    (kernels D, E, Y, AK) → SE(3) observe (three-way select on degeneracy
+    (kernels D, E with Y's solve in its last CTA, AK) → SE(3) observe (three-way select on degeneracy
     / external validity), degeneracy switch, record (kernel AM, one
     launch) → map recenter → insert → far-point evict (kernels F, AL, AK).
 

@@ -265,7 +265,22 @@ def test_ct_icp_normal_kernel_on_two_streams(dev):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("call", ["search", "cached", "flag", "E"])
+@pytest.mark.parametrize("case", ["drive", "K=1", "K=8192"])
+def test_ct_icp_solve_in_e_matches_y_and_plain(dev, lio, case):
+    """E with Y's solve in its last CTA: H, g and cost the bits of E alone,
+    d the bits of Y's standalone launch on them, and d against the plain
+    LU, both against float64 (``checks.check_ct_solve``)."""
+    lo, _, x = lio
+    if case != "drive":
+        pose, pred, kp, ka, cen, nrm, w, _ = checks.ct_normal_case(
+            dev, int(case[2:]), seed=4)
+        x = dict(pose=pose, kp=kp, ka=ka, centroid=cen, normal=nrm, w=w)
+    r = checks.check_ct_solve(dev, x, lo.cfg.icp_cfg, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("call", ["search", "cached", "flag", "E",
+                                  "E with the solve"])
 def test_lio_kernels_launch_once_a_call(dev, lio, call):
     from ground_fusion2_tpu_torch.lio import ct_icp as ci
     lo, _, x = lio
@@ -278,7 +293,9 @@ def test_lio_kernels_launch_once_a_call(dev, lio, call):
         "search": (lambda: _assoc_call(x, p_g, p_q, r, True), "lio_assoc"),
         "cached": (lambda: _assoc_call(x, None, p_q, r, False), "lio_assoc"),
         "flag": (lambda: _assoc_call(x, p_g, p_q, r, flag), "lio_assoc"),
-        "E": (lambda: ci.normal_equations(*args), "ct_icp_normal")}[call]
+        "E": (lambda: ci.normal_equations(*args), "ct_icp_normal"),
+        "E with the solve": (lambda: ci.normal_solve(*args),
+                             "ct_icp_solve")}[call]
     _kernels.launches.clear()
     dt = checks.device_ms(fn)
     assert dt.launches == 1, dt
@@ -374,6 +391,29 @@ def test_eskf_predict_kernel_matches_plain(dev, lio):
     lo, _, x = lio
     r = checks.check_eskf(dev, x, lo.cfg.eskf_opt)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 20, 48])
+def test_eskf_predict_kernel_with_gaps(dev, lio, n_valid):
+    """Kernel G against its plain version with ``n_valid`` of the 48 slots
+    valid at seeded places (gaps between them; the drive's steps, 5 ms in
+    the slots past the sweep's samples), the same bits twice; with none
+    valid the state comes back unchanged."""
+    import numpy as np
+    lo, _, x = lio
+    m = np.zeros(48, np.float32)
+    m[np.random.default_rng(n_valid).choice(48, n_valid, replace=False)] = 1
+    smask = torch.as_tensor(m, device=dev)
+    dts = torch.where(x["dts"] > 0, x["dts"], torch.full_like(x["dts"], 0.005))
+    r = checks.check_eskf(dev, dict(x, smask=smask, dts=dts),
+                          lo.cfg.eskf_opt, timed=False)
+    assert r["ok"] and r["repeat_equal"] and r["n_samples"] == n_valid, r
+    if n_valid == 0:
+        from ground_fusion2_tpu_torch.lio import eskf
+        s = eskf.predict_final(x["eskf"], x["acc"], x["gyr"], dts, smask,
+                               lo.cfg.eskf_opt)
+        for a, b in zip(s, x["eskf"]):
+            assert torch.equal(a, b)
 
 
 def test_preint_kernel_matches_plain(dev, camera):
@@ -988,6 +1028,8 @@ def test_kernels_count_their_launches(dev, frames, lio):
     assert n["eskf_predict"] == 1
     assert n["lio_assoc"] == it + 1          # every GN iteration + degeneracy
     assert n["ct_icp_normal"] == it
+    assert n["ct_icp_solve"] == it           # each E solves in its last CTA
+    assert n.get("icp_solve", 0) == 0
     assert n["radix_sort"] >= 2 + 4          # keypoints + insert
     assert n.get("proj_normal", 0) == 0
     assert n.get("preint", 0) == 0

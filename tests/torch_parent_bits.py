@@ -1,5 +1,5 @@
-"""Kernels H, B, D, E, S, K, L/P (with C and AN's pack) and AC of this tree
-against the parent commit's build, on the card.
+"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack) and AC of
+this tree against the parent commit's build, on the card.
 
     mkdir -p build/parent
     git archive <parent> ground_fusion2_tpu_torch/csrc \
@@ -7,13 +7,14 @@ against the parent commit's build, on the card.
     PYTHONPATH=. python tests/torch_parent_bits.py build/parent
 
 Builds the parent's ``csrc/preint.cu``, ``klt.cu``, ``lio_assoc.cu``,
-``ct_icp_normal.cu``, ``window_cost.cu``, ``ransac_f.cu``,
-``small_normal.cu``, ``proj_normal.cu`` and ``mesh_delaunay.cu`` (with the
-headers beside them) into ``build/parent_bits/`` and binds each entry point
-with the argument list of the parent's own ``_kernels.py``
-(:class:`ParentLib`): where it is this tree's, this tree's wrapper calls
-it; where this tree only added the slide's branch (and L's reduce kernel
-C's added block), a shim drops them (null in every call here); where this
+``ct_icp_normal.cu``, ``eskf_predict.cu``, ``small_linalg.cu``,
+``window_cost.cu``, ``ransac_f.cu``, ``small_normal.cu``,
+``proj_normal.cu`` and ``mesh_delaunay.cu`` (with the headers beside them)
+into ``build/parent_bits/`` and binds each entry point with the argument
+list of the parent's own ``_kernels.py`` (:class:`ParentLib`): where it is
+this tree's, this tree's wrapper calls it; where this tree only added the
+slide's branch (and L's reduce kernel C's added block), or E's solve
+(``damping, d``), a shim drops them (null in every call here); where this
 tree's H writes sum_dt where the parent's wrote its dt·mask rows, a shim
 gives the parent's H a buffer for the rows and writes their torch sum
 into sum_dt, as the parent's wrapper summed them; H's and B's
@@ -36,6 +37,15 @@ interfaces of commit 4141781 go through ``parent_preint`` and
   the ranges the search wrote, and in flag mode with the flag set and
   clear; kernel E's (H, g, cost) on the same inputs, at the predicted pose
   and at ``checks.check_ct_normal``'s moved pose;
+* on every LiDAR tick of phase 5's drive (``chip_smoke.py``:
+  ``LidarOdometry`` at ``m3dgr_lio()`` over ``checks.lidar_drive(61,
+  z=1.0)``, recorded as the tick hands the inputs over): kernel G's p, v, q
+  and covariance (``eskf.predict_final``; on the last tick's slots also
+  with 0, 1 and all 48 valid), and on every GN iteration of
+  CT-ICP (``ct_icp.normal_solve``) E's H, g, cost and the damped step d of
+  E's last CTA against the parent's E followed by the parent's Y
+  (``damped_solve``), and this tree's standalone Y on this tree's H and g
+  against the same d;
 * kernels S and L/P on phase 3's window (at zero, the damped LM step and
   its reverse) and phase 12's GNSS window (at zero and a step), this
   tree's inputs packed by kernel AN against the parent's packed by its
@@ -76,16 +86,18 @@ from ground_fusion2_tpu_torch.lio import voxel_map as vm  # noqa: E402
 from ground_fusion2_tpu_torch.mesh import incremental as mi  # noqa: E402
 
 OUT = ROOT / "build" / "parent_bits"
-SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "window_cost",
-           "ransac_f", "small_normal", "proj_normal", "mesh_delaunay")
+SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "eskf_predict",
+           "small_linalg", "window_cost", "ransac_f", "small_normal",
+           "proj_normal", "mesh_delaunay")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # commit 0307a71's kernels D (one search a call) and E (one CTA)
 PARENT_ASSOC = [P] * 5 + [I] * 2 + [F] + [I] * 3 + [P] * 5
 PARENT_CT_NORMAL = [P] * 13 + [I] + [F] * 3 + [P] * 2
 ENTRY_POINTS = ("gf2_preint", "gf2_klt_track", "gf2_lio_assoc",
-                "gf2_ct_icp_normal", "gf2_ct_icp_scratch", "gf2_window_cost",
-                "gf2_ransac_f", "gf2_small_rows", "gf2_small_reduce",
-                "gf2_proj_normal", "gf2_mesh_delaunay")
+                "gf2_ct_icp_normal", "gf2_ct_icp_scratch", "gf2_eskf_predict",
+                "gf2_icp_solve", "gf2_window_cost", "gf2_ransac_f",
+                "gf2_small_rows", "gf2_small_reduce", "gf2_proj_normal",
+                "gf2_mesh_delaunay")
 HYPOTHESES, SEED = 64, 12          # checks.check_ransac's draw
 LIO_SCANS = (7, 20, 59)            # the map early, filling, full
 
@@ -108,6 +120,8 @@ class ParentLib:
     maps an entry point to how it is called: "same" (the parent's argument
     list is this tree's), "branch added" (this tree appended the slide's
     ``branch, want`` before the stream: dropped, the branch must be null),
+    "solve added" (E's ``damping, d`` before the stream: dropped, d must be
+    null),
     "branch and block added" (L's reduce: also kernel C's ``addH, addg,
     addc`` before its outputs, which must be null), "rows summed here" (an
     H of this tree's arguments that writes the dt·mask rows, ``preint_rows``:
@@ -130,6 +144,9 @@ class ParentLib:
             elif ours == theirs[:-1] + [P, I, P]:
                 self.interface[fn] = "branch added"
                 setattr(self, fn, self._drop_branch(entry))
+            elif fn == "gf2_ct_icp_normal" and ours == theirs[:-1] + [F, P, P]:
+                self.interface[fn] = "solve added"
+                setattr(self, fn, self._drop_solve(entry))
             elif (fn == "gf2_small_reduce"
                   and ours == theirs[:11] + [P] * 3 + theirs[11:-1] + [P, I, P]):
                 self.interface[fn] = "branch and block added"
@@ -154,6 +171,15 @@ class ParentLib:
             *head, branch, _want, stream = args
             if not _null(branch):
                 raise ValueError("the parent's kernels take no branch")
+            return entry(*head, stream)
+        return call
+
+    @staticmethod
+    def _drop_solve(entry):
+        def call(*args):
+            *head, _damping, d, stream = args
+            if not _null(d):
+                raise ValueError("the parent's kernel E does not solve")
             return entry(*head, stream)
         return call
 
@@ -421,6 +447,94 @@ def compare_lio(lib, dev) -> bool:
     return ok
 
 
+def record_lidar(dev):
+    """Phase 5's drive, recording kernel G's inputs (``predict_final``) on
+    every LiDAR tick and E's with the solve (``normal_solve``) on every GN
+    iteration, as the tick hands them over."""
+    import chip_smoke
+    from ground_fusion2_tpu_torch.config import m3dgr_lio
+    from ground_fusion2_tpu_torch.lio import eskf
+    from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
+    rec = dict(predict=[], solve=[])
+    pf, ns = eskf.predict_final, ci.normal_solve
+
+    def predict(*a):
+        rec["predict"].append(_clone(a))
+        return pf(*a)
+
+    def solve(*a):
+        rec["solve"].append(_clone(a))
+        return ns(*a)
+
+    eskf.predict_final, ci.normal_solve = predict, solve
+    try:
+        lo = LidarOdometry(m3dgr_lio(), device=dev)
+        scans = checks.lidar_drive(chip_smoke.LIO_SCANS + 1,
+                                   z=chip_smoke.LIO_Z)
+        for s in scans[:chip_smoke.LIO_SCANS]:
+            lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"],
+                            s["imu"])
+    finally:
+        eskf.predict_final, ci.normal_solve = pf, ns
+    return rec
+
+
+def _tally(kind, results) -> bool:
+    """One JSON line for a kind of comparison: the calls, those with every
+    output equal, and the first unequal ones."""
+    bad = [(i, r) for i, r in enumerate(results) if not all(r.values())]
+    print(json.dumps(dict(kernel=kind, calls=len(results),
+                          all_equal=len(results) - len(bad),
+                          first_unequal=bad[:3])), flush=True)
+    return bool(results) and not bad
+
+
+def compare_lidar_drive(lib, rec) -> bool:
+    """G on every tick's inputs; E with the solve on every iteration's,
+    against the parent's E then the parent's Y, and this tree's standalone Y
+    on this tree's H and g."""
+    from ground_fusion2_tpu_torch.lio import eskf
+    names = ("p", "v", "q", "bg", "ba", "g", "cov")
+    g_res = []
+    for a in rec["predict"]:
+        new = eskf.predict_final(*a)
+        with library(lib):
+            old = eskf.predict_final(*a)
+        g_res.append(equal(new, old, names))
+    ok = _tally("eskf_predict (every tick of phase 5's drive)", g_res)
+    # the last tick's slots with 0, 1 and all 48 valid (5 ms steps past the
+    # sweep's samples)
+    s0, acc, gyr, dts, smask, opt = rec["predict"][-1]
+    dts = torch.where(dts > 0, dts, torch.full_like(dts, 0.005))
+    g_res = []
+    for n in (0, 1, smask.numel()):
+        m = torch.zeros_like(smask)
+        m[torch.randperm(m.numel(), generator=torch.Generator().manual_seed(n))[:n]] = 1
+        a = (s0, acc, gyr, dts, m, opt)
+        new = eskf.predict_final(*a)
+        with library(lib):
+            old = eskf.predict_final(*a)
+        g_res.append(equal(new, old, names))
+    ok &= _tally("eskf_predict (the last tick's slots, 0, 1 and 48 valid)",
+                 g_res)
+    e_res, y_res = [], []
+    for a in rec["solve"]:
+        H, g, cost, d = ci.normal_solve(*a)
+        damping = a[-1].damping
+        with library(lib):
+            Ho, go, co = ci.normal_equations(*a)
+            do = ci.damped_solve(Ho, go, damping)
+        e_res.append(equal((H, g, cost, d), (Ho, go, co, do),
+                           ("H", "g", "cost", "d (E's last CTA)")))
+        y_res.append(dict(d_standalone=bool(torch.equal(
+            ci.damped_solve(H, g, damping), do))))
+    ok &= _tally("ct_icp_normal with the solve (every GN iteration of "
+                 "phase 5's drive)", e_res)
+    ok &= _tally("icp_solve standalone (every GN iteration of phase 5's "
+                 "drive)", y_res)
+    return ok
+
+
 PREINT_NAMES = (
     [f"imu {f}" for f in ("dp", "dq", "dv", "cov", "jac", "sum_dt", "ba",
                           "bg")]
@@ -621,6 +735,7 @@ def main(parent: str) -> int:
     ok = compare_preint(lib, rec["preint"])
     ok &= compare_tracks(lib, dev, rec["klt"])
     ok &= compare_lio(lib, dev)
+    ok &= compare_lidar_drive(lib, record_lidar(dev))
     cfg = m3dgr_camera()
     vcfg = cfg.estimator.vio
 

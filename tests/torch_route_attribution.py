@@ -12,6 +12,7 @@ fusion over ``checks.gnss_drive()``), each run once a route:
 - ``plain_W_X_Y``: the damped Cholesky solve (W), the marginalization's
   eigensolver (X) and the square-root informations (Y) on their plain
   ``torch.linalg`` twins, the routes before kernels W–Y existed;
+  ``plain_W``, ``plain_X``, ``plain_Y``: each of the three alone;
 - ``X_float``: the marginalization eliminated in float32, kernel X
   instantiated in float (the JAX package's precision; the port eliminates
   in float64);
@@ -29,6 +30,15 @@ and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
     PYTHONPATH=. python tests/torch_route_attribution.py [route ...]
 
 (every route when none is named; about 15 s a route).
+
+    PYTHONPATH=. python tests/torch_route_attribution.py hold W|X|Y
+
+holds one of those stages against float64 on every call of phase 4's drive
+(every route on its kernel): each call's inputs recorded, then the kernel's
+and the plain twin's outputs, each against the plain twin in float64 (W:
+the damped step; X: the eigenvalues; Y: the square-root informations),
+relative to the reference's largest entry; printed as the median and the
+largest over the calls, one JSON line.
 """
 
 import contextlib
@@ -61,8 +71,18 @@ from ground_fusion2_tpu_torch.vio.fused import FusedVio
 CAM_FRAMES = 32   # chip_smoke.py phase 4
 
 
-def _plain_cost_fn(x0, meas, layout, cfg):
+def _plain_cost_fn(x0, meas, layout, cfg, packed=None):
     return lambda delta: fac.window_cost_plain(x0, delta, meas, layout, cfg)
+
+
+def _plain_solve_damped(H, g, lam, free_mask, damp_diag=None, base=None,
+                        trial=None):
+    """``gn._solve_damped`` on its plain twin, the trial step ``base + dx``
+    written into ``trial`` where W's epilogue writes it."""
+    dx = gn._solve_damped_plain(H, g, lam, free_mask, damp_diag)
+    if base is None:
+        return dx
+    return base + dx if trial is None else trial.copy_(base + dx)
 
 
 class _TickDraws:
@@ -103,22 +123,28 @@ PLAIN = {
         (fwin, "slide_second_newest", fwin.slide_second_newest_plain),
     ],
     "plain_W_X_Y": [
-        (gn, "_solve_damped", gn._solve_damped_plain),
+        (gn, "_solve_damped", _plain_solve_damped),
         (mg, "sym_eig", mg.sym_eig_plain),
         (vest, "imu_sqrt_info", fac.imu_sqrt_info_plain),
         (eskf, "spd_inverse", eskf.spd_inverse_plain),
     ],
-    "X_float": [(vprob, "marginalize",
-                 functools.partial(mg.marginalize, dtype=torch.float32))],
+    "plain_W": [(gn, "_solve_damped", _plain_solve_damped)],
+    "plain_X": [(mg, "sym_eig", mg.sym_eig_plain)],
+    "plain_Y": [(vest, "imu_sqrt_info", fac.imu_sqrt_info_plain),
+                (eskf, "spd_inverse", eskf.spd_inverse_plain)],
+    "X_float": [(vprob, "marginalize_plan",
+                 functools.partial(mg.marginalize_plan, dtype=torch.float32))],
     "cpu_draws": draw_sites(_cpu_draws),
 }
-ROUTES = ("kernels", "plain_S", "plain_S_to_V", "plain_W_X_Y", "X_float",
-          "cpu_draws")
+ROUTES = ("kernels", "plain_S", "plain_S_to_V", "plain_W_X_Y", "plain_W",
+          "plain_X", "plain_Y", "X_float", "cpu_draws")
 
 
 @contextlib.contextmanager
 def patched(triples):
-    """Set each (module, attribute) to its replacement for the block."""
+    """Set each (module, attribute) to its replacement for the block (each
+    must exist: a route that patches nothing would print the kernels'
+    figures under its own name)."""
     saved = [(m, a, getattr(m, a)) for m, a, _ in triples]
     for m, a, f in triples:
         setattr(m, a, f)
@@ -182,7 +208,70 @@ def main(routes=ROUTES) -> dict:
     return out
 
 
+# stage -> (module, attribute, the kernel call on recorded arguments, the
+# plain twin's, which output is held)
+def _w_kernel(H, g, lam, free_mask, *_):
+    return gn._solve_damped(H, g, lam, free_mask)
+
+
+def _w_plain(H, g, lam, free_mask, *_):
+    return gn._solve_damped_plain(H, g, lam, free_mask)
+
+
+HOLD = {
+    "W": (gn, "_solve_damped", _w_kernel, _w_plain),
+    "X": (mg, "sym_eig", lambda A, *_: mg.sym_eig(A)[0],
+          lambda A, *_: mg.sym_eig_plain(A)[0]),
+    "Y": (vest, "imu_sqrt_info", fac.imu_sqrt_info, fac.imu_sqrt_info_plain),
+}
+
+
+def _f64(a):
+    return a.double() if torch.is_tensor(a) and a.is_floating_point() else a
+
+
+def hold(stage: str, dev, frames) -> dict:
+    """Phase 4's drive with every stage on its kernel, recording ``stage``'s
+    inputs on each call; then each call's kernel and plain outputs against
+    the plain twin in float64."""
+    module, name, kernel, plain = HOLD[stage]
+    own, calls = getattr(module, name), []
+    clone = lambda x: (x.clone() if torch.is_tensor(x) else
+                       tuple(map(clone, x)) if isinstance(x, tuple) else x)
+
+    def record(*a, **k):
+        calls.append(clone(a))
+        return own(*a, **k)
+    with patched([(module, name, record)]):
+        ate = camera_run(dev, frames)["ate"]
+    # X's calls on the slide's branch the tick did not take read buffers
+    # nothing wrote: only the taken ones count
+    taken = [a for a in calls if len(a) < 2 or a[1] is None
+             or bool(a[1][0]) == bool(a[1][1])]
+    rel = lambda x, ref: float((x.double() - ref).abs().max()
+                               / ref.abs().max().clamp(min=1e-300))
+    ek, ep, bad = [], [], 0
+    for a in taken:
+        ref = plain(*map(_f64, a))
+        if not bool(torch.isfinite(ref).all()):
+            bad += 1
+            continue
+        ek.append(rel(kernel(*a), ref))
+        ep.append(rel(plain(*a), ref))
+    stat = lambda e: (dict(median=float(np.median(e)), max=float(np.max(e)),
+                           nonfinite=int(np.sum(~np.isfinite(e))))
+                      if e else {})
+    return dict(stage=stage, calls=len(calls), held=len(ek),
+                reference_nonfinite=bad, camera_ate=ate,
+                kernel_vs_f64=stat(ek), plain_vs_f64=stat(ep))
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["hold"]:
+        print(json.dumps([hold(s, torch.device("cuda:0"),
+                               checks.room_drive(CAM_FRAMES))
+                          for s in sys.argv[2:]]))
+        sys.exit(0)
     names = sys.argv[1:] or ROUTES
     unknown = set(names) - set(ROUTES)
     if unknown:

@@ -7,7 +7,8 @@ run on ``chip_smoke.py``'s phase 5 inputs (``checks.lio_drive_inputs`` after
 the drive's 60 scans: 2,000 keypoints on the full map). D gathers at the
 predicted pose and queries 3 cm away (``checks.assoc_points``), in search
 mode and, from the ranges that call wrote, in cached mode; E runs at
-``checks.ct_normal_args``' pose. 20 calls each; printed for each stage, the
+``checks.ct_normal_args``' pose, as CT-ICP launches it (its last CTA also
+solving for the damped step: the "solve" stage). 20 calls each; printed for each stage, the
 median over calls of its slowest, median and summed unit (D: a warp a query,
 the first 512 stamped; E: a CTA, or a 256-row tile of the one-CTA parent),
 and of the whole, from the first stamp to the last (ns on the global timer;
@@ -113,9 +114,10 @@ def main(dirs) -> int:
         if parent:
             fn = lambda: pb.parent_ct_normal(lib, *args)
         else:
+            # E as CT-ICP launches it: its last CTA also solves
             def fn():
                 with pb.library(lib):
-                    ci.normal_equations(*args)
+                    ci.normal_solve(*args)
         out.append(("ct_icp_normal", "", timed(lib, names, fn)))
         for kernel, mode, r in out:
             print(json.dumps(dict(source=d, kernel=kernel, mode=mode, **r))

@@ -1,10 +1,12 @@
-"""Phase 8 of ``chip_smoke.py`` alone, on the card, for one or more trees of
-the port: the system drive (``checks.system_drive(40)``) through
-``GroundFusion(m3dgr_system())`` and torch.profiler's split of the last 3
-system ticks: device ms by class (the port's kernels, torch.linalg, other),
-by kernel, and by profiler range (``utils/profiling.py stage``, named after
-the JAX function each stretch ports), with the launches and the
-synchronizing calls a tick by call site.
+"""Phases 5 and 8 of ``chip_smoke.py`` alone, on the card, for one or more
+trees of the port: the LiDAR drive (``LidarOdometry(m3dgr_lio())`` over 60
+scans: its figures, and the LiDAR tick's launches and device ms by kernel
+over the last 3 ticks), then the system drive (``checks.system_drive(40)``)
+through ``GroundFusion(m3dgr_system())`` and torch.profiler's split of the
+last 3 system ticks: device ms by class (the port's kernels, torch.linalg,
+other), by kernel, and by profiler range (``utils/profiling.py stage``,
+named after the JAX function each stretch ports), with the launches and
+the synchronizing calls a tick by call site.
 
     PYTHONPATH=. python3 tools/tick_split.py [--out DIR] [ROOT[:TAG] ...]
 
@@ -12,9 +14,12 @@ Each ROOT (default ``.``) is a checkout of the repo; its
 ``ground_fusion2_tpu_torch`` is imported in a process of its own and its
 ``csrc/`` built there. Trees are run in the order given (run a parent, the
 change, the change, the parent to compare them within one call). Each
-split goes to ``DIR/tick_split_<TAG>_<i>.json`` (DIR default ``out``);
-the last line printed is the list of {tag, median tick ms, device ms a
-tick, launches a tick, syncs a tick}.
+split goes to ``DIR/tick_split_<TAG>_<i>.json`` and its printout to
+``DIR/tick_split_<TAG>_<i>.log`` (DIR default ``out``); the last line
+printed is the list of {tag, median tick ms, device ms a tick, launches a
+tick, syncs a tick, the LiDAR tick's launches and device ms in phases 5
+and 8, and phases 5's and 8's summary lines up to their launch counts}. A tree whose CT-ICP launches Y's standalone solve
+(no ``ct_icp.normal_solve``) is held to that route in phase 5.
 """
 
 import json
@@ -46,6 +51,14 @@ def one(root: str, tag: str, index: int, out_dir: str) -> dict:
     cs.CAMERA_KERNELS = tuple(k for k in cs.CAMERA_KERNELS if k in have)
     cs.LIDAR_KERNELS = tuple(k for k in cs.LIDAR_KERNELS if k in have)
     cs.PKG = str(csrc) + "/"
+    from ground_fusion2_tpu_torch.lio import ct_icp
+    if not hasattr(ct_icp, "normal_solve"):
+        # Y's own launch after each E: its route then
+        cs.LIO_PATH_KERNELS = tuple(k for k in cs.LIO_PATH_KERNELS
+                                    if k != "ct_icp_solve") + ("icp_solve",)
+        cs.LIO_OFF_PATH = ()
+        cs.LIDAR_KERNELS = tuple(k for k in cs.LIDAR_KERNELS
+                                 if k != "ct_icp_solve") + ("icp_solve",)
     _kernels.build(force=True)
     _kernels.library()
     got = {}
@@ -67,13 +80,23 @@ def one(root: str, tag: str, index: int, out_dir: str) -> dict:
             sites.update(counter)
         return g
     cs.sync_site = counting
+    lidar = {}
+    line = cs.lidar_split_line
+
+    def keep_line(what, split, card, ranges=False):
+        fig = line(what, split, card, ranges)
+        lidar["phase 8" if ranges else "phase 5"] = fig
+        return fig
+    cs.lidar_split_line = keep_line
+    err5 = cs.lidar_main_path(torch.device(cs.DEVICE), cs.card_line())[0]
     frames = checks.system_drive(cs.SYS_FRAMES)
     err, launches, median = cs.system_main_path(torch.device(cs.DEVICE),
                                                 cs.card_line(), frames)[:3]
+    err = err5 or err
     out = dict(tag=tag, root=root, error=err, median_tick_ms=median,
                device_ms_per_tick=got.get("device_ms_per_tick"),
                launches_per_tick=got.get("launches_per_tick"),
-               syncs_last_tick=dict(sites), split=got,
+               syncs_last_tick=dict(sites), lidar_tick=lidar, split=got,
                card=cs.card_line())
     pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
     (pathlib.Path(out_dir) / f"tick_split_{tag}_{index}.json").write_text(
@@ -98,8 +121,14 @@ def main(args) -> int:
         res = subprocess.run([sys.executable, __file__, "--one", root, tag,
                               str(i), out_dir], capture_output=True,
                              text=True, env=env, timeout=900)
+        pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
+        (pathlib.Path(out_dir) / f"tick_split_{tag}_{i}.log").write_text(
+            res.stdout + res.stderr)
         sys.stdout.write(res.stdout[-4000:])
         sys.stderr.write(res.stderr[-4000:])
+        summary = {k: next((ln.split(", launches")[0] for ln in
+                            res.stdout.splitlines() if ln.startswith(k)),
+                           None) for k in ("lidar path:", "system path:")}
         line = [ln for ln in res.stdout.splitlines()
                 if ln.startswith("TICK_SPLIT ")]
         if res.returncode or not line:
@@ -110,7 +139,8 @@ def main(args) -> int:
                          median_tick_ms=r["median_tick_ms"],
                          device_ms_per_tick=r["device_ms_per_tick"],
                          launches_per_tick=r["launches_per_tick"],
-                         syncs_last_tick=r["syncs_last_tick"]))
+                         syncs_last_tick=r["syncs_last_tick"],
+                         lidar_tick=r["lidar_tick"], **summary))
     print(json.dumps(rows), flush=True)
     return 0
 
