@@ -45,15 +45,17 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      configuration (map 1<<17 points, K = 2000 keypoints, 5 CT-ICP
      iterations) over 60 scans of the bench_lio room drive (4096 rays,
      5 mm noise, seed 0, 20 IMU samples a scan), the sensor 1 m above the
-     floor. It must initialize, run ≥ 50 fused ticks, launch D-G (E on
-     every GN iteration with Y's damped solve in its last CTA, Y's own
-     solve launch never) and the glue kernels AK (CT-ICP's step, points
-     and weights), AL (the keypoint and voxel-map glue around F) and AM
+     floor. It must initialize, run ≥ 50 fused ticks, launch D-G (a GN
+     iteration is D (the keypoints' transform, then the weights) → E (Y's
+     damped solve in its last CTA, then the step); Y's own solve launch
+     never) and the glue kernels AK (once a tick: the scan's points), AL
+     (the keypoint and voxel-map glue around F) and AM
      (the ESKF's observations, the select, the switch and the record)
      during them, stay finite, flag no scan degenerate after the second,
      sync the host once a tick (the record read), and keep the position
      error after aligning the first output < 0.06 m; the last 3 ticks'
-     launches and device ms by kernel are printed (torch.profiler). Then
+     launches and device ms by kernel are printed (torch.profiler) and AK
+     must launch once a tick there. Then
      kernel Y against its plain versions: the ESKF's 6×6 innovation
      inverse (the plain route's; AM runs the same device code), CT-ICP's
      damped 12×12 solve (its standalone launch; E runs the same device
@@ -66,7 +68,11 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      and Y's launch bit for bit (F also through an insert, an insert
      that overflows capacity and a recenter, bit-exact against the CPU);
      AK's points (keypoints, the scan), weights and step (from done = 0,
-     frozen, at the midpoint with and without a re-gather), AL's every
+     frozen, at the midpoint with and without a re-gather), and AK folded
+     into D and E bit for bit against its standalone modes
+     (checks.check_ct_fold: D's CT-ICP entry at 1, 33, 2000 and 2048
+     keypoints in every mode, E's step in each step case and on a NaN
+     step; the device ms of both beside the launches they replace), AL's every
      mode (kp_codes, kp_first, kp_take, ins_key, permute, dedup, drop,
      compact, rc_key, ev_key; and an insert, an overflowing insert, a
      recenter and an eviction on the card against the CPU) and AM through a
@@ -384,6 +390,9 @@ LIO_PATH_KERNELS = ("lio_assoc", "ct_icp_normal", "ct_icp_solve",
                     "radix_sort", "eskf_predict", "ct_glue", "voxel_glue",
                     "lio_update")
 LIO_OFF_PATH = ("icp_solve",)
+# kernel AK's launches a LiDAR tick: the scan's transform for the map
+# insert (the CT-ICP loop runs AK's device code in kernels D and E)
+LIO_AK_PER_TICK = 1
 # save_grid_map -> load: one PGM grey level (the writer truncates) and the
 # float32 rounding of the logit and sigmoid around it
 OCC_MAX_DIFF = 1.0 / 255.0 + 1e-6
@@ -549,6 +558,7 @@ KERNEL_GROUPS = {
            "tick_post_kernel"),
     "AQ": ("draw_kernel", "split_kernel"),
     "G": ("eskf_predict_kernel",),
+    "U": ("window_tests_kernel",),
     "Y": ("sqrt_info_kernel", "icp_solve_kernel", "degeneracy_kernel")}
 # the camera tick's profiler ranges (vio/fused.py, vio/problem.py)
 CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
@@ -783,8 +793,13 @@ def lidar_main_path(dev, card):
         return (f"a kernel off the LiDAR path launched ({LIO_OFF_PATH}): "
                 f"{launches}", launches, lo, None)
     if prof is not None:
-        lidar_split_line("phase 5, the LiDAR tick alone",
-                         device_split(prof, len(syncs_seen)), card)
+        fig = lidar_split_line("phase 5, the LiDAR tick alone",
+                               device_split(prof, len(syncs_seen)), card)
+        ak = fig["kernel_launches_per_tick"]["AK"]
+        if ak != LIO_AK_PER_TICK:
+            return (f"kernel AK launched {ak:g} times a LiDAR tick: CT-ICP's "
+                    "glue runs in kernels D and E, AK only transforms the "
+                    "scan", launches, lo, None)
     off = gt[0] - outs[0].p_lio
     errs = [float(np.linalg.norm(o.p_lio + off - g)) for o, g in zip(outs, gt)]
     deg = [i for i, o in enumerate(outs) if o.degenerate and i >= 2]
@@ -1138,14 +1153,14 @@ def system_main_path(dev, card, frames):
                 for k, v in split["by_range"].items()}
         print(f"system tick by profiler range over the last 3 ticks (device "
               f"ms, kernel launches, of which the port's kernels' ms, a "
-              f"tick; printed only): {json.dumps(rows)}; kernels AH, AI, AJ "
-              f"launches a tick "
+              f"tick; printed only): {json.dumps(rows)}; kernels AH, AI, AJ, "
+              f"U launches a tick "
               + json.dumps({g: sum(split['port_kernel_launches_per_tick']
                                    .get(n, 0) for n in KERNEL_GROUPS[g])
-                            for g in ("AH", "AI", "AJ")})
+                            for g in ("AH", "AI", "AJ", "U")})
               + f", device ms a tick "
               + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
-                            for g in ("AH", "AI", "AJ")}) + f" | {card}",
+                            for g in ("AH", "AI", "AJ", "U")}) + f" | {card}",
               flush=True)
         lr = {k: split["by_range"].get(k, dict(ms=0.0, launches=0,
                                                   port_ms=0.0, copies=0))
@@ -2442,13 +2457,29 @@ def main() -> int:
         "ct_icp_solve": checks.check_ct_solve(dev, x, lcfg.icp_cfg),
         "radix_sort": checks.check_radix(dev, x, lcfg.map_cfg),
         "eskf_predict": checks.check_eskf(dev, x, lcfg.eskf_opt),
-        "ct_glue": checks.check_ct_glue(dev, x, lcfg.icp_cfg, lcfg.map_cfg),
+        "ct_glue": dict(checks.check_ct_glue(dev, x, lcfg.icp_cfg,
+                                             lcfg.map_cfg),
+                        folded=checks.check_ct_fold(dev, x, lcfg.icp_cfg,
+                                                    lcfg.map_cfg)),
         "voxel_glue": checks.check_voxel_glue(dev, x, lcfg.map_cfg, lcfg),
         "lio_update": checks.check_lio_update(dev, x, lio_rc_thresh(lo)),
     }
+    ak = res_lio["ct_glue"]
+    ak["ok"] = ak["ok"] and ak["folded"]["ok"]
     if report(res_lio):
         return 1
     res.update(res_lio)
+    f = ak["folded"]
+    print(f"kernel AK folded into D and E on phase 5's "
+          f"{x['kp'].shape[0]} keypoints, device ms a call: D's CT-ICP entry "
+          f"(cached mode) {f['d_device_ms']:.4f} in {f['d_launches']:g} "
+          f"launches against AK points + D + AK weights "
+          f"{f['d_replaced_device_ms']:.4f} in {f['d_replaced_launches']:g}; "
+          f"E with the solve and the step {f['e_device_ms']:.4f} in "
+          f"{f['e_launches']:g} against E with the solve + AK step "
+          f"{f['e_replaced_device_ms']:.4f} in {f['e_replaced_launches']:g} "
+          f"(in turns); every output equal at Q = {list(checks.FOLD_QUERIES)} "
+          f"and in each step case: {f['ok']} | {card}", flush=True)
     d, e = res_lio["lio_assoc"], res_lio["ct_icp_normal"]
     print(f"kernel D (lio_assoc) on phase 5's {x['p_w'].shape[0]} keypoints, "
           f"device ms a call: search mode {d['device_ms']:.4f}, cached mode "

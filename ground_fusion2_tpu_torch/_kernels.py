@@ -44,7 +44,10 @@ _SIGNATURES = {
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
     "gf2_proj_normal": [_P] * 12 + [_I] * 7 + [_F] * 3 + [_P] * 5 + [_I, _P],
     "gf2_lio_assoc": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 4 + [_P] * 5,
-    "gf2_ct_icp_normal": [_P] * 13 + [_I] + [_F] * 3 + [_P] * 3 + [_F, _P, _P],
+    "gf2_lio_assoc_ct": ([_P] * 5 + [_I] * 2 + [_F] + [_I] * 4 + [_P] * 7
+                         + [_F] * 2 + [_P] * 7),
+    "gf2_ct_icp_normal": ([_P] * 13 + [_I] + [_F] * 3 + [_P] * 3 + [_F, _P]
+                          + [_P] * 5 + [_F] * 3 + [_I] + [_P] * 3),
     "gf2_ct_icp_scratch": [_I],
     "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P],
     "gf2_radix_plan": [_I] * 2 + [_P] * 6,
@@ -68,7 +71,7 @@ _SIGNATURES = {
     "gf2_global_cost": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 3,
     "gf2_triangulate": [_P] * 11 + [_I] * 2 + [_P] * 3,
     "gf2_window_tests": ([_I] + [_P] * 5 + [_I] * 2 + [_P] * 6 + [_F] * 3
-                         + [_I] + [_P] * 7 + [_I] * 5 + [_F] * 5 + [_P] * 5),
+                         + [_I] + [_P] * 7 + [_I] * 5 + [_F] * 5 + [_P] * 4),
     "gf2_window_update": ([_I] + [_P] * 8 + [_I] * 2 + [_P] * 5 + [_I]
                           + [_F] * 2 + [_P] * 4 + [_P] * 8 + [_P] * 2),
     "gf2_chol_solve": [_P] * 5 + [_I] + [_P] * 6,

@@ -2528,14 +2528,15 @@ def _mean_errors(fw, x, focal: float):
     return (err * wobs).sum(1) / torch.clamp(wobs.sum(1), min=1.0)
 
 
-def check_window_tests(device, fw, x, s, stationary, interval, k: int) -> dict:
+def check_window_tests(device, fw, x, s, stationary, interval, k: int,
+                       timed: bool = True) -> dict:
     """Kernel U in both modes against the plain versions: after the solve
     (the outlier gate at ``s.outlier_px``, then the keyframe test) and before
     it (the detectors of interval ``k``; ``interval``: dp_imu, dp_whl, qio,
     imu_valid, acc, smask). Flags and masks equal, except a keep flag whose
     track's mean error lies within U_ERR_BAND of outlier_px and an is_kf
     whose mean parallax lies within U_PAR_BAND of min_parallax; twice the
-    same bits."""
+    same bits. ``timed``: each mode's call, plain and device ms."""
     from .vio import feature_window as fwm
     post = (fw, x, s.outlier_px, s.focal, s.min_parallax, s.min_tracked,
             stationary)
@@ -2581,6 +2582,8 @@ def check_window_tests(device, fw, x, s, stationary, interval, k: int) -> dict:
                ok=same and keep_ok and kf_ok and pre_ok and flags_equal,
                library_ms=None,
                **bound(nb_post, n_obs * PROJ_OBS_FLOPS + 8 * F))
+    if not timed:
+        return out
     out["presolve"] = dict(**bound(nb_pre, 8 * F + 12 * (M + 1)),
                            ms=time_ms(lambda: fwm.presolve_tests(*pre)),
                            plain_ms=time_ms(
@@ -3654,8 +3657,8 @@ def check_ct_glue(device, x: dict, icp_cfg, map_cfg, timed: bool = True) -> dict
     kernel Y's damped solve of kernel E's system: from done = 0, frozen
     (done = 1), and at the midpoint with and without a re-gather (pose0 the
     pose itself, and 0.5 m away). Every output ``torch.equal``. Timed per
-    mode; the totals are a tick's (5 iterations: the points twice, the
-    weights six times, the step five times)."""
+    mode; the totals are a tick's: the scan's points once (the CT-ICP loop
+    runs the rest in kernels D and E: :func:`check_ct_fold`)."""
     pose, kp, ka, km = x["pose"], x["kp"], x["ka"], x["km"]
     p_w = ci.transform_points(pose, kp, ka)
     normal, centroid, a2d, valid = vm.associate(x["vmap"], p_w, p_w, map_cfg)
@@ -3700,9 +3703,124 @@ def check_ct_glue(device, x: dict, icp_cfg, map_cfg, timed: bool = True) -> dict
     flops = {"points (keypoints)": 300 * K, "points (scan)": 300 * N,
              "weights": 15 * K, "step": 300 * K + 400}
     runs = {n: runs[n] for n in nbytes}
-    return _glue_timed(res, runs, nbytes, flops,
-                       {"points (keypoints)": 1, "points (scan)": 1,
-                        "weights": 6, "step": 5}, timed)
+    return _glue_timed(res, runs, nbytes, flops, {"points (scan)": 1},
+                       timed)
+
+
+def _same_values(a, b) -> bool:
+    """``torch.equal``, NaN equal to NaN where both hold one."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return bool(torch.equal(a, b))
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return bool(torch.equal(na, nb)) and bool(torch.equal(a[~na], b[~nb]))
+
+
+FOLD_QUERIES = (1, 33, 2000, 2048)   # kernel D's CT entry: keypoints a call
+
+
+def check_ct_fold(device, x: dict, icp_cfg, map_cfg, timed: bool = True,
+                  queries=FOLD_QUERIES) -> dict:
+    """Kernel AK's work folded into kernels D and E against AK's standalone
+    modes on ``x`` (:func:`lio_kernel_inputs`): D's CT-ICP entry
+    (``ct_icp.assoc_weights``: the keypoints' transform in its prologue, the
+    weights in its epilogue) against AK's points, D's plain entry at those
+    points and AK's weights, at each count of ``queries`` (the keypoints
+    repeated), in the search, cached and flag (set, clear) modes, with the
+    ranges each writes; E's step tail (``ct_icp.normal_solve_step``)
+    against E with the solve, then AK's step, from done = 0, frozen, at the
+    midpoint with and without a re-gather, and on a NaN step (a NaN weight).
+    Every output ``torch.equal`` (NaN where both hold one). Timed: D's CT
+    entry in its cached mode against the three launches it replaces, E with
+    its step against E then AK's step (device ms a call)."""
+    vmap, pose, kp, ka, km = x["vmap"], x["pose"], x["kp"], x["ka"], x["km"]
+    K = kp.shape[0]
+    flag = lambda b: torch.tensor(b, device=device)
+    names = ("normal", "centroid", "a2d", "valid", "w", "p_w", "ranges")
+
+    def fused(kq, aq, mq, ranges, search):
+        p_w = torch.empty((kq.shape[0], 3), device=device)
+        return (*ci.assoc_weights(vmap, pose, kq, aq, mq, icp_cfg, map_cfg,
+                                  ranges, search, p_w), p_w, ranges)
+
+    def chain(kq, aq, mq, ranges, search):
+        p_w = ci.transform_points(pose, kq, aq)
+        nrm, cen, a2d, val = vm.associate(vmap, p_w, p_w, map_cfg, ranges,
+                                          search)
+        return (nrm, cen, a2d, val,
+                ci.weights(p_w, cen, nrm, a2d, val, mq, icp_cfg), p_w, ranges)
+
+    assoc, ok = {}, True
+    for Q in queries:
+        idx = torch.arange(Q, device=device) % K
+        kq, aq, mq = kp[idx].contiguous(), ka[idx].contiguous(), km[idx]
+        fresh = lambda: torch.zeros((Q, 27), dtype=torch.int32, device=device)
+        searched = fused(kq, aq, mq, fresh(), True)[-1]
+        for mode, search in (("search", True), ("cached", False),
+                             ("flag set", flag(True)),
+                             ("flag clear", flag(False))):
+            base = fresh() if search is True else searched
+            new = fused(kq, aq, mq, base.clone(), search)
+            old = chain(kq, aq, mq, base.clone(), search)
+            same = {n: _same_values(a, b) for n, a, b in zip(names, new, old)}
+            ok &= all(same.values())
+            assoc[f"Q {Q}, {mode}"] = dict(equal=all(same.values()),
+                                           unequal=[n for n, v in same.items()
+                                                    if not v])
+    one = torch.ones((), device=device)
+    far = ci.CtPose(pose.q_begin, pose.t_begin + 0.5, pose.q_end,
+                    pose.t_end - 0.5)
+    w_nan = x["w"].clone()
+    w_nan[0] = float("nan")
+    args = (pose, pose, kp, ka, x["centroid"], x["normal"])
+    steps = {}
+    names = ("H", "g", "cost", "d", "q_begin", "t_begin", "q_end", "t_end",
+             "done", "regathered")
+    for case, w, done, mid in (
+            ("from done = 0", x["w"], None, None),
+            ("frozen", x["w"], one, None),
+            ("midpoint", x["w"], None, (pose, map_cfg.voxel_size)),
+            ("midpoint, re-gather", x["w"], one, (far, map_cfg.voxel_size)),
+            ("NaN step", w_nan, None, (pose, map_cfg.voxel_size))):
+        H, g, c, d, new, nd, reg = ci.normal_solve_step(*args, w, icp_cfg,
+                                                        done, mid)
+        Ho, go, co, do = ci.normal_solve(*args, w, icp_cfg)
+        po, ndo, _, rego = ci.step(pose, do, done, kp, ka, icp_cfg, mid)
+        pairs = [(H, Ho), (g, go), (c, co), (d, do), *zip(new, po), (nd, ndo)]
+        if mid is not None:
+            pairs.append((reg, rego))
+        same = {n: _same_values(a, b) for n, (a, b) in zip(names, pairs)}
+        ok &= all(same.values())
+        steps[case] = dict(equal=all(same.values()),
+                           unequal=[n for n, v in same.items() if not v],
+                           nan_step=bool(torch.isnan(d).any()),
+                           regathered=None if reg is None else bool(reg))
+    ok &= steps["NaN step"]["nan_step"] and steps["midpoint, re-gather"][
+        "regathered"]
+    res = dict(assoc=assoc, step=steps, ok=bool(ok), tol="torch.equal")
+    if timed:
+        ranges = fused(kp, ka, km, torch.zeros((K, 27), dtype=torch.int32,
+                                               device=device), True)[-1]
+        d_new = device_pair(lambda: ci.assoc_weights(
+            vmap, pose, kp, ka, km, icp_cfg, map_cfg, ranges, False))
+        d_old = device_pair(lambda: chain(kp, ka, km, ranges, False))
+        mid = (pose, map_cfg.voxel_size)
+        e_new = device_pair(lambda: ci.normal_solve_step(
+            *args, x["w"], icp_cfg, None, mid))
+        e_old = device_pair(lambda: ci.step(
+            pose, ci.normal_solve(*args, x["w"], icp_cfg)[3], None, kp, ka,
+            icp_cfg, mid))
+        res.update(
+            d_device_ms=d_new["device_ms"],
+            d_launches=d_new["launches_per_call"],
+            d_replaced_device_ms=d_old["device_ms"],
+            d_replaced_launches=d_old["launches_per_call"],
+            e_device_ms=e_new["device_ms"],
+            e_launches=e_new["launches_per_call"],
+            e_replaced_device_ms=e_old["device_ms"],
+            e_replaced_launches=e_old["launches_per_call"])
+    return res
 
 
 def check_voxel_glue(device, x: dict, cfg, lcfg, timed: bool = True) -> dict:

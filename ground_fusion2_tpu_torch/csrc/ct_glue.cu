@@ -4,47 +4,44 @@
 // ground_fusion2_tpu/lio/ct_icp.py: `transform_points` (:56), `_retract`
 // (:63), `assoc`'s weights (:109-120), `gn_iter`'s freeze, norms and
 // convergence latch (:144-153) and the midpoint (:156-176). A GN iteration
-// on the card is then D → AK weights → E (with Y's solve in its last CTA)
-// → AK step.
+// on the card is D (the keypoints' transform, then the weights) → E (the
+// solve, then the step): the device code of the weights and the step is
+// ct_glue.cuh, which kernel D's epilogue and kernel E's last CTA run, and
+// D's prologue runs the transform (torch_order.cuh's ct_transform). The
+// standalone modes below run the same device code; they serve the scan's
+// transform for the map insert (lio/fused.py) and the checks:
 //   points   the continuous-time transform of K keypoints or N scan points
 //            (slerp and lerp of the (begin, end) pose at each point's
-//            sweep fraction, then the rotation), one thread a point: the
-//            solve's first association, the map insert's world points;
+//            sweep fraction, then the rotation), one thread a point;
 //   weights  w = mask · valid · [a2d > min_planarity] · [|d| < max_corr] ·
 //            a2d² from kernel D's plane fits, one thread a point;
 //   step     after Y's damped solve: d frozen by `done`, the four 3-norms,
 //            the convergence latch, both quaternions retracted (exp,
 //            product, normalization) and both translations moved, and the
-//            keypoints transformed by the new pose for the next
-//            association. Thread 0 of every CTA recomputes the 14-float
-//            pose itself (the same bits in each), CTA 0 writes it and
-//            `done`. At the midpoint it also writes the `regathered` flag
-//            kernel D reads (moved > voxel / 2) and resets the latch.
+//            keypoints transformed by the new pose. Warp 0 of every CTA
+//            recomputes the 14-float pose itself (the same bits in each),
+//            CTA 0 writes it and `done`. At the midpoint it also writes the
+//            `regathered` flag kernel D reads (moved > voxel / 2) and
+//            resets the latch.
 // The plain PyTorch route (lio/ct_icp.py) is ~145 small ops an iteration;
 // every value here is the one it computes on the card, in its order
 // (torch_order.cuh).
 //
 // Bounds on the card: a few dozen bytes and ~300 operations a point (K =
 // 2,000 keypoints, N = 4,096 scan points): launch latency, not bytes or
-// operations, sets the time.
+// operations, sets the time; hence the path's one launch a tick (the scan)
+// and the folds into D and E.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "torch_order.cuh"
+#include "ct_glue.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
 using namespace gf2t;
-
-struct Pose {            // q_begin[4] t_begin[3] q_end[4] t_end[3]
-  const float* qb;
-  const float* tb;
-  const float* qe;
-  const float* te;
-};
 
 __global__ void ct_points_kernel(Pose pose, const float* __restrict__ pts,
                                  const float* __restrict__ alpha, int K,
@@ -65,56 +62,8 @@ __global__ void ct_weights_kernel(const float* __restrict__ p_w,
                                   float* __restrict__ w) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= K) return;
-  float m[3];
-  for (int a = 0; a < 3; ++a)
-    m[a] = __fmul_rn(__fsub_rn(p_w[3 * i + a], centroid[3 * i + a]),
-                     normal[3 * i + a]);
-  const float dist = fabsf(sum3(m[0], m[1], m[2]));
-  const float s = a2d[i];
-  float v = __fmul_rn(kp_mask[i], valid[i] ? 1.0f : 0.0f);
-  v = __fmul_rn(v, s > min_planarity ? 1.0f : 0.0f);
-  v = __fmul_rn(v, dist < max_corr_dist ? 1.0f : 0.0f);
-  w[i] = __fmul_rn(__fmul_rn(v, s), s);
-}
-
-struct StepArgs {
-  Pose pose;             // the iteration's pose
-  Pose pose0;            // the solve's initial pose (the midpoint's)
-  const float* d;        // [12] Y's damped step
-  const float* done;     // [1], or null: 0
-  float conv_trans, conv_rot, half_voxel;
-  int mid;               // the first half's last iteration
-};
-
-// the new pose (14 floats), done and the midpoint's flag, in `out`
-// (pose[14], done, regathered)
-__device__ void step_pose(const StepArgs& a, float* out) {
-  const float done = a.done ? a.done[0] : 0.0f;
-  const float keep = __fsub_rn(1.0f, done);
-  float d[12];
-  for (int i = 0; i < 12; ++i) d[i] = __fmul_rn(a.d[i], keep);
-  const float dt = maximum(norm3(d[3], d[4], d[5]), norm3(d[9], d[10], d[11]));
-  const float dth = maximum(norm3(d[0], d[1], d[2]), norm3(d[6], d[7], d[8]));
-  float nd = maximum(done, dt < a.conv_trans && dth < a.conv_rot ? 1.0f : 0.0f);
-  quat_boxplus(a.pose.qb, d, out);
-  quat_boxplus(a.pose.qe, d + 6, out + 7);
-  for (int i = 0; i < 3; ++i) {
-    out[4 + i] = __fadd_rn(a.pose.tb[i], d[3 + i]);
-    out[11 + i] = __fadd_rn(a.pose.te[i], d[9 + i]);
-  }
-  float regathered = 0.0f;
-  if (a.mid) {
-    const float moved = maximum(
-        norm3(__fsub_rn(out[4], a.pose0.tb[0]), __fsub_rn(out[5], a.pose0.tb[1]),
-              __fsub_rn(out[6], a.pose0.tb[2])),
-        norm3(__fsub_rn(out[11], a.pose0.te[0]),
-              __fsub_rn(out[12], a.pose0.te[1]),
-              __fsub_rn(out[13], a.pose0.te[2])));
-    regathered = moved > a.half_voxel ? 1.0f : 0.0f;
-    if (regathered > 0.0f) nd = 0.0f;
-  }
-  out[14] = nd;
-  out[15] = regathered;
+  w[i] = ct_weight(p_w + 3 * i, centroid + 3 * i, normal + 3 * i, a2d[i],
+                   valid[i], kp_mask[i], min_planarity, max_corr_dist);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -123,7 +72,12 @@ ct_step_kernel(StepArgs a, const float* __restrict__ pts,
                float* __restrict__ pose_out, float* __restrict__ done_out,
                bool* __restrict__ regathered_out, float* __restrict__ p_w) {
   __shared__ float s[16];
-  if (threadIdx.x == 0) step_pose(a, s);
+  if (threadIdx.x < 32) {
+    float r[16];
+    step_pose(a, r, threadIdx.x);
+    if (threadIdx.x == 0)
+      for (int i = 0; i < 16; ++i) s[i] = r[i];
+  }
   __syncthreads();
   if (blockIdx.x == 0 && threadIdx.x < 14) pose_out[threadIdx.x] = s[threadIdx.x];
   if (blockIdx.x == 0 && threadIdx.x == 0) {

@@ -37,11 +37,21 @@
 // entry gf2_icp_solve) on the H and g it has just summed, kept in shared
 // memory: the solve costs no launch of its own and H and g no round trip
 // through device memory. H, g and the cost are the same with or without it.
+//
+// Given `pose_out`, that CTA's warp 0 then takes the step of kernel AK's
+// step mode on that d (ct_glue.cuh's step_pose: d frozen by `done`, the
+// norms, the convergence latch, both retractions and, at the midpoint, the
+// `regathered` flag that resets the latch and that the next kernel D
+// reads) and writes the new pose and `done`, its inputs loaded by threads
+// that do not walk while the rows are summed: a GN iteration on the card is
+// D (the keypoints' transform, then the weights) → E (the solve, then the
+// step), and the next D transforms the keypoints by that pose itself.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ct_glue.cuh"
 #include "icp_solve_warp.cuh"
 #include "stage_stamps.cuh"
 
@@ -61,9 +71,19 @@ constexpr int kSlots = 3;                    // the ring: 40,560 B
 constexpr int kStep = 16;                    // rows a walk step reads ahead
 
 // stage stamps (stage_stamps.cuh), a CTA's: its entry, its rows written;
-// the last CTA's ticket, its sum and its solve; named by GF2_STAGE_NAMES
-// below
-enum { kStEntry, kStRows, kStTicket, kStSum, kStSolve };
+// the last CTA's ticket, its sum, its solve and its step; named by
+// GF2_STAGE_NAMES below
+enum { kStEntry, kStRows, kStTicket, kStSum, kStSolve, kStStep };
+
+// the step after the solve (null pose_out: none)
+struct Step {
+  gf2t::Pose pose0;        // the solve's initial pose (read at the midpoint)
+  const float* done;       // [1], or null: 0
+  float conv_trans, conv_rot, half_voxel;
+  int mid;
+  float* pose_out;         // [15]: the new pose (14 floats), then done
+  bool* regathered_out;    // [1], written at the midpoint
+};
 
 struct D {
   float v;
@@ -329,9 +349,12 @@ __global__ void __launch_bounds__(kThreads) ct_icp_normal_kernel(
     const float* __restrict__ wgt, int K, float beta_loc, float beta_vel,
     float beta_ori, float* __restrict__ rows_buf,
     unsigned* __restrict__ ticket, float* __restrict__ out, float damping,
-    float* __restrict__ d) {
+    float* __restrict__ d, Step step) {
   __shared__ __align__(16) float ring[kSlots * kSlot];
   __shared__ float sys[kCols * kCols + kCols];   // H and g for the solve
+  __shared__ float sd[kSolveN];                  // d for the step
+  // the step's inputs: the pose (14 floats), done, pose0's translations
+  __shared__ float sstep[21];
   __shared__ bool last;
   const int t = threadIdx.x;
   GF2_STAMP(t == 0, blockIdx.x, kStEntry);
@@ -354,6 +377,19 @@ __global__ void __launch_bounds__(kThreads) ct_icp_normal_kernel(
   if (!last) return;
   __threadfence();
   GF2_STAMP(t == 0, blockIdx.x, kStTicket);
+  // the step's inputs, loaded now by threads that do not walk and stored
+  // once the walk is done
+  const int si = t - kAcc;
+  const bool stager = step.pose_out != nullptr && si >= 0 && si < 21;
+  float sv = 0.f;
+  if (stager) {
+    if (si < 4) sv = qb[si];
+    else if (si < 7) sv = tb[si - 4];
+    else if (si < 11) sv = qe[si - 7];
+    else if (si < 14) sv = te[si - 11];
+    else if (si == 14) sv = step.done ? step.done[0] : 0.f;
+    else if (step.mid) sv = si < 18 ? step.pose0.tb[si - 15] : step.pose0.te[si - 18];
+  }
   // thread t's entry: H's upper triangle row by row, then g, then the cost
   int a = kCols, b = kCols;
   if (t < 78) {
@@ -412,18 +448,38 @@ __global__ void __launch_bounds__(kThreads) ct_icp_normal_kernel(
     out[kCols * kCols + kCols] = 0.5f * acc;
   }
   GF2_STAMP(t == 0, blockIdx.x, kStSum);
+  if (stager) sstep[si] = sv;
   if (d == nullptr) return;
   __syncthreads();
   if (t < 32) {
     const float x = warp_icp_solve(sys, sys + kCols * kCols, damping, t);
-    if (t < kSolveN) d[t] = x;
+    if (t < kSolveN) {
+      d[t] = x;
+      sd[t] = x;
+    }
   }
   GF2_STAMP(t == 0, blockIdx.x, kStSolve);
+  if (step.pose_out == nullptr) return;
+  __syncwarp();
+  if (t < 32) {
+    float s[16];
+    gf2t::step_pose(
+        gf2t::StepArgs{gf2t::Pose{sstep, sstep + 4, sstep + 7, sstep + 11},
+                       gf2t::Pose{nullptr, sstep + 15, nullptr, sstep + 18},
+                       sd, step.done ? sstep + 14 : nullptr, step.conv_trans,
+                       step.conv_rot, step.half_voxel, step.mid},
+        s, t);
+    if (t == 0) {
+      for (int i = 0; i < 15; ++i) step.pose_out[i] = s[i];
+      if (step.mid) step.regathered_out[0] = s[15] > 0.0f;
+    }
+  }
+  GF2_STAMP(t == 0, blockIdx.x, kStStep);
 }
 
 }  // namespace
 
-GF2_STAGE_NAMES("entry,rows,ticket,sum,solve")
+GF2_STAGE_NAMES("entry,rows,ticket,sum,solve,step")
 
 // floats of the rows' scratch for K keypoint rows (all CTAs' rows)
 extern "C" int gf2_ct_icp_scratch(int K) {
@@ -432,17 +488,30 @@ extern "C" int gf2_ct_icp_scratch(int K) {
 
 // `ticket`: zero before the first launch on its stream; each launch leaves
 // it at zero again. out [157]: H [12, 12], g [12], the cost; `d` [12] (or
-// null: no solve) the damped step at `damping`.
+// null: no solve) the damped step at `damping`. `pose_out` [15] (or null:
+// no step; needs d): the step of kernel AK's step mode on d from the pose
+// (qb, tb, qe, te): the new pose and done (`done` [1] the latch before it,
+// or null: 0); at the midpoint (`mid`) against the initial pose (qb0, tb0,
+// qe0, te0), with `regathered_out` [1] bool.
 extern "C" int gf2_ct_icp_normal(
     const float* qb, const float* tb, const float* qe, const float* te,
     const float* pqb, const float* ptb, const float* pqe, const float* pte,
     const float* pts, const float* alpha, const float* centroid,
     const float* normal, const float* w, int K, float beta_loc,
     float beta_vel, float beta_ori, float* rows, unsigned* ticket, float* out,
-    float damping, float* d, void* stream) {
+    float damping, float* d, const float* qb0, const float* tb0,
+    const float* qe0, const float* te0, const float* done, float conv_trans,
+    float conv_rot, float half_voxel, int mid, float* pose_out,
+    bool* regathered_out, void* stream) {
+  if (pose_out != nullptr &&
+      (d == nullptr || (mid && (regathered_out == nullptr || tb0 == nullptr ||
+                                te0 == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  const Step step{gf2t::Pose{qb0, tb0, qe0, te0}, done, conv_trans, conv_rot,
+                  half_voxel, mid, pose_out, regathered_out};
   const int ctas = (K + 9 + kThreads - 1) / kThreads;
   ct_icp_normal_kernel<<<ctas, kThreads, 0, (cudaStream_t)stream>>>(
       qb, tb, qe, te, pqb, ptb, pqe, pte, pts, alpha, centroid, normal, w, K,
-      beta_loc, beta_vel, beta_ori, rows, ticket, out, damping, d);
+      beta_loc, beta_vel, beta_ori, rows, ticket, out, damping, d, step);
   return (int)cudaGetLastError();
 }

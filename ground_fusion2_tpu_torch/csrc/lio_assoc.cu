@@ -29,6 +29,19 @@
 //     centroid, a2D and valid. The sums and the eig3 are the first
 //     version's, operation for operation: its outputs are kept bit for bit.
 //
+// CT-ICP's entry (gf2_lio_assoc_ct) folds kernel AK's per-point work into
+// the CTA (csrc/ct_glue.cu, whose device code it runs): a prologue in
+// which warp 0's first four lanes transform the CTA's keypoints by the
+// iteration's pose (torch_order.cuh's ct_transform; the pose is the 14
+// floats kernel E's last CTA wrote, or the solve's initial pose), each
+// point then being its warp's gather and query point, and an epilogue in
+// which lane 0 turns
+// the plane fit it holds in registers into the row's weight
+// (ct_glue.cuh's ct_weight). A GN iteration on the card is then D (the
+// keypoints' transform, then the weights) → E (the solve, then the step):
+// no launch of AK between them. The search, the loads, the kNN rounds and
+// the fit are the same code in both entries.
+//
 // Bounds on the card: 2000 warps × (27 searches of 17 dependent steps, in
 // search mode only + 216 point and code loads + k rounds of two warp
 // reductions); ~1.7 MB of map reads, L2 resident. Latency-bound on the
@@ -37,6 +50,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "ct_glue.cuh"
 #include "stage_stamps.cuh"
 
 namespace {
@@ -46,12 +60,26 @@ constexpr int kHalf = 512, kSide = 1024, kBits = 10;
 constexpr int kMaxSlots = 14;   // 27 · gather_k ≤ 448 candidates a warp
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kStartBits = 27;  // a range: start below 2^27, count above
+constexpr int kWarpsPerBlock = 4;   // a warp a query
 constexpr unsigned kInfBits = 0x7f800000u;
 constexpr unsigned long long kNone = ~0ull;   // no candidate: after all
 
 // stage stamps (stage_stamps.cuh), a warp's: its entry, then the end of
-// each stage; named in this order by GF2_STAGE_NAMES below
-enum { kStEntry, kStSearch, kStLoads, kStKnn, kStFit };
+// each stage (CT-ICP's entry: the keypoint's transform first); named in
+// this order by GF2_STAGE_NAMES below
+enum { kStEntry, kStSearch, kStLoads, kStKnn, kStFit, kStTransform };
+
+// CT-ICP's association (gf2_lio_assoc_ct): the query is keypoint q at the
+// pose, and the rows' weights come out beside the plane fits
+struct CtArgs {
+  gf2t::Pose pose;
+  const float* pts;        // [Q, 3] the keypoints in the body frame
+  const float* alpha;      // [Q] their sweep fractions
+  const float* kp_mask;    // [Q]
+  float min_planarity, max_corr_dist;
+  float* w;                // [Q] out
+  float* p_w;              // [Q, 3] out, or null
+};
 
 __device__ __forceinline__ int pack(int i, int j, int k) {
   const int sx = i + kHalf, sy = j + kHalf, sz = k + kHalf;
@@ -135,8 +163,10 @@ __device__ __forceinline__ unsigned slot_bits(int lo, int n, int s) {
   return hi & ~((1u << a) - 1u);
 }
 
-// NS: slots a lane holds (⌈27·gk / 32⌉ rounded up to an instantiation)
-template <int NS>
+// NS: slots a lane holds (⌈27·gk / 32⌉ rounded up to an instantiation);
+// CT: the query and gather point computed from `ct` (pg, pq unused) and
+// the weights written
+template <int NS, bool CT>
 __global__ void lio_assoc_kernel(
     const int* __restrict__ code, const float* __restrict__ pts,
     const float* __restrict__ origin, const float* __restrict__ pg,
@@ -144,20 +174,41 @@ __global__ void lio_assoc_kernel(
     const unsigned char* __restrict__ flag, int N, int Q, float voxel, int gk,
     int knn, int min_pts, int mode, float* __restrict__ normal,
     float* __restrict__ centroid, float* __restrict__ a2d,
-    unsigned char* __restrict__ valid) {
+    unsigned char* __restrict__ valid, CtArgs ct) {
   const int lane = threadIdx.x & 31;
-  const int q = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  const int q = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  GF2_STAMP(lane == 0 && q < Q, q, kStEntry);
+  // CT-ICP: warp 0's first lanes transform the CTA's keypoints, one a lane,
+  // and hand each to its warp through shared memory: the query's gather
+  // and query point both (ct_icp.py associates p_w at p_w)
+  float p[3];
+  if (CT) {
+    __shared__ float sp[kWarpsPerBlock][3];
+    if (threadIdx.x < kWarpsPerBlock) {
+      const int k = blockIdx.x * kWarpsPerBlock + threadIdx.x;
+      if (k < Q) {
+        gf2t::ct_transform(ct.pose.qb, ct.pose.tb, ct.pose.qe, ct.pose.te,
+                           ct.pts + 3 * k, ct.alpha[k], sp[threadIdx.x]);
+        if (ct.p_w != nullptr)
+          for (int a = 0; a < 3; ++a) ct.p_w[3 * k + a] = sp[threadIdx.x][a];
+      }
+    }
+    __syncthreads();
+    for (int a = 0; a < 3; ++a) p[a] = sp[threadIdx.x >> 5][a];
+    GF2_STAMP(lane == 0 && q < Q, q, kStTransform);
+  }
   if (q >= Q) return;  // warp-uniform
-  GF2_STAMP(lane == 0, q, kStEntry);
   const bool search = mode == 0 || (mode == 2 && *flag != 0);  // uniform
 
   // neighbour voxel ranges: searched around the gather point, or cached
   int start = 0, cnt = 0, vc = kInvalid;
   if (lane < 27) {
     if (search) {
-      const int ci = (int)floorf((pg[3 * q + 0] - origin[0]) / voxel) + lane / 9 - 1;
-      const int cj = (int)floorf((pg[3 * q + 1] - origin[1]) / voxel) + (lane / 3) % 3 - 1;
-      const int ck = (int)floorf((pg[3 * q + 2] - origin[2]) / voxel) + lane % 3 - 1;
+      const float gx = CT ? p[0] : pg[3 * q + 0], gy = CT ? p[1] : pg[3 * q + 1],
+                  gz = CT ? p[2] : pg[3 * q + 2];
+      const int ci = (int)floorf((gx - origin[0]) / voxel) + lane / 9 - 1;
+      const int cj = (int)floorf((gy - origin[1]) / voxel) + (lane / 3) % 3 - 1;
+      const int ck = (int)floorf((gz - origin[2]) / voxel) + lane % 3 - 1;
       vc = pack(ci, cj, ck);
       start = lower_bound(code, N, vc);
     } else {
@@ -169,7 +220,8 @@ __global__ void lio_assoc_kernel(
   GF2_STAMP(lane == 0, q, kStSearch);
 
   // candidates: slot s of a lane is c = lane + 32·s; keys (d² bits, c)
-  const float qx = pq[3 * q + 0], qy = pq[3 * q + 1], qz = pq[3 * q + 2];
+  const float qx = CT ? p[0] : pq[3 * q + 0], qy = CT ? p[1] : pq[3 * q + 1],
+              qz = CT ? p[2] : pq[3 * q + 2];
   const int ncand = 27 * gk;
   unsigned long long key[NS];
   unsigned okbits[NS];
@@ -263,15 +315,44 @@ __global__ void lio_assoc_kernel(
                 s2 = sqrtf(fmaxf(ev[2], 1e-12f));
     normal[3 * q + 0] = v[0]; normal[3 * q + 1] = v[1]; normal[3 * q + 2] = v[2];
     centroid[3 * q + 0] = mx; centroid[3 * q + 1] = my; centroid[3 * q + 2] = mz;
-    a2d[q] = (s1 - s0) / fmaxf(s2, 1e-9f);
-    valid[q] = cnt_f >= (float)min_pts ? 1 : 0;
+    const float a = (s1 - s0) / fmaxf(s2, 1e-9f);
+    const bool ok = cnt_f >= (float)min_pts;
+    a2d[q] = a;
+    valid[q] = ok ? 1 : 0;
+    if (CT) {   // the row's weight (ct_glue.cuh, AK's weights mode)
+      const float c[3] = {mx, my, mz};
+      ct.w[q] = gf2t::ct_weight(p, c, v, a, ok, ct.kp_mask[q],
+                                ct.min_planarity, ct.max_corr_dist);
+    }
   }
   GF2_STAMP(lane == 0, q, kStFit);
 }
 
 }  // namespace
 
-GF2_STAGE_NAMES("entry,search,candidate loads,kNN,fit")
+GF2_STAGE_NAMES("entry,search,candidate loads,kNN,fit,transform")
+
+template <bool CT>
+static int launch(const int* code, const float* pts, const float* origin,
+           const float* p_gather, const float* p_query, int* ranges,
+           const unsigned char* flag, int N, int Q, float voxel, int gather_k,
+           int knn, int min_pts, int mode, float* normal, float* centroid,
+           float* a2d, unsigned char* valid, const CtArgs& ct, void* stream) {
+  const int blocks = (Q + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 0) {
+    const dim3 grid(blocks), block(32 * kWarpsPerBlock);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (27 * gather_k <= 32 * 7)
+      lio_assoc_kernel<7, CT><<<grid, block, 0, s>>>(
+          code, pts, origin, p_gather, p_query, ranges, flag, N, Q, voxel,
+          gather_k, knn, min_pts, mode, normal, centroid, a2d, valid, ct);
+    else
+      lio_assoc_kernel<kMaxSlots, CT><<<grid, block, 0, s>>>(
+          code, pts, origin, p_gather, p_query, ranges, flag, N, Q, voxel,
+          gather_k, knn, min_pts, mode, normal, centroid, a2d, valid, ct);
+  }
+  return (int)cudaGetLastError();
+}
 
 // mode 0: search around p_gather and write ranges [Q, 27]; 1: rank the
 // candidates the ranges hold; 2: search where *flag is set, else as 1.
@@ -282,19 +363,27 @@ extern "C" int gf2_lio_assoc(const int* code, const float* pts,
                              float voxel, int gather_k, int knn, int min_pts,
                              int mode, float* normal, float* centroid,
                              float* a2d, unsigned char* valid, void* stream) {
-  const int warps_per_block = 4;
-  const int blocks = (Q + warps_per_block - 1) / warps_per_block;
-  if (blocks > 0) {
-    const dim3 grid(blocks), block(32 * warps_per_block);
-    cudaStream_t s = (cudaStream_t)stream;
-    if (27 * gather_k <= 32 * 7)
-      lio_assoc_kernel<7><<<grid, block, 0, s>>>(
-          code, pts, origin, p_gather, p_query, ranges, flag, N, Q, voxel,
-          gather_k, knn, min_pts, mode, normal, centroid, a2d, valid);
-    else
-      lio_assoc_kernel<kMaxSlots><<<grid, block, 0, s>>>(
-          code, pts, origin, p_gather, p_query, ranges, flag, N, Q, voxel,
-          gather_k, knn, min_pts, mode, normal, centroid, a2d, valid);
-  }
-  return (int)cudaGetLastError();
+  return launch<false>(code, pts, origin, p_gather, p_query, ranges, flag, N,
+                       Q, voxel, gather_k, knn, min_pts, mode, normal,
+                       centroid, a2d, valid, CtArgs{}, stream);
+}
+
+// CT-ICP's association: gf2_lio_assoc with keypoint q at the pose (q_begin,
+// t_begin, q_end, t_end) as both its gather and its query point, kp [Q, 3]
+// in the body frame at sweep fractions alpha [Q]; also w [Q] (AK's weights
+// at kp_mask, min_planarity, max_corr_dist) and, where p_w is not null,
+// the points [Q, 3].
+extern "C" int gf2_lio_assoc_ct(
+    const int* code, const float* pts, const float* origin, int* ranges,
+    const unsigned char* flag, int N, int Q, float voxel, int gather_k,
+    int knn, int min_pts, int mode, const float* qb, const float* tb,
+    const float* qe, const float* te, const float* kp, const float* alpha,
+    const float* kp_mask, float min_planarity, float max_corr_dist,
+    float* normal, float* centroid, float* a2d, unsigned char* valid,
+    float* w, float* p_w, void* stream) {
+  const CtArgs ct{gf2t::Pose{qb, tb, qe, te}, kp, alpha, kp_mask,
+                  min_planarity, max_corr_dist, w, p_w};
+  return launch<true>(code, pts, origin, nullptr, nullptr, ranges, flag, N,
+                      Q, voxel, gather_k, knn, min_pts, mode, normal,
+                      centroid, a2d, valid, ct, stream);
 }

@@ -14,21 +14,28 @@ degeneracy test (the selected normals' scatter matrix, its 3×3 eigenvalues
 and the flags) is Y's entry 3 (``csrc/small_linalg.cu``). Their plain
 versions are ``torch.linalg.solve_ex`` and ``eigvalsh``.
 
-Kernel AK (``csrc/ct_glue.cu``) carries the glue between them on the card:
-the keypoints' transform (:func:`transform_points`), the rows' weights
-(:func:`weights`) and the step after the solve (:func:`step`: the freeze,
-the convergence latch, the retraction, the keypoints at the new pose and
-the midpoint's flag); their plain routes are the chains of ops they
-replace. The iterations never wait for the host: the fixed trip count keeps
-its frozen steps. As JAX caches the candidates it gathers at ``p_w0``, the
-solve's first call of kernel D searches the map there and writes the
-candidates' ranges into a buffer of the solve; the other calls rank what the
-ranges hold. The mid-solve re-gather (a ``lax.cond`` in JAX) is the first
-call after the midpoint: it searches around its own query points,
-``p_w(pose_mid)``, where the device flag ``moved > voxel/2`` is set, and
-uses the ranges where it is not (the plain route: ``where(regathered, new,
-old)``). On the card the solve has no host sync at all (the plain
-``eigvalsh`` checks its convergence on the host: one sync a solve).
+A GN iteration on the card is two launches: D (the keypoints' transform,
+then the weights) → E (the solve, then the step). :func:`assoc_weights` is
+kernel D's CT-ICP entry: it transforms the keypoints by the iteration's
+pose in a prologue and turns each plane fit into its row's weight in an
+epilogue; :func:`normal_solve_step` is kernel E whose last
+CTA, after the solve, takes the step (the freeze, the convergence latch,
+the retraction and the midpoint's flag) and writes the new pose, which the
+next D reads. The device code of that glue is kernel AK's
+(``csrc/ct_glue.cuh``); AK's standalone modes (:func:`transform_points`,
+:func:`weights`, :func:`step`) serve the scan's transform for the map
+insert and the checks. The plain routes are the chains of ops they
+replace. The iterations never wait for the host: the fixed trip count
+keeps its frozen steps. As JAX caches the candidates it gathers at
+``p_w0``, the solve's first call of kernel D searches the map there and
+writes the candidates' ranges into a buffer of the solve; the other calls
+rank what the ranges hold. The mid-solve re-gather (a ``lax.cond`` in JAX)
+is the first call after the midpoint: it searches around its own query
+points, ``p_w(pose_mid)``, where the device flag ``moved > voxel/2`` is
+set, and uses the ranges where it is not (the plain route: ``where(
+regathered, new, old)``). On the card the solve has no host sync at all
+(the plain ``eigvalsh`` checks its convergence on the host: one sync a
+solve).
 """
 
 from __future__ import annotations
@@ -131,6 +138,60 @@ def weights(p_w, centroid, normal, a2d, valid, kp_mask, cfg: CtIcpConfig):
     return w
 
 
+def assoc_weights(vmap: vm.VoxelMap, pose: CtPose, pts_body, alpha, kp_mask,
+                  cfg: CtIcpConfig, map_cfg: VoxelMapConfig, ranges,
+                  search=True, p_w=None):
+    """(normal, centroid, a2d, valid, w): the association of the keypoints
+    at ``pose`` (gathered and queried at their points, ``ranges`` and
+    ``search`` as :func:`voxel_map.associate` takes them) and the rows'
+    weights. On the card one launch of kernel D's CT-ICP entry, which
+    transforms the keypoints in its prologue and weighs the rows in its
+    epilogue; on the CPU the chain it replaces: :func:`transform_points_plain`,
+    :func:`voxel_map.associate`, :func:`weights_plain`. ``p_w`` [K, 3] (or
+    None) takes the points."""
+    if pts_body.is_cuda:
+        return _assoc_weights_cuda(vmap, pose, pts_body, alpha, kp_mask, cfg,
+                                   map_cfg, ranges, search, p_w)
+    pw = transform_points_plain(pose, pts_body, alpha)
+    if p_w is not None:
+        p_w.copy_(pw)
+    normal, centroid, a2d, valid = vm.associate(vmap, pw, pw, map_cfg, ranges,
+                                                search)
+    return normal, centroid, a2d, valid, weights_plain(
+        pw, centroid, normal, a2d, valid, kp_mask, cfg)
+
+
+def _assoc_weights_cuda(vmap, pose, pts_body, alpha, kp_mask, cfg, map_cfg,
+                        ranges, search, p_w):
+    *ps, pts, al, km = _f32((*pose, pts_body, alpha, kp_mask), "association")
+    K, dev = pts.shape[0], pts.device
+    if pts.shape != (K, 3) or al.shape != (K,) or km.shape != (K,):
+        raise ValueError("kernel D's CT-ICP entry: pts [K, 3], alpha [K], "
+                         "kp_mask [K]")
+    if p_w is not None and (p_w.shape != (K, 3) or p_w.dtype != torch.float32
+                            or not p_w.is_cuda or not p_w.is_contiguous()):
+        raise ValueError("kernel D's CT-ICP entry: p_w a contiguous float32 "
+                         "CUDA [K, 3] buffer")
+    mode = vm.assoc_mode(vmap, K, map_cfg, ranges, search)
+    code, mpts, origin = (t.contiguous() for t in (vmap.code, vmap.pts,
+                                                   vmap.origin))
+    normal = torch.empty((K, 3), device=dev)
+    centroid = torch.empty((K, 3), device=dev)
+    a2d = torch.empty(K, device=dev)
+    valid = torch.empty(K, dtype=torch.bool, device=dev)
+    w = torch.empty(K, device=dev)
+    err = _kernels.library().gf2_lio_assoc_ct(
+        *_ptrs(code, mpts, origin, ranges,
+               search if mode == 2 else None), code.shape[0], K,
+        ctypes.c_float(map_cfg.voxel_size), map_cfg.gather_k, map_cfg.knn,
+        vm.MIN_PTS, mode, *_ptrs(*ps, pts, al, km),
+        ctypes.c_float(cfg.min_planarity), ctypes.c_float(cfg.max_corr_dist),
+        *_ptrs(normal, centroid, a2d, valid, w, p_w), vm._stream(pts))
+    _kernels.check(err, "gf2_lio_assoc_ct")
+    _kernels.count("lio_assoc")
+    return normal, centroid, a2d, valid, w
+
+
 def _retract(pose: CtPose, d) -> CtPose:
     return CtPose(q_begin=lie.quat_boxplus(pose.q_begin, d[0:3]),
                   t_begin=pose.t_begin + d[3:6],
@@ -138,13 +199,9 @@ def _retract(pose: CtPose, d) -> CtPose:
                   t_end=pose.t_end + d[9:12])
 
 
-def step_plain(pose: CtPose, d, done, pts_body, alpha, cfg: CtIcpConfig,
-               mid=None):
-    """After the damped solve: ``d`` frozen once converged, the
-    convergence latch, the retracted pose and the keypoints at it; at the
-    midpoint (``mid`` = (pose0, voxel size)) the re-gather flag (moved >
-    voxel / 2) that resets the latch. Returns (pose, done, p_w,
-    regathered or None); ``done`` None is 0."""
+def step_pose_plain(pose: CtPose, d, done, cfg: CtIcpConfig, mid=None):
+    """:func:`step_plain` without the keypoints: (pose, done, regathered or
+    None)."""
     dtype = d.dtype
     if done is None:
         done = torch.zeros((), dtype=dtype, device=d.device)
@@ -165,12 +222,23 @@ def step_plain(pose: CtPose, d, done, pts_body, alpha, cfg: CtIcpConfig,
         regathered = moved > 0.5 * voxel
         # a re-association invalidates the convergence latch
         done = torch.where(regathered, torch.zeros_like(done), done)
+    return pose, done, regathered
+
+
+def step_plain(pose: CtPose, d, done, pts_body, alpha, cfg: CtIcpConfig,
+               mid=None):
+    """After the damped solve: ``d`` frozen once converged, the
+    convergence latch, the retracted pose and the keypoints at it; at the
+    midpoint (``mid`` = (pose0, voxel size)) the re-gather flag (moved >
+    voxel / 2) that resets the latch. Returns (pose, done, p_w,
+    regathered or None); ``done`` None is 0."""
+    pose, done, regathered = step_pose_plain(pose, d, done, cfg, mid)
     return pose, done, transform_points_plain(pose, pts_body, alpha), regathered
 
 
 def step(pose: CtPose, d, done, pts_body, alpha, cfg: CtIcpConfig, mid=None):
-    """:func:`step_plain`, by kernel AK's step mode on the card: one launch
-    a GN iteration after Y's solve."""
+    """:func:`step_plain`, by kernel AK's step mode on the card (the CT-ICP
+    loop takes the step in kernel E: :func:`normal_solve_step`)."""
     if not d.is_cuda:
         return step_plain(pose, d, done, pts_body, alpha, cfg, mid)
     pose0, voxel = mid if mid is not None else (pose, 0.0)
@@ -250,6 +318,22 @@ def normal_solve(pose: CtPose, pred: CtPose, pts, alpha, centroid, normal, w,
                               cfg)
 
 
+def normal_solve_step(pose: CtPose, pred: CtPose, pts, alpha, centroid,
+                      normal, w, cfg: CtIcpConfig, done=None, mid=None):
+    """(H, g, cost, d, pose, done, regathered or None): :func:`normal_solve`,
+    then the step of :func:`step_plain` on ``d`` without the keypoints (the
+    next :func:`assoc_weights` transforms them). On the card one launch of
+    kernel E whose last CTA solves and then takes the step (kernel AK's
+    device code, ``csrc/ct_glue.cuh``); on the CPU :func:`normal_solve_plain`
+    then :func:`step_pose_plain`."""
+    if pts.is_cuda:
+        return _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg,
+                            solve=True, step=(done, mid))
+    H, g, cost, d = normal_solve_plain(pose, pred, pts, alpha, centroid,
+                                       normal, w, cfg)
+    return (H, g, cost, d, *step_pose_plain(pose, d, done, cfg, mid))
+
+
 # (device, stream) -> kernel E's row scratch (grown with K) and ticket
 # (zeroed once; each launch leaves it at zero)
 _SCRATCH: dict = {}
@@ -266,7 +350,8 @@ def _normal_scratch(lib, dev, stream, K):
     return rows, ticket
 
 
-def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg, solve):
+def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg, solve,
+                 step=None):
     ts = [t.contiguous() for t in (*pose, *pred, pts, alpha, centroid, normal,
                                    w)]
     if any(t.dtype != torch.float32 or not t.is_cuda for t in ts):
@@ -276,21 +361,40 @@ def _normal_cuda(pose, pred, pts, alpha, centroid, normal, w, cfg, solve):
     lib = _kernels.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows, ticket = _normal_scratch(lib, dev, stream, K)
-    # H, g, the cost; then d where the last CTA solves
-    out = torch.empty(12 * 12 + 12 + 1 + (12 if solve else 0), device=dev)
+    # H, g, the cost; then d where the last CTA solves; then the pose and
+    # done where it also steps
+    out = torch.empty(157 + (12 if solve else 0) + (15 if step else 0),
+                      device=dev)
     P = ctypes.c_void_p
+    pose0, done, regathered, mid = [None] * 4, None, None, 0
+    if step is not None:
+        done, m = step
+        if done is not None:
+            (done,) = _f32((done,), "step")
+        if m is not None:
+            pose0 = _f32(m[0], "step")
+            regathered = torch.empty((), dtype=torch.bool, device=dev)
+            mid = 1
     err = lib.gf2_ct_icp_normal(
         *[P(t.data_ptr()) for t in ts], K,
         ctypes.c_float(cfg.beta_location), ctypes.c_float(cfg.beta_velocity),
         ctypes.c_float(cfg.beta_orientation), P(rows.data_ptr()),
         P(ticket.data_ptr()), P(out.data_ptr()), ctypes.c_float(cfg.damping),
-        P(out[157:].data_ptr() if solve else None), P(stream))
+        P(out[157:].data_ptr() if solve else None), *_ptrs(*pose0, done),
+        ctypes.c_float(cfg.conv_trans),
+        ctypes.c_float(math.radians(cfg.conv_rot_deg)),
+        ctypes.c_float(0.5 * step[1][1] if mid else 0.0), mid,
+        *_ptrs(out[169:] if step else None, regathered), P(stream))
     _kernels.check(err, "gf2_ct_icp_normal")
     _kernels.count("ct_icp_normal")
     if solve:          # the launches whose last CTA also solved
         _kernels.count("ct_icp_solve")
     H, g, cost = out[:144].view(12, 12), out[144:156], out[156]
-    return (H, g, cost, out[157:]) if solve else (H, g, cost)
+    if step is not None:
+        new = CtPose(q_begin=out[169:173], t_begin=out[173:176],
+                     q_end=out[176:180], t_end=out[180:183])
+        return H, g, cost, out[157:169], new, out[183], regathered
+    return (H, g, cost, out[157:169]) if solve else (H, g, cost)
 
 
 def damped_solve_plain(H, g, damping: float):
@@ -365,8 +469,9 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
            map_cfg: VoxelMapConfig, vmap: vm.VoxelMap,
            pred: CtPose | None = None) -> IcpResult:
     """Scan-to-map registration. ``pred`` anchors the regularizers
-    (defaults to ``pose0``). On the card an iteration is D → AK weights →
-    E (with the solve) → AK step, and nothing waits for the host."""
+    (defaults to ``pose0``). On the card an iteration is D (the keypoints'
+    transform, then the weights) → E (the solve, then the step), and
+    nothing waits for the host."""
     if pred is None:
         pred = pose0
     dtype, dev = pts_body.dtype, pts_body.device
@@ -375,31 +480,27 @@ def ct_icp(pose0: CtPose, pts_body, alpha, kp_mask, cfg: CtIcpConfig,
     ranges = torch.empty((pts_body.shape[0], 27), dtype=torch.int32,
                          device=dev)
 
-    def assoc(p_w, search):
-        normal, centroid, a2d, valid = vm.associate(vmap, p_w, p_w, map_cfg,
-                                                    ranges, search)
-        return normal, centroid, weights(p_w, centroid, normal, a2d, valid,
-                                         kp_mask, cfg)
+    def assoc(pose, search):
+        normal, centroid, _, _, w = assoc_weights(
+            vmap, pose, pts_body, alpha, kp_mask, cfg, map_cfg, ranges, search)
+        return normal, centroid, w
 
     n1 = min(max(cfg.outer_iters // 2, 1), cfg.outer_iters)
     pose, done, cost = pose0, None, None
-    p_w = transform_points(pose0, pts_body, alpha)
     search = True            # the first call gathers at p_w0
     for it in range(cfg.outer_iters):
-        normal, centroid, w = assoc(p_w, search)
-        _, _, cost, d = normal_solve(pose, pred, pts_body, alpha, centroid,
-                                     normal, w, cfg)
+        normal, centroid, w = assoc(pose, search)
         # the first half's last step gathers the next call at p_w(pose_mid)
         # or not, and a re-association resets the convergence latch
         mid = (pose0, map_cfg.voxel_size) if it == n1 - 1 else None
-        pose, done, p_w, regathered = step(pose, d, done, pts_body, alpha,
-                                           cfg, mid)
+        _, _, cost, _, pose, done, regathered = normal_solve_step(
+            pose, pred, pts_body, alpha, centroid, normal, w, cfg, done, mid)
         search = regathered if mid is not None else False
     if cost is None:
         cost = torch.zeros((), dtype=dtype, device=dev)
 
     # degeneracy: eigenvalues of the accepted normals' scatter matrix
-    normal, _, w = assoc(p_w, search)
+    normal, _, w = assoc(pose, search)
     sigma, n_sel, degenerate = degeneracy(normal, w, cfg)
     return IcpResult(pose=pose, n_corr=n_sel, sigma=sigma,
                      degenerate=degenerate, cost=cost)

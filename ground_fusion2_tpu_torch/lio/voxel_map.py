@@ -485,24 +485,23 @@ def associate(vmap: VoxelMap, p_gather, p_query, cfg: VoxelMapConfig,
     return associate_ranges_plain(vmap, ranges, p_query, cfg)
 
 
-def _associate_cuda(vmap, p_gather, p_query, cfg, ranges, search):
+def assoc_mode(vmap: VoxelMap, Q: int, cfg: VoxelMapConfig, ranges,
+               search) -> int:
+    """Kernel D's mode for ``search`` (0 search, 1 cached, 2 the device
+    flag), after checking the map, the ranges and the flag it takes."""
     mode = 0 if search is True else 1 if search is False else 2
-    ts = [t.contiguous() for t in (vmap.code, vmap.pts, vmap.origin,
-                                   p_query if mode == 1 else p_gather,
-                                   p_query)]
-    if ts[0].dtype != torch.int32 or any(t.dtype != torch.float32
-                                         for t in ts[1:]):
+    if vmap.code.dtype != torch.int32 or vmap.pts.dtype != torch.float32 \
+            or vmap.origin.dtype != torch.float32:
         raise ValueError("lio_assoc kernel takes int32 codes, float32 points")
     flags = [search] if mode == 2 else []
     if mode == 2 and (search.dtype != torch.bool or search.numel() != 1):
         raise ValueError("lio_assoc kernel: the search flag is one bool")
-    if not all(t.is_cuda for t in (*ts, ranges, *flags)):
+    if not all(t.is_cuda for t in (vmap.code, vmap.pts, vmap.origin, ranges,
+                                   *flags)):
         raise ValueError("lio_assoc kernel takes CUDA tensors")
-    if ts[3].shape != p_query.shape:
-        raise ValueError("lio_assoc kernel: one gather point a query")
     if 27 * cfg.gather_k > 448 or not 1 <= cfg.knn <= 32:
         raise ValueError("lio_assoc kernel: 27·gather_k ≤ 448, knn ≤ 32")
-    Q, N = p_query.shape[0], vmap.code.shape[0]
+    N = vmap.code.shape[0]
     if N >= 1 << RANGE_BITS:
         raise ValueError(f"lio_assoc kernel: a map of {N} points; its ranges "
                          f"hold starts below 2**{RANGE_BITS}")
@@ -510,6 +509,20 @@ def _associate_cuda(vmap, p_gather, p_query, cfg, ranges, search):
             or not ranges.is_contiguous()):
         raise ValueError("lio_assoc kernel: ranges are a contiguous [Q, 27] "
                          "int32 buffer")
+    return mode
+
+
+def _associate_cuda(vmap, p_gather, p_query, cfg, ranges, search):
+    Q, N = p_query.shape[0], vmap.code.shape[0]
+    mode = assoc_mode(vmap, Q, cfg, ranges, search)
+    ts = [t.contiguous() for t in (vmap.code, vmap.pts, vmap.origin,
+                                   p_query if mode == 1 else p_gather,
+                                   p_query)]
+    if ts[4].dtype != torch.float32 or ts[3].dtype != torch.float32 \
+            or not (ts[3].is_cuda and ts[4].is_cuda):
+        raise ValueError("lio_assoc kernel takes float32 CUDA points")
+    if ts[3].shape != p_query.shape:
+        raise ValueError("lio_assoc kernel: one gather point a query")
     dev = p_query.device
     normal = torch.empty((Q, 3), device=dev)
     centroid = torch.empty((Q, 3), device=dev)

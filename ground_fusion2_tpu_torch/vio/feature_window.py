@@ -396,7 +396,6 @@ def _window_tests(mode: int, fw: FeatureWindow, x: WindowState | None = None,
         use_wheel = int(s.use_wheel)
         th = (s.wheel_anomaly_thresh, s.stationary_dp, 5 * s.stationary_dp,
               s.stationary_imu_var, s.stationary_parallax)
-    scratch = torch.empty((2 * F,), dtype=torch.float32, device=dev)
     tv_out = torch.empty((F,), dtype=torch.float32, device=dev) if mode == 1 \
         else None
     out = torch.empty((4,), dtype=torch.float32, device=dev)
@@ -406,7 +405,7 @@ def _window_tests(mode: int, fw: FeatureWindow, x: WindowState | None = None,
         ctypes.c_float(outlier_px), ctypes.c_float(focal),
         ctypes.c_float(min_parallax), int(min_tracked), _ptr(stat),
         *map(_ptr, det), *strides, k, M, use_wheel, *map(ctypes.c_float, th),
-        _ptr(scratch), _ptr(tv_out), _ptr(out), _ptr(flags), _stream(fw.ray))
+        _ptr(tv_out), _ptr(out), _ptr(flags), _stream(fw.ray))
     _kernels.check(err, "gf2_window_tests")
     _kernels.count("window_tests")
     return (tv_out, out, flags) if mode == 1 else (out, flags)

@@ -30,7 +30,9 @@ kernel (AN's pack and weigh, C, L, X, AJ) leaving its sentinel-filled
 outputs untouched off its branch; the LiDAR tick's
 glue AK (CT-ICP's points, weights and step), AL (the keypoint and map
 glue around F) and AM (the observations, the select, the switch) bit for
-bit, AM through every switch branch, with their launches a LiDAR tick; the mesh and the
+bit, AM through every switch branch, with their launches a LiDAR tick; AK
+folded into D's CT-ICP entry (at 1, 33, 2,000 and 2,048 keypoints) and E's
+step tail bit for bit its standalone modes; U at 1, 150 and 257 tracks; the mesh and the
 grid on the card equal to their plain routes on the same sweeps; AH's lift
 and tail for every camera model bit for bit; AP (the calibration's normal
 equations and cost) against jacfwd + JᵀJ at δ = 0 and at a seeded δ, and a
@@ -1030,6 +1032,7 @@ def test_kernels_count_their_launches(dev, frames, lio):
     assert n["ct_icp_normal"] == it
     assert n["ct_icp_solve"] == it           # each E solves in its last CTA
     assert n.get("icp_solve", 0) == 0
+    assert n["ct_glue"] == 1                 # AK transforms the scan alone
     assert n["radix_sort"] >= 2 + 4          # keypoints + insert
     assert n.get("proj_normal", 0) == 0
     assert n.get("preint", 0) == 0
@@ -1829,6 +1832,49 @@ def test_voxel_glue_kernel_matches_plain(dev, lio):
     assert r["ok"], r
 
 
+@pytest.mark.parametrize("Q", checks.FOLD_QUERIES)
+def test_ct_fold_association_equals_ak_then_d(dev, lio, Q):
+    """Kernel D's CT-ICP entry (the keypoints' transform in its prologue,
+    AK's weights in its epilogue) against AK's points, D's plain entry and
+    AK's weights, bit for bit in every mode, at Q keypoints."""
+    lo, _, x = lio
+    r = checks.check_ct_fold(dev, x, lo.cfg.icp_cfg, lo.cfg.map_cfg,
+                             timed=False, queries=(Q,))
+    assert len(r["assoc"]) == 4 and all(
+        v["equal"] for v in r["assoc"].values()), r
+
+
+def test_ct_fold_step_equals_ak_step(dev, lio):
+    """Kernel E's step tail against E with the solve then AK's step, bit
+    for bit: from done = 0, frozen, at the midpoint with and without a
+    re-gather, and on a NaN step."""
+    lo, _, x = lio
+    r = checks.check_ct_fold(dev, x, lo.cfg.icp_cfg, lo.cfg.map_cfg,
+                             timed=False, queries=())
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("F", [1, 150, 257])
+def test_window_tests_kernel_at_track_counts(dev, camera, F):
+    """Kernel U's two modes against the plain versions on the fused window
+    cut to one track or its tracks repeated to F (F·W projections over the
+    block's threads, the chains past one warp's stride), at the tick's
+    outlier gate and at 0.5 px."""
+    _, fv, _, _ = camera
+    fw, st, _, interval = checks.window_stage_inputs(fv)
+    n = fw.obs_valid.shape[0]
+    idx = torch.arange(F, device=dev) % n
+    fw = fw._replace(**{k: v[idx] for k, v in fw._asdict().items()
+                        if torch.is_tensor(v) and v.dim() and v.shape[0] == n})
+    st = st._replace(rho=st.rho[idx])
+    W = fw.obs_valid.shape[1]
+    stationary = torch.zeros((), dtype=torch.bool, device=dev)
+    for px in (fv.statics.outlier_px, 0.5):
+        r = checks.check_window_tests(dev, fw, st, fv.statics._replace(
+            outlier_px=px), stationary, interval, W - 2, timed=False)
+        assert r["ok"], (px, r)
+
+
 def test_lio_update_kernel_matches_plain_through_the_switch(dev, lio):
     """AM bit for bit through the scripted switch sequence: every switch
     branch, every observe select, the recenter predicate both ways."""
@@ -1841,8 +1887,8 @@ def test_lio_update_kernel_matches_plain_through_the_switch(dev, lio):
 
 @pytest.mark.parametrize("kernel", ["ct_glue", "voxel_glue", "lio_update"])
 def test_lidar_glue_kernels_launch_a_tick(dev, kernel):
-    """A fused LiDAR tick: AK 13 times (the keypoints, 6 weights, 5 steps,
-    the scan), AL 9 (3 keypoint modes, 6 insert modes; 2 more on a
+    """A fused LiDAR tick: AK once (the scan; the keypoints' transform and
+    the weights run in kernel D, the steps in kernel E), AL 9 (3 keypoint modes, 6 insert modes; 2 more on a
     recenter or an eviction), AM once, and kernel Y's inverse entry no
     time (AM runs its device code)."""
     from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
@@ -1854,7 +1900,7 @@ def test_lidar_glue_kernels_launch_a_tick(dev, kernel):
     s = scans[5]
     lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"], s["imu"])
     got = _kernels.launches[kernel]
-    want = dict(ct_glue=13, voxel_glue=9, lio_update=1)[kernel]
+    want = dict(ct_glue=1, voxel_glue=9, lio_update=1)[kernel]
     assert got == want, dict(_kernels.launches)
     assert _kernels.launches["spd_inverse"] == 0
 

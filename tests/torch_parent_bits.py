@@ -1,5 +1,5 @@
-"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack) and AC of
-this tree against the parent commit's build, on the card.
+"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack), AC, AK and U
+of this tree against the parent commit's build, on the card.
 
     mkdir -p build/parent
     git archive <parent> ground_fusion2_tpu_torch/csrc \
@@ -9,12 +9,15 @@ this tree against the parent commit's build, on the card.
 Builds the parent's ``csrc/preint.cu``, ``klt.cu``, ``lio_assoc.cu``,
 ``ct_icp_normal.cu``, ``eskf_predict.cu``, ``small_linalg.cu``,
 ``window_cost.cu``, ``ransac_f.cu``, ``small_normal.cu``,
-``proj_normal.cu`` and ``mesh_delaunay.cu`` (with the headers beside them)
-into ``build/parent_bits/`` and binds each entry point with the argument
-list of the parent's own ``_kernels.py`` (:class:`ParentLib`): where it is
+``proj_normal.cu``, ``mesh_delaunay.cu``, ``ct_glue.cu`` and
+``window_tests.cu`` (with the headers beside them) into
+``build/parent_bits/`` and binds each entry point with the argument list
+of the parent's own ``_kernels.py`` (:class:`ParentLib`): where it is
 this tree's, this tree's wrapper calls it; where this tree only added the
-slide's branch (and L's reduce kernel C's added block), or E's solve
-(``damping, d``), a shim drops them (null in every call here); where this
+slide's branch (and L's reduce kernel C's added block), or E's step
+(``pose0, done, the thresholds, mid, pose_out, regathered_out``), a shim
+drops them (null in every call here); where U took a 2F-float scratch
+that this tree keeps in shared memory, a shim hands it one; where this
 tree's H writes sum_dt where the parent's wrote its dt·mask rows, a shim
 gives the parent's H a buffer for the rows and writes their torch sum
 into sum_dt, as the parent's wrapper summed them; H's and B's
@@ -41,11 +44,18 @@ interfaces of commit 4141781 go through ``parent_preint`` and
   ``LidarOdometry`` at ``m3dgr_lio()`` over ``checks.lidar_drive(61,
   z=1.0)``, recorded as the tick hands the inputs over): kernel G's p, v, q
   and covariance (``eskf.predict_final``; on the last tick's slots also
-  with 0, 1 and all 48 valid), and on every GN iteration of
-  CT-ICP (``ct_icp.normal_solve``) E's H, g, cost and the damped step d of
-  E's last CTA against the parent's E followed by the parent's Y
-  (``damped_solve``), and this tree's standalone Y on this tree's H and g
+  with 0, 1 and all 48 valid); and, compared as the tick makes each call,
+  on every association of CT-ICP (``ct_icp.assoc_weights``) D's CT-ICP
+  entry (normal, centroid, a2d, valid, w, the ranges and, through a buffer,
+  p_w) against the parent's AK points, D and AK weights, p_w also against
+  the parent's AK step of the iteration before; on every GN iteration
+  (``ct_icp.normal_solve_step``) E's H, g, cost, d, pose, done and
+  regathered against the parent's E (with its solve) followed by the
+  parent's AK step, and this tree's standalone Y on this tree's H and g
   against the same d;
+* kernel U (``feature_window._window_tests``: out, the flags and, after
+  the solve, track_valid) on every call of phase 4's drive, both modes,
+  compared as the tick makes it;
 * kernels S and L/P on phase 3's window (at zero, the damped LM step and
   its reverse) and phase 12's GNSS window (at zero and a step), this
   tree's inputs packed by kernel AN against the parent's packed by its
@@ -88,7 +98,7 @@ from ground_fusion2_tpu_torch.mesh import incremental as mi  # noqa: E402
 OUT = ROOT / "build" / "parent_bits"
 SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "eskf_predict",
            "small_linalg", "window_cost", "ransac_f", "small_normal",
-           "proj_normal", "mesh_delaunay")
+           "proj_normal", "mesh_delaunay", "ct_glue", "window_tests")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # commit 0307a71's kernels D (one search a call) and E (one CTA)
 PARENT_ASSOC = [P] * 5 + [I] * 2 + [F] + [I] * 3 + [P] * 5
@@ -97,7 +107,10 @@ ENTRY_POINTS = ("gf2_preint", "gf2_klt_track", "gf2_lio_assoc",
                 "gf2_ct_icp_normal", "gf2_ct_icp_scratch", "gf2_eskf_predict",
                 "gf2_icp_solve", "gf2_window_cost", "gf2_ransac_f",
                 "gf2_small_rows", "gf2_small_reduce", "gf2_proj_normal",
-                "gf2_mesh_delaunay")
+                "gf2_mesh_delaunay", "gf2_ct_points", "gf2_ct_weights",
+                "gf2_ct_step", "gf2_window_tests")
+# E's step arguments this tree added before the stream
+E_STEP = [P] * 5 + [F] * 3 + [I] + [P] * 2
 HYPOTHESES, SEED = 64, 12          # checks.check_ransac's draw
 LIO_SCANS = (7, 20, 59)            # the map early, filling, full
 
@@ -120,8 +133,9 @@ class ParentLib:
     maps an entry point to how it is called: "same" (the parent's argument
     list is this tree's), "branch added" (this tree appended the slide's
     ``branch, want`` before the stream: dropped, the branch must be null),
-    "solve added" (E's ``damping, d`` before the stream: dropped, d must be
-    null),
+    "step added" (E's E_STEP arguments before the stream: dropped,
+    pose_out must be null), "scratch removed" (U's 2F-float scratch before
+    its outputs: :func:`window_tests_with_scratch`),
     "branch and block added" (L's reduce: also kernel C's ``addH, addg,
     addc`` before its outputs, which must be null), "rows summed here" (an
     H of this tree's arguments that writes the dt·mask rows, ``preint_rows``:
@@ -144,9 +158,13 @@ class ParentLib:
             elif ours == theirs[:-1] + [P, I, P]:
                 self.interface[fn] = "branch added"
                 setattr(self, fn, self._drop_branch(entry))
-            elif fn == "gf2_ct_icp_normal" and ours == theirs[:-1] + [F, P, P]:
-                self.interface[fn] = "solve added"
-                setattr(self, fn, self._drop_solve(entry))
+            elif fn == "gf2_ct_icp_normal" and ours == theirs[:-1] + E_STEP + [P]:
+                self.interface[fn] = "step added"
+                setattr(self, fn, self._drop_step(entry))
+            elif fn == "gf2_window_tests" and ours == theirs[:-5] + [P] * 4:
+                self.interface[fn] = "scratch removed"
+                setattr(self, fn, lambda *a, entry=entry:
+                        window_tests_with_scratch(entry, *a))
             elif (fn == "gf2_small_reduce"
                   and ours == theirs[:11] + [P] * 3 + theirs[11:-1] + [P, I, P]):
                 self.interface[fn] = "branch and block added"
@@ -175,11 +193,11 @@ class ParentLib:
         return call
 
     @staticmethod
-    def _drop_solve(entry):
+    def _drop_step(entry):
         def call(*args):
-            *head, _damping, d, stream = args
-            if not _null(d):
-                raise ValueError("the parent's kernel E does not solve")
+            head, step, stream = args[:-12], args[-12:-1], args[-1]
+            if not _null(step[-2]):
+                raise ValueError("the parent's kernel E takes no step")
             return entry(*head, stream)
         return call
 
@@ -294,6 +312,16 @@ def parent_ct_normal(lib, pose, pred, pts, alpha, centroid, normal, w, cfg):
     if err:
         raise RuntimeError(f"parent gf2_ct_icp_normal: CUDA error {err}")
     return out[:144].view(12, 12), out[144:156], out[156]
+
+
+def window_tests_with_scratch(entry, *args):
+    """The parent's kernel U (its co and par partials in a 2F-float global
+    scratch, before they moved into shared memory) called with this tree's
+    arguments: a scratch buffer inserted before the outputs."""
+    F = args[6]
+    *head, tv_out, out, flags, stream = args
+    scratch = torch.empty(2 * F, dtype=torch.float32, device="cuda")
+    return entry(*head, P(scratch.data_ptr()), tv_out, out, flags, stream)
 
 
 # commit 4141781's kernels H (the sample buffers, a wheel-frame gyro and the
@@ -447,35 +475,80 @@ def compare_lio(lib, dev) -> bool:
     return ok
 
 
-def record_lidar(dev):
+def record_lidar(lib, dev):
     """Phase 5's drive, recording kernel G's inputs (``predict_final``) on
-    every LiDAR tick and E's with the solve (``normal_solve``) on every GN
-    iteration, as the tick hands them over."""
+    every LiDAR tick, and comparing D's CT-ICP entry on every association
+    and E with the solve and the step on every GN iteration with the
+    parent's chains as the tick makes each call (the tick goes on with this
+    tree's outputs)."""
     import chip_smoke
     from ground_fusion2_tpu_torch.config import m3dgr_lio
     from ground_fusion2_tpu_torch.lio import eskf
     from ground_fusion2_tpu_torch.lio.odometry import LidarOdometry
-    rec = dict(predict=[], solve=[])
-    pf, ns = eskf.predict_final, ci.normal_solve
+    rec = dict(predict=[], assoc=[], solve=[], icp_solve=[])
+    pf, aw, nss = eskf.predict_final, ci.assoc_weights, ci.normal_solve_step
+    stash = {}       # the parent's step of the iteration before: its p_w
 
     def predict(*a):
         rec["predict"].append(_clone(a))
         return pf(*a)
 
-    def solve(*a):
-        rec["solve"].append(_clone(a))
-        return ns(*a)
+    def assoc(vmap, pose, pts, alpha, km, cfg, map_cfg, ranges, search=True,
+              p_w=None):
+        r0 = ranges.clone()
+        p_w = torch.empty((pts.shape[0], 3), device=dev)
+        new = aw(vmap, pose, pts, alpha, km, cfg, map_cfg, ranges, search,
+                 p_w)
+        with library(lib):
+            pw_old = ci.transform_points(pose, pts, alpha)
+            nrm, cen, a2d, val = vm.associate(vmap, pw_old, pw_old, map_cfg,
+                                              r0, search)
+            w = ci.weights(pw_old, cen, nrm, a2d, val, km, cfg)
+        same = equal((*new, p_w, ranges), (nrm, cen, a2d, val, w, pw_old, r0),
+                     ("normal", "centroid", "a2d", "valid", "w", "p_w",
+                      "ranges"))
+        if "p_w" in stash:
+            same["p_w (the parent's AK step)"] = bool(torch.equal(
+                p_w, stash.pop("p_w")))
+        rec["assoc"].append(same)
+        return new
 
-    eskf.predict_final, ci.normal_solve = predict, solve
+    def solve(pose, pred, pts, alpha, centroid, normal, w, cfg, done=None,
+              mid=None):
+        new = nss(pose, pred, pts, alpha, centroid, normal, w, cfg, done, mid)
+        args = (pose, pred, pts, alpha, centroid, normal, w, cfg)
+        with library(lib):
+            Ho, go, co, do = ci.normal_solve(*args)
+            po, ndo, pwo, rego = ci.step(pose, do, done, pts, alpha, cfg,
+                                         mid)
+        stash["p_w"] = pwo
+        H, g, cost, d, pose_new, nd, reg = new
+        names = ["H", "g", "cost", "d (E's last CTA)", "q_begin", "t_begin",
+                 "q_end", "t_end", "done"]
+        pairs = [(H, Ho), (g, go), (cost, co), (d, do), *zip(pose_new, po),
+                 (nd, ndo)]
+        if mid is not None:
+            names.append("regathered")
+            pairs.append((reg, rego))
+        rec["solve"].append({n: bool(torch.equal(a, b))
+                             for n, (a, b) in zip(names, pairs)})
+        rec["icp_solve"].append(dict(d_standalone=bool(torch.equal(
+            ci.damped_solve(H, g, cfg.damping), d))))
+        return new
+
+    eskf.predict_final, ci.assoc_weights, ci.normal_solve_step = (
+        predict, assoc, solve)
     try:
         lo = LidarOdometry(m3dgr_lio(), device=dev)
         scans = checks.lidar_drive(chip_smoke.LIO_SCANS + 1,
                                    z=chip_smoke.LIO_Z)
         for s in scans[:chip_smoke.LIO_SCANS]:
+            stash.clear()
             lo.process_scan(s["t"], s["pts"], s["alpha"], s["valid"],
                             s["imu"])
     finally:
-        eskf.predict_final, ci.normal_solve = pf, ns
+        eskf.predict_final, ci.assoc_weights, ci.normal_solve_step = (
+            pf, aw, nss)
     return rec
 
 
@@ -490,9 +563,8 @@ def _tally(kind, results) -> bool:
 
 
 def compare_lidar_drive(lib, rec) -> bool:
-    """G on every tick's inputs; E with the solve on every iteration's,
-    against the parent's E then the parent's Y, and this tree's standalone Y
-    on this tree's H and g."""
+    """G on every tick's inputs, and the tallies of D's and E's
+    comparisons the drive made (:func:`record_lidar`)."""
     from ground_fusion2_tpu_torch.lio import eskf
     names = ("p", "v", "q", "bg", "ba", "g", "cov")
     g_res = []
@@ -517,21 +589,12 @@ def compare_lidar_drive(lib, rec) -> bool:
         g_res.append(equal(new, old, names))
     ok &= _tally("eskf_predict (the last tick's slots, 0, 1 and 48 valid)",
                  g_res)
-    e_res, y_res = [], []
-    for a in rec["solve"]:
-        H, g, cost, d = ci.normal_solve(*a)
-        damping = a[-1].damping
-        with library(lib):
-            Ho, go, co = ci.normal_equations(*a)
-            do = ci.damped_solve(Ho, go, damping)
-        e_res.append(equal((H, g, cost, d), (Ho, go, co, do),
-                           ("H", "g", "cost", "d (E's last CTA)")))
-        y_res.append(dict(d_standalone=bool(torch.equal(
-            ci.damped_solve(H, g, damping), do))))
-    ok &= _tally("ct_icp_normal with the solve (every GN iteration of "
-                 "phase 5's drive)", e_res)
+    ok &= _tally("lio_assoc's CT-ICP entry (every association of phase 5's "
+                 "drive)", rec["assoc"])
+    ok &= _tally("ct_icp_normal with the solve and the step (every GN "
+                 "iteration of phase 5's drive)", rec["solve"])
     ok &= _tally("icp_solve standalone (every GN iteration of phase 5's "
-                 "drive)", y_res)
+                 "drive)", rec["icp_solve"])
     return ok
 
 
@@ -559,24 +622,47 @@ def _clone(x):
     return x
 
 
-def record_drive(dev):
+def record_drive(lib, dev):
     """Phase 4's drive through FusedVio, recording kernel H's inputs as
     ``preintegrate_all`` hands them over and kernel B's as the tracker
-    does, with each call's frame and the previous tick's keyframe flag."""
+    does, with each call's frame and the previous tick's keyframe flag, and
+    comparing kernel U with the parent's on every call as the tick makes it
+    (the outputs each mode writes: mode 1 track_valid, out[:3] and is_kf;
+    mode 0 out[:4] and both flags, or out[:2] for the parallax alone)."""
     import chip_smoke
     import numpy as np
     from ground_fusion2_tpu_torch.config import m3dgr_camera
     from ground_fusion2_tpu_torch.core.cameras import Pinhole
     from ground_fusion2_tpu_torch.frontend import klt
     from ground_fusion2_tpu_torch.vio import estimator
+    from ground_fusion2_tpu_torch.vio import feature_window as fwm
     from ground_fusion2_tpu_torch.vio.fused import FusedVio
     cfg = m3dgr_camera()
     fv = FusedVio(cfg.estimator, cfg.tracker, Pinhole.create(*cfg.intrinsics),
                   dev, tic=np.zeros(3), ric=checks.RIG_RIC,
                   tio=np.zeros(3), rio=np.eye(3), depth_stride=2)
-    rec = dict(preint=[], klt=[])
+    rec = {"preint": [], "klt": [], "window_tests, mode 0": [],
+           "window_tests, mode 1": []}
     state = dict(frame=0, prev_kf=None)
-    pw, kt = estimator.preintegrate_window, klt.klt_track
+    pw, kt, wt = (estimator.preintegrate_window, klt.klt_track,
+                  fwm._window_tests)
+
+    def window_tests(mode, fw, *a, **k):
+        new = wt(mode, fw, *a, **k)
+        with library(lib):
+            old = wt(mode, fw, *a, **k)
+        if mode == 1:
+            cut = lambda r: (r[0], r[1][:3], r[2])
+            names = ("track_valid", "out", "is_kf")
+        elif k.get("interval") is not None:
+            cut = lambda r: r
+            names = ("out", "flags")
+        else:
+            cut = lambda r: (r[0][:2],)
+            names = ("out (the parallax alone)",)
+        rec[f"window_tests, mode {mode}"].append(
+            equal(cut(new), cut(old), names))
+        return new
 
     def preint(*a, **k):
         rec["preint"].append((state["frame"], state["prev_kf"], _clone(a),
@@ -588,6 +674,7 @@ def record_drive(dev):
         return kt(*a, **k)
 
     estimator.preintegrate_window, klt.klt_track = preint, track
+    fwm._window_tests = window_tests
     try:
         for i, f in enumerate(checks.room_drive(chip_smoke.CAM_FRAMES)):
             state["frame"] = i
@@ -597,6 +684,7 @@ def record_drive(dev):
                 state["prev_kf"] = bool(out.is_keyframe)
     finally:
         estimator.preintegrate_window, klt.klt_track = pw, kt
+        fwm._window_tests = wt
     return rec
 
 
@@ -731,11 +819,15 @@ def main(parent: str) -> int:
     dev = torch.device("cuda:0")
     _kernels.build()
     lib = build_parent(Path(parent))
-    rec = record_drive(dev)
-    ok = compare_preint(lib, rec["preint"])
+    rec = record_drive(lib, dev)
+    ok = True
+    for mode in (0, 1):
+        kind = f"window_tests, mode {mode}"
+        ok &= _tally(f"{kind} (every call of phase 4's drive)", rec[kind])
+    ok &= compare_preint(lib, rec["preint"])
     ok &= compare_tracks(lib, dev, rec["klt"])
     ok &= compare_lio(lib, dev)
-    ok &= compare_lidar_drive(lib, record_lidar(dev))
+    ok &= compare_lidar_drive(lib, record_lidar(lib, dev))
     cfg = m3dgr_camera()
     vcfg = cfg.estimator.vio
 

@@ -6,9 +6,13 @@ kernels' ``GF2_STAMP`` hooks are: a unit's entry and the end of each stage),
 run on ``chip_smoke.py``'s phase 5 inputs (``checks.lio_drive_inputs`` after
 the drive's 60 scans: 2,000 keypoints on the full map). D gathers at the
 predicted pose and queries 3 cm away (``checks.assoc_points``), in search
-mode and, from the ranges that call wrote, in cached mode; E runs at
-``checks.ct_normal_args``' pose, as CT-ICP launches it (its last CTA also
-solving for the damped step: the "solve" stage). 20 calls each; printed for each stage, the
+mode and, from the ranges that call wrote, in cached mode; D's CT-ICP
+entry (``ct_icp.assoc_weights``: the keypoints' transform in a prologue,
+the "transform" stage, and the weights in the fit's epilogue) at the
+predicted pose in both modes; E runs at ``checks.ct_normal_args``' pose,
+as CT-ICP launches it (its last CTA also solving for the damped step, the
+"solve" stage, and taking the step at the midpoint, the "step" stage). 20
+calls each; printed for each stage, the
 median over calls of its slowest, median and summed unit (D: a warp a query,
 the first 512 stamped; E: a CTA, or a 256-row tile of the one-CTA parent),
 and of the whole, from the first stamp to the last (ns on the global timer;
@@ -28,6 +32,7 @@ figure is the stamped build's, not the kernel's device time
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import statistics
@@ -103,21 +108,32 @@ def main(dirs) -> int:
         else:
             ranges = torch.empty((p_q.shape[0], 27), dtype=torch.int32,
                                  device=dev)
+            entry = lib.gf2_lio_assoc_ct
+            entry.argtypes = _kernels._SIGNATURES["gf2_lio_assoc_ct"]
+            entry.restype = ctypes.c_int
             with pb.library(lib):
                 for mode, search in (("search", True), ("cached", False)):
                     out.append(("lio_assoc", mode, timed(
                         lib, names, lambda: vm.associate(
                             vmap, p_g, p_q, cfg.map_cfg, ranges, search))))
+                for mode, search in (("CT-ICP entry, search", True),
+                                     ("CT-ICP entry, cached", False)):
+                    out.append(("lio_assoc", mode, timed(
+                        lib, names, lambda: ci.assoc_weights(
+                            vmap, x["pose"], x["kp"], x["ka"], x["km"],
+                            cfg.icp_cfg, cfg.map_cfg, ranges, search))))
         lib, names = build(csrc, "ct_icp_normal.cu", tag + "_E",
                            "gf2_ct_icp_normal",
                            argtypes=pb.PARENT_CT_NORMAL if parent else None)
         if parent:
             fn = lambda: pb.parent_ct_normal(lib, *args)
         else:
-            # E as CT-ICP launches it: its last CTA also solves
+            # E as CT-ICP launches it: its last CTA also solves and steps
+            # (here at the midpoint)
             def fn():
                 with pb.library(lib):
-                    ci.normal_solve(*args)
+                    ci.normal_solve_step(*args, None,
+                                         (args[0], cfg.map_cfg.voxel_size))
         out.append(("ct_icp_normal", "", timed(lib, names, fn)))
         for kernel, mode, r in out:
             print(json.dumps(dict(source=d, kernel=kernel, mode=mode, **r))

@@ -19,7 +19,9 @@ split goes to ``DIR/tick_split_<TAG>_<i>.json`` and its printout to
 printed is the list of {tag, median tick ms, device ms a tick, launches a
 tick, syncs a tick, the LiDAR tick's launches and device ms in phases 5
 and 8, and phases 5's and 8's summary lines up to their launch counts}. A tree whose CT-ICP launches Y's standalone solve
-(no ``ct_icp.normal_solve``) is held to that route in phase 5.
+(no ``ct_icp.normal_solve``) is held to that route in phase 5, and one
+whose CT-ICP launches AK around D and E (no ``ct_icp.assoc_weights``) to
+AK's 13 launches a LiDAR tick.
 """
 
 import json
@@ -52,6 +54,10 @@ def one(root: str, tag: str, index: int, out_dir: str) -> dict:
     cs.LIDAR_KERNELS = tuple(k for k in cs.LIDAR_KERNELS if k in have)
     cs.PKG = str(csrc) + "/"
     from ground_fusion2_tpu_torch.lio import ct_icp
+    if not hasattr(ct_icp, "assoc_weights"):
+        # AK's launches around D and E: the keypoints, 6 weights, 5 steps
+        # and the scan
+        cs.LIO_AK_PER_TICK = 13
     if not hasattr(ct_icp, "normal_solve"):
         # Y's own launch after each E: its route then
         cs.LIO_PATH_KERNELS = tuple(k for k in cs.LIO_PATH_KERNELS
