@@ -29,7 +29,9 @@ Phases (any failure exits nonzero; no phase catches and carries on):
   4. camera path: FusedVio.process_image with the M3DGR configuration
      over 32 rendered 640×480 frames of the bench.py room drive (RGB-D + IMU
      + wheel), twice from the same frames. Each run must initialize, run ≥ 20
-     fused ticks, launch A-C, H-L, S-Y and AH-AJ, AN, AO during them,
+     fused ticks, launch A-C, H-L, S-X and AH-AJ, AN, AO during them (H
+     with Y's square-root informations in its blocks and S with AN's step
+     in its last CTA: Y's and AN's step's own launches must stay at 0),
      make no synchronizing CUDA call on any tick with the window full (the
      slide chosen on the device; the record's read, the tick's output
      reaching the host, aside), take both MARGIN_OLD and
@@ -100,7 +102,8 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      torch.profiler prints the device time a tick of the port's kernels
      (F's, C's, L's with P's, W's, X's and AC's summed under
      by_kernel_ms_per_tick),
-     torch.linalg's and every other kernel, and the launches a tick, and
+     torch.linalg's and every other kernel, and the launches a tick (and
+     of kernels AH, AI, AJ, U, Y, H, S and AN beside their device ms), and
      split the same by profiler range (utils/profiling.py stage: each
      stretch of the tick named after the JAX function it ports, every CUDA
      activity given to the innermost range open at its launch), with the
@@ -117,7 +120,13 @@ Phases (any failure exits nonzero; no phase catches and carries on):
      (solver/marginalize.py) on phase 8's final window, MARGIN_OLD and
      MARGIN_SECOND_NEW with the layout's device tables, both routes on
      kernel X. Every output torch.equal to the plain route's, the same
-     bits twice;
+     bits twice. Then the camera tick's two folds
+     (checks.check_preint_lm_fold): H with Y's square-root informations
+     against H then Y (phase 8's final window, an interval with no valid
+     sample, a covariance not positive definite) and S with AN's step
+     against S then AN's step (an accept, a reject, a tie, a NaN cost, λ
+     at each clamp), torch.equal, with each fold's device ms and launches
+     beside the chain's;
   9. the loop-closure path: GroundFusion with loop closure on (the M3DGR
      camera configuration, PoseGraphConfig at its defaults but num_feats
      150: sim_thresh 0.88, skip_recent 50, 128 hypotheses, capacity 512,
@@ -295,7 +304,9 @@ codes, subcells and squared distances at 135,168 keys, the recenter's
 14 F's on the mesh's own 69,632 codes.
 The last two lines are the kernels JSON (launches from phase 8's run for
 A-L, S-Y, AH-AO and AQ (Y's inverse entry serves the plain route alone: its
-device code runs inside AM), phase 9's for M-O and O's cost mode, phase 10's for P, Q and
+device code runs inside AM; its square-root informations run inside H, whose
+launches that ran them the sqrt_info entry adds as inside_launches; AN's
+step inside S, the lm_glue entry's step_inside_launches), phase 9's for M-O and O's cost mode, phase 10's for P, Q and
 Q's cost mode, phase 11's for R, phase 13's for Z, phase 14's for AA-AC,
 phase 15's for AD and AE, phase 16's for AF and AG, phase 18's for AP,
 phase 19's for C's and S's stereo family) and
@@ -336,12 +347,18 @@ PORT_CPU_ATE = 0.14668776783459836
 SYS_FRAMES = 40
 SYS_MAX_ERR = 0.06     # m, fused position error (test_lio_e2e.py's bound)
 SYS_MAX_ATE = 0.30     # m, the VIO's aligned ATE
+# preint_sqrt_info: kernel H's launches whose blocks run Y's square-root
+# informations; window_cost_step: kernel S's launches whose last CTA runs
+# AN's LM step (the routes of Y's factor and AN's step on the camera tick)
 CAMERA_KERNELS = ("clahe", "klt", "proj_normal", "preint", "pyramid",
                   "shi_tomasi", "detect_grid", "ransac_f", "small_normal",
                   "window_cost", "triangulate", "window_tests", "window_update",
-                  "chol_solve", "sym_eig", "sqrt_info", "track_tail",
+                  "chol_solve", "sym_eig", "preint_sqrt_info", "track_tail",
                   "window_carry", "marg_schur", "lm_glue", "tick_glue",
-                  "threefry")
+                  "threefry", "window_cost_step")
+# phases 4 and 8: Y's standalone square-root informations and AN's
+# standalone step never launch on a camera tick
+CAMERA_OFF_PATH = ("sqrt_info", "lm_step")
 LOOP_KERNELS = ("brief", "simhash", "hamming", "loop_geom", "pg_normal",
                 "pg_cost")
 GNSS_KERNELS = ("gnss_normal", "global_normal", "global_cost")
@@ -559,7 +576,14 @@ KERNEL_GROUPS = {
     "AQ": ("draw_kernel", "split_kernel"),
     "G": ("eskf_predict_kernel",),
     "U": ("window_tests_kernel",),
-    "Y": ("sqrt_info_kernel", "icp_solve_kernel", "degeneracy_kernel")}
+    "H": ("preint_kernel",),
+    "Y": ("sqrt_info_reg_kernel", "icp_solve_kernel", "degeneracy_kernel"),
+    # Y's square-root informations alone, under either kernel name: the
+    # register form's, and the shared-memory one an older tree launches
+    # (tools/tick_split.py runs such a parent beside this tree)
+    "Y sqrt_info": ("sqrt_info_reg_kernel", "sqrt_info_kernel")}
+# phase 8's per-kernel line of the camera tick
+CAMERA_SPLIT_GROUPS = ("AH", "AI", "AJ", "U", "Y sqrt_info", "H", "S", "AN")
 # the camera tick's profiler ranges (vio/fused.py, vio/problem.py)
 CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
                  "tick_glue", "marginalize", "marginalize_oldest",
@@ -1036,10 +1060,14 @@ def camera_main_path(dev, card, frames, cam=None):
     if not prior_finite(fv):
         return "non-finite marginalization prior", fv, launches, None
     grew = {k: launches.get(k, 0) - (launches_at_fused or {}).get(k, 0)
-            for k in CAMERA_KERNELS}
+            for k in CAMERA_KERNELS + CAMERA_OFF_PATH}
+    off = {k: grew.pop(k) for k in CAMERA_OFF_PATH}
     if min(grew.values()) <= 0:
         return (f"a kernel did not launch during the fused ticks: {grew}", fv,
                 launches, None)
+    if any(off.values()):
+        return (f"a standalone launch the camera tick folds launched during "
+                f"the fused ticks: {off}", fv, launches, None)
     jac_fused, cost_fused = (
         n - n0 for n, n0 in zip((jac.n, plain_cost.n), at_fused))
     ate = float(metrics.ate_rmse(np.asarray(est), np.asarray(gt), align=True))
@@ -1130,10 +1158,14 @@ def system_main_path(dev, card, frames):
         return (f"only {n_live} system ticks ran with both carries live",
                 launches, None, gf)
     grew = {k: launches.get(k, 0) - (launches_at_live or {}).get(k, 0)
-            for k in CAMERA_KERNELS + LIDAR_KERNELS}
+            for k in CAMERA_KERNELS + LIDAR_KERNELS + CAMERA_OFF_PATH}
+    off = {k: grew.pop(k) for k in CAMERA_OFF_PATH}
     if min(grew.values()) <= 0:
         return (f"a kernel did not launch during the system ticks: {grew}",
                 launches, None, gf)
+    if any(off.values()):
+        return (f"a standalone launch the camera tick folds launched during "
+                f"the system ticks: {off}", launches, None, gf)
     if not all(np.all(np.isfinite(o.p)) and np.all(np.isfinite(o.q))
                for o in gf.trajectory):
         return "a non-finite fused pose", launches, None, gf
@@ -1154,13 +1186,13 @@ def system_main_path(dev, card, frames):
         print(f"system tick by profiler range over the last 3 ticks (device "
               f"ms, kernel launches, of which the port's kernels' ms, a "
               f"tick; printed only): {json.dumps(rows)}; kernels AH, AI, AJ, "
-              f"U launches a tick "
+              f"U, Y's square-root informations, H, S, AN launches a tick "
               + json.dumps({g: sum(split['port_kernel_launches_per_tick']
                                    .get(n, 0) for n in KERNEL_GROUPS[g])
-                            for g in ("AH", "AI", "AJ", "U")})
+                            for g in CAMERA_SPLIT_GROUPS})
               + f", device ms a tick "
               + json.dumps({g: round(split["by_kernel_ms_per_tick"][g], 5)
-                            for g in ("AH", "AI", "AJ", "U")}) + f" | {card}",
+                            for g in CAMERA_SPLIT_GROUPS}) + f" | {card}",
               flush=True)
         lr = {k: split["by_range"].get(k, dict(ms=0.0, launches=0,
                                                   port_ms=0.0, copies=0))
@@ -1258,7 +1290,9 @@ def glue_checks(dev, frames, gf, frame) -> dict:
     and AO (on ``gf``'s final fused window, phase 8's, and ``frame``'s IMU
     chunk) against their plain routes on the card; the slide chosen on the
     device against the host's choice in both branches, and every predicated
-    kernel off its branch leaving its outputs untouched."""
+    kernel off its branch leaving its outputs untouched; H with Y's
+    square-root informations and S with AN's step against H then Y and S
+    then AN (``checks.check_preint_lm_fold``)."""
     from ground_fusion2_tpu_torch import checks
     fv = gf.vio
     out = {"track_tail": checks.check_track_tail(
@@ -1268,7 +1302,8 @@ def glue_checks(dev, frames, gf, frame) -> dict:
            "marg_schur": checks.check_marg_schur(dev, fv),
            "lm_glue": checks.check_lm_glue(dev, fv),
            "tick_glue": checks.check_tick_glue(dev, fv),
-           "device_slide": checks.check_device_slide(dev, fv)}
+           "device_slide": checks.check_device_slide(dev, fv),
+           "preint_lm_fold": checks.check_preint_lm_fold(dev, fv)}
     return out
 
 
@@ -2596,6 +2631,11 @@ def main() -> int:
           "to the host's choice " + json.dumps(slide["chosen"])
           + "; predicated kernels off their branch "
           + json.dumps(slide["predicated"]) + f" | {card}", flush=True)
+    fold = res_glue.pop("preint_lm_fold")
+    print("kernel H with Y's square-root informations and kernel S with AN's "
+          "step (phase 8's final window) against H then Y and S then AN, "
+          "bit for bit, with device ms and launches a call: "
+          + json.dumps(fold) + f" | {card}", flush=True)
     res.update(res_glue)
 
     # 9. the loop-closure path, then M-O against their plain versions on
@@ -2794,6 +2834,15 @@ def main() -> int:
     next(k for k in kernels if k["name"] == "icp_solve").update(
         device_code=PKG + "icp_solve_warp.cuh", runs_inside="ct_icp_normal",
         inside_launches=launches.get("ct_icp_solve", 0))
+    # Y's square-root informations run inside H's blocks on the path, AN's
+    # step inside S's last CTA (their standalone launches serve the checks
+    # and the calibration's LM)
+    next(k for k in kernels if k["name"] == "sqrt_info").update(
+        device_code=PKG + "spd_warp_reg.cuh", runs_inside="preint",
+        inside_launches=launches.get("preint_sqrt_info", 0))
+    next(k for k in kernels if k["name"] == "lm_glue").update(
+        step_device_code=PKG + "lm_step.cuh", step_runs_inside="window_cost",
+        step_inside_launches=launches.get("window_cost_step", 0))
     # the GNSS rows P was held on: live pseudorange, Doppler and clock rows
     next(k for k in kernels if k["name"] == "gnss_normal")[
         "gnss_live_rows"] = 2 * live["gnss_psr"] + 5 * live["gnss_clock"]

@@ -39,6 +39,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
 _U = ctypes.c_uint
+# kernel S's LM step after the cost (csrc/lm_step.cuh): δ, the running cost
+# and λ, λ's factors and clamps, the cost and λ out
+_LM_STEP = [_P] * 3 + [_F] * 4 + [_P] * 2
 _SIGNATURES = {
     "gf2_clahe": [_P, _I, _I, _I, _I, _F, _P, _P, _P],
     "gf2_klt_track": [_P] * 5 + [_I] * 5 + [_F] + [_P] * 3,
@@ -52,7 +55,7 @@ _SIGNATURES = {
     "gf2_radix_argsort": [_P, _I, _I, _P, _P, _P],
     "gf2_radix_plan": [_I] * 2 + [_P] * 6,
     "gf2_eskf_predict": [_P] * 11 + [_I] + [_F] * 4 + [_P] * 5,
-    "gf2_preint": [_P] * 11 + [_I] * 2 + [_F] * 6 + [_P] * 6 + [_I] + [_P] * 5,
+    "gf2_preint": [_P] * 11 + [_I] * 2 + [_F] * 6 + [_P] * 6 + [_I] + [_P] * 7,
     "gf2_blur_decimate": [_P, _I, _I, _P, _P],
     "gf2_shi_tomasi": [_P, _I, _I, _P, _P],
     "gf2_detect_grid": [_P, _I, _I, _I, _I, _I, _F, _P, _P, _I] + [_P] * 5,
@@ -66,7 +69,8 @@ _SIGNATURES = {
     "gf2_pg_normal": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 5,
     "gf2_global_normal": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 5,
     "gf2_dyn_mask": [_P] * 5 + [_I] * 5 + [_F] * 4 + [_I] * 3 + [_P] * 4,
-    "gf2_window_cost": [_P] * 23 + [_I] * 21 + [_D] + [_F] * 6 + [_P] * 4,
+    "gf2_window_cost": ([_P] * 23 + [_I] * 21 + [_D] + [_F] * 6 + [_P] * 3
+                        + _LM_STEP + [_P]),
     "gf2_pg_cost": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 3,
     "gf2_global_cost": [_P] * 3 + [_I] + [_F] * 2 + [_P] * 3,
     "gf2_triangulate": [_P] * 11 + [_I] * 2 + [_P] * 3,
@@ -130,7 +134,7 @@ _SIGNATURES = {
     "gf2_proj_normal_stereo": ([_P] * 16 + [_I] * 8 + [_F] * 3 + [_P] * 5
                                + [_I, _P]),
     "gf2_window_cost_stereo": ([_P] * 27 + [_I] * 21 + [_D] + [_F] * 6
-                               + [_P] * 4),
+                               + [_P] * 3 + _LM_STEP + [_P]),
     "gf2_threefry_draw": [_P, _U, _I, _I, _I, _F, _P, _P, _P],
     "gf2_threefry_split_gumbel": [_U, _U, _I, _I, _F, _P, _P, _P],
 }

@@ -945,6 +945,50 @@ def check_preint(device, x: dict, timed: bool = True) -> dict:
     return out
 
 
+def preint_arrays(counts, seed: int = 0) -> dict:
+    """Seeded numpy IMU and wheel samples of ``len(counts)`` intervals at
+    the camera tick's 128 slots, interval i with ``counts[i]`` valid samples
+    (a prefix of 5-6 ms steps; the rest of the slots zero, as
+    ``IntervalBuffers`` leaves them), biases and wheel intrinsics: acc, gyr,
+    wvel [n, 129, 3], dt, mask [n, 128], ba, bg [n, 3], six, siy, siw."""
+    rng = np.random.default_rng(seed)
+    n, M = len(counts), wp.SUM_SLOTS
+    f32 = lambda a: np.asarray(a, np.float32)
+    dt, mask = np.zeros((n, M)), np.zeros((n, M))
+    for i, c in enumerate(counts):
+        dt[i, :c] = 0.005 + rng.uniform(0.0, 1e-3, c)
+        mask[i, :c] = 1.0
+    return dict(
+        acc=f32(rng.normal(0.0, 0.3, (n, M + 1, 3)) + [0.0, 0.0, 9.81]),
+        gyr=f32(rng.normal(0.0, 0.05, (n, M + 1, 3))),
+        wvel=f32(rng.normal(0.0, 0.05, (n, M + 1, 3)) + [1.0, 0.0, 0.0]),
+        dt=f32(dt), mask=f32(mask), ba=f32(rng.normal(0.0, 0.01, (n, 3))),
+        bg=f32(rng.normal(0.0, 1e-3, (n, 3))), six=f32(1.02), siy=f32(0.98),
+        siw=f32(1.01))
+
+
+def preint_case(device, counts=(18,) * (NUM_FRAMES - 1), seed: int = 0,
+                imu_noise=None, wheel_noise=None) -> dict:
+    """Kernel H's inputs on :func:`preint_arrays`' intervals, as
+    :func:`preint_inputs` gives them (``args`` for
+    ``window_preint.preintegrate_window``, and the propagation through the
+    last interval), with M3DGR's noise unless given."""
+    from .config import m3dgr_camera
+    est = m3dgr_camera().estimator
+    a = {k: torch.as_tensor(v, device=device)
+         for k, v in preint_arrays(counts, seed).items()}
+    qio = torch.tensor([1.0, 0.0, 0.0, 0.0], device=device)
+    g = torch.tensor([0.0, 0.0, -9.81], device=device)
+    n = len(counts)
+    z3 = torch.zeros(3, device=device)
+    return dict(args=(a["acc"], a["gyr"], a["wvel"], a["dt"], a["mask"],
+                      a["ba"], a["bg"], a["six"], a["siy"], a["siw"],
+                      imu_noise or est.imu_noise,
+                      wheel_noise or est.wheel_noise, qio),
+                prop=wp.Propagate(z3, qio, z3, a["ba"][n - 1], a["bg"][n - 1],
+                                  g, n - 1))
+
+
 def _pyramid_library(img, levels):
     """Pad + strided conv per level: the library's counterpart of the
     blur-and-decimate pyramid (a yardstick only)."""
@@ -2305,6 +2349,17 @@ S_COST_REL = 1e-6
 COST_FLOPS = dict(imu=700, wheel=550, plane=400, motion=200, posvel=20,
                   gnss_psr=45, gnss_dopp=40, gnss_clock=15)
 PROJ_OBS_FLOPS = 250
+
+
+def lm_trial(x0, meas, layout, cfg, lam: float = 1e-4) -> torch.Tensor:
+    """The window's first LM trial step from δ = 0 (its normal equations,
+    kernel W's damped solve at ``lam``, every dim free)."""
+    from .solver.gauss_newton import _solve_damped
+    from .vio.problem import window_normal_equations
+    zero = torch.zeros(layout.dim, device=x0.p.device)
+    H, g, _ = window_normal_equations(x0, meas, layout, cfg, zero)
+    return _solve_damped(H, g, torch.full((), lam, device=x0.p.device),
+                         torch.ones(layout.dim, device=x0.p.device))
 
 
 def check_window_cost(device, x0, meas, layout, cfg, deltas: dict,
@@ -4084,8 +4139,8 @@ def check_lm_glue(device, fv, timed: bool = True) -> dict:
     its cost and λ in place; the retraction of a solve-sized step, of a zero
     step, of tiny and of large rotations; MARGIN_SECOND_NEW's weighed prior
     rows. Every output ``torch.equal``. Timed per mode; the totals are a
-    tick's with the window full (two packs, eight steps, one retraction,
-    one weigh)."""
+    tick's with the window full (two packs, one retraction, one weigh: the
+    solve's eight steps run in kernel S's last CTA)."""
     from .solver import lm_glue as lg
     from .vio import problem
     x, layout, cfg = fv.carry.state, fv.layout, fv.cfg.vio
@@ -4190,8 +4245,134 @@ def check_lm_glue(device, fv, timed: bool = True) -> dict:
              "retract": 60 * (W + 3) + 2 * D, "weigh": K * K + K}
     runs = {n: runs[n] for n in nbytes}
     return _glue_timed(res, runs, nbytes, flops,
-                       {"pack": 1, "pack (MARGIN_OLD)": 1, "step (accept)": 8,
+                       {"pack": 1, "pack (MARGIN_OLD)": 1, "step (accept)": 0,
                         "retract": 1, "weigh": 1}, timed)
+
+
+# the cases of an LM step (kernel AN's, alone or in S's last CTA): (the
+# trial as a multiple of the window's first LM step, λ, the running cost as
+# a multiple of the trial's cost, or None: the cost at δ = 0)
+FOLD_STEPS = {"accept": (1.0, 1e-4, 2.0), "reject": (1.0, 1e-4, 0.5),
+              "tie": (1.0, 1e-4, 1.0), "NaN cost": (float("nan"), 1e-4, None),
+              "λ at 1e-9": (1.0, 1e-9, 2.0), "λ at 1e6": (1.0, 1e6, 0.5)}
+
+
+def sqrt_fold_cases(device, fv) -> dict:
+    """Kernel H's inputs for :func:`check_sqrt_fold`: ``FusedVio`` ``fv``'s
+    final window, and M3DGR's intervals with one of no valid sample and one
+    of a single sample, at M3DGR's noise and at a noise that leaves that
+    interval's IMU covariance not positive definite (its pivot rule)."""
+    from .sensors.imu_preint import ImuNoise
+    from .sensors.wheel_preint import WheelNoise
+    e, col = fv.cfg, NUM_FRAMES - 1
+    counts = (0, 1) + (18,) * (col - 2)
+    return {"the final window": preint_inputs(fv.carry, fv.statics,
+                                              e.imu_noise, e.wheel_noise, col),
+            "an interval with no valid sample": preint_case(device, counts),
+            "a covariance not positive definite": preint_case(
+                device, counts, imu_noise=ImuNoise(1e6, 1e-6, 1e6, 1e-6),
+                wheel_noise=WheelNoise(1e6, 1e-6))}
+
+
+def _sqrt_folded(x):
+    return wp.preintegrate_window(*x["args"], prop=x["prop"], sqrt_info=True)
+
+
+def _sqrt_chain(x):
+    pre, wpre, pvq = wp.preintegrate_window(*x["args"], prop=x["prop"])
+    return (pre, wpre, pvq, fac.imu_sqrt_info(pre.cov),
+            fac.imu_sqrt_info(wpre.cov))
+
+
+def check_sqrt_fold(x: dict) -> dict:
+    """Kernel H with Y's square-root informations in its blocks against H,
+    then Y's standalone entry on both covariances (each output
+    ``torch.equal``), and the IMU intervals whose covariance + 1e-10 I is
+    not positive definite (float64 Cholesky)."""
+    a, b = _sqrt_folded(x), _sqrt_chain(x)
+    same = {"sqrt_imu": bool(torch.equal(a[3], b[3])),
+            "sqrt_whl": bool(torch.equal(a[4], b[4]))}
+    for name, u, v in zip(("pre", "wpre", "pvq"), a[:3], b[:3]):
+        same[name] = all(bool(torch.equal(p, q)) for p, q in zip(u, v))
+    cov = a[0].cov.detach().cpu().double() + 1e-10 * torch.eye(
+        15, dtype=torch.float64)
+    return dict(equal=same,
+                not_pd=int((torch.linalg.cholesky_ex(cov).info > 0).sum()))
+
+
+def check_step_fold(x0, meas, layout, cfg) -> dict:
+    """Kernel S with AN's step in its last CTA (``window_cost_step_fn``)
+    against S, then AN's standalone step, on ``FOLD_STEPS``' cases of the
+    window's first LM step: δ, the cost and λ ``torch.equal`` (NaN where
+    both are), whether the trial was taken, its cost and the new λ."""
+    from .solver import lm_glue
+    dev = x0.p.device
+    trial0 = lm_trial(x0, meas, layout, cfg)
+    out = {}
+    for name, (scale, lam0, ratio) in FOLD_STEPS.items():
+        trial = (trial0 * scale).contiguous()
+        cost_at, cost_step = fac.window_cost_step_fn(x0, meas, layout, cfg)
+        c_trial = cost_at(trial)
+        cost = (c_trial * ratio if ratio is not None
+                else cost_at(torch.zeros_like(trial)))
+        got = []
+        for fold in (True, False):
+            lam = torch.full((), lam0, device=dev)
+            delta = torch.full_like(trial, 0.25)
+            c = cost.clone()
+            sc = torch.empty(2, device=dev)
+            r = (cost_step(delta, trial, c, lam, 0.3, 10.0, sc) if fold else
+                 lm_glue.step(delta, trial, c, cost_at(trial), lam, 0.3, 10.0,
+                              sc))
+            got.append([t.clone() for t in r])
+        out[name] = dict(
+            equal={k: bool(torch.equal(u, v)) or bool(
+                torch.isnan(u).all() and torch.isnan(v).all())
+                for k, u, v in zip(("delta", "cost", "lam"), *got)},
+            accepted=bool(torch.equal(got[0][0], trial)),
+            trial_cost=float(c_trial), lam=float(got[0][2]))
+    return out
+
+
+def check_preint_lm_fold(device, fv, timed: bool = True) -> dict:
+    """The camera tick's two folds on ``FusedVio`` ``fv``'s final window:
+    :func:`check_sqrt_fold` on :func:`sqrt_fold_cases` and
+    :func:`check_step_fold` (every case taken or refused as designed); with
+    ``timed``, the device ms and launches a call of each fold beside the
+    chain it replaces. On the CPU both sides take the plain route."""
+    from .solver import lm_glue
+    cases = sqrt_fold_cases(device, fv)
+    preint = {k: check_sqrt_fold(x) for k, x in cases.items()}
+    st, meas, layout, cfg = (fv.carry.state, carry_measurements(fv),
+                             fv.layout, fv.cfg.vio)
+    steps = check_step_fold(st, meas, layout, cfg)
+    ok = (all(all(v["equal"].values()) for v in preint.values())
+          and all(all(v["equal"].values()) for v in steps.values())
+          and preint["a covariance not positive definite"]["not_pd"] > 0
+          and all(v["accepted"] == (r is not None and r > 1.0)
+                  for v, (_, _, r) in zip(steps.values(),
+                                          FOLD_STEPS.values())))
+    res = dict(ok=ok, max_abs_err=0.0, preint=preint, steps=steps)
+    if timed:
+        x = cases["the final window"]
+        trial = lm_trial(st, meas, layout, cfg).contiguous()
+        cost_at, cost_step = fac.window_cost_step_fn(st, meas, layout, cfg)
+        c0 = cost_at(torch.zeros_like(trial))
+        sc = torch.empty(2, device=st.p.device)
+        lam = torch.full((), 1e-4, device=st.p.device)
+        delta = torch.zeros_like(trial)
+        pairs = {"preintegrate": (lambda: _sqrt_folded(x),
+                                  lambda: _sqrt_chain(x)),
+                 "trial cost and step": (
+                     lambda: cost_step(delta, trial, c0, lam, 0.3, 10.0, sc),
+                     lambda: lm_glue.step(delta, trial, c0, cost_at(trial),
+                                          lam, 0.3, 10.0, sc))}
+        for name, (a, b) in pairs.items():
+            ta, tb = device_ms(a), device_ms(b)
+            res[name] = dict(folded_device_ms=ta.ms,
+                             folded_launches=ta.launches,
+                             chain_device_ms=tb.ms, chain_launches=tb.launches)
+    return res
 
 
 def check_tick_glue(device, fv, timed: bool = True) -> dict:

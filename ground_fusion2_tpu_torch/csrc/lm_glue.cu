@@ -24,8 +24,11 @@
 //            the slide's branch (csrc/branch.cuh);
 //   step     once an iteration, after kernel S: accept = new cost < cost
 //            (a NaN step is rejected, as torch.where rejects it), δ and the
-//            cost selected, λ damped with its clamps (1e-9, 1e6). Kernel W
-//            writes the trial δ + dx in its epilogue;
+//            cost selected, λ damped with its clamps (1e-9, 1e6)
+//            (lm_step.cuh). Kernel W writes the trial δ + dx in its
+//            epilogue. The window's solve runs the step in kernel S's last
+//            CTA instead; this launch serves every other LM (the
+//            calibration's) and the checks;
 //   retract  once a solve: the window state at x0 ⊞ δ;
 //   weigh    MARGIN_SECOND_NEW's prior rows (sqrt_J·valid, r0·valid),
 //            on the slide's branch.
@@ -42,6 +45,7 @@
 #include <stdint.h>
 
 #include "branch.cuh"
+#include "lm_step.cuh"
 #include "torch_order.cuh"
 
 namespace {
@@ -149,28 +153,19 @@ lm_pack_kernel(Pack pk, Branch br, float* __restrict__ out) {
   }
 }
 
-// torch.clamp(x, max=hi): NaN stays
-__device__ __forceinline__ float clamp_max(float x, float hi) {
-  return isnan(x) ? x : fminf(x, hi);
-}
-
 // one CTA: every thread reads the scalars before any is written, so the
-// cost and λ may be updated in place
+// cost and λ may be updated in place (lm_step.cuh, which kernel S's last CTA
+// also runs)
 __global__ void __launch_bounds__(1024)
 lm_step_kernel(float* __restrict__ delta, const float* __restrict__ trial,
                const float* cost_in, const float* __restrict__ new_cost,
                const float* lam_in, int D, float down, float up, float lo,
                float hi, float* cost_out, float* lam_out) {
   const float c = cost_in[0], nc = new_cost[0], lam = lam_in[0];
-  const bool accept = nc < c;
   __syncthreads();
-  if (accept)
-    for (int i = threadIdx.x; i < D; i += blockDim.x) delta[i] = trial[i];
-  if (threadIdx.x == 0) {
-    cost_out[0] = accept ? nc : c;
-    lam_out[0] = accept ? gf2t::clamp_min(__fmul_rn(lam, down), lo)
-                        : clamp_max(__fmul_rn(lam, up), hi);
-  }
+  const gf2lm::Step s{delta, cost_in, lam_in, down, up, lo, hi, cost_out,
+                      lam_out};
+  gf2lm::apply(s, trial, D, c, nc, lam);
 }
 
 struct State {

@@ -47,10 +47,20 @@
 // offsets 16, 8, 4, 2, 1), so a call is one launch. That order is the one
 // of the camera tick's kSumSlots = 128 slots an interval, the only slot
 // count the intervals take (the propagation alone takes any).
+//
+// Kernel Y's square-root informations are folded in too, where the caller
+// asks (sqrt_imu, sqrt_whl): once an IMU block has written its interval's
+// covariance, its first warp factors the covariance it holds (the floats it
+// has just written) and writes S = L⁻¹ of cov + 1e-10 I, with the factor
+// and L⁻¹ in registers (spd_warp_reg.cuh, Y's own code); each wheel block
+// does the same with its 6×6. So the camera tick's preintegration and both
+// square-root informations are one launch, and Y's serial chain runs where
+// H's block already sits instead of behind a launch of its own.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "spd_warp_reg.cuh"
 #include "stage_stamps.cuh"
 
 namespace {
@@ -62,8 +72,10 @@ namespace {
 // stage laps (stage_stamps.cuh), a block's: its entry; the slot pass (the
 // valid list, the mask count); then per tile the per-sample terms,
 // the quaternion chain, the rotation-dependent terms with the serial sums,
-// the covariance chain; the outputs. Named by GF2_STAGE_NAMES below.
-enum { kStEntry, kStSlots, kStSamples, kStChain, kStTerms, kStCov, kStOut };
+// the covariance chain; the outputs; the square-root information (the
+// first warp). Named by GF2_STAGE_NAMES below.
+enum { kStEntry, kStSlots, kStSamples, kStChain, kStTerms, kStCov, kStOut,
+       kStSqrt };
 
 __device__ __forceinline__ void quat_to_mat(const float* q, float* R) {
   float w = q[0], x = q[1], y = q[2], z = q[3];
@@ -303,7 +315,8 @@ __device__ __forceinline__ void torch_row_sum128(const Slots& sl, float* out) {
 __device__ void imu_block(const float* acc, const float* gyr, const float* dt,
                           const float* mask, const float* ba, const float* bg,
                           int M, const Noise& noise, float* out,
-                          float* sum_out, const Slots& sl, ImuTile& s) {
+                          float* sum_out, float* sqrt_out, const Slots& sl,
+                          ImuTile& s) {
   const int t = threadIdx.x;
   const int r = t / 15, c = t % 15;
   GF2_STAMP(t == 0, blockIdx.x, kStEntry);
@@ -424,6 +437,11 @@ __device__ void imu_block(const float* acc, const float* gyr, const float* dt,
     for (int i = 0; i < 4; ++i) out[3 + i] = s.Q[0][i];
   }
   GF2_LAP(t == 0, blockIdx.x, kStOut);
+  // S = L⁻¹ of the covariance (final since the last barrier), one warp
+  if (sqrt_out != nullptr && t < 32) {
+    gf2spd::warp_spd_reg<15>(s.cov, 0, t, sqrt_out);
+    GF2_LAP(t == 0, blockIdx.x, kStSqrt);
+  }
 }
 
 // -------------------------------------------------------------- wheel role
@@ -443,7 +461,8 @@ __device__ void wheel_block(const float* vel, const float* gyr, const float* dt,
                             const float* mask, const float* six,
                             const float* siy, const float* siw,
                             const float* qio, int M, const Noise& noise,
-                            float* out, const Slots& sl, WheelTile& s) {
+                            float* out, float* sqrt_out, const Slots& sl,
+                            WheelTile& s) {
   const int t = threadIdx.x;
   const int r = t / 6, c = t % 6;
   GF2_STAMP(t == 0, blockIdx.x, kStEntry);
@@ -642,6 +661,10 @@ __device__ void wheel_block(const float* vel, const float* gyr, const float* dt,
     }
   }
   GF2_LAP(t == 0, blockIdx.x, kStOut);
+  if (sqrt_out != nullptr && t < 32) {
+    gf2spd::warp_spd_reg<6>(s.cov, 0, t, sqrt_out);
+    GF2_LAP(t == 0, blockIdx.x, kStSqrt);
+  }
 }
 
 // -------------------------------------------------------- propagate role
@@ -733,7 +756,8 @@ __global__ void __launch_bounds__(kThreads) preint_kernel(
     const float* __restrict__ siy, const float* __restrict__ siw,
     const float* __restrict__ qio, int B, int M, Noise noise, Prop prop,
     int prop_k, float* __restrict__ imu_out, float* __restrict__ whl_out,
-    float* __restrict__ sum_out, float* __restrict__ prop_out) {
+    float* __restrict__ sum_out, float* __restrict__ prop_out,
+    float* __restrict__ sqrt_imu, float* __restrict__ sqrt_whl) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   Slots sl;
@@ -745,12 +769,14 @@ __global__ void __launch_bounds__(kThreads) preint_kernel(
   const int S = 3 * (M + 1);
   if (b < B) {
     imu_block(acc + b * S, gyr + b * S, dt + b * M, mask + b * M, ba + 3 * b,
-              bg + 3 * b, M, noise, imu_out + 460 * b, sum_out + b, sl,
+              bg + 3 * b, M, noise, imu_out + 460 * b, sum_out + b,
+              sqrt_imu ? sqrt_imu + 225 * b : nullptr, sl,
               *reinterpret_cast<ImuTile*>(role));
   } else if (b < 2 * B) {
     const int i = b - B;
     wheel_block(wvel + i * S, gyr + i * S, dt + i * M, mask + i * M, six, siy,
-                siw, qio, M, noise, whl_out + 70 * i, sl,
+                siw, qio, M, noise, whl_out + 70 * i,
+                sqrt_whl ? sqrt_whl + 36 * i : nullptr, sl,
                 *reinterpret_cast<WheelTile*>(role));
   } else {
     prop_block(acc + prop_k * S, gyr + prop_k * S, dt + prop_k * M,
@@ -762,7 +788,7 @@ __global__ void __launch_bounds__(kThreads) preint_kernel(
 
 }  // namespace
 
-GF2_STAGE_NAMES("entry,slots,samples,chain,terms,cov,out")
+GF2_STAGE_NAMES("entry,slots,samples,chain,terms,cov,out,sqrt")
 
 // acc, gyr (raw IMU gyro), wvel: [n_int, M+1, 3]; dt, mask: [n_int, M];
 // ba, bg: [n_int, 3]; six, siy, siw: one float each; qio: [4]. B
@@ -772,7 +798,9 @@ GF2_STAGE_NAMES("entry,slots,samples,chain,terms,cov,out")
 // double on the host, then rounded), as the plain versions build them.
 // Outputs: imu_out [B, 460] (dp dq dv cov jac), whl_out [B, 70] (dp dq cov
 // jac_ix gyr_begin vel_end gyr_end), sum_out [B] (sum_dt; B > 0 takes
-// M = kSumSlots), prop_out [10] (p q v).
+// M = kSumSlots), prop_out [10] (p q v); sqrt_imu [B, 15, 15] and sqrt_whl
+// [B, 6, 6] (each null: none): L⁻¹ of each covariance + 1e-10 I, as kernel
+// Y's entry 1 computes it from imu_out's and whl_out's covariances.
 extern "C" int gf2_preint(
     const float* acc, const float* gyr, const float* wvel, const float* dt,
     const float* mask, const float* ba, const float* bg, const float* six,
@@ -781,7 +809,7 @@ extern "C" int gf2_preint(
     float wgyr_n2, const float* pp, const float* pq, const float* pv,
     const float* pba, const float* pbg, const float* pg, int prop_k,
     float* imu_out, float* whl_out, float* sum_out, float* prop_out,
-    void* stream) {
+    float* sqrt_imu, float* sqrt_whl, void* stream) {
   Noise nz;
   for (int i = 0; i < 3; ++i) {
     nz.imu[i] = acc_n2; nz.imu[3 + i] = gyr_n2; nz.imu[6 + i] = acc_n2;
@@ -804,6 +832,6 @@ extern "C" int gf2_preint(
   }
   preint_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, qio, B, M, nz, prop,
-      prop_k, imu_out, whl_out, sum_out, prop_out);
+      prop_k, imu_out, whl_out, sum_out, prop_out, sqrt_imu, sqrt_whl);
   return (int)cudaGetLastError();
 }

@@ -5,13 +5,16 @@
 //    `imu_sqrt_info` (cholesky + solve_triangular; cuSOLVER's potrf and a
 //    trsm in the plain PyTorch version): S = L⁻¹ for cov + 1e-10 I = L Lᵀ,
 //    batched, one warp a matrix ([10, 15, 15] IMU and [10, 6, 6] wheel
-//    covariances a camera tick). Lane i factors row i (right-looking, in
-//    shared memory), then lane j forward-substitutes column j of L⁻¹; the
-//    upper triangle is written as exact zeros. With `inverse` set the same
-//    launch returns A⁻¹ = L⁻ᵀ L⁻¹ of an SPD A (no 1e-10 added): the 6×6
-//    innovation covariance of ground_fusion2_tpu/lio/eskf.py:178
-//    (`jnp.linalg.inv`; the plain version's `inv_ex` is an LU), twice a
-//    LiDAR tick.
+//    covariances a camera tick). Lane i factors row i (right-looking),
+//    then lane j forward-substitutes column j of L⁻¹; the upper triangle is
+//    written as exact zeros. It takes n = 15 and n = 6, the sizes the port
+//    has (the IMU and wheel covariances, the innovation), and refuses any
+//    other: the factor and L⁻¹ stay in registers, n a template argument
+//    (spd_warp_reg.cuh, the code kernel H runs on the camera tick, so this
+//    entry serves the checks there). With `inverse` set
+//    the same launch returns A⁻¹ = L⁻ᵀ L⁻¹ of an SPD A (no 1e-10 added):
+//    the 6×6 innovation covariance of ground_fusion2_tpu/lio/eskf.py:178
+//    (`jnp.linalg.inv`; the plain version's `inv_ex` is an LU).
 // 2. gf2_icp_solve replaces the damped 12×12 solve of
 //    ground_fusion2_tpu/lio/ct_icp.py:143 (`jnp.linalg.solve`; the plain
 //    version's `solve_ex` is a pivoted LU): d = −(H + λ·max(max diag H, 1)·I)⁻¹ g.
@@ -38,23 +41,49 @@
 #include <math.h>
 
 #include "icp_solve_warp.cuh"
-#include "spd_warp.cuh"
+#include "spd_warp_reg.cuh"
+#include "stage_stamps.cuh"
 
 namespace {
 
 constexpr int kWarps = 2;      // matrices a CTA in entry 1
 constexpr int kDegThreads = 256;
 
+// stage stamps (stage_stamps.cuh) of entry 1, a matrix's:
+// its entry, then the end of each stage; named by GF2_STAGE_NAMES below
+enum { kStEntry, kStLoad, kStFactor, kStSubst, kStWrite };
+
+// entry 1 at n = N, the factor and L⁻¹ in registers: a warp a matrix
+template <int N>
 __global__ void __launch_bounds__(kWarps * 32)
-sqrt_info_kernel(const float* __restrict__ cov, int B, int n, long long stride,
-                 int inverse, float* __restrict__ out) {
-  __shared__ double Ls[kWarps][32 * LD];
-  __shared__ double Xs[kWarps][32 * LD];
+sqrt_info_reg_kernel(const float* __restrict__ cov, int B, long long stride,
+                     int inverse, float* __restrict__ out) {
+  using namespace gf2spd;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int b = blockIdx.x * kWarps + w;
   if (b >= B) return;
-  warp_spd(cov + (size_t)b * stride, n, inverse, Ls[w], Xs[w], lane,
-           out + (size_t)b * n * n);
+  GF2_STAMP(lane == 0, b, kStEntry);
+  double a[N], x[N];
+  reg_load<N>(cov + (size_t)b * stride, inverse ? 0.0 : 1e-10, lane, a);
+#ifdef GF2_STAGE_STAMPS
+  // the stamped build waits for the loads here (a sum no one keeps), so
+  // that their latency counts as the load's and not the first pivot's
+  double t = 0.0;
+#pragma unroll
+  for (int c = 0; c < N; ++c) t += a[c];
+  asm volatile("" ::"d"(t));
+#endif
+  GF2_STAMP(lane == 0, b, kStLoad);
+  reg_chol<N>(a, lane);
+  GF2_STAMP(lane == 0, b, kStFactor);
+  reg_subst<N>(a, lane, x);
+  GF2_STAMP(lane == 0, b, kStSubst);
+  float* o = out + (size_t)b * N * N;
+  if (inverse)
+    reg_write_inverse<N>(x, lane, o);
+  else
+    reg_write_factor<N>(x, lane, o);
+  GF2_STAMP(lane == 0, b, kStWrite);
 }
 
 __global__ void __launch_bounds__(32)
@@ -154,16 +183,23 @@ degeneracy_kernel(const float* __restrict__ normal, const float* __restrict__ w,
 
 }  // namespace
 
-// cov [B, n, n] f32, n ≤ 32, rows contiguous, `stride` floats between
-// matrices (n·n where packed; the camera tick reads kernel H's covariances
-// in place); out [B, n, n] f32: L⁻¹ of cov + 1e-10 I, or with inverse = 1
-// cov⁻¹ (cov SPD).
+GF2_STAGE_NAMES("entry,load,factor,substitution,write")
+
+// cov [B, n, n] f32, n = 15 or 6, rows contiguous, `stride` floats between
+// matrices (n·n where packed; kernel H's covariances read in place); out
+// [B, n, n] f32: L⁻¹ of cov + 1e-10 I, or with inverse = 1 cov⁻¹ (cov SPD).
 extern "C" int gf2_sqrt_info(const float* cov, int B, int n, long long stride,
                              int inverse, float* out, void* stream) {
-  if (n < 1 || n > 32) return (int)cudaErrorInvalidValue;
+  if (n != 15 && n != 6) return (int)cudaErrorInvalidValue;
   if (B <= 0) return (int)cudaGetLastError();
-  sqrt_info_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      cov, B, n, stride, inverse, out);
+  const int grid = (B + kWarps - 1) / kWarps;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n == 15)
+    sqrt_info_reg_kernel<15><<<grid, kWarps * 32, 0, st>>>(cov, B, stride,
+                                                           inverse, out);
+  else
+    sqrt_info_reg_kernel<6><<<grid, kWarps * 32, 0, st>>>(cov, B, stride,
+                                                          inverse, out);
   return (int)cudaGetLastError();
 }
 

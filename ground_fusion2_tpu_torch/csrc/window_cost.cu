@@ -48,6 +48,16 @@
 // `build_residual_fn` concatenates the stereo rows). The mono instance is
 // the same code and the same sums.
 //
+// Where a solve asks (a non-null step), the last CTA then runs kernel AN's
+// step on the cost it has just summed (lm_step.cuh): every thread reads the
+// running cost and λ, thread 0 shares the new cost through shared memory,
+// and after a barrier the CTA's threads copy the trial (this launch's δ)
+// into the solve's δ where it is accepted while thread 0 writes the
+// selected cost and the damped λ with AN's expressions. The trial cost is
+// still written for its other readers. That saves the LM iteration a
+// launch of AN, one of a few microseconds, against a tail of one barrier
+// and ≤ D/128 copies a thread.
+//
 // Bounds on the card: the prior's sqrt_J (242 KB at 246²) dominates the
 // bytes; ~1,650 observations × ~250 flops, ~50 instances (~420 with GNSS) ×
 // ≤ ~700 flops and 246² multiply-adds are ~0.6 MFLOP of f64. Both are well
@@ -58,6 +68,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "lm_step.cuh"
 #include "stage_stamps.cuh"
 #include "window_rows.cuh"
 
@@ -94,7 +105,7 @@ struct Rows {
 // stage stamps (stage_stamps.cuh), a CTA's: its role at its entry, then
 // the points it reaches; named in this order by GF2_STAGE_NAMES below
 enum Stamp { kStInstances, kStPrior, kStFeatures, kStStaged, kStDone,
-             kStLoaded, kStSummed };
+             kStLoaded, kStSummed, kStStepped };
 
 // the grid: instance CTAs, then prior CTAs, then feature CTAs
 struct Grid {
@@ -217,9 +228,10 @@ template <bool kStereo>
 __global__ void __launch_bounds__(kThreads) window_cost_kernel(
     Proj X, Rows R, Lay L, Grid G, const float* __restrict__ delta,
     double* __restrict__ part, unsigned* __restrict__ ticket,
-    float* __restrict__ cost) {
+    float* __restrict__ cost, gf2lm::Step step) {
   extern __shared__ double smem[];
   __shared__ bool last;
+  __shared__ float new_cost;
   const int tid = threadIdx.x, lane = tid & 31;
   const int F = X.F, n_inst = n_instances(L), K = L.fd;
   double* part_f = part;              // [F]
@@ -333,9 +345,16 @@ __global__ void __launch_bounds__(kThreads) window_cost_kernel(
     for (int n = n_a; n < n_a + n_mp; ++n) c += si[n];
 #pragma unroll 8
     for (int i = 0; i < K; ++i) c += sp[i];
-    cost[0] = (float)(0.5 * c);
+    new_cost = (float)(0.5 * c);
+    cost[0] = new_cost;
   }
   GF2_STAMP(tid == 0, blockIdx.x, kStSummed);
+  if (step.delta == nullptr) return;
+  // kernel AN's step: the running cost and λ read before any write
+  const float c_run = step.cost[0], lam = step.lam[0];
+  __syncthreads();
+  gf2lm::apply(step, delta, L.D, c_run, new_cost, lam);
+  GF2_STAMP(tid == 0, blockIdx.x, kStStepped);
 }
 
 // sqrt_J rows a prior CTA: 32, fewer where a wide prior would not fit
@@ -348,7 +367,8 @@ int prior_rows(int K) {
 
 template <bool kStereo>
 int launch(const Proj& X, const Rows& R, const Lay& L, const float* delta,
-           double* part, unsigned* ticket, float* cost, cudaStream_t stream) {
+           double* part, unsigned* ticket, float* cost, const gf2lm::Step& step,
+           cudaStream_t stream) {
   const int F = X.F, fd = L.fd;
   const int n[8] = {L.n_imu, L.n_whl, L.n_plane, L.n_motion, L.n_posvel,
                     L.n_gpsr, L.n_gdopp, L.n_gclk};
@@ -370,21 +390,25 @@ int launch(const Proj& X, const Rows& R, const Lay& L, const float* delta,
   }
   const int ctas = G.inst_ctas + G.prior_ctas + G.feat_ctas;
   window_cost_kernel<kStereo><<<ctas, kThreads, smem, stream>>>(
-      X, R, L, G, delta, part, ticket, cost);
+      X, R, L, G, delta, part, ticket, cost, step);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 GF2_STAGE_NAMES("instances,prior,features,prior staged,done,partials loaded,"
-                "summed")
+                "summed,stepped")
 
 // Projection inputs as kernel C takes them (p [W, 3], q [W, 4], tic, qic,
 // td, rho [F], ray, vel [F, W, 2], obs_valid [F, W], anchor [F] int32,
 // track_valid [F]); the other rows' as kernel L takes them (xs, imu, whl,
 // misc, gx, gtab, pbase, pq, sqrtJ, r0) plus the prior's valid flag [1].
 // part: F + n_instances + fd doubles of scratch; ticket: one unsigned,
-// zero before the first call (each launch leaves it 0); cost [1] out.
+// zero before the first call (each launch leaves it 0); cost [1] out. The
+// LM step after the cost (null step_delta: none): step_delta [D] (updated
+// in place from `delta`, the trial, where accepted), the running cost and
+// λ [1], λ's factors and clamps, the selected cost and λ [1] out (which may
+// be the running ones).
 extern "C" int gf2_window_cost(
     const float* p, const float* q, const float* tic, const float* qic,
     const float* td, const float* rho, const float* ray, const float* vel,
@@ -398,7 +422,9 @@ extern "C" int gf2_window_cost(
     int use_wheel, int use_plane, int use_motion, int use_gnss, double g_norm,
     float plane_w, float motion_w, float posvel_w, float sqrt_info,
     float huber_delta, float min_depth, double* part, unsigned* ticket,
-    float* cost, void* stream) {
+    float* cost, float* step_delta, const float* step_cost,
+    const float* step_lam, float down, float up, float lam_lo, float lam_hi,
+    float* cost_out, float* lam_out, void* stream) {
   const Lay L = make_lay(W, D, fd, pose_off, sb_off, cam_off, wext_off, wint_off,
                          cam2_off, gdt_off, gddt_off, gyaw_off, ganchor_off, S,
                          use_wheel, use_plane, use_motion, use_gnss);
@@ -407,13 +433,15 @@ extern "C" int gf2_window_cost(
          nullptr, nullptr, nullptr, nullptr};
   Rows R{xs, imu, whl, misc, gx, gtab, pbase, pq, sqrtJ, r0, prior_valid,
          g_norm, plane_w, motion_w, posvel_w};
-  return launch<false>(X, R, L, delta, part, ticket, cost,
+  const gf2lm::Step step{step_delta, step_cost, step_lam, down, up,
+                         lam_lo, lam_hi, cost_out, lam_out};
+  return launch<false>(X, R, L, delta, part, ticket, cost, step,
                        (cudaStream_t)stream);
 }
 
 // The same with the second camera's rows: tic2 [3], qic2 [4] (the state's),
 // ray2 [F, W, 2], valid2 [F, W] after the projection's inputs; part holds
-// F more doubles (the features' stereo partials).
+// F more doubles (the features' stereo partials); the same step.
 extern "C" int gf2_window_cost_stereo(
     const float* p, const float* q, const float* tic, const float* qic,
     const float* td, const float* rho, const float* ray, const float* vel,
@@ -428,7 +456,10 @@ extern "C" int gf2_window_cost_stereo(
     int td_off, int rho_off, int S, int use_wheel, int use_plane,
     int use_motion, int use_gnss, double g_norm, float plane_w, float motion_w,
     float posvel_w, float sqrt_info, float huber_delta, float min_depth,
-    double* part, unsigned* ticket, float* cost, void* stream) {
+    double* part, unsigned* ticket, float* cost, float* step_delta,
+    const float* step_cost, const float* step_lam, float down, float up,
+    float lam_lo, float lam_hi, float* cost_out, float* lam_out,
+    void* stream) {
   const Lay L = make_lay(W, D, fd, pose_off, sb_off, cam_off, wext_off, wint_off,
                          cam2_off, gdt_off, gddt_off, gyaw_off, ganchor_off, S,
                          use_wheel, use_plane, use_motion, use_gnss);
@@ -437,6 +468,8 @@ extern "C" int gf2_window_cost_stereo(
          tic2, qic2, ray2, valid2};
   Rows R{xs, imu, whl, misc, gx, gtab, pbase, pq, sqrtJ, r0, prior_valid,
          g_norm, plane_w, motion_w, posvel_w};
-  return launch<true>(X, R, L, delta, part, ticket, cost,
+  const gf2lm::Step step{step_delta, step_cost, step_lam, down, up,
+                         lam_lo, lam_hi, cost_out, lam_out};
+  return launch<true>(X, R, L, delta, part, ticket, cost, step,
                       (cudaStream_t)stream);
 }

@@ -25,7 +25,9 @@ from ..core import lie, robust
 from ..gnss.factors import gnss_residuals
 from ..solver import lm_glue
 from ..solver.gauss_newton import normal_equations
+# imu_sqrt_info_plain: S with SᵀS = cov⁻¹, S = L⁻¹ for cov + 1e-10 I = L Lᵀ
 from ..solver.small_linalg import small_spd_cuda
+from ..solver.small_linalg import sqrt_info_plain as imu_sqrt_info_plain
 from ..sensors.imu_preint import ImuPreint, bias_corrected
 from ..sensors.wheel_preint import WheelPreint, intrinsic_corrected
 from ..vio.state import WindowLayout, WindowState
@@ -211,14 +213,6 @@ def _projection_normal_equations_cuda(x0, delta, feats, layout, sqrt_info,
     _kernels.check(err, name)
     _kernels.count("proj_normal")
     return H, g, cost[0]
-
-
-def imu_sqrt_info_plain(cov: torch.Tensor) -> torch.Tensor:
-    """S with SᵀS = cov⁻¹: S = L⁻¹ for cov + 1e-10 I = L Lᵀ."""
-    n = cov.shape[-1]
-    eye = torch.eye(n, dtype=cov.dtype, device=cov.device)
-    L, _ = torch.linalg.cholesky_ex(cov + eye * 1e-10)
-    return torch.linalg.solve_triangular(L, eye.expand(cov.shape), upper=False)
 
 
 def imu_sqrt_info(cov: torch.Tensor) -> torch.Tensor:
@@ -578,7 +572,7 @@ def window_cost_fn(x0: WindowState, meas, layout: WindowLayout, cfg,
     same delta gives the same bits), :func:`window_cost_plain` on the CPU."""
     if not x0.p.is_cuda:
         return lambda delta: window_cost_plain(x0, delta, meas, layout, cfg)
-    return _window_cost_cuda_fn(x0, meas, layout, cfg, packed)
+    return _window_cost_cuda_fns(x0, meas, layout, cfg, packed)[0]
 
 
 def window_cost_args(x0, meas, layout, cfg, packed=None):
@@ -622,7 +616,28 @@ def window_cost_args(x0, meas, layout, cfg, packed=None):
 _COST_SCRATCH: dict = {}
 
 
-def _window_cost_cuda_fn(x0, meas, layout, cfg, packed=None):
+def window_cost_step_fn(x0: WindowState, meas, layout: WindowLayout, cfg,
+                        packed=None):
+    """``(cost_at, cost_step)`` of the window linearized around ``x0``:
+    ``cost_at`` as :func:`window_cost_fn` makes it, and ``cost_step(delta,
+    trial, cost, lam, down, up, sc) -> (δ, cost, λ)`` the trial's cost
+    followed by one LM iteration's accept / reject (``lm_glue.step``'s
+    arguments, the trial's cost computed here). On the card one launch of
+    kernel S whose last CTA runs kernel AN's step (δ updated in place, the
+    cost and λ into ``sc`` [2], which may hold ``cost`` and ``lam``); on
+    the CPU :func:`window_cost_plain`, then ``lm_glue.step_plain``."""
+    if not x0.p.is_cuda:
+        def cost_step(delta, trial, cost, lam, down, up, sc=None):
+            new_cost = window_cost_plain(x0, trial, meas, layout, cfg)
+            return lm_glue.step_plain(delta, trial, cost, new_cost, lam,
+                                      down, up)
+        return (lambda delta: window_cost_plain(x0, delta, meas, layout,
+                                                cfg), cost_step)
+    return _window_cost_cuda_fns(x0, meas, layout, cfg, packed)
+
+
+def _window_cost_cuda_fns(x0, meas, layout, cfg, packed=None):
+    """Kernel S's ``(cost_at, cost_step)`` closures on the card."""
     dev = x0.p.device
     D = layout.dim
     inputs, ptrs, scalars, n_part = window_cost_args(x0, meas, layout, cfg,
@@ -641,8 +656,10 @@ def _window_cost_cuda_fn(x0, meas, layout, cfg, packed=None):
             torch.zeros((1,), dtype=torch.int32, device=dev))
     part, ticket = _COST_SCRATCH[key]
     scratch = [ctypes.c_void_p(t.data_ptr()) for t in (part, ticket)]
+    P, Fl = ctypes.c_void_p, ctypes.c_float
+    no_step = [P(None)] * 3 + [Fl(0.0)] * 4 + [P(None)] * 2
 
-    def cost_at(delta: torch.Tensor) -> torch.Tensor:
+    def launch(delta: torch.Tensor, step) -> torch.Tensor:
         if tuple(delta.shape) != (D,):
             raise ValueError(f"window_cost kernel: delta must be [{D}]")
         if torch.cuda.current_stream(dev).cuda_stream != stream:
@@ -651,11 +668,31 @@ def _window_cost_cuda_fn(x0, meas, layout, cfg, packed=None):
         d = delta.to(device=dev, dtype=torch.float32).contiguous()
         # a fresh output each call: lm_solve keeps earlier costs as views
         cost = torch.empty((1,), dtype=torch.float32, device=dev)
-        err = entry(*ptrs, ctypes.c_void_p(d.data_ptr()), *scalars, *scratch,
-                    ctypes.c_void_p(cost.data_ptr()), ctypes.c_void_p(stream))
+        err = entry(*ptrs, P(d.data_ptr()), *scalars, *scratch,
+                    P(cost.data_ptr()), *step, P(stream))
         _kernels.check(err, name)
         _kernels.count("window_cost")
-        return cost[0]
+        return cost
 
-    cost_at.inputs = inputs + [part, ticket]   # held alive with the closure
-    return cost_at
+    def cost_at(delta: torch.Tensor) -> torch.Tensor:
+        return launch(delta, no_step)[0]
+
+    def cost_step(delta, trial, cost, lam, down: float, up: float, sc):
+        """The trial's cost, then kernel AN's step in S's last CTA."""
+        for t in (delta, trial, cost, lam, sc):
+            if (t.dtype != torch.float32 or not t.is_contiguous()
+                    or t.device != delta.device):
+                raise ValueError("window_cost kernel's step takes contiguous "
+                                 "float32 tensors on one device")
+        if tuple(delta.shape) != (D,) or sc.numel() != 2:
+            raise ValueError(f"window_cost kernel's step: δ [{D}], sc [2]")
+        launch(trial, [P(delta.data_ptr()), P(cost.data_ptr()),
+                       P(lam.data_ptr()), Fl(down), Fl(up),
+                       Fl(lm_glue.LAMBDA_LO), Fl(lm_glue.LAMBDA_HI),
+                       P(sc[0:1].data_ptr()), P(sc[1:2].data_ptr())])
+        # S's launches whose last CTA ran the step
+        _kernels.count("window_cost_step")
+        return delta, sc[0:1].reshape(()), sc[1:2].reshape(())
+
+    cost_at.inputs = inputs + [part, ticket]   # held alive with the closures
+    return cost_at, cost_step

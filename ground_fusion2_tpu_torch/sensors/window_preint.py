@@ -8,9 +8,13 @@ state propagation through the newest interval, in one launch (port of
 card (on float32 contiguous inputs one CUDA activity a call: the
 wheel-frame gyro, the wheel's end samples, the propagation's inputs and
 ``sum_dt``, in torch's order, are the kernel's; the intervals take the
-camera tick's 128 slots, the propagation alone any count);
+camera tick's 128 slots, the propagation alone any count); asked for the
+square-root informations of both covariances, the same launch computes
+them (kernel Y's register form in H's blocks, ``csrc/spd_warp_reg.cuh``).
 :func:`preintegrate_window_plain`, the sequential loops of
-:mod:`.imu_preint` and :mod:`.wheel_preint`, runs for tensors on the CPU.
+:mod:`.imu_preint` and :mod:`.wheel_preint`, then
+:func:`..solver.small_linalg.sqrt_info_plain` on each covariance, runs for
+tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 
 from .. import _kernels
 from ..core import lie
+from ..solver.small_linalg import sqrt_info_plain
 from .imu_preint import ImuNoise, ImuPreint, preintegrate, propagate_state
 from .wheel_preint import WheelNoise, WheelPreint, preintegrate_wheel
 
@@ -50,19 +55,30 @@ SUM_SLOTS = 128
 
 def preintegrate_window(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
                         imu_noise: ImuNoise, wheel_noise: WheelNoise, qio,
-                        prop: Propagate | None = None, intervals: bool = True):
+                        prop: Propagate | None = None, intervals: bool = True,
+                        sqrt_info: bool = False):
     """Preintegrate the IMU and wheel samples of every interval at biases
     ``ba``, ``bg`` [n, 3] (``intervals``) and propagate ``prop`` through its
     interval. acc, gyr, wvel: [n, M+1, 3]; dt, mask: [n, M] (on the card
     M = ``SUM_SLOTS`` where ``intervals``).
 
-    Returns (ImuPreint | None, WheelPreint | None, (p, q, v) | None)."""
+    Returns (ImuPreint | None, WheelPreint | None, (p, q, v) | None); with
+    ``sqrt_info`` (and ``intervals``) also the square-root informations of
+    the IMU [n, 15, 15] and wheel [n, 6, 6] covariances, L⁻¹ of cov +
+    1e-10 I, as two more items."""
+    if sqrt_info and not intervals:
+        raise ValueError("the square-root informations need the intervals")
     if acc.is_cuda:
         return _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
-                            imu_noise, wheel_noise, qio, prop, intervals)
-    return preintegrate_window_plain(acc, gyr, wvel, dt, mask, ba, bg, six,
-                                     siy, siw, imu_noise, wheel_noise, qio,
-                                     prop, intervals)
+                            imu_noise, wheel_noise, qio, prop, intervals,
+                            sqrt_info)
+    out = preintegrate_window_plain(acc, gyr, wvel, dt, mask, ba, bg, six,
+                                    siy, siw, imu_noise, wheel_noise, qio,
+                                    prop, intervals)
+    if not sqrt_info:
+        return out
+    pre, wpre, _ = out
+    return (*out, sqrt_info_plain(pre.cov), sqrt_info_plain(wpre.cov))
 
 
 def preintegrate_window_plain(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
@@ -86,10 +102,10 @@ def preintegrate_window_plain(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
 
 
 def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
-                 wheel_noise, qio, prop, intervals):
+                 wheel_noise, qio, prop, intervals, sqrt_info=False):
     """One launch; the wrapper only checks, allocates and takes views (the
-    wheel-frame gyro, the wheel's end samples, sum_dt and the propagation's
-    state are the kernel's)."""
+    wheel-frame gyro, the wheel's end samples, sum_dt, the propagation's
+    state and the square-root informations are the kernel's)."""
     dev = acc.device
     n_int, M = dt.shape
     # float32 and contiguous: views of the caller's tensors on the main
@@ -119,6 +135,10 @@ def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
     whl_out = torch.empty((B, 70), dtype=torch.float32, device=dev)
     sum_dt = torch.empty((B,), dtype=torch.float32, device=dev)
     prop_out = torch.empty((10,), dtype=torch.float32, device=dev)
+    sq = sqw = None
+    if sqrt_info:
+        sq = torch.empty((B, 15, 15), dtype=torch.float32, device=dev)
+        sqw = torch.empty((B, 6, 6), dtype=torch.float32, device=dev)
     prop_k = prop.k % n_int if prop is not None else -1
     P = lambda name: ctypes.c_void_p(ins[name].data_ptr() if name in ins
                                      else prop_out.data_ptr())
@@ -134,9 +154,14 @@ def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
         ctypes.c_void_p(whl_out.data_ptr()),
         ctypes.c_void_p(sum_dt.data_ptr()),
         ctypes.c_void_p(prop_out.data_ptr()),
+        ctypes.c_void_p(sq.data_ptr() if sqrt_info else None),
+        ctypes.c_void_p(sqw.data_ptr() if sqrt_info else None),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _kernels.check(err, "gf2_preint")
     _kernels.count("preint")
+    if sqrt_info:
+        # H's launches that ran kernel Y's factor in their blocks
+        _kernels.count("preint_sqrt_info")
 
     pre = wpre = pvq = None
     if intervals:
@@ -156,4 +181,6 @@ def _preint_cuda(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
             gyr_end=whl_out[:, 67:70])
     if prop is not None:
         pvq = (prop_out[0:3], prop_out[3:7], prop_out[7:10])
+    if sqrt_info:
+        return pre, wpre, pvq, sq, sqw
     return pre, wpre, pvq

@@ -9,7 +9,9 @@ the pose graph takes kernel O; :func:`normal_equations` is their plain
 version — plus ``cost_at(delta)``. Everything stays on the device: kernel W
 writes the trial step δ + dx, and the accept/reject of each step is kernel
 AN's step mode (``solver/lm_glue.py``; a ``torch.where`` chain on the CPU),
-so the loop has a fixed trip count and no host synchronization.
+or, where the caller passes ``cost_step``, the same step run by the launch
+that costs the trial (the window's solve: kernel S's last CTA), so the loop
+has a fixed trip count and no host synchronization.
 """
 
 from __future__ import annotations
@@ -120,12 +122,17 @@ def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
              max_iters: int = 8, free_mask: torch.Tensor | None = None,
              init_lambda: float = 1e-4, lambda_up: float = 10.0,
              lambda_down: float = 0.3, device=None,
-             dtype=torch.float32, start=None) -> LMResult:
+             dtype=torch.float32, start=None,
+             cost_step: Callable | None = None) -> LMResult:
     """LM from delta = 0: ``max_iters`` linearizations, each step accepted
     by true-cost comparison (rejected steps raise lambda). ``start``: kernel
     AN's packed buffers (``lm_glue.Packed``: δ = 0, the trial step, the
     cost and λ at ``init_lambda``), or None to allocate them here. On the
-    card δ, the cost and λ are updated in place by AN's step mode."""
+    card δ, the cost and λ are updated in place by AN's step mode.
+    ``cost_step(delta, trial, cost, lam, down, up, sc) -> (δ, cost, λ)``,
+    where given, costs the trial and steps in one call (``lm_glue.step``'s
+    contract) in place of ``cost_at`` then AN's step; ``cost_at`` still
+    gives the first cost."""
     cuda = torch.device(device).type == "cuda" if device is not None else False
     if start is not None:
         delta, trial, sc, lam = start.delta, start.trial, start.sc, start.lam
@@ -144,6 +151,10 @@ def lm_solve(linearize: Callable, cost_at: Callable, dim: int,
         H, g, _ = linearize(delta)
         new_delta = _solve_damped(H, g, lam, free_mask, base=delta,
                                   trial=trial)
+        if cost_step is not None:
+            delta, cost, lam = cost_step(delta, new_delta, cost, lam,
+                                         lambda_down, lambda_up, sc)
+            continue
         new_cost = cost_at(new_delta)
         delta, cost, lam = lm_glue.step(delta, new_delta, cost, new_cost, lam,
                                         lambda_down, lambda_up, sc)

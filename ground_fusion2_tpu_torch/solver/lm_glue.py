@@ -441,6 +441,7 @@ def step(delta, trial, cost, new_cost, lam, down: float, up: float, sc=None):
         _ptr(sc[1:2]), _stream(delta))
     _kernels.check(err, "gf2_lm_step")
     _kernels.count("lm_glue")
+    _kernels.count("lm_step")   # the step mode's own launches
     return delta, sc[0:1].reshape(()), sc[1:2].reshape(())
 
 

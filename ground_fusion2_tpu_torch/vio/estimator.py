@@ -18,7 +18,6 @@ import torch
 
 from ..config import EstimatorConfig
 from ..core import lie
-from ..factors.vio_factors import imu_sqrt_info
 from ..gnss.factors import (MAX_SATS, GnssQualityFilter, GnssTable,
                             prepare_frame_obs)
 from ..core.device import resolve
@@ -102,15 +101,16 @@ class IntervalBuffers:
 def preintegrate_all(acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw,
                      imu_noise: ImuNoise, wheel_noise: WheelNoise, qio,
                      prop: Propagate | None = None):
-    """Re-preintegrate every window interval at the current biases (kernel
-    H on the card), with the square-root informations of both covariances;
-    ``prop`` also propagates a state through its interval in the same
-    launch. Returns (pre, wpre, imu_sqrt_info, wheel_sqrt_info, (p, q, v) or
+    """Re-preintegrate every window interval at the current biases, with
+    the square-root informations of both covariances (kernel H, running
+    kernel Y's factor in its blocks, on the card: one launch); ``prop``
+    also propagates a state through its interval in the same launch.
+    Returns (pre, wpre, imu_sqrt_info, wheel_sqrt_info, (p, q, v) or
     None)."""
-    pre, wpre, pvq = preintegrate_window(acc, gyr, wvel, dt, mask, ba, bg,
-                                         six, siy, siw, imu_noise,
-                                         wheel_noise, qio, prop=prop)
-    return pre, wpre, imu_sqrt_info(pre.cov), imu_sqrt_info(wpre.cov), pvq
+    pre, wpre, pvq, sinfo, wsinfo = preintegrate_window(
+        acc, gyr, wvel, dt, mask, ba, bg, six, siy, siw, imu_noise,
+        wheel_noise, qio, prop=prop, sqrt_info=True)
+    return pre, wpre, sinfo, wsinfo, pvq
 
 
 class VioEstimator:

@@ -7,10 +7,10 @@ the second camera's stereo rows where ``use_stereo`` is set), from kernel C
 of the few hundred rows of the other factors (IMU, wheel, plane, GNSS,
 motion, pos-vel, prior), from kernels L and P
 (``factors.vio_factors.small_normal_fn``, packed once a solve). The LM's trial costs are
-kernel S (``factors.vio_factors.window_cost_fn``). Kernel AN
+kernel S (``factors.vio_factors.window_cost_step_fn``), whose last CTA also
+takes each iteration's accept / reject (kernel AN's step). Kernel AN
 (``solver/lm_glue.py``) packs L's and S's inputs and the free mask once a
-solve, takes each iteration's accept / reject and retracts the solved
-step; L's reduce adds C's block.
+solve and retracts the solved step; L's reduce adds C's block.
 
 On a full window the fused tick launches both marginalizations with the
 slide's ``branch`` (``(is_kf, want)``, ``solver/lm_glue.py``): each kernel
@@ -119,16 +119,19 @@ def solve_window(x0: WindowState, meas: VioMeasurements, layout: WindowLayout,
     """One full window optimization (the per-frame solve). Kernel AN packs
     the solve (the free mask with its gauge: where neither the prior nor
     active GNSS anchors the window, frame 0's pose is pinned, since GNSS
-    observes absolute position and yaw), steps each iteration and retracts
-    the result."""
+    observes absolute position and yaw) and retracts the result; each
+    iteration's trial cost and step are one launch of kernel S, whose last
+    CTA runs AN's step (``window_cost_plain`` then ``lm_glue.step_plain``
+    on the CPU)."""
     dev, dtype = x0.p.device, x0.p.dtype
     pk = lm_glue.pack(x0, meas, layout, cfg, flags=_fixed_flags(
         cfg, fix_yaw=not cfg.refine_gnss_yaw,
         fix_anchor=not cfg.refine_gnss_alignment))
+    cost_at, cost_step = fac.window_cost_step_fn(x0, meas, layout, cfg, pk)
     out = lm_solve(
-        window_normal_fn(x0, meas, layout, cfg, pk),
-        fac.window_cost_fn(x0, meas, layout, cfg, pk), layout.dim,
-        cfg.max_iters, free_mask=pk.free, device=dev, dtype=dtype, start=pk)
+        window_normal_fn(x0, meas, layout, cfg, pk), cost_at, layout.dim,
+        cfg.max_iters, free_mask=pk.free, device=dev, dtype=dtype, start=pk,
+        cost_step=cost_step)
     return SolveResult(lm_glue.retract(layout, x0, out.delta), out.cost,
                        out.cost0, out.H, out.g)
 

@@ -40,7 +40,13 @@ whole calibration on the card meeting the truth gates; AQ (JAX's threefry
 draws) bit for bit its plain route and jax 0.9.0's answers, one launch a
 draw; C and S's stereo family on the stereo window and its solve; the
 camera tick's folded conversions (AO's unpack, U's flags, H's sum_dt in
-torch's order, Y reading H's covariances in place).
+torch's order, Y reading H's covariances in place); Y's square-root
+informations folded into H's blocks (H then Y's bits, on a window with no
+valid sample in an interval and on a covariance that is not positive
+definite), Y's register form at n = 15 and 6 (and its inverse mode, AM's)
+against the plain route and float64, and AN's step folded into S's last
+CTA (S then AN's bits, mono and stereo, through an accept, a reject, a
+tie, a NaN cost and λ at each clamp).
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -850,13 +856,9 @@ def test_pg_normal_kernel_matches_plain(dev, six, n, cap):
 
 def _lm_deltas(dev, x0, meas, layout, vcfg):
     """delta = 0, the damped LM step from there and its reverse."""
-    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
-    from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
-    zero = torch.zeros(layout.dim, device=dev)
-    H, g, _ = window_normal_equations(x0, meas, layout, vcfg, zero)
-    step = _solve_damped(H, g, torch.full((), 1e-4, device=dev),
-                         torch.ones(layout.dim, device=dev))
-    return dict(zero=zero, accepted=step, rejected=-step)
+    step = checks.lm_trial(x0, meas, layout, vcfg)
+    return dict(zero=torch.zeros(layout.dim, device=dev), accepted=step,
+                rejected=-step)
 
 
 @pytest.mark.parametrize("rows", ["camera", "gnss"])
@@ -1003,9 +1005,10 @@ def test_window_update_kernel_matches_plain(dev, camera):
 
 
 def test_camera_tick_launches_s_to_v(dev, camera):
-    """One more fused tick launches S once a trial cost (1 + 8), T, U
-    twice (before and after the solve) and V (add_frame, and a slide when
-    the window is full), and no plain cost."""
+    """One more fused tick launches S once a trial cost (1 + 8, the 8 with
+    AN's step in their last CTA), T, U twice (before and after the solve)
+    and V (add_frame, and a slide when the window is full), and no plain
+    cost and no standalone step."""
     cfg, fv, fs, _ = camera
     f = fs[-1]
     _kernels.launches.clear()
@@ -1013,6 +1016,9 @@ def test_camera_tick_launches_s_to_v(dev, camera):
                      wheel_vel=f["wheel"])
     n = dict(_kernels.launches)
     assert n["window_cost"] == 1 + cfg.estimator.vio.max_iters, n
+    # each trial cost's S runs AN's step in its last CTA
+    assert n["window_cost_step"] == cfg.estimator.vio.max_iters, n
+    assert n.get("lm_step", 0) == 0, n
     assert n["triangulate"] == 1 and n["window_tests"] == 2, n
     assert n["window_update"] in (1, 2), n
 
@@ -1039,8 +1045,9 @@ def test_kernels_count_their_launches(dev, frames, lio):
 
 
 def test_camera_tick_launches_h_to_k(dev, camera):
-    """One fused camera tick: kernel H once, I four times (three levels and
-    the response), J and K once."""
+    """One fused camera tick: kernel H once (its blocks running Y's
+    square-root informations; Y's standalone entry never), I four times
+    (three levels and the response), J and K once."""
     cfg, fv, fs, _ = camera
     f = fs[-1]
     _kernels.launches.clear()
@@ -1049,6 +1056,7 @@ def test_camera_tick_launches_h_to_k(dev, camera):
     n = dict(_kernels.launches)
     assert (n["preint"], n["pyramid"], n["shi_tomasi"], n["detect_grid"],
             n["ransac_f"]) == (1, 3, 1, 1, 1), n
+    assert n["preint_sqrt_info"] == 1 and n.get("sqrt_info", 0) == 0, n
     # kernel L beside kernel C at every linearization of the window
     assert n["small_normal"] == n["proj_normal"] >= 9, n
 
@@ -1751,8 +1759,9 @@ def test_marg_schur_kernel_matches_plain(dev, camera):
 def test_glue_kernels_launch_a_tick(dev, camera):
     """A fused tick with the window full: AH twice (lift, tail), AI twice
     (write, slide), AJ ten times (both marginalizations, each on its
-    branch), AN once a solve's pack, step (8) and retraction and once
-    each MARGIN_OLD's pack and MARGIN_SECOND_NEW's weigh, AO four times
+    branch), AN once a solve's pack and retraction (its 8 steps run in
+    S's last CTA) and once each MARGIN_OLD's pack and MARGIN_SECOND_NEW's
+    weigh, AO four times
     (the upload's conversions, the tracked mask with RANSAC's noise, pre,
     post), AQ once (the frame's draw and next index, RANSAC on or off)."""
     import copy
@@ -1766,10 +1775,9 @@ def test_glue_kernels_launch_a_tick(dev, camera):
                                               "marg_schur", "lm_glue",
                                               "tick_glue", "threefry")}
     full = fv.frame_count >= checks.NUM_FRAMES
-    iters = cfg.estimator.vio.max_iters
     assert got == dict(track_tail=2, window_carry=2,
                        marg_schur=10 if full else 0,
-                       lm_glue=iters + 2 + (2 if full else 0),
+                       lm_glue=2 + (2 if full else 0),
                        tick_glue=4, threefry=1), got
 
 
@@ -1804,15 +1812,18 @@ def test_device_slide_equals_the_host_slide_and_skips_off_branch(dev, camera):
 
 
 def test_solve_window_launches_at_most_90_activities(dev, camera):
-    """The window solve: C (2) and L (2) with the prior's two products a
-    linearization (9), W and S an iteration (8) and S's first cost, AN's
-    pack, 8 steps and the retraction: 81 CUDA activities, ≤ 90."""
+    """The window solve: the linearizations (9), W and S an iteration (8,
+    S's last CTA taking AN's step), S's first cost, AN's pack and the
+    retraction make 82 CUDA activities on an H100; ≤ 84, so that AN's
+    eight steps split out again under any kernel name fail, and none of
+    them is AN's standalone step."""
     from ground_fusion2_tpu_torch.vio import problem
     _, fv, _, _ = camera
     meas = checks.carry_measurements(fv)
     t = checks.device_ms(lambda: problem.solve_window(
         fv.carry.state, meas, fv.layout, fv.cfg.vio), reps=3)
-    assert t.launches <= 90, (t.launches, sorted(t.kernels))
+    assert t.launches <= 84, (t.launches, sorted(t.kernels))
+    assert not any("lm_step_kernel" in k for k in t.kernels), t.kernels
 
 
 def test_ct_glue_kernel_matches_plain(dev, lio):
@@ -2023,14 +2034,9 @@ def test_stereo_rows_in_kernel_c_match_plain(dev, stereo):
 
 
 def test_stereo_rows_in_kernel_s_match_plain(dev, stereo):
-    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
-    from ground_fusion2_tpu_torch.vio import problem
     sw, cfg = stereo
     zero = torch.zeros(sw["layout"].dim, device=dev)
-    H, g, _ = problem.window_normal_equations(sw["x0"], sw["meas"],
-                                              sw["layout"], cfg, zero)
-    step = _solve_damped(H, g, torch.full((), 1e-4, device=dev),
-                         torch.ones(sw["layout"].dim, device=dev))
+    step = checks.lm_trial(sw["x0"], sw["meas"], sw["layout"], cfg)
     r = checks.check_window_cost(dev, sw["x0"], sw["meas"], sw["layout"], cfg,
                                  dict(zero=zero, step=step, back=-step),
                                  timed=False)
@@ -2089,3 +2095,71 @@ def test_folded_conversions_equal_torchs(dev, camera):
         cfg.estimator.wheel_noise, NUM_FRAMES - 1), timed=False)
     assert p["ok"] and p["glue_equal"]["sum_dt"], p
     assert p["glue_equal"]["sqrt_info in place"], p
+
+
+@pytest.mark.parametrize("case", ["the final window",
+                                  "an interval with no valid sample",
+                                  "a covariance not positive definite"])
+def test_preint_sqrt_fold_equals_h_then_y(dev, camera, case):
+    """Kernel H with Y's square-root informations in its blocks is bit for
+    bit H, then Y's standalone entry on both covariances: on phase 4's
+    window, with an interval of no valid sample, and where the IMU
+    covariance is not positive definite (Y's pivot rule)."""
+    _, fv, _, _ = camera
+    r = checks.check_sqrt_fold(checks.sqrt_fold_cases(dev, fv)[case])
+    assert all(r["equal"].values()), r
+    if case == "a covariance not positive definite":
+        assert r["not_pd"] > 0, r
+
+
+@pytest.mark.parametrize("n", [15, 6, "inverse 6"])
+def test_sqrt_info_register_form_matches_plain(dev, n):
+    """Y's entry 1 in its register form (n = 15 and 6) against the plain
+    route and float64 at checks.py's tolerance, on kernel H's covariances
+    of seeded intervals, and its inverse mode (kernel AM's) on their 6×6
+    wheel covariances."""
+    from ground_fusion2_tpu_torch.sensors import window_preint as wp
+    x = checks.preint_case(dev)
+    pre, wpre, _ = wp.preintegrate_window(*x["args"], prop=x["prop"])
+    if n == "inverse 6":
+        r = checks._check_spd_inverse(dev, wpre.cov, timed=False)
+    else:
+        cov = {15: pre.cov, 6: wpre.cov}[n]
+        r = checks._check_sqrt_info(dev, {f"n = {n}": cov}, timed=False)
+    assert r["ok"], r
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+def test_sqrt_info_refuses_other_sizes(dev, inverse):
+    """Y's entry 1 takes n = 15 and 6 only: at n = 9 the wrapper raises and
+    the C entry returns cudaErrorInvalidValue without a launch."""
+    import ctypes
+    from ground_fusion2_tpu_torch.solver.small_linalg import small_spd_cuda
+    A = torch.eye(9, device=dev).expand(2, 9, 9).contiguous()
+    _kernels.launches.clear()
+    with pytest.raises(ValueError, match="n = 15 or 6"):
+        small_spd_cuda(A, inverse=inverse)
+    out = torch.empty_like(A)
+    err = _kernels.library().gf2_sqrt_info(
+        ctypes.c_void_p(A.data_ptr()), 2, 9, 81, int(inverse),
+        ctypes.c_void_p(out.data_ptr()),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    assert err == 1, err                    # cudaErrorInvalidValue
+    assert not _kernels.launches, dict(_kernels.launches)
+
+
+@pytest.mark.parametrize("rows", ["mono", "stereo"])
+def test_window_cost_step_equals_s_then_an(dev, window, stereo, rows):
+    """Kernel S with AN's step in its last CTA is bit for bit S, then AN's
+    standalone step (δ, the cost and λ), mono and stereo, through
+    ``checks.FOLD_STEPS``: an accept, a reject, a tie, a NaN cost and λ at
+    each clamp, each taken or refused as designed."""
+    if rows == "mono":
+        x0, _, layout, _, meas, vcfg = window
+    else:
+        sw, vcfg = stereo
+        x0, meas, layout = sw["x0"], sw["meas"], sw["layout"]
+    r = checks.check_step_fold(x0, meas, layout, vcfg)
+    for name, (_, _, ratio) in checks.FOLD_STEPS.items():
+        assert all(r[name]["equal"].values()), (name, r[name])
+        assert r[name]["accepted"] == (ratio is not None and ratio > 1.0), r

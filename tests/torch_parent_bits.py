@@ -1,22 +1,25 @@
-"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack), AC, AK and U
-of this tree against the parent commit's build, on the card.
+"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack), AC, AK, U and
+AM of this tree against the parent commit's build, on the card.
 
     mkdir -p build/parent
-    git archive <parent> ground_fusion2_tpu_torch/csrc \
-        ground_fusion2_tpu_torch/_kernels.py | tar -x -C build/parent
+    git archive <parent> ground_fusion2_tpu_torch | tar -x -C build/parent
     PYTHONPATH=. python tests/torch_parent_bits.py build/parent
 
 Builds the parent's ``csrc/preint.cu``, ``klt.cu``, ``lio_assoc.cu``,
 ``ct_icp_normal.cu``, ``eskf_predict.cu``, ``small_linalg.cu``,
 ``window_cost.cu``, ``ransac_f.cu``, ``small_normal.cu``,
-``proj_normal.cu``, ``mesh_delaunay.cu``, ``ct_glue.cu`` and
-``window_tests.cu`` (with the headers beside them) into
-``build/parent_bits/`` and binds each entry point with the argument list
-of the parent's own ``_kernels.py`` (:class:`ParentLib`): where it is
-this tree's, this tree's wrapper calls it; where this tree only added the
-slide's branch (and L's reduce kernel C's added block), or E's step
-(``pose0, done, the thresholds, mid, pose_out, regathered_out``), a shim
-drops them (null in every call here); where U took a 2F-float scratch
+``proj_normal.cu``, ``mesh_delaunay.cu``, ``ct_glue.cu``,
+``window_tests.cu``, ``lm_glue.cu`` and ``lio_update.cu`` (with the
+headers beside them) into ``build/parent_bits/`` and binds each entry
+point with the argument list of the parent's own ``_kernels.py``
+(:class:`ParentLib`): where it is this tree's, this tree's wrapper calls
+it; where this tree only added the slide's branch (and L's reduce kernel
+C's added block), or E's step (``pose0, done, the thresholds, mid,
+pose_out, regathered_out``), a shim drops them (null in every call here);
+where this tree's H takes the square-root informations' outputs, the
+parent's H runs, then the parent's Y on its covariances in place; where
+this tree's S takes AN's step, the parent's S runs, then the parent's AN
+step on its cost; where U took a 2F-float scratch
 that this tree keeps in shared memory, a shim hands it one; where this
 tree's H writes sum_dt where the parent's wrote its dt·mask rows, a shim
 gives the parent's H a buffer for the rows and writes their torch sum
@@ -24,11 +27,21 @@ into sum_dt, as the parent's wrapper summed them; H's and B's
 interfaces of commit 4141781 go through ``parent_preint`` and
 ``parent_klt``. Compares, each output with ``torch.equal``:
 
-* kernel H (every ``ImuPreint``, ``WheelPreint`` and (p, q, v) output)
-  on the inputs of every fused tick of ``chip_smoke.py``'s phase 4 drive
-  (recorded as ``preintegrate_all`` takes them: ticks after a keyframe
-  slide, after a non-keyframe merge and while the window fills), and on
-  each of them the propagation alone (``intervals=False``);
+* kernel H (every ``ImuPreint``, ``WheelPreint`` and (p, q, v) output,
+  and the two square-root informations) on the inputs of every
+  preintegration of ``chip_smoke.py``'s phase 4 drive and phase 8's system
+  drive (recorded as ``preintegrate_all`` takes them: ticks after a
+  keyframe slide, after a non-keyframe merge and while the window fills),
+  against the parent's H then Y, and on each of them the propagation alone
+  (``intervals=False``);
+* kernel S with AN's step in its last CTA (δ, the cost and λ after the
+  step, and S's cost at the trial) on every LM iteration of phases 4, 8,
+  10 (the GNSS drive) and 19 (the stereo window's solve), compared as the
+  solve makes each call, against the parent's S then the parent's AN step
+  on copies of the same δ, cost and λ;
+* kernel AM (every output: the filter, the switch, the record) on every
+  LiDAR tick of phases 5 and 8, against the parent's AM on the same
+  inputs;
 * kernel B (points and flags) on every tracker call of the same drive
   (the track pairs of phase 4's 32 frames), on phase 3's frames 12 → 13
   (``checks.klt_inputs``) and on the line path's call (frames 0 → 1:
@@ -98,7 +111,8 @@ from ground_fusion2_tpu_torch.mesh import incremental as mi  # noqa: E402
 OUT = ROOT / "build" / "parent_bits"
 SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "eskf_predict",
            "small_linalg", "window_cost", "ransac_f", "small_normal",
-           "proj_normal", "mesh_delaunay", "ct_glue", "window_tests")
+           "proj_normal", "mesh_delaunay", "ct_glue", "window_tests",
+           "lm_glue", "lio_update")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # commit 0307a71's kernels D (one search a call) and E (one CTA)
 PARENT_ASSOC = [P] * 5 + [I] * 2 + [F] + [I] * 3 + [P] * 5
@@ -108,9 +122,13 @@ ENTRY_POINTS = ("gf2_preint", "gf2_klt_track", "gf2_lio_assoc",
                 "gf2_icp_solve", "gf2_window_cost", "gf2_ransac_f",
                 "gf2_small_rows", "gf2_small_reduce", "gf2_proj_normal",
                 "gf2_mesh_delaunay", "gf2_ct_points", "gf2_ct_weights",
-                "gf2_ct_step", "gf2_window_tests")
+                "gf2_ct_step", "gf2_window_tests", "gf2_sqrt_info",
+                "gf2_window_cost_stereo", "gf2_lm_step", "gf2_lio_update_size",
+                "gf2_lio_update")
 # E's step arguments this tree added before the stream
 E_STEP = [P] * 5 + [F] * 3 + [I] + [P] * 2
+# S's LM step arguments this tree added before the stream (_kernels._LM_STEP)
+S_STEP = [P] * 3 + [F] * 4 + [P] * 2
 HYPOTHESES, SEED = 64, 12          # checks.check_ransac's draw
 LIO_SCANS = (7, 20, 59)            # the map early, filling, full
 
@@ -134,7 +152,12 @@ class ParentLib:
     list is this tree's), "branch added" (this tree appended the slide's
     ``branch, want`` before the stream: dropped, the branch must be null),
     "step added" (E's E_STEP arguments before the stream: dropped,
-    pose_out must be null), "scratch removed" (U's 2F-float scratch before
+    pose_out must be null), "square roots added" (H's sqrt_imu, sqrt_whl
+    before the stream: the parent's H, then the parent's Y on H's
+    covariances in place, as the parent's ``preintegrate_all`` ran them),
+    "LM step added" (S's S_STEP arguments before the stream: the parent's
+    S, then the parent's AN step on its cost, as the parent's ``lm_solve``
+    ran them), "scratch removed" (U's 2F-float scratch before
     its outputs: :func:`window_tests_with_scratch`),
     "branch and block added" (L's reduce: also kernel C's ``addH, addg,
     addc`` before its outputs, which must be null), "rows summed here" (an
@@ -142,17 +165,26 @@ class ParentLib:
     ``_sum_rows``) or "parent's own" (H's and B's of commit 4141781:
     ``parent_preint``, ``parent_klt``)."""
 
-    def __init__(self, lib, parent_sigs: dict, preint_rows: bool):
+    def __init__(self, lib, parent_sigs: dict, preint_rows: bool,
+                 entry_points=ENTRY_POINTS):
         self._lib = lib
         self.interface = {}
         own = _kernels._SIGNATURES
-        for fn in ENTRY_POINTS:
+        for fn in entry_points:
             theirs, ours = parent_sigs[fn], own[fn]
             entry = getattr(lib, fn)
             entry.argtypes, entry.restype = theirs, I
             if fn == "gf2_preint" and theirs == ours and preint_rows:
                 self.interface[fn] = "rows summed here"
                 setattr(self, fn, self._sum_rows(entry))
+            elif fn == "gf2_preint" and ours == theirs[:-1] + [P, P, P]:
+                self.interface[fn] = "square roots added"
+                setattr(self, fn, self._sqrt_after(entry))
+            elif (fn.startswith("gf2_window_cost")
+                  and ours == theirs[:-1] + S_STEP + [P]):
+                self.interface[fn] = "LM step added"
+                setattr(self, fn, self._step_after(
+                    entry, 23 if fn == "gf2_window_cost" else 27))
             elif theirs == ours:
                 self.interface[fn] = "same"
             elif ours == theirs[:-1] + [P, I, P]:
@@ -177,7 +209,7 @@ class ParentLib:
                                    "tree's arguments nor a known older list")
         # B's flat pyramids of 4141781 take the same argument types as this
         # tree's per-level pointers; they went with H's old interface
-        if self.interface["gf2_preint"] == "parent's own":
+        if self.interface.get("gf2_preint") == "parent's own":
             self.interface["gf2_klt_track"] = "parent's own"
 
     def __getattr__(self, name):
@@ -199,6 +231,39 @@ class ParentLib:
             if not _null(step[-2]):
                 raise ValueError("the parent's kernel E takes no step")
             return entry(*head, stream)
+        return call
+
+    def _sqrt_after(self, entry):
+        """The parent's H, then (where this tree's call asks for them) the
+        parent's Y on H's IMU and wheel covariances read in place at their
+        batch strides (460 and 70 floats, from offsets 10 and 7)."""
+        def call(*args):
+            *head, sq, sqw, stream = args
+            err = entry(*head, stream)
+            B = args[11]
+            if err or not B or (_null(sq) and _null(sqw)):
+                return err
+            imu_out, whl_out = head[-4], head[-3]
+            y = self._lib.gf2_sqrt_info
+            err = y(P(imu_out.value + 4 * 10), B, 15, 460, 0, sq, stream)
+            return err or y(P(whl_out.value + 4 * 7), B, 6, 70, 0, sqw,
+                            stream)
+        return call
+
+    def _step_after(self, entry, n_ptr: int):
+        """The parent's S, then (where this tree's call asks for the step)
+        the parent's AN step on S's cost: its δ, running cost and λ, the
+        trial (S's δ argument, pointer ``n_ptr - 1``), D (int ``n_ptr +
+        2``)."""
+        def call(*args):
+            head, step, stream = args[:-10], args[-10:-1], args[-1]
+            err = entry(*head, stream)
+            if err or _null(step[0]):
+                return err
+            sd, sc, sl, down, up, lo, hi, c_out, l_out = step
+            return self._lib.gf2_lm_step(sd, args[n_ptr - 1], sc, head[-1], sl,
+                                         args[n_ptr + 2], down, up, lo, hi,
+                                         c_out, l_out, stream)
         return call
 
     @staticmethod
@@ -238,19 +303,21 @@ def parent_signatures(parent: Path) -> dict:
     return mod._SIGNATURES
 
 
-def build_parent(parent: Path) -> ParentLib:
+def build_parent(parent: Path, sources=SOURCES,
+                 entry_points=ENTRY_POINTS) -> ParentLib:
     """The parent's sources, one nvcc each (in parallel), linked into one
     library with the port's flags and bound with the parent's argument
-    lists."""
+    lists (``sources`` and ``entry_points``: a part of them, for a tool
+    that needs no more)."""
     csrc = parent / "ground_fusion2_tpu_torch" / "csrc"
     sigs = parent_signatures(parent)
     OUT.mkdir(parents=True, exist_ok=True)
     nvcc = _kernels._nvcc()
-    objs = [OUT / f"{name}.o" for name in SOURCES]
+    objs = [OUT / f"{name}.o" for name in sources]
     procs = [subprocess.Popen(
         [nvcc, *_kernels.COMPILE_FLAGS, "-c", "-o", str(o),
          str(csrc / f"{name}.cu")], stderr=subprocess.PIPE, text=True)
-        for name, o in zip(SOURCES, objs)]
+        for name, o in zip(sources, objs)]
     for p in procs:
         _, err = p.communicate()
         if p.returncode:
@@ -260,7 +327,7 @@ def build_parent(parent: Path) -> ParentLib:
                     *map(str, objs)], check=True)
     # every H before its sum_dt moved into the kernel writes the rows
     rows = "sum_out" not in (csrc / "preint.cu").read_text()
-    lib = ParentLib(ctypes.CDLL(str(lib_path)), sigs, rows)
+    lib = ParentLib(ctypes.CDLL(str(lib_path)), sigs, rows, entry_points)
     print(json.dumps(dict(parent=str(parent), interface=lib.interface)),
           flush=True)
     return lib
@@ -603,15 +670,18 @@ PREINT_NAMES = (
                           "bg")]
     + [f"wheel {f}" for f in ("dp", "dq", "cov", "jac_ix", "sum_dt", "sx",
                               "sy", "sw", "vel_begin", "gyr_begin",
-                              "vel_end", "gyr_end")] + ["p", "q", "v"])
+                              "vel_end", "gyr_end")] + ["p", "q", "v"]
+    + ["imu sqrt_info (Y)", "wheel sqrt_info (Y)"])
 
 
 def _preint_outputs(res) -> list:
-    pre, wpre, pvq = res
+    """H's outputs as a list; with the square-root informations (a call
+    with ``sqrt_info``) those two after them."""
+    pre, wpre, pvq = res[:3]
     out = []
     for part, n in ((pre, 8), (wpre, 12), (pvq, 3)):
         out += list(part) if part is not None else [torch.zeros(0)] * n
-    return out
+    return out + list(res[3:])
 
 
 def _clone(x):
@@ -620,6 +690,14 @@ def _clone(x):
     if isinstance(x, tuple) and hasattr(x, "_fields"):
         return type(x)(*[_clone(v) for v in x])
     return x
+
+
+def wp_call(args, kw, lib=None):
+    """``preintegrate_window`` on a recorded call, on this tree's library
+    or (``lib``) the parent's."""
+    from ground_fusion2_tpu_torch.sensors import window_preint as wp
+    with (library(lib) if lib is not None else contextlib.nullcontext()):
+        return wp.preintegrate_window(*args, **kw)
 
 
 def record_drive(lib, dev):
@@ -688,12 +766,17 @@ def record_drive(lib, dev):
     return rec
 
 
-def compare_preint(lib, calls) -> bool:
+def compare_preint(lib, calls, phase: str = "phase 4") -> bool:
+    """H (and, where the call asks, Y's square-root informations in its
+    blocks) on each recorded call against the parent's H (then the parent's
+    Y on its covariances), and the propagation alone."""
     from ground_fusion2_tpu_torch.sensors import window_preint as wp
     ok = True
     for frame, prev_kf, args, kw in calls:
         for intervals in (True, False):
             k = dict(kw, intervals=intervals)
+            if not intervals:
+                k.pop("sqrt_info", None)
             new = _preint_outputs(wp.preintegrate_window(*args, **k))
             if lib.interface["gf2_preint"] == "parent's own":
                 old = _preint_outputs(parent_preint(lib, *args, **k))
@@ -705,11 +788,115 @@ def compare_preint(lib, calls) -> bool:
             after = ("the window filling" if prev_kf is None else
                      "a keyframe slide" if prev_kf else "a non-keyframe merge")
             print(json.dumps(dict(
-                kernel="preint", frame=frame, after=after,
+                kernel="preint", phase=phase, frame=frame, after=after,
                 call="intervals and propagation" if intervals
                 else "propagation alone",
                 valid=int(args[4].sum()), equal=same)), flush=True)
     return ok
+
+
+@contextlib.contextmanager
+def step_fold_watch(lib, out: list):
+    """Every cost-and-step evaluation made inside
+    (``fac.window_cost_step_fn``: kernel S with AN's step in its last CTA)
+    also run, right after it as the solve makes it, by the parent's S then
+    the parent's AN step on copies of its δ, cost and λ; both results kept
+    in ``out`` (this tree's copied), and S's cost at the trial by both
+    libraries, to compare after the drive (no host read inside a tick)."""
+    real = fac.window_cost_step_fn
+
+    def factory(x0, meas, layout, cfg, packed=None):
+        cost_at, step = real(x0, meas, layout, cfg, packed)
+        with library(lib):
+            cost_old, step_old = real(x0, meas, layout, cfg, packed)
+
+        def watched(delta, trial, cost, lam, down, up, sc):
+            d0, c0, l0 = delta.clone(), cost.clone(), lam.clone()
+            tc = (cost_at(trial).clone(), cost_old(trial))
+            new = step(delta, trial, cost, lam, down, up, sc)
+            old = step_old(d0, trial, c0, l0, down, up, torch.empty_like(sc))
+            out.append((tuple(t.clone() for t in new), old, tc))
+            return new
+        return cost_at, watched
+    fac.window_cost_step_fn = factory
+    try:
+        yield
+    finally:
+        fac.window_cost_step_fn = real
+
+
+def step_fold_results(pairs) -> list:
+    names = ("δ", "cost", "λ")
+    res = []
+    for new, old, (tn, to) in pairs:
+        r = equal(new, old, names)
+        r["S's cost at the trial"] = bool(torch.equal(tn, to)) or bool(
+            torch.isnan(tn).all() and torch.isnan(to).all())
+        res.append(r)
+    return res
+
+
+@contextlib.contextmanager
+def am_watch(lib, out: list):
+    """Every call of kernel AM made inside (``lio/fused.py:lio_update``)
+    also run by the parent's AM on the same inputs; both results kept."""
+    from ground_fusion2_tpu_torch.lio import fused as lfu
+    real = lfu.lio_update
+
+    def watched(*a):
+        new = real(*a)
+        with library(lib):
+            old = real(*a)
+        out.append((_flat(new), _flat(old)))
+        return new
+    lfu.lio_update = watched
+    try:
+        yield
+    finally:
+        lfu.lio_update = real
+
+
+def _flat(res) -> list:
+    state, sw, head = res
+    return [t.clone() for t in (*state, *sw, head)]
+
+
+def am_results(pairs) -> list:
+    return [{"AM's outputs": all(bool(torch.equal(a, b)) for a, b in
+                                 zip(new, old))} for new, old in pairs]
+
+
+def record_system(lib, dev):
+    """Phase 8's drive (``GroundFusion(m3dgr_system())`` over
+    ``checks.system_drive``), recording kernel H's inputs as
+    ``preintegrate_all`` hands them over."""
+    import chip_smoke
+    import numpy as np
+    from ground_fusion2_tpu_torch.config import m3dgr_system
+    from ground_fusion2_tpu_torch.system import GroundFusion
+    from ground_fusion2_tpu_torch.vio import estimator
+    calls = []
+    pw = estimator.preintegrate_window
+    frame = [0]
+
+    def preint(*a, **k):
+        calls.append((frame[0], None, _clone(a),
+                      {n: _clone(v) for n, v in k.items()}))
+        return pw(*a, **k)
+    estimator.preintegrate_window = preint
+    try:
+        gf = GroundFusion(m3dgr_system(), tic=np.zeros(3), ric=checks.RIG_RIC,
+                          tio=np.zeros(3), rio=np.eye(3), device=dev)
+        for i, f in enumerate(checks.system_drive(chip_smoke.SYS_FRAMES)):
+            frame[0] = i
+            gf.process_camera_image(f["t"], f["gray"], f["depth"], f["imu"],
+                                    wheel_vel=f["wheel"])
+            gf.process_lidar(f["t"], f["pts"], f["alpha"], f["valid"],
+                             f["imu"])
+        gf.flush()
+    finally:
+        estimator.preintegrate_window = pw
+    return calls
 
 
 def compare_klt(lib, name, pyr0, pyr1, pts0, valid0, half, iters, fb) -> bool:
@@ -811,15 +998,16 @@ def main(parent: str) -> int:
     import chip_smoke
     from ground_fusion2_tpu_torch.config import m3dgr_camera
     from ground_fusion2_tpu_torch.core.cameras import Pinhole
-    from ground_fusion2_tpu_torch.solver.gauss_newton import _solve_damped
-    from ground_fusion2_tpu_torch.vio.problem import window_normal_equations
     if not torch.cuda.is_available():
         print("no CUDA device: the kernels have no CPU mode", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
     _kernels.build()
     lib = build_parent(Path(parent))
-    rec = record_drive(lib, dev)
+    steps = {k: [] for k in ("phase 4", "phase 8", "phase 10", "phase 19")}
+    am = {k: [] for k in ("phase 5", "phase 8")}
+    with step_fold_watch(lib, steps["phase 4"]):
+        rec = record_drive(lib, dev)
     ok = True
     for mode in (0, 1):
         kind = f"window_tests, mode {mode}"
@@ -827,16 +1015,28 @@ def main(parent: str) -> int:
     ok &= compare_preint(lib, rec["preint"])
     ok &= compare_tracks(lib, dev, rec["klt"])
     ok &= compare_lio(lib, dev)
-    ok &= compare_lidar_drive(lib, record_lidar(lib, dev))
+    with am_watch(lib, am["phase 5"]):
+        lidar = record_lidar(lib, dev)
+    ok &= compare_lidar_drive(lib, lidar)
+    with step_fold_watch(lib, steps["phase 8"]), am_watch(lib, am["phase 8"]):
+        sys_calls = record_system(lib, dev)
+    ok &= compare_preint(lib, sys_calls, "phase 8")
+    ok &= _tally("preint with the square-root informations (every "
+                 "preintegration of phases 4 and 8: H then Y in the parent)",
+                 [{"all": all(equal(
+                     _preint_outputs(wp_call(a, k)),
+                     _preint_outputs(wp_call(a, k, lib)), PREINT_NAMES)
+                     .values())} for _, _, a, k in rec["preint"] + sys_calls
+                  if k.get("sqrt_info")])
+    for phase in ("phase 5", "phase 8"):
+        ok &= _tally(f"lio_update (AM, every call of {phase}'s drive)",
+                     am_results(am[phase]))
     cfg = m3dgr_camera()
     vcfg = cfg.estimator.vio
 
     def lm_deltas(x0, meas, layout, c):
-        zero = torch.zeros(layout.dim, device=dev)
-        H0, g0, _ = window_normal_equations(x0, meas, layout, c, zero)
-        step = _solve_damped(H0, g0, torch.full((), 1e-4, device=dev),
-                             torch.ones(layout.dim, device=dev))
-        return zero, step
+        return (torch.zeros(layout.dim, device=dev),
+                checks.lm_trial(x0, meas, layout, c))
 
     # phase 3's window
     x0, feats, layout, _ = checks.example_window(150, dev)
@@ -859,10 +1059,22 @@ def main(parent: str) -> int:
         ok &= compare_ransac(lib, f"phase 4 (frames {i} -> {i + 1})", cam,
                              track(frames[i:i + 2]), thresh)
     # phase 12's window: the GNSS drive's final one
-    err, _, gf = chip_smoke.gnss_main_path(dev, chip_smoke.card_line())
+    with step_fold_watch(lib, steps["phase 10"]):
+        err, _, gf = chip_smoke.gnss_main_path(dev, chip_smoke.card_line())
     if err:
         print(f"phase 10's drive failed: {err}", file=sys.stderr)
         return 1
+    # phase 19's solve: the stereo window's (its phase also gates syncs,
+    # which the comparisons here would add)
+    from ground_fusion2_tpu_torch.vio import problem
+    sw = checks.stereo_window(chip_smoke.STEREO_F, dev)
+    with step_fold_watch(lib, steps["phase 19"]):
+        problem.solve_window(sw["x0"], sw["meas"], sw["layout"],
+                             checks.stereo_config(chip_smoke.STEREO_F))
+    for phase, pairs in steps.items():
+        ok &= _tally(f"window_cost with AN's step (every LM iteration of "
+                     f"{phase}: S then AN's step in the parent)",
+                     step_fold_results(pairs))
     fv = gf.vio
     gmeas = checks.carry_measurements(fv)
     st, gcfg = fv.carry.state, fv.cfg.vio

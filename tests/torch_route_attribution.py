@@ -5,13 +5,15 @@ fusion over ``checks.gnss_drive()``), each run once a route:
 
 - ``kernels``: as shipped, every stage on its kernel;
 - ``plain_S``: the LM's trial cost on its plain f32 twin
-  (``window_cost_plain``), every other stage on its kernel;
+  (``window_cost_plain``; the solve's step then AN's own launch), every
+  other stage on its kernel;
 - ``plain_S_to_V``: the trial cost, triangulation, the window tests and the
   window updates all on their plain twins, the routes the camera tick took
   before kernels S–V existed;
 - ``plain_W_X_Y``: the damped Cholesky solve (W), the marginalization's
   eigensolver (X) and the square-root informations (Y) on their plain
-  ``torch.linalg`` twins, the routes before kernels W–Y existed;
+  ``torch.linalg`` twins, the routes before kernels W–Y existed (Y: H
+  without the square roots, then the plain twin on its covariances);
   ``plain_W``, ``plain_X``, ``plain_Y``: each of the three alone;
 - ``X_float``: the marginalization eliminated in float32, kernel X
   instantiated in float (the JAX package's precision; the port eliminates
@@ -36,7 +38,8 @@ and the GNSS run's yaw, one JSON line. Not a test, and it needs a GPU:
 holds one of those stages against float64 on every call of phase 4's drive
 (every route on its kernel): each call's inputs recorded, then the kernel's
 and the plain twin's outputs, each against the plain twin in float64 (W:
-the damped step; X: the eigenvalues; Y: the square-root informations),
+the damped step; X: the eigenvalues; Y: the square-root informations H's
+blocks compute, against the plain twin on H's covariances),
 relative to the reference's largest entry; printed as the median and the
 largest over the calls, one JSON line.
 """
@@ -59,7 +62,9 @@ from ground_fusion2_tpu_torch.factors import vio_factors as fac
 from ground_fusion2_tpu_torch.frontend import ransac
 from ground_fusion2_tpu_torch.frontend import tracker as ftracker
 from ground_fusion2_tpu_torch.lio import eskf
+from ground_fusion2_tpu_torch.sensors import window_preint as wp
 from ground_fusion2_tpu_torch.solver import gauss_newton as gn
+from ground_fusion2_tpu_torch.solver import lm_glue
 from ground_fusion2_tpu_torch.solver import marginalize as mg
 from ground_fusion2_tpu_torch.system import GroundFusion, SystemConfig
 from ground_fusion2_tpu_torch.vio import estimator as vest
@@ -73,6 +78,39 @@ CAM_FRAMES = 32   # chip_smoke.py phase 4
 
 def _plain_cost_fn(x0, meas, layout, cfg, packed=None):
     return lambda delta: fac.window_cost_plain(x0, delta, meas, layout, cfg)
+
+
+def _plain_cost_step_fn(x0, meas, layout, cfg, packed=None):
+    """The trial cost on S's plain twin, then AN's standalone step."""
+    cost_at = _plain_cost_fn(x0, meas, layout, cfg)
+
+    def cost_step(delta, trial, cost, lam, down, up, sc):
+        return lm_glue.step(delta, trial, cost, cost_at(trial), lam, down,
+                            up, sc)
+    return cost_at, cost_step
+
+
+def _plain_y_preint(*a, sqrt_info=False, **k):
+    """Kernel H without the square roots, then Y's plain twin on its
+    covariances."""
+    out = wp.preintegrate_window(*a, **k)
+    if not sqrt_info:
+        return out
+    return (*out, fac.imu_sqrt_info_plain(out[0].cov),
+            fac.imu_sqrt_info_plain(out[1].cov))
+
+
+def _y_fold(*a):
+    """The square-root informations H's blocks compute (Y's device code)."""
+    return torch.cat([s.reshape(-1) for s in
+                      wp.preintegrate_window(*a, sqrt_info=True)[3:]])
+
+
+def _y_plain(*a):
+    """H's covariances, then Y's plain twin in the inputs' precision."""
+    pre, wpre, _ = wp.preintegrate_window(*a)
+    return torch.cat([fac.imu_sqrt_info_plain(c.to(a[0].dtype)).reshape(-1)
+                      for c in (pre.cov, wpre.cov)])
 
 
 def _plain_solve_damped(H, g, lam, free_mask, damp_diag=None, base=None,
@@ -111,9 +149,11 @@ def _cpu_draws(seed, hypotheses, n, device):
 
 
 PLAIN = {
-    "plain_S": [(fac, "window_cost_fn", _plain_cost_fn)],
+    "plain_S": [(fac, "window_cost_fn", _plain_cost_fn),
+                (fac, "window_cost_step_fn", _plain_cost_step_fn)],
     "plain_S_to_V": [
         (fac, "window_cost_fn", _plain_cost_fn),
+        (fac, "window_cost_step_fn", _plain_cost_step_fn),
         (fwin, "triangulate", fwin.triangulate_plain),
         (fwin, "post_solve_tests", fwin.post_solve_tests_plain),
         (fwin, "presolve_tests", fwin.presolve_tests_plain),
@@ -125,12 +165,12 @@ PLAIN = {
     "plain_W_X_Y": [
         (gn, "_solve_damped", _plain_solve_damped),
         (mg, "sym_eig", mg.sym_eig_plain),
-        (vest, "imu_sqrt_info", fac.imu_sqrt_info_plain),
+        (vest, "preintegrate_window", _plain_y_preint),
         (eskf, "spd_inverse", eskf.spd_inverse_plain),
     ],
     "plain_W": [(gn, "_solve_damped", _plain_solve_damped)],
     "plain_X": [(mg, "sym_eig", mg.sym_eig_plain)],
-    "plain_Y": [(vest, "imu_sqrt_info", fac.imu_sqrt_info_plain),
+    "plain_Y": [(vest, "preintegrate_window", _plain_y_preint),
                 (eskf, "spd_inverse", eskf.spd_inverse_plain)],
     "X_float": [(vprob, "marginalize_plan",
                  functools.partial(mg.marginalize_plan, dtype=torch.float32))],
@@ -222,7 +262,7 @@ HOLD = {
     "W": (gn, "_solve_damped", _w_kernel, _w_plain),
     "X": (mg, "sym_eig", lambda A, *_: mg.sym_eig(A)[0],
           lambda A, *_: mg.sym_eig_plain(A)[0]),
-    "Y": (vest, "imu_sqrt_info", fac.imu_sqrt_info, fac.imu_sqrt_info_plain),
+    "Y": (vest, "preintegrate_window", _y_fold, _y_plain),
 }
 
 

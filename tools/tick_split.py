@@ -17,8 +17,13 @@ change, the change, the parent to compare them within one call). Each
 split goes to ``DIR/tick_split_<TAG>_<i>.json`` and its printout to
 ``DIR/tick_split_<TAG>_<i>.log`` (DIR default ``out``); the last line
 printed is the list of {tag, median tick ms, device ms a tick, launches a
-tick, syncs a tick, the LiDAR tick's launches and device ms in phases 5
-and 8, and phases 5's and 8's summary lines up to their launch counts}. A tree whose CT-ICP launches Y's standalone solve
+tick, the launches and device ms a tick of kernels H, Y's square-root
+informations, S and AN, syncs a tick, the LiDAR tick's launches and device
+ms in phases 5 and 8, and phases 5's and 8's summary lines up to their
+launch counts}. A tree whose
+camera tick launches Y's square-root informations and AN's step on their
+own (no ``vio_factors.window_cost_step_fn``) is not held to their folds. A
+tree whose CT-ICP launches Y's standalone solve
 (no ``ct_icp.normal_solve``) is held to that route in phase 5, and one
 whose CT-ICP launches AK around D and E (no ``ct_icp.assoc_weights``) to
 AK's 13 launches a LiDAR tick.
@@ -53,7 +58,11 @@ def one(root: str, tag: str, index: int, out_dir: str) -> dict:
     cs.CAMERA_KERNELS = tuple(k for k in cs.CAMERA_KERNELS if k in have)
     cs.LIDAR_KERNELS = tuple(k for k in cs.LIDAR_KERNELS if k in have)
     cs.PKG = str(csrc) + "/"
+    from ground_fusion2_tpu_torch.factors import vio_factors
     from ground_fusion2_tpu_torch.lio import ct_icp
+    if not hasattr(vio_factors, "window_cost_step_fn"):
+        # Y's square-root informations and AN's step launched on their own
+        cs.CAMERA_OFF_PATH = ()
     if not hasattr(ct_icp, "assoc_weights"):
         # AK's launches around D and E: the keypoints, 6 weights, 5 steps
         # and the scan
@@ -99,9 +108,15 @@ def one(root: str, tag: str, index: int, out_dir: str) -> dict:
     err, launches, median = cs.system_main_path(torch.device(cs.DEVICE),
                                                 cs.card_line(), frames)[:3]
     err = err5 or err
+    n = got.get("port_kernel_launches_per_tick", {})
+    by_kernel = {g: dict(launches=sum(n.get(k, 0) for k in
+                                      cs.KERNEL_GROUPS[g]),
+                         device_ms=got.get("by_kernel_ms_per_tick", {})
+                         .get(g)) for g in ("H", "Y sqrt_info", "S", "AN")}
     out = dict(tag=tag, root=root, error=err, median_tick_ms=median,
                device_ms_per_tick=got.get("device_ms_per_tick"),
                launches_per_tick=got.get("launches_per_tick"),
+               camera_kernels_per_tick=by_kernel,
                syncs_last_tick=dict(sites), lidar_tick=lidar, split=got,
                card=cs.card_line())
     pathlib.Path(out_dir).mkdir(parents=True, exist_ok=True)
@@ -145,6 +160,7 @@ def main(args) -> int:
                          median_tick_ms=r["median_tick_ms"],
                          device_ms_per_tick=r["device_ms_per_tick"],
                          launches_per_tick=r["launches_per_tick"],
+                         camera_kernels_per_tick=r["camera_kernels_per_tick"],
                          syncs_last_tick=r["syncs_last_tick"],
                          lidar_tick=r["lidar_tick"], **summary))
     print(json.dumps(rows), flush=True)

@@ -63,14 +63,23 @@ def one_cta_stamped(src: str) -> str:
     return src + f'\nGF2_STAGE_NAMES("{ONE_CTA_STAGES}")\n'
 
 
+# S's C interface before it took the LM step (commit 47fcfb8 and older)
+UNSTEPPED = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 21 + [ctypes.c_double] + [
+    ctypes.c_float] * 6 + [ctypes.c_void_p] * 4
+
+
 def load(csrc: Path):
     """The stamped library of csrc's S, its stage names and whether it is
-    the grid."""
+    the grid; a source whose S takes the LM step is called with none."""
     text = (csrc / "window_cost.cu").read_text()
     grid = "GF2_STAMP" in text
     tag = re.sub(r"\W+", "_", str(csrc)).strip("_")
+    stepped = "lm_step.cuh" in text
     lib, names = build(csrc, "window_cost.cu", tag, "gf2_window_cost",
-                       None if grid else one_cta_stamped(text))
+                       None if grid else one_cta_stamped(text),
+                       argtypes=None if stepped else UNSTEPPED)
+    lib.no_step = ([ctypes.c_void_p(None)] * 3 + [ctypes.c_float(0.0)] * 4
+                   + [ctypes.c_void_p(None)] * 2) if stepped else []
     return lib, names, grid
 
 
@@ -121,7 +130,7 @@ def run(lib, names, grid: bool, x0, meas, layout, cfg, delta) -> dict:
         reset(lib)
         _kernels.check(lib.gf2_window_cost(
             *ptrs, P(d.data_ptr()), *scalars, P(part.data_ptr()),
-            P(other.data_ptr()), P(cost.data_ptr()),
+            P(other.data_ptr()), P(cost.data_ptr()), *lib.no_step,
             P(torch.cuda.current_stream(dev).cuda_stream)), "gf2_window_cost")
         torch.cuda.synchronize()
         rows.append(split(read(lib), names, grid))
