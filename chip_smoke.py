@@ -576,6 +576,8 @@ KERNEL_GROUPS = {
     "AQ": ("draw_kernel", "split_kernel"),
     "G": ("eskf_predict_kernel",),
     "U": ("window_tests_kernel",),
+    "T": ("triangulate_kernel",),
+    "V": ("window_update_kernel",),
     "H": ("preint_kernel",),
     "Y": ("sqrt_info_reg_kernel", "icp_solve_kernel", "degeneracy_kernel"),
     # Y's square-root informations alone, under either kernel name: the
@@ -583,7 +585,8 @@ KERNEL_GROUPS = {
     # (tools/tick_split.py runs such a parent beside this tree)
     "Y sqrt_info": ("sqrt_info_reg_kernel", "sqrt_info_kernel")}
 # phase 8's per-kernel line of the camera tick
-CAMERA_SPLIT_GROUPS = ("AH", "AI", "AJ", "U", "Y sqrt_info", "H", "S", "AN")
+CAMERA_SPLIT_GROUPS = ("AH", "AI", "AJ", "U", "Y sqrt_info", "H", "S", "AN",
+                       "T", "V")
 # the camera tick's profiler ranges (vio/fused.py, vio/problem.py)
 CAMERA_RANGES = ("_tracker_step", "_solve_tick", "solve_window",
                  "tick_glue", "marginalize", "marginalize_oldest",

@@ -2567,6 +2567,167 @@ def window_stage_inputs(fv):
     return fw, st, obs, interval
 
 
+# kernels T and V at their limits: one track and 37 (a multiple of neither a
+# warp nor a CTA), the fewest and the most frames V takes
+EDGE_SHAPES = ((1, 3), (1, 16), (37, 3), (37, 16))
+EDGE_KINDS = ("triangulable", "anchored at 0, seen nowhere after",
+              "re-anchored behind its new frame", "anchored at W-2, seen in W-1",
+              "anchored at W-2, not seen in W-1", "live, no observation",
+              "dead slot", "one observation", "two observations",
+              "rays that coincide", "far point (the |h3| guard)",
+              "depth fixed")
+
+
+class EdgePose(NamedTuple):
+    """The state fields kernels T and V read: p [W, 3], q [W, 4], tic [3],
+    qic [4]."""
+    p: object
+    q: object
+    tic: object
+    qic: object
+
+
+def _qmat(q):
+    w, x, y, z = q
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+
+
+def _qmul(q, r):
+    w, x, y, z = q
+    return np.array([w * r[0] - x * r[1] - y * r[2] - z * r[3],
+                     w * r[1] + x * r[0] + y * r[3] - z * r[2],
+                     w * r[2] - x * r[3] + y * r[0] + z * r[1],
+                     w * r[3] + x * r[2] - y * r[1] + z * r[0]])
+
+
+def _unit_quat(rng, scale: float):
+    q = np.concatenate([[1.0], rng.normal(scale=scale, size=3)])
+    return q / np.linalg.norm(q)
+
+
+def edge_window(seed: int, F: int, W: int) -> dict:
+    """A window at the edges of kernels T and V, from a numpy seed (numpy
+    arrays: float32, the anchors int64). Every frame shares one camera
+    rotation and the cameras move along a line (forward and to the side),
+    from 1 m off the world origin, 0.25 m a frame. Track f is of kind EDGE_KINDS[f mod
+    12] (F = 1: a triangulable track): a point 2–5 m ahead of the last
+    frame that sees it, seen in ≥ 3 frames (at W = 3, all); a track anchored in frame 0 and seen nowhere
+    after; one whose point lies behind the frame it re-anchors to (z ≤ 1e-2
+    there); anchored in W-2 and seen, or not, in W-1; a live track with no
+    observation and a dead slot; one and two observations; a point on the
+    cameras' line, its rays all equal (a rank-deficient normal matrix); a
+    point 1e9 m away (the smallest eigenvector's |h3| below the guard's
+    1e-8); a triangulable track with its depth fixed. ``rho`` is 1/depth at
+    the anchor, off by up to 20 %. add_frame's frame (``obs_*``, at column
+    ``col``): 80 % alive, a third of those fresh, depths in [0.1, 7.0],
+    below, above and 0 (F = 1: one fresh track with its depth out of
+    range). ``uninit``: 80 % ones (the triangulable tracks all)."""
+    rng = np.random.default_rng(seed)
+    q_body = _unit_quat(rng, 0.4)
+    qic = _unit_quat(rng, 0.3)
+    tic = rng.normal(scale=0.1, size=3)
+    R = _qmat(_qmul(q_body, qic))            # every camera's R_wc
+    axis = R[:, 2]
+    c0 = rng.normal(size=3)
+    c0 /= np.linalg.norm(c0)
+    line = axis + 0.6 * R[:, 0]
+    line /= np.linalg.norm(line)
+    centers = c0 + 0.25 * np.arange(W)[:, None] * line
+    p = centers - _qmat(q_body) @ tic
+    project = lambda X, w: R.T @ (X - centers[w])
+    ray = np.zeros((F, W, 2))
+    depth = np.zeros((F, W))
+    ov = np.zeros((F, W))
+    anchor = np.zeros(F, np.int64)
+    tv = np.ones(F)
+    dfix = np.zeros(F)
+    rho = np.full(F, 0.2)
+    kinds = []
+    for f in range(F):
+        kind = EDGE_KINDS[f % len(EDGE_KINDS)]
+        kinds.append(kind)
+        # a point 2–5 m ahead of frame w (so of every frame before it)
+        ahead = lambda w=W - 1: centers[w] + R @ np.array(
+            [rng.uniform(-1.0, 1.0), rng.uniform(-0.8, 0.8),
+             rng.uniform(2.0, 5.0)])
+        X, cols = None, []
+        if kind in ("triangulable", "depth fixed"):
+            k = W if W == 3 else int(rng.integers(3, W + 1))
+            cols = sorted(rng.choice(W, k, replace=False).tolist())
+            X = ahead(cols[-1])
+            dfix[f] = kind == "depth fixed"
+        elif kind == "anchored at 0, seen nowhere after":
+            X, cols = ahead(0), [0]
+        elif kind == "re-anchored behind its new frame":
+            k = int(rng.integers(1, W))
+            # z ≤ 0.2·k − 0.02 at frame 0: behind frame k, 0.214·k ahead
+            X = centers[0] + R @ np.array([0.2, -0.1, rng.uniform(
+                0.03, 0.2 * k - 0.02)])
+            cols = [0, k]
+        elif kind == "anchored at W-2, seen in W-1":
+            X, cols = ahead(), [W - 2, W - 1]
+        elif kind == "anchored at W-2, not seen in W-1":
+            X, cols = ahead(), [W - 2]
+        elif kind == "dead slot":
+            tv[f] = 0.0
+        elif kind == "one observation":
+            X, cols = ahead(), [W - 1]
+        elif kind == "two observations":
+            w = int(rng.integers(0, W - 1))
+            X, cols = ahead(w + 1), [w, w + 1]
+        elif kind == "rays that coincide":
+            X, cols = centers[-1] + 3.0 * line, list(range(W))
+        elif kind == "far point (the |h3| guard)":
+            X = c0 + 1e9 * (R @ np.array([0.3, -0.2, 1.0]))
+            cols = list(range(W))
+        for w in cols:
+            xc = project(X, w)
+            ray[f, w] = xc[:2] / xc[2]
+            depth[f, w] = xc[2]
+            ov[f, w] = 1.0
+        if kind == "rays that coincide":
+            ray[f] = ray[f, 0]
+        if cols:
+            anchor[f] = cols[0]
+            rho[f] = rng.uniform(0.8, 1.2) / depth[f, cols[0]]
+    depth[depth < 0] = 0.0
+    vel = rng.normal(scale=0.05, size=(F, W, 2)) * ov[..., None]
+    alive = rng.uniform(size=F) < 0.8
+    fresh = alive & (rng.uniform(size=F) < 1 / 3)
+    o_depth = np.where(rng.uniform(size=F) < 0.6, rng.uniform(0.15, 6.5, F),
+                       rng.choice([0.0, 0.05, 7.5], F)) * alive
+    if F == 1:
+        alive[:], fresh[:], o_depth[:] = True, True, 7.5
+    elif F > 3:
+        alive[:3], fresh[:3] = True, True
+        o_depth[:3] = (0.05, 7.5, 0.0)
+    tri = np.array([k in ("triangulable", "depth fixed") for k in kinds])
+    uninit = (rng.uniform(size=F) < 0.8) | tri
+    f32 = lambda a: np.asarray(a, np.float32)
+    return dict(
+        ray=f32(ray), vel=f32(vel), depth=f32(depth), obs_valid=f32(ov),
+        anchor=anchor, track_valid=f32(tv), depth_fixed=f32(dfix),
+        p=f32(p), q=f32(np.tile(q_body, (W, 1))), tic=f32(tic), qic=f32(qic),
+        rho=f32(rho), obs_ray=f32(rng.normal(scale=0.3, size=(F, 2))),
+        obs_vel=f32(rng.normal(scale=0.05, size=(F, 2))),
+        obs_depth=f32(o_depth), obs_alive=f32(alive), obs_fresh=f32(fresh),
+        col=int(rng.integers(0, W)), uninit=f32(uninit), kinds=kinds)
+
+
+def edge_inputs(e: dict, device) -> dict:
+    """:func:`edge_window`'s arrays as the port's inputs on ``device``:
+    fw, x (EdgePose), rho, obs (FrameObs), col, uninit."""
+    from .vio import feature_window as fwm
+    t = lambda k: torch.as_tensor(e[k], device=device)
+    fw = fwm.FeatureWindow(*(t(k) for k in fwm.FeatureWindow._fields))
+    obs = fwm.FrameObs(*(t("obs_" + k) for k in fwm.FrameObs._fields))
+    return dict(fw=fw, x=EdgePose(t("p"), t("q"), t("tic"), t("qic")),
+                rho=t("rho"), obs=obs, col=e["col"], uninit=t("uninit"))
+
+
 U_ERR_BAND = 1e-5    # kernel U: a keep flag may differ only where the mean
                      # error lies this close (relative) to outlier_px
 U_PAR_BAND = 1e-6    # an is_kf only where mean_par lies this close to

@@ -6,12 +6,15 @@
 // kernel counts them). GF2_LAP(who, unit, tag) marks the end of a stage
 // that runs many times in a loop: it adds the time since the warp's last
 // stamp or lap to the unit's sums for the tag (ns, cycles, count), so a
-// loop's stages need no stamp each; a unit's first mark is a stamp. GF2_STAGE_NAMES("a,b,...") names the tags in order.
-// All three expand to nothing unless the source is built with
+// loop's stages need no stamp each; a unit's first mark is a stamp.
+// GF2_COUNT(who, item, slot, value) keeps an integer of an item (a track's
+// sweeps, say) in the slot's row. GF2_STAGE_NAMES("a,b,...") names the tags in order.
+// All four expand to nothing unless the source is built with
 // -DGF2_STAGE_STAMPS, as tools/window_cost_stages.py,
 // tools/ransac_stages.py, tools/lio_stages.py and tools/camera_stages.py
 // build it; the build then also exports gf2_stage_reset(),
-// gf2_stage_read(st, n), gf2_lap_read(acc) and gf2_stage_names(). A stamp
+// gf2_stage_read(st, n), gf2_lap_read(acc), gf2_count_read(cnt) and
+// gf2_stage_names(). A stamp
 // or lap waits for its warp (__syncwarp), so it sits where the warp is
 // converged.
 #pragma once
@@ -23,12 +26,16 @@
 constexpr int kStampUnits = 512;
 constexpr int kStamps = 12;
 constexpr int kLapTags = 16;
+constexpr int kCountSlots = 4;
+constexpr int kCountItems = 4096;
 
 // [unit][stamp]: global timer, clock64, tag
 __device__ unsigned long long gf2_st[kStampUnits][kStamps][3];
 __device__ int gf2_n[kStampUnits];
 // [unit][tag]: summed ns, summed cycles, count
 __device__ unsigned long long gf2_acc[kStampUnits][kLapTags][3];
+// [slot][item]: GF2_COUNT's integers
+__device__ unsigned int gf2_cnt[kCountSlots][kCountItems];
 // the last mark of each warp of the block (a unit is stamped by one lane
 // of one warp): global timer, clock64
 static __shared__ unsigned long long gf2_last[32][2];
@@ -68,11 +75,25 @@ __device__ __forceinline__ void gf2_lap(bool who, int unit, int tag) {
   gf2_last[w][1] = c;
 }
 
+__device__ __forceinline__ void gf2_count(bool who, int item, int slot,
+                                          unsigned int value) {
+  if (who && item >= 0 && item < kCountItems && slot >= 0 &&
+      slot < kCountSlots)
+    gf2_cnt[slot][item] = value;
+}
+
 extern "C" int gf2_stage_reset() {
   static int z[kStampUnits] = {0};
   static unsigned long long za[kStampUnits][kLapTags][3] = {};
-  const int e = (int)cudaMemcpyToSymbol(gf2_n, z, sizeof z);
+  static unsigned int zc[kCountSlots][kCountItems] = {};
+  int e = (int)cudaMemcpyToSymbol(gf2_n, z, sizeof z);
+  e = e ? e : (int)cudaMemcpyToSymbol(gf2_cnt, zc, sizeof zc);
   return e ? e : (int)cudaMemcpyToSymbol(gf2_acc, za, sizeof za);
+}
+
+// cnt [kCountSlots, kCountItems] out
+extern "C" int gf2_count_read(unsigned int* cnt) {
+  return (int)cudaMemcpyFromSymbol(cnt, gf2_cnt, sizeof gf2_cnt);
 }
 
 // acc [kStampUnits, kLapTags, 3] out
@@ -88,6 +109,8 @@ extern "C" int gf2_stage_read(unsigned long long* st, int* n) {
 
 #define GF2_STAMP(who, unit, tag) gf2_stamp((who), (unit), (tag))
 #define GF2_LAP(who, unit, tag) gf2_lap((who), (unit), (tag))
+#define GF2_COUNT(who, item, slot, value) \
+  gf2_count((who), (item), (slot), (unsigned int)(value))
 #define GF2_STAGE_NAMES(names) \
   extern "C" const char* gf2_stage_names() { return names; }
 
@@ -95,6 +118,7 @@ extern "C" int gf2_stage_read(unsigned long long* st, int* n) {
 
 #define GF2_STAMP(who, unit, tag) ((void)0)
 #define GF2_LAP(who, unit, tag) ((void)0)
+#define GF2_COUNT(who, item, slot, value) ((void)0)
 #define GF2_STAGE_NAMES(names)
 
 #endif

@@ -14,6 +14,17 @@ ill-defined. So `done` is held exactly on the tracks with an eigengap
 1e-4 relative where the gap exceeds 2e-3, and to 1e-3 where it lies in
 (1e-4, 2e-3] (measured on this window: JAX's own f32 rho is 1.6e-4 from
 its f64 value at a gap of 8.7e-4).
+
+The same tolerances hold the plain twins of T and V against JAX on
+``checks.edge_window``'s windows (F = 1 and 37, W = 3 and 16: the shapes
+at the kernels' limits, and tracks at their edges), each stage of each
+window a case of one test; JAX runs every stage of a shape in one jitted
+call, shared by the cases through a module fixture. There the
+triangulation runs in float64 on both sides (JAX under ``enable_x64``):
+on these windows the two float32 eigensolvers' rho differ by up to 4.4e-4
+on tracks whose gap exceeds 2e-3 (measured over eight seeds), beyond the
+example window's 1e-4, and that is their rounding, not the function; in
+float64 `done` is held exactly and rho to REL where the gap exceeds 1e-4.
 """
 
 import types
@@ -253,3 +264,113 @@ def test_detectors_match_jax(window, anomaly, stationary):
                               ns(dp_imu, torch.as_tensor),
                               ns(dp_whl, torch.as_tensor), k, s)
     assert (bool(ta), bool(ts)) == (bool(ja), bool(js)) == (anomaly, stationary)
+
+
+EDGE_STAGES = ("add_frame", "slide_oldest", "slide_second_newest",
+               "triangulate", "triangulate without uninit")
+
+
+def _jax_edge_updates(fw, x, rho, obs, col):
+    return {"add_frame": jfwin.add_frame(fw, obs, col, rho),
+            "slide_oldest": jfwin.slide_oldest(fw, x, rho),
+            "slide_second_newest": jfwin.slide_second_newest(fw, x, rho)}
+
+
+def _jax_edge_triangulate(fw, x, rho, uninit):
+    return {"triangulate": jfwin.triangulate(fw, x, rho, uninit),
+            "triangulate without uninit": jfwin.triangulate(fw, x, rho)}
+
+
+def _jax_window(e, dtype):
+    j = lambda k: jnp.asarray(e[k].astype(dtype))
+    fw = jfwin.FeatureWindow(
+        ray=j("ray"), vel=j("vel"), depth=j("depth"), obs_valid=j("obs_valid"),
+        anchor=jnp.asarray(e["anchor"].astype(np.int32)),
+        track_valid=j("track_valid"), depth_fixed=j("depth_fixed"))
+    return fw, checks.EdgePose(j("p"), j("q"), j("tic"), j("qic")), j
+
+
+@pytest.fixture(scope="module")
+def edge():
+    """Each edge shape's window (numpy) and JAX's results of every stage on
+    it: the updates from one jitted call a shape in float32, the
+    triangulations from one in float64."""
+    updates = jax.jit(_jax_edge_updates, static_argnums=4)
+    tri = jax.jit(_jax_edge_triangulate)
+    out = {}
+    for F_, W_ in checks.EDGE_SHAPES:
+        e = checks.edge_window(0, F_, W_)
+        jw, jx, j = _jax_window(e, np.float32)
+        jo = jfwin.FrameObs(*(j("obs_" + k) for k in jfwin.FrameObs._fields))
+        res = jax.tree.map(np.asarray,
+                           updates(jw, jx, j("rho"), jo, e["col"]))
+        with jax.enable_x64(True):
+            jw, jx, j = _jax_window(e, np.float64)
+            res.update(jax.tree.map(np.asarray,
+                                    tri(jw, jx, j("rho"), j("uninit"))))
+        out[(F_, W_)] = (e, res)
+    return out
+
+
+def _of_kind(e, kind):
+    return np.array([k == kind for k in e["kinds"]])
+
+
+@pytest.mark.parametrize("stage", EDGE_STAGES)
+@pytest.mark.parametrize("shape", checks.EDGE_SHAPES,
+                         ids=lambda s: f"F{s[0]}-W{s[1]}")
+def test_edge_windows_match_jax(edge, shape, stage):
+    """The plain twins of V's three updates and of T (with and without
+    ``uninit``) against JAX on an edge window: one track and 37, 3 and 16
+    frames; tracks anchored in 0 and seen nowhere after, re-anchored behind
+    their new frame, anchored in W-2 and seen or not in W-1, with 0, 1, 2
+    observations, dead, with coinciding rays and a point 1e9 m away."""
+    e, jres = edge[shape]
+    i = checks.edge_inputs(e, "cpu")
+    fw, x, rho = i["fw"], i["x"], i["rho"]
+    W_ = shape[1]
+    if stage.startswith("triangulate"):
+        uninit = (i["uninit"].double() if stage == "triangulate" else None)
+        tr, td = tfwin.triangulate(checks._f64(fw), checks._f64(x),
+                                   rho.double(), uninit)
+        jr, jd = jres[stage]
+        assert tr.dtype == torch.float64 and jr.dtype == np.float64
+        _, gap, z = (t.numpy() for t in checks.dlt_normals(fw, x))
+        held = ((gap > 1e-4) & (np.abs(z - 0.1) > 1e-4)
+                & (np.abs(z - 100.0) > 1e-4))
+        td = td.numpy()
+        np.testing.assert_array_equal(td[held], jd[held])
+        np.testing.assert_allclose(tr.numpy()[held], jr[held], rtol=REL)
+        assert (td & held).sum() >= 1
+        if shape[0] > 1:
+            # the edges the window is built to hold: a rank-deficient
+            # normal matrix, and an eigenvector below the |h3| guard
+            N, _, _ = checks.dlt_normals(fw, x)
+            _, V = torch.linalg.eigh(N)
+            assert (gap[_of_kind(e, "rays that coincide")] < 1e-12).all()
+            far = _of_kind(e, "far point (the |h3| guard)")
+            assert (V[far, 3, 0].abs() < 1e-8).all() and not td[far].any()
+        return
+    if stage == "add_frame":
+        to, tr = tfwin.add_frame(fw, i["obs"], i["col"], rho)
+        fresh_out = ((e["obs_fresh"] > 0) & ((e["obs_depth"] <= 0.1)
+                                             | (e["obs_depth"] >= 7.0)))
+        assert fresh_out.any()
+        assert (tr.numpy()[fresh_out] == np.float32(0.2)).all()
+        assert (to.depth_fixed.numpy()[fresh_out] == 0).all()
+    else:
+        to, tr = getattr(tfwin, stage)(fw, x, rho)
+        if shape[0] > 1:
+            tv = to.track_valid.numpy()
+            dies = ("anchored at 0, seen nowhere after",
+                    "re-anchored behind its new frame", "live, no observation")
+            if stage == "slide_second_newest":
+                dies = ("anchored at W-2, not seen in W-1",
+                        "live, no observation")
+                kept = _of_kind(e, "anchored at W-2, seen in W-1")
+                assert (to.anchor.numpy()[kept] == W_ - 2).all()
+                assert (tv[kept] == 1).all()
+            for kind in dies:
+                assert (tv[_of_kind(e, kind)] == 0).all(), kind
+    _same_window(to, jres[stage][0])
+    _close(tr, jres[stage][1], "rho")

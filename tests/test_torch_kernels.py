@@ -46,7 +46,9 @@ valid sample in an interval and on a covariance that is not positive
 definite), Y's register form at n = 15 and 6 (and its inverse mode, AM's)
 against the plain route and float64, and AN's step folded into S's last
 CTA (S then AN's bits, mono and stereo, through an accept, a reject, a
-tie, a NaN cost and λ at each clamp).
+tie, a NaN cost and λ at each clamp); V in every mode and T on
+``checks.edge_window``'s windows (one track and 37, 3 and 16 frames), and
+V's entry refusing outputs that overlap its inputs.
 Marked ``cuda``; skipped without a GPU. This file imports no JAX, so it runs
 on a machine without it:
 
@@ -1002,6 +1004,54 @@ def test_window_update_kernel_matches_plain(dev, camera):
     r = checks.check_window_update(dev, fw, st, st.rho, obs, W - 1)
     assert r["ok"], r
     assert r["modes"]["slide_oldest"]["rho_moved"] >= 0
+
+
+@pytest.mark.parametrize("shape", checks.EDGE_SHAPES,
+                         ids=lambda s: f"F{s[0]}-W{s[1]}")
+def test_feature_window_kernels_on_edge_windows(dev, shape):
+    """Kernels V (every mode) and T on ``checks.edge_window``'s windows: one
+    track and 37, 3 and 16 frames, tracks at their edges (no later
+    observation, re-anchored behind the new frame, 0, 1 and 2
+    observations, coinciding rays, a point beyond the |h3| guard)."""
+    e = checks.edge_inputs(checks.edge_window(0, *shape), dev)
+    r = checks.check_window_update(dev, e["fw"], e["x"], e["rho"], e["obs"],
+                                   e["col"])
+    assert r["ok"], r
+    t = checks.check_triangulate(dev, e["fw"], e["x"], e["rho"], e["uninit"])
+    assert t["ok"], t
+
+
+def test_window_update_refuses_aliasing(dev):
+    """Kernel V's entry point refuses an output that overlaps an input or
+    another output (its loads are all issued before any store), and takes
+    the same call on separate arrays."""
+    import ctypes
+    e = checks.edge_inputs(checks.edge_window(0, 37, 16), dev)
+    fw, x, rho = e["fw"], e["x"], e["rho"]
+    ins = [fw.ray, fw.vel, fw.depth, fw.obs_valid, fw.anchor, fw.track_valid,
+           fw.depth_fixed, rho]
+    P = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    F, W = fw.obs_valid.shape
+
+    def call(outs):
+        return _kernels.library().gf2_window_update(
+            1, *map(P, ins), F, W, *[P(None)] * 5, 0, ctypes.c_float(0.1),
+            ctypes.c_float(7.0), P(x.p), P(x.q), P(x.tic), P(x.qic),
+            *map(P, outs), P(None), stream)
+
+    fresh = lambda: [torch.empty_like(t) for t in ins]
+    assert call(fresh()) == 0
+    outs = fresh()
+    outs[7] = rho                               # rho out onto rho in
+    assert call(outs) != 0
+    outs = fresh()
+    outs[1] = outs[0][1:]                       # vel out inside ray out
+    assert call(outs) != 0
+    outs = fresh()
+    outs[3] = x.p                               # obs_valid out over the pose
+    assert call(outs) != 0
+    torch.cuda.synchronize()
 
 
 def test_camera_tick_launches_s_to_v(dev, camera):

@@ -1,5 +1,5 @@
-"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack), AC, AK, U and
-AM of this tree against the parent commit's build, on the card.
+"""Kernels H, B, D, E, G, Y, S, K, L/P (with C and AN's pack), AC, AK, U,
+AM, V and T of this tree against the parent commit's build, on the card.
 
     mkdir -p build/parent
     git archive <parent> ground_fusion2_tpu_torch | tar -x -C build/parent
@@ -9,7 +9,8 @@ Builds the parent's ``csrc/preint.cu``, ``klt.cu``, ``lio_assoc.cu``,
 ``ct_icp_normal.cu``, ``eskf_predict.cu``, ``small_linalg.cu``,
 ``window_cost.cu``, ``ransac_f.cu``, ``small_normal.cu``,
 ``proj_normal.cu``, ``mesh_delaunay.cu``, ``ct_glue.cu``,
-``window_tests.cu``, ``lm_glue.cu`` and ``lio_update.cu`` (with the
+``window_tests.cu``, ``lm_glue.cu``, ``lio_update.cu``,
+``window_update.cu`` and ``triangulate.cu`` (with the
 headers beside them) into ``build/parent_bits/`` and binds each entry
 point with the argument list of the parent's own ``_kernels.py``
 (:class:`ParentLib`): where it is this tree's, this tree's wrapper calls
@@ -69,6 +70,13 @@ interfaces of commit 4141781 go through ``parent_preint`` and
 * kernel U (``feature_window._window_tests``: out, the flags and, after
   the solve, track_valid) on every call of phase 4's drive, both modes,
   compared as the tick makes it;
+* kernels V (every output of ``_window_update``) and T (rho, done) on every
+  call of phases 4 and 8, compared as the tick makes it: V's add_frame
+  (mode 0) and the slide on the keyframe byte (mode 3), T with the tick's
+  ``uninit`` and, on the same inputs, without it; on each slide's inputs
+  also V's slide_oldest, slide_second_newest and mode 3 with the byte set
+  and clear; and both kernels, every mode, on ``checks.edge_window``'s
+  windows (F = 1 and 37, W = 3 and 16);
 * kernels S and L/P on phase 3's window (at zero, the damped LM step and
   its reverse) and phase 12's GNSS window (at zero and a step), this
   tree's inputs packed by kernel AN against the parent's packed by its
@@ -112,7 +120,7 @@ OUT = ROOT / "build" / "parent_bits"
 SOURCES = ("preint", "klt", "lio_assoc", "ct_icp_normal", "eskf_predict",
            "small_linalg", "window_cost", "ransac_f", "small_normal",
            "proj_normal", "mesh_delaunay", "ct_glue", "window_tests",
-           "lm_glue", "lio_update")
+           "lm_glue", "lio_update", "window_update", "triangulate")
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # commit 0307a71's kernels D (one search a call) and E (one CTA)
 PARENT_ASSOC = [P] * 5 + [I] * 2 + [F] + [I] * 3 + [P] * 5
@@ -124,7 +132,7 @@ ENTRY_POINTS = ("gf2_preint", "gf2_klt_track", "gf2_lio_assoc",
                 "gf2_mesh_delaunay", "gf2_ct_points", "gf2_ct_weights",
                 "gf2_ct_step", "gf2_window_tests", "gf2_sqrt_info",
                 "gf2_window_cost_stereo", "gf2_lm_step", "gf2_lio_update_size",
-                "gf2_lio_update")
+                "gf2_lio_update", "gf2_window_update", "gf2_triangulate")
 # E's step arguments this tree added before the stream
 E_STEP = [P] * 5 + [F] * 3 + [I] + [P] * 2
 # S's LM step arguments this tree added before the stream (_kernels._LM_STEP)
@@ -856,6 +864,110 @@ def am_watch(lib, out: list):
         lfu.lio_update = real
 
 
+V_NAMES = ("ray", "vel", "depth", "obs_valid", "anchor", "track_valid",
+           "depth_fixed", "rho")
+T_NAMES = ("rho", "done")
+
+
+def _v_out(res) -> list:
+    fw, rho = res
+    return [t.clone() for t in (*fw, rho)]
+
+
+@contextlib.contextmanager
+def fw_watch(lib, out: dict):
+    """Every call of kernels V and T made inside (``_window_update``,
+    ``_triangulate_cuda`` of ``vio/feature_window.py``: add_frame, the
+    tick's slide on the keyframe byte, the triangulation) also run by the
+    parent's V or T on the same inputs, right after it; both results kept
+    in ``out`` ("V mode m", "T", and "T without uninit" on T's inputs), and
+    each slide's inputs ("slides") for :func:`slide_results`."""
+    from ground_fusion2_tpu_torch.vio import feature_window as fwm
+    real_v, real_t = fwm._window_update, fwm._triangulate_cuda
+
+    def v(mode, fw, rho, *a, **k):
+        new = real_v(mode, fw, rho, *a, **k)
+        with library(lib):
+            old = real_v(mode, fw, rho, *a, **k)
+        out.setdefault(f"V mode {mode}", []).append((_v_out(new),
+                                                      _v_out(old)))
+        if mode == 3:
+            out.setdefault("slides", []).append(
+                (_clone(fw), rho.clone(), _clone(k["x"])))
+        return new
+
+    def t(fw, x, rho, uninit):
+        new = real_t(fw, x, rho, uninit)
+        with library(lib):
+            old = real_t(fw, x, rho, uninit)
+        out.setdefault("T", []).append(([a.clone() for a in new], old))
+        if uninit is not None:
+            plain = real_t(fw, x, rho, None)
+            with library(lib):
+                plain_old = real_t(fw, x, rho, None)
+            out.setdefault("T without uninit", []).append(
+                ([a.clone() for a in plain], plain_old))
+        return new
+    fwm._window_update, fwm._triangulate_cuda = v, t
+    try:
+        yield
+    finally:
+        fwm._window_update, fwm._triangulate_cuda = real_v, real_t
+
+
+def fw_results(pairs, names) -> list:
+    return [equal(new, old, names) for new, old in pairs]
+
+
+def v_modes(lib, fw, rho, x, obs=None, col=0) -> dict:
+    """V in every mode on one window, this tree's build against the
+    parent's: {mode name: equal dict}; mode 0 where a frame is given."""
+    from ground_fusion2_tpu_torch.vio import feature_window as fwm
+    byte = lambda b: torch.full((), b, dtype=torch.bool, device=rho.device)
+    calls = {"slide_oldest": dict(mode=1, x=x),
+             "slide_second_newest": dict(mode=2, x=x),
+             "slide_chosen, byte set": dict(mode=3, x=x, is_kf=byte(True)),
+             "slide_chosen, byte clear": dict(mode=3, x=x,
+                                              is_kf=byte(False))}
+    if obs is not None:
+        calls = {"add_frame": dict(mode=0, obs=obs, col=col), **calls}
+    res = {}
+    for name, kw in calls.items():
+        kw = dict(kw)
+        mode = kw.pop("mode")
+        new = _v_out(fwm._window_update(mode, fw, rho, **kw))
+        with library(lib):
+            old = _v_out(fwm._window_update(mode, fw, rho, **kw))
+        res[name] = all(equal(new, old, V_NAMES).values())
+    return res
+
+
+def slide_results(lib, slides) -> list:
+    """On each recorded slide's inputs: V's slide_oldest,
+    slide_second_newest and mode 3 with the byte set and clear."""
+    return [v_modes(lib, fw, rho, x) for fw, rho, x in slides]
+
+
+def edge_results(lib, dev) -> list:
+    """V in every mode and T with and without ``uninit`` on each of
+    ``checks.edge_window``'s windows."""
+    from ground_fusion2_tpu_torch.vio import feature_window as fwm
+    res = []
+    for F_, W_ in checks.EDGE_SHAPES:
+        e = checks.edge_inputs(checks.edge_window(0, F_, W_), dev)
+        r = v_modes(lib, e["fw"], e["rho"], e["x"], e["obs"], e["col"])
+        for label, un in (("T", e["uninit"]), ("T without uninit", None)):
+            new = fwm._triangulate_cuda(e["fw"], e["x"], e["rho"], un)
+            with library(lib):
+                old = fwm._triangulate_cuda(e["fw"], e["x"], e["rho"], un)
+            r[label] = all(equal(new, old, T_NAMES).values())
+        res.append(r)
+        print(json.dumps(dict(kernel="window_update, triangulate",
+                              window=f"edge F = {F_}, W = {W_}", equal=r)),
+              flush=True)
+    return res
+
+
 def _flat(res) -> list:
     state, sw, head = res
     return [t.clone() for t in (*state, *sw, head)]
@@ -1006,7 +1118,9 @@ def main(parent: str) -> int:
     lib = build_parent(Path(parent))
     steps = {k: [] for k in ("phase 4", "phase 8", "phase 10", "phase 19")}
     am = {k: [] for k in ("phase 5", "phase 8")}
-    with step_fold_watch(lib, steps["phase 4"]):
+    fw_calls = {k: {} for k in ("phase 4", "phase 8")}
+    with step_fold_watch(lib, steps["phase 4"]), \
+            fw_watch(lib, fw_calls["phase 4"]):
         rec = record_drive(lib, dev)
     ok = True
     for mode in (0, 1):
@@ -1018,7 +1132,8 @@ def main(parent: str) -> int:
     with am_watch(lib, am["phase 5"]):
         lidar = record_lidar(lib, dev)
     ok &= compare_lidar_drive(lib, lidar)
-    with step_fold_watch(lib, steps["phase 8"]), am_watch(lib, am["phase 8"]):
+    with step_fold_watch(lib, steps["phase 8"]), \
+            am_watch(lib, am["phase 8"]), fw_watch(lib, fw_calls["phase 8"]):
         sys_calls = record_system(lib, dev)
     ok &= compare_preint(lib, sys_calls, "phase 8")
     ok &= _tally("preint with the square-root informations (every "
@@ -1031,6 +1146,20 @@ def main(parent: str) -> int:
     for phase in ("phase 5", "phase 8"):
         ok &= _tally(f"lio_update (AM, every call of {phase}'s drive)",
                      am_results(am[phase]))
+    for phase, got in fw_calls.items():
+        for mode, what in ((0, "add_frame"), (3, "the tick's slide")):
+            ok &= _tally(f"window_update mode {mode}, {what} (V, every "
+                         f"call of {phase}'s drive)",
+                         fw_results(got.get(f"V mode {mode}", []), V_NAMES))
+        for kind in ("T", "T without uninit"):
+            ok &= _tally(f"triangulate, {kind} (every call of {phase}'s "
+                         f"drive)", fw_results(got.get(kind, []), T_NAMES))
+        ok &= _tally(f"window_update modes 1, 2, 3 set and clear (V, on "
+                     f"every slide's inputs of {phase}'s drive)",
+                     slide_results(lib, got.get("slides", [])))
+    ok &= _tally("window_update in every mode, triangulate with and without "
+                 "uninit (V, T, checks.edge_window's windows)",
+                 edge_results(lib, dev))
     cfg = m3dgr_camera()
     vcfg = cfg.estimator.vio
 

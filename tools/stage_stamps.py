@@ -1,7 +1,8 @@
 """A kernel's source built with its stage stamps (``csrc/stage_stamps.cuh``,
 ``-DGF2_STAGE_STAMPS``) and the stamps read back after a call; shared by
 ``tools/window_cost_stages.py``, ``tools/ransac_stages.py`` and
-``tools/lio_stages.py``, ``tools/camera_stages.py``. Needs nvcc
+``tools/lio_stages.py``, ``tools/camera_stages.py`` and
+``tools/feature_window_stages.py``. Needs nvcc
 (sm_90a) and a CUDA card; builds under ``build/stages/``."""
 
 from __future__ import annotations
@@ -16,7 +17,8 @@ from ground_fusion2_tpu_torch import _kernels
 
 OUT = _kernels.BUILD_DIR.parent / "stages"
 UNITS, STAMPS = 512, 12          # stage_stamps.cuh's kStampUnits, kStamps
-LAP_TAGS = 16                    # and kLapTags
+LAP_TAGS = 16                    # kLapTags
+COUNT_SLOTS, COUNT_ITEMS = 4, 4096   # and kCountSlots, kCountItems
 
 
 def build(csrc: Path, source: str, tag: str, entry: str, text: str | None = None,
@@ -71,6 +73,14 @@ def laps(lib) -> dict:
     return {u: {t: tuple(int(v) for v in acc[u, t])
                 for t in range(LAP_TAGS) if acc[u, t, 2] > 0}
             for u in range(UNITS) if acc[u, :, 2].any()}
+
+
+def counts(lib) -> np.ndarray:
+    """GF2_COUNT's integers [slot, item] since the last reset."""
+    cnt = np.zeros((COUNT_SLOTS, COUNT_ITEMS), np.uint32)
+    _kernels.check(lib.gf2_count_read(cnt.ctypes.data_as(ctypes.c_void_p)),
+                   "gf2_count_read")
+    return cnt
 
 
 def card() -> str:

@@ -18,7 +18,7 @@ split goes to ``DIR/tick_split_<TAG>_<i>.json`` and its printout to
 ``DIR/tick_split_<TAG>_<i>.log`` (DIR default ``out``); the last line
 printed is the list of {tag, median tick ms, device ms a tick, launches a
 tick, the launches and device ms a tick of kernels H, Y's square-root
-informations, S and AN, syncs a tick, the LiDAR tick's launches and device
+informations, S, AN, V, T, AJ and AL, syncs a tick, the LiDAR tick's launches and device
 ms in phases 5 and 8, and phases 5's and 8's summary lines up to their
 launch counts}. A tree whose
 camera tick launches Y's square-root informations and AN's step on their
@@ -112,7 +112,8 @@ def one(root: str, tag: str, index: int, out_dir: str) -> dict:
     by_kernel = {g: dict(launches=sum(n.get(k, 0) for k in
                                       cs.KERNEL_GROUPS[g]),
                          device_ms=got.get("by_kernel_ms_per_tick", {})
-                         .get(g)) for g in ("H", "Y sqrt_info", "S", "AN")}
+                         .get(g)) for g in ("H", "Y sqrt_info", "S", "AN",
+                                            "V", "T", "AJ", "AL")}
     out = dict(tag=tag, root=root, error=err, median_tick_ms=median,
                device_ms_per_tick=got.get("device_ms_per_tick"),
                launches_per_tick=got.get("launches_per_tick"),

@@ -92,6 +92,13 @@ class _WithScratch:
 
 def phase4_window(dev):
     """FusedVio over phase 4's drive: (fw, state, statics, interval)."""
+    fv = phase4_fused(dev)
+    fw, st, _, interval = checks.window_stage_inputs(fv)
+    return fw, st, fv.statics, interval
+
+
+def phase4_fused(dev):
+    """FusedVio after phase 4's drive."""
     import chip_smoke
     from ground_fusion2_tpu_torch.config import m3dgr_camera
     from ground_fusion2_tpu_torch.core.cameras import Pinhole
@@ -103,8 +110,7 @@ def phase4_window(dev):
     for f in checks.room_drive(chip_smoke.CAM_FRAMES):
         fv.process_image(f["t"], f["gray"], f["depth"], f["imu"],
                          wheel_vel=f["wheel"])
-    fw, st, _, interval = checks.window_stage_inputs(fv)
-    return fw, st, fv.statics, interval
+    return fv
 
 
 def main(dirs) -> int:
